@@ -25,6 +25,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: spawns subprocesses / long-running integration tests"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)"
+    )
 
 
 @pytest.fixture(autouse=True, scope="module")
