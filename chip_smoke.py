@@ -10,13 +10,17 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              checkout (one nvcc).
 3. kernels — every kernel against its plain PyTorch version on the card, at
              Llama-2-7B attention shapes (plus GQA, softcap and ragged-length
-             cases); bf16 within atol = rtol = 2e-2 of the plain version
-             computed in float32 from the same bf16 inputs, float32 within
-             atol 1e-4. Times each kernel, its plain version and, where one
-             PyTorch call computes the same function, that call (device
-             time from CUDA events around back-to-back calls queued behind
-             a spin kernel, so the host's launch work is not in it), at the
-             shapes of the full-width run.
+             cases, and the scoring kernel's edge cases: odd S, query lengths
+             1/64/130/576, prefix lengths 0/1/63/64/65/130/513, MQA, fp16,
+             hd 64, and NaN in every K/V row past a source's limit); bf16 and
+             fp16 within atol = rtol = 2e-2 of the plain version computed in
+             float32 from the same inputs, float32 within atol 1e-4. Times
+             each kernel, its plain version and its library yardstick (one
+             SDPA call on KV concatenated beforehand) at the shapes of the
+             full-width run, and the scoring kernels and their yardsticks at
+             a 4096-token prefix (device time from CUDA events around
+             back-to-back calls queued behind a spin kernel, so the host's
+             launch work is not in it).
 4. cross   — a reduced-width float32 checkpoint through the port's CLI on
              the card and on the CPU: scores within atol 1e-4 and identical
              greedy tokens, for the re-scoring loop and for --kv_cache.
@@ -37,6 +41,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -140,22 +145,38 @@ def phase_build() -> None:
     from flexible_llm_sharding_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.library()
+    lib = cuda_build.library()
     log(f"[build] {cuda_build.SOURCE.name} built and loaded in {time.perf_counter() - t0:.3f} s")
+    # Registers, stack and local memory (spills) of every kernel, as built.
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("[build] cuobjdump not found: resource usage not read")
+        return
+    usage = subprocess.run([tool, "--dump-resource-usage", lib._name], capture_output=True,
+                           text=True).stdout.splitlines()
+    for name, res in zip(usage, usage[1:]):
+        kernel = re.search(r"(score_tc_kernel|score_kernel_f32|decode_kernel)I(\w+?)EEEv", name)
+        if kernel:
+            targs = ", ".join(a if a.isdigit() else re.sub(r"^\d+", "", a)  # drop name lengths
+                              for a in kernel.group(2).split("Li") if a)
+            log(f"[build] {kernel.group(1)}<{targs}>: {' '.join(res.split()[:5])}")
 
 
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _inputs(case: dict, dtype, gen: torch.Generator):
+def _inputs(case: dict, dtype, gen: torch.Generator, fill_past_limits=None):
+    """Random inputs of ``case``. With ``fill_past_limits`` set, the K/V rows
+    no query can see (prefix rows at or past prefix_len, suffix rows past
+    eos, generated rows past t) hold that value."""
     b, s, nq, nkv, hd = case["B"], case["S"], case["nq"], case["nkv"], case["hd"]
     lp, ls, tg = case["Lp"], case["Ls"], case["T"]
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    return {
+    x = {
         "q_prefix": rnd(b, lp, nq, hd), "kp": rnd(b, lp, nkv, hd), "vp": rnd(b, lp, nkv, hd),
         "q_suffix": rnd(b, s, ls, nq, hd), "ks": rnd(b, s, ls, nkv, hd),
         "vs": rnd(b, s, ls, nkv, hd), "q_dec": rnd(b, s, 1, nq, hd),
@@ -164,6 +185,96 @@ def _inputs(case: dict, dtype, gen: torch.Generator):
         "eos": torch.tensor(case["eos"], dtype=torch.int32, device="cuda"),
         "t": case["t"],
     }
+    if fill_past_limits is not None:
+        for name, past in _past_limits(x).items():
+            x[name] = x[name].masked_fill(past[..., None, None], fill_past_limits)
+    return x
+
+
+def _past_limits(x: dict) -> dict[str, torch.Tensor]:
+    """Per K/V tensor, the rows (bool, over its leading dims) past every
+    query's limit in the decode form."""
+    lp, ls, tg = x["kp"].shape[1], x["ks"].shape[2], x["kg"].shape[2]
+    dev = x["kp"].device
+    prefix = torch.arange(lp, device=dev)[None, :] >= x["plen"][:, None]
+    suffix = torch.arange(ls, device=dev)[None, None, :] > x["eos"][..., None]
+    gen = (torch.arange(tg, device=dev) > x["t"]).expand(*x["kg"].shape[:3])
+    return {"kp": prefix, "vp": prefix, "ks": suffix, "vs": suffix, "kg": gen, "vg": gen}
+
+
+# ---------------------------------------------------------------------------
+# Library yardsticks: one SDPA call computing each kernel's function. The
+# KV a query sees is concatenated here, before any timing, so the timed call
+# is the attention alone. Every query row must see at least one key (SDPA
+# gives NaN where the kernels write 0).
+# ---------------------------------------------------------------------------
+
+def _sdpa_args(q, k, v, mask) -> dict:
+    """q [N, Lq, n_q, hd], k/v [N, Lk, n_kv, hd], mask [N, Lq, Lk] -> the
+    keyword arguments of ``scaled_dot_product_attention``."""
+    return {"query": q.transpose(1, 2), "key": k.transpose(1, 2), "value": v.transpose(1, 2),
+            "attn_mask": mask[:, None], "enable_gqa": q.shape[2] != k.shape[2]}
+
+
+def yardstick_causal(q, k, v, valid_len) -> dict:
+    """flash_causal_attention: query i sees keys j <= i with j < valid_len[b]."""
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = (i[None, :] <= i[:, None])[None] & (i[None, None, :] < valid_len[:, None, None])
+    return _sdpa_args(q, k, v, mask)
+
+
+def yardstick_prefix_shared(q, k_prefix, v_prefix, k_suffix, v_suffix, prefix_len) -> dict:
+    """flash_prefix_shared_attention: the queries of every (b, s) over
+    [prefix KV expanded over S ; own suffix KV]; prefix key j < prefix_len[b],
+    own key j <= i."""
+    b, s, ls = q.shape[:3]
+    lp = k_prefix.shape[1]
+    dev = q.device
+
+    def cat(prefix, suffix):
+        return torch.cat([prefix[:, None].expand(b, s, *prefix.shape[1:]), suffix], 2).flatten(0, 1)
+
+    j = torch.arange(lp + ls, device=dev)[None, None, :]
+    i = torch.arange(ls, device=dev)[None, :, None]
+    mask = torch.where(j < lp, j < prefix_len[:, None, None], j - lp <= i)  # [B, Ls, Lp+Ls]
+    mask = mask[:, None].expand(b, s, ls, lp + ls).flatten(0, 1)
+    return _sdpa_args(q.flatten(0, 1), cat(k_prefix, k_suffix), cat(v_prefix, v_suffix), mask)
+
+
+def yardstick_decode(q, k_prefix, v_prefix, k_suffix, v_suffix, k_gen, v_gen, prefix_len,
+                     suffix_eos, t) -> dict:
+    """flash_decode_attention: each suffix's new token over [prefix ; own
+    suffix ; own generated] KV; prefix key j < prefix_len[b], suffix key
+    j <= suffix_eos[b, s], generated key j <= t."""
+    b, s = q.shape[:2]
+    lp, ls, tg = k_prefix.shape[1], k_suffix.shape[2], k_gen.shape[2]
+    dev = q.device
+
+    def cat(prefix, suffix, gen):
+        return torch.cat([prefix[:, None].expand(b, s, *prefix.shape[1:]), suffix, gen],
+                         2).flatten(0, 1)
+
+    mask = torch.cat([
+        (torch.arange(lp, device=dev)[None, :] < prefix_len[:, None])[:, None].expand(b, s, lp),
+        torch.arange(ls, device=dev)[None, None, :] <= suffix_eos[..., None],
+        (torch.arange(tg, device=dev) <= t).expand(b, s, tg),
+    ], -1).flatten(0, 1)[:, None]  # [B*S, 1, Lp+Ls+T]
+    return _sdpa_args(q.flatten(0, 1), cat(k_prefix, k_suffix, k_gen),
+                      cat(v_prefix, v_suffix, v_gen), mask)
+
+
+YARDSTICKS = {
+    "flash_causal_attention": yardstick_causal,
+    "flash_prefix_shared_attention": yardstick_prefix_shared,
+    "flash_decode_attention": yardstick_decode,
+}
+
+
+def run_yardstick(args: dict, like: torch.Tensor) -> torch.Tensor:
+    """The SDPA call on ``args``, back in the kernel's output layout ``like``."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(**args).transpose(1, 2).reshape(like.shape)
 
 
 def _calls(x: dict, softcap):
@@ -183,14 +294,28 @@ def _f32(args):
     return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
 
 
-def check_case(name: str, case: dict, dtype, gen) -> dict[str, float]:
+def check_case(name: str, case: dict, dtype, gen, nan_past_limits: bool = False) -> dict[str, float]:
+    """Every kernel against its plain version on the same inputs. With
+    ``nan_past_limits`` the kernels get K/V rows that no query may see filled
+    with NaN, and the plain versions the same rows as zeros."""
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
     atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (2e-2, 2e-2)
-    x = _inputs(case, dtype, gen)
+    x = _inputs(case, dtype, gen, fill_past_limits=0.0 if nan_past_limits else None)
+    calls = _calls(x, case.get("softcap"))
+    if nan_past_limits:
+        # The scoring kernels see every suffix row, so only decode gets NaN there.
+        nan = {k: x[k].masked_fill(m[..., None, None], float("nan"))
+               for k, m in _past_limits(x).items()}
+        scoring = {**x, "kp": nan["kp"], "vp": nan["vp"]}
+        fed = {**_calls(scoring, case.get("softcap")),
+               "flash_decode_attention": _calls({**x, **nan}, case.get("softcap"))[
+                   "flash_decode_attention"]}
+    else:
+        fed = calls
     errs = {}
-    for kernel, (args, kw) in _calls(x, case.get("softcap")).items():
-        got = getattr(fa, kernel)(*args, **kw)
+    for kernel, (args, kw) in calls.items():
+        got = getattr(fa, kernel)(*fed[kernel][0], **kw)
         torch.cuda.synchronize()
         want = fa.PLAIN[kernel](*_f32(args), **kw)
         if not torch.isfinite(got).all():
@@ -270,7 +395,8 @@ def _bounds(case: dict) -> dict[str, tuple[float, str]]:
 
 
 def time_case(case: dict, gen) -> dict[str, dict]:
-    """Kernel, plain and library times at the main path's shapes (bf16)."""
+    """Kernel, plain and library times at the main path's shapes (bf16). The
+    library time is one SDPA call on inputs its yardstick built beforehand."""
     import torch.nn.functional as F
 
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
@@ -279,29 +405,40 @@ def time_case(case: dict, gen) -> dict[str, dict]:
     bounds = _bounds(case)
     out = {}
     for kernel, (args, kw) in _calls(x, None).items():
+        sdpa = YARDSTICKS[kernel](*args)
         out[kernel] = {
             "ms": _device_ms(lambda: getattr(fa, kernel)(*args, **kw)),
             "plain_ms": _device_ms(lambda: fa.PLAIN[kernel](*args, **kw)),
-            "library_ms": None,
+            "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(**sdpa)),
             "bound_ms": bounds[kernel][0],
             "bound_by": bounds[kernel][1],
         }
-    # One PyTorch call computes the causal kernel's function: SDPA with the
-    # causal-and-valid-length mask. The other two need several calls (the
-    # shared prefix KV concatenated per suffix), so they have no yardstick.
-    lp = case["Lp"]
-    ii = torch.arange(lp, device="cuda")
-    mask = (ii[None, :] <= ii[:, None])[None] & (ii[None, None, :] < x["plen"][:, None, None])
-    mask = mask[:, None]  # [B, 1, L, L]
-    qt, kt, vt = (a.transpose(1, 2) for a in (x["q_prefix"], x["kp"], x["vp"]))
-    gqa = case["nq"] != case["nkv"]
-    out["flash_causal_attention"]["library_ms"] = _device_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
-    )
     for kernel, rec in out.items():
         log(f"[kernels] time {kernel}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-            f"library {rec['library_ms']}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return out
+
+
+def time_long_prefix(gen) -> None:
+    """The two scoring kernels and their SDPA yardsticks at a 4096-token
+    prefix (B = 1, S = 4, Ls = 64, Llama-2-7B heads), where the causal pass
+    is bound by its products."""
+    import torch.nn.functional as F
+
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+    case = {"B": 1, "S": 4, "Ls": 64, "Lp": 4096, "T": 1, "t": 0, "nq": 32, "nkv": 32, "hd": 128,
+            "plen": [4096], "eos": [[63] * 4]}
+    x = _inputs(case, torch.bfloat16, gen)
+    bounds = _bounds(case)
+    for kernel, (args, kw) in _calls(x, None).items():
+        if kernel == "flash_decode_attention":
+            continue
+        sdpa = YARDSTICKS[kernel](*args)
+        ms = _device_ms(lambda: getattr(fa, kernel)(*args, **kw))
+        lib = _device_ms(lambda: F.scaled_dot_product_attention(**sdpa))
+        log(f"[kernels] time {kernel} at a 4096-token prefix: kernel {ms:.4f} ms, "
+            f"library {lib:.4f} ms, bound {bounds[kernel][0]:.4f} ms ({bounds[kernel][1]})")
 
 
 def main_path_case(prompts, n_gen_kv: int) -> dict:
@@ -338,7 +475,25 @@ def phase_kernels(main_case: dict) -> dict[str, dict]:
     check_case("softcap 50", {**base, "softcap": 50.0}, torch.bfloat16, gen)
     check_case("ragged 1000/50/7", case(2, 3, 32, 32, 128, 1000, 50, 7, [999, 61]),
                torch.bfloat16, gen)
+    # Edge cases of the tensor-core kernel: odd S (an idle consumer), query
+    # lengths that are no multiple of its 128-row tile, prefix lengths around
+    # its 64-key tiles, MQA/GQA, fp16, hd 64, softcap, and NaN in every K/V
+    # row past a source's limit.
+    edges = [
+        ("S 1, lq 1, MQA 8/1", case(2, 1, 8, 1, 128, 1, 1, 3, [0, 1]), torch.bfloat16, False),
+        ("S 3, lq 64/130, GQA 4/2, hd 64", case(2, 3, 4, 2, 64, 64, 130, 5, [63, 64]),
+         torch.float16, False),
+        ("S 3, lq 130/64, softcap 30", {**case(2, 3, 32, 8, 128, 130, 64, 5, [65, 130]),
+                                        "softcap": 30.0}, torch.bfloat16, False),
+        ("lq 576, NaN past limits", case(2, 4, 32, 8, 128, 576, 64, 7, [65, 513]),
+         torch.bfloat16, True),
+        ("S 3, lq 130, hd 64, NaN past limits", case(2, 3, 8, 1, 64, 130, 130, 5, [0, 127]),
+         torch.float16, True),
+    ]
+    for name, c, dtype, nan in edges:
+        check_case(name, c, dtype, gen, nan_past_limits=nan)
     errs = check_case("main path", main_case, torch.bfloat16, gen)
+    time_long_prefix(gen)
     timed = time_case(main_case, gen)
     for k in timed:
         timed[k]["max_abs_err"] = errs[k]

@@ -63,6 +63,68 @@ def test_kernels_match_plain(gen, dtype, nq, nkv, hd):
     }
 
 
+def _f32(*a):
+    return tuple(x.float() if x.is_floating_point() else x for x in a)
+
+
+# (S, Lp, Ls, nq, nkv, hd, prefix_len, dtype, softcap): odd S leaves one of
+# the scoring kernel's two consumer warpgroups idle; query lengths 1, 64,
+# 130 and 576 are no multiple of its 128-row causal tile or fill it; prefix
+# lengths sit around its 64-key tiles; MQA, GQA, fp16, hd 64 and softcap.
+EDGES = [
+    (1, 1, 1, 8, 1, 128, [0, 1], torch.bfloat16, None),
+    (3, 64, 130, 4, 2, 64, [63, 64], torch.float16, None),
+    (3, 130, 64, 32, 8, 128, [65, 130], torch.bfloat16, 30.0),
+    (4, 576, 64, 32, 8, 128, [1, 576], torch.float16, None),
+    (1, 576, 576, 8, 1, 64, [0, 513], torch.bfloat16, None),
+]
+
+
+@pytest.mark.parametrize("edge", EDGES, ids=lambda e: f"S{e[0]}-Lp{e[1]}-Ls{e[2]}-{e[3]}/{e[4]}-hd{e[5]}")
+def test_scoring_kernels_edge_cases(gen, edge):
+    s, lp, ls, nq, nkv, hd, plen, dtype, softcap = edge
+    plen = torch.tensor(plen, dtype=torch.int32, device="cuda")
+    q, k, v = (_rnd(gen, dtype, 2, lp, n, hd) for n in (nq, nkv, nkv))
+    qs, ks, vs = (_rnd(gen, dtype, 2, s, ls, n, hd) for n in (nq, nkv, nkv))
+    _close(fa.flash_causal_attention(q, k, v, plen, softcap=softcap),
+           fa.causal_attention_plain(*_f32(q, k, v, plen), softcap=softcap), dtype)
+    _close(fa.flash_prefix_shared_attention(qs, k, v, ks, vs, plen, softcap=softcap),
+           fa.prefix_shared_attention_plain(*_f32(qs, k, v, ks, vs, plen), softcap=softcap), dtype)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128), (torch.float16, 64)])
+def test_nan_past_limits_never_reaches_the_output(gen, dtype, hd):
+    """K/V rows at or past each source's limit filled with NaN: every kernel
+    gives what the plain version gives with those rows zeroed."""
+    b, s, lp, ls, tg, t, nq, nkv = 2, 3, 130, 70, 5, 2, 8, 2
+    plen = torch.tensor([65, 0], dtype=torch.int32, device="cuda")
+    eos = torch.tensor([[0, 69, 12], [5, 6, 7]], dtype=torch.int32, device="cuda")
+    q = _rnd(gen, dtype, b, lp, nq, hd)
+    qs = _rnd(gen, dtype, b, s, ls, nq, hd)
+    qd = _rnd(gen, dtype, b, s, 1, nq, hd)
+    prefix = (torch.arange(lp, device="cuda")[None, :] >= plen[:, None])[..., None, None]
+    suffix = (torch.arange(ls, device="cuda")[None, None, :] > eos[..., None])[..., None, None]
+    gen_past = torch.arange(tg, device="cuda")[None, None, :, None, None] > t
+    kv = {}
+    for name, shape, past in (("p", (b, lp, nkv, hd), prefix), ("s", (b, s, ls, nkv, hd), suffix),
+                              ("g", (b, s, tg, nkv, hd), gen_past)):
+        for kind in "kv":
+            x = _rnd(gen, dtype, *shape).masked_fill(past, 0.0)
+            kv[kind + name] = (x, x.masked_fill(past, float("nan")))
+    zero = {n: x for n, (x, _) in kv.items()}
+    nan = {n: x for n, (_, x) in kv.items()}
+    _close(fa.flash_causal_attention(q, nan["kp"], nan["vp"], plen),
+           fa.causal_attention_plain(*_f32(q, zero["kp"], zero["vp"], plen)), dtype)
+    # Every suffix row is visible to the scoring form, so its suffix KV stays finite.
+    _close(fa.flash_prefix_shared_attention(qs, nan["kp"], nan["vp"], zero["ks"], zero["vs"], plen),
+           fa.prefix_shared_attention_plain(*_f32(qs, zero["kp"], zero["vp"], zero["ks"],
+                                                  zero["vs"], plen)), dtype)
+    _close(fa.flash_decode_attention(qd, *(nan[n] for n in ("kp", "vp", "ks", "vs", "kg", "vg")),
+                                     plen, eos, t),
+           fa.decode_attention_plain(*_f32(qd, *(zero[n] for n in ("kp", "vp", "ks", "vs", "kg", "vg"))),
+                                     plen, eos, t), dtype)
+
+
 def test_zero_valid_length_rows_are_zero(gen):
     q = _rnd(gen, torch.bfloat16, 1, 64, 2, 64)
     out = fa.flash_causal_attention(q, q, q, torch.zeros(1, dtype=torch.int32, device="cuda"))

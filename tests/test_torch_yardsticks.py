@@ -1,0 +1,62 @@
+"""chip_smoke.py's library yardsticks compute their kernels' functions.
+
+Each kernel's ``library_ms`` times one ``scaled_dot_product_attention`` call
+on inputs its yardstick builds (the KV a query sees concatenated, a bool
+mask). Here, on the CPU in float32, each yardstick's output equals the
+kernel's plain version on the same seeded inputs at small, ragged sizes,
+within atol 1e-5 (float32 summation order).
+"""
+
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+_SMOKE = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+_spec = importlib.util.spec_from_file_location("chip_smoke", _SMOKE)
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+B, S, LP, LS, T, HD = 2, 3, 19, 10, 4, 64
+
+
+def _inputs(nq: int, nkv: int) -> dict:
+    rng = np.random.default_rng(7)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    return {
+        "q_prefix": rnd(B, LP, nq, HD), "kp": rnd(B, LP, nkv, HD), "vp": rnd(B, LP, nkv, HD),
+        "q_suffix": rnd(B, S, LS, nq, HD), "ks": rnd(B, S, LS, nkv, HD),
+        "vs": rnd(B, S, LS, nkv, HD), "q_dec": rnd(B, S, 1, nq, HD),
+        "kg": rnd(B, S, T, nkv, HD), "vg": rnd(B, S, T, nkv, HD),
+        "plen": torch.tensor([7, LP], dtype=torch.int32),
+        "eos": torch.tensor([[0, 4, 9], [3, 9, 1]], dtype=torch.int32),
+        "t": 2,
+    }
+
+
+@pytest.mark.parametrize("nq,nkv", [(4, 2), (4, 4)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("kernel", fa.KERNELS)
+def test_yardstick_equals_plain_version(kernel, nq, nkv):
+    args, kw = chip_smoke._calls(_inputs(nq, nkv), None)[kernel]
+    want = fa.PLAIN[kernel](*args, **kw)
+    sdpa = chip_smoke.YARDSTICKS[kernel](*args)
+    assert sdpa["enable_gqa"] == (nq != nkv)
+    got = chip_smoke.run_yardstick(sdpa, want)
+    assert got.shape == want.shape
+    assert torch.allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_past_limit_rows_match_the_decode_limits():
+    x = _inputs(4, 2)
+    past = chip_smoke._past_limits(x)
+    assert past["kp"].tolist()[0] == [j >= 7 for j in range(LP)]
+    assert not past["kp"][1].any()
+    assert past["ks"][1, 2].tolist() == [j > 1 for j in range(LS)]
+    assert past["kg"][0, 0].tolist() == [j > 2 for j in range(T)]
