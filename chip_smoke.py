@@ -10,17 +10,20 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              checkout (one nvcc).
 3. kernels — every kernel against its plain PyTorch version on the card, at
              Llama-2-7B attention shapes (plus GQA, softcap and ragged-length
-             cases, and the scoring kernel's edge cases: odd S, query lengths
+             cases; the scoring kernel's edge cases: odd S, query lengths
              1/64/130/576, prefix lengths 0/1/63/64/65/130/513, MQA, fp16,
-             hd 64, and NaN in every K/V row past a source's limit); bf16 and
-             fp16 within atol = rtol = 2e-2 of the plain version computed in
-             float32 from the same inputs, float32 within atol 1e-4. Times
-             each kernel, its plain version and its library yardstick (one
-             SDPA call on KV concatenated beforehand) at the shapes of the
-             full-width run, and the scoring kernels and their yardsticks at
-             a 4096-token prefix (device time from CUDA events around
-             back-to-back calls queued behind a spin kernel, so the host's
-             launch work is not in it).
+             hd 64; the decode kernel's: S*g above its 16 rows per block,
+             S 1, prefix lengths 0/1/63/64/65/130, eos 0 and Ls-1, t 0 and
+             T-1, hd 64 fp16, float32, softcap; each with and without NaN in
+             every K/V row past a source's limit); bf16 and fp16 within
+             atol = rtol = 2e-2 of the plain version computed in float32
+             from the same inputs, float32 within atol 1e-4. Times each
+             kernel, its plain version and its library yardstick (one SDPA
+             call on KV concatenated beforehand) at the shapes of the
+             full-width run, and every kernel and its yardstick at a
+             4096-token prefix with one prompt (device time from CUDA events
+             around back-to-back calls queued behind a spin kernel, so the
+             host's launch work is not in it).
 4. cross   — a reduced-width float32 checkpoint through the port's CLI on
              the card and on the CPU: scores within atol 1e-4 and identical
              greedy tokens, for the re-scoring loop and for --kv_cache.
@@ -155,7 +158,7 @@ def phase_build() -> None:
     usage = subprocess.run([tool, "--dump-resource-usage", lib._name], capture_output=True,
                            text=True).stdout.splitlines()
     for name, res in zip(usage, usage[1:]):
-        kernel = re.search(r"(score_tc_kernel|score_kernel_f32|decode_kernel)I(\w+?)EEEv", name)
+        kernel = re.search(r"(score_tc_kernel|score_kernel_f32|decode_rows_kernel)I(\w+?)EEEv", name)
         if kernel:
             targs = ", ".join(a if a.isdigit() else re.sub(r"^\d+", "", a)  # drop name lengths
                               for a in kernel.group(2).split("Li") if a)
@@ -294,10 +297,12 @@ def _f32(args):
     return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
 
 
-def check_case(name: str, case: dict, dtype, gen, nan_past_limits: bool = False) -> dict[str, float]:
-    """Every kernel against its plain version on the same inputs. With
-    ``nan_past_limits`` the kernels get K/V rows that no query may see filled
-    with NaN, and the plain versions the same rows as zeros."""
+def check_case(name: str, case: dict, dtype, gen, nan_past_limits: bool = False,
+               kernels=None) -> dict[str, float]:
+    """Every kernel (or those named in ``kernels``) against its plain version
+    on the same inputs. With ``nan_past_limits`` the kernels get K/V rows
+    that no query may see filled with NaN, and the plain versions the same
+    rows as zeros."""
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
     atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (2e-2, 2e-2)
@@ -315,6 +320,8 @@ def check_case(name: str, case: dict, dtype, gen, nan_past_limits: bool = False)
         fed = calls
     errs = {}
     for kernel, (args, kw) in calls.items():
+        if kernels is not None and kernel not in kernels:
+            continue
         got = getattr(fa, kernel)(*fed[kernel][0], **kw)
         torch.cuda.synchronize()
         want = fa.PLAIN[kernel](*_f32(args), **kw)
@@ -420,9 +427,9 @@ def time_case(case: dict, gen) -> dict[str, dict]:
 
 
 def time_long_prefix(gen) -> None:
-    """The two scoring kernels and their SDPA yardsticks at a 4096-token
-    prefix (B = 1, S = 4, Ls = 64, Llama-2-7B heads), where the causal pass
-    is bound by its products."""
+    """Every kernel and its SDPA yardstick at a 4096-token prefix (B = 1,
+    S = 4, Ls = 64, Llama-2-7B heads), where the causal pass is bound by its
+    products and decode has only B * n_kv = 32 blocks for the card's SMs."""
     import torch.nn.functional as F
 
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
@@ -432,8 +439,6 @@ def time_long_prefix(gen) -> None:
     x = _inputs(case, torch.bfloat16, gen)
     bounds = _bounds(case)
     for kernel, (args, kw) in _calls(x, None).items():
-        if kernel == "flash_decode_attention":
-            continue
         sdpa = YARDSTICKS[kernel](*args)
         ms = _device_ms(lambda: getattr(fa, kernel)(*args, **kw))
         lib = _device_ms(lambda: F.scaled_dot_product_attention(**sdpa))
@@ -492,6 +497,32 @@ def phase_kernels(main_case: dict) -> dict[str, dict]:
     ]
     for name, c, dtype, nan in edges:
         check_case(name, c, dtype, gen, nan_past_limits=nan)
+    # Edge cases of the decode kernel (16 query rows per block, 64-key
+    # tiles): S*g above 16, so a KV head's rows span several blocks (and a
+    # suffix two blocks), S 1, prefix lengths around its tiles, eos 0 and
+    # Ls-1, t 0 and T-1, Lp 130, hd 64 fp16, float32 and softcap; each with
+    # and without NaN in every K/V row past a source's limit.
+    def dcase(s, nq, nkv, hd, tg, t, plen, eos, softcap=None):
+        return {**case(2, s, nq, nkv, hd, 130, 64, tg, plen, softcap), "t": t, "eos": eos}
+
+    decode_edges = [
+        ("S 5, GQA 32/4", dcase(5, 32, 4, 128, 5, 4, [130, 65], [[0, 63, 9, 31, 62], [5, 0, 63, 1, 40]]),
+         torch.bfloat16),
+        ("S 3, MQA 8/1", dcase(3, 8, 1, 128, 5, 0, [64, 63], [[63, 0, 12], [5, 6, 7]]), torch.bfloat16),
+        ("S 7, GQA 12/4", dcase(7, 12, 4, 128, 3, 1, [65, 130], [[i * 9 for i in range(7)]] * 2),
+         torch.bfloat16),
+        ("S 2, MQA 32/1", dcase(2, 32, 1, 128, 4, 3, [1, 0], [[0, 63], [63, 31]]), torch.bfloat16),
+        ("S 1", dcase(1, 32, 32, 128, 5, 2, [0, 1], [[0], [63]]), torch.bfloat16),
+        ("S 4, hd 64", dcase(4, 8, 2, 64, 5, 4, [0, 130], [[0, 63, 20, 33], [63, 0, 1, 2]]),
+         torch.float16),
+        ("S 3, GQA 8/4", dcase(3, 8, 4, 128, 5, 0, [65, 64], [[0, 63, 17], [31, 32, 0]]), torch.float32),
+        ("S 4, softcap 30", dcase(4, 32, 8, 128, 5, 4, [63, 130], [[0, 63, 5, 6], [7, 8, 63, 0]], 30.0),
+         torch.bfloat16),
+    ]
+    for name, c, dtype in decode_edges:
+        for nan in (False, True):
+            check_case(f"{name}{', NaN past limits' if nan else ''}", c, dtype, gen,
+                       nan_past_limits=nan, kernels=("flash_decode_attention",))
     errs = check_case("main path", main_case, torch.bfloat16, gen)
     time_long_prefix(gen)
     timed = time_case(main_case, gen)

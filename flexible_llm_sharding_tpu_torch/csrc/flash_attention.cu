@@ -7,7 +7,7 @@
 //                                                   (_causal_kernel)
 //   score_tc_kernel (bf16/fp16), two KV sources  <- flash_prefix_shared_attention
 //                                                   (_prefix_shared_kernel)
-//   decode_kernel                                <- flash_decode_attention
+//   decode_rows_kernel (all dtypes)              <- flash_decode_attention
 //                                                   (_decode_kernel)
 //   score_kernel_f32: the float32 form of the first two (FMA products), the
 //   path of the float32 card-vs-CPU cross-check, not of the bf16 main path.
@@ -59,13 +59,38 @@
 //   - Tiles past the limit and above the diagonal are never loaded. The
 //     tile loop starts at an explicit index (0 today), where a sliding
 //     window or chunk adds its start bound.
-// * Decode. One new token per suffix: 2 products per key against one key
-//   row of K and V each, so it is bound by the bytes of the KV it reads.
-//   One block per (batch, suffix, KV head, group of <= 8 query heads) reads
-//   each KV tile once for all query heads of its group (GQA), reads only the
-//   tiles a suffix can see (prefix tiles up to prefix_len, suffix tiles up
-//   to its eos, generated tiles up to t), with 16-byte global loads. Products
-//   are FMA loops; at one query row per head the tensor cores would idle.
+// * Decode. One new token per suffix: 4*hd FLOPs per visible key against
+//   4*hd bytes of K and V (bf16), about one FLOP per byte, so on the H100
+//   (295 bf16 FLOPs per byte of HBM) it is bound by the bytes of the KV it
+//   reads, and most of those are the shared prefix. The design reads each
+//   byte once and keeps loads in flight:
+//   - One block per (prompt, KV head, chunk of <= kDecodeRows query rows).
+//     A block's rows are the (suffix, query head) pairs of its KV head,
+//     suffix-major, so every suffix of a prompt and every query head of a
+//     GQA group shares one read of each prefix tile. Only where S*g exceeds
+//     kDecodeRows does the prefix go through several blocks (one per chunk).
+//   - The block walks one flat list of 64-key tiles: the prefix tiles up to
+//     prefix_len (updating every row), then per suffix its own tiles up to
+//     eos + 1 and its generated tiles up to t + 1 (updating that suffix's
+//     rows only). A cp.async ring of kStages stages runs along that list,
+//     so the next source's first tile is in flight while the current one's
+//     last tile is computed. Rows at or past a source's limit are
+//     zero-filled by the copy itself (src-size 0): NaN there never reaches
+//     PV, and rows past the tensor's end are never addressed. K/V rows are
+//     stored unpadded with 16-byte chunks XOR-swizzled by the row, so the
+//     reads below hit distinct banks.
+//   - Products: bf16/fp16 on the tensor cores with mma.sync m16n8k16, the
+//     block's rows padded to one m16 tile (with FMA the products, not the
+//     loads, set the time). Each warp takes 16 keys of a tile: Q stays in
+//     registers, K and V come by ldmatrix, the scores stay in registers and
+//     become PV's A fragment; the warps exchange only each tile's row maxima
+//     and sum their l and O at the end. Float32 (the cross-check's path)
+//     keeps FMA products, which the tensor cores would round to TF32. The
+//     key-limit mask runs only on a source's last tile.
+//   - No split-KV: at the main path's shapes B*n_kv = 256 blocks already
+//     fill the 132 SMs (two resident per SM). It pays only where B*n_kv is
+//     small against the SM count (one prompt with a long prefix), and needs
+//     a combine pass.
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream and returns cudaGetLastError(). The TMA descriptors are encoded on
@@ -88,7 +113,6 @@ namespace {
 constexpr float kNegInf = -0.7f * FLT_MAX;  // the JAX package's _NEG_INF
 constexpr int kTile = 64;                    // queries / keys per tile of the FMA kernels
 constexpr int kScoreThreads = 128;           // float32 scoring: 4 warps, 16 query rows each
-constexpr int kDecodeGroup = 8;              // query heads per decode block
 
 constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
@@ -965,8 +989,14 @@ cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream)
 }
 
 // ---------------------------------------------------------------------------
-// Decode kernel: one new token per (batch, suffix), three sources
+// Decode kernel: one new token per suffix over three KV sources; one block
+// per (prompt, KV head, chunk of query rows), a cp.async K/V ring
 // ---------------------------------------------------------------------------
+
+constexpr int kDecodeRows = 16;                    // query rows (suffix, query head) per block
+constexpr int kDecodeThreads = 128;                // 4 warps; warp w owns keys 16w..16w+15 of a tile
+constexpr int kDecodeWarps = kDecodeThreads / 32;
+constexpr int kDecodeSegs = 1 + 2 * kDecodeRows;  // the prefix, then own and generated KV per suffix
 
 struct DecodeParams {
   const void* q;  // [B, S, n_q, HD]
@@ -974,151 +1004,571 @@ struct DecodeParams {
   int n_s;
   int n_q;
   int n_kv;
-  int n_groups;  // ceil(g / kDecodeGroup) blocks per KV head
+  int n_chunks;  // blocks per (prompt, KV head): ceil(S * g / kDecodeRows)
   float scale;
   float softcap;
-  Source src[3];
+  Source src[3];  // prefix, own suffix, generated
 };
 
+// The block's rows: query rows r0 .. r0 + nrow - 1 of KV head kvh of prompt
+// b, where query row r is suffix r / g, query head kvh * g + r % g.
+struct DecodeBlock {
+  int b;
+  int kvh;
+  int g;
+  int r0;
+  int nrow;
+  int n_s;
+  int n_q;
+  int n_seg;
+  long long row_stride;  // K/V elements between consecutive keys
+
+  // Element offset of block row i in q and o (head dim hd).
+  __device__ __forceinline__ long long row_offset(int i, int hd) const {
+    const int r = r0 + i;
+    return ((long long)(b * n_s + r / g) * n_q + kvh * g + r % g) * hd;
+  }
+};
+
+// One stretch of a block's walk: keys [0, limit) of one source for one
+// suffix (for the prefix, of the prompt), updating the block's rows
+// [ra, rb).
+struct DecodeSeg {
+  const void* k;  // key 0 of the stretch at the block's KV head
+  const void* v;
+  int limit;
+  int ra;
+  int rb;
+};
+
+// Shared memory: the K/V ring, then the path's scratch (float32: Q rows in
+// fp32, scores/P, per-row m, l and alpha; 16-bit: Q rows in T and per-warp
+// row maxima, double-buffered), then the walk's stretches.
 template <typename T, int HD>
 struct DecodeLayout {
-  static constexpr int KP = std::is_same<T, float>::value ? HD + 1 : HD + 2;  // odd word pitch
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = align128(kQ + sizeof(float) * kDecodeGroup * HD);
-  static constexpr size_t kV = align128(kK + sizeof(T) * kTile * KP);
-  static constexpr size_t kS = align128(kV + sizeof(T) * kTile * KP);
-  static constexpr size_t kStat = align128(kS + sizeof(float) * kDecodeGroup * kTile);
-  static constexpr size_t kBytes = align128(kStat + sizeof(float) * 3 * kDecodeGroup);
+  static constexpr int kRowBytes = HD * (int)sizeof(T);  // one K or V row, unpadded
+  static constexpr int kChunks = kRowBytes / 16;         // 16-byte chunks per row
+  static constexpr int kElems = 16 / (int)sizeof(T);     // elements per chunk
+  static constexpr int kStages = sizeof(T) == 4 ? 2 : 3;
+  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // K then V
+  static constexpr size_t kRing = (size_t)kStages * kStageBytes;
+  static constexpr size_t kScratch = sizeof(T) == 4
+      ? sizeof(float) * kDecodeRows * (HD + kTile + 3)
+      : sizeof(T) * kDecodeRows * HD + sizeof(float) * 2 * kDecodeWarps * kDecodeRows;
+  static constexpr size_t kSeg = align128(kRing + kScratch);
+  static constexpr size_t kBytes = kSeg + sizeof(DecodeSeg) * kDecodeSegs;
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(HD) decode_kernel(const DecodeParams p) {
-  using L = DecodeLayout<T, HD>;
-  constexpr int NT = HD;
-  constexpr int kWarps = NT / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + L::kQ);
-  T* Ks = reinterpret_cast<T*>(smem + L::kK);
-  T* Vs = reinterpret_cast<T*>(smem + L::kV);
-  float* Ss = reinterpret_cast<float*>(smem + L::kS);
-  float* m_s = reinterpret_cast<float*>(smem + L::kStat);
-  float* l_s = m_s + kDecodeGroup;
-  float* a_s = l_s + kDecodeGroup;
+// Byte offset of 16-byte chunk `ch` of row `r` in a K or V tile: the chunk
+// index XOR (r mod 8), so eight rows read at one column, or one row read
+// across eight chunks, hit eight different bank groups.
+__device__ __forceinline__ int swizzled(int r, int ch, int row_bytes) {
+  return r * row_bytes + ((ch ^ (r & 7)) << 4);
+}
 
-  const int g = p.n_q / p.n_kv;
-  const int kvh = blockIdx.x / p.n_groups;
-  const int j0 = (blockIdx.x % p.n_groups) * kDecodeGroup;
-  const int gb = min(kDecodeGroup, g - j0);
-  const int s = blockIdx.y;
-  const int b = blockIdx.z;
+// 16 bytes from global to shared memory, of which the first `src_bytes`
+// (16 or 0) are read and the rest written as zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Tile `tile` of a stretch (K then V, 64 rows each) into a ring stage. Rows
+// at or past the limit are zero-filled without being read; their address is
+// clamped to the last visible row, which exists.
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(uint32_t stage, const DecodeSeg& sg, int tile, long long row_stride) {
+  using L = DecodeLayout<T, HD>;
+  const int k0 = tile * kTile;
+  const int avail = sg.limit - k0;  // >= 1: the walk only visits tiles with a visible key
+#pragma unroll 4
+  for (int c = threadIdx.x; c < 2 * kTile * L::kChunks; c += kDecodeThreads) {
+    const int which = c / (kTile * L::kChunks);
+    const int r = (c / L::kChunks) % kTile;
+    const int ch = c % L::kChunks;
+    const T* base = static_cast<const T*>(which ? sg.v : sg.k);
+    const T* src = base + (long long)(k0 + min(r, avail - 1)) * row_stride + ch * L::kElems;
+    cp_async16(stage + which * L::kTileBytes + swizzled(r, ch, L::kRowBytes), src, r < avail ? 16 : 0);
+  }
+}
+
+// The walk's position: tile `tile` of stretch `seg`; seg == n_seg at the end.
+struct WalkPos {
+  int seg;
+  int tile;
+};
+
+__device__ __forceinline__ void next_tile(WalkPos& w, const DecodeSeg* segs, int n_seg) {
+  ++w.tile;
+  while (w.seg < n_seg && w.tile * kTile >= segs[w.seg].limit) {
+    ++w.seg;
+    w.tile = 0;
+  }
+}
+
+// Walks the block's tiles through a ring of kStages stages, kStages - 1
+// tiles ahead of the compute, calling tile(K/V stage, stretch, visible keys,
+// tile number) once each tile's bytes are in shared memory. One commit group
+// per tile (empty past the walk's end, so the group count stays fixed).
+template <typename T, int HD, class F>
+__device__ __forceinline__ void walk_tiles(const DecodeBlock& blk, const DecodeSeg* segs, unsigned char* smem,
+                                           F&& tile) {
+  using L = DecodeLayout<T, HD>;
+  const uint32_t ring = smem_u32(smem);
+  WalkPos ld = {0, -1};
+  next_tile(ld, segs, blk.n_seg);
+  WalkPos at = ld;
+#pragma unroll
+  for (int i = 0; i < L::kStages - 1; ++i) {
+    if (ld.seg < blk.n_seg) {
+      load_tile<T, HD>(ring + i * L::kStageBytes, segs[ld.seg], ld.tile, blk.row_stride);
+      next_tile(ld, segs, blk.n_seg);
+    }
+    cp_async_commit();
+  }
+  for (int i = 0, stage = 0; at.seg < blk.n_seg; ++i, stage = stage + 1 == L::kStages ? 0 : stage + 1) {
+    cp_async_wait<L::kStages - 2>();  // this thread's copies of tile i have landed
+    __syncthreads();                  // everyone's have, and tile i - 1 is no longer read
+    if (ld.seg < blk.n_seg) {
+      const int free_stage = stage == 0 ? L::kStages - 1 : stage - 1;
+      load_tile<T, HD>(ring + free_stage * L::kStageBytes, segs[ld.seg], ld.tile, blk.row_stride);
+      next_tile(ld, segs, blk.n_seg);
+    }
+    cp_async_commit();
+    const DecodeSeg sg = segs[at.seg];
+    tile(smem + stage * L::kStageBytes, sg, min(kTile, sg.limit - at.tile * kTile), i);
+    next_tile(at, segs, blk.n_seg);
+  }
+  cp_async_wait<0>();
+}
+
+// 16 bytes of float32 as floats / two consecutive float32 elements.
+__device__ __forceinline__ void unpack16(const uint4& raw, float* f) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+
+// Float32: products on the CUDA cores (the tensor cores would round float32
+// to TF32), the path of the float32 card-vs-CPU cross-check. QK^T: each
+// thread owns one key of the tile and half of hd, one shuffle completes the
+// dot; the online softmax runs one warp per row; PV: each thread owns two
+// output dims of a share of the rows.
+template <int HD>
+__device__ __forceinline__ void decode_rows_f32(const DecodeParams& p, const DecodeBlock& blk, const DecodeSeg* segs,
+                                                unsigned char* smem) {
+  using L = DecodeLayout<float, HD>;
+  constexpr int kPairs = HD / 2;                       // PV: one pair of output dims per thread
+  constexpr int kRowGroups = kDecodeThreads / kPairs;  // 2 (hd 128) or 4 (hd 64)
+  constexpr int kOwn = kDecodeRows / kRowGroups;       // rows per PV thread
+  float* Qs = reinterpret_cast<float*>(smem + L::kRing);
+  float* Ss = Qs + kDecodeRows * HD;  // scores, then P
+  float* m_s = Ss + kDecodeRows * kTile;
+  float* l_s = m_s + kDecodeRows;
+  float* a_s = l_s + kDecodeRows;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const long long qoff = ((long long)b * p.n_s + s) * p.n_q * HD + (long long)(kvh * g + j0) * HD;
-  const long long kv_row_stride = (long long)p.n_kv * HD;
 
-  for (int i = tid; i < gb * HD; i += NT) Qs[i] = to_f(static_cast<const T*>(p.q)[qoff + i]);
-  if (tid < kDecodeGroup) {
+  for (int i = tid; i < blk.nrow * HD; i += kDecodeThreads)
+    Qs[i] = static_cast<const float*>(p.q)[blk.row_offset(i / HD, HD) + i % HD];
+  if (tid < kDecodeRows) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
-  float acc[kDecodeGroup];
+  __syncthreads();
+
+  const int key = warp * 16 + (lane & 15);  // QK^T: this thread's key and half of hd
+  const int half = lane >> 4;
+  const int pair = tid % kPairs;  // PV: this thread's output dims 2*pair, 2*pair + 1
+  const int rg = tid / kPairs;    // and rows rg, rg + kRowGroups, ...
+  float2 o[kOwn];
 #pragma unroll
-  for (int j = 0; j < kDecodeGroup; ++j) acc[j] = 0.f;
+  for (int k = 0; k < kOwn; ++k) o[k] = make_float2(0.f, 0.f);
 
-  for (int si = 0; si < 3; ++si) {
-    const Source src = p.src[si];
-    const int limit = source_limit(src, b, s);
-    const int n_tiles = (limit + kTile - 1) / kTile;
-    const T* kbase = static_cast<const T*>(src.k) + b * src.stride_b + s * src.stride_s + kvh * HD;
-    const T* vbase = static_cast<const T*>(src.v) + b * src.stride_b + s * src.stride_s + kvh * HD;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int k0 = t * kTile;
-      __syncthreads();
-      load_rows<T, HD, L::KP, NT>(Ks, kbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
-      load_rows<T, HD, L::KP, NT>(Vs, vbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
-      __syncthreads();
+  walk_tiles<float, HD>(blk, segs, smem, [&](const unsigned char* Kt, const DecodeSeg& sg, int nk, int) {
+    const unsigned char* Vt = Kt + L::kTileBytes;
+    const int ra = sg.ra;
+    const int nr = sg.rb - sg.ra;
 
-      // Scores for every (query head, key) pair of the tile.
-      for (int pair = tid; pair < gb * kTile; pair += NT) {
-        const int j = pair / kTile;
-        const int c = pair % kTile;
-        const float* qj = Qs + j * HD;
-        const T* kc = Ks + c * L::KP;
-        float a = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) a = fmaf(qj[d], to_f(kc[d]), a);
-        Ss[j * kTile + c] = a;
+    // Scores of this thread's key against the stretch's rows (Ss[row - ra]).
+    if (warp * 16 < nk) {
+      float kf[HD / 2];
+#pragma unroll
+      for (int c = 0; c < L::kChunks / 2; ++c)
+        unpack16(*reinterpret_cast<const uint4*>(Kt + swizzled(key, half * (L::kChunks / 2) + c, L::kRowBytes)),
+                 kf + c * L::kElems);
+      for (int r = 0; r < nr; ++r) {
+        const float4* qr = reinterpret_cast<const float4*>(Qs + (ra + r) * HD + half * (HD / 2));
+        float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+        for (int d = 0; d < HD / 8; d += 2) {
+          const float4 x = qr[d];
+          const float4 y = qr[d + 1];
+          a0 = fmaf(x.x, kf[4 * d], a0);
+          a0 = fmaf(x.y, kf[4 * d + 1], a0);
+          a0 = fmaf(x.z, kf[4 * d + 2], a0);
+          a0 = fmaf(x.w, kf[4 * d + 3], a0);
+          a1 = fmaf(y.x, kf[4 * d + 4], a1);
+          a1 = fmaf(y.y, kf[4 * d + 5], a1);
+          a1 = fmaf(y.z, kf[4 * d + 6], a1);
+          a1 = fmaf(y.w, kf[4 * d + 7], a1);
+        }
+        float a = a0 + a1;
+        a += __shfl_xor_sync(0xffffffffu, a, 16);
+        if (half == 0) Ss[r * kTile + key] = a;
       }
-      __syncthreads();
+    }
+    __syncthreads();
 
-      // Online softmax, one warp per query head; Ss becomes P.
-      for (int j = warp; j < gb; j += kWarps) {
-        float x[2];
-        bool v[2];
-        float mx = kNegInf;
+    // Online softmax, one warp per row; Ss becomes P. The limit is tested
+    // only on a source's last tile (the only one with nk < 64).
+    for (int r = warp; r < nr; r += kDecodeWarps) {
+      const int row = ra + r;
+      float x[2];
+      bool vis[2];
+      float mx = kNegInf;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int c = lane + 32 * i;
-          v[i] = k0 + c < limit;
-          x[i] = v[i] ? cap_score(Ss[j * kTile + c] * p.scale, p.softcap) : kNegInf;
-          mx = fmaxf(mx, x[i]);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_old = m_s[j];
-        const float m_new = fmaxf(m_old, mx);
-        float rs = 0.f;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float pv = v[i] ? expf(x[i] - m_new) : 0.f;
-          rs += pv;
-          // P enters the PV product in V's type, as on the TPU.
-          Ss[j * kTile + lane + 32 * i] = to_f(from_f<T>(pv));
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-        if (lane == 0) {
-          const float alpha = expf(m_old - m_new);
-          a_s[j] = alpha;
-          l_s[j] = l_s[j] * alpha + rs;
-          m_s[j] = m_new;
-        }
+      for (int i = 0; i < 2; ++i) {
+        const int c = lane + 32 * i;
+        vis[i] = nk == kTile || c < nk;
+        x[i] = vis[i] ? cap_score(Ss[r * kTile + c] * p.scale, p.softcap) : kNegInf;
+        mx = fmaxf(mx, x[i]);
       }
-      __syncthreads();
-
-      // acc[j] (this thread's dim) = acc[j] * alpha_j + sum_c P[j][c] V[c][dim].
 #pragma unroll
-      for (int j = 0; j < kDecodeGroup; ++j) {
-        if (j < gb) {
-          float a = acc[j] * a_s[j];
-          const float* pj = Ss + j * kTile;
-#pragma unroll 8
-          for (int c = 0; c < kTile; ++c) a = fmaf(pj[c], to_f(Vs[c * L::KP + tid]), a);
-          acc[j] = a;
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = m_s[row];
+      const float m_new = fmaxf(m_old, mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // A masked key adds exactly 0: exp(NEG - NEG) would add 1.
+        const float pv = vis[i] ? expf(x[i] - m_new) : 0.f;
+        rs += pv;
+        Ss[r * kTile + lane + 32 * i] = pv;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        a_s[row] = alpha;
+        l_s[row] = l_s[row] * alpha + rs;
+        m_s[row] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // O += P V over the visible keys (rounded up to 4: P and V are 0 past nk).
+    bool mine[kOwn];
+#pragma unroll
+    for (int k = 0; k < kOwn; ++k) {
+      const int row = rg + k * kRowGroups;
+      mine[k] = row >= ra && row < ra + nr;
+      if (mine[k]) {
+        const float alpha = a_s[row];
+        o[k].x *= alpha;
+        o[k].y *= alpha;
+      }
+    }
+    const int pb = pair * 2 * (int)sizeof(float);  // the pair's byte offset in a row
+    const int nk4 = (nk + 3) & ~3;
+    for (int c = 0; c < nk4; c += 4) {
+      float2 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[u] = *reinterpret_cast<const float2*>(Vt + swizzled(c + u, pb >> 4, L::kRowBytes) + (pb & 15));
+#pragma unroll
+      for (int k = 0; k < kOwn; ++k) {
+        if (mine[k]) {
+          const float4 pr = *reinterpret_cast<const float4*>(Ss + (rg + k * kRowGroups - ra) * kTile + c);
+          o[k].x = fmaf(pr.x, v[0].x, o[k].x);
+          o[k].y = fmaf(pr.x, v[0].y, o[k].y);
+          o[k].x = fmaf(pr.y, v[1].x, o[k].x);
+          o[k].y = fmaf(pr.y, v[1].y, o[k].y);
+          o[k].x = fmaf(pr.z, v[2].x, o[k].x);
+          o[k].y = fmaf(pr.z, v[2].y, o[k].y);
+          o[k].x = fmaf(pr.w, v[3].x, o[k].x);
+          o[k].y = fmaf(pr.w, v[3].y, o[k].y);
         }
       }
     }
-  }
-  __syncthreads();
-  T* obase = static_cast<T*>(p.o) + qoff;
+  });
+
+  // l_s was last written before the walk's final barrier.
+  float* out = static_cast<float*>(p.o);
 #pragma unroll
-  for (int j = 0; j < kDecodeGroup; ++j) {
-    if (j < gb) {
-      const float lj = l_s[j];
-      obase[j * HD + tid] = from_f<T>(lj > 0.f ? acc[j] / lj : 0.f);
+  for (int k = 0; k < kOwn; ++k) {
+    const int row = rg + k * kRowGroups;
+    if (row < blk.nrow) {
+      const float l = l_s[row];
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      *reinterpret_cast<float2*>(out + blk.row_offset(row, HD) + 2 * pair) = make_float2(o[k].x * inv, o[k].y * inv);
     }
   }
 }
 
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// d += a b for one m16n8k16 tile: a the 16x16 A fragment, (b0, b1) the
+// 16x8 B fragment, fp32 accumulators.
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// bf16/fp16: the block's rows, padded to 16, are one m16 tile, and QK^T and
+// PV are mma.sync m16n8k16 with fp32 accumulators (the FMA form of the
+// float32 path left the products, not the loads, setting the time). Warp w
+// takes keys 16w..16w+15 of every tile: Q's fragments stay in registers for
+// the whole walk, K comes by ldmatrix, and the scores stay in registers,
+// where they become P (in V's type) as PV's A fragment, with V by
+// ldmatrix.trans. Each tile's row maxima are exchanged between the warps
+// through shared memory, so every warp rescales by the same m; each warp
+// keeps its own l and O over its keys, summed across the warps at the end.
 template <typename T, int HD>
-cudaError_t launch_decode(const DecodeParams& p, int n_b, cudaStream_t stream) {
+__device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const DecodeBlock& blk, const DecodeSeg* segs,
+                                                unsigned char* smem) {
   using L = DecodeLayout<T, HD>;
-  // Once per template instantiation (thread-safe static init), not per launch.
-  static const cudaError_t attr = cudaFuncSetAttribute(decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  T* Qs = reinterpret_cast<T*>(smem + L::kRing);  // [16][HD], rows past nrow zero
+  float* pmax = reinterpret_cast<float*>(smem + L::kRing + sizeof(T) * kDecodeRows * HD);  // [2][warp][row]
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gr = lane / 4;  // fragment rows gr and gr + 8
+  const int tq = lane % 4;  // fragment columns 2*tq, 2*tq + 1 of each 8
+
+  for (int i = tid; i < kDecodeRows * HD; i += kDecodeThreads) {
+    const int row = i / HD;
+    Qs[i] = row < blk.nrow ? static_cast<const T*>(p.q)[blk.row_offset(row, HD) + i % HD] : from_f<T>(0.f);
+  }
+  __syncthreads();
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(Qs + gr * HD + 16 * kk + 2 * tq);
+    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(Qs + (gr + 8) * HD + 16 * kk + 2 * tq);
+    qa[kk][0] = q0[0];
+    qa[kk][1] = q1[0];
+    qa[kk][2] = q0[4];  // columns + 8
+    qa[kk][3] = q1[4];
+  }
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;  // rows gr, gr + 8, in log2 units
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of the warp's sums
+  const float qk_scale = p.softcap > 0.f ? p.scale / p.softcap : p.scale * kLog2e;
+  const float cap2 = p.softcap * kLog2e;
+  const int krow = warp * 16 + (lane / 16) * 8 + lane % 8;  // ldmatrix row addresses: K
+  const int kcol = (lane / 8) % 2;
+  const int vrow = warp * 16 + ((lane / 8) % 2) * 8 + lane % 8;  // and V
+  const int vcol = lane / 16;
+
+  walk_tiles<T, HD>(blk, segs, smem, [&](const unsigned char* Kt, const DecodeSeg& sg, int nk, int i) {
+    const uint32_t kb = smem_u32(Kt);
+    const uint32_t vb = kb + L::kTileBytes;
+    const bool act0 = gr >= sg.ra && gr < sg.rb;  // rows this stretch updates
+    const bool act1 = gr + 8 >= sg.ra && gr + 8 < sg.rb;
+    const bool keys = warp * 16 < nk;  // the warp's keys include a visible one
+
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    if (keys) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, kb + swizzled(krow, 2 * kk + kcol, L::kRowBytes));
+        mma16816<T>(s[0], qa[kk], b[0], b[1]);
+        mma16816<T>(s[1], qa[kk], b[2], b[3]);
+      }
+    }
+    // Scores in log2 units: scale -> softcap -> mask, the limit tested only
+    // on a source's last tile.
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = p.softcap > 0.f ? tanhf(s[j][e] * qk_scale) * cap2 : s[j][e] * qk_scale;
+        if (!keys || (nk < kTile && warp * 16 + 8 * j + 2 * tq + (e & 1) >= nk)) x = -INFINITY;
+        s[j][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    float* pm = pmax + (i & 1) * kDecodeWarps * kDecodeRows;
+    if (tq == 0) {
+      pm[warp * kDecodeRows + gr] = mx0;
+      pm[warp * kDecodeRows + gr + 8] = mx1;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      mx0 = fmaxf(mx0, pm[w * kDecodeRows + gr]);
+      mx1 = fmaxf(mx1, pm[w * kDecodeRows + gr + 8]);
+    }
+    // m stays finite (it starts at kNegInf), so a masked key's -inf gives
+    // exactly 0; rows the stretch does not update keep m, l and O.
+    const float mn0 = act0 ? fmaxf(m0, mx0) : m0;
+    const float mn1 = act1 ? fmaxf(m1, mx1) : m1;
+    const float a0 = exp2f(m0 - mn0);
+    const float a1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      s[j][0] = act0 ? exp2f(s[j][0] - mn0) : 0.f;
+      s[j][1] = act0 ? exp2f(s[j][1] - mn0) : 0.f;
+      s[j][2] = act1 ? exp2f(s[j][2] - mn1) : 0.f;
+      s[j][3] = act1 ? exp2f(s[j][3] - mn1) : 0.f;
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[n][0] *= a0;
+      o[n][1] *= a0;
+      o[n][2] *= a1;
+      o[n][3] *= a1;
+    }
+    if (keys) {
+      // P in V's type as the A fragment of keys 16w..16w+15.
+      const uint32_t pa[4] = {pack2<T>(s[0][0], s[0][1]), pack2<T>(s[0][2], s[0][3]),
+                              pack2<T>(s[1][0], s[1][1]), pack2<T>(s[1][2], s[1][3])};
+#pragma unroll
+      for (int jj = 0; jj < HD / 16; ++jj) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, vb + swizzled(vrow, 2 * jj + vcol, L::kRowBytes));
+        mma16816<T>(o[2 * jj], pa, b[0], b[1]);
+        mma16816<T>(o[2 * jj + 1], pa, b[2], b[3]);
+      }
+    }
+  });
+
+  // The warps' l and O summed through shared memory (the ring is free: every
+  // copy has landed and the barrier below orders the last reads).
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  __syncthreads();
+  float* o_red = reinterpret_cast<float*>(smem);           // [warp][row][HD]
+  float* l_red = o_red + kDecodeWarps * kDecodeRows * HD;  // [warp][row]
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    *reinterpret_cast<float2*>(o_red + (warp * kDecodeRows + gr) * HD + 8 * n + 2 * tq) = make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(o_red + (warp * kDecodeRows + gr + 8) * HD + 8 * n + 2 * tq) =
+        make_float2(o[n][2], o[n][3]);
+  }
+  if (tq == 0) {
+    l_red[warp * kDecodeRows + gr] = l0;
+    l_red[warp * kDecodeRows + gr + 8] = l1;
+  }
+  __syncthreads();
+  T* out = static_cast<T*>(p.o);
+  for (int i = tid; i < blk.nrow * (HD / 2); i += kDecodeThreads) {
+    const int row = i / (HD / 2);
+    const int d = 2 * (i % (HD / 2));
+    float l = 0.f, x = 0.f, y = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float2 ow = *reinterpret_cast<const float2*>(o_red + (w * kDecodeRows + row) * HD + d);
+      l += l_red[w * kDecodeRows + row];
+      x += ow.x;
+      y += ow.y;
+    }
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    *reinterpret_cast<uint32_t*>(out + blk.row_offset(row, HD) + d) = pack2<T>(x * inv, y * inv);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kDecodeThreads) decode_rows_kernel(const __grid_constant__ DecodeParams p) {
+  using L = DecodeLayout<T, HD>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  DecodeSeg* segs = reinterpret_cast<DecodeSeg*>(smem + L::kSeg);
+  DecodeBlock blk;
+  blk.b = blockIdx.y;
+  blk.g = p.n_q / p.n_kv;
+  blk.kvh = blockIdx.x / p.n_chunks;
+  blk.r0 = (blockIdx.x % p.n_chunks) * kDecodeRows;
+  blk.nrow = min(kDecodeRows, p.n_s * blk.g - blk.r0);
+  blk.n_s = p.n_s;
+  blk.n_q = p.n_q;
+  const int s_lo = blk.r0 / blk.g;
+  blk.n_seg = 1 + 2 * ((blk.r0 + blk.nrow - 1) / blk.g - s_lo + 1);
+  blk.row_stride = (long long)p.n_kv * HD;
+
+  const int tid = threadIdx.x;
+  if (tid < blk.n_seg) {
+    // Stretch 0 is the prefix; then per suffix s_lo + (tid - 1) / 2 its own
+    // KV (odd tid) and its generated KV (even tid).
+    const int s = tid == 0 ? 0 : s_lo + (tid - 1) / 2;
+    Source src = p.src[0];
+    if (tid > 0) src = tid % 2 ? p.src[1] : p.src[2];
+    const long long off = blk.b * src.stride_b + s * src.stride_s + blk.kvh * HD;
+    DecodeSeg sg;
+    sg.k = static_cast<const T*>(src.k) + off;
+    sg.v = static_cast<const T*>(src.v) + off;
+    sg.limit = source_limit(src, blk.b, s);
+    sg.ra = tid == 0 ? 0 : max(s * blk.g - blk.r0, 0);
+    sg.rb = tid == 0 ? blk.nrow : min((s + 1) * blk.g - blk.r0, blk.nrow);
+    segs[tid] = sg;
+  }
+  // Each path stages Q and passes a barrier before the walk reads segs.
+  if constexpr (std::is_same<T, float>::value) decode_rows_f32<HD>(p, blk, segs, smem);
+  else decode_rows_mma<T, HD>(p, blk, segs, smem);
+}
+
+template <typename T, int HD>
+cudaError_t launch_decode_rows(const DecodeParams& p, int n_b, cudaStream_t stream) {
+  using L = DecodeLayout<T, HD>;
+  // Once per template instantiation (thread-safe static init), not per
+  // launch. The carveout asks for all of the SM's 228 KB as shared memory,
+  // so two 16-bit blocks fit on one SM.
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(decode_rows_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::kBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(decode_rows_kernel<T, HD>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
   if (attr != cudaSuccess) return attr;
-  dim3 grid(p.n_kv * p.n_groups, p.n_s, n_b);
-  decode_kernel<T, HD><<<grid, HD, L::kBytes, stream>>>(p);
+  const dim3 grid(p.n_kv * p.n_chunks, n_b);
+  decode_rows_kernel<T, HD><<<grid, kDecodeThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1136,13 +1586,6 @@ Source make_source(const void* k, const void* v, long long stride_b, long long s
   s.lim_add = lim_add;
   s.causal = causal;
   return s;
-}
-
-template <typename T>
-cudaError_t decode_hd(const DecodeParams& p, int hd, int n, cudaStream_t stream) {
-  if (hd == 64) return launch_decode<T, 64>(p, n, stream);
-  if (hd == 128) return launch_decode<T, 128>(p, n, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1189,7 +1632,8 @@ extern "C" int fls_score_attention(
 
 // q, o: [B, S, n_q, hd]. Sources: 0 the shared prefix (limit prefix_len[b]),
 // 1 the suffix's own KV (limit suffix_eos[b, s] + 1), 2 the generated KV
-// (limit t + 1); layout as for fls_score_attention.
+// (limit t + 1); layout as for fls_score_attention. Every dtype launches
+// decode_rows_kernel.
 extern "C" int fls_decode_attention(
     int dtype, int hd, const void* q, void* o, int n_b, int n_s, int n_q, int n_kv,
     float scale, float softcap,
@@ -1204,18 +1648,19 @@ extern "C" int fls_decode_attention(
   p.n_s = n_s;
   p.n_q = n_q;
   p.n_kv = n_kv;
-  p.n_groups = (g + kDecodeGroup - 1) / kDecodeGroup;
+  p.n_chunks = (n_s * g + kDecodeRows - 1) / kDecodeRows;
   p.scale = scale;
   p.softcap = softcap;
   p.src[0] = make_source(kp, vp, p_sb, 0, lp, static_cast<const int*>(prefix_len), 1, 0, 0, 0);
   p.src[1] = make_source(ks, vs, s_sb, s_ss, ls, static_cast<const int*>(suffix_eos), n_s, 1, 1, 0);
   p.src[2] = make_source(kg, vg, g_sb, g_ss, tg, nullptr, 0, 0, t + 1, 0);
   if (n_b * n_s <= 0) return (int)cudaSuccess;
+  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) err = decode_hd<float>(p, hd, n_b, st);
-  else if (dtype == 1) err = decode_hd<__half>(p, hd, n_b, st);
-  else if (dtype == 2) err = decode_hd<__nv_bfloat16>(p, hd, n_b, st);
+  if (dtype == 0) err = hd == 64 ? launch_decode_rows<float, 64>(p, n_b, st) : launch_decode_rows<float, 128>(p, n_b, st);
+  else if (dtype == 1) err = hd == 64 ? launch_decode_rows<__half, 64>(p, n_b, st) : launch_decode_rows<__half, 128>(p, n_b, st);
+  else if (dtype == 2) err = hd == 64 ? launch_decode_rows<__nv_bfloat16, 64>(p, n_b, st) : launch_decode_rows<__nv_bfloat16, 128>(p, n_b, st);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

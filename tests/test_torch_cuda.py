@@ -92,6 +92,25 @@ def test_scoring_kernels_edge_cases(gen, edge):
            fa.prefix_shared_attention_plain(*_f32(qs, k, v, ks, vs, plen), softcap=softcap), dtype)
 
 
+def _decode_kv(gen, dtype, b, s, lp, ls, tg, nkv, hd, plen, eos, t):
+    """Random decode K/V with every row past its source's limit (prefix rows
+    at or past plen, suffix rows past eos, generated rows past t) zero, and
+    the same K/V with those rows NaN: two dicts keyed kp, vp, ks, vs, kg, vg."""
+    prefix = (torch.arange(lp, device="cuda")[None, :] >= plen[:, None])[..., None, None]
+    suffix = (torch.arange(ls, device="cuda")[None, None, :] > eos[..., None])[..., None, None]
+    gen_past = torch.arange(tg, device="cuda")[None, None, :, None, None] > t
+    zero, nan = {}, {}
+    for name, shape, past in (("p", (b, lp, nkv, hd), prefix), ("s", (b, s, ls, nkv, hd), suffix),
+                              ("g", (b, s, tg, nkv, hd), gen_past)):
+        for kind in "kv":
+            x = _rnd(gen, dtype, *shape).masked_fill(past, 0.0)
+            zero[kind + name], nan[kind + name] = x, x.masked_fill(past, float("nan"))
+    return zero, nan
+
+
+DECODE_KV = ("kp", "vp", "ks", "vs", "kg", "vg")
+
+
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128), (torch.float16, 64)])
 def test_nan_past_limits_never_reaches_the_output(gen, dtype, hd):
     """K/V rows at or past each source's limit filled with NaN: every kernel
@@ -102,27 +121,51 @@ def test_nan_past_limits_never_reaches_the_output(gen, dtype, hd):
     q = _rnd(gen, dtype, b, lp, nq, hd)
     qs = _rnd(gen, dtype, b, s, ls, nq, hd)
     qd = _rnd(gen, dtype, b, s, 1, nq, hd)
-    prefix = (torch.arange(lp, device="cuda")[None, :] >= plen[:, None])[..., None, None]
-    suffix = (torch.arange(ls, device="cuda")[None, None, :] > eos[..., None])[..., None, None]
-    gen_past = torch.arange(tg, device="cuda")[None, None, :, None, None] > t
-    kv = {}
-    for name, shape, past in (("p", (b, lp, nkv, hd), prefix), ("s", (b, s, ls, nkv, hd), suffix),
-                              ("g", (b, s, tg, nkv, hd), gen_past)):
-        for kind in "kv":
-            x = _rnd(gen, dtype, *shape).masked_fill(past, 0.0)
-            kv[kind + name] = (x, x.masked_fill(past, float("nan")))
-    zero = {n: x for n, (x, _) in kv.items()}
-    nan = {n: x for n, (_, x) in kv.items()}
+    zero, nan = _decode_kv(gen, dtype, b, s, lp, ls, tg, nkv, hd, plen, eos, t)
     _close(fa.flash_causal_attention(q, nan["kp"], nan["vp"], plen),
            fa.causal_attention_plain(*_f32(q, zero["kp"], zero["vp"], plen)), dtype)
     # Every suffix row is visible to the scoring form, so its suffix KV stays finite.
     _close(fa.flash_prefix_shared_attention(qs, nan["kp"], nan["vp"], zero["ks"], zero["vs"], plen),
            fa.prefix_shared_attention_plain(*_f32(qs, zero["kp"], zero["vp"], zero["ks"],
                                                   zero["vs"], plen)), dtype)
-    _close(fa.flash_decode_attention(qd, *(nan[n] for n in ("kp", "vp", "ks", "vs", "kg", "vg")),
-                                     plen, eos, t),
-           fa.decode_attention_plain(*_f32(qd, *(zero[n] for n in ("kp", "vp", "ks", "vs", "kg", "vg"))),
-                                     plen, eos, t), dtype)
+    _close(fa.flash_decode_attention(qd, *(nan[n] for n in DECODE_KV), plen, eos, t),
+           fa.decode_attention_plain(*_f32(qd, *(zero[n] for n in DECODE_KV)), plen, eos, t), dtype)
+
+
+# (S, nq, nkv, hd, T, t, prefix_len, suffix_eos, dtype, softcap) at Lp 130
+# and Ls 64. The decode kernel takes 16 query rows (suffix, head) per block
+# and 64-key tiles: S*g above 16 spreads a KV head's rows over several
+# blocks (S 7 at g 3 and S 2 at g 32 split a suffix between two), S 1,
+# prefix lengths 0/1/63/64/65/130 around the tiles, eos 0 and Ls-1, t 0 and
+# T-1, hd 64 with fp16, float32 and softcap.
+DECODE_EDGES = [
+    (5, 32, 4, 128, 5, 4, [130, 65], [[0, 63, 9, 31, 62], [5, 0, 63, 1, 40]], torch.bfloat16, None),
+    (3, 8, 1, 128, 5, 0, [64, 63], [[63, 0, 12], [5, 6, 7]], torch.bfloat16, None),
+    (7, 12, 4, 128, 3, 1, [65, 130], [[0, 9, 18, 27, 36, 45, 63]] * 2, torch.bfloat16, None),
+    (2, 32, 1, 128, 4, 3, [1, 0], [[0, 63], [63, 31]], torch.bfloat16, None),
+    (1, 32, 32, 128, 5, 2, [0, 1], [[0], [63]], torch.bfloat16, None),
+    (4, 8, 2, 64, 5, 4, [0, 130], [[0, 63, 20, 33], [63, 0, 1, 2]], torch.float16, None),
+    (3, 8, 4, 128, 5, 0, [65, 64], [[0, 63, 17], [31, 32, 0]], torch.float32, None),
+    (3, 4, 2, 64, 2, 1, [130, 0], [[63, 0, 1], [2, 63, 0]], torch.float32, None),
+    (4, 32, 8, 128, 5, 4, [63, 130], [[0, 63, 5, 6], [7, 8, 63, 0]], torch.bfloat16, 30.0),
+]
+
+
+@pytest.mark.parametrize("nan_past_limits", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize(
+    "edge", DECODE_EDGES,
+    ids=lambda e: f"S{e[0]}-{e[1]}/{e[2]}-hd{e[3]}-{str(e[8])[6:]}{'-softcap' if e[9] else ''}")
+def test_decode_kernel_edge_cases(gen, edge, nan_past_limits):
+    s, nq, nkv, hd, tg, t, plen, eos, dtype, softcap = edge
+    b, lp, ls = 2, 130, 64
+    plen = torch.tensor(plen, dtype=torch.int32, device="cuda")
+    eos = torch.tensor(eos, dtype=torch.int32, device="cuda")
+    q = _rnd(gen, dtype, b, s, 1, nq, hd)
+    zero, nan = _decode_kv(gen, dtype, b, s, lp, ls, tg, nkv, hd, plen, eos, t)
+    fed = nan if nan_past_limits else zero
+    _close(fa.flash_decode_attention(q, *(fed[n] for n in DECODE_KV), plen, eos, t, softcap=softcap),
+           fa.decode_attention_plain(*_f32(q, *(zero[n] for n in DECODE_KV)), plen, eos, t,
+                                     softcap=softcap), dtype)
 
 
 def test_zero_valid_length_rows_are_zero(gen):

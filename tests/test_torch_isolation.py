@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX and nothing of the JAX package in
-its sources or in chip_smoke.py; it runs on CUDA unless the CPU is asked
+its sources, in chip_smoke.py or in its scripts (scripts/torch_*.py, which
+run on the card's machine); it runs on CUDA unless the CPU is asked
 for, and never falls back silently; the CUDA wrappers refuse what their
 kernels do not compute."""
 
@@ -17,7 +18,8 @@ from flexible_llm_sharding_tpu_torch.ops import cuda_build
 from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
 ROOT = pathlib.Path(flexible_llm_sharding_tpu_torch.__file__).resolve().parent
-PORT_FILES = sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"]
+PORT_FILES = (sorted(ROOT.rglob("*.py")) + [ROOT.parent / "chip_smoke.py"]
+              + sorted((ROOT.parent / "scripts").glob("torch_*.py")))
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
