@@ -150,6 +150,12 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     lib = cuda_build.library()
     log(f"[build] {cuda_build.SOURCE.name} built and loaded in {time.perf_counter() - t0:.3f} s")
+    warnings = [ln for ln in cuda_build.build_log.splitlines() if "warning" in ln.lower()]
+    log(f"[build] compiler warnings: {len(warnings)}")
+    for ln in warnings:
+        log(f"[build]   {ln}")
+    if any("C7518" in ln for ln in warnings):
+        fail("ptxas serialised wgmma (warning C7518)")
     # Registers, stack and local memory (spills) of every kernel, as built.
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -157,12 +163,16 @@ def phase_build() -> None:
         return
     usage = subprocess.run([tool, "--dump-resource-usage", lib._name], capture_output=True,
                            text=True).stdout.splitlines()
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
     for name, res in zip(usage, usage[1:]):
-        kernel = re.search(r"(score_tc_kernel|score_kernel_f32|decode_rows_kernel)I(\w+?)EEEv", name)
-        if kernel:
-            targs = ", ".join(a if a.isdigit() else re.sub(r"^\d+", "", a)  # drop name lengths
-                              for a in kernel.group(2).split("Li") if a)
-            log(f"[build] {kernel.group(1)}<{targs}>: {' '.join(res.split()[:5])}")
+        mangled = re.search(r"_Z\w*(score_tc_kernel|score_kernel_f32|decode_rows_kernel)\w*", name)
+        if mangled:
+            kernel = mangled.group(0)
+            if os.path.exists(filt):  # e.g. void <unnamed>::score_tc_kernel<__half, 64, (bool)1>(...)
+                kernel = subprocess.run([filt, kernel], capture_output=True, text=True).stdout.strip()
+                kernel = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "", kernel).split(">(")[0] + ">"
+                kernel = kernel.replace("(bool)1", "local").replace("(bool)0", "no local")
+            log(f"[build] {kernel}: {' '.join(res.split()[:5])}")
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +222,16 @@ def _past_limits(x: dict) -> dict[str, torch.Tensor]:
 # gives NaN where the kernels write 0).
 # ---------------------------------------------------------------------------
 
+def _local_keep(q_pos, k_pos, window=None, chunk=None, local_on=None):
+    """The local clause as a bool mask (True = visible), broadcasting the
+    absolute query and key positions; all True when no local form is on."""
+    if local_on is False or (window is None and chunk is None):
+        return torch.ones((), dtype=torch.bool, device=q_pos.device)
+    if window is not None:
+        return q_pos - k_pos < window
+    return torch.div(q_pos, chunk, rounding_mode="floor") == torch.div(k_pos, chunk, rounding_mode="floor")
+
+
 def _sdpa_args(q, k, v, mask) -> dict:
     """q [N, Lq, n_q, hd], k/v [N, Lk, n_kv, hd], mask [N, Lq, Lk] -> the
     keyword arguments of ``scaled_dot_product_attention``."""
@@ -219,17 +239,19 @@ def _sdpa_args(q, k, v, mask) -> dict:
             "attn_mask": mask[:, None], "enable_gqa": q.shape[2] != k.shape[2]}
 
 
-def yardstick_causal(q, k, v, valid_len) -> dict:
-    """flash_causal_attention: query i sees keys j <= i with j < valid_len[b]."""
+def yardstick_causal(q, k, v, valid_len, **local) -> dict:
+    """flash_causal_attention: query i sees keys j <= i with j < valid_len[b]
+    (and within the local form, if any)."""
     i = torch.arange(q.shape[1], device=q.device)
     mask = (i[None, :] <= i[:, None])[None] & (i[None, None, :] < valid_len[:, None, None])
+    mask = mask & _local_keep(i[:, None], i[None, :], **local)
     return _sdpa_args(q, k, v, mask)
 
 
-def yardstick_prefix_shared(q, k_prefix, v_prefix, k_suffix, v_suffix, prefix_len) -> dict:
+def yardstick_prefix_shared(q, k_prefix, v_prefix, k_suffix, v_suffix, prefix_len, **local) -> dict:
     """flash_prefix_shared_attention: the queries of every (b, s) over
     [prefix KV expanded over S ; own suffix KV]; prefix key j < prefix_len[b],
-    own key j <= i."""
+    own key j <= i (query i and own key j at prefix_len[b] + i / + j)."""
     b, s, ls = q.shape[:3]
     lp = k_prefix.shape[1]
     dev = q.device
@@ -240,15 +262,19 @@ def yardstick_prefix_shared(q, k_prefix, v_prefix, k_suffix, v_suffix, prefix_le
     j = torch.arange(lp + ls, device=dev)[None, None, :]
     i = torch.arange(ls, device=dev)[None, :, None]
     mask = torch.where(j < lp, j < prefix_len[:, None, None], j - lp <= i)  # [B, Ls, Lp+Ls]
+    plen = prefix_len[:, None, None]
+    mask = mask & _local_keep(plen + i, torch.where(j < lp, j, plen + j - lp), **local)
     mask = mask[:, None].expand(b, s, ls, lp + ls).flatten(0, 1)
     return _sdpa_args(q.flatten(0, 1), cat(k_prefix, k_suffix), cat(v_prefix, v_suffix), mask)
 
 
 def yardstick_decode(q, k_prefix, v_prefix, k_suffix, v_suffix, k_gen, v_gen, prefix_len,
-                     suffix_eos, t) -> dict:
+                     suffix_eos, t, **local) -> dict:
     """flash_decode_attention: each suffix's new token over [prefix ; own
     suffix ; own generated] KV; prefix key j < prefix_len[b], suffix key
-    j <= suffix_eos[b, s], generated key j <= t."""
+    j <= suffix_eos[b, s], generated key j <= t (positions: prefix key j at
+    j, suffix key at prefix_len + j, generated key at prefix_len + eos + 1 +
+    j, the query at prefix_len + eos + 1 + t)."""
     b, s = q.shape[:2]
     lp, ls, tg = k_prefix.shape[1], k_suffix.shape[2], k_gen.shape[2]
     dev = q.device
@@ -261,7 +287,12 @@ def yardstick_decode(q, k_prefix, v_prefix, k_suffix, v_suffix, k_gen, v_gen, pr
         (torch.arange(lp, device=dev)[None, :] < prefix_len[:, None])[:, None].expand(b, s, lp),
         torch.arange(ls, device=dev)[None, None, :] <= suffix_eos[..., None],
         (torch.arange(tg, device=dev) <= t).expand(b, s, tg),
-    ], -1).flatten(0, 1)[:, None]  # [B*S, 1, Lp+Ls+T]
+    ], -1)  # [B, S, Lp+Ls+T]
+    plen, eos = prefix_len[:, None, None], suffix_eos[..., None]
+    k_pos = torch.cat([torch.arange(lp, device=dev).expand(b, s, lp),
+                       (plen + torch.arange(ls, device=dev)).expand(b, s, ls),
+                       plen + eos + 1 + torch.arange(tg, device=dev)], -1)
+    mask = (mask & _local_keep(plen + eos + 1 + t, k_pos, **local)).flatten(0, 1)[:, None]
     return _sdpa_args(q.flatten(0, 1), cat(k_prefix, k_suffix, k_gen),
                       cat(v_prefix, v_suffix, v_gen), mask)
 
@@ -280,9 +311,10 @@ def run_yardstick(args: dict, like: torch.Tensor) -> torch.Tensor:
     return F.scaled_dot_product_attention(**args).transpose(1, 2).reshape(like.shape)
 
 
-def _calls(x: dict, softcap):
-    """Per kernel: (positional args, keyword args)."""
-    kw = {"softcap": softcap}
+def _calls(x: dict, softcap, local=None):
+    """Per kernel: (positional args, keyword args); ``local``: the window,
+    chunk and local_on keywords, if any."""
+    kw = {"softcap": softcap, **(local or {})}
     return {
         "flash_causal_attention": ((x["q_prefix"], x["kp"], x["vp"], x["plen"]), kw),
         "flash_prefix_shared_attention": (
@@ -307,14 +339,15 @@ def check_case(name: str, case: dict, dtype, gen, nan_past_limits: bool = False,
 
     atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (2e-2, 2e-2)
     x = _inputs(case, dtype, gen, fill_past_limits=0.0 if nan_past_limits else None)
-    calls = _calls(x, case.get("softcap"))
+    softcap, local = case.get("softcap"), case.get("local")
+    calls = _calls(x, softcap, local)
     if nan_past_limits:
         # The scoring kernels see every suffix row, so only decode gets NaN there.
         nan = {k: x[k].masked_fill(m[..., None, None], float("nan"))
                for k, m in _past_limits(x).items()}
         scoring = {**x, "kp": nan["kp"], "vp": nan["vp"]}
-        fed = {**_calls(scoring, case.get("softcap")),
-               "flash_decode_attention": _calls({**x, **nan}, case.get("softcap"))[
+        fed = {**_calls(scoring, softcap, local),
+               "flash_decode_attention": _calls({**x, **nan}, softcap, local)[
                    "flash_decode_attention"]}
     else:
         fed = calls
@@ -368,60 +401,96 @@ def _device_ms(fn, calls: int = 20, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def _lo(q_pos: np.ndarray, local) -> np.ndarray:
+    """The first absolute key position each query may see (0 without a
+    local form): the kernels' one lower bound."""
+    local = local or {}
+    if local.get("local_on") is False:
+        return np.zeros_like(q_pos)
+    if local.get("window") is not None:
+        return q_pos - local["window"] + 1
+    if local.get("chunk") is not None:
+        return q_pos // local["chunk"] * local["chunk"]
+    return np.zeros_like(q_pos)
+
+
+def _work(case: dict) -> dict[str, tuple[int, int]]:
+    """Per kernel, at this case's data: (visible query-key pairs per query
+    head, key rows it must read), each key row counted once where the
+    kernel's inputs hold it once (the prefix once per prompt)."""
+    s, lp, ls, t = case["S"], case["Lp"], case["Ls"], case["t"]
+    local = case.get("local")
+    out = dict.fromkeys(("flash_causal_attention", "flash_prefix_shared_attention",
+                         "flash_decode_attention"), (0, 0))
+
+    def add(kernel, pairs, keys):
+        out[kernel] = (out[kernel][0] + int(pairs), out[kernel][1] + int(keys))
+
+    for b, plen in enumerate(case["plen"]):
+        i = np.arange(lp)[:, None]
+        j = np.arange(lp)[None, :]
+        vis = (j <= i) & (j < plen) & (j >= _lo(i, local))
+        add("flash_causal_attention", vis.sum(), vis.any(0).sum())
+        i = np.arange(ls)[:, None]
+        lo = _lo(plen + i, local)
+        vp = (j < plen) & (j >= lo)  # prefix keys, shared by the S suffixes
+        vs = (np.arange(ls)[None, :] <= i) & (plen + np.arange(ls)[None, :] >= lo)
+        add("flash_prefix_shared_attention", s * (vp.sum() + vs.sum()), vp.any(0).sum() + s * vs.any(0).sum())
+        eos = np.asarray(case["eos"][b])[:, None]
+        lo = _lo(plen + eos + 1 + t, local)  # [S, 1]
+        vp = (np.arange(lp)[None, :] < plen) & (np.arange(lp)[None, :] >= lo)
+        vs = (np.arange(ls)[None, :] <= eos) & (plen + np.arange(ls)[None, :] >= lo)
+        g = np.arange(case["T"])[None, :]
+        vg = (g <= t) & (plen + eos + 1 + g >= lo)
+        add("flash_decode_attention", vp.sum() + vs.sum() + vg.sum(),
+            vp.any(0).sum() + vs.sum() + vg.sum())
+    return out
+
+
 def _bounds(case: dict) -> dict[str, tuple[float, str]]:
     """Least time on the card for each kernel's work at this case's data:
-    the larger of the bytes it must move (each needed input read once, each
-    output written once, bf16) over 3.35 TB/s and its tensor FLOPs (QK^T and
-    PV, 4*hd per visible query-key pair) over 989 TFLOP/s."""
+    the larger of the bytes it must move (Q read and O written once, each
+    key row it must read once, K and V, bf16) over 3.35 TB/s and its tensor
+    FLOPs (QK^T and PV, 4*hd per visible query-key pair and query head) over
+    989 TFLOP/s. With a local form only the pairs within it count, and only
+    the key rows some query sees within it."""
     b, s, nq, nkv, hd = case["B"], case["S"], case["nq"], case["nkv"], case["hd"]
-    lp, ls, t = case["Lp"], case["Ls"], case["t"]
-    plen = np.asarray(case["plen"], np.int64)
-    eos = np.asarray(case["eos"], np.int64)
     e = 2  # bytes per bf16 element
     kv_row = 2 * nkv * hd * e  # one key row of K and V
-    i = np.arange(lp)[None, :]
-    causal_pairs = np.minimum(i + 1, plen[:, None]).sum()
-    j = np.arange(ls)[None, :]
-    prefix_pairs = s * (plen[:, None] + j + 1).sum()
-    decode_pairs = (plen[:, None] + eos + 1 + t + 1).sum()
-    work = {
-        "flash_causal_attention": (
-            causal_pairs, 2 * b * lp * nq * hd * e + plen.sum() * kv_row),
-        "flash_prefix_shared_attention": (
-            prefix_pairs, 2 * b * s * ls * nq * hd * e + plen.sum() * kv_row + b * s * ls * kv_row),
-        "flash_decode_attention": (
-            decode_pairs,
-            2 * b * s * nq * hd * e + (plen.sum() + (eos + 1).sum() + b * s * (t + 1)) * kv_row),
-    }
+    q_rows = {"flash_causal_attention": b * case["Lp"],
+              "flash_prefix_shared_attention": b * s * case["Ls"], "flash_decode_attention": b * s}
     out = {}
-    for k, (pairs, nbytes) in work.items():
+    for k, (pairs, keys) in _work(case).items():
         t_ops = 4 * hd * nq * float(pairs) / PEAK_BF16_FLOPS * 1e3
-        t_bytes = float(nbytes) / PEAK_BYTES * 1e3
+        t_bytes = float(2 * q_rows[k] * nq * hd * e + keys * kv_row) / PEAK_BYTES * 1e3
         out[k] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
     return out
 
 
-def time_case(case: dict, gen) -> dict[str, dict]:
-    """Kernel, plain and library times at the main path's shapes (bf16). The
-    library time is one SDPA call on inputs its yardstick built beforehand."""
+def time_case(case: dict, gen, plain_calls: int = 20) -> dict[str, dict]:
+    """Kernel, plain and library times at the case's shapes and local form
+    (bf16). The library time is one SDPA call on inputs its yardstick built
+    beforehand; ``plain_calls`` calls per round time the plain version."""
     import torch.nn.functional as F
 
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
     x = _inputs(case, torch.bfloat16, gen)
     bounds = _bounds(case)
+    local = case.get("local") or {}
     out = {}
-    for kernel, (args, kw) in _calls(x, None).items():
-        sdpa = YARDSTICKS[kernel](*args)
+    for kernel, (args, kw) in _calls(x, None, local).items():
+        sdpa = YARDSTICKS[kernel](*args, **local)
         out[kernel] = {
             "ms": _device_ms(lambda: getattr(fa, kernel)(*args, **kw)),
-            "plain_ms": _device_ms(lambda: fa.PLAIN[kernel](*args, **kw)),
+            "plain_ms": _device_ms(lambda: fa.PLAIN[kernel](*args, **kw), calls=plain_calls),
             "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(**sdpa)),
             "bound_ms": bounds[kernel][0],
             "bound_by": bounds[kernel][1],
         }
+    tag = f" [{case['name']}]" if "name" in case else ""
     for kernel, rec in out.items():
-        log(f"[kernels] time {kernel}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        log(f"[kernels] time {kernel}{tag}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
             f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return out
 
@@ -429,7 +498,8 @@ def time_case(case: dict, gen) -> dict[str, dict]:
 def time_long_prefix(gen) -> None:
     """Every kernel and its SDPA yardstick at a 4096-token prefix (B = 1,
     S = 4, Ls = 64, Llama-2-7B heads), where the causal pass is bound by its
-    products and decode has only B * n_kv = 32 blocks for the card's SMs."""
+    products and decode has only B * n_kv = 32 blocks for the card's SMs;
+    then decode alone with a 1024-token window."""
     import torch.nn.functional as F
 
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
@@ -437,18 +507,23 @@ def time_long_prefix(gen) -> None:
     case = {"B": 1, "S": 4, "Ls": 64, "Lp": 4096, "T": 1, "t": 0, "nq": 32, "nkv": 32, "hd": 128,
             "plen": [4096], "eos": [[63] * 4]}
     x = _inputs(case, torch.bfloat16, gen)
-    bounds = _bounds(case)
-    for kernel, (args, kw) in _calls(x, None).items():
-        sdpa = YARDSTICKS[kernel](*args)
-        ms = _device_ms(lambda: getattr(fa, kernel)(*args, **kw))
-        lib = _device_ms(lambda: F.scaled_dot_product_attention(**sdpa))
-        log(f"[kernels] time {kernel} at a 4096-token prefix: kernel {ms:.4f} ms, "
-            f"library {lib:.4f} ms, bound {bounds[kernel][0]:.4f} ms ({bounds[kernel][1]})")
+    for local in ({}, {"window": 1024}):
+        bounds = _bounds({**case, "local": local})
+        for kernel, (args, kw) in _calls(x, None, local).items():
+            if local and kernel != "flash_decode_attention":
+                continue
+            sdpa = YARDSTICKS[kernel](*args, **local)
+            ms = _device_ms(lambda: getattr(fa, kernel)(*args, **kw))
+            lib = _device_ms(lambda: F.scaled_dot_product_attention(**sdpa))
+            tag = " with a 1024-token window" if local else ""
+            log(f"[kernels] time {kernel} at a 4096-token prefix{tag}: kernel {ms:.4f} ms, "
+                f"library {lib:.4f} ms, bound {bounds[kernel][0]:.4f} ms ({bounds[kernel][1]})")
 
 
-def main_path_case(prompts, n_gen_kv: int) -> dict:
-    """The attention shapes and lengths the full-width run gives the kernels
-    (Llama-2-7B heads; prompts tokenized as the CLI tokenizes them)."""
+def main_path_case(prompts, n_gen_kv: int, nq: int = 32, nkv: int = 32, hd: int = 128) -> dict:
+    """The attention shapes and lengths a full-width run gives the kernels
+    (Llama-2-7B heads unless given; prompts tokenized as the CLI tokenizes
+    them)."""
     from flexible_llm_sharding_tpu_torch.runtime.tokenization import PromptTokenizer
 
     toks = [PromptTokenizer(BenchTokenizer())(p, s) for p, s in prompts]
@@ -459,12 +534,12 @@ def main_path_case(prompts, n_gen_kv: int) -> dict:
     tg = max(1, n_gen_kv - 1)
     return {
         "B": len(toks), "S": s, "Ls": ls, "Lp": lp, "T": tg, "t": tg - 1,
-        "nq": 32, "nkv": 32, "hd": 128,
+        "nq": nq, "nkv": nkv, "hd": hd,
         "plen": [t.prefix_len for t in toks], "eos": [t.suffix_eos.tolist() for t in toks],
     }
 
 
-def phase_kernels(main_case: dict) -> dict[str, dict]:
+def phase_kernels(main_case: dict, gemma_case: dict) -> dict[str, dict]:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rng = np.random.default_rng(5)
 
@@ -523,12 +598,50 @@ def phase_kernels(main_case: dict) -> dict[str, dict]:
         for nan in (False, True):
             check_case(f"{name}{', NaN past limits' if nan else ''}", c, dtype, gen,
                        nan_past_limits=nan, kernels=("flash_decode_attention",))
+    # Local attention in every kernel: windows around the 64-key tiles, chunks,
+    # and a window with the per-layer toggle off; GQA 32/16; bf16, fp16 and
+    # float32; with and without NaN past every limit. Prompt 1's 41-key
+    # prefix in a 200-row bucket leaves causal padding rows that see no key;
+    # the decode suffixes' eos spread puts their bounds in different tiles.
+    for name, local in LOCAL_FORMS:
+        c = {**case(2, 3, 32, 16, 128, 200, 70, 6, [200, 41]), "t": 4,
+             "eos": [[0, 69, 12], [5, 66, 37]], "local": local}
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            for nan in (False, True):
+                check_case(f"{name}, GQA 32/16{', NaN past limits' if nan else ''}", c, dtype, gen,
+                           nan_past_limits=nan)
     errs = check_case("main path", main_case, torch.bfloat16, gen)
+    gemma_local = {**gemma_case, "local": {"window": GEMMA_WINDOW}}
+    errs_local = check_case("gemma3-27b local layer", gemma_local, torch.bfloat16, gen)
+    errs_global = check_case("gemma3-27b global layer", gemma_case, torch.bfloat16, gen)
     time_long_prefix(gen)
     timed = time_case(main_case, gen)
+    # The plain versions at these shapes take tens of ms a call: fewer calls.
+    local_t = time_case({**gemma_local, "name": "gemma3-27b local layer"}, gen, plain_calls=4)
+    global_t = time_case({**gemma_case, "name": "gemma3-27b global layer"}, gen, plain_calls=4)
     for k in timed:
         timed[k]["max_abs_err"] = errs[k]
+        timed[k]["gemma3_27b_local"] = {**local_t[k], "max_abs_err": errs_local[k]}
+        timed[k]["gemma3_27b_global"] = {**global_t[k], "max_abs_err": errs_global[k]}
     return timed
+
+
+# Local forms of the kernel checks: (name, window/chunk/local_on keywords).
+LOCAL_FORMS = [(f"window {w}", {"window": w}) for w in (1, 48, 64, 65, 130)] + [
+    (f"chunk {c}", {"chunk": c}) for c in (32, 64, 100)] + [
+    ("window 48, local_on False", {"window": 48, "local_on": False})]
+
+# google/gemma-3-27b-pt, config.json text_config: the fields that shape the
+# model (its depth is cut per phase).
+GEMMA3_27B_TEXT = {
+    "model_type": "gemma3_text", "hidden_size": 5376, "intermediate_size": 21504,
+    "num_hidden_layers": 62, "num_attention_heads": 32, "num_key_value_heads": 16,
+    "head_dim": 128, "vocab_size": 262208, "rms_norm_eps": 1e-6,
+    "query_pre_attn_scalar": 168, "sliding_window": 1024, "rope_theta": 1000000.0,
+    "rope_local_base_freq": 10000.0, "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+    "hidden_activation": "gelu_pytorch_tanh", "max_position_embeddings": 131072,
+}
+GEMMA_WINDOW = GEMMA3_27B_TEXT["sliding_window"]
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +649,10 @@ def phase_kernels(main_case: dict) -> dict[str, dict]:
 # ---------------------------------------------------------------------------
 
 def _init_params(cfg, dtype, seed: int, device: str) -> dict:
-    """Seeded random weights in the JAX package's layout and scales."""
+    """Seeded random weights in the JAX package's layout and scales. Norm
+    scales are ones, or for the (1+w) Gemma norms small values around 0;
+    Gemma's layers add the sandwich norms and q/k norms; a tied head has
+    no lm_head."""
     g = torch.Generator(device=device).manual_seed(seed)
     d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -545,26 +661,36 @@ def _init_params(cfg, dtype, seed: int, device: str) -> dict:
         w = torch.randn(fan_in, fan_out, generator=g, device=device)
         return (w * (2.0 / (fan_in + fan_out)) ** 0.5).to(dtype).cpu()
 
-    def ones(n):
+    def norm(n):
+        if cfg.norm_unit_offset:
+            return (torch.randn(n, generator=g, device=device) * 0.1).to(dtype).cpu()
         return torch.ones(n, dtype=dtype)
 
-    return {
+    def layer():
+        out = {
+            "input_layernorm": {"scale": norm(d)},
+            "post_attention_layernorm": {"scale": norm(d)},
+            "attn": {"wq": lin(d, nq * hd), "wk": lin(d, nkv * hd),
+                     "wv": lin(d, nkv * hd), "wo": lin(nq * hd, d)},
+            "mlp": {"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)},
+        }
+        if cfg.qk_norm:
+            out["attn"].update(q_norm=norm(hd), k_norm=norm(hd))
+        if cfg.ffw_sandwich_norms:
+            out["pre_feedforward_layernorm"] = {"scale": norm(d)}
+            out["post_feedforward_layernorm"] = {"scale": norm(d)}
+        return out
+
+    params = {
         "embed": {"embedding": (torch.randn(cfg.vocab_size, d, generator=g, device=device)
                                 * 0.02).to(dtype).cpu()},
-        "layers": [
-            {
-                "input_layernorm": {"scale": ones(d)},
-                "post_attention_layernorm": {"scale": ones(d)},
-                "attn": {"wq": lin(d, nq * hd), "wk": lin(d, nkv * hd),
-                         "wv": lin(d, nkv * hd), "wo": lin(nq * hd, d)},
-                "mlp": {"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)},
-            }
-            for _ in range(cfg.num_hidden_layers)
-        ],
-        "norm": {"scale": ones(d)},
-        "lm_head": {"kernel": (torch.randn(d, cfg.vocab_size, generator=g, device=device)
-                               * 0.02).to(dtype).cpu()},
+        "layers": [layer() for _ in range(cfg.num_hidden_layers)],
+        "norm": {"scale": norm(d)},
     }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = {"kernel": (torch.randn(d, cfg.vocab_size, generator=g, device=device)
+                                        * 0.02).to(dtype).cpu()}
+    return params
 
 
 def run_cli(model_dir: str, work: str, tag: str, prompts, extra: list[str], vocab: int):
@@ -587,32 +713,39 @@ def run_cli(model_dir: str, work: str, tag: str, prompts, extra: list[str], voca
 
 
 def phase_cross(work: str) -> None:
+    """Float32 card vs CPU through the CLI: a reduced-width Llama, then a
+    reduced-width Gemma 3 (hd 128, two local layers and a global one, window
+    32, so the window binds at the 71- to 151-token prompts)."""
     from flexible_llm_sharding_tpu_torch.config import LlamaConfig
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 
-    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
-                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
-                      explicit_head_dim=128)
-    model_dir = os.path.join(work, "cross_model")
-    save_params(_init_params(cfg, torch.float32, 11, "cpu"), model_dir, cfg)
+    small = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                 num_key_value_heads=2, explicit_head_dim=128)
+    gemma = LlamaConfig.from_dict({
+        **GEMMA3_27B_TEXT, **small, "head_dim": 128, "num_hidden_layers": 3, "sliding_window": 32,
+        "layer_types": ["sliding_attention", "sliding_attention", "full_attention"]})
     prompts = make_prompts(5, 70, 3, 6, seed=2) + make_prompts(2, 150, 2, 9, seed=3)
-    for mode, extra in (("loop", []), ("kv_cache", ["--kv_cache", "true"])):
-        args = ["--dtype", "float32", "--num_gen_token", "3", "--block_size", "4", *extra]
-        gpu, gpu_up, _ = run_cli(model_dir, work, f"cross_gpu_{mode}", prompts,
-                                 [*args, "--device", "cuda"], 512)
-        cpu, cpu_up, _ = run_cli(model_dir, work, f"cross_cpu_{mode}", prompts,
-                                 [*args, "--device", "cpu"], 512)
-        err = max(float(np.abs(g - c).max()) for g, c in zip(gpu, cpu))
-        if not all(np.allclose(g, c, atol=1e-4, rtol=0) for g, c in zip(gpu, cpu)):
-            fail(f"cross-check {mode}: card and CPU scores differ by {err:.3e}")
-        if any((g.argmax(-1) != c.argmax(-1)).any() for g, c in zip(gpu, cpu)) or gpu_up != cpu_up:
-            fail(f"cross-check {mode}: greedy tokens differ between card and CPU")
-        log(f"[cross] float32 {mode}: card vs CPU max_abs_err {err:.3e}, greedy tokens identical")
+    for name, cfg in (("llama", LlamaConfig(num_hidden_layers=2, **small)), ("gemma3", gemma)):
+        model_dir = os.path.join(work, f"cross_{name}")
+        save_params(_init_params(cfg, torch.float32, 11, "cpu"), model_dir, cfg)
+        for mode, extra in (("loop", []), ("kv_cache", ["--kv_cache", "true"])):
+            args = ["--dtype", "float32", "--num_gen_token", "3", "--block_size", "4", *extra]
+            gpu, gpu_up, _ = run_cli(model_dir, work, f"cross_gpu_{name}_{mode}", prompts,
+                                     [*args, "--device", "cuda"], 512)
+            cpu, cpu_up, _ = run_cli(model_dir, work, f"cross_cpu_{name}_{mode}", prompts,
+                                     [*args, "--device", "cpu"], 512)
+            err = max(float(np.abs(g - c).max()) for g, c in zip(gpu, cpu))
+            if not all(np.allclose(g, c, atol=1e-4, rtol=0) for g, c in zip(gpu, cpu)):
+                fail(f"cross-check {name} {mode}: card and CPU scores differ by {err:.3e}")
+            if any((g.argmax(-1) != c.argmax(-1)).any() for g, c in zip(gpu, cpu)) or gpu_up != cpu_up:
+                fail(f"cross-check {name} {mode}: greedy tokens differ between card and CPU")
+            log(f"[cross] float32 {name} {mode}: card vs CPU max_abs_err {err:.3e}, "
+                "greedy tokens identical")
 
 
-def _check_scores(scores, prompts, n_gen: int, tag: str) -> None:
+def _check_scores(scores, prompts, n_gen: int, vocab: int, tag: str) -> None:
     for s, (_, sfx) in zip(scores, prompts):
-        if s.shape != (len(sfx), n_gen, 32000):
+        if s.shape != (len(sfx), n_gen, vocab):
             fail(f"{tag}: scores of shape {s.shape}")
         if not np.isfinite(s).all():
             fail(f"{tag}: non-finite scores")
@@ -620,53 +753,83 @@ def _check_scores(scores, prompts, n_gen: int, tag: str) -> None:
             fail(f"{tag}: distributions do not sum to 1")
 
 
-def phase_full(work: str, prompts, n_gen_loop: int, n_gen_kv: int) -> dict[str, int]:
-    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: int) -> dict:
+    """A seeded bf16 checkpoint of ``cfg`` (one layer per shard, so every
+    layer streams) through the CLI: scoring, then --kv_cache. Every kernel
+    of each run must launch; with local layers (a window) each must launch
+    with the window on and with it off, without them never with it on.
+    Returns per kernel its launches and its launches with the window on."""
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 
-    cfg = LlamaConfig(num_hidden_layers=4)  # Llama-2-7B widths, depth cut to 4
-    model_dir = os.path.join(work, "llama2_7b_4layers")
+    model_dir = os.path.join(work, name)
     t0 = time.perf_counter()
     save_params(_init_params(cfg, torch.bfloat16, 0, "cuda"), model_dir, cfg)
-    log(f"[full] wrote a seeded bf16 Llama-2-7B-width checkpoint with {cfg.num_hidden_layers} "
+    log(f"[full] wrote a seeded bf16 {name}-width checkpoint with {cfg.num_hidden_layers} "
         f"decoder layers in {time.perf_counter() - t0:.3f} s")
     common = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda"]
-    launches = dict.fromkeys(fa.KERNELS, 0)
+    launches = {k: {"launches": 0, "local_launches": 0} for k in fa.KERNELS}
     runs = (
         ("scoring", ["--num_gen_token", str(n_gen_loop)], n_gen_loop,
          ("flash_causal_attention", "flash_prefix_shared_attention")),
         ("kv_cache", ["--num_gen_token", str(n_gen_kv), "--kv_cache", "true"], n_gen_kv,
          fa.KERNELS),
     )
-    for tag, extra, n_gen, needed in runs:
-        fa.reset_launch_counts()
-        scores, _, stats = run_cli(model_dir, work, f"full_{tag}", prompts, [*common, *extra],
-                                   32000)
-        counts = fa.launch_counts()
-        _check_scores(scores, prompts, n_gen, tag)
-        missing = [k for k in needed if counts[k] == 0]
-        if missing:
-            fail(f"full {tag}: kernels never launched on the main path: {missing}")
-        for k in counts:
-            launches[k] += counts[k]
-        keys = ("wall_s", "tokens_processed", "tokens_per_sec", "streamed_bytes", "peak_mem_gb",
-                "source_wait_s", "load_weights_time_s", "compute_wall_s")
-        log(f"[full] {tag} stats " + json.dumps({k: stats.get(k) for k in keys}))
-        log(f"[full] {tag} kernels " + json.dumps(counts))
+    windowed = cfg.sliding_window is not None
+    try:
+        for tag, extra, n_gen, needed in runs:
+            fa.reset_launch_counts()
+            scores, _, stats = run_cli(model_dir, work, f"full_{name}_{tag}", prompts,
+                                       [*common, *extra], cfg.vocab_size)
+            counts, local = fa.launch_counts(), fa.local_launch_counts()
+            _check_scores(scores, prompts, n_gen, cfg.vocab_size, f"{name} {tag}")
+            missing = [k for k in needed if counts[k] == 0]
+            if missing:
+                fail(f"full {name} {tag}: kernels never launched on the main path: {missing}")
+            if windowed and any(local[k] == 0 or local[k] == counts[k] for k in needed):
+                fail(f"full {name} {tag}: a kernel did not launch both with and without the window: "
+                     f"{counts} (window on: {local})")
+            if not windowed and any(local.values()):
+                fail(f"full {name} {tag}: a window reached a kernel of a model without one: {local}")
+            for k in counts:
+                launches[k]["launches"] += counts[k]
+                launches[k]["local_launches"] += local[k]
+            keys = ("wall_s", "tokens_processed", "tokens_per_sec", "streamed_bytes", "peak_mem_gb",
+                    "source_wait_s", "load_weights_time_s", "compute_wall_s")
+            log(f"[full] {name} {tag} stats " + json.dumps({k: stats.get(k) for k in keys}))
+            log(f"[full] {name} {tag} kernels " + json.dumps(counts) + " window on "
+                + json.dumps(local))
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
     return launches
 
 
 def main() -> None:
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+
     smi = phase_device()
     phase_build()
     prompts = make_prompts(8, 512, 4, 32, seed=0)
     n_gen_loop, n_gen_kv = 4, 8
-    timed = phase_kernels(main_path_case(prompts, n_gen_kv))
+    # Gemma 3: 2048 prefix words (2049 tokens in a 2112 bucket), past the
+    # 1024-token window; depth cut from 62 to 6 layers, 5 local and 1 global.
+    gemma_prompts = make_prompts(8, 2048, 4, 32, seed=1)
+    gemma_loop, gemma_kv = 2, 4
+    gemma_cfg = LlamaConfig.from_dict(
+        {"model_type": "gemma3", "text_config": {**GEMMA3_27B_TEXT, "num_hidden_layers": 6}})
+    timed = phase_kernels(
+        main_path_case(prompts, n_gen_kv),
+        main_path_case(gemma_prompts, gemma_kv, nq=gemma_cfg.num_attention_heads,
+                       nkv=gemma_cfg.num_key_value_heads, hd=gemma_cfg.head_dim))
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cross(work)
-        launches = phase_full(work, prompts, n_gen_loop, n_gen_kv)
+        paths = {
+            "llama2_7b": phase_full(work, "llama2-7b", LlamaConfig(num_hidden_layers=4), prompts,
+                                    n_gen_loop, n_gen_kv),
+            "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,
+                                     gemma_kv),
+        }
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [
@@ -675,9 +838,12 @@ def main() -> None:
             "route": "cuda",
             "source": CUDA_SOURCE,
             "replaces": REPLACES[k],
-            "launches": launches[k],
+            "launches": sum(p[k]["launches"] for p in paths.values()),
             **{key: timed[k][key] for key in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "launches_by_path": {name: p[k] for name, p in paths.items()},
+            "gemma3_27b_local": timed[k]["gemma3_27b_local"],
+            "gemma3_27b_global": timed[k]["gemma3_27b_global"],
         }
         for k in REPLACES
     ]

@@ -1,11 +1,15 @@
 """Model and runtime configuration of the PyTorch/CUDA port.
 
-``LlamaConfig`` keeps the dense-Llama part of the JAX package's config
-(field names and defaults unchanged, so the ``config.json`` that
-``utils.checkpoint.save_params`` writes reads back in either package). The
-families, attention forms and rope scalings that this port does not carry
-yet raise ``NotImplementedError`` when a config asks for them, instead of
-being dropped silently.
+``LlamaConfig`` keeps the part of the JAX package's config that the port
+runs (field names and defaults unchanged, so the ``config.json`` that
+``utils.checkpoint.save_params`` writes reads back in either package):
+dense Llama, and the Gemma 2 and Gemma 3 deltas — sliding-window layers
+and their per-layer pattern, (1+w) float32 RMSNorm, per-head q/k norm, a
+local rope base beside a linearly scaled global one, sandwich norms,
+GeGLU, scaled embeddings and the softcaps. The families, attention forms
+and rope scalings that this port does not carry yet raise
+``NotImplementedError`` when a config asks for them, instead of being
+dropped silently.
 
 ``FrameworkConfig`` holds the batch CLI's runtime flags: the reference's ten
 plus dtype, blocking, bucketing, KV-cache decode, sampling, prefetch and the
@@ -25,9 +29,9 @@ import torch
 
 DEFAULT_MAX_TOKEN_LEN = 4096
 
-# Fields the port carries. Anything else that changes numerics must be at its
-# neutral value (see _UNSUPPORTED).
-_FIELDS = (
+# Fields the port carries, the dense-Llama ones first. Anything else that
+# changes numerics must be at its neutral value (see _UNSUPPORTED).
+_LLAMA_FIELDS = (
     "model_type",
     "vocab_size",
     "hidden_size",
@@ -48,32 +52,73 @@ _FIELDS = (
     "query_pre_attn_scalar",
     "hidden_act",
 )
+_FIELDS = _LLAMA_FIELDS + (
+    "sliding_window",
+    "layer_sliding",
+    "rope_local_theta",
+    "rope_scaling_kind",
+    "rope_scaling_factor",
+    "ffw_sandwich_norms",
+    "qk_norm",
+    "norm_unit_offset",
+    "embed_scale",
+)
 
-# Native config fields this slice does not implement, with the value that
+# Native config fields the port does not implement, with the value that
 # means "feature off". A config carrying any other value raises.
 _UNSUPPORTED: dict[str, Any] = {
-    "sliding_window": None,
     "attention_chunk_size": None,
-    "layer_sliding": None,
     "layer_rope": None,
     "num_local_experts": 0,
     "moe_layer_pattern": None,
     "kv_lora_rank": 0,
     "q_lora_rank": None,
-    "rope_scaling_kind": None,
+    "qk_l2_norm": False,
+    "rope_interleaved": False,
+}
+
+# The Gemma deltas, with their "off" values: a native config of model_type
+# llama must keep them off (Mistral's window and Qwen3's q/k norm are not
+# ported yet).
+_GEMMA_DELTAS: dict[str, Any] = {
+    "sliding_window": None,
+    "layer_sliding": None,
     "rope_local_theta": None,
     "ffw_sandwich_norms": False,
     "qk_norm": False,
-    "qk_l2_norm": False,
     "norm_unit_offset": False,
     "embed_scale": False,
-    "rope_interleaved": False,
 }
+
+ACTIVATIONS = ("silu", "gelu", "gelu_pytorch_tanh")
+_ROPE_SCALINGS = (None, "linear")
+
+# Fields a config without the native marker contributes by name: the
+# dense-Llama ones, and per family the Hugging Face fields that mean the same
+# thing there (the JAX package's _FAMILY_HF_FIELDS); the family branches of
+# from_dict derive the rest, so a stray key of another family is ignored.
+_HF_FAMILY_FIELDS = {
+    "gemma2": frozenset({"query_pre_attn_scalar", "sliding_window"}),
+    "gemma3_text": frozenset({"query_pre_attn_scalar", "sliding_window", "rope_local_theta"}),
+}
+# Multimodal wrappers whose language model is the nested text_config.
+_TEXT_CONFIG_TYPES = {"gemma3": "gemma3_text"}
 
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """Dense Llama hyperparameters (defaults: Llama-2-7B)."""
+    """Decoder hyperparameters (defaults: Llama-2-7B), with the JAX
+    package's field semantics: ``sliding_window`` is the local layers'
+    window (query i sees key j iff j <= i and i - j < window);
+    ``layer_sliding`` marks each layer local (True) or global, None meaning
+    every layer is local when a window is set; local layers take the
+    unscaled ``rope_local_theta`` base where it is set, global layers
+    ``rope_theta`` with the ``rope_scaling_kind`` scaling; ``norm_unit_offset``
+    multiplies RMSNorm by (1 + w) in float32; ``ffw_sandwich_norms`` norms
+    the attention output (``post_attention_layernorm``) and the MLP's input
+    and output (``pre/post_feedforward_layernorm``); ``embed_scale`` scales
+    embeddings by sqrt(hidden_size) rounded to the compute dtype; ``qk_norm``
+    is the per-head RMSNorm on q and k before rope."""
 
     model_type: str = "llama"
     vocab_size: int = 32000
@@ -94,14 +139,38 @@ class LlamaConfig:
     final_logit_softcap: float | None = None
     query_pre_attn_scalar: float | None = None
     hidden_act: str = "silu"
+    sliding_window: int | None = None
+    layer_sliding: tuple[bool, ...] | None = None
+    rope_local_theta: float | None = None
+    rope_scaling_kind: str | None = None
+    rope_scaling_factor: float = 1.0
+    ffw_sandwich_norms: bool = False
+    qk_norm: bool = False
+    norm_unit_offset: bool = False
+    embed_scale: bool = False
 
     def __post_init__(self) -> None:
-        if self.hidden_act != "silu":
+        if self.hidden_act not in ACTIVATIONS:
             raise NotImplementedError(
-                f"hidden_act {self.hidden_act!r}: this port runs silu MLPs only"
+                f"hidden_act {self.hidden_act!r}: this port runs {ACTIVATIONS}"
+            )
+        if self.rope_scaling_kind not in _ROPE_SCALINGS:
+            raise NotImplementedError(
+                f"rope scaling {self.rope_scaling_kind!r} is not supported by the PyTorch "
+                "port yet (linear is)"
             )
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError("num_attention_heads must be a multiple of num_key_value_heads")
+        if self.layer_sliding is not None and len(self.layer_sliding) != self.num_hidden_layers:
+            raise ValueError(
+                f"layer_sliding has {len(self.layer_sliding)} entries for "
+                f"{self.num_hidden_layers} layers"
+            )
+
+    @property
+    def rope_scaling_spec(self) -> tuple | None:
+        """("linear", factor) or None, as ``ops.rope.rope_cos_sin`` takes it."""
+        return None if self.rope_scaling_kind is None else ("linear", self.rope_scaling_factor)
 
     @property
     def head_dim(self) -> int:
@@ -118,36 +187,105 @@ class LlamaConfig:
         )
         return float(base) ** -0.5
 
+    @staticmethod
+    def _apply_sliding_pattern(kwargs: dict[str, Any], d: dict[str, Any], family: str,
+                               default_fn) -> None:
+        """Fold the per-layer local flags — from ``layer_types`` (checked
+        against num_hidden_layers) or the family's rule ``default_fn(i)`` —
+        into (sliding_window, layer_sliding): all off -> no window; all on ->
+        a uniform window; mixed -> flags. An explicit native layer_sliding
+        key wins untouched."""
+        if "layer_sliding" in kwargs:
+            return
+        n = d.get("num_hidden_layers", 32)  # the dataclass default
+        lt = d.get("layer_types")
+        pattern = (tuple(t == "sliding_attention" for t in lt) if lt
+                   else tuple(bool(default_fn(i)) for i in range(n)))
+        if len(pattern) != n:
+            raise ValueError(f"{family} layer_types has {len(pattern)} entries for {n} layers")
+        kwargs.setdefault("sliding_window", 4096)  # the HF Gemma config default
+        if not any(pattern):
+            kwargs["sliding_window"] = None
+        elif not all(pattern):
+            kwargs["layer_sliding"] = pattern
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "LlamaConfig":
-        """Build from a config dict; raises NotImplementedError on any field
-        this port does not carry (MoE, MLA, sliding window, chunked or
-        per-layer attention patterns, rope scaling, sandwich norms, NoPE)."""
-        model_type = d.get("model_type", "llama")
-        if model_type not in ("llama", ""):
+        """Build from a config dict: a native one (either package's
+        ``save_params``), whose fields read back by name, or a Hugging Face
+        one of model_type llama, gemma2, gemma3_text or the gemma3 wrapper
+        (its ``text_config``), with the JAX package's family defaults. Raises
+        NotImplementedError on any family or field this port does not carry
+        (Mistral, Qwen, Llama4, MoE, MLA, chunked attention, NoPE, rope
+        scalings other than linear)."""
+        model_type = d.get("model_type") or "llama"
+        if model_type in _TEXT_CONFIG_TYPES:
+            if not d.get("text_config"):
+                raise ValueError(f"{model_type} config without text_config")
+            return cls.from_dict({"model_type": _TEXT_CONFIG_TYPES[model_type], **d["text_config"]})
+        if model_type not in ("llama", "gemma2", "gemma3_text"):
             raise NotImplementedError(
-                f"model_type {model_type!r}: this port runs dense Llama only"
+                f"model_type {model_type!r}: this port runs llama, gemma2 and gemma3 only"
             )
-        for name, off in _UNSUPPORTED.items():
+        native = bool(d.get("fls_native")) or "attention_in_bias" in d
+        unsupported = {**_UNSUPPORTED, **(_GEMMA_DELTAS if native and model_type == "llama" else {})}
+        for name, off in unsupported.items():
             val = d.get(name, off)
             if val in ([], ()):
                 val = None
             if val != off:
                 raise NotImplementedError(
                     f"config field {name}={val!r} is not supported by the "
-                    "PyTorch port yet"
+                    f"PyTorch port yet (model_type {model_type!r})"
                 )
-        if d.get("rope_scaling"):
-            raise NotImplementedError("rope_scaling is not supported by the PyTorch port yet")
-        kwargs = {k: d[k] for k in _FIELDS if k in d}
-        if not d.get("fls_native") and "attention_in_bias" not in d:
-            # A Hugging Face config: one attention_bias flag for all four
-            # projections.
-            if d.get("attention_bias"):
-                kwargs["attention_in_bias"] = kwargs["attention_out_bias"] = True
-            if "head_dim" in d:
+        if native:
+            kwargs = {k: d[k] for k in _FIELDS if k in d}
+        else:
+            allowed = set(_LLAMA_FIELDS) | _HF_FAMILY_FIELDS.get(model_type, frozenset())
+            kwargs = {k: d[k] for k in allowed if k in d}
+            if d.get("head_dim"):
                 kwargs["explicit_head_dim"] = d["head_dim"]
-        kwargs["model_type"] = "llama"
+            if model_type == "llama" and d.get("attention_bias"):
+                # One attention_bias flag for all four projections.
+                kwargs["attention_in_bias"] = kwargs["attention_out_bias"] = True
+            if model_type != "llama":
+                # HF Gemma MLPs ignore the legacy hidden_act key.
+                kwargs["hidden_act"] = d.get("hidden_activation") or "gelu_pytorch_tanh"
+        kwargs["model_type"] = model_type
+        if model_type == "llama":
+            kwargs["sliding_window"] = None  # HF Llama ignores a stray window
+        else:
+            # Gemma 2 and 3: setdefault, so explicit native keys (explicit
+            # nulls included) win over the HF names and defaults.
+            for key in ("norm_unit_offset", "embed_scale", "tie_word_embeddings"):
+                kwargs.setdefault(key, True)
+            kwargs.setdefault("explicit_head_dim", 256)
+            kwargs["ffw_sandwich_norms"] = True
+        if model_type == "gemma2":
+            kwargs.setdefault("attn_logit_softcap", d.get("attn_logit_softcapping", 50.0))
+            kwargs.setdefault("final_logit_softcap", d.get("final_logit_softcapping", 30.0))
+            kwargs.setdefault("query_pre_attn_scalar", 256)
+            # Every even layer slides.
+            cls._apply_sliding_pattern(kwargs, d, "gemma2", lambda i: (i + 1) % 2)
+        elif model_type == "gemma3_text":
+            kwargs.setdefault("qk_norm", True)
+            kwargs.setdefault("query_pre_attn_scalar", 256)
+            kwargs.setdefault("rope_theta", 1_000_000.0)  # global layers
+            kwargs.setdefault("rope_local_theta", d.get("rope_local_base_freq", 10_000.0))
+            # 5:1 local/global: every 6th layer is global.
+            cls._apply_sliding_pattern(kwargs, d, "gemma3", lambda i: (i + 1) % 6 != 0)
+        kwargs.setdefault("num_key_value_heads", d.get("num_attention_heads", 32))
+        if kwargs.get("layer_sliding") is not None:
+            kwargs["layer_sliding"] = tuple(kwargs["layer_sliding"])  # json gives a list
+        rs = d.get("rope_scaling") or {}
+        if rs:
+            kind = rs.get("rope_type", rs.get("type"))
+            if kind != "linear":
+                raise NotImplementedError(
+                    f"rope_scaling type {kind!r} is not supported by the PyTorch port yet"
+                )
+            kwargs["rope_scaling_kind"] = kind
+            kwargs["rope_scaling_factor"] = float(rs.get("factor", 1.0))
         return cls(**kwargs)
 
     @classmethod
@@ -159,7 +297,7 @@ class LlamaConfig:
         """The native config.json payload (read back by both packages)."""
         return {
             "fls_native": True,
-            "use_sliding_window": False,
+            "use_sliding_window": self.sliding_window is not None,
             **dataclasses.asdict(self),
             **_UNSUPPORTED,
         }

@@ -56,9 +56,9 @@
 //     source's diagonal tile, the tile holding a source's limit). TMA loads
 //     whatever lies in the tensor past a source's limit, so that tile's P is
 //     0 there and its V rows are zeroed before PV (0 * NaN would be NaN).
-//   - Tiles past the limit and above the diagonal are never loaded. The
-//     tile loop starts at an explicit index (0 today), where a sliding
-//     window or chunk adds its start bound.
+//   - Tiles past the limit and above the diagonal are never loaded, and
+//     neither are tiles wholly below a sliding window or position chunk
+//     (see "Local attention" below).
 // * Decode. One new token per suffix: 4*hd FLOPs per visible key against
 //   4*hd bytes of K and V (bf16), about one FLOP per byte, so on the H100
 //   (295 bf16 FLOPs per byte of HBM) it is bound by the bytes of the KV it
@@ -91,6 +91,22 @@
 //     fill the 132 SMs (two resident per SM). It pays only where B*n_kv is
 //     small against the SM count (one prompt with a long prefix), and needs
 //     a combine pass.
+// * Local attention (the TPU kernels' window, chunk and local_on; local_on
+//   is resolved on the host and arrives as window = chunk = 0). Every key a
+//   query sees without the local clause sits at an absolute position <= the
+//   query's own (causal j <= i; a prefix key below prefix_len <= the suffix
+//   query's prefix_len + i; an own or generated key at or before the
+//   query), so the clause "q - k < window" or "q and k share a chunk" is one
+//   per-query lower bound on the key position: lo(q) = q - window + 1, or
+//   the start of q's chunk. Each source carries the absolute position of its
+//   key 0 and the query its own; a block starts each source at the tile
+//   holding the smallest lo of its rows, and tests the bound per row only on
+//   tiles that start below the largest. The bound grows with the query
+//   position, so only the tiles between a block's smallest and largest
+//   bound need the test: at most two per consumer in the scoring kernel.
+//   Both kernels are built with and without the bound (template kLocal)
+//   and launched without it when no window or chunk is set, so a global
+//   layer or a model without local layers runs no local code.
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream and returns cudaGetLastError(). The TMA descriptors are encoded on
@@ -134,6 +150,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // k + b*stride_b + s*stride_s. Key j is visible iff j < limit and, for a
 // causal source, j <= the query's row index. limit = lim[b*lim_sb +
 // s*lim_ss] + lim_add, or lim_add alone when lim is null; clamped to len.
+// For the local bound, key j sits at absolute position j, plus the batch
+// entry's query offset (pos[b] of the scoring kernel) when shift is set.
 struct Source {
   const void* k;
   const void* v;
@@ -145,11 +163,21 @@ struct Source {
   int lim_ss;
   int lim_add;
   int causal;
+  int shift;
 };
 
 __device__ __forceinline__ int source_limit(const Source& src, int b, int s) {
   int lim = src.lim ? src.lim[b * src.lim_sb + s * src.lim_ss] + src.lim_add : src.lim_add;
   return max(0, min(lim, src.len));
+}
+
+// The first absolute key position a query at absolute position qpos may see
+// under a sliding window (qpos - window + 1) or a position chunk (the start
+// of qpos's chunk); 0, which bounds nothing, when neither is set.
+__device__ __forceinline__ int local_lo(int qpos, int window, int chunk) {
+  if (window > 0) return qpos - window + 1;
+  if (chunk > 0) return qpos / chunk * chunk;
+  return 0;
 }
 
 __device__ __forceinline__ float cap_score(float x, float softcap) {
@@ -190,6 +218,9 @@ struct ScoreParams {
   int n_s;
   float scale;
   float softcap;
+  int window;      // sliding window, 0 = off
+  int chunk;       // position chunk, 0 = off
+  const int* pos;  // query row i of batch entry b sits at pos[b] + i (null: i)
   int n_src;
   Source src[2];
 };
@@ -282,17 +313,22 @@ __global__ void __launch_bounds__(kScoreThreads) score_kernel_f32(const ScorePar
   const int row = warp * 16 + lane / 2;
   const int half = lane & 1;
   const int qi = q0 + row;
+  const int qoff = p.pos ? p.pos[b] : 0;
+  const int lo_first = local_lo(qoff + q0, p.window, p.chunk);  // the tile's smallest bound
+  const int lo_row = local_lo(qoff + qi, p.window, p.chunk);
   float m = kNegInf;
   float l = 0.f;
 
   for (int si = 0; si < p.n_src; ++si) {
     const Source src = p.src[si];
     const int limit = source_limit(src, b, s);
+    const int off = src.shift ? qoff : 0;  // absolute position of key 0
     int n_tiles = (limit + kTile - 1) / kTile;
     if (src.causal) n_tiles = min(n_tiles, (q0 + q_rows + kTile - 1) / kTile);
     const float* kbase = static_cast<const float*>(src.k) + b * src.stride_b + s * src.stride_s + kvh * HD;
     const float* vbase = static_cast<const float*>(src.v) + b * src.stride_b + s * src.stride_s + kvh * HD;
-    for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = lo_first - off >= limit ? n_tiles : max(lo_first - off, 0) / kTile;
+    for (int t = t0; t < n_tiles; ++t) {
       const int k0 = t * kTile;
       __syncthreads();  // the previous tile's K/V are no longer read
       load_rows<float, HD, L::QP, kScoreThreads>(Ks, kbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
@@ -309,7 +345,7 @@ __global__ void __launch_bounds__(kScoreThreads) score_kernel_f32(const ScorePar
       for (int c = 0; c < 32; ++c) {
         const int col = half * 32 + c;
         const int kj = k0 + col;
-        const bool v = kj < limit && (!src.causal || kj <= qi);
+        const bool v = kj < limit && (!src.causal || kj <= qi) && off + kj >= lo_row;
         float val = kNegInf;
         if (v) {
           val = cap_score(Ss[row * L::SP + col] * p.scale, p.softcap);
@@ -391,6 +427,9 @@ struct TcParams {
   float scale;
   float scale_log2;
   float softcap;
+  int window;
+  int chunk;
+  const int* pos;
   int n_src;
   Source src[2];
 };
@@ -561,11 +600,13 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 }
 
 // One work unit: head h of batch b, and per consumer its first query row,
-// its suffix and whether it has any rows at all.
+// its suffix and whether it has any rows at all; query row i sits at
+// absolute position qoff + i.
 struct BlockPos {
   int b;
   int h;
   int kvh;
+  int qoff;
   int qa[kConsumers];
   int s[kConsumers];
   bool active[kConsumers];
@@ -582,6 +623,7 @@ __device__ __forceinline__ BlockPos unit_pos(const TcParams& p, int u) {
   rest /= p.n_q;
   bp.kvh = bp.h / (p.n_q / p.n_kv);
   bp.b = p.pair_mode ? rest / p.n_pairs : rest;
+  bp.qoff = p.pos ? p.pos[bp.b] : 0;
 #pragma unroll
   for (int g = 0; g < kConsumers; ++g) {
     if (p.pair_mode) {
@@ -598,48 +640,70 @@ __device__ __forceinline__ BlockPos unit_pos(const TcParams& p, int u) {
 }
 
 // One source as the block walks it: per consumer its TMA batch entry, its
-// key limit and its tile count; t0 is the first tile (a later window or
-// chunk start bound goes here).
+// key limit, its tiles [t0, nt) and the local bound of its last query row
+// as a key index of this source (edge: a tile starting below it holds a key
+// some row of the consumer may not see); off is the absolute position of
+// key 0. A consumer without rows has no tiles (t0 past every tile).
 struct SrcPlan {
   int entry[kConsumers];
   int limit[kConsumers];
+  int t0[kConsumers];
   int nt[kConsumers];
-  int t0;
+  int edge[kConsumers];
+  int off;
 };
 
+constexpr int kNoTile = 1 << 30;
+
+template <bool kLocal>
 __device__ __forceinline__ SrcPlan plan_source(const TcParams& p, const BlockPos& bp, int si) {
   const Source& src = p.src[si];
   SrcPlan sp;
-  sp.t0 = 0;
+  sp.off = src.shift ? bp.qoff : 0;
 #pragma unroll
   for (int g = 0; g < kConsumers; ++g) {
     sp.entry[g] = src.stride_s ? bp.b * p.n_s + bp.s[g] : bp.b;
     sp.limit[g] = 0;
+    sp.t0[g] = kNoTile;
     sp.nt[g] = 0;
+    sp.edge[g] = 0;
     if (!bp.active[g]) continue;
     const int lim = source_limit(src, bp.b, bp.s[g]);
+    const int last = min(bp.qa[g] + kBM, p.lq) - 1;
     int nt = (lim + kBN - 1) / kBN;
-    if (src.causal) nt = min(nt, (min(bp.qa[g] + kBM, p.lq) + kBN - 1) / kBN);
+    if (src.causal) nt = min(nt, last / kBN + 1);
     sp.limit[g] = lim;
+    sp.t0[g] = 0;
     sp.nt[g] = nt;
+    if constexpr (kLocal) {
+      // The bound grows with the row: the first row's bound gives the first
+      // tile any row can use, the last row's the end of the tiles to test.
+      const int lo = local_lo(bp.qoff + bp.qa[g], p.window, p.chunk) - sp.off;
+      sp.t0[g] = lo >= lim ? nt : min(max(lo, 0) / kBN, nt);  // no tile when no key is visible
+      sp.edge[g] = local_lo(bp.qoff + last, p.window, p.chunk) - sp.off;
+    }
   }
   return sp;
 }
 
 // The ring's items, in the order the producer loads them and the consumers
 // take them: per source, tiles both consumers share once (same batch entry:
-// the causal form, the shared prefix), else each consumer's own tiles.
-// f(si, plan, entry, t, used_by_0, used_by_1).
-template <class F>
+// the causal form, the shared prefix) from the smaller of their first
+// tiles, else each consumer's own tiles. f(si, plan, entry, t, used_by_0,
+// used_by_1). Without a local form every walk starts at tile 0.
+template <bool kLocal, class F>
 __device__ __forceinline__ void walk_items(const TcParams& p, const BlockPos& bp, F&& f) {
   for (int si = 0; si < p.n_src; ++si) {
-    const SrcPlan sp = plan_source(p, bp, si);
+    const SrcPlan sp = plan_source<kLocal>(p, bp, si);
+    const int a0 = kLocal ? sp.t0[0] : 0;
+    const int a1 = kLocal ? sp.t0[1] : 0;
     if (sp.entry[0] == sp.entry[1]) {
       const int n = max(sp.nt[0], sp.nt[1]);
-      for (int t = sp.t0; t < n; ++t) f(si, sp, sp.entry[0], t, t < sp.nt[0], t < sp.nt[1]);
+      for (int t = min(a0, a1); t < n; ++t)
+        f(si, sp, sp.entry[0], t, t >= a0 && t < sp.nt[0], t >= a1 && t < sp.nt[1]);
     } else {
-      for (int t = sp.t0; t < sp.nt[0]; ++t) f(si, sp, sp.entry[0], t, true, false);
-      for (int t = sp.t0; t < sp.nt[1]; ++t) f(si, sp, sp.entry[1], t, false, true);
+      for (int t = a0; t < sp.nt[0]; ++t) f(si, sp, sp.entry[0], t, true, false);
+      for (int t = a1; t < sp.nt[1]; ++t) f(si, sp, sp.entry[1], t, false, true);
     }
   }
 }
@@ -656,7 +720,7 @@ struct Barriers {
 
 // The producer's one thread: per unit, Q into the unit's buffer once the
 // unit two back has released it, then the unit's K/V tiles through the ring.
-template <int HD>
+template <int HD, bool kLocal>
 __device__ __forceinline__ void produce(const TcParams& p, uint32_t base, const Barriers& bar) {
   using L = TcLayout<HD>;
   int stage = 0;
@@ -677,7 +741,7 @@ __device__ __forceinline__ void produce(const TcParams& p, uint32_t base, const 
         tma_load(base + L::kQ + (qb * kConsumers + g) * L::kQBytes + hh * L::kHalfQ, &p.q_map,
                  bar.qfull0 + 8 * qb, hh * 64, bp.h, bp.qa[g], bp.b * p.n_s + bp.s[g]);
     }
-    walk_items(p, bp, [&](int si, const SrcPlan&, int entry, int t, bool, bool) {
+    walk_items<kLocal>(p, bp, [&](int si, const SrcPlan&, int entry, int t, bool, bool) {
       mbar_wait(bar.empty0 + 8 * stage, phase ^ 1);
       const uint32_t full = bar.full0 + 8 * stage;
       mbar_expect_tx(full, L::kStageBytes);
@@ -697,7 +761,7 @@ __device__ __forceinline__ void produce(const TcParams& p, uint32_t base, const 
 
 // Consumer warpgroup g: per unit, its 64 query rows against every item of
 // the ring (computing on the items it uses, releasing all of them).
-template <typename T, int HD>
+template <typename T, int HD, bool kLocal>
 __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t* smem, uint32_t base,
                                         const Barriers& bar) {
   using L = TcLayout<HD>;
@@ -713,6 +777,8 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
     const int qa = g == 0 ? bp.qa[0] : bp.qa[1];
     const int i0 = qa + r0;
     const int i1 = i0 + 8;
+    const int lo0 = kLocal ? local_lo(bp.qoff + i0, p.window, p.chunk) : 0;  // rows i0, i1: first visible keys
+    const int lo1 = kLocal ? local_lo(bp.qoff + i1, p.window, p.chunk) : 0;
     const uint32_t qs = base + L::kQ + (qb * kConsumers + g) * L::kQBytes;
 
     float o[HD / 2];
@@ -721,7 +787,7 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
     mbar_wait(bar.qfull0 + 8 * qb, (n >> 1) & 1);
-    walk_items(p, bp, [&](int si, const SrcPlan& sp, int, int t, bool use0, bool use1) {
+    walk_items<kLocal>(p, bp, [&](int si, const SrcPlan& sp, int, int t, bool use0, bool use1) {
       mbar_wait(bar.full0 + 8 * stage, phase);
       if (g == 0 ? use0 : use1) {
         const int limit = g == 0 ? sp.limit[0] : sp.limit[1];
@@ -770,12 +836,18 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
 #pragma unroll
           for (int i = 0; i < kBN / 2; ++i) s[i] *= p.scale_log2;
         }
-        if (k0 + kBN > limit || (causal && k0 + kBN - 1 > qa)) {
+        // One branch picks a masked or an unmasked tile, around the mask
+        // only (ptxas serialises wgmma under data-dependent branches).
+        if (k0 + kBN > limit || (causal && k0 + kBN - 1 > qa) ||
+            (kLocal && k0 < (g == 0 ? sp.edge[0] : sp.edge[1]))) {
+          const int lk0 = lo0 - sp.off;  // the rows' bounds as key indices of this source
+          const int lk1 = lo1 - sp.off;
 #pragma unroll
           for (int i = 0; i < kBN / 2; ++i) {
             const int kj = k0 + 8 * (i / 4) + cq + (i & 1);
             const int qi = (i & 2) ? i1 : i0;
-            if (!(kj < limit && (!causal || kj <= qi))) s[i] = -INFINITY;
+            if (!(kj < limit && (!causal || kj <= qi) && (!kLocal || kj >= ((i & 2) ? lk1 : lk0))))
+              s[i] = -INFINITY;
           }
         }
         float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -865,7 +937,9 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
   }
 }
 
-template <typename T, int HD>
+// kLocal: a window or chunk is set (without one the kernel carries no
+// local-bound code at all).
+template <typename T, int HD, bool kLocal>
 __global__ void __launch_bounds__(kTcThreads, 1) score_tc_kernel(const __grid_constant__ TcParams p) {
   using L = TcLayout<HD>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -896,10 +970,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) score_tc_kernel(const __grid_co
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == kConsumers * 128) produce<HD>(p, base, bar);
+    if (threadIdx.x == kConsumers * 128) produce<HD, kLocal>(p, base, bar);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<T, HD>(p, wg, smem, base, bar);
+    consume<T, HD, kLocal>(p, wg, smem, base, bar);
   }
 }
 
@@ -955,6 +1029,9 @@ cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream)
   p.scale = sp.scale;
   p.scale_log2 = sp.scale * kLog2e;
   p.softcap = sp.softcap;
+  p.window = sp.window;
+  p.chunk = sp.chunk;
+  p.pos = sp.pos;
   p.n_src = sp.n_src;
   if (!encode_rows(&p.q_map, sp.q, kBf16, HD, sp.n_q, sp.lq, n_b * sp.n_s, sp.q_stride_bs, kBM))
     return cudaErrorInvalidValue;
@@ -972,8 +1049,14 @@ cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream)
       return cudaErrorInvalidValue;
   }
   // Once per template instantiation (thread-safe static init), not per launch.
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(score_tc_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(score_tc_kernel<T, HD, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(score_tc_kernel<T, HD, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes);
+    return e;
+  }();
   if (attr != cudaSuccess) return attr;
   p.n_qt = p.pair_mode ? (sp.lq + kBM - 1) / kBM : (sp.lq + kConsumers * kBM - 1) / (kConsumers * kBM);
   p.n_units = p.n_qt * sp.n_q * n_b * (p.pair_mode ? p.n_pairs : 1);
@@ -984,7 +1067,8 @@ cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream)
     return n > 0 ? n : 1;
   }();
   const dim3 grid(p.n_units < n_sm ? p.n_units : n_sm);
-  score_tc_kernel<T, HD><<<grid, kTcThreads, L::kBytes, stream>>>(p);
+  if (p.window > 0 || p.chunk > 0) score_tc_kernel<T, HD, true><<<grid, kTcThreads, L::kBytes, stream>>>(p);
+  else score_tc_kernel<T, HD, false><<<grid, kTcThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1007,6 +1091,9 @@ struct DecodeParams {
   int n_chunks;  // blocks per (prompt, KV head): ceil(S * g / kDecodeRows)
   float scale;
   float softcap;
+  int window;  // sliding window, 0 = off
+  int chunk;   // position chunk, 0 = off
+  int t;       // the generated slot of this step's token
   Source src[3];  // prefix, own suffix, generated
 };
 
@@ -1030,20 +1117,24 @@ struct DecodeBlock {
   }
 };
 
-// One stretch of a block's walk: keys [0, limit) of one source for one
-// suffix (for the prefix, of the prompt), updating the block's rows
-// [ra, rb).
+// One stretch of a block's walk: the tiles t0 .. of keys [0, limit) of one
+// source for one suffix (for the prefix, of the prompt), updating the
+// block's rows [ra, rb). Key j sits at absolute position pos0 + j; t0 is
+// the tile holding the smallest local bound of those rows.
 struct DecodeSeg {
   const void* k;  // key 0 of the stretch at the block's KV head
   const void* v;
   int limit;
   int ra;
   int rb;
+  int t0;
+  int pos0;
 };
 
 // Shared memory: the K/V ring, then the path's scratch (float32: Q rows in
 // fp32, scores/P, per-row m, l and alpha; 16-bit: Q rows in T and per-warp
-// row maxima, double-buffered), then the walk's stretches.
+// row maxima, double-buffered), then the walk's stretches, then each row's
+// local bound (the first absolute key position it may see).
 template <typename T, int HD>
 struct DecodeLayout {
   static constexpr int kRowBytes = HD * (int)sizeof(T);  // one K or V row, unpadded
@@ -1057,7 +1148,8 @@ struct DecodeLayout {
       ? sizeof(float) * kDecodeRows * (HD + kTile + 3)
       : sizeof(T) * kDecodeRows * HD + sizeof(float) * 2 * kDecodeWarps * kDecodeRows;
   static constexpr size_t kSeg = align128(kRing + kScratch);
-  static constexpr size_t kBytes = kSeg + sizeof(DecodeSeg) * kDecodeSegs;
+  static constexpr size_t kLo = kSeg + sizeof(DecodeSeg) * kDecodeSegs;
+  static constexpr size_t kBytes = kLo + sizeof(int) * kDecodeRows;
 };
 
 // Byte offset of 16-byte chunk `ch` of row `r` in a K or V tile: the chunk
@@ -1106,24 +1198,26 @@ struct WalkPos {
   int tile;
 };
 
+// The next tile with a visible key: the next of this stretch, else the first
+// (t0) of the next stretch that has one.
 __device__ __forceinline__ void next_tile(WalkPos& w, const DecodeSeg* segs, int n_seg) {
   ++w.tile;
   while (w.seg < n_seg && w.tile * kTile >= segs[w.seg].limit) {
-    ++w.seg;
-    w.tile = 0;
+    if (++w.seg < n_seg) w.tile = segs[w.seg].t0;
   }
 }
 
 // Walks the block's tiles through a ring of kStages stages, kStages - 1
 // tiles ahead of the compute, calling tile(K/V stage, stretch, visible keys,
-// tile number) once each tile's bytes are in shared memory. One commit group
-// per tile (empty past the walk's end, so the group count stays fixed).
+// first key, tile number) once each tile's bytes are in shared memory. One
+// commit group per tile (empty past the walk's end, so the group count
+// stays fixed).
 template <typename T, int HD, class F>
 __device__ __forceinline__ void walk_tiles(const DecodeBlock& blk, const DecodeSeg* segs, unsigned char* smem,
                                            F&& tile) {
   using L = DecodeLayout<T, HD>;
   const uint32_t ring = smem_u32(smem);
-  WalkPos ld = {0, -1};
+  WalkPos ld = {0, segs[0].t0 - 1};
   next_tile(ld, segs, blk.n_seg);
   WalkPos at = ld;
 #pragma unroll
@@ -1144,7 +1238,8 @@ __device__ __forceinline__ void walk_tiles(const DecodeBlock& blk, const DecodeS
     }
     cp_async_commit();
     const DecodeSeg sg = segs[at.seg];
-    tile(smem + stage * L::kStageBytes, sg, min(kTile, sg.limit - at.tile * kTile), i);
+    const int k0 = at.tile * kTile;
+    tile(smem + stage * L::kStageBytes, sg, min(kTile, sg.limit - k0), k0, i);
     next_tile(at, segs, blk.n_seg);
   }
   cp_async_wait<0>();
@@ -1163,9 +1258,9 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* f) {
 // thread owns one key of the tile and half of hd, one shuffle completes the
 // dot; the online softmax runs one warp per row; PV: each thread owns two
 // output dims of a share of the rows.
-template <int HD>
+template <int HD, bool kLocal>
 __device__ __forceinline__ void decode_rows_f32(const DecodeParams& p, const DecodeBlock& blk, const DecodeSeg* segs,
-                                                unsigned char* smem) {
+                                                const int* lo_rows, unsigned char* smem) {
   using L = DecodeLayout<float, HD>;
   constexpr int kPairs = HD / 2;                       // PV: one pair of output dims per thread
   constexpr int kRowGroups = kDecodeThreads / kPairs;  // 2 (hd 128) or 4 (hd 64)
@@ -1195,7 +1290,7 @@ __device__ __forceinline__ void decode_rows_f32(const DecodeParams& p, const Dec
 #pragma unroll
   for (int k = 0; k < kOwn; ++k) o[k] = make_float2(0.f, 0.f);
 
-  walk_tiles<float, HD>(blk, segs, smem, [&](const unsigned char* Kt, const DecodeSeg& sg, int nk, int) {
+  walk_tiles<float, HD>(blk, segs, smem, [&](const unsigned char* Kt, const DecodeSeg& sg, int nk, int k0, int) {
     const unsigned char* Vt = Kt + L::kTileBytes;
     const int ra = sg.ra;
     const int nr = sg.rb - sg.ra;
@@ -1231,16 +1326,18 @@ __device__ __forceinline__ void decode_rows_f32(const DecodeParams& p, const Dec
     __syncthreads();
 
     // Online softmax, one warp per row; Ss becomes P. The limit is tested
-    // only on a source's last tile (the only one with nk < 64).
+    // only on a source's last tile (the only one with nk < 64), the row's
+    // local bound on every tile (it costs nothing next to the FMA products).
     for (int r = warp; r < nr; r += kDecodeWarps) {
       const int row = ra + r;
+      const int lo = kLocal ? lo_rows[row] - sg.pos0 - k0 : 0;  // the row's first visible key of this tile
       float x[2];
       bool vis[2];
       float mx = kNegInf;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int c = lane + 32 * i;
-        vis[i] = nk == kTile || c < nk;
+        vis[i] = (nk == kTile || c < nk) && (!kLocal || c >= lo);
         x[i] = vis[i] ? cap_score(Ss[r * kTile + c] * p.scale, p.softcap) : kNegInf;
         mx = fmaxf(mx, x[i]);
       }
@@ -1350,9 +1447,9 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 // ldmatrix.trans. Each tile's row maxima are exchanged between the warps
 // through shared memory, so every warp rescales by the same m; each warp
 // keeps its own l and O over its keys, summed across the warps at the end.
-template <typename T, int HD>
+template <typename T, int HD, bool kLocal>
 __device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const DecodeBlock& blk, const DecodeSeg* segs,
-                                                unsigned char* smem) {
+                                                const int* lo_rows, unsigned char* smem) {
   using L = DecodeLayout<T, HD>;
   T* Qs = reinterpret_cast<T*>(smem + L::kRing);  // [16][HD], rows past nrow zero
   float* pmax = reinterpret_cast<float*>(smem + L::kRing + sizeof(T) * kDecodeRows * HD);  // [2][warp][row]
@@ -1389,13 +1486,20 @@ __device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const Dec
   const int kcol = (lane / 8) % 2;
   const int vrow = warp * 16 + ((lane / 8) % 2) * 8 + lane % 8;  // and V
   const int vcol = lane / 16;
+  const int lo0 = kLocal ? lo_rows[gr] : 0;  // rows gr, gr + 8: first visible key positions
+  const int lo1 = kLocal ? lo_rows[gr + 8] : 0;
 
-  walk_tiles<T, HD>(blk, segs, smem, [&](const unsigned char* Kt, const DecodeSeg& sg, int nk, int i) {
+  walk_tiles<T, HD>(blk, segs, smem, [&](const unsigned char* Kt, const DecodeSeg& sg, int nk, int k0, int i) {
     const uint32_t kb = smem_u32(Kt);
     const uint32_t vb = kb + L::kTileBytes;
     const bool act0 = gr >= sg.ra && gr < sg.rb;  // rows this stretch updates
     const bool act1 = gr + 8 >= sg.ra && gr + 8 < sg.rb;
     const bool keys = warp * 16 < nk;  // the warp's keys include a visible one
+    // The rows' first visible key as a column of the warp's 16 keys; only
+    // a tile that starts below a row's bound needs the per-row test.
+    const int kpos = sg.pos0 + k0 + warp * 16;
+    const int c0 = lo0 - kpos, c1 = lo1 - kpos;
+    const bool low = kLocal && max(c0, c1) > 0;
 
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     if (keys) {
@@ -1408,14 +1512,15 @@ __device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const Dec
       }
     }
     // Scores in log2 units: scale -> softcap -> mask, the limit tested only
-    // on a source's last tile.
+    // on a source's last tile, the local bound only on a low tile.
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = p.softcap > 0.f ? tanhf(s[j][e] * qk_scale) * cap2 : s[j][e] * qk_scale;
-        if (!keys || (nk < kTile && warp * 16 + 8 * j + 2 * tq + (e & 1) >= nk)) x = -INFINITY;
+        const int c = 8 * j + 2 * tq + (e & 1);  // the key's column among the warp's 16
+        if (!keys || (nk < kTile && warp * 16 + c >= nk) || (low && c < (e < 2 ? c0 : c1))) x = -INFINITY;
         s[j][e] = x;
         if (e < 2) mx0 = fmaxf(mx0, x);
         else mx1 = fmaxf(mx1, x);
@@ -1514,7 +1619,9 @@ __device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const Dec
   }
 }
 
-template <typename T, int HD>
+// kLocal: a window or chunk is set (without one the kernel carries no
+// local-bound code at all).
+template <typename T, int HD, bool kLocal>
 __global__ void __launch_bounds__(kDecodeThreads) decode_rows_kernel(const __grid_constant__ DecodeParams p) {
   using L = DecodeLayout<T, HD>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1531,7 +1638,15 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_rows_kernel(const __gri
   blk.n_seg = 1 + 2 * ((blk.r0 + blk.nrow - 1) / blk.g - s_lo + 1);
   blk.row_stride = (long long)p.n_kv * HD;
 
+  // Absolute positions: prefix key j at j, own key j of suffix s at
+  // prefix_len + j, generated key j at prefix_len + eos[s] + 1 + j, and the
+  // new token of suffix s at prefix_len + eos[s] + 1 + t.
+  const int plen = p.src[0].lim[blk.b];
+  const int* eos = p.src[1].lim + blk.b * p.n_s;
+  auto suffix_lo = [&](int s) { return local_lo(plen + eos[s] + 1 + p.t, p.window, p.chunk); };
   const int tid = threadIdx.x;
+  int* lo_rows = reinterpret_cast<int*>(smem + L::kLo);
+  if (kLocal && tid < kDecodeRows) lo_rows[tid] = tid < blk.nrow ? suffix_lo((blk.r0 + tid) / blk.g) : 0;
   if (tid < blk.n_seg) {
     // Stretch 0 is the prefix; then per suffix s_lo + (tid - 1) / 2 its own
     // KV (odd tid) and its generated KV (even tid).
@@ -1545,11 +1660,28 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_rows_kernel(const __gri
     sg.limit = source_limit(src, blk.b, s);
     sg.ra = tid == 0 ? 0 : max(s * blk.g - blk.r0, 0);
     sg.rb = tid == 0 ? blk.nrow : min((s + 1) * blk.g - blk.r0, blk.nrow);
+    sg.pos0 = 0;
+    sg.t0 = 0;
+    if constexpr (kLocal) {
+      int lo;
+      if (tid == 0) {
+        // The prefix serves every suffix of the block: start at the tile of
+        // the smallest bound, each row's own bound tested per row.
+        lo = suffix_lo(s_lo);
+        for (int si = s_lo + 1; si <= (blk.r0 + blk.nrow - 1) / blk.g; ++si) lo = min(lo, suffix_lo(si));
+      } else {
+        sg.pos0 = tid % 2 ? plen : plen + eos[s] + 1;
+        lo = suffix_lo(s);
+      }
+      // No tile when the bound lies at or past the limit (no key is visible).
+      sg.t0 = lo - sg.pos0 >= sg.limit ? (sg.limit + kTile - 1) / kTile : max(lo - sg.pos0, 0) / kTile;
+    }
     segs[tid] = sg;
   }
-  // Each path stages Q and passes a barrier before the walk reads segs.
-  if constexpr (std::is_same<T, float>::value) decode_rows_f32<HD>(p, blk, segs, smem);
-  else decode_rows_mma<T, HD>(p, blk, segs, smem);
+  // Each path stages Q and passes a barrier before the walk reads segs and
+  // lo_rows.
+  if constexpr (std::is_same<T, float>::value) decode_rows_f32<HD, kLocal>(p, blk, segs, lo_rows, smem);
+  else decode_rows_mma<T, HD, kLocal>(p, blk, segs, lo_rows, smem);
 }
 
 template <typename T, int HD>
@@ -1559,21 +1691,23 @@ cudaError_t launch_decode_rows(const DecodeParams& p, int n_b, cudaStream_t stre
   // launch. The carveout asks for all of the SM's 228 KB as shared memory,
   // so two 16-bit blocks fit on one SM.
   static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(decode_rows_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::kBytes);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(decode_rows_kernel<T, HD>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-    return e;
+    auto set = [](const void* kernel) {
+      const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+      return e != cudaSuccess ? e : cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                                         (int)cudaSharedmemCarveoutMaxShared);
+    };
+    const cudaError_t e = set((const void*)decode_rows_kernel<T, HD, false>);
+    return e != cudaSuccess ? e : set((const void*)decode_rows_kernel<T, HD, true>);
   }();
   if (attr != cudaSuccess) return attr;
   const dim3 grid(p.n_kv * p.n_chunks, n_b);
-  decode_rows_kernel<T, HD><<<grid, kDecodeThreads, L::kBytes, stream>>>(p);
+  if (p.window > 0 || p.chunk > 0) decode_rows_kernel<T, HD, true><<<grid, kDecodeThreads, L::kBytes, stream>>>(p);
+  else decode_rows_kernel<T, HD, false><<<grid, kDecodeThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 Source make_source(const void* k, const void* v, long long stride_b, long long stride_s, int len,
-                   const int* lim, int lim_sb, int lim_ss, int lim_add, int causal) {
+                   const int* lim, int lim_sb, int lim_ss, int lim_add, int causal, int shift) {
   Source s;
   s.k = k;
   s.v = v;
@@ -1585,8 +1719,11 @@ Source make_source(const void* k, const void* v, long long stride_b, long long s
   s.lim_ss = lim_ss;
   s.lim_add = lim_add;
   s.causal = causal;
+  s.shift = shift;
   return s;
 }
+
+bool bad_local(int window, int chunk) { return window < 0 || chunk < 0 || (window > 0 && chunk > 0); }
 
 }  // namespace
 
@@ -1598,13 +1735,16 @@ Source make_source(const void* k, const void* v, long long stride_b, long long s
 // rows; limit lim_i[b*lsb_i + s*lss_i] + ladd_i (ladd_i alone when lim_i is
 // null); causal_i masks keys past the query's row index. A source with
 // ss_i != 0 is a stack of [B, S, len_i] slabs (sb_i == n_s * ss_i).
+// Local attention: a sliding `window` or a position `chunk` (0 = off, not
+// both). Query row i of prompt b sits at absolute position pos[b] + i (i
+// when pos is null), key j of source i at j, plus pos[b] when shift_i.
 extern "C" int fls_score_attention(
     int dtype, int hd, const void* q, void* o, int n_b, int n_s, int lq, int n_q, int n_kv,
-    float scale, float softcap, int n_src,
+    float scale, float softcap, int window, int chunk, const void* pos, int n_src,
     const void* k0, const void* v0, long long sb0, long long ss0, int len0,
-    const void* lim0, int lsb0, int lss0, int ladd0, int causal0,
+    const void* lim0, int lsb0, int lss0, int ladd0, int causal0, int shift0,
     const void* k1, const void* v1, long long sb1, long long ss1, int len1,
-    const void* lim1, int lsb1, int lss1, int ladd1, int causal1,
+    const void* lim1, int lsb1, int lss1, int ladd1, int causal1, int shift1,
     void* stream) {
   ScoreParams p;
   p.q = q;
@@ -1616,11 +1756,16 @@ extern "C" int fls_score_attention(
   p.n_s = n_s;
   p.scale = scale;
   p.softcap = softcap;
+  p.window = window;
+  p.chunk = chunk;
+  p.pos = static_cast<const int*>(pos);
   p.n_src = n_src;
-  p.src[0] = make_source(k0, v0, sb0, ss0, len0, static_cast<const int*>(lim0), lsb0, lss0, ladd0, causal0);
-  p.src[1] = make_source(k1, v1, sb1, ss1, len1, static_cast<const int*>(lim1), lsb1, lss1, ladd1, causal1);
+  p.src[0] = make_source(k0, v0, sb0, ss0, len0, static_cast<const int*>(lim0), lsb0, lss0, ladd0, causal0,
+                         shift0);
+  p.src[1] = make_source(k1, v1, sb1, ss1, len1, static_cast<const int*>(lim1), lsb1, lss1, ladd1, causal1,
+                         shift1);
   if (lq <= 0 || n_b * n_s <= 0) return (int)cudaSuccess;
-  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  if ((hd != 64 && hd != 128) || bad_local(window, chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) err = hd == 64 ? launch_score_f32<64>(p, n_b * n_s, st) : launch_score_f32<128>(p, n_b * n_s, st);
@@ -1632,11 +1777,13 @@ extern "C" int fls_score_attention(
 
 // q, o: [B, S, n_q, hd]. Sources: 0 the shared prefix (limit prefix_len[b]),
 // 1 the suffix's own KV (limit suffix_eos[b, s] + 1), 2 the generated KV
-// (limit t + 1); layout as for fls_score_attention. Every dtype launches
-// decode_rows_kernel.
+// (limit t + 1); layout as for fls_score_attention. Local attention as for
+// fls_score_attention, with the positions of the decode form (the new token
+// of suffix s at prefix_len[b] + suffix_eos[b, s] + 1 + t). Every dtype
+// launches decode_rows_kernel.
 extern "C" int fls_decode_attention(
     int dtype, int hd, const void* q, void* o, int n_b, int n_s, int n_q, int n_kv,
-    float scale, float softcap,
+    float scale, float softcap, int window, int chunk,
     const void* kp, const void* vp, long long p_sb, int lp, const void* prefix_len,
     const void* ks, const void* vs, long long s_sb, long long s_ss, int ls, const void* suffix_eos,
     const void* kg, const void* vg, long long g_sb, long long g_ss, int tg, int t,
@@ -1651,11 +1798,14 @@ extern "C" int fls_decode_attention(
   p.n_chunks = (n_s * g + kDecodeRows - 1) / kDecodeRows;
   p.scale = scale;
   p.softcap = softcap;
-  p.src[0] = make_source(kp, vp, p_sb, 0, lp, static_cast<const int*>(prefix_len), 1, 0, 0, 0);
-  p.src[1] = make_source(ks, vs, s_sb, s_ss, ls, static_cast<const int*>(suffix_eos), n_s, 1, 1, 0);
-  p.src[2] = make_source(kg, vg, g_sb, g_ss, tg, nullptr, 0, 0, t + 1, 0);
+  p.window = window;
+  p.chunk = chunk;
+  p.t = t;
+  p.src[0] = make_source(kp, vp, p_sb, 0, lp, static_cast<const int*>(prefix_len), 1, 0, 0, 0, 0);
+  p.src[1] = make_source(ks, vs, s_sb, s_ss, ls, static_cast<const int*>(suffix_eos), n_s, 1, 1, 0, 0);
+  p.src[2] = make_source(kg, vg, g_sb, g_ss, tg, nullptr, 0, 0, t + 1, 0, 0);
   if (n_b * n_s <= 0) return (int)cudaSuccess;
-  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  if ((hd != 64 && hd != 128) || bad_local(window, chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) err = hd == 64 ? launch_decode_rows<float, 64>(p, n_b, st) : launch_decode_rows<float, 128>(p, n_b, st);

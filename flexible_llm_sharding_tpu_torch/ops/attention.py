@@ -3,9 +3,8 @@ PyTorch — the port of the JAX package's ``ops/attention.py``.
 
 These are the reference semantics the CUDA kernels in
 ``ops/flash_attention.py`` are held against, and what those kernels' plain
-versions run on the CPU. They carry the full mask surface (sliding window,
-chunked attention and the per-layer toggle) so later slices have their
-reference; the kernels of this slice raise on those arguments.
+versions run on the CPU, with the full mask surface: sliding window,
+chunked attention and the per-layer toggle.
 
 Conventions match the JAX ops: QK^T and PV in the input dtype, softmax in
 float32, masked scores set to ``_NEG_INF`` (not -inf, so a fully masked row

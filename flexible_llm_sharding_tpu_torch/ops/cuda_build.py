@@ -28,11 +28,11 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_SOURCE_ARGS = [_P, _P, _LL, _LL, _I, _P, _I, _I, _I, _I]
+_SOURCE_ARGS = [_P, _P, _LL, _LL, _I, _P, _I, _I, _I, _I, _I]
 _SIGNATURES = {
-    "fls_score_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I]
+    "fls_score_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _I]
     + _SOURCE_ARGS + _SOURCE_ARGS + [_P],
-    "fls_decode_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _F,
+    "fls_decode_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
                              _P, _P, _LL, _I, _P,
                              _P, _P, _LL, _LL, _I, _P,
                              _P, _P, _LL, _LL, _I, _I,
@@ -41,6 +41,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+build_log = ""  # the compiler's output of this process's build ("" when the library was cached)
 
 
 def _nvcc() -> str:
@@ -58,7 +59,7 @@ def library() -> ctypes.CDLL:
     is missing, with ``argtypes``/``restype`` declared for every entry point
     (a pointer passed without ``c_void_p`` would be cut to 32 bits). Raises
     with the compiler's output when the build fails."""
-    global _lib
+    global _lib, build_log
     with _lock:
         if _lib is None:
             digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -70,6 +71,7 @@ def library() -> ctypes.CDLL:
                                       capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(f"CUDA kernel build failed:\n{proc.stdout}{proc.stderr}")
+                build_log = proc.stdout + proc.stderr
                 os.replace(tmp, path)
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in _SIGNATURES.items():

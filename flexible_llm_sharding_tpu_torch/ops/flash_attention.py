@@ -13,16 +13,25 @@ Each wrapper replaces one Pallas TPU kernel of the JAX package
   suffix ; generated] KV (``flash_decode_attention``, ``_decode_kernel``).
 
 On CUDA tensors a wrapper launches its hand-written kernel
-(``csrc/flash_attention.cu``, built on first use) and counts the launch; it
-never falls back. On CPU tensors it runs its plain version, a function of the
-same signature built on ``ops/attention.py``. Every function takes an
-explicit leading batch (block) dimension ``B``.
+(``csrc/flash_attention.cu``, built on first use) and counts the launch,
+and separately each launch with a local form on; it never falls back. On
+CPU tensors it runs its plain version, a function of the same signature
+built on ``ops/attention.py``. Every function takes an explicit leading
+batch (block) dimension ``B``.
 
 What the kernels compute, beyond the plain attention ops: key ``j`` of a
 causal prefix is visible to query ``i`` iff ``j <= i`` and
 ``j < valid_len``, so the padding query rows ``i >= valid_len`` see the real
 keys and stay finite; a query row with no visible key is written as 0 (the
 TPU kernels' ``_finish``). The plain versions reproduce exactly that.
+
+Local attention, as the TPU kernels take it: a sliding ``window`` (query at
+absolute position q sees keys k with q - k < window) or a position
+``chunk`` (q and k in the same chunk), never both, and ``local_on``, the
+per-layer toggle (None or True: the local form applies; False: it does
+not). On CUDA ``local_on`` must be a Python or numpy bool: it is resolved on
+the host, so a launch never waits on the device for it; the plain versions
+also take a bool tensor.
 """
 
 from __future__ import annotations
@@ -43,19 +52,36 @@ KERNELS = ("flash_causal_attention", "flash_prefix_shared_attention", "flash_dec
 
 
 def check_cuda_args(window=None, chunk=None, local_on=None, head_dim=128, v_dim=None) -> None:
-    """Reject, before any launch, what this slice's CUDA kernels do not
-    compute: sliding-window/chunked attention and its per-layer toggle, a V
-    head dim different from Q/K's (MLA), and head dims other than 64/128."""
-    if window is not None or chunk is not None or local_on is not None:
-        raise NotImplementedError(
-            "the CUDA attention kernels do not support window/chunk/local_on yet"
-        )
+    """Reject, before any launch, what the CUDA kernels do not compute: a
+    window and a chunk at once, a window or chunk below 1, a ``local_on``
+    tensor (TypeError: the toggle is resolved on the host), a V head dim
+    different from Q/K's (MLA), and head dims other than 64/128."""
+    if window is not None and chunk is not None:
+        raise ValueError("window and chunk are mutually exclusive")
+    if any(x is not None and int(x) < 1 for x in (window, chunk)):
+        raise ValueError(f"window and chunk must be >= 1, got {window}, {chunk}")
+    if torch.is_tensor(local_on):
+        raise TypeError("local_on must be a bool on CUDA: the kernels take it from the host")
     if v_dim is not None and v_dim != head_dim:
         raise NotImplementedError("the CUDA attention kernels need v_dim == head_dim")
     if head_dim not in _HEAD_DIMS:
         raise NotImplementedError(
             f"the CUDA attention kernels support head_dim in {_HEAD_DIMS}, got {head_dim}"
         )
+
+
+def _local_form(window, chunk, local_on) -> tuple[int, int]:
+    """(window, chunk) as the kernels take them, 0 meaning off: the local
+    form unless the per-layer toggle is off."""
+    if local_on is not None and not bool(local_on):
+        return 0, 0
+    return int(window or 0), int(chunk or 0)
+
+
+def _count(fn, window: int, chunk: int) -> None:
+    fn.launches += 1
+    if window or chunk:
+        fn.local_launches += 1
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -134,23 +160,24 @@ def flash_causal_attention(q, k, v, valid_len, scale=None, window=None, chunk=No
     _check("k", k, q.dtype, (b, lq, n_kv, hd), q.device)
     _check("v", v, q.dtype, (b, lq, n_kv, hd), q.device)
     vl = _lengths("valid_len", valid_len, (b,), q.device)
+    win, chk = _local_form(window, chunk, local_on)
     out = torch.empty_like(q)
     from flexible_llm_sharding_tpu_torch.ops.cuda_build import library
 
     stride_b = lq * n_kv * hd
     err = library().fls_score_attention(
         _DTYPE_CODES[q.dtype], hd, q.data_ptr(), out.data_ptr(), b, 1, lq, n_q, n_kv,
-        _scale(scale, hd), _softcap_arg(softcap), 1,
-        k.data_ptr(), v.data_ptr(), stride_b, 0, lq, vl.data_ptr(), 1, 0, 0, 1,
-        None, None, 0, 0, 0, None, 0, 0, 0, 0,
+        _scale(scale, hd), _softcap_arg(softcap), win, chk, None, 1,
+        k.data_ptr(), v.data_ptr(), stride_b, 0, lq, vl.data_ptr(), 1, 0, 0, 1, 0,
+        None, None, 0, 0, 0, None, 0, 0, 0, 0, 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "flash_causal_attention")
-    flash_causal_attention.launches += 1
+    _count(flash_causal_attention, win, chk)
     return out
 
 
-flash_causal_attention.launches = 0
+flash_causal_attention.launches = flash_causal_attention.local_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -194,23 +221,28 @@ def flash_prefix_shared_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, pre
     _check("k_suffix", k_suffix, q.dtype, (b, s, ls, n_kv, hd), dev)
     _check("v_suffix", v_suffix, q.dtype, (b, s, ls, n_kv, hd), dev)
     pl = _lengths("prefix_len", prefix_len, (b,), dev)
+    win, chk = _local_form(window, chunk, local_on)
     out = torch.empty_like(q)
     from flexible_llm_sharding_tpu_torch.ops.cuda_build import library
 
+    # Suffix query i and suffix key j sit at prefix_len[b] + i / + j: the
+    # query offset is prefix_len and the suffix source is shifted by it
+    # (positions matter only to a local form).
     row = n_kv * hd
+    local = bool(win or chk)
     err = library().fls_score_attention(
         _DTYPE_CODES[q.dtype], hd, q.data_ptr(), out.data_ptr(), b, s, ls, n_q, n_kv,
-        _scale(scale, hd), _softcap_arg(softcap), 2,
-        k_prefix.data_ptr(), v_prefix.data_ptr(), lp * row, 0, lp, pl.data_ptr(), 1, 0, 0, 0,
-        k_suffix.data_ptr(), v_suffix.data_ptr(), s * ls * row, ls * row, ls, None, 0, 0, ls, 1,
+        _scale(scale, hd), _softcap_arg(softcap), win, chk, pl.data_ptr() if local else None, 2,
+        k_prefix.data_ptr(), v_prefix.data_ptr(), lp * row, 0, lp, pl.data_ptr(), 1, 0, 0, 0, 0,
+        k_suffix.data_ptr(), v_suffix.data_ptr(), s * ls * row, ls * row, ls, None, 0, 0, ls, 1, int(local),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "flash_prefix_shared_attention")
-    flash_prefix_shared_attention.launches += 1
+    _count(flash_prefix_shared_attention, win, chk)
     return out
 
 
-flash_prefix_shared_attention.launches = 0
+flash_prefix_shared_attention.launches = flash_prefix_shared_attention.local_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -263,24 +295,25 @@ def flash_decode_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, k_gen, v_g
     _check("v_gen", v_gen, q.dtype, (b, s, tg, n_kv, hd), dev)
     pl = _lengths("prefix_len", prefix_len, (b,), dev)
     eos = _lengths("suffix_eos", suffix_eos, (b, s), dev)
+    win, chk = _local_form(window, chunk, local_on)
     out = torch.empty_like(q)
     from flexible_llm_sharding_tpu_torch.ops.cuda_build import library
 
     row = n_kv * hd
     err = library().fls_decode_attention(
         _DTYPE_CODES[q.dtype], hd, q.data_ptr(), out.data_ptr(), b, s, n_q, n_kv,
-        _scale(scale, hd), _softcap_arg(softcap),
+        _scale(scale, hd), _softcap_arg(softcap), win, chk,
         k_prefix.data_ptr(), v_prefix.data_ptr(), lp * row, lp, pl.data_ptr(),
         k_suffix.data_ptr(), v_suffix.data_ptr(), s * ls * row, ls * row, ls, eos.data_ptr(),
         k_gen.data_ptr(), v_gen.data_ptr(), s * tg * row, tg * row, tg, t,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "flash_decode_attention")
-    flash_decode_attention.launches += 1
+    _count(flash_decode_attention, win, chk)
     return out
 
 
-flash_decode_attention.launches = 0
+flash_decode_attention.launches = flash_decode_attention.local_launches = 0
 
 PLAIN = {
     "flash_causal_attention": causal_attention_plain,
@@ -294,9 +327,14 @@ def launch_counts() -> dict[str, int]:
     return {name: globals()[name].launches for name in KERNELS}
 
 
+def local_launch_counts() -> dict[str, int]:
+    """Of those, the launches with a sliding window or chunk on."""
+    return {name: globals()[name].local_launches for name in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for name in KERNELS:
-        globals()[name].launches = 0
+        globals()[name].launches = globals()[name].local_launches = 0
 
 
 __all__ = [
@@ -309,6 +347,7 @@ __all__ = [
     "flash_decode_attention",
     "flash_prefix_shared_attention",
     "launch_counts",
+    "local_launch_counts",
     "prefix_shared_attention_plain",
     "reset_launch_counts",
 ]

@@ -1,6 +1,8 @@
-"""Rotary position embeddings without scaling, with HF Llama semantics (the
-JAX package's ``ops/rope.py``): the angle table in float32 from frequencies
-computed in float64 on the host, the rotation in the activation dtype."""
+"""Rotary position embeddings with HF Llama semantics (the JAX package's
+``ops/rope.py``): the angle table in float32 from frequencies computed in
+float64 on the host, the rotation in the activation dtype. Unscaled, or
+with linear scaling (HF ``LlamaLinearScalingRotaryEmbedding``: every
+frequency divided by the factor)."""
 
 from __future__ import annotations
 
@@ -11,16 +13,22 @@ import torch
 
 
 @functools.lru_cache(maxsize=None)
-def _inv_freq(head_dim: int, theta: float) -> np.ndarray:
+def _inv_freq(head_dim: int, theta: float, scaling: tuple | None = None) -> np.ndarray:
     freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+    if scaling is not None:
+        kind, factor = scaling
+        if kind != "linear":
+            raise NotImplementedError(f"rope scaling kind {kind!r}")
+        freq = freq / factor
     return freq.astype(np.float32)
 
 
 def rope_cos_sin(
-    positions: torch.Tensor, head_dim: int, theta: float
+    positions: torch.Tensor, head_dim: int, theta: float, scaling: tuple | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Integer positions [..., L] -> float32 (cos, sin) [..., L, head_dim//2]."""
-    freqs = torch.from_numpy(_inv_freq(head_dim, float(theta))).to(positions.device)
+    """Integer positions [..., L] -> float32 (cos, sin) [..., L, head_dim//2].
+    ``scaling``: None or ("linear", factor), ``LlamaConfig.rope_scaling_spec``."""
+    freqs = torch.from_numpy(_inv_freq(head_dim, float(theta), scaling)).to(positions.device)
     angles = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 

@@ -26,6 +26,7 @@ from flexible_llm_sharding_tpu_torch.runtime.executor import (
     StreamingExecutor,
     _tree_map,
     block_meta,
+    first_decoder,
     peak_mem_gb,
     sync,
 )
@@ -73,6 +74,7 @@ class DecodeGenerator(StreamingExecutor):
         kv_store = KVStore(cfg.storage_location == "gpu", self.device)
         n_layers = len(self.layer_names)
         n_shards = len(self.plan.shards)
+        sliding = llama.layer_sliding_pattern(mcfg)
         all_scores: list[list[np.ndarray]] = [[] for _ in blocks]
         tok_hist: list[list[np.ndarray]] = [[] for _ in blocks]
         picker = make_picker(cfg)
@@ -111,12 +113,13 @@ class DecodeGenerator(StreamingExecutor):
                     li = 0
                     for kind, params in segments:
                         if kind == "embed":
-                            ph = llama.embed(params, prefix_ids, self.dtype)
-                            sh = llama.embed(params, suffix_ids, self.dtype)
+                            ph = llama.embed(params, prefix_ids, self.dtype, mcfg)
+                            sh = llama.embed(params, suffix_ids, self.dtype, mcfg)
                         elif kind == "decoders":
                             for layer in params:
                                 ph, sh, kv = llama.prefix_suffix_layer(
-                                    layer, mcfg, ph, sh, prefix_len, return_kv=True
+                                    layer, mcfg, ph, sh, prefix_len, return_kv=True,
+                                    sliding=sliding[first_decoder(layer_idxs) + li],
                                 )
                                 gen_shape = (*kv["ks"].shape[:2], gen_slots, *kv["ks"].shape[3:])
                                 kv["kg"] = kv["ks"].new_zeros(gen_shape)
@@ -147,19 +150,21 @@ class DecodeGenerator(StreamingExecutor):
                         for kind, params in segments:
                             if kind == "embed":
                                 ids = torch.from_numpy(np.asarray(tok_hist[b][-1])[..., None])
-                                x = llama.embed(params, ids.to(self.device), self.dtype)
+                                x = llama.embed(params, ids.to(self.device), self.dtype, mcfg)
                             elif kind == "decoders":
                                 for layer in params:
                                     kv = kv_store.get(("kv", shard_pos, li, b))
                                     x = llama.decode_step_layer(
-                                        layer, mcfg, x, kv, prefix_len, suffix_eos, t
+                                        layer, mcfg, x, kv, prefix_len, suffix_eos, t,
+                                        sliding=sliding[first_decoder(layer_idxs) + li],
                                     )
                                     kv_store.put(("kv", shard_pos, li, b), kv)
                                     li += 1
                             elif kind == "norm":
                                 norm_params = params  # applied with the head
                             else:
-                                h = rms_norm(x, norm_params["scale"], mcfg.rms_norm_eps)
+                                h = rms_norm(x, norm_params["scale"], mcfg.rms_norm_eps,
+                                             mcfg.norm_unit_offset)
                                 head(b, llama.lm_head_scores(params, h, mcfg.final_logit_softcap))
                         if layer_idxs[-1] != n_layers - 1:
                             kv_store.put(("x", b), x)

@@ -221,21 +221,30 @@ def block_meta(toks: list[TokenizedPrompt], idxs: list[int], device: torch.devic
     )
 
 
+def first_decoder(layer_idxs: Sequence[int]) -> int:
+    """Decoder index of a shard's first decoder layer (execution-list index
+    minus the embedding's slot)."""
+    return max(layer_idxs[0] - 1, 0)
+
+
 def apply_segments(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments,
-                   prefix_h, suffix_h, meta):
-    """Run one shard's segments over a block. Returns (prefix_h, suffix_h,
-    block_scores) with block_scores the float32 [B, S, V] distributions when
-    the shard holds the lm_head, else None."""
+                   prefix_h, suffix_h, meta, first_layer: int = 0):
+    """Run one shard's segments over a block; the shard's first decoder
+    layer is decoder ``first_layer`` of the model. Returns (prefix_h,
+    suffix_h, block_scores) with block_scores the float32 [B, S, V]
+    distributions when the shard holds the lm_head, else None."""
     prefix_ids, suffix_ids, prefix_len, suffix_eos = meta
+    sliding = llama.layer_sliding_pattern(model_cfg)
     block_scores = None
     for kind, params in segments:
         if kind == "embed":
-            prefix_h = llama.embed(params, prefix_ids, dtype)
-            suffix_h = llama.embed(params, suffix_ids, dtype)
+            prefix_h = llama.embed(params, prefix_ids, dtype, model_cfg)
+            suffix_h = llama.embed(params, suffix_ids, dtype, model_cfg)
         elif kind == "decoders":
-            for layer in params:
+            for i, layer in enumerate(params):
                 prefix_h, suffix_h = llama.prefix_suffix_layer(
-                    layer, model_cfg, prefix_h, suffix_h, prefix_len
+                    layer, model_cfg, prefix_h, suffix_h, prefix_len,
+                    sliding=sliding[first_layer + i],
                 )
         elif kind == "norm":
             suffix_h = llama.select_eos_and_norm(params, model_cfg, suffix_h, suffix_eos)
@@ -259,7 +268,7 @@ def process_block(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments
     else:
         prefix_h, suffix_h = store.fetch(b, idxs, with_prefix=first <= n_layers - 3)
     prefix_h, suffix_h, block_scores = apply_segments(
-        model_cfg, dtype, segments, prefix_h, suffix_h, meta
+        model_cfg, dtype, segments, prefix_h, suffix_h, meta, first_decoder(layer_idxs)
     )
     if block_scores is not None:
         host = block_scores.to("cpu").numpy()
@@ -359,6 +368,7 @@ __all__ = [
     "StreamingExecutor",
     "apply_segments",
     "block_meta",
+    "first_decoder",
     "peak_mem_gb",
     "process_block",
     "sync",

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Time variants of the port's decode kernel side by side on one NVIDIA GPU.
+"""Time variants of the port's kernels side by side on one NVIDIA GPU.
 
     python3 scripts/torch_decode_variants.py
 
 Each variant is ``csrc/flash_attention.cu`` with a few source substitutions
 (each must match exactly once), built by ``nvcc`` with the port's flags into
 ``build/torch_kernels/variants/`` (all builds started together). For each
-variant in turn the wrapper's library is swapped, the decode kernel is held
-against its plain version (bf16, atol = rtol = 2e-2; diagnostic variants
-that skip the loads or the products are not checked), and its device time
-is read as ``chip_smoke.py`` reads it: at the full-width run's shapes and at
-a 4096-token prefix with one prompt. The variants are printed in the order
-given, base first and last, so drift within the call shows.
+variant in turn the wrapper's library is swapped, the kernels it names are
+held against their plain versions (bf16, atol = rtol = 2e-2; diagnostic
+variants that skip the loads or the products are not checked), and their
+device times are read as ``chip_smoke.py`` reads them: at the Llama-2-7B
+full-width run's shapes and at a 4096-token prefix with one prompt. The
+variants are printed in the order given, base first and last, so drift
+within the call shows.
 """
 
 from __future__ import annotations
@@ -30,19 +31,25 @@ import chip_smoke  # noqa: E402
 from flexible_llm_sharding_tpu_torch.ops import cuda_build  # noqa: E402
 from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
-KERNEL = "flash_decode_attention"
+DECODE = ("flash_decode_attention",)
+ALL = ("flash_causal_attention", "flash_prefix_shared_attention", "flash_decode_attention")
 STAGES = "static constexpr int kStages = sizeof(T) == 4 ? 2 : 3;"
+LOCAL = "p.window > 0 || p.chunk > 0"
 
-# name -> (substitutions, checked against the plain version)
+# name -> (substitutions, checked against the plain version, kernels timed)
 VARIANTS = {
-    "base": ([], True),
-    "stages 2": ([(STAGES, STAGES.replace(": 3;", ": 2;"))], True),
+    "base": ([], True, ALL),
+    "stages 2": ([(STAGES, STAGES.replace(": 3;", ": 2;"))], True, DECODE),
     # Diagnostics of the bf16 path: the ring, softmax and barriers without
     # the products; the products without the copies (the stages hold
     # whatever they held).
-    "no products": ([("const bool keys = warp * 16 < nk;", "const bool keys = false;")], False),
+    "no products": ([("const bool keys = warp * 16 < nk;", "const bool keys = false;")], False, DECODE),
     "no loads": ([("    cp_async16(stage + which * L::kTileBytes + swizzled(r, ch, L::kRowBytes), src, r < avail ? 16 : 0);",
-                   "    (void)src;")], False),
+                   "    (void)src;")], False, DECODE),
+    # What the local bound's code costs where no window is set: the kernels
+    # built with it (kLocal) launched at window 0, as for a local layer.
+    "local path at window 0": ([(f"if ({LOCAL}) {k}<T, HD, true>", f"if (true) {k}<T, HD, true>")
+                                for k in ("score_tc_kernel", "decode_rows_kernel")], True, ALL),
 }
 
 
@@ -89,20 +96,23 @@ def main() -> None:
                  "hd": 128, "plen": [4096], "eos": [[63] * 4]}
     cases = {"main": main_case, "4096 prefix, B 1": long_case}
     inputs = {k: chip_smoke._inputs(c, torch.bfloat16, gen) for k, c in cases.items()}
-    bounds = {k: chip_smoke._bounds(c)[KERNEL][0] for k, c in cases.items()}
+    bounds = {k: chip_smoke._bounds(c) for k, c in cases.items()}
     for name in [*names, "base"]:
         load(paths[name])
-        times = {}
-        for k, x in inputs.items():
-            call, kw = chip_smoke._calls(x, None)[KERNEL]
-            if VARIANTS[name][1]:
-                got = fa.flash_decode_attention(*call, **kw).float()
-                want = fa.PLAIN[KERNEL](*chip_smoke._f32(call), **kw)
-                if not ((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all():
-                    chip_smoke.fail(f"variant {name!r} disagrees with the plain version ({k})")
-            times[k] = chip_smoke._device_ms(lambda: fa.flash_decode_attention(*call, **kw))
-        chip_smoke.log(f"[variant] {name}: " + ", ".join(
-            f"{k} {ms:.4f} ms ({ms / bounds[k]:.2f}x bound)" for k, ms in times.items()))
+        _, checked, kernels = VARIANTS[name]
+        for kernel in kernels:
+            times = {}
+            for k, x in inputs.items():
+                call, kw = chip_smoke._calls(x, None)[kernel]
+                fn = getattr(fa, kernel)
+                if checked:
+                    got = fn(*call, **kw).float()
+                    want = fa.PLAIN[kernel](*chip_smoke._f32(call), **kw)
+                    if not ((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all():
+                        chip_smoke.fail(f"variant {name!r} disagrees with the plain version ({kernel}, {k})")
+                times[k] = chip_smoke._device_ms(lambda: fn(*call, **kw))
+            chip_smoke.log(f"[variant] {name}, {kernel}: " + ", ".join(
+                f"{k} {ms:.4f} ms ({ms / bounds[k][kernel][0]:.2f}x bound)" for k, ms in times.items()))
 
 
 if __name__ == "__main__":

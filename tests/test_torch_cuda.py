@@ -175,7 +175,65 @@ def test_zero_valid_length_rows_are_zero(gen):
 
 
 def test_cuda_wrappers_refuse_window(gen):
+    """A window and a chunk at once, or a window below 1, never launch."""
     q = _rnd(gen, torch.bfloat16, 1, 64, 2, 64)
-    with pytest.raises(NotImplementedError):
-        fa.flash_causal_attention(q, q, q, torch.ones(1, dtype=torch.int32, device="cuda"),
-                                  window=16)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError):
+        fa.flash_causal_attention(q, q, q, one, window=16, chunk=32)
+    with pytest.raises(ValueError):
+        fa.flash_causal_attention(q, q, q, one, window=0)
+    assert fa.launch_counts()["flash_causal_attention"] == 0
+
+
+# Local forms: windows around the 64-key tiles (1, 48, 64, 65, 130), chunks
+# (32, 64, 100), and a window with the per-layer toggle off.
+LOCAL = [({"window": w}, f"window{w}") for w in (1, 48, 64, 65, 130)] + [
+    ({"chunk": c}, f"chunk{c}") for c in (32, 64, 100)] + [
+    ({"window": 48, "local_on": False}, "window48-off")]
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("local", [kw for kw, _ in LOCAL], ids=[name for _, name in LOCAL])
+def test_local_attention_kernels_match_plain(gen, dtype, local):
+    """Every kernel with a window, a chunk or the toggle off, GQA 32/16, with
+    and without NaN past every limit. Prompt 1's prefix (41 of 130 rows)
+    leaves causal padding rows with no visible key under a small window;
+    the decode suffixes' different eos put their bounds in different tiles."""
+    b, s, lp, ls, tg, t, nq, nkv, hd = 2, 3, 130, 70, 5, 4, 32, 16, 128
+    plen = torch.tensor([130, 41], dtype=torch.int32, device="cuda")
+    eos = torch.tensor([[0, 69, 12], [5, 66, 37]], dtype=torch.int32, device="cuda")
+    q = _rnd(gen, dtype, b, lp, nq, hd)
+    qs = _rnd(gen, dtype, b, s, ls, nq, hd)
+    qd = _rnd(gen, dtype, b, s, 1, nq, hd)
+    zero, nan = _decode_kv(gen, dtype, b, s, lp, ls, tg, nkv, hd, plen, eos, t)
+    for fed in (zero, nan):
+        _close(fa.flash_causal_attention(q, fed["kp"], fed["vp"], plen, **local),
+               fa.causal_attention_plain(*_f32(q, zero["kp"], zero["vp"], plen), **local), dtype)
+        _close(fa.flash_prefix_shared_attention(qs, fed["kp"], fed["vp"], zero["ks"], zero["vs"], plen,
+                                                **local),
+               fa.prefix_shared_attention_plain(*_f32(qs, zero["kp"], zero["vp"], zero["ks"], zero["vs"],
+                                                      plen), **local), dtype)
+        _close(fa.flash_decode_attention(qd, *(fed[n] for n in DECODE_KV), plen, eos, t, **local),
+               fa.decode_attention_plain(*_f32(qd, *(zero[n] for n in DECODE_KV)), plen, eos, t,
+                                         **local), dtype)
+
+
+def test_local_launches_are_counted(gen):
+    """The local count moves only for launches with the window on."""
+    q = _rnd(gen, torch.bfloat16, 1, 64, 2, 64)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    fa.reset_launch_counts()
+    fa.flash_causal_attention(q, q, q, one, window=16)
+    fa.flash_causal_attention(q, q, q, one, window=16, local_on=False)
+    fa.flash_causal_attention(q, q, q, one, chunk=32, local_on=True)
+    assert fa.launch_counts()["flash_causal_attention"] == 3
+    assert fa.local_launch_counts()["flash_causal_attention"] == 2
+
+
+def test_local_on_tensor_raises_on_cuda(gen):
+    q = _rnd(gen, torch.bfloat16, 1, 64, 2, 64)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        fa.flash_causal_attention(q, q, q, one, window=16,
+                                  local_on=torch.tensor(True, device="cuda"))

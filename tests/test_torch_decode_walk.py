@@ -11,7 +11,10 @@ step as the kernel walks:
   suffix its own tiles and its generated tiles, for that suffix's rows only;
 - tiles are ``TILE`` keys, and the rows at or past a source's limit are
   zero-filled, never read;
-- one online-softmax update per tile, with P rounded to V's dtype before PV.
+- one online-softmax update per tile, with P rounded to V's dtype before PV;
+- with a sliding window or chunk, each stretch starts at the tile holding
+  the smallest local bound of its rows (for the prefix, over every suffix
+  of the chunk), and each row's own bound is tested per key.
 
 The emulation lives here, not in the package: the package keeps one plain
 version. It is held against the Pallas kernel in interpret mode (hd 128) and
@@ -38,7 +41,17 @@ ATOL = 1e-5
 B, LP, LS = 2, 130, 64
 
 
-def walk_decode(q, kp, vp, ks, vs, kg, vg, plen, eos, t, softcap=None, tiles=None):
+def local_lo(qpos, window=None, chunk=None):
+    """The first absolute key position a query at qpos may see."""
+    if window is not None:
+        return qpos - window + 1
+    if chunk is not None:
+        return qpos // chunk * chunk
+    return 0
+
+
+def walk_decode(q, kp, vp, ks, vs, kg, vg, plen, eos, t, softcap=None, tiles=None,
+                window=None, chunk=None):
     """The kernel's function, computed in its walk order. Shapes as
     ``flash_decode_attention`` (q [B, S, 1, n_q, hd], ...). ``tiles``, if a
     list, gets one (b, kv head, first row, source, first key) per tile read."""
@@ -57,15 +70,20 @@ def walk_decode(q, kp, vp, ks, vs, kg, vg, plen, eos, t, softcap=None, tiles=Non
                 m = torch.full((nr,), NEG_INF)
                 l = torch.zeros(nr)
                 acc = torch.zeros(nr, hd)
-                # (source, K, V, limit, rows ra:rb it updates)
-                walk = [(0, kp[b, :, h], vp[b, :, h], min(max(int(plen[b]), 0), lp), 0, nr)]
+                pl = int(plen[b])
+                lo = torch.tensor([local_lo(pl + int(eos[b, r // g]) + 1 + t, window, chunk)
+                                   for r in rows])
+                # (source, K, V, limit, rows ra:rb it updates, position of key 0)
+                walk = [(0, kp[b, :, h], vp[b, :, h], min(max(pl, 0), lp), 0, nr, 0)]
                 for s in range(r0 // g, rows[-1] // g + 1):
                     ra, rb = max(s * g - r0, 0), min((s + 1) * g - r0, nr)
                     walk.append((1, ks[b, s, :, h], vs[b, s, :, h], min(max(int(eos[b, s]) + 1, 0), ls),
-                                 ra, rb))
-                    walk.append((2, kg[b, s, :, h], vg[b, s, :, h], min(t + 1, tg), ra, rb))
-                for src, k, v, limit, ra, rb in walk:
-                    for k0 in range(0, limit, TILE):
+                                 ra, rb, pl))
+                    walk.append((2, kg[b, s, :, h], vg[b, s, :, h], min(t + 1, tg), ra, rb,
+                                 pl + int(eos[b, s]) + 1))
+                for src, k, v, limit, ra, rb, pos0 in walk:
+                    first = int(lo[ra:rb].min()) - pos0  # no tile when no key is visible
+                    for k0 in range(max(first, 0) // TILE * TILE if first < limit else limit, limit, TILE):
                         n = min(TILE, limit - k0)
                         kt, vt = k.new_zeros(TILE, hd), v.new_zeros(TILE, hd)
                         kt[:n], vt[:n] = k[k0:k0 + n], v[k0:k0 + n]
@@ -74,7 +92,8 @@ def walk_decode(q, kp, vp, ks, vs, kg, vg, plen, eos, t, softcap=None, tiles=Non
                         sc = qr[ra:rb] @ kt.float().T * scale
                         if softcap is not None:
                             sc = torch.tanh(sc / softcap) * softcap
-                        vis = torch.arange(TILE) < n
+                        col = torch.arange(TILE)
+                        vis = (col < n) & (pos0 + k0 + col >= lo[ra:rb, None])
                         sc = torch.where(vis, sc, NEG_INF)
                         m_new = torch.maximum(m[ra:rb], sc.max(-1).values)
                         p = torch.where(vis, torch.exp(sc - m_new[:, None]), 0.0)
@@ -174,3 +193,64 @@ def test_walk_reads_each_prefix_tile_once_per_chunk(s, nq, nkv, chunks):
             straddling = sum(1 for i in range(s) if (i * g) // ROWS != ((i + 1) * g - 1) // ROWS)
             want = sum(-(-lim // TILE) for lim in limits)
             assert want <= len(own) <= want + straddling * -(-max(limits) // TILE)
+
+
+# Local forms around the 64-key tiles, on edges whose suffixes' eos spread
+# over more than a tile, so the bounds of one block's rows fall in
+# different tiles.
+LOCAL_FORMS = [{"window": 1}, {"window": 48}, {"window": 65}, {"window": 130},
+               {"chunk": 32}, {"chunk": 100}]
+LOCAL_EDGES = [DECODE_EDGES[0], DECODE_EDGES[2], DECODE_EDGES[5]]
+
+
+@pytest.mark.parametrize("nan_past_limits", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("local", LOCAL_FORMS, ids=lambda d: "".join(f"{k}{v}" for k, v in d.items()))
+@pytest.mark.parametrize("edge", LOCAL_EDGES, ids=lambda e: f"S{e[0]}-{e[1]}/{e[2]}-hd{e[3]}")
+def test_local_walk_matches_jax(edge, local, nan_past_limits):
+    s, nq, nkv, hd, tg, t, plen, eos, softcap = edge
+    x, nan = _inputs(len(plen) + s + nq + hd, s, nq, nkv, hd, tg, t, plen, eos)
+    fed = nan if nan_past_limits else x
+    names = ("q", "kp", "vp", "ks", "vs", "kg", "vg")
+    got = walk_decode(*(torch.from_numpy(fed[n]) for n in names), torch.tensor(plen),
+                      torch.tensor(eos), t, softcap=softcap, **local).numpy()
+    assert np.isfinite(got).all()
+    for b in range(B):
+        args = [jnp.asarray(x[n][b]) for n in names]
+        lens = (jnp.int32(plen[b]), jnp.asarray(eos[b], jnp.int32), jnp.int32(t))
+        if hd % 128 == 0:
+            want = jpallas.flash_decode_attention(*args, *lens, softcap=softcap, interpret=True, **local)
+        else:
+            want = jattn.decode_attention(*args, *lens, softcap=softcap, **local)
+        np.testing.assert_allclose(got[b], np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("local", LOCAL_FORMS, ids=lambda d: "".join(f"{k}{v}" for k, v in d.items()))
+def test_local_walk_skips_tiles_below_every_bound(local):
+    """Per chunk of rows, the first prefix tile read is the one holding the
+    smallest bound over the chunk's suffixes; no tile read lies wholly below
+    the bound of every row it serves; and every tile holding a key some row
+    sees is read."""
+    s, nq, nkv, hd, tg, t = 5, 32, 4, 64, 5, 4
+    plen = [130, 65]
+    eos = [[0, 63, 9, 31, 62], [5, 0, 63, 1, 40]]
+    x, _ = _inputs(1, s, nq, nkv, hd, tg, t, plen, eos)
+    tiles = []
+    walk_decode(*(torch.from_numpy(x[n]) for n in ("q", "kp", "vp", "ks", "vs", "kg", "vg")),
+                torch.tensor(plen), torch.tensor(eos), t, tiles=tiles, **local)
+    g = nq // nkv
+    for b in range(B):
+        lo = [local_lo(plen[b] + eos[b][i] + 1 + t, **local) for i in range(s)]
+        for r0 in range(0, s * g, ROWS):
+            sfx = range(r0 // g, (min(s * g, r0 + ROWS) - 1) // g + 1)
+            read = sorted(k0 for (bb, h, rr, src, k0) in tiles if (bb, h, rr, src) == (b, 0, r0, 0))
+            low = min(lo[i] for i in sfx)
+            need = sorted({j // TILE * TILE for j in range(max(low, 0), plen[b])})
+            assert read == need
+            for src, pos0 in ((1, lambda i: plen[b]), (2, lambda i: plen[b] + eos[b][i] + 1)):
+                own = [k0 for (bb, h, rr, sr, k0) in tiles if (bb, h, rr, sr) == (b, 0, r0, src)]
+                for i in sfx:
+                    limit = eos[b][i] + 1 if src == 1 else t + 1
+                    first = max(lo[i] - pos0(i), 0)
+                    want = sorted({j // TILE * TILE for j in range(first, limit)})
+                    assert set(want) <= set(own)
+                assert all(k0 + TILE > min(lo[i] - pos0(i) for i in sfx) for k0 in own)

@@ -63,7 +63,7 @@ def test_default_device_run_without_gpu_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"window": 4096}, {"chunk": 8192}, {"local_on": True},
+    {"head_dim": 256}, {"head_dim": 32}, {"window": 1024, "head_dim": 96},
     {"head_dim": 96}, {"head_dim": 128, "v_dim": 64},
 ])
 def test_cuda_argument_check_refuses_unsupported(kw):
@@ -71,9 +71,21 @@ def test_cuda_argument_check_refuses_unsupported(kw):
         fa.check_cuda_args(**kw)
 
 
+@pytest.mark.parametrize("kw,error", [
+    ({"window": 64, "chunk": 64}, ValueError), ({"window": 0}, ValueError),
+    ({"chunk": -8}, ValueError), ({"window": 64, "local_on": torch.tensor(True)}, TypeError),
+], ids=["window-and-chunk", "window0", "chunk-negative", "local_on-tensor"])
+def test_cuda_argument_check_refuses_bad_local_forms(kw, error):
+    with pytest.raises(error):
+        fa.check_cuda_args(**kw)
+
+
 def test_cuda_argument_check_accepts_the_slice():
     for hd in (64, 128):
         fa.check_cuda_args(head_dim=hd, v_dim=hd)
+        for local in ({"window": 1}, {"window": 1024, "local_on": False}, {"chunk": 64},
+                      {"chunk": 8192, "local_on": True}, {"window": 4096, "local_on": None}):
+            fa.check_cuda_args(head_dim=hd, v_dim=hd, **local)
 
 
 def test_cpu_wrappers_launch_nothing():

@@ -142,3 +142,57 @@ def test_plain_local_attention_matches_jax(window, chunk):
             *args, jnp.int32(PLEN[b]), window=window, chunk=chunk
         )
         np.testing.assert_allclose(got[b], np.asarray(want), atol=ATOL, rtol=0)
+
+
+LOCAL_FORMS = [(48, None), (None, 32)]
+
+
+@pytest.mark.parametrize("local_on", [False, True], ids=["off", "on"])
+@pytest.mark.parametrize("window,chunk", LOCAL_FORMS, ids=["window48", "chunk32"])
+def test_causal_plain_local_matches_pallas(window, chunk, local_on):
+    """The causal plain version with a window or chunk and the per-layer
+    toggle, against the Pallas kernel in interpret mode on every row that
+    sees a key. Padding rows that see none (prompt 1's rows past its 37 keys
+    plus the window) are 0 here and in the CUDA kernels; the Pallas kernel
+    leaves there the mean of V over the blocks it loaded. No real row reads
+    them: their keys lie past valid_len."""
+    rng = np.random.default_rng(7)
+    q, k, v = _rand(rng, B, LP, NQ, HD), _rand(rng, B, LP, NKV, HD), _rand(rng, B, LP, NKV, HD)
+    got = fa.flash_causal_attention(_t(q), _t(k), _t(v), _t(PLEN), window=window, chunk=chunk,
+                                    local_on=local_on).numpy()
+    local = np.asarray(jattn.causal_mask(LP, LP, window=window, chunk=chunk))
+    base = local if local_on else np.asarray(jattn.causal_mask(LP, LP))
+    for b in range(B):
+        pal = jpallas.flash_causal_attention(
+            jnp.asarray(q[b]), jnp.asarray(k[b]), jnp.asarray(v[b]), jnp.int32(PLEN[b]),
+            window=window, chunk=chunk, local_on=jnp.asarray(local_on), interpret=True,
+        )
+        seen = (base & (np.arange(LP)[None, :] < PLEN[b])).any(-1)
+        assert seen[: PLEN[b]].all()
+        np.testing.assert_allclose(got[b][seen], np.asarray(pal)[seen], atol=ATOL, rtol=0)
+        assert not got[b][~seen].any()
+
+
+@pytest.mark.parametrize("local_on", [False, True], ids=["off", "on"])
+@pytest.mark.parametrize("window,chunk", LOCAL_FORMS, ids=["window48", "chunk32"])
+def test_decode_plain_local_matches_pallas(window, chunk, local_on):
+    """The decode plain version with a window or chunk and the toggle, hd
+    128 (the Pallas decode kernel's eligibility), against the kernel in
+    interpret mode."""
+    rng = np.random.default_rng(8)
+    hd, t = 128, 2
+    q = _rand(rng, B, S, 1, NQ, hd)
+    kp, vp = _rand(rng, B, LP, NKV, hd), _rand(rng, B, LP, NKV, hd)
+    ks, vs = _rand(rng, B, S, LS, NKV, hd), _rand(rng, B, S, LS, NKV, hd)
+    kg, vg = _rand(rng, B, S, T, NKV, hd), _rand(rng, B, S, T, NKV, hd)
+    got = fa.flash_decode_attention(
+        _t(q), _t(kp), _t(vp), _t(ks), _t(vs), _t(kg), _t(vg), _t(PLEN), _t(EOS), t,
+        window=window, chunk=chunk, local_on=local_on,
+    ).numpy()
+    for b in range(B):
+        args = [jnp.asarray(a[b]) for a in (q, kp, vp, ks, vs, kg, vg)]
+        pal = jpallas.flash_decode_attention(
+            *args, jnp.int32(PLEN[b]), jnp.asarray(EOS[b]), jnp.int32(t), window=window,
+            chunk=chunk, local_on=jnp.asarray(local_on), interpret=True,
+        )
+        np.testing.assert_allclose(got[b], np.asarray(pal), atol=ATOL, rtol=0)

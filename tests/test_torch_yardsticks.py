@@ -60,3 +60,34 @@ def test_past_limit_rows_match_the_decode_limits():
     assert not past["kp"][1].any()
     assert past["ks"][1, 2].tolist() == [j > 1 for j in range(LS)]
     assert past["kg"][0, 0].tolist() == [j > 2 for j in range(T)]
+
+
+LOCAL = [{"window": 3}, {"window": 8}, {"chunk": 4}, {"window": 3, "local_on": False}]
+
+
+@pytest.mark.parametrize("local", LOCAL, ids=["window3", "window8", "chunk4", "window3-off"])
+@pytest.mark.parametrize("kernel", fa.KERNELS)
+def test_local_yardstick_equals_plain_version(kernel, local):
+    """With a window or chunk (the SDPA mask's local clause at the kernels'
+    absolute positions). Lengths keep every query row seeing a key, as the
+    timed yardsticks need: plen 19 for both prompts, no causal padding."""
+    x = {**_inputs(4, 2), "plen": torch.tensor([LP, LP], dtype=torch.int32)}
+    args, kw = chip_smoke._calls(x, None, local)[kernel]
+    want = fa.PLAIN[kernel](*args, **kw)
+    got = chip_smoke.run_yardstick(chip_smoke.YARDSTICKS[kernel](*args, **local), want)
+    assert torch.allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_local_bounds_count_only_pairs_in_the_window():
+    """Without a local form the mask-based count is the closed form; a
+    window of 1 leaves one pair per real query row."""
+    case = {"B": 2, "S": 3, "Ls": LS, "Lp": LP, "T": T, "t": 2, "nq": 4, "nkv": 2, "hd": HD,
+            "plen": [7, LP], "eos": [[0, 4, 9], [3, 9, 1]]}
+    work = chip_smoke._work(case)
+    assert work["flash_causal_attention"][0] == sum(min(i + 1, p) for p in (7, LP) for i in range(LP))
+    assert work["flash_decode_attention"][0] == sum(7 + e + 1 + 3 for e in (0, 4, 9)) + sum(
+        LP + e + 1 + 3 for e in (3, 9, 1))
+    one = chip_smoke._work({**case, "local": {"window": 1}})
+    assert one["flash_causal_attention"][0] == 7 + LP  # each row sees itself, if real
+    assert one["flash_decode_attention"][0] == 2 * S  # the new token's own generated slot
+    assert one["flash_prefix_shared_attention"] == (2 * S * LS, 2 * S * LS)
