@@ -7,7 +7,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 
 1. device  — a CUDA device must be present; prints its name and power limit.
 2. build   — builds the port's CUDA kernels from the source in this
-             checkout (one nvcc).
+             checkout (one nvcc); prints each instantiation's registers,
+             stack, local memory and dynamic shared memory, and fails on
+             ptxas warning C7518, on local memory (spills) and on shared
+             memory above the 232,448 B a block may have.
 3. kernels — every kernel against its plain PyTorch version on the card, at
              Llama-2-7B attention shapes (plus GQA, softcap and ragged-length
              cases; the scoring kernel's edge cases: odd S, query lengths
@@ -15,23 +18,35 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              hd 64; the decode kernel's: S*g above its 16 rows per block,
              S 1, prefix lengths 0/1/63/64/65/130, eos 0 and Ls-1, t 0 and
              T-1, hd 64 fp16, float32, softcap; each with and without NaN in
-             every K/V row past a source's limit); bf16 and fp16 within
+             every K/V row past a source's limit; head dims 256 and 96 in
+             every dtype, with and without NaN past the limits, with
+             windows, chunks, the toggle off and softcap); bf16 and fp16 within
              atol = rtol = 2e-2 of the plain version computed in float32
              from the same inputs, float32 within atol 1e-4. Times each
              kernel, its plain version and its library yardstick (one SDPA
              call on KV concatenated beforehand) at the shapes of the
-             full-width run, and every kernel and its yardstick at a
+             full-width runs (Llama-2-7B; Gemma-3-27B and Gemma-3-12B local
+             and global layers; Phi-3-mini heads, hd 96, at the Llama
+             prompts), and every kernel and its yardstick at a
              4096-token prefix with one prompt (device time from CUDA events
              around back-to-back calls queued behind a spin kernel, so the
              host's launch work is not in it).
-4. cross   — a reduced-width float32 checkpoint through the port's CLI on
-             the card and on the CPU: scores within atol 1e-4 and identical
-             greedy tokens, for the re-scoring loop and for --kv_cache.
-5. full    — a seeded bf16 checkpoint at Llama-2-7B widths (4 decoder
-             layers, one layer per shard, so every layer streams) through
-             the CLI: scoring with --num_gen_token 4, then --kv_cache with
-             --num_gen_token 8. Scores must be finite and sum to 1, and every
-             kernel of each run must have launched.
+4. cross   — reduced-width float32 checkpoints (llama, gemma 3 and gemma 1
+             at hd 256, phi3 at hd 96, qwen2, qwen3, mistral; windows that
+             bind) through the port's CLI on the card and on the CPU: scores
+             within atol 1e-4 and identical greedy tokens, for the
+             re-scoring loop and for --kv_cache.
+5. full    — seeded bf16 checkpoints at full width through the CLI, one
+             layer per shard so every layer streams: Llama-2-7B (4 decoder
+             layers; scoring with --num_gen_token 4, then --kv_cache with
+             8), Gemma-3-27B (6 layers, 5 local and 1 global), and
+             Gemma-3-12B (hd 256, 6 layers), which is written as a
+             Hugging Face bundle shaped as google/gemma-3-12b-pt ships it
+             (the gemma3 wrapper config, language-model keys at [out, in],
+             a vision tower, three shards and an index) and split by the
+             port's prepare_weights first. Scores must be finite and sum to
+             1, and every kernel of each run must have launched (with a
+             window: with it on and with it off).
 
 Output: per-phase lines, then a JSON line of kernel records, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -67,6 +82,8 @@ REPLACES = {
     "flash_decode_attention": f"{TPU_SOURCE}:560",
 }
 CUDA_SOURCE = "flexible_llm_sharding_tpu_torch/csrc/flash_attention.cu"
+HEAD_DIMS = (64, 96, 128, 256)
+SMEM_LIMIT = 232448  # opt-in dynamic shared memory per block on the H100
 
 
 def fail(msg: str) -> None:
@@ -156,6 +173,17 @@ def phase_build() -> None:
         log(f"[build]   {ln}")
     if any("C7518" in ln for ln in warnings):
         fail("ptxas serialised wgmma (warning C7518)")
+    if any("spill" in ln.lower() for ln in warnings):
+        fail("ptxas spilled registers to local memory (built with -warn-spills)")
+    # Dynamic shared memory of every instantiation, against the opt-in limit.
+    names = {(0, 0): "score_kernel_f32", (0, 1): "score_tc_kernel fp16", (0, 2): "score_tc_kernel bf16",
+             (1, 0): "decode_rows_kernel f32", (1, 1): "decode_rows_kernel fp16",
+             (1, 2): "decode_rows_kernel bf16"}
+    for (kind, dtype), name in names.items():
+        sizes = {hd: lib.fls_dynamic_smem(kind, dtype, hd) for hd in HEAD_DIMS}
+        log(f"[build] {name} dynamic shared memory (B) by head dim: {sizes}")
+        if max(sizes.values()) > SMEM_LIMIT or min(sizes.values()) <= 0:
+            fail(f"{name}: shared memory outside (0, {SMEM_LIMIT}] B: {sizes}")
     # Registers, stack and local memory (spills) of every kernel, as built.
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -173,6 +201,9 @@ def phase_build() -> None:
                 kernel = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "", kernel).split(">(")[0] + ">"
                 kernel = kernel.replace("(bool)1", "local").replace("(bool)0", "no local")
             log(f"[build] {kernel}: {' '.join(res.split()[:5])}")
+            spill = re.search(r"LOCAL:(\d+)", res)
+            if spill and int(spill.group(1)) > 0:
+                fail(f"{kernel} spills to local memory: {res.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -539,7 +570,8 @@ def main_path_case(prompts, n_gen_kv: int, nq: int = 32, nkv: int = 32, hd: int 
     }
 
 
-def phase_kernels(main_case: dict, gemma_case: dict) -> dict[str, dict]:
+def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_case: dict
+                  ) -> dict[str, dict]:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rng = np.random.default_rng(5)
 
@@ -610,19 +642,45 @@ def phase_kernels(main_case: dict, gemma_case: dict) -> dict[str, dict]:
             for nan in (False, True):
                 check_case(f"{name}, GQA 32/16{', NaN past limits' if nan else ''}", c, dtype, gen,
                            nan_past_limits=nan)
+    # Head dims 256 (own instantiations) and 96 (the hd-128 ones, columns
+    # past 96 zero-filled): GQA 16/8 with softcap, every local form, query
+    # lengths 1 and 576, in every dtype, with and without NaN past the limits.
+    for hd in (256, 96):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            for nan in (False, True):
+                tag = f"hd {hd}{', NaN past limits' if nan else ''}"
+                check_case(f"{tag}, GQA 16/8", case(2, 3, 16, 8, hd, 200, 70, 6, [200, 41]), dtype, gen,
+                           nan_past_limits=nan)
+                check_case(f"{tag}, softcap 30", case(2, 4, 8, 2, hd, 130, 64, 5, [65, 130], 30.0),
+                           dtype, gen, nan_past_limits=nan)
+                for name, local in LOCAL_FORMS:
+                    c = {**case(2, 3, 16, 8, hd, 200, 70, 6, [200, 41]), "t": 4,
+                         "eos": [[0, 69, 12], [5, 66, 37]], "local": local}
+                    check_case(f"{tag}, {name}", c, dtype, gen, nan_past_limits=nan)
+        check_case(f"hd {hd}, S 1, lq 1, MQA 8/1", case(2, 1, 8, 1, hd, 1, 1, 3, [0, 1]), torch.bfloat16,
+                   gen)
+        check_case(f"hd {hd}, S 5, lq 576, NaN past limits", case(2, 5, 32, 4, hd, 576, 130, 7, [65, 513]),
+                   torch.bfloat16, gen, nan_past_limits=True)
     errs = check_case("main path", main_case, torch.bfloat16, gen)
     gemma_local = {**gemma_case, "local": {"window": GEMMA_WINDOW}}
-    errs_local = check_case("gemma3-27b local layer", gemma_local, torch.bfloat16, gen)
-    errs_global = check_case("gemma3-27b global layer", gemma_case, torch.bfloat16, gen)
+    gemma12_local = {**gemma12_case, "local": {"window": GEMMA_WINDOW}}
+    shapes = {  # record key: (name, case, plain calls per timing round)
+        "gemma3_27b_local": ("gemma3-27b local layer", gemma_local, 4),
+        "gemma3_27b_global": ("gemma3-27b global layer", gemma_case, 4),
+        "gemma3_12b_local": ("gemma3-12b local layer, hd 256", gemma12_local, 4),
+        "gemma3_12b_global": ("gemma3-12b global layer, hd 256", gemma12_case, 4),
+        "phi3_hd96": ("phi-3-mini heads, hd 96", phi3_case, 20),
+    }
+    shape_errs = {key: check_case(name, c, torch.bfloat16, gen) for key, (name, c, _) in shapes.items()}
     time_long_prefix(gen)
     timed = time_case(main_case, gen)
-    # The plain versions at these shapes take tens of ms a call: fewer calls.
-    local_t = time_case({**gemma_local, "name": "gemma3-27b local layer"}, gen, plain_calls=4)
-    global_t = time_case({**gemma_case, "name": "gemma3-27b global layer"}, gen, plain_calls=4)
+    # The plain versions at the Gemma shapes take tens of ms a call: fewer calls.
+    shape_t = {key: time_case({**c, "name": name}, gen, plain_calls=n)
+               for key, (name, c, n) in shapes.items()}
     for k in timed:
         timed[k]["max_abs_err"] = errs[k]
-        timed[k]["gemma3_27b_local"] = {**local_t[k], "max_abs_err": errs_local[k]}
-        timed[k]["gemma3_27b_global"] = {**global_t[k], "max_abs_err": errs_global[k]}
+        for key in shapes:
+            timed[k][key] = {**shape_t[key][k], "max_abs_err": shape_errs[key][k]}
     return timed
 
 
@@ -642,6 +700,16 @@ GEMMA3_27B_TEXT = {
     "hidden_activation": "gelu_pytorch_tanh", "max_position_embeddings": 131072,
 }
 GEMMA_WINDOW = GEMMA3_27B_TEXT["sliding_window"]
+# google/gemma-3-12b-pt, config.json text_config (head dim 256; the same
+# window and rope as 27B).
+GEMMA3_12B_TEXT = {
+    "model_type": "gemma3_text", "hidden_size": 3840, "intermediate_size": 15360,
+    "num_hidden_layers": 48, "num_attention_heads": 16, "num_key_value_heads": 8,
+    "head_dim": 256, "vocab_size": 262208, "rms_norm_eps": 1e-6,
+    "query_pre_attn_scalar": 256, "sliding_window": 1024, "rope_theta": 1000000.0,
+    "rope_local_base_freq": 10000.0, "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+    "hidden_activation": "gelu_pytorch_tanh", "max_position_embeddings": 131072,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -651,8 +719,8 @@ GEMMA_WINDOW = GEMMA3_27B_TEXT["sliding_window"]
 def _init_params(cfg, dtype, seed: int, device: str) -> dict:
     """Seeded random weights in the JAX package's layout and scales. Norm
     scales are ones, or for the (1+w) Gemma norms small values around 0;
-    Gemma's layers add the sandwich norms and q/k norms; a tied head has
-    no lm_head."""
+    Gemma's layers add the sandwich norms, Gemma 3's and Qwen3's the q/k
+    norms, Qwen2's its q/k/v biases; a tied head has no lm_head."""
     g = torch.Generator(device=device).manual_seed(seed)
     d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -666,6 +734,9 @@ def _init_params(cfg, dtype, seed: int, device: str) -> dict:
             return (torch.randn(n, generator=g, device=device) * 0.1).to(dtype).cpu()
         return torch.ones(n, dtype=dtype)
 
+    def bias(n):
+        return (torch.randn(n, generator=g, device=device) * 0.1).to(dtype).cpu()
+
     def layer():
         out = {
             "input_layernorm": {"scale": norm(d)},
@@ -676,6 +747,8 @@ def _init_params(cfg, dtype, seed: int, device: str) -> dict:
         }
         if cfg.qk_norm:
             out["attn"].update(q_norm=norm(hd), k_norm=norm(hd))
+        if cfg.attention_in_bias:
+            out["attn"].update(bq=bias(nq * hd), bk=bias(nkv * hd), bv=bias(nkv * hd))
         if cfg.ffw_sandwich_norms:
             out["pre_feedforward_layernorm"] = {"scale": norm(d)}
             out["post_feedforward_layernorm"] = {"scale": norm(d)}
@@ -712,20 +785,42 @@ def run_cli(model_dir: str, work: str, tag: str, prompts, extra: list[str], voca
     return scores, updated, stats
 
 
-def phase_cross(work: str) -> None:
-    """Float32 card vs CPU through the CLI: a reduced-width Llama, then a
-    reduced-width Gemma 3 (hd 128, two local layers and a global one, window
-    32, so the window binds at the 71- to 151-token prompts)."""
+def cross_configs() -> dict:
+    """The reduced-width models of the float32 card-vs-CPU check, by name:
+    each family's Hugging Face config at a small width. Windows of 32 bind at
+    the check's 71- to 151-token prompts."""
     from flexible_llm_sharding_tpu_torch.config import LlamaConfig
-    from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 
     small = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_attention_heads=4,
-                 num_key_value_heads=2, explicit_head_dim=128)
-    gemma = LlamaConfig.from_dict({
-        **GEMMA3_27B_TEXT, **small, "head_dim": 128, "num_hidden_layers": 3, "sliding_window": 32,
-        "layer_types": ["sliding_attention", "sliding_attention", "full_attention"]})
+                 num_key_value_heads=2)
+    local3 = ["sliding_attention", "sliding_attention", "full_attention"]
+    hf = {
+        "gemma3": {**GEMMA3_27B_TEXT, **small, "head_dim": 128, "num_hidden_layers": 3,
+                   "sliding_window": 32, "layer_types": local3},
+        "gemma3 hd256": {**GEMMA3_12B_TEXT, **small, "num_hidden_layers": 3, "sliding_window": 32,
+                         "layer_types": local3},
+        "gemma hd256": {"model_type": "gemma", **small, "head_dim": 256, "num_hidden_layers": 2},
+        "phi3 hd96": {"model_type": "phi3", **small, "hidden_size": 384, "num_hidden_layers": 2,
+                      "sliding_window": 32},
+        "qwen2": {"model_type": "qwen2", **small, "num_attention_heads": 2, "num_key_value_heads": 1,
+                  "num_hidden_layers": 2, "use_sliding_window": True, "sliding_window": 32,
+                  "max_window_layers": 1},
+        "qwen3": {"model_type": "qwen3", **small, "head_dim": 128, "num_hidden_layers": 2},
+        "mistral": {"model_type": "mistral", **small, "hidden_size": 512, "num_hidden_layers": 2,
+                    "sliding_window": 32},
+    }
+    return {"llama": LlamaConfig(num_hidden_layers=2, explicit_head_dim=128, **small),
+            **{name: LlamaConfig.from_dict(d) for name, d in hf.items()}}
+
+
+def phase_cross(work: str) -> None:
+    """Float32 card vs CPU through the CLI, for every model of
+    :func:`cross_configs`."""
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
+
     prompts = make_prompts(5, 70, 3, 6, seed=2) + make_prompts(2, 150, 2, 9, seed=3)
-    for name, cfg in (("llama", LlamaConfig(num_hidden_layers=2, **small)), ("gemma3", gemma)):
+    for name, cfg in cross_configs().items():
+        name = name.replace(" ", "_")
         model_dir = os.path.join(work, f"cross_{name}")
         save_params(_init_params(cfg, torch.float32, 11, "cpu"), model_dir, cfg)
         for mode, extra in (("loop", []), ("kv_cache", ["--kv_cache", "true"])):
@@ -753,20 +848,120 @@ def _check_scores(scores, prompts, n_gen: int, vocab: int, tag: str) -> None:
             fail(f"{tag}: distributions do not sum to 1")
 
 
-def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: int) -> dict:
+def write_gemma3_bundle(bundle: str, text_config: dict, seed: int) -> int:
+    """A seeded bf16 Hugging Face checkpoint shaped as google/gemma-3-12b-pt
+    ships it: the gemma3 wrapper config.json (``text_config`` and a small
+    ``vision_config``), the language model's keys under
+    ``language_model.model.*`` at Hugging Face shapes ([out, in]), a few
+    vision-tower and projector tensors, in three shards with
+    ``model.safetensors.index.json``. Returns the bytes written."""
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import write_safetensors
+
+    os.makedirs(bundle, exist_ok=True)
+    wrapper = {
+        "architectures": ["Gemma3ForConditionalGeneration"], "model_type": "gemma3",
+        "boi_token_index": 255999, "eoi_token_index": 256000, "image_token_index": 262144,
+        "mm_tokens_per_image": 256, "torch_dtype": "bfloat16", "text_config": text_config,
+        "vision_config": {"model_type": "siglip_vision_model", "hidden_size": 1152,
+                          "intermediate_size": 4304, "num_hidden_layers": 27,
+                          "num_attention_heads": 16, "image_size": 896, "patch_size": 14},
+    }
+    with open(os.path.join(bundle, "config.json"), "w") as f:
+        json.dump(wrapper, f, indent=1)
+    cfg = LlamaConfig.from_dict(wrapper)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, ff, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+
+    def w(out, inp):  # a Linear weight, [out, in]
+        return (torch.randn(out, inp, generator=g, device="cuda")
+                * (2.0 / (out + inp)) ** 0.5).to(torch.bfloat16).cpu()
+
+    def norm(n):  # a (1+w) norm scale
+        return (torch.randn(n, generator=g, device="cuda") * 0.1).to(torch.bfloat16).cpu()
+
+    lm = "language_model.model"
+    n = cfg.num_hidden_layers
+    shards = [
+        {f"{lm}.embed_tokens.weight": (torch.randn(cfg.vocab_size, d, generator=g, device="cuda")
+                                       * 0.02).to(torch.bfloat16).cpu(),
+         "vision_tower.vision_model.embeddings.patch_embedding.weight": w(1152, 3 * 14 * 14),
+         "vision_tower.vision_model.post_layernorm.weight": norm(1152),
+         "multi_modal_projector.mm_input_projection_weight": w(1152, d),
+         "multi_modal_projector.mm_soft_emb_norm.weight": norm(1152)},
+        {}, {f"{lm}.norm.weight": norm(d)},
+    ]
+    for i in range(n):
+        p = f"{lm}.layers.{i}"
+        shards[1 if i < n // 2 else 2].update({
+            f"{p}.input_layernorm.weight": norm(d), f"{p}.post_attention_layernorm.weight": norm(d),
+            f"{p}.pre_feedforward_layernorm.weight": norm(d),
+            f"{p}.post_feedforward_layernorm.weight": norm(d),
+            f"{p}.self_attn.q_proj.weight": w(nq * hd, d), f"{p}.self_attn.k_proj.weight": w(nkv * hd, d),
+            f"{p}.self_attn.v_proj.weight": w(nkv * hd, d), f"{p}.self_attn.o_proj.weight": w(d, nq * hd),
+            f"{p}.self_attn.q_norm.weight": norm(hd), f"{p}.self_attn.k_norm.weight": norm(hd),
+            f"{p}.mlp.gate_proj.weight": w(ff, d), f"{p}.mlp.up_proj.weight": w(ff, d),
+            f"{p}.mlp.down_proj.weight": w(d, ff),
+        })
+    weight_map, total = {}, 0
+    for j, tensors in enumerate(shards):
+        fn = f"model-{j + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(os.path.join(bundle, fn), tensors)
+        weight_map.update(dict.fromkeys(tensors, fn))
+        total += sum(t.nbytes for t in tensors.values())
+    with open(os.path.join(bundle, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return total
+
+
+def phase_split(work: str, name: str, text_config: dict) -> tuple[str, dict]:
+    """A gemma3 bundle of ``text_config`` split into per-layer native files
+    by the port's offline entry, run as a user runs it:
+    ``python -m flexible_llm_sharding_tpu_torch.prepare_weights``. The
+    bundle is deleted once split. Returns (split directory, its config)."""
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+
+    bundle, model_dir = os.path.join(work, f"{name}_hf"), os.path.join(work, name)
+    t0 = time.perf_counter()
+    total = write_gemma3_bundle(bundle, text_config, seed=0)
+    log(f"[full] wrote a seeded bf16 {name}-width Hugging Face bundle ({total} bytes in 3 shards) "
+        f"in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "flexible_llm_sharding_tpu_torch.prepare_weights",
+                           bundle, model_dir], cwd=HERE, capture_output=True, text=True)
+    split_s = time.perf_counter() - t0
+    shutil.rmtree(bundle, ignore_errors=True)
+    if proc.returncode != 0:
+        fail(f"prepare_weights failed on the {name} bundle:\n{proc.stderr[-4000:]}")
+    written = sum(os.path.getsize(os.path.join(model_dir, f)) for f in os.listdir(model_dir)
+                  if f.endswith(".safetensors"))
+    files = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
+    if any("vision" in f or "multi_modal" in f for f in files):
+        fail(f"prepare_weights kept vision-tower files: {files}")
+    cfg = LlamaConfig.from_pretrained(model_dir)
+    log(f"[full] prepare_weights split the {name} bundle into {len(files)} layer files, "
+        f"{written} bytes, in {split_s:.3f} s (model_type {cfg.model_type}, head dim {cfg.head_dim})")
+    return model_dir, cfg
+
+
+def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: int,
+               model_dir: str | None = None) -> dict:
     """A seeded bf16 checkpoint of ``cfg`` (one layer per shard, so every
-    layer streams) through the CLI: scoring, then --kv_cache. Every kernel
-    of each run must launch; with local layers (a window) each must launch
-    with the window on and with it off, without them never with it on.
-    Returns per kernel its launches and its launches with the window on."""
+    layer streams; written here unless ``model_dir`` holds one) through the
+    CLI: scoring, then --kv_cache. Every kernel of each run must launch;
+    with local layers (a window) each must launch with the window on and
+    with it off, without them never with it on. Returns per kernel its
+    launches and its launches with the window on."""
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 
-    model_dir = os.path.join(work, name)
-    t0 = time.perf_counter()
-    save_params(_init_params(cfg, torch.bfloat16, 0, "cuda"), model_dir, cfg)
-    log(f"[full] wrote a seeded bf16 {name}-width checkpoint with {cfg.num_hidden_layers} "
-        f"decoder layers in {time.perf_counter() - t0:.3f} s")
+    if model_dir is None:
+        model_dir = os.path.join(work, name)
+        t0 = time.perf_counter()
+        save_params(_init_params(cfg, torch.bfloat16, 0, "cuda"), model_dir, cfg)
+        log(f"[full] wrote a seeded bf16 {name}-width checkpoint with {cfg.num_hidden_layers} "
+            f"decoder layers in {time.perf_counter() - t0:.3f} s")
     common = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda"]
     launches = {k: {"launches": 0, "local_launches": 0} for k in fa.KERNELS}
     runs = (
@@ -817,10 +1012,17 @@ def main() -> None:
     gemma_loop, gemma_kv = 2, 4
     gemma_cfg = LlamaConfig.from_dict(
         {"model_type": "gemma3", "text_config": {**GEMMA3_27B_TEXT, "num_hidden_layers": 6}})
+    # Gemma-3-12B: depth cut from 48 to 6 layers (layers 0-4 local, 5 global).
+    gemma12_text = {**GEMMA3_12B_TEXT, "num_hidden_layers": 6}
+    gemma12_cfg = LlamaConfig.from_dict({"model_type": "gemma3", "text_config": gemma12_text})
     timed = phase_kernels(
         main_path_case(prompts, n_gen_kv),
         main_path_case(gemma_prompts, gemma_kv, nq=gemma_cfg.num_attention_heads,
-                       nkv=gemma_cfg.num_key_value_heads, hd=gemma_cfg.head_dim))
+                       nkv=gemma_cfg.num_key_value_heads, hd=gemma_cfg.head_dim),
+        main_path_case(gemma_prompts, gemma_kv, nq=gemma12_cfg.num_attention_heads,
+                       nkv=gemma12_cfg.num_key_value_heads, hd=gemma12_cfg.head_dim),
+        # Phi-3-mini-4k's heads (32 query and KV heads of 96) at the Llama prompts.
+        main_path_case(prompts, n_gen_kv, nq=32, nkv=32, hd=96))
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cross(work)
@@ -830,6 +1032,11 @@ def main() -> None:
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,
                                      gemma_kv),
         }
+        split_dir, split_cfg = phase_split(work, "gemma3-12b", gemma12_text)
+        if split_cfg != gemma12_cfg:
+            fail(f"the split gemma3-12b config differs from the bundle's: {split_cfg}")
+        paths["gemma3_12b"] = phase_full(work, "gemma3-12b", split_cfg, gemma_prompts, gemma_loop,
+                                         gemma_kv, model_dir=split_dir)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [
@@ -842,8 +1049,8 @@ def main() -> None:
             **{key: timed[k][key] for key in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "launches_by_path": {name: p[k] for name, p in paths.items()},
-            "gemma3_27b_local": timed[k]["gemma3_27b_local"],
-            "gemma3_27b_global": timed[k]["gemma3_27b_global"],
+            **{key: timed[k][key] for key in ("gemma3_27b_local", "gemma3_27b_global",
+                                              "gemma3_12b_local", "gemma3_12b_global", "phi3_hd96")},
         }
         for k in REPLACES
     ]

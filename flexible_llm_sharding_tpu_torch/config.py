@@ -2,14 +2,14 @@
 
 ``LlamaConfig`` keeps the part of the JAX package's config that the port
 runs (field names and defaults unchanged, so the ``config.json`` that
-``utils.checkpoint.save_params`` writes reads back in either package):
-dense Llama, and the Gemma 2 and Gemma 3 deltas — sliding-window layers
-and their per-layer pattern, (1+w) float32 RMSNorm, per-head q/k norm, a
-local rope base beside a linearly scaled global one, sandwich norms,
-GeGLU, scaled embeddings and the softcaps. The families, attention forms
-and rope scalings that this port does not carry yet raise
-``NotImplementedError`` when a config asks for them, instead of being
-dropped silently.
+``utils.checkpoint.save_params`` writes reads back in either package): the
+dense families llama, mistral, phi3, qwen2, qwen3 and gemma 1/2/3, with
+their deltas — q/k/v biases, sliding-window layers and their per-layer
+pattern, (1+w) float32 RMSNorm, per-head q/k norm, a local rope base
+beside a linearly scaled global one, sandwich norms, GeGLU, scaled
+embeddings and the softcaps. The families, attention forms and rope
+scalings that this port does not carry yet raise ``NotImplementedError``
+when a config asks for them, instead of being dropped silently.
 
 ``FrameworkConfig`` holds the batch CLI's runtime flags: the reference's ten
 plus dtype, blocking, bucketing, KV-cache decode, sampling, prefetch and the
@@ -77,10 +77,9 @@ _UNSUPPORTED: dict[str, Any] = {
     "rope_interleaved": False,
 }
 
-# The Gemma deltas, with their "off" values: a native config of model_type
-# llama must keep them off (Mistral's window and Qwen3's q/k norm are not
-# ported yet).
-_GEMMA_DELTAS: dict[str, Any] = {
+# The family deltas, with their "off" values, and the ones each family
+# carries: a native config must keep the others off.
+_FAMILY_DELTAS: dict[str, Any] = {
     "sliding_window": None,
     "layer_sliding": None,
     "rope_local_theta": None,
@@ -89,20 +88,62 @@ _GEMMA_DELTAS: dict[str, Any] = {
     "norm_unit_offset": False,
     "embed_scale": False,
 }
+_CARRIED_DELTAS: dict[str, frozenset[str]] = {
+    "llama": frozenset(),
+    "mistral": frozenset({"sliding_window"}),
+    "phi3": frozenset({"sliding_window"}),
+    "qwen2": frozenset({"sliding_window", "layer_sliding"}),
+    "qwen3": frozenset({"sliding_window", "layer_sliding", "qk_norm"}),
+    "gemma": frozenset({"norm_unit_offset", "embed_scale"}),
+    "gemma2": frozenset({"sliding_window", "layer_sliding", "ffw_sandwich_norms",
+                         "norm_unit_offset", "embed_scale"}),
+    "gemma3_text": frozenset(_FAMILY_DELTAS),
+}
+# Families of the JAX package this port does not run yet, with the ROADMAP
+# item that brings them.
+_LATER_FAMILIES = {
+    "mixtral": "2.4 (MoE)", "qwen3_moe": "2.4 (MoE)", "llama4": "2.3 (Llama 4)",
+    "llama4_text": "2.3 (Llama 4)", "deepseek_v3": "2.5 (MLA) and 2.4 (MoE)",
+}
 
 ACTIVATIONS = ("silu", "gelu", "gelu_pytorch_tanh")
 _ROPE_SCALINGS = (None, "linear")
 
-# Fields a config without the native marker contributes by name: the
-# dense-Llama ones, and per family the Hugging Face fields that mean the same
-# thing there (the JAX package's _FAMILY_HF_FIELDS); the family branches of
-# from_dict derive the rest, so a stray key of another family is ignored.
-_HF_FAMILY_FIELDS = {
+# Fields a foreign (Hugging Face) config.json contributes by name, as in the
+# JAX package (_UNIVERSAL_HF_FIELDS, _FAMILY_HF_FIELDS): the ones that mean
+# the same thing in every family, and per family the Hugging Face fields
+# that mean the same thing there. The family branches of from_dict derive
+# the rest, so a stray key (a softcap, a head dim, a scalar, a bias flag of
+# the native names) changes nothing.
+_UNIVERSAL_HF_FIELDS = frozenset({
+    "model_type", "vocab_size", "hidden_size", "intermediate_size",
+    "num_hidden_layers", "num_attention_heads", "num_key_value_heads",
+    "rms_norm_eps", "rope_theta", "max_position_embeddings",
+    "tie_word_embeddings", "hidden_act", "mlp_bias",
+})
+_FAMILY_HF_FIELDS: dict[str, frozenset[str]] = {
+    "mistral": frozenset({"sliding_window"}),
+    "qwen2": frozenset({"sliding_window"}),
+    "qwen3": frozenset({"sliding_window"}),
+    "phi3": frozenset({"sliding_window"}),
     "gemma2": frozenset({"query_pre_attn_scalar", "sliding_window"}),
     "gemma3_text": frozenset({"query_pre_attn_scalar", "sliding_window", "rope_local_theta"}),
 }
 # Multimodal wrappers whose language model is the nested text_config.
 _TEXT_CONFIG_TYPES = {"gemma3": "gemma3_text"}
+
+
+def extract_text_config(d: dict) -> dict | None:
+    """The language model's config dict of a multimodal wrapper config (its
+    ``text_config``, with the text model_type unless it names one), or None
+    when ``d`` is no wrapper. Raises ValueError for a wrapper without a
+    text_config."""
+    text_type = _TEXT_CONFIG_TYPES.get(d.get("model_type"))
+    if text_type is None:
+        return None
+    if not d.get("text_config"):
+        raise ValueError(f"{d.get('model_type')} config without text_config")
+    return {"model_type": text_type, **d["text_config"]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,70 +251,108 @@ class LlamaConfig:
             kwargs["layer_sliding"] = pattern
 
     @classmethod
+    def _apply_qwen_window(cls, kwargs: dict[str, Any], d: dict[str, Any]) -> None:
+        """Hugging Face qwen2/qwen3: the window applies only under
+        use_sliding_window, to layers i >= max_window_layers (default 28) or
+        as layer_types says; an explicit native layer_sliding key wins."""
+        if "layer_sliding" in kwargs:
+            return
+        if not d.get("use_sliding_window", False):
+            kwargs["sliding_window"] = None
+            return
+        mwl = d.get("max_window_layers", 28)
+        cls._apply_sliding_pattern(kwargs, d, "qwen", lambda i: i >= mwl)
+
+    @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "LlamaConfig":
-        """Build from a config dict: a native one (either package's
-        ``save_params``), whose fields read back by name, or a Hugging Face
-        one of model_type llama, gemma2, gemma3_text or the gemma3 wrapper
-        (its ``text_config``), with the JAX package's family defaults. Raises
-        NotImplementedError on any family or field this port does not carry
-        (Mistral, Qwen, Llama4, MoE, MLA, chunked attention, NoPE, rope
-        scalings other than linear)."""
-        model_type = d.get("model_type") or "llama"
-        if model_type in _TEXT_CONFIG_TYPES:
-            if not d.get("text_config"):
-                raise ValueError(f"{model_type} config without text_config")
-            return cls.from_dict({"model_type": _TEXT_CONFIG_TYPES[model_type], **d["text_config"]})
-        if model_type not in ("llama", "gemma2", "gemma3_text"):
+        """Build from a config dict with the JAX package's ``from_hf_config``
+        rules: a native one (either package's ``save_params``), whose fields
+        read back by name, or a Hugging Face one of model_type llama,
+        mistral, phi3, qwen2, qwen3, gemma, gemma2, gemma3_text or the gemma3
+        wrapper (its ``text_config``), which contributes only the fields that
+        mean the same thing in its family, with the family's defaults.
+        Raises NotImplementedError on any family or field this port does not
+        carry (Llama4, MoE, MLA, chunked attention, NoPE, rope scalings other
+        than linear), and on a native config that turns on a delta its
+        family does not have."""
+        model_type = d.get("model_type", "llama")
+        text = extract_text_config(d)
+        if text is not None:
+            return cls.from_dict(text)
+        family = "llama" if model_type == "" else model_type
+        if family in _LATER_FAMILIES:
             raise NotImplementedError(
-                f"model_type {model_type!r}: this port runs llama, gemma2 and gemma3 only"
+                f"model_type {model_type!r} is not ported yet (ROADMAP item {_LATER_FAMILIES[family]})"
+            )
+        if family not in _CARRIED_DELTAS:
+            raise NotImplementedError(
+                f"model_type {model_type!r} is not supported (llama, mistral, phi3, qwen2, qwen3, "
+                "gemma, gemma2, gemma3_text and the gemma3 wrapper are)"
             )
         native = bool(d.get("fls_native")) or "attention_in_bias" in d
-        unsupported = {**_UNSUPPORTED, **(_GEMMA_DELTAS if native and model_type == "llama" else {})}
-        for name, off in unsupported.items():
-            val = d.get(name, off)
-            if val in ([], ()):
-                val = None
-            if val != off:
-                raise NotImplementedError(
-                    f"config field {name}={val!r} is not supported by the "
-                    f"PyTorch port yet (model_type {model_type!r})"
-                )
         if native:
+            # The fields of the JAX package's config that this port does not
+            # implement, and the deltas the family does not carry, must be off.
+            carried = _CARRIED_DELTAS[family]
+            off = {**_UNSUPPORTED, **{k: v for k, v in _FAMILY_DELTAS.items() if k not in carried}}
+            for name, off_val in off.items():
+                val = d.get(name, off_val)
+                if val in ([], ()):
+                    val = None
+                if val != off_val:
+                    raise NotImplementedError(
+                        f"config field {name}={val!r} is not supported by the "
+                        f"PyTorch port yet (model_type {model_type!r})"
+                    )
             kwargs = {k: d[k] for k in _FIELDS if k in d}
         else:
-            allowed = set(_LLAMA_FIELDS) | _HF_FAMILY_FIELDS.get(model_type, frozenset())
-            kwargs = {k: d[k] for k in allowed if k in d}
-            if d.get("head_dim"):
-                kwargs["explicit_head_dim"] = d["head_dim"]
-            if model_type == "llama" and d.get("attention_bias"):
-                # One attention_bias flag for all four projections.
-                kwargs["attention_in_bias"] = kwargs["attention_out_bias"] = True
-            if model_type != "llama":
-                # HF Gemma MLPs ignore the legacy hidden_act key.
-                kwargs["hidden_act"] = d.get("hidden_activation") or "gelu_pytorch_tanh"
-        kwargs["model_type"] = model_type
-        if model_type == "llama":
+            allowed = _UNIVERSAL_HF_FIELDS | _FAMILY_HF_FIELDS.get(family, frozenset())
+            kwargs = {k: d[k] for k in _FIELDS if k in d and k in allowed}
+        if family in ("llama", "qwen3"):
+            if d.get("attention_bias"):  # one flag for all four projections
+                kwargs.setdefault("attention_in_bias", True)
+                kwargs.setdefault("attention_out_bias", True)
+        if family == "llama":
             kwargs["sliding_window"] = None  # HF Llama ignores a stray window
-        else:
-            # Gemma 2 and 3: setdefault, so explicit native keys (explicit
-            # nulls included) win over the HF names and defaults.
+        elif family == "qwen2":
+            # HF Qwen2: bias on q/k/v, none on o_proj.
+            kwargs.setdefault("attention_in_bias", True)
+            kwargs.setdefault("attention_out_bias", False)
+            cls._apply_qwen_window(kwargs, d)
+        elif family == "qwen3":
+            kwargs.setdefault("qk_norm", True)
+            cls._apply_qwen_window(kwargs, d)
+            kwargs.setdefault("explicit_head_dim", 128)  # Qwen3Config's default
+        elif family.startswith("gemma"):
+            # setdefault, so explicit native keys (explicit nulls included)
+            # win over the HF names and defaults.
             for key in ("norm_unit_offset", "embed_scale", "tie_word_embeddings"):
                 kwargs.setdefault(key, True)
             kwargs.setdefault("explicit_head_dim", 256)
-            kwargs["ffw_sandwich_norms"] = True
-        if model_type == "gemma2":
+            if not native:
+                # HF Gemma MLPs ignore the legacy hidden_act key.
+                kwargs["hidden_act"] = d.get("hidden_activation") or "gelu_pytorch_tanh"
+            if family == "gemma":
+                kwargs["sliding_window"] = None
+            else:
+                kwargs["ffw_sandwich_norms"] = True
+        # mistral and phi3: sliding_window flows through by name (may be
+        # null); phi3's fused projections are split when its checkpoint is.
+        if family == "gemma2":
             kwargs.setdefault("attn_logit_softcap", d.get("attn_logit_softcapping", 50.0))
             kwargs.setdefault("final_logit_softcap", d.get("final_logit_softcapping", 30.0))
             kwargs.setdefault("query_pre_attn_scalar", 256)
             # Every even layer slides.
             cls._apply_sliding_pattern(kwargs, d, "gemma2", lambda i: (i + 1) % 2)
-        elif model_type == "gemma3_text":
+        elif family == "gemma3_text":
             kwargs.setdefault("qk_norm", True)
             kwargs.setdefault("query_pre_attn_scalar", 256)
             kwargs.setdefault("rope_theta", 1_000_000.0)  # global layers
             kwargs.setdefault("rope_local_theta", d.get("rope_local_base_freq", 10_000.0))
             # 5:1 local/global: every 6th layer is global.
             cls._apply_sliding_pattern(kwargs, d, "gemma3", lambda i: (i + 1) % 6 != 0)
+        if d.get("head_dim"):
+            kwargs["explicit_head_dim"] = d["head_dim"]
         kwargs.setdefault("num_key_value_heads", d.get("num_attention_heads", 32))
         if kwargs.get("layer_sliding") is not None:
             kwargs["layer_sliding"] = tuple(kwargs["layer_sliding"])  # json gives a list

@@ -108,6 +108,24 @@
 //   and launched without it when no window or chunk is set, so a global
 //   layer or a model without local layers runs no local code.
 //
+// * Head dims 64, 96, 128 and 256 (the TPU kernels take any head dim of at
+//   least 64, zero-padded to a multiple of 128). Each kernel is built at 64,
+//   128 and 256 (float32 scoring also at 96). Head dim 96 runs in the
+//   hd-128 instantiation on the unpadded tensors: the scoring kernel's
+//   tensor maps are 96 columns wide and TMA writes zeros past them, the
+//   decode kernel's copies zero-fill the chunks past column 96, and both
+//   write 96 columns. Zero columns add nothing to QK^T and give zero output
+//   columns, so this is exact, and no padded copy of the cache is made. At
+//   256 a 64-key K/V tile of 16-bit elements is 64 KB: the scoring kernel
+//   keeps one Q buffer and two ring stages (197,680 B of shared memory,
+//   what four stages and two Q buffers take at 128), and O, 128 fp32
+//   registers per consumer thread, is accumulated by two n128 wgmma halves
+//   (Q's descriptors are rebuilt per tile, not held); the decode kernel keeps
+//   three stages (one block per SM instead of two) and reads Q's fragments
+//   from shared memory per tile instead of holding them; the float32
+//   kernels take K and V in turn through one buffer (scoring) or run one
+//   stage (decode).
+//
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream and returns cudaGetLastError(). The TMA descriptors are encoded on
 // the host by cuTensorMapEncodeTiled, looked up at run time (no link against
@@ -212,6 +230,7 @@ struct ScoreParams {
   const void* q;
   void* o;
   long long q_stride_bs;  // elements per (b, s) slab of q and o
+  int hd;                 // the tensors' head dim (the instantiation's, or 96 in the hd-128 one)
   int lq;
   int n_q;
   int n_kv;
@@ -235,9 +254,12 @@ struct F32Layout {
   static constexpr int QP = HD + 1;     // Q/K/V pitch
   static constexpr int SP = kTile + 1;  // scores and P pitch
   static constexpr int OP = HD + 1;     // O pitch
+  // At hd 256 Q, K, V and O tiles of 64 rows would take 263 KB: K and V
+  // then take turns in one buffer (230,656 B in all).
+  static constexpr bool kOneKV = HD > 128;
   static constexpr size_t kQ = 0;
   static constexpr size_t kK = align128(kQ + sizeof(float) * kTile * QP);
-  static constexpr size_t kV = align128(kK + sizeof(float) * kTile * QP);
+  static constexpr size_t kV = kOneKV ? kK : align128(kK + sizeof(float) * kTile * QP);
   static constexpr size_t kS = align128(kV + sizeof(float) * kTile * QP);
   static constexpr size_t kP = align128(kS + sizeof(float) * kTile * SP);
   static constexpr size_t kO = align128(kP + sizeof(float) * kTile * SP);
@@ -282,7 +304,9 @@ __device__ __forceinline__ void warp_pv(const float* Ps, const float* Vs, float*
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kScoreThreads) score_kernel_f32(const ScoreParams p) {
+// One block per SM is enough (shared memory allows 1-2): without the hint
+// ptxas trades a spill at hd 256 for registers it does not need.
+__global__ void __launch_bounds__(kScoreThreads, 1) score_kernel_f32(const ScoreParams p) {
   using L = F32Layout<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::kQ);
@@ -332,7 +356,8 @@ __global__ void __launch_bounds__(kScoreThreads) score_kernel_f32(const ScorePar
       const int k0 = t * kTile;
       __syncthreads();  // the previous tile's K/V are no longer read
       load_rows<float, HD, L::QP, kScoreThreads>(Ks, kbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
-      load_rows<float, HD, L::QP, kScoreThreads>(Vs, vbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
+      if constexpr (!L::kOneKV)
+        load_rows<float, HD, L::QP, kScoreThreads>(Vs, vbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
       __syncthreads();
 
       warp_scores<HD>(Qs, Ks, Ss, warp, lane);
@@ -370,6 +395,11 @@ __global__ void __launch_bounds__(kScoreThreads) score_kernel_f32(const ScorePar
       m = m_new;
       for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); ++d) Os[row * L::OP + d] *= alpha;
       __syncwarp();
+      if constexpr (L::kOneKV) {
+        __syncthreads();  // every warp's scores have read K
+        load_rows<float, HD, L::QP, kScoreThreads>(Vs, vbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
+        __syncthreads();
+      }
 
       warp_pv<HD>(Ps, Vs, Os, warp, lane);
       __syncwarp();
@@ -402,7 +432,6 @@ cudaError_t launch_score_f32(const ScoreParams& p, int n_bs, cudaStream_t stream
 
 constexpr int kBM = 64;                             // query rows per consumer warpgroup
 constexpr int kBN = 64;                             // keys per K/V tile
-constexpr int kStages = 4;                          // K/V tiles in the ring
 constexpr int kConsumers = 2;                       // consumer warpgroups per block
 constexpr int kTcThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
@@ -416,6 +445,7 @@ struct TcParams {
   CUtensorMap k_map[2];
   CUtensorMap v_map[2];
   void* o;
+  int hd;  // the tensors' head dim: HD, or 96 in the hd-128 instantiation
   int lq;
   int n_q;
   int n_kv;
@@ -435,9 +465,11 @@ struct TcParams {
 };
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
-// period): two Q buffers (one per unit in flight) of one tile per consumer,
-// then the K/V stages, then the barriers. A tile of hd columns is stored as
-// hd/64 column halves of rows x 128 bytes.
+// period): kQBufs Q buffers (two: one per unit in flight) of one tile per
+// consumer, then the kStages K/V stages, then the barriers. A tile of hd
+// columns is stored as hd/64 column pieces of rows x 128 bytes. At hd 256 a
+// stage is 64 KB, so one Q buffer and two stages fit (the producer loads a
+// unit's Q once the previous unit is done with it).
 template <int HD>
 struct TcLayout {
   static constexpr int kHalves = HD / 64;
@@ -446,10 +478,12 @@ struct TcLayout {
   static constexpr int kQBytes = kHalves * kHalfQ;
   static constexpr int kKVBytes = kHalves * kHalfKV;
   static constexpr int kStageBytes = 2 * kKVBytes;  // K then V
+  static constexpr int kQBufs = HD > 128 ? 1 : 2;
+  static constexpr int kStages = HD > 128 ? 2 : 4;
   static constexpr int kQ = 0;
-  static constexpr int kStage0 = 2 * kConsumers * kQBytes;
+  static constexpr int kStage0 = kQBufs * kConsumers * kQBytes;
   static constexpr int kBar = kStage0 + kStages * kStageBytes;
-  static constexpr int kBytes = kBar + (2 * kStages + 4) * 8 + 1024;  // + alignment slack
+  static constexpr int kBytes = kBar + (2 * kStages + 2 * kQBufs) * 8 + 1024;  // + alignment slack
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -577,14 +611,28 @@ __device__ __forceinline__ void mma_qk(float (&d)[kBN / 2], uint64_t da, uint64_
   else wgmma_qk_f16(d, da, db, scale_d);
 }
 
+template <typename T>
+__device__ __forceinline__ void mma_pv128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) wgmma_pv128_bf16(d, a, db, 1);
+  else wgmma_pv128_f16(d, a, db, 1);
+}
+
+// O += P V for an hd-column O. At hd 256: two n128 products, on the two
+// halves of O's registers (columns 0-127 and 128-255, in the accumulator
+// order of one n256 product) and of V's column pieces (two pieces, 2 *
+// kBN * 128 bytes, further on; the descriptor counts 16-byte units).
 template <typename T, int HD>
 __device__ __forceinline__ void mma_pv(float (&d)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (HD == 64) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) wgmma_pv64_bf16(d, a, db, 1);
     else wgmma_pv64_f16(d, a, db, 1);
+  } else if constexpr (HD == 128) {
+    mma_pv128<T>(d, a, db);
   } else {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) wgmma_pv128_bf16(d, a, db, 1);
-    else wgmma_pv128_f16(d, a, db, 1);
+    static_assert(HD == 256, "head dims 64, 128 and 256");
+    float(&halves)[2][64] = reinterpret_cast<float(&)[2][64]>(d);
+    mma_pv128<T>(halves[0], a, db);
+    mma_pv128<T>(halves[1], a, db + ((2 * TcLayout<HD>::kHalfKV) >> 4));
   }
 }
 
@@ -727,8 +775,8 @@ __device__ __forceinline__ void produce(const TcParams& p, uint32_t base, const 
   uint32_t phase = 0;
   for (int u = blockIdx.x, n = 0; u < p.n_units; u += gridDim.x, ++n) {
     const BlockPos bp = unit_pos(p, u);
-    const int qb = n & 1;
-    mbar_wait(bar.qempty0 + 8 * qb, ((n >> 1) & 1) ^ 1);
+    const int qb = n % L::kQBufs;
+    mbar_wait(bar.qempty0 + 8 * qb, ((n / L::kQBufs) & 1) ^ 1);
     uint32_t qbytes = 0;
 #pragma unroll
     for (int g = 0; g < kConsumers; ++g) qbytes += bp.active[g] ? L::kQBytes : 0;
@@ -751,7 +799,7 @@ __device__ __forceinline__ void produce(const TcParams& p, uint32_t base, const 
         tma_load(ks + hh * L::kHalfKV, &p.k_map[si], full, hh * 64, bp.kvh, t * kBN, entry);
         tma_load(ks + L::kKVBytes + hh * L::kHalfKV, &p.v_map[si], full, hh * 64, bp.kvh, t * kBN, entry);
       }
-      if (++stage == kStages) {
+      if (++stage == L::kStages) {
         stage = 0;
         phase ^= 1;
       }
@@ -773,7 +821,7 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
   uint32_t phase = 0;
   for (int u = blockIdx.x, n = 0; u < p.n_units; u += gridDim.x, ++n) {
     const BlockPos bp = unit_pos(p, u);
-    const int qb = n & 1;
+    const int qb = n % L::kQBufs;
     const int qa = g == 0 ? bp.qa[0] : bp.qa[1];
     const int i0 = qa + r0;
     const int i1 = i0 + 8;
@@ -786,7 +834,7 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-    mbar_wait(bar.qfull0 + 8 * qb, (n >> 1) & 1);
+    mbar_wait(bar.qfull0 + 8 * qb, (n / L::kQBufs) & 1);
     walk_items<kLocal>(p, bp, [&](int si, const SrcPlan& sp, int, int t, bool use0, bool use1) {
       mbar_wait(bar.full0 + 8 * stage, phase);
       if (g == 0 ? use0 : use1) {
@@ -810,7 +858,12 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
           asm volatile("bar.sync %0, 128;\n" :: "r"(1 + g) : "memory");
         }
 
-        // S = Q K^T, both K-major from shared memory.
+        // S = Q K^T, both K-major from shared memory. At hd 256 the Q
+        // buffer's address passes an empty asm on every tile, so its 16
+        // descriptors are built per tile: hoisted out of the walk they would
+        // hold 32 registers and spill (O alone takes 128 at hd 256).
+        uint32_t qsv = qs;
+        if constexpr (HD > 128) asm volatile("" : "+r"(qsv));
         float s[kBN / 2];
 #pragma unroll
         for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
@@ -819,7 +872,7 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;
-          mma_qk<T>(s, sw128_desc(qs + (kk / 4) * L::kHalfQ + off, 1),
+          mma_qk<T>(s, sw128_desc(qsv + (kk / 4) * L::kHalfQ + off, 1),
                     sw128_desc(ks + (kk / 4) * L::kHalfKV + off, 1), kk > 0);
         }
         wgmma_commit();
@@ -905,7 +958,7 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(bar.empty0 + 8 * stage);
-      if (++stage == kStages) {
+      if (++stage == L::kStages) {
         stage = 0;
         phase ^= 1;
       }
@@ -920,18 +973,22 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
       const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-      const long long row_stride = (long long)p.n_q * HD;
+      // The tensors' hd columns (96 of the hd-128 instantiation's 128: the
+      // rest are zero).
+      const long long row_stride = (long long)p.n_q * p.hd;
       const int sg = g == 0 ? bp.s[0] : bp.s[1];
-      T* obase = static_cast<T*>(p.o) + (long long)(bp.b * p.n_s + sg) * p.lq * row_stride + bp.h * HD + cq;
+      T* obase = static_cast<T*>(p.o) + (long long)(bp.b * p.n_s + sg) * p.lq * row_stride + bp.h * p.hd + cq;
       if (i0 < p.lq) {
         uint32_t* dst = reinterpret_cast<uint32_t*>(obase + i0 * row_stride);
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) dst[4 * j] = pack2<T>(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        for (int j = 0; j < HD / 8; ++j)
+          if (8 * j < p.hd) dst[4 * j] = pack2<T>(o[4 * j] * inv0, o[4 * j + 1] * inv0);
       }
       if (i1 < p.lq) {
         uint32_t* dst = reinterpret_cast<uint32_t*>(obase + i1 * row_stride);
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) dst[4 * j] = pack2<T>(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+        for (int j = 0; j < HD / 8; ++j)
+          if (8 * j < p.hd) dst[4 * j] = pack2<T>(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
     }
   }
@@ -948,15 +1005,15 @@ __global__ void __launch_bounds__(kTcThreads, 1) score_tc_kernel(const __grid_co
   uint8_t* smem = smem_raw + (base - raw);
   Barriers bar;
   bar.full0 = base + L::kBar;
-  bar.empty0 = bar.full0 + 8 * kStages;
-  bar.qfull0 = bar.empty0 + 8 * kStages;
-  bar.qempty0 = bar.qfull0 + 16;
+  bar.empty0 = bar.full0 + 8 * L::kStages;
+  bar.qfull0 = bar.empty0 + 8 * L::kStages;
+  bar.qempty0 = bar.qfull0 + 8 * L::kQBufs;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < L::kStages; ++i) {
       mbar_init(bar.full0 + 8 * i, 1);
       mbar_init(bar.empty0 + 8 * i, kConsumers * 4);
     }
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < L::kQBufs; ++j) {
       mbar_init(bar.qfull0 + 8 * j, 1);
       mbar_init(bar.qempty0 + 8 * j, kConsumers * 4);
     }
@@ -1020,6 +1077,7 @@ cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream)
   TcParams p;
   memset(&p, 0, sizeof(p));
   p.o = sp.o;
+  p.hd = sp.hd;
   p.lq = sp.lq;
   p.n_q = sp.n_q;
   p.n_kv = sp.n_kv;
@@ -1033,7 +1091,9 @@ cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream)
   p.chunk = sp.chunk;
   p.pos = sp.pos;
   p.n_src = sp.n_src;
-  if (!encode_rows(&p.q_map, sp.q, kBf16, HD, sp.n_q, sp.lq, n_b * sp.n_s, sp.q_stride_bs, kBM))
+  // The maps span the tensors' sp.hd columns; boxes past them (columns 96-127
+  // at hd 96) arrive as zeros.
+  if (!encode_rows(&p.q_map, sp.q, kBf16, sp.hd, sp.n_q, sp.lq, n_b * sp.n_s, sp.q_stride_bs, kBM))
     return cudaErrorInvalidValue;
   for (int i = 0; i < sp.n_src; ++i) {
     const Source& s = sp.src[i];
@@ -1044,8 +1104,8 @@ cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream)
     if (s.len <= 0) continue;  // no tile is ever loaded from an empty source
     const int entries = per_s ? n_b * sp.n_s : n_b;
     const long long stride = per_s ? s.stride_s : s.stride_b;
-    if (!encode_rows(&p.k_map[i], s.k, kBf16, HD, sp.n_kv, s.len, entries, stride, kBN) ||
-        !encode_rows(&p.v_map[i], s.v, kBf16, HD, sp.n_kv, s.len, entries, stride, kBN))
+    if (!encode_rows(&p.k_map[i], s.k, kBf16, sp.hd, sp.n_kv, s.len, entries, stride, kBN) ||
+        !encode_rows(&p.v_map[i], s.v, kBf16, sp.hd, sp.n_kv, s.len, entries, stride, kBN))
       return cudaErrorInvalidValue;
   }
   // Once per template instantiation (thread-safe static init), not per launch.
@@ -1083,8 +1143,9 @@ constexpr int kDecodeWarps = kDecodeThreads / 32;
 constexpr int kDecodeSegs = 1 + 2 * kDecodeRows;  // the prefix, then own and generated KV per suffix
 
 struct DecodeParams {
-  const void* q;  // [B, S, n_q, HD]
-  void* o;        // [B, S, n_q, HD]
+  const void* q;  // [B, S, n_q, hd]
+  void* o;        // [B, S, n_q, hd]
+  int hd;         // the tensors' head dim: HD, or 96 in the hd-128 instantiation
   int n_s;
   int n_q;
   int n_kv;
@@ -1108,6 +1169,7 @@ struct DecodeBlock {
   int n_s;
   int n_q;
   int n_seg;
+  int hd;                // the tensors' head dim
   long long row_stride;  // K/V elements between consecutive keys
 
   // Element offset of block row i in q and o (head dim hd).
@@ -1132,21 +1194,29 @@ struct DecodeSeg {
 };
 
 // Shared memory: the K/V ring, then the path's scratch (float32: Q rows in
-// fp32, scores/P, per-row m, l and alpha; 16-bit: Q rows in T and per-warp
-// row maxima, double-buffered), then the walk's stretches, then each row's
-// local bound (the first absolute key position it may see).
+// fp32, scores/P, per-row m, l and alpha; 16-bit: Q rows in T, kQPitch
+// apart, and per-warp row maxima, double-buffered), then the walk's
+// stretches, then each row's local bound (the first absolute key position
+// it may see). At hd 256 a float32 stage is 128 KB, so that path runs one
+// stage, and the 16-bit path's Q rows are padded by 16 bytes so that its
+// ldmatrix reads of them hit distinct banks.
 template <typename T, int HD>
 struct DecodeLayout {
   static constexpr int kRowBytes = HD * (int)sizeof(T);  // one K or V row, unpadded
   static constexpr int kChunks = kRowBytes / 16;         // 16-byte chunks per row
   static constexpr int kElems = 16 / (int)sizeof(T);     // elements per chunk
-  static constexpr int kStages = sizeof(T) == 4 ? 2 : 3;
+  static constexpr int kStages = sizeof(T) == 4 ? (HD > 128 ? 1 : 2) : 3;
+  static constexpr int kQPitch = HD > 128 ? HD + kElems : HD;  // 16-bit Q rows
+  // Blocks per SM that ptxas may assume: float32 two (without the hint it
+  // spills at hd 64 to save registers it does not need); 16-bit three up to
+  // hd 128 (168 registers, what it takes there), one at 256 (254 registers).
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 2 : (HD > 128 ? 1 : 3);
   static constexpr int kTileBytes = kTile * kRowBytes;
   static constexpr int kStageBytes = 2 * kTileBytes;  // K then V
   static constexpr size_t kRing = (size_t)kStages * kStageBytes;
   static constexpr size_t kScratch = sizeof(T) == 4
       ? sizeof(float) * kDecodeRows * (HD + kTile + 3)
-      : sizeof(T) * kDecodeRows * HD + sizeof(float) * 2 * kDecodeWarps * kDecodeRows;
+      : sizeof(T) * kDecodeRows * kQPitch + sizeof(float) * 2 * kDecodeWarps * kDecodeRows;
   static constexpr size_t kSeg = align128(kRing + kScratch);
   static constexpr size_t kLo = kSeg + sizeof(DecodeSeg) * kDecodeSegs;
   static constexpr size_t kBytes = kLo + sizeof(int) * kDecodeRows;
@@ -1174,21 +1244,26 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Tile `tile` of a stretch (K then V, 64 rows each) into a ring stage. Rows
-// at or past the limit are zero-filled without being read; their address is
-// clamped to the last visible row, which exists.
+// at or past the limit, and the chunks past the tensors' hd columns (hd 96
+// in the hd-128 instantiation), are zero-filled without being read; their
+// address is clamped to the last visible row and its first chunk, which
+// exist.
 template <typename T, int HD>
-__device__ __forceinline__ void load_tile(uint32_t stage, const DecodeSeg& sg, int tile, long long row_stride) {
+__device__ __forceinline__ void load_tile(uint32_t stage, const DecodeSeg& sg, int tile, long long row_stride,
+                                          int hd) {
   using L = DecodeLayout<T, HD>;
   const int k0 = tile * kTile;
   const int avail = sg.limit - k0;  // >= 1: the walk only visits tiles with a visible key
+  const int data_chunks = hd / L::kElems;
 #pragma unroll 4
   for (int c = threadIdx.x; c < 2 * kTile * L::kChunks; c += kDecodeThreads) {
     const int which = c / (kTile * L::kChunks);
     const int r = (c / L::kChunks) % kTile;
     const int ch = c % L::kChunks;
+    const bool data = ch < data_chunks;
     const T* base = static_cast<const T*>(which ? sg.v : sg.k);
-    const T* src = base + (long long)(k0 + min(r, avail - 1)) * row_stride + ch * L::kElems;
-    cp_async16(stage + which * L::kTileBytes + swizzled(r, ch, L::kRowBytes), src, r < avail ? 16 : 0);
+    const T* src = base + (long long)(k0 + min(r, avail - 1)) * row_stride + (data ? ch : 0) * L::kElems;
+    cp_async16(stage + which * L::kTileBytes + swizzled(r, ch, L::kRowBytes), src, r < avail && data ? 16 : 0);
   }
 }
 
@@ -1211,7 +1286,8 @@ __device__ __forceinline__ void next_tile(WalkPos& w, const DecodeSeg* segs, int
 // tiles ahead of the compute, calling tile(K/V stage, stretch, visible keys,
 // first key, tile number) once each tile's bytes are in shared memory. One
 // commit group per tile (empty past the walk's end, so the group count
-// stays fixed).
+// stays fixed). With one stage each tile is loaded, awaited and computed in
+// turn.
 template <typename T, int HD, class F>
 __device__ __forceinline__ void walk_tiles(const DecodeBlock& blk, const DecodeSeg* segs, unsigned char* smem,
                                            F&& tile) {
@@ -1220,27 +1296,41 @@ __device__ __forceinline__ void walk_tiles(const DecodeBlock& blk, const DecodeS
   WalkPos ld = {0, segs[0].t0 - 1};
   next_tile(ld, segs, blk.n_seg);
   WalkPos at = ld;
+  if constexpr (L::kStages == 1) {
+    for (int i = 0; at.seg < blk.n_seg; ++i) {
+      __syncthreads();  // tile i - 1 is no longer read
+      const DecodeSeg sg = segs[at.seg];
+      load_tile<T, HD>(ring, sg, at.tile, blk.row_stride, blk.hd);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      const int k0 = at.tile * kTile;
+      tile(smem, sg, min(kTile, sg.limit - k0), k0, i);
+      next_tile(at, segs, blk.n_seg);
+    }
+  } else {
 #pragma unroll
-  for (int i = 0; i < L::kStages - 1; ++i) {
-    if (ld.seg < blk.n_seg) {
-      load_tile<T, HD>(ring + i * L::kStageBytes, segs[ld.seg], ld.tile, blk.row_stride);
-      next_tile(ld, segs, blk.n_seg);
+    for (int i = 0; i < L::kStages - 1; ++i) {
+      if (ld.seg < blk.n_seg) {
+        load_tile<T, HD>(ring + i * L::kStageBytes, segs[ld.seg], ld.tile, blk.row_stride, blk.hd);
+        next_tile(ld, segs, blk.n_seg);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
-  }
-  for (int i = 0, stage = 0; at.seg < blk.n_seg; ++i, stage = stage + 1 == L::kStages ? 0 : stage + 1) {
-    cp_async_wait<L::kStages - 2>();  // this thread's copies of tile i have landed
-    __syncthreads();                  // everyone's have, and tile i - 1 is no longer read
-    if (ld.seg < blk.n_seg) {
-      const int free_stage = stage == 0 ? L::kStages - 1 : stage - 1;
-      load_tile<T, HD>(ring + free_stage * L::kStageBytes, segs[ld.seg], ld.tile, blk.row_stride);
-      next_tile(ld, segs, blk.n_seg);
+    for (int i = 0, stage = 0; at.seg < blk.n_seg; ++i, stage = stage + 1 == L::kStages ? 0 : stage + 1) {
+      cp_async_wait<L::kStages - 2>();  // this thread's copies of tile i have landed
+      __syncthreads();                  // everyone's have, and tile i - 1 is no longer read
+      if (ld.seg < blk.n_seg) {
+        const int free_stage = stage == 0 ? L::kStages - 1 : stage - 1;
+        load_tile<T, HD>(ring + free_stage * L::kStageBytes, segs[ld.seg], ld.tile, blk.row_stride, blk.hd);
+        next_tile(ld, segs, blk.n_seg);
+      }
+      cp_async_commit();
+      const DecodeSeg sg = segs[at.seg];
+      const int k0 = at.tile * kTile;
+      tile(smem + stage * L::kStageBytes, sg, min(kTile, sg.limit - k0), k0, i);
+      next_tile(at, segs, blk.n_seg);
     }
-    cp_async_commit();
-    const DecodeSeg sg = segs[at.seg];
-    const int k0 = at.tile * kTile;
-    tile(smem + stage * L::kStageBytes, sg, min(kTile, sg.limit - k0), k0, i);
-    next_tile(at, segs, blk.n_seg);
   }
   cp_async_wait<0>();
 }
@@ -1275,7 +1365,7 @@ __device__ __forceinline__ void decode_rows_f32(const DecodeParams& p, const Dec
   const int lane = tid % 32;
 
   for (int i = tid; i < blk.nrow * HD; i += kDecodeThreads)
-    Qs[i] = static_cast<const float*>(p.q)[blk.row_offset(i / HD, HD) + i % HD];
+    Qs[i] = i % HD < blk.hd ? static_cast<const float*>(p.q)[blk.row_offset(i / HD, blk.hd) + i % HD] : 0.f;
   if (tid < kDecodeRows) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -1405,10 +1495,11 @@ __device__ __forceinline__ void decode_rows_f32(const DecodeParams& p, const Dec
 #pragma unroll
   for (int k = 0; k < kOwn; ++k) {
     const int row = rg + k * kRowGroups;
-    if (row < blk.nrow) {
+    if (row < blk.nrow && 2 * pair < blk.hd) {
       const float l = l_s[row];
       const float inv = l > 0.f ? 1.f / l : 0.f;
-      *reinterpret_cast<float2*>(out + blk.row_offset(row, HD) + 2 * pair) = make_float2(o[k].x * inv, o[k].y * inv);
+      *reinterpret_cast<float2*>(out + blk.row_offset(row, blk.hd) + 2 * pair) =
+          make_float2(o[k].x * inv, o[k].y * inv);
     }
   }
 }
@@ -1442,7 +1533,9 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 // PV are mma.sync m16n8k16 with fp32 accumulators (the FMA form of the
 // float32 path left the products, not the loads, setting the time). Warp w
 // takes keys 16w..16w+15 of every tile: Q's fragments stay in registers for
-// the whole walk, K comes by ldmatrix, and the scores stay in registers,
+// the whole walk (at hd 256, where O alone takes 128 registers, they come
+// by ldmatrix from shared memory on every tile), K comes by ldmatrix, and
+// the scores stay in registers,
 // where they become P (in V's type) as PV's A fragment, with V by
 // ldmatrix.trans. Each tile's row maxima are exchanged between the warps
 // through shared memory, so every warp rescales by the same m; each warp
@@ -1451,8 +1544,9 @@ template <typename T, int HD, bool kLocal>
 __device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const DecodeBlock& blk, const DecodeSeg* segs,
                                                 const int* lo_rows, unsigned char* smem) {
   using L = DecodeLayout<T, HD>;
-  T* Qs = reinterpret_cast<T*>(smem + L::kRing);  // [16][HD], rows past nrow zero
-  float* pmax = reinterpret_cast<float*>(smem + L::kRing + sizeof(T) * kDecodeRows * HD);  // [2][warp][row]
+  constexpr bool kQRegs = HD <= 128;
+  T* Qs = reinterpret_cast<T*>(smem + L::kRing);  // [16][kQPitch], rows past nrow and columns past hd zero
+  float* pmax = reinterpret_cast<float*>(smem + L::kRing + sizeof(T) * kDecodeRows * L::kQPitch);  // [2][warp][row]
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -1461,19 +1555,25 @@ __device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const Dec
 
   for (int i = tid; i < kDecodeRows * HD; i += kDecodeThreads) {
     const int row = i / HD;
-    Qs[i] = row < blk.nrow ? static_cast<const T*>(p.q)[blk.row_offset(row, HD) + i % HD] : from_f<T>(0.f);
+    const int col = i % HD;
+    Qs[row * L::kQPitch + col] = row < blk.nrow && col < blk.hd
+        ? static_cast<const T*>(p.q)[blk.row_offset(row, blk.hd) + col] : from_f<T>(0.f);
   }
   __syncthreads();
-  uint32_t qa[HD / 16][4];
+  uint32_t qa[kQRegs ? HD / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(Qs + gr * HD + 16 * kk + 2 * tq);
-    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(Qs + (gr + 8) * HD + 16 * kk + 2 * tq);
-    qa[kk][0] = q0[0];
-    qa[kk][1] = q1[0];
-    qa[kk][2] = q0[4];  // columns + 8
-    qa[kk][3] = q1[4];
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t* q0 = reinterpret_cast<const uint32_t*>(Qs + gr * HD + 16 * kk + 2 * tq);
+      const uint32_t* q1 = reinterpret_cast<const uint32_t*>(Qs + (gr + 8) * HD + 16 * kk + 2 * tq);
+      qa[kk][0] = q0[0];
+      qa[kk][1] = q1[0];
+      qa[kk][2] = q0[4];  // columns + 8
+      qa[kk][3] = q1[4];
+    }
   }
+  // ldmatrix row addresses of Q's A fragments: row lane % 16, columns + 8 for lanes 16-31.
+  const uint32_t qrow = smem_u32(Qs) + ((lane % 16) * L::kQPitch + (lane / 16) * 8) * (int)sizeof(T);
 
   float o[HD / 8][4];
 #pragma unroll
@@ -1507,8 +1607,15 @@ __device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const Dec
       for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t b[4];
         ldsm_x4(b, kb + swizzled(krow, 2 * kk + kcol, L::kRowBytes));
-        mma16816<T>(s[0], qa[kk], b[0], b[1]);
-        mma16816<T>(s[1], qa[kk], b[2], b[3]);
+        if constexpr (kQRegs) {
+          mma16816<T>(s[0], qa[kk], b[0], b[1]);
+          mma16816<T>(s[1], qa[kk], b[2], b[3]);
+        } else {
+          uint32_t a[4];
+          ldsm_x4(a, qrow + 16 * kk * (int)sizeof(T));
+          mma16816<T>(s[0], a, b[0], b[1]);
+          mma16816<T>(s[1], a, b[2], b[3]);
+        }
       }
     }
     // Scores in log2 units: scale -> softcap -> mask, the limit tested only
@@ -1606,6 +1713,7 @@ __device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const Dec
   for (int i = tid; i < blk.nrow * (HD / 2); i += kDecodeThreads) {
     const int row = i / (HD / 2);
     const int d = 2 * (i % (HD / 2));
+    if (d >= blk.hd) continue;
     float l = 0.f, x = 0.f, y = 0.f;
 #pragma unroll
     for (int w = 0; w < kDecodeWarps; ++w) {
@@ -1615,14 +1723,15 @@ __device__ __forceinline__ void decode_rows_mma(const DecodeParams& p, const Dec
       y += ow.y;
     }
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    *reinterpret_cast<uint32_t*>(out + blk.row_offset(row, HD) + d) = pack2<T>(x * inv, y * inv);
+    *reinterpret_cast<uint32_t*>(out + blk.row_offset(row, blk.hd) + d) = pack2<T>(x * inv, y * inv);
   }
 }
 
 // kLocal: a window or chunk is set (without one the kernel carries no
 // local-bound code at all).
 template <typename T, int HD, bool kLocal>
-__global__ void __launch_bounds__(kDecodeThreads) decode_rows_kernel(const __grid_constant__ DecodeParams p) {
+__global__ void __launch_bounds__(kDecodeThreads, (DecodeLayout<T, HD>::kMinBlocks))
+    decode_rows_kernel(const __grid_constant__ DecodeParams p) {
   using L = DecodeLayout<T, HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   DecodeSeg* segs = reinterpret_cast<DecodeSeg*>(smem + L::kSeg);
@@ -1636,7 +1745,8 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_rows_kernel(const __gri
   blk.n_q = p.n_q;
   const int s_lo = blk.r0 / blk.g;
   blk.n_seg = 1 + 2 * ((blk.r0 + blk.nrow - 1) / blk.g - s_lo + 1);
-  blk.row_stride = (long long)p.n_kv * HD;
+  blk.hd = p.hd;
+  blk.row_stride = (long long)p.n_kv * p.hd;
 
   // Absolute positions: prefix key j at j, own key j of suffix s at
   // prefix_len + j, generated key j at prefix_len + eos[s] + 1 + j, and the
@@ -1653,7 +1763,7 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_rows_kernel(const __gri
     const int s = tid == 0 ? 0 : s_lo + (tid - 1) / 2;
     Source src = p.src[0];
     if (tid > 0) src = tid % 2 ? p.src[1] : p.src[2];
-    const long long off = blk.b * src.stride_b + s * src.stride_s + blk.kvh * HD;
+    const long long off = blk.b * src.stride_b + s * src.stride_s + blk.kvh * p.hd;
     DecodeSeg sg;
     sg.k = static_cast<const T*>(src.k) + off;
     sg.v = static_cast<const T*>(src.v) + off;
@@ -1725,10 +1835,45 @@ Source make_source(const void* k, const void* v, long long stride_b, long long s
 
 bool bad_local(int window, int chunk) { return window < 0 || chunk < 0 || (window > 0 && chunk > 0); }
 
+// The instantiation of each head dim: its own, or for the 16-bit scoring
+// kernel and for decode at 96 the hd-128 one (unpadded tensors, zero-filled
+// columns past 96).
+cudaError_t score_f32(const ScoreParams& p, int n_bs, cudaStream_t st) {
+  switch (p.hd) {
+    case 64: return launch_score_f32<64>(p, n_bs, st);
+    case 96: return launch_score_f32<96>(p, n_bs, st);
+    case 128: return launch_score_f32<128>(p, n_bs, st);
+    case 256: return launch_score_f32<256>(p, n_bs, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t score_tc(const ScoreParams& p, int n_b, cudaStream_t st) {
+  switch (p.hd) {
+    case 64: return launch_score_tc<T, 64>(p, n_b, st);
+    case 96:
+    case 128: return launch_score_tc<T, 128>(p, n_b, st);
+    case 256: return launch_score_tc<T, 256>(p, n_b, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t decode_rows(const DecodeParams& p, int n_b, cudaStream_t st) {
+  switch (p.hd) {
+    case 64: return launch_decode_rows<T, 64>(p, n_b, st);
+    case 96:
+    case 128: return launch_decode_rows<T, 128>(p, n_b, st);
+    case 256: return launch_decode_rows<T, 256>(p, n_b, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 float32 (score_kernel_f32), 1 float16 and 2 bfloat16
-// (score_tc_kernel).
+// (score_tc_kernel); hd 64, 96, 128 or 256.
 //
 // q, o: [B, S, lq, n_q, hd] contiguous (the causal form passes S = 1).
 // Source i: K and V rows of n_kv*hd elements at k_i + b*sb_i + s*ss_i, len_i
@@ -1750,6 +1895,7 @@ extern "C" int fls_score_attention(
   p.q = q;
   p.o = o;
   p.q_stride_bs = (long long)lq * n_q * hd;
+  p.hd = hd;
   p.lq = lq;
   p.n_q = n_q;
   p.n_kv = n_kv;
@@ -1765,12 +1911,12 @@ extern "C" int fls_score_attention(
   p.src[1] = make_source(k1, v1, sb1, ss1, len1, static_cast<const int*>(lim1), lsb1, lss1, ladd1, causal1,
                          shift1);
   if (lq <= 0 || n_b * n_s <= 0) return (int)cudaSuccess;
-  if ((hd != 64 && hd != 128) || bad_local(window, chunk)) return (int)cudaErrorInvalidValue;
+  if (bad_local(window, chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) err = hd == 64 ? launch_score_f32<64>(p, n_b * n_s, st) : launch_score_f32<128>(p, n_b * n_s, st);
-  else if (dtype == 1) err = hd == 64 ? launch_score_tc<__half, 64>(p, n_b, st) : launch_score_tc<__half, 128>(p, n_b, st);
-  else if (dtype == 2) err = hd == 64 ? launch_score_tc<__nv_bfloat16, 64>(p, n_b, st) : launch_score_tc<__nv_bfloat16, 128>(p, n_b, st);
+  if (dtype == 0) err = score_f32(p, n_b * n_s, st);
+  else if (dtype == 1) err = score_tc<__half>(p, n_b, st);
+  else if (dtype == 2) err = score_tc<__nv_bfloat16>(p, n_b, st);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }
@@ -1780,7 +1926,7 @@ extern "C" int fls_score_attention(
 // (limit t + 1); layout as for fls_score_attention. Local attention as for
 // fls_score_attention, with the positions of the decode form (the new token
 // of suffix s at prefix_len[b] + suffix_eos[b, s] + 1 + t). Every dtype
-// launches decode_rows_kernel.
+// launches decode_rows_kernel; hd 64, 96, 128 or 256.
 extern "C" int fls_decode_attention(
     int dtype, int hd, const void* q, void* o, int n_b, int n_s, int n_q, int n_kv,
     float scale, float softcap, int window, int chunk,
@@ -1792,6 +1938,7 @@ extern "C" int fls_decode_attention(
   const int g = n_q / n_kv;
   p.q = q;
   p.o = o;
+  p.hd = hd;
   p.n_s = n_s;
   p.n_q = n_q;
   p.n_kv = n_kv;
@@ -1805,12 +1952,41 @@ extern "C" int fls_decode_attention(
   p.src[1] = make_source(ks, vs, s_sb, s_ss, ls, static_cast<const int*>(suffix_eos), n_s, 1, 1, 0, 0);
   p.src[2] = make_source(kg, vg, g_sb, g_ss, tg, nullptr, 0, 0, t + 1, 0, 0);
   if (n_b * n_s <= 0) return (int)cudaSuccess;
-  if ((hd != 64 && hd != 128) || bad_local(window, chunk)) return (int)cudaErrorInvalidValue;
+  if (bad_local(window, chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) err = hd == 64 ? launch_decode_rows<float, 64>(p, n_b, st) : launch_decode_rows<float, 128>(p, n_b, st);
-  else if (dtype == 1) err = hd == 64 ? launch_decode_rows<__half, 64>(p, n_b, st) : launch_decode_rows<__half, 128>(p, n_b, st);
-  else if (dtype == 2) err = hd == 64 ? launch_decode_rows<__nv_bfloat16, 64>(p, n_b, st) : launch_decode_rows<__nv_bfloat16, 128>(p, n_b, st);
+  if (dtype == 0) err = decode_rows<float>(p, n_b, st);
+  else if (dtype == 1) err = decode_rows<__half>(p, n_b, st);
+  else if (dtype == 2) err = decode_rows<__nv_bfloat16>(p, n_b, st);
   else err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+// Dynamic shared memory, in bytes, that the instantiation serving (kind,
+// dtype, hd) launches with (kind 0: scoring, 1: decode; dtype as above),
+// for the build report; -1 for a combination no kernel takes.
+extern "C" int fls_dynamic_smem(int kind, int dtype, int hd) {
+  const int inst = hd == 96 && !(kind == 0 && dtype == 0) ? 128 : hd;  // hd 96 runs at 128 but in f32 scoring
+  if (kind == 0 && dtype == 0) {
+    switch (inst) {
+      case 64: return (int)F32Layout<64>::kBytes;
+      case 96: return (int)F32Layout<96>::kBytes;
+      case 128: return (int)F32Layout<128>::kBytes;
+      case 256: return (int)F32Layout<256>::kBytes;
+    }
+  } else if (kind == 0 && (dtype == 1 || dtype == 2)) {
+    switch (inst) {
+      case 64: return TcLayout<64>::kBytes;
+      case 128: return TcLayout<128>::kBytes;
+      case 256: return TcLayout<256>::kBytes;
+    }
+  } else if (kind == 1) {
+    const bool f32 = dtype == 0;
+    switch (inst) {
+      case 64: return (int)(f32 ? DecodeLayout<float, 64>::kBytes : DecodeLayout<__half, 64>::kBytes);
+      case 128: return (int)(f32 ? DecodeLayout<float, 128>::kBytes : DecodeLayout<__half, 128>::kBytes);
+      case 256: return (int)(f32 ? DecodeLayout<float, 256>::kBytes : DecodeLayout<__half, 256>::kBytes);
+    }
+  }
+  return -1;
 }

@@ -1,7 +1,9 @@
 """Decoder layer functions for the streamed scorer, in PyTorch.
 
-The port of the JAX package's ``models/llama.py`` on one device, for dense
-Llama and the Gemma 2 / Gemma 3 deltas. Layers are plain functions over
+The port of the JAX package's ``models/llama.py`` on one device, for the
+dense families the config carries (Llama, Mistral, Phi-3 once its fused
+projections are split, Qwen2's q/k/v biases, Qwen3's q/k norm, and the
+Gemma 1/2/3 deltas), all through the same flags. Layers are plain functions over
 parameter dictionaries, so streaming a layer is passing another dictionary.
 The layout and key names are the JAX package's (linear kernels stored
 [in, out]), so a checkpoint reads the same in both packages:

@@ -22,9 +22,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+# ptxas warns of every function that spills registers to local memory.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-warn-spills",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -37,6 +38,7 @@ _SIGNATURES = {
                              _P, _P, _LL, _LL, _I, _P,
                              _P, _P, _LL, _LL, _I, _I,
                              _P],
+    "fls_dynamic_smem": [_I, _I, _I],
 }
 
 _lock = threading.Lock()

@@ -46,7 +46,10 @@ from flexible_llm_sharding_tpu_torch.ops.attention import (
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
+# Head dims the kernels take: 64, 128 and 256 in instantiations of their
+# own, 96 (Phi-3) in the hd-128 one, with the columns past 96 zero-filled
+# on load and never written.
+_HEAD_DIMS = (64, 96, 128, 256)
 
 KERNELS = ("flash_causal_attention", "flash_prefix_shared_attention", "flash_decode_attention")
 
@@ -55,7 +58,8 @@ def check_cuda_args(window=None, chunk=None, local_on=None, head_dim=128, v_dim=
     """Reject, before any launch, what the CUDA kernels do not compute: a
     window and a chunk at once, a window or chunk below 1, a ``local_on``
     tensor (TypeError: the toggle is resolved on the host), a V head dim
-    different from Q/K's (MLA), and head dims other than 64/128."""
+    different from Q/K's (MLA), and head dims other than 64, 96, 128 and
+    256."""
     if window is not None and chunk is not None:
         raise ValueError("window and chunk are mutually exclusive")
     if any(x is not None and int(x) < 1 for x in (window, chunk)):

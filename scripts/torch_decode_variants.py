@@ -33,7 +33,7 @@ from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa  # noqa: E
 
 DECODE = ("flash_decode_attention",)
 ALL = ("flash_causal_attention", "flash_prefix_shared_attention", "flash_decode_attention")
-STAGES = "static constexpr int kStages = sizeof(T) == 4 ? 2 : 3;"
+STAGES = "static constexpr int kStages = sizeof(T) == 4 ? (HD > 128 ? 1 : 2) : 3;"
 LOCAL = "p.window > 0 || p.chunk > 0"
 
 # name -> (substitutions, checked against the plain version, kernels timed)
@@ -44,7 +44,7 @@ VARIANTS = {
     # the products; the products without the copies (the stages hold
     # whatever they held).
     "no products": ([("const bool keys = warp * 16 < nk;", "const bool keys = false;")], False, DECODE),
-    "no loads": ([("    cp_async16(stage + which * L::kTileBytes + swizzled(r, ch, L::kRowBytes), src, r < avail ? 16 : 0);",
+    "no loads": ([("    cp_async16(stage + which * L::kTileBytes + swizzled(r, ch, L::kRowBytes), src, r < avail && data ? 16 : 0);",
                    "    (void)src;")], False, DECODE),
     # What the local bound's code costs where no window is set: the kernels
     # built with it (kLocal) launched at window 0, as for a local layer.

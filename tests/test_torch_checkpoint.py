@@ -1,6 +1,12 @@
-"""The port's safetensors reader/writer against the JAX package's checkpoint
-code: bit-exact both ways, float32 and bfloat16, and the config.json each
-package writes reads back in the other."""
+"""The port's checkpoint code against the JAX package's: the safetensors
+reader/writer bit-exact both ways, float32 and bfloat16, and the
+config.json each package writes reads back in the other; the Hugging Face
+splitter on tiny transformers checkpoints of every family the port runs
+(random init, save_pretrained, no download), tensor-equal to the JAX
+splitter's files in both layouts; and the CLI on the reference's own
+hf-layout files against the JAX CLI (ROADMAP F2), float32, atol 1e-5."""
+
+import pickle
 
 import jax
 import ml_dtypes
@@ -8,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from bench import BenchTokenizer
 from flexible_llm_sharding_tpu.config import LlamaConfig as JLlamaConfig
 from flexible_llm_sharding_tpu.models import llama as jllama
 from flexible_llm_sharding_tpu.utils import checkpoint as jckpt
@@ -111,3 +118,229 @@ def test_unsupported_config_fields_raise(field, value):
     d = {"fls_native": True, **KW, field: value}
     with pytest.raises(NotImplementedError):
         LlamaConfig.from_dict(d)
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face checkpoints: the port's splitter against the JAX splitter, and
+# the CLI on the reference's own (hf-layout) files
+# ---------------------------------------------------------------------------
+
+def _hf_config(family: str):
+    """A tiny transformers config of ``family`` (no download)."""
+    import transformers as tf
+
+    small = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512)
+    if family == "llama":
+        return tf.LlamaConfig(**small, attention_bias=True, mlp_bias=True)
+    if family == "mistral":  # a window that binds at the test prompts
+        return tf.MistralConfig(**small, sliding_window=6)
+    if family == "qwen2":  # biased q/k/v; layer 0 global, layer 1 local
+        return tf.Qwen2Config(**small, use_sliding_window=True, sliding_window=6,
+                              max_window_layers=1)
+    if family == "qwen3":
+        return tf.Qwen3Config(**small, head_dim=32)
+    if family == "gemma":  # head dim 256, tied head, GeGLU, (1+w) norms
+        return tf.GemmaConfig(**{**small, "num_attention_heads": 2, "num_key_value_heads": 1},
+                              head_dim=256)
+    if family == "phi3":  # head dim 96, fused qkv_proj / gate_up_proj
+        return tf.Phi3Config(**{**small, "hidden_size": 192, "num_attention_heads": 2,
+                                "num_key_value_heads": 1},
+                             sliding_window=8, pad_token_id=0, bos_token_id=1, eos_token_id=2)
+    if family == "gemma3":  # the multimodal wrapper, text tower hd 256
+        text = tf.Gemma3TextConfig(**{**small, "num_hidden_layers": 3, "num_attention_heads": 2,
+                                      "num_key_value_heads": 1},
+                                   head_dim=256, query_pre_attn_scalar=256, sliding_window=6,
+                                   layer_types=["sliding_attention", "sliding_attention",
+                                                "full_attention"])
+        vision = tf.SiglipVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+                                       num_attention_heads=2, image_size=28, patch_size=14)
+        return tf.Gemma3Config(text_config=text.to_dict(), vision_config=vision.to_dict(),
+                               mm_tokens_per_image=4, image_token_index=255,
+                               boi_token_index=253, eoi_token_index=254)
+    raise ValueError(family)
+
+
+HF_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "phi3", "gemma3")
+
+
+def hf_checkpoint(family: str, path, seed: int = 0, shard: bool = False,
+                  safetensors: bool = True) -> None:
+    """A tiny randomly initialised transformers model of ``family`` saved
+    with ``save_pretrained``: every parameter redrawn from ``seed`` (norm
+    scales and biases too, so their placement shows)."""
+    import transformers as tf
+
+    cfg = _hf_config(family)
+    cls = tf.Gemma3ForConditionalGeneration if family == "gemma3" else tf.AutoModelForCausalLM
+    model = cls.from_config(cfg) if cls is tf.AutoModelForCausalLM else cls(cfg)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for _, p in model.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * (0.3 if p.ndim == 1 else 0.05))
+    model.save_pretrained(str(path), safe_serialization=safetensors,
+                          max_shard_size="100KB" if shard else "5GB")
+
+
+def _assert_same_split(port_dir, jax_dir):
+    """The same layer files, keys, dtypes and bits, and the same config.json."""
+    import json
+    import os
+
+    names = sorted(f for f in os.listdir(jax_dir) if f.endswith(".safetensors"))
+    assert sorted(f for f in os.listdir(port_dir) if f.endswith(".safetensors")) == names
+    for fn in names:
+        got = checkpoint.read_safetensors(os.path.join(port_dir, fn))
+        want = checkpoint.read_safetensors(os.path.join(jax_dir, fn))
+        assert got.keys() == want.keys(), fn
+        for k in want:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, (fn, k)
+            assert torch.equal(got[k].reshape(-1).view(torch.uint8),
+                               want[k].reshape(-1).view(torch.uint8)), (fn, k)
+    with open(os.path.join(port_dir, "config.json")) as f, \
+            open(os.path.join(jax_dir, "config.json")) as g:
+        assert json.load(f) == json.load(g)
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["as-saved", "bf16"])
+@pytest.mark.parametrize("layout", ["native", "hf"])
+@pytest.mark.parametrize("family", HF_FAMILIES)
+def test_split_matches_jax_splitter(tmp_path, family, layout, dtype):
+    hf_checkpoint(family, tmp_path / "hf")
+    want = jckpt.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "jax"), dtype=dtype,
+                                   layout=layout)
+    got = checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "port"), dtype=dtype,
+                                       layout=layout)
+    assert got == want
+    _assert_same_split(tmp_path / "port", tmp_path / "jax")
+    cfg = LlamaConfig.from_pretrained(str(tmp_path / "port"))
+    assert sorted(got) == sorted(checkpoint.layer_names_for(cfg.num_hidden_layers,
+                                                            cfg.tie_word_embeddings))
+
+
+@pytest.mark.parametrize("shard,safetensors", [(True, True), (False, False), (True, False)],
+                         ids=["sharded-safetensors", "bin", "sharded-bin"])
+def test_split_reads_every_checkpoint_form(tmp_path, shard, safetensors):
+    hf_checkpoint("qwen2", tmp_path / "hf", shard=shard, safetensors=safetensors)
+    index = "model.safetensors.index.json" if safetensors else "pytorch_model.bin.index.json"
+    assert (tmp_path / "hf" / index).exists() == shard
+    want = jckpt.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "jax"), dtype="float16")
+    got = checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "port"), dtype="float16")
+    assert got == want
+    _assert_same_split(tmp_path / "port", tmp_path / "jax")
+
+
+def test_split_drops_the_vision_tower_unread(tmp_path, monkeypatch):
+    """A gemma3 bundle: the text tower under native names, config.json its
+    text_config, and no vision or projector tensor read from the shards."""
+    hf_checkpoint("gemma3", tmp_path / "hf")
+    read = []
+    real = checkpoint.read_safetensors
+
+    def spy(path, pin_memory=False, want=None):
+        out = real(path, pin_memory, want)
+        read.extend(out)
+        return out
+
+    monkeypatch.setattr(checkpoint, "read_safetensors", spy)
+    names = checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "port"))
+    assert read and not any("vision" in k or "multi_modal" in k for k in read)
+    assert set(names) == {"model.embed_tokens", "model.norm", *(f"model.layers.{i}" for i in range(3))}
+    cfg = LlamaConfig.from_pretrained(str(tmp_path / "port"))
+    assert cfg.model_type == "gemma3_text" and cfg.head_dim == 256
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_split_quantized_dtypes_raise(tmp_path, dtype):
+    hf_checkpoint("llama", tmp_path / "hf")
+    with pytest.raises(NotImplementedError, match="3.5"):
+        checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "port"), dtype=dtype)
+
+
+@pytest.mark.parametrize("key,item", [
+    ("model.layers.0.block_sparse_moe.gate.weight", "2.4"),
+    ("model.layers.0.mlp.experts.0.gate_proj.weight", "2.4"),
+    ("model.layers.0.self_attn.kv_a_proj_with_mqa.weight", "2.5"),
+    ("model.layers.0.feed_forward.router.weight", "2.3"),
+], ids=["mixtral", "qwen3_moe", "mla", "llama4"])
+def test_unported_layer_forms_raise(key, item):
+    with pytest.raises(NotImplementedError, match=item):
+        checkpoint.hf_layer_to_native("model.layers.0", {key: torch.zeros(2, 2)})
+
+
+def test_prepare_weights_cli_splits(tmp_path):
+    from flexible_llm_sharding_tpu_torch import prepare_weights
+
+    hf_checkpoint("phi3", tmp_path / "hf")
+    names = prepare_weights.main([str(tmp_path / "hf"), str(tmp_path / "port"), "--dtype", "float32",
+                                  "--layout", "hf"])
+    want = jckpt.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "jax"), dtype="float32",
+                                   layout="hf")
+    assert names == want
+    _assert_same_split(tmp_path / "port", tmp_path / "jax")
+
+
+@pytest.mark.parametrize("family", ["llama", "phi3"])
+def test_load_layer_converts_hf_layout(tmp_path, family):
+    """load_layer on the reference's own files gives what it gives on the
+    native split, bit for bit (ROADMAP F2)."""
+    hf_checkpoint(family, tmp_path / "hf")
+    names = checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "native"))
+    jckpt.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "hfl"), layout="hf")
+    for name in names:
+        got = dict(checkpoint.flatten(checkpoint.load_layer(str(tmp_path / "hfl"), name)))
+        want = dict(checkpoint.flatten(checkpoint.load_layer(str(tmp_path / "native"), name)))
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, k)
+
+
+class _Vocab256(BenchTokenizer):
+    VOCAB = 256
+
+
+CLI_PROMPTS = [
+    ("the quick brown fox jumps over the lazy dog " * 3, (" and runs", " then sleeps all day")),
+    ("one two three four five six seven eight nine ten eleven twelve",
+     (" thirteen fourteen", " x", " y z")),
+]
+
+
+def run_cli(main, model_dir, tmp_path, tag, extra, prompts=CLI_PROMPTS):
+    """One batch-CLI run (the JAX package's or the port's) in float32 on the
+    CPU: (scores, updated prompts)."""
+    ppkl, opkl = tmp_path / f"{tag}.pkl", tmp_path / f"{tag}_scores.pkl"
+    ppkl.write_bytes(pickle.dumps(prompts))
+    main(["--model_path", str(model_dir), "--prompt_pickle", str(ppkl), "--output_file", str(opkl),
+          "--dtype", "float32", "--bucket_multiple", "16", "--block_size", "2",
+          "--disk_folder", str(tmp_path / f"{tag}_disk"), *extra],
+         tokenizer=_Vocab256())
+    return (pickle.loads(opkl.read_bytes()),
+            pickle.loads((tmp_path / f"{tag}_updated.pkl").read_bytes()))
+
+
+def assert_cli_match(got, want, atol=1e-5):
+    (scores, updated), (want_scores, want_updated) = got, want
+    assert len(scores) == len(want_scores)
+    for g, w in zip(scores, want_scores):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=atol, rtol=0)
+    assert updated == want_updated
+
+
+@pytest.mark.parametrize("mode", [[], ["--kv_cache", "true"]], ids=["generation_loop", "kv_cache"])
+@pytest.mark.parametrize("family", ["llama", "phi3"])
+def test_cli_on_hf_layout_split_matches_jax_cli(tmp_path, family, mode):
+    """ROADMAP F2: the reference's own per-layer files (the JAX splitter's
+    --layout hf) through the port's CLI give the JAX CLI's scores on the
+    same files."""
+    from flexible_llm_sharding_tpu.cli import main as jax_main
+    from flexible_llm_sharding_tpu_torch.cli import main as torch_main
+
+    hf_checkpoint(family, tmp_path / "hf", seed=1)
+    model = tmp_path / "split"
+    jckpt.split_into_layers(str(tmp_path / "hf"), str(model), dtype="float32", layout="hf")
+    extra = ["--num_gen_token", "2", *mode]
+    want = run_cli(jax_main, model, tmp_path, "jax", [*extra, "--num_devices", "1"])
+    got = run_cli(torch_main, model, tmp_path, "torch", [*extra, "--device", "cpu"])
+    assert_cli_match(got, want)

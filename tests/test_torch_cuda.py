@@ -237,3 +237,38 @@ def test_local_on_tensor_raises_on_cuda(gen):
     with pytest.raises(TypeError):
         fa.flash_causal_attention(q, q, q, one, window=16,
                                   local_on=torch.tensor(True, device="cuda"))
+
+
+# Head dims 256 (the kernels' own instantiations) and 96 (the hd-128 ones on
+# unpadded tensors, columns past 96 zero-filled): every kernel in every
+# dtype, with NaN past every limit and without, plain and with a window, a
+# chunk, the toggle off and a softcap.
+HEAD_DIM_FORMS = [({}, "plain"), ({"window": 48}, "window48"), ({"window": 130}, "window130"),
+                  ({"chunk": 64}, "chunk64"), ({"window": 48, "local_on": False}, "window48-off"),
+                  ({"softcap": 30.0}, "softcap30")]
+
+
+@pytest.mark.parametrize("form", [f for f, _ in HEAD_DIM_FORMS], ids=[n for _, n in HEAD_DIM_FORMS])
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("hd", [256, 96])
+def test_head_dims_256_and_96_match_plain(gen, hd, dtype, form):
+    b, s, lp, ls, tg, t, nq, nkv = 2, 3, 200, 70, 6, 4, 16, 8
+    plen = torch.tensor([200, 41], dtype=torch.int32, device="cuda")
+    eos = torch.tensor([[0, 69, 12], [5, 66, 37]], dtype=torch.int32, device="cuda")
+    q = _rnd(gen, dtype, b, lp, nq, hd)
+    qs = _rnd(gen, dtype, b, s, ls, nq, hd)
+    qd = _rnd(gen, dtype, b, s, 1, nq, hd)
+    zero, nan = _decode_kv(gen, dtype, b, s, lp, ls, tg, nkv, hd, plen, eos, t)
+    fa.reset_launch_counts()
+    for fed in (zero, nan):
+        _close(fa.flash_causal_attention(q, fed["kp"], fed["vp"], plen, **form),
+               fa.causal_attention_plain(*_f32(q, zero["kp"], zero["vp"], plen), **form), dtype)
+        _close(fa.flash_prefix_shared_attention(qs, fed["kp"], fed["vp"], zero["ks"], zero["vs"], plen,
+                                                **form),
+               fa.prefix_shared_attention_plain(*_f32(qs, zero["kp"], zero["vp"], zero["ks"], zero["vs"],
+                                                      plen), **form), dtype)
+        _close(fa.flash_decode_attention(qd, *(fed[n] for n in DECODE_KV), plen, eos, t, **form),
+               fa.decode_attention_plain(*_f32(qd, *(zero[n] for n in DECODE_KV)), plen, eos, t,
+                                         **form), dtype)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 2)

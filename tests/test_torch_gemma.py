@@ -84,11 +84,16 @@ def test_gemma3_27b_config_reads_as_published():
 
 
 @pytest.mark.parametrize("d", [
-    {"model_type": "mistral"}, {"model_type": "qwen2"}, {"model_type": "qwen3"},
+    {"model_type": "mistral", "fls_native": True, "qk_norm": True},
+    {"model_type": "qwen2", "rope_scaling": {"type": "yarn", "factor": 4.0,
+                                             "original_max_position_embeddings": 32768}},
+    {"model_type": "qwen3", "fls_native": True, "ffw_sandwich_norms": True},
     {**GEMMA3_27B_TEXT, "rope_scaling": {"rope_type": "yarn", "factor": 8.0}},
     {"model_type": "llama", "fls_native": True, "qk_norm": True},
 ], ids=["mistral", "qwen2", "qwen3", "gemma3-yarn", "llama-qk-norm"])
 def test_unported_families_raise(d):
+    """What the port does not carry yet: a delta a native config's family
+    lacks, and rope scalings other than linear (Qwen2.5's yarn)."""
     with pytest.raises(NotImplementedError):
         LlamaConfig.from_dict(d)
 

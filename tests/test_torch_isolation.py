@@ -63,8 +63,8 @@ def test_default_device_run_without_gpu_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"head_dim": 256}, {"head_dim": 32}, {"window": 1024, "head_dim": 96},
-    {"head_dim": 96}, {"head_dim": 128, "v_dim": 64},
+    {"head_dim": 512}, {"head_dim": 32}, {"window": 1024, "head_dim": 80},
+    {"head_dim": 160}, {"head_dim": 128, "v_dim": 64},
 ])
 def test_cuda_argument_check_refuses_unsupported(kw):
     with pytest.raises(NotImplementedError):
@@ -81,7 +81,7 @@ def test_cuda_argument_check_refuses_bad_local_forms(kw, error):
 
 
 def test_cuda_argument_check_accepts_the_slice():
-    for hd in (64, 128):
+    for hd in (64, 96, 128, 256):
         fa.check_cuda_args(head_dim=hd, v_dim=hd)
         for local in ({"window": 1}, {"window": 1024, "local_on": False}, {"chunk": 64},
                       {"chunk": 8192, "local_on": True}, {"window": 4096, "local_on": None}):
@@ -101,3 +101,12 @@ def test_build_flags_target_sm90a():
     flags = " ".join(cuda_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     assert cuda_build.SOURCE.exists()
+
+
+def test_offline_entry_and_scripts_are_checked():
+    """The port's own prepare_weights and the card-side scripts are among
+    the files held to the no-JAX rule above."""
+    names = {str(p.relative_to(ROOT.parent)) for p in PORT_FILES}
+    assert {"flexible_llm_sharding_tpu_torch/prepare_weights.py",
+            "flexible_llm_sharding_tpu_torch/utils/checkpoint.py",
+            "scripts/torch_kernel_ab.py", "chip_smoke.py"} <= names

@@ -29,7 +29,7 @@ def _model(head_dim: int = 64):
     jcfg = JLlamaConfig(**kw)
     params_np = jax.tree.map(np.asarray, jllama.init_params(jax.random.PRNGKey(0), jcfg))
     cfg = LlamaConfig.from_dict(
-        {k: getattr(jcfg, k) for k in kw}
+        {"fls_native": True, **{k: getattr(jcfg, k) for k in kw}}
     )
     return jcfg, cfg, params_np, params_from_jax(params_np, cfg)
 

@@ -91,3 +91,28 @@ def test_local_bounds_count_only_pairs_in_the_window():
     assert one["flash_causal_attention"][0] == 7 + LP  # each row sees itself, if real
     assert one["flash_decode_attention"][0] == 2 * S  # the new token's own generated slot
     assert one["flash_prefix_shared_attention"] == (2 * S * LS, 2 * S * LS)
+
+
+@pytest.mark.parametrize("local", [{"window": 1024}, {}], ids=["local", "global"])
+def test_gemma3_12b_bounds_equal_the_27b_rows(local):
+    """Gemma-3-12B's heads (16 x 256 query, 8 x 256 KV) do the work of
+    Gemma-3-27B's (32 x 128, 16 x 128) on the same prompts: chip_smoke.py's
+    bounds for the hd-256 rows equal those of the hd-128 rows."""
+    prompts = chip_smoke.make_prompts(8, 2048, 4, 32, seed=1)
+    c27 = chip_smoke.main_path_case(prompts, 4, nq=32, nkv=16, hd=128)
+    c12 = chip_smoke.main_path_case(prompts, 4, nq=16, nkv=8, hd=256)
+    b27 = chip_smoke._bounds({**c27, "local": local})
+    b12 = chip_smoke._bounds({**c12, "local": local})
+    for kernel in b27:
+        assert b12[kernel][1] == b27[kernel][1]
+        assert b12[kernel][0] == pytest.approx(b27[kernel][0], rel=1e-12)
+
+
+def test_cross_check_models_cover_the_families():
+    """The float32 card-vs-CPU check runs every family the port carries,
+    at head dims 256 and 96 too, and binds a window in each windowed one."""
+    cfgs = chip_smoke.cross_configs()
+    assert {c.model_type for c in cfgs.values()} == {
+        "llama", "gemma", "gemma3_text", "phi3", "qwen2", "qwen3", "mistral"}
+    assert {c.head_dim for c in cfgs.values()} == {96, 128, 256}
+    assert all(c.sliding_window in (None, 32) for c in cfgs.values())
