@@ -20,22 +20,28 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              T-1, hd 64 fp16, float32, softcap; each with and without NaN in
              every K/V row past a source's limit; head dims 256 and 96 in
              every dtype, with and without NaN past the limits, with
-             windows, chunks, the toggle off and softcap); bf16 and fp16 within
+             windows, chunks, the toggle off and softcap; the scoring
+             kernels at multi-head latent attention's qk 192 / v 128 in
+             every dtype, ± NaN, every local form, softcap and the hd-128
+             edge lengths); bf16 and fp16 within
              atol = rtol = 2e-2 of the plain version computed in float32
              from the same inputs, float32 within atol 1e-4. Times each
              kernel, its plain version and its library yardstick (one SDPA
              call on KV concatenated beforehand) at the shapes of the
              full-width runs (Llama-2-7B; Gemma-3-27B and Gemma-3-12B local
              and global layers; Phi-3-mini heads, hd 96, at the Llama
-             prompts), and every kernel and its yardstick at a
+             prompts; DeepSeek-V3's 128 MLA heads, the scoring kernels),
+             and every kernel and its yardstick at a
              4096-token prefix with one prompt (device time from CUDA events
              around back-to-back calls queued behind a spin kernel, so the
              host's launch work is not in it).
 4. cross   — reduced-width float32 checkpoints (llama, gemma 3 and gemma 1
              at hd 256, phi3 at hd 96, qwen2, qwen3, mistral; windows that
-             bind) through the port's CLI on the card and on the CPU: scores
-             within atol 1e-4 and identical greedy tokens, for the
-             re-scoring loop and for --kv_cache.
+             bind; llama3, yarn and longrope rope scalings; mixtral,
+             qwen3_moe and deepseek_v3 with its MLA heads) through the
+             port's CLI on the card and on the CPU: scores within atol 1e-4
+             and identical greedy tokens, for the re-scoring loop and for
+             --kv_cache.
 5. full    — seeded bf16 checkpoints at full width through the CLI, one
              layer per shard so every layer streams: Llama-2-7B (4 decoder
              layers; scoring with --num_gen_token 4, then --kv_cache with
@@ -44,9 +50,14 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              Hugging Face bundle shaped as google/gemma-3-12b-pt ships it
              (the gemma3 wrapper config, language-model keys at [out, in],
              a vision tower, three shards and an index) and split by the
-             port's prepare_weights first. Scores must be finite and sum to
-             1, and every kernel of each run must have launched (with a
-             window: with it on and with it off).
+             port's prepare_weights first; then DeepSeek-V3 (4 layers: 0-2
+             dense, 3 with its 256 experts; 30.2 GB written one layer file
+             at a time), scoring with --num_gen_token 2, then --kv_cache.
+             Scores must be finite and sum to 1, and every kernel of each
+             run must have launched (with a window: with it on and with it
+             off); under MLA the scoring kernels at (192, 128) only and the
+             decode kernel never (MLA decode runs the plain op, as in the
+             JAX package).
 
 Output: per-phase lines, then a JSON line of kernel records, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -60,6 +71,7 @@ import json
 import os
 import pickle
 import re
+import resource
 import shutil
 import subprocess
 import sys
@@ -83,6 +95,7 @@ REPLACES = {
 }
 CUDA_SOURCE = "flexible_llm_sharding_tpu_torch/csrc/flash_attention.cu"
 HEAD_DIMS = (64, 96, 128, 256)
+MLA_DIMS = ((192, 128),)  # (Q/K head dim, V head dim) of multi-head latent attention
 SMEM_LIMIT = 232448  # opt-in dynamic shared memory per block on the H100
 
 
@@ -180,7 +193,10 @@ def phase_build() -> None:
              (1, 0): "decode_rows_kernel f32", (1, 1): "decode_rows_kernel fp16",
              (1, 2): "decode_rows_kernel bf16"}
     for (kind, dtype), name in names.items():
-        sizes = {hd: lib.fls_dynamic_smem(kind, dtype, hd) for hd in HEAD_DIMS}
+        sizes = {f"{hd}": lib.fls_dynamic_smem(kind, dtype, hd, hd) for hd in HEAD_DIMS}
+        if kind == 0:  # the scoring kernels also take MLA's (192, 128)
+            sizes.update({f"{hd}/{hd_v}": lib.fls_dynamic_smem(kind, dtype, hd, hd_v)
+                          for hd, hd_v in MLA_DIMS})
         log(f"[build] {name} dynamic shared memory (B) by head dim: {sizes}")
         if max(sizes.values()) > SMEM_LIMIT or min(sizes.values()) <= 0:
             fail(f"{name}: shared memory outside (0, {SMEM_LIMIT}] B: {sizes}")
@@ -215,16 +231,17 @@ def _inputs(case: dict, dtype, gen: torch.Generator, fill_past_limits=None):
     no query can see (prefix rows at or past prefix_len, suffix rows past
     eos, generated rows past t) hold that value."""
     b, s, nq, nkv, hd = case["B"], case["S"], case["nq"], case["nkv"], case["hd"]
+    hd_v = case.get("hd_v", hd)  # V's head dim (MLA: 128 beside hd 192)
     lp, ls, tg = case["Lp"], case["Ls"], case["T"]
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     x = {
-        "q_prefix": rnd(b, lp, nq, hd), "kp": rnd(b, lp, nkv, hd), "vp": rnd(b, lp, nkv, hd),
+        "q_prefix": rnd(b, lp, nq, hd), "kp": rnd(b, lp, nkv, hd), "vp": rnd(b, lp, nkv, hd_v),
         "q_suffix": rnd(b, s, ls, nq, hd), "ks": rnd(b, s, ls, nkv, hd),
-        "vs": rnd(b, s, ls, nkv, hd), "q_dec": rnd(b, s, 1, nq, hd),
-        "kg": rnd(b, s, tg, nkv, hd), "vg": rnd(b, s, tg, nkv, hd),
+        "vs": rnd(b, s, ls, nkv, hd_v), "q_dec": rnd(b, s, 1, nq, hd),
+        "kg": rnd(b, s, tg, nkv, hd), "vg": rnd(b, s, tg, nkv, hd_v),
         "plen": torch.tensor(case["plen"], dtype=torch.int32, device="cuda"),
         "eos": torch.tensor(case["eos"], dtype=torch.int32, device="cuda"),
         "t": case["t"],
@@ -344,9 +361,10 @@ def run_yardstick(args: dict, like: torch.Tensor) -> torch.Tensor:
 
 def _calls(x: dict, softcap, local=None):
     """Per kernel: (positional args, keyword args); ``local``: the window,
-    chunk and local_on keywords, if any."""
+    chunk and local_on keywords, if any. With a V head dim of its own (MLA)
+    only the scoring kernels: the decode kernel never takes MLA."""
     kw = {"softcap": softcap, **(local or {})}
-    return {
+    calls = {
         "flash_causal_attention": ((x["q_prefix"], x["kp"], x["vp"], x["plen"]), kw),
         "flash_prefix_shared_attention": (
             (x["q_suffix"], x["kp"], x["vp"], x["ks"], x["vs"], x["plen"]), kw),
@@ -354,6 +372,25 @@ def _calls(x: dict, softcap, local=None):
             (x["q_dec"], x["kp"], x["vp"], x["ks"], x["vs"], x["kg"], x["vg"], x["plen"],
              x["eos"], x["t"]), kw),
     }
+    if x["vp"].shape[-1] != x["kp"].shape[-1]:
+        del calls["flash_decode_attention"]
+    return calls
+
+
+def run_plain(kernel: str, args, kw, head_chunk: int | None = None):
+    """The kernel's plain version on ``args``; with ``head_chunk`` over that
+    many heads at a time (query and KV heads alike: MLA's GQA ratio is 1),
+    where the scores of all heads at once would not fit on the card."""
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+    fn = fa.PLAIN[kernel]
+    if not head_chunk:
+        return fn(*args, **kw)
+    n = args[0].shape[-2]
+    return torch.cat([
+        fn(*(a[..., h:h + head_chunk, :] if torch.is_tensor(a) and a.is_floating_point() else a
+             for a in args), **kw)
+        for h in range(0, n, head_chunk)], dim=-2)
 
 
 def _f32(args):
@@ -378,8 +415,8 @@ def check_case(name: str, case: dict, dtype, gen, nan_past_limits: bool = False,
                for k, m in _past_limits(x).items()}
         scoring = {**x, "kp": nan["kp"], "vp": nan["vp"]}
         fed = {**_calls(scoring, softcap, local),
-               "flash_decode_attention": _calls({**x, **nan}, softcap, local)[
-                   "flash_decode_attention"]}
+               **{k: c for k, c in _calls({**x, **nan}, softcap, local).items()
+                  if k == "flash_decode_attention"}}
     else:
         fed = calls
     errs = {}
@@ -388,7 +425,7 @@ def check_case(name: str, case: dict, dtype, gen, nan_past_limits: bool = False,
             continue
         got = getattr(fa, kernel)(*fed[kernel][0], **kw)
         torch.cuda.synchronize()
-        want = fa.PLAIN[kernel](*_f32(args), **kw)
+        want = run_plain(kernel, _f32(args), kw, case.get("plain_head_chunk"))
         if not torch.isfinite(got).all():
             fail(f"{kernel} [{name}] produced non-finite values")
         diff = (got.float() - want).abs()
@@ -482,18 +519,20 @@ def _bounds(case: dict) -> dict[str, tuple[float, str]]:
     """Least time on the card for each kernel's work at this case's data:
     the larger of the bytes it must move (Q read and O written once, each
     key row it must read once, K and V, bf16) over 3.35 TB/s and its tensor
-    FLOPs (QK^T and PV, 4*hd per visible query-key pair and query head) over
-    989 TFLOP/s. With a local form only the pairs within it count, and only
-    the key rows some query sees within it."""
+    FLOPs (QK^T over hd and PV over V's head dim hd_v: 2*(hd + hd_v) per
+    visible query-key pair and query head) over 989 TFLOP/s. With a local
+    form only the pairs within it count, and only the key rows some query
+    sees within it."""
     b, s, nq, nkv, hd = case["B"], case["S"], case["nq"], case["nkv"], case["hd"]
+    hd_v = case.get("hd_v", hd)
     e = 2  # bytes per bf16 element
-    kv_row = 2 * nkv * hd * e  # one key row of K and V
+    kv_row = nkv * (hd + hd_v) * e  # one key row of K and V
     q_rows = {"flash_causal_attention": b * case["Lp"],
               "flash_prefix_shared_attention": b * s * case["Ls"], "flash_decode_attention": b * s}
     out = {}
     for k, (pairs, keys) in _work(case).items():
-        t_ops = 4 * hd * nq * float(pairs) / PEAK_BF16_FLOPS * 1e3
-        t_bytes = float(2 * q_rows[k] * nq * hd * e + keys * kv_row) / PEAK_BYTES * 1e3
+        t_ops = 2 * (hd + hd_v) * nq * float(pairs) / PEAK_BF16_FLOPS * 1e3
+        t_bytes = float(q_rows[k] * nq * (hd + hd_v) * e + keys * kv_row) / PEAK_BYTES * 1e3
         out[k] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
     return out
 
@@ -510,11 +549,12 @@ def time_case(case: dict, gen, plain_calls: int = 20) -> dict[str, dict]:
     bounds = _bounds(case)
     local = case.get("local") or {}
     out = {}
+    chunk = case.get("plain_head_chunk")
     for kernel, (args, kw) in _calls(x, None, local).items():
         sdpa = YARDSTICKS[kernel](*args, **local)
         out[kernel] = {
             "ms": _device_ms(lambda: getattr(fa, kernel)(*args, **kw)),
-            "plain_ms": _device_ms(lambda: fa.PLAIN[kernel](*args, **kw), calls=plain_calls),
+            "plain_ms": _device_ms(lambda: run_plain(kernel, args, kw, chunk), calls=plain_calls),
             "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(**sdpa)),
             "bound_ms": bounds[kernel][0],
             "bound_by": bounds[kernel][1],
@@ -551,10 +591,11 @@ def time_long_prefix(gen) -> None:
                 f"library {lib:.4f} ms, bound {bounds[kernel][0]:.4f} ms ({bounds[kernel][1]})")
 
 
-def main_path_case(prompts, n_gen_kv: int, nq: int = 32, nkv: int = 32, hd: int = 128) -> dict:
+def main_path_case(prompts, n_gen_kv: int, nq: int = 32, nkv: int = 32, hd: int = 128,
+                   hd_v: int | None = None) -> dict:
     """The attention shapes and lengths a full-width run gives the kernels
-    (Llama-2-7B heads unless given; prompts tokenized as the CLI tokenizes
-    them)."""
+    (Llama-2-7B heads unless given, V's head dim hd unless given; prompts
+    tokenized as the CLI tokenizes them)."""
     from flexible_llm_sharding_tpu_torch.runtime.tokenization import PromptTokenizer
 
     toks = [PromptTokenizer(BenchTokenizer())(p, s) for p, s in prompts]
@@ -565,13 +606,47 @@ def main_path_case(prompts, n_gen_kv: int, nq: int = 32, nkv: int = 32, hd: int 
     tg = max(1, n_gen_kv - 1)
     return {
         "B": len(toks), "S": s, "Ls": ls, "Lp": lp, "T": tg, "t": tg - 1,
-        "nq": nq, "nkv": nkv, "hd": hd,
+        "nq": nq, "nkv": nkv, "hd": hd, "hd_v": hd if hd_v is None else hd_v,
         "plen": [t.prefix_len for t in toks], "eos": [t.suffix_eos.tolist() for t in toks],
     }
 
 
-def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_case: dict
-                  ) -> dict[str, dict]:
+def check_mla_cases(case, gen) -> None:
+    """The scoring kernels at MLA's (qk 192, v 128), against their plain
+    versions: 16 and 8 heads (GQA 1, as the model runs them), softcap, every
+    local form, in every dtype, with and without NaN past the limits; then
+    the hd-128 edge lengths (S 1 / lq 1, odd S, lq 64/130/576, prefix lengths
+    around the 64-key tiles) with GQA as well."""
+    def mla(c):
+        return {**c, "hd": 192, "hd_v": 128}
+
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for nan in (False, True):
+            tag = f"mla 192/128{', NaN past limits' if nan else ''}"
+            check_case(f"{tag}, 16 heads", mla(case(2, 3, 16, 16, 192, 200, 70, 6, [200, 41])), dtype,
+                       gen, nan_past_limits=nan)
+            check_case(f"{tag}, softcap 30", mla(case(2, 4, 8, 8, 192, 130, 64, 5, [65, 130], 30.0)),
+                       dtype, gen, nan_past_limits=nan)
+            for name, local in LOCAL_FORMS:
+                c = {**mla(case(2, 3, 16, 16, 192, 200, 70, 6, [200, 41])), "t": 4,
+                     "eos": [[0, 69, 12], [5, 66, 37]], "local": local}
+                check_case(f"{tag}, {name}", c, dtype, gen, nan_past_limits=nan)
+    edges = [
+        ("S 1, lq 1, MQA 8/1", case(2, 1, 8, 1, 192, 1, 1, 3, [0, 1]), torch.bfloat16, False),
+        ("S 3, lq 64/130, GQA 4/2", case(2, 3, 4, 2, 192, 64, 130, 5, [63, 64]), torch.float16, False),
+        ("S 3, lq 130/64, softcap 30", case(2, 3, 8, 8, 192, 130, 64, 5, [65, 130], 30.0),
+         torch.bfloat16, False),
+        ("lq 576, NaN past limits", case(2, 4, 16, 16, 192, 576, 64, 7, [65, 513]), torch.bfloat16, True),
+        ("S 3, lq 130, NaN past limits", case(2, 3, 8, 1, 192, 130, 130, 5, [0, 127]), torch.float16,
+         True),
+        ("S 5, lq 576, float32", case(2, 5, 8, 8, 192, 576, 130, 7, [65, 513]), torch.float32, True),
+    ]
+    for name, c, dtype, nan in edges:
+        check_case(f"mla 192/128, {name}", mla(c), dtype, gen, nan_past_limits=nan)
+
+
+def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_case: dict,
+                  mla_case: dict) -> dict[str, dict]:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rng = np.random.default_rng(5)
 
@@ -661,6 +736,7 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
                    gen)
         check_case(f"hd {hd}, S 5, lq 576, NaN past limits", case(2, 5, 32, 4, hd, 576, 130, 7, [65, 513]),
                    torch.bfloat16, gen, nan_past_limits=True)
+    check_mla_cases(case, gen)
     errs = check_case("main path", main_case, torch.bfloat16, gen)
     gemma_local = {**gemma_case, "local": {"window": GEMMA_WINDOW}}
     gemma12_local = {**gemma12_case, "local": {"window": GEMMA_WINDOW}}
@@ -670,6 +746,9 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
         "gemma3_12b_local": ("gemma3-12b local layer, hd 256", gemma12_local, 4),
         "gemma3_12b_global": ("gemma3-12b global layer, hd 256", gemma12_case, 4),
         "phi3_hd96": ("phi-3-mini heads, hd 96", phi3_case, 20),
+        # The plain version runs 16 of the 128 heads at a time (all at once
+        # its float32 scores alone would take 18 GB a copy).
+        "deepseek_v3_mla": ("deepseek-v3 mla, qk 192 / v 128", {**mla_case, "plain_head_chunk": 16}, 2),
     }
     shape_errs = {key: check_case(name, c, torch.bfloat16, gen) for key, (name, c, _) in shapes.items()}
     time_long_prefix(gen)
@@ -680,7 +759,8 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
     for k in timed:
         timed[k]["max_abs_err"] = errs[k]
         for key in shapes:
-            timed[k][key] = {**shape_t[key][k], "max_abs_err": shape_errs[key][k]}
+            if k in shape_t[key]:  # MLA shapes: the scoring kernels only
+                timed[k][key] = {**shape_t[key][k], "max_abs_err": shape_errs[key][k]}
     return timed
 
 
@@ -712,58 +792,151 @@ GEMMA3_12B_TEXT = {
 }
 
 
+# deepseek-ai/DeepSeek-V3, config.json: the fields that shape the model (its
+# depth is cut per phase; first_k_dense_replace keeps layers 0-2 dense).
+DEEPSEEK_V3 = {
+    "model_type": "deepseek_v3", "vocab_size": 129280, "hidden_size": 7168,
+    "intermediate_size": 18432, "moe_intermediate_size": 2048, "num_hidden_layers": 61,
+    "num_attention_heads": 128, "num_key_value_heads": 128, "n_shared_experts": 1,
+    "n_routed_experts": 256, "routed_scaling_factor": 2.5, "kv_lora_rank": 512, "q_lora_rank": 1536,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "qk_nope_head_dim": 128, "topk_method": "noaux_tc",
+    "n_group": 8, "topk_group": 4, "num_experts_per_tok": 8, "moe_layer_freq": 1,
+    "first_k_dense_replace": 3, "norm_topk_prob": True, "scoring_func": "sigmoid",
+    "hidden_act": "silu", "max_position_embeddings": 163840, "rms_norm_eps": 1e-6,
+    "tie_word_embeddings": False, "rope_theta": 10000, "attention_bias": False,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 1.0,
+                     "mscale_all_dim": 1.0, "original_max_position_embeddings": 4096, "type": "yarn"},
+}
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-5: the port's CLI
 # ---------------------------------------------------------------------------
 
-def _init_params(cfg, dtype, seed: int, device: str) -> dict:
-    """Seeded random weights in the JAX package's layout and scales. Norm
-    scales are ones, or for the (1+w) Gemma norms small values around 0;
-    Gemma's layers add the sandwich norms, Gemma 3's and Qwen3's the q/k
-    norms, Qwen2's its q/k/v biases; a tied head has no lm_head."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+# Initialisers of layer_specs: a linear kernel (scale sqrt(2 / (fan_in +
+# fan_out)) over its last two dims), a norm scale (ones, or for the (1+w)
+# Gemma norms small values around 0), a bias (both signs, DeepSeek's
+# routing correction too) and the embedding / head (0.02).
+LIN, NORM, BIAS, EMBED = "lin", "norm", "bias", "embed"
+
+
+def layer_specs(cfg, i: int) -> list[tuple[str, tuple, str]]:
+    """Decoder layer ``i``'s tensors in the JAX package's native layout:
+    (flat key, shape, initialiser). MLA layers carry the q LoRA (or a dense
+    q) and the compressed KV; MoE layers (``moe_layer_pattern``, or every
+    layer of a MoE model without one) a router and stacked experts at the
+    expert width, DeepSeek's adding the correction bias and the shared
+    expert; its dense layers take ``intermediate_size_mlp``. Gemma's layers
+    add the sandwich norms, Gemma 3's and Qwen3's the q/k norms, Qwen2's its
+    q/k/v biases."""
+    d, hd, hv = cfg.hidden_size, cfg.head_dim, cfg.v_dim
     nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    moe = cfg.num_local_experts > 0 and (cfg.moe_layer_pattern is None or cfg.moe_layer_pattern[i])
+    f = cfg.intermediate_size if moe or not cfg.intermediate_size_mlp else cfg.intermediate_size_mlp
+    specs = [("input_layernorm.scale", (d,), NORM), ("post_attention_layernorm.scale", (d,), NORM)]
+    if cfg.kv_lora_rank:
+        r, rq = cfg.kv_lora_rank, cfg.q_lora_rank
+        if rq:
+            specs += [("attn.q_a", (d, rq), LIN), ("attn.q_a_norm", (rq,), NORM),
+                      ("attn.q_b", (rq, nq * hd), LIN)]
+        else:
+            specs.append(("attn.wq", (d, nq * hd), LIN))
+        specs += [("attn.kv_a", (d, r + cfg.qk_rope_head_dim), LIN), ("attn.kv_a_norm", (r,), NORM),
+                  ("attn.kv_b", (r, nq * (cfg.qk_nope_head_dim + hv)), LIN), ("attn.wo", (nq * hv, d), LIN)]
+    else:
+        specs += [("attn.wq", (d, nq * hd), LIN), ("attn.wk", (d, nkv * hd), LIN),
+                  ("attn.wv", (d, nkv * hd), LIN), ("attn.wo", (nq * hd, d), LIN)]
+    if moe:
+        e = cfg.num_local_experts
+        specs += [("mlp.router", (d, e), LIN), ("mlp.gate", (e, d, f), LIN), ("mlp.up", (e, d, f), LIN),
+                  ("mlp.down", (e, f, d), LIN)]
+        if cfg.model_type == "deepseek_v3":
+            fs = f * cfg.n_shared_experts
+            specs += [("mlp.correction_bias", (e,), BIAS), ("mlp.shared_gate", (d, fs), LIN),
+                      ("mlp.shared_up", (d, fs), LIN), ("mlp.shared_down", (fs, d), LIN)]
+    else:
+        specs += [("mlp.gate", (d, f), LIN), ("mlp.up", (d, f), LIN), ("mlp.down", (f, d), LIN)]
+    if cfg.qk_norm:
+        specs += [("attn.q_norm", (hd,), NORM), ("attn.k_norm", (hd,), NORM)]
+    if cfg.attention_in_bias and not cfg.kv_lora_rank:
+        specs += [("attn.bq", (nq * hd,), BIAS), ("attn.bk", (nkv * hd,), BIAS), ("attn.bv", (nkv * hd,), BIAS)]
+    if cfg.ffw_sandwich_norms:
+        specs += [("pre_feedforward_layernorm.scale", (d,), NORM),
+                  ("post_feedforward_layernorm.scale", (d,), NORM)]
+    return specs
 
-    def lin(fan_in, fan_out):
-        w = torch.randn(fan_in, fan_out, generator=g, device=device)
-        return (w * (2.0 / (fan_in + fan_out)) ** 0.5).to(dtype).cpu()
 
-    def norm(n):
-        if cfg.norm_unit_offset:
-            return (torch.randn(n, generator=g, device=device) * 0.1).to(dtype).cpu()
-        return torch.ones(n, dtype=dtype)
-
-    def bias(n):
-        return (torch.randn(n, generator=g, device=device) * 0.1).to(dtype).cpu()
-
-    def layer():
-        out = {
-            "input_layernorm": {"scale": norm(d)},
-            "post_attention_layernorm": {"scale": norm(d)},
-            "attn": {"wq": lin(d, nq * hd), "wk": lin(d, nkv * hd),
-                     "wv": lin(d, nkv * hd), "wo": lin(nq * hd, d)},
-            "mlp": {"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)},
-        }
-        if cfg.qk_norm:
-            out["attn"].update(q_norm=norm(hd), k_norm=norm(hd))
-        if cfg.attention_in_bias:
-            out["attn"].update(bq=bias(nq * hd), bk=bias(nkv * hd), bv=bias(nkv * hd))
-        if cfg.ffw_sandwich_norms:
-            out["pre_feedforward_layernorm"] = {"scale": norm(d)}
-            out["post_feedforward_layernorm"] = {"scale": norm(d)}
-        return out
-
-    params = {
-        "embed": {"embedding": (torch.randn(cfg.vocab_size, d, generator=g, device=device)
-                                * 0.02).to(dtype).cpu()},
-        "layers": [layer() for _ in range(cfg.num_hidden_layers)],
-        "norm": {"scale": norm(d)},
-    }
+def model_specs(cfg) -> dict[str, list[tuple[str, tuple, str]]]:
+    """Every layer file's specs, in execution order (no lm_head when tied)."""
+    d = cfg.hidden_size
+    out = {"model.embed_tokens": [("embedding", (cfg.vocab_size, d), EMBED)]}
+    out.update({f"model.layers.{i}": layer_specs(cfg, i) for i in range(cfg.num_hidden_layers)})
+    out["model.norm"] = [("scale", (d,), NORM)]
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = {"kernel": (torch.randn(d, cfg.vocab_size, generator=g, device=device)
-                                        * 0.02).to(dtype).cpu()}
+        out["lm_head"] = [("kernel", (d, cfg.vocab_size), EMBED)]
+    return out
+
+
+def make_tensor(cfg, shape, init: str, g, device, dtype, rows=None) -> torch.Tensor:
+    """A seeded tensor of ``shape`` (or, with ``rows``, that many of its
+    leading rows) by ``init``, made on ``device``, returned on the CPU."""
+    shape = tuple(shape) if rows is None else (rows, *shape[1:])
+    if init == NORM and not cfg.norm_unit_offset:
+        return torch.ones(shape, dtype=dtype)
+    scale = {NORM: 0.1, BIAS: 0.1, EMBED: 0.02}.get(init)
+    if scale is None:
+        scale = (2.0 / (shape[-2] + shape[-1])) ** 0.5
+    return (torch.randn(*shape, generator=g, device=device) * scale).to(dtype).cpu()
+
+
+def _init_params(cfg, dtype, seed: int, device: str) -> dict:
+    """Seeded random weights of ``cfg`` (:func:`model_specs`) as one
+    parameter dict in the JAX package's layout."""
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import unflatten
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    trees = {name: unflatten({k: make_tensor(cfg, shape, init, g, device, dtype)
+                              for k, shape, init in specs})
+             for name, specs in model_specs(cfg).items()}
+    params = {"embed": trees["model.embed_tokens"], "norm": trees["model.norm"],
+              "layers": [trees[f"model.layers.{i}"] for i in range(cfg.num_hidden_layers)]}
+    if "lm_head" in trees:
+        params["lm_head"] = trees["lm_head"]
     return params
+
+
+def write_streamed_checkpoint(model_dir: str, cfg, seed: int) -> tuple[int, float]:
+    """Seeded bf16 native layer files of ``cfg`` and its config.json, each
+    tensor made on the card in pieces of leading rows (at most 2^27
+    elements) and written as it is made, so host memory holds one piece, not
+    a layer and never the model. Returns (bytes written, seconds)."""
+    t0 = time.perf_counter()
+    os.makedirs(model_dir, exist_ok=True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    total = 0
+    for name, specs in model_specs(cfg).items():
+        header, off = {}, 0
+        for key, shape, _ in specs:
+            n = int(np.prod(shape)) * 2
+            header[key] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [off, off + n]}
+            off += n
+        hbytes = json.dumps(header, separators=(",", ":")).encode()
+        hbytes += b" " * (-(8 + len(hbytes)) % 8)
+        path = os.path.join(model_dir, f"{name}.safetensors")
+        with open(path + ".tmp", "wb") as f:
+            f.write(len(hbytes).to_bytes(8, "little"))
+            f.write(hbytes)
+            for key, shape, init in specs:
+                step = max(1, (1 << 27) // max(1, int(np.prod(shape[1:]))))
+                for r0 in range(0, shape[0], step):
+                    piece = make_tensor(cfg, shape, init, g, "cuda", torch.bfloat16,
+                                        rows=min(step, shape[0] - r0))
+                    f.write(piece.reshape(-1).view(torch.uint8).numpy())
+        os.replace(path + ".tmp", path)
+        total += 8 + len(hbytes) + off
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(cfg.to_dict(), f)
+    return total, time.perf_counter() - t0
 
 
 def run_cli(model_dir: str, work: str, tag: str, prompts, extra: list[str], vocab: int):
@@ -808,6 +981,30 @@ def cross_configs() -> dict:
         "qwen3": {"model_type": "qwen3", **small, "head_dim": 128, "num_hidden_layers": 2},
         "mistral": {"model_type": "mistral", **small, "hidden_size": 512, "num_hidden_layers": 2,
                     "sliding_window": 32},
+        # Rope scalings: llama3 bands and yarn bound at these lengths; the
+        # longrope boundary (100) between the 71- and the 151-token prompts.
+        "llama3": {"model_type": "llama", **small, "num_hidden_layers": 2, "rope_theta": 500000.0,
+                   "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                                    "high_freq_factor": 4.0, "original_max_position_embeddings": 64}},
+        "qwen2 yarn": {"model_type": "qwen2", **small, "num_hidden_layers": 2,
+                       "rope_scaling": {"type": "yarn", "factor": 4.0,
+                                        "original_max_position_embeddings": 32}},
+        "phi3 longrope": {"model_type": "phi3", **small, "hidden_size": 384, "num_hidden_layers": 2,
+                          "max_position_embeddings": 4096, "original_max_position_embeddings": 100,
+                          "rope_scaling": {"type": "longrope",
+                                           "long_factor": [1.0 + 0.25 * i for i in range(48)],
+                                           "short_factor": [1.0 + 0.02 * i for i in range(48)]}},
+        # Experts: Mixtral's (renormalised top 2), Qwen3-MoE's (layer 0 dense,
+        # no renormalisation); DeepSeek-V3's MLA at its qk 192 / v 128 heads,
+        # layer 0 dense, 8 experts in 4 groups of which 2 are kept.
+        "mixtral": {"model_type": "mixtral", **small, "num_hidden_layers": 2, "num_local_experts": 4,
+                    "num_experts_per_tok": 2},
+        "qwen3_moe": {"model_type": "qwen3_moe", **small, "head_dim": 128, "num_hidden_layers": 2,
+                      "num_experts": 4, "num_experts_per_tok": 2, "mlp_only_layers": [0]},
+        "deepseek_v3": {**DEEPSEEK_V3, **small, "num_attention_heads": 2, "num_key_value_heads": 2,
+                        "moe_intermediate_size": 128, "num_hidden_layers": 2, "n_routed_experts": 8,
+                        "num_experts_per_tok": 2, "n_group": 4, "topk_group": 2,
+                        "first_k_dense_replace": 1, "kv_lora_rank": 64, "q_lora_rank": 96},
     }
     return {"llama": LlamaConfig(num_hidden_layers=2, explicit_head_dim=128, **small),
             **{name: LlamaConfig.from_dict(d) for name, d in hf.items()}}
@@ -951,8 +1148,10 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
     layer streams; written here unless ``model_dir`` holds one) through the
     CLI: scoring, then --kv_cache. Every kernel of each run must launch;
     with local layers (a window) each must launch with the window on and
-    with it off, without them never with it on. Returns per kernel its
-    launches and its launches with the window on."""
+    with it off, without them never with it on. Under MLA the scoring
+    kernels must launch at the model's (qk, v) head dims only and the decode
+    kernel never (MLA decode is the plain op's, as in the JAX package).
+    Returns per kernel its launches and its launches with the window on."""
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 
@@ -964,11 +1163,12 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
             f"decoder layers in {time.perf_counter() - t0:.3f} s")
     common = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda"]
     launches = {k: {"launches": 0, "local_launches": 0} for k in fa.KERNELS}
+    scoring = ("flash_causal_attention", "flash_prefix_shared_attention")
+    mla = bool(cfg.kv_lora_rank)
     runs = (
-        ("scoring", ["--num_gen_token", str(n_gen_loop)], n_gen_loop,
-         ("flash_causal_attention", "flash_prefix_shared_attention")),
+        ("scoring", ["--num_gen_token", str(n_gen_loop)], n_gen_loop, scoring),
         ("kv_cache", ["--num_gen_token", str(n_gen_kv), "--kv_cache", "true"], n_gen_kv,
-         fa.KERNELS),
+         scoring if mla else fa.KERNELS),
     )
     windowed = cfg.sliding_window is not None
     try:
@@ -977,10 +1177,15 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
             scores, _, stats = run_cli(model_dir, work, f"full_{name}_{tag}", prompts,
                                        [*common, *extra], cfg.vocab_size)
             counts, local = fa.launch_counts(), fa.local_launch_counts()
+            dims = fa.dim_launch_counts()
             _check_scores(scores, prompts, n_gen, cfg.vocab_size, f"{name} {tag}")
             missing = [k for k in needed if counts[k] == 0]
             if missing:
                 fail(f"full {name} {tag}: kernels never launched on the main path: {missing}")
+            if mla and (counts["flash_decode_attention"]
+                        or any(set(dims[k]) != {(cfg.head_dim, cfg.v_dim)} for k in scoring)):
+                fail(f"full {name} {tag}: MLA launches by (qk, v) head dims {dims}: the scoring "
+                     f"kernels must run at ({cfg.head_dim}, {cfg.v_dim}) only and decode never")
             if windowed and any(local[k] == 0 or local[k] == counts[k] for k in needed):
                 fail(f"full {name} {tag}: a kernel did not launch both with and without the window: "
                      f"{counts} (window on: {local})")
@@ -991,9 +1196,12 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
                 launches[k]["local_launches"] += local[k]
             keys = ("wall_s", "tokens_processed", "tokens_per_sec", "streamed_bytes", "peak_mem_gb",
                     "source_wait_s", "load_weights_time_s", "compute_wall_s")
-            log(f"[full] {name} {tag} stats " + json.dumps({k: stats.get(k) for k in keys}))
+            rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB -> GiB
+            log(f"[full] {name} {tag} stats " + json.dumps({**{k: stats.get(k) for k in keys},
+                                                           "host_peak_rss_gib": rss}))
             log(f"[full] {name} {tag} kernels " + json.dumps(counts) + " window on "
-                + json.dumps(local))
+                + json.dumps(local) + " by (qk, v) head dims "
+                + json.dumps({k: {f"{a}/{b}": n for (a, b), n in v.items()} for k, v in dims.items()}))
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     return launches
@@ -1015,6 +1223,10 @@ def main() -> None:
     # Gemma-3-12B: depth cut from 48 to 6 layers (layers 0-4 local, 5 global).
     gemma12_text = {**GEMMA3_12B_TEXT, "num_hidden_layers": 6}
     gemma12_cfg = LlamaConfig.from_dict({"model_type": "gemma3", "text_config": gemma12_text})
+    # DeepSeek-V3: depth cut from 61 to 4 layers (0-2 dense, 3 MoE), the
+    # Gemma prompts.
+    ds_cfg = LlamaConfig.from_dict({**DEEPSEEK_V3, "num_hidden_layers": 4})
+    ds_loop, ds_kv = 2, 2
     timed = phase_kernels(
         main_path_case(prompts, n_gen_kv),
         main_path_case(gemma_prompts, gemma_kv, nq=gemma_cfg.num_attention_heads,
@@ -1022,7 +1234,10 @@ def main() -> None:
         main_path_case(gemma_prompts, gemma_kv, nq=gemma12_cfg.num_attention_heads,
                        nkv=gemma12_cfg.num_key_value_heads, hd=gemma12_cfg.head_dim),
         # Phi-3-mini-4k's heads (32 query and KV heads of 96) at the Llama prompts.
-        main_path_case(prompts, n_gen_kv, nq=32, nkv=32, hd=96))
+        main_path_case(prompts, n_gen_kv, nq=32, nkv=32, hd=96),
+        # DeepSeek-V3's MLA heads: every query head has its own K and V.
+        main_path_case(gemma_prompts, ds_kv, nq=ds_cfg.num_attention_heads,
+                       nkv=ds_cfg.num_attention_heads, hd=ds_cfg.head_dim, hd_v=ds_cfg.v_dim))
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cross(work)
@@ -1037,6 +1252,12 @@ def main() -> None:
             fail(f"the split gemma3-12b config differs from the bundle's: {split_cfg}")
         paths["gemma3_12b"] = phase_full(work, "gemma3-12b", split_cfg, gemma_prompts, gemma_loop,
                                          gemma_kv, model_dir=split_dir)
+        ds_dir = os.path.join(work, "deepseek-v3")
+        nbytes, secs = write_streamed_checkpoint(ds_dir, ds_cfg, seed=0)
+        log(f"[full] wrote a seeded bf16 deepseek-v3-width checkpoint with {ds_cfg.num_hidden_layers} "
+            f"decoder layers ({nbytes} bytes, one layer file at a time) in {secs:.3f} s")
+        paths["deepseek_v3"] = phase_full(work, "deepseek-v3", ds_cfg, gemma_prompts, ds_loop, ds_kv,
+                                          model_dir=ds_dir)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [
@@ -1050,7 +1271,8 @@ def main() -> None:
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "launches_by_path": {name: p[k] for name, p in paths.items()},
             **{key: timed[k][key] for key in ("gemma3_27b_local", "gemma3_27b_global",
-                                              "gemma3_12b_local", "gemma3_12b_global", "phi3_hd96")},
+                                              "gemma3_12b_local", "gemma3_12b_global", "phi3_hd96",
+                                              "deepseek_v3_mla") if key in timed[k]},
         }
         for k in REPLACES
     ]

@@ -22,9 +22,9 @@
 // What bounds them on the H100, and what the design does about it:
 //
 // * Scoring (causal prefix pass, prefix-shared suffix pass). QK^T plus PV
-//   cost 4*hd FLOPs per visible (query, key) pair; the bytes that must move
-//   are 4*hd per query row (Q in, O out) and 4*hd per key row (K and V, read
-//   once). The H100 does 295 bf16 FLOPs per byte, so the products bound the
+//   cost 2*(hd + hd_v) FLOPs per visible (query, key) pair (4*hd where V's
+//   head dim is Q's); the bytes that must move are 2*(hd + hd_v) per query
+//   row (Q in, O out) and per key row (K and V, read once). The H100 does 295 bf16 FLOPs per byte, so the products bound the
 //   causal pass once queries see about 1200 keys on average (prefixes of
 //   ~2k tokens and more); at 512-token prefixes both passes are bound by
 //   bytes. Either way the kernel must keep the tensor cores fed and move
@@ -125,6 +125,18 @@
 //   from shared memory per tile instead of holding them; the float32
 //   kernels take K and V in turn through one buffer (scoring) or run one
 //   stage (decode).
+//
+// * Multi-head latent attention (DeepSeek-V3's qk 192 = nope 128 + rope 64,
+//   v 128; the TPU kernels pad Q/K and V separately and return v_dim
+//   columns). The scoring kernels are templated on Q/K's head dim HD and
+//   V's HDV, built at (192, 128) besides the equal pairs: QK^T runs 12 k16
+//   steps over three 64-column pieces of Q and K, PV and O stay at 128
+//   columns (64 fp32 registers per consumer thread, as at hd 128), and V
+//   moves at its own width instead of being padded to 192 (which would add
+//   half again to PV, O's registers and V's bytes). A TMA stage is K 24 KB
+//   + V 16 KB; two Q buffers and three stages take 222,288 B. Float32
+//   scoring keeps K and V apart (198,144 B). Decode never takes MLA: the
+//   JAX package runs MLA decode on its plain op, and so does the port.
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream and returns cudaGetLastError(). The TMA descriptors are encoded on
@@ -229,8 +241,10 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride
 struct ScoreParams {
   const void* q;
   void* o;
-  long long q_stride_bs;  // elements per (b, s) slab of q and o
-  int hd;                 // the tensors' head dim (the instantiation's, or 96 in the hd-128 one)
+  long long q_stride_bs;  // elements per (b, s) slab of q
+  long long o_stride_bs;  // elements per (b, s) slab of o
+  int hd;                 // the tensors' Q/K head dim (the instantiation's, or 96 in the hd-128 one)
+  int hd_v;               // V's and O's head dim: hd, or 128 at MLA's hd 192
   int lq;
   int n_q;
   int n_kv;
@@ -249,18 +263,20 @@ struct ScoreParams {
 // tensor cores would round float32 inputs to TF32)
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, int HDV = HD>
 struct F32Layout {
-  static constexpr int QP = HD + 1;     // Q/K/V pitch
+  static constexpr int QP = HD + 1;     // Q/K pitch (V's too in the hd x hd layouts)
+  static constexpr int VP = HDV + 1;    // V pitch
   static constexpr int SP = kTile + 1;  // scores and P pitch
-  static constexpr int OP = HD + 1;     // O pitch
+  static constexpr int OP = HDV + 1;    // O pitch
   // At hd 256 Q, K, V and O tiles of 64 rows would take 263 KB: K and V
-  // then take turns in one buffer (230,656 B in all).
-  static constexpr bool kOneKV = HD > 128;
+  // then take turns in one buffer (230,656 B in all). MLA's (192, 128)
+  // fits them apart (198,144 B).
+  static constexpr bool kOneKV = HDV > 128;
   static constexpr size_t kQ = 0;
   static constexpr size_t kK = align128(kQ + sizeof(float) * kTile * QP);
   static constexpr size_t kV = kOneKV ? kK : align128(kK + sizeof(float) * kTile * QP);
-  static constexpr size_t kS = align128(kV + sizeof(float) * kTile * QP);
+  static constexpr size_t kS = align128(kV + sizeof(float) * kTile * (kOneKV && QP > VP ? QP : VP));
   static constexpr size_t kP = align128(kS + sizeof(float) * kTile * SP);
   static constexpr size_t kO = align128(kP + sizeof(float) * kTile * SP);
   static constexpr size_t kBytes = align128(kO + sizeof(float) * kTile * OP);
@@ -303,11 +319,12 @@ __device__ __forceinline__ void warp_pv(const float* Ps, const float* Vs, float*
   }
 }
 
-template <int HD>
+// Q/K head dim HD, V/O head dim HDV.
+template <int HD, int HDV>
 // One block per SM is enough (shared memory allows 1-2): without the hint
 // ptxas trades a spill at hd 256 for registers it does not need.
 __global__ void __launch_bounds__(kScoreThreads, 1) score_kernel_f32(const ScoreParams p) {
-  using L = F32Layout<HD>;
+  using L = F32Layout<HD, HDV>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::kQ);
   float* Ks = reinterpret_cast<float*>(smem + L::kK);
@@ -324,7 +341,9 @@ __global__ void __launch_bounds__(kScoreThreads, 1) score_kernel_f32(const Score
   const int kvh = h / (p.n_q / p.n_kv);
   const int q_rows = min(kTile, p.lq - q0);
   const long long q_row_stride = (long long)p.n_q * HD;
+  const long long o_row_stride = (long long)p.n_q * HDV;
   const long long kv_row_stride = (long long)p.n_kv * HD;
+  const long long v_row_stride = (long long)p.n_kv * HDV;
 
   const float* qbase = static_cast<const float*>(p.q) + bs * p.q_stride_bs + q0 * q_row_stride + h * HD;
   load_rows<float, HD, L::QP, kScoreThreads>(Qs, qbase, q_row_stride, q_rows);
@@ -350,14 +369,17 @@ __global__ void __launch_bounds__(kScoreThreads, 1) score_kernel_f32(const Score
     int n_tiles = (limit + kTile - 1) / kTile;
     if (src.causal) n_tiles = min(n_tiles, (q0 + q_rows + kTile - 1) / kTile);
     const float* kbase = static_cast<const float*>(src.k) + b * src.stride_b + s * src.stride_s + kvh * HD;
-    const float* vbase = static_cast<const float*>(src.v) + b * src.stride_b + s * src.stride_s + kvh * HD;
+    // The source's strides are K's; V's rows are HDV elements per head.
+    const long long v_off = HD == HDV ? b * src.stride_b + s * src.stride_s
+                                      : (b * src.stride_b + s * src.stride_s) / HD * HDV;
+    const float* vbase = static_cast<const float*>(src.v) + v_off + kvh * HDV;
     const int t0 = lo_first - off >= limit ? n_tiles : max(lo_first - off, 0) / kTile;
     for (int t = t0; t < n_tiles; ++t) {
       const int k0 = t * kTile;
       __syncthreads();  // the previous tile's K/V are no longer read
       load_rows<float, HD, L::QP, kScoreThreads>(Ks, kbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
       if constexpr (!L::kOneKV)
-        load_rows<float, HD, L::QP, kScoreThreads>(Vs, vbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
+        load_rows<float, HDV, L::VP, kScoreThreads>(Vs, vbase + k0 * v_row_stride, v_row_stride, limit - k0);
       __syncthreads();
 
       warp_scores<HD>(Qs, Ks, Ss, warp, lane);
@@ -393,35 +415,35 @@ __global__ void __launch_bounds__(kScoreThreads, 1) score_kernel_f32(const Score
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
       l = l * alpha + rs;
       m = m_new;
-      for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); ++d) Os[row * L::OP + d] *= alpha;
+      for (int d = half * (HDV / 2); d < (half + 1) * (HDV / 2); ++d) Os[row * L::OP + d] *= alpha;
       __syncwarp();
       if constexpr (L::kOneKV) {
         __syncthreads();  // every warp's scores have read K
-        load_rows<float, HD, L::QP, kScoreThreads>(Vs, vbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
+        load_rows<float, HDV, L::VP, kScoreThreads>(Vs, vbase + k0 * v_row_stride, v_row_stride, limit - k0);
         __syncthreads();
       }
 
-      warp_pv<HD>(Ps, Vs, Os, warp, lane);
+      warp_pv<HDV>(Ps, Vs, Os, warp, lane);
       __syncwarp();
     }
   }
 
   __syncthreads();  // O was zeroed by other threads when no tile ran
   if (qi < p.lq) {
-    float* obase = static_cast<float*>(p.o) + bs * p.q_stride_bs + qi * q_row_stride + h * HD;
+    float* obase = static_cast<float*>(p.o) + bs * p.o_stride_bs + qi * o_row_stride + h * HDV;
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); ++d) obase[d] = Os[row * L::OP + d] * inv;
+    for (int d = half * (HDV / 2); d < (half + 1) * (HDV / 2); ++d) obase[d] = Os[row * L::OP + d] * inv;
   }
 }
 
-template <int HD>
+template <int HD, int HDV = HD>
 cudaError_t launch_score_f32(const ScoreParams& p, int n_bs, cudaStream_t stream) {
-  using L = F32Layout<HD>;
+  using L = F32Layout<HD, HDV>;
   // Once per template instantiation (thread-safe static init), not per launch.
-  static const cudaError_t attr = cudaFuncSetAttribute(score_kernel_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  static const cudaError_t attr = cudaFuncSetAttribute(score_kernel_f32<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (attr != cudaSuccess) return attr;
   dim3 grid((p.lq + kTile - 1) / kTile, p.n_q, n_bs);
-  score_kernel_f32<HD><<<grid, kScoreThreads, L::kBytes, stream>>>(p);
+  score_kernel_f32<HD, HDV><<<grid, kScoreThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -445,7 +467,7 @@ struct TcParams {
   CUtensorMap k_map[2];
   CUtensorMap v_map[2];
   void* o;
-  int hd;  // the tensors' head dim: HD, or 96 in the hd-128 instantiation
+  int hd;  // the tensors' Q/K head dim: HD, or 96 in the hd-128 instantiation
   int lq;
   int n_q;
   int n_kv;
@@ -462,6 +484,7 @@ struct TcParams {
   const int* pos;
   int n_src;
   Source src[2];
+  int hd_v;  // V's and O's head dim: hd, or 128 at MLA's hd 192 (read only there)
 };
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
@@ -469,17 +492,20 @@ struct TcParams {
 // consumer, then the kStages K/V stages, then the barriers. A tile of hd
 // columns is stored as hd/64 column pieces of rows x 128 bytes. At hd 256 a
 // stage is 64 KB, so one Q buffer and two stages fit (the producer loads a
-// unit's Q once the previous unit is done with it).
-template <int HD>
+// unit's Q once the previous unit is done with it). At MLA's (192, 128) a
+// Q tile is 24 KB and a stage 40 KB (K 24, V 16): two Q buffers and three
+// stages (222,288 B).
+template <int HD, int HDV = HD>
 struct TcLayout {
-  static constexpr int kHalves = HD / 64;
+  static constexpr int kHalves = HD / 64;    // column pieces of Q and K
+  static constexpr int kHalvesV = HDV / 64;  // of V
   static constexpr int kHalfQ = kBM * 128;
   static constexpr int kHalfKV = kBN * 128;
   static constexpr int kQBytes = kHalves * kHalfQ;
-  static constexpr int kKVBytes = kHalves * kHalfKV;
-  static constexpr int kStageBytes = 2 * kKVBytes;  // K then V
-  static constexpr int kQBufs = HD > 128 ? 1 : 2;
-  static constexpr int kStages = HD > 128 ? 2 : 4;
+  static constexpr int kKBytes = kHalves * kHalfKV;
+  static constexpr int kStageBytes = kKBytes + kHalvesV * kHalfKV;  // K then V
+  static constexpr int kQBufs = HDV > 128 ? 1 : 2;
+  static constexpr int kStages = HD <= 128 ? 4 : HDV <= 128 ? 3 : 2;
   static constexpr int kQ = 0;
   static constexpr int kStage0 = kQBufs * kConsumers * kQBytes;
   static constexpr int kBar = kStage0 + kStages * kStageBytes;
@@ -617,22 +643,22 @@ __device__ __forceinline__ void mma_pv128(float (&d)[64], const uint32_t (&a)[4]
   else wgmma_pv128_f16(d, a, db, 1);
 }
 
-// O += P V for an hd-column O. At hd 256: two n128 products, on the two
+// O += P V for an HDV-column O. At 256: two n128 products, on the two
 // halves of O's registers (columns 0-127 and 128-255, in the accumulator
 // order of one n256 product) and of V's column pieces (two pieces, 2 *
 // kBN * 128 bytes, further on; the descriptor counts 16-byte units).
-template <typename T, int HD>
-__device__ __forceinline__ void mma_pv(float (&d)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 64) {
+template <typename T, int HDV>
+__device__ __forceinline__ void mma_pv(float (&d)[HDV / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HDV == 64) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) wgmma_pv64_bf16(d, a, db, 1);
     else wgmma_pv64_f16(d, a, db, 1);
-  } else if constexpr (HD == 128) {
+  } else if constexpr (HDV == 128) {
     mma_pv128<T>(d, a, db);
   } else {
-    static_assert(HD == 256, "head dims 64, 128 and 256");
+    static_assert(HDV == 256, "V head dims 64, 128 and 256");
     float(&halves)[2][64] = reinterpret_cast<float(&)[2][64]>(d);
     mma_pv128<T>(halves[0], a, db);
-    mma_pv128<T>(halves[1], a, db + ((2 * TcLayout<HD>::kHalfKV) >> 4));
+    mma_pv128<T>(halves[1], a, db + ((2 * kBN * 128) >> 4));
   }
 }
 
@@ -768,9 +794,9 @@ struct Barriers {
 
 // The producer's one thread: per unit, Q into the unit's buffer once the
 // unit two back has released it, then the unit's K/V tiles through the ring.
-template <int HD, bool kLocal>
+template <int HD, int HDV, bool kLocal>
 __device__ __forceinline__ void produce(const TcParams& p, uint32_t base, const Barriers& bar) {
-  using L = TcLayout<HD>;
+  using L = TcLayout<HD, HDV>;
   int stage = 0;
   uint32_t phase = 0;
   for (int u = blockIdx.x, n = 0; u < p.n_units; u += gridDim.x, ++n) {
@@ -797,7 +823,8 @@ __device__ __forceinline__ void produce(const TcParams& p, uint32_t base, const 
 #pragma unroll
       for (int hh = 0; hh < L::kHalves; ++hh) {
         tma_load(ks + hh * L::kHalfKV, &p.k_map[si], full, hh * 64, bp.kvh, t * kBN, entry);
-        tma_load(ks + L::kKVBytes + hh * L::kHalfKV, &p.v_map[si], full, hh * 64, bp.kvh, t * kBN, entry);
+        if (hh < L::kHalvesV)
+          tma_load(ks + L::kKBytes + hh * L::kHalfKV, &p.v_map[si], full, hh * 64, bp.kvh, t * kBN, entry);
       }
       if (++stage == L::kStages) {
         stage = 0;
@@ -809,10 +836,10 @@ __device__ __forceinline__ void produce(const TcParams& p, uint32_t base, const 
 
 // Consumer warpgroup g: per unit, its 64 query rows against every item of
 // the ring (computing on the items it uses, releasing all of them).
-template <typename T, int HD, bool kLocal>
+template <typename T, int HD, int HDV, bool kLocal>
 __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t* smem, uint32_t base,
                                         const Barriers& bar) {
-  using L = TcLayout<HD>;
+  using L = TcLayout<HD, HDV>;
   const int tid = threadIdx.x % 128;
   const int lane = tid % 32;
   const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
@@ -829,9 +856,9 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
     const int lo1 = kLocal ? local_lo(bp.qoff + i1, p.window, p.chunk) : 0;
     const uint32_t qs = base + L::kQ + (qb * kConsumers + g) * L::kQBytes;
 
-    float o[HD / 2];
+    float o[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
     mbar_wait(bar.qfull0 + 8 * qb, (n / L::kQBufs) & 1);
@@ -842,13 +869,13 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
         const int causal = p.src[si].causal;
         const int k0 = t * kBN;
         const uint32_t ks = base + L::kStage0 + stage * L::kStageBytes;
-        const uint32_t vs = ks + L::kKVBytes;
+        const uint32_t vs = ks + L::kKBytes;
         if (k0 + kBN > limit) {
           // Rows past the limit hold whatever the tensor has there: zero
           // them in V (both consumers may write the same zeros).
           const int rz = max(limit - k0, 0);
           const int chunks = (kBN - rz) * 8;  // 16-byte chunks per column half
-          for (int c = tid; c < chunks * L::kHalves; c += 128) {
+          for (int c = tid; c < chunks * L::kHalvesV; c += 128) {
             const int hh = c / chunks;
             const int r = rz + (c % chunks) / 8;
             *reinterpret_cast<uint4*>(smem + (vs - base) + hh * L::kHalfKV + r * 128 + (c % 8) * 16) =
@@ -858,10 +885,11 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
           asm volatile("bar.sync %0, 128;\n" :: "r"(1 + g) : "memory");
         }
 
-        // S = Q K^T, both K-major from shared memory. At hd 256 the Q
-        // buffer's address passes an empty asm on every tile, so its 16
-        // descriptors are built per tile: hoisted out of the walk they would
-        // hold 32 registers and spill (O alone takes 128 at hd 256).
+        // S = Q K^T, both K-major from shared memory. Above hd 128 the Q
+        // buffer's address passes an empty asm on every tile, so its 12 or
+        // 16 descriptors are built per tile: hoisted out of the walk they
+        // would hold 24-32 registers and spill at hd 256 (O alone takes 128
+        // there).
         uint32_t qsv = qs;
         if constexpr (HD > 128) asm volatile("" : "+r"(qsv));
         float s[kBN / 2];
@@ -933,7 +961,7 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
         l0 = l0 * a0 + rs0;  // per-thread partial sums, reduced over the quad at the end
         l1 = l1 * a1 + rs1;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
+        for (int j = 0; j < HDV / 8; ++j) {
           o[4 * j] *= a0;
           o[4 * j + 1] *= a0;
           o[4 * j + 2] *= a1;
@@ -951,7 +979,7 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk)
-          mma_pv<T, HD>(o, pa[kk], sw128_desc(vs + kk * 16 * 128, L::kHalfKV / 16));
+          mma_pv<T, HDV>(o, pa[kk], sw128_desc(vs + kk * 16 * 128, L::kHalfKV / 16));
         wgmma_commit();
         wgmma_wait();
         pin(o);
@@ -973,32 +1001,33 @@ __device__ __forceinline__ void consume(const TcParams& p, const int g, uint8_t*
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
       const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-      // The tensors' hd columns (96 of the hd-128 instantiation's 128: the
+      // The tensors' O columns (96 of the hd-128 instantiation's 128: the
       // rest are zero).
-      const long long row_stride = (long long)p.n_q * p.hd;
+      const int hd_o = HD == HDV ? p.hd : p.hd_v;
+      const long long row_stride = (long long)p.n_q * hd_o;
       const int sg = g == 0 ? bp.s[0] : bp.s[1];
-      T* obase = static_cast<T*>(p.o) + (long long)(bp.b * p.n_s + sg) * p.lq * row_stride + bp.h * p.hd + cq;
+      T* obase = static_cast<T*>(p.o) + (long long)(bp.b * p.n_s + sg) * p.lq * row_stride + bp.h * hd_o + cq;
       if (i0 < p.lq) {
         uint32_t* dst = reinterpret_cast<uint32_t*>(obase + i0 * row_stride);
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-          if (8 * j < p.hd) dst[4 * j] = pack2<T>(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        for (int j = 0; j < HDV / 8; ++j)
+          if (8 * j < hd_o) dst[4 * j] = pack2<T>(o[4 * j] * inv0, o[4 * j + 1] * inv0);
       }
       if (i1 < p.lq) {
         uint32_t* dst = reinterpret_cast<uint32_t*>(obase + i1 * row_stride);
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-          if (8 * j < p.hd) dst[4 * j] = pack2<T>(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+        for (int j = 0; j < HDV / 8; ++j)
+          if (8 * j < hd_o) dst[4 * j] = pack2<T>(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
     }
   }
 }
 
-// kLocal: a window or chunk is set (without one the kernel carries no
-// local-bound code at all).
-template <typename T, int HD, bool kLocal>
+// Q/K head dim HD, V/O head dim HDV. kLocal: a window or chunk is set
+// (without one the kernel carries no local-bound code at all).
+template <typename T, int HD, int HDV, bool kLocal>
 __global__ void __launch_bounds__(kTcThreads, 1) score_tc_kernel(const __grid_constant__ TcParams p) {
-  using L = TcLayout<HD>;
+  using L = TcLayout<HD, HDV>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1027,10 +1056,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) score_tc_kernel(const __grid_co
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == kConsumers * 128) produce<HD, kLocal>(p, base, bar);
+    if (threadIdx.x == kConsumers * 128) produce<HD, HDV, kLocal>(p, base, bar);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<T, HD, kLocal>(p, wg, smem, base, bar);
+    consume<T, HD, HDV, kLocal>(p, wg, smem, base, bar);
   }
 }
 
@@ -1070,14 +1099,15 @@ bool encode_rows(CUtensorMap* map, const void* base, bool bf16, int hd, int head
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV = HD>
 cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream) {
-  using L = TcLayout<HD>;
+  using L = TcLayout<HD, HDV>;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   TcParams p;
   memset(&p, 0, sizeof(p));
   p.o = sp.o;
   p.hd = sp.hd;
+  p.hd_v = sp.hd_v;
   p.lq = sp.lq;
   p.n_q = sp.n_q;
   p.n_kv = sp.n_kv;
@@ -1103,17 +1133,19 @@ cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream)
     if (per_s && s.stride_b != s.stride_s * sp.n_s) return cudaErrorInvalidValue;
     if (s.len <= 0) continue;  // no tile is ever loaded from an empty source
     const int entries = per_s ? n_b * sp.n_s : n_b;
-    const long long stride = per_s ? s.stride_s : s.stride_b;
+    const long long stride = per_s ? s.stride_s : s.stride_b;  // K's; V's rows are hd_v wide
+    if (stride % sp.hd) return cudaErrorInvalidValue;
     if (!encode_rows(&p.k_map[i], s.k, kBf16, sp.hd, sp.n_kv, s.len, entries, stride, kBN) ||
-        !encode_rows(&p.v_map[i], s.v, kBf16, sp.hd, sp.n_kv, s.len, entries, stride, kBN))
+        !encode_rows(&p.v_map[i], s.v, kBf16, sp.hd_v, sp.n_kv, s.len, entries, stride / sp.hd * sp.hd_v,
+                     kBN))
       return cudaErrorInvalidValue;
   }
   // Once per template instantiation (thread-safe static init), not per launch.
   static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(score_tc_kernel<T, HD, false>,
+    cudaError_t e = cudaFuncSetAttribute(score_tc_kernel<T, HD, HDV, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(score_tc_kernel<T, HD, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      e = cudaFuncSetAttribute(score_tc_kernel<T, HD, HDV, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L::kBytes);
     return e;
   }();
@@ -1127,8 +1159,8 @@ cudaError_t launch_score_tc(const ScoreParams& sp, int n_b, cudaStream_t stream)
     return n > 0 ? n : 1;
   }();
   const dim3 grid(p.n_units < n_sm ? p.n_units : n_sm);
-  if (p.window > 0 || p.chunk > 0) score_tc_kernel<T, HD, true><<<grid, kTcThreads, L::kBytes, stream>>>(p);
-  else score_tc_kernel<T, HD, false><<<grid, kTcThreads, L::kBytes, stream>>>(p);
+  if (p.window > 0 || p.chunk > 0) score_tc_kernel<T, HD, HDV, true><<<grid, kTcThreads, L::kBytes, stream>>>(p);
+  else score_tc_kernel<T, HD, HDV, false><<<grid, kTcThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1837,8 +1869,11 @@ bool bad_local(int window, int chunk) { return window < 0 || chunk < 0 || (windo
 
 // The instantiation of each head dim: its own, or for the 16-bit scoring
 // kernel and for decode at 96 the hd-128 one (unpadded tensors, zero-filled
-// columns past 96).
+// columns past 96). The scoring kernels also take MLA's (192, 128).
+bool mla_dims(const ScoreParams& p) { return p.hd == 192 && p.hd_v == 128; }
+
 cudaError_t score_f32(const ScoreParams& p, int n_bs, cudaStream_t st) {
+  if (p.hd_v != p.hd) return mla_dims(p) ? launch_score_f32<192, 128>(p, n_bs, st) : cudaErrorInvalidValue;
   switch (p.hd) {
     case 64: return launch_score_f32<64>(p, n_bs, st);
     case 96: return launch_score_f32<96>(p, n_bs, st);
@@ -1850,6 +1885,7 @@ cudaError_t score_f32(const ScoreParams& p, int n_bs, cudaStream_t st) {
 
 template <typename T>
 cudaError_t score_tc(const ScoreParams& p, int n_b, cudaStream_t st) {
+  if (p.hd_v != p.hd) return mla_dims(p) ? launch_score_tc<T, 192, 128>(p, n_b, st) : cudaErrorInvalidValue;
   switch (p.hd) {
     case 64: return launch_score_tc<T, 64>(p, n_b, st);
     case 96:
@@ -1873,18 +1909,20 @@ cudaError_t decode_rows(const DecodeParams& p, int n_b, cudaStream_t st) {
 }  // namespace
 
 // dtype: 0 float32 (score_kernel_f32), 1 float16 and 2 bfloat16
-// (score_tc_kernel); hd 64, 96, 128 or 256.
+// (score_tc_kernel); hd 64, 96, 128 or 256 with hd_v = hd, or MLA's hd 192
+// with hd_v 128.
 //
-// q, o: [B, S, lq, n_q, hd] contiguous (the causal form passes S = 1).
-// Source i: K and V rows of n_kv*hd elements at k_i + b*sb_i + s*ss_i, len_i
-// rows; limit lim_i[b*lsb_i + s*lss_i] + ladd_i (ladd_i alone when lim_i is
+// q: [B, S, lq, n_q, hd], o: [B, S, lq, n_q, hd_v], contiguous (the causal
+// form passes S = 1). Source i: K rows of n_kv*hd elements at k_i + b*sb_i +
+// s*ss_i, len_i rows, and V rows of n_kv*hd_v elements at the same strides
+// scaled by hd_v / hd; limit lim_i[b*lsb_i + s*lss_i] + ladd_i (ladd_i alone when lim_i is
 // null); causal_i masks keys past the query's row index. A source with
 // ss_i != 0 is a stack of [B, S, len_i] slabs (sb_i == n_s * ss_i).
 // Local attention: a sliding `window` or a position `chunk` (0 = off, not
 // both). Query row i of prompt b sits at absolute position pos[b] + i (i
 // when pos is null), key j of source i at j, plus pos[b] when shift_i.
 extern "C" int fls_score_attention(
-    int dtype, int hd, const void* q, void* o, int n_b, int n_s, int lq, int n_q, int n_kv,
+    int dtype, int hd, int hd_v, const void* q, void* o, int n_b, int n_s, int lq, int n_q, int n_kv,
     float scale, float softcap, int window, int chunk, const void* pos, int n_src,
     const void* k0, const void* v0, long long sb0, long long ss0, int len0,
     const void* lim0, int lsb0, int lss0, int ladd0, int causal0, int shift0,
@@ -1895,7 +1933,9 @@ extern "C" int fls_score_attention(
   p.q = q;
   p.o = o;
   p.q_stride_bs = (long long)lq * n_q * hd;
+  p.o_stride_bs = (long long)lq * n_q * hd_v;
   p.hd = hd;
+  p.hd_v = hd_v;
   p.lq = lq;
   p.n_q = n_q;
   p.n_kv = n_kv;
@@ -1963,9 +2003,13 @@ extern "C" int fls_decode_attention(
 }
 
 // Dynamic shared memory, in bytes, that the instantiation serving (kind,
-// dtype, hd) launches with (kind 0: scoring, 1: decode; dtype as above),
-// for the build report; -1 for a combination no kernel takes.
-extern "C" int fls_dynamic_smem(int kind, int dtype, int hd) {
+// dtype, hd, hd_v) launches with (kind 0: scoring, 1: decode; dtype as
+// above), for the build report; -1 for a combination no kernel takes.
+extern "C" int fls_dynamic_smem(int kind, int dtype, int hd, int hd_v) {
+  if (hd_v != hd) {
+    if (kind != 0 || hd != 192 || hd_v != 128) return -1;
+    return dtype == 0 ? (int)F32Layout<192, 128>::kBytes : TcLayout<192, 128>::kBytes;
+  }
   const int inst = hd == 96 && !(kind == 0 && dtype == 0) ? 128 : hd;  // hd 96 runs at 128 but in f32 scoring
   if (kind == 0 && dtype == 0) {
     switch (inst) {

@@ -31,14 +31,14 @@ NVCC_FLAGS = (
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SOURCE_ARGS = [_P, _P, _LL, _LL, _I, _P, _I, _I, _I, _I, _I]
 _SIGNATURES = {
-    "fls_score_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _I]
+    "fls_score_attention": [_I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _I]
     + _SOURCE_ARGS + _SOURCE_ARGS + [_P],
     "fls_decode_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
                              _P, _P, _LL, _I, _P,
                              _P, _P, _LL, _LL, _I, _P,
                              _P, _P, _LL, _LL, _I, _I,
                              _P],
-    "fls_dynamic_smem": [_I, _I, _I],
+    "fls_dynamic_smem": [_I, _I, _I, _I],
 }
 
 _lock = threading.Lock()

@@ -50,16 +50,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # own, 96 (Phi-3) in the hd-128 one, with the columns past 96 zero-filled
 # on load and never written.
 _HEAD_DIMS = (64, 96, 128, 256)
+# (Q/K head dim, V head dim) pairs the scoring kernels take besides equal
+# ones: multi-head latent attention's qk 192 (nope 128 + rope 64), v 128.
+_SCORING_DIM_PAIRS = ((192, 128),)
 
 KERNELS = ("flash_causal_attention", "flash_prefix_shared_attention", "flash_decode_attention")
 
 
-def check_cuda_args(window=None, chunk=None, local_on=None, head_dim=128, v_dim=None) -> None:
+def check_cuda_args(window=None, chunk=None, local_on=None, head_dim=128, v_dim=None,
+                    decode=False) -> None:
     """Reject, before any launch, what the CUDA kernels do not compute: a
     window and a chunk at once, a window or chunk below 1, a ``local_on``
-    tensor (TypeError: the toggle is resolved on the host), a V head dim
-    different from Q/K's (MLA), and head dims other than 64, 96, 128 and
-    256."""
+    tensor (TypeError: the toggle is resolved on the host), head dims other
+    than 64, 96, 128 and 256, and a V head dim different from Q/K's except
+    MLA's (192, 128) in the scoring kernels (``decode`` False)."""
     if window is not None and chunk is not None:
         raise ValueError("window and chunk are mutually exclusive")
     if any(x is not None and int(x) < 1 for x in (window, chunk)):
@@ -67,7 +71,13 @@ def check_cuda_args(window=None, chunk=None, local_on=None, head_dim=128, v_dim=
     if torch.is_tensor(local_on):
         raise TypeError("local_on must be a bool on CUDA: the kernels take it from the host")
     if v_dim is not None and v_dim != head_dim:
-        raise NotImplementedError("the CUDA attention kernels need v_dim == head_dim")
+        if decode or (head_dim, v_dim) not in _SCORING_DIM_PAIRS:
+            raise NotImplementedError(
+                f"the CUDA {'decode' if decode else 'scoring'} kernel needs v_dim == head_dim"
+                + ("" if decode else f" or (head_dim, v_dim) in {_SCORING_DIM_PAIRS}")
+                + f", got ({head_dim}, {v_dim})"
+            )
+        return
     if head_dim not in _HEAD_DIMS:
         raise NotImplementedError(
             f"the CUDA attention kernels support head_dim in {_HEAD_DIMS}, got {head_dim}"
@@ -82,10 +92,11 @@ def _local_form(window, chunk, local_on) -> tuple[int, int]:
     return int(window or 0), int(chunk or 0)
 
 
-def _count(fn, window: int, chunk: int) -> None:
+def _count(fn, window: int, chunk: int, dims: tuple[int, int]) -> None:
     fn.launches += 1
     if window or chunk:
         fn.local_launches += 1
+    fn.dim_launches[dims] = fn.dim_launches.get(dims, 0) + 1
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -149,39 +160,42 @@ def causal_attention_plain(q, k, v, valid_len, scale=None, window=None, chunk=No
 
 def flash_causal_attention(q, k, v, valid_len, scale=None, window=None, chunk=None,
                            softcap=None, local_on=None):
-    """q [B, L, n_q, hd], k/v [B, L, n_kv, hd], valid_len int32 [B] ->
-    [B, L, n_q, hd]. Query i attends keys j <= i with j < valid_len[b]."""
+    """q/k [B, L, n_q/n_kv, hd], v [B, L, n_kv, hd_v], valid_len int32 [B]
+    -> [B, L, n_q, hd_v]. Query i attends keys j <= i with j < valid_len[b].
+    hd_v is hd, or 128 at MLA's hd 192."""
     if q.device.type == "cpu":
         return causal_attention_plain(q, k, v, valid_len, scale, window, chunk, softcap, local_on)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, lq, n_q, hd = q.shape
-    n_kv = k.shape[2]
-    check_cuda_args(window, chunk, local_on, hd, v.shape[-1])
+    n_kv, hd_v = k.shape[2], v.shape[-1]
+    check_cuda_args(window, chunk, local_on, hd, hd_v)
     if n_q % n_kv:
         raise ValueError("n_q must be a multiple of n_kv")
     _check("q", q, q.dtype, (b, lq, n_q, hd), q.device)
     _check("k", k, q.dtype, (b, lq, n_kv, hd), q.device)
-    _check("v", v, q.dtype, (b, lq, n_kv, hd), q.device)
+    _check("v", v, q.dtype, (b, lq, n_kv, hd_v), q.device)
     vl = _lengths("valid_len", valid_len, (b,), q.device)
     win, chk = _local_form(window, chunk, local_on)
-    out = torch.empty_like(q)
+    out = q.new_empty(b, lq, n_q, hd_v)
     from flexible_llm_sharding_tpu_torch.ops.cuda_build import library
 
+    # K's strides, in elements; V's are the same in rows of n_kv * hd_v.
     stride_b = lq * n_kv * hd
     err = library().fls_score_attention(
-        _DTYPE_CODES[q.dtype], hd, q.data_ptr(), out.data_ptr(), b, 1, lq, n_q, n_kv,
+        _DTYPE_CODES[q.dtype], hd, hd_v, q.data_ptr(), out.data_ptr(), b, 1, lq, n_q, n_kv,
         _scale(scale, hd), _softcap_arg(softcap), win, chk, None, 1,
         k.data_ptr(), v.data_ptr(), stride_b, 0, lq, vl.data_ptr(), 1, 0, 0, 1, 0,
         None, None, 0, 0, 0, None, 0, 0, 0, 0, 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "flash_causal_attention")
-    _count(flash_causal_attention, win, chk)
+    _count(flash_causal_attention, win, chk, (hd, hd_v))
     return out
 
 
 flash_causal_attention.launches = flash_causal_attention.local_launches = 0
+flash_causal_attention.dim_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -202,10 +216,11 @@ def prefix_shared_attention_plain(q, k_prefix, v_prefix, k_suffix, v_suffix, pre
 def flash_prefix_shared_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, prefix_len,
                                   scale=None, window=None, chunk=None, softcap=None,
                                   local_on=None):
-    """q [B, S, Ls, n_q, hd]; k/v_prefix [B, Lp, n_kv, hd] (shared by the S
-    suffixes); k/v_suffix [B, S, Ls, n_kv, hd]; prefix_len int32 [B] ->
-    [B, S, Ls, n_q, hd]. Suffix query i sees prefix keys j < prefix_len[b]
-    and its own keys j <= i, under one softmax."""
+    """q [B, S, Ls, n_q, hd]; k/v_prefix [B, Lp, n_kv, hd / hd_v] (shared by
+    the S suffixes); k/v_suffix [B, S, Ls, n_kv, hd / hd_v]; prefix_len
+    int32 [B] -> [B, S, Ls, n_q, hd_v]. Suffix query i sees prefix keys
+    j < prefix_len[b] and its own keys j <= i, under one softmax. hd_v is
+    hd, or 128 at MLA's hd 192."""
     if q.device.type == "cpu":
         return prefix_shared_attention_plain(
             q, k_prefix, v_prefix, k_suffix, v_suffix, prefix_len, scale, window, chunk,
@@ -214,39 +229,40 @@ def flash_prefix_shared_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, pre
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, s, ls, n_q, hd = q.shape
-    lp, n_kv = k_prefix.shape[1], k_prefix.shape[2]
-    check_cuda_args(window, chunk, local_on, hd, v_prefix.shape[-1])
+    lp, n_kv, hd_v = k_prefix.shape[1], k_prefix.shape[2], v_prefix.shape[-1]
+    check_cuda_args(window, chunk, local_on, hd, hd_v)
     if n_q % n_kv:
         raise ValueError("n_q must be a multiple of n_kv")
     dev = q.device
     _check("q", q, q.dtype, (b, s, ls, n_q, hd), dev)
     _check("k_prefix", k_prefix, q.dtype, (b, lp, n_kv, hd), dev)
-    _check("v_prefix", v_prefix, q.dtype, (b, lp, n_kv, hd), dev)
+    _check("v_prefix", v_prefix, q.dtype, (b, lp, n_kv, hd_v), dev)
     _check("k_suffix", k_suffix, q.dtype, (b, s, ls, n_kv, hd), dev)
-    _check("v_suffix", v_suffix, q.dtype, (b, s, ls, n_kv, hd), dev)
+    _check("v_suffix", v_suffix, q.dtype, (b, s, ls, n_kv, hd_v), dev)
     pl = _lengths("prefix_len", prefix_len, (b,), dev)
     win, chk = _local_form(window, chunk, local_on)
-    out = torch.empty_like(q)
+    out = q.new_empty(b, s, ls, n_q, hd_v)
     from flexible_llm_sharding_tpu_torch.ops.cuda_build import library
 
     # Suffix query i and suffix key j sit at prefix_len[b] + i / + j: the
     # query offset is prefix_len and the suffix source is shifted by it
-    # (positions matter only to a local form).
+    # (positions matter only to a local form). Strides are K's, as above.
     row = n_kv * hd
     local = bool(win or chk)
     err = library().fls_score_attention(
-        _DTYPE_CODES[q.dtype], hd, q.data_ptr(), out.data_ptr(), b, s, ls, n_q, n_kv,
+        _DTYPE_CODES[q.dtype], hd, hd_v, q.data_ptr(), out.data_ptr(), b, s, ls, n_q, n_kv,
         _scale(scale, hd), _softcap_arg(softcap), win, chk, pl.data_ptr() if local else None, 2,
         k_prefix.data_ptr(), v_prefix.data_ptr(), lp * row, 0, lp, pl.data_ptr(), 1, 0, 0, 0, 0,
         k_suffix.data_ptr(), v_suffix.data_ptr(), s * ls * row, ls * row, ls, None, 0, 0, ls, 1, int(local),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "flash_prefix_shared_attention")
-    _count(flash_prefix_shared_attention, win, chk)
+    _count(flash_prefix_shared_attention, win, chk, (hd, hd_v))
     return out
 
 
 flash_prefix_shared_attention.launches = flash_prefix_shared_attention.local_launches = 0
+flash_prefix_shared_attention.dim_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +297,7 @@ def flash_decode_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, k_gen, v_g
     b, s, kq, n_q, hd = q.shape
     lp, n_kv = k_prefix.shape[1], k_prefix.shape[2]
     ls, tg = k_suffix.shape[2], k_gen.shape[2]
-    check_cuda_args(window, chunk, local_on, hd, v_prefix.shape[-1])
+    check_cuda_args(window, chunk, local_on, hd, v_prefix.shape[-1], decode=True)
     if kq != 1:
         raise NotImplementedError("the CUDA decode kernel takes one new token per suffix")
     if n_q % n_kv:
@@ -313,11 +329,12 @@ def flash_decode_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, k_gen, v_g
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "flash_decode_attention")
-    _count(flash_decode_attention, win, chk)
+    _count(flash_decode_attention, win, chk, (hd, hd))
     return out
 
 
 flash_decode_attention.launches = flash_decode_attention.local_launches = 0
+flash_decode_attention.dim_launches = {}
 
 PLAIN = {
     "flash_causal_attention": causal_attention_plain,
@@ -336,9 +353,15 @@ def local_launch_counts() -> dict[str, int]:
     return {name: globals()[name].local_launches for name in KERNELS}
 
 
+def dim_launch_counts() -> dict[str, dict[tuple[int, int], int]]:
+    """Of those, the launches per (Q/K head dim, V head dim)."""
+    return {name: dict(globals()[name].dim_launches) for name in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for name in KERNELS:
         globals()[name].launches = globals()[name].local_launches = 0
+        globals()[name].dim_launches = {}
 
 
 __all__ = [
@@ -347,6 +370,7 @@ __all__ = [
     "causal_attention_plain",
     "check_cuda_args",
     "decode_attention_plain",
+    "dim_launch_counts",
     "flash_causal_attention",
     "flash_decode_attention",
     "flash_prefix_shared_attention",

@@ -31,7 +31,11 @@ from flexible_llm_sharding_tpu_torch.runtime.executor import (
     sync,
 )
 from flexible_llm_sharding_tpu_torch.runtime.generation import make_picker
-from flexible_llm_sharding_tpu_torch.runtime.tokenization import make_blocks
+from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
+    check_longrope_regime,
+    longrope_total_len,
+    make_blocks,
+)
 
 
 class KVStore:
@@ -68,6 +72,9 @@ class DecodeGenerator(StreamingExecutor):
         n_gen = num_gen_token or cfg.num_gen_token
         t_start = time.perf_counter()
         toks = [self.tokenizer(p, s) for p, s in prompts]
+        # Parked KV keeps its rope table: generation must not cross longrope's
+        # boundary (the last generated token is never fed back).
+        check_longrope_regime(mcfg, toks, extra_len=max(n_gen - 1, 0))
         blocks = make_blocks(toks, cfg.block_size)
         metas = [block_meta(toks, idxs, self.device) for idxs in blocks]
         gen_slots = max(1, n_gen - 1)
@@ -107,6 +114,7 @@ class DecodeGenerator(StreamingExecutor):
                 t0 = time.perf_counter()
                 for b, idxs in enumerate(blocks):
                     prefix_ids, suffix_ids, prefix_len, suffix_eos = metas[b]
+                    total_len = longrope_total_len(mcfg, prefix_len, suffix_eos)
                     ph = sh = None
                     if layer_idxs[0] != 0:
                         ph, sh = kv_store.get(("h", b))
@@ -120,10 +128,11 @@ class DecodeGenerator(StreamingExecutor):
                                 ph, sh, kv = llama.prefix_suffix_layer(
                                     layer, mcfg, ph, sh, prefix_len, return_kv=True,
                                     sliding=sliding[first_decoder(layer_idxs) + li],
+                                    total_len=total_len,
                                 )
-                                gen_shape = (*kv["ks"].shape[:2], gen_slots, *kv["ks"].shape[3:])
-                                kv["kg"] = kv["ks"].new_zeros(gen_shape)
-                                kv["vg"] = kv["vs"].new_zeros(gen_shape)
+                                for g, src in (("kg", "ks"), ("vg", "vs")):  # V at its own dim (MLA)
+                                    shape = kv[src].shape
+                                    kv[g] = kv[src].new_zeros(*shape[:2], gen_slots, *shape[3:])
                                 kv_store.put(("kv", shard_pos, li, b), kv)
                                 li += 1
                         elif kind == "norm":

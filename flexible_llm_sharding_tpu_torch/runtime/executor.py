@@ -30,6 +30,8 @@ from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore
 from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
     PromptTokenizer,
     TokenizedPrompt,
+    check_longrope_regime,
+    longrope_total_len,
     make_blocks,
 )
 from flexible_llm_sharding_tpu_torch.utils import checkpoint
@@ -235,6 +237,7 @@ def apply_segments(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segment
     distributions when the shard holds the lm_head, else None."""
     prefix_ids, suffix_ids, prefix_len, suffix_eos = meta
     sliding = llama.layer_sliding_pattern(model_cfg)
+    total_len = longrope_total_len(model_cfg, prefix_len, suffix_eos)
     block_scores = None
     for kind, params in segments:
         if kind == "embed":
@@ -244,7 +247,7 @@ def apply_segments(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segment
             for i, layer in enumerate(params):
                 prefix_h, suffix_h = llama.prefix_suffix_layer(
                     layer, model_cfg, prefix_h, suffix_h, prefix_len,
-                    sliding=sliding[first_layer + i],
+                    sliding=sliding[first_layer + i], total_len=total_len,
                 )
         elif kind == "norm":
             suffix_h = llama.select_eos_and_norm(params, model_cfg, suffix_h, suffix_eos)
@@ -316,6 +319,7 @@ class StreamingExecutor:
     def __call__(self, prompts, batch: int = 0) -> list[np.ndarray]:
         t_start = time.perf_counter()
         toks = [self.tokenizer(p, s) for p, s in prompts]
+        check_longrope_regime(self.model_cfg, toks)
         blocks = make_blocks(toks, self.cfg.block_size)
         store = ActivationStore(
             self.cfg.storage_location, self.device, self.dtype, self.cfg.disk_folder,

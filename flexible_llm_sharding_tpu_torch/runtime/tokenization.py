@@ -129,10 +129,42 @@ def make_blocks(tokenized: list[TokenizedPrompt], block_size: int) -> list[list[
     return blocks
 
 
+def longrope_total_len(model_cfg, prefix_len, suffix_eos):
+    """Per-prompt real total length, longrope's long/short table selector
+    (None for every other scaling): prefix_len [B] plus the longest real
+    suffix of suffix_eos [B, S] (padding rows carry eos 0)."""
+    if model_cfg.rope_scaling_kind != "longrope":
+        return None
+    return prefix_len + suffix_eos.max(dim=-1).values + 1
+
+
+def check_longrope_regime(model_cfg, toks, extra_len: int = 0) -> None:
+    """Longrope models choose the long or short rope table per prompt by
+    its real total length, while the prefix KV is shared by every suffix:
+    every (prefix + suffix) of a prompt, grown by up to ``extra_len``
+    decoded tokens, must sit on one side of the original context length.
+    Raises ValueError naming the first prompt that straddles it."""
+    if model_cfg.rope_scaling_kind != "longrope":
+        return
+    orig = model_cfg.rope_original_max_position
+    for i, t in enumerate(toks):
+        lens = t.prefix_len + t.suffix_eos[: t.num_suffixes] + 1
+        lo, hi = int(lens.min()), int(lens.max()) + extra_len
+        if (lo <= orig) != (hi <= orig):
+            raise ValueError(
+                f"prompt {i}: longrope sequence lengths {lo}..{hi} straddle "
+                f"original_max_position_embeddings={orig}; the long/short rope regime must be "
+                "uniform per prompt (split the prompt, shorten generation, or pad the prefix "
+                "past the boundary)"
+            )
+
+
 __all__ = [
     "PromptTokenizer",
     "TokenizedPrompt",
     "bucket_len",
+    "check_longrope_regime",
     "extend_tokenized",
+    "longrope_total_len",
     "make_blocks",
 ]

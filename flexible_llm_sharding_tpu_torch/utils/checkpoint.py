@@ -269,27 +269,71 @@ _IGNORABLE_HF_SUFFIXES = ("rotary_emb.inv_freq",)
 
 # Keys of layer forms the port does not run yet, with the ROADMAP item that
 # brings them: they raise instead of being dropped.
-_LATER_LAYER_KEYS = (
-    (".block_sparse_moe.", "2.4 (MoE)"),
-    (".mlp.experts.", "2.4 (MoE)"),
-    (".mlp.shared_experts.", "2.4 (MoE)"),
-    (".feed_forward.", "2.3 (Llama 4) / 2.4 (MoE)"),
-    (".self_attn.kv_a_proj_with_mqa.", "2.5 (MLA)"),
-    (".self_attn.q_a_proj.", "2.5 (MLA)"),
-)
+_LATER_LAYER_KEYS = ((".feed_forward.", "2.3 (Llama 4)"),)
 
 
 def _t(w: torch.Tensor) -> torch.Tensor:
     return w.T.contiguous()
 
 
+def _stack_experts(layer_name: str, prefix: str, name_map, sd: dict, out: dict,
+                   consumed: set) -> None:
+    """Stack per-expert Linear weights ``{prefix}.{e}.{hf_name}.weight`` into
+    one [E, in, out] native tensor per projection (the layout the MoE
+    layers index by expert)."""
+    probe = name_map[0][1]
+    n_exp = 0
+    while f"{prefix}.{n_exp}.{probe}.weight" in sd:
+        n_exp += 1
+    if not n_exp:
+        raise ValueError(f"{layer_name}: MoE layer with no expert weights")
+    for native_key, hf_w in name_map:
+        keys = [f"{prefix}.{e}.{hf_w}.weight" for e in range(n_exp)]
+        out[native_key] = torch.stack([sd[k].T for k in keys]).contiguous()
+        consumed.update(keys)
+
+
+_EXPERT_PROJ = (("mlp.gate", "gate_proj"), ("mlp.up", "up_proj"), ("mlp.down", "down_proj"))
+_SHARED_PROJ = (("mlp.shared_gate", "gate_proj"), ("mlp.shared_up", "up_proj"),
+                ("mlp.shared_down", "down_proj"))
+
+
+def _mla_to_native(layer_name: str, sd: dict, out: dict, consumed: set) -> None:
+    """DeepSeek's multi-head latent attention (DeepseekV3Attention): q dense
+    (q_proj) or by LoRA (q_a -> norm -> q_b), K/V always compressed
+    (kv_a_proj_with_mqa -> norm -> kv_b); kernels [in, out]."""
+    def take(native_key, hf_sub, transpose=True, optional=False):
+        key = f"{layer_name}.self_attn.{hf_sub}"
+        if key not in sd:
+            if optional:
+                return
+            raise KeyError(f"{layer_name}: missing MLA tensor {key}")
+        consumed.add(key)
+        out[native_key] = _t(sd[key]) if transpose else sd[key]
+
+    if f"{layer_name}.self_attn.q_proj.weight" in sd:
+        take("attn.wq", "q_proj.weight")
+    else:
+        take("attn.q_a", "q_a_proj.weight")
+        take("attn.q_a_norm", "q_a_layernorm.weight", transpose=False)
+        take("attn.q_b", "q_b_proj.weight")
+        take("attn.bq_a", "q_a_proj.bias", transpose=False, optional=True)
+    take("attn.kv_a", "kv_a_proj_with_mqa.weight")
+    take("attn.kv_a_norm", "kv_a_layernorm.weight", transpose=False)
+    take("attn.kv_b", "kv_b_proj.weight")
+    take("attn.bkv_a", "kv_a_proj_with_mqa.bias", transpose=False, optional=True)
+
+
 def hf_layer_to_native(layer_name: str, sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """One layer's Hugging Face state dict -> native flat keys and layout
     (linear kernels transposed to [in, out]). Phi-3's fused ``qkv_proj`` and
     ``gate_up_proj`` are split (o_proj's input width is n_q * hd and the two
-    KV blocks share the rest). A tensor with no native slot raises, and so
-    do the expert, MLA and Llama 4 layer forms, which the port does not run
-    yet."""
+    KV blocks share the rest); DeepSeek's MLA projections keep their own
+    keys; the experts of Mixtral (``block_sparse_moe``), Qwen3-MoE and
+    DeepSeek (``mlp.experts``, DeepSeek's correction bias and shared expert)
+    are stacked per projection under a transposed router. A tensor with no
+    native slot raises, and so does the Llama 4 layer form, which the port
+    does not run yet."""
     if layer_name == "model.embed_tokens":
         return {"embedding": sd["model.embed_tokens.weight"]}
     if layer_name == "model.norm":
@@ -303,15 +347,24 @@ def hf_layer_to_native(layer_name: str, sd: dict[str, torch.Tensor]) -> dict[str
                     f"{layer_name}: {k} belongs to a layer form the PyTorch port does not run "
                     f"yet (ROADMAP item {item})"
                 )
+    mixtral = any(".block_sparse_moe." in k for k in sd)
+    experts = f"{layer_name}.mlp.experts.0.gate_proj.weight" in sd  # qwen3_moe, deepseek
     fused = f"{layer_name}.self_attn.qkv_proj.weight" in sd  # phi3
+    mla = f"{layer_name}.self_attn.kv_a_proj_with_mqa.weight" in sd  # deepseek
     out: dict[str, torch.Tensor] = {}
     consumed = set()
     for native_key, hf_sub, transpose in _LAYER_MAP:
+        if (mixtral or experts) and native_key.startswith("mlp."):
+            continue
         if fused and native_key in ("attn.wq", "attn.wk", "attn.wv", "mlp.gate", "mlp.up"):
+            continue
+        if mla and native_key in ("attn.wq", "attn.wk", "attn.wv"):
             continue
         key = f"{layer_name}.{hf_sub}"
         consumed.add(key)
         out[native_key] = _t(sd[key]) if transpose else sd[key]
+    if mla:
+        _mla_to_native(layer_name, sd, out, consumed)
     if fused:
         key = f"{layer_name}.self_attn.qkv_proj.weight"
         qkv = sd[key]
@@ -333,10 +386,33 @@ def hf_layer_to_native(layer_name: str, sd: dict[str, torch.Tensor]) -> dict[str
         out["mlp.gate"] = _t(gu[:f_dim])
         out["mlp.up"] = _t(gu[f_dim:])
     for native_key, hf_sub in _LAYER_MAP_OPTIONAL:
+        if mla and native_key in ("attn.bq", "attn.bk", "attn.bv"):
+            continue  # HF's MLA projections carry no such bias
         key = f"{layer_name}.{hf_sub}"
         if key in sd:
             consumed.add(key)
             out[native_key] = sd[key]
+    if experts:
+        key = f"{layer_name}.mlp.gate.weight"
+        out["mlp.router"] = _t(sd[key])
+        consumed.add(key)
+        _stack_experts(layer_name, f"{layer_name}.mlp.experts", _EXPERT_PROJ, sd, out, consumed)
+        key = f"{layer_name}.mlp.gate.e_score_correction_bias"
+        if key in sd:
+            out["mlp.correction_bias"] = sd[key]
+            consumed.add(key)
+        for native_key, sub in _SHARED_PROJ:
+            key = f"{layer_name}.mlp.shared_experts.{sub}.weight"
+            if key in sd:
+                out[native_key] = _t(sd[key])
+                consumed.add(key)
+    if mixtral:
+        key = f"{layer_name}.block_sparse_moe.gate.weight"
+        out["mlp.router"] = _t(sd[key])
+        consumed.add(key)
+        _stack_experts(layer_name, f"{layer_name}.block_sparse_moe.experts",
+                       (("mlp.gate", "w1"), ("mlp.up", "w3"), ("mlp.down", "w2")),
+                       sd, out, consumed)
     leftover = {k for k in sd.keys() - consumed if not k.endswith(_IGNORABLE_HF_SUFFIXES)}
     if leftover:
         raise ValueError(f"{layer_name}: tensors {sorted(leftover)} have no native-layout slot")

@@ -9,9 +9,11 @@ a process of its own that imports that checkout's ``chip_smoke.py`` and
 port, and reads the kernels' device times as ``chip_smoke.py`` reads them
 (bf16, median of 20 rounds of 20 calls queued behind a spin kernel) at the
 shapes both checkouts run: the Llama-2-7B full-width run (no window), the
-Gemma-3-27B local (window 1024) and global layers (head dim 128), and one
-prompt with a 4096-token prefix. Prints one JSON line per run, then each
-time of b against the mean of a's two runs.
+Gemma-3-27B local (window 1024) and global layers (head dim 128), one
+prompt with a 4096-token prefix, the Gemma-3-12B local and global layers
+(head dim 256), Phi-3-mini's heads (96) and 64-dim heads at the Llama
+prompts. Prints one JSON line per run, then each time of b against the
+mean of a's two runs.
 """
 
 from __future__ import annotations
@@ -36,8 +38,11 @@ llama = cs.main_path_case(cs.make_prompts(8, 512, 4, 32, seed=0), 8)
 gemma = cs.main_path_case(cs.make_prompts(8, 2048, 4, 32, seed=1), 4, nq=32, nkv=16, hd=128)
 long = {{"B": 1, "S": 4, "Ls": 64, "Lp": 4096, "T": 1, "t": 0, "nq": 32, "nkv": 32, "hd": 128,
         "plen": [4096], "eos": [[63] * 4]}}
+gemma12 = {{**gemma, "nq": 16, "nkv": 8, "hd": 256, "hd_v": 256}}
 cases = {{"llama": llama, "gemma3_27b_local": {{**gemma, "local": {{"window": 1024}}}},
-         "gemma3_27b_global": gemma, "prefix_4096": long}}
+         "gemma3_27b_global": gemma, "prefix_4096": long,
+         "gemma3_12b_local": {{**gemma12, "local": {{"window": 1024}}}}, "gemma3_12b_global": gemma12,
+         "phi3_hd96": {{**llama, "hd": 96, "hd_v": 96}}, "llama_hd64": {{**llama, "hd": 64, "hd_v": 64}}}}
 gen = torch.Generator(device="cuda").manual_seed(1234)
 out = {{}}
 for name, case in cases.items():

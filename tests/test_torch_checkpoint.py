@@ -115,7 +115,14 @@ def test_safetensors_round_trip_mixed_dtypes(tmp_path):
     ("layer_rope", [True, False]), ("attention_chunk_size", 8192),
 ])
 def test_unsupported_config_fields_raise(field, value):
+    """A native Llama config with a field the port does not run for Llama
+    raises; llama3 rope scaling, which it now runs, reads as in the JAX
+    package."""
     d = {"fls_native": True, **KW, field: value}
+    if field == "rope_scaling_kind":
+        cfg, jcfg = LlamaConfig.from_dict(d), JLlamaConfig.from_hf_config(d)
+        assert cfg.rope_scaling_spec == jcfg.rope_scaling_spec and cfg.rope_scaling_spec[0] == value
+        return
     with pytest.raises(NotImplementedError):
         LlamaConfig.from_dict(d)
 
@@ -158,10 +165,45 @@ def _hf_config(family: str):
         return tf.Gemma3Config(text_config=text.to_dict(), vision_config=vision.to_dict(),
                                mm_tokens_per_image=4, image_token_index=255,
                                boi_token_index=253, eoi_token_index=254)
+    if family == "llama3":  # Llama 3.1's rope bands, bound at the test lengths
+        return tf.LlamaConfig(**small, rope_theta=500000.0, rope_scaling={
+            "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+            "high_freq_factor": 4.0, "original_max_position_embeddings": 64})
+    if family == "qwen2_yarn":  # Qwen2.5's long-context yarn
+        return tf.Qwen2Config(**small, rope_scaling={
+            "type": "yarn", "factor": 4.0, "original_max_position_embeddings": 32})
+    if family == "phi3_longrope":  # hd 96; the test prompts fall on both sides of 24
+        return tf.Phi3Config(**{**small, "hidden_size": 192, "num_attention_heads": 2,
+                                "num_key_value_heads": 1},
+                             original_max_position_embeddings=24, pad_token_id=0, bos_token_id=1,
+                             eos_token_id=2, rope_scaling={
+                                 "type": "longrope",
+                                 "long_factor": [1.0 + 0.25 * i for i in range(48)],
+                                 "short_factor": [1.0 + 0.02 * i for i in range(48)]})
+    if family == "mixtral":
+        return tf.MixtralConfig(**small, num_local_experts=4, num_experts_per_tok=2)
+    if family == "qwen3_moe":  # layer 0 dense, layer 1 experts, no renormalisation
+        return tf.Qwen3MoeConfig(**small, num_experts=4, num_experts_per_tok=2,
+                                 moe_intermediate_size=32, norm_topk_prob=False,
+                                 mlp_only_layers=[0])
+    if family in ("deepseek_v3", "deepseek_v3_dense_q"):
+        # MLA (qk 16 + 8, v 12; q by LoRA or dense), layer 0 dense and layer
+        # 1 experts (8 in 4 groups, the best 2 kept), yarn with the mscale pair.
+        return tf.DeepseekV3Config(
+            **{**small, "num_key_value_heads": 4}, moe_intermediate_size=32, n_routed_experts=8,
+            num_experts_per_tok=2, n_group=4, topk_group=2, first_k_dense_replace=1,
+            routed_scaling_factor=2.5, kv_lora_rank=16,
+            q_lora_rank=24 if family == "deepseek_v3" else None, qk_nope_head_dim=16,
+            qk_rope_head_dim=8, v_head_dim=12, rope_scaling={
+                "type": "yarn", "factor": 4.0, "mscale": 1.0, "mscale_all_dim": 1.0,
+                "original_max_position_embeddings": 32, "beta_fast": 32, "beta_slow": 1})
     raise ValueError(family)
 
 
 HF_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "phi3", "gemma3")
+# The families with experts or MLA, and the rope scalings beyond linear.
+HF_MOE_FAMILIES = ("mixtral", "qwen3_moe", "deepseek_v3", "deepseek_v3_dense_q")
+HF_ROPE_FAMILIES = ("llama3", "qwen2_yarn", "phi3_longrope")
 
 
 def hf_checkpoint(family: str, path, seed: int = 0, shard: bool = False,
@@ -178,6 +220,9 @@ def hf_checkpoint(family: str, path, seed: int = 0, shard: bool = False,
     with torch.no_grad():
         for _, p in model.named_parameters():
             p.copy_(torch.randn(p.shape, generator=g) * (0.3 if p.ndim == 1 else 0.05))
+        for name, buf in model.named_buffers():
+            if name.endswith("e_score_correction_bias"):  # DeepSeek's, of both signs
+                buf.copy_(torch.randn(buf.shape, generator=g) * 0.5)
     model.save_pretrained(str(path), safe_serialization=safetensors,
                           max_shard_size="100KB" if shard else "5GB")
 
@@ -216,6 +261,36 @@ def test_split_matches_jax_splitter(tmp_path, family, layout, dtype):
     cfg = LlamaConfig.from_pretrained(str(tmp_path / "port"))
     assert sorted(got) == sorted(checkpoint.layer_names_for(cfg.num_hidden_layers,
                                                             cfg.tie_word_embeddings))
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["as-saved", "bf16"])
+@pytest.mark.parametrize("layout", ["native", "hf"])
+@pytest.mark.parametrize("family", HF_MOE_FAMILIES)
+def test_moe_and_mla_split_matches_jax_splitter(tmp_path, family, layout, dtype):
+    """The expert layouts (Mixtral's block_sparse_moe, Qwen3-MoE's and
+    DeepSeek's mlp.experts with its correction bias and shared expert) and
+    DeepSeek's MLA projections, split tensor-equal to the JAX splitter's
+    files; load_layer reads the hf layout into what the native one holds."""
+    hf_checkpoint(family, tmp_path / "hf")
+    want = jckpt.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "jax"), dtype=dtype,
+                                   layout=layout)
+    got = checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "port"), dtype=dtype,
+                                       layout=layout)
+    assert got == want
+    _assert_same_split(tmp_path / "port", tmp_path / "jax")
+    if layout == "hf":
+        checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "native"), dtype=dtype)
+        for name in got:
+            a = dict(checkpoint.flatten(checkpoint.load_layer(str(tmp_path / "port"), name)))
+            b = dict(checkpoint.flatten(checkpoint.load_layer(str(tmp_path / "native"), name)))
+            assert a.keys() == b.keys()
+            assert all(torch.equal(a[k], b[k]) for k in b), name
+    moe = dict(checkpoint.flatten(checkpoint.load_layer(str(tmp_path / "port"), "model.layers.1")))
+    keys = {k for k in moe if k.startswith("mlp.")}
+    if layout == "native":
+        assert {"mlp.router", "mlp.gate", "mlp.up", "mlp.down"} <= keys
+        assert ("mlp.correction_bias" in keys) == family.startswith("deepseek")
+        assert moe["mlp.gate"].ndim == 3
 
 
 @pytest.mark.parametrize("shard,safetensors", [(True, True), (False, False), (True, False)],
@@ -257,15 +332,79 @@ def test_split_quantized_dtypes_raise(tmp_path, dtype):
         checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "port"), dtype=dtype)
 
 
+def hf_layer_form(form: str, seed: int = 0) -> dict[str, np.ndarray]:
+    """One decoder layer's Hugging Face state dict in ``form``'s key layout
+    (seeded float32, tiny widths): ``mixtral`` (block_sparse_moe experts),
+    ``qwen3_moe`` (mlp.experts), ``deepseek_moe`` (mlp.experts with the
+    correction bias and a shared expert, MLA with q LoRA) or ``mla`` (dense
+    q_proj, dense MLP)."""
+    rng = np.random.default_rng(seed)
+    d, f, e, nh, r, dn, dr, dv = 16, 8, 4, 2, 8, 6, 4, 5
+
+    def w(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    p = "model.layers.0"
+    sd = {f"{p}.input_layernorm.weight": w(d), f"{p}.post_attention_layernorm.weight": w(d)}
+    if form in ("mla", "deepseek_moe"):
+        if form == "mla":
+            sd[f"{p}.self_attn.q_proj.weight"] = w(nh * (dn + dr), d)
+        else:
+            sd.update({f"{p}.self_attn.q_a_proj.weight": w(r, d),
+                       f"{p}.self_attn.q_a_layernorm.weight": w(r),
+                       f"{p}.self_attn.q_b_proj.weight": w(nh * (dn + dr), r)})
+        sd.update({f"{p}.self_attn.kv_a_proj_with_mqa.weight": w(r + dr, d),
+                   f"{p}.self_attn.kv_a_layernorm.weight": w(r),
+                   f"{p}.self_attn.kv_b_proj.weight": w(nh * (dn + dv), r),
+                   f"{p}.self_attn.o_proj.weight": w(d, nh * dv)})
+    else:
+        sd.update({f"{p}.self_attn.{x}_proj.weight": w(d, d) for x in "qkvo"})
+    if form == "mixtral":
+        sd[f"{p}.block_sparse_moe.gate.weight"] = w(e, d)
+        for i in range(e):
+            sd.update({f"{p}.block_sparse_moe.experts.{i}.w1.weight": w(f, d),
+                       f"{p}.block_sparse_moe.experts.{i}.w3.weight": w(f, d),
+                       f"{p}.block_sparse_moe.experts.{i}.w2.weight": w(d, f)})
+    elif form in ("qwen3_moe", "deepseek_moe"):
+        sd[f"{p}.mlp.gate.weight"] = w(e, d)
+        for i in range(e):
+            sd.update({f"{p}.mlp.experts.{i}.gate_proj.weight": w(f, d),
+                       f"{p}.mlp.experts.{i}.up_proj.weight": w(f, d),
+                       f"{p}.mlp.experts.{i}.down_proj.weight": w(d, f)})
+        if form == "deepseek_moe":
+            sd[f"{p}.mlp.gate.e_score_correction_bias"] = w(e)
+            sd.update({f"{p}.mlp.shared_experts.gate_proj.weight": w(f, d),
+                       f"{p}.mlp.shared_experts.up_proj.weight": w(f, d),
+                       f"{p}.mlp.shared_experts.down_proj.weight": w(d, f)})
+    else:
+        sd.update({f"{p}.mlp.gate_proj.weight": w(f, d), f"{p}.mlp.up_proj.weight": w(f, d),
+                   f"{p}.mlp.down_proj.weight": w(d, f)})
+    return sd
+
+
 @pytest.mark.parametrize("key,item", [
-    ("model.layers.0.block_sparse_moe.gate.weight", "2.4"),
-    ("model.layers.0.mlp.experts.0.gate_proj.weight", "2.4"),
-    ("model.layers.0.self_attn.kv_a_proj_with_mqa.weight", "2.5"),
+    ("model.layers.0.block_sparse_moe.gate.weight", None),
+    ("model.layers.0.mlp.experts.0.gate_proj.weight", None),
+    ("model.layers.0.self_attn.kv_a_proj_with_mqa.weight", None),
     ("model.layers.0.feed_forward.router.weight", "2.3"),
 ], ids=["mixtral", "qwen3_moe", "mla", "llama4"])
 def test_unported_layer_forms_raise(key, item):
-    with pytest.raises(NotImplementedError, match=item):
-        checkpoint.hf_layer_to_native("model.layers.0", {key: torch.zeros(2, 2)})
+    """Llama 4's layer form raises naming its ROADMAP item; the expert and
+    MLA forms once listed beside it convert as the JAX package converts
+    them: the same keys, shapes and bits."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            checkpoint.hf_layer_to_native("model.layers.0", {key: torch.zeros(2, 2)})
+        return
+    form = {"block_sparse_moe": "mixtral", "experts": "qwen3_moe", "kv_a_proj": "mla"}
+    sd = hf_layer_form(next(v for k, v in form.items() if k in key))
+    assert key in sd
+    want = jckpt.hf_layer_to_native("model.layers.0", sd)
+    got = checkpoint.hf_layer_to_native("model.layers.0",
+                                        {k: torch.from_numpy(v) for k, v in sd.items()})
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k])
 
 
 def test_prepare_weights_cli_splits(tmp_path):

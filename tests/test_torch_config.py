@@ -1,6 +1,7 @@
 """The port's config parsing against the JAX package's, field by field: the
-published config.json of one model of each dense family the port runs, as
-it ships, and with stray keys of the native names that a merged or
+published config.json of one model of each family the port runs (the dense
+ones, Mixtral-8x7B, Qwen3-30B-A3B, DeepSeek-V3 and Llama-3.1-8B's llama3
+rope), as it ships, and with stray keys of the native names that a merged or
 "llamafied" export may carry (the JAX package ignores them unless the
 family has such a field); then the native round trip through both
 packages' save_params. Exact equality of every field the port has, and
@@ -112,6 +113,63 @@ PUBLISHED = {
         "sliding_window": 2047, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
         "use_cache": True, "vocab_size": 32064,
     },
+    # The families with experts and MLA, and a scaled rope.
+    "deepseek-v3": {
+        "architectures": ["DeepseekV3ForCausalLM"], "attention_bias": False,
+        "attention_dropout": 0.0, "aux_loss_alpha": 0.001, "bos_token_id": 0, "eos_token_id": 1,
+        "ep_size": 1, "first_k_dense_replace": 3, "hidden_act": "silu", "hidden_size": 7168,
+        "initializer_range": 0.02, "intermediate_size": 18432, "kv_lora_rank": 512,
+        "max_position_embeddings": 163840, "model_type": "deepseek_v3",
+        "moe_intermediate_size": 2048, "moe_layer_freq": 1, "n_group": 8, "n_routed_experts": 256,
+        "n_shared_experts": 1, "norm_topk_prob": True, "num_attention_heads": 128,
+        "num_experts_per_tok": 8, "num_hidden_layers": 61, "num_key_value_heads": 128,
+        "num_nextn_predict_layers": 1, "pretraining_tp": 1, "q_lora_rank": 1536,
+        "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+        "quantization_config": {"activation_scheme": "dynamic", "fmt": "e4m3",
+                                "quant_method": "fp8", "weight_block_size": [128, 128]},
+        "rms_norm_eps": 1e-06,
+        "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 1.0,
+                         "mscale_all_dim": 1.0, "original_max_position_embeddings": 4096,
+                         "type": "yarn"},
+        "rope_theta": 10000, "routed_scaling_factor": 2.5, "scoring_func": "sigmoid",
+        "seq_aux": True, "tie_word_embeddings": False, "topk_group": 4, "topk_method": "noaux_tc",
+        "torch_dtype": "bfloat16", "use_cache": True, "v_head_dim": 128, "vocab_size": 129280,
+    },
+    "mixtral-8x7b-v0.1": {
+        "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 1,
+        "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+        "intermediate_size": 14336, "max_position_embeddings": 32768, "model_type": "mixtral",
+        "num_attention_heads": 32, "num_experts_per_tok": 2, "num_hidden_layers": 32,
+        "num_key_value_heads": 8, "num_local_experts": 8, "output_router_logits": False,
+        "rms_norm_eps": 1e-05, "rope_theta": 1000000.0, "router_aux_loss_coef": 0.02,
+        "sliding_window": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        "use_cache": True, "vocab_size": 32000,
+    },
+    "qwen3-30b-a3b": {
+        "architectures": ["Qwen3MoeForCausalLM"], "attention_bias": False,
+        "attention_dropout": 0.0, "bos_token_id": 151643, "decoder_sparse_step": 1,
+        "eos_token_id": 151645, "head_dim": 128, "hidden_act": "silu", "hidden_size": 2048,
+        "initializer_range": 0.02, "intermediate_size": 6144, "max_position_embeddings": 40960,
+        "max_window_layers": 48, "mlp_only_layers": [], "model_type": "qwen3_moe",
+        "moe_intermediate_size": 768, "norm_topk_prob": True, "num_attention_heads": 32,
+        "num_experts": 128, "num_experts_per_tok": 8, "num_hidden_layers": 48,
+        "num_key_value_heads": 4, "output_router_logits": False, "rms_norm_eps": 1e-06,
+        "rope_scaling": None, "rope_theta": 1000000.0, "router_aux_loss_coef": 0.001,
+        "sliding_window": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        "use_cache": True, "use_sliding_window": False, "vocab_size": 151936,
+    },
+    "llama-3.1-8b": {
+        "architectures": ["LlamaForCausalLM"], "attention_bias": False, "attention_dropout": 0.0,
+        "bos_token_id": 128000, "eos_token_id": 128001, "hidden_act": "silu", "hidden_size": 4096,
+        "initializer_range": 0.02, "intermediate_size": 14336, "max_position_embeddings": 131072,
+        "mlp_bias": False, "model_type": "llama", "num_attention_heads": 32,
+        "num_hidden_layers": 32, "num_key_value_heads": 8, "pretraining_tp": 1,
+        "rms_norm_eps": 1e-05,
+        "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                         "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+        "rope_theta": 500000.0, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        "use_cache": True, "vocab_size": 128256,
+    },
 }
 
 
@@ -133,10 +191,10 @@ def _with_strays(d: dict) -> dict:
 
 def _assert_same(cfg: LlamaConfig, jcfg: JLlamaConfig) -> None:
     assert dataclasses.asdict(cfg) == {k: getattr(jcfg, k) for k in PORT_FIELDS}
-    # What the port does not carry is off in the JAX config too.
-    assert jcfg.num_local_experts == 0 and jcfg.kv_lora_rank == 0
-    assert jcfg.attention_chunk_size is None and jcfg.layer_rope is None
-    assert (cfg.head_dim, cfg.attn_scale) == (jcfg.head_dim, jcfg.attn_scale)
+    # What the port does not carry (Llama 4's fields) is off in the JAX config too.
+    assert jcfg.attention_chunk_size is None and jcfg.layer_rope is None and not jcfg.qk_l2_norm
+    assert (cfg.head_dim, cfg.v_dim, cfg.attn_scale, cfg.rope_scaling_spec) == (
+        jcfg.head_dim, jcfg.v_dim, jcfg.attn_scale, jcfg.rope_scaling_spec)
 
 
 @pytest.mark.parametrize("strays", [False, True], ids=["as-published", "stray-keys"])
@@ -156,6 +214,21 @@ def test_stray_key_in_a_llama_config_changes_nothing(key, value):
     cfg = LlamaConfig.from_dict({**base, key: value})
     assert cfg == LlamaConfig.from_dict(base)
     _assert_same(cfg, JLlamaConfig.from_hf_config({**base, key: value}))
+
+
+def test_deepseek_v3_config_reads_as_published():
+    """The published DeepSeek-V3 config cut to 4 layers, as the JAX package
+    reads it: MLA heads of 192 / 128, the yarn mscale in the attention
+    scale, the width swap and the dense first three layers."""
+    d = {**PUBLISHED["deepseek-v3"], "num_hidden_layers": 4}
+    cfg = LlamaConfig.from_dict(d)
+    _assert_same(cfg, JLlamaConfig.from_hf_config(d))
+    assert (cfg.head_dim, cfg.v_dim, cfg.num_attention_heads) == (192, 128, 128)
+    assert abs(cfg.attn_scale - 0.1352338) < 1e-7
+    assert cfg.rope_scaling_spec == ("yarn", 40.0, 32.0, 1.0, 4096, 1.0, True)
+    assert (cfg.num_local_experts, cfg.intermediate_size, cfg.intermediate_size_mlp) == (256, 2048, 18432)
+    assert cfg.moe_layer_pattern == (False, False, False, True)
+    assert (cfg.moe_n_group, cfg.moe_topk_group, cfg.q_lora_rank) == (8, 4, 1536)
 
 
 def test_stray_gemma2_softcap_name_is_ignored():
@@ -182,12 +255,17 @@ def test_native_round_trip_through_both_packages(tmp_path, name):
 
 
 @pytest.mark.parametrize("d,item", [
-    ({"model_type": "mixtral", "num_local_experts": 8}, "2.4"),
-    ({"model_type": "qwen3_moe", "num_experts": 128}, "2.4"),
+    ({"model_type": "mixtral", "num_local_experts": 8}, None),
+    ({"model_type": "qwen3_moe", "num_experts": 128}, None),
     ({"model_type": "llama4", "text_config": {"model_type": "llama4_text"}}, "2.3"),
-    ({"model_type": "deepseek_v3"}, "2.5"),
+    ({"model_type": "deepseek_v3"}, None),
 ], ids=["mixtral", "qwen3_moe", "llama4", "deepseek_v3"])
 def test_later_families_raise_naming_their_roadmap_item(d, item):
+    """Llama 4 raises naming its ROADMAP item; the MoE and MLA families once
+    listed beside it parse as the JAX package parses them."""
+    if item is None:
+        _assert_same(LlamaConfig.from_dict(d), JLlamaConfig.from_hf_config(d))
+        return
     with pytest.raises(NotImplementedError, match=item):
         LlamaConfig.from_dict(d)
 

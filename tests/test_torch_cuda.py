@@ -92,10 +92,11 @@ def test_scoring_kernels_edge_cases(gen, edge):
            fa.prefix_shared_attention_plain(*_f32(qs, k, v, ks, vs, plen), softcap=softcap), dtype)
 
 
-def _decode_kv(gen, dtype, b, s, lp, ls, tg, nkv, hd, plen, eos, t):
+def _decode_kv(gen, dtype, b, s, lp, ls, tg, nkv, hd, plen, eos, t, hd_v=None):
     """Random decode K/V with every row past its source's limit (prefix rows
     at or past plen, suffix rows past eos, generated rows past t) zero, and
-    the same K/V with those rows NaN: two dicts keyed kp, vp, ks, vs, kg, vg."""
+    the same K/V with those rows NaN: two dicts keyed kp, vp, ks, vs, kg, vg.
+    V has head dim ``hd_v`` (default hd)."""
     prefix = (torch.arange(lp, device="cuda")[None, :] >= plen[:, None])[..., None, None]
     suffix = (torch.arange(ls, device="cuda")[None, None, :] > eos[..., None])[..., None, None]
     gen_past = torch.arange(tg, device="cuda")[None, None, :, None, None] > t
@@ -103,6 +104,8 @@ def _decode_kv(gen, dtype, b, s, lp, ls, tg, nkv, hd, plen, eos, t):
     for name, shape, past in (("p", (b, lp, nkv, hd), prefix), ("s", (b, s, ls, nkv, hd), suffix),
                               ("g", (b, s, tg, nkv, hd), gen_past)):
         for kind in "kv":
+            if kind == "v" and hd_v is not None:
+                shape = (*shape[:-1], hd_v)
             x = _rnd(gen, dtype, *shape).masked_fill(past, 0.0)
             zero[kind + name], nan[kind + name] = x, x.masked_fill(past, float("nan"))
     return zero, nan
@@ -272,3 +275,63 @@ def test_head_dims_256_and_96_match_plain(gen, hd, dtype, form):
                                          **form), dtype)
     torch.cuda.synchronize()
     assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 2)
+
+
+# Multi-head latent attention's (qk 192, v 128) in the scoring kernels: GQA 1
+# as DeepSeek runs it, every dtype, with NaN past every limit and without,
+# plain, softcap and every local form; the hd-128 edge lengths (with GQA as
+# well); and the decode kernel refusing it.
+MLA_FORMS = [({}, "plain"), ({"softcap": 30.0}, "softcap30")] + LOCAL
+
+
+@pytest.mark.parametrize("form", [f for f, _ in MLA_FORMS], ids=[n for _, n in MLA_FORMS])
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_mla_dims_match_plain(gen, dtype, form):
+    b, s, lp, ls, tg, t, nq = 2, 3, 200, 70, 6, 4, 16
+    plen = torch.tensor([200, 41], dtype=torch.int32, device="cuda")
+    eos = torch.tensor([[0, 69, 12], [5, 66, 37]], dtype=torch.int32, device="cuda")
+    q = _rnd(gen, dtype, b, lp, nq, 192)
+    qs = _rnd(gen, dtype, b, s, ls, nq, 192)
+    zero, nan = _decode_kv(gen, dtype, b, s, lp, ls, tg, nq, 192, plen, eos, t, hd_v=128)
+    fa.reset_launch_counts()
+    for fed in (zero, nan):
+        out = fa.flash_causal_attention(q, fed["kp"], fed["vp"], plen, **form)
+        assert out.shape == (b, lp, nq, 128)
+        _close(out, fa.causal_attention_plain(*_f32(q, zero["kp"], zero["vp"], plen), **form), dtype)
+        _close(fa.flash_prefix_shared_attention(qs, fed["kp"], fed["vp"], zero["ks"], zero["vs"], plen,
+                                                **form),
+               fa.prefix_shared_attention_plain(*_f32(qs, zero["kp"], zero["vp"], zero["ks"], zero["vs"],
+                                                      plen), **form), dtype)
+    torch.cuda.synchronize()
+    assert fa.dim_launch_counts() == {"flash_causal_attention": {(192, 128): 2},
+                                      "flash_prefix_shared_attention": {(192, 128): 2},
+                                      "flash_decode_attention": {}}
+
+
+@pytest.mark.parametrize("edge", EDGES, ids=lambda e: f"S{e[0]}-Lp{e[1]}-Ls{e[2]}-{e[3]}/{e[4]}")
+def test_mla_scoring_edge_cases(gen, edge):
+    s, lp, ls, nq, nkv, _, plen, dtype, softcap = edge
+    plen = torch.tensor(plen, dtype=torch.int32, device="cuda")
+    q, k, v = _rnd(gen, dtype, 2, lp, nq, 192), _rnd(gen, dtype, 2, lp, nkv, 192), _rnd(gen, dtype, 2, lp, nkv, 128)
+    qs, ks, vs = (_rnd(gen, dtype, 2, s, ls, n, d) for n, d in ((nq, 192), (nkv, 192), (nkv, 128)))
+    _close(fa.flash_causal_attention(q, k, v, plen, softcap=softcap),
+           fa.causal_attention_plain(*_f32(q, k, v, plen), softcap=softcap), dtype)
+    _close(fa.flash_prefix_shared_attention(qs, k, v, ks, vs, plen, softcap=softcap),
+           fa.prefix_shared_attention_plain(*_f32(qs, k, v, ks, vs, plen), softcap=softcap), dtype)
+
+
+def test_mla_dims_never_reach_the_decode_kernel(gen):
+    """MLA decode is the plain op's (as in the JAX package): the decode
+    kernel refuses a V head dim of its own, and so do the scoring kernels
+    for any pair but (192, 128)."""
+    plen = torch.tensor([5], dtype=torch.int32, device="cuda")
+    eos = torch.zeros(1, 1, dtype=torch.int32, device="cuda")
+    q = _rnd(gen, torch.bfloat16, 1, 1, 1, 4, 192)
+    k, v = _rnd(gen, torch.bfloat16, 1, 8, 4, 192), _rnd(gen, torch.bfloat16, 1, 8, 4, 128)
+    ks, vs = _rnd(gen, torch.bfloat16, 1, 1, 8, 4, 192), _rnd(gen, torch.bfloat16, 1, 1, 8, 4, 128)
+    fa.reset_launch_counts()
+    with pytest.raises(NotImplementedError):
+        fa.flash_decode_attention(q, k, v, ks, vs, ks, vs, plen, eos, 0)
+    with pytest.raises(NotImplementedError):
+        fa.flash_causal_attention(k, k, k[..., :64].contiguous(), plen)
+    assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 0)

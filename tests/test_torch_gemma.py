@@ -92,8 +92,15 @@ def test_gemma3_27b_config_reads_as_published():
     {"model_type": "llama", "fls_native": True, "qk_norm": True},
 ], ids=["mistral", "qwen2", "qwen3", "gemma3-yarn", "llama-qk-norm"])
 def test_unported_families_raise(d):
-    """What the port does not carry yet: a delta a native config's family
-    lacks, and rope scalings other than linear (Qwen2.5's yarn)."""
+    """What the port does not carry: a delta a native config's family lacks.
+    The yarn cases (Qwen2.5's scaling), which the port now runs, read as the
+    JAX package reads them."""
+    if "rope_scaling" in d:
+        cfg = LlamaConfig.from_dict(json.loads(json.dumps(d)))
+        jcfg = JLlamaConfig.from_hf_config(d)
+        assert dataclasses.asdict(cfg) == _port_view(jcfg)
+        assert cfg.rope_scaling_spec == jcfg.rope_scaling_spec and cfg.rope_scaling_kind == "yarn"
+        return
     with pytest.raises(NotImplementedError):
         LlamaConfig.from_dict(d)
 

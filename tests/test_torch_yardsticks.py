@@ -109,10 +109,62 @@ def test_gemma3_12b_bounds_equal_the_27b_rows(local):
 
 
 def test_cross_check_models_cover_the_families():
-    """The float32 card-vs-CPU check runs every family the port carries,
-    at head dims 256 and 96 too, and binds a window in each windowed one."""
+    """The float32 card-vs-CPU check runs every family the port carries
+    (the MoE ones and DeepSeek's MLA at qk 192 / v 128 too), at head dims
+    256 and 96 too, every rope scaling, and binds a window in each windowed
+    one."""
     cfgs = chip_smoke.cross_configs()
     assert {c.model_type for c in cfgs.values()} == {
-        "llama", "gemma", "gemma3_text", "phi3", "qwen2", "qwen3", "mistral"}
-    assert {c.head_dim for c in cfgs.values()} == {96, 128, 256}
+        "llama", "gemma", "gemma3_text", "phi3", "qwen2", "qwen3", "mistral", "mixtral", "qwen3_moe",
+        "deepseek_v3"}
+    assert {c.head_dim for c in cfgs.values()} == {64, 96, 128, 192, 256}
+    assert {(c.head_dim, c.v_dim) for c in cfgs.values() if c.kv_lora_rank} == {(192, 128)}
+    assert {c.rope_scaling_kind for c in cfgs.values()} == {None, "linear", "llama3", "yarn", "longrope"}
     assert all(c.sliding_window in (None, 32) for c in cfgs.values())
+
+
+def _mla_inputs(nq: int, nkv: int) -> dict:
+    """The scoring inputs at MLA's head dims: Q/K 192, V 128."""
+    rng = np.random.default_rng(8)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    return {**_inputs(nq, nkv), "q_prefix": rnd(B, LP, nq, 192), "kp": rnd(B, LP, nkv, 192),
+            "vp": rnd(B, LP, nkv, 128), "q_suffix": rnd(B, S, LS, nq, 192),
+            "ks": rnd(B, S, LS, nkv, 192), "vs": rnd(B, S, LS, nkv, 128)}
+
+
+@pytest.mark.parametrize("local", [{}, *LOCAL], ids=["global", "window3", "window8", "chunk4", "window3-off"])
+@pytest.mark.parametrize("kernel", ["flash_causal_attention", "flash_prefix_shared_attention"])
+def test_mla_yardstick_equals_plain_version(kernel, local):
+    """At MLA's (192, 128) the SDPA yardstick (V of its own head dim) gives
+    the plain version's 128 columns; the decode kernel has no MLA call."""
+    x = {**_mla_inputs(4, 4), "plen": torch.tensor([LP, LP], dtype=torch.int32)}
+    calls = chip_smoke._calls(x, None, local)
+    assert "flash_decode_attention" not in calls
+    args, kw = calls[kernel]
+    want = fa.PLAIN[kernel](*args, **kw)
+    assert want.shape[-1] == 128
+    got = chip_smoke.run_yardstick(chip_smoke.YARDSTICKS[kernel](*args, **local), want)
+    assert torch.allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_mla_bounds_count_qk_and_pv_at_their_own_dims():
+    """FLOPs 2 * (hd + hd_v) per visible pair and bytes at each dim: the
+    DeepSeek-V3 main path's causal pass is held by its products (about 1.48
+    ms), the prefix-shared pass by its bytes (about 0.50 ms); with hd_v = hd
+    the bounds are the 4 * hd ones."""
+    prompts = chip_smoke.make_prompts(8, 2048, 4, 32, seed=1)
+    mla = chip_smoke.main_path_case(prompts, 2, nq=128, nkv=128, hd=192, hd_v=128)
+    bounds = chip_smoke._bounds(mla)
+    assert bounds["flash_causal_attention"][1] == "operations"
+    assert bounds["flash_causal_attention"][0] == pytest.approx(1.4773, rel=1e-3)
+    assert bounds["flash_prefix_shared_attention"][1] == "bytes"
+    assert bounds["flash_prefix_shared_attention"][0] == pytest.approx(0.5010, rel=1e-3)
+    pairs = chip_smoke._work(mla)["flash_causal_attention"][0]
+    assert bounds["flash_causal_attention"][0] == pytest.approx(
+        2 * 320 * 128 * pairs / chip_smoke.PEAK_BF16_FLOPS * 1e3, rel=1e-12)
+    eq = chip_smoke._bounds({**mla, "hd_v": 192})
+    assert eq["flash_causal_attention"][0] == pytest.approx(
+        4 * 192 * 128 * pairs / chip_smoke.PEAK_BF16_FLOPS * 1e3, rel=1e-12)
