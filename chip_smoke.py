@@ -7,10 +7,12 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 
 1. device  — a CUDA device must be present; prints its name and power limit.
 2. build   — builds the port's CUDA kernels from the source in this
-             checkout (one nvcc); prints each instantiation's registers,
-             stack, local memory and dynamic shared memory, and fails on
-             ptxas warning C7518, on local memory (spills) and on shared
-             memory above the 232,448 B a block may have.
+             checkout (one nvcc) and, at the same time, its readahead pool
+             (one g++, csrc/fileprefetch.cpp); prints each instantiation's
+             registers, stack, local memory and dynamic shared memory, and
+             fails on ptxas warning C7518, on local memory (spills), on
+             shared memory above the 232,448 B a block may have, and unless
+             the readahead pool is the native one.
 3. kernels — every kernel against its plain PyTorch version on the card, at
              Llama-2-7B attention shapes (plus GQA, softcap and ragged-length
              cases; the scoring kernel's edge cases: odd S, query lengths
@@ -57,7 +59,18 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              run must have launched (with a window: with it on and with it
              off); under MLA the scoring kernels at (192, 128) only and the
              decode kernel never (MLA decode runs the plain op, as in the
-             JAX package).
+             JAX package). Every run has the CLI's defaults (verified loads,
+             the process host shard cache, readahead, retries) and starts
+             as a CLI process would, with no cached shard or crc verdict; it
+             prints its cache hits, misses and hit rate, crc passes and
+             verdict hits, host read seconds and host RSS, and a cell whose
+             files fit the cache budget must hit on every shard of every
+             pass after the first.
+6. host    — a reduced bf16 checkpoint through the CLI on the card: the
+             defaults give the scores of --host_cache_gb 0 --verify_weights
+             false --readahead_threads 0 bit for bit; after one flipped
+             byte, a warm process raises ShardCorruptError, a fresh CLI
+             process exits nonzero naming it, and ``verify`` exits 2.
 
 Output: per-phase lines, then a JSON line of kernel records, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -175,11 +188,23 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    import threading
+
     from flexible_llm_sharding_tpu_torch.ops import cuda_build
+    from flexible_llm_sharding_tpu_torch.utils import native
 
     t0 = time.perf_counter()
+    gxx = threading.Thread(target=native.load_lib)  # g++ beside nvcc
+    gxx.start()
     lib = cuda_build.library()
     log(f"[build] {cuda_build.SOURCE.name} built and loaded in {time.perf_counter() - t0:.3f} s")
+    gxx.join()
+    prefetcher = native.FilePrefetcher(2)
+    if not prefetcher.native:
+        fail(f"the readahead pool did not build natively: {native.build_log}")
+    prefetcher.close()
+    log(f"[build] {native.SOURCE.name} built and loaded (native readahead pool) in "
+        f"{time.perf_counter() - t0:.3f} s since the build phase began")
     warnings = [ln for ln in cuda_build.build_log.splitlines() if "warning" in ln.lower()]
     log(f"[build] compiler warnings: {len(warnings)}")
     for ln in warnings:
@@ -906,14 +931,18 @@ def _init_params(cfg, dtype, seed: int, device: str) -> dict:
 
 
 def write_streamed_checkpoint(model_dir: str, cfg, seed: int) -> tuple[int, float]:
-    """Seeded bf16 native layer files of ``cfg`` and its config.json, each
-    tensor made on the card in pieces of leading rows (at most 2^27
-    elements) and written as it is made, so host memory holds one piece, not
-    a layer and never the model. Returns (bytes written, seconds)."""
+    """Seeded bf16 native layer files of ``cfg``, its ``integrity.json`` and
+    config.json, each tensor made on the card in pieces of leading rows (at
+    most 2^27 elements) and written (and crc'd) as it is made, so host
+    memory holds one piece, not a layer and never the model. Returns (bytes
+    written, seconds)."""
+    from flexible_llm_sharding_tpu_torch.integrity import manifest
+
     t0 = time.perf_counter()
     os.makedirs(model_dir, exist_ok=True)
     g = torch.Generator(device="cuda").manual_seed(seed)
     total = 0
+    layers = {}
     for name, specs in model_specs(cfg).items():
         header, off = {}, 0
         for key, shape, _ in specs:
@@ -923,17 +952,25 @@ def write_streamed_checkpoint(model_dir: str, cfg, seed: int) -> tuple[int, floa
         hbytes = json.dumps(header, separators=(",", ":")).encode()
         hbytes += b" " * (-(8 + len(hbytes)) % 8)
         path = os.path.join(model_dir, f"{name}.safetensors")
+        tensors = {}
         with open(path + ".tmp", "wb") as f:
             f.write(len(hbytes).to_bytes(8, "little"))
             f.write(hbytes)
             for key, shape, init in specs:
                 step = max(1, (1 << 27) // max(1, int(np.prod(shape[1:]))))
+                crc = 0
                 for r0 in range(0, shape[0], step):
                     piece = make_tensor(cfg, shape, init, g, "cuda", torch.bfloat16,
                                         rows=min(step, shape[0] - r0))
-                    f.write(piece.reshape(-1).view(torch.uint8).numpy())
+                    raw = piece.reshape(-1).view(torch.uint8).numpy()
+                    f.write(raw)
+                    crc = zlib.crc32(raw, crc)
+                tensors[key] = {"c": f"{crc & 0xFFFFFFFF:08x}", "n": header[key]["data_offsets"][1]
+                                - header[key]["data_offsets"][0]}
         os.replace(path + ".tmp", path)
+        layers[name] = {"file": f"{name}.safetensors", "dtype": "bfloat16", "tensors": tensors}
         total += 8 + len(hbytes) + off
+    manifest.write_manifest(model_dir, layers)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump(cfg.to_dict(), f)
     return total, time.perf_counter() - t0
@@ -956,6 +993,59 @@ def run_cli(model_dir: str, work: str, tag: str, prompts, extra: list[str], voca
     with open(os.path.join(work, f"{tag}_updated.pkl"), "rb") as f:
         updated = pickle.load(f)
     return scores, updated, stats
+
+
+def fresh_process_state() -> None:
+    """Start the next CLI run as a new process would: no cached shard, no crc
+    verdict, and PyTorch's page-locked pool handed back to the system."""
+    import gc
+
+    from flexible_llm_sharding_tpu_torch.integrity import manifest
+    from flexible_llm_sharding_tpu_torch.runtime import hostcache
+    from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib
+
+    before = host_rss_gib().get("rss")
+    hostcache.reset_process_cache()
+    manifest.reset_verdicts()
+    gc.collect()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+    log(f"[process] caches reset, page-locked pool {'emptied' if empty else 'kept (no API)'}: "
+        f"RSS {before} -> {host_rss_gib().get('rss')} GiB")
+
+
+HOST_KEYS = ("host_cache_hits", "host_cache_misses", "host_cache_hit_rate", "crc_full_verifies",
+             "crc_verdict_hits", "io_retries", "integrity_failures", "reread_heals",
+             "quarantined_shards", "load_weights_time_s", "host_rss_gib", "peak_host_rss_gib")
+
+
+def check_host_path(tag: str, stats: dict, model_dir: str, cfg, passes: int) -> dict:
+    """The run's host-path stats; a model whose layer files (the embedding
+    twice when the head is tied) fit the cache budget must miss on its first
+    pass only: one miss per shard, plus the tied head, and a hit for every
+    shard of every later pass."""
+    from flexible_llm_sharding_tpu_torch.runtime import hostcache
+
+    cache = hostcache.process_cache()
+    budget = cache.budget_bytes if cache is not None else 0
+    n_shards = cfg.num_hidden_layers + 3  # one layer per shard
+    tied = int(cfg.tie_word_embeddings)
+    files = [os.path.join(model_dir, f) for f in os.listdir(model_dir) if f.endswith(".safetensors")]
+    model_bytes = sum(os.path.getsize(f) for f in files)
+    if tied:
+        model_bytes += os.path.getsize(os.path.join(model_dir, "model.embed_tokens.safetensors"))
+    out = {k: stats.get(k) for k in HOST_KEYS}
+    out.update(cache_budget_bytes=budget, model_bytes=model_bytes, fits=model_bytes <= budget)
+    if out["fits"]:
+        want = (n_shards * (passes - 1), n_shards + tied)
+        got = (stats.get("host_cache_hits"), stats.get("host_cache_misses"))
+        if got != want:
+            fail(f"{tag}: the model fits the host cache budget ({model_bytes} <= {budget} B) but "
+                 f"(hits, misses) = {got}, not {want}: a warm pass missed")
+    if not stats.get("crc_full_verifies"):
+        fail(f"{tag}: no layer load was crc-verified")
+    return out
 
 
 def cross_configs() -> dict:
@@ -1033,6 +1123,78 @@ def phase_cross(work: str) -> None:
                 fail(f"cross-check {name} {mode}: greedy tokens differ between card and CPU")
             log(f"[cross] float32 {name} {mode}: card vs CPU max_abs_err {err:.3e}, "
                 "greedy tokens identical")
+
+
+# A fresh CLI process with chip_smoke's tokenizer (argv: the CLI's arguments).
+_CLI_PROCESS = (
+    "import sys; sys.path.insert(0, sys.argv[1]); from chip_smoke import BenchTokenizer; "
+    "from flexible_llm_sharding_tpu_torch import cli; "
+    "cli.main(sys.argv[3:], tokenizer=BenchTokenizer(int(sys.argv[2])))"
+)
+
+
+def phase_host(work: str) -> None:
+    """The host path on a reduced bf16 checkpoint (Llama-2-7B widths, 2
+    decoder layers): defaults against everything off, bit for bit, for the
+    re-scoring loop and --kv_cache; then the rot drill."""
+    from flexible_llm_sharding_tpu_torch import cli
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.integrity.manifest import ShardCorruptError
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
+
+    cfg = LlamaConfig(num_hidden_layers=2)
+    model_dir = os.path.join(work, "host")
+    save_params(_init_params(cfg, torch.bfloat16, 5, "cuda"), model_dir, cfg)
+    prompts = make_prompts(4, 200, 3, 16, seed=4)
+    common = ["--dtype", "bfloat16", "--device", "cuda", "--num_gen_token", "3"]
+    off = ["--host_cache_gb", "0", "--verify_weights", "false", "--readahead_threads", "0"]
+    for mode, extra in (("loop", []), ("kv_cache", ["--kv_cache", "true"])):
+        fresh_process_state()
+        on, on_up, on_stats = run_cli(model_dir, work, f"host_on_{mode}", prompts,
+                                      [*common, *extra], cfg.vocab_size)
+        fresh_process_state()
+        plain, plain_up, _ = run_cli(model_dir, work, f"host_off_{mode}", prompts,
+                                     [*common, *extra, *off], cfg.vocab_size)
+        if not all(np.array_equal(a, b) for a, b in zip(on, plain)) or on_up != plain_up:
+            fail(f"host {mode}: the defaults' scores differ from everything off")
+        log(f"[host] {mode}: defaults and --host_cache_gb 0 --verify_weights false "
+            "--readahead_threads 0 give identical scores and tokens; defaults "
+            + json.dumps({k: on_stats.get(k) for k in HOST_KEYS}))
+    # Rot drill: a warm process (every shard cached, every file verified),
+    # one flipped payload byte, the same run again.
+    fresh_process_state()
+    args = [*common, "--io_retry_base_s", "0"]
+    run_cli(model_dir, work, "host_warm", prompts, args, cfg.vocab_size)
+    path = os.path.join(model_dir, "model.layers.1.safetensors")
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) - 1001)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0x20]))
+    try:
+        run_cli(model_dir, work, "host_rot", prompts, args, cfg.vocab_size)
+        fail("host: a flipped byte went through a warm process unnoticed")
+    except ShardCorruptError as e:
+        log(f"[host] warm process after a flipped byte: ShardCorruptError: {str(e)[:160]}")
+    ppkl = os.path.join(work, "host_rot.pkl")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_PROCESS, HERE, str(cfg.vocab_size), "--model_path", model_dir,
+         "--prompt_pickle", ppkl, "--output_file", os.path.join(work, "host_rot_cli.pkl"),
+         "--disk_folder", os.path.join(work, "host_disk"), *args],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode == 0 or "ShardCorruptError" not in proc.stderr:
+        fail(f"host: the CLI exited {proc.returncode} on a flipped byte:\n{proc.stderr[-3000:]}")
+    log(f"[host] a fresh CLI process on the flipped byte exits {proc.returncode}: "
+        + proc.stderr.strip().splitlines()[-1][:200])
+    try:
+        cli.main(["verify", "--model_path", model_dir])
+        fail("host: verify passed a rotted directory")
+    except SystemExit as e:
+        if e.code != 2:
+            fail(f"host: verify exited {e.code} on a rotted directory")
+    log("[host] verify on the rotted directory exits 2")
+    fresh_process_state()
+    shutil.rmtree(model_dir, ignore_errors=True)
 
 
 def _check_scores(scores, prompts, n_gen: int, vocab: int, tag: str) -> None:
@@ -1173,6 +1335,7 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
     windowed = cfg.sliding_window is not None
     try:
         for tag, extra, n_gen, needed in runs:
+            fresh_process_state()
             fa.reset_launch_counts()
             scores, _, stats = run_cli(model_dir, work, f"full_{name}_{tag}", prompts,
                                        [*common, *extra], cfg.vocab_size)
@@ -1199,6 +1362,8 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
             rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB -> GiB
             log(f"[full] {name} {tag} stats " + json.dumps({**{k: stats.get(k) for k in keys},
                                                            "host_peak_rss_gib": rss}))
+            host = check_host_path(f"full {name} {tag}", stats, model_dir, cfg, n_gen)
+            log(f"[full] {name} {tag} host " + json.dumps(host))
             log(f"[full] {name} {tag} kernels " + json.dumps(counts) + " window on "
                 + json.dumps(local) + " by (qk, v) head dims "
                 + json.dumps({k: {f"{a}/{b}": n for (a, b), n in v.items()} for k, v in dims.items()}))
@@ -1241,6 +1406,7 @@ def main() -> None:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cross(work)
+        phase_host(work)
         paths = {
             "llama2_7b": phase_full(work, "llama2-7b", LlamaConfig(num_hidden_layers=4), prompts,
                                     n_gen_loop, n_gen_kv),

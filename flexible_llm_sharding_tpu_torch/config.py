@@ -15,8 +15,9 @@ and its fields (chunked attention, NoPE layers, q/k L2 norm) raise
 dropped silently.
 
 ``FrameworkConfig`` holds the batch CLI's runtime flags: the reference's ten
-plus dtype, blocking, bucketing, KV-cache decode, sampling, prefetch and the
-device. ``resolve_device`` is the one place that turns a device name into a
+plus dtype, blocking, bucketing, KV-cache decode, sampling, prefetch, the
+device, and the JAX package's default-on host path: weight verification,
+the host shard cache, readahead and I/O retries. ``resolve_device`` is the one place that turns a device name into a
 ``torch.device``: CUDA unless the caller asks for the CPU, and an error (never
 a silent CPU run) when CUDA is asked for and absent.
 """
@@ -572,6 +573,13 @@ class FrameworkConfig:
     (device memory), ``cpu`` (host RAM, spilling to ``disk_folder`` past
     ``max_activation_in_cpu`` prompts) or ``disk``. ``kv_cache`` selects the
     KV-cache decode loop over the reference's re-scoring loop.
+
+    The host path, with the JAX package's defaults: ``verify_weights``
+    checks every layer load against ``integrity.json``; ``host_cache_gb``
+    budgets the process host shard cache (None = auto, a quarter of the
+    available RAM; 0 = off); ``readahead_threads`` sizes the page-cache
+    readahead pool (0 = off, which the JAX package does not offer);
+    ``io_retry_*`` drive the retry policy of layer reads.
     """
 
     model_path: str = "./"
@@ -593,6 +601,12 @@ class FrameworkConfig:
     seed: int = 0
     prefetch_depth: int = 1
     device: str = "cuda"
+    io_retry_attempts: int = 4
+    io_retry_base_s: float = 0.05  # first backoff; doubles per attempt
+    io_retry_deadline_s: float = 60.0  # overall wall cap per call; 0 = none
+    verify_weights: bool = True
+    host_cache_gb: float | None = None
+    readahead_threads: int = 2
 
     def __post_init__(self) -> None:
         if self.storage_location not in STORAGE_LOCATIONS:
@@ -608,10 +622,35 @@ class FrameworkConfig:
             raise ValueError("prefetch_depth must be >= 0")
         if (self.top_k or self.top_p) and self.temperature <= 0:
             raise ValueError("top_k/top_p require temperature > 0")
+        if self.io_retry_attempts < 1:
+            raise ValueError("io_retry_attempts must be >= 1")
+        if self.io_retry_base_s < 0 or self.io_retry_deadline_s < 0:
+            raise ValueError("io_retry_base_s/io_retry_deadline_s must be >= 0")
+        if self.host_cache_gb is not None and self.host_cache_gb < 0:
+            raise ValueError(
+                f"host_cache_gb must be >= 0 (or None for auto), got {self.host_cache_gb}")
+        if self.readahead_threads < 0:
+            raise ValueError("readahead_threads must be >= 0")
 
     @property
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
+
+    def effective_host_cache_bytes(self) -> int:
+        """The host cache budget in bytes: ``host_cache_gb`` GB when given
+        (0 = off), else auto; unknown free RAM resolves to off."""
+        if self.host_cache_gb is not None:
+            return int(self.host_cache_gb * 1e9)
+        from flexible_llm_sharding_tpu_torch.runtime.hostcache import auto_budget_bytes
+
+        return auto_budget_bytes()
+
+    def retry_policy(self):
+        """The retry policy of this run's layer reads."""
+        from flexible_llm_sharding_tpu_torch.faults.retry import RetryPolicy
+
+        return RetryPolicy(max_attempts=self.io_retry_attempts, base_delay_s=self.io_retry_base_s,
+                           deadline_s=self.io_retry_deadline_s or None)
 
 
 def resolve_device(name: str = "cuda") -> torch.device:

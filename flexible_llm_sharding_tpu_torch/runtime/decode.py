@@ -8,8 +8,11 @@ weights again — the design's point: the device holds one shard — but runs
 only the newest token of every suffix through each layer, against the
 parked KV, through the decode kernel. Token ids are appended directly (no
 decode/re-encode round trip); the ``_updated`` text decodes the id history.
-Weights-resident decode, the fused step loop, speculative decoding, the KV
-pool and adapters are not part of this port.
+Every pass reads through the same host path as scoring (verified reads,
+retries, readahead, the process host shard cache), so from the second pass
+on the weights come from host RAM. Weights-resident decode, the fused step
+loop, speculative decoding, the KV pool and adapters are not part of this
+port.
 """
 
 from __future__ import annotations
@@ -96,7 +99,7 @@ class DecodeGenerator(StreamingExecutor):
             all_scores[b].append(d)
             tok_hist[b].append(picker(d, real=real_rows[b]))
 
-        source = self.weight_source(n_gen)
+        source, host_stats = self.weight_source(n_gen)
         it = iter(source)
         compute_time = source_wait = 0.0
 
@@ -191,6 +194,7 @@ class DecodeGenerator(StreamingExecutor):
             "source_wait_s": source_wait,
             "streamed_bytes": float(source.bytes_loaded),
             "decode_kv_on_device": float(kv_store.on_device),
+            **host_stats.read(source),
             "tokens_processed": float(
                 sum(t.tokens_processed for t in toks)
                 + sum(t.num_suffixes for t in toks) * max(n_gen - 1, 0)

@@ -8,15 +8,20 @@ shard's layers before the next shard is loaded; activations wait in an
 weights: with ``prefetch_depth >= 1`` a thread stays that many shards ahead
 of compute — while shard t computes, it reads shard t+1 from disk into
 page-locked host memory and uploads it on a side CUDA stream; an event
-orders each upload before the compute that reads it. The host cache,
-residency tier, integrity checks, fault injection and resume of the JAX
-package are not part of this port.
+orders each upload before the compute that reads it. As in the JAX batch
+CLI's defaults, every read retries, is verified against ``integrity.json``
+and is served from the process host shard cache when a pass has read it
+before, with the next shard's files read ahead into the page cache. The
+residency tier, quantized streaming and resume (ROADMAP 3.4-3.6), and
+fault injection (item 8) are not part of this port yet.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
+import warnings
 from queue import Empty, Full, Queue
 from typing import Any, Sequence
 
@@ -24,9 +29,18 @@ import numpy as np
 import torch
 
 from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, LlamaConfig, resolve_device
+from flexible_llm_sharding_tpu_torch.faults.retry import RetryPolicy, ShardLoadError, retry_call
+from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
+from flexible_llm_sharding_tpu_torch.integrity.manifest import ChecksumMismatch, ShardCorruptError
 from flexible_llm_sharding_tpu_torch.models import llama
 from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
 from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore
+from flexible_llm_sharding_tpu_torch.runtime.hostcache import (
+    HostShardCache,
+    cache_for,
+    stat_guard,
+    tree_nbytes,
+)
 from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
     PromptTokenizer,
     TokenizedPrompt,
@@ -35,6 +49,8 @@ from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
     make_blocks,
 )
 from flexible_llm_sharding_tpu_torch.utils import checkpoint
+from flexible_llm_sharding_tpu_torch.utils.metrics import IntegrityRecorder, RetryRecorder
+from flexible_llm_sharding_tpu_torch.utils.native import FilePrefetcher
 
 Segments = list[tuple[str, Any]]
 
@@ -79,20 +95,40 @@ class SourceClosed(RuntimeError):
 
 
 class ShardWeightSource:
-    """Shard weights, disk -> host -> device, optionally prefetched.
+    """Shard weights, disk -> host -> device, optionally prefetched (the
+    JAX package's ``_HostShardLoader`` and weight source, single device).
 
     Iterating yields ``(layer_idxs, segments)`` per shard, where segments is
     a list of ``(kind, params)``: ``("embed", {"embedding"})``,
     ``("decoders", [layer dict, ...])``, ``("norm", {"scale"})``,
     ``("head", {"kernel"})``. Weights arrive cast to ``dtype`` on
-    ``device``. Stats: ``load_time`` (host file reads), ``bytes_loaded``
-    (host bytes built for upload).
+    ``device``.
+
+    Every layer read retries under ``retry_policy`` and, with
+    ``verify_weights``, is checked against the directory's
+    ``integrity.json`` (a directory without one warns and loads
+    unverified). A mismatch is retried like an I/O error; one that survives
+    two or more reads quarantines the file, drops it from ``host_cache`` and
+    from the verdict cache, and raises ``ShardCorruptError``. With
+    ``host_cache`` (a ``HostShardCache``), a shard's host tree — the
+    page-locked tensors the read built — is looked up before any byte is
+    read and put after a verified build; with tied embeddings the head is
+    read once per source and cached under ``__tied_head__``. A readahead
+    pool of ``readahead_threads`` (0 = none) warms the next shard's files.
+    The JAX loader's fault injection and host-OOM typing wait for ROADMAP
+    item 8.
+
+    Stats: ``load_time`` (host reads, misses only), ``bytes_loaded`` (host
+    bytes uploaded, hits included), ``retries`` (a ``RetryRecorder``) and
+    ``integrity`` (an ``IntegrityRecorder``).
     """
 
     def __init__(self, model_path: str, layer_names: Sequence[str],
                  shards: Sequence[tuple[int, ...]], dtype: torch.dtype,
                  device: torch.device, prefetch_depth: int = 1,
-                 tied_embeddings: bool = False):
+                 tied_embeddings: bool = False, *, verify_weights: bool = True,
+                 host_cache: HostShardCache | None = None, readahead_threads: int = 2,
+                 retry_policy: RetryPolicy | None = None):
         self.model_path = model_path
         self.layer_names = list(layer_names)
         self.shards = list(shards)
@@ -103,6 +139,29 @@ class ShardWeightSource:
         self._stream = torch.cuda.Stream(device) if self._cuda else None
         self.load_time = 0.0
         self.bytes_loaded = 0
+        self.retries = RetryRecorder()
+        self.integrity = IntegrityRecorder()
+        self.quarantined: set[str] = set()
+        self._retry = retry_policy or RetryPolicy()
+        self._host_cache = host_cache
+        self._tied_head: dict[str, Any] | None = None
+        self._manifest = None
+        if verify_weights:
+            self._manifest = integrity_manifest.load_manifest(model_path)
+            if self._manifest is None:
+                warnings.warn(
+                    f"{model_path}: no {integrity_manifest.MANIFEST_NAME}; weight integrity "
+                    "verification skipped for this stream (re-split or re-save to write one)",
+                    stacklevel=3,
+                )
+        self._prefetcher = FilePrefetcher(readahead_threads) if readahead_threads > 0 else None
+        manifest_stat = integrity_manifest._file_key(
+            os.path.join(model_path, integrity_manifest.MANIFEST_NAME))
+        # Everything besides the layer indices that shapes a host tree.
+        self._cache_key_base = (
+            os.path.abspath(model_path), str(dtype), bool(tied_embeddings), manifest_stat,
+            self._manifest is not None, self._cuda,
+        )
         self._stop = threading.Event()
         self._q: Queue = Queue(maxsize=max(1, prefetch_depth))
         self._thread: threading.Thread | None = None
@@ -110,21 +169,100 @@ class ShardWeightSource:
             self._thread = threading.Thread(target=self._producer, daemon=True)
             self._thread.start()
 
-    def _read(self, name: str) -> dict[str, Any]:
+    def _layer_file(self, name: str) -> str:
+        return checkpoint.layer_file_for(self.model_path, name, self.tied)
+
+    def warm(self, layer_idxs: tuple[int, ...]) -> None:
+        """Queue a shard's files for page-cache readahead."""
+        if self._prefetcher is not None:
+            self._prefetcher.prefetch(*(self._layer_file(self.layer_names[i]) for i in layer_idxs))
+
+    def _load_one(self, name: str) -> dict[str, Any]:
+        """One layer's host tree, read under the retry policy."""
+        path = self._layer_file(name)
+        if path in self.quarantined:
+            raise ShardCorruptError(f"{path}: quarantined after persistent checksum mismatches")
+        mismatches = 0
+
+        def attempt():
+            nonlocal mismatches
+            try:
+                return self._load_one_raw(name)
+            except ChecksumMismatch:
+                mismatches += 1
+                self.integrity.count("integrity_failures")
+                raise
+
+        try:
+            out = retry_call(attempt, policy=self._retry, label="shard_read",
+                             recorder=self.retries, wrap=ShardLoadError, abort=self._stop.is_set)
+        except ShardLoadError as e:
+            if isinstance(e.__cause__, ChecksumMismatch) and mismatches >= 2:
+                # Two reads or more came back wrong: the bytes on disk are.
+                self.quarantined.add(path)
+                if self._host_cache is not None:
+                    self._host_cache.invalidate_path(path)
+                integrity_manifest.invalidate_verdict(path)
+                self.integrity.count("quarantined_shards")
+                raise ShardCorruptError(
+                    f"{path}: checksum mismatch survived every re-read — on-disk corruption; "
+                    "path quarantined (audit with the `verify` subcommand, then re-prepare the "
+                    "shard)"
+                ) from e
+            raise
+        if mismatches:
+            self.integrity.count("reread_heals")
+        return out
+
+    def _load_one_raw(self, name: str) -> dict[str, Any]:
         if name == "lm_head" and self.tied:
-            emb = checkpoint.load_layer(self.model_path, "model.embed_tokens", self._cuda)
-            return {"kernel": emb["embedding"]}  # transposed after upload
-        return checkpoint.load_layer(self.model_path, name, pin_memory=self._cuda)
+            if self._tied_head is not None:
+                return self._tied_head
+            cache = self._host_cache
+            key = guard = None
+            if cache is not None:
+                key = self._cache_key_base + ("__tied_head__",)
+                guard = stat_guard([self._layer_file("model.embed_tokens")])
+                hit = cache.get(key) if guard is not None else None
+                if hit is not None:
+                    self._tied_head = hit[0]
+                    return self._tied_head
+            emb = checkpoint.load_layer(self.model_path, "model.embed_tokens", self._cuda,
+                                        manifest=self._manifest)
+            self._tied_head = {"kernel": emb["embedding"]}  # transposed after upload
+            if cache is not None and guard is not None:
+                cache.put(key, self._tied_head, guard=guard)
+            return self._tied_head
+        return checkpoint.load_layer(self.model_path, name, self._cuda, manifest=self._manifest)
 
     def _place(self, t: torch.Tensor) -> torch.Tensor:
         t = t.to(self.device, non_blocking=True)
         return t.to(self.dtype) if t.is_floating_point() else t
 
-    def _build(self, layer_idxs: tuple[int, ...]):
+    def _host_shard(self, layer_idxs: tuple[int, ...]) -> list[tuple[str, Any]]:
+        """The shard's host trees: from the cache, or read and verified
+        (then cached). The stat guard is taken before the first byte."""
+        cache = self._host_cache
+        key = guard = None
+        if cache is not None:
+            key = self._cache_key_base + (tuple(layer_idxs),)
+            guard = stat_guard([self._layer_file(self.layer_names[i]) for i in layer_idxs])
+            hit = cache.get(key)
+            if hit is not None:
+                host, nbytes = hit
+                self.bytes_loaded += nbytes
+                return host
         t0 = time.perf_counter()
-        host = [(self.layer_names[i], self._read(self.layer_names[i])) for i in layer_idxs]
+        host = [(self.layer_names[i], self._load_one(self.layer_names[i])) for i in layer_idxs]
         self.load_time += time.perf_counter() - t0
-        self.bytes_loaded += sum(t.nbytes for _, tree in host for t in _tree_leaves(tree))
+        nbytes = tree_nbytes([tree for _, tree in host])
+        self.bytes_loaded += nbytes
+        if cache is not None and guard is not None:
+            cache.put(key, host, nbytes=nbytes, guard=guard)
+        return host
+
+    def _build(self, layer_idxs: tuple[int, ...]):
+        host = self._host_shard(layer_idxs)
         event = None
         if self._cuda:
             with torch.cuda.stream(self._stream):
@@ -150,6 +288,12 @@ class ShardWeightSource:
                 segments.append(("head", params))
         return segments, event
 
+    def _produce(self, i: int):
+        """Shard ``i``, with the next shard's files queued for readahead."""
+        if i + 1 < len(self.shards):
+            self.warm(self.shards[i + 1])
+        return self._build(self.shards[i])
+
     def _ready(self, item):
         """Order the upload before the consumer's stream and keep the
         allocator from reusing the weights' memory while that stream runs."""
@@ -171,11 +315,11 @@ class ShardWeightSource:
         return False
 
     def _producer(self) -> None:
-        for idxs in self.shards:
+        for i in range(len(self.shards)):
             if self._stop.is_set():
                 return
             try:
-                item = self._build(idxs)
+                item = self._produce(i)
             except Exception as e:  # carried to the consumer, which re-raises it
                 self._put(_Fault(e))
                 return
@@ -183,9 +327,9 @@ class ShardWeightSource:
                 return
 
     def __iter__(self):
-        for idxs in self.shards:
+        for i, idxs in enumerate(self.shards):
             if self._thread is None:
-                item = self._build(idxs)
+                item = self._produce(i)
             else:
                 while True:
                     try:
@@ -199,7 +343,8 @@ class ShardWeightSource:
             yield idxs, self._ready(item)
 
     def close(self) -> None:
-        """Stop the prefetch thread and drop queued shards."""
+        """Stop the prefetch thread, drop queued shards and retire the
+        readahead pool."""
         self._stop.set()
         if self._thread is not None:
             while self._thread.is_alive():
@@ -210,6 +355,45 @@ class ShardWeightSource:
             self._thread = None
         while not self._q.empty():
             self._q.get_nowait()
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+
+
+class StreamStats:
+    """The JAX executor's host-path stats keys over one call: ``io_retries``
+    and the integrity counters when nonzero, the process host cache's
+    ``host_cache_hits``/``host_cache_misses``/``host_cache_hit_rate``, and
+    the crc verdict cache's ``crc_verdict_hits``/``crc_full_verifies`` when
+    nonzero. Baselines are taken before the source starts reading."""
+
+    def __init__(self, cache: HostShardCache | None):
+        self.cache = cache
+        self.cache_before = cache.stats() if cache is not None else None
+        self.verdict_before = integrity_manifest.verdict_stats()
+
+    def read(self, source: ShardWeightSource) -> dict[str, float]:
+        out: dict[str, float] = {}
+        io_retries = source.retries.total("retries")
+        if io_retries:
+            out["io_retries"] = float(io_retries)
+        for k, v in source.integrity.snapshot().items():
+            if v:
+                out[k] = float(v)
+        if self.cache is not None:
+            after = self.cache.stats()
+            hits = after["hits"] - self.cache_before["hits"]
+            misses = after["misses"] - self.cache_before["misses"]
+            out["host_cache_hits"] = float(hits)
+            out["host_cache_misses"] = float(misses)
+            if hits + misses:
+                out["host_cache_hit_rate"] = round(hits / (hits + misses), 4)
+        after = integrity_manifest.verdict_stats()
+        for key in ("verdict_hits", "full_verifies"):
+            delta = after[key] - self.verdict_before[key]
+            if delta:
+                out[f"crc_{key}"] = float(delta)
+        return out
 
 
 def block_meta(toks: list[TokenizedPrompt], idxs: list[int], device: torch.device):
@@ -307,12 +491,26 @@ class StreamingExecutor:
         self.stats: dict[str, float] = {}
         self.stats_history: list[dict[str, float]] = []
 
-    def weight_source(self, n_passes: int = 1) -> ShardWeightSource:
-        """One source over ``n_passes`` full passes of the shard list."""
-        return ShardWeightSource(
-            self.cfg.model_path, self.layer_names, list(self.plan.shards) * n_passes,
-            self.dtype, self.device, self.cfg.prefetch_depth,
-            self.model_cfg.tie_word_embeddings,
+    def weight_source(self, n_passes: int = 1) -> tuple[ShardWeightSource, StreamStats]:
+        """One source over ``n_passes`` full passes of the shard list, on the
+        process host cache, and the baselines of its stats."""
+        cfg = self.cfg
+        cache = cache_for(cfg)
+        stats = StreamStats(cache)
+        source = ShardWeightSource(
+            cfg.model_path, self.layer_names, list(self.plan.shards) * n_passes,
+            self.dtype, self.device, cfg.prefetch_depth, self.model_cfg.tie_word_embeddings,
+            verify_weights=cfg.verify_weights, host_cache=cache,
+            readahead_threads=cfg.readahead_threads, retry_policy=cfg.retry_policy(),
+        )
+        return source, stats
+
+    def activation_store(self, source: ShardWeightSource, batch: int) -> ActivationStore:
+        cfg = self.cfg
+        return ActivationStore(
+            cfg.storage_location, self.device, self.dtype, cfg.disk_folder,
+            max_in_cpu=cfg.max_activation_in_cpu, batch=batch, integrity=source.integrity,
+            retry_policy=cfg.retry_policy(), retry_recorder=source.retries,
         )
 
     @torch.inference_mode()
@@ -321,24 +519,19 @@ class StreamingExecutor:
         toks = [self.tokenizer(p, s) for p, s in prompts]
         check_longrope_regime(self.model_cfg, toks)
         blocks = make_blocks(toks, self.cfg.block_size)
-        store = ActivationStore(
-            self.cfg.storage_location, self.device, self.dtype, self.cfg.disk_folder,
-            max_in_cpu=self.cfg.max_activation_in_cpu, batch=batch,
-        )
         metas = [block_meta(toks, idxs, self.device) for idxs in blocks]
         scores: dict[int, np.ndarray] = {}
         n_layers = len(self.layer_names)
         compute_time = source_wait = 0.0
-        source = self.weight_source()
+        source, host_stats = self.weight_source()
+        store = self.activation_store(source, batch)
         try:
             it = iter(source)
-            while True:
+            for shard_pos in range(len(self.plan.shards)):
                 t_wait = time.perf_counter()
-                try:
-                    layer_idxs, segments = next(it)
-                except StopIteration:
-                    break
+                layer_idxs, segments = next(it)
                 source_wait += time.perf_counter() - t_wait
+                store.set_shard(shard_pos)
                 t0 = time.perf_counter()
                 for b, idxs in enumerate(blocks):
                     process_block(
@@ -358,6 +551,7 @@ class StreamingExecutor:
             "total_wall_s": time.perf_counter() - t_start,
             "tokens_processed": float(sum(t.tokens_processed for t in toks)),
             "streamed_bytes": float(source.bytes_loaded),
+            **host_stats.read(source),
         }
         peak = peak_mem_gb(self.device)
         if peak is not None:
@@ -369,6 +563,7 @@ class StreamingExecutor:
 __all__ = [
     "ShardWeightSource",
     "SourceClosed",
+    "StreamStats",
     "StreamingExecutor",
     "apply_segments",
     "block_meta",

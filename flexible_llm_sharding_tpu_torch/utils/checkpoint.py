@@ -13,9 +13,11 @@ own ``prepare_weights.py`` files) they keep their Hugging Face names and
 is an 8-byte little-endian header length, a JSON header ``{key: {"dtype",
 "shape", "data_offsets"}}``, then the raw tensor bytes. BF16 payloads are
 read as uint16 and reinterpreted with ``.view(torch.bfloat16)``, so neither
-``safetensors`` nor ``ml_dtypes`` is needed. Float layers only: quantized
-leaves (``int8``/``int4``, ROADMAP 3.5) and integrity manifests (ROADMAP
-3.3) are neither written nor read by the port yet.
+``safetensors`` nor ``ml_dtypes`` is needed. Every writer here also writes
+the directory's ``integrity.json`` (``integrity/manifest.py``, the JAX
+package's format), and :func:`load_layer` verifies against it. Float layers
+only: quantized leaves (``int8``/``int4``, ROADMAP 3.5) are neither written
+nor read by the port yet.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from flexible_llm_sharding_tpu_torch.config import LlamaConfig, extract_text_config
+from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
 
 LAYER_FILE_SUFFIX = ".safetensors"
 
@@ -174,13 +177,44 @@ def layer_file(model_path: str, name: str) -> str:
     return os.path.join(model_path, f"{name}{LAYER_FILE_SUFFIX}")
 
 
-def load_layer(model_path: str, layer_name: str, pin_memory: bool = False) -> dict[str, Any]:
+def layer_file_for(model_path: str, name: str, tied: bool = False) -> str:
+    """The file a layer name reads: with tied embeddings, ``lm_head`` comes
+    from the embedding file (the loader's quarantine and stat-guard key)."""
+    return layer_file(model_path, "model.embed_tokens" if (name == "lm_head" and tied) else name)
+
+
+def load_layer(model_path: str, layer_name: str, pin_memory: bool = False,
+               manifest: dict | None = None) -> dict[str, Any]:
     """One layer file -> nested dict of CPU tensors in the native layout:
     bit-exact with the stored values for a native file; a file of Hugging
     Face keys (``prepare_weights --layout hf``, the reference's own split)
     is converted by :func:`hf_layer_to_native` (page-locked again with
-    ``pin_memory``, since the transposes make new tensors)."""
-    flat = read_safetensors(layer_file(model_path, layer_name), pin_memory)
+    ``pin_memory``, since the transposes make new tensors).
+
+    With ``manifest`` (``integrity.json``), in the JAX package's order: the
+    verdict token is taken before the read and re-taken after it; the raw
+    stored tensors are crc-verified unless that file generation already
+    passed (a mismatch raises the retryable ``ChecksumMismatch``); the
+    storage-dtype kind is checked on every load (``PrecisionMismatch``);
+    then the layout is converted."""
+    path = layer_file(model_path, layer_name)
+    token = integrity_manifest.verdict_token(model_path, path) if manifest is not None else None
+    flat = read_safetensors(path, pin_memory)
+    if token is not None and integrity_manifest.verdict_token(model_path, path) != token:
+        token = None  # replaced mid-read: verify these bytes, record nothing
+    if manifest is not None:
+        if not integrity_manifest.verdict_cached(token):
+            integrity_manifest.verify_flat(layer_name, flat, manifest, path=path)
+            integrity_manifest.record_verdict(token)
+        want_kind = (manifest.get("layers", {}).get(layer_name) or {}).get("dtype")
+        if want_kind is not None:
+            got_kind = integrity_manifest.flat_dtype_kind(flat)
+            if got_kind != want_kind:
+                raise integrity_manifest.PrecisionMismatch(
+                    f"{path}: layer {layer_name!r} stores dtype kind {got_kind!r} but the "
+                    f"integrity manifest declares {want_kind!r} (audit with the `verify` "
+                    "subcommand)"
+                )
     if not _is_native(flat):
         flat = hf_layer_to_native(layer_name, flat)
         if pin_memory:
@@ -478,9 +512,9 @@ def split_into_layers(src_dir: str, out_dir: str, dtype: str | None = None, layo
     those are written, so host memory holds about two shards. ``dtype``
     casts every float tensor (None keeps the checkpoint's); ``layout`` is
     ``native`` ([in, out] kernels under native names) or ``hf`` (the
-    reference's own files). Quantized dtypes (int8/int4) wait for ROADMAP
-    3.5; the JAX splitter's integrity manifest for ROADMAP 3.3. Returns the
-    layer names in the order written."""
+    reference's own files). ``integrity.json`` is written after the last
+    layer, over each file's stored bytes. Quantized dtypes (int8/int4) wait
+    for ROADMAP 3.5. Returns the layer names in the order written."""
     if layout not in ("native", "hf"):
         raise ValueError(f"layout must be 'native' or 'hf', got {layout!r}")
     if dtype in ("int8", "int4"):
@@ -516,6 +550,7 @@ def split_into_layers(src_dir: str, out_dir: str, dtype: str | None = None, layo
     want = (lambda k: remap(k) is not None) if remap is not None else None
     state: dict[str, torch.Tensor] = {}
     loaded: set[str] = set()
+    manifest_layers: dict[str, dict] = {}
     for layer in layer_list:
         for shard in sorted(layer2shards[layer] - loaded):
             loaded.add(shard)
@@ -533,21 +568,26 @@ def split_into_layers(src_dir: str, out_dir: str, dtype: str | None = None, layo
         if layout == "native":
             sd = hf_layer_to_native(layer, sd)
         write_safetensors(os.path.join(out_dir, f"{layer}{LAYER_FILE_SUFFIX}"), sd)
+        manifest_layers[layer] = integrity_manifest.layer_entry(sd, f"{layer}{LAYER_FILE_SUFFIX}")
         for k in layer2keys[layer]:
             del state[k]  # the shard's buffer goes with its last layer's tensors
         del sd
         if progress:
             progress(layer)
+    integrity_manifest.write_manifest(out_dir, manifest_layers)
     return layer_list
 
 
 def save_params(params: dict[str, Any], out_dir: str, cfg: LlamaConfig) -> None:
     """Write a full parameter dict ({'embed', 'layers', 'norm', 'lm_head'})
-    as per-layer native files plus ``config.json``."""
+    as per-layer native files, ``integrity.json`` and ``config.json``."""
     os.makedirs(out_dir, exist_ok=True)
+    manifest_layers: dict[str, dict] = {}
 
     def save(name: str, tree: dict[str, Any]) -> None:
-        write_safetensors(layer_file(out_dir, name), dict(flatten(tree)))
+        flat = dict(flatten(tree))
+        write_safetensors(layer_file(out_dir, name), flat)
+        manifest_layers[name] = integrity_manifest.layer_entry(flat, f"{name}{LAYER_FILE_SUFFIX}")
 
     save("model.embed_tokens", params["embed"])
     for i, layer in enumerate(params["layers"]):
@@ -555,6 +595,7 @@ def save_params(params: dict[str, Any], out_dir: str, cfg: LlamaConfig) -> None:
     save("model.norm", params["norm"])
     if params.get("lm_head"):
         save("lm_head", params["lm_head"])
+    integrity_manifest.write_manifest(out_dir, manifest_layers)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(cfg.to_dict(), f)
 
@@ -597,6 +638,7 @@ __all__ = [
     "hf_layer_to_native",
     "key_to_layer",
     "layer_file",
+    "layer_file_for",
     "layer_names_for",
     "load_layer",
     "params_from_jax",

@@ -14,10 +14,15 @@ other, each as its own JSON line:
 - KV-cache decode (4 tokens) with the KV parked in host RAM and on the
   device;
 - KV-cache decode (storage ``cpu``) and scoring (storage ``gpu``) again
-  under ``torch.profiler``: CUDA kernel and memcpy time by name, and the
-  device-busy share of the wall time (device time summed over kernels and
-  copies, divided by the run's wall, which includes the profiler's own
-  overhead).
+  under ``torch.profiler``: CUDA kernel and memcpy time by name, the copies
+  by kind (device to page-locked or to pageable host memory, and back),
+  and the device-busy share of the wall time (device time summed over
+  kernels and copies, divided by the run's wall, which includes the
+  profiler's own overhead).
+
+Every run has the CLI's defaults: verified loads, the process host shard
+cache (its hit rate is on each line), readahead and retries; runs after the
+first in the process find the model in the cache.
 
     python3 scripts/torch_port_profile.py --deepseek
 
@@ -32,7 +37,14 @@ memory (1 GiB copies, CUDA events), the rate at which a shard's weights
 can reach the card once read; then the cell itself through the CLI (its
 30.2 GB checkpoint written as chip_smoke.py writes it): one scoring pass
 to warm up, one plain, one under ``torch.profiler`` with the host-side
-operations and CUDA calls by self CPU time beside the device table.
+operations and CUDA calls by self CPU time beside the device table, and
+the parked activations' copies by kind (``dtoh_pinned_ms``,
+``dtoh_pageable_ms``).
+
+    python3 scripts/torch_port_profile.py --crc
+
+times the weight check's crc32 on the card's host: one zlib pass and the
+loader's pieces-on-threads form, over 1 GiB of page-locked memory.
 
 Each line carries the card's ``nvidia-smi`` name and power limit. Needs a
 CUDA device; imports nothing of JAX.
@@ -85,9 +97,18 @@ def _profile_summary(prof, wall_s: float) -> dict:
         busy_us += us
         rows.append((us, evt.key, evt.count))
     rows.sort(reverse=True)
+    # Copies by kind: "Memcpy DtoH (Device -> Pinned)" rows are the parked
+    # activations (and the scores), "Device -> Pageable" ones would block
+    # the host; "HtoD (Pinned -> Device)" rows are the weights.
+    copies = {k: {"calls": c, "device_ms": us / 1e3} for us, k, c in rows if k.startswith("Memcpy")}
     return {
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall_s if wall_s > 0 else None,
+        "copies": copies,
+        "dtoh_pageable_ms": sum(v["device_ms"] for k, v in copies.items()
+                                if "DtoH" in k and "Pageable" in k),
+        "dtoh_pinned_ms": sum(v["device_ms"] for k, v in copies.items()
+                              if "DtoH" in k and "Pinned" in k),
         "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3} for us, k, c in rows[:14]],
     }
 
@@ -114,6 +135,26 @@ def h2d_rates(smi: str) -> None:
             key = f"{'pinned' if pinned else 'pageable'} {'side stream' if side else 'current stream'}"
             out[key] = 5 * n / 1e9 / (a.elapsed_time(e) / 1e3)
     print(json.dumps({"run": "host-to-device copy GB/s, 1 GiB", "card": smi, **out}), flush=True)
+
+
+def crc_rates(smi: str) -> None:
+    """GB/s of the weight check's crc32 over 1 GiB of page-locked host
+    memory: one zlib pass, and the pieces-on-threads form the loader uses."""
+    import time
+    import zlib
+
+    from flexible_llm_sharding_tpu_torch.integrity import manifest
+
+    buf = torch.randint(0, 256, (1 << 30,), dtype=torch.uint8).pin_memory().numpy()
+    out = {}
+    for name, fn in (("zlib one pass", lambda: zlib.crc32(buf)),
+                     (f"{manifest._CRC_THREADS} threads", lambda: manifest.checksum_chunked(buf))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        out[name] = 3 * buf.nbytes / 1e9 / (time.perf_counter() - t0)
+    print(json.dumps({"run": "crc32 GB/s, 1 GiB page-locked", "card": smi, **out}), flush=True)
 
 
 def profile_deepseek(smi: str) -> None:
@@ -208,6 +249,9 @@ def main() -> None:
     if "--deepseek" in sys.argv[1:]:
         h2d_rates(smi)
         profile_deepseek(smi)
+        return
+    if "--crc" in sys.argv[1:]:
+        crc_rates(smi)
         return
 
     from flexible_llm_sharding_tpu_torch import cli

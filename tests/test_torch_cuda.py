@@ -335,3 +335,26 @@ def test_mla_dims_never_reach_the_decode_kernel(gen):
     with pytest.raises(NotImplementedError):
         fa.flash_causal_attention(k, k, k[..., :64].contiguous(), plen)
     assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 0)
+
+
+@pytest.mark.parametrize("location,max_in_cpu", [("cpu", None), ("cpu", 1), ("disk", None)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_activation_store_stages_into_page_locked_memory(gen, tmp_path, location, max_in_cpu,
+                                                         dtype):
+    """cpu blocks are copied into page-locked host tensors behind an event,
+    at most one block pending; every location round-trips bit for bit."""
+    from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore
+
+    store = ActivationStore(location, torch.device("cuda"), dtype, str(tmp_path),
+                            max_in_cpu=max_in_cpu)
+    data = {b: (_rnd(gen, dtype, 2, 33, 16), _rnd(gen, dtype, 2, 3, 9, 16)) for b in range(3)}
+    for b, (p, s) in data.items():
+        store.store(b, [2 * b, 2 * b + 1], p, s)
+        if location == "cpu" and max_in_cpu is None:
+            staged = store._mem[b]
+            assert staged.suffix.is_pinned() and staged.event is not None
+            assert store._pending == [b]
+    for b, (p, s) in data.items():
+        got_p, got_s = store.fetch(b, [2 * b, 2 * b + 1])
+        assert got_s.is_cuda and torch.equal(got_p, p) and torch.equal(got_s, s)
+    store.clear()
