@@ -43,7 +43,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              qwen3_moe and deepseek_v3 with its MLA heads) through the
              port's CLI on the card and on the CPU: scores within atol 1e-4
              and identical greedy tokens, for the re-scoring loop and for
-             --kv_cache.
+             --kv_cache (on the card resident, its steps one CUDA graph per
+             block, or the uncaptured device loop for MoE models); on the
+             llama, gemma3 and deepseek_v3 checkpoints also --speculative_k
+             4 (verify passes over resident weights) on the card: the
+             tokens of plain --kv_cache, scores within 1e-4.
 5. full    — seeded bf16 checkpoints at full width through the CLI, one
              layer per shard so every layer streams: Llama-2-7B (4 decoder
              layers; scoring with --num_gen_token 4, then --kv_cache with
@@ -65,12 +69,24 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              prints its cache hits, misses and hit rate, crc passes and
              verdict hits, host read seconds and host RSS, and a cell whose
              files fit the cache budget must hit on every shard of every
-             pass after the first.
+             pass after the first. Each --kv_cache run takes the decode
+             modes' defaults and must report them engaged: weights resident
+             (one weight pass streamed: one miss per shard, no hit), KV on
+             the card, fused steps, captured as one CUDA graph per block
+             for the dense models and uncaptured for DeepSeek-V3 (MoE); on
+             the Llama-2-7B cell the defaults must equal --decode_fused off
+             and --decode_resident off bit for bit.
 6. host    — a reduced bf16 checkpoint through the CLI on the card: the
              defaults give the scores of --host_cache_gb 0 --verify_weights
              false --readahead_threads 0 bit for bit; after one flipped
              byte, a warm process raises ShardCorruptError, a fresh CLI
              process exits nonzero naming it, and ``verify`` exits 2.
+
+7. decode  — Llama-2-7B at its full 32 layers (13.5 GB of seeded bf16,
+             written one layer file at a time), --kv_cache with 8 tokens,
+             three runs: the defaults (resident, one CUDA graph per block),
+             --decode_fused off and --decode_resident off; prints each
+             run's wall and stats and requires equal tokens.
 
 Output: per-phase lines, then a JSON line of kernel records, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -1024,7 +1040,8 @@ def check_host_path(tag: str, stats: dict, model_dir: str, cfg, passes: int) -> 
     """The run's host-path stats; a model whose layer files (the embedding
     twice when the head is tied) fit the cache budget must miss on its first
     pass only: one miss per shard, plus the tied head, and a hit for every
-    shard of every later pass."""
+    shard of every later pass. A run of one pass (a resident --kv_cache
+    run) misses on every shard and hits none, whatever the budget."""
     from flexible_llm_sharding_tpu_torch.runtime import hostcache
 
     cache = hostcache.process_cache()
@@ -1037,12 +1054,12 @@ def check_host_path(tag: str, stats: dict, model_dir: str, cfg, passes: int) -> 
         model_bytes += os.path.getsize(os.path.join(model_dir, "model.embed_tokens.safetensors"))
     out = {k: stats.get(k) for k in HOST_KEYS}
     out.update(cache_budget_bytes=budget, model_bytes=model_bytes, fits=model_bytes <= budget)
-    if out["fits"]:
+    if out["fits"] or passes == 1:
         want = (n_shards * (passes - 1), n_shards + tied)
         got = (stats.get("host_cache_hits"), stats.get("host_cache_misses"))
         if got != want:
-            fail(f"{tag}: the model fits the host cache budget ({model_bytes} <= {budget} B) but "
-                 f"(hits, misses) = {got}, not {want}: a warm pass missed")
+            fail(f"{tag}: {passes} weight pass(es), model {model_bytes} B, cache budget {budget} "
+                 f"B, but (hits, misses) = {got}, not {want}")
     if not stats.get("crc_full_verifies"):
         fail(f"{tag}: no layer load was crc-verified")
     return out
@@ -1100,9 +1117,14 @@ def cross_configs() -> dict:
             **{name: LlamaConfig.from_dict(d) for name, d in hf.items()}}
 
 
+# The cross-check models that also run speculative decode on the card.
+CROSS_SPECULATIVE = ("llama", "gemma3", "deepseek_v3")
+
+
 def phase_cross(work: str) -> None:
     """Float32 card vs CPU through the CLI, for every model of
-    :func:`cross_configs`."""
+    :func:`cross_configs`; speculative decode on the card against plain
+    --kv_cache for :data:`CROSS_SPECULATIVE`."""
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 
     prompts = make_prompts(5, 70, 3, 6, seed=2) + make_prompts(2, 150, 2, 9, seed=3)
@@ -1112,8 +1134,8 @@ def phase_cross(work: str) -> None:
         save_params(_init_params(cfg, torch.float32, 11, "cpu"), model_dir, cfg)
         for mode, extra in (("loop", []), ("kv_cache", ["--kv_cache", "true"])):
             args = ["--dtype", "float32", "--num_gen_token", "3", "--block_size", "4", *extra]
-            gpu, gpu_up, _ = run_cli(model_dir, work, f"cross_gpu_{name}_{mode}", prompts,
-                                     [*args, "--device", "cuda"], 512)
+            gpu, gpu_up, gpu_stats = run_cli(model_dir, work, f"cross_gpu_{name}_{mode}", prompts,
+                                             [*args, "--device", "cuda"], 512)
             cpu, cpu_up, _ = run_cli(model_dir, work, f"cross_cpu_{name}_{mode}", prompts,
                                      [*args, "--device", "cpu"], 512)
             err = max(float(np.abs(g - c).max()) for g, c in zip(gpu, cpu))
@@ -1122,7 +1144,23 @@ def phase_cross(work: str) -> None:
             if any((g.argmax(-1) != c.argmax(-1)).any() for g, c in zip(gpu, cpu)) or gpu_up != cpu_up:
                 fail(f"cross-check {name} {mode}: greedy tokens differ between card and CPU")
             log(f"[cross] float32 {name} {mode}: card vs CPU max_abs_err {err:.3e}, "
-                "greedy tokens identical")
+                "greedy tokens identical"
+                + (" " + json.dumps({k: gpu_stats.get(k) for k in DECODE_KEYS}) if extra else ""))
+        if name in CROSS_SPECULATIVE:
+            # Fused steps take precedence over speculation: turned off here.
+            spec, spec_up, stats = run_cli(
+                model_dir, work, f"cross_gpu_{name}_spec", prompts,
+                [*args, "--device", "cuda", "--speculative_k", "4", "--decode_fused", "off"], 512)
+            if stats.get("decode_speculative") != 1.0 or stats.get("decode_resident") != 1.0:
+                fail(f"cross-check {name}: speculative decode did not engage: {stats}")
+            err = max(float(np.abs(g - c).max()) for g, c in zip(spec, gpu))
+            if spec_up != gpu_up or not all(np.allclose(g, c, atol=1e-4, rtol=0)
+                                            for g, c in zip(spec, gpu)):
+                fail(f"cross-check {name}: --speculative_k 4 differs from --kv_cache "
+                     f"(tokens equal: {spec_up == gpu_up}, max_abs_err {err:.3e})")
+            log(f"[cross] float32 {name} --speculative_k 4 on the card: the tokens of --kv_cache, "
+                f"max_abs_err {err:.3e}; passes {stats.get('spec_passes')}, drafted "
+                f"{stats.get('spec_drafted')}, accepted {stats.get('spec_accepted')}")
 
 
 # A fresh CLI process with chip_smoke's tokenizer (argv: the CLI's arguments).
@@ -1304,8 +1342,28 @@ def phase_split(work: str, name: str, text_config: dict) -> tuple[str, dict]:
     return model_dir, cfg
 
 
+STAT_KEYS = ("wall_s", "tokens_processed", "tokens_per_sec", "streamed_bytes", "peak_mem_gb",
+             "source_wait_s", "load_weights_time_s", "compute_wall_s", "decode_resident",
+             "decode_kv_on_device", "decode_fused", "decode_graph")
+DECODE_KEYS = ("decode_resident", "decode_kv_on_device", "decode_fused", "decode_graph",
+               "decode_speculative")
+
+
+def check_decode_modes(tag: str, stats: dict, cfg) -> None:
+    """A full-width --kv_cache run with the defaults: weights resident, KV
+    on the card, fused steps, captured as CUDA graphs unless the model has
+    MoE layers."""
+    from flexible_llm_sharding_tpu_torch.utils.metrics import has_moe_layers
+
+    want = {"decode_resident": 1.0, "decode_kv_on_device": 1.0, "decode_fused": 1.0,
+            "decode_graph": 0.0 if has_moe_layers(cfg) else 1.0, "decode_speculative": 0.0}
+    got = {k: stats.get(k) for k in DECODE_KEYS}
+    if got != want:
+        fail(f"{tag}: decode modes {got}, expected {want}")
+
+
 def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: int,
-               model_dir: str | None = None) -> dict:
+               model_dir: str | None = None, compare_modes: bool = False) -> dict:
     """A seeded bf16 checkpoint of ``cfg`` (one layer per shard, so every
     layer streams; written here unless ``model_dir`` holds one) through the
     CLI: scoring, then --kv_cache. Every kernel of each run must launch;
@@ -1313,7 +1371,11 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
     with it off, without them never with it on. Under MLA the scoring
     kernels must launch at the model's (qk, v) head dims only and the decode
     kernel never (MLA decode is the plain op's, as in the JAX package).
-    Returns per kernel its launches and its launches with the window on."""
+    The --kv_cache run must have the decode modes engaged
+    (:func:`check_decode_modes`) and stream one weight pass; with
+    ``compare_modes`` it must equal --decode_fused off and
+    --decode_resident off bit for bit. Returns per kernel its launches and
+    its launches with the window on."""
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 
@@ -1327,21 +1389,34 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
     launches = {k: {"launches": 0, "local_launches": 0} for k in fa.KERNELS}
     scoring = ("flash_causal_attention", "flash_prefix_shared_attention")
     mla = bool(cfg.kv_lora_rank)
-    runs = (
+    kv = ["--num_gen_token", str(n_gen_kv), "--kv_cache", "true"]
+    runs = [
         ("scoring", ["--num_gen_token", str(n_gen_loop)], n_gen_loop, scoring),
-        ("kv_cache", ["--num_gen_token", str(n_gen_kv), "--kv_cache", "true"], n_gen_kv,
-         scoring if mla else fa.KERNELS),
-    )
+        ("kv_cache", kv, n_gen_kv, scoring if mla else fa.KERNELS),
+    ]
+    if compare_modes:
+        runs += [("kv_cache_fused_off", [*kv, "--decode_fused", "off"], n_gen_kv, fa.KERNELS),
+                 ("kv_cache_resident_off", [*kv, "--decode_resident", "off"], n_gen_kv,
+                  fa.KERNELS)]
     windowed = cfg.sliding_window is not None
+    outputs = {}
     try:
         for tag, extra, n_gen, needed in runs:
             fresh_process_state()
             fa.reset_launch_counts()
-            scores, _, stats = run_cli(model_dir, work, f"full_{name}_{tag}", prompts,
-                                       [*common, *extra], cfg.vocab_size)
+            scores, updated, stats = run_cli(model_dir, work, f"full_{name}_{tag}", prompts,
+                                             [*common, *extra], cfg.vocab_size)
             counts, local = fa.launch_counts(), fa.local_launch_counts()
             dims = fa.dim_launch_counts()
             _check_scores(scores, prompts, n_gen, cfg.vocab_size, f"{name} {tag}")
+            outputs[tag] = (scores, updated)
+            if tag == "kv_cache":
+                check_decode_modes(f"full {name} {tag}", stats, cfg)
+            elif tag != "scoring":
+                ref, ref_up = outputs["kv_cache"]
+                if not all(np.array_equal(a, b) for a, b in zip(ref, scores)) or ref_up != updated:
+                    fail(f"full {name}: the defaults' --kv_cache scores differ from {tag}")
+                log(f"[full] {name} {tag}: scores and tokens equal the defaults' bit for bit")
             missing = [k for k in needed if counts[k] == 0]
             if missing:
                 fail(f"full {name} {tag}: kernels never launched on the main path: {missing}")
@@ -1357,18 +1432,70 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
             for k in counts:
                 launches[k]["launches"] += counts[k]
                 launches[k]["local_launches"] += local[k]
-            keys = ("wall_s", "tokens_processed", "tokens_per_sec", "streamed_bytes", "peak_mem_gb",
-                    "source_wait_s", "load_weights_time_s", "compute_wall_s")
             rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB -> GiB
-            log(f"[full] {name} {tag} stats " + json.dumps({**{k: stats.get(k) for k in keys},
+            log(f"[full] {name} {tag} stats " + json.dumps({**{k: stats.get(k) for k in STAT_KEYS},
                                                            "host_peak_rss_gib": rss}))
-            host = check_host_path(f"full {name} {tag}", stats, model_dir, cfg, n_gen)
+            passes = 1 if stats.get("decode_resident") else n_gen
+            host = check_host_path(f"full {name} {tag}", stats, model_dir, cfg, passes)
             log(f"[full] {name} {tag} host " + json.dumps(host))
             log(f"[full] {name} {tag} kernels " + json.dumps(counts) + " window on "
                 + json.dumps(local) + " by (qk, v) head dims "
                 + json.dumps({k: {f"{a}/{b}": n for (a, b), n in v.items()} for k, v in dims.items()}))
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+    return launches
+
+
+def phase_decode(work: str) -> dict:
+    """Llama-2-7B at its full 32 layers (13.5 GB of seeded bf16, written one
+    layer file at a time), --kv_cache with 8 tokens: the defaults (weights
+    resident, KV on the card, one CUDA graph per block), --decode_fused off
+    and --decode_resident off. Each run starts as a fresh CLI process would
+    and prints its wall and stats; the three must pick the same tokens.
+    Returns per kernel the defaults' launches."""
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+    cfg = LlamaConfig()
+    model_dir = os.path.join(work, "llama2-7b-32")
+    nbytes, secs = write_streamed_checkpoint(model_dir, cfg, seed=0)
+    log(f"[decode] wrote a seeded bf16 Llama-2-7B checkpoint with {cfg.num_hidden_layers} decoder "
+        f"layers ({nbytes} bytes, one layer file at a time) in {secs:.3f} s")
+    prompts = make_prompts(8, 512, 4, 32, seed=0)
+    n_gen = 8
+    common = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda",
+              "--kv_cache", "true", "--num_gen_token", str(n_gen)]
+    runs = (("defaults", []), ("fused_off", ["--decode_fused", "off"]),
+            ("resident_off", ["--decode_resident", "off"]))
+    outputs, launches = {}, {}
+    try:
+        for tag, extra in runs:
+            fresh_process_state()
+            fa.reset_launch_counts()
+            scores, updated, stats = run_cli(model_dir, work, f"decode_{tag}", prompts,
+                                             [*common, *extra], cfg.vocab_size)
+            counts, local = fa.launch_counts(), fa.local_launch_counts()
+            _check_scores(scores, prompts, n_gen, cfg.vocab_size, f"decode {tag}")
+            if tag == "defaults":
+                check_decode_modes(f"decode {tag}", stats, cfg)
+                launches = {k: {"launches": counts[k], "local_launches": local[k]}
+                            for k in fa.KERNELS}
+            missing = [k for k in fa.KERNELS if counts[k] == 0]
+            if missing:
+                fail(f"decode {tag}: kernels never launched on the main path: {missing}")
+            passes = 1 if stats.get("decode_resident") else n_gen
+            host = check_host_path(f"decode {tag}", stats, model_dir, cfg, passes)
+            outputs[tag] = (scores, updated)
+            log(f"[decode] {tag} stats " + json.dumps({k: stats.get(k) for k in STAT_KEYS}))
+            log(f"[decode] {tag} host " + json.dumps(host) + " kernels " + json.dumps(counts))
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    ref, ref_up = outputs["defaults"]
+    for tag, (scores, updated) in outputs.items():
+        if updated != ref_up:
+            fail(f"decode {tag}: the generated tokens differ from the defaults'")
+        err = max(float(np.abs(a - b).max()) for a, b in zip(ref, scores))
+        log(f"[decode] {tag}: tokens equal the defaults', max_abs_err {err:.3e}")
     return launches
 
 
@@ -1409,7 +1536,7 @@ def main() -> None:
         phase_host(work)
         paths = {
             "llama2_7b": phase_full(work, "llama2-7b", LlamaConfig(num_hidden_layers=4), prompts,
-                                    n_gen_loop, n_gen_kv),
+                                    n_gen_loop, n_gen_kv, compare_modes=True),
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,
                                      gemma_kv),
         }
@@ -1424,6 +1551,7 @@ def main() -> None:
             f"decoder layers ({nbytes} bytes, one layer file at a time) in {secs:.3f} s")
         paths["deepseek_v3"] = phase_full(work, "deepseek-v3", ds_cfg, gemma_prompts, ds_loop, ds_kv,
                                           model_dir=ds_dir)
+        paths["llama2_7b_32_layers"] = phase_decode(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [

@@ -16,8 +16,13 @@ the JAX batch CLI, every layer load is verified against ``integrity.json``
 (``--verify_weights``), passes after the first are served from the process
 host shard cache (``--host_cache_gb``, auto = a quarter of the available
 RAM), the next shard's files are read ahead (``--readahead_threads``) and
-failed reads retry (``--io_retry_*``). ``verify`` audits a model directory
-and/or a spill directory and exits 2 on any problem.
+failed reads retry (``--io_retry_*``). With ``--kv_cache`` the decode modes
+take the JAX CLI's defaults: weights stay on the card after prefill when
+they fit (``--decode_resident auto``), the KV beside them, and a block's
+greedy steps run on the device as one CUDA graph (``--decode_fused auto``;
+uncaptured for models with MoE layers); ``--speculative_k N`` verifies N
+prompt-lookup drafts per pass. ``verify`` audits a model directory and/or
+a spill directory and exits 2 on any problem.
 """
 
 from __future__ import annotations
@@ -100,6 +105,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--readahead_threads", type=int, default=2,
                    help="threads of the page-cache readahead pool that warms the next "
                         "shard's files; 0 = off")
+    p.add_argument("--decode_resident", type=str, default="auto", choices=("auto", "on", "off"),
+                   help="kv_cache mode: keep streamed weights on the card after prefill when "
+                        "they fit (auto = judge against the card's memory), so decode steps "
+                        "move zero weight bytes")
+    p.add_argument("--decode_fused", type=str, default="auto", choices=("auto", "on", "off"),
+                   help="resident kv_cache mode: run ALL greedy decode steps of a block on the "
+                        "device, as one CUDA graph unless the model has MoE layers (on-device "
+                        "argmax, zero per-token host round-trips); 'on' errors if the "
+                        "preconditions don't hold")
+    p.add_argument("--speculative_k", type=int, default=0,
+                   help="kv_cache mode: verify this many prompt-lookup drafted tokens per "
+                        "streamed pass (greedy-exact; divides weight streams per token by the "
+                        "acceptance factor when the model must re-stream); 0 = off")
     return p
 
 
@@ -166,6 +184,9 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         verify_weights=args.verify_weights,
         host_cache_gb=args.host_cache_gb,
         readahead_threads=args.readahead_threads,
+        decode_resident=args.decode_resident,
+        decode_fused=args.decode_fused,
+        speculative_k=args.speculative_k,
     )
 
 
@@ -174,6 +195,9 @@ def _updated_path(p: str) -> str:
     return f"{root}_updated{ext or '.pkl'}"
 
 
+# The KV decoder's mode flags and speculative counters, from its last call.
+_DECODE_KEYS = ("decode_resident", "decode_fused", "decode_speculative", "decode_kv_on_device",
+                "decode_graph", "spec_passes", "spec_drafted", "spec_accepted")
 # Host-path counters of the executor's stats, summed over its calls.
 _SUMMED_HOST_KEYS = ("io_retries", "integrity_failures", "reread_heals", "quarantined_shards",
                      "host_cache_hits", "host_cache_misses", "crc_verdict_hits",
@@ -253,6 +277,7 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
         total = sum(c.get(key, 0.0) for c in calls)
         if total or (key.startswith("host_cache") and any(key in c for c in calls)):
             stats[key] = total
+    stats.update({k: calls[-1][k] for k in _DECODE_KEYS if calls and k in calls[-1]})
     looked_up = stats.get("host_cache_hits", 0.0) + stats.get("host_cache_misses", 0.0)
     if looked_up:
         stats["host_cache_hit_rate"] = round(stats["host_cache_hits"] / looked_up, 4)

@@ -580,6 +580,16 @@ class FrameworkConfig:
     available RAM; 0 = off); ``readahead_threads`` sizes the page-cache
     readahead pool (0 = off, which the JAX package does not offer);
     ``io_retry_*`` drive the retry policy of layer reads.
+
+    The decode modes of ``kv_cache``, with the JAX package's defaults:
+    ``decode_resident`` keeps every shard on the device after the prefill
+    pass (auto: when the weights fit in 45% of the card's memory; unknown
+    memory, as on the CPU, resolves to off); ``decode_fused`` runs a
+    block's greedy decode steps on the device in one go, captured as one
+    CUDA graph where the model allows it (auto: whenever resident, greedy
+    and within the memory budget; ``on`` raises when that does not hold);
+    ``speculative_k`` verifies that many prompt-lookup drafts per pass
+    (greedy only; 0 = off; the fused steps take precedence).
     """
 
     model_path: str = "./"
@@ -607,6 +617,9 @@ class FrameworkConfig:
     verify_weights: bool = True
     host_cache_gb: float | None = None
     readahead_threads: int = 2
+    decode_resident: str = "auto"  # 'auto' | 'on' | 'off'
+    decode_fused: str = "auto"  # 'auto' | 'on' | 'off'
+    speculative_k: int = 0
 
     def __post_init__(self) -> None:
         if self.storage_location not in STORAGE_LOCATIONS:
@@ -622,6 +635,15 @@ class FrameworkConfig:
             raise ValueError("prefetch_depth must be >= 0")
         if (self.top_k or self.top_p) and self.temperature <= 0:
             raise ValueError("top_k/top_p require temperature > 0")
+        if self.decode_resident not in ("auto", "on", "off"):
+            raise ValueError(f"decode_resident must be auto|on|off, got {self.decode_resident!r}")
+        if self.decode_fused not in ("auto", "on", "off"):
+            raise ValueError(f"decode_fused must be auto|on|off, got {self.decode_fused!r}")
+        if not 0 <= self.speculative_k <= 64:
+            raise ValueError(f"speculative_k must be in [0, 64], got {self.speculative_k}")
+        if self.speculative_k and self.temperature > 0:
+            # Greedy verification is exact; sampling would need rejection sampling.
+            raise ValueError("speculative_k requires greedy (temperature=0)")
         if self.io_retry_attempts < 1:
             raise ValueError("io_retry_attempts must be >= 1")
         if self.io_retry_base_s < 0 or self.io_retry_deadline_s < 0:
@@ -644,6 +666,21 @@ class FrameworkConfig:
         from flexible_llm_sharding_tpu_torch.runtime.hostcache import auto_budget_bytes
 
         return auto_budget_bytes()
+
+    def decode_resident_enabled(self, model_cfg: LlamaConfig, n_weight_chips: int = 1,
+                                device=None) -> bool:
+        """Resolve ``decode_resident`` for a model: auto is on when the
+        weights per card (``n_weight_chips`` cards share them) are at most
+        45% of the card's known memory, and off when it is unknown."""
+        if self.decode_resident != "auto":
+            return self.decode_resident == "on"
+        from flexible_llm_sharding_tpu_torch.utils import metrics
+
+        hbm_gb = metrics.chip_hbm_gb(device)
+        if not hbm_gb:
+            return False
+        per_chip = metrics.weight_bytes_per_chip(model_cfg, self.dtype, n_weight_chips)
+        return per_chip <= 0.45 * hbm_gb * 1e9
 
     def retry_policy(self):
         """The retry policy of this run's layer reads."""

@@ -346,29 +346,49 @@ def decode_step_layer(
     kv: Params,
     prefix_len: torch.Tensor,
     suffix_eos: torch.Tensor,
-    t: int,
+    t,
     sliding=None,
 ) -> torch.Tensor:
-    """One decoder layer for the newest token of every suffix.
+    """One decoder layer for the K newest tokens of every suffix.
 
-    x [B, S, 1, D]; kv {'kp','vp' [B, Lp, n_kv, hd], 'ks','vs'
+    x [B, S, K, D] (K 1 for plain decode, draft + 1 for a speculative
+    verify pass); kv {'kp','vp' [B, Lp, n_kv, hd], 'ks','vs'
     [B, S, Ls, n_kv, hd], 'kg','vg' [B, S, T, n_kv, hd]} (V at
-    ``cfg.v_dim``) with generated slots < t filled; t an int. The token
-    sits at rotary position prefix_len + suffix_eos + 1 + t (longrope picks
-    its table by that position + 1). Its k/v are written into slot t of
-    kv['kg']/kv['vg'] IN PLACE (the JAX version returns an updated copy);
-    returns the layer output [B, S, 1, D]. The layer's window always
-    applies (no bucket shortcut, as in the JAX package). Under MLA the
-    attention is the plain decode op, the JAX package's route there (its
-    decode kernel never takes MLA); every other model takes the kernel.
+    ``cfg.v_dim``) with generated slots < t filled; t an int, or an int
+    [B, S] tensor of per-suffix slot offsets (speculative passes: suffixes
+    accept different draft counts, so their slot clocks drift apart). Fed
+    token j of suffix s sits at rotary position prefix_len + suffix_eos[s]
+    + 1 + t(+j) (longrope picks its table by the last one + 1), and its k/v
+    are written into slot t(+j) of kv['kg']/kv['vg'] IN PLACE (the JAX
+    version returns an updated copy; the write start is clamped so the K
+    slots fit, as ``dynamic_update_slice`` clamps). Returns the layer output
+    [B, S, K, D]. The attention takes the JAX package's route
+    (``models/llama.py:886``): the decode kernel for one token at a shared
+    int t outside MLA, else the plain ``decode_attention`` op. The layer's
+    window always applies (no bucket shortcut, as in the JAX package).
     """
+    b, s, kq = x.shape[:3]
+    dev = x.device
+    tg = kv["kg"].shape[2]
+    scalar_t = isinstance(t, int)
+    base = t if scalar_t else t.to(dev)
     h = _norm(x, params["input_layernorm"], cfg)
-    pos = (prefix_len.to(x.device)[:, None] + suffix_eos.to(x.device) + 1 + t)[..., None]
+    pos = (prefix_len.to(dev)[:, None] + suffix_eos.to(dev) + 1 + base)[..., None] \
+        + torch.arange(kq, device=dev)  # [B, S, K]
     total_len = pos[..., -1] + 1 if cfg.rope_scaling_kind == "longrope" else None
-    q, k_new, v_new = positioned_qkv(params, cfg, h, pos, sliding, total_len)  # [B, S, 1, n, hd]
-    kv["kg"][:, :, t] = k_new[:, :, 0]
-    kv["vg"][:, :, t] = v_new[:, :, 0]
-    attend = decode_attention if cfg.kv_lora_rank else flash_decode_attention
+    q, k_new, v_new = positioned_qkv(params, cfg, h, pos, sliding, total_len)  # [B, S, K, n, hd]
+    if scalar_t:
+        start = min(max(t, 0), tg - kq)
+        kv["kg"][:, :, start:start + kq] = k_new
+        kv["vg"][:, :, start:start + kq] = v_new
+    else:
+        slots = base.long().clamp(0, tg - kq)[..., None] + torch.arange(kq, device=dev)
+        rows = torch.arange(b, device=dev)[:, None, None]
+        cols = torch.arange(s, device=dev)[None, :, None]
+        kv["kg"][rows, cols, slots] = k_new
+        kv["vg"][rows, cols, slots] = v_new
+    attend = (flash_decode_attention if kq == 1 and scalar_t and not cfg.kv_lora_rank
+              else decode_attention)
     attn = attend(
         q, kv["kp"], kv["vp"], kv["ks"], kv["vs"], kv["kg"], kv["vg"], prefix_len,
         suffix_eos, t, scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap,
@@ -388,13 +408,21 @@ def select_eos_and_norm(
     return _norm(torch.gather(suffix_h, 2, idx), params, cfg)
 
 
-def lm_head_scores(params: Params, h: torch.Tensor, softcap: float | None = None) -> torch.Tensor:
-    """Next-token distributions of the kept token: h [..., 1, D] -> float32
-    [..., V] (final-logit softcap, then softmax)."""
+def lm_head_scores_multi(params: Params, h: torch.Tensor,
+                         softcap: float | None = None) -> torch.Tensor:
+    """Next-token distributions at every position: h [..., K, D] -> float32
+    [..., K, V] (final-logit softcap, then softmax). The speculative verify
+    pass scores each fed position."""
     logits = torch.matmul(h, params["kernel"]).float()
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
-    return torch.softmax(logits, dim=-1)[..., 0, :]
+    return torch.softmax(logits, dim=-1)
+
+
+def lm_head_scores(params: Params, h: torch.Tensor, softcap: float | None = None) -> torch.Tensor:
+    """Next-token distributions of the kept token: h [..., 1, D] -> float32
+    [..., V]."""
+    return lm_head_scores_multi(params, h, softcap)[..., 0, :]
 
 
 def head_params(params: Params) -> Params:
@@ -410,6 +438,7 @@ __all__ = [
     "head_params",
     "layer_sliding_pattern",
     "lm_head_scores",
+    "lm_head_scores_multi",
     "positioned_qkv",
     "prefix_suffix_layer",
     "rope_for_layer",

@@ -14,10 +14,12 @@ Each wrapper replaces one Pallas TPU kernel of the JAX package
 
 On CUDA tensors a wrapper launches its hand-written kernel
 (``csrc/flash_attention.cu``, built on first use) and counts the launch,
-and separately each launch with a local form on; it never falls back. On
-CPU tensors it runs its plain version, a function of the same signature
-built on ``ops/attention.py``. Every function takes an explicit leading
-batch (block) dimension ``B``.
+and separately each launch with a local form on; it never falls back. A
+call inside a CUDA graph capture records the launch instead: the capture
+runs under :func:`graph_capture` and each replay counts through
+:func:`count_replay`. On CPU tensors a wrapper runs its plain version, a
+function of the same signature built on ``ops/attention.py``. Every
+function takes an explicit leading batch (block) dimension ``B``.
 
 What the kernels compute, beyond the plain attention ops: key ``j`` of a
 causal prefix is visible to query ``i`` iff ``j <= i`` and
@@ -35,6 +37,8 @@ also take a bool tensor.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -364,16 +368,60 @@ def reset_launch_counts() -> None:
         globals()[name].dim_launches = {}
 
 
+def _snapshot() -> dict[str, tuple[int, int, dict]]:
+    return {name: (globals()[name].launches, globals()[name].local_launches,
+                   dict(globals()[name].dim_launches)) for name in KERNELS}
+
+
+def _add(counts: dict[str, tuple[int, int, dict]], sign: int = 1) -> None:
+    for name, (n, n_local, dims) in counts.items():
+        fn = globals()[name]
+        fn.launches += sign * n
+        fn.local_launches += sign * n_local
+        for key, c in dims.items():
+            fn.dim_launches[key] = fn.dim_launches.get(key, 0) + sign * c
+            if not fn.dim_launches[key]:
+                del fn.dim_launches[key]
+
+
+@contextlib.contextmanager
+def graph_capture():
+    """Wrap a CUDA graph capture: a wrapper called while capturing records
+    its kernel into the graph and launches nothing, so the counts it adds
+    are taken back out on exit and kept in the yielded dict, which
+    :func:`count_replay` adds once per replay of the graph."""
+    before = _snapshot()
+    captured: dict[str, tuple[int, int, dict]] = {}
+    try:
+        yield captured
+    finally:
+        after = _snapshot()
+        for name in KERNELS:
+            n0, l0, d0 = before[name]
+            n1, l1, d1 = after[name]
+            captured[name] = (n1 - n0, l1 - l0,
+                              {k: d1[k] - d0.get(k, 0) for k in d1 if d1[k] != d0.get(k, 0)})
+        _add(captured, -1)
+
+
+def count_replay(captured: dict[str, tuple[int, int, dict]]) -> None:
+    """Count the launches of one replay of a graph captured under
+    :func:`graph_capture`."""
+    _add(captured)
+
+
 __all__ = [
     "KERNELS",
     "PLAIN",
     "causal_attention_plain",
     "check_cuda_args",
+    "count_replay",
     "decode_attention_plain",
     "dim_launch_counts",
     "flash_causal_attention",
     "flash_decode_attention",
     "flash_prefix_shared_attention",
+    "graph_capture",
     "launch_counts",
     "local_launch_counts",
     "prefix_shared_attention_plain",

@@ -67,6 +67,26 @@ def _inv_freq(head_dim: int, theta: float, scaling: tuple | None = None) -> np.n
     return freq.astype(np.float32)
 
 
+_DEVICE_FREQS: dict[tuple, torch.Tensor] = {}
+
+
+def _freqs_on(dev: torch.device, head_dim: int, theta: float,
+              scaling: tuple | None = None) -> torch.Tensor:
+    """:func:`_inv_freq` as a tensor on ``dev``. On a card each table is
+    uploaded once per process and kept: a copy from pageable memory on every
+    call would wait for the stream, and could not be captured in a CUDA
+    graph."""
+    table = torch.from_numpy(_inv_freq(head_dim, theta, scaling))
+    if dev.type == "cpu":
+        return table
+    key = (str(dev), head_dim, theta, scaling)
+    out = _DEVICE_FREQS.get(key)
+    if out is None:
+        with torch.inference_mode(False):
+            out = _DEVICE_FREQS[key] = table.to(dev)
+    return out
+
+
 def rope_attention_scale(scaling: tuple | None) -> float:
     """The factor HF applies to the cos/sin tables: yarn's and longrope's
     attention factor, 1.0 for every other kind."""
@@ -95,13 +115,13 @@ def rope_cos_sin(
                 "longrope rope scaling requires total_len (the real sequence length) to choose "
                 "the long/short factor table"
             )
-        f_long = torch.from_numpy(_inv_freq(head_dim, float(theta), ("longrope_ext", long_f))).to(dev)
-        f_short = torch.from_numpy(_inv_freq(head_dim, float(theta), ("longrope_ext", short_f))).to(dev)
+        f_long = _freqs_on(dev, head_dim, float(theta), ("longrope_ext", long_f))
+        f_short = _freqs_on(dev, head_dim, float(theta), ("longrope_ext", short_f))
         is_long = torch.as_tensor(total_len, device=dev) > orig_max
         is_long = is_long.reshape(*is_long.shape, *(1,) * (positions.ndim - is_long.ndim), 1)
         freqs = torch.where(is_long, f_long, f_short)
     else:
-        freqs = torch.from_numpy(_inv_freq(head_dim, float(theta), scaling)).to(dev)
+        freqs = _freqs_on(dev, head_dim, float(theta), scaling)
     angles = positions.to(torch.float32)[..., None] * freqs
     att = rope_attention_scale(scaling)
     if att != 1.0:

@@ -1,22 +1,44 @@
 """KV-cache decode: multi-token generation with KV reuse across tokens (the
-JAX package's ``runtime/decode.py``, streamed single-device part).
+JAX package's ``runtime/decode.py``, single-device part).
 
 Prefill runs one streaming pass in which every decoder layer also returns
-its post-rope KV, parked per (shard, layer, block) on the device
-(``storage_location='gpu'``) or in host RAM. Each decode step streams the
-weights again — the design's point: the device holds one shard — but runs
-only the newest token of every suffix through each layer, against the
+its post-rope KV, parked per (shard, layer, block). Each decode step then
+runs only the newest token of every suffix through each layer, against the
 parked KV, through the decode kernel. Token ids are appended directly (no
 decode/re-encode round trip); the ``_updated`` text decodes the id history.
 Every pass reads through the same host path as scoring (verified reads,
-retries, readahead, the process host shard cache), so from the second pass
-on the weights come from host RAM. Weights-resident decode, the fused step
-loop, speculative decoding, the KV pool and adapters are not part of this
-port.
+retries, readahead, the process host shard cache).
+
+The decode modes, with the JAX batch CLI's defaults:
+
+- **Weights-resident decode** (``decode_resident``): when the model fits
+  the card, the shards placed by the prefill pass stay referenced, and
+  every decode step walks them with no weight transfer; one weight pass is
+  streamed instead of ``num_gen_token``. Otherwise each step streams the
+  weights again, the design's point: the device then holds one shard.
+- **KV beside the weights** (``SchedCore.kv_on_device``): the KV stays on
+  the card with ``storage_location='gpu'``, or when the model is resident
+  and weights plus KV fit; otherwise it waits in host RAM.
+- **Fused greedy steps** (``decode_fused``): resident and greedy, a
+  block's decode steps run on the device back to back (embed the previous
+  pick, every layer, norm and head, ``torch.argmax`` on the device) and
+  their distributions and picks reach the host once per block. On the card
+  the steps are captured as one CUDA graph per block and replayed, unless
+  the model has MoE layers (their expert grouping reads counts to the
+  host); ``decode_graph`` reports which.
+- **Speculative verify passes** (``speculative_k``): each pass feeds the
+  last accepted token plus K prompt-lookup drafts per suffix through one
+  walk of the model and accepts the longest draft prefix the greedy chain
+  confirms, emitting 1..K+1 tokens (:class:`SpecVerifier`).
+
+The KV pool, adapters, the residency tier and the multi-device modes are
+not part of this port yet.
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import time
 from typing import Any
 
@@ -24,6 +46,7 @@ import numpy as np
 import torch
 
 from flexible_llm_sharding_tpu_torch.models import llama
+from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 from flexible_llm_sharding_tpu_torch.ops.norm import rms_norm
 from flexible_llm_sharding_tpu_torch.runtime.executor import (
     StreamingExecutor,
@@ -34,11 +57,211 @@ from flexible_llm_sharding_tpu_torch.runtime.executor import (
     sync,
 )
 from flexible_llm_sharding_tpu_torch.runtime.generation import make_picker
+from flexible_llm_sharding_tpu_torch.runtime.schedcore import SchedCore
 from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
     check_longrope_regime,
     longrope_total_len,
     make_blocks,
 )
+from flexible_llm_sharding_tpu_torch.utils import metrics
+
+# propose_draft scans at most this many trailing tokens of each haystack:
+# the lookup wants the last occurrence, and a bounded scan keeps the draft
+# cost per pass constant (verification is draft-agnostic either way).
+DRAFT_SCAN_WINDOW = 512
+
+
+def propose_draft(context_ids, k: int, ngram: int = 2, corpus=None) -> np.ndarray:
+    """Prompt-lookup drafting: find the last earlier occurrence of the
+    context's final n-gram (n from ``ngram`` down to 1) and propose the
+    tokens that followed it; ``corpus`` (the sibling suffixes' contexts) is
+    searched when the context itself has no match. Returns exactly ``k``
+    ids, padded by repeating the last token."""
+    ids = np.asarray(context_ids, np.int64)
+    pools = [np.asarray(c, np.int64) for c in (corpus or ())]
+    n = len(ids)
+    draft: list[int] = []
+    for g in range(min(ngram, n - 1), 0, -1):
+        tail = ids[n - g:]
+        # Own context first (excluding the tail's own position), then each
+        # sibling pool, every window of which is "earlier".
+        for hay, pool in [(ids[: n - 1], ids)] + [(p, p) for p in pools]:
+            if len(hay) < g:
+                continue
+            off = max(0, len(hay) - DRAFT_SCAN_WINDOW)
+            win = np.lib.stride_tricks.sliding_window_view(hay[off:], g)
+            hits = np.flatnonzero((win == tail[None, :]).all(axis=1))
+            # The last match with a nonempty continuation.
+            for start in hits[::-1]:
+                start = off + int(start)
+                cont = pool[start + g: start + g + k]
+                if len(cont):
+                    draft = [int(c) for c in cont]
+                    break
+            if draft:
+                break
+        if draft:
+            break
+    while len(draft) < k:
+        draft.append(int(draft[-1] if draft else ids[-1]))
+    return np.asarray(draft[:k], np.int64)
+
+
+def draft_contexts(tps, t0) -> list[list[np.ndarray]]:
+    """[B][S] initial draft contexts of a block: real prefix, real suffix and
+    the prefill's pick, per tokenized prompt ``tps[r]`` and picks ``t0``
+    [B, S]."""
+    return [
+        [np.concatenate([tp.prefix_ids[: tp.prefix_len],
+                         tp.suffix_ids[s][: int(tp.suffix_eos[s]) + 1], [int(t0[r, s])]])
+         for s in range(tp.suffix_ids.shape[0])]
+        for r, tp in enumerate(tps)
+    ]
+
+
+class SpecVerifier:
+    """The K+1-slot verification state of one block.
+
+    Each pass feeds, per suffix, the last accepted token plus ``spec_k``
+    drafts, then accepts the longest draft prefix matching the argmax chain
+    and emits 1..K+1 tokens: exactly what sequential greedy decode emits,
+    whatever the drafts. Suffixes accept different counts, so each keeps
+    its own generated-KV slot clock (``g - 1`` is the offset the next pass
+    writes from). Padding rows (``active`` False) are frozen at their
+    budget with constant histories and never draft or count.
+    """
+
+    def __init__(self, spec_k: int, draft_fn, contexts, budgets, init_dist, init_toks,
+                 active=None):
+        self.k = spec_k
+        self._draft = draft_fn if draft_fn is not None else propose_draft
+        try:
+            self._corpus_ok = "corpus" in inspect.signature(self._draft).parameters
+        except (TypeError, ValueError):
+            self._corpus_ok = False
+        self.budgets = np.asarray(budgets, np.int64)
+        bsz, s_b = self.budgets.shape
+        self.active = (np.asarray(active, bool) if active is not None
+                       else np.ones((bsz, s_b), bool))
+        self.ctx = [[np.asarray(contexts[r][s], np.int64) for s in range(s_b)]
+                    for r in range(bsz)]
+        self.g = np.ones((bsz, s_b), np.int64)
+        self.hist_d = [[[init_dist[r, s]] for s in range(s_b)] for r in range(bsz)]
+        self.hist_t = [[[int(init_toks[r, s])] for s in range(s_b)] for r in range(bsz)]
+        self.drafted = self.accepted = self.rejected = self.passes = 0
+        for r in range(bsz):
+            for s in range(s_b):
+                if not self.active[r, s]:
+                    bud = int(self.budgets[r, s])
+                    self.g[r, s] = bud
+                    self.hist_d[r][s] = [init_dist[r, s]] * bud
+                    self.hist_t[r][s] = [int(init_toks[r, s])] * bud
+        self._drafts = None
+
+    @property
+    def done(self) -> bool:
+        return bool((self.g >= self.budgets).all())
+
+    def begin_pass(self) -> tuple[np.ndarray, np.ndarray]:
+        """This pass's fed tokens [B, S, K+1] int64 and per-suffix slot
+        offsets [B, S] int32. A suffix drafts only while an accepted token
+        could still be emitted (more than one left)."""
+        bsz, s_b = self.g.shape
+        fed = np.zeros((bsz, s_b, self.k + 1), np.int64)
+        drafts = np.zeros((bsz, s_b, self.k), np.int64)
+        for r in range(bsz):
+            for s in range(s_b):
+                fed[r, s, 0] = self.hist_t[r][s][-1]
+                if self.k > 0 and self.budgets[r, s] - self.g[r, s] > 1:
+                    if self._corpus_ok:
+                        sib = [self.ctx[r][j] for j in range(s_b) if j != s and self.active[r, j]]
+                        drafts[r, s] = self._draft(self.ctx[r][s], self.k, corpus=sib)
+                    else:
+                        drafts[r, s] = self._draft(self.ctx[r][s], self.k)
+        fed[:, :, 1:] = drafts
+        self._drafts = drafts
+        return fed, (self.g - 1).astype(np.int32)
+
+    def finish_pass(self, dist: np.ndarray) -> np.ndarray:
+        """Accept against the pass's distributions [B, S, K+1, V]. Returns
+        the tokens emitted per suffix [B, S]. The counters count only the
+        useful draft slots (at most remaining - 1 drafts can be emitted)."""
+        assert self._drafts is not None, "finish_pass without begin_pass"
+        self.passes += 1
+        picks = np.argmax(dist, axis=-1)  # [B, S, K+1]
+        bsz, s_b = self.g.shape
+        emitted = np.zeros((bsz, s_b), np.int64)
+        for r in range(bsz):
+            for s in range(s_b):
+                if self.g[r, s] >= self.budgets[r, s]:
+                    continue
+                a = 0
+                while a < self.k and picks[r, s, a] == self._drafts[r, s, a]:
+                    a += 1
+                remaining = int(self.budgets[r, s] - self.g[r, s])
+                useful_k = min(self.k, remaining - 1)
+                acc = min(a, useful_k)
+                self.drafted += useful_k
+                self.accepted += acc
+                self.rejected += useful_k - acc
+                emit = int(min(a + 1, remaining))
+                for j in range(emit):
+                    # A copy: a view would keep the whole pass's array alive.
+                    self.hist_d[r][s].append(dist[r, s, j].copy())
+                    self.hist_t[r][s].append(int(picks[r, s, j]))
+                self.ctx[r][s] = np.concatenate([self.ctx[r][s], picks[r, s, :emit]])
+                self.g[r, s] = min(self.g[r, s] + a + 1, self.budgets[r, s])
+                emitted[r, s] = emit
+        self._drafts = None
+        return emitted
+
+    def step_major(self, n_steps: int) -> tuple[list[np.ndarray], list[np.ndarray]]:
+        """The ragged histories as ``n_steps`` [B, S, V] distributions and
+        [B, S] tokens."""
+        bsz, s_b = self.g.shape
+        dists = [np.stack([[self.hist_d[r][s][i] for s in range(s_b)] for r in range(bsz)])
+                 for i in range(n_steps)]
+        toks = [np.array([[self.hist_t[r][s][i] for s in range(s_b)] for r in range(bsz)])
+                for i in range(n_steps)]
+        return dists, toks
+
+
+def block_kv_bytes(model_cfg, dtype_name: str, toks, idxs, gen_slots: int) -> float:
+    """Decode KV bytes of one block (every layer, compute dtype)."""
+    t0 = toks[idxs[0]]
+    s_b, ls = t0.suffix_ids.shape
+    lp = t0.prefix_ids.shape[-1]
+    per_layer = (
+        2  # k and v
+        * len(idxs)
+        * (lp + s_b * (ls + gen_slots))
+        * model_cfg.num_key_value_heads
+        * (model_cfg.head_dim + model_cfg.v_dim) / 2  # K/V dims differ under MLA
+    )
+    return per_layer * model_cfg.num_hidden_layers * metrics._DTYPE_BYTES[dtype_name]
+
+
+def kv_fits_on_chip(model_cfg, dtype_name: str, toks, blocks, gen_slots: int, device=None,
+                    n_chips: int = 1) -> bool:
+    """Whether every block's decode KV fits on the card beside the resident
+    weights: weights + KV within 80% of its known memory (off when it is
+    unknown)."""
+    hbm_gb = metrics.chip_hbm_gb(device)
+    if not hbm_gb:
+        return False
+    kv_bytes = sum(block_kv_bytes(model_cfg, dtype_name, toks, i, gen_slots) for i in blocks)
+    weights = metrics.weight_bytes_per_chip(model_cfg, dtype_name, n_chips)
+    return weights + kv_bytes <= 0.8 * hbm_gb * 1e9
+
+
+def extend_gen_kv(kv: dict[str, torch.Tensor], gen_slots: int) -> dict[str, torch.Tensor]:
+    """A prefill layer's KV with ``gen_slots`` empty generated-token slots
+    (``kg``/``vg`` [B, S, gen_slots, n_kv, hd]) beside its own KV, V at its
+    own head dim (MLA), on the KV's device."""
+    def gen(like: torch.Tensor) -> torch.Tensor:
+        return like.new_zeros(*like.shape[:2], gen_slots, *like.shape[3:])
+
+    return {**kv, "kg": gen(kv["ks"]), "vg": gen(kv["vs"])}
 
 
 class KVStore:
@@ -61,6 +284,70 @@ class KVStore:
         self._mem.clear()
 
 
+def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params, norm_params,
+                       head_params, init_ids: torch.Tensor, prefix_len: torch.Tensor,
+                       suffix_eos: torch.Tensor, n_steps: int, graph: bool):
+    """Every greedy decode step of one block on the device (the JAX
+    package's ``_fused_decode_steps``): embed the previous pick, run every
+    decoder layer (``layers``: (params, sliding) in model order, ``kvs``
+    their KV dicts; step t writes generated slot t in place), norm and
+    head, and pick with ``torch.argmax`` (the first index of the float32
+    max, as ``np.argmax``). ``init_ids`` [B, S] int64 is the prefill's pick.
+
+    With ``graph`` (a CUDA device) the steps are captured into one CUDA
+    graph and replayed once; each step's slot t is a literal of its kernel
+    launches, so the capture unrolls the steps. One warm-up step runs first
+    on copies of the generated KV into scratch outputs, so it writes no KV
+    slot and consumes no pick. A capture that fails raises.
+
+    Returns the distributions [n_steps, B, S, V] float32 and the picks
+    [n_steps, B, S] int64, copied to the host once.
+    """
+    dev = init_ids.device
+    b, s = init_ids.shape
+    dists = torch.empty(n_steps, b, s, model_cfg.vocab_size, dtype=torch.float32, device=dev)
+    picks = torch.empty(n_steps, b, s, dtype=torch.long, device=dev)
+
+    def step(t: int, ids, step_kvs, dist_out, pick_out) -> None:
+        x = llama.embed(embed_params, ids[..., None], dtype, model_cfg)
+        for (params, sliding), kv in zip(layers, step_kvs):
+            x = llama.decode_step_layer(params, model_cfg, x, kv, prefix_len, suffix_eos, t,
+                                        sliding=sliding)
+        h = rms_norm(x, norm_params["scale"], model_cfg.rms_norm_eps, model_cfg.norm_unit_offset)
+        dist = llama.lm_head_scores(head_params, h, model_cfg.final_logit_softcap)
+        dist_out.copy_(dist)
+        pick_out.copy_(torch.argmax(dist, dim=-1))
+
+    def all_steps() -> None:
+        for t in range(n_steps):
+            step(t, init_ids if t == 0 else picks[t - 1], kvs, dists[t], picks[t])
+
+    if not graph:
+        all_steps()
+    else:
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            warm = [{**kv, "kg": kv["kg"].clone(), "vg": kv["vg"].clone()} for kv in kvs]
+            step(0, init_ids, warm, torch.empty_like(dists[0]), torch.empty_like(picks[0]))
+            del warm
+            cuda_graph = torch.cuda.CUDAGraph()
+            with fa.graph_capture() as captured:
+                cuda_graph.capture_begin()
+                try:
+                    all_steps()
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        cuda_graph.capture_end()
+                    raise
+                cuda_graph.capture_end()
+            cuda_graph.replay()
+            fa.count_replay(captured)
+        main.wait_stream(side)
+    return dists.cpu().numpy(), picks.cpu().numpy()
+
+
 class DecodeGenerator(StreamingExecutor):
     """Streaming generation with KV reuse.
 
@@ -69,6 +356,40 @@ class DecodeGenerator(StreamingExecutor):
     grown by the decoded tokens.
     """
 
+    def __init__(self, cfg, device: torch.device | None = None, tokenizer=None):
+        super().__init__(cfg, device, tokenizer)
+        # The device the memory gates judge (the JAX generator's probe).
+        self._probe_dev = self.device
+        self._resident = cfg.decode_resident_enabled(self.model_cfg, 1, self._probe_dev)
+        self._sched_core = SchedCore(cfg)
+        # Whether fused steps are captured in a CUDA graph, from the model
+        # alone: an MoE layer groups tokens by expert from counts it reads
+        # to the host, which a capture cannot hold.
+        self._graph_ok = not metrics.has_moe_layers(self.model_cfg)
+
+    def _fused_budget_ok(self, toks, blocks, n_gen: int, gen_slots: int,
+                         kv_on_device: bool) -> bool:
+        """Whether the fused steps' device footprint fits 80% of the card:
+        resident weights, the KV (every block's when it stays on the card,
+        else the largest block's) and the stacked float32 distributions
+        [n_steps, B, S, V]. On the CPU device memory is host RAM: always
+        ok; a card of unknown memory cannot be budgeted."""
+        if self._probe_dev.type == "cpu":
+            return True
+        hbm_gb = metrics.chip_hbm_gb(self._probe_dev)
+        if not hbm_gb:
+            return False
+        per_block_kv = [block_kv_bytes(self.model_cfg, self.cfg.dtype, toks, i, gen_slots)
+                        for i in blocks]
+        kv_bytes = sum(per_block_kv) if kv_on_device else max(per_block_kv)
+        dists_bytes = max(
+            (n_gen - 1) * len(idxs) * toks[idxs[0]].suffix_ids.shape[0]
+            * self.model_cfg.vocab_size * 4
+            for idxs in blocks
+        )
+        weights = metrics.weight_bytes_per_chip(self.model_cfg, self.cfg.dtype, 1)
+        return weights + kv_bytes + dists_bytes <= 0.8 * hbm_gb * 1e9
+
     @torch.inference_mode()
     def __call__(self, prompts, num_gen_token: int | None = None):
         cfg, mcfg = self.cfg, self.model_cfg
@@ -76,12 +397,36 @@ class DecodeGenerator(StreamingExecutor):
         t_start = time.perf_counter()
         toks = [self.tokenizer(p, s) for p, s in prompts]
         # Parked KV keeps its rope table: generation must not cross longrope's
-        # boundary (the last generated token is never fed back).
-        check_longrope_regime(mcfg, toks, extra_len=max(n_gen - 1, 0))
+        # boundary (a speculative pass's K+1 window may overshoot by K).
+        check_longrope_regime(mcfg, toks, extra_len=max(n_gen - 1, 0) + cfg.speculative_k)
         blocks = make_blocks(toks, cfg.block_size)
         metas = [block_meta(toks, idxs, self.device) for idxs in blocks]
-        gen_slots = max(1, n_gen - 1)
-        kv_store = KVStore(cfg.storage_location == "gpu", self.device)
+        core = self._sched_core
+        plain_slots = core.gen_slots(n_gen)
+        kv_on_device = core.kv_on_device(mcfg, cfg.dtype, toks, blocks, plain_slots,
+                                         self._resident, device=self._probe_dev)
+        budget_ok = bool(blocks) and self._fused_budget_ok(toks, blocks, n_gen, plain_slots,
+                                                           kv_on_device)
+        fused = (cfg.decode_fused != "off" and self._resident and cfg.temperature <= 0
+                 and n_gen > 1 and budget_ok)
+        if cfg.decode_fused == "on" and not fused and n_gen > 1 and blocks:
+            raise ValueError(
+                "decode_fused='on' needs resident weights, greedy selection and the fused "
+                "footprint (weights + KV + dists) within the card's memory; got "
+                f"resident={self._resident} temperature={cfg.temperature} "
+                f"hbm_budget_ok={budget_ok}"
+            )
+        graph = fused and self.device.type == "cuda" and self._graph_ok
+        # Speculative verify passes; the fused steps are preferred when both
+        # could run (resident steps move no weights to amortise).
+        spec_k = cfg.speculative_k
+        speculative = spec_k > 0 and n_gen > 1 and not fused and bool(blocks)
+        gen_slots = core.gen_slots(n_gen, spec_k, speculative)
+        if speculative and kv_on_device and cfg.storage_location != "gpu":
+            # Judge the KV placement again at the larger slot count.
+            kv_on_device = core.kv_on_device(mcfg, cfg.dtype, toks, blocks, gen_slots,
+                                             self._resident, device=self._probe_dev)
+        kv_store = KVStore(kv_on_device, self.device)
         n_layers = len(self.layer_names)
         n_shards = len(self.plan.shards)
         sliding = llama.layer_sliding_pattern(mcfg)
@@ -99,9 +444,11 @@ class DecodeGenerator(StreamingExecutor):
             all_scores[b].append(d)
             tok_hist[b].append(picker(d, real=real_rows[b]))
 
-        source, host_stats = self.weight_source(n_gen)
+        source, host_stats = self.weight_source(1 if self._resident else n_gen)
         it = iter(source)
         compute_time = source_wait = 0.0
+        # Resident mode: the shards the prefill pass placed, in order.
+        kept: list[tuple[tuple[int, ...], list]] = []
 
         def next_shard():
             nonlocal source_wait
@@ -110,10 +457,51 @@ class DecodeGenerator(StreamingExecutor):
             source_wait += time.perf_counter() - t0
             return item
 
+        def stream_pass(embed_ids, layer_fn, head_fn, skip_block=None) -> None:
+            """One walk of the whole model over the blocks, shared by the
+            per-step loop and the speculative verify passes: the kept
+            shards or the next streamed pass, ('x', b) activations parked
+            between shards. embed_ids(b) -> token ids [B, S, K] on the
+            device; layer_fn(b, params, kv, x, prefix_len, suffix_eos,
+            sliding) -> x; head_fn(b, norm_params, head_params, x);
+            skip_block(b) leaves a block out of this pass."""
+            nonlocal compute_time
+            norm_params = None
+            shards = kept if self._resident else (next_shard() for _ in range(n_shards))
+            for shard_pos, (layer_idxs, segments) in enumerate(shards):
+                t0 = time.perf_counter()
+                for b in range(len(blocks)):
+                    if skip_block is not None and skip_block(b):
+                        continue
+                    _, _, prefix_len, suffix_eos = metas[b]
+                    x = None if layer_idxs[0] == 0 else kv_store.get(("x", b))
+                    li = 0
+                    for kind, params in segments:
+                        if kind == "embed":
+                            x = llama.embed(params, embed_ids(b), self.dtype, mcfg)
+                        elif kind == "decoders":
+                            for layer in params:
+                                kv = kv_store.get(("kv", shard_pos, li, b))
+                                x = layer_fn(b, layer, kv, x, prefix_len, suffix_eos,
+                                             sliding[first_decoder(layer_idxs) + li])
+                                kv_store.put(("kv", shard_pos, li, b), kv)
+                                li += 1
+                        elif kind == "norm":
+                            norm_params = params  # applied with the head
+                        else:
+                            head_fn(b, norm_params, params, x)
+                    if layer_idxs[-1] != n_layers - 1:
+                        kv_store.put(("x", b), x)
+                sync(self.device)
+                compute_time += time.perf_counter() - t0
+                del segments
+
         try:
             # --- prefill: one streaming pass, parking each layer's KV -------
             for shard_pos in range(n_shards):
                 layer_idxs, segments = next_shard()
+                if self._resident:
+                    kept.append((layer_idxs, segments))
                 t0 = time.perf_counter()
                 for b, idxs in enumerate(blocks):
                     prefix_ids, suffix_ids, prefix_len, suffix_eos = metas[b]
@@ -133,10 +521,7 @@ class DecodeGenerator(StreamingExecutor):
                                     sliding=sliding[first_decoder(layer_idxs) + li],
                                     total_len=total_len,
                                 )
-                                for g, src in (("kg", "ks"), ("vg", "vs")):  # V at its own dim (MLA)
-                                    shape = kv[src].shape
-                                    kv[g] = kv[src].new_zeros(*shape[:2], gen_slots, *shape[3:])
-                                kv_store.put(("kv", shard_pos, li, b), kv)
+                                kv_store.put(("kv", shard_pos, li, b), extend_gen_kv(kv, gen_slots))
                                 li += 1
                         elif kind == "norm":
                             sh = llama.select_eos_and_norm(params, mcfg, sh, suffix_eos)
@@ -149,43 +534,99 @@ class DecodeGenerator(StreamingExecutor):
                 compute_time += time.perf_counter() - t0
                 del segments
 
-            # --- decode steps: stream the weights, one token per suffix -----
-            for t in range(n_gen - 1):
-                norm_params = None
-                for shard_pos in range(n_shards):
-                    layer_idxs, segments = next_shard()
-                    t0 = time.perf_counter()
-                    for b in range(len(blocks)):
-                        _, _, prefix_len, suffix_eos = metas[b]
-                        x = None if layer_idxs[0] == 0 else kv_store.get(("x", b))
-                        li = 0
-                        for kind, params in segments:
-                            if kind == "embed":
-                                ids = torch.from_numpy(np.asarray(tok_hist[b][-1])[..., None])
-                                x = llama.embed(params, ids.to(self.device), self.dtype, mcfg)
-                            elif kind == "decoders":
-                                for layer in params:
-                                    kv = kv_store.get(("kv", shard_pos, li, b))
-                                    x = llama.decode_step_layer(
-                                        layer, mcfg, x, kv, prefix_len, suffix_eos, t,
-                                        sliding=sliding[first_decoder(layer_idxs) + li],
-                                    )
-                                    kv_store.put(("kv", shard_pos, li, b), kv)
-                                    li += 1
-                            elif kind == "norm":
-                                norm_params = params  # applied with the head
-                            else:
-                                h = rms_norm(x, norm_params["scale"], mcfg.rms_norm_eps,
-                                             mcfg.norm_unit_offset)
-                                head(b, llama.lm_head_scores(params, h, mcfg.final_logit_softcap))
-                        if layer_idxs[-1] != n_layers - 1:
-                            kv_store.put(("x", b), x)
-                    sync(self.device)
-                    compute_time += time.perf_counter() - t0
-                    del segments
+            # --- decode steps -----------------------------------------------
+            if fused:
+                t0 = time.perf_counter()
+                embed_p = norm_p = head_p = None
+                layers, keys = [], []
+                for shard_pos, (layer_idxs, segments) in enumerate(kept):
+                    li = 0
+                    for kind, params in segments:
+                        if kind == "embed":
+                            embed_p = params
+                        elif kind == "decoders":
+                            for layer in params:
+                                layers.append((layer, sliding[first_decoder(layer_idxs) + li]))
+                                keys.append((shard_pos, li))
+                                li += 1
+                        elif kind == "norm":
+                            norm_p = params
+                        else:
+                            head_p = params
+                for b in range(len(blocks)):
+                    _, _, prefix_len, suffix_eos = metas[b]
+                    kvs = [kv_store.get(("kv", sp, li, b)) for sp, li in keys]
+                    init_ids = torch.from_numpy(np.asarray(tok_hist[b][-1], np.int64)).to(
+                        self.device)
+                    dists, picks = fused_decode_steps(
+                        mcfg, self.dtype, layers, kvs, embed_p, norm_p, head_p, init_ids,
+                        prefix_len, suffix_eos, n_gen - 1, graph)
+                    del kvs
+                    all_scores[b].extend(dists)
+                    tok_hist[b].extend(picks)
+                sync(self.device)
+                compute_time += time.perf_counter() - t0
+            elif speculative:
+                verifiers: dict[int, SpecVerifier] = {}
+                for b, idxs in enumerate(blocks):
+                    s_b = toks[idxs[0]].suffix_ids.shape[0]
+                    verifiers[b] = SpecVerifier(
+                        spec_k, propose_draft,
+                        draft_contexts([toks[i] for i in idxs], tok_hist[b][0]),
+                        np.full((len(idxs), s_b), n_gen, np.int64), all_scores[b][0],
+                        tok_hist[b][0],
+                        active=[[s < toks[i].num_suffixes for s in range(s_b)] for i in idxs],
+                    )
+                while any(not v.done for v in verifiers.values()):
+                    # Fed tokens and drafts are fixed before the walk; blocks
+                    # whose rows all finished sit the pass out.
+                    fed, base = {}, {}
+                    for b, v in verifiers.items():
+                        if not v.done:
+                            f, t = v.begin_pass()
+                            fed[b] = torch.from_numpy(f).to(self.device)
+                            base[b] = torch.from_numpy(t).to(self.device)
+                    head_dists: dict[int, np.ndarray] = {}
+
+                    def spec_head(b, norm_params, head_params, x):
+                        h = rms_norm(x, norm_params["scale"], mcfg.rms_norm_eps,
+                                     mcfg.norm_unit_offset)
+                        head_dists[b] = llama.lm_head_scores_multi(
+                            head_params, h, mcfg.final_logit_softcap).to("cpu").numpy()
+
+                    stream_pass(
+                        lambda b: fed[b],
+                        lambda b, params, kv, x, pl, se, sl: llama.decode_step_layer(
+                            params, mcfg, x, kv, pl, se, base[b], sliding=sl),
+                        spec_head,
+                        skip_block=lambda b: b not in fed,
+                    )
+                    for b, dist in head_dists.items():
+                        verifiers[b].finish_pass(dist)
+                for b, v in verifiers.items():
+                    all_scores[b], tok_hist[b] = v.step_major(n_gen)
+                spec_stats = {
+                    "spec_passes": float(max(v.passes for v in verifiers.values())),
+                    "spec_drafted": float(sum(v.drafted for v in verifiers.values())),
+                    "spec_accepted": float(sum(v.accepted for v in verifiers.values())),
+                }
+            else:
+                def plain_head(b, norm_params, head_params, x):
+                    h = rms_norm(x, norm_params["scale"], mcfg.rms_norm_eps, mcfg.norm_unit_offset)
+                    head(b, llama.lm_head_scores(head_params, h, mcfg.final_logit_softcap))
+
+                for t in range(n_gen - 1):
+                    stream_pass(
+                        lambda b: torch.from_numpy(
+                            np.asarray(tok_hist[b][-1])[..., None]).to(self.device),
+                        lambda b, params, kv, x, pl, se, sl: llama.decode_step_layer(
+                            params, mcfg, x, kv, pl, se, t, sliding=sl),
+                        plain_head,
+                    )
         finally:
             source.close()
             kv_store.clear()
+            kept.clear()  # release the resident weights
 
         self.stats = {
             "total_wall_s": time.perf_counter() - t_start,
@@ -193,13 +634,19 @@ class DecodeGenerator(StreamingExecutor):
             "compute_wall_s": compute_time,
             "source_wait_s": source_wait,
             "streamed_bytes": float(source.bytes_loaded),
-            "decode_kv_on_device": float(kv_store.on_device),
+            "decode_resident": float(self._resident),
+            "decode_fused": float(fused),
+            "decode_speculative": float(speculative),
+            "decode_kv_on_device": float(kv_on_device),
+            "decode_graph": float(graph),
             **host_stats.read(source),
             "tokens_processed": float(
                 sum(t.tokens_processed for t in toks)
                 + sum(t.num_suffixes for t in toks) * max(n_gen - 1, 0)
             ),
         }
+        if speculative:
+            self.stats.update(spec_stats)
         peak = peak_mem_gb(self.device)
         if peak is not None:
             self.stats["peak_mem_gb"] = peak
@@ -221,4 +668,14 @@ class DecodeGenerator(StreamingExecutor):
         return scores_out, updated
 
 
-__all__ = ["DecodeGenerator", "KVStore"]
+__all__ = [
+    "DecodeGenerator",
+    "KVStore",
+    "SpecVerifier",
+    "block_kv_bytes",
+    "draft_contexts",
+    "extend_gen_kv",
+    "fused_decode_steps",
+    "kv_fits_on_chip",
+    "propose_draft",
+]

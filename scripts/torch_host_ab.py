@@ -3,6 +3,7 @@
 batch CLI at chip_smoke.py's full-width cells, on one GPU.
 
     python3 scripts/torch_host_ab.py A_DIR B_DIR [--cells llama2_7b,gemma3_27b,...]
+        [--modes scoring,kv_cache]
 
 Writes each cell's seeded bf16 checkpoint once, with this checkout's
 writers (``integrity.json`` included; a checkout that does not read it
@@ -11,8 +12,9 @@ scoring and ``--kv_cache`` runs (chip_smoke.py's prompts and token counts,
 one layer per shard) in the order A, B, B, A, each run in a fresh process
 of its checkout with the CLI's defaults. Prints one JSON line per run (the
 CLI's stats line, plus the process's peak RSS) and a summary line of the
-walls, host read seconds, cache hit rates and peak RSS per cell, run and
-checkout. Each line carries the card's ``nvidia-smi`` name and power limit.
+walls, compute and source-wait seconds, host read seconds, streamed bytes,
+cache hits and misses, peak device memory, the decode modes' stats and
+peak RSS per cell, run and checkout. Each line carries the card's ``nvidia-smi`` name and power limit.
 Cells: llama2_7b (4 layers, 2.14 GB), gemma3_27b (6 layers, 7.8 GB),
 gemma3_12b (6 layers, 4.7 GB), deepseek_v3 (4 layers, 30.2 GB).
 """
@@ -100,6 +102,7 @@ def main() -> None:
     ap.add_argument("a")
     ap.add_argument("b")
     ap.add_argument("--cells", default="llama2_7b,gemma3_27b,gemma3_12b,deepseek_v3")
+    ap.add_argument("--modes", default="scoring,kv_cache")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -123,15 +126,20 @@ def main() -> None:
             with open(ppkl, "wb") as f:
                 pickle.dump(prompts, f)
             for rep, key in enumerate("abba"):
-                for mode, extra in (("scoring", ["--num_gen_token", str(n_loop)]),
-                                    ("kv_cache", ["--num_gen_token", str(n_kv), "--kv_cache", "true"])):
+                modes = {"scoring": ["--num_gen_token", str(n_loop)],
+                         "kv_cache": ["--num_gen_token", str(n_kv), "--kv_cache", "true"]}
+                for mode in args.modes.split(","):
+                    extra = modes[mode]
                     stats = run(trees[key], cfg, model_dir, ppkl, work, extra)
                     print(json.dumps({"cell": name, "mode": mode, "checkout": key, "rep": rep,
                                       "card": smi, **stats}), flush=True)
                     row = summary.setdefault(f"{name} {mode}", {}).setdefault(key, [])
                     row.append({k: stats.get(k) for k in (
                         "wall_s", "load_weights_time_s", "compute_wall_s", "source_wait_s",
-                        "host_cache_hit_rate", "crc_full_verifies", "max_rss_gib")})
+                        "streamed_bytes", "host_cache_hits", "host_cache_misses",
+                        "host_cache_hit_rate", "crc_full_verifies", "peak_mem_gb", "max_rss_gib",
+                        "decode_resident", "decode_kv_on_device", "decode_fused",
+                        "decode_graph")})
             shutil.rmtree(model_dir, ignore_errors=True)
         print(json.dumps({"summary": summary, "card": smi, "a": trees["a"], "b": trees["b"]}),
               flush=True)

@@ -6,6 +6,7 @@ JAX nor the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -358,3 +359,149 @@ def test_activation_store_stages_into_page_locked_memory(gen, tmp_path, location
         got_p, got_s = store.fetch(b, [2 * b, 2 * b + 1])
         assert got_s.is_cuda and torch.equal(got_p, p) and torch.equal(got_s, s)
     store.clear()
+
+
+# -- the decode modes: one CUDA graph per block against the loops ------------
+
+class _WordTokenizer:
+    """A word-hash tokenizer over a 512-token vocabulary (no model assets)."""
+
+    eos_token = pad_token = "</s>"
+    pad_token_id = 2
+    padding_side = "right"
+
+    def _ids(self, text: str) -> list[int]:
+        import zlib
+
+        return [1] + [3 + zlib.crc32(w.encode()) % 509 for w in text.split()]
+
+    def decode(self, ids) -> str:
+        return "".join(f" tok{int(i)}" for i in torch.as_tensor(ids).reshape(-1))
+
+    def __call__(self, text, max_length=None, padding=False, **kw):
+        if isinstance(text, str):
+            return {"input_ids": self._ids(text)[:max_length]}
+        batch = [self._ids(t)[:max_length] for t in text]
+        if padding:
+            width = max(len(b) for b in batch)
+            batch = [b + [self.pad_token_id] * (width - len(b)) for b in batch]
+        return {"input_ids": batch}
+
+
+_DECODE_PROMPTS = [
+    ("the cat sat on the mat " * 12, (" the cat sat", " on the mat", " a")),
+    ("alpha beta gamma delta " * 20, (" beta gamma alpha", " delta")),
+    ("one two three four five six", (" seven eight",)),
+]
+_SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_attention_heads=4,
+              num_key_value_heads=2)
+_DECODE_MODELS = {
+    "llama": dict(model_type="llama", **_SMALL, num_hidden_layers=3, head_dim=128),
+    # Gemma 3: layers 0-1 local (a window of 32 that binds), layer 2 global.
+    "gemma3": dict(model_type="gemma3_text", **_SMALL, num_hidden_layers=3, head_dim=128,
+                   query_pre_attn_scalar=128, sliding_window=32, rope_theta=1000000.0,
+                   rope_local_base_freq=10000.0,
+                   layer_types=["sliding_attention", "sliding_attention", "full_attention"]),
+}
+
+
+def _decode_model(tmp_path, name):
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
+
+    cfg = LlamaConfig.from_dict(_DECODE_MODELS[name])
+    g = torch.Generator().manual_seed(3)
+
+    def w(*shape, scale=None):
+        scale = scale if scale is not None else (2.0 / (shape[-2] + shape[-1])) ** 0.5
+        return (torch.randn(*shape, generator=g) * scale).to(torch.bfloat16)
+
+    def norm(n):
+        return w(n, scale=0.1) if cfg.norm_unit_offset else torch.ones(n, dtype=torch.bfloat16)
+
+    d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        layer = {"input_layernorm": {"scale": norm(d)}, "post_attention_layernorm": {"scale": norm(d)},
+                 "attn": {"wq": w(d, nq * hd), "wk": w(d, nkv * hd), "wv": w(d, nkv * hd),
+                          "wo": w(nq * hd, d)},
+                 "mlp": {"gate": w(d, f), "up": w(d, f), "down": w(f, d)}}
+        if cfg.qk_norm:
+            layer["attn"].update(q_norm=norm(hd), k_norm=norm(hd))
+        if cfg.ffw_sandwich_norms:
+            layer.update(pre_feedforward_layernorm={"scale": norm(d)},
+                         post_feedforward_layernorm={"scale": norm(d)})
+        layers.append(layer)
+    params = {"embed": {"embedding": w(cfg.vocab_size, d, scale=0.02)}, "layers": layers,
+              "norm": {"scale": norm(d)}}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = {"kernel": w(d, cfg.vocab_size, scale=0.02)}
+    path = tmp_path / name
+    save_params(params, str(path), cfg)
+    return str(path)
+
+
+def _decode_run(model_dir, n_gen=5, **modes):
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+    from flexible_llm_sharding_tpu_torch.runtime import hostcache
+    from flexible_llm_sharding_tpu_torch.runtime.decode import DecodeGenerator
+
+    hostcache.reset_process_cache()
+    graph_ok = modes.pop("graph_ok", None)
+    cfg = FrameworkConfig(model_path=model_dir, dtype="bfloat16", num_gen_token=n_gen,
+                          block_size=2, kv_cache=True, **modes)
+    gen = DecodeGenerator(cfg, device=torch.device("cuda"), tokenizer=_WordTokenizer())
+    if graph_ok is not None:
+        gen._graph_ok = graph_ok
+    fa.reset_launch_counts()
+    scores, updated = gen(list(_DECODE_PROMPTS))
+    torch.cuda.synchronize()
+    counts = (fa.launch_counts(), fa.local_launch_counts(), fa.dim_launch_counts())
+    return scores, updated, gen.stats, counts
+
+
+@pytest.mark.parametrize("name", list(_DECODE_MODELS))
+def test_captured_fused_steps_equal_the_loops_bit_for_bit(gen, tmp_path, name):
+    """bf16 on the card: the steps replayed from one CUDA graph per block
+    equal the uncaptured device loop, the per-step loop over resident
+    weights and the streamed per-step loop, bit for bit."""
+    model_dir = _decode_model(tmp_path, name)
+    graph, graph_up, graph_stats, _ = _decode_run(model_dir)
+    runs = {
+        "device loop": _decode_run(model_dir, graph_ok=False),
+        "per-step loop": _decode_run(model_dir, decode_fused="off"),
+        "streamed": _decode_run(model_dir, decode_resident="off"),
+    }
+    assert (graph_stats["decode_resident"], graph_stats["decode_fused"],
+            graph_stats["decode_graph"], graph_stats["decode_kv_on_device"]) == (1, 1, 1, 1)
+    assert runs["device loop"][2]["decode_graph"] == 0 and runs["device loop"][2]["decode_fused"] == 1
+    assert runs["per-step loop"][2]["decode_fused"] == 0
+    assert runs["streamed"][2]["decode_resident"] == 0
+    for tag, (scores, updated, _, _) in runs.items():
+        assert updated == graph_up, tag
+        for a, b in zip(graph, scores):
+            assert np.array_equal(a, b), tag
+
+
+@pytest.mark.parametrize("name", list(_DECODE_MODELS))
+def test_replays_count_the_decode_kernel(gen, tmp_path, name):
+    """A graph's launches count once per replay: the captured run counts the
+    uncaptured loop's launches plus its warm-up step (one launch per layer
+    and block), window on and off alike; the scoring kernels are the
+    prefill's in both."""
+    model_dir = _decode_model(tmp_path, name)
+    *_, (counts, local, dims) = _decode_run(model_dir)
+    *_, (loop_counts, loop_local, loop_dims) = _decode_run(model_dir, graph_ok=False)
+    n_layers, n_blocks = 3, 2
+    warm = n_layers * n_blocks
+    assert loop_counts["flash_decode_attention"] == n_layers * n_blocks * 4
+    assert counts["flash_decode_attention"] == loop_counts["flash_decode_attention"] + warm
+    assert dims["flash_decode_attention"] == {(128, 128): counts["flash_decode_attention"]}
+    for k in ("flash_causal_attention", "flash_prefix_shared_attention"):
+        assert counts[k] == loop_counts[k] == n_layers * n_blocks
+    if name == "gemma3":  # two of three layers local
+        assert local["flash_decode_attention"] == loop_local["flash_decode_attention"] + 2 * n_blocks
+        assert 0 < local["flash_decode_attention"] < counts["flash_decode_attention"]
+    else:
+        assert local == dict.fromkeys(fa.KERNELS, 0)
