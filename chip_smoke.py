@@ -47,7 +47,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              block, or the uncaptured device loop for MoE models); on the
              llama, gemma3 and deepseek_v3 checkpoints also --speculative_k
              4 (verify passes over resident weights) on the card: the
-             tokens of plain --kv_cache, scores within 1e-4.
+             tokens of plain --kv_cache, scores within 1e-4; and the int8
+             and int4 copies of llama, gemma3 and deepseek_v3
+             (requantize_native) through both loops, card against CPU:
+             scores within 1e-4, tokens equal.
 5. full    — seeded bf16 checkpoints at full width through the CLI, one
              layer per shard so every layer streams: Llama-2-7B (4 decoder
              layers; scoring with --num_gen_token 4, then --kv_cache with
@@ -76,6 +79,26 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              for the dense models and uncaptured for DeepSeek-V3 (MoE); on
              the Llama-2-7B cell the defaults must equal --decode_fused off
              and --decode_resident off bit for bit.
+   quant   — after the Llama-2-7B cell: its int8 and int4 copies
+             (requantize_native, on the host as prepare_weights makes
+             them) and a mixed copy that plan-precision plans on the card
+             under a budget halfway between the int4 and the bf16 bytes
+             (written by --apply, then audited by verify, which must find
+             no problem), each through scoring and --kv_cache: finite
+             distributions summing to 1, every kernel launched, the first
+             position's probabilities within the JAX tests' bounds of the
+             bf16 run's (0.05 int8; 0.15 int4 and mixed); each run prints
+             its streamed bytes, wall and load_weights_time_s beside the
+             bf16 run's. The card's dequant is held tight at full width:
+             a bf16 copy written from the host's dequant of the int4 copy
+             (its [32000, 4096] embedding included) must give the int4
+             runs' scores and tokens bit for bit. The DeepSeek-V3
+             checkpoint's int4 copy is made before its cell runs and goes
+             through --kv_cache after it, against the cell's bf16
+             --kv_cache run; its MoE layer's 256-expert stacks and other
+             kernels, dequantized on the card as the weight source does,
+             must equal the host's dequant bit for bit (the first, middle
+             and last expert of each stack).
 6. host    — a reduced bf16 checkpoint through the CLI on the card: the
              defaults give the scores of --host_cache_gb 0 --verify_weights
              false --readahead_threads 0 bit for bit; after one flipped
@@ -86,7 +109,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              written one layer file at a time), --kv_cache with 8 tokens,
              three runs: the defaults (resident, one CUDA graph per block),
              --decode_fused off and --decode_resident off; prints each
-             run's wall and stats and requires equal tokens.
+             run's wall and stats and requires equal tokens. Then scoring
+             with --num_gen_token 4 at --hbm_pin_gb 0, 6 and auto: scores
+             equal bit for bit, streamed bytes lower by the pinned bytes on
+             every pass after the first, auto pinning every layer; prints
+             each run's pinned and streamed bytes and wall.
 
 Output: per-phase lines, then a JSON line of kernel records, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -96,6 +123,8 @@ package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import pickle
@@ -1012,18 +1041,21 @@ def run_cli(model_dir: str, work: str, tag: str, prompts, extra: list[str], voca
 
 
 def fresh_process_state() -> None:
-    """Start the next CLI run as a new process would: no cached shard, no crc
-    verdict, and PyTorch's page-locked pool handed back to the system."""
+    """Start the next CLI run as a new process would: no cached shard, no
+    pinned layer, no crc verdict, and PyTorch's page-locked pool and cached
+    device blocks handed back."""
     import gc
 
     from flexible_llm_sharding_tpu_torch.integrity import manifest
-    from flexible_llm_sharding_tpu_torch.runtime import hostcache
+    from flexible_llm_sharding_tpu_torch.runtime import hostcache, residency
     from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib
 
     before = host_rss_gib().get("rss")
     hostcache.reset_process_cache()
+    residency.reset_process_tier()
     manifest.reset_verdicts()
     gc.collect()
+    torch.cuda.empty_cache()
     empty = getattr(torch._C, "_host_emptyCache", None)
     if empty is not None:
         empty()
@@ -1117,21 +1149,25 @@ def cross_configs() -> dict:
             **{name: LlamaConfig.from_dict(d) for name, d in hf.items()}}
 
 
-# The cross-check models that also run speculative decode on the card.
+# The cross-check models that also run speculative decode on the card, and
+# those whose int8 and int4 copies are cross-checked too.
 CROSS_SPECULATIVE = ("llama", "gemma3", "deepseek_v3")
+CROSS_QUANTIZED = ("llama", "gemma3", "deepseek_v3")
 
 
 def phase_cross(work: str) -> None:
     """Float32 card vs CPU through the CLI, for every model of
-    :func:`cross_configs`; speculative decode on the card against plain
+    :func:`cross_configs`, and for the int8 and int4 copies of
+    :data:`CROSS_QUANTIZED`; speculative decode on the card against plain
     --kv_cache for :data:`CROSS_SPECULATIVE`."""
-    from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native, save_params
 
     prompts = make_prompts(5, 70, 3, 6, seed=2) + make_prompts(2, 150, 2, 9, seed=3)
     for name, cfg in cross_configs().items():
         name = name.replace(" ", "_")
         model_dir = os.path.join(work, f"cross_{name}")
         save_params(_init_params(cfg, torch.float32, 11, "cpu"), model_dir, cfg)
+        float_runs = {}
         for mode, extra in (("loop", []), ("kv_cache", ["--kv_cache", "true"])):
             args = ["--dtype", "float32", "--num_gen_token", "3", "--block_size", "4", *extra]
             gpu, gpu_up, gpu_stats = run_cli(model_dir, work, f"cross_gpu_{name}_{mode}", prompts,
@@ -1146,18 +1182,40 @@ def phase_cross(work: str) -> None:
             log(f"[cross] float32 {name} {mode}: card vs CPU max_abs_err {err:.3e}, "
                 "greedy tokens identical"
                 + (" " + json.dumps({k: gpu_stats.get(k) for k in DECODE_KEYS}) if extra else ""))
+            float_runs[mode] = (args, gpu, gpu_up)
+        if name in CROSS_QUANTIZED:
+            for dt in ("int8", "int4"):
+                qdir = os.path.join(work, f"cross_{name}_{dt}")
+                requantize_native(model_dir, qdir, dtype=dt)
+                for mode, extra in (("loop", []), ("kv_cache", ["--kv_cache", "true"])):
+                    qargs = ["--dtype", "float32", "--num_gen_token", "3", "--block_size", "4",
+                             *extra]
+                    qgpu, qgpu_up, _ = run_cli(qdir, work, f"cross_gpu_{name}_{dt}_{mode}",
+                                               prompts, [*qargs, "--device", "cuda"], 512)
+                    qcpu, qcpu_up, _ = run_cli(qdir, work, f"cross_cpu_{name}_{dt}_{mode}",
+                                               prompts, [*qargs, "--device", "cpu"], 512)
+                    err = max(float(np.abs(g - c).max()) for g, c in zip(qgpu, qcpu))
+                    if not all(np.allclose(g, c, atol=1e-4, rtol=0) for g, c in zip(qgpu, qcpu)):
+                        fail(f"cross-check {name} {dt} {mode}: card and CPU scores differ by "
+                             f"{err:.3e}")
+                    if qgpu_up != qcpu_up:
+                        fail(f"cross-check {name} {dt} {mode}: tokens differ between card and CPU")
+                    log(f"[cross] float32 {name} {dt} {mode}: card vs CPU max_abs_err {err:.3e}, "
+                        "tokens identical")
         if name in CROSS_SPECULATIVE:
+            # Against the float checkpoint's --kv_cache run on the card.
             # Fused steps take precedence over speculation: turned off here.
+            kv_args, kv, kv_up = float_runs["kv_cache"]
             spec, spec_up, stats = run_cli(
                 model_dir, work, f"cross_gpu_{name}_spec", prompts,
-                [*args, "--device", "cuda", "--speculative_k", "4", "--decode_fused", "off"], 512)
+                [*kv_args, "--device", "cuda", "--speculative_k", "4", "--decode_fused", "off"], 512)
             if stats.get("decode_speculative") != 1.0 or stats.get("decode_resident") != 1.0:
                 fail(f"cross-check {name}: speculative decode did not engage: {stats}")
-            err = max(float(np.abs(g - c).max()) for g, c in zip(spec, gpu))
-            if spec_up != gpu_up or not all(np.allclose(g, c, atol=1e-4, rtol=0)
-                                            for g, c in zip(spec, gpu)):
+            err = max(float(np.abs(g - c).max()) for g, c in zip(spec, kv))
+            if spec_up != kv_up or not all(np.allclose(g, c, atol=1e-4, rtol=0)
+                                           for g, c in zip(spec, kv)):
                 fail(f"cross-check {name}: --speculative_k 4 differs from --kv_cache "
-                     f"(tokens equal: {spec_up == gpu_up}, max_abs_err {err:.3e})")
+                     f"(tokens equal: {spec_up == kv_up}, max_abs_err {err:.3e})")
             log(f"[cross] float32 {name} --speculative_k 4 on the card: the tokens of --kv_cache, "
                 f"max_abs_err {err:.3e}; passes {stats.get('spec_passes')}, drafted "
                 f"{stats.get('spec_drafted')}, accepted {stats.get('spec_accepted')}")
@@ -1363,7 +1421,8 @@ def check_decode_modes(tag: str, stats: dict, cfg) -> None:
 
 
 def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: int,
-               model_dir: str | None = None, compare_modes: bool = False) -> dict:
+               model_dir: str | None = None, compare_modes: bool = False,
+               record: dict | None = None) -> dict:
     """A seeded bf16 checkpoint of ``cfg`` (one layer per shard, so every
     layer streams; written here unless ``model_dir`` holds one) through the
     CLI: scoring, then --kv_cache. Every kernel of each run must launch;
@@ -1374,8 +1433,10 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
     The --kv_cache run must have the decode modes engaged
     (:func:`check_decode_modes`) and stream one weight pass; with
     ``compare_modes`` it must equal --decode_fused off and
-    --decode_resident off bit for bit. Returns per kernel its launches and
-    its launches with the window on."""
+    --decode_resident off bit for bit. With ``record`` (a dict) the
+    checkpoint is kept and ``record[tag]`` gets each run's (scores,
+    updated prompts, stats). Returns per kernel its launches and its
+    launches with the window on."""
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 
@@ -1410,6 +1471,8 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
             dims = fa.dim_launch_counts()
             _check_scores(scores, prompts, n_gen, cfg.vocab_size, f"{name} {tag}")
             outputs[tag] = (scores, updated)
+            if record is not None:
+                record[tag] = (scores, updated, stats)
             if tag == "kv_cache":
                 check_decode_modes(f"full {name} {tag}", stats, cfg)
             elif tag != "scoring":
@@ -1442,7 +1505,207 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
                 + json.dumps(local) + " by (qk, v) head dims "
                 + json.dumps({k: {f"{a}/{b}": n for (a, b), n in v.items()} for k, v in dims.items()}))
     finally:
-        shutil.rmtree(model_dir, ignore_errors=True)
+        if record is None:
+            shutil.rmtree(model_dir, ignore_errors=True)
+    return launches
+
+
+# The JAX tests' bounds on a quantized copy's largest probability difference
+# from the float run (tests/test_quantized.py:162 for int8, :614 for int4;
+# the mixed copy holds int4 layers).
+QUANT_BOUNDS = {"int8": 0.05, "int4": 0.15, "mixed": 0.15}
+
+
+def _dir_bytes(model_dir: str) -> int:
+    return sum(os.path.getsize(os.path.join(model_dir, f)) for f in os.listdir(model_dir)
+               if f.endswith(".safetensors"))
+
+
+# The quantized runs' common flags: bf16 compute, every layer its own shard.
+QUANT_COMMON = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda"]
+
+
+def quant_run(work: str, name: str, model_dir: str, cfg, prompts, tag: str, extra: list[str],
+              n_gen: int, ref: tuple, bound: float, needed, record: dict | None = None) -> dict:
+    """One CLI run of a quantized copy: finite distributions summing to 1,
+    every kernel in ``needed`` launched, and every probability of the first
+    generated position within ``bound`` of the bf16 run ``ref`` (scores,
+    updated, stats). Later positions follow each run's own picks, which
+    seeded random weights may tie differently. Keeps (scores, updated) in
+    ``record[tag]`` and returns its launch counts."""
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+    fresh_process_state()
+    fa.reset_launch_counts()
+    scores, updated, stats = run_cli(model_dir, work, f"quant_{name}_{tag}", prompts,
+                                     [*QUANT_COMMON, *extra], cfg.vocab_size)
+    if record is not None:
+        record[tag] = (scores, updated)
+    counts, local = fa.launch_counts(), fa.local_launch_counts()
+    _check_scores(scores, prompts, n_gen, cfg.vocab_size, f"quant {name} {tag}")
+    missing = [k for k in needed if counts[k] == 0]
+    if missing:
+        fail(f"quant {name} {tag}: kernels never launched on the main path: {missing}")
+    ref_scores, ref_up, ref_stats = ref
+    err = max(float(np.abs(a[:, 0] - b[:, 0]).max()) for a, b in zip(scores, ref_scores))
+    if not err < bound:
+        fail(f"quant {name} {tag}: first-position probabilities differ from the bf16 run's by "
+             f"{err:.4f}, over the bound {bound}")
+    same = sum(a == b for a, b in zip(updated, ref_up))
+    keys = ("wall_s", "streamed_bytes", "load_weights_time_s", "source_wait_s", "compute_wall_s",
+            "peak_mem_gb", "host_cache_hits", "host_cache_misses")
+    log(f"[quant] {name} {tag}: max |p - p_bf16| at the first position {err:.3e} (bound {bound}); "
+        f"{same} of {len(prompts)} prompts' generated text equal to bf16's; streamed bytes "
+        f"{stats['streamed_bytes'] / ref_stats['streamed_bytes']:.4f}x bf16's; "
+        + json.dumps({"run": {k: stats.get(k) for k in keys},
+                      "bf16": {k: ref_stats.get(k) for k in keys}}))
+    return {k: {"launches": counts[k], "local_launches": local[k]} for k in fa.KERNELS}
+
+
+def write_dequantized_copy(qdir: str, out: str) -> str:
+    """Every layer of the quantized checkpoint ``qdir`` dequantized to bf16
+    on the host (``checkpoint.dequantize_tree``), written with its
+    ``integrity.json``: the weights the weight source must give on the card."""
+    from flexible_llm_sharding_tpu_torch.integrity import manifest
+    from flexible_llm_sharding_tpu_torch.utils import checkpoint
+
+    os.makedirs(out, exist_ok=True)
+    shutil.copy(os.path.join(qdir, "config.json"), out)
+    entries = {}
+    for fn in sorted(os.listdir(qdir)):
+        if fn.endswith(".safetensors"):
+            name = fn[: -len(".safetensors")]
+            tree = checkpoint.dequantize_tree(checkpoint.load_layer(qdir, name), torch.bfloat16)
+            flat = dict(checkpoint.flatten(tree))
+            checkpoint.write_safetensors(os.path.join(out, fn), flat)
+            entries[name] = manifest.layer_entry(flat, fn)
+    manifest.write_manifest(out, entries)
+    return out
+
+
+def check_card_dequant(qdir: str, name: str) -> None:
+    """One layer of a quantized checkpoint dequantized to bf16 on the card as
+    the weight source does (``checkpoint.dequantize`` of the uploaded
+    leaf-group) against the host's dequant, bit for bit: each 2-D kernel
+    whole, and the first, middle and last expert of each expert stack."""
+    from flexible_llm_sharding_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    checked = []
+
+    def walk(node, path):
+        if checkpoint.is_quantized_leaf(node):
+            kind = checkpoint.quant_kind(node)
+            card = checkpoint.dequantize({k: v.cuda() for k, v in node.items()}, torch.bfloat16)
+            n = node[kind].shape[0]
+            picks = [None] if node[kind].ndim < 3 else sorted({0, n // 2, n - 1})
+            for e in picks:
+                host = checkpoint.dequantize(node if e is None else {k: v[e] for k, v in node.items()},
+                                             torch.bfloat16)
+                got = (card if e is None else card[e]).cpu()
+                if not torch.equal(got.view(torch.int16), host.view(torch.int16)):
+                    fail(f"quant: {name} {path} ({kind}{'' if e is None else f', expert {e}'}): "
+                         "the card's dequant differs from the host's")
+            checked.append(f"{path} {kind} {list(card.shape)}")
+            del card
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else k)
+
+    walk(checkpoint.load_layer(qdir, name), "")
+    if not checked:
+        fail(f"quant: {name} of {qdir} holds no quantized kernel")
+    log(f"[quant] {name}: the card's dequant equals the host's bit for bit on "
+        f"{len(checked)} kernels ({time.perf_counter() - t0:.3f} s): " + "; ".join(checked))
+
+
+def _add_launches(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        t = total.setdefault(k, {"launches": 0, "local_launches": 0})
+        t["launches"] += v["launches"]
+        t["local_launches"] += v["local_launches"]
+    return total
+
+
+def phase_quant(work: str, model_dir: str, cfg, prompts, bf16_runs: dict, n_gen_loop: int,
+                n_gen_kv: int) -> dict:
+    """The 4-layer Llama-2-7B bf16 checkpoint's int8 and int4 copies
+    (``requantize_native``) and a mixed copy planned by ``plan-precision``
+    on the card under a budget halfway between the int4 and the bf16 bytes
+    (written by its ``--apply`` and audited by ``verify``), each through
+    scoring and --kv_cache against the bf16 runs (:func:`quant_run`); then
+    the int4 copy's host dequant (:func:`write_dequantized_copy`) through
+    the same runs, which must give the int4 runs' scores and tokens bit for
+    bit. Returns the quantized runs' kernel launches."""
+    from flexible_llm_sharding_tpu_torch import cli
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native
+
+    copies = {}
+    for dt in ("int8", "int4"):
+        copies[dt] = os.path.join(work, f"llama_{dt}")
+        t0 = time.perf_counter()
+        requantize_native(model_dir, copies[dt], dtype=dt)
+        log(f"[quant] requantize_native {dt}: {_dir_bytes(copies[dt])} bytes from "
+            f"{_dir_bytes(model_dir)} in {time.perf_counter() - t0:.3f} s")
+    calib = os.path.join(work, "calib.pkl")
+    with open(calib, "wb") as f:
+        pickle.dump(prompts[:1], f)  # one prompt's four suffixes: four calibration rows
+    budget_gb = (_dir_bytes(model_dir) + _dir_bytes(copies["int4"])) / 2 / 1e9
+    copies["mixed"] = os.path.join(work, "llama_mixed")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["plan-precision", "--model_path", model_dir, "--calib_pickle", calib,
+                  "--bytes_budget_gb", f"{budget_gb:.9f}", "--json", "--apply", copies["mixed"]],
+                 tokenizer=BenchTokenizer(cfg.vocab_size))
+    plan = json.loads(buf.getvalue())
+    counts = {d: list(plan["layers"].values()).count(d) for d in ("bf16", "int8", "int4")}
+    log(f"[quant] plan-precision on the card in {time.perf_counter() - t0:.3f} s, budget "
+        f"{budget_gb:.6f} GB: {counts}, est_bytes {plan['est_bytes']} of {plan['baseline_bytes']}, "
+        f"measured divergence {plan['measured_divergence']:.3e}, cap {plan['divergence_cap']:.3e}; "
+        f"{json.dumps(plan['layers'])}")
+    if plan["est_bytes"] > budget_gb * 1e9:
+        fail(f"quant: the plan's {plan['est_bytes']} bytes exceed its budget")
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["verify", "--model_path", copies["mixed"]])
+    except SystemExit as e:
+        fail(f"quant: verify found problems in the mixed checkpoint (exit {e.code}):\n"
+             + buf.getvalue())
+    log("[quant] verify on the mixed checkpoint: " + buf.getvalue().strip().splitlines()[-1])
+    launches: dict = {}
+    runs = (("scoring", ["--num_gen_token", str(n_gen_loop)], n_gen_loop,
+             ("flash_causal_attention", "flash_prefix_shared_attention")),
+            ("kv_cache", ["--num_gen_token", str(n_gen_kv), "--kv_cache", "true"], n_gen_kv,
+             fa.KERNELS))
+    outputs: dict = {}
+    deq = os.path.join(work, "llama_int4_dequantized")
+    try:
+        for dt, qdir in copies.items():
+            for tag, extra, n_gen, needed in runs:
+                _add_launches(launches, quant_run(work, dt, qdir, cfg, prompts, tag, extra, n_gen,
+                                                  bf16_runs[tag], QUANT_BOUNDS[dt], needed,
+                                                  record=outputs.setdefault(dt, {})))
+        t0 = time.perf_counter()
+        write_dequantized_copy(copies["int4"], deq)
+        log(f"[quant] wrote the int4 copy's host dequant as bf16 ({_dir_bytes(deq)} bytes) in "
+            f"{time.perf_counter() - t0:.3f} s")
+        for tag, extra, _, _ in runs:
+            fresh_process_state()
+            scores, updated, _ = run_cli(deq, work, f"quant_int4_dequantized_{tag}", prompts,
+                                         [*QUANT_COMMON, *extra], cfg.vocab_size)
+            q_scores, q_up = outputs["int4"][tag]
+            if updated != q_up or not all(np.array_equal(a, b) for a, b in zip(scores, q_scores)):
+                err = max(float(np.abs(a - b).max()) for a, b in zip(scores, q_scores))
+                fail(f"quant int4 {tag}: the host-dequantized bf16 copy differs from the int4 run "
+                     f"(tokens equal: {updated == q_up}, max_abs_err {err:.3e})")
+            log(f"[quant] int4 {tag}: the host-dequantized bf16 copy gives the int4 run's scores "
+                "and tokens bit for bit")
+    finally:
+        for qdir in (*copies.values(), deq):
+            shutil.rmtree(qdir, ignore_errors=True)
     return launches
 
 
@@ -1488,6 +1751,7 @@ def phase_decode(work: str) -> dict:
             outputs[tag] = (scores, updated)
             log(f"[decode] {tag} stats " + json.dumps({k: stats.get(k) for k in STAT_KEYS}))
             log(f"[decode] {tag} host " + json.dumps(host) + " kernels " + json.dumps(counts))
+        pinned = phase_pins(work, model_dir, cfg, prompts)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     ref, ref_up = outputs["defaults"]
@@ -1496,11 +1760,66 @@ def phase_decode(work: str) -> dict:
             fail(f"decode {tag}: the generated tokens differ from the defaults'")
         err = max(float(np.abs(a - b).max()) for a, b in zip(ref, scores))
         log(f"[decode] {tag}: tokens equal the defaults', max_abs_err {err:.3e}")
+    return _add_launches(launches, pinned)
+
+
+def phase_pins(work: str, model_dir: str, cfg, prompts) -> dict:
+    """The residency tier at 32 layers: scoring with --num_gen_token 4 (four
+    weight passes) at --hbm_pin_gb 0, 6 and auto. Every run's scores must
+    equal the unpinned run's bit for bit, and its streamed bytes must fall by
+    the pinned layers' bytes on every pass but the first (which loads the
+    pins). Returns the runs' kernel launches."""
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+    n_gen = 4
+    common = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda",
+              "--num_gen_token", str(n_gen)]
+    launches: dict = {}
+    ref = None
+    for budget in ("0", "6", "auto"):
+        fresh_process_state()
+        fa.reset_launch_counts()
+        scores, updated, stats = run_cli(model_dir, work, f"pins_{budget}", prompts,
+                                         [*common, "--hbm_pin_gb", budget], cfg.vocab_size)
+        counts, local = fa.launch_counts(), fa.local_launch_counts()
+        _check_scores(scores, prompts, n_gen, cfg.vocab_size, f"pins {budget}")
+        scoring = ("flash_causal_attention", "flash_prefix_shared_attention")
+        if any(counts[k] == 0 for k in scoring):
+            fail(f"pins {budget}: a scoring kernel never launched: {counts}")
+        _add_launches(launches, {k: {"launches": counts[k], "local_launches": local[k]}
+                                 for k in fa.KERNELS})
+        res = stats.get("residency") or {}
+        log(f"[pins] --hbm_pin_gb {budget}: " + json.dumps(
+            {**{k: stats.get(k) for k in ("wall_s", "streamed_bytes", "stream_bytes_saved",
+                                          "pinned_bytes", "load_weights_time_s", "peak_mem_gb",
+                                          "host_cache_hits", "host_cache_misses")},
+             **{k: res.get(k) for k in ("pinned_layers", "planned_layers", "pin_loads",
+                                        "pin_failures", "budget_bytes")}}))
+        if ref is None:
+            ref = (scores, updated, stats)
+            if stats.get("pinned_bytes"):
+                fail("pins 0: --hbm_pin_gb 0 pinned a layer")
+            continue
+        if not all(np.array_equal(a, b) for a, b in zip(ref[0], scores)) or updated != ref[1]:
+            fail(f"pins {budget}: scores differ from the unpinned run's")
+        saved = stats.get("stream_bytes_saved", 0)
+        if not res.get("pinned_layers") or res.get("pin_failures"):
+            fail(f"pins {budget}: the tier pinned nothing or failed a pin: {res}")
+        # Each pass skips the pinned bytes; the first pass also loaded them.
+        if ref[2]["streamed_bytes"] - stats["streamed_bytes"] != saved * (n_gen - 1) // n_gen:
+            fail(f"pins {budget}: streamed {stats['streamed_bytes']} against "
+                 f"{ref[2]['streamed_bytes']} unpinned, saving {saved}: not the pinned bytes per pass")
+        if budget == "auto" and res.get("pinned_layers") != cfg.num_hidden_layers + 3:
+            fail(f"pins auto: {res.get('pinned_layers')} layers pinned, not the whole model")
+        log(f"[pins] --hbm_pin_gb {budget}: scores equal the unpinned run's bit for bit; "
+            f"{res.get('pinned_layers')} layers pinned, {saved / n_gen} bytes saved per pass")
+    fresh_process_state()
     return launches
 
 
 def main() -> None:
     from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native
 
     smi = phase_device()
     phase_build()
@@ -1534,12 +1853,20 @@ def main() -> None:
     try:
         phase_cross(work)
         phase_host(work)
+        llama_cfg = LlamaConfig(num_hidden_layers=4)
+        llama_runs: dict = {}
         paths = {
-            "llama2_7b": phase_full(work, "llama2-7b", LlamaConfig(num_hidden_layers=4), prompts,
-                                    n_gen_loop, n_gen_kv, compare_modes=True),
+            "llama2_7b": phase_full(work, "llama2-7b", llama_cfg, prompts, n_gen_loop, n_gen_kv,
+                                    compare_modes=True, record=llama_runs),
+        }
+        llama_dir = os.path.join(work, "llama2-7b")
+        paths["llama2_7b_quant"] = phase_quant(work, llama_dir, llama_cfg, prompts, llama_runs,
+                                               n_gen_loop, n_gen_kv)
+        shutil.rmtree(llama_dir, ignore_errors=True)
+        paths.update({
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,
                                      gemma_kv),
-        }
+        })
         split_dir, split_cfg = phase_split(work, "gemma3-12b", gemma12_text)
         if split_cfg != gemma12_cfg:
             fail(f"the split gemma3-12b config differs from the bundle's: {split_cfg}")
@@ -1549,8 +1876,22 @@ def main() -> None:
         nbytes, secs = write_streamed_checkpoint(ds_dir, ds_cfg, seed=0)
         log(f"[full] wrote a seeded bf16 deepseek-v3-width checkpoint with {ds_cfg.num_hidden_layers} "
             f"decoder layers ({nbytes} bytes, one layer file at a time) in {secs:.3f} s")
+        ds_q4 = os.path.join(work, "deepseek-v3-int4")
+        t0 = time.perf_counter()
+        requantize_native(ds_dir, ds_q4, dtype="int4")
+        log(f"[quant] requantize_native int4 of deepseek-v3: {_dir_bytes(ds_q4)} bytes from "
+            f"{nbytes} in {time.perf_counter() - t0:.3f} s")
+        # Layers 0-2 are dense; layer 3 holds the 256-expert stacks.
+        check_card_dequant(ds_q4, f"model.layers.{ds_cfg.num_hidden_layers - 1}")
+        ds_runs: dict = {}
         paths["deepseek_v3"] = phase_full(work, "deepseek-v3", ds_cfg, gemma_prompts, ds_loop, ds_kv,
-                                          model_dir=ds_dir)
+                                          model_dir=ds_dir, record=ds_runs)
+        shutil.rmtree(ds_dir, ignore_errors=True)
+        paths["deepseek_v3_int4"] = quant_run(
+            work, "deepseek-v3-int4", ds_q4, ds_cfg, gemma_prompts, "kv_cache",
+            ["--num_gen_token", str(ds_kv), "--kv_cache", "true"], ds_kv, ds_runs["kv_cache"],
+            QUANT_BOUNDS["int4"], ("flash_causal_attention", "flash_prefix_shared_attention"))
+        shutil.rmtree(ds_q4, ignore_errors=True)
         paths["llama2_7b_32_layers"] = phase_decode(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -21,8 +21,18 @@ take the JAX CLI's defaults: weights stay on the card after prefill when
 they fit (``--decode_resident auto``), the KV beside them, and a block's
 greedy steps run on the device as one CUDA graph (``--decode_fused auto``;
 uncaptured for models with MoE layers); ``--speculative_k N`` verifies N
-prompt-lookup drafts per pass. ``verify`` audits a model directory and/or
-a spill directory and exits 2 on any problem.
+prompt-lookup drafts per pass. ``--hbm_pin_gb`` (default 0, off; ``auto``
+= the card's free memory less 35% of its total) keeps the layers that
+stream the most bytes on the card and streams the rest. int8, int4 and
+mixed-precision checkpoints (``prepare_weights --dtype int8|int4``,
+``--precision_plan``) stream packed and are dequantized on the card.
+
+``verify`` audits a model directory (its precision plan included) and/or a
+spill directory and exits 2 on any problem; ``verify --hbm_pin_gb N``
+dry-runs the residency planner. ``plan-precision`` probes each layer's
+sensitivity on a calibration batch and plans an int4/int8/bf16 dtype per
+layer under a byte budget or a divergence cap (``--apply`` writes the
+mixed checkpoint).
 """
 
 from __future__ import annotations
@@ -114,6 +124,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "device, as one CUDA graph unless the model has MoE layers (on-device "
                         "argmax, zero per-token host round-trips); 'on' errors if the "
                         "preconditions don't hold")
+    p.add_argument("--hbm_pin_gb", type=_float_or_auto, default=0.0,
+                   help="device residency tier budget in GB: pin the hottest layers (embedding, "
+                        "lm_head, norms, then as many transformer blocks as fit) on the card "
+                        "and stream only the rest; every pass's host->device traffic drops by "
+                        "exactly the pinned bytes, outputs token-identical. 'auto' = the "
+                        "card's free memory minus activation headroom (off on the CPU); 0 "
+                        "(default) = off. Quantized layers are charged packed and pinned "
+                        "dequantized")
     p.add_argument("--speculative_k", type=int, default=0,
                    help="kv_cache mode: verify this many prompt-lookup drafted tokens per "
                         "streamed pass (greedy-exact; divides weight streams per token by the "
@@ -132,6 +150,13 @@ def build_verify_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", type=str, default=None, help="prepared per-layer checkpoint dir")
     p.add_argument("--spill_dir", type=str, default=None,
                    help="activation spill dir (--disk_folder of a run)")
+    p.add_argument("--hbm_pin_gb", type=str, default=None,
+                   help="dry-run the device residency planner at this budget (GB, or 'auto' "
+                        "for the card's free memory minus headroom): reports which layers the "
+                        "budget would pin and the bytes each pass would skip; requires "
+                        "--model_path. Nothing is loaded or pinned")
+    p.add_argument("--json", action="store_true",
+                   help="print the reports (and the residency plan) as one JSON object")
     return p
 
 
@@ -140,6 +165,8 @@ def verify_main(argv: list[str] | None = None) -> None:
     args = build_verify_parser().parse_args(argv)
     if not args.model_path and not args.spill_dir:
         raise SystemExit("verify: give --model_path and/or --spill_dir")
+    if args.hbm_pin_gb is not None and not args.model_path:
+        raise SystemExit("verify: --hbm_pin_gb requires --model_path")
     from flexible_llm_sharding_tpu_torch.integrity.verify import (
         format_report,
         verify_model_dir,
@@ -151,10 +178,123 @@ def verify_main(argv: list[str] | None = None) -> None:
         reports.append(verify_model_dir(args.model_path))
     if args.spill_dir:
         reports.append(verify_spill_dir(args.spill_dir))
-    for r in reports:
-        print(format_report(r))
+    residency_plan = None
+    if args.hbm_pin_gb is not None:
+        from flexible_llm_sharding_tpu_torch.runtime.residency import (
+            auto_pin_budget_bytes,
+            plan_report,
+        )
+
+        if args.hbm_pin_gb.lower() == "auto":
+            budget = auto_pin_budget_bytes()
+        else:
+            try:
+                gb = float(args.hbm_pin_gb)
+            except ValueError:
+                raise SystemExit(
+                    f"verify: --hbm_pin_gb must be a GB number or 'auto', got {args.hbm_pin_gb!r}"
+                ) from None
+            if gb < 0:
+                raise SystemExit("verify: --hbm_pin_gb must be >= 0")
+            budget = int(gb * 1e9)
+        residency_plan = plan_report(args.model_path, budget)
+    if args.json:
+        out: dict = {"reports": reports}
+        if residency_plan is not None:
+            out["residency_plan"] = residency_plan
+        print(json.dumps(out))
+    else:
+        for r in reports:
+            print(format_report(r))
+        if residency_plan is not None:
+            rp = residency_plan
+            print(
+                f"residency plan @ {rp['budget_gb']} GB: pins {rp['pinned_layers']}/"
+                f"{rp['total_layers']} layers, {rp['pinned_bytes'] / 1e9:.3f} GB "
+                f"({rp['pinned_fraction']:.1%} of streamed bytes) — saves "
+                f"{rp['stream_bytes_saved_per_sweep'] / 1e9:.3f} GB of host->HBM traffic per sweep"
+            )
+            for entry in rp["pinned"]:
+                print(f"  pin {entry['layer']}  {entry['bytes']} bytes")
     if not all(r["ok"] for r in reports):
         raise SystemExit(2)
+
+
+def build_plan_precision_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m flexible_llm_sharding_tpu_torch plan-precision",
+        description="Mixed-precision calibration: probe each layer's sensitivity on a "
+                    "calibration batch (one layer at a time quantized against the bf16 oracle), "
+                    "plan an int4/int8/bf16 dtype per layer under a bytes-per-pass budget OR a "
+                    "divergence cap, and emit the PrecisionPlan (optionally writing the mixed "
+                    "checkpoint).",
+    )
+    p.add_argument("--model_path", type=str, required=True,
+                   help="FLOAT native per-layer checkpoint dir (quantized dirs are rejected)")
+    p.add_argument("--calib_pickle", type=str, required=True,
+                   help="calibration prompts pickle, the batch CLI's [(prefix, (suffixes...)), "
+                        "...] format")
+    p.add_argument("--calib_limit", type=int, default=8,
+                   help="use at most this many calibration prompts (the probe runs one forward "
+                        "per layer per candidate dtype)")
+    p.add_argument("--bytes_budget_gb", type=float, default=None,
+                   help="plan mode 1: fit the pass under this many GB of streamed weight bytes, "
+                        "minimizing divergence")
+    p.add_argument("--divergence_cap", type=float, default=None,
+                   help="plan mode 2: minimize streamed bytes subject to this cap on "
+                        "calibration next-token KL vs the bf16 oracle")
+    p.add_argument("--out", type=str, default=None,
+                   help="write the plan JSON here (default: print only)")
+    p.add_argument("--apply", type=str, default=None,
+                   help="also write the mixed checkpoint into this dir "
+                        "(requantize_native(plan=...): the plan and the per-layer dtype "
+                        "manifest are embedded)")
+    p.add_argument("--json", action="store_true", help="emit the plan as JSON on stdout")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="where the probe's forwards run: cuda (default) or cpu")
+    return p
+
+
+def plan_precision_main(argv: list[str] | None = None, tokenizer=None):
+    """The ``plan-precision`` subcommand; returns the plan."""
+    args = build_plan_precision_parser().parse_args(argv)
+    if (args.bytes_budget_gb is None) == (args.divergence_cap is None):
+        raise SystemExit("plan-precision: give exactly one of --bytes_budget_gb / --divergence_cap")
+    from flexible_llm_sharding_tpu_torch.runtime.precisionplan import build_plan
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native
+
+    device = resolve_device(args.device)
+    with open(args.calib_pickle, "rb") as f:
+        prompts = pickle.load(f)
+    prompts = prompts[: max(1, args.calib_limit)]
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(args.model_path)
+    plan = build_plan(
+        args.model_path, prompts, tokenizer,
+        bytes_budget=(int(args.bytes_budget_gb * 1e9) if args.bytes_budget_gb is not None
+                      else None),
+        divergence_cap=args.divergence_cap, device=device,
+    )
+    if args.out:
+        plan.write(args.out)
+    if args.json:
+        print(json.dumps(plan.to_json()))
+    else:
+        counts = plan.counts()
+        print(
+            f"plan: {counts['bf16']} bf16 / {counts['int8']} int8 / {counts['int4']} int4 layers "
+            f"— {plan.est_bytes / 1e9:.3f} GB/sweep vs {plan.baseline_bytes / 1e9:.3f} GB "
+            f"uniform bf16 ({plan.bytes_saved_frac:.1%} saved); measured divergence "
+            f"{plan.measured_divergence:.3e} (declared cap {plan.divergence_cap:.3e})"
+        )
+        for name, dt in plan.layers:
+            print(f"  {dt:>5}  {name}")
+    if args.apply:
+        done = requantize_native(args.model_path, args.apply, plan=plan)
+        print(f"materialized {len(done)} mixed-precision layers -> {args.apply}", file=sys.stderr)
+    return plan
 
 
 def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
@@ -187,6 +327,7 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         decode_resident=args.decode_resident,
         decode_fused=args.decode_fused,
         speculative_k=args.speculative_k,
+        hbm_pin_gb=args.hbm_pin_gb,
     )
 
 
@@ -198,10 +339,11 @@ def _updated_path(p: str) -> str:
 # The KV decoder's mode flags and speculative counters, from its last call.
 _DECODE_KEYS = ("decode_resident", "decode_fused", "decode_speculative", "decode_kv_on_device",
                 "decode_graph", "spec_passes", "spec_drafted", "spec_accepted")
-# Host-path counters of the executor's stats, summed over its calls.
+# Host-path and residency counters of the executor's stats, summed over
+# its calls.
 _SUMMED_HOST_KEYS = ("io_retries", "integrity_failures", "reread_heals", "quarantined_shards",
                      "host_cache_hits", "host_cache_misses", "crc_verdict_hits",
-                     "crc_full_verifies")
+                     "crc_full_verifies", "pin_hits", "stream_bytes_saved")
 
 
 def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
@@ -210,6 +352,9 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "verify":
         return verify_main(argv[1:])
+    if argv and argv[0] == "plan-precision":
+        plan_precision_main(argv[1:], tokenizer=tokenizer)
+        return None
     args = build_parser().parse_args(argv)
     try:
         cfg = config_from_args(args)
@@ -281,9 +426,16 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     looked_up = stats.get("host_cache_hits", 0.0) + stats.get("host_cache_misses", 0.0)
     if looked_up:
         stats["host_cache_hit_rate"] = round(stats["host_cache_hits"] / looked_up, 4)
-    peaks = [c["peak_mem_gb"] for c in calls if "peak_mem_gb" in c]
-    if peaks:
-        stats["peak_mem_gb"] = max(peaks)
+    # Each call's peak is floored at the pins it saw; pins only grow.
+    for key in ("peak_mem_gb", "pinned_bytes"):
+        seen = [c[key] for c in calls if key in c]
+        if seen:
+            stats[key] = max(seen)
+    from flexible_llm_sharding_tpu_torch.runtime.residency import process_tier
+
+    tier = process_tier()
+    if tier is not None:
+        stats["residency"] = tier.stats()
     rss = host_rss_gib()
     stats["peak_host_rss_gib"] = rss["peak"]
     if "rss" in rss:
@@ -292,4 +444,5 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     return stats
 
 
-__all__ = ["build_parser", "build_verify_parser", "main", "verify_main"]
+__all__ = ["build_parser", "build_plan_precision_parser", "build_verify_parser", "main",
+           "plan_precision_main", "verify_main"]

@@ -590,6 +590,12 @@ class FrameworkConfig:
     and within the memory budget; ``on`` raises when that does not hold);
     ``speculative_k`` verifies that many prompt-lookup drafts per pass
     (greedy only; 0 = off; the fused steps take precedence).
+
+    ``hbm_pin_gb``: the residency tier's budget in GB (``runtime/
+    residency.py``): the layers that stream the most bytes per pass are
+    loaded once and kept on the card, and every pass streams only the rest.
+    0 (the default) is off; None is auto: the card's free memory less 35%
+    of its total, off on the CPU.
     """
 
     model_path: str = "./"
@@ -620,6 +626,7 @@ class FrameworkConfig:
     decode_resident: str = "auto"  # 'auto' | 'on' | 'off'
     decode_fused: str = "auto"  # 'auto' | 'on' | 'off'
     speculative_k: int = 0
+    hbm_pin_gb: float | None = 0.0
 
     def __post_init__(self) -> None:
         if self.storage_location not in STORAGE_LOCATIONS:
@@ -653,6 +660,9 @@ class FrameworkConfig:
                 f"host_cache_gb must be >= 0 (or None for auto), got {self.host_cache_gb}")
         if self.readahead_threads < 0:
             raise ValueError("readahead_threads must be >= 0")
+        if self.hbm_pin_gb is not None and self.hbm_pin_gb < 0:
+            raise ValueError(
+                f"hbm_pin_gb must be >= 0 (or None for auto), got {self.hbm_pin_gb}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -666,6 +676,16 @@ class FrameworkConfig:
         from flexible_llm_sharding_tpu_torch.runtime.hostcache import auto_budget_bytes
 
         return auto_budget_bytes()
+
+    def effective_hbm_pin_bytes(self, device=None) -> int:
+        """The residency tier's budget in bytes: ``hbm_pin_gb`` GB when
+        given (0 = off), else auto on ``device``. (The JAX package also
+        turns auto off under fault injection, which the port has not yet.)"""
+        if self.hbm_pin_gb is not None:
+            return int(self.hbm_pin_gb * 1e9)
+        from flexible_llm_sharding_tpu_torch.runtime.residency import auto_pin_budget_bytes
+
+        return auto_pin_budget_bytes(device)
 
     def decode_resident_enabled(self, model_cfg: LlamaConfig, n_weight_chips: int = 1,
                                 device=None) -> bool:

@@ -162,7 +162,10 @@ def _dtype_name(x) -> str:
     return str(x.dtype).removeprefix("torch.") if isinstance(x, torch.Tensor) else x.dtype.name
 
 
-def _is_float(x) -> bool:
+def is_float_like(x) -> bool:
+    """True for floating tensors (torch or numpy, bfloat16 included): the
+    one test of "does this tensor cast or quantize" that the dtype kind,
+    the quantizers and the precision planner share."""
     if isinstance(x, torch.Tensor):
         return x.is_floating_point()
     dt = np.asarray(x).dtype
@@ -181,7 +184,7 @@ def flat_dtype_kind(flat: dict) -> str:
     best = None
     for k in sorted(keys):
         a = flat[k]
-        if _is_float(a) and (best is None or _nbytes(a) > _nbytes(best)):
+        if is_float_like(a) and (best is None or _nbytes(a) > _nbytes(best)):
             best = a
     return _dtype_name(best) if best is not None else "none"
 
@@ -407,6 +410,7 @@ __all__ = [
     "crc32_combine",
     "flat_dtype_kind",
     "invalidate_verdict",
+    "is_float_like",
     "layer_entry",
     "load_manifest",
     "manifest_digest",

@@ -1,12 +1,15 @@
 """Offline integrity audit, the ``verify`` subcommand's engine (the JAX
-package's ``integrity/verify.py``, less the precision-plan audit, which
-comes with ROADMAP 3.5, and the adapter audit, item 7).
+package's ``integrity/verify.py``, less the adapter audit, ROADMAP item 7).
 
 Recomputes every checksum of a prepared model directory against its
 ``integrity.json``, and of a spill directory against the ``.npy``
 sidecars. Unlike the load path, the audit is strict: a layer in the
 manifest but not on disk, a layer file the manifest lacks, and tensor-set
-differences are all problems.
+differences are all problems. A directory with an embedded precision plan
+is audited against it both ways: the plan against the manifest's recorded
+dtype kinds, each file's stored kind against its planned dtype, and the
+plan's coverage of the layer files (``corrupt_plan``,
+``precision_mismatch``, ``plan_missing_file``, ``not_in_plan``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,12 @@ import os
 import numpy as np
 
 from flexible_llm_sharding_tpu_torch.integrity import manifest as iman
+from flexible_llm_sharding_tpu_torch.runtime.precisionplan import (
+    PLAN_KIND_ACCEPTS,
+    PLAN_NAME,
+    PrecisionPlan,
+    plan_manifest_problems,
+)
 from flexible_llm_sharding_tpu_torch.utils.checkpoint import (
     _ST_TO_TORCH,
     LAYER_FILE_SUFFIX,
@@ -44,12 +53,64 @@ def stored_bytes(path: str) -> dict[str, np.ndarray]:
     return out
 
 
+def file_dtype_kind(path: str) -> str:
+    """A layer file's storage-dtype kind from its header alone (the rule of
+    ``manifest.flat_dtype_kind``: 'int4'/'int8' by scale twins, else the
+    dtype of the largest float tensor, the first in key order on a tie,
+    else 'none')."""
+    header, _ = safetensors_header(path)
+    if any(k.endswith(iman.QUANT4_SCALE_SUFFIX) for k in header):
+        return "int4"
+    if any(k.endswith(iman.QUANT_SCALE_SUFFIX) for k in header):
+        return "int8"
+    best = None
+    for k in sorted(header):
+        dt = _ST_TO_TORCH.get(header[k]["dtype"])
+        if dt is None or not dt.is_floating_point:
+            continue
+        n = int(np.prod(header[k]["shape"], dtype=np.int64)) * dt.itemsize
+        if best is None or n > best[0]:
+            best = (n, dt)
+    return str(best[1]).removeprefix("torch.") if best is not None else "none"
+
+
+def _load_plan(model_dir: str):
+    """(PrecisionPlan or None, problems): a corrupt or unreadable plan is
+    reported, not raised, so the audit walks the rest of the directory."""
+    try:
+        return PrecisionPlan.load(model_dir), []
+    except ValueError as e:
+        return None, [_problem(PLAN_NAME, "corrupt_plan", str(e))]
+    except OSError as e:
+        return None, [_problem(PLAN_NAME, "corrupt_plan", f"unreadable: {e}")]
+
+
+def _check_plan_layer(plan: PrecisionPlan, layer: str, fname: str, path: str,
+                      problems: list) -> int:
+    """One layer file's stored kind against its planned dtype; 1 when the
+    plan covers the layer (the coverage pass reports the rest)."""
+    plan_dtype = plan.dtypes.get(layer)
+    if plan_dtype is None:
+        return 0
+    accepted = PLAN_KIND_ACCEPTS.get(plan_dtype, ())
+    got = file_dtype_kind(path)
+    if got not in accepted:
+        problems.append(_problem(
+            fname, "precision_mismatch",
+            f"layer {layer!r} stores dtype kind {got!r}; the embedded plan declares "
+            f"{plan_dtype!r} (accepts {list(accepted)})"))
+    return 1
+
+
 def verify_model_dir(model_dir: str) -> dict:
     """Audit a prepared per-layer checkpoint directory. Returns ``{"path",
     "ok", "layers_checked", "tensors_checked", "problems": [{"file",
-    "status", "detail"}, ...]}``; statuses ``no_manifest`` |
-    ``corrupt_manifest`` | ``missing_file`` | ``not_in_manifest`` |
-    ``unreadable`` | ``tensor_diff`` | ``mismatch``."""
+    "status", "detail"}, ...]}``, plus ``plan_layers_checked`` and
+    ``plan_divergence_cap`` when it embeds a precision plan; statuses
+    ``no_manifest`` | ``corrupt_manifest`` | ``missing_file`` |
+    ``not_in_manifest`` | ``corrupt_plan`` | ``precision_mismatch`` |
+    ``unreadable`` | ``tensor_diff`` | ``mismatch`` | ``plan_missing_file``
+    | ``not_in_plan``."""
     problems: list[dict] = []
     layers_checked = tensors_checked = 0
     try:
@@ -74,14 +135,23 @@ def verify_model_dir(model_dir: str) -> dict:
             problems.append(_problem(
                 layer + LAYER_FILE_SUFFIX, "not_in_manifest",
                 f"layer file {layer!r} exists on disk but the manifest has no entry for it"))
+    plan, plan_problems = _load_plan(model_dir)
+    problems.extend(plan_problems)
+    if plan is not None:
+        for layer, detail in plan_manifest_problems(plan, manifest):
+            problems.append(_problem(layer + LAYER_FILE_SUFFIX, "precision_mismatch", detail))
+    plan_layers_checked = 0
     for layer in sorted(man_layers.keys() & disk_layers):
         fname = layer + LAYER_FILE_SUFFIX
+        path = os.path.join(model_dir, fname)
         try:
-            flat = stored_bytes(os.path.join(model_dir, fname))
+            flat = stored_bytes(path)
         except Exception as e:  # truncated header, bad JSON, offsets past the end
             problems.append(_problem(fname, "unreadable", repr(e)))
             continue
         layers_checked += 1
+        if plan is not None:
+            plan_layers_checked += _check_plan_layer(plan, layer, fname, path, problems)
         want = man_layers[layer].get("tensors", {})
         missing = sorted(want.keys() - flat.keys())
         extra = sorted(flat.keys() - want.keys())
@@ -100,8 +170,21 @@ def verify_model_dir(model_dir: str) -> dict:
             if got != meta["c"]:
                 problems.append(_problem(fname, "mismatch",
                                          f"tensor {key!r}: checksum {got} != manifest {meta['c']}"))
-    return {"path": model_dir, "ok": not problems, "layers_checked": layers_checked,
-            "tensors_checked": tensors_checked, "problems": problems}
+    if plan is not None:
+        for layer in sorted(set(plan.dtypes) - disk_layers):
+            problems.append(_problem(layer + LAYER_FILE_SUFFIX, "plan_missing_file",
+                                     f"precision plan covers layer {layer!r} but its file is gone"))
+        for layer in sorted(disk_layers - set(plan.dtypes)):
+            problems.append(_problem(
+                layer + LAYER_FILE_SUFFIX, "not_in_plan",
+                f"layer file {layer!r} exists on disk but the embedded precision plan has no "
+                "entry for it"))
+    report = {"path": model_dir, "ok": not problems, "layers_checked": layers_checked,
+              "tensors_checked": tensors_checked, "problems": problems}
+    if plan is not None:
+        report["plan_layers_checked"] = plan_layers_checked
+        report["plan_divergence_cap"] = plan.divergence_cap
+    return report
 
 
 def verify_spill_dir(spill_dir: str) -> dict:
@@ -148,4 +231,5 @@ def format_report(report: dict) -> str:
     return "\n".join(lines)
 
 
-__all__ = ["format_report", "stored_bytes", "verify_model_dir", "verify_spill_dir"]
+__all__ = ["file_dtype_kind", "format_report", "stored_bytes", "verify_model_dir",
+           "verify_spill_dir"]

@@ -31,8 +31,12 @@ The decode modes, with the JAX batch CLI's defaults:
   walk of the model and accepts the longest draft prefix the greedy chain
   confirms, emitting 1..K+1 tokens (:class:`SpecVerifier`).
 
-The KV pool, adapters, the residency tier and the multi-device modes are
-not part of this port yet.
+A streamed decode (not resident) takes the process residency tier: every
+pass, the prefill's and each step's, skips the pinned layers. A resident
+decode does not, as in the JAX package: every placed shard stays already.
+
+The KV pool, adapters and the multi-device modes are not part of this port
+yet.
 """
 
 from __future__ import annotations
@@ -53,7 +57,6 @@ from flexible_llm_sharding_tpu_torch.runtime.executor import (
     _tree_map,
     block_meta,
     first_decoder,
-    peak_mem_gb,
     sync,
 )
 from flexible_llm_sharding_tpu_torch.runtime.generation import make_picker
@@ -367,6 +370,12 @@ class DecodeGenerator(StreamingExecutor):
         # to the host, which a capture cannot hold.
         self._graph_ok = not metrics.has_moe_layers(self.model_cfg)
 
+    def _pin_tier(self):
+        # A resident decode keeps every placed shard: the tier is moot.
+        if self.cfg.decode_resident_enabled(self.model_cfg, 1, self.device):
+            return None
+        return super()._pin_tier()
+
     def _fused_budget_ok(self, toks, blocks, n_gen: int, gen_slots: int,
                          kv_on_device: bool) -> bool:
         """Whether the fused steps' device footprint fits 80% of the card:
@@ -647,9 +656,7 @@ class DecodeGenerator(StreamingExecutor):
         }
         if speculative:
             self.stats.update(spec_stats)
-        peak = peak_mem_gb(self.device)
-        if peak is not None:
-            self.stats["peak_mem_gb"] = peak
+        host_stats.read_peak(self.stats)
         self.stats_history.append(dict(self.stats))
 
         scores_out: list[np.ndarray] = [None] * len(prompts)  # type: ignore[list-item]

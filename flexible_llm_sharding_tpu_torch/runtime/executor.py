@@ -11,8 +11,14 @@ page-locked host memory and uploads it on a side CUDA stream; an event
 orders each upload before the compute that reads it. As in the JAX batch
 CLI's defaults, every read retries, is verified against ``integrity.json``
 and is served from the process host shard cache when a pass has read it
-before, with the next shard's files read ahead into the page cache. The
-residency tier, quantized streaming and resume (ROADMAP 3.4-3.6), and
+before, with the next shard's files read ahead into the page cache.
+
+Quantized checkpoints (int8, int4, per-layer plans) cross the link packed
+and are dequantized to the compute dtype on the device, on the upload
+stream, before the shard's event: the compute stream never sees a packed
+tensor. With a residency tier (``runtime/residency.py``, ``hbm_pin_gb``)
+the pinned layers are loaded once, kept on the device, subtracted from
+every shard build and merged back in layer order. Resume (ROADMAP 3.6) and
 fault injection (item 8) are not part of this port yet.
 """
 
@@ -34,6 +40,7 @@ from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_mani
 from flexible_llm_sharding_tpu_torch.integrity.manifest import ChecksumMismatch, ShardCorruptError
 from flexible_llm_sharding_tpu_torch.models import llama
 from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
+from flexible_llm_sharding_tpu_torch.runtime import residency
 from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import (
     HostShardCache,
@@ -94,6 +101,72 @@ class SourceClosed(RuntimeError):
     """The weight source was closed while a consumer waited on it."""
 
 
+# Process-wide counters: host bytes built for upload, and tied lm_head
+# requantizations (a dequant, transpose and int8 requant of [V, D], cached
+# per source and in the host cache, so a warm process performs none).
+_PROCESS_STREAM_LOCK = threading.Lock()
+_PROCESS_TIED_REQUANTS = [0]
+
+
+def process_tied_head_requants() -> int:
+    return _PROCESS_TIED_REQUANTS[0]
+
+
+def reset_process_tied_head_requants() -> None:
+    with _PROCESS_STREAM_LOCK:
+        _PROCESS_TIED_REQUANTS[0] = 0
+
+
+def _check_precision_plan(model_path: str, manifest: dict) -> None:
+    """Hold a checkpoint's embedded ``PrecisionPlan`` against the manifest's
+    recorded dtype kinds; a disagreement, or a plan that is corrupt or
+    unreadable, raises ``PrecisionMismatch``. No plan file: a uniform
+    checkpoint, nothing to check."""
+    from flexible_llm_sharding_tpu_torch.runtime.precisionplan import (
+        PrecisionPlan,
+        plan_manifest_problems,
+    )
+
+    try:
+        plan = PrecisionPlan.load(model_path)
+    except (ValueError, OSError) as e:
+        raise integrity_manifest.PrecisionMismatch(str(e)) from e
+    if plan is None:
+        return
+    problems = plan_manifest_problems(plan, manifest)
+    if problems:
+        raise integrity_manifest.PrecisionMismatch(
+            f"{model_path}: {problems[0][1]} — the checkpoint does not match its embedded "
+            "precision plan (audit with the `verify` subcommand)"
+        )
+
+
+def _stream_only(idxs, pinned: frozenset) -> tuple[int, ...]:
+    """A shard's layers that still stream (the readahead targets)."""
+    return tuple(i for i in idxs if i not in pinned)
+
+
+def _split_parts(layer_idxs: tuple[int, ...], pinned: frozenset) -> list[tuple[str, Any]]:
+    """One shard's build plan in layer order: ``("stream", (idx, ...))``
+    runs and ``("pin", idx)`` markers. With no pin in the shard it is one
+    stream part of the whole shard, the unpinned build byte for byte."""
+    if not any(i in pinned for i in layer_idxs):
+        return [("stream", tuple(layer_idxs))]
+    parts: list[tuple[str, Any]] = []
+    run: list[int] = []
+    for i in layer_idxs:
+        if i in pinned:
+            if run:
+                parts.append(("stream", tuple(run)))
+                run = []
+            parts.append(("pin", i))
+        else:
+            run.append(i)
+    if run:
+        parts.append(("stream", tuple(run)))
+    return parts
+
+
 class ShardWeightSource:
     """Shard weights, disk -> host -> device, optionally prefetched (the
     JAX package's ``_HostShardLoader`` and weight source, single device).
@@ -102,25 +175,33 @@ class ShardWeightSource:
     a list of ``(kind, params)``: ``("embed", {"embedding"})``,
     ``("decoders", [layer dict, ...])``, ``("norm", {"scale"})``,
     ``("head", {"kernel"})``. Weights arrive cast to ``dtype`` on
-    ``device``.
+    ``device``; quantized leaf-groups are uploaded packed and dequantized
+    there (on the upload stream on a card, before the shard's event).
 
     Every layer read retries under ``retry_policy`` and, with
     ``verify_weights``, is checked against the directory's
     ``integrity.json`` (a directory without one warns and loads
-    unverified). A mismatch is retried like an I/O error; one that survives
-    two or more reads quarantines the file, drops it from ``host_cache`` and
-    from the verdict cache, and raises ``ShardCorruptError``. With
-    ``host_cache`` (a ``HostShardCache``), a shard's host tree — the
-    page-locked tensors the read built — is looked up before any byte is
-    read and put after a verified build; with tied embeddings the head is
-    read once per source and cached under ``__tied_head__``. A readahead
-    pool of ``readahead_threads`` (0 = none) warms the next shard's files.
-    The JAX loader's fault injection and host-OOM typing wait for ROADMAP
-    item 8.
+    unverified); a checkpoint with an embedded precision plan is checked
+    against the manifest first (``PrecisionMismatch``). A mismatch is
+    retried like an I/O error; one that survives two or more reads
+    quarantines the file, drops it from ``host_cache`` and from the verdict
+    cache, and raises ``ShardCorruptError``. With ``host_cache`` (a
+    ``HostShardCache``), a shard's host tree — the page-locked tensors the
+    read built — is looked up before any byte is read and put after a
+    verified build; with tied embeddings the head is read once per source
+    and cached under ``__tied_head__`` (from a quantized embedding, the
+    transposed dequantized embedding requantized to int8). A readahead pool
+    of ``readahead_threads`` (0 = none) warms the next shard's files, less
+    the pinned ones.
+
+    ``residency`` (a ``DeviceResidencyTier``): its planned layers among the
+    shards are pinned before the first build, frozen for this source's
+    life, subtracted from every build and merged back in layer order. The
+    JAX loader's fault injection and host-OOM typing wait for ROADMAP item 8.
 
     Stats: ``load_time`` (host reads, misses only), ``bytes_loaded`` (host
-    bytes uploaded, hits included), ``retries`` (a ``RetryRecorder``) and
-    ``integrity`` (an ``IntegrityRecorder``).
+    bytes uploaded, hits and pin loads included), ``retries`` (a
+    ``RetryRecorder``) and ``integrity`` (an ``IntegrityRecorder``).
     """
 
     def __init__(self, model_path: str, layer_names: Sequence[str],
@@ -128,7 +209,7 @@ class ShardWeightSource:
                  device: torch.device, prefetch_depth: int = 1,
                  tied_embeddings: bool = False, *, verify_weights: bool = True,
                  host_cache: HostShardCache | None = None, readahead_threads: int = 2,
-                 retry_policy: RetryPolicy | None = None):
+                 retry_policy: RetryPolicy | None = None, residency=None):
         self.model_path = model_path
         self.layer_names = list(layer_names)
         self.shards = list(shards)
@@ -154,6 +235,8 @@ class ShardWeightSource:
                     "verification skipped for this stream (re-split or re-save to write one)",
                     stacklevel=3,
                 )
+            else:
+                _check_precision_plan(model_path, self._manifest)
         self._prefetcher = FilePrefetcher(readahead_threads) if readahead_threads > 0 else None
         manifest_stat = integrity_manifest._file_key(
             os.path.join(model_path, integrity_manifest.MANIFEST_NAME))
@@ -163,6 +246,13 @@ class ShardWeightSource:
             self._manifest is not None, self._cuda,
         )
         self._stop = threading.Event()
+        self._residency = residency
+        self._pinned: frozenset = frozenset()
+        if residency is not None:
+            # Pinned before the producer starts; a pin that fails for good
+            # is demoted and streams (its error surfaces there).
+            residency.ensure_pinned(self, device, [i for idxs in self.shards for i in idxs])
+            self._pinned = residency.frozen_pinned(self.shards)
         self._q: Queue = Queue(maxsize=max(1, prefetch_depth))
         self._thread: threading.Thread | None = None
         if prefetch_depth >= 1:
@@ -229,19 +319,50 @@ class ShardWeightSource:
                     return self._tied_head
             emb = checkpoint.load_layer(self.model_path, "model.embed_tokens", self._cuda,
                                         manifest=self._manifest)
-            self._tied_head = {"kernel": emb["embedding"]}  # transposed after upload
+            e = emb["embedding"]
+            if checkpoint.is_quantized_leaf(e):
+                # The head kernel [D, V] needs scales laid out for the
+                # transpose: requantize it, to int8 even from int4 (a second
+                # group-wise 4-bit rounding would compound the first).
+                with _PROCESS_STREAM_LOCK:
+                    _PROCESS_TIED_REQUANTS[0] += 1
+                q, sc = checkpoint._quantize_int8(checkpoint.dequantize(e).T.contiguous())
+                if self._cuda:
+                    q, sc = q.pin_memory(), sc.pin_memory()
+                self._tied_head = {"kernel": {"q8": q, "s": sc}}
+            else:
+                self._tied_head = {"kernel": e}  # transposed after upload
             if cache is not None and guard is not None:
-                cache.put(key, self._tied_head, guard=guard)
+                cache.put(key, self._tied_head, guard=guard)  # charged at its packed bytes
             return self._tied_head
         return checkpoint.load_layer(self.model_path, name, self._cuda, manifest=self._manifest)
 
-    def _place(self, t: torch.Tensor) -> torch.Tensor:
+    def _place_leaf(self, t):
+        if checkpoint.is_quantized_leaf(t):
+            packed = {k: v.to(self.device, non_blocking=True) for k, v in t.items()}
+            return checkpoint.dequantize(packed, self.dtype)
         t = t.to(self.device, non_blocking=True)
         return t.to(self.dtype) if t.is_floating_point() else t
 
-    def _host_shard(self, layer_idxs: tuple[int, ...]) -> list[tuple[str, Any]]:
+    def _place_tree(self, tree):
+        if checkpoint.is_quantized_leaf(tree):
+            return self._place_leaf(tree)
+        if isinstance(tree, dict):
+            return {k: self._place_tree(v) for k, v in tree.items()}
+        return None if tree is None else self._place_leaf(tree)
+
+    def place_layer(self, name: str, tree) -> dict[str, Any]:
+        """One layer's host tree on the device, on the current stream: cast,
+        quantized leaf-groups dequantized, a tied float head transposed."""
+        placed = self._place_tree(tree)
+        if name == "lm_head" and self.tied and not checkpoint.is_quantized_leaf(tree["kernel"]):
+            placed = {"kernel": placed["kernel"].T}
+        return placed
+
+    def build_host_shard(self, layer_idxs: tuple[int, ...]) -> list[tuple[str, Any]]:
         """The shard's host trees: from the cache, or read and verified
-        (then cached). The stat guard is taken before the first byte."""
+        (then cached). The stat guard is taken before the first byte. The
+        residency tier loads its pins through here too."""
         cache = self._host_cache
         key = guard = None
         if cache is not None:
@@ -262,36 +383,33 @@ class ShardWeightSource:
         return host
 
     def _build(self, layer_idxs: tuple[int, ...]):
-        host = self._host_shard(layer_idxs)
+        parts = _split_parts(layer_idxs, self._pinned)
+        pinned = {}
+        for kind, val in parts:
+            if kind == "pin":
+                # One pass's link bytes saved, counted once per build.
+                self._residency.note_skip(val)
+                pinned[val] = self._residency.segments(val, self.device, self)
+        hosts = [self.build_host_shard(val) for kind, val in parts if kind == "stream"]
         event = None
         if self._cuda:
             with torch.cuda.stream(self._stream):
-                placed = [(n, _tree_map(self._place, tree)) for n, tree in host]
+                placed_runs = [[(n, self.place_layer(n, t)) for n, t in host] for host in hosts]
                 event = torch.cuda.Event()
                 event.record(self._stream)
         else:
-            placed = [(n, _tree_map(self._place, tree)) for n, tree in host]
-        segments: Segments = []
-        for name, params in placed:
-            if name.startswith("model.layers."):
-                if segments and segments[-1][0] == "decoders":
-                    segments[-1][1].append(params)
-                else:
-                    segments.append(("decoders", [params]))
-            elif name == "model.embed_tokens":
-                segments.append(("embed", params))
-            elif name == "model.norm":
-                segments.append(("norm", params))
-            else:
-                if self.tied:
-                    params = {"kernel": params["kernel"].T}
-                segments.append(("head", params))
-        return segments, event
+            placed_runs = [[(n, self.place_layer(n, t)) for n, t in host] for host in hosts]
+        runs = iter(placed_runs)
+        placed = []
+        for kind, val in parts:
+            placed.extend(next(runs) if kind == "stream" else pinned[val])
+        return layer_segments(placed), event
 
     def _produce(self, i: int):
-        """Shard ``i``, with the next shard's files queued for readahead."""
+        """Shard ``i``, with the next shard's streamed files queued for
+        readahead."""
         if i + 1 < len(self.shards):
-            self.warm(self.shards[i + 1])
+            self.warm(_stream_only(self.shards[i + 1], self._pinned))
         return self._build(self.shards[i])
 
     def _ready(self, item):
@@ -360,17 +478,41 @@ class ShardWeightSource:
             self._prefetcher = None
 
 
+def layer_segments(placed: list[tuple[str, Any]]) -> Segments:
+    """Placed ``(layer name, params)`` in layer order -> segments, with
+    consecutive decoder layers in one ``decoders`` list."""
+    segments: Segments = []
+    for name, params in placed:
+        if name.startswith("model.layers."):
+            if segments and segments[-1][0] == "decoders":
+                segments[-1][1].append(params)
+            else:
+                segments.append(("decoders", [params]))
+        elif name == "model.embed_tokens":
+            segments.append(("embed", params))
+        elif name == "model.norm":
+            segments.append(("norm", params))
+        else:
+            segments.append(("head", params))
+    return segments
+
+
 class StreamStats:
     """The JAX executor's host-path stats keys over one call: ``io_retries``
     and the integrity counters when nonzero, the process host cache's
-    ``host_cache_hits``/``host_cache_misses``/``host_cache_hit_rate``, and
-    the crc verdict cache's ``crc_verdict_hits``/``crc_full_verifies`` when
-    nonzero. Baselines are taken before the source starts reading."""
+    ``host_cache_hits``/``host_cache_misses``/``host_cache_hit_rate``, the
+    crc verdict cache's ``crc_verdict_hits``/``crc_full_verifies`` when
+    nonzero, and with a residency tier ``pinned_bytes`` (the tier's bytes
+    on the device) with ``stream_bytes_saved``/``pin_hits`` when nonzero.
+    Baselines are taken before the source starts reading or pinning."""
 
-    def __init__(self, cache: HostShardCache | None):
+    def __init__(self, cache: HostShardCache | None, tier=None, device=None):
         self.cache = cache
         self.cache_before = cache.stats() if cache is not None else None
         self.verdict_before = integrity_manifest.verdict_stats()
+        self.tier = tier
+        self.device = device
+        self.tier_before = tier.stats() if tier is not None else None
 
     def read(self, source: ShardWeightSource) -> dict[str, float]:
         out: dict[str, float] = {}
@@ -393,7 +535,25 @@ class StreamStats:
             delta = after[key] - self.verdict_before[key]
             if delta:
                 out[f"crc_{key}"] = float(delta)
+        if self.tier is not None:
+            r_after = self.tier.stats()
+            out["pinned_bytes"] = float(self.tier.pinned_device_bytes(self.device))
+            for key in ("stream_bytes_saved", "pin_hits"):
+                delta = r_after[key] - self.tier_before[key]
+                if delta:
+                    out[key] = float(delta)
         return out
+
+    def read_peak(self, stats: dict) -> None:
+        """``peak_mem_gb`` of a CUDA run, floored at the residency tier's
+        bytes on the device (they stay there for the whole run)."""
+        peak = peak_mem_gb(self.device)
+        if self.tier is not None:
+            pinned_gb = self.tier.pinned_device_bytes(self.device) / 1e9
+            if pinned_gb:
+                peak = max(peak or 0.0, pinned_gb)
+        if peak is not None:
+            stats["peak_mem_gb"] = peak
 
 
 def block_meta(toks: list[TokenizedPrompt], idxs: list[int], device: torch.device):
@@ -488,20 +648,29 @@ class StreamingExecutor:
         )
         self.layer_names = checkpoint.layer_names_for(self.model_cfg.num_hidden_layers)
         self.plan = plan_shards_dp(len(self.layer_names), cfg.layer_num_per_shard)
+        # The process residency tier, or None when hbm_pin_gb resolves to 0.
+        self._residency = self._pin_tier()
         self.stats: dict[str, float] = {}
         self.stats_history: list[dict[str, float]] = []
 
+    def _pin_tier(self):
+        return residency.tier_for(self.cfg, self.layer_names, self.model_cfg.tie_word_embeddings,
+                                  self.device)
+
     def weight_source(self, n_passes: int = 1) -> tuple[ShardWeightSource, StreamStats]:
         """One source over ``n_passes`` full passes of the shard list, on the
-        process host cache, and the baselines of its stats."""
+        process host cache and residency tier, and the baselines of its
+        stats."""
         cfg = self.cfg
         cache = cache_for(cfg)
-        stats = StreamStats(cache)
+        tier = self._residency
+        stats = StreamStats(cache, tier, self.device)
         source = ShardWeightSource(
             cfg.model_path, self.layer_names, list(self.plan.shards) * n_passes,
             self.dtype, self.device, cfg.prefetch_depth, self.model_cfg.tie_word_embeddings,
             verify_weights=cfg.verify_weights, host_cache=cache,
             readahead_threads=cfg.readahead_threads, retry_policy=cfg.retry_policy(),
+            residency=tier,
         )
         return source, stats
 
@@ -553,15 +722,16 @@ class StreamingExecutor:
             "streamed_bytes": float(source.bytes_loaded),
             **host_stats.read(source),
         }
-        peak = peak_mem_gb(self.device)
-        if peak is not None:
-            self.stats["peak_mem_gb"] = peak
+        host_stats.read_peak(self.stats)
         self.stats_history.append(dict(self.stats))
         return [scores[i] for i in range(len(prompts))]
 
 
 __all__ = [
     "ShardWeightSource",
+    "layer_segments",
+    "process_tied_head_requants",
+    "reset_process_tied_head_requants",
     "SourceClosed",
     "StreamStats",
     "StreamingExecutor",

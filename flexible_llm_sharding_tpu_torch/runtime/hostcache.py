@@ -8,6 +8,11 @@ straight to the upload. Entries are the load's own buffers (no second copy),
 charged at their full size; an evicted entry's buffers go back to PyTorch's
 page-locked pool when the last reference drops.
 
+A quantized checkpoint's entries are its packed trees (int8 or uint8
+payloads with their float32 scales), charged at those bytes, as the JAX
+cache charges them; the tied head over a quantized embedding is its int8
+requantization.
+
 Entries are put only after the load's integrity check passed; each records
 its backing files' ``(mtime_ns, size)``, taken before the read, and a hit
 re-stats them, so a rewritten or rotted file drops the entry. The loader

@@ -15,9 +15,18 @@ is an 8-byte little-endian header length, a JSON header ``{key: {"dtype",
 read as uint16 and reinterpreted with ``.view(torch.bfloat16)``, so neither
 ``safetensors`` nor ``ml_dtypes`` is needed. Every writer here also writes
 the directory's ``integrity.json`` (``integrity/manifest.py``, the JAX
-package's format), and :func:`load_layer` verifies against it. Float layers
-only: quantized leaves (``int8``/``int4``, ROADMAP 3.5) are neither written
-nor read by the port yet.
+package's format), and :func:`load_layer` verifies against it.
+
+Quantized layers are the JAX package's too: a matmul kernel stored as
+``{key}`` int8 with a float32 ``{key}::scale`` (one scale per output
+channel; per (expert, channel) for [E, in, out] expert stacks), or as
+``{key}`` packed uint8 with a float32 ``{key}::scale4`` (int4: groups of
+``INT4_GROUP`` along the in axis, offset-binary nibbles, the low nibble
+the even index). :func:`load_layer` returns each such pair as a
+``{"q8", "s"}`` or ``{"q4", "s"}`` leaf-group, still packed: the weight
+source dequantizes it on the device after the upload. The quantizers give
+the JAX package's bytes exactly (float32 scales in its order, division by
+the scale, round half to even).
 """
 
 from __future__ import annotations
@@ -36,6 +45,15 @@ from flexible_llm_sharding_tpu_torch.config import LlamaConfig, extract_text_con
 from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
 
 LAYER_FILE_SUFFIX = ".safetensors"
+# Written beside the layer files by both splitters and requantize_native:
+# {"layout", "dtype", "layers"}.
+NATIVE_LAYOUT_MARKER = "fls_tpu_layout.json"
+QUANT_SCALE_SUFFIX = integrity_manifest.QUANT_SCALE_SUFFIX
+QUANT4_SCALE_SUFFIX = integrity_manifest.QUANT4_SCALE_SUFFIX
+_SCALE_SUFFIXES = (QUANT_SCALE_SUFFIX, QUANT4_SCALE_SUFFIX)
+INT4_GROUP = 64
+QUANT_DTYPES = ("int8", "int4")
+is_float_like = integrity_manifest.is_float_like
 
 _ST_TO_TORCH = {
     "F64": torch.float64,
@@ -183,6 +201,189 @@ def layer_file_for(model_path: str, name: str, tied: bool = False) -> str:
     return layer_file(model_path, "model.embed_tokens" if (name == "lm_head" and tied) else name)
 
 
+# ---------------------------------------------------------------------------
+# Quantized layouts (the JAX package's int8/int4 files, on torch tensors)
+# ---------------------------------------------------------------------------
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else tensor_from_numpy(np.asarray(a))
+
+
+def _scale_expand(scale: torch.Tensor, q_ndim: int) -> tuple[int, ...]:
+    """Broadcast shape of a quantization scale against its payload: the
+    scale keeps the payload's leading (expert) axes and its trailing
+    channel axis; the reduced axes between become size 1."""
+    return tuple(scale.shape[:-1]) + (1,) * (q_ndim - scale.ndim) + tuple(scale.shape[-1:])
+
+
+def _float32_scratch(w, scratch: torch.Tensor | None) -> torch.Tensor:
+    """``w`` as a float32 tensor of its own, which the quantizers overwrite
+    in place: ``scratch`` when given (an expert stack reuses one for every
+    expert), else a new copy. Every large temporary is a fresh allocation
+    that the host pays for in page faults, so they make at most this one."""
+    if scratch is None:
+        return _as_tensor(w).to(torch.float32, copy=True)
+    return scratch.copy_(_as_tensor(w))
+
+
+def _absmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.abs().amax(dim)`` without the ``|x|`` temporary (exact: the
+    larger of the maximum and the negated minimum)."""
+    lo, hi = torch.aminmax(x, dim=dim)
+    return torch.maximum(hi, lo.neg_())
+
+
+def _quantize_int8(w, scratch: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8: (q int8 [same shape], float32
+    scale). A 2-D [in, out] kernel gets one scale per output channel; a
+    3-D [E, in, out] expert stack one per (expert, channel), scale [E, out]."""
+    w32 = _float32_scratch(w, scratch)
+    scale = _absmax(w32, -2).clamp_min_(1e-12).div_(127.0)
+    q = w32.div_(scale.reshape(_scale_expand(scale, w32.ndim))).round_().clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _quantize_int4(w, group: int = INT4_GROUP,
+                   scratch: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric group-wise int4 along the in axis (-2): values in [-7, 7]
+    stored offset-binary (nibble = q + 8), two per byte along the in axis,
+    the low nibble the even index. Returns (packed uint8 [.., in/2, out],
+    float32 scale [.., in/group, out]); in % group must be 0."""
+    w32 = _float32_scratch(w, scratch)
+    *lead, n_in, n_out = w32.shape
+    wg = w32.view(*lead, n_in // group, group, n_out)
+    scale = _absmax(wg, -2).clamp_min_(1e-12).div_(7.0)
+    q = wg.div_(scale[..., None, :]).round_().clamp_(-7, 7).to(torch.int8)
+    nib = q.add_(8).view(torch.uint8).view(*lead, n_in, n_out)
+    packed = nib[..., 1::2, :] << 4
+    return packed.bitwise_or_(nib[..., 0::2, :]), scale
+
+
+def _quantize_one(v: torch.Tensor, dtype: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """One kernel at ``dtype`` (``int4`` falls back to int8 when its in dim
+    is off the group). Expert stacks are quantized one expert at a time:
+    both layouts reduce within an expert, so the bytes are those of one
+    pass over the stack, and a 23 GB stack never needs float32 copies of
+    itself."""
+    quant = _quantize_int4 if dtype == "int4" and v.shape[-2] % INT4_GROUP == 0 else _quantize_int8
+    if v.ndim < 3:
+        return quant(v)
+    scratch = torch.empty(v.shape[1:], dtype=torch.float32)
+    parts = [quant(e, scratch=scratch) for e in v]
+    return torch.stack([q for q, _ in parts]), torch.stack([s for _, s in parts])
+
+
+def _quantize_flat(sd: dict, dtype: str = "int8") -> dict[str, torch.Tensor]:
+    """One flat native state dict at ``dtype`` (``int8`` or ``int4``):
+    matmul kernels (floats of 2 dims or more) quantize and gain a scale
+    twin (``::scale`` for int8, ``::scale4`` for int4; an int4 kernel whose
+    in dim is off the group falls back to int8); 1-D floats below float32
+    are up-cast to float32 exactly; everything else is kept. The one rule of
+    ``split_into_layers`` and ``requantize_native``."""
+    qd: dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        v = _as_tensor(v)
+        if v.ndim >= 2 and v.is_floating_point():
+            q, sc = _quantize_one(v, dtype)
+            four = q.dtype == torch.uint8
+            qd[k] = q
+            qd[k + (QUANT4_SCALE_SUFFIX if four else QUANT_SCALE_SUFFIX)] = sc
+        elif v.is_floating_point() and v.element_size() < 4:
+            qd[k] = v.float()
+        else:
+            qd[k] = v
+    return qd
+
+
+def is_quantized_leaf(node) -> bool:
+    """True for an int8 ``{"q8", "s"}`` or int4 ``{"q4", "s"}`` leaf-group."""
+    return isinstance(node, dict) and set(node) in ({"q8", "s"}, {"q4", "s"})
+
+
+def quant_kind(node) -> str:
+    """'q8' or 'q4' for a quantized leaf-group."""
+    return "q8" if "q8" in node else "q4"
+
+
+def dequant4_math(b: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int4 unpack and group dequant, float32 out: low nibble = even in
+    index, offset-binary (nibble = q + 8), scales [.., in/g, out]."""
+    lo = (b & 0xF).float() - 8.0
+    hi = (b >> 4).float() - 8.0
+    q = torch.stack([lo, hi], dim=-2)  # [.., in/2, 2, out]
+    *lead, half, _, out = q.shape
+    q = q.reshape(*lead, half * 2, out)
+    n_groups = s.shape[-2]
+    qg = q.reshape(*lead, n_groups, (half * 2) // n_groups, out)
+    return (qg * s[..., None, :]).reshape(*lead, half * 2, out)
+
+
+def _dequant_math(node: dict, dtype: torch.dtype) -> torch.Tensor:
+    if quant_kind(node) == "q4":
+        return dequant4_math(node["q4"], node["s"].float()).to(dtype)
+    q, s = node["q8"], node["s"]
+    return (q.float() * s.reshape(_scale_expand(s, q.ndim))).to(dtype)
+
+
+def dequantize(node: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One quantized leaf-group as ``dtype``, on the leaf-group's device:
+    ``q * s`` in float32 (int4 through :func:`dequant4_math`), then cast.
+    Expert stacks are expanded one expert at a time into the output, so the
+    float32 products of one expert exist at a time; every element is the
+    same product either way."""
+    payload = node[quant_kind(node)]
+    if payload.ndim < 3:
+        return _dequant_math(node, dtype)
+    first = _dequant_math({k: v[0] for k, v in node.items()}, dtype)
+    out = first.new_empty((payload.shape[0], *first.shape))
+    out[0] = first
+    for e in range(1, payload.shape[0]):
+        out[e] = _dequant_math({k: v[e] for k, v in node.items()}, dtype)
+    return out
+
+
+def dequantize_tree(tree, dtype: torch.dtype = torch.float32):
+    """Every quantized leaf-group of a nested dict dequantized to ``dtype``
+    (the host oracle of the weight source's on-device dequant); other
+    leaves are returned as they are."""
+    if is_quantized_leaf(tree):
+        return dequantize(tree, dtype)
+    if isinstance(tree, dict):
+        return {k: dequantize_tree(v, dtype) for k, v in tree.items()}
+    return tree
+
+
+def simulate_quantized(a, dtype: str) -> torch.Tensor:
+    """Quantize-dequantize round trip of one kernel under exactly the rule
+    ``_quantize_flat`` writes (int4 falls back to int8 off the group),
+    float32 out: what the sensitivity probe scores."""
+    if dtype not in QUANT_DTYPES:
+        raise ValueError(f"simulate_quantized: unsupported dtype {dtype!r}")
+    a32 = _as_tensor(a).float()
+    if dtype == "int4" and a32.ndim >= 2 and a32.shape[-2] % INT4_GROUP == 0:
+        q, s = _quantize_int4(a32)
+        return dequantize({"q4": q, "s": s})
+    q, s = _quantize_int8(a32)
+    return dequantize({"q8": q, "s": s})
+
+
+def _group_quantized(flat: dict) -> dict:
+    """Each ``{key}`` with a scale twin as its ``{"q8"|"q4", "s"}`` group."""
+    if not any(k.endswith(_SCALE_SUFFIXES) for k in flat):
+        return flat
+    grouped: dict[str, Any] = {}
+    for k, v in flat.items():
+        if k.endswith(_SCALE_SUFFIXES):
+            continue
+        if k + QUANT4_SCALE_SUFFIX in flat:
+            grouped[k] = {"q4": v, "s": flat[k + QUANT4_SCALE_SUFFIX]}
+        elif k + QUANT_SCALE_SUFFIX in flat:
+            grouped[k] = {"q8": v, "s": flat[k + QUANT_SCALE_SUFFIX]}
+        else:
+            grouped[k] = v
+    return grouped
+
+
 def load_layer(model_path: str, layer_name: str, pin_memory: bool = False,
                manifest: dict | None = None) -> dict[str, Any]:
     """One layer file -> nested dict of CPU tensors in the native layout:
@@ -196,7 +397,8 @@ def load_layer(model_path: str, layer_name: str, pin_memory: bool = False,
     stored tensors are crc-verified unless that file generation already
     passed (a mismatch raises the retryable ``ChecksumMismatch``); the
     storage-dtype kind is checked on every load (``PrecisionMismatch``);
-    then the layout is converted."""
+    then the layout is converted and quantized kernels are grouped with
+    their scales."""
     path = layer_file(model_path, layer_name)
     token = integrity_manifest.verdict_token(model_path, path) if manifest is not None else None
     flat = read_safetensors(path, pin_memory)
@@ -219,7 +421,7 @@ def load_layer(model_path: str, layer_name: str, pin_memory: bool = False,
         flat = hf_layer_to_native(layer_name, flat)
         if pin_memory:
             flat = {k: v.pin_memory() for k, v in flat.items()}
-    return unflatten(flat)
+    return unflatten(_group_quantized(flat))
 
 
 # ---------------------------------------------------------------------------
@@ -510,20 +712,22 @@ def split_into_layers(src_dir: str, out_dir: str, dtype: str | None = None, layo
     package's splitter writes them: layers in ascending (first shard, shard
     count) order, shards read as their layers need them and freed once
     those are written, so host memory holds about two shards. ``dtype``
-    casts every float tensor (None keeps the checkpoint's); ``layout`` is
-    ``native`` ([in, out] kernels under native names) or ``hf`` (the
-    reference's own files). ``integrity.json`` is written after the last
-    layer, over each file's stored bytes. Quantized dtypes (int8/int4) wait
-    for ROADMAP 3.5. Returns the layer names in the order written."""
+    casts every float tensor (None keeps the checkpoint's), or quantizes
+    the native layout's kernels (``int8``, ``int4``: :func:`_quantize_flat`,
+    native layout only); ``layout`` is ``native`` ([in, out] kernels under
+    native names) or ``hf`` (the reference's own files). ``integrity.json``
+    is written after the last layer, over each file's stored bytes, and
+    ``fls_tpu_layout.json`` names the layout, dtype and layers. Returns the
+    layer names in the order written."""
     if layout not in ("native", "hf"):
         raise ValueError(f"layout must be 'native' or 'hf', got {layout!r}")
-    if dtype in ("int8", "int4"):
-        raise NotImplementedError(
-            f"dtype {dtype!r}: quantized checkpoints are not ported yet (ROADMAP item 3.5)"
-        )
-    if dtype not in SPLIT_DTYPES:
-        raise ValueError(f"dtype must be one of {list(SPLIT_DTYPES)}, got {dtype!r}")
-    cast = SPLIT_DTYPES[dtype]
+    quantize = dtype in QUANT_DTYPES
+    if quantize and layout != "native":
+        raise ValueError(f"dtype='{dtype}' requires layout='native'")
+    if dtype not in SPLIT_DTYPES and not quantize:
+        raise ValueError(
+            f"dtype must be one of {list(SPLIT_DTYPES) + list(QUANT_DTYPES)}, got {dtype!r}")
+    cast = SPLIT_DTYPES.get(dtype)
     os.makedirs(out_dir, exist_ok=True)
     for fn in glob(f"{src_dir}/*"):
         base = os.path.basename(fn)
@@ -567,6 +771,8 @@ def split_into_layers(src_dir: str, out_dir: str, dtype: str | None = None, layo
             sd = {k: v.to(cast) if v.is_floating_point() else v for k, v in sd.items()}
         if layout == "native":
             sd = hf_layer_to_native(layer, sd)
+        if quantize:
+            sd = _quantize_flat(sd, dtype)
         write_safetensors(os.path.join(out_dir, f"{layer}{LAYER_FILE_SUFFIX}"), sd)
         manifest_layers[layer] = integrity_manifest.layer_entry(sd, f"{layer}{LAYER_FILE_SUFFIX}")
         for k in layer2keys[layer]:
@@ -574,8 +780,86 @@ def split_into_layers(src_dir: str, out_dir: str, dtype: str | None = None, layo
         del sd
         if progress:
             progress(layer)
+    _write_layout_marker(out_dir, layout, dtype, layer_list)
     integrity_manifest.write_manifest(out_dir, manifest_layers)
     return layer_list
+
+
+def _write_layout_marker(out_dir: str, layout: str, dtype: str | None, layers: list[str]) -> None:
+    with open(os.path.join(out_dir, NATIVE_LAYOUT_MARKER), "w") as f:
+        json.dump({"layout": layout, "dtype": dtype, "layers": layers}, f)
+
+
+def _cast_flat_bf16(sd: dict) -> dict:
+    """Every float tensor cast to bfloat16, the uniform cast of
+    ``split_into_layers(dtype='bfloat16')``, so a plan's bf16 layers equal
+    the uniform-bf16 checkpoint's bit for bit."""
+    return {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in sd.items()}
+
+
+def _encode_flat(sd: dict, dtype: str) -> dict:
+    """One layer's flat native tensors re-encoded at ``dtype`` (plan dtype
+    ``bf16`` is ``bfloat16``)."""
+    if dtype in ("bfloat16", "bf16"):
+        return _cast_flat_bf16(sd)
+    return _quantize_flat(sd, dtype)
+
+
+def requantize_native(src_dir: str, out_dir: str, dtype: str = "int8", plan=None) -> list[str]:
+    """Re-encode a native per-layer float checkpoint directory at ``dtype``
+    (``int8``, ``int4`` or ``bfloat16``) or, with ``plan`` (a
+    ``runtime.precisionplan.PrecisionPlan``), at each layer's planned dtype,
+    as the JAX package's ``requantize_native`` does: a plan must cover every
+    layer file and nothing else (checked before the first byte is written);
+    a quantized source is refused; the non-layer files are copied except the
+    source's ``integrity.json``, layout marker and embedded plan, which no
+    longer describe the output; the plan is embedded as
+    ``precision_plan.json`` and a fresh ``integrity.json`` records every
+    layer's dtype kind. Returns the layers written, in file-name order."""
+    if plan is None and dtype not in ("int8", "int4", "bfloat16"):
+        raise ValueError(f"requantize_native: unsupported dtype {dtype!r}")
+    from flexible_llm_sharding_tpu_torch.runtime.precisionplan import PLAN_NAME
+
+    if plan is not None:
+        on_disk = {fn[: -len(LAYER_FILE_SUFFIX)] for fn in os.listdir(src_dir)
+                   if fn.endswith(LAYER_FILE_SUFFIX)}
+        missing, extra = on_disk - set(plan.dtypes), set(plan.dtypes) - on_disk
+        if missing or extra:
+            raise ValueError(
+                f"precision plan and {src_dir} drifted: layers on disk with no plan entry "
+                f"{sorted(missing)}; planned layers with no file {sorted(extra)}"
+            )
+    os.makedirs(out_dir, exist_ok=True)
+    done = []
+    manifest_layers: dict[str, dict] = {}
+    for fn in sorted(os.listdir(src_dir)):
+        src = os.path.join(src_dir, fn)
+        if not fn.endswith(LAYER_FILE_SUFFIX):
+            if os.path.isfile(src) and fn not in (
+                    NATIVE_LAYOUT_MARKER, integrity_manifest.MANIFEST_NAME, PLAN_NAME):
+                shutil.copy(src, os.path.join(out_dir, fn))
+            continue
+        layer_name = fn[: -len(LAYER_FILE_SUFFIX)]
+        flat = read_safetensors(src)
+        if not _is_native(flat):
+            raise ValueError(f"{fn}: not native layout (run split_into_layers)")
+        if any(k.endswith(_SCALE_SUFFIXES) for k in flat):
+            raise ValueError(
+                f"{fn}: source is already quantized; requantize from the original float "
+                "checkpoint"
+            )
+        layer_dtype = dtype if plan is None else plan.dtype_for(layer_name)
+        stored = _encode_flat(flat, layer_dtype)
+        del flat
+        write_safetensors(os.path.join(out_dir, fn), stored)
+        manifest_layers[layer_name] = integrity_manifest.layer_entry(stored, fn)
+        del stored
+        done.append(layer_name)
+    if plan is not None:
+        plan.save(out_dir)
+    _write_layout_marker(out_dir, "native", "mixed" if plan is not None else dtype, done)
+    integrity_manifest.write_manifest(out_dir, manifest_layers)
+    return done
 
 
 def save_params(params: dict[str, Any], out_dir: str, cfg: LlamaConfig) -> None:
@@ -632,8 +916,21 @@ def params_from_jax(params_np: dict[str, Any], cfg: LlamaConfig, device="cpu",
 
 
 __all__ = [
+    "INT4_GROUP",
     "LAYER_FILE_SUFFIX",
+    "NATIVE_LAYOUT_MARKER",
+    "QUANT4_SCALE_SUFFIX",
+    "QUANT_DTYPES",
+    "QUANT_SCALE_SUFFIX",
     "SPLIT_DTYPES",
+    "dequant4_math",
+    "dequantize",
+    "dequantize_tree",
+    "is_float_like",
+    "is_quantized_leaf",
+    "quant_kind",
+    "requantize_native",
+    "simulate_quantized",
     "flatten",
     "hf_layer_to_native",
     "key_to_layer",

@@ -14,7 +14,9 @@ of its checkout with the CLI's defaults. Prints one JSON line per run (the
 CLI's stats line, plus the process's peak RSS) and a summary line of the
 walls, compute and source-wait seconds, host read seconds, streamed bytes,
 cache hits and misses, peak device memory, the decode modes' stats and
-peak RSS per cell, run and checkout. Each line carries the card's ``nvidia-smi`` name and power limit.
+peak RSS per cell, run and checkout, and per cell and mode whether every
+run's scores were equal bit for bit (``scores_equal``, from a sha1 over the
+score arrays). Each line carries the card's ``nvidia-smi`` name and power limit.
 Cells: llama2_7b (4 layers, 2.14 GB), gemma3_27b (6 layers, 7.8 GB),
 gemma3_12b (6 layers, 4.7 GB), deepseek_v3 (4 layers, 30.2 GB).
 """
@@ -48,11 +50,14 @@ from chip_smoke import (  # noqa: E402
 # One CLI run in a checkout (argv: checkout, vocab, CLI arguments): the stats
 # line's dict and the process's peak RSS, as one JSON line on stdout.
 RUNNER = (
-    "import json, resource, sys; sys.path.insert(0, sys.argv[1]); "
+    "import hashlib, json, pickle, resource, sys; sys.path.insert(0, sys.argv[1]); "
     "from chip_smoke import BenchTokenizer; from flexible_llm_sharding_tpu_torch import cli; "
     "stats = cli.main(sys.argv[3:], tokenizer=BenchTokenizer(int(sys.argv[2]))); "
     "hwm = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20; "
-    "print('STATS ' + json.dumps({**stats, 'max_rss_gib': hwm}), flush=True)"
+    "d = hashlib.sha1(); "
+    "[d.update(a.tobytes()) for a in pickle.load(open(sys.argv[sys.argv.index('--output_file') + 1], 'rb'))]; "
+    "print('STATS ' + json.dumps({**stats, 'max_rss_gib': hwm, 'scores_sha1': d.hexdigest()}), "
+    "flush=True)"
 )
 BUILD = "from flexible_llm_sharding_tpu_torch.ops import cuda_build; cuda_build.library()"
 
@@ -139,8 +144,10 @@ def main() -> None:
                         "streamed_bytes", "host_cache_hits", "host_cache_misses",
                         "host_cache_hit_rate", "crc_full_verifies", "peak_mem_gb", "max_rss_gib",
                         "decode_resident", "decode_kv_on_device", "decode_fused",
-                        "decode_graph")})
+                        "decode_graph", "scores_sha1")})
             shutil.rmtree(model_dir, ignore_errors=True)
+        for row in summary.values():
+            row["scores_equal"] = len({r["scores_sha1"] for k in "ab" for r in row[k]}) == 1
         print(json.dumps({"summary": summary, "card": smi, "a": trees["a"], "b": trees["b"]}),
               flush=True)
     finally:

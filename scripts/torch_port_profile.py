@@ -46,6 +46,15 @@ the parked activations' copies by kind (``dtoh_pinned_ms``,
 times the weight check's crc32 on the card's host: one zlib pass and the
 loader's pieces-on-threads form, over 1 GiB of page-locked memory.
 
+    python3 scripts/torch_port_profile.py --quant
+
+writes the Llama-2-7B-width checkpoint (4 decoder layers) and its int8 and
+int4 copies (``requantize_native``), then per shard of each
+copy: the packed bytes, their upload from page-locked memory and their
+dequant to bf16 on the card (device ms from CUDA events, median of 5),
+beside the bf16 shard's upload; then one scoring pass of each copy through
+the CLI under ``torch.profiler`` with its device table.
+
 Each line carries the card's ``nvidia-smi`` name and power limit. Needs a
 CUDA device; imports nothing of JAX.
 """
@@ -239,6 +248,91 @@ def profile_deepseek(smi: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _event_ms(fn, reps: int = 5) -> float:
+    """Median device ms of ``fn`` between CUDA events on the current stream."""
+    times = []
+    for _ in range(reps):
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(a.elapsed_time(e))
+    return sorted(times)[len(times) // 2]
+
+
+def profile_quant(smi: str) -> None:
+    """Per-shard upload and dequant device time of int8 and int4 copies of
+    the Llama-2-7B-width cell, and one profiled scoring pass of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexible_llm_sharding_tpu_torch import cli
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.ops import cuda_build
+    from flexible_llm_sharding_tpu_torch.runtime.hostcache import tree_nbytes
+    from flexible_llm_sharding_tpu_torch.utils import checkpoint
+
+    cuda_build.library()
+    work = tempfile.mkdtemp(prefix="torch_port_profile_")
+    try:
+        cfg = LlamaConfig(num_hidden_layers=4)
+        dirs = {"bf16": os.path.join(work, "bf16")}
+        checkpoint.save_params(_init_params(cfg, torch.bfloat16, 0, "cuda"), dirs["bf16"], cfg)
+        for dt in ("int8", "int4"):
+            dirs[dt] = os.path.join(work, dt)
+            checkpoint.requantize_native(dirs["bf16"], dirs[dt], dtype=dt)
+        names = checkpoint.layer_names_for(cfg.num_hidden_layers)
+        for dt, d in dirs.items():
+            for name in names:
+                host = checkpoint.load_layer(d, name, pin_memory=True)
+                leaves = []
+
+                def walk(t):
+                    if checkpoint.is_quantized_leaf(t) or not isinstance(t, dict):
+                        leaves.append(t)
+                    else:
+                        for v in t.values():
+                            walk(v)
+
+                walk(host)
+
+                def upload():
+                    return [({k: v.to("cuda", non_blocking=True) for k, v in x.items()}
+                             if isinstance(x, dict) else x.to("cuda", non_blocking=True))
+                            for x in leaves]
+
+                dev = upload()
+
+                def dequant():
+                    for x in dev:
+                        if isinstance(x, dict):
+                            checkpoint.dequantize(x, torch.bfloat16)
+                        else:
+                            x.to(torch.bfloat16)
+
+                up_ms, deq_ms = _event_ms(upload), _event_ms(dequant)
+                print(json.dumps({"run": f"{dt} shard {name}", "card": smi,
+                                  "packed_bytes": tree_nbytes(host), "upload_ms": up_ms,
+                                  "dequant_ms": deq_ms}), flush=True)
+        prompts = make_prompts(8, 512, 4, 32, seed=0)
+        ppkl = os.path.join(work, "p.pkl")
+        with open(ppkl, "wb") as f:
+            pickle.dump(prompts, f)
+        for dt, d in dirs.items():
+            def run():
+                return cli.main(["--model_path", d, "--prompt_pickle", ppkl, "--output_file",
+                                 os.path.join(work, "s.pkl"), "--device", "cuda",
+                                 "--disk_folder", os.path.join(work, "disk")],
+                                tokenizer=BenchTokenizer())
+            run()  # warm-up: the host cache holds the copy
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                stats = run()
+            print(json.dumps({"run": f"scoring {dt} (profiled, warm host cache)", "card": smi,
+                              **stats, **_profile_summary(prof, stats["wall_s"])}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -252,6 +346,9 @@ def main() -> None:
         return
     if "--crc" in sys.argv[1:]:
         crc_rates(smi)
+        return
+    if "--quant" in sys.argv[1:]:
+        profile_quant(smi)
         return
 
     from flexible_llm_sharding_tpu_torch import cli

@@ -327,9 +327,18 @@ def test_split_drops_the_vision_tower_unread(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["int8", "int4"])
 def test_split_quantized_dtypes_raise(tmp_path, dtype):
+    """Quantized dtypes need the native layout in both splitters; in it the
+    port's quantized split equals the JAX splitter's, bit for bit."""
     hf_checkpoint("llama", tmp_path / "hf")
-    with pytest.raises(NotImplementedError, match="3.5"):
-        checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "port"), dtype=dtype)
+    for split in (checkpoint.split_into_layers, jckpt.split_into_layers):
+        with pytest.raises(ValueError, match="requires layout='native'"):
+            split(str(tmp_path / "hf"), str(tmp_path / "bad"), dtype=dtype, layout="hf")
+    want = jckpt.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "jax"), dtype=dtype)
+    got = checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "port"), dtype=dtype)
+    assert got == want
+    _assert_same_split(tmp_path / "port", tmp_path / "jax")
+    for name in ("integrity.json", "fls_tpu_layout.json"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
 
 
 def hf_layer_form(form: str, seed: int = 0) -> dict[str, np.ndarray]:

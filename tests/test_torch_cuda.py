@@ -505,3 +505,97 @@ def test_replays_count_the_decode_kernel(gen, tmp_path, name):
         assert 0 < local["flash_decode_attention"] < counts["flash_decode_attention"]
     else:
         assert local == dict.fromkeys(fa.KERNELS, 0)
+
+
+# -- quantized streaming and the residency tier on the card --------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,shape", [("int8", (192, 96)), ("int4", (192, 96)),
+                                        ("int8", (4, 128, 64)), ("int4", (4, 128, 64))])
+def test_device_dequant_equals_host_dequant(gen, kind, shape, dtype):
+    """The weight source's dequant on the card equals the host dequant bit
+    for bit, q8 and q4, 2-D kernels and expert stacks, float32 and bf16."""
+    from flexible_llm_sharding_tpu_torch.utils import checkpoint
+
+    w = torch.randn(*shape, generator=torch.Generator().manual_seed(len(shape))) * 0.3
+    flat = checkpoint._quantize_flat({"k": w}, kind)
+    node = {"q4" if kind == "int4" else "q8": flat["k"], "s": flat[[k for k in flat if k != "k"][0]]}
+    host = checkpoint.dequantize(node).to(dtype)
+    card = checkpoint.dequantize({k: v.cuda() for k, v in node.items()}, dtype)
+    assert card.dtype == dtype and torch.equal(card.cpu(), host)
+
+
+def _quant_model(tmp_path, kind="int4"):
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native
+
+    model_dir = _decode_model(tmp_path, "llama")
+    out = str(tmp_path / f"llama_{kind}")
+    requantize_native(model_dir, out, dtype=kind)
+    return model_dir, out
+
+
+def test_dequant_runs_on_the_upload_stream_before_the_event(gen, tmp_path, monkeypatch):
+    """Every quantized leaf-group of a streamed shard is dequantized on the
+    source's upload stream, and what the consumer receives holds only
+    compute-dtype tensors."""
+    from flexible_llm_sharding_tpu_torch.runtime import executor
+    from flexible_llm_sharding_tpu_torch.utils import checkpoint
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import layer_names_for
+
+    _, qdir = _quant_model(tmp_path)
+    streams = []
+    real = checkpoint.dequantize
+
+    def spy(node, dtype=torch.float32):
+        streams.append(torch.cuda.current_stream().cuda_stream)
+        return real(node, dtype)
+
+    monkeypatch.setattr(checkpoint, "dequantize", spy)
+    names = layer_names_for(3)
+    src = executor.ShardWeightSource(qdir, names, [(i,) for i in range(len(names))],
+                                     torch.bfloat16, torch.device("cuda"), prefetch_depth=1)
+    leaves = []
+    try:
+        for _, segments in src:
+            leaves += executor._tree_leaves([p for _, p in segments])
+    finally:
+        src.close()
+    assert streams and set(streams) == {src._stream.cuda_stream}
+    assert src._stream.cuda_stream != torch.cuda.current_stream().cuda_stream
+    assert all(t.is_cuda and t.dtype in (torch.bfloat16, torch.int32, torch.int64, torch.bool)
+               for t in leaves)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_pinned_run_equals_unpinned_bit_for_bit(gen, tmp_path, quantized):
+    """bf16 on the card: scoring with every layer pinned, and with part of
+    them, equals the unpinned run bit for bit; the pinned run streams the
+    pinned layers once."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+    from flexible_llm_sharding_tpu_torch.runtime import hostcache, residency
+    from flexible_llm_sharding_tpu_torch.runtime.executor import StreamingExecutor
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import layer_names_for
+
+    model_dir, qdir = _quant_model(tmp_path)
+    model_dir = qdir if quantized else model_dir
+
+    def run(pin_gb):
+        hostcache.reset_process_cache()
+        residency.reset_process_tier()
+        cfg = FrameworkConfig(model_path=model_dir, dtype="bfloat16", block_size=2,
+                              hbm_pin_gb=pin_gb)
+        ex = StreamingExecutor(cfg, device=torch.device("cuda"), tokenizer=_WordTokenizer())
+        out = [ex(list(_DECODE_PROMPTS)) for _ in range(2)]
+        return out, ex.stats_history
+
+    (off, off_stats) = run(0.0)
+    sizes = residency.layer_stream_bytes(model_dir, layer_names_for(3))
+    for pin_gb in (1.0, (sizes[0] + sizes[4] + sizes[5] + sizes[1]) / 1e9):
+        on, on_stats = run(pin_gb)
+        for a, b in zip(off, on):
+            for x, y in zip(a, b):
+                assert np.array_equal(x, y)
+        warm, cold = on_stats[1], off_stats[1]
+        assert warm["streamed_bytes"] + warm["stream_bytes_saved"] == cold["streamed_bytes"]
+        assert warm["pinned_bytes"] > 0 and warm["peak_mem_gb"] >= warm["pinned_bytes"] / 1e9
+    residency.reset_process_tier()
