@@ -25,14 +25,19 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              windows, chunks, the toggle off and softcap; the scoring
              kernels at multi-head latent attention's qk 192 / v 128 in
              every dtype, ± NaN, every local form, softcap and the hd-128
-             edge lengths); bf16 and fp16 within
+             edge lengths; Llama-4-Scout's heads at its full-width shapes
+             and with chunks of 64 and 8192, in bf16 and float32, ± NaN);
+             bf16 and fp16 within
              atol = rtol = 2e-2 of the plain version computed in float32
              from the same inputs, float32 within atol 1e-4. Times each
              kernel, its plain version and its library yardstick (one SDPA
              call on KV concatenated beforehand) at the shapes of the
              full-width runs (Llama-2-7B; Gemma-3-27B and Gemma-3-12B local
              and global layers; Phi-3-mini heads, hd 96, at the Llama
-             prompts; DeepSeek-V3's 128 MLA heads, the scoring kernels),
+             prompts; DeepSeek-V3's 128 MLA heads, the scoring kernels;
+             Llama-4-Scout's 40 query heads over 8 KV heads, a GQA group of
+             5, on its NoPE layer and with its 8192-token chunk, which the
+             decode kernel applies),
              and every kernel and its yardstick at a
              4096-token prefix with one prompt (device time from CUDA events
              around back-to-back calls queued behind a spin kernel, so the
@@ -40,15 +45,19 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 4. cross   — reduced-width float32 checkpoints (llama, gemma 3 and gemma 1
              at hd 256, phi3 at hd 96, qwen2, qwen3, mistral; windows that
              bind; llama3, yarn and longrope rope scalings; mixtral,
-             qwen3_moe and deepseek_v3 with its MLA heads) through the
+             qwen3_moe and deepseek_v3 with its MLA heads; llama4 with a
+             GQA group of 5, a chunk of 32 that binds, a NoPE layer whose
+             temperature moves, dense and MoE layers and Scout's rope
+             scaling) through the
              port's CLI on the card and on the CPU: scores within atol 1e-4
              and identical greedy tokens, for the re-scoring loop and for
              --kv_cache (on the card resident, its steps one CUDA graph per
              block, or the uncaptured device loop for MoE models); on the
-             llama, gemma3 and deepseek_v3 checkpoints also --speculative_k
+             llama, gemma3, deepseek_v3 and llama4 checkpoints also
+             --speculative_k
              4 (verify passes over resident weights) on the card: the
              tokens of plain --kv_cache, scores within 1e-4; and the int8
-             and int4 copies of llama, gemma3 and deepseek_v3
+             and int4 copies of llama, gemma3, deepseek_v3 and llama4
              (requantize_native) through both loops, card against CPU:
              scores within 1e-4, tokens equal.
 5. full    — seeded bf16 checkpoints at full width through the CLI, one
@@ -61,10 +70,17 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              a vision tower, three shards and an index) and split by the
              port's prepare_weights first; then DeepSeek-V3 (4 layers: 0-2
              dense, 3 with its 256 experts; 30.2 GB written one layer file
-             at a time), scoring with --num_gen_token 2, then --kv_cache.
+             at a time), scoring with --num_gen_token 2, then --kv_cache;
+             then Llama-4-Scout's text model (4 of 48 layers: 0-2 chunked
+             rope layers, 3 the NoPE layer; 16 experts, top 1, and the
+             shared expert in every layer; vocabulary 202,048; Scout's
+             llama3 rope; 21.8 GB written one layer file at a time) on the
+             Gemma prompts, scoring with --num_gen_token 2, then --kv_cache
+             with 2, each pass streaming exactly the checkpoint's bytes.
              Scores must be finite and sum to 1, and every kernel of each
-             run must have launched (with a window: with it on and with it
-             off); under MLA the scoring kernels at (192, 128) only and the
+             run must have launched (with a local form that binds at the
+             bucket, or in decode, where the local form always applies:
+             with it on and with it off; else never on); under MLA the scoring kernels at (192, 128) only and the
              decode kernel never (MLA decode runs the plain op, as in the
              JAX package). Every run has the CLI's defaults (verified loads,
              the process host shard cache, readahead, retries) and starts
@@ -99,6 +115,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              kernels, dequantized on the card as the weight source does,
              must equal the host's dequant bit for bit (the first, middle
              and last expert of each stack).
+   resume  — after the quant phase, on the 4-layer Llama-2-7B cell with
+             --storage_location disk: a CLI process (each shard started
+             one second late) killed with SIGKILL once its marker reads 2
+             or more completed shards, then --resume true: the scores of
+             an uninterrupted disk run bit for bit, only the shards left
+             streamed, the marker removed; then, in-process, one bit of a
+             spill flipped between shards 2 and 3: the block recomputed
+             from shard 2, the scores bit for bit and the recompute
+             counted. And the cell's scoring at --score_sink_max_device 1:
+             the default's scores bit for bit.
 6. host    — a reduced bf16 checkpoint through the CLI on the card: the
              defaults give the scores of --host_cache_gb 0 --verify_weights
              false --readahead_threads 0 bit for bit; after one flipped
@@ -716,7 +742,7 @@ def check_mla_cases(case, gen) -> None:
 
 
 def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_case: dict,
-                  mla_case: dict) -> dict[str, dict]:
+                  mla_case: dict, scout_case: dict) -> dict[str, dict]:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rng = np.random.default_rng(5)
 
@@ -807,6 +833,18 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
         check_case(f"hd {hd}, S 5, lq 576, NaN past limits", case(2, 5, 32, 4, hd, 576, 130, 7, [65, 513]),
                    torch.bfloat16, gen, nan_past_limits=True)
     check_mla_cases(case, gen)
+    # Llama-4-Scout's heads: 40 over 8, a GQA group of 5, so the decode
+    # kernel's 16-row blocks split a suffix's group between two blocks; at
+    # its full-width shapes and with chunks of 64 (binding) and 8192, in bf16
+    # and float32, with and without NaN past the limits.
+    for dtype in (torch.bfloat16, torch.float32):
+        for nan in (False, True):
+            tag = f"llama4-scout heads 40/8{', NaN past limits' if nan else ''}"
+            check_case(f"{tag}, full width", scout_case, dtype, gen, nan_past_limits=nan)
+            for chunk in (64, 8192):
+                c = {**case(2, 4, 40, 8, 128, 200, 70, 6, [200, 41]), "t": 4,
+                     "eos": [[0, 69, 12, 33], [5, 66, 37, 1]], "local": {"chunk": chunk}}
+                check_case(f"{tag}, chunk {chunk}", c, dtype, gen, nan_past_limits=nan)
     errs = check_case("main path", main_case, torch.bfloat16, gen)
     gemma_local = {**gemma_case, "local": {"window": GEMMA_WINDOW}}
     gemma12_local = {**gemma12_case, "local": {"window": GEMMA_WINDOW}}
@@ -819,6 +857,12 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
         # The plain version runs 16 of the 128 heads at a time (all at once
         # its float32 scores alone would take 18 GB a copy).
         "deepseek_v3_mla": ("deepseek-v3 mla, qk 192 / v 128", {**mla_case, "plain_head_chunk": 16}, 2),
+        # Scout's NoPE layer (no local form) and its rope layers, whose
+        # 8192-token chunk the decode kernel applies (the scoring kernels'
+        # shortcut drops it at the 2112 + 64 bucket).
+        "llama4_scout_global": ("llama4-scout NoPE layer, GQA 40/8", scout_case, 4),
+        "llama4_scout_chunked": ("llama4-scout rope layer, chunk 8192",
+                                 {**scout_case, "local": {"chunk": 8192}}, 4),
     }
     shape_errs = {key: check_case(name, c, torch.bfloat16, gen) for key, (name, c, _) in shapes.items()}
     time_long_prefix(gen)
@@ -879,6 +923,25 @@ DEEPSEEK_V3 = {
 }
 
 
+# meta-llama/Llama-4-Scout-17B-16E, config.json text_config: the fields that
+# shape the model (transformers' Llama4TextConfig defaults are its widths),
+# with its published rope_scaling. Its depth is cut per phase, and the
+# per-layer lists (layer_types, no_rope_layers, moe_layers) follow from
+# their rules: every fourth layer global and NoPE, every layer MoE.
+LLAMA4_SCOUT_TEXT = {
+    "model_type": "llama4_text", "vocab_size": 202048, "hidden_size": 5120,
+    "intermediate_size": 8192, "intermediate_size_mlp": 16384, "num_hidden_layers": 48,
+    "num_attention_heads": 40, "num_key_value_heads": 8, "head_dim": 128,
+    "num_local_experts": 16, "num_experts_per_tok": 1, "interleave_moe_layer_step": 1,
+    "rms_norm_eps": 1e-5, "rope_theta": 500000.0, "attention_chunk_size": 8192,
+    "use_qk_norm": True, "attn_temperature_tuning": True, "floor_scale": 8192,
+    "attn_scale": 0.1, "hidden_act": "silu", "max_position_embeddings": 131072,
+    "tie_word_embeddings": False,
+    "rope_scaling": {"rope_type": "llama3", "factor": 16.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 1.0, "original_max_position_embeddings": 8192},
+}
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-5: the port's CLI
 # ---------------------------------------------------------------------------
@@ -896,7 +959,8 @@ def layer_specs(cfg, i: int) -> list[tuple[str, tuple, str]]:
     q) and the compressed KV; MoE layers (``moe_layer_pattern``, or every
     layer of a MoE model without one) a router and stacked experts at the
     expert width, DeepSeek's adding the correction bias and the shared
-    expert; its dense layers take ``intermediate_size_mlp``. Gemma's layers
+    expert, Llama 4's the shared expert; their dense layers take
+    ``intermediate_size_mlp``. Gemma's layers
     add the sandwich norms, Gemma 3's and Qwen3's the q/k norms, Qwen2's its
     q/k/v biases."""
     d, hd, hv = cfg.hidden_size, cfg.head_dim, cfg.v_dim
@@ -920,10 +984,12 @@ def layer_specs(cfg, i: int) -> list[tuple[str, tuple, str]]:
         e = cfg.num_local_experts
         specs += [("mlp.router", (d, e), LIN), ("mlp.gate", (e, d, f), LIN), ("mlp.up", (e, d, f), LIN),
                   ("mlp.down", (e, f, d), LIN)]
+        if cfg.model_type in ("deepseek_v3", "llama4_text"):
+            fs = f * (cfg.n_shared_experts if cfg.model_type == "deepseek_v3" else 1)
+            specs += [("mlp.shared_gate", (d, fs), LIN), ("mlp.shared_up", (d, fs), LIN),
+                      ("mlp.shared_down", (fs, d), LIN)]
         if cfg.model_type == "deepseek_v3":
-            fs = f * cfg.n_shared_experts
-            specs += [("mlp.correction_bias", (e,), BIAS), ("mlp.shared_gate", (d, fs), LIN),
-                      ("mlp.shared_up", (d, fs), LIN), ("mlp.shared_down", (fs, d), LIN)]
+            specs.append(("mlp.correction_bias", (e,), BIAS))
     else:
         specs += [("mlp.gate", (d, f), LIN), ("mlp.up", (d, f), LIN), ("mlp.down", (f, d), LIN)]
     if cfg.qk_norm:
@@ -945,6 +1011,14 @@ def model_specs(cfg) -> dict[str, list[tuple[str, tuple, str]]]:
     if not cfg.tie_word_embeddings:
         out["lm_head"] = [("kernel", (d, cfg.vocab_size), EMBED)]
     return out
+
+
+def payload_bytes(cfg, names=None) -> int:
+    """The bf16 tensor bytes of the layer files ``names`` (every file when
+    None): what one weight pass streams of them."""
+    specs = model_specs(cfg)
+    return sum(int(np.prod(shape)) * 2 for name, layer in specs.items()
+               if names is None or name in names for _, shape, _ in layer)
 
 
 def make_tensor(cfg, shape, init: str, g, device, dtype, rows=None) -> torch.Tensor:
@@ -1144,6 +1218,12 @@ def cross_configs() -> dict:
                         "moe_intermediate_size": 128, "num_hidden_layers": 2, "n_routed_experts": 8,
                         "num_experts_per_tok": 2, "n_group": 4, "topk_group": 2,
                         "first_k_dense_replace": 1, "kv_lora_rank": 64, "q_lora_rank": 96},
+        # Llama 4: Scout's rope and GQA group of 5 (10 over 2 heads of 128),
+        # layers 0-2 chunked (32, binding), layer 3 NoPE with a temperature
+        # that moves every 16 positions, layers 1 and 3 MoE.
+        "llama4": {**LLAMA4_SCOUT_TEXT, **small, "num_attention_heads": 10, "num_key_value_heads": 2,
+                   "intermediate_size_mlp": 768, "num_hidden_layers": 4, "num_local_experts": 4,
+                   "interleave_moe_layer_step": 2, "attention_chunk_size": 32, "floor_scale": 16},
     }
     return {"llama": LlamaConfig(num_hidden_layers=2, explicit_head_dim=128, **small),
             **{name: LlamaConfig.from_dict(d) for name, d in hf.items()}}
@@ -1151,8 +1231,8 @@ def cross_configs() -> dict:
 
 # The cross-check models that also run speculative decode on the card, and
 # those whose int8 and int4 copies are cross-checked too.
-CROSS_SPECULATIVE = ("llama", "gemma3", "deepseek_v3")
-CROSS_QUANTIZED = ("llama", "gemma3", "deepseek_v3")
+CROSS_SPECULATIVE = ("llama", "gemma3", "deepseek_v3", "llama4")
+CROSS_QUANTIZED = ("llama", "gemma3", "deepseek_v3", "llama4")
 
 
 def phase_cross(work: str) -> None:
@@ -1422,12 +1502,15 @@ def check_decode_modes(tag: str, stats: dict, cfg) -> None:
 
 def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: int,
                model_dir: str | None = None, compare_modes: bool = False,
-               record: dict | None = None) -> dict:
+               record: dict | None = None, payload: int | None = None) -> dict:
     """A seeded bf16 checkpoint of ``cfg`` (one layer per shard, so every
     layer streams; written here unless ``model_dir`` holds one) through the
     CLI: scoring, then --kv_cache. Every kernel of each run must launch;
-    with local layers (a window) each must launch with the window on and
-    with it off, without them never with it on. Under MLA the scoring
+    with local layers (a window or a chunk) a kernel must launch with the
+    local form on and with it off where it applies (the scoring kernels
+    when it binds at the prompts' bucket, decode always), else never with
+    it on. With ``payload`` (the checkpoint's tensor bytes) every run must
+    stream exactly that per weight pass. Under MLA the scoring
     kernels must launch at the model's (qk, v) head dims only and the decode
     kernel never (MLA decode is the plain op's, as in the JAX package).
     The --kv_cache run must have the decode modes engaged
@@ -1459,7 +1542,13 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
         runs += [("kv_cache_fused_off", [*kv, "--decode_fused", "off"], n_gen_kv, fa.KERNELS),
                  ("kv_cache_resident_off", [*kv, "--decode_resident", "off"], n_gen_kv,
                   fa.KERNELS)]
-    windowed = cfg.sliding_window is not None
+    local_size = cfg.sliding_window or cfg.attention_chunk_size
+    bucket = main_path_case(prompts, n_gen_kv)
+    binds = local_size is not None and bucket["Lp"] + bucket["Ls"] > local_size
+
+    def mixed(kernel: str) -> bool:  # local on in some launches and off in others
+        return local_size is not None and (binds or kernel == "flash_decode_attention")
+
     outputs = {}
     try:
         for tag, extra, n_gen, needed in runs:
@@ -1487,11 +1576,11 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
                         or any(set(dims[k]) != {(cfg.head_dim, cfg.v_dim)} for k in scoring)):
                 fail(f"full {name} {tag}: MLA launches by (qk, v) head dims {dims}: the scoring "
                      f"kernels must run at ({cfg.head_dim}, {cfg.v_dim}) only and decode never")
-            if windowed and any(local[k] == 0 or local[k] == counts[k] for k in needed):
-                fail(f"full {name} {tag}: a kernel did not launch both with and without the window: "
-                     f"{counts} (window on: {local})")
-            if not windowed and any(local.values()):
-                fail(f"full {name} {tag}: a window reached a kernel of a model without one: {local}")
+            if any(local[k] == 0 or local[k] == counts[k] for k in needed if mixed(k)):
+                fail(f"full {name} {tag}: a kernel did not launch both with and without its local "
+                     f"form: {counts} (local on: {local})")
+            if any(local[k] for k in fa.KERNELS if not mixed(k)):
+                fail(f"full {name} {tag}: a local form reached a kernel where none applies: {local}")
             for k in counts:
                 launches[k]["launches"] += counts[k]
                 launches[k]["local_launches"] += local[k]
@@ -1501,6 +1590,9 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
             passes = 1 if stats.get("decode_resident") else n_gen
             host = check_host_path(f"full {name} {tag}", stats, model_dir, cfg, passes)
             log(f"[full] {name} {tag} host " + json.dumps(host))
+            if payload is not None and stats["streamed_bytes"] != payload * passes:
+                fail(f"full {name} {tag}: streamed {stats['streamed_bytes']} bytes in {passes} "
+                     f"pass(es) of a {payload}-byte checkpoint")
             log(f"[full] {name} {tag} kernels " + json.dumps(counts) + " window on "
                 + json.dumps(local) + " by (qk, v) head dims "
                 + json.dumps({k: {f"{a}/{b}": n for (a, b), n in v.items()} for k, v in dims.items()}))
@@ -1709,6 +1801,147 @@ def phase_quant(work: str, model_dir: str, cfg, prompts, bf16_runs: dict, n_gen_
     return launches
 
 
+# A CLI process whose every shard starts one second late, so that its
+# marker can be read after its second shard and the process killed mid-run
+# (argv as _CLI_PROCESS's).
+_SLOW_CLI_PROCESS = (
+    "import sys, time; sys.path.insert(0, sys.argv[1]); from chip_smoke import BenchTokenizer; "
+    "from flexible_llm_sharding_tpu_torch import cli; "
+    "from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore; "
+    "late = ActivationStore.set_shard; "
+    "ActivationStore.set_shard = lambda self, i: (time.sleep(1.0), late(self, i))[1]; "
+    "cli.main(sys.argv[3:], tokenizer=BenchTokenizer(int(sys.argv[2])))"
+)
+
+
+def _flip_bit(path: str, offset_from_end: int = 1001) -> None:
+    pos = max(0, os.path.getsize(path) - offset_from_end)
+    with open(path, "r+b") as f:
+        f.seek(pos)
+        byte = f.read(1)
+        f.seek(pos)
+        f.write(bytes([byte[0] ^ 0x20]))
+
+
+def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
+                 n_gen_loop: int) -> dict:
+    """Disk-mode crash resume and spill recompute on the 4-layer Llama-2-7B
+    cell, and the score sink's cap. A CLI process is killed (SIGKILL) once
+    its marker reads 2 or more completed shards; --resume true then must
+    give an uninterrupted disk run's scores bit for bit, stream only the
+    shards left and remove the marker. In-process, one bit of a spill is
+    flipped between shards 2 and 3: the block is recomputed and the scores
+    stay bit for bit. Scoring at --score_sink_max_device 1 must equal the
+    cell's scoring run (``scoring_ref``) bit for bit. Returns the runs'
+    kernel launches."""
+    import glob
+    import signal
+
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import layer_names_for
+
+    disk_args = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda",
+                 "--storage_location", "disk", "--num_gen_token", "1"]
+    scoring = ("flash_causal_attention", "flash_prefix_shared_attention")
+    launches: dict = {}
+
+    def run(tag, extra, hook=None):
+        fresh_process_state()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_cli(model_dir, work, tag, prompts, extra, cfg.vocab_size)
+        counts, local = fa.launch_counts(), fa.local_launch_counts()
+        _check_scores(out[0], prompts, int(extra[extra.index("--num_gen_token") + 1]),
+                      cfg.vocab_size, f"resume {tag}")
+        if any(counts[k] == 0 for k in scoring):
+            fail(f"resume {tag}: a scoring kernel never launched: {counts}")
+        _add_launches(launches, {k: {"launches": counts[k], "local_launches": local[k]}
+                                 for k in fa.KERNELS})
+        log(f"[resume] {tag}: wall {time.perf_counter() - t0:.3f} s, " + json.dumps(
+            {k: out[2].get(k) for k in ("streamed_bytes", "recomputes", "integrity_failures",
+                                        "compute_wall_s", "load_weights_time_s")}))
+        return out
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    clean, _, clean_stats = run("resume_clean", disk_args)
+    disk = os.path.join(work, "resume_disk")
+    ppkl = os.path.join(work, "resume.pkl")
+    with open(ppkl, "wb") as f:
+        pickle.dump(prompts, f)
+    err_path = os.path.join(work, "resume_killed.err")
+    fresh_process_state()
+    done, marker = 0, None
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _SLOW_CLI_PROCESS, HERE, str(cfg.vocab_size), "--model_path",
+             model_dir, "--prompt_pickle", ppkl, "--output_file",
+             os.path.join(work, "resume_killed.pkl"), "--disk_folder", disk, *disk_args],
+            cwd=HERE, stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            deadline = time.monotonic() + 600
+            while proc.poll() is None and time.monotonic() < deadline and done < 2:
+                for marker in glob.glob(os.path.join(disk, "progress-*.json")):
+                    with open(marker) as f:
+                        done = json.load(f).get("completed_shards", 0)
+                time.sleep(0.02)
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGKILL)
+            code = proc.wait()
+    if done < 2 or code != -signal.SIGKILL:
+        with open(err_path) as f:
+            fail(f"resume: the CLI process exited {code} with {done} shards marked:\n"
+                 + f.read()[-3000:])
+    with open(marker) as f:
+        done = json.load(f)["completed_shards"]
+    log(f"[resume] a disk-mode CLI process killed (SIGKILL) with {done} of "
+        f"{cfg.num_hidden_layers + 3} shards marked complete")
+    got, _, stats = run("resume", [*disk_args, "--resume", "true"])
+    left = payload_bytes(cfg, layer_names_for(cfg.num_hidden_layers)[done:])
+    if not same(got, clean):
+        fail("resume: the resumed run's scores differ from the uninterrupted run's")
+    if stats["streamed_bytes"] != left or not left < clean_stats["streamed_bytes"]:
+        fail(f"resume: streamed {stats['streamed_bytes']} bytes, not the {left} of the shards left")
+    if glob.glob(os.path.join(disk, "progress-*.json")):
+        fail("resume: the marker outlived the resumed run")
+    log(f"[resume] --resume true from shard {done}: the uninterrupted run's scores bit for bit, "
+        f"{stats['streamed_bytes']} of {clean_stats['streamed_bytes']} bytes streamed, marker removed")
+    # Rot drill: shard 2's spills are on disk when shard 3 begins; one bit of
+    # one of them flips, past what the re-reads can heal.
+    orig = ActivationStore.set_shard
+    flipped = []
+
+    def rot(self, shard_idx):
+        orig(self, shard_idx)
+        if shard_idx == 3 and not flipped:
+            self.flush()
+            path = os.path.join(self.disk_folder, "suffix-00000.npy")
+            _flip_bit(path)
+            flipped.append(path)
+
+    ActivationStore.set_shard = rot
+    try:
+        rotted, _, rot_stats = run("resume_rot", disk_args)
+    finally:
+        ActivationStore.set_shard = orig
+    if not flipped or not same(rotted, clean) or not rot_stats.get("recomputes", 0) >= 1:
+        fail(f"resume: a rotted spill gave recomputes {rot_stats.get('recomputes')}, scores "
+             f"equal: {same(rotted, clean)}")
+    log(f"[resume] a flipped spill bit ({flipped[0]}) recomputed from the previous shard "
+        f"({rot_stats['recomputes']} recompute(s), {rot_stats.get('integrity_failures')} integrity "
+        "failures): the scores bit for bit")
+    sink, _, _ = run("sink_1", ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device",
+                                "cuda", "--num_gen_token", str(n_gen_loop),
+                                "--score_sink_max_device", "1"])
+    if not same(sink, scoring_ref[0]):
+        fail("score sink: --score_sink_max_device 1 changed the scores")
+    log("[resume] --score_sink_max_device 1: the default's scores bit for bit")
+    return launches
+
+
 def phase_decode(work: str) -> dict:
     """Llama-2-7B at its full 32 layers (13.5 GB of seeded bf16, written one
     layer file at a time), --kv_cache with 8 tokens: the defaults (weights
@@ -1838,6 +2071,10 @@ def main() -> None:
     # Gemma prompts.
     ds_cfg = LlamaConfig.from_dict({**DEEPSEEK_V3, "num_hidden_layers": 4})
     ds_loop, ds_kv = 2, 2
+    # Llama-4-Scout: depth cut from 48 to 4 layers (0-2 chunked rope layers,
+    # 3 the NoPE layer; every layer MoE), the Gemma prompts.
+    scout_cfg = LlamaConfig.from_dict({**LLAMA4_SCOUT_TEXT, "num_hidden_layers": 4})
+    scout_loop, scout_kv = 2, 2
     timed = phase_kernels(
         main_path_case(prompts, n_gen_kv),
         main_path_case(gemma_prompts, gemma_kv, nq=gemma_cfg.num_attention_heads,
@@ -1848,7 +2085,9 @@ def main() -> None:
         main_path_case(prompts, n_gen_kv, nq=32, nkv=32, hd=96),
         # DeepSeek-V3's MLA heads: every query head has its own K and V.
         main_path_case(gemma_prompts, ds_kv, nq=ds_cfg.num_attention_heads,
-                       nkv=ds_cfg.num_attention_heads, hd=ds_cfg.head_dim, hd_v=ds_cfg.v_dim))
+                       nkv=ds_cfg.num_attention_heads, hd=ds_cfg.head_dim, hd_v=ds_cfg.v_dim),
+        main_path_case(gemma_prompts, scout_kv, nq=scout_cfg.num_attention_heads,
+                       nkv=scout_cfg.num_key_value_heads, hd=scout_cfg.head_dim))
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cross(work)
@@ -1862,6 +2101,8 @@ def main() -> None:
         llama_dir = os.path.join(work, "llama2-7b")
         paths["llama2_7b_quant"] = phase_quant(work, llama_dir, llama_cfg, prompts, llama_runs,
                                                n_gen_loop, n_gen_kv)
+        paths["llama2_7b_resume"] = phase_resume(work, llama_dir, llama_cfg, prompts,
+                                                 llama_runs["scoring"], n_gen_loop)
         shutil.rmtree(llama_dir, ignore_errors=True)
         paths.update({
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,
@@ -1892,6 +2133,14 @@ def main() -> None:
             ["--num_gen_token", str(ds_kv), "--kv_cache", "true"], ds_kv, ds_runs["kv_cache"],
             QUANT_BOUNDS["int4"], ("flash_causal_attention", "flash_prefix_shared_attention"))
         shutil.rmtree(ds_q4, ignore_errors=True)
+        scout_dir = os.path.join(work, "llama4-scout")
+        nbytes, secs = write_streamed_checkpoint(scout_dir, scout_cfg, seed=0)
+        log(f"[full] wrote a seeded bf16 llama4-scout-width checkpoint with "
+            f"{scout_cfg.num_hidden_layers} decoder layers ({nbytes} bytes, one layer file at a "
+            f"time) in {secs:.3f} s")
+        paths["llama4_scout"] = phase_full(work, "llama4-scout", scout_cfg, gemma_prompts, scout_loop,
+                                           scout_kv, model_dir=scout_dir,
+                                           payload=payload_bytes(scout_cfg))
         paths["llama2_7b_32_layers"] = phase_decode(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1907,7 +2156,8 @@ def main() -> None:
             "launches_by_path": {name: p[k] for name, p in paths.items()},
             **{key: timed[k][key] for key in ("gemma3_27b_local", "gemma3_27b_global",
                                               "gemma3_12b_local", "gemma3_12b_global", "phi3_hd96",
-                                              "deepseek_v3_mla") if key in timed[k]},
+                                              "deepseek_v3_mla", "llama4_scout_global",
+                                              "llama4_scout_chunked") if key in timed[k]},
         }
         for k in REPLACES
     ]

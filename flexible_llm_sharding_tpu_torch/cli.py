@@ -27,6 +27,13 @@ stream the most bytes on the card and streams the rest. int8, int4 and
 mixed-precision checkpoints (``prepare_weights --dtype int8|int4``,
 ``--precision_plan``) stream packed and are dequantized on the card.
 
+``--storage_location disk`` writes a progress marker after every shard
+whose activations are on disk; ``--resume true`` restarts a crashed run of
+the same workload at the first shard it left, and a spill that stays
+corrupt is recomputed from the previous shard. ``--score_sink_max_device``
+caps the prompts whose head scores wait on the card, their host copies in
+flight.
+
 ``verify`` audits a model directory (its precision plan included) and/or a
 spill directory and exits 2 on any problem; ``verify --hbm_pin_gb N``
 dry-runs the residency planner. ``plan-precision`` probes each layer's
@@ -132,6 +139,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "card's free memory minus activation headroom (off on the CPU); 0 "
                         "(default) = off. Quantized layers are charged packed and pinned "
                         "dequantized")
+    p.add_argument("--score_sink_max_device", type=int, default=16,
+                   help="max prompts whose head-stage scores stay on the card, their host "
+                        "copies in flight, before older ones resolve to host memory (bigger = "
+                        "fewer host waits on big batches, more device memory)")
+    p.add_argument("--resume", type=_str2bool, default=False,
+                   help="disk mode: resume a crashed run of the same workload from the last "
+                        "completed shard")
     p.add_argument("--speculative_k", type=int, default=0,
                    help="kv_cache mode: verify this many prompt-lookup drafted tokens per "
                         "streamed pass (greedy-exact; divides weight streams per token by the "
@@ -328,6 +342,8 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         decode_fused=args.decode_fused,
         speculative_k=args.speculative_k,
         hbm_pin_gb=args.hbm_pin_gb,
+        score_sink_max_device=args.score_sink_max_device,
+        resume=args.resume,
     )
 
 
@@ -342,7 +358,7 @@ _DECODE_KEYS = ("decode_resident", "decode_fused", "decode_speculative", "decode
 # Host-path and residency counters of the executor's stats, summed over
 # its calls.
 _SUMMED_HOST_KEYS = ("io_retries", "integrity_failures", "reread_heals", "quarantined_shards",
-                     "host_cache_hits", "host_cache_misses", "crc_verdict_hits",
+                     "recomputes", "host_cache_hits", "host_cache_misses", "crc_verdict_hits",
                      "crc_full_verifies", "pin_hits", "stream_bytes_saved")
 
 

@@ -9,15 +9,16 @@ pattern, (1+w) float32 RMSNorm, per-head q/k norm, a local rope base
 beside a scaled global one, sandwich norms, GeGLU, scaled embeddings and
 the softcaps — the mixture-of-experts families mixtral and qwen3_moe, and
 deepseek_v3 (multi-head latent attention, DeepSeek's routed and shared
-experts), with the linear, llama3, yarn and longrope rope scalings. Llama 4
-and its fields (chunked attention, NoPE layers, q/k L2 norm) raise
-``NotImplementedError`` when a config asks for them, instead of being
-dropped silently.
+experts), Llama 4's text model (chunked local layers, NoPE layers with
+temperature-tuned queries, the weightless q/k L2 norm, interleaved rope, its
+input-scaled experts beside a shared expert), with the linear, llama3, yarn
+and longrope rope scalings.
 
 ``FrameworkConfig`` holds the batch CLI's runtime flags: the reference's ten
 plus dtype, blocking, bucketing, KV-cache decode, sampling, prefetch, the
-device, and the JAX package's default-on host path: weight verification,
-the host shard cache, readahead and I/O retries. ``resolve_device`` is the one place that turns a device name into a
+device, the JAX package's default-on host path (weight verification, the
+host shard cache, readahead and I/O retries), the head stage's score sink
+and disk-mode crash resume. ``resolve_device`` is the one place that turns a device name into a
 ``torch.device``: CUDA unless the caller asks for the CPU, and an error (never
 a silent CPU run) when CUDA is asked for and absent.
 """
@@ -34,15 +35,6 @@ import torch
 
 DEFAULT_MAX_TOKEN_LEN = 4096
 
-# Native config fields of the JAX package (Llama 4's) the port does not
-# implement, with the value that means "feature off". A config carrying any
-# other value raises.
-_UNSUPPORTED: dict[str, Any] = {
-    "attention_chunk_size": None,
-    "layer_rope": None,
-    "qk_l2_norm": False,
-}
-
 # The family deltas, with their "off" values, and the ones each family
 # carries: a native config must keep the others off.
 _FAMILY_DELTAS: dict[str, Any] = {
@@ -58,6 +50,10 @@ _FAMILY_DELTAS: dict[str, Any] = {
     "kv_lora_rank": 0,
     "q_lora_rank": None,
     "rope_interleaved": False,
+    "attention_chunk_size": None,
+    "layer_rope": None,
+    "qk_l2_norm": False,
+    "attn_temperature_tuning": False,
 }
 _CARRIED_DELTAS: dict[str, frozenset[str]] = {
     "llama": frozenset(),
@@ -76,13 +72,13 @@ _CARRIED_DELTAS: dict[str, frozenset[str]] = {
                             "moe_layer_pattern"}),
     "deepseek_v3": frozenset({"num_local_experts", "moe_layer_pattern", "kv_lora_rank",
                               "q_lora_rank", "rope_interleaved"}),
+    "llama4_text": frozenset({"layer_sliding", "num_local_experts", "moe_layer_pattern",
+                              "rope_interleaved", "attention_chunk_size", "layer_rope",
+                              "qk_l2_norm", "attn_temperature_tuning"}),
 }
-# Families of the JAX package this port does not run yet, with the ROADMAP
-# item that brings them.
-_LATER_FAMILIES = {"llama4": "2.3 (Llama 4)", "llama4_text": "2.3 (Llama 4)"}
 # Families whose MLP is a mixture of experts (a stray num_local_experts
 # elsewhere is dropped, as in the JAX package).
-_MOE_FAMILIES = ("mixtral", "qwen3_moe", "deepseek_v3")
+_MOE_FAMILIES = ("mixtral", "qwen3_moe", "deepseek_v3", "llama4_text")
 
 ACTIVATIONS = ("silu", "gelu", "gelu_pytorch_tanh")
 _ROPE_SCALINGS = (None, "linear", "llama3", "yarn", "longrope")
@@ -110,6 +106,8 @@ _FAMILY_HF_FIELDS: dict[str, frozenset[str]] = {
     "gemma3_text": frozenset({"query_pre_attn_scalar", "sliding_window", "rope_local_theta"}),
     "deepseek_v3": frozenset({"kv_lora_rank", "q_lora_rank", "qk_nope_head_dim",
                               "qk_rope_head_dim", "v_head_dim", "num_experts_per_tok"}),
+    "llama4_text": frozenset({"num_local_experts", "num_experts_per_tok", "attention_chunk_size",
+                              "intermediate_size_mlp", "attn_temperature_tuning"}),
 }
 # Multimodal wrappers whose language model is the nested text_config.
 _TEXT_CONFIG_TYPES = {"gemma3": "gemma3_text", "llama4": "llama4_text"}
@@ -147,6 +145,15 @@ class LlamaConfig:
     and output (``pre/post_feedforward_layernorm``); ``embed_scale`` scales
     embeddings by sqrt(hidden_size) rounded to the compute dtype; ``qk_norm``
     is the per-head RMSNorm on q and k before rope.
+
+    Llama 4: local layers (``layer_sliding`` True) attend within position
+    chunks of ``attention_chunk_size`` (exclusive with ``sliding_window``);
+    ``layer_rope`` False marks a NoPE layer, whose queries are scaled by
+    log(floor((pos + 1) / ``attn_floor_scale``) + 1) * ``attn_scale_coef`` + 1
+    under ``attn_temperature_tuning``; ``qk_l2_norm`` is the weightless L2
+    norm of q and k after rope, on rope layers only. Its MoE layers scale
+    each selected expert's input by the sigmoid of its router logit and add
+    a shared expert; its dense layers are ``intermediate_size_mlp`` wide.
 
     Mixture of experts (``num_local_experts`` > 0): Mixtral/Qwen3-MoE route
     by a float32 softmax, top ``num_experts_per_tok``, renormalised iff
@@ -216,6 +223,13 @@ class LlamaConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int | None = None
+    # Llama 4.
+    attention_chunk_size: int | None = None
+    layer_rope: tuple[bool, ...] | None = None
+    qk_l2_norm: bool = False
+    attn_temperature_tuning: bool = False
+    attn_floor_scale: float = 8192.0
+    attn_scale_coef: float = 0.1
 
     def __post_init__(self) -> None:
         if self.hidden_act not in ACTIVATIONS:
@@ -236,6 +250,8 @@ class LlamaConfig:
             )
         if self.kv_lora_rank and self.rope_local_theta is not None:
             raise NotImplementedError("MLA does not compose with rope_local_theta")
+        if self.sliding_window is not None and self.attention_chunk_size is not None:
+            raise ValueError("sliding_window and attention_chunk_size are mutually exclusive")
 
     @property
     def rope_scaling_spec(self) -> tuple | None:
@@ -413,38 +429,79 @@ class LlamaConfig:
             kwargs["rope_attention_factor"] = float(af)
             kwargs["rope_scaling_factor"] = float(factor)
 
+    @staticmethod
+    def _llama4_fields(kwargs: dict[str, Any], d: dict[str, Any]) -> None:
+        """A Hugging Face llama4_text config (transformers' Llama4TextConfig
+        defaults): interleaved rope, the L2 q/k norm under use_qk_norm, the
+        temperature tuning, chunked local layers from ``layer_types`` (else
+        every fourth layer global), NoPE layers from ``no_rope_layers`` (else
+        every fourth), and the MoE layers from ``moe_layers`` (else every
+        ``interleave_moe_layer_step``-th)."""
+        kwargs.setdefault("explicit_head_dim", 128)
+        kwargs.setdefault("rope_interleaved", True)
+        if d.get("use_qk_norm", True):
+            kwargs.setdefault("qk_l2_norm", True)
+        kwargs.setdefault("attn_temperature_tuning", d.get("attn_temperature_tuning", True))
+        kwargs.setdefault("attn_floor_scale", float(d.get("floor_scale", 8192)))
+        kwargs.setdefault("attn_scale_coef", float(d.get("attn_scale", 0.1)))
+        n = d.get("num_hidden_layers", 48)
+        if "layer_sliding" not in kwargs:
+            lt = d.get("layer_types")
+            nn = d.get("num_hidden_layers", 32)  # the dataclass default
+            chunked = (tuple(t == "chunked_attention" for t in lt) if lt
+                       else tuple((i + 1) % 4 != 0 for i in range(nn)))
+            if len(chunked) != nn:
+                raise ValueError(f"llama4 layer_types has {len(chunked)} entries for {nn} layers")
+            kwargs.setdefault("attention_chunk_size", d.get("attention_chunk_size", 8192))
+            if not any(chunked):
+                kwargs["attention_chunk_size"] = None
+            elif not all(chunked):
+                kwargs["layer_sliding"] = chunked
+        nr = d.get("no_rope_layers") or [0 if (i + 1) % 4 == 0 else 1 for i in range(n)]
+        if len(nr) != n:
+            raise ValueError(f"llama4 no_rope_layers has {len(nr)} entries for {n} layers")
+        if not all(nr):
+            kwargs.setdefault("layer_rope", tuple(bool(x) for x in nr))
+        step = d.get("interleave_moe_layer_step", 1)
+        moe_layers = d.get("moe_layers")
+        if moe_layers is None:
+            moe_layers = [i for i in range(n) if (i + 1) % step == 0]
+        if d.get("num_local_experts", 16) and moe_layers:
+            kwargs.setdefault("num_local_experts", d.get("num_local_experts", 16))
+            kwargs.setdefault("num_experts_per_tok", d.get("num_experts_per_tok", 1))
+            if len(moe_layers) != n:
+                kwargs.setdefault("moe_layer_pattern", tuple(i in set(moe_layers) for i in range(n)))
+        else:
+            kwargs["num_local_experts"] = 0
+        kwargs.setdefault("intermediate_size_mlp", d.get("intermediate_size_mlp"))
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "LlamaConfig":
         """Build from a config dict with the JAX package's ``from_hf_config``
         rules: a native one (either package's ``save_params``), whose fields
         read back by name, or a Hugging Face one of model_type llama,
         mistral, mixtral, phi3, qwen2, qwen3, qwen3_moe, gemma, gemma2,
-        gemma3_text, deepseek_v3 or the gemma3 wrapper (its
-        ``text_config``), which contributes only the fields that mean the
-        same thing in its family, with the family's defaults. Raises
-        NotImplementedError on Llama 4 and its fields, and on a native
-        config that turns on a delta its family does not have."""
+        gemma3_text, llama4_text, deepseek_v3 or the gemma3 and llama4
+        wrappers (their ``text_config``), which contributes only the fields
+        that mean the same thing in its family, with the family's defaults.
+        Raises NotImplementedError on a native config that turns on a delta
+        its family does not have."""
         model_type = d.get("model_type", "llama")
         text = extract_text_config(d)
         if text is not None:
             return cls.from_dict(text)
         family = "llama" if model_type == "" else model_type
-        if family in _LATER_FAMILIES:
-            raise NotImplementedError(
-                f"model_type {model_type!r} is not ported yet (ROADMAP item {_LATER_FAMILIES[family]})"
-            )
         if family not in _CARRIED_DELTAS:
             raise NotImplementedError(
                 f"model_type {model_type!r} is not supported ({', '.join(_CARRIED_DELTAS)} and "
-                "the gemma3 wrapper are)"
+                "the gemma3 and llama4 wrappers are)"
             )
         known = {f.name for f in dataclasses.fields(cls)}
         native = bool(d.get("fls_native")) or "attention_in_bias" in d
         if native:
-            # The fields of the JAX package's config that this port does not
-            # implement, and the deltas the family does not carry, must be off.
+            # The deltas the family does not carry must be off.
             carried = _CARRIED_DELTAS[family]
-            off = {**_UNSUPPORTED, **{k: v for k, v in _FAMILY_DELTAS.items() if k not in carried}}
+            off = {k: v for k, v in _FAMILY_DELTAS.items() if k not in carried}
             for name, off_val in off.items():
                 val = d.get(name, off_val)
                 if val in ([], ()):
@@ -501,6 +558,8 @@ class LlamaConfig:
                 kwargs["sliding_window"] = None
             else:
                 kwargs["ffw_sandwich_norms"] = True
+        elif family == "llama4_text":
+            cls._llama4_fields(kwargs, d)
         elif family == "deepseek_v3" and not native:
             # A native config's fields read back as saved: re-deriving them
             # from the HF names would undo the width swap.
@@ -527,7 +586,8 @@ class LlamaConfig:
         if d.get("head_dim") and family != "deepseek_v3":
             kwargs["explicit_head_dim"] = d["head_dim"]
         kwargs.setdefault("num_key_value_heads", d.get("num_attention_heads", 32))
-        for key in ("layer_sliding", "moe_layer_pattern", "rope_long_factor", "rope_short_factor"):
+        for key in ("layer_sliding", "layer_rope", "moe_layer_pattern", "rope_long_factor",
+                    "rope_short_factor"):
             if kwargs.get(key) is not None:
                 kwargs[key] = tuple(kwargs[key])  # json gives a list
         cls._rope_scaling_fields(kwargs, d)
@@ -553,7 +613,6 @@ class LlamaConfig:
             "fls_native": True,
             "use_sliding_window": self.sliding_window is not None,
             **dataclasses.asdict(self),
-            **_UNSUPPORTED,
         }
 
 
@@ -596,6 +655,11 @@ class FrameworkConfig:
     loaded once and kept on the card, and every pass streams only the rest.
     0 (the default) is off; None is auto: the card's free memory less 35%
     of its total, off on the CPU.
+
+    ``score_sink_max_device``: how many prompts' head scores may wait on the
+    card, their host copies in flight, before the oldest resolve.
+    ``resume``: in disk mode, start at the first shard a crashed run with
+    the same workload left (its marker in ``disk_folder``).
     """
 
     model_path: str = "./"
@@ -627,6 +691,8 @@ class FrameworkConfig:
     decode_fused: str = "auto"  # 'auto' | 'on' | 'off'
     speculative_k: int = 0
     hbm_pin_gb: float | None = 0.0
+    score_sink_max_device: int = 16
+    resume: bool = False
 
     def __post_init__(self) -> None:
         if self.storage_location not in STORAGE_LOCATIONS:
@@ -663,6 +729,8 @@ class FrameworkConfig:
         if self.hbm_pin_gb is not None and self.hbm_pin_gb < 0:
             raise ValueError(
                 f"hbm_pin_gb must be >= 0 (or None for auto), got {self.hbm_pin_gb}")
+        if self.score_sink_max_device < 1:
+            raise ValueError("score_sink_max_device must be >= 1")
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -3,8 +3,9 @@
 The port of the JAX package's ``models/llama.py`` on one device, for the
 families the config carries (Llama, Mistral, Phi-3 once its fused
 projections are split, Qwen2's q/k/v biases, Qwen3's q/k norm, the Gemma
-1/2/3 deltas, the Mixtral/Qwen3-MoE and DeepSeek experts, and DeepSeek's
-multi-head latent attention), all through the same flags. Layers are plain
+1/2/3 deltas, the Mixtral/Qwen3-MoE, DeepSeek and Llama 4 experts,
+DeepSeek's multi-head latent attention, and Llama 4's chunked and NoPE
+layers), all through the same flags. Layers are plain
 functions over parameter dictionaries, so streaming a layer is passing
 another dictionary. The layout and key names are the JAX package's (linear
 kernels stored [in, out]), so a checkpoint reads the same in both packages:
@@ -27,13 +28,17 @@ An MoE layer's 'mlp' holds 'router' [D, E] and the experts stacked as
 [D, Fs], 'shared_down' [Fs, D]. An MLA layer's 'attn' holds 'wq'
 [D, nq*(dn+dr)] or the q LoRA 'q_a' [D, r_q], 'q_a_norm' [r_q], 'q_b'
 [r_q, nq*(dn+dr)]; 'kv_a' [D, r_kv+dr], 'kv_a_norm' [r_kv], 'kv_b'
-[r_kv, nq*(dn+dv)] and 'wo' [nq*dv, D].
+[r_kv, nq*(dn+dv)] and 'wo' [nq*dv, D]. A Llama 4 MoE layer's 'mlp' holds
+'router' [D, E], the stacked experts and the shared expert, without a
+correction bias.
 
 Every function takes an explicit leading block dimension ``B`` (the JAX
 package adds it with ``jax.vmap``), with per-prompt ``prefix_len [B]`` and
 ``suffix_eos [B, S]``. ``sliding`` is the layer's entry of
 :func:`layer_sliding_pattern` (a Python bool; None for uniform configs): it
-picks the layer's rope base and whether the sliding window applies.
+picks the layer's rope base and whether the sliding window or chunk
+applies. ``rope_on`` is its entry of :func:`layer_rope_pattern` (None: rope
+on): False marks a Llama 4 NoPE layer.
 Attention goes through the kernel wrappers of ``ops/flash_attention.py``:
 the CUDA kernels on the card, their plain versions on the CPU. The
 projections stay ``torch.matmul``.
@@ -84,11 +89,21 @@ def _norm(x: torch.Tensor, params: Params, cfg: LlamaConfig) -> torch.Tensor:
 
 
 def layer_sliding_pattern(cfg: LlamaConfig) -> tuple[bool, ...]:
-    """Per-decoder-layer local flags: the explicit pattern (Gemma's
-    local/global alternation), else every layer local iff a window is set."""
+    """Per-decoder-layer local flags: the explicit pattern (Gemma's and
+    Llama 4's local/global alternation), else every layer local iff a
+    window or a chunk is set."""
     if cfg.layer_sliding is not None:
         return cfg.layer_sliding
-    return (cfg.sliding_window is not None,) * cfg.num_hidden_layers
+    local = cfg.sliding_window is not None or cfg.attention_chunk_size is not None
+    return (local,) * cfg.num_hidden_layers
+
+
+def layer_rope_pattern(cfg: LlamaConfig) -> tuple[bool, ...]:
+    """Per-decoder-layer rope flags (False: a Llama 4 NoPE layer); all on
+    when the config sets none."""
+    if cfg.layer_rope is not None:
+        return cfg.layer_rope
+    return (True,) * cfg.num_hidden_layers
 
 
 def rope_for_layer(cfg: LlamaConfig, positions: torch.Tensor, sliding=None, total_len=None):
@@ -105,10 +120,45 @@ def rope_for_layer(cfg: LlamaConfig, positions: torch.Tensor, sliding=None, tota
                         total_len=total_len)
 
 
-def _effective_window(cfg: LlamaConfig, sliding) -> int | None:
-    """The layer's sliding window, or None: no window configured, or a
-    global layer (``sliding`` False)."""
-    return None if sliding is False else cfg.sliding_window
+def _effective_window(cfg: LlamaConfig, sliding) -> tuple[int | None, int | None]:
+    """The layer's (window, chunk), each None when off: none configured, or
+    a global layer (``sliding`` False)."""
+    if sliding is False:
+        return None, None
+    return cfg.sliding_window, cfg.attention_chunk_size
+
+
+def _l2_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Llama 4's weightless L2 norm (Llama4TextL2Norm): x times the float32
+    reciprocal root mean square, cast back."""
+    x32 = x.float()
+    return (x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)).to(x.dtype)
+
+
+def position_qk(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+                sliding=None, rope_on=None, total_len=None):
+    """The layer's position treatment of fresh q/k heads (the JAX package's
+    ``position_qk``): rope at ``positions`` (its base by ``sliding``), then
+    under ``cfg.qk_l2_norm`` the weightless L2 norm. A NoPE layer
+    (``rope_on`` False) keeps q/k unrotated and unnormed; under
+    ``cfg.attn_temperature_tuning`` its queries are scaled in float32 by
+    log(floor((pos + 1) / floor_scale) + 1) * coef + 1, computed from the
+    ``positions`` tensor (on the device, so a captured graph reads the
+    positions it is replayed with)."""
+    if rope_on is False:
+        if cfg.attn_temperature_tuning:
+            pos = positions.float()
+            temp = (torch.log(torch.floor((pos + 1.0) / cfg.attn_floor_scale) + 1.0)
+                    * cfg.attn_scale_coef + 1.0)[..., None, None]
+            q = (q.float() * temp).to(q.dtype)
+        return q, k
+    cos, sin = rope_for_layer(cfg, positions, sliding, total_len)
+    rot = apply_rope_interleaved if cfg.rope_interleaved else apply_rope
+    q, k = rot(q, cos, sin), rot(k, cos, sin)
+    if cfg.qk_l2_norm:
+        # HF builds Llama4TextL2Norm with config.rms_norm_eps.
+        q, k = _l2_norm(q, cfg.rms_norm_eps), _l2_norm(k, cfg.rms_norm_eps)
+    return q, k
 
 
 def _qkv_mla(attn: Params, cfg: LlamaConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -144,12 +194,12 @@ def _qkv_mla(attn: Params, cfg: LlamaConfig, x: torch.Tensor, positions: torch.T
 
 
 def positioned_qkv(params: Params, cfg: LlamaConfig, h: torch.Tensor, positions: torch.Tensor,
-                   sliding=None, total_len=None):
+                   sliding=None, total_len=None, rope_on=None):
     """Post-rope q [..., L, n_q, hd] and k/v [..., L, n_kv, hd] for one
     layer, with the per-head q/k RMSNorm before rope where the layer has
-    one; ``positions`` broadcasts against h's leading dims ([..., L]). MLA
-    (``cfg.kv_lora_rank``) assembles its own: n_kv is n_q there and v's
-    head dim ``cfg.v_dim``."""
+    one and :func:`position_qk` after it; ``positions`` broadcasts against
+    h's leading dims ([..., L]). MLA (``cfg.kv_lora_rank``) assembles its
+    own: n_kv is n_q there and v's head dim ``cfg.v_dim``."""
     attn = params["attn"]
     if cfg.kv_lora_rank:
         return _qkv_mla(attn, cfg, h, positions, total_len)
@@ -161,9 +211,8 @@ def positioned_qkv(params: Params, cfg: LlamaConfig, h: torch.Tensor, positions:
     if "q_norm" in attn:
         q = rms_norm(q, attn["q_norm"], cfg.rms_norm_eps, cfg.norm_unit_offset)
         k = rms_norm(k, attn["k_norm"], cfg.rms_norm_eps, cfg.norm_unit_offset)
-    cos, sin = rope_for_layer(cfg, positions, sliding, total_len)
-    rot = apply_rope_interleaved if cfg.rope_interleaved else apply_rope
-    return rot(q, cos, sin), rot(k, cos, sin), v
+    q, k = position_qk(cfg, q, k, positions, sliding, rope_on, total_len)
+    return q, k, v
 
 
 def _residual_attn(params: Params, cfg: LlamaConfig, x: torch.Tensor,
@@ -188,13 +237,15 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _routed_experts(mlp: Params, x: torch.Tensor, top_idx: torch.Tensor, top_w: torch.Tensor,
-                    act) -> torch.Tensor:
+                    act, scale_input: bool = False) -> torch.Tensor:
     """Sum over each token's selected experts of weight * expert(x), each
     expert computed only on the tokens that selected it: the tokens are
     grouped by expert and every group runs its expert's three matmuls. The
     weight (already in x's dtype) multiplies the activations before the
     down projection, and a weight of exactly 0 contributes exactly 0, as the
-    JAX package's compute-all form with ``where(c != 0, h * c, 0)``.
+    JAX package's compute-all form with ``where(c != 0, h * c, 0)``. With
+    ``scale_input`` (Llama 4) it multiplies the expert's input instead:
+    expert(weight * x), an input whose weight is 0 set to exactly 0.
     x [..., D]; top_idx/top_w [..., k]."""
     lead, d = x.shape[:-1], x.shape[-1]
     k = top_idx.shape[-1]
@@ -211,8 +262,11 @@ def _routed_experts(mlp: Params, x: torch.Tensor, top_idx: torch.Tensor, top_w: 
             continue
         sel = slice(start, start + c)
         xe = x2[tok[sel]]
+        if scale_input:
+            xe = torch.where(w[sel] != 0, xe * w[sel], xe.new_zeros(()))
         h = act(torch.matmul(xe, mlp["gate"][e])) * torch.matmul(xe, mlp["up"][e])
-        h = torch.where(w[sel] != 0, h * w[sel], h.new_zeros(()))
+        if not scale_input:
+            h = torch.where(w[sel] != 0, h * w[sel], h.new_zeros(()))
         y[order[sel]] = torch.matmul(h, mlp["down"][e])
         start += c
     return y.reshape(*lead, k, d).sum(dim=-2)
@@ -228,6 +282,23 @@ def _moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe_norm_topk_prob:
         top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
     return _routed_experts(mlp, x, top_idx, top_vals.to(x.dtype), _ACT[cfg.hidden_act])
+
+
+def _shared_expert(mlp: Params, x: torch.Tensor, act) -> torch.Tensor:
+    return torch.matmul(act(torch.matmul(x, mlp["shared_gate"])) * torch.matmul(x, mlp["shared_up"]),
+                        mlp["shared_down"])
+
+
+def _llama4_moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """Llama 4 (HF Llama4TextMoe / Llama4Router): router logits in the
+    model dtype, the top k of them in float32, their sigmoid cast to x's
+    dtype scaling each selected expert's INPUT (not its output, as
+    Mixtral's weights do), plus the shared expert."""
+    top_vals, top_idx = _top_k(torch.matmul(x, mlp["router"]).float(), cfg.num_experts_per_tok)
+    act = _ACT[cfg.hidden_act]
+    routed = _routed_experts(mlp, x, top_idx, torch.sigmoid(top_vals).to(x.dtype), act,
+                             scale_input=True)
+    return _shared_expert(mlp, x, act) + routed
 
 
 def _deepseek_moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
@@ -254,16 +325,17 @@ def _deepseek_moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.T
     top_w = top_w * cfg.moe_routed_scaling_factor
     act = _ACT[cfg.hidden_act]
     routed = _routed_experts(mlp, x, top_idx, top_w.to(x.dtype), act)
-    shared = torch.matmul(act(torch.matmul(x, mlp["shared_gate"])) * torch.matmul(x, mlp["shared_up"]),
-                          mlp["shared_down"])
-    return routed + shared
+    return routed + _shared_expert(mlp, x, act)
 
 
 def _mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     """The layer's MLP, by the keys its checkpoint has: DeepSeek's experts
-    (a correction bias), the Mixtral/Qwen3-MoE experts (a router), or dense."""
+    (a correction bias), Llama 4's (a shared expert without one), the
+    Mixtral/Qwen3-MoE experts (a router), or dense."""
     if "correction_bias" in mlp:
         return _deepseek_moe_mlp(mlp, cfg, x)
+    if "shared_gate" in mlp:
+        return _llama4_moe_mlp(mlp, cfg, x)
     if "router" in mlp:
         return _moe_mlp(mlp, cfg, x)
     return _dense_mlp(mlp, x, _ACT[cfg.hidden_act])
@@ -301,6 +373,7 @@ def prefix_suffix_layer(
     return_kv: bool = False,
     sliding=None,
     total_len: torch.Tensor | None = None,
+    rope_on=None,
 ):
     """One decoder layer over a block of (prefix, suffixes) prompts.
 
@@ -308,7 +381,8 @@ def prefix_suffix_layer(
     real); suffix_h [B, S, Ls, D]; prefix_len int32 [B]. The prefix runs a
     causal self-attention once; every suffix then attends to the real
     prefix keys plus causally within itself, at rotary positions
-    prefix_len + i, all within the layer's sliding window if it has one.
+    prefix_len + i, all within the layer's sliding window or chunk if it
+    has one.
     ``total_len`` [B] (longrope only): each prompt's real length, which
     picks its rope table for the prefix and the suffixes alike. Returns
     (prefix_out, suffix_out) and, with ``return_kv``, the post-rope KV dict
@@ -317,21 +391,23 @@ def prefix_suffix_layer(
     b, lp, _ = prefix_h.shape
     ls = suffix_h.shape[2]
     dev = prefix_h.device
-    window = _effective_window(cfg, sliding)
-    if window is not None and lp + ls <= window:
+    window, chunk = _effective_window(cfg, sliding)
+    if (window is not None and lp + ls <= window) or (chunk is not None and lp + ls <= chunk):
         # At these bucket shapes every query-key distance is below the
-        # window: the local mask equals the causal one, so drop it.
-        window = None
-    kw = dict(scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap, window=window)
+        # window (every position in chunk 0): the local mask equals the
+        # causal one, so drop it.
+        window = chunk = None
+    kw = dict(scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap, window=window, chunk=chunk)
 
     h = _norm(prefix_h, params["input_layernorm"], cfg)
-    q, k, v = positioned_qkv(params, cfg, h, torch.arange(lp, device=dev)[None], sliding, total_len)
+    q, k, v = positioned_qkv(params, cfg, h, torch.arange(lp, device=dev)[None], sliding, total_len,
+                             rope_on)
     attn = flash_causal_attention(q, k, v, prefix_len, **kw)
     prefix_out = _residual_mlp(params, cfg, _residual_attn(params, cfg, prefix_h, attn))
 
     hs = _norm(suffix_h, params["input_layernorm"], cfg)
     pos_s = prefix_len.to(dev).reshape(b, 1, 1) + torch.arange(ls, device=dev)  # [B, 1, Ls]
-    qs, ks, vs = positioned_qkv(params, cfg, hs, pos_s, sliding, total_len)
+    qs, ks, vs = positioned_qkv(params, cfg, hs, pos_s, sliding, total_len, rope_on)
     attn_s = flash_prefix_shared_attention(qs, k, v, ks, vs, prefix_len, **kw)
     suffix_out = _residual_mlp(params, cfg, _residual_attn(params, cfg, suffix_h, attn_s))
     if return_kv:
@@ -348,6 +424,7 @@ def decode_step_layer(
     suffix_eos: torch.Tensor,
     t,
     sliding=None,
+    rope_on=None,
 ) -> torch.Tensor:
     """One decoder layer for the K newest tokens of every suffix.
 
@@ -365,7 +442,8 @@ def decode_step_layer(
     [B, S, K, D]. The attention takes the JAX package's route
     (``models/llama.py:886``): the decode kernel for one token at a shared
     int t outside MLA, else the plain ``decode_attention`` op. The layer's
-    window always applies (no bucket shortcut, as in the JAX package).
+    window or chunk always applies (no bucket shortcut, as in the JAX
+    package).
     """
     b, s, kq = x.shape[:3]
     dev = x.device
@@ -376,7 +454,8 @@ def decode_step_layer(
     pos = (prefix_len.to(dev)[:, None] + suffix_eos.to(dev) + 1 + base)[..., None] \
         + torch.arange(kq, device=dev)  # [B, S, K]
     total_len = pos[..., -1] + 1 if cfg.rope_scaling_kind == "longrope" else None
-    q, k_new, v_new = positioned_qkv(params, cfg, h, pos, sliding, total_len)  # [B, S, K, n, hd]
+    q, k_new, v_new = positioned_qkv(params, cfg, h, pos, sliding, total_len,
+                                     rope_on)  # [B, S, K, n, hd]
     if scalar_t:
         start = min(max(t, 0), tg - kq)
         kv["kg"][:, :, start:start + kq] = k_new
@@ -389,10 +468,11 @@ def decode_step_layer(
         kv["vg"][rows, cols, slots] = v_new
     attend = (flash_decode_attention if kq == 1 and scalar_t and not cfg.kv_lora_rank
               else decode_attention)
+    window, chunk = _effective_window(cfg, sliding)
     attn = attend(
         q, kv["kp"], kv["vp"], kv["ks"], kv["vs"], kv["kg"], kv["vg"], prefix_len,
         suffix_eos, t, scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap,
-        window=_effective_window(cfg, sliding),
+        window=window, chunk=chunk,
     )
     return _residual_mlp(params, cfg, _residual_attn(params, cfg, x, attn))
 
@@ -436,9 +516,11 @@ __all__ = [
     "decode_step_layer",
     "embed",
     "head_params",
+    "layer_rope_pattern",
     "layer_sliding_pattern",
     "lm_head_scores",
     "lm_head_scores_multi",
+    "position_qk",
     "positioned_qkv",
     "prefix_suffix_layer",
     "rope_for_layer",

@@ -27,8 +27,11 @@ def _inv_freq(head_dim: int, theta: float, scaling: tuple | None = None) -> np.n
         # by the factor, high-frequency bands kept, the middle interpolated.
         (_, factor, low_ff, high_ff, orig_max) = scaling
         wavelen = 2.0 * np.pi / freq
-        smooth = (orig_max / wavelen - low_ff) / (high_ff - low_ff)
-        interp = (1.0 - smooth) * freq / factor + smooth * freq
+        # Equal band factors (Llama 4 Scout: 1.0 and 1.0) leave no middle
+        # band: the division gives inf/NaN only where np.where discards it.
+        with np.errstate(divide="ignore", invalid="ignore"):
+            smooth = (orig_max / wavelen - low_ff) / (high_ff - low_ff)
+            interp = (1.0 - smooth) * freq / factor + smooth * freq
         freq = np.where(wavelen < orig_max / high_ff, freq,
                         np.where(wavelen > orig_max / low_ff, freq / factor, interp))
     elif kind == "yarn":

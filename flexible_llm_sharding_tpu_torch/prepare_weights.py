@@ -11,7 +11,7 @@ writes it, for the port's streamed CLI:
 ``--layout native`` (the default) stores linear kernels transposed to
 [in, out] under the layer functions' names; ``--layout hf`` writes the
 reference's own files, which the CLI converts as it loads them. A
-multimodal wrapper checkpoint (Gemma 3) is split into its text tower.
+multimodal wrapper checkpoint (Gemma 3, Llama 4) is split into its text tower.
 ``--dtype int8`` quantizes every kernel per output channel (half the bf16
 bytes over the link, dequantized on the card); ``int4`` in groups of 64
 along the in axis, two values a byte (about 28% of the bf16 bytes).

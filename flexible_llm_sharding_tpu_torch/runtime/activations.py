@@ -20,9 +20,10 @@ event before it saves. Writes ping-pong between two file generations
 (``set_shard``): shard k stores generation k % 2 and fetches (k - 1) % 2.
 Every ``.npy`` gets a ``.crc`` sidecar, checked on read with up to
 ``_SPILL_REREAD_ATTEMPTS`` reads before ``SpillCorruptError`` /
-``SpillReadError``. The JAX store's recompute from the previous generation
-(``fetch_recompute``) comes with resume (ROADMAP 3.6); its fault injection
-and disk-full typing with item 8.
+``SpillReadError``. ``flush`` is the barrier a crash-resume marker waits on;
+``fetch_recompute`` reads the previous shard's inputs back from the other
+generation, for the executor's recompute of a corrupt spill. The JAX
+store's fault injection and disk-full typing wait for ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -124,8 +125,7 @@ class ActivationStore:
         self.dtype = dtype
         self.disk_folder = disk_folder
         self.max_in_cpu = max_in_cpu
-        # Batch 0 keeps the reference's exact file names.
-        self.tag = f".b{batch}" if batch else ""
+        self.tag = batch_tag(batch)
         self._mem: dict[object, object] = {}
         self._spilled: set[object] = set()
         self._cpu_prompts = 0
@@ -182,7 +182,8 @@ class ActivationStore:
             self._write_futs.pop(0).result()
 
     def flush(self) -> None:
-        """Wait for every queued disk write (re-raising a writer failure)."""
+        """Wait for every queued disk write (re-raising a writer failure): the
+        barrier before a resume marker may claim the shard that wrote them."""
         while self._write_futs:
             self._write_futs.pop(0).result()
 
@@ -282,6 +283,24 @@ class ActivationStore:
             prefix = prefix.to(self.device, non_blocking=True)
         return prefix, suffix
 
+    def fetch_recompute(self, block_id, prompt_idxs: list[int], with_prefix: bool = True):
+        """The previous shard's inputs of one block, on ``device`` (disk mode
+        only), for the executor's recompute of a corrupt spill: shard k - 1
+        read generation k % 2, the current store generation, which this
+        block's store has not overwritten yet (a block stores only after its
+        fetch). Other locations pop a block on fetch: SpillCorruptError."""
+        if self.location != "disk":
+            raise SpillCorruptError(
+                "recompute needs disk-mode activation generations "
+                f"(storage_location={self.location!r} pops its inputs on fetch)"
+            )
+        self.flush()
+        prefix, suffix = self._fetch_disk(prompt_idxs, with_prefix, self._store_gen)
+        suffix = suffix.to(self.device, non_blocking=True)
+        if prefix is not None:
+            prefix = prefix.to(self.device, non_blocking=True)
+        return prefix, suffix
+
     def clear(self) -> None:
         try:
             self.flush()
@@ -296,4 +315,10 @@ class ActivationStore:
             self._cpu_prompts = 0
 
 
-__all__ = ["ActivationStore"]
+def batch_tag(batch: int) -> str:
+    """The disk file and resume-marker tag of a ``num_batch`` batch: batch
+    0 keeps the reference's exact file names."""
+    return f".b{batch}" if batch else ""
+
+
+__all__ = ["ActivationStore", "batch_tag"]

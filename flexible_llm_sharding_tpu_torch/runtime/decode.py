@@ -292,7 +292,7 @@ def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params,
                        suffix_eos: torch.Tensor, n_steps: int, graph: bool):
     """Every greedy decode step of one block on the device (the JAX
     package's ``_fused_decode_steps``): embed the previous pick, run every
-    decoder layer (``layers``: (params, sliding) in model order, ``kvs``
+    decoder layer (``layers``: (params, sliding, rope_on) in model order, ``kvs``
     their KV dicts; step t writes generated slot t in place), norm and
     head, and pick with ``torch.argmax`` (the first index of the float32
     max, as ``np.argmax``). ``init_ids`` [B, S] int64 is the prefill's pick.
@@ -313,9 +313,9 @@ def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params,
 
     def step(t: int, ids, step_kvs, dist_out, pick_out) -> None:
         x = llama.embed(embed_params, ids[..., None], dtype, model_cfg)
-        for (params, sliding), kv in zip(layers, step_kvs):
+        for (params, sliding, rope_on), kv in zip(layers, step_kvs):
             x = llama.decode_step_layer(params, model_cfg, x, kv, prefix_len, suffix_eos, t,
-                                        sliding=sliding)
+                                        sliding=sliding, rope_on=rope_on)
         h = rms_norm(x, norm_params["scale"], model_cfg.rms_norm_eps, model_cfg.norm_unit_offset)
         dist = llama.lm_head_scores(head_params, h, model_cfg.final_logit_softcap)
         dist_out.copy_(dist)
@@ -439,6 +439,7 @@ class DecodeGenerator(StreamingExecutor):
         n_layers = len(self.layer_names)
         n_shards = len(self.plan.shards)
         sliding = llama.layer_sliding_pattern(mcfg)
+        rope_on = llama.layer_rope_pattern(mcfg)
         all_scores: list[list[np.ndarray]] = [[] for _ in blocks]
         tok_hist: list[list[np.ndarray]] = [[] for _ in blocks]
         picker = make_picker(cfg)
@@ -472,7 +473,7 @@ class DecodeGenerator(StreamingExecutor):
             shards or the next streamed pass, ('x', b) activations parked
             between shards. embed_ids(b) -> token ids [B, S, K] on the
             device; layer_fn(b, params, kv, x, prefix_len, suffix_eos,
-            sliding) -> x; head_fn(b, norm_params, head_params, x);
+            sliding, rope_on) -> x; head_fn(b, norm_params, head_params, x);
             skip_block(b) leaves a block out of this pass."""
             nonlocal compute_time
             norm_params = None
@@ -491,8 +492,9 @@ class DecodeGenerator(StreamingExecutor):
                         elif kind == "decoders":
                             for layer in params:
                                 kv = kv_store.get(("kv", shard_pos, li, b))
+                                d = first_decoder(layer_idxs) + li
                                 x = layer_fn(b, layer, kv, x, prefix_len, suffix_eos,
-                                             sliding[first_decoder(layer_idxs) + li])
+                                             sliding[d], rope_on[d])
                                 kv_store.put(("kv", shard_pos, li, b), kv)
                                 li += 1
                         elif kind == "norm":
@@ -529,6 +531,7 @@ class DecodeGenerator(StreamingExecutor):
                                     layer, mcfg, ph, sh, prefix_len, return_kv=True,
                                     sliding=sliding[first_decoder(layer_idxs) + li],
                                     total_len=total_len,
+                                    rope_on=rope_on[first_decoder(layer_idxs) + li],
                                 )
                                 kv_store.put(("kv", shard_pos, li, b), extend_gen_kv(kv, gen_slots))
                                 li += 1
@@ -555,7 +558,8 @@ class DecodeGenerator(StreamingExecutor):
                             embed_p = params
                         elif kind == "decoders":
                             for layer in params:
-                                layers.append((layer, sliding[first_decoder(layer_idxs) + li]))
+                                d = first_decoder(layer_idxs) + li
+                                layers.append((layer, sliding[d], rope_on[d]))
                                 keys.append((shard_pos, li))
                                 li += 1
                         elif kind == "norm":
@@ -605,8 +609,8 @@ class DecodeGenerator(StreamingExecutor):
 
                     stream_pass(
                         lambda b: fed[b],
-                        lambda b, params, kv, x, pl, se, sl: llama.decode_step_layer(
-                            params, mcfg, x, kv, pl, se, base[b], sliding=sl),
+                        lambda b, params, kv, x, pl, se, sl, ro: llama.decode_step_layer(
+                            params, mcfg, x, kv, pl, se, base[b], sliding=sl, rope_on=ro),
                         spec_head,
                         skip_block=lambda b: b not in fed,
                     )
@@ -628,8 +632,8 @@ class DecodeGenerator(StreamingExecutor):
                     stream_pass(
                         lambda b: torch.from_numpy(
                             np.asarray(tok_hist[b][-1])[..., None]).to(self.device),
-                        lambda b, params, kv, x, pl, se, sl: llama.decode_step_layer(
-                            params, mcfg, x, kv, pl, se, t, sliding=sl),
+                        lambda b, params, kv, x, pl, se, sl, ro: llama.decode_step_layer(
+                            params, mcfg, x, kv, pl, se, t, sliding=sl, rope_on=ro),
                         plain_head,
                     )
         finally:

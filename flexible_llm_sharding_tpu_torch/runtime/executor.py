@@ -18,8 +18,18 @@ and are dequantized to the compute dtype on the device, on the upload
 stream, before the shard's event: the compute stream never sees a packed
 tensor. With a residency tier (``runtime/residency.py``, ``hbm_pin_gb``)
 the pinned layers are loaded once, kept on the device, subtracted from
-every shard build and merged back in layer order. Resume (ROADMAP 3.6) and
-fault injection (item 8) are not part of this port yet.
+every shard build and merged back in layer order.
+
+The head stage's scores stay on the card: each block's copy into
+page-locked host memory starts on a side stream (``ScoreSink``), and only
+past ``score_sink_max_device`` pending prompts does the host wait on the
+oldest; ``finalize_scores`` resolves the rest at the end of the run.
+
+In disk mode a marker (``runtime/resume.py``) records each completed shard
+once its activation files are flushed, and ``resume`` restarts a crashed run
+at the first shard left; a spill that stays corrupt after its re-reads is
+recomputed from the previous shard, whose inputs the other disk generation
+still holds. Fault injection waits for ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -37,11 +47,15 @@ import torch
 from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, LlamaConfig, resolve_device
 from flexible_llm_sharding_tpu_torch.faults.retry import RetryPolicy, ShardLoadError, retry_call
 from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
-from flexible_llm_sharding_tpu_torch.integrity.manifest import ChecksumMismatch, ShardCorruptError
+from flexible_llm_sharding_tpu_torch.integrity.manifest import (
+    ChecksumMismatch,
+    ShardCorruptError,
+    SpillCorruptError,
+)
 from flexible_llm_sharding_tpu_torch.models import llama
 from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
-from flexible_llm_sharding_tpu_torch.runtime import residency
-from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore
+from flexible_llm_sharding_tpu_torch.runtime import residency, resume
+from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore, batch_tag
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import (
     HostShardCache,
     cache_for,
@@ -581,6 +595,7 @@ def apply_segments(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segment
     distributions when the shard holds the lm_head, else None."""
     prefix_ids, suffix_ids, prefix_len, suffix_eos = meta
     sliding = llama.layer_sliding_pattern(model_cfg)
+    rope_on = llama.layer_rope_pattern(model_cfg)
     total_len = longrope_total_len(model_cfg, prefix_len, suffix_eos)
     block_scores = None
     for kind, params in segments:
@@ -592,6 +607,7 @@ def apply_segments(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segment
                 prefix_h, suffix_h = llama.prefix_suffix_layer(
                     layer, model_cfg, prefix_h, suffix_h, prefix_len,
                     sliding=sliding[first_layer + i], total_len=total_len,
+                    rope_on=rope_on[first_layer + i],
                 )
         elif kind == "norm":
             suffix_h = llama.select_eos_and_norm(params, model_cfg, suffix_h, suffix_eos)
@@ -601,16 +617,98 @@ def apply_segments(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segment
     return prefix_h, suffix_h, block_scores
 
 
+class _ScoreCopy:
+    """One head block's float32 scores [B, S, V] on their way to the host.
+    On a card: a page-locked copy issued ``non_blocking`` on ``stream``
+    after an event on the compute stream, the device tensor kept until the
+    copy resolves; on the CPU the scores themselves."""
+
+    def __init__(self, block_scores: torch.Tensor, stream):
+        self.event = None
+        self.device_ref = None
+        if block_scores.device.type != "cuda":
+            self.host = block_scores
+            return
+        self.host = torch.empty(block_scores.shape, dtype=block_scores.dtype, pin_memory=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(block_scores.device))
+        stream.wait_event(ready)
+        with torch.cuda.stream(stream):
+            self._copy(block_scores)
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
+        self.device_ref = block_scores
+
+    def _copy(self, block_scores: torch.Tensor) -> None:
+        self.host.copy_(block_scores, non_blocking=True)
+
+    def resolve(self) -> torch.Tensor:
+        """Wait for the copy, release the device tensor, return the host one."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+            self.device_ref = None
+        return self.host
+
+
+class ScoreSink(dict):
+    """Per-prompt scores of one run: prompt index -> float32 [n_suffixes, 1,
+    V] host array (the JAX package's ``ScoreSink``). A head block's scores
+    arrive on the device with their host copy started (:class:`_ScoreCopy`,
+    on one side stream per sink); only the newest ``max_device`` prompts
+    stay pending, and older ones resolve (their copy has had whole blocks
+    of compute to finish), so the host loop waits on no copy per block.
+    :func:`finalize_scores` resolves the rest."""
+
+    def __init__(self, max_device: int = 16):
+        super().__init__()
+        if max_device < 1:
+            raise ValueError(f"score_sink_max_device must be >= 1, got {max_device}")
+        self.max_device = max_device
+        self._pending: list[int] = []
+        self._rows: dict[int, tuple[_ScoreCopy, int, int]] = {}
+        self._stream = None
+
+    def add_block(self, block_scores: torch.Tensor, idxs: list[int], n_suffixes: list[int]) -> None:
+        """Keep a block's scores [B, S, V]: row ``r`` is prompt ``idxs[r]``,
+        cut to its ``n_suffixes[r]`` real suffixes when it resolves."""
+        if block_scores.device.type == "cuda" and self._stream is None:
+            self._stream = torch.cuda.Stream(block_scores.device)
+        copy = _ScoreCopy(block_scores, self._stream)
+        for row, (i, n) in enumerate(zip(idxs, n_suffixes)):
+            self._rows[i] = (copy, row, n)
+            self._pending.append(i)
+        while len(self._pending) > self.max_device:
+            self._resolve(self._pending.pop(0))
+
+    def _resolve(self, i: int) -> None:
+        copy, row, n = self._rows.pop(i)
+        self[i] = copy.resolve().numpy()[row, :n, None, :]
+
+    def finalize(self) -> None:
+        while self._pending:
+            self._resolve(self._pending.pop(0))
+
+
+def finalize_scores(scores: ScoreSink) -> None:
+    """Resolve every pending prompt's scores: the run's one host wait on
+    score copies besides the cap's."""
+    scores.finalize()
+
+
 def process_block(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments,
                   layer_idxs: tuple[int, ...], n_layers: int, store: ActivationStore,
                   b: int, idxs: list[int], meta, toks: list[TokenizedPrompt],
-                  scores: dict[int, np.ndarray]) -> None:
+                  scores: ScoreSink, fetched=None) -> None:
     """One shard over one block: fetch its activations (unless the shard
-    starts at the embedding), apply the segments, keep any head scores (rows
-    cut to the true suffix count), and park the activations for the next
-    shard. Prefix states end at the last decoder layer (index n_layers-3)."""
+    starts at the embedding, or ``fetched`` holds them: a recompute's), apply
+    the segments, hand any head scores to the sink (rows cut to the true
+    suffix count), and park the activations for the next shard. Prefix
+    states end at the last decoder layer (index n_layers-3)."""
     first, last = layer_idxs[0], layer_idxs[-1]
-    if first == 0:
+    if fetched is not None:
+        prefix_h, suffix_h = fetched
+    elif first == 0:
         prefix_h = suffix_h = None
     else:
         prefix_h, suffix_h = store.fetch(b, idxs, with_prefix=first <= n_layers - 3)
@@ -618,9 +716,7 @@ def process_block(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments
         model_cfg, dtype, segments, prefix_h, suffix_h, meta, first_decoder(layer_idxs)
     )
     if block_scores is not None:
-        host = block_scores.to("cpu").numpy()
-        for row, i in enumerate(idxs):
-            scores[i] = host[row, : toks[i].num_suffixes, None, :]
+        scores.add_block(block_scores, idxs, [toks[i].num_suffixes for i in idxs])
     if last != n_layers - 1:
         store.store(b, idxs, prefix_h, suffix_h)
 
@@ -628,9 +724,10 @@ def process_block(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments
 class StreamingExecutor:
     """Single-device layer-streaming scorer.
 
-    ``__call__(prompts)`` takes ``[(prefix_str, (suffix_str, ...)), ...]``
-    and returns one float32 ``[n_suffixes, 1, vocab]`` next-token
-    distribution per prompt.
+    ``__call__(prompts, batch)`` takes ``[(prefix_str, (suffix_str, ...)),
+    ...]`` and the ``num_batch`` loop's batch index (which scopes the disk
+    files and the resume marker) and returns one float32 ``[n_suffixes, 1,
+    vocab]`` next-token distribution per prompt.
     """
 
     def __init__(self, cfg: FrameworkConfig, device: torch.device | None = None,
@@ -648,6 +745,9 @@ class StreamingExecutor:
         )
         self.layer_names = checkpoint.layer_names_for(self.model_cfg.num_hidden_layers)
         self.plan = plan_shards_dp(len(self.layer_names), cfg.layer_num_per_shard)
+        # The model directory's content, in the resume signature and marker.
+        self._manifest_digest = integrity_manifest.manifest_digest(
+            integrity_manifest.load_manifest(cfg.model_path) if cfg.verify_weights else None)
         # The process residency tier, or None when hbm_pin_gb resolves to 0.
         self._residency = self._pin_tier()
         self.stats: dict[str, float] = {}
@@ -657,16 +757,17 @@ class StreamingExecutor:
         return residency.tier_for(self.cfg, self.layer_names, self.model_cfg.tie_word_embeddings,
                                   self.device)
 
-    def weight_source(self, n_passes: int = 1) -> tuple[ShardWeightSource, StreamStats]:
-        """One source over ``n_passes`` full passes of the shard list, on the
-        process host cache and residency tier, and the baselines of its
-        stats."""
+    def weight_source(self, n_passes: int = 1,
+                      start: int = 0) -> tuple[ShardWeightSource, StreamStats]:
+        """One source over ``n_passes`` passes of the shard list from shard
+        ``start`` (a resumed run's), on the process host cache and residency
+        tier, and the baselines of its stats."""
         cfg = self.cfg
         cache = cache_for(cfg)
         tier = self._residency
         stats = StreamStats(cache, tier, self.device)
         source = ShardWeightSource(
-            cfg.model_path, self.layer_names, list(self.plan.shards) * n_passes,
+            cfg.model_path, self.layer_names, list(self.plan.shards[start:]) * n_passes,
             self.dtype, self.device, cfg.prefetch_depth, self.model_cfg.tie_word_embeddings,
             verify_weights=cfg.verify_weights, host_cache=cache,
             readahead_threads=cfg.readahead_threads, retry_policy=cfg.retry_policy(),
@@ -682,6 +783,65 @@ class StreamingExecutor:
             retry_policy=cfg.retry_policy(), retry_recorder=source.retries,
         )
 
+    # -- disk-mode crash resume (runtime/resume.py) ---------------------------
+
+    def _resume_signature(self, toks) -> str:
+        return resume.workload_signature(toks, self.plan.shards, self.cfg.model_path,
+                                         self.cfg.dtype, self.cfg.block_size,
+                                         manifest_digest=self._manifest_digest)
+
+    def _progress_path(self, sig: str, batch: int) -> str:
+        return resume.marker_path(self.cfg.disk_folder, sig, batch_tag(batch))
+
+    def _resume_start(self, marker: str, sig: str) -> int:
+        """The first shard a run executes: 0, or with ``resume`` in disk mode
+        the marker's completed shards. A crashed shard k cannot have
+        destroyed its own inputs (it writes generation k % 2 and reads
+        (k - 1) % 2), so the resumed run rewrites its outputs from them. The
+        last shard is never marked complete: it produces the scores."""
+        if not (self.cfg.resume and self.cfg.storage_location == "disk"):
+            return 0
+        data = resume.read_marker(marker, sig, manifest_hash=self._manifest_digest)
+        return min(int(data.get("completed_shards", 0)), len(self.plan.shards) - 1)
+
+    def _mark_progress(self, marker: str, sig: str, done: int) -> None:
+        resume.write_marker(marker, sig, completed_shards=done,
+                            manifest_hash=self._manifest_digest)
+
+    def _recompute_block(self, prev_shard, store: ActivationStore, b: int, idxs: list[int], meta,
+                         n_layers: int):
+        """One block's activations re-derived by running the previous shard
+        again, from its inputs in the other disk generation (the ping-pong
+        that protects a resume). Returns (prefix_h, suffix_h) on the device,
+        the current shard's input."""
+        prev_idxs, prev_segments = prev_shard
+        first = prev_idxs[0]
+        if first == 0:
+            prefix_h = suffix_h = None  # re-embedded from the token ids
+        else:
+            prefix_h, suffix_h = store.fetch_recompute(b, idxs, with_prefix=first <= n_layers - 3)
+        prefix_h, suffix_h, _ = apply_segments(self.model_cfg, self.dtype, prev_segments,
+                                               prefix_h, suffix_h, meta, first_decoder(prev_idxs))
+        return prefix_h, suffix_h
+
+    def _run_block(self, segments, layer_idxs, store, b, idxs, meta, toks, scores,
+                   prev_shard, integrity) -> None:
+        """:func:`process_block`, with the recompute of a corrupt input spill:
+        at most once per block and shard (a second failure means the
+        previous generation is corrupt too, and raises)."""
+        n_layers = len(self.layer_names)
+        fetched = None
+        while True:
+            try:
+                process_block(self.model_cfg, self.dtype, segments, layer_idxs, n_layers, store,
+                              b, idxs, meta, toks, scores, fetched=fetched)
+                return
+            except SpillCorruptError:
+                if prev_shard is None or fetched is not None:
+                    raise
+                integrity.count("recomputes")
+                fetched = self._recompute_block(prev_shard, store, b, idxs, meta, n_layers)
+
     @torch.inference_mode()
     def __call__(self, prompts, batch: int = 0) -> list[np.ndarray]:
         t_start = time.perf_counter()
@@ -689,30 +849,44 @@ class StreamingExecutor:
         check_longrope_regime(self.model_cfg, toks)
         blocks = make_blocks(toks, self.cfg.block_size)
         metas = [block_meta(toks, idxs, self.device) for idxs in blocks]
-        scores: dict[int, np.ndarray] = {}
-        n_layers = len(self.layer_names)
+        scores = ScoreSink(self.cfg.score_sink_max_device)
+        n_shards = len(self.plan.shards)
+        resumable = self.cfg.storage_location == "disk"
+        sig = self._resume_signature(toks) if resumable else ""
+        marker = self._progress_path(sig, batch) if resumable else ""
+        start = self._resume_start(marker, sig) if resumable else 0
         compute_time = source_wait = 0.0
-        source, host_stats = self.weight_source()
+        source, host_stats = self.weight_source(start=start)
         store = self.activation_store(source, batch)
+        # Disk mode keeps the previous shard's weights one more shard, for
+        # the recompute of a corrupt spill.
+        prev_shard = None
         try:
             it = iter(source)
-            for shard_pos in range(len(self.plan.shards)):
+            for shard_pos in range(start, n_shards):
                 t_wait = time.perf_counter()
                 layer_idxs, segments = next(it)
                 source_wait += time.perf_counter() - t_wait
                 store.set_shard(shard_pos)
                 t0 = time.perf_counter()
                 for b, idxs in enumerate(blocks):
-                    process_block(
-                        self.model_cfg, self.dtype, segments, layer_idxs, n_layers, store,
-                        b, idxs, metas[b], toks, scores,
-                    )
+                    self._run_block(segments, layer_idxs, store, b, idxs, metas[b], toks, scores,
+                                    prev_shard, source.integrity)
                 sync(self.device)
                 compute_time += time.perf_counter() - t0
+                if resumable:
+                    if shard_pos + 1 < n_shards:
+                        # The marker never claims a shard whose writes are queued.
+                        store.flush()
+                        self._mark_progress(marker, sig, shard_pos + 1)
+                    prev_shard = (layer_idxs, segments)
                 del segments
         finally:
             source.close()
             store.clear()
+        finalize_scores(scores)
+        if resumable:
+            resume.remove_marker(marker)
         self.stats = {
             "load_weights_time_s": source.load_time,
             "compute_wall_s": compute_time,
@@ -728,6 +902,7 @@ class StreamingExecutor:
 
 
 __all__ = [
+    "ScoreSink",
     "ShardWeightSource",
     "layer_segments",
     "process_tied_head_requants",
@@ -737,6 +912,7 @@ __all__ = [
     "StreamingExecutor",
     "apply_segments",
     "block_meta",
+    "finalize_scores",
     "first_decoder",
     "peak_mem_gb",
     "process_block",

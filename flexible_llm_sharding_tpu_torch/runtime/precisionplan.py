@@ -336,6 +336,7 @@ def _next_token_probs(params_dev, model_cfg, rows, device) -> np.ndarray:
     from flexible_llm_sharding_tpu_torch.runtime.tokenization import longrope_total_len
 
     sliding = llama.layer_sliding_pattern(model_cfg)
+    rope_on = llama.layer_rope_pattern(model_cfg)
     head = llama.head_params(params_dev)
     by_len: dict[int, list[int]] = {}
     for i, row in enumerate(rows):
@@ -355,7 +356,8 @@ def _next_token_probs(params_dev, model_cfg, rows, device) -> np.ndarray:
         sh = llama.embed(params_dev["embed"], suffix_ids.to(device), torch.float32, model_cfg)
         for li, layer in enumerate(params_dev["layers"]):
             ph, sh = llama.prefix_suffix_layer(layer, model_cfg, ph, sh, prefix_len,
-                                               sliding=sliding[li], total_len=total_len)
+                                               sliding=sliding[li], total_len=total_len,
+                                               rope_on=rope_on[li])
         h = llama.select_eos_and_norm(params_dev["norm"], model_cfg, sh, suffix_eos)
         probs = llama.lm_head_scores(head, h, model_cfg.final_logit_softcap)[:, 0]
         probs = probs.cpu().numpy()

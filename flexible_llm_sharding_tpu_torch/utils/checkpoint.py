@@ -503,11 +503,6 @@ _LAYER_MAP_OPTIONAL = [
 # Buffers some checkpoints carry that hold no weights.
 _IGNORABLE_HF_SUFFIXES = ("rotary_emb.inv_freq",)
 
-# Keys of layer forms the port does not run yet, with the ROADMAP item that
-# brings them: they raise instead of being dropped.
-_LATER_LAYER_KEYS = ((".feed_forward.", "2.3 (Llama 4)"),)
-
-
 def _t(w: torch.Tensor) -> torch.Tensor:
     return w.T.contiguous()
 
@@ -532,6 +527,34 @@ def _stack_experts(layer_name: str, prefix: str, name_map, sd: dict, out: dict,
 _EXPERT_PROJ = (("mlp.gate", "gate_proj"), ("mlp.up", "up_proj"), ("mlp.down", "down_proj"))
 _SHARED_PROJ = (("mlp.shared_gate", "gate_proj"), ("mlp.shared_up", "up_proj"),
                 ("mlp.shared_down", "down_proj"))
+
+
+def _llama4_ff_to_native(layer_name: str, sd: dict, out: dict, consumed: set) -> None:
+    """Llama 4's ``feed_forward``: a dense layer's gate/up/down Linears, or
+    an MoE layer's fused ``experts.gate_up_proj`` [E, D, 2F] (already [in,
+    out] per expert, a Parameter, not a Linear) split into gate and up,
+    ``experts.down_proj`` [E, F, D] as it is, the transposed router and the
+    shared expert's Linears."""
+    ff = f"{layer_name}.feed_forward"
+
+    def take(native_key, key, transpose=True):
+        consumed.add(key)
+        out[native_key] = _t(sd[key]) if transpose else sd[key]
+
+    if f"{ff}.router.weight" not in sd:
+        for native_key, sub in _EXPERT_PROJ:
+            take(native_key, f"{ff}.{sub}.weight")
+        return
+    key = f"{ff}.experts.gate_up_proj"
+    gu = sd[key]
+    consumed.add(key)
+    f_dim = gu.shape[-1] // 2
+    out["mlp.gate"] = gu[..., :f_dim].contiguous()
+    out["mlp.up"] = gu[..., f_dim:].contiguous()
+    take("mlp.down", f"{ff}.experts.down_proj", transpose=False)
+    take("mlp.router", f"{ff}.router.weight")
+    for native_key, sub in _SHARED_PROJ:
+        take(native_key, f"{ff}.shared_expert.{sub}.weight")
 
 
 def _mla_to_native(layer_name: str, sd: dict, out: dict, consumed: set) -> None:
@@ -567,30 +590,24 @@ def hf_layer_to_native(layer_name: str, sd: dict[str, torch.Tensor]) -> dict[str
     KV blocks share the rest); DeepSeek's MLA projections keep their own
     keys; the experts of Mixtral (``block_sparse_moe``), Qwen3-MoE and
     DeepSeek (``mlp.experts``, DeepSeek's correction bias and shared expert)
-    are stacked per projection under a transposed router. A tensor with no
-    native slot raises, and so does the Llama 4 layer form, which the port
-    does not run yet."""
+    are stacked per projection under a transposed router; Llama 4's
+    ``feed_forward`` keys as :func:`_llama4_ff_to_native` maps them. A
+    tensor with no native slot raises."""
     if layer_name == "model.embed_tokens":
         return {"embedding": sd["model.embed_tokens.weight"]}
     if layer_name == "model.norm":
         return {"scale": sd["model.norm.weight"]}
     if layer_name == "lm_head":
         return {"kernel": _t(sd["lm_head.weight"])}
-    for k in sd:
-        for pattern, item in _LATER_LAYER_KEYS:
-            if pattern in k:
-                raise NotImplementedError(
-                    f"{layer_name}: {k} belongs to a layer form the PyTorch port does not run "
-                    f"yet (ROADMAP item {item})"
-                )
     mixtral = any(".block_sparse_moe." in k for k in sd)
     experts = f"{layer_name}.mlp.experts.0.gate_proj.weight" in sd  # qwen3_moe, deepseek
     fused = f"{layer_name}.self_attn.qkv_proj.weight" in sd  # phi3
     mla = f"{layer_name}.self_attn.kv_a_proj_with_mqa.weight" in sd  # deepseek
+    ff = any(".feed_forward." in k for k in sd)  # llama4
     out: dict[str, torch.Tensor] = {}
     consumed = set()
     for native_key, hf_sub, transpose in _LAYER_MAP:
-        if (mixtral or experts) and native_key.startswith("mlp."):
+        if (mixtral or experts or ff) and native_key.startswith("mlp."):
             continue
         if fused and native_key in ("attn.wq", "attn.wk", "attn.wv", "mlp.gate", "mlp.up"):
             continue
@@ -628,6 +645,8 @@ def hf_layer_to_native(layer_name: str, sd: dict[str, torch.Tensor]) -> dict[str
         if key in sd:
             consumed.add(key)
             out[native_key] = sd[key]
+    if ff:
+        _llama4_ff_to_native(layer_name, sd, out, consumed)
     if experts:
         key = f"{layer_name}.mlp.gate.weight"
         out["mlp.router"] = _t(sd[key])
@@ -659,7 +678,7 @@ def _is_native(keys) -> bool:
     return not any(k.startswith(("model.", "lm_head")) for k in keys)
 
 
-# Multimodal wrapper checkpoints (Gemma 3): the splitter keeps the text
+# Multimodal wrapper checkpoints (Gemma 3, Llama 4): the splitter keeps the text
 # tower. Language-model keys are renamed to the plain text layout, vision
 # and projector keys are dropped (never read), and the emitted config.json
 # is the nested text_config, so the split directory is a text checkpoint.

@@ -42,8 +42,8 @@ class RetryRecorder:
 class IntegrityRecorder:
     """Thread-safe corruption counters: ``integrity_failures`` (mismatches
     and unreadable spills detected), ``reread_heals`` (loads clean on a
-    re-read), ``recomputes`` (kept for the JAX key set; the recompute path
-    comes with resume, ROADMAP 3.6) and ``quarantined_shards``."""
+    re-read), ``recomputes`` (blocks re-derived from the previous shard
+    after a corrupt spill) and ``quarantined_shards``."""
 
     KEYS = ("integrity_failures", "reread_heals", "recomputes", "quarantined_shards")
 

@@ -345,8 +345,10 @@ def hf_layer_form(form: str, seed: int = 0) -> dict[str, np.ndarray]:
     """One decoder layer's Hugging Face state dict in ``form``'s key layout
     (seeded float32, tiny widths): ``mixtral`` (block_sparse_moe experts),
     ``qwen3_moe`` (mlp.experts), ``deepseek_moe`` (mlp.experts with the
-    correction bias and a shared expert, MLA with q LoRA) or ``mla`` (dense
-    q_proj, dense MLP)."""
+    correction bias and a shared expert, MLA with q LoRA), ``mla`` (dense
+    q_proj, dense MLP), ``llama4_moe`` (feed_forward: the fused
+    experts.gate_up_proj [E, D, 2F], experts.down_proj, the router and the
+    shared expert) or ``llama4_dense`` (feed_forward Linears)."""
     rng = np.random.default_rng(seed)
     d, f, e, nh, r, dn, dr, dv = 16, 8, 4, 2, 8, 6, 4, 5
 
@@ -385,27 +387,34 @@ def hf_layer_form(form: str, seed: int = 0) -> dict[str, np.ndarray]:
             sd.update({f"{p}.mlp.shared_experts.gate_proj.weight": w(f, d),
                        f"{p}.mlp.shared_experts.up_proj.weight": w(f, d),
                        f"{p}.mlp.shared_experts.down_proj.weight": w(d, f)})
+    elif form == "llama4_moe":
+        ff = f"{p}.feed_forward"
+        sd.update({f"{ff}.experts.gate_up_proj": w(e, d, 2 * f), f"{ff}.experts.down_proj": w(e, f, d),
+                   f"{ff}.router.weight": w(e, d),
+                   f"{ff}.shared_expert.gate_proj.weight": w(f, d),
+                   f"{ff}.shared_expert.up_proj.weight": w(f, d),
+                   f"{ff}.shared_expert.down_proj.weight": w(d, f)})
+    elif form == "llama4_dense":
+        ff = f"{p}.feed_forward"
+        sd.update({f"{ff}.gate_proj.weight": w(f, d), f"{ff}.up_proj.weight": w(f, d),
+                   f"{ff}.down_proj.weight": w(d, f)})
     else:
         sd.update({f"{p}.mlp.gate_proj.weight": w(f, d), f"{p}.mlp.up_proj.weight": w(f, d),
                    f"{p}.mlp.down_proj.weight": w(d, f)})
     return sd
 
 
-@pytest.mark.parametrize("key,item", [
-    ("model.layers.0.block_sparse_moe.gate.weight", None),
-    ("model.layers.0.mlp.experts.0.gate_proj.weight", None),
-    ("model.layers.0.self_attn.kv_a_proj_with_mqa.weight", None),
-    ("model.layers.0.feed_forward.router.weight", "2.3"),
+@pytest.mark.parametrize("key", [
+    "model.layers.0.block_sparse_moe.gate.weight",
+    "model.layers.0.mlp.experts.0.gate_proj.weight",
+    "model.layers.0.self_attn.kv_a_proj_with_mqa.weight",
+    "model.layers.0.feed_forward.router.weight",
 ], ids=["mixtral", "qwen3_moe", "mla", "llama4"])
-def test_unported_layer_forms_raise(key, item):
-    """Llama 4's layer form raises naming its ROADMAP item; the expert and
-    MLA forms once listed beside it convert as the JAX package converts
-    them: the same keys, shapes and bits."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            checkpoint.hf_layer_to_native("model.layers.0", {key: torch.zeros(2, 2)})
-        return
-    form = {"block_sparse_moe": "mixtral", "experts": "qwen3_moe", "kv_a_proj": "mla"}
+def test_layer_forms_convert_as_jax(key):
+    """The expert, MLA and Llama 4 layer forms convert as the JAX package
+    converts them: the same keys, shapes and bits."""
+    form = {"block_sparse_moe": "mixtral", "experts": "qwen3_moe", "kv_a_proj": "mla",
+            "feed_forward": "llama4_moe"}
     sd = hf_layer_form(next(v for k, v in form.items() if k in key))
     assert key in sd
     want = jckpt.hf_layer_to_native("model.layers.0", sd)

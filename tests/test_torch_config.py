@@ -4,8 +4,7 @@ ones, Mixtral-8x7B, Qwen3-30B-A3B, DeepSeek-V3 and Llama-3.1-8B's llama3
 rope), as it ships, and with stray keys of the native names that a merged or
 "llamafied" export may carry (the JAX package ignores them unless the
 family has such a field); then the native round trip through both
-packages' save_params. Exact equality of every field the port has, and
-the JAX package's other fields at their "off" values."""
+packages' save_params. Exact equality of every field the port has."""
 
 import copy
 import dataclasses
@@ -191,8 +190,6 @@ def _with_strays(d: dict) -> dict:
 
 def _assert_same(cfg: LlamaConfig, jcfg: JLlamaConfig) -> None:
     assert dataclasses.asdict(cfg) == {k: getattr(jcfg, k) for k in PORT_FIELDS}
-    # What the port does not carry (Llama 4's fields) is off in the JAX config too.
-    assert jcfg.attention_chunk_size is None and jcfg.layer_rope is None and not jcfg.qk_l2_norm
     assert (cfg.head_dim, cfg.v_dim, cfg.attn_scale, cfg.rope_scaling_spec) == (
         jcfg.head_dim, jcfg.v_dim, jcfg.attn_scale, jcfg.rope_scaling_spec)
 
@@ -254,20 +251,17 @@ def test_native_round_trip_through_both_packages(tmp_path, name):
     assert LlamaConfig.from_pretrained(str(tmp_path / "port")) == cfg
 
 
-@pytest.mark.parametrize("d,item", [
-    ({"model_type": "mixtral", "num_local_experts": 8}, None),
-    ({"model_type": "qwen3_moe", "num_experts": 128}, None),
-    ({"model_type": "llama4", "text_config": {"model_type": "llama4_text"}}, "2.3"),
-    ({"model_type": "deepseek_v3"}, None),
+@pytest.mark.parametrize("d", [
+    {"model_type": "mixtral", "num_local_experts": 8},
+    {"model_type": "qwen3_moe", "num_experts": 128},
+    {"model_type": "llama4", "text_config": {"model_type": "llama4_text"}},
+    {"model_type": "deepseek_v3"},
 ], ids=["mixtral", "qwen3_moe", "llama4", "deepseek_v3"])
-def test_later_families_raise_naming_their_roadmap_item(d, item):
-    """Llama 4 raises naming its ROADMAP item; the MoE and MLA families once
-    listed beside it parse as the JAX package parses them."""
-    if item is None:
-        _assert_same(LlamaConfig.from_dict(d), JLlamaConfig.from_hf_config(d))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        LlamaConfig.from_dict(d)
+def test_moe_families_parse_as_jax(d):
+    """The MoE, MLA and Llama 4 families, from their bare model types (the
+    Llama 4 wrapper around its text config), parse as the JAX package
+    parses them."""
+    _assert_same(LlamaConfig.from_dict(d), JLlamaConfig.from_hf_config(d))
 
 
 @pytest.mark.parametrize("family,delta", [

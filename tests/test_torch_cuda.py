@@ -402,6 +402,13 @@ _DECODE_MODELS = {
                    query_pre_attn_scalar=128, sliding_window=32, rope_theta=1000000.0,
                    rope_local_base_freq=10000.0,
                    layer_types=["sliding_attention", "sliding_attention", "full_attention"]),
+    # Llama 4, dense: layers 0-1 chunked (32, binding), layer 2 NoPE with
+    # temperature-tuned queries (floor scale 4: the temperature moves at
+    # every fourth position).
+    "llama4": dict(model_type="llama4_text", **_SMALL, num_hidden_layers=3, head_dim=128,
+                   num_local_experts=0, attention_chunk_size=32, floor_scale=4,
+                   layer_types=["chunked_attention", "chunked_attention", "full_attention"],
+                   no_rope_layers=[1, 1, 0]),
 }
 
 
@@ -500,7 +507,7 @@ def test_replays_count_the_decode_kernel(gen, tmp_path, name):
     assert dims["flash_decode_attention"] == {(128, 128): counts["flash_decode_attention"]}
     for k in ("flash_causal_attention", "flash_prefix_shared_attention"):
         assert counts[k] == loop_counts[k] == n_layers * n_blocks
-    if name == "gemma3":  # two of three layers local
+    if name in ("gemma3", "llama4"):  # two of three layers local
         assert local["flash_decode_attention"] == loop_local["flash_decode_attention"] + 2 * n_blocks
         assert 0 < local["flash_decode_attention"] < counts["flash_decode_attention"]
     else:
@@ -599,3 +606,151 @@ def test_pinned_run_equals_unpinned_bit_for_bit(gen, tmp_path, quantized):
         assert warm["streamed_bytes"] + warm["stream_bytes_saved"] == cold["streamed_bytes"]
         assert warm["pinned_bytes"] > 0 and warm["peak_mem_gb"] >= warm["pinned_bytes"] / 1e9
     residency.reset_process_tier()
+
+
+# -- Llama 4: its kernel shapes, a NoPE layer in a captured graph, the score sink
+
+# Scout's heads (40 over 8 KV heads of 128: a GQA group of 5, so the decode
+# kernel's 16-row blocks split suffix 3's group across two blocks) at
+# shorter lengths; its chunk made to bind.
+_L4 = dict(b=2, lp=576, s=4, ls=64, nq=40, nkv=8, hd=128, tg=3)
+
+
+@pytest.mark.parametrize("local", [{}, {"chunk": 256}, {"chunk": 256, "local_on": False}],
+                         ids=["global", "chunk-256", "chunk-off"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_at_llama4_shapes_match_plain(gen, dtype, local):
+    c = _L4
+    plen = torch.tensor([576, 333], dtype=torch.int32, device="cuda")
+    eos = torch.tensor([[0, 63, 17, 40], [5, 1, 62, 33]], dtype=torch.int32, device="cuda")
+    q, k, v = (_rnd(gen, dtype, c["b"], c["lp"], n, c["hd"]) for n in (c["nq"], c["nkv"], c["nkv"]))
+    qs, ks, vs = (_rnd(gen, dtype, c["b"], c["s"], c["ls"], n, c["hd"])
+                  for n in (c["nq"], c["nkv"], c["nkv"]))
+    qd = _rnd(gen, dtype, c["b"], c["s"], 1, c["nq"], c["hd"])
+    kg, vg = (_rnd(gen, dtype, c["b"], c["s"], c["tg"], c["nkv"], c["hd"]) for _ in range(2))
+    fa.reset_launch_counts()
+    _close(fa.flash_causal_attention(q, k, v, plen, **local),
+           fa.causal_attention_plain(*_f32(q, k, v, plen), **local), dtype)
+    _close(fa.flash_prefix_shared_attention(qs, k, v, ks, vs, plen, **local),
+           fa.prefix_shared_attention_plain(*_f32(qs, k, v, ks, vs, plen), **local), dtype)
+    for t in (0, c["tg"] - 1):
+        _close(fa.flash_decode_attention(qd, k, v, ks, vs, kg, vg, plen, eos, t, **local),
+               fa.decode_attention_plain(*_f32(qd, k, v, ks, vs, kg, vg, plen, eos), t, **local),
+               dtype)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"flash_causal_attention": 1, "flash_prefix_shared_attention": 1,
+                                  "flash_decode_attention": 2}
+
+
+def test_nope_layer_graph_follows_the_position_across_replays(gen):
+    """A Llama 4 NoPE decode layer captured once in a CUDA graph, replayed
+    with other prefix lengths written into its device tensor: each replay
+    equals the uncaptured layer at those positions, and the temperature is
+    in it (without temperature tuning the layer gives other values)."""
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.models import llama
+
+    cfg = LlamaConfig.from_dict({**_DECODE_MODELS["llama4"], "num_hidden_layers": 1,
+                                 "layer_types": ["full_attention"], "no_rope_layers": [0]})
+    assert cfg.layer_rope == (False,) and cfg.attn_temperature_tuning
+    d, nq, nkv, hd, f = cfg.hidden_size, 4, 2, 128, cfg.intermediate_size
+    b, s, lp, ls, tg = 2, 3, 192, 16, 4
+
+    def w(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda") * (2.0 / (shape[-2] + shape[-1])) ** 0.5
+
+    ones = torch.ones(d, device="cuda")
+    params = {"input_layernorm": {"scale": ones}, "post_attention_layernorm": {"scale": ones},
+              "attn": {"wq": w(d, nq * hd), "wk": w(d, nkv * hd), "wv": w(d, nkv * hd),
+                       "wo": w(nq * hd, d)},
+              "mlp": {"gate": w(d, f), "up": w(d, f), "down": w(f, d)}}
+    x = torch.randn(b, s, 1, d, generator=gen, device="cuda")
+    kv0 = {"kp": torch.randn(b, lp, nkv, hd, generator=gen, device="cuda"),
+           "vp": torch.randn(b, lp, nkv, hd, generator=gen, device="cuda"),
+           "ks": torch.randn(b, s, ls, nkv, hd, generator=gen, device="cuda"),
+           "vs": torch.randn(b, s, ls, nkv, hd, generator=gen, device="cuda"),
+           "kg": torch.zeros(b, s, tg, nkv, hd, device="cuda"),
+           "vg": torch.zeros(b, s, tg, nkv, hd, device="cuda")}
+    eos = torch.tensor([[3, 15, 0], [7, 7, 12]], dtype=torch.int32, device="cuda")
+    plen = torch.tensor([192, 41], dtype=torch.int32, device="cuda")
+    t = 1
+
+    def eager(c, lens):
+        kv = {k: v.clone() for k, v in kv0.items()}
+        return llama.decode_step_layer(params, c, x, kv, lens, eos, t, sliding=False,
+                                       rope_on=False)
+
+    kv_g = {k: v.clone() for k, v in kv0.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        llama.decode_step_layer(params, cfg, x, {k: v.clone() for k, v in kv0.items()}, plen, eos,
+                                t, sliding=False, rope_on=False)
+        graph = torch.cuda.CUDAGraph()
+        with fa.graph_capture(), torch.cuda.graph(graph, stream=side):
+            out = llama.decode_step_layer(params, cfg, x, kv_g, plen, eos, t, sliding=False,
+                                          rope_on=False)
+    torch.cuda.current_stream().wait_stream(side)
+    plain = LlamaConfig.from_dict({**_DECODE_MODELS["llama4"], "num_hidden_layers": 1,
+                                   "layer_types": ["full_attention"], "no_rope_layers": [0],
+                                   "attn_temperature_tuning": False})
+    for lens in ([192, 41], [100, 3], [5, 180]):
+        plen.copy_(torch.tensor(lens, dtype=torch.int32))
+        for k in ("kg", "vg"):
+            kv_g[k].copy_(kv0[k])
+        graph.replay()
+        torch.cuda.synchronize()
+        want = eager(cfg, plen.clone())
+        assert torch.equal(out, want), lens
+        assert not torch.equal(want, eager(plain, plen.clone())), lens
+
+
+def test_score_sink_copies_on_a_side_stream_without_a_wait_per_block(gen, tmp_path, monkeypatch):
+    """The head's scores reach the host through page-locked copies on the
+    sink's side stream, and at the default cap the host waits on none of
+    them before the run's end; caps 1 and 16 give the same scores bit for
+    bit."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+    from flexible_llm_sharding_tpu_torch.runtime import executor, hostcache
+
+    model_dir = _decode_model(tmp_path, "llama")
+    streams, waits = [], []
+    finalizing = [False]
+    real_copy, real_resolve = executor._ScoreCopy._copy, executor._ScoreCopy.resolve
+    real_finalize = executor.ScoreSink.finalize
+
+    def spy_copy(self, block_scores):
+        streams.append(torch.cuda.current_stream().cuda_stream)
+        assert self.host.is_pinned()
+        return real_copy(self, block_scores)
+
+    def spy_resolve(self):
+        waits.append(finalizing[0])
+        return real_resolve(self)
+
+    def spy_finalize(self):
+        finalizing[0] = True
+        return real_finalize(self)
+
+    monkeypatch.setattr(executor._ScoreCopy, "_copy", spy_copy)
+    monkeypatch.setattr(executor._ScoreCopy, "resolve", spy_resolve)
+    monkeypatch.setattr(executor.ScoreSink, "finalize", spy_finalize)
+    out = {}
+    for cap in (16, 1):
+        hostcache.reset_process_cache()
+        cfg = FrameworkConfig(model_path=model_dir, dtype="bfloat16", block_size=1,
+                              score_sink_max_device=cap)
+        ex = executor.StreamingExecutor(cfg, device=torch.device("cuda"),
+                                        tokenizer=_WordTokenizer())
+        finalizing[0] = False
+        del streams[:], waits[:]
+        out[cap] = ex(list(_DECODE_PROMPTS))
+        n_blocks = len(_DECODE_PROMPTS)
+        assert len(streams) == n_blocks and len(set(streams)) == 1
+        assert streams[0] != torch.cuda.current_stream().cuda_stream
+        if cap == 16:
+            assert waits == [True] * n_blocks  # every wait at the run's end
+        else:
+            assert waits.count(False) == n_blocks - 1
+    for a, b in zip(out[16], out[1]):
+        assert np.array_equal(a, b)

@@ -10,7 +10,8 @@ planner and ``plan-precision``, and the ``verify`` plan audit.
 
 Tiny llama, gemma3 (windows of 6 that bind), deepseek_v3 (MLA, experts;
 kv_b's in dim 16 is off the int4 group, so int4 falls back to int8 there)
-and a tied llama, seeded and saved by the JAX package."""
+a tied llama and llama4 (chunked layers, a NoPE layer, an MoE layer with
+its shared expert), seeded and saved by the JAX package."""
 
 import contextlib
 import dataclasses
@@ -81,6 +82,14 @@ HF_CONFIGS = {
                                       "original_max_position_embeddings": 32}),
     "tied": dict(model_type="llama", **_SMALL, num_hidden_layers=2, num_attention_heads=4,
                  num_key_value_heads=2, tie_word_embeddings=True),
+    # Llama 4: layers 0-1 chunked (4, binding), layer 2 NoPE (floor scale 4),
+    # layer 1 the MoE (4 experts, top 1, the shared expert).
+    "llama4": dict(model_type="llama4_text", **_SMALL, num_hidden_layers=3, num_attention_heads=4,
+                   num_key_value_heads=2, head_dim=16, intermediate_size_mlp=96,
+                   num_local_experts=4, num_experts_per_tok=1, interleave_moe_layer_step=2,
+                   attention_chunk_size=4, floor_scale=4,
+                   layer_types=["chunked_attention", "chunked_attention", "full_attention"],
+                   no_rope_layers=[1, 1, 0]),
 }
 FAMILIES = list(HF_CONFIGS)
 DTYPES = ("int8", "int4", "mixed")
@@ -554,7 +563,7 @@ def test_probe_sensitivity_matches_jax(models):
 
 
 @pytest.mark.parametrize("mode", ["budget", "cap"])
-@pytest.mark.parametrize("family", ["llama", "gemma3"])
+@pytest.mark.parametrize("family", ["llama", "gemma3", "llama4"])
 def test_plan_precision_cli_matches_jax(models, tmp_path, family, mode):
     m = models[family]
     calib = tmp_path / "calib.pkl"

@@ -41,7 +41,7 @@ def _inputs(nq: int, nkv: int) -> dict:
     }
 
 
-@pytest.mark.parametrize("nq,nkv", [(4, 2), (4, 4)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("nq,nkv", [(4, 2), (4, 4), (10, 2)], ids=["gqa", "mha", "gqa5"])
 @pytest.mark.parametrize("kernel", fa.KERNELS)
 def test_yardstick_equals_plain_version(kernel, nq, nkv):
     args, kw = chip_smoke._calls(_inputs(nq, nkv), None)[kernel]
@@ -110,17 +110,18 @@ def test_gemma3_12b_bounds_equal_the_27b_rows(local):
 
 def test_cross_check_models_cover_the_families():
     """The float32 card-vs-CPU check runs every family the port carries
-    (the MoE ones and DeepSeek's MLA at qk 192 / v 128 too), at head dims
-    256 and 96 too, every rope scaling, and binds a window in each windowed
-    one."""
+    (the MoE ones, DeepSeek's MLA at qk 192 / v 128 and Llama 4 too), at
+    head dims 256 and 96 too, every rope scaling, and binds a window or a
+    chunk in each local one."""
     cfgs = chip_smoke.cross_configs()
     assert {c.model_type for c in cfgs.values()} == {
         "llama", "gemma", "gemma3_text", "phi3", "qwen2", "qwen3", "mistral", "mixtral", "qwen3_moe",
-        "deepseek_v3"}
+        "deepseek_v3", "llama4_text"}
     assert {c.head_dim for c in cfgs.values()} == {64, 96, 128, 192, 256}
     assert {(c.head_dim, c.v_dim) for c in cfgs.values() if c.kv_lora_rank} == {(192, 128)}
     assert {c.rope_scaling_kind for c in cfgs.values()} == {None, "linear", "llama3", "yarn", "longrope"}
     assert all(c.sliding_window in (None, 32) for c in cfgs.values())
+    assert all(c.attention_chunk_size in (None, 32) for c in cfgs.values())
 
 
 def _mla_inputs(nq: int, nkv: int) -> dict:
@@ -133,6 +134,24 @@ def _mla_inputs(nq: int, nkv: int) -> dict:
     return {**_inputs(nq, nkv), "q_prefix": rnd(B, LP, nq, 192), "kp": rnd(B, LP, nkv, 192),
             "vp": rnd(B, LP, nkv, 128), "q_suffix": rnd(B, S, LS, nq, 192),
             "ks": rnd(B, S, LS, nkv, 192), "vs": rnd(B, S, LS, nkv, 128)}
+
+
+def test_llama4_scout_bounds():
+    """Llama-4-Scout's heads (40 x 128 query, 8 x 128 KV) on the Gemma
+    prompts: the scoring bounds are 1.25 times Gemma-3-27B global's (32
+    query heads; held by their products), and its 8192-token chunk, which
+    every position of a 2112 + 64 bucket shares, leaves every bound as it
+    is."""
+    prompts = chip_smoke.make_prompts(8, 2048, 4, 32, seed=1)
+    scout = chip_smoke.main_path_case(prompts, 2, nq=40, nkv=8, hd=128)
+    gemma = chip_smoke.main_path_case(prompts, 2, nq=32, nkv=16, hd=128)
+    b, g = chip_smoke._bounds(scout), chip_smoke._bounds(gemma)
+    for kernel in ("flash_causal_attention", "flash_prefix_shared_attention"):
+        assert b[kernel][1] == g[kernel][1] == "operations"
+        assert b[kernel][0] == pytest.approx(1.25 * g[kernel][0], rel=1e-12)
+    assert b["flash_decode_attention"][1] == "bytes"
+    assert b["flash_decode_attention"][0] < g["flash_decode_attention"][0]
+    assert chip_smoke._bounds({**scout, "local": {"chunk": 8192}}) == b
 
 
 @pytest.mark.parametrize("local", [{}, *LOCAL], ids=["global", "window3", "window8", "chunk4", "window3-off"])
