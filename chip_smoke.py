@@ -59,7 +59,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              tokens of plain --kv_cache, scores within 1e-4; and the int8
              and int4 copies of llama, gemma3, deepseek_v3 and llama4
              (requantize_native) through both loops, card against CPU:
-             scores within 1e-4, tokens equal.
+             scores within 1e-4, tokens equal; and on the llama checkpoint
+             the ``serve`` subcommand (demo mode, waves of 2) on the card
+             against the same on the CPU: tokens equal, scores within 1e-4.
 5. full    — seeded bf16 checkpoints at full width through the CLI, one
              layer per shard so every layer streams: Llama-2-7B (4 decoder
              layers; scoring with --num_gen_token 4, then --kv_cache with
@@ -115,6 +117,29 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              kernels, dequantized on the card as the weight source does,
              must equal the host's dequant bit for bit (the first, middle
              and last expert of each stack).
+   serve   — after the resume phase, on the 4-layer Llama-2-7B cell:
+             first the kernels against their plain versions at the serve
+             path's shapes (a block of 2 rows, 32/32 heads, Lp 576, bf16;
+             then the prefix-shared and decode kernels on prefix K/V sliced
+             from a pool stack uploaded from page-locked memory); then the
+             ``serve`` subcommand's demo frontend with the 8 prompts, 8
+             tokens each, waves of at most 2, blocks of 2. The default
+             engine (resident) must give the scores of the batch CLI's
+             --kv_cache --block_size 2 run bit for bit, with every request
+             admitted and completed, 2 <= prefills < 8 and more sweeps than
+             prefills (later waves joined while earlier ones decoded);
+             --decode_resident off (the cycling weight source) must give
+             the default engine's scores bit for bit and stream more than
+             one pass; and a pickle of the 8 prompts twice must reuse the
+             first round's sealed pool entries (prefix_reuse_hits >= 1),
+             give the second round the first round's scores bit for bit,
+             and launch the prefix-shared kernel on the suffix-only path:
+             beyond the full prefills' launches, one per reused block and
+             layer. Each run prints its wall, tokens/s, TTFT mean and p95,
+             per-token latency, queue depth after submission, pool pages
+             and bytes and peak memory, beside the card's name and power
+             limit; the served runs' launches are the ``llama2_7b_serve``
+             path.
    resume  — after the quant phase, on the 4-layer Llama-2-7B cell with
              --storage_location disk: a CLI process (each shard started
              one second late) killed with SIGKILL once its marker reads 2
@@ -494,15 +519,24 @@ def _f32(args):
 
 
 def check_case(name: str, case: dict, dtype, gen, nan_past_limits: bool = False,
-               kernels=None) -> dict[str, float]:
+               kernels=None, pooled_layers: int = 0) -> dict[str, float]:
     """Every kernel (or those named in ``kernels``) against its plain version
     on the same inputs. With ``nan_past_limits`` the kernels get K/V rows
     that no query may see filled with NaN, and the plain versions the same
-    rows as zeros."""
+    rows as zeros. With ``pooled_layers`` the prefix K/V is the last layer's
+    slice of a [pooled_layers, B, Lp, n_kv, hd] stack uploaded from
+    page-locked host memory, as the serve engine's ``_assemble`` feeds the
+    suffix-only prefill and the decode of a block that reuses pooled pages."""
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
     atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (2e-2, 2e-2)
     x = _inputs(case, dtype, gen, fill_past_limits=0.0 if nan_past_limits else None)
+    if pooled_layers:
+        for key in ("kp", "vp"):
+            layers = [torch.randn(*x[key].shape, generator=gen, device="cuda").to(dtype)
+                      for _ in range(pooled_layers - 1)] + [x[key]]
+            host = torch.stack(layers).cpu().pin_memory()
+            x[key] = host.to("cuda", non_blocking=True)[pooled_layers - 1]
     softcap, local = case.get("softcap"), case.get("local")
     calls = _calls(x, softcap, local)
     if nan_past_limits:
@@ -1114,6 +1148,25 @@ def run_cli(model_dir: str, work: str, tag: str, prompts, extra: list[str], voca
     return scores, updated, stats
 
 
+def run_serve(model_dir: str, work: str, tag: str, prompts, extra: list[str], vocab: int):
+    """The port's ``serve`` subcommand in demo mode over ``prompts``:
+    (scores, updated prompts, stats)."""
+    from flexible_llm_sharding_tpu_torch import cli
+
+    ppkl = os.path.join(work, f"{tag}.pkl")
+    opkl = os.path.join(work, f"{tag}_scores.pkl")
+    with open(ppkl, "wb") as f:
+        pickle.dump(prompts, f)
+    stats = cli.main(["serve", "--model_path", model_dir, "--prompt_pickle", ppkl,
+                      "--output_file", opkl, "--stats_interval_s", "0", *extra],
+                     tokenizer=BenchTokenizer(vocab))
+    with open(opkl, "rb") as f:
+        scores = pickle.load(f)
+    with open(os.path.join(work, f"{tag}_updated.pkl"), "rb") as f:
+        updated = pickle.load(f)
+    return scores, updated, stats
+
+
 def fresh_process_state() -> None:
     """Start the next CLI run as a new process would: no cached shard, no
     pinned layer, no crc verdict, and PyTorch's page-locked pool and cached
@@ -1121,12 +1174,13 @@ def fresh_process_state() -> None:
     import gc
 
     from flexible_llm_sharding_tpu_torch.integrity import manifest
-    from flexible_llm_sharding_tpu_torch.runtime import hostcache, residency
+    from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, residency
     from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib
 
     before = host_rss_gib().get("rss")
     hostcache.reset_process_cache()
     residency.reset_process_tier()
+    kvpool.reset_process_pools()
     manifest.reset_verdicts()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1240,6 +1294,7 @@ def phase_cross(work: str) -> None:
     :func:`cross_configs`, and for the int8 and int4 copies of
     :data:`CROSS_QUANTIZED`; speculative decode on the card against plain
     --kv_cache for :data:`CROSS_SPECULATIVE`."""
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native, save_params
 
     prompts = make_prompts(5, 70, 3, 6, seed=2) + make_prompts(2, 150, 2, 9, seed=3)
@@ -1263,6 +1318,22 @@ def phase_cross(work: str) -> None:
                 "greedy tokens identical"
                 + (" " + json.dumps({k: gpu_stats.get(k) for k in DECODE_KEYS}) if extra else ""))
             float_runs[mode] = (args, gpu, gpu_up)
+        if name == "llama":
+            args = ["--dtype", "float32", "--max_new_tokens", "3", "--block_size", "4",
+                    "--max_wave_requests", "2"]
+            gpu, gpu_up, gpu_stats = run_serve(model_dir, work, f"cross_gpu_{name}_serve", prompts,
+                                               [*args, "--device", "cuda"], 512)
+            kvpool.reset_process_pools()  # the CPU run prefills its own prefixes
+            cpu, cpu_up, _ = run_serve(model_dir, work, f"cross_cpu_{name}_serve", prompts,
+                                       [*args, "--device", "cpu"], 512)
+            err = max(float(np.abs(g - c).max()) for g, c in zip(gpu, cpu))
+            if not all(np.allclose(g, c, atol=1e-4, rtol=0) for g, c in zip(gpu, cpu)):
+                fail(f"cross-check {name} serve: card and CPU scores differ by {err:.3e}")
+            if gpu_up != cpu_up or gpu_stats["completed"] != len(prompts):
+                fail(f"cross-check {name} serve: tokens differ between card and CPU, or requests "
+                     f"were lost ({gpu_stats['completed']} of {len(prompts)} completed)")
+            log(f"[cross] float32 {name} serve: card vs CPU max_abs_err {err:.3e}, tokens "
+                f"identical; card prefills {gpu_stats['prefills']}, sweeps {gpu_stats['sweeps']}")
         if name in CROSS_QUANTIZED:
             for dt in ("int8", "int4"):
                 qdir = os.path.join(work, f"cross_{name}_{dt}")
@@ -1823,6 +1894,118 @@ def _flip_bit(path: str, offset_from_end: int = 1001) -> None:
         f.write(bytes([byte[0] ^ 0x20]))
 
 
+def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -> dict:
+    """The ``serve`` subcommand on the 4-layer Llama-2-7B cell (see the
+    module doc): the batch CLI's --kv_cache --block_size 2 run as the
+    reference, then the default engine, --decode_resident off and a
+    pool-reuse round of the prompts twice. Returns the served runs' kernel
+    launches."""
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+    common = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda",
+              "--block_size", "2"]
+    serve_args = [*common, "--max_new_tokens", str(n_gen), "--max_wave_requests", "2"]
+    n_layers = cfg.num_hidden_layers
+    launches: dict = {}
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+    # The kernels at the serve path's own shapes, against their plain
+    # versions: a wave block of 2 rows (32/32 heads, Lp 576, Ls 64, T n_gen-1),
+    # and the reuse path's prefix K/V from an uploaded pool stack, one layer
+    # per shard as this phase runs it and two (a slice at an offset).
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    block = main_path_case(prompts[:2], n_gen)
+    check_case("serve block of 2", block, torch.bfloat16, gen)
+    pooled = ("flash_prefix_shared_attention", "flash_decode_attention")
+    for k in (1, 2):
+        check_case(f"serve block of 2, pooled prefix KV of a {k}-layer stack", block,
+                   torch.bfloat16, gen, kernels=pooled, pooled_layers=k)
+
+    def report(tag, stats, counts):
+        pool = stats.get("kvpool", {})
+        line = {
+            "wall_s": stats["wall_s"], "tokens_per_sec": stats["tokens_per_sec"],
+            "ttft_mean_s": stats["ttft_s"].get("mean"), "ttft_p95_s": stats["ttft_s"].get("p95"),
+            "token_latency_mean_s": stats["token_latency_s"].get("mean"),
+            "token_latency_p95_s": stats["token_latency_s"].get("p95"),
+            "queue_depth_after_submit": stats.get("queue_depth_after_submit"),
+            "pool_pages": pool.get("pages_resident"), "pool_bytes": pool.get("bytes_resident"),
+            "prefix_reuse_hits": pool.get("prefix_reuse_hits"),
+            "admitted": stats["admitted"], "completed": stats["completed"],
+            "prefills": stats["prefills"], "sweeps": stats["sweeps"],
+            "streamed_bytes": stats["stream"]["streamed_bytes"],
+            "peak_mem_gb": stats.get("peak_mem_gb"), "kernels": counts,
+        }
+        log(f"[serve] {tag} | {smi} | " + json.dumps(line))
+
+    def served(tag, pp, extra):
+        fresh_process_state()
+        fa.reset_launch_counts()
+        scores, updated, stats = run_serve(model_dir, work, f"serve_{tag}", pp,
+                                           [*serve_args, *extra], cfg.vocab_size)
+        counts, local = fa.launch_counts(), fa.local_launch_counts()
+        _add_launches(launches, {k: {"launches": counts[k], "local_launches": local[k]}
+                                 for k in counts})
+        _check_scores(scores, pp, n_gen, cfg.vocab_size, f"serve {tag}")
+        if stats["admitted"] != len(pp) or stats["completed"] != len(pp):
+            fail(f"serve {tag}: admitted {stats['admitted']}, completed {stats['completed']} "
+                 f"of {len(pp)}")
+        report(tag, stats, counts)
+        return scores, updated, stats, counts
+
+    fresh_process_state()
+    t0 = time.perf_counter()
+    ref, ref_up, ref_stats = run_cli(model_dir, work, "serve_offline", prompts,
+                                     [*common, "--kv_cache", "true", "--num_gen_token",
+                                      str(n_gen)], cfg.vocab_size)
+    log(f"[serve] offline --kv_cache --block_size 2 | {smi} | wall "
+        f"{time.perf_counter() - t0:.3f} s, " + json.dumps({k: ref_stats.get(k) for k in STAT_KEYS}))
+
+    scores, updated, stats, _ = served("default", prompts, [])
+    if not 2 <= stats["prefills"] < len(prompts) or stats["sweeps"] <= stats["prefills"]:
+        fail(f"serve default: prefills {stats['prefills']}, sweeps {stats['sweeps']}: the waves "
+             "did not join a run in progress")
+    if not same(scores, ref) or updated != ref_up:
+        err = max(float(np.abs(a - b).max()) for a, b in zip(scores, ref))
+        fail(f"serve default: scores differ from the offline --kv_cache run (max_abs_err "
+             f"{err:.3e}, tokens equal: {updated == ref_up})")
+    log("[serve] default: the offline --kv_cache --block_size 2 run's scores and tokens bit for "
+        "bit")
+
+    streamed, streamed_up, s_stats, _ = served("streamed", prompts, ["--decode_resident", "off"])
+    one_pass = payload_bytes(cfg)
+    if not same(streamed, scores) or streamed_up != updated:
+        fail("serve --decode_resident off: scores differ from the default engine's")
+    if s_stats["stream"]["streamed_bytes"] <= one_pass:
+        fail(f"serve --decode_resident off streamed {s_stats['stream']['streamed_bytes']} bytes, "
+             f"not more than one {one_pass}-byte pass")
+    log(f"[serve] --decode_resident off: the default engine's scores bit for bit, "
+        f"{s_stats['stream']['streamed_bytes'] / one_pass:.2f} passes streamed")
+
+    twice, twice_up, t_stats, t_counts = served("pool_reuse", prompts + prompts, [])
+    n = len(prompts)
+    reused = t_stats["kvpool"]["prefix_reuse_hits"]
+    if reused < 1:
+        fail("serve pool reuse: no sealed entry was reused")
+    if not same(twice[n:], twice[:n]) or twice_up[n:] != twice_up[:n]:
+        fail("serve pool reuse: the second round's scores differ from the first round's")
+    # A reused block's layers launch the prefix-shared kernel without the
+    # causal one: n_layers launches per reused block.
+    extra_ps = t_counts["flash_prefix_shared_attention"] - t_counts["flash_causal_attention"]
+    if extra_ps < n_layers or extra_ps % n_layers:
+        fail(f"serve pool reuse: {extra_ps} prefix-shared launches beyond the full prefills' "
+             f"for {reused} reused entries of {n_layers} layers: the suffix-only path did not "
+             "run the kernel")
+    log(f"[serve] pool reuse: {reused} entries reused, the second round's scores bit for bit, "
+        f"{extra_ps} prefix-shared launches on the suffix-only path")
+    missing = [k for k in fa.KERNELS if launches.get(k, {}).get("launches", 0) == 0]
+    if missing:
+        fail(f"serve: kernels never launched on the serving path: {missing}")
+    return launches
+
+
 def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
                  n_gen_loop: int) -> dict:
     """Disk-mode crash resume and spill recompute on the 4-layer Llama-2-7B
@@ -2103,6 +2286,8 @@ def main() -> None:
                                                n_gen_loop, n_gen_kv)
         paths["llama2_7b_resume"] = phase_resume(work, llama_dir, llama_cfg, prompts,
                                                  llama_runs["scoring"], n_gen_loop)
+        paths["llama2_7b_serve"] = phase_serve(work, llama_dir, llama_cfg, prompts, n_gen_kv,
+                                               smi)
         shutil.rmtree(llama_dir, ignore_errors=True)
         paths.update({
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,

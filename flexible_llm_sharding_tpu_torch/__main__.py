@@ -1,4 +1,5 @@
-"""Entry point: ``python -m flexible_llm_sharding_tpu_torch`` runs the batch CLI."""
+"""Entry point: ``python -m flexible_llm_sharding_tpu_torch`` runs the batch
+CLI, or its ``serve``, ``verify`` or ``plan-precision`` subcommand."""
 
 from flexible_llm_sharding_tpu_torch.cli import main
 

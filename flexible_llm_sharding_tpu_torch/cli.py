@@ -34,6 +34,15 @@ corrupt is recomputed from the previous shard. ``--score_sink_max_device``
 caps the prompts whose head scores wait on the card, their host copies in
 flight.
 
+``serve`` runs the serving engine (``serve/engine.py``) behind two
+frontends: ``--prompt_pickle P --output_file O`` submits the pickle's
+prompts as requests (``--stagger_ms`` apart) and writes the batch CLI's
+files; without it, requests arrive as JSON lines on stdin
+(``{"prefix", "suffixes", "max_new_tokens", "deadline_s", "slo_class",
+"tenant_id", "id"}``) and each completion or rejection is a JSON line on
+stdout. The JAX serve flags whose modules are not ported yet raise
+``NotImplementedError`` when given a value other than their default.
+
 ``verify`` audits a model directory (its precision plan included) and/or a
 spill directory and exits 2 on any problem; ``verify --hbm_pin_gb N``
 dry-runs the residency planner. ``plan-precision`` probes each layer's
@@ -311,6 +320,339 @@ def plan_precision_main(argv: list[str] | None = None, tokenizer=None):
     return plan
 
 
+# The JAX serve parser's flags whose modules are not ported yet: (flag,
+# argparse keywords, where it stands in ROADMAP.md). Each is parsed as there
+# and refused unless it keeps its default.
+_NEXT_SERVING = "ROADMAP queue 1: the next serving slice"
+_FAULTS_OBS = "ROADMAP queue 1: faults, pressure and observability"
+_UNPORTED_SERVE_FLAGS = (
+    ("--metrics_port", dict(type=int, default=None), _FAULTS_OBS),
+    ("--replicas", dict(type=int, default=1), _NEXT_SERVING),
+    ("--router_phase_weight", dict(type=float, default=1.0), _NEXT_SERVING),
+    ("--router_depth_weight", dict(type=float, default=1.0), _NEXT_SERVING),
+    ("--router_health_poll_s", dict(type=float, default=0.2), _NEXT_SERVING),
+    ("--router_drain_recoveries", dict(type=int, default=0), _NEXT_SERVING),
+    ("--speculative_k", dict(type=int, default=0), _NEXT_SERVING),
+    ("--draft_model_path", dict(type=str, default=""), _NEXT_SERVING),
+    ("--spec_adaptive", dict(action="store_true"), _NEXT_SERVING),
+    ("--spec_k_min", dict(type=int, default=0), _NEXT_SERVING),
+    ("--spec_k_max", dict(type=int, default=8), _NEXT_SERVING),
+    ("--spec_window", dict(type=int, default=8), _NEXT_SERVING),
+    ("--spec_raise_threshold", dict(type=float, default=0.6), _NEXT_SERVING),
+    ("--spec_backoff_threshold", dict(type=float, default=0.2), _NEXT_SERVING),
+    ("--spec_draft_budget", dict(type=int, default=0), _NEXT_SERVING),
+    ("--wal_dir", dict(type=str, default=""), _NEXT_SERVING),
+    ("--wal_fsync", dict(type=str, default="admit", choices=["always", "admit", "never"]),
+     _NEXT_SERVING),
+    ("--wal_max_mb", dict(type=float, default=64.0), _NEXT_SERVING),
+    ("--chaos", dict(action="store_true"), _FAULTS_OBS),
+    ("--chaos_seed", dict(type=int, default=0), _FAULTS_OBS),
+    ("--chaos_error_rate", dict(type=float, default=0.1), _FAULTS_OBS),
+    ("--chaos_truncate_rate", dict(type=float, default=0.0), _FAULTS_OBS),
+    ("--chaos_latency_rate", dict(type=float, default=0.0), _FAULTS_OBS),
+    ("--chaos_sites", dict(type=str, default=""), _FAULTS_OBS),
+    ("--chaos_max_faults", dict(type=int, default=-1), _FAULTS_OBS),
+    ("--adapter_dir", dict(type=str, default=""), _NEXT_SERVING),
+    ("--adapter_max_gb", dict(type=_float_or_auto, default=None), _NEXT_SERVING),
+    ("--pressure", dict(action="store_true"), _FAULTS_OBS),
+    ("--pressure_poll_s", dict(type=float, default=1.0), _FAULTS_OBS),
+    ("--pressure_host_min_gb", dict(type=float, default=1.0), _FAULTS_OBS),
+    ("--pressure_disk_min_gb", dict(type=float, default=1.0), _FAULTS_OBS),
+    ("--pressure_hbm_headroom_frac", dict(type=float, default=0.05), _FAULTS_OBS),
+    ("--pressure_link_min_gbps", dict(type=float, default=0.0), _FAULTS_OBS),
+    ("--pressure_cache_shrink_frac", dict(type=float, default=0.5), _FAULTS_OBS),
+    ("--pressure_shed_retry_after_s", dict(type=float, default=1.0), _FAULTS_OBS),
+    ("--pressure_step_down_polls", dict(type=int, default=3), _FAULTS_OBS),
+    ("--trace", dict(action="store_true"), _FAULTS_OBS),
+    ("--trace_out", dict(type=str, default=""), _FAULTS_OBS),
+    ("--journal_dir", dict(type=str, default=""), _FAULTS_OBS),
+    ("--journal_max_mb", dict(type=float, default=16.0), _FAULTS_OBS),
+    ("--incidents_dir", dict(type=str, default=""), _FAULTS_OBS),
+    ("--incidents_max_mb", dict(type=float, default=256.0), _FAULTS_OBS),
+    ("--incident_trigger", dict(type=str, default="error",
+                                choices=("info", "warning", "error", "critical")), _FAULTS_OBS),
+    ("--incident_debounce_s", dict(type=float, default=60.0), _FAULTS_OBS),
+    ("--incident_settle_s", dict(type=float, default=1.0), _FAULTS_OBS),
+    ("--sched", dict(action="store_true"), _NEXT_SERVING),
+    ("--sched_interactive_deadline_s", dict(type=float, default=0.0), _NEXT_SERVING),
+    ("--sched_standard_deadline_s", dict(type=float, default=0.0), _NEXT_SERVING),
+    ("--sched_best_effort_deadline_s", dict(type=float, default=0.0), _NEXT_SERVING),
+    ("--sched_tenant_weights", dict(type=str, default=""), _NEXT_SERVING),
+    ("--sched_tenant_limits", dict(type=str, default=""), _NEXT_SERVING),
+    ("--sched_tenant_burst", dict(type=float, default=4.0), _NEXT_SERVING),
+    ("--sched_preempt", dict(type=_str2bool, default=True), _NEXT_SERVING),
+    ("--sched_coalesce", dict(type=_str2bool, default=True), _NEXT_SERVING),
+    ("--sched_interactive_phase_boost", dict(type=float, default=2.0), _NEXT_SERVING),
+    ("--autoscale", dict(action="store_true"), _NEXT_SERVING),
+    ("--autoscale_min", dict(type=int, default=1), _NEXT_SERVING),
+    ("--autoscale_max", dict(type=int, default=4), _NEXT_SERVING),
+    ("--autoscale_poll_s", dict(type=float, default=1.0), _NEXT_SERVING),
+    ("--autoscale_grow_burn_rate", dict(type=float, default=1.0), _NEXT_SERVING),
+    ("--autoscale_grow_queue_frac", dict(type=float, default=0.75), _NEXT_SERVING),
+    ("--autoscale_shrink_burn_rate", dict(type=float, default=0.25), _NEXT_SERVING),
+    ("--autoscale_shrink_queue_frac", dict(type=float, default=0.10), _NEXT_SERVING),
+    ("--autoscale_confirm_polls", dict(type=int, default=3), _NEXT_SERVING),
+    ("--autoscale_grow_cooldown_s", dict(type=float, default=10.0), _NEXT_SERVING),
+    ("--autoscale_shrink_cooldown_s", dict(type=float, default=30.0), _NEXT_SERVING),
+    ("--autoscale_dry_run", dict(action="store_true"), _NEXT_SERVING),
+    ("--autoscale_no_stagger", dict(action="store_true"), _NEXT_SERVING),
+    ("--autoscale_stagger_tolerance", dict(type=float, default=0.15), _NEXT_SERVING),
+    ("--autoscale_stagger_hold_max_frac", dict(type=float, default=0.5), _NEXT_SERVING),
+)
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m flexible_llm_sharding_tpu_torch serve",
+        description="Online serving: shard-aware continuous batching over the streaming "
+                    "runtime. Requests join at shard-0 boundaries of the weight sweep; in-flight "
+                    "requests are never prefilled again.",
+    )
+    p.add_argument("--model_path", type=str, default="./")
+    p.add_argument("--dtype", type=str, default="bfloat16", choices=tuple(DTYPES))
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--layer_num_per_shard", type=int, default=1)
+    p.add_argument("--storage_location", type=str, default="cpu", choices=STORAGE_LOCATIONS,
+                   help="'gpu' keeps every wave's KV on the card; 'cpu' follows the weights "
+                        "(on the card when they are resident and the KV fits, else host RAM)")
+    p.add_argument("--block_size", type=int, default=8)
+    p.add_argument("--bucket_multiple", type=int, default=64)
+    p.add_argument("--prefetch_depth", type=int, default=1,
+                   help="shards read and uploaded ahead of compute; 0 = serialized")
+    p.add_argument("--max_token_len", type=int, default=DEFAULT_MAX_TOKEN_LEN)
+    p.add_argument("--decode_resident", type=str, default="auto", choices=("auto", "on", "off"),
+                   help="keep the model on the card across sweeps when it fits (auto judges "
+                        "against the card's memory); off streams the weights every sweep "
+                        "through a cycling source")
+    p.add_argument("--queue_capacity", type=int, default=64,
+                   help="admission queue bound; submissions beyond it are rejected with a "
+                        "reason (backpressure)")
+    p.add_argument("--max_wave_requests", type=int, default=8,
+                   help="requests admitted into one wave at a shard-0 boundary")
+    p.add_argument("--max_active_requests", type=int, default=32,
+                   help="in-flight requests across all waves")
+    p.add_argument("--max_new_tokens", type=int, default=16,
+                   help="per-request token budget (JSONL requests may carry their own)")
+    p.add_argument("--deadline_s", type=float, default=0.0,
+                   help="admission deadline: a request not admitted within this many seconds "
+                        "expires (0 = none)")
+    p.add_argument("--stats_interval_s", type=float, default=10.0,
+                   help="periodic serve-stats JSON line on stderr (0 = off)")
+    p.add_argument("--watchdog_abort_s", type=float, default=600.0,
+                   help="streamed weights: abort and recover a sweep that lands no shard for "
+                        "this long; its requests fail with WaveAborted (0 = off)")
+    p.add_argument("--max_request_tokens", type=int, default=0,
+                   help="admission-side size cap: estimated prompt tokens (longest suffix "
+                        "included) + max_new_tokens above this are rejected at submit "
+                        "(RequestTooLarge); 0 = off")
+    p.add_argument("--io_retry_attempts", type=int, default=4,
+                   help="attempts per layer read before a typed ShardLoadError; 1 = no retry")
+    p.add_argument("--io_retry_base_s", type=float, default=0.05,
+                   help="first retry backoff; doubles per attempt (jittered)")
+    p.add_argument("--io_retry_deadline_s", type=float, default=60.0,
+                   help="overall wall cap per retried read (0 = none)")
+    p.add_argument("--verify_weights", type=_str2bool, default=True,
+                   help="crc-verify every layer load against integrity.json, once per file "
+                        "generation per process")
+    p.add_argument("--host_cache_gb", type=_float_or_auto, default=None,
+                   help="process host shard cache budget in GB ('auto' default; 0 = off): "
+                        "streamed sweeps after the first skip the disk read and the crc")
+    p.add_argument("--hbm_pin_gb", type=_float_or_auto, default=0.0,
+                   help="device residency tier budget in GB for a streamed engine ('auto' = "
+                        "the card's free memory minus headroom; 0 = off, the default)")
+    p.add_argument("--kv_page_tokens", type=int, default=16,
+                   help="rows per page of the paged prefix-KV pool, the sharing granularity; "
+                        "<= 0 disables the pool")
+    p.add_argument("--kv_pool_gb", type=_float_or_auto, default=None,
+                   help="host-RAM budget in GB of the prefix-KV pool: a recurring prefix "
+                        "prefills once per process and later waves run only the suffix half of "
+                        "each layer over its pages. 'auto' (default) = 5%% of the available RAM, "
+                        "at most 4 GB; 0 = off")
+    p.add_argument("--kv_host_spill", type=_str2bool, default=True,
+                   help="true: cold pool pages spill to checksummed files that heal on read; "
+                        "false: they drop and the prefix prefills again")
+    p.add_argument("--readahead_threads", type=int, default=2,
+                   help="threads of the page-cache readahead pool; 0 = off")
+    p.add_argument("--slo", action="store_true",
+                   help="track SLO error budgets over the per-class latency windows (the "
+                        "'slo' entry of the stats line)")
+    p.add_argument("--slo_ttft_p95_s", type=str, default="",
+                   help="per-class p95 TTFT targets in seconds, 'interactive=0.5,standard=2.0'")
+    p.add_argument("--slo_token_latency_p95_s", type=float, default=0.0,
+                   help="per-token decode latency p95 target in seconds (0 = off)")
+    p.add_argument("--slo_availability_target", type=float, default=0.0,
+                   help="fraction of requests that must complete, e.g. 0.999 (0 = off)")
+    p.add_argument("--slo_min_samples", type=int, default=20,
+                   help="budgets are not judged below this many samples")
+    for flag, kw, where in _UNPORTED_SERVE_FLAGS:
+        p.add_argument(flag, help=f"not ported yet ({where}): any value but the default raises",
+                       **kw)
+    p.add_argument("--prompt_pickle", type=str, default=None,
+                   help="demo mode: submit this prompt pickle's entries as requests, then write "
+                        "--output_file like the batch CLI")
+    p.add_argument("--output_file", type=str, default=None)
+    p.add_argument("--stagger_ms", type=float, default=0.0,
+                   help="demo mode: delay between submissions, so later requests join waves "
+                        "already in flight")
+    return p
+
+
+def _refuse_unported_serve_flags(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    for flag, _, where in _UNPORTED_SERVE_FLAGS:
+        dest = flag.lstrip("-")
+        if getattr(args, dest) != p.get_default(dest):
+            raise NotImplementedError(f"serve {flag} is not ported yet ({where})")
+
+
+def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
+    """The ``serve`` subcommand: the demo or the JSONL frontend over one
+    engine. Prints the engine's stats as a JSON line on stderr at the end
+    and returns them, with the run's wall, tokens per second and the card's
+    peak memory (demo mode adds the queue depth right after the last
+    submission)."""
+    parser = build_serve_parser()
+    args = parser.parse_args(argv)
+    _refuse_unported_serve_flags(parser, args)
+    if args.prompt_pickle and not args.output_file:
+        raise SystemExit("--prompt_pickle (demo mode) requires --output_file")
+    from flexible_llm_sharding_tpu_torch.config import ServeConfig, SLOConfig
+
+    try:
+        cfg = FrameworkConfig(
+            model_path=args.model_path, layer_num_per_shard=args.layer_num_per_shard,
+            storage_location=args.storage_location, dtype=args.dtype, block_size=args.block_size,
+            bucket_multiple=args.bucket_multiple, prefetch_depth=args.prefetch_depth,
+            max_token_len=args.max_token_len, decode_resident=args.decode_resident,
+            device=args.device, io_retry_attempts=args.io_retry_attempts,
+            io_retry_base_s=args.io_retry_base_s, io_retry_deadline_s=args.io_retry_deadline_s,
+            verify_weights=args.verify_weights, host_cache_gb=args.host_cache_gb,
+            kv_page_tokens=args.kv_page_tokens, kv_pool_gb=args.kv_pool_gb,
+            kv_host_spill=args.kv_host_spill, hbm_pin_gb=args.hbm_pin_gb,
+            readahead_threads=args.readahead_threads,
+        )
+        slo = SLOConfig() if not args.slo else SLOConfig(
+            enabled=True, ttft_p95_s=args.slo_ttft_p95_s,
+            token_latency_p95_s=args.slo_token_latency_p95_s,
+            availability_target=args.slo_availability_target, min_samples=args.slo_min_samples)
+        serve_cfg = ServeConfig(
+            queue_capacity=args.queue_capacity, max_wave_requests=args.max_wave_requests,
+            max_active_requests=args.max_active_requests,
+            default_max_new_tokens=args.max_new_tokens, default_deadline_s=args.deadline_s,
+            stats_interval_s=args.stats_interval_s, watchdog_abort_s=args.watchdog_abort_s,
+            max_request_tokens=args.max_request_tokens, slo=slo,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    device = resolve_device(cfg.device)
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(cfg.model_path)
+        tokenizer.pad_token = tokenizer.eos_token
+
+    from flexible_llm_sharding_tpu_torch.runtime.executor import peak_mem_gb
+    from flexible_llm_sharding_tpu_torch.serve import QueueFull, RequestStatus, ServeEngine
+
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, serve_cfg, tokenizer=tokenizer, device=device)
+    extra: dict = {}
+    try:
+        if args.prompt_pickle:
+            with open(args.prompt_pickle, "rb") as f:
+                prompts = pickle.load(f)
+            requests = []
+            for prefix, suffixes in prompts:
+                # One score per prompt, as the batch CLI writes: retry on
+                # backpressure (QueueFull) until a slot frees. Any other
+                # rejection (RequestTooLarge) is final and fails the gather
+                # below, as does an engine-fatal error.
+                while True:
+                    req = engine.submit(prefix, tuple(suffixes))
+                    if (req.status is not RequestStatus.REJECTED or engine.error is not None
+                            or not isinstance(req.future.exception(), QueueFull)):
+                        break
+                    time.sleep(0.05)
+                requests.append(req)
+                if args.stagger_ms:
+                    time.sleep(args.stagger_ms / 1000.0)
+            extra["queue_depth_after_submit"] = len(engine.queue)
+            results = [r.future.result() for r in requests]
+            with open(args.output_file, "wb") as f:
+                pickle.dump([r.scores for r in results], f)
+            with open(_updated_path(args.prompt_pickle), "wb") as f:
+                pickle.dump([r.updated for r in results], f)
+        else:
+            _serve_jsonl(engine)
+    except BaseException as e:
+        if engine.error is not None and not isinstance(e, SystemExit):
+            # A fatal error cancels the queue, so the gather raises the
+            # secondary ServeClosed: name the root cause instead.
+            raise SystemExit(f"serve engine failed: {engine.error!r}") from e
+        raise
+    finally:
+        engine.shutdown(drain=True)
+    if engine.error is not None:
+        raise SystemExit(f"serve engine failed: {engine.error!r}")
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    stats.update(extra)
+    stats["device"] = str(device)
+    stats["wall_s"] = wall
+    stats["tokens_per_sec"] = stats.get("tokens_emitted", 0) / wall if wall > 0 else 0.0
+    peak = peak_mem_gb(device)
+    if peak is not None:
+        stats["peak_mem_gb"] = peak
+    print(json.dumps(stats), file=sys.stderr)
+    return stats
+
+
+def _serve_jsonl(engine) -> None:
+    """Requests as JSON lines on stdin; one JSON line per completion or
+    rejection on stdout (tokens and text, not scores)."""
+    import threading
+
+    out_lock = threading.Lock()
+
+    def reply(req) -> None:
+        try:
+            res = req.future.result(timeout=0)
+            line = {
+                "id": req.request_id,
+                "status": req.status.value,
+                "updated_suffixes": list(res.updated[1]),
+                "tokens": res.tokens.tolist(),
+                "ttft_s": round(res.ttft_s, 4),
+                "latency_s": round(res.latency_s, 4),
+            }
+        except Exception as e:  # rejected, expired or failed
+            line = {"id": req.request_id, "status": req.status.value, "error": str(e)}
+        if req.client_id is not None:
+            line["client_id"] = req.client_id
+        with out_lock:
+            print(json.dumps(line), flush=True)
+
+    for line_no, raw in enumerate(sys.stdin, 1):
+        raw = raw.strip()
+        if not raw:
+            continue
+        try:
+            d = json.loads(raw)
+            engine.submit(d["prefix"], tuple(d.get("suffixes") or ("",)),
+                          max_new_tokens=d.get("max_new_tokens"), deadline_s=d.get("deadline_s"),
+                          callback=reply, slo_class=d.get("slo_class"),
+                          tenant_id=d.get("tenant_id"), client_id=d.get("id"))
+        except Exception as e:
+            # One bad line must not take the server down: reject it with
+            # its reason and keep serving.
+            with out_lock:
+                print(json.dumps({"line": line_no, "status": "rejected",
+                                  "error": f"bad request line: {e!r}"}), flush=True)
+
+
 def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
     return FrameworkConfig(
         model_path=args.model_path,
@@ -363,9 +705,11 @@ _SUMMED_HOST_KEYS = ("io_retries", "integrity_failures", "reread_heals", "quaran
 
 
 def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
-    """Run the batch CLI and return the stats it prints, or the ``verify``
-    subcommand."""
+    """Run the batch CLI and return the stats it prints, or the ``serve``,
+    ``verify`` or ``plan-precision`` subcommand."""
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        return serve_main(argv[1:], tokenizer=tokenizer)
     if argv and argv[0] == "verify":
         return verify_main(argv[1:])
     if argv and argv[0] == "plan-precision":
@@ -460,5 +804,5 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     return stats
 
 
-__all__ = ["build_parser", "build_plan_precision_parser", "build_verify_parser", "main",
-           "plan_precision_main", "verify_main"]
+__all__ = ["build_parser", "build_plan_precision_parser", "build_serve_parser",
+           "build_verify_parser", "main", "plan_precision_main", "serve_main", "verify_main"]

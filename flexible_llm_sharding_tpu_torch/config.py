@@ -18,7 +18,9 @@ and longrope rope scalings.
 plus dtype, blocking, bucketing, KV-cache decode, sampling, prefetch, the
 device, the JAX package's default-on host path (weight verification, the
 host shard cache, readahead and I/O retries), the head stage's score sink
-and disk-mode crash resume. ``resolve_device`` is the one place that turns a device name into a
+and disk-mode crash resume, and the paged prefix-KV pool of the serving
+engine. ``ServeConfig`` (with ``SLOConfig``) holds the ``serve``
+subcommand's knobs. ``resolve_device`` is the one place that turns a device name into a
 ``torch.device``: CUDA unless the caller asks for the CPU, and an error (never
 a silent CPU run) when CUDA is asked for and absent.
 """
@@ -660,6 +662,12 @@ class FrameworkConfig:
     card, their host copies in flight, before the oldest resolve.
     ``resume``: in disk mode, start at the first shard a crashed run with
     the same workload left (its marker in ``disk_folder``).
+
+    The paged prefix-KV pool of the serving engine (``runtime/kvpool.py``):
+    ``kv_page_tokens`` rows per page (<= 0 disables the pool),
+    ``kv_pool_gb`` its host-RAM budget (None = auto, 5% of the available
+    RAM capped at 4 GB; 0 disables), ``kv_host_spill`` whether cold pages
+    spill to checksummed files under ``disk_folder/kvpool`` or drop.
     """
 
     model_path: str = "./"
@@ -693,6 +701,9 @@ class FrameworkConfig:
     hbm_pin_gb: float | None = 0.0
     score_sink_max_device: int = 16
     resume: bool = False
+    kv_page_tokens: int = 16
+    kv_pool_gb: float | None = None
+    kv_host_spill: bool = True
 
     def __post_init__(self) -> None:
         if self.storage_location not in STORAGE_LOCATIONS:
@@ -731,6 +742,8 @@ class FrameworkConfig:
                 f"hbm_pin_gb must be >= 0 (or None for auto), got {self.hbm_pin_gb}")
         if self.score_sink_max_device < 1:
             raise ValueError("score_sink_max_device must be >= 1")
+        if self.kv_pool_gb is not None and self.kv_pool_gb < 0:
+            raise ValueError(f"kv_pool_gb must be >= 0 (or None for auto), got {self.kv_pool_gb}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -744,6 +757,15 @@ class FrameworkConfig:
         from flexible_llm_sharding_tpu_torch.runtime.hostcache import auto_budget_bytes
 
         return auto_budget_bytes()
+
+    def effective_kv_pool_bytes(self) -> int:
+        """The prefix-KV pool's budget in bytes: ``kv_pool_gb`` GB when given
+        (0 = off), else auto (``kvpool._auto_budget_bytes``)."""
+        if self.kv_pool_gb is not None:
+            return int(self.kv_pool_gb * 1e9)
+        from flexible_llm_sharding_tpu_torch.runtime.kvpool import _auto_budget_bytes
+
+        return _auto_budget_bytes()
 
     def effective_hbm_pin_bytes(self, device=None) -> int:
         """The residency tier's budget in bytes: ``hbm_pin_gb`` GB when
@@ -778,6 +800,96 @@ class FrameworkConfig:
                            deadline_s=self.io_retry_deadline_s or None)
 
 
+def _parse_tenant_map(spec: str, what: str) -> dict[str, float]:
+    """A ``"name=value,name=value"`` spec as ``{name: value}``; raises
+    ValueError naming the bad entry."""
+    out: dict[str, float] = {}
+    for entry in (e.strip() for e in spec.split(",") if e.strip()):
+        name, sep, value = entry.partition("=")
+        if not sep or not name:
+            raise ValueError(f"{what}: bad entry {entry!r} (expected tenant=value)")
+        try:
+            out[name] = float(value)
+        except ValueError:
+            raise ValueError(f"{what}: non-numeric value in {entry!r}") from None
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOConfig:
+    """SLO targets and error budgets (``obs/slo.py``), off by default:
+    per-class p95 TTFT targets (``"interactive=0.5,standard=2.0"``), an
+    aggregate per-token latency p95 target and an availability target
+    (0 = off each); budgets are judged from ``min_samples`` samples on."""
+
+    enabled: bool = False
+    ttft_p95_s: str = ""
+    token_latency_p95_s: float = 0.0
+    availability_target: float = 0.0
+    min_samples: int = 20
+
+    def __post_init__(self) -> None:
+        from flexible_llm_sharding_tpu_torch.utils.metrics import SLO_CLASS_NAMES
+
+        for cls, target in _parse_tenant_map(self.ttft_p95_s, "ttft_p95_s").items():
+            if cls not in SLO_CLASS_NAMES:
+                raise ValueError(f"ttft_p95_s: unknown SLO class {cls!r} (one of {SLO_CLASS_NAMES})")
+            if target <= 0:
+                raise ValueError(f"ttft_p95_s: target for {cls!r} must be > 0 "
+                                 "(omit the class for no target)")
+        if self.token_latency_p95_s < 0:
+            raise ValueError("token_latency_p95_s must be >= 0 (0 = off)")
+        if not 0.0 <= self.availability_target < 1.0:
+            raise ValueError("availability_target must be in [0, 1) — 0 disables, 1.0 would "
+                             "allow no failures ever (an unpayable budget)")
+        if self.min_samples < 1:
+            raise ValueError("min_samples must be >= 1")
+
+    def ttft_target_map(self) -> dict[str, float]:
+        return _parse_tenant_map(self.ttft_p95_s, "ttft_p95_s")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """The serving engine's knobs (the JAX package's ``ServeConfig``, single
+    engine): the admission queue's capacity, the requests one wave admits
+    at a shard-0 boundary and the requests in flight, the default token
+    budget and admission deadline (0 = none), the engine's idle poll, the
+    stats line's interval (0 = off), the stall watchdog of a streamed
+    engine (0 = off), and the admission-side size cap (0 = off)."""
+
+    queue_capacity: int = 64
+    max_wave_requests: int = 8
+    max_active_requests: int = 32
+    default_max_new_tokens: int = 16
+    default_deadline_s: float = 0.0
+    idle_poll_s: float = 0.01
+    stats_interval_s: float = 0.0
+    watchdog_abort_s: float = 0.0
+    max_request_tokens: int = 0
+    slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
+
+    def __post_init__(self) -> None:
+        if self.queue_capacity < 1:
+            raise ValueError("queue_capacity must be >= 1")
+        if self.max_wave_requests < 1:
+            raise ValueError("max_wave_requests must be >= 1")
+        if self.max_active_requests < self.max_wave_requests:
+            raise ValueError("max_active_requests must be >= max_wave_requests")
+        if self.default_max_new_tokens < 1:
+            raise ValueError("default_max_new_tokens must be >= 1")
+        if self.default_deadline_s < 0:
+            raise ValueError("default_deadline_s must be >= 0")
+        if self.idle_poll_s <= 0:
+            raise ValueError("idle_poll_s must be > 0")
+        if self.stats_interval_s < 0:
+            raise ValueError("stats_interval_s must be >= 0")
+        if self.watchdog_abort_s < 0:
+            raise ValueError("watchdog_abort_s must be >= 0")
+        if self.max_request_tokens < 0:
+            raise ValueError("max_request_tokens must be >= 0 (0 = off)")
+
+
 def resolve_device(name: str = "cuda") -> torch.device:
     """``torch.device`` for ``name``. A CUDA request without a usable card
     raises; the CPU runs only when asked for by name. On CUDA, float32
@@ -801,6 +913,8 @@ __all__ = [
     "DTYPES",
     "FrameworkConfig",
     "LlamaConfig",
+    "SLOConfig",
     "STORAGE_LOCATIONS",
+    "ServeConfig",
     "resolve_device",
 ]

@@ -388,16 +388,9 @@ def prefix_suffix_layer(
     (prefix_out, suffix_out) and, with ``return_kv``, the post-rope KV dict
     {'kp','vp','ks','vs'} that decode steps reuse (V at ``cfg.v_dim``).
     """
-    b, lp, _ = prefix_h.shape
-    ls = suffix_h.shape[2]
+    lp = prefix_h.shape[1]
     dev = prefix_h.device
-    window, chunk = _effective_window(cfg, sliding)
-    if (window is not None and lp + ls <= window) or (chunk is not None and lp + ls <= chunk):
-        # At these bucket shapes every query-key distance is below the
-        # window (every position in chunk 0): the local mask equals the
-        # causal one, so drop it.
-        window = chunk = None
-    kw = dict(scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap, window=window, chunk=chunk)
+    kw = _scoring_kw(cfg, sliding, lp, suffix_h.shape[2])
 
     h = _norm(prefix_h, params["input_layernorm"], cfg)
     q, k, v = positioned_qkv(params, cfg, h, torch.arange(lp, device=dev)[None], sliding, total_len,
@@ -405,14 +398,63 @@ def prefix_suffix_layer(
     attn = flash_causal_attention(q, k, v, prefix_len, **kw)
     prefix_out = _residual_mlp(params, cfg, _residual_attn(params, cfg, prefix_h, attn))
 
-    hs = _norm(suffix_h, params["input_layernorm"], cfg)
-    pos_s = prefix_len.to(dev).reshape(b, 1, 1) + torch.arange(ls, device=dev)  # [B, 1, Ls]
-    qs, ks, vs = positioned_qkv(params, cfg, hs, pos_s, sliding, total_len, rope_on)
-    attn_s = flash_prefix_shared_attention(qs, k, v, ks, vs, prefix_len, **kw)
-    suffix_out = _residual_mlp(params, cfg, _residual_attn(params, cfg, suffix_h, attn_s))
+    suffix_out, ks, vs = _suffix_half(params, cfg, k, v, suffix_h, prefix_len, sliding, total_len,
+                                      rope_on, kw)
     if return_kv:
         return prefix_out, suffix_out, {"kp": k, "vp": v, "ks": ks, "vs": vs}
     return prefix_out, suffix_out
+
+
+def _scoring_kw(cfg: LlamaConfig, sliding, lp: int, ls: int) -> dict:
+    """The scoring kernels' keywords for a layer at bucket shapes (lp, ls)."""
+    window, chunk = _effective_window(cfg, sliding)
+    if (window is not None and lp + ls <= window) or (chunk is not None and lp + ls <= chunk):
+        # At these bucket shapes every query-key distance is below the
+        # window (every position in chunk 0): the local mask equals the
+        # causal one, so drop it.
+        window = chunk = None
+    return dict(scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap, window=window, chunk=chunk)
+
+
+def _suffix_half(params, cfg, kp, vp, suffix_h, prefix_len, sliding, total_len, rope_on, kw):
+    """The suffix stream of a layer over the post-rope prefix KV (kp, vp):
+    (suffix_out, ks, vs)."""
+    b, _, ls, _ = suffix_h.shape
+    dev = suffix_h.device
+    hs = _norm(suffix_h, params["input_layernorm"], cfg)
+    pos_s = prefix_len.to(dev).reshape(b, 1, 1) + torch.arange(ls, device=dev)  # [B, 1, Ls]
+    qs, ks, vs = positioned_qkv(params, cfg, hs, pos_s, sliding, total_len, rope_on)
+    attn_s = flash_prefix_shared_attention(qs, kp, vp, ks, vs, prefix_len, **kw)
+    suffix_out = _residual_mlp(params, cfg, _residual_attn(params, cfg, suffix_h, attn_s))
+    return suffix_out, ks, vs
+
+
+def suffix_only_layer(
+    params: Params,
+    cfg: LlamaConfig,
+    kp: torch.Tensor,
+    vp: torch.Tensor,
+    suffix_h: torch.Tensor,
+    prefix_len: torch.Tensor,
+    sliding=None,
+    total_len: torch.Tensor | None = None,
+    rope_on=None,
+):
+    """The suffix half of :func:`prefix_suffix_layer`, fed a cached prefix
+    KV (the paged prefix-KV pool's reuse path, ``runtime/kvpool.py``).
+
+    The suffix stream depends on the prefix only through its post-rope
+    (k, v), so with kp/vp [B, Lp, n_kv, hd / v_dim] at the Lp bucket the
+    prefix was prefilled at (rows past prefix_len are the masked pad tail)
+    this runs the same norm, rotary positions prefix_len + i, prefix-shared
+    kernel and residual MLP as the full layer: bit-equal to its suffix
+    stream. Returns (suffix_out, {'ks', 'vs'}); the caller re-attaches
+    kp/vp for the decode KV.
+    """
+    kw = _scoring_kw(cfg, sliding, kp.shape[1], suffix_h.shape[2])
+    suffix_out, ks, vs = _suffix_half(params, cfg, kp, vp, suffix_h, prefix_len, sliding,
+                                      total_len, rope_on, kw)
+    return suffix_out, {"ks": ks, "vs": vs}
 
 
 def decode_step_layer(
@@ -525,4 +567,5 @@ __all__ = [
     "prefix_suffix_layer",
     "rope_for_layer",
     "select_eos_and_norm",
+    "suffix_only_layer",
 ]

@@ -35,7 +35,10 @@ A streamed decode (not resident) takes the process residency tier: every
 pass, the prefill's and each step's, skips the pinned layers. A resident
 decode does not, as in the JAX package: every placed shard stays already.
 
-The KV pool, adapters and the multi-device modes are not part of this port
+The per-shard pieces (:func:`prefill_decoders`, :func:`suffix_prefill_decoders`,
+:func:`decode_decoders`, :func:`decode_norm_head`) are shared with the serving
+engine (``serve/engine.py``), which runs them per wave at each shard of its
+weight sweeps. Adapters and the multi-device modes are not part of this port
 yet.
 """
 
@@ -287,6 +290,62 @@ class KVStore:
         self._mem.clear()
 
 
+def prefill_decoders(model_cfg, layers, first: int, prefix_h, suffix_h, prefix_len, total_len,
+                     sliding, rope_on):
+    """A shard's decoder layers over a block's prefill (the JAX package's
+    ``_prefill_decoders``): ``layers`` the shard's decoder params, the
+    first of them decoder ``first`` of the model; ``sliding``/``rope_on``
+    the model's per-layer patterns. Returns (prefix_h, suffix_h, kvs), kvs
+    each layer's post-rope KV dict {'kp','vp','ks','vs'}."""
+    kvs = []
+    for i, layer in enumerate(layers):
+        d = first + i
+        prefix_h, suffix_h, kv = llama.prefix_suffix_layer(
+            layer, model_cfg, prefix_h, suffix_h, prefix_len, return_kv=True,
+            sliding=sliding[d], total_len=total_len, rope_on=rope_on[d],
+        )
+        kvs.append(kv)
+    return prefix_h, suffix_h, kvs
+
+
+def suffix_prefill_decoders(model_cfg, layers, first: int, kps, vps, suffix_h, prefix_len,
+                            total_len, sliding, rope_on):
+    """The suffix-only prefill of a shard's decoder layers over pooled
+    prefix KV (the JAX package's ``_suffix_prefill_decoders``): ``kps``/
+    ``vps`` one post-rope [B, Lp, n_kv, hd] tensor per layer. Bit-equal to
+    :func:`prefill_decoders`' suffix stream. Returns (suffix_h, kvs), kvs
+    each layer's {'kp','vp','ks','vs'} with the pooled kp/vp re-attached."""
+    kvs = []
+    for i, (layer, kp, vp) in enumerate(zip(layers, kps, vps)):
+        d = first + i
+        suffix_h, kv_s = llama.suffix_only_layer(
+            layer, model_cfg, kp, vp, suffix_h, prefix_len, sliding=sliding[d],
+            total_len=total_len, rope_on=rope_on[d],
+        )
+        kvs.append({"kp": kp, "vp": vp, **kv_s})
+    return suffix_h, kvs
+
+
+def decode_decoders(model_cfg, layers, first: int, kvs, x, prefix_len, suffix_eos, t, sliding,
+                    rope_on):
+    """One decode step of a shard's decoder layers (the JAX package's
+    ``_decode_decoders_impl``): x [B, S, K, D] the newest tokens, ``kvs``
+    the layers' KV dicts (generated slot t, or the [B, S] per-suffix
+    offsets of a verify pass, written in place). Returns x."""
+    for i, (layer, kv) in enumerate(zip(layers, kvs)):
+        d = first + i
+        x = llama.decode_step_layer(layer, model_cfg, x, kv, prefix_len, suffix_eos, t,
+                                    sliding=sliding[d], rope_on=rope_on[d])
+    return x
+
+
+def decode_norm_head(model_cfg, norm_params, head_params, x) -> torch.Tensor:
+    """x [B, S, 1, D] -> float32 next-token distributions [B, S, V] (the
+    JAX package's ``_decode_norm_head_impl``)."""
+    h = rms_norm(x, norm_params["scale"], model_cfg.rms_norm_eps, model_cfg.norm_unit_offset)
+    return llama.lm_head_scores(head_params, h, model_cfg.final_logit_softcap)
+
+
 def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params, norm_params,
                        head_params, init_ids: torch.Tensor, prefix_len: torch.Tensor,
                        suffix_eos: torch.Tensor, n_steps: int, graph: bool):
@@ -467,13 +526,13 @@ class DecodeGenerator(StreamingExecutor):
             source_wait += time.perf_counter() - t0
             return item
 
-        def stream_pass(embed_ids, layer_fn, head_fn, skip_block=None) -> None:
+        def stream_pass(embed_ids, step_t, head_fn, skip_block=None) -> None:
             """One walk of the whole model over the blocks, shared by the
             per-step loop and the speculative verify passes: the kept
             shards or the next streamed pass, ('x', b) activations parked
             between shards. embed_ids(b) -> token ids [B, S, K] on the
-            device; layer_fn(b, params, kv, x, prefix_len, suffix_eos,
-            sliding, rope_on) -> x; head_fn(b, norm_params, head_params, x);
+            device; step_t(b) -> the generated slot (an int, or a verify
+            pass's [B, S] offsets); head_fn(b, norm_params, head_params, x);
             skip_block(b) leaves a block out of this pass."""
             nonlocal compute_time
             norm_params = None
@@ -485,18 +544,19 @@ class DecodeGenerator(StreamingExecutor):
                         continue
                     _, _, prefix_len, suffix_eos = metas[b]
                     x = None if layer_idxs[0] == 0 else kv_store.get(("x", b))
-                    li = 0
+                    li0 = 0  # the segment's first layer within the shard
                     for kind, params in segments:
                         if kind == "embed":
                             x = llama.embed(params, embed_ids(b), self.dtype, mcfg)
                         elif kind == "decoders":
-                            for layer in params:
-                                kv = kv_store.get(("kv", shard_pos, li, b))
-                                d = first_decoder(layer_idxs) + li
-                                x = layer_fn(b, layer, kv, x, prefix_len, suffix_eos,
-                                             sliding[d], rope_on[d])
-                                kv_store.put(("kv", shard_pos, li, b), kv)
-                                li += 1
+                            keys = [("kv", shard_pos, li0 + li, b) for li in range(len(params))]
+                            kvs = [kv_store.get(key) for key in keys]
+                            x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs,
+                                                x, prefix_len, suffix_eos, step_t(b), sliding,
+                                                rope_on)
+                            for key, kv in zip(keys, kvs):
+                                kv_store.put(key, kv)
+                            li0 += len(params)
                         elif kind == "norm":
                             norm_params = params  # applied with the head
                         else:
@@ -520,21 +580,20 @@ class DecodeGenerator(StreamingExecutor):
                     ph = sh = None
                     if layer_idxs[0] != 0:
                         ph, sh = kv_store.get(("h", b))
-                    li = 0
+                    li0 = 0
                     for kind, params in segments:
                         if kind == "embed":
                             ph = llama.embed(params, prefix_ids, self.dtype, mcfg)
                             sh = llama.embed(params, suffix_ids, self.dtype, mcfg)
                         elif kind == "decoders":
-                            for layer in params:
-                                ph, sh, kv = llama.prefix_suffix_layer(
-                                    layer, mcfg, ph, sh, prefix_len, return_kv=True,
-                                    sliding=sliding[first_decoder(layer_idxs) + li],
-                                    total_len=total_len,
-                                    rope_on=rope_on[first_decoder(layer_idxs) + li],
-                                )
-                                kv_store.put(("kv", shard_pos, li, b), extend_gen_kv(kv, gen_slots))
-                                li += 1
+                            ph, sh, kvs = prefill_decoders(
+                                mcfg, params, first_decoder(layer_idxs) + li0, ph, sh, prefix_len,
+                                total_len, sliding, rope_on)
+                            for li, kv in enumerate(kvs):
+                                kv_store.put(("kv", shard_pos, li0 + li, b),
+                                             extend_gen_kv(kv, gen_slots))
+                            li0 += len(params)
+                            del kvs
                         elif kind == "norm":
                             sh = llama.select_eos_and_norm(params, mcfg, sh, suffix_eos)
                             ph = None
@@ -609,8 +668,7 @@ class DecodeGenerator(StreamingExecutor):
 
                     stream_pass(
                         lambda b: fed[b],
-                        lambda b, params, kv, x, pl, se, sl, ro: llama.decode_step_layer(
-                            params, mcfg, x, kv, pl, se, base[b], sliding=sl, rope_on=ro),
+                        lambda b: base[b],
                         spec_head,
                         skip_block=lambda b: b not in fed,
                     )
@@ -625,15 +683,13 @@ class DecodeGenerator(StreamingExecutor):
                 }
             else:
                 def plain_head(b, norm_params, head_params, x):
-                    h = rms_norm(x, norm_params["scale"], mcfg.rms_norm_eps, mcfg.norm_unit_offset)
-                    head(b, llama.lm_head_scores(head_params, h, mcfg.final_logit_softcap))
+                    head(b, decode_norm_head(mcfg, norm_params, head_params, x))
 
                 for t in range(n_gen - 1):
                     stream_pass(
                         lambda b: torch.from_numpy(
                             np.asarray(tok_hist[b][-1])[..., None]).to(self.device),
-                        lambda b, params, kv, x, pl, se, sl, ro: llama.decode_step_layer(
-                            params, mcfg, x, kv, pl, se, t, sliding=sl, rope_on=ro),
+                        lambda b: t,
                         plain_head,
                     )
         finally:
@@ -684,9 +740,13 @@ __all__ = [
     "KVStore",
     "SpecVerifier",
     "block_kv_bytes",
+    "decode_decoders",
+    "decode_norm_head",
     "draft_contexts",
     "extend_gen_kv",
     "fused_decode_steps",
     "kv_fits_on_chip",
+    "prefill_decoders",
     "propose_draft",
+    "suffix_prefill_decoders",
 ]

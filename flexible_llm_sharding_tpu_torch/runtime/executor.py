@@ -213,6 +213,15 @@ class ShardWeightSource:
     life, subtracted from every build and merged back in layer order. The
     JAX loader's fault injection and host-OOM typing wait for ROADMAP item 8.
 
+    ``cycle=True`` loops the shard list endlessly instead of stopping after
+    one pass: the serving engine's weight stream (``serve/engine.py``),
+    where the number of sweeps is open-ended and a source per sweep would
+    cold-start the prefetch at every shard-0 boundary. The producer wraps
+    from the last shard to shard 0 (warming shard 0's files), a shard whose
+    build fails reaches the consumer at its position while the stream goes
+    on, and the consumer takes ``len(shards)`` items per sweep and must
+    ``close()`` (or ``abort()``) the source to end it.
+
     Stats: ``load_time`` (host reads, misses only), ``bytes_loaded`` (host
     bytes uploaded, hits and pin loads included), ``retries`` (a
     ``RetryRecorder``) and ``integrity`` (an ``IntegrityRecorder``).
@@ -223,8 +232,9 @@ class ShardWeightSource:
                  device: torch.device, prefetch_depth: int = 1,
                  tied_embeddings: bool = False, *, verify_weights: bool = True,
                  host_cache: HostShardCache | None = None, readahead_threads: int = 2,
-                 retry_policy: RetryPolicy | None = None, residency=None):
+                 retry_policy: RetryPolicy | None = None, residency=None, cycle: bool = False):
         self.model_path = model_path
+        self.cycle = cycle
         self.layer_names = list(layer_names)
         self.shards = list(shards)
         self.dtype = dtype
@@ -421,15 +431,17 @@ class ShardWeightSource:
 
     def _produce(self, i: int):
         """Shard ``i``, with the next shard's streamed files queued for
-        readahead."""
+        readahead (shard 0's after the last when cycling)."""
         if i + 1 < len(self.shards):
             self.warm(_stream_only(self.shards[i + 1], self._pinned))
-        return self._build(self.shards[i])
+        elif self.cycle:
+            self.warm(_stream_only(self.shards[0], self._pinned))
+        return (self.shards[i], *self._build(self.shards[i]))
 
     def _ready(self, item):
         """Order the upload before the consumer's stream and keep the
         allocator from reusing the weights' memory while that stream runs."""
-        segments, event = item
+        _, segments, event = item
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
@@ -447,39 +459,66 @@ class ShardWeightSource:
         return False
 
     def _producer(self) -> None:
-        for i in range(len(self.shards)):
-            if self._stop.is_set():
-                return
-            try:
-                item = self._produce(i)
-            except Exception as e:  # carried to the consumer, which re-raises it
-                self._put(_Fault(e))
-                return
-            if not self._put(item):
+        while True:
+            for i in range(len(self.shards)):
+                if self._stop.is_set():
+                    return
+                try:
+                    item = self._produce(i)
+                except Exception as e:  # carried to the consumer, which re-raises it
+                    if not self._put(_Fault(e)) or not self.cycle:
+                        return
+                    continue  # cycling: the consumer fails its sweep, the stream goes on
+                if not self._put(item):
+                    return
+            if not self.cycle:
                 return
 
     def __iter__(self):
-        for i, idxs in enumerate(self.shards):
-            if self._thread is None:
-                item = self._produce(i)
-            else:
-                while True:
-                    try:
-                        item = self._q.get(timeout=0.2)
-                        break
-                    except Empty:
-                        if self._stop.is_set() or not self._thread.is_alive():
-                            raise SourceClosed("weight source closed while streaming") from None
-                if isinstance(item, _Fault):
-                    raise item.error
-            yield idxs, self._ready(item)
+        while True:
+            for i, idxs in enumerate(self.shards):
+                if self._stop.is_set():
+                    raise SourceClosed("weight source closed while streaming")
+                if self._thread is None:
+                    item = self._produce(i)
+                else:
+                    while True:
+                        try:
+                            item = self._q.get(timeout=0.2)
+                            break
+                        except Empty:
+                            if self._stop.is_set() or not self._thread.is_alive():
+                                raise SourceClosed(
+                                    "weight source closed while streaming") from None
+                    if isinstance(item, _Fault):
+                        raise item.error
+                if item[0] != idxs:
+                    # A producer out of phase would feed one layer's weights to another.
+                    raise RuntimeError(f"weight source out of phase: built shard {item[0]} at "
+                                       f"the position of shard {idxs}")
+                yield idxs, self._ready(item)
+            if not self.cycle:
+                return
 
-    def close(self) -> None:
+    def abort(self) -> None:
+        """Non-blocking stop for a stall watchdog's thread: a pending get
+        of the consumer raises ``SourceClosed`` and a pending put of the
+        producer gives up; the owner still calls :meth:`close`."""
+        self._stop.set()
+        while True:
+            try:
+                self._q.get_nowait()
+            except Empty:
+                break
+
+    def close(self, join_timeout_s: float = 10.0) -> None:
         """Stop the prefetch thread, drop queued shards and retire the
-        readahead pool."""
+        readahead pool. The join is bounded: a producer wedged in a read
+        that never returns is left behind (it puts nothing once stopped)."""
         self._stop.set()
         if self._thread is not None:
-            while self._thread.is_alive():
+            deadline = time.monotonic() + join_timeout_s
+            while self._thread.is_alive() and time.monotonic() < deadline:
                 try:
                     self._q.get_nowait()
                 except Empty:

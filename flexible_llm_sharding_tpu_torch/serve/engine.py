@@ -1,0 +1,683 @@
+"""The serving loop: continuous batching over the streaming runtime (the
+JAX package's ``serve/engine.py``, single engine).
+
+One worker thread drives an endless sequence of **weight sweeps**. Each
+sweep walks the model's shards in order, kept on the card
+(``decode_resident``) or streamed again through a cycling
+``ShardWeightSource``. At every shard, every active wave advances by that
+shard's work: a wave admitted at this sweep's shard-0 boundary runs its
+prefill (``runtime/decode.prefill_decoders``, keeping each layer's KV), and
+the waves in flight run one decode step against their KV. New waves join
+only at the shard-0 boundary (``ShardAwareBatcher``), so a join never
+prefills an in-flight request again: the late wave's prefill and the
+earlier waves' decode ride the same sweep. Joining changes when a request
+is served, never what it gets.
+
+A request resolves (future and callback) as soon as its own token budget is
+reached; budgets differ within a wave, and a block whose requests all
+finished sits the later sweeps out. ``drain`` serves out what is queued and
+in flight and refuses new requests; ``shutdown(drain=False)`` cancels the
+queued ones.
+
+The paged prefix-KV pool (``runtime/kvpool.py``): each entry leases its
+prefix's block table at admission; a full prefill banks each decoder
+segment's prefix KV into the pool and seals the entry after its prefill
+sweep; a later wave whose block rows all lease sealed entries runs only the
+suffix half of each layer (``suffix_prefill_decoders``) over the assembled
+pages, uploaded page-locked in the compute dtype.
+
+Degrade, don't die: a shard load that failed for good (``ShardLoadError``),
+a sweep the stall watchdog aborted (``SourceClosed``), an ``OSError`` or a
+pooled page that stays corrupt (``SpillCorruptError``) fails only the waves
+in flight (``WaveAborted``, the fault as its cause) and restarts the weight
+source; the queue keeps being served. Anything else, a kernel launch that
+fails included, is engine-fatal: every request fails with the root cause
+and the loop stops. On a card the kernels are built and loaded before the
+first sweep, so a build or load failure is engine-fatal too.
+
+On a card the worker thread sets its device before any CUDA call and runs
+every launch on that device's current stream of its own thread. Greedy
+selection only. Not ported yet, each raising where its flag is parsed (the
+serve CLI): replicas and the router, the request WAL, speculative serving
+and draft models, the sweep scheduler, LoRA adapters, the brownout
+controller, chaos injection, tracing and the metrics endpoint.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from itertools import islice
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from flexible_llm_sharding_tpu_torch.config import (
+    FrameworkConfig,
+    LlamaConfig,
+    ServeConfig,
+    resolve_device,
+)
+from flexible_llm_sharding_tpu_torch.faults.retry import ShardLoadError
+from flexible_llm_sharding_tpu_torch.integrity.manifest import SpillCorruptError
+from flexible_llm_sharding_tpu_torch.models import llama
+from flexible_llm_sharding_tpu_torch.obs.slo import SLOTracker
+from flexible_llm_sharding_tpu_torch.ops import cuda_build
+from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
+from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, residency
+from flexible_llm_sharding_tpu_torch.runtime.decode import (
+    KVStore,
+    decode_decoders,
+    decode_norm_head,
+    extend_gen_kv,
+    prefill_decoders,
+    suffix_prefill_decoders,
+)
+from flexible_llm_sharding_tpu_torch.runtime.executor import (
+    ShardWeightSource,
+    SourceClosed,
+    block_meta,
+    first_decoder,
+    process_tied_head_requants,
+)
+from flexible_llm_sharding_tpu_torch.runtime.schedcore import SchedCore
+from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
+    PromptTokenizer,
+    check_longrope_regime,
+    longrope_total_len,
+    make_blocks,
+)
+from flexible_llm_sharding_tpu_torch.serve.batcher import ShardAwareBatcher, Wave
+from flexible_llm_sharding_tpu_torch.serve.queue import AdmissionQueue
+from flexible_llm_sharding_tpu_torch.serve.request import Request, RequestStatus, WaveAborted
+from flexible_llm_sharding_tpu_torch.serve.sched.classes import parse_class
+from flexible_llm_sharding_tpu_torch.utils import checkpoint
+from flexible_llm_sharding_tpu_torch.utils.metrics import ServingMetrics, StepWatchdog
+
+
+@dataclasses.dataclass
+class _WaveState:
+    """The engine's compute state of one wave: the offline decoder's
+    structures, scoped to the wave's requests."""
+
+    toks: list
+    blocks: list[list[int]]
+    meta: dict[int, tuple]
+    kv_store: KVStore
+    scores: dict[int, list[np.ndarray]]
+    tok_hist: dict[int, list[np.ndarray]]
+    loc: dict[int, tuple[int, int]]  # wave-entry index -> (block, row)
+    slots: int
+    norm_p: Any = None  # the norm shard's params, applied with the head
+    # The pool: one lease per entry, from admission to retirement or abort,
+    # and the blocks whose every row reuses a sealed entry.
+    pool_handles: dict[int, Any] = dataclasses.field(default_factory=dict)
+    reuse_blocks: set[int] = dataclasses.field(default_factory=set)
+
+
+class ServeEngine:
+    """Continuous-batching server over the streaming decode runtime.
+
+    ``submit()`` is thread-safe and does not block (a rejection resolves the
+    returned request's future); results resolve through ``Request.future``
+    and the request's callback. ``device`` defaults to ``cfg.device``
+    (``resolve_device``: the card unless the CPU is asked for).
+    """
+
+    def __init__(self, cfg: FrameworkConfig, serve_cfg: ServeConfig | None = None, tokenizer=None,
+                 device: torch.device | None = None, start: bool = True):
+        if cfg.temperature > 0:
+            raise ValueError("serving is greedy-only (per-request rng streams under sampling are "
+                             "not supported); set temperature=0")
+        if cfg.speculative_k:
+            raise ValueError("FrameworkConfig.speculative_k is the offline decoder's knob; "
+                             "speculative serving is not ported yet")
+        if cfg.data_parallel:
+            raise ValueError("serving drives a single device; drop data_parallel")
+        self.cfg = cfg
+        self.serve_cfg = serve_cfg or ServeConfig()
+        device = device if device is not None else resolve_device(cfg.device)
+        if device.type == "cuda" and device.index is None:
+            # The worker thread sets this index: its current device is its own.
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
+        self.dtype = cfg.torch_dtype
+        if tokenizer is None:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(cfg.model_path)
+        self.raw_tokenizer = tokenizer
+        self.tokenizer = PromptTokenizer(tokenizer, max_token_len=cfg.max_token_len,
+                                         bucket_multiple=cfg.bucket_multiple)
+        self.layer_names = checkpoint.layer_names_for(self.model_cfg.num_hidden_layers)
+        self.shards = list(plan_shards_dp(len(self.layer_names), cfg.layer_num_per_shard).shards)
+        self._n_layers = len(self.layer_names)
+        self._sliding = llama.layer_sliding_pattern(self.model_cfg)
+        self._rope_on = llama.layer_rope_pattern(self.model_cfg)
+        self._resident = cfg.decode_resident_enabled(self.model_cfg, 1, self.device)
+        self.metrics = ServingMetrics()
+        # The process host shard cache: a streamed engine's later sweeps,
+        # and a recovery's new source, read from it.
+        self._host_cache = hostcache.cache_for(cfg)
+        self.metrics.host_cache = self._host_cache
+        # The process residency tier; moot when the whole model stays resident.
+        self._residency = (None if self._resident else residency.tier_for(
+            cfg, self.layer_names, self.model_cfg.tie_word_embeddings, self.device))
+        self.metrics.residency = self._residency
+        self._streamed_before = 0  # bytes of the sources already closed
+        self.metrics.register("stream", self._stream_stats)
+        self._slo = SLOTracker(self.serve_cfg.slo, self.metrics)
+        self.metrics.register("slo", self._slo.stats)
+        self.queue = AdmissionQueue(self.serve_cfg.queue_capacity, metrics=self.metrics,
+                                    max_request_tokens=self.serve_cfg.max_request_tokens,
+                                    size_fn=self._request_size_tokens)
+        # The scheduling policy shared with the offline DecodeGenerator.
+        self._sched_core = SchedCore(cfg)
+        # The paged prefix-KV pool. Longrope models opt out: their prefix
+        # KV depends on the prompt's total length through the table switch.
+        self._kv_pool = (None if self.model_cfg.rope_scaling_kind == "longrope"
+                         else kvpool.pool_for(cfg))
+        if self._kv_pool is not None:
+            self.metrics.register("kvpool", kvpool.process_stats)
+        self.batcher = ShardAwareBatcher(self.queue, self.serve_cfg.max_wave_requests,
+                                         self.serve_cfg.max_active_requests, metrics=self.metrics,
+                                         sched_core=self._sched_core)
+        self._kept: list | None = None  # resident: the placed shards
+        self._source: ShardWeightSource | None = None  # streamed: cycling
+        self._src_iter = None
+        self._watchdog: StepWatchdog | None = None
+        self._error: BaseException | None = None
+        self._thread: threading.Thread | None = None
+        # The sweep's position and last progress, read by sweep_position().
+        self._sweep_pos = 0
+        self._heartbeat = time.monotonic()
+        if start:
+            self.start()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "ServeEngine":
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, name="serve-engine", daemon=True)
+            self._thread.start()
+        return self
+
+    def __enter__(self) -> "ServeEngine":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown(drain=exc == (None, None, None))
+
+    def submit(self, prefix: str, suffixes: tuple[str, ...] | list[str],
+               max_new_tokens: int | None = None, deadline_s: float | None = None,
+               callback: Callable[[Request], Any] | None = None, slo_class: str | None = None,
+               tenant_id: str | None = None, client_id=None) -> Request:
+        """Enqueue one request (any thread). Rejections resolve through the
+        returned request's future; an unknown ``slo_class`` raises
+        ``UnknownSLOClass`` and ``max_new_tokens`` < 1 ``ValueError``.
+        Deadline: the request's own, else the serve-level default."""
+        slo = parse_class(slo_class)
+        if deadline_s is None and self.serve_cfg.default_deadline_s > 0:
+            deadline_s = self.serve_cfg.default_deadline_s
+        req = Request(
+            prefix=prefix,
+            suffixes=tuple(suffixes),
+            max_new_tokens=(max_new_tokens if max_new_tokens is not None
+                            else self.serve_cfg.default_max_new_tokens),
+            deadline=(time.monotonic() + deadline_s
+                      if deadline_s is not None and deadline_s > 0 else None),
+            callback=callback,
+            slo_class=slo,
+            tenant_id=tenant_id if tenant_id is not None else "default",
+            client_id=client_id,
+        )
+        if req.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        return self.queue.submit(req)
+
+    def drain(self, timeout: float | None = None) -> bool:
+        """Refuse new submissions, serve out what is queued and in flight,
+        stop. Returns whether the loop ended within ``timeout``."""
+        return self.shutdown(drain=True, timeout=timeout)
+
+    def shutdown(self, drain: bool = True, timeout: float | None = None) -> bool:
+        self.queue.close(drain=drain)
+        ok = True
+        if self._thread is not None:
+            self._thread.join(timeout)
+            ok = not self._thread.is_alive()
+        return ok
+
+    @property
+    def error(self) -> BaseException | None:
+        return self._error
+
+    def stats(self) -> dict:
+        return self.metrics.snapshot()
+
+    def sweep_position(self) -> dict:
+        """The sweep's progress (any thread): ``boundary_frac`` is the
+        fraction of a sweep left until the next shard-0 admission point (0
+        while idle), ``watermark`` the last instant the sweep moved."""
+        n = len(self.shards)
+        pos = self._sweep_pos
+        sweeping = bool(self.batcher.waves)
+        return {
+            "shard_pos": pos,
+            "n_shards": n,
+            "boundary_frac": (n - pos) / n if sweeping else 0.0,
+            "watermark": self._heartbeat,
+            "busy": sweeping or len(self.queue) > 0,
+        }
+
+    def _stream_stats(self) -> dict:
+        src = self._source
+        return {
+            "streamed_bytes": self._streamed_before + (src.bytes_loaded if src is not None else 0),
+            "tied_head_requants": process_tied_head_requants(),
+        }
+
+    # -- the serving loop --------------------------------------------------
+
+    def _run(self) -> None:
+        if self.device.type == "cuda":
+            try:
+                # The current device is per thread: set it before any CUDA call.
+                torch.cuda.set_device(self.device)
+                # Build and load the kernels before the first sweep, so a build
+                # or load failure (an OSError among them) is engine-fatal here
+                # and never reaches a sweep's recoverable faults.
+                cuda_build.library()
+            except BaseException as e:  # noqa: BLE001 — surfaced through every future
+                self._fatal(e)
+                return
+        with torch.inference_mode():
+            self._loop()
+
+    def _loop(self) -> None:
+        try:
+            self._acquire_weights()
+        except BaseException as e:  # noqa: BLE001 — surfaced through every future
+            self._fatal(e)
+            return
+        wd = None
+        if self.serve_cfg.watchdog_abort_s > 0 and not self._resident:
+            # A streamed sweep that lands no shard for watchdog_abort_s has
+            # its source aborted from the watchdog's thread; the pending get
+            # then raises SourceClosed and the recovery below takes over. A
+            # resident sweep moves no weights: no watchdog.
+            wd = StepWatchdog("serve-sweep", self.serve_cfg.watchdog_abort_s, self._on_stall)
+            self.metrics.register("watchdog", wd.stats)
+        self._watchdog = wd
+        try:
+            while True:
+                # ---- shard-0 boundary: the admission point ----------------
+                self._heartbeat = time.monotonic()
+                wave = self.batcher.admit_at_boundary()
+                if wave is not None and not self._init_wave(wave):
+                    continue  # the wave failed at tokenization; check the queue again
+                if not self.batcher.waves:
+                    if self.queue.closed and len(self.queue) == 0:
+                        break
+                    self.metrics.maybe_emit(self.serve_cfg.stats_interval_s)
+                    if len(self.queue) == 0:
+                        time.sleep(self.serve_cfg.idle_poll_s)
+                    continue
+                t0 = time.perf_counter()
+                try:
+                    if wd is not None:
+                        # The token is this source: a late stall callback can
+                        # never abort its replacement.
+                        wd.arm(token=self._source)
+                    self._sweep()
+                except (ShardLoadError, SourceClosed, OSError, SpillCorruptError) as e:
+                    self._recover(e)
+                    continue
+                finally:
+                    if wd is not None:
+                        wd.disarm()
+                self._post_sweep(time.perf_counter() - t0)
+                self.metrics.maybe_emit(self.serve_cfg.stats_interval_s)
+        except BaseException as e:  # noqa: BLE001 — engine-fatal: every future gets the root cause
+            self._fatal(e)
+        finally:
+            if wd is not None:
+                wd.close()
+            self._release_weights()
+
+    def _fatal(self, error: BaseException) -> None:
+        """Every in-flight and queued request fails with the root cause; the
+        loop stops; later submits see ServeClosed."""
+        self._error = error
+        for w in self.batcher.waves:
+            if w.state is not None:
+                self._release_pool_handles(w.state)
+        self.batcher.fail_all_active(error)
+        self.queue.close(drain=False)
+        self._release_weights()
+
+    def _recover(self, root: BaseException) -> None:
+        """A recoverable fault mid-sweep: the in-flight waves' state is
+        unusable, so exactly their requests fail (``WaveAborted``, the fault
+        as cause), their KV drops, the weight source restarts at shard 0 and
+        the queue keeps being served."""
+        self._heartbeat = time.monotonic()
+        if self._watchdog is not None:
+            # The recovery itself can block (closing a wedged producer).
+            self._watchdog.disarm()
+        n_waves = len(self.batcher.waves)
+        for w in self.batcher.waves:
+            if w.state is not None:
+                w.state.kv_store.clear()
+                self._release_pool_handles(w.state)
+        err = WaveAborted(
+            f"in-flight wave aborted by a recoverable engine fault ({type(root).__name__}: "
+            f"{root}); the engine recovered and keeps serving — resubmit")
+        err.__cause__ = root
+        self.batcher.fail_all_active(err)
+        self.metrics.count("engine_recoveries")
+        if n_waves:
+            self.metrics.count("waves_aborted", n_waves)
+        if not self._resident:
+            self._release_weights()
+            self._acquire_weights()
+            self.metrics.count("source_restarts")
+
+    def _on_stall(self, idle_s: float, token) -> None:
+        """The watchdog's thread: abort the stalled source without blocking,
+        and only while it is still the live one."""
+        if token is None or token is not self._source:
+            return
+        self.metrics.count("watchdog_stalls")
+        token.abort()
+
+    # -- weights -----------------------------------------------------------
+
+    def _mk_source(self, cycle: bool) -> ShardWeightSource:
+        cfg = self.cfg
+        return ShardWeightSource(
+            cfg.model_path, self.layer_names, self.shards, self.dtype, self.device,
+            cfg.prefetch_depth, self.model_cfg.tie_word_embeddings,
+            verify_weights=cfg.verify_weights, host_cache=self._host_cache,
+            readahead_threads=cfg.readahead_threads, retry_policy=cfg.retry_policy(),
+            residency=self._residency, cycle=cycle,
+        )
+
+    def _acquire_weights(self) -> None:
+        if self._resident:
+            # One pass places every shard, kept for the engine's life.
+            src = self._mk_source(cycle=False)
+            try:
+                self._kept = list(enumerate(src))
+            finally:
+                self._streamed_before += src.bytes_loaded
+                src.close()
+        else:
+            self._source = self._mk_source(cycle=True)
+            self._src_iter = iter(self._source)
+
+    def _release_weights(self) -> None:
+        self._kept = None
+        if self._source is not None:
+            src, self._source, self._src_iter = self._source, None, None
+            self._streamed_before += src.bytes_loaded
+            src.close()
+
+    def _sweep_shards(self):
+        if self._resident:
+            return iter(self._kept)
+        return enumerate(islice(self._src_iter, len(self.shards)))
+
+    # -- wave setup --------------------------------------------------------
+
+    def _request_size_tokens(self, req: Request) -> int:
+        """Prefix tokens + the longest suffix's + the budget, truncated as
+        the prompt tokenizer truncates (the submitter's thread)."""
+        pids = self.raw_tokenizer(req.prefix, truncation=True,
+                                  max_length=self.cfg.max_token_len)["input_ids"]
+        longest = 0
+        if req.suffixes:
+            sids = self.raw_tokenizer(list(req.suffixes), truncation=True,
+                                      max_length=self.cfg.max_token_len)["input_ids"]
+            longest = max((len(s) for s in sids), default=0)
+        return len(pids) + longest + req.max_new_tokens
+
+    def _release_pool_handles(self, st: _WaveState) -> None:
+        """Drop a wave's leases (idempotent); the pages stay for reuse."""
+        if self._kv_pool is None:
+            return
+        for h in st.pool_handles.values():
+            self._kv_pool.release(h)
+
+    def _init_wave(self, wave: Wave) -> bool:
+        """Tokenize and bucket the wave's entries and allocate its state. A
+        bad request (a longrope straddle, a malformed prompt, an allocation
+        that fails) fails only this wave; anything else is engine-fatal."""
+        entries = wave.ensure_entries()
+        pool_handles: dict[int, Any] = {}
+        try:
+            toks = [self.tokenizer(e.prefix, e.suffixes) for e in entries]
+            check_longrope_regime(self.model_cfg, toks, extra_len=max(wave.max_steps - 1, 0))
+            blocks = make_blocks(toks, self.cfg.block_size)
+            meta = {b: block_meta(toks, idxs, self.device) for b, idxs in enumerate(blocks)}
+            loc = {i: (b, row) for b, idxs in enumerate(blocks) for row, i in enumerate(idxs)}
+            # Lease each entry's block table; a block whose every row leases
+            # a sealed entry skips its prefix prefill.
+            reuse_blocks: set[int] = set()
+            if self._kv_pool is not None:
+                for i, tp in enumerate(toks):
+                    ids = tuple(int(t) for t in tp.prefix_ids[: tp.prefix_len])
+                    pool_handles[i] = self._kv_pool.acquire(ids, int(tp.prefix_len),
+                                                            int(tp.prefix_ids.shape[0]))
+                for b, idxs in enumerate(blocks):
+                    if idxs and all(pool_handles[i].reusable for i in idxs):
+                        reuse_blocks.add(b)
+                for i, tp in enumerate(toks):
+                    key = ("prefix_reuse_tokens" if loc[i][0] in reuse_blocks
+                           else "prefix_prefill_tokens")
+                    self.metrics.count(key, int(tp.prefix_len))
+            # Generated-KV slots and the KV placement: the offline rules.
+            slots = self._sched_core.gen_slots(wave.max_steps)
+            kv_on_device = self._sched_core.kv_on_device(
+                self.model_cfg, self.cfg.dtype, toks, blocks, slots, self._resident,
+                device=self.device)
+            wave.state = _WaveState(
+                toks=toks, blocks=blocks, meta=meta,
+                kv_store=KVStore(kv_on_device, self.device),
+                scores={b: [] for b in range(len(blocks))},
+                tok_hist={b: [] for b in range(len(blocks))},
+                loc=loc, slots=slots, pool_handles=pool_handles, reuse_blocks=reuse_blocks,
+            )
+            return True
+        except (ValueError, KeyError, TypeError, IndexError, MemoryError) as e:
+            if self._kv_pool is not None:
+                for h in pool_handles.values():
+                    self._kv_pool.release(h)
+            for r in wave.requests:
+                if not r.status.terminal and r.fail(e, RequestStatus.FAILED):
+                    self.metrics.count("failed")
+            self.batcher.waves.remove(wave)
+            return False
+
+    # -- per-shard compute -------------------------------------------------
+
+    def _sweep(self) -> None:
+        """One weight pass: the prefill of the waves at step 0, one decode
+        step of every other wave."""
+        wd = self._watchdog
+        for shard_pos, (layer_idxs, segments) in self._sweep_shards():
+            if tuple(layer_idxs) != tuple(self.shards[shard_pos]):
+                raise RuntimeError(f"sweep out of phase: shard {tuple(layer_idxs)} arrived at "
+                                   f"position {shard_pos} of {self.shards}")
+            if wd is not None:
+                wd.tick()
+            self._sweep_pos = shard_pos
+            self._heartbeat = time.monotonic()
+            for wave in self.batcher.waves:
+                if wave.steps == 0:
+                    self._prefill_shard(wave, shard_pos, layer_idxs, segments)
+                else:
+                    self._decode_shard(wave, shard_pos, layer_idxs, segments)
+            del segments
+        self._sweep_pos = 0
+
+    def _assemble(self, st: _WaveState, b: int, seg_key: tuple, n_layers: int):
+        """One block's pooled prefix KV of a decoder segment on the device:
+        per layer (kp, vp) [B, Lp, n_kv, hd], uploaded from page-locked
+        memory in the compute dtype."""
+        rows = [self._kv_pool.assemble(st.pool_handles[i], seg_key) for i in st.blocks[b]]
+        out = []
+        for j in (0, 1):
+            host = torch.stack([r[j] for r in rows], dim=1).to(self.dtype)  # [k, B, Lp, n, hd]
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            dev = host.to(self.device, non_blocking=True)
+            out.append([dev[layer] for layer in range(n_layers)])
+        return out
+
+    def _bank(self, st: _WaveState, b: int, seg_key: tuple, kvs: list[dict]) -> None:
+        """Contribute a block segment's prefix KV to the pool, one row per
+        entry; the copy to the host completes before the entry can seal."""
+        k = torch.stack([kv["kp"].to("cpu") for kv in kvs])  # [k, B, Lp, n_kv, hd]
+        v = torch.stack([kv["vp"].to("cpu") for kv in kvs])
+        for row, i in enumerate(st.blocks[b]):
+            self._kv_pool.contribute(st.pool_handles[i], seg_key, k[:, row], v[:, row])
+
+    def _prefill_shard(self, wave: Wave, shard_pos: int, layer_idxs, segments) -> None:
+        st: _WaveState = wave.state
+        mcfg = self.model_cfg
+        for b in range(len(st.blocks)):
+            prefix_ids, suffix_ids, prefix_len, suffix_eos = st.meta[b]
+            # A reuse block never runs its prefix stream: the suffix stream
+            # sees the prefix only through its post-rope KV, so the suffix
+            # half over the assembled pages is bit-equal.
+            reuse = b in st.reuse_blocks
+            total_len = longrope_total_len(mcfg, prefix_len, suffix_eos)
+            ph = sh = None
+            if layer_idxs[0] != 0:
+                ph, sh = st.kv_store.get(("h", b))
+            di = li0 = 0
+            for kind, params in segments:
+                if kind == "embed":
+                    ph = None if reuse else llama.embed(params, prefix_ids, self.dtype, mcfg)
+                    sh = llama.embed(params, suffix_ids, self.dtype, mcfg)
+                elif kind == "decoders":
+                    first = first_decoder(layer_idxs) + li0
+                    if reuse:
+                        kps, vps = self._assemble(st, b, (shard_pos, di), len(params))
+                        sh, kvs = suffix_prefill_decoders(mcfg, params, first, kps, vps, sh,
+                                                          prefix_len, total_len, self._sliding,
+                                                          self._rope_on)
+                        ph = None
+                    else:
+                        ph, sh, kvs = prefill_decoders(mcfg, params, first, ph, sh, prefix_len,
+                                                       total_len, self._sliding, self._rope_on)
+                        if self._kv_pool is not None and st.pool_handles:
+                            self._bank(st, b, (shard_pos, di), kvs)
+                    for li, kv in enumerate(kvs):
+                        st.kv_store.put(("kv", shard_pos, li0 + li, b), extend_gen_kv(kv, st.slots))
+                    del kvs
+                    di += 1
+                    li0 += len(params)
+                elif kind == "norm":
+                    sh = llama.select_eos_and_norm(params, mcfg, sh, suffix_eos)
+                    ph = None
+                else:  # head
+                    dist = llama.lm_head_scores(params, sh, mcfg.final_logit_softcap)
+                    dist = dist.to("cpu").numpy()
+                    st.scores[b].append(dist)
+                    st.tok_hist[b].append(np.argmax(dist, axis=-1))
+            if layer_idxs[-1] != self._n_layers - 1:
+                st.kv_store.put(("h", b), (ph, sh))
+
+    def _decode_shard(self, wave: Wave, shard_pos: int, layer_idxs, segments) -> None:
+        st: _WaveState = wave.state
+        mcfg = self.model_cfg
+        t = wave.steps - 1  # this step's generated-KV slot
+        for b in range(len(st.blocks)):
+            # A block whose requests all resolved sits the sweep out
+            # (statuses change only in _post_sweep).
+            if all(r.status.terminal for i in st.blocks[b] for r in wave.entries[i].requests):
+                continue
+            _, _, prefix_len, suffix_eos = st.meta[b]
+            x = None if layer_idxs[0] == 0 else st.kv_store.get(("x", b))
+            li0 = 0
+            for kind, params in segments:
+                if kind == "embed":
+                    ids = torch.from_numpy(np.asarray(st.tok_hist[b][-1])[..., None])
+                    x = llama.embed(params, ids.to(self.device), self.dtype, mcfg)
+                elif kind == "decoders":
+                    keys = [("kv", shard_pos, li0 + li, b) for li in range(len(params))]
+                    kvs = [st.kv_store.get(key) for key in keys]
+                    x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs, x,
+                                        prefix_len, suffix_eos, t, self._sliding, self._rope_on)
+                    for key, kv in zip(keys, kvs):
+                        st.kv_store.put(key, kv)
+                    li0 += len(params)
+                elif kind == "norm":
+                    st.norm_p = params  # applied in the head shard
+                else:  # head
+                    assert st.norm_p is not None
+                    dist = decode_norm_head(mcfg, st.norm_p, params, x).to("cpu").numpy()
+                    st.scores[b].append(dist)
+                    st.tok_hist[b].append(np.argmax(dist, axis=-1))
+            if layer_idxs[-1] != self._n_layers - 1:
+                st.kv_store.put(("x", b), x)
+
+    # -- after each sweep --------------------------------------------------
+
+    def _post_sweep(self, sweep_wall_s: float) -> None:
+        now = time.monotonic()
+        emitted = 0
+        for wave in self.batcher.waves:
+            prefilled = wave.steps == 0
+            wave.steps += 1
+            st = wave.state
+            if prefilled:
+                self.metrics.count("prefills")
+                if self._kv_pool is not None and st is not None:
+                    # The prefill completed: seal each freshly prefilled
+                    # entry, reusable by later waves from here on.
+                    for i, handle in st.pool_handles.items():
+                        if st.loc[i][0] not in st.reuse_blocks:
+                            self._kv_pool.seal(handle)
+            for r in wave.requests:
+                if r.status.terminal:
+                    continue
+                if prefilled and r.first_token_at is None:
+                    r.first_token_at = now
+                    self.metrics.observe_ttft(now - r.arrival, r.slo_class)
+                if r.tokens_emitted < r.max_new_tokens:
+                    r.tokens_emitted += 1
+                    emitted += 1
+                if r.tokens_emitted >= r.max_new_tokens:
+                    self._resolve(wave, r)
+        self.metrics.count("sweeps")
+        self._slo.maybe_check()
+        if emitted:
+            self.metrics.count("tokens_emitted", emitted)
+            self.metrics.observe_token_latency(sweep_wall_s)
+        for w in self.batcher.retire_done():
+            if w.state is not None:
+                w.state.kv_store.clear()
+                self._release_pool_handles(w.state)
+
+    def _resolve(self, wave: Wave, r: Request) -> None:
+        st: _WaveState = wave.state
+        e_idx, s_off, s_cnt = wave.locate(r)
+        b, row = st.loc[e_idx]
+        n = r.max_new_tokens
+        scores = np.stack([st.scores[b][t][row, s_off:s_off + s_cnt] for t in range(n)], axis=1)
+        tokens = np.stack([st.tok_hist[b][t][row, s_off:s_off + s_cnt] for t in range(n)], axis=1)
+        updated = (r.prefix, tuple(s + self.raw_tokenizer.decode(tokens[s_i])
+                                   for s_i, s in enumerate(r.suffixes)))
+        latency = time.monotonic() - r.arrival
+        if r.resolve(scores, updated, tokens):
+            self.metrics.count("completed")
+            self.metrics.observe_request_latency(latency, r.slo_class)
+
+
+__all__ = ["ServeEngine"]

@@ -1,0 +1,216 @@
+"""Requests of the serving engine and their typed outcomes (the JAX
+package's ``serve/request.py``, single engine).
+
+A request is one (prefix, suffixes) prompt, the shape of the batch CLI's
+pickle entries, with a token budget and an optional admission deadline. Its
+status moves QUEUED -> ACTIVE -> DONE, or to one of the terminal rejection,
+expiry, failure and cancellation states; the queue, the batcher and the
+engine each make the transitions they own. Every terminal transition is
+first-wins (``ServeFuture.claim``) and fires the request's callback once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import itertools
+import threading
+import time
+from typing import Any, Callable
+
+import numpy as np
+
+Prompt = tuple[str, tuple[str, ...]]
+
+_REQUEST_IDS = itertools.count()
+
+
+class RequestStatus(enum.Enum):
+    QUEUED = "queued"      # accepted by the admission queue, waiting
+    ACTIVE = "active"      # admitted into a wave (prefill or decode)
+    DONE = "done"          # all tokens emitted; result resolved
+    REJECTED = "rejected"  # backpressure: queue full at submit time
+    EXPIRED = "expired"    # deadline passed before admission
+    FAILED = "failed"      # engine error while the request was in flight
+    CANCELLED = "cancelled"  # shutdown without drain while still queued
+
+    @property
+    def terminal(self) -> bool:
+        return self not in (RequestStatus.QUEUED, RequestStatus.ACTIVE)
+
+
+class QueueFull(RuntimeError):
+    """Backpressure: the admission queue was at capacity. The message names
+    the capacity and the depth."""
+
+
+class RequestTooLarge(RuntimeError):
+    """The request's estimated prompt tokens plus its budget exceed
+    ``ServeConfig.max_request_tokens``; raised at submit, before the request
+    can join a wave and fail it at allocation."""
+
+
+class DeadlineExceeded(RuntimeError):
+    """The request's admission deadline passed while it was queued."""
+
+
+class ServeClosed(RuntimeError):
+    """Submit after shutdown, or a queued request cancelled by a shutdown
+    without drain."""
+
+
+class WaveAborted(RuntimeError):
+    """The request's wave was aborted by a recoverable engine fault (a
+    shard load that failed for good, a stalled sweep the watchdog aborted):
+    only the waves in flight fail, ``__cause__`` holds the fault, and the
+    engine restarts its weight source and keeps serving. Resubmit."""
+
+
+@dataclasses.dataclass
+class RequestResult:
+    """A served completion: the batch CLI's per-prompt contract
+    (``scores`` float32 [n_suffixes, n_tokens, vocab]; ``updated`` the prompt
+    with the generated text appended to each suffix; ``tokens`` the emitted
+    ids [n_suffixes, n_tokens]) plus its timings."""
+
+    request_id: int
+    scores: np.ndarray
+    updated: Prompt
+    tokens: np.ndarray
+    ttft_s: float       # submit -> first token
+    latency_s: float    # submit -> completion
+    queue_wait_s: float  # submit -> admission
+
+
+class ServeFuture:
+    """The future the engine resolves per request. ``result(timeout)``
+    returns the :class:`RequestResult` or raises the request's terminal
+    error. ``claim()`` hands exactly one resolver the right to finish it."""
+
+    def __init__(self) -> None:
+        self._event = threading.Event()
+        self._claim_lock = threading.Lock()
+        self._claimed = False  # guarded by: _claim_lock
+        self._result: RequestResult | None = None
+        self._error: BaseException | None = None
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def claim(self) -> bool:
+        """First-wins terminal claim: True for exactly one caller, who must
+        then call ``finish_result`` or ``finish_error``."""
+        with self._claim_lock:
+            if self._claimed:
+                return False
+            self._claimed = True
+            return True
+
+    def finish_result(self, result: RequestResult) -> None:
+        self._result = result
+        self._event.set()
+
+    def finish_error(self, error: BaseException) -> None:
+        self._error = error
+        self._event.set()
+
+    def result(self, timeout: float | None = None) -> RequestResult:
+        if not self._event.wait(timeout):
+            raise TimeoutError("request not finished")
+        if self._error is not None:
+            raise self._error
+        assert self._result is not None
+        return self._result
+
+    def exception(self, timeout: float | None = None) -> BaseException | None:
+        if not self._event.wait(timeout):
+            raise TimeoutError("request not finished")
+        return self._error
+
+
+@dataclasses.dataclass
+class Request:
+    """One request plus its serving state.
+
+    ``deadline``: absolute monotonic instant by which it must be admitted
+    (None = none). ``slo_class``/``tenant_id``: the scheduler's labels,
+    validated at submit and inert while the scheduler is off.
+    ``client_id``: the caller's own id, echoed in the JSONL replies.
+    ``tokens_emitted``: tokens served per suffix so far."""
+
+    prefix: str
+    suffixes: tuple[str, ...]
+    max_new_tokens: int
+    deadline: float | None = None
+    callback: Callable[["Request"], Any] | None = None
+    slo_class: str = "standard"
+    tenant_id: str = "default"
+    client_id: Any = None
+    request_id: int = dataclasses.field(default_factory=lambda: next(_REQUEST_IDS))
+    status: RequestStatus = RequestStatus.QUEUED
+    arrival: float = dataclasses.field(default_factory=time.monotonic)
+    admitted_at: float | None = None
+    first_token_at: float | None = None
+    finished_at: float | None = None
+    tokens_emitted: int = 0
+    future: ServeFuture = dataclasses.field(default_factory=ServeFuture)
+
+    def expired(self, now: float | None = None) -> bool:
+        return self.deadline is not None and (
+            now if now is not None else time.monotonic()
+        ) >= self.deadline
+
+    # Status and finished_at are set before the future resolves (a woken
+    # waiter never sees a stale status); the callback fires last.
+
+    def _fire_callback(self) -> None:
+        if self.callback is not None:
+            try:
+                self.callback(self)
+            except Exception:  # a callback's bug must not take down the serving loop
+                pass
+
+    def resolve(self, scores: np.ndarray, updated: Prompt, tokens: np.ndarray) -> bool:
+        """Terminal DONE transition. Returns whether this call won the
+        claim; callers gate their counters on it."""
+        if not self.future.claim():
+            return False
+        now = time.monotonic()
+        result = RequestResult(
+            request_id=self.request_id,
+            scores=scores,
+            updated=updated,
+            tokens=tokens,
+            ttft_s=(self.first_token_at or now) - self.arrival,
+            latency_s=now - self.arrival,
+            queue_wait_s=(self.admitted_at or self.arrival) - self.arrival,
+        )
+        self.status = RequestStatus.DONE
+        self.finished_at = now
+        self.future.finish_result(result)
+        self._fire_callback()
+        return True
+
+    def fail(self, error: BaseException, status: RequestStatus) -> bool:
+        """Terminal failure transition; the claim contract of ``resolve``."""
+        if not self.future.claim():
+            return False
+        self.status = status
+        self.finished_at = time.monotonic()
+        self.future.finish_error(error)
+        self._fire_callback()
+        return True
+
+
+__all__ = [
+    "DeadlineExceeded",
+    "Prompt",
+    "QueueFull",
+    "Request",
+    "RequestResult",
+    "RequestStatus",
+    "RequestTooLarge",
+    "ServeClosed",
+    "ServeFuture",
+    "WaveAborted",
+]

@@ -1,12 +1,20 @@
 """Counters of the weight stream's fault handling (the JAX package's
 ``utils/metrics.py`` ``RetryRecorder`` and ``IntegrityRecorder``), the
-host's resident memory, and the analytic model sizes and device memory that
+host's resident memory, the analytic model sizes and device memory that
 the decode gates judge residency by (``param_count``,
-``weight_bytes_per_chip``, ``chip_hbm_gb``)."""
+``weight_bytes_per_chip``, ``chip_hbm_gb``), and the serving engine's
+metrics (``ServingMetrics``, ``assemble_serve_stats``) and stall watchdog
+(``StepWatchdog``)."""
 
 from __future__ import annotations
 
+import json
+import sys
 import threading
+import time
+from collections import deque
+
+import numpy as np
 
 
 class RetryRecorder:
@@ -171,9 +179,292 @@ def param_count(cfg) -> int:
     return int(total)
 
 
+# SLO class names (``serve/sched/classes.py``'s, in priority order) for the
+# per-class latency windows, pre-seeded so every class reports.
+SLO_CLASS_NAMES = ("interactive", "standard", "best_effort")
+
+# The registry sources the serve stats line lays out by name; any other
+# source appears nested when it carries a nonzero number.
+_SERVE_CORE_SOURCES = ("serve", "io_retries", "integrity", "host_cache", "residency")
+
+
+def _latency_summary(samples: list[float]) -> dict[str, float]:
+    """{count, mean, p50, p95, p99, max} in seconds of a sample list."""
+    if not samples:
+        return {"count": 0}
+    arr = np.asarray(samples, np.float64)
+    return {
+        "count": int(arr.size),
+        "mean": round(float(arr.mean()), 4),
+        "p50": round(float(np.percentile(arr, 50)), 4),
+        "p95": round(float(np.percentile(arr, 95)), 4),
+        "p99": round(float(np.percentile(arr, 99)), 4),
+        "max": round(float(arr.max()), 4),
+    }
+
+
+def assemble_serve_stats(collected: dict) -> dict:
+    """One serve stats line from the sources' snapshots (the JAX package's
+    layout): the ``serve`` counters at the top, retries and nonzero
+    integrity counters nested, the host cache and residency tier nested with
+    their headline keys lifted, then every other source with a nonzero
+    number."""
+    out: dict = {"event": "serve_stats"}
+    out.update(collected.get("serve", {}))
+    retries = collected.get("io_retries")
+    if retries:
+        out["io_retries"] = retries
+    integrity = collected.get("integrity")
+    if integrity and any(integrity.values()):
+        out["integrity"] = integrity
+    cache = collected.get("host_cache")
+    if cache is not None:
+        if "hit_rate" in cache:
+            out["host_cache_hit_rate"] = cache["hit_rate"]
+        out["host_cache"] = cache
+    res = collected.get("residency")
+    if res is not None:
+        if "pinned_bytes" in res:
+            out["pinned_bytes"] = res["pinned_bytes"]
+        if "stream_bytes_saved" in res:
+            out["stream_bytes_saved"] = res["stream_bytes_saved"]
+        out["residency"] = res
+    for name in sorted(collected):
+        if name in _SERVE_CORE_SOURCES:
+            continue
+        snap = collected[name]
+        if any(isinstance(v, (int, float)) and v for v in snap.values()):
+            out[name] = snap
+    return out
+
+
+class ServingMetrics:
+    """Counters, gauges and latency windows of the serving engine (the JAX
+    package's ``ServingMetrics``; thread-safe: submitters, the engine's
+    thread and callbacks all touch it).
+
+    Counters (pre-seeded at 0): admitted, rejected, expired, cancelled,
+    completed, failed, prefills, prefix_prefill_tokens and
+    prefix_reuse_tokens (prefix tokens prefilled / served from pooled
+    pages), sweeps, tokens_emitted, engine_recoveries, waves_aborted,
+    source_restarts, watchdog_stalls. Gauges: queue_depth,
+    active_requests, active_waves. Latency windows of the newest
+    ``sample_window`` samples: TTFT and per-token latency, and TTFT and
+    request latency per SLO class.
+
+    Sources registered by name (``register``) make the stats line
+    (``snapshot``): this object's own under ``serve``, the retry and
+    integrity recorders, and what the engine attaches (host cache,
+    residency tier, watchdog, SLO tracker, KV pool). The JAX package also
+    mirrors them into a process registry behind a metrics endpoint, which
+    is not ported (``--metrics_port`` raises)."""
+
+    KNOWN_COUNTERS = (
+        "admitted", "rejected", "expired", "cancelled", "completed", "failed", "prefills",
+        "prefix_prefill_tokens", "prefix_reuse_tokens", "sweeps", "tokens_emitted",
+        "engine_recoveries", "waves_aborted", "source_restarts", "watchdog_stalls",
+    )
+
+    def __init__(self, sample_window: int = 4096) -> None:
+        self._lock = threading.Lock()
+        self._counters: dict[str, int] = {k: 0 for k in self.KNOWN_COUNTERS}
+        self._gauges: dict[str, float] = {}
+        self._ttft: deque[float] = deque(maxlen=sample_window)
+        self._token_lat: deque[float] = deque(maxlen=sample_window)
+        self._ttft_class = {c: deque(maxlen=sample_window) for c in SLO_CLASS_NAMES}
+        self._latency_class = {c: deque(maxlen=sample_window) for c in SLO_CLASS_NAMES}
+        self._last_emit = 0.0
+        self.retries = RetryRecorder()
+        self.integrity = IntegrityRecorder()
+        self._sources: dict[str, object] = {}
+        self._host_cache = None
+        self._residency = None
+        self.register("serve", self._core_snapshot)
+        self.register("io_retries", self.retries.snapshot)
+        self.register("integrity", self.integrity.snapshot)
+
+    def register(self, name: str, source) -> None:
+        """Add (or replace) a stats source: a no-argument callable returning
+        a dict."""
+        with self._lock:
+            self._sources[name] = source
+
+    def unregister(self, name: str) -> None:
+        with self._lock:
+            self._sources.pop(name, None)
+
+    def collect(self) -> dict:
+        """Every source's snapshot, by name."""
+        with self._lock:
+            sources = dict(self._sources)
+        return {name: fn() for name, fn in sources.items()}
+
+    @property
+    def host_cache(self):
+        return self._host_cache
+
+    @host_cache.setter
+    def host_cache(self, cache) -> None:
+        self._host_cache = cache
+        if cache is not None:
+            self.register("host_cache", cache.stats)
+        else:
+            self.unregister("host_cache")
+
+    @property
+    def residency(self):
+        return self._residency
+
+    @residency.setter
+    def residency(self, tier) -> None:
+        self._residency = tier
+        if tier is not None:
+            self.register("residency", tier.stats)
+        else:
+            self.unregister("residency")
+
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def gauge(self, name: str, value: float) -> None:
+        with self._lock:
+            self._gauges[name] = value
+
+    def observe_ttft(self, seconds: float, slo_class: str | None = None) -> None:
+        with self._lock:
+            self._ttft.append(seconds)
+            if slo_class is not None:
+                self._ttft_class.setdefault(slo_class, deque(maxlen=self._ttft.maxlen)).append(
+                    seconds)
+
+    def observe_request_latency(self, seconds: float, slo_class: str | None = None) -> None:
+        """Submit-to-completion latency, per SLO class."""
+        if slo_class is None:
+            return
+        with self._lock:
+            self._latency_class.setdefault(slo_class, deque(maxlen=self._ttft.maxlen)).append(
+                seconds)
+
+    def observe_token_latency(self, seconds: float) -> None:
+        with self._lock:
+            self._token_lat.append(seconds)
+
+    def ttft_class_samples(self, slo_class: str) -> list[float]:
+        with self._lock:
+            d = self._ttft_class.get(slo_class)
+            return list(d) if d is not None else []
+
+    def token_latency_samples(self) -> list[float]:
+        with self._lock:
+            return list(self._token_lat)
+
+    def counter(self, name: str) -> int:
+        with self._lock:
+            return self._counters.get(name, 0)
+
+    def _core_snapshot(self) -> dict:
+        with self._lock:
+            return {
+                **{k: v for k, v in sorted(self._counters.items())},
+                **{k: v for k, v in sorted(self._gauges.items())},
+                "ttft_s": _latency_summary(list(self._ttft)),
+                "token_latency_s": _latency_summary(list(self._token_lat)),
+                "ttft_by_class": {c: _latency_summary(list(d))
+                                  for c, d in sorted(self._ttft_class.items())},
+                "latency_by_class": {c: _latency_summary(list(d))
+                                     for c, d in sorted(self._latency_class.items())},
+            }
+
+    def snapshot(self) -> dict:
+        return assemble_serve_stats(self.collect())
+
+    def emit(self) -> None:
+        print(json.dumps(self.snapshot()), file=sys.stderr, flush=True)
+
+    def maybe_emit(self, interval_s: float) -> bool:
+        """Print the stats line to stderr if ``interval_s`` passed since the
+        last one (0 = never). Returns whether it printed."""
+        if not interval_s:
+            return False
+        now = time.monotonic()
+        with self._lock:
+            if now - self._last_emit < interval_s:
+                return False
+            self._last_emit = now
+        self.emit()
+        return True
+
+
+class StepWatchdog:
+    """Step-progress watchdog with an abort action (the JAX package's).
+
+    ``arm(token)`` before a monitored phase, ``tick()`` at every unit of
+    progress, ``disarm()`` when it completes. An armed phase that goes
+    ``abort_s`` without a tick fires ``on_stall(idle_s, token)`` once, from
+    the watchdog's thread, with the token its own armed period captured
+    (the serving engine passes its weight source, so a late callback can
+    never abort a replacement), and disarms itself. ``on_stall`` must not
+    block."""
+
+    def __init__(self, desc: str, abort_s: float, on_stall, poll_s=None):
+        if abort_s <= 0:
+            raise ValueError("abort_s must be > 0")
+        self._desc = desc
+        self._abort_s = abort_s
+        self._on_stall = on_stall
+        self._poll_s = poll_s if poll_s is not None else max(abort_s / 4, 0.01)
+        self._armed = False
+        self._token = None
+        self._last = time.monotonic()
+        self.stalls = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+
+    def _watch(self) -> None:
+        while not self._stop.wait(self._poll_s):
+            if not self._armed:
+                continue
+            idle = time.monotonic() - self._last
+            if idle < self._abort_s:
+                continue
+            token = self._token  # before anything that can block
+            self._armed = False
+            self.stalls += 1
+            print(f"[stall] '{self._desc}' made no progress for {idle:.1f}s — aborting for "
+                  "recovery", file=sys.stderr, flush=True)
+            try:
+                self._on_stall(idle, token)
+            except Exception:  # recovery is best-effort; the watchdog must survive
+                pass
+
+    def stats(self) -> dict[str, int]:
+        return {"stalls": self.stalls}
+
+    def arm(self, token=None) -> None:
+        self._token = token
+        self._last = time.monotonic()
+        self._armed = True
+
+    def tick(self) -> None:
+        self._last = time.monotonic()
+
+    def disarm(self) -> None:
+        self._armed = False
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+
+
 __all__ = [
     "IntegrityRecorder",
     "RetryRecorder",
+    "SLO_CLASS_NAMES",
+    "ServingMetrics",
+    "StepWatchdog",
+    "assemble_serve_stats",
     "chip_hbm_gb",
     "has_moe_layers",
     "host_rss_gib",

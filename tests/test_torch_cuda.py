@@ -754,3 +754,110 @@ def test_score_sink_copies_on_a_side_stream_without_a_wait_per_block(gen, tmp_pa
             assert waits.count(False) == n_blocks - 1
     for a, b in zip(out[16], out[1]):
         assert np.array_equal(a, b)
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    return tree.to("cuda")
+
+
+@pytest.mark.parametrize("name", list(_DECODE_MODELS))
+def test_suffix_only_layer_equals_the_full_layers_suffix_stream_in_bf16(gen, tmp_path, name):
+    """The serving pool's reuse path: fed the full layer's own post-rope
+    prefix KV, the suffix-only layer gives the suffix output and suffix KV
+    of ``prefix_suffix_layer`` bit for bit, through the same
+    prefix-shared kernel (one launch each)."""
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.models import llama
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import load_layer
+
+    model_dir = _decode_model(tmp_path, name)
+    cfg = LlamaConfig.from_pretrained(model_dir)
+    sliding, rope_on = llama.layer_sliding_pattern(cfg), llama.layer_rope_pattern(cfg)
+    b, lp, s, ls = 2, 64, 3, 32
+    ph = _rnd(gen, torch.bfloat16, b, lp, cfg.hidden_size)
+    sh = _rnd(gen, torch.bfloat16, b, s, ls, cfg.hidden_size)
+    plen = torch.tensor([64, 23], dtype=torch.int32, device="cuda")
+    for i in range(cfg.num_hidden_layers):
+        layer = _to_cuda(load_layer(model_dir, f"model.layers.{i}"))
+        kw = dict(sliding=sliding[i], rope_on=rope_on[i])
+        fa.reset_launch_counts()
+        _, s_out, kv = llama.prefix_suffix_layer(layer, cfg, ph, sh, plen, return_kv=True, **kw)
+        out, kv_s = llama.suffix_only_layer(layer, cfg, kv["kp"], kv["vp"], sh, plen, **kw)
+        torch.cuda.synchronize()
+        assert fa.launch_counts()["flash_prefix_shared_attention"] == 2
+        assert torch.equal(out, s_out)
+        assert torch.equal(kv_s["ks"], kv["ks"]) and torch.equal(kv_s["vs"], kv["vs"])
+
+
+def test_serve_engine_worker_thread_launches_the_three_kernels(gen, tmp_path):
+    """A bf16 engine on cuda:0: its worker thread launches the causal and
+    prefix-shared kernels for the first round's prefills, the prefix-shared
+    kernel alone for the second round's (every wave reuses sealed pool
+    entries) and the decode kernel for every decode sweep; both rounds'
+    scores are equal bit for bit."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, ServeConfig
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
+    from flexible_llm_sharding_tpu_torch.serve import ServeEngine
+
+    kvpool.reset_process_pools()
+    model_dir = _decode_model(tmp_path, "llama")
+    cfg = FrameworkConfig(model_path=model_dir, dtype="bfloat16", block_size=2,
+                          decode_resident="on", disk_folder=str(tmp_path / "d"))
+    engine = ServeEngine(cfg, ServeConfig(max_wave_requests=1, default_max_new_tokens=4),
+                         tokenizer=_WordTokenizer(), device=torch.device("cuda:0"))
+    try:
+        fa.reset_launch_counts()
+        first = [engine.submit(p, sfx) for p, sfx in _DECODE_PROMPTS]
+        first = [r.future.result(timeout=300) for r in first]
+        counts_first = fa.launch_counts()
+        second = [engine.submit(p, sfx) for p, sfx in _DECODE_PROMPTS]
+        second = [r.future.result(timeout=300) for r in second]
+        counts = fa.launch_counts()
+        stats = engine.stats()
+    finally:
+        engine.shutdown(drain=True)
+        kvpool.reset_process_pools()
+    assert engine.error is None
+    n, layers = len(_DECODE_PROMPTS), 3
+    assert counts_first["flash_causal_attention"] == n * layers
+    assert counts["flash_causal_attention"] == n * layers  # the second round prefilled no prefix
+    assert counts["flash_prefix_shared_attention"] == 2 * n * layers
+    assert counts["flash_decode_attention"] == 2 * n * layers * 3
+    assert stats["kvpool"]["prefix_reuse_hits"] == n
+    for a, b in zip(first, second):
+        assert a.updated == b.updated and np.array_equal(a.scores, b.scores)
+
+
+def test_serve_engine_kernel_library_failure_is_engine_fatal(gen, tmp_path, monkeypatch):
+    """A kernel library that fails to build or load (an ``OSError`` from
+    ``ctypes`` or the compiler's files) stops the engine through ``_fatal``
+    before the first sweep: it is never taken for a recoverable sweep
+    fault, and the queued request fails instead of being served."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, ServeConfig
+    from flexible_llm_sharding_tpu_torch.ops import cuda_build
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
+    from flexible_llm_sharding_tpu_torch.serve import ServeEngine
+    from flexible_llm_sharding_tpu_torch.serve.request import ServeClosed
+
+    def broken_library():
+        raise OSError("cannot open shared object file")
+
+    kvpool.reset_process_pools()
+    monkeypatch.setattr(cuda_build, "library", broken_library)
+    model_dir = _decode_model(tmp_path, "llama")
+    cfg = FrameworkConfig(model_path=model_dir, dtype="bfloat16", block_size=2,
+                          decode_resident="on", disk_folder=str(tmp_path / "d"))
+    engine = ServeEngine(cfg, ServeConfig(default_max_new_tokens=2), tokenizer=_WordTokenizer(),
+                         device=torch.device("cuda:0"), start=False)
+    req = engine.submit(*_DECODE_PROMPTS[0])
+    try:
+        engine.start()
+        assert engine.shutdown(drain=True, timeout=120)
+    finally:
+        kvpool.reset_process_pools()
+    assert isinstance(engine.error, OSError)
+    with pytest.raises(ServeClosed):
+        req.future.result(timeout=1)
+    assert engine.stats().get("engine_recoveries", 0) == 0
