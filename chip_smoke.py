@@ -37,7 +37,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              prompts; DeepSeek-V3's 128 MLA heads, the scoring kernels;
              Llama-4-Scout's 40 query heads over 8 KV heads, a GQA group of
              5, on its NoPE layer and with its 8192-token chunk, which the
-             decode kernel applies),
+             decode kernel applies; and the serving slice's two shapes, each
+             checked and timed on its one kernel: the draft model's causal
+             call, one context of 576 positions over TinyLlama-1.1B's 32/4
+             heads of 64, and a coalesced entry's 8 suffixes over one
+             576-token prefix on the prefix-shared kernel),
              and every kernel and its yardstick at a
              4096-token prefix with one prompt (device time from CUDA events
              around back-to-back calls queued behind a spin kernel, so the
@@ -61,7 +65,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              (requantize_native) through both loops, card against CPU:
              scores within 1e-4, tokens equal; and on the llama checkpoint
              the ``serve`` subcommand (demo mode, waves of 2) on the card
-             against the same on the CPU: tokens equal, scores within 1e-4.
+             against the same on the CPU: tokens equal, scores within 1e-4;
+             and on the llama and gemma3 checkpoints ``serve`` on the card
+             against a run it must equal (tokens equal, scores within
+             1e-4): --speculative_k 4 by prompt lookup, by a reduced seeded
+             draft model of the same vocabulary and by that draft with
+             --spec_adaptive, each against --speculative_k 0; --sched with
+             6 requests of 2 prefixes coalesced into 2 prefills against the
+             same requests one per wave; and --sched with a best-effort
+             request preempted by an interactive one against its
+             uninterrupted run.
 5. full    — seeded bf16 checkpoints at full width through the CLI, one
              layer per shard so every layer streams: Llama-2-7B (4 decoder
              layers; scoring with --num_gen_token 4, then --kv_cache with
@@ -139,7 +152,30 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              per-token latency, queue depth after submission, pool pages
              and bytes and peak memory, beside the card's name and power
              limit; the served runs' launches are the ``llama2_7b_serve``
-             path.
+             path. Then the scheduler's runs (the ``llama2_7b_serve_sched``
+             path): --sched on the 8 prompts (one tenant, class standard)
+             must give the default engine's scores bit for bit; 2 prefixes
+             of 512 words shared by 4 requests each (2 suffixes of 32),
+             --sched --max_wave_requests 4, must coalesce all 8 requests
+             into 2 prefills with prefix-KV bytes saved and call the
+             prefix-shared kernel at S 8 only; through the JSONL frontend,
+             4 best-effort requests and, once all four are in flight, 2
+             interactive ones (--max_active_requests 4, waves of 2) must
+             preempt at least once and complete all six (printing the
+             interactive TTFT against sched_parity's and how many resumed
+             best-effort tokens differ from the default run's: bf16 bits
+             may move in the resumed prefill). Then speculation (the
+             ``llama2_7b_serve_spec`` path, where decode is the verify
+             pass's plain op, so the decode kernel is not on it): the 8
+             prompts with --speculative_k 4 (prompt lookup), printing its
+             verify passes, drafted and accepted tokens; then with a
+             seeded bf16 draft checkpoint at TinyLlama-1.1B's published
+             widths (22 layers, 2.2 GB), --spec_adaptive --spec_k_min 0
+             --spec_k_max 4: the draft's pinned bytes must equal its
+             payload, the target must stream what the lookup run streamed,
+             and the causal kernel must launch once per draft layer per
+             draft token beyond the prefills; it prints the draft's pin
+             load and drafting seconds.
    resume  — after the quant phase, on the 4-layer Llama-2-7B cell with
              --storage_location disk: a CLI process (each shard started
              one second late) killed with SIGKILL once its marker reads 2
@@ -667,10 +703,11 @@ def _bounds(case: dict) -> dict[str, tuple[float, str]]:
     return out
 
 
-def time_case(case: dict, gen, plain_calls: int = 20) -> dict[str, dict]:
+def time_case(case: dict, gen, plain_calls: int = 20, kernels=None) -> dict[str, dict]:
     """Kernel, plain and library times at the case's shapes and local form
-    (bf16). The library time is one SDPA call on inputs its yardstick built
-    beforehand; ``plain_calls`` calls per round time the plain version."""
+    (bf16), for every kernel or those named in ``kernels``. The library time
+    is one SDPA call on inputs its yardstick built beforehand;
+    ``plain_calls`` calls per round time the plain version."""
     import torch.nn.functional as F
 
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
@@ -681,6 +718,8 @@ def time_case(case: dict, gen, plain_calls: int = 20) -> dict[str, dict]:
     out = {}
     chunk = case.get("plain_head_chunk")
     for kernel, (args, kw) in _calls(x, None, local).items():
+        if kernels is not None and kernel not in kernels:
+            continue
         sdpa = YARDSTICKS[kernel](*args, **local)
         out[kernel] = {
             "ms": _device_ms(lambda: getattr(fa, kernel)(*args, **kw)),
@@ -741,6 +780,36 @@ def main_path_case(prompts, n_gen_kv: int, nq: int = 32, nkv: int = 32, hd: int 
     }
 
 
+def coalesce_prompts():
+    """The coalesced entries of the coalescing run: two 512-word prefixes,
+    each with the 8 suffixes of 32 words its 4 requests bring."""
+    return make_prompts(2, 512, 8, 32, seed=5)
+
+
+def coalesce_requests():
+    """The coalescing run's requests: each entry's 4 requests of 2 suffixes,
+    the first prefix's four first."""
+    return [(p, sfx[i:i + 2]) for p, sfx in coalesce_prompts() for i in range(0, 8, 2)]
+
+
+def draft_path_case(prompts, n_gen_kv: int) -> dict:
+    """The draft model's causal call on the serve path: one context (B 1) of
+    a prompt's prefix, one suffix and its tokens so far, right-padded to the
+    next multiple of 64 (``DRAFT_PAD_MULTIPLE``), the valid length all of it;
+    TinyLlama-1.1B's heads."""
+    from flexible_llm_sharding_tpu_torch.runtime.draft import DRAFT_PAD_MULTIPLE
+    from flexible_llm_sharding_tpu_torch.runtime.tokenization import PromptTokenizer
+
+    tp = PromptTokenizer(BenchTokenizer())(*prompts[0])
+    n = tp.prefix_len + int(tp.suffix_eos.max()) + 1 + n_gen_kv
+    lp = -(-n // DRAFT_PAD_MULTIPLE) * DRAFT_PAD_MULTIPLE
+    hd = TINYLLAMA_1_1B["hidden_size"] // TINYLLAMA_1_1B["num_attention_heads"]
+    return {"B": 1, "S": 1, "Ls": 64, "Lp": lp, "T": 1, "t": 0,
+            "nq": TINYLLAMA_1_1B["num_attention_heads"],
+            "nkv": TINYLLAMA_1_1B["num_key_value_heads"], "hd": hd, "hd_v": hd,
+            "plen": [lp], "eos": [[0]]}
+
+
 def check_mla_cases(case, gen) -> None:
     """The scoring kernels at MLA's (qk 192, v 128), against their plain
     versions: 16 and 8 heads (GQA 1, as the model runs them), softcap, every
@@ -776,7 +845,8 @@ def check_mla_cases(case, gen) -> None:
 
 
 def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_case: dict,
-                  mla_case: dict, scout_case: dict) -> dict[str, dict]:
+                  mla_case: dict, scout_case: dict, draft_case: dict,
+                  coalesced_case: dict) -> dict[str, dict]:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rng = np.random.default_rng(5)
 
@@ -899,11 +969,25 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
                                  {**scout_case, "local": {"chunk": 8192}}, 4),
     }
     shape_errs = {key: check_case(name, c, torch.bfloat16, gen) for key, (name, c, _) in shapes.items()}
+    # The serving slice's shapes, each on the one kernel that meets it: the
+    # draft model's forward (TinyLlama-1.1B's 32 query heads over 4 KV heads
+    # of 64, one context) and a coalesced entry's 8 suffixes over one prefix.
+    serve_shapes = {  # record key: (name, case, kernel)
+        "tinyllama_draft": ("tinyllama-1.1b draft forward, GQA 32/4, hd 64", draft_case,
+                            "flash_causal_attention"),
+        "llama2_7b_coalesced_s8": ("llama2-7b coalesced entry, S 8", coalesced_case,
+                                   "flash_prefix_shared_attention"),
+    }
+    for key, (name, c, kernel) in serve_shapes.items():
+        shape_errs[key] = check_case(name, c, torch.bfloat16, gen, kernels=(kernel,))
     time_long_prefix(gen)
     timed = time_case(main_case, gen)
     # The plain versions at the Gemma shapes take tens of ms a call: fewer calls.
     shape_t = {key: time_case({**c, "name": name}, gen, plain_calls=n)
                for key, (name, c, n) in shapes.items()}
+    shape_t.update({key: time_case({**c, "name": name}, gen, kernels=(kernel,))
+                    for key, (name, c, kernel) in serve_shapes.items()})
+    shapes.update(serve_shapes)
     for k in timed:
         timed[k]["max_abs_err"] = errs[k]
         for key in shapes:
@@ -973,6 +1057,16 @@ LLAMA4_SCOUT_TEXT = {
     "tie_word_embeddings": False,
     "rope_scaling": {"rope_type": "llama3", "factor": 16.0, "low_freq_factor": 1.0,
                      "high_freq_factor": 1.0, "original_max_position_embeddings": 8192},
+}
+
+
+# TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T, config.json: a draft
+# model paired with Llama-2-7B (Llama 2's tokenizer), at full depth.
+TINYLLAMA_1_1B = {
+    "model_type": "llama", "hidden_size": 2048, "intermediate_size": 5632,
+    "num_hidden_layers": 22, "num_attention_heads": 32, "num_key_value_heads": 4,
+    "vocab_size": 32000, "max_position_embeddings": 2048, "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0, "tie_word_embeddings": False, "hidden_act": "silu",
 }
 
 
@@ -1283,10 +1377,114 @@ def cross_configs() -> dict:
             **{name: LlamaConfig.from_dict(d) for name, d in hf.items()}}
 
 
-# The cross-check models that also run speculative decode on the card, and
-# those whose int8 and int4 copies are cross-checked too.
+# The cross-check models that also run speculative decode on the card, those
+# whose int8 and int4 copies are cross-checked too, and those that serve with
+# the scheduler and speculation on the card.
 CROSS_SPECULATIVE = ("llama", "gemma3", "deepseek_v3", "llama4")
 CROSS_QUANTIZED = ("llama", "gemma3", "deepseek_v3", "llama4")
+CROSS_SERVE = ("llama", "gemma3")
+
+
+def _served_equal(tag: str, got, ref, atol: float = 1e-4) -> float:
+    """Served results (scores, tokens) against a reference run's: the same
+    tokens, scores within ``atol``; returns the largest score difference."""
+    if len(got) != len(ref):
+        fail(f"cross-check {tag}: {len(got)} results, {len(ref)} in the reference")
+    err = max(float(np.abs(g[0] - r[0]).max()) for g, r in zip(got, ref))
+    if any(not np.array_equal(g[1], r[1]) for g, r in zip(got, ref)) or err > atol:
+        fail(f"cross-check {tag}: tokens equal "
+             f"{all(np.array_equal(g[1], r[1]) for g, r in zip(got, ref))}, max_abs_err "
+             f"{err:.3e}")
+    return err
+
+
+def cross_serve(work: str, name: str, model_dir: str, prompts, draft_dir: str) -> None:
+    """Float32 ``serve`` on the card with speculation and the scheduler,
+    each against the run it must equal (see the module doc)."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, SchedConfig, ServeConfig
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
+    from flexible_llm_sharding_tpu_torch.serve import ServeEngine
+
+    args = ["--dtype", "float32", "--max_new_tokens", "6", "--block_size", "4",
+            "--max_wave_requests", "2", "--device", "cuda"]
+
+    def demo(tag, extra):
+        kvpool.reset_process_pools()
+        scores, updated, stats = run_serve(model_dir, work, f"cross_{name}_{tag}", prompts,
+                                           [*args, *extra], 512)
+        tokens = [np.asarray([[int(t) for t in row] for row in _new_tokens(u, p)])
+                  for u, p in zip(updated, prompts)]
+        return list(zip(scores, tokens)), stats
+
+    ref, _ = demo("spec_off", ["--speculative_k", "0"])
+    for tag, extra in (
+        ("lookup", ["--speculative_k", "4"]),
+        ("draft", ["--speculative_k", "4", "--draft_model_path", draft_dir]),
+        ("draft_adaptive", ["--speculative_k", "4", "--draft_model_path", draft_dir,
+                            "--spec_adaptive", "--spec_k_max", "4", "--spec_window", "2"]),
+    ):
+        got, stats = demo(tag, extra)
+        err = _served_equal(f"{name} serve {tag}", got, ref)
+        spec = stats.get("spec", {})
+        log(f"[cross] float32 {name} serve --speculative_k 4 ({tag}) on the card: the tokens of "
+            f"--speculative_k 0, max_abs_err {err:.3e}; drafted {spec.get('drafted_tokens')}, "
+            f"accepted {spec.get('accepted_tokens')}, sweeps {stats['sweeps']}")
+
+    def engine(sched: bool, **kw):
+        kvpool.reset_process_pools()
+        return ServeEngine(
+            FrameworkConfig(model_path=model_dir, dtype="float32", block_size=4, device="cuda"),
+            ServeConfig(default_max_new_tokens=6, sched=SchedConfig(enabled=sched), **kw),
+            tokenizer=BenchTokenizer(512), device=torch.device("cuda"), start=False)
+
+    def finish(e, reqs):
+        try:
+            out = [r.future.result(timeout=300) for r in reqs]
+        finally:
+            e.shutdown(drain=True)
+        if e.error is not None:
+            fail(f"cross-check {name} serve: engine failed: {e.error!r}")
+        return [(r.scores, r.tokens) for r in out], e
+
+    # Coalescing: two prefixes, three requests each, queued before the first
+    # boundary, against the same requests served one prompt per wave.
+    reqs = [(p, sfx[i:i + 2]) for p, sfx in make_prompts(2, 70, 6, 6, seed=4)
+            for i in range(0, 6, 2)]
+    e = engine(False, max_wave_requests=1)
+    ref = finish(e.start(), [e.submit(p, sfx) for p, sfx in reqs])[0]
+    e = engine(True, max_wave_requests=3)
+    submitted = [e.submit(p, sfx) for p, sfx in reqs]
+    got, e = finish(e.start(), submitted)
+    err = _served_equal(f"{name} serve --sched coalesced", got, ref)
+    sched = e.stats()["sched"]
+    if sched["coalesced_requests"] != len(reqs) or e.stats()["prefills"] != 2:
+        fail(f"cross-check {name} serve --sched: coalesced {sched['coalesced_requests']} of "
+             f"{len(reqs)} requests in {e.stats()['prefills']} prefills, want all in 2")
+    log(f"[cross] float32 {name} serve --sched, {len(reqs)} requests coalesced into 2 prefills: "
+        f"the tokens of one prompt per wave, max_abs_err {err:.3e}")
+
+    # Preemption: a best-effort request interrupted by an interactive one,
+    # against its uninterrupted run.
+    n_long = 8
+    e = engine(False, max_wave_requests=1)
+    ref = finish(e.start(), [e.submit(*prompts[0], max_new_tokens=n_long)])[0]
+    e = engine(True, max_wave_requests=1, max_active_requests=1).start()
+    victim = e.submit(*prompts[0], max_new_tokens=n_long, slo_class="best_effort",
+                      tenant_id="batch")
+    deadline = time.monotonic() + 300
+    while e.metrics.counter("prefills") < 1:
+        if time.monotonic() > deadline:
+            fail(f"cross-check {name} serve --sched: the best-effort request never prefilled")
+        time.sleep(0.002)
+    urgent = e.submit(*prompts[1], max_new_tokens=1, slo_class="interactive", tenant_id="live")
+    got, e = finish(e, [victim, urgent])
+    err = _served_equal(f"{name} serve --sched preempted", got[:1], ref)
+    preemptions = e.stats()["sched"]["preemptions"]
+    if preemptions < 1 or not urgent.finished_at < victim.finished_at:
+        fail(f"cross-check {name} serve --sched: {preemptions} preemptions, the interactive "
+             "request did not finish first")
+    log(f"[cross] float32 {name} serve --sched, best-effort request preempted {preemptions} "
+        f"time(s): the tokens of its uninterrupted run, max_abs_err {err:.3e}")
 
 
 def phase_cross(work: str) -> None:
@@ -1294,10 +1492,16 @@ def phase_cross(work: str) -> None:
     :func:`cross_configs`, and for the int8 and int4 copies of
     :data:`CROSS_QUANTIZED`; speculative decode on the card against plain
     --kv_cache for :data:`CROSS_SPECULATIVE`."""
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
     from flexible_llm_sharding_tpu_torch.runtime import kvpool
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native, save_params
 
     prompts = make_prompts(5, 70, 3, 6, seed=2) + make_prompts(2, 150, 2, 9, seed=3)
+    # The serve checks' draft: the cross models' vocabulary, 4 heads of 64.
+    draft_dir = os.path.join(work, "cross_draft")
+    draft_cfg = LlamaConfig(num_hidden_layers=2, vocab_size=512, hidden_size=256,
+                            intermediate_size=512, num_attention_heads=4, num_key_value_heads=1)
+    save_params(_init_params(draft_cfg, torch.float32, 13, "cpu"), draft_dir, draft_cfg)
     for name, cfg in cross_configs().items():
         name = name.replace(" ", "_")
         model_dir = os.path.join(work, f"cross_{name}")
@@ -1334,6 +1538,8 @@ def phase_cross(work: str) -> None:
                      f"were lost ({gpu_stats['completed']} of {len(prompts)} completed)")
             log(f"[cross] float32 {name} serve: card vs CPU max_abs_err {err:.3e}, tokens "
                 f"identical; card prefills {gpu_stats['prefills']}, sweeps {gpu_stats['sweeps']}")
+        if name in CROSS_SERVE:
+            cross_serve(work, name, model_dir, prompts, draft_dir)
         if name in CROSS_QUANTIZED:
             for dt in ("int8", "int4"):
                 qdir = os.path.join(work, f"cross_{name}_{dt}")
@@ -1894,19 +2100,114 @@ def _flip_bit(path: str, offset_from_end: int = 1001) -> None:
         f.write(bytes([byte[0] ^ 0x20]))
 
 
+@contextlib.contextmanager
+def watch_calls():
+    """Record, while inside, what the serve path hands the attention
+    wrappers (the query shape of every causal and prefix-shared call, as
+    ``models/llama.py`` makes them), every speculative verify pass
+    (``SpecVerifier.finish_pass``), and the draft model's construction and
+    drafting seconds (host clock, each ``propose`` ending in its picks on the
+    host). Observation only: every call goes through to the real one."""
+    from flexible_llm_sharding_tpu_torch.models import llama
+    from flexible_llm_sharding_tpu_torch.runtime import decode, draft
+
+    seen = {"causal": [], "prefix_shared": [], "verify_passes": 0, "draft_init_s": 0.0,
+            "draft_propose_s": 0.0}
+    real = (llama.flash_causal_attention, llama.flash_prefix_shared_attention,
+            decode.SpecVerifier.finish_pass, draft.DraftModel.__init__, draft.DraftModel.propose)
+
+    def causal(q, *a, **kw):
+        seen["causal"].append(tuple(q.shape))
+        return real[0](q, *a, **kw)
+
+    def prefix_shared(q, *a, **kw):
+        seen["prefix_shared"].append(tuple(q.shape))
+        return real[1](q, *a, **kw)
+
+    def finish_pass(self, dist):
+        seen["verify_passes"] += 1
+        return real[2](self, dist)
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                seen[key] += time.perf_counter() - t0
+        return call
+
+    llama.flash_causal_attention, llama.flash_prefix_shared_attention = causal, prefix_shared
+    decode.SpecVerifier.finish_pass = finish_pass
+    draft.DraftModel.__init__ = timed("draft_init_s", real[3])
+    draft.DraftModel.propose = timed("draft_propose_s", real[4])
+    try:
+        yield seen
+    finally:
+        llama.flash_causal_attention, llama.flash_prefix_shared_attention = real[:2]
+        decode.SpecVerifier.finish_pass = real[2]
+        draft.DraftModel.__init__, draft.DraftModel.propose = real[3:]
+
+
+def _new_tokens(updated: tuple, prompt: tuple) -> list[list[str]]:
+    """Per suffix, the generated token ids of a served run, from its text."""
+    return [re.findall(r" tok(\d+)", u[len(s):]) for u, s in zip(updated[1], prompt[1])]
+
+
+def serve_jsonl(model_dir: str, lines_before: list, lines_after: list, extra: list[str],
+                vocab: int, active_before: int) -> tuple[list, dict]:
+    """The ``serve`` JSONL frontend in-process: ``lines_before`` on stdin, then,
+    once ``active_before`` requests are in flight at the end of a sweep,
+    ``lines_after``. Returns the reply lines and the stats."""
+    import threading
+
+    from flexible_llm_sharding_tpu_torch import cli
+    from flexible_llm_sharding_tpu_torch.serve import engine as serve_engine
+
+    ready = threading.Event()
+    real = serve_engine.ServeEngine._post_sweep
+
+    def post_sweep(self, wall):
+        real(self, wall)
+        if self.batcher.active_requests >= active_before:
+            ready.set()
+
+    def stdin():
+        yield from (json.dumps(d) + "\n" for d in lines_before)
+        if not ready.wait(300):
+            fail(f"serve jsonl: {active_before} requests were never in flight together")
+        yield from (json.dumps(d) + "\n" for d in lines_after)
+
+    out = io.StringIO()
+    old_stdin = sys.stdin
+    serve_engine.ServeEngine._post_sweep = post_sweep
+    sys.stdin = stdin()
+    try:
+        with contextlib.redirect_stdout(out):
+            stats = cli.main(["serve", "--model_path", model_dir, "--stats_interval_s", "0",
+                              *extra], tokenizer=BenchTokenizer(vocab))
+    finally:
+        sys.stdin = old_stdin
+        serve_engine.ServeEngine._post_sweep = real
+    return [json.loads(x) for x in out.getvalue().splitlines() if x.strip()], stats
+
+
 def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -> dict:
     """The ``serve`` subcommand on the 4-layer Llama-2-7B cell (see the
     module doc): the batch CLI's --kv_cache --block_size 2 run as the
     reference, then the default engine, --decode_resident off and a
-    pool-reuse round of the prompts twice. Returns the served runs' kernel
-    launches."""
+    pool-reuse round of the prompts twice; then the scheduler's runs
+    (sched_parity, sched_coalesce, sched_preempt) and the speculative ones
+    (spec_lookup, spec_draft). Returns the kernel launches of the three
+    groups of runs by path name."""
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
     common = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda",
               "--block_size", "2"]
     serve_args = [*common, "--max_new_tokens", str(n_gen), "--max_wave_requests", "2"]
     n_layers = cfg.num_hidden_layers
-    launches: dict = {}
+    paths = {"llama2_7b_serve": {}, "llama2_7b_serve_sched": {}, "llama2_7b_serve_spec": {}}
 
     def same(a, b):
         return all(np.array_equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
@@ -1923,7 +2224,7 @@ def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -
         check_case(f"serve block of 2, pooled prefix KV of a {k}-layer stack", block,
                    torch.bfloat16, gen, kernels=pooled, pooled_layers=k)
 
-    def report(tag, stats, counts):
+    def report(tag, stats, counts, **more):
         pool = stats.get("kvpool", {})
         line = {
             "wall_s": stats["wall_s"], "tokens_per_sec": stats["tokens_per_sec"],
@@ -1935,25 +2236,26 @@ def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -
             "prefix_reuse_hits": pool.get("prefix_reuse_hits"),
             "admitted": stats["admitted"], "completed": stats["completed"],
             "prefills": stats["prefills"], "sweeps": stats["sweeps"],
+            "tokens_emitted": stats["tokens_emitted"],
             "streamed_bytes": stats["stream"]["streamed_bytes"],
-            "peak_mem_gb": stats.get("peak_mem_gb"), "kernels": counts,
+            "peak_mem_gb": stats.get("peak_mem_gb"), "kernels": counts, **more,
         }
         log(f"[serve] {tag} | {smi} | " + json.dumps(line))
 
-    def served(tag, pp, extra):
+    def served(tag, pp, extra, path="llama2_7b_serve", n_new=n_gen):
         fresh_process_state()
-        fa.reset_launch_counts()
-        scores, updated, stats = run_serve(model_dir, work, f"serve_{tag}", pp,
-                                           [*serve_args, *extra], cfg.vocab_size)
-        counts, local = fa.launch_counts(), fa.local_launch_counts()
-        _add_launches(launches, {k: {"launches": counts[k], "local_launches": local[k]}
-                                 for k in counts})
-        _check_scores(scores, pp, n_gen, cfg.vocab_size, f"serve {tag}")
+        with watch_calls() as seen:
+            fa.reset_launch_counts()
+            scores, updated, stats = run_serve(model_dir, work, f"serve_{tag}", pp,
+                                               [*serve_args, *extra], cfg.vocab_size)
+            counts, local = fa.launch_counts(), fa.local_launch_counts()
+        _add_launches(paths[path], {k: {"launches": counts[k], "local_launches": local[k]}
+                                    for k in counts})
+        _check_scores(scores, pp, n_new, cfg.vocab_size, f"serve {tag}")
         if stats["admitted"] != len(pp) or stats["completed"] != len(pp):
             fail(f"serve {tag}: admitted {stats['admitted']}, completed {stats['completed']} "
                  f"of {len(pp)}")
-        report(tag, stats, counts)
-        return scores, updated, stats, counts
+        return scores, updated, stats, counts, seen
 
     fresh_process_state()
     t0 = time.perf_counter()
@@ -1963,7 +2265,8 @@ def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -
     log(f"[serve] offline --kv_cache --block_size 2 | {smi} | wall "
         f"{time.perf_counter() - t0:.3f} s, " + json.dumps({k: ref_stats.get(k) for k in STAT_KEYS}))
 
-    scores, updated, stats, _ = served("default", prompts, [])
+    scores, updated, stats, counts, _ = served("default", prompts, [])
+    report("default", stats, counts)
     if not 2 <= stats["prefills"] < len(prompts) or stats["sweeps"] <= stats["prefills"]:
         fail(f"serve default: prefills {stats['prefills']}, sweeps {stats['sweeps']}: the waves "
              "did not join a run in progress")
@@ -1974,7 +2277,9 @@ def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -
     log("[serve] default: the offline --kv_cache --block_size 2 run's scores and tokens bit for "
         "bit")
 
-    streamed, streamed_up, s_stats, _ = served("streamed", prompts, ["--decode_resident", "off"])
+    streamed, streamed_up, s_stats, s_counts, _ = served("streamed", prompts,
+                                                         ["--decode_resident", "off"])
+    report("streamed", s_stats, s_counts)
     one_pass = payload_bytes(cfg)
     if not same(streamed, scores) or streamed_up != updated:
         fail("serve --decode_resident off: scores differ from the default engine's")
@@ -1984,7 +2289,8 @@ def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -
     log(f"[serve] --decode_resident off: the default engine's scores bit for bit, "
         f"{s_stats['stream']['streamed_bytes'] / one_pass:.2f} passes streamed")
 
-    twice, twice_up, t_stats, t_counts = served("pool_reuse", prompts + prompts, [])
+    twice, twice_up, t_stats, t_counts, _ = served("pool_reuse", prompts + prompts, [])
+    report("pool_reuse", t_stats, t_counts)
     n = len(prompts)
     reused = t_stats["kvpool"]["prefix_reuse_hits"]
     if reused < 1:
@@ -2000,10 +2306,136 @@ def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -
              "run the kernel")
     log(f"[serve] pool reuse: {reused} entries reused, the second round's scores bit for bit, "
         f"{extra_ps} prefix-shared launches on the suffix-only path")
-    missing = [k for k in fa.KERNELS if launches.get(k, {}).get("launches", 0) == 0]
-    if missing:
-        fail(f"serve: kernels never launched on the serving path: {missing}")
-    return launches
+
+    # -- the scheduler ------------------------------------------------------
+    sched_path = "llama2_7b_serve_sched"
+    par, par_up, p_stats, p_counts, _ = served("sched_parity", prompts, ["--sched"], sched_path)
+    report("sched_parity", p_stats, p_counts, sched=p_stats.get("sched"))
+    if not same(par, scores) or par_up != updated:
+        fail("serve --sched (one tenant, class standard): scores differ from the default "
+             "engine's")
+    log("[serve] sched_parity: the default engine's scores and tokens bit for bit")
+
+    reqs = coalesce_requests()
+    _, _, c_stats, c_counts, c_seen = served("sched_coalesce", reqs,
+                                             ["--sched", "--max_wave_requests", "4"], sched_path)
+    c_sched = c_stats.get("sched", {})
+    report("sched_coalesce", c_stats, c_counts, sched=c_sched)
+    ps_s = sorted({q[1] for q in c_seen["prefix_shared"]})
+    if (c_sched.get("coalesced_requests") != len(reqs) or c_stats["prefills"] != 2
+            or not c_sched.get("prefill_kv_bytes_saved", 0) > 0 or ps_s != [8]):
+        fail(f"serve sched_coalesce: coalesced_requests {c_sched.get('coalesced_requests')}, "
+             f"prefills {c_stats['prefills']}, prefill_kv_bytes_saved "
+             f"{c_sched.get('prefill_kv_bytes_saved')}, prefix-shared S {ps_s}: want 8, 2, > 0, "
+             "[8]")
+    log(f"[serve] sched_coalesce: {len(reqs)} requests in 2 prefills, "
+        f"{c_sched['prefill_kv_bytes_saved']} prefix-KV bytes saved, the prefix-shared kernel "
+        f"at S 8 ({len(c_seen['prefix_shared'])} calls)")
+
+    be = [{"id": f"be{i}", "prefix": p, "suffixes": list(sfx), "max_new_tokens": n_gen,
+           "slo_class": "best_effort", "tenant_id": "batch"} for i, (p, sfx) in
+          enumerate(prompts[:4])]
+    ia = [{"id": f"ia{i}", "prefix": p, "suffixes": list(sfx), "max_new_tokens": n_gen,
+           "slo_class": "interactive", "tenant_id": "live"} for i, (p, sfx) in
+          enumerate(prompts[4:6])]
+    fresh_process_state()
+    fa.reset_launch_counts()
+    replies, pr_stats = serve_jsonl(
+        model_dir, be, ia, [*serve_args, "--sched", "--max_active_requests", "4",
+                            "--max_wave_requests", "2"], cfg.vocab_size, active_before=4)
+    counts, local = fa.launch_counts(), fa.local_launch_counts()
+    _add_launches(paths[sched_path], {k: {"launches": counts[k], "local_launches": local[k]}
+                                      for k in counts})
+    pr_sched = pr_stats.get("sched", {})
+    by_id = {r.get("client_id"): r for r in replies}
+    done = [i for i in (*[d["id"] for d in be], *[d["id"] for d in ia])
+            if by_id.get(i, {}).get("status") == "done"]
+    if len(done) != 6 or not pr_sched.get("preemptions", 0) >= 1:
+        fail(f"serve sched_preempt: {len(done)} of 6 requests done, preemptions "
+             f"{pr_sched.get('preemptions')}: {replies}")
+    diff = total = 0
+    for i, d in enumerate(be):
+        got = [[str(t) for t in row] for row in by_id[d["id"]]["tokens"]]
+        want = _new_tokens(updated[i], prompts[i])
+        total += sum(len(r) for r in want)
+        diff += sum(a != b for gr, wr in zip(got, want) for a, b in zip(gr, wr))
+    ia_ttft = [by_id[d["id"]]["ttft_s"] for d in ia]
+    report("sched_preempt", pr_stats, counts, sched=pr_sched, interactive_ttft_s=ia_ttft,
+           sched_parity_ttft_mean_s=p_stats["ttft_s"].get("mean"),
+           resumed_tokens_differing=diff, resumed_tokens=total)
+    log(f"[serve] sched_preempt: {pr_sched['preemptions']} preemption(s), every request done; "
+        f"interactive TTFT {ia_ttft} s against the sched_parity run's mean "
+        f"{p_stats['ttft_s'].get('mean')} s; {diff} of {total} best-effort tokens differ from "
+        "the uninterrupted default run (bf16: the resumed KV comes from the suffix prefill)")
+
+    # -- speculative serving ------------------------------------------------
+    spec_path = "llama2_7b_serve_spec"
+    lk, lk_up, l_stats, l_counts, l_seen = served("spec_lookup", prompts,
+                                                  ["--speculative_k", "4"], spec_path)
+    l_spec = l_stats.get("spec", {})
+    report("spec_lookup", l_stats, l_counts, spec=l_spec, spec_passes=l_seen["verify_passes"])
+    if not l_seen["verify_passes"] or "drafted_tokens" not in l_spec:
+        fail(f"serve spec_lookup: no verify pass ran: {l_spec}")
+    lk_diff = sum(a != b for i in range(len(prompts))
+                  for gr, wr in zip(_new_tokens(lk_up[i], prompts[i]),
+                                    _new_tokens(updated[i], prompts[i]))
+                  for a, b in zip(gr, wr))
+    log(f"[serve] spec_lookup: {l_seen['verify_passes']} verify passes, drafted "
+        f"{l_spec.get('drafted_tokens')}, accepted {l_spec.get('accepted_tokens')}; {lk_diff} "
+        "tokens differ from the default engine's (bf16: the verify pass runs the plain op)")
+
+    draft_cfg = LlamaConfig.from_dict(TINYLLAMA_1_1B)
+    draft_dir = os.path.join(work, "tinyllama-1.1b")
+    nbytes, secs = write_streamed_checkpoint(draft_dir, draft_cfg, seed=7)
+    log(f"[serve] wrote a seeded bf16 draft checkpoint at TinyLlama-1.1B's widths "
+        f"({draft_cfg.num_hidden_layers} layers, {nbytes} bytes) in {secs:.3f} s")
+    _, _, d_stats, d_counts, d_seen = served(
+        "spec_draft", prompts, ["--speculative_k", "4", "--spec_adaptive", "--spec_k_min", "0",
+                                "--spec_k_max", "4", "--draft_model_path", draft_dir], spec_path)
+    shutil.rmtree(draft_dir, ignore_errors=True)
+    d = d_stats.get("draft", {})
+    d_spec = d_stats.get("spec", {})
+    draft_calls = [q for q in d_seen["causal"] if q[2:] == (draft_cfg.num_attention_heads,
+                                                           draft_cfg.head_dim)]
+    target_causal = d_counts["flash_causal_attention"] - len(draft_calls)
+    lengths = sorted({q[1] for q in draft_calls})
+    forward_ms = 1e3 * d_seen["draft_propose_s"] / max(d.get("draft_tokens", 0), 1)
+    report("spec_draft", d_stats, d_counts, spec=d_spec, draft=d,
+           spec_ctrl=d_stats.get("spec_ctrl"), spec_passes=d_seen["verify_passes"],
+           draft_pin_load_s=d_seen["draft_init_s"], draft_propose_s=d_seen["draft_propose_s"],
+           draft_forward_ms=forward_ms, draft_context_lengths=lengths)
+    want_payload = payload_bytes(draft_cfg)
+    problems = []
+    if d.get("pinned_bytes") != want_payload:
+        problems.append(f"pinned_bytes {d.get('pinned_bytes')} != payload {want_payload}")
+    if d_stats["stream"]["streamed_bytes"] != l_stats["stream"]["streamed_bytes"]:
+        problems.append(f"streamed_bytes {d_stats['stream']['streamed_bytes']} != spec_lookup's "
+                        f"{l_stats['stream']['streamed_bytes']}")
+    if not d.get("draft_calls", 0) > 0:
+        problems.append("no draft call")
+    if len(draft_calls) != d.get("draft_tokens", 0) * draft_cfg.num_hidden_layers:
+        problems.append(f"{len(draft_calls)} draft causal calls for {d.get('draft_tokens')} "
+                        f"draft tokens of {draft_cfg.num_hidden_layers} layers")
+    if target_causal != p_counts["flash_causal_attention"]:
+        problems.append(f"{target_causal} causal launches of the target, not the prefills' "
+                        f"{p_counts['flash_causal_attention']}")
+    if problems:
+        fail("serve spec_draft: " + "; ".join(problems))
+    log(f"[serve] spec_draft: {d['pinned_layers']} draft layers pinned ({d['pinned_bytes']} "
+        f"bytes, the checkpoint's payload) in {d_seen['draft_init_s']:.3f} s; the target streamed what "
+        f"spec_lookup streamed; {d['draft_calls']} draft calls, {d['draft_tokens']} tokens, "
+        f"{len(draft_calls)} causal launches at context lengths {lengths} "
+        f"({forward_ms:.3f} ms per draft forward)")
+
+    # A speculative wave decodes by verify passes, which run the plain op
+    # (as the JAX package's do): the decode kernel is not on that path.
+    for name, p in paths.items():
+        needed = [k for k in fa.KERNELS
+                  if not (name == spec_path and k == "flash_decode_attention")]
+        missing = [k for k in needed if p.get(k, {}).get("launches", 0) == 0]
+        if missing:
+            fail(f"serve: kernels never launched on the {name} path: {missing}")
+    return paths
 
 
 def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
@@ -2270,7 +2702,9 @@ def main() -> None:
         main_path_case(gemma_prompts, ds_kv, nq=ds_cfg.num_attention_heads,
                        nkv=ds_cfg.num_attention_heads, hd=ds_cfg.head_dim, hd_v=ds_cfg.v_dim),
         main_path_case(gemma_prompts, scout_kv, nq=scout_cfg.num_attention_heads,
-                       nkv=scout_cfg.num_key_value_heads, hd=scout_cfg.head_dim))
+                       nkv=scout_cfg.num_key_value_heads, hd=scout_cfg.head_dim),
+        draft_path_case(prompts, n_gen_kv),
+        main_path_case(coalesce_prompts()[:1], n_gen_kv))
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cross(work)
@@ -2286,8 +2720,7 @@ def main() -> None:
                                                n_gen_loop, n_gen_kv)
         paths["llama2_7b_resume"] = phase_resume(work, llama_dir, llama_cfg, prompts,
                                                  llama_runs["scoring"], n_gen_loop)
-        paths["llama2_7b_serve"] = phase_serve(work, llama_dir, llama_cfg, prompts, n_gen_kv,
-                                               smi)
+        paths.update(phase_serve(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi))
         shutil.rmtree(llama_dir, ignore_errors=True)
         paths.update({
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,
@@ -2342,7 +2775,8 @@ def main() -> None:
             **{key: timed[k][key] for key in ("gemma3_27b_local", "gemma3_27b_global",
                                               "gemma3_12b_local", "gemma3_12b_global", "phi3_hd96",
                                               "deepseek_v3_mla", "llama4_scout_global",
-                                              "llama4_scout_chunked") if key in timed[k]},
+                                              "llama4_scout_chunked", "tinyllama_draft",
+                                              "llama2_7b_coalesced_s8") if key in timed[k]},
         }
         for k in REPLACES
     ]

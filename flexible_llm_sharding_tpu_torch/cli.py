@@ -323,28 +323,21 @@ def plan_precision_main(argv: list[str] | None = None, tokenizer=None):
 # The JAX serve parser's flags whose modules are not ported yet: (flag,
 # argparse keywords, where it stands in ROADMAP.md). Each is parsed as there
 # and refused unless it keeps its default.
-_NEXT_SERVING = "ROADMAP queue 1: the next serving slice"
-_FAULTS_OBS = "ROADMAP queue 1: faults, pressure and observability"
+_ADAPTERS = "ROADMAP queue 1 item 6: adapters"
+_WAL = "ROADMAP queue 1 item 6: the WAL and recovery"
+_FLEET = "ROADMAP queue 1 item 6: the fleet, router and autoscaler"
+_FAULTS_OBS = "ROADMAP queue 1 item 7: faults, pressure and observability"
 _UNPORTED_SERVE_FLAGS = (
     ("--metrics_port", dict(type=int, default=None), _FAULTS_OBS),
-    ("--replicas", dict(type=int, default=1), _NEXT_SERVING),
-    ("--router_phase_weight", dict(type=float, default=1.0), _NEXT_SERVING),
-    ("--router_depth_weight", dict(type=float, default=1.0), _NEXT_SERVING),
-    ("--router_health_poll_s", dict(type=float, default=0.2), _NEXT_SERVING),
-    ("--router_drain_recoveries", dict(type=int, default=0), _NEXT_SERVING),
-    ("--speculative_k", dict(type=int, default=0), _NEXT_SERVING),
-    ("--draft_model_path", dict(type=str, default=""), _NEXT_SERVING),
-    ("--spec_adaptive", dict(action="store_true"), _NEXT_SERVING),
-    ("--spec_k_min", dict(type=int, default=0), _NEXT_SERVING),
-    ("--spec_k_max", dict(type=int, default=8), _NEXT_SERVING),
-    ("--spec_window", dict(type=int, default=8), _NEXT_SERVING),
-    ("--spec_raise_threshold", dict(type=float, default=0.6), _NEXT_SERVING),
-    ("--spec_backoff_threshold", dict(type=float, default=0.2), _NEXT_SERVING),
-    ("--spec_draft_budget", dict(type=int, default=0), _NEXT_SERVING),
-    ("--wal_dir", dict(type=str, default=""), _NEXT_SERVING),
+    ("--replicas", dict(type=int, default=1), _FLEET),
+    ("--router_phase_weight", dict(type=float, default=1.0), _FLEET),
+    ("--router_depth_weight", dict(type=float, default=1.0), _FLEET),
+    ("--router_health_poll_s", dict(type=float, default=0.2), _FLEET),
+    ("--router_drain_recoveries", dict(type=int, default=0), _FLEET),
+    ("--wal_dir", dict(type=str, default=""), _WAL),
     ("--wal_fsync", dict(type=str, default="admit", choices=["always", "admit", "never"]),
-     _NEXT_SERVING),
-    ("--wal_max_mb", dict(type=float, default=64.0), _NEXT_SERVING),
+     _WAL),
+    ("--wal_max_mb", dict(type=float, default=64.0), _WAL),
     ("--chaos", dict(action="store_true"), _FAULTS_OBS),
     ("--chaos_seed", dict(type=int, default=0), _FAULTS_OBS),
     ("--chaos_error_rate", dict(type=float, default=0.1), _FAULTS_OBS),
@@ -352,8 +345,8 @@ _UNPORTED_SERVE_FLAGS = (
     ("--chaos_latency_rate", dict(type=float, default=0.0), _FAULTS_OBS),
     ("--chaos_sites", dict(type=str, default=""), _FAULTS_OBS),
     ("--chaos_max_faults", dict(type=int, default=-1), _FAULTS_OBS),
-    ("--adapter_dir", dict(type=str, default=""), _NEXT_SERVING),
-    ("--adapter_max_gb", dict(type=_float_or_auto, default=None), _NEXT_SERVING),
+    ("--adapter_dir", dict(type=str, default=""), _ADAPTERS),
+    ("--adapter_max_gb", dict(type=_float_or_auto, default=None), _ADAPTERS),
     ("--pressure", dict(action="store_true"), _FAULTS_OBS),
     ("--pressure_poll_s", dict(type=float, default=1.0), _FAULTS_OBS),
     ("--pressure_host_min_gb", dict(type=float, default=1.0), _FAULTS_OBS),
@@ -373,32 +366,113 @@ _UNPORTED_SERVE_FLAGS = (
                                 choices=("info", "warning", "error", "critical")), _FAULTS_OBS),
     ("--incident_debounce_s", dict(type=float, default=60.0), _FAULTS_OBS),
     ("--incident_settle_s", dict(type=float, default=1.0), _FAULTS_OBS),
-    ("--sched", dict(action="store_true"), _NEXT_SERVING),
-    ("--sched_interactive_deadline_s", dict(type=float, default=0.0), _NEXT_SERVING),
-    ("--sched_standard_deadline_s", dict(type=float, default=0.0), _NEXT_SERVING),
-    ("--sched_best_effort_deadline_s", dict(type=float, default=0.0), _NEXT_SERVING),
-    ("--sched_tenant_weights", dict(type=str, default=""), _NEXT_SERVING),
-    ("--sched_tenant_limits", dict(type=str, default=""), _NEXT_SERVING),
-    ("--sched_tenant_burst", dict(type=float, default=4.0), _NEXT_SERVING),
-    ("--sched_preempt", dict(type=_str2bool, default=True), _NEXT_SERVING),
-    ("--sched_coalesce", dict(type=_str2bool, default=True), _NEXT_SERVING),
-    ("--sched_interactive_phase_boost", dict(type=float, default=2.0), _NEXT_SERVING),
-    ("--autoscale", dict(action="store_true"), _NEXT_SERVING),
-    ("--autoscale_min", dict(type=int, default=1), _NEXT_SERVING),
-    ("--autoscale_max", dict(type=int, default=4), _NEXT_SERVING),
-    ("--autoscale_poll_s", dict(type=float, default=1.0), _NEXT_SERVING),
-    ("--autoscale_grow_burn_rate", dict(type=float, default=1.0), _NEXT_SERVING),
-    ("--autoscale_grow_queue_frac", dict(type=float, default=0.75), _NEXT_SERVING),
-    ("--autoscale_shrink_burn_rate", dict(type=float, default=0.25), _NEXT_SERVING),
-    ("--autoscale_shrink_queue_frac", dict(type=float, default=0.10), _NEXT_SERVING),
-    ("--autoscale_confirm_polls", dict(type=int, default=3), _NEXT_SERVING),
-    ("--autoscale_grow_cooldown_s", dict(type=float, default=10.0), _NEXT_SERVING),
-    ("--autoscale_shrink_cooldown_s", dict(type=float, default=30.0), _NEXT_SERVING),
-    ("--autoscale_dry_run", dict(action="store_true"), _NEXT_SERVING),
-    ("--autoscale_no_stagger", dict(action="store_true"), _NEXT_SERVING),
-    ("--autoscale_stagger_tolerance", dict(type=float, default=0.15), _NEXT_SERVING),
-    ("--autoscale_stagger_hold_max_frac", dict(type=float, default=0.5), _NEXT_SERVING),
+    ("--sched_interactive_phase_boost", dict(type=float, default=2.0), _FLEET),
+    ("--autoscale", dict(action="store_true"), _FLEET),
+    ("--autoscale_min", dict(type=int, default=1), _FLEET),
+    ("--autoscale_max", dict(type=int, default=4), _FLEET),
+    ("--autoscale_poll_s", dict(type=float, default=1.0), _FLEET),
+    ("--autoscale_grow_burn_rate", dict(type=float, default=1.0), _FLEET),
+    ("--autoscale_grow_queue_frac", dict(type=float, default=0.75), _FLEET),
+    ("--autoscale_shrink_burn_rate", dict(type=float, default=0.25), _FLEET),
+    ("--autoscale_shrink_queue_frac", dict(type=float, default=0.10), _FLEET),
+    ("--autoscale_confirm_polls", dict(type=int, default=3), _FLEET),
+    ("--autoscale_grow_cooldown_s", dict(type=float, default=10.0), _FLEET),
+    ("--autoscale_shrink_cooldown_s", dict(type=float, default=30.0), _FLEET),
+    ("--autoscale_dry_run", dict(action="store_true"), _FLEET),
+    ("--autoscale_no_stagger", dict(action="store_true"), _FLEET),
+    ("--autoscale_stagger_tolerance", dict(type=float, default=0.15), _FLEET),
+    ("--autoscale_stagger_hold_max_frac", dict(type=float, default=0.5), _FLEET),
 )
+
+
+def _add_spec_flags(p: argparse.ArgumentParser) -> None:
+    """Speculative serving (the JAX serve parser's flags and defaults)."""
+    p.add_argument("--speculative_k", type=int, default=0,
+                   help="speculative decoding on the serving path: each in-flight request drafts "
+                        "this many prompt-lookup tokens per sweep and the engine verifies all "
+                        "drafts batch-wide inside the SAME weight sweep (K+1-slot verify pass); "
+                        "output stays token-identical to 0 (greedy-exact verification); 0 = off")
+    p.add_argument("--draft_model_path", type=str, default="",
+                   help="resident draft model: checkpoint dir of a SMALL model pinned whole on "
+                        "the card through its own residency tier and used as the speculative "
+                        "draft source instead of prompt lookup, adding ZERO bytes to the "
+                        "per-sweep weight stream; '' = off (prompt-lookup drafts)")
+    p.add_argument("--spec_adaptive", action="store_true",
+                   help="SLO-aware adaptive draft depth: per-class k follows windowed live "
+                        "acceptance between --spec_k_min and --spec_k_max and funds interactive "
+                        "rows first under --spec_draft_budget; requires --speculative_k >= 1 "
+                        "(starting k)")
+    p.add_argument("--spec_k_min", type=int, default=0,
+                   help="adaptive-k lower bound (0 lets a class stop drafting entirely when "
+                        "drafts keep missing)")
+    p.add_argument("--spec_k_max", type=int, default=8,
+                   help="adaptive-k upper bound; the verify slot budget is provisioned at this k "
+                        "so k can grow mid-wave")
+    p.add_argument("--spec_window", type=int, default=8,
+                   help="acceptance window: a class's k moves only after this many observed "
+                        "drafting passes")
+    p.add_argument("--spec_raise_threshold", type=float, default=0.6,
+                   help="raise a class's k when its windowed acceptance reaches this")
+    p.add_argument("--spec_backoff_threshold", type=float, default=0.2,
+                   help="shrink a class's k when its windowed acceptance falls to this or below")
+    p.add_argument("--spec_draft_budget", type=int, default=0,
+                   help="per-pass draft-token budget across the wave, spent in strict SLO-class "
+                        "priority order (interactive first); 0 = unlimited")
+
+
+def _add_sched_flags(p: argparse.ArgumentParser) -> None:
+    """The sweep scheduler (the JAX serve parser's flags and defaults, but
+    ``--sched_interactive_phase_boost``, which the replica fleet reads)."""
+    p.add_argument("--sched", action="store_true",
+                   help="enable the multi-tenant sweep scheduler: strict SLO-class priority "
+                        "(interactive > standard > best_effort) with deficit-weighted "
+                        "round-robin across tenants inside a class, per-tenant token-bucket rate "
+                        "limits (typed RateLimited with a retry-after hint), sweep-boundary "
+                        "preemption of best-effort waves by waiting interactive work (resumed "
+                        "token-identically), and same-prefix request coalescing into one shared "
+                        "prefill. Off = the plain FIFO admission path")
+    p.add_argument("--sched_interactive_deadline_s", type=float, default=0.0,
+                   help="default admission deadline for interactive requests that name none "
+                        "(0 = fall back to --deadline_s)")
+    p.add_argument("--sched_standard_deadline_s", type=float, default=0.0,
+                   help="default admission deadline for standard requests (0 = fall back to "
+                        "--deadline_s)")
+    p.add_argument("--sched_best_effort_deadline_s", type=float, default=0.0,
+                   help="default admission deadline for best_effort requests (0 = fall back to "
+                        "--deadline_s)")
+    p.add_argument("--sched_tenant_weights", type=str, default="",
+                   help="deficit-round-robin weights, 'tenantA=4,tenantB=1' (unlisted tenants "
+                        "weigh 1): a weight-w tenant gets ~w shares of each class's admission "
+                        "budget while backlogged")
+    p.add_argument("--sched_tenant_limits", type=str, default="",
+                   help="token-bucket rate limits in requests/second, 'tenantA=5' (unlisted = "
+                        "unlimited); over-limit submits resolve as typed RateLimited carrying "
+                        "retry_after_s")
+    p.add_argument("--sched_tenant_burst", type=float, default=4.0,
+                   help="token-bucket capacity (burst requests) for every rate-limited tenant")
+    p.add_argument("--sched_preempt", type=_str2bool, default=True,
+                   help="allow a waiting interactive request to retire the youngest best-effort "
+                        "wave at a shard-0 boundary (never mid-sweep); the preempted requests "
+                        "resume token-identically with their generated-so-far tokens folded "
+                        "into the prefill")
+    p.add_argument("--sched_coalesce", type=_str2bool, default=True,
+                   help="merge same-tokenized-prefix requests admitted at one boundary into a "
+                        "single wave entry that prefills the shared prefix KV once")
+
+
+def _sched_config_from_args(args: argparse.Namespace):
+    from flexible_llm_sharding_tpu_torch.config import SchedConfig
+
+    if not args.sched:
+        return SchedConfig()
+    return SchedConfig(
+        enabled=True, interactive_deadline_s=args.sched_interactive_deadline_s,
+        standard_deadline_s=args.sched_standard_deadline_s,
+        best_effort_deadline_s=args.sched_best_effort_deadline_s,
+        tenant_weights=args.sched_tenant_weights, tenant_limits=args.sched_tenant_limits,
+        tenant_burst=args.sched_tenant_burst, preempt=args.sched_preempt,
+        coalesce=args.sched_coalesce,
+    )
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -473,6 +547,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "false: they drop and the prefix prefills again")
     p.add_argument("--readahead_threads", type=int, default=2,
                    help="threads of the page-cache readahead pool; 0 = off")
+    _add_spec_flags(p)
+    _add_sched_flags(p)
     p.add_argument("--slo", action="store_true",
                    help="track SLO error budgets over the per-class latency windows (the "
                         "'slo' entry of the stats line)")
@@ -539,7 +615,13 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             max_active_requests=args.max_active_requests,
             default_max_new_tokens=args.max_new_tokens, default_deadline_s=args.deadline_s,
             stats_interval_s=args.stats_interval_s, watchdog_abort_s=args.watchdog_abort_s,
-            max_request_tokens=args.max_request_tokens, slo=slo,
+            max_request_tokens=args.max_request_tokens, speculative_k=args.speculative_k,
+            draft_model_path=args.draft_model_path, spec_adaptive=args.spec_adaptive,
+            spec_k_min=args.spec_k_min, spec_k_max=args.spec_k_max, spec_window=args.spec_window,
+            spec_raise_threshold=args.spec_raise_threshold,
+            spec_backoff_threshold=args.spec_backoff_threshold,
+            spec_draft_budget=args.spec_draft_budget, sched=_sched_config_from_args(args),
+            slo=slo,
         )
     except ValueError as e:
         raise SystemExit(str(e)) from e

@@ -19,8 +19,8 @@ plus dtype, blocking, bucketing, KV-cache decode, sampling, prefetch, the
 device, the JAX package's default-on host path (weight verification, the
 host shard cache, readahead and I/O retries), the head stage's score sink
 and disk-mode crash resume, and the paged prefix-KV pool of the serving
-engine. ``ServeConfig`` (with ``SLOConfig``) holds the ``serve``
-subcommand's knobs. ``resolve_device`` is the one place that turns a device name into a
+engine. ``ServeConfig`` (with ``SchedConfig`` and ``SLOConfig``) holds the
+``serve`` subcommand's knobs. ``resolve_device`` is the one place that turns a device name into a
 ``torch.device``: CUDA unless the caller asks for the CPU, and an error (never
 a silent CPU run) when CUDA is asked for and absent.
 """
@@ -816,6 +816,56 @@ def _parse_tenant_map(spec: str, what: str) -> dict[str, float]:
 
 
 @dataclasses.dataclass(frozen=True)
+class SchedConfig:
+    """The sweep scheduler (``serve/sched/``), off by default: the queue
+    then pops first in, first out. On, it pops by strict SLO-class priority
+    with deficit round robin over tenants inside a class, rate-limits
+    tenants by token bucket (``RateLimited`` with ``retry_after_s``),
+    preempts the youngest best-effort wave at a shard-0 boundary for a
+    waiting interactive request (``preempt``), and merges same-prefix
+    requests admitted at one boundary into one prefill (``coalesce``).
+
+    Per-class admission deadlines in seconds (0 = none: the serve-level
+    default applies); ``tenant_weights`` ("a=4,b=1", unlisted tenants weigh
+    1) and ``tenant_limits`` (requests per second, unlisted tenants
+    unlimited) in the tenant-map syntax; ``tenant_burst`` the bucket's
+    capacity. The JAX config's ``interactive_phase_boost`` belongs to the
+    replica fleet's router, which is not ported."""
+
+    enabled: bool = False
+    interactive_deadline_s: float = 0.0
+    standard_deadline_s: float = 0.0
+    best_effort_deadline_s: float = 0.0
+    tenant_weights: str = ""
+    tenant_limits: str = ""
+    tenant_burst: float = 4.0
+    preempt: bool = True
+    coalesce: bool = True
+
+    def __post_init__(self) -> None:
+        for name in ("interactive_deadline_s", "standard_deadline_s", "best_effort_deadline_s"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0 (0 = no default)")
+        for t, w in self.tenant_weight_map().items():
+            # The round robin's visit bound is ~1/min_weight.
+            if not 0.01 <= w <= 1e6:
+                raise ValueError(f"tenant_weights: weight for {t!r} must be in [0.01, 1e6], "
+                                 f"got {w}")
+        for t, r in self.tenant_limit_map().items():
+            if r <= 0:
+                raise ValueError(f"tenant_limits: rate for {t!r} must be > 0 "
+                                 "(omit the tenant for unlimited)")
+        if self.tenant_burst < 1:
+            raise ValueError("tenant_burst must be >= 1")
+
+    def tenant_weight_map(self) -> dict[str, float]:
+        return _parse_tenant_map(self.tenant_weights, "tenant_weights")
+
+    def tenant_limit_map(self) -> dict[str, float]:
+        return _parse_tenant_map(self.tenant_limits, "tenant_limits")
+
+
+@dataclasses.dataclass(frozen=True)
 class SLOConfig:
     """SLO targets and error budgets (``obs/slo.py``), off by default:
     per-class p95 TTFT targets (``"interactive=0.5,standard=2.0"``), an
@@ -856,7 +906,16 @@ class ServeConfig:
     at a shard-0 boundary and the requests in flight, the default token
     budget and admission deadline (0 = none), the engine's idle poll, the
     stats line's interval (0 = off), the stall watchdog of a streamed
-    engine (0 = off), and the admission-side size cap (0 = off)."""
+    engine (0 = off), and the admission-side size cap (0 = off).
+
+    Speculative serving: ``speculative_k`` drafts per suffix per verify
+    pass (0 = off, one token per sweep), by prompt lookup or, with
+    ``draft_model_path``, by a small model pinned whole on the card. With
+    ``spec_adaptive`` each SLO class's draft depth moves in [``spec_k_min``,
+    ``spec_k_max``] by its acceptance over ``spec_window`` drafting passes
+    (raised at ``spec_raise_threshold``, lowered at
+    ``spec_backoff_threshold``), funding interactive rows first within a
+    pass's ``spec_draft_budget`` tokens (0 = unlimited)."""
 
     queue_capacity: int = 64
     max_wave_requests: int = 8
@@ -867,6 +926,16 @@ class ServeConfig:
     stats_interval_s: float = 0.0
     watchdog_abort_s: float = 0.0
     max_request_tokens: int = 0
+    speculative_k: int = 0
+    draft_model_path: str = ""
+    spec_adaptive: bool = False
+    spec_k_min: int = 0
+    spec_k_max: int = 8
+    spec_window: int = 8
+    spec_raise_threshold: float = 0.6
+    spec_backoff_threshold: float = 0.2
+    spec_draft_budget: int = 0
+    sched: SchedConfig = dataclasses.field(default_factory=SchedConfig)
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
 
     def __post_init__(self) -> None:
@@ -888,6 +957,27 @@ class ServeConfig:
             raise ValueError("watchdog_abort_s must be >= 0")
         if self.max_request_tokens < 0:
             raise ValueError("max_request_tokens must be >= 0 (0 = off)")
+        if not 0 <= self.speculative_k <= 64:
+            raise ValueError(f"ServeConfig.speculative_k must be in [0, 64], got "
+                             f"{self.speculative_k}")
+        if self.spec_adaptive and self.speculative_k < 1:
+            raise ValueError("spec_adaptive requires speculative_k >= 1 (the starting draft "
+                             "depth)")
+        if not 0 <= self.spec_k_min <= self.spec_k_max <= 64:
+            raise ValueError("need 0 <= spec_k_min <= spec_k_max <= 64, got "
+                             f"[{self.spec_k_min}, {self.spec_k_max}]")
+        if self.spec_adaptive and not self.spec_k_min <= self.speculative_k <= self.spec_k_max:
+            raise ValueError(
+                "speculative_k must sit inside [spec_k_min, spec_k_max] when spec_adaptive is "
+                f"on, got k={self.speculative_k} bounds=[{self.spec_k_min}, {self.spec_k_max}]")
+        if self.spec_window < 1:
+            raise ValueError("spec_window must be >= 1")
+        if not 0.0 <= self.spec_backoff_threshold <= self.spec_raise_threshold <= 1.0:
+            raise ValueError(
+                "need 0 <= spec_backoff_threshold <= spec_raise_threshold <= 1, got "
+                f"backoff={self.spec_backoff_threshold} raise={self.spec_raise_threshold}")
+        if self.spec_draft_budget < 0:
+            raise ValueError("spec_draft_budget must be >= 0 (0 = unlimited)")
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
@@ -915,6 +1005,7 @@ __all__ = [
     "LlamaConfig",
     "SLOConfig",
     "STORAGE_LOCATIONS",
+    "SchedConfig",
     "ServeConfig",
     "resolve_device",
 ]

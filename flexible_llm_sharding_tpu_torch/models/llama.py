@@ -554,9 +554,43 @@ def head_params(params: Params) -> Params:
     return {"kernel": params["embed"]["embedding"].T}
 
 
+def forward_full(params: Params, cfg: LlamaConfig, ids: torch.Tensor,
+                 dtype: torch.dtype = torch.float32, total_len=None) -> torch.Tensor:
+    """The monolithic causal forward (the JAX package's ``forward_full``):
+    ids [B, L] -> float32 logits [B, L, V]. ``params``: {'embed', 'layers'
+    (a list in model order), 'norm', optional 'lm_head'}; each layer takes
+    its own local window or chunk and rope flag, and the final-logit softcap
+    applies. ``total_len`` (longrope) defaults to L, as a Hugging Face batch
+    forward picks its table by the padded length.
+
+    The attention is :func:`flash_causal_attention` at a valid length of L:
+    the causal kernel on a card, its plain version on the CPU. Right padding
+    is causally invisible to every row before it, so a caller that reads
+    row n - 1 of a right-padded batch reads the unpadded forward's."""
+    b, length = ids.shape
+    dev = ids.device
+    if total_len is None and cfg.rope_scaling_kind == "longrope":
+        total_len = length
+    x = embed(params["embed"], ids, dtype, cfg)
+    positions = torch.arange(length, device=dev)[None]
+    valid = torch.full((b,), length, dtype=torch.int32, device=dev)
+    sliding, rope_on = layer_sliding_pattern(cfg), layer_rope_pattern(cfg)
+    for i, layer in enumerate(params["layers"]):
+        h = _norm(x, layer["input_layernorm"], cfg)
+        q, k, v = positioned_qkv(layer, cfg, h, positions, sliding[i], total_len, rope_on[i])
+        attn = flash_causal_attention(q, k, v, valid, **_scoring_kw(cfg, sliding[i], length, 0))
+        x = _residual_mlp(layer, cfg, _residual_attn(layer, cfg, x, attn))
+    x = rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps, cfg.norm_unit_offset)
+    logits = torch.matmul(x, head_params(params)["kernel"]).float()
+    if cfg.final_logit_softcap is not None:
+        logits = torch.tanh(logits / cfg.final_logit_softcap) * cfg.final_logit_softcap
+    return logits
+
+
 __all__ = [
     "decode_step_layer",
     "embed",
+    "forward_full",
     "head_params",
     "layer_rope_pattern",
     "layer_sliding_pattern",

@@ -36,7 +36,8 @@ pass, the prefill's and each step's, skips the pinned layers. A resident
 decode does not, as in the JAX package: every placed shard stays already.
 
 The per-shard pieces (:func:`prefill_decoders`, :func:`suffix_prefill_decoders`,
-:func:`decode_decoders`, :func:`decode_norm_head`) are shared with the serving
+:func:`decode_decoders`, :func:`decode_norm_head`, :func:`spec_norm_head`) and
+:class:`SpecVerifier` are shared with the serving
 engine (``serve/engine.py``), which runs them per wave at each shard of its
 weight sweeps. Adapters and the multi-device modes are not part of this port
 yet.
@@ -135,6 +136,11 @@ class SpecVerifier:
     its own generated-KV slot clock (``g - 1`` is the offset the next pass
     writes from). Padding rows (``active`` False) are frozen at their
     budget with constant histories and never draft or count.
+
+    :meth:`set_pass_k` caps each row's drafts per pass (the serving
+    engine's adaptive depth); :meth:`request_steps` reads one request's
+    rows step by step. ``last_drafted``/``last_accepted`` [B, S] hold the
+    latest pass's per-row counts.
     """
 
     def __init__(self, spec_k: int, draft_fn, contexts, budgets, init_dist, init_toks,
@@ -163,10 +169,31 @@ class SpecVerifier:
                     self.hist_d[r][s] = [init_dist[r, s]] * bud
                     self.hist_t[r][s] = [int(init_toks[r, s])] * bud
         self._drafts = None
+        self._pass_k = None  # per-row draft caps [B, S]; None: spec_k everywhere
+        self.last_drafted = np.zeros((bsz, s_b), np.int64)
+        self.last_accepted = np.zeros((bsz, s_b), np.int64)
+
+    def set_pass_k(self, karr) -> None:
+        """Cap the next passes' drafts per row at ``karr`` [B, S], clipped
+        to [0, spec_k] (None: spec_k everywhere). The fed window stays K+1
+        wide; a row capped at k drafts and verifies only its first k slots
+        (0: one token per pass), and acceptance counts only the slots
+        asked for."""
+        if karr is None:
+            self._pass_k = None
+            return
+        self._pass_k = np.clip(np.asarray(karr, np.int64), 0, self.k).reshape(self.g.shape)
+
+    def _k_use(self, r: int, s: int) -> int:
+        return self.k if self._pass_k is None else int(self._pass_k[r, s])
 
     @property
     def done(self) -> bool:
         return bool((self.g >= self.budgets).all())
+
+    def emitted(self, r: int, s: int) -> int:
+        """Tokens emitted so far for one suffix, the prefill's included."""
+        return int(self.g[r, s])
 
     def begin_pass(self) -> tuple[np.ndarray, np.ndarray]:
         """This pass's fed tokens [B, S, K+1] int64 and per-suffix slot
@@ -178,12 +205,13 @@ class SpecVerifier:
         for r in range(bsz):
             for s in range(s_b):
                 fed[r, s, 0] = self.hist_t[r][s][-1]
-                if self.k > 0 and self.budgets[r, s] - self.g[r, s] > 1:
+                k_use = self._k_use(r, s)
+                if k_use > 0 and self.budgets[r, s] - self.g[r, s] > 1:
                     if self._corpus_ok:
                         sib = [self.ctx[r][j] for j in range(s_b) if j != s and self.active[r, j]]
-                        drafts[r, s] = self._draft(self.ctx[r][s], self.k, corpus=sib)
+                        drafts[r, s, :k_use] = self._draft(self.ctx[r][s], k_use, corpus=sib)
                     else:
-                        drafts[r, s] = self._draft(self.ctx[r][s], self.k)
+                        drafts[r, s, :k_use] = self._draft(self.ctx[r][s], k_use)
         fed[:, :, 1:] = drafts
         self._drafts = drafts
         return fed, (self.g - 1).astype(np.int32)
@@ -197,19 +225,24 @@ class SpecVerifier:
         picks = np.argmax(dist, axis=-1)  # [B, S, K+1]
         bsz, s_b = self.g.shape
         emitted = np.zeros((bsz, s_b), np.int64)
+        self.last_drafted.fill(0)
+        self.last_accepted.fill(0)
         for r in range(bsz):
             for s in range(s_b):
                 if self.g[r, s] >= self.budgets[r, s]:
                     continue
+                k_use = self._k_use(r, s)
                 a = 0
-                while a < self.k and picks[r, s, a] == self._drafts[r, s, a]:
+                while a < k_use and picks[r, s, a] == self._drafts[r, s, a]:
                     a += 1
                 remaining = int(self.budgets[r, s] - self.g[r, s])
-                useful_k = min(self.k, remaining - 1)
+                useful_k = min(k_use, remaining - 1)
                 acc = min(a, useful_k)
                 self.drafted += useful_k
                 self.accepted += acc
                 self.rejected += useful_k - acc
+                self.last_drafted[r, s] = useful_k
+                self.last_accepted[r, s] = acc
                 emit = int(min(a + 1, remaining))
                 for j in range(emit):
                     # A copy: a view would keep the whole pass's array alive.
@@ -220,6 +253,17 @@ class SpecVerifier:
                 emitted[r, s] = emit
         self._drafts = None
         return emitted
+
+    def request_steps(self, row: int, s_off: int, s_cnt: int,
+                      n_steps: int) -> tuple[list[np.ndarray], list[np.ndarray]]:
+        """One request's suffix rows ``s_off:s_off + s_cnt`` of block row
+        ``row``, step by step: ``n_steps`` [s_cnt, V] scores and [s_cnt]
+        int64 tokens (the engine's resolve and preemption capture)."""
+        scores = [np.stack([self.hist_d[row][s_off + s][t] for s in range(s_cnt)])
+                  for t in range(n_steps)]
+        toks = [np.asarray([self.hist_t[row][s_off + s][t] for s in range(s_cnt)], np.int64)
+                for t in range(n_steps)]
+        return scores, toks
 
     def step_major(self, n_steps: int) -> tuple[list[np.ndarray], list[np.ndarray]]:
         """The ragged histories as ``n_steps`` [B, S, V] distributions and
@@ -344,6 +388,13 @@ def decode_norm_head(model_cfg, norm_params, head_params, x) -> torch.Tensor:
     JAX package's ``_decode_norm_head_impl``)."""
     h = rms_norm(x, norm_params["scale"], model_cfg.rms_norm_eps, model_cfg.norm_unit_offset)
     return llama.lm_head_scores(head_params, h, model_cfg.final_logit_softcap)
+
+
+def spec_norm_head(model_cfg, norm_params, head_params, x) -> torch.Tensor:
+    """x [B, S, K+1, D] -> float32 distributions [B, S, K+1, V] of every fed
+    position of a verify pass (the JAX package's ``_spec_norm_head``)."""
+    h = rms_norm(x, norm_params["scale"], model_cfg.rms_norm_eps, model_cfg.norm_unit_offset)
+    return llama.lm_head_scores_multi(head_params, h, model_cfg.final_logit_softcap)
 
 
 def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params, norm_params,
@@ -661,10 +712,8 @@ class DecodeGenerator(StreamingExecutor):
                     head_dists: dict[int, np.ndarray] = {}
 
                     def spec_head(b, norm_params, head_params, x):
-                        h = rms_norm(x, norm_params["scale"], mcfg.rms_norm_eps,
-                                     mcfg.norm_unit_offset)
-                        head_dists[b] = llama.lm_head_scores_multi(
-                            head_params, h, mcfg.final_logit_softcap).to("cpu").numpy()
+                        head_dists[b] = spec_norm_head(mcfg, norm_params, head_params,
+                                                       x).to("cpu").numpy()
 
                     stream_pass(
                         lambda b: fed[b],
@@ -748,5 +797,6 @@ __all__ = [
     "kv_fits_on_chip",
     "prefill_decoders",
     "propose_draft",
+    "spec_norm_head",
     "suffix_prefill_decoders",
 ]

@@ -8,12 +8,14 @@ engine).
 - ``batcher`` — waves admitted at shard-0 boundaries of the weight sweep,
   so a join never prefills an in-flight request again.
 - ``engine``  — the serving loop over the streamed or resident weights,
-  with the paged prefix-KV pool's suffix-only prefill, the SLO tracker,
-  the serving metrics and the stall watchdog.
-- ``sched``   — the SLO classes requests carry.
+  with the paged prefix-KV pool's suffix-only prefill, speculative verify
+  passes, the SLO tracker, the serving metrics and the stall watchdog.
+- ``sched``   — SLO classes, the sweep scheduler (class priority, tenant
+  fair queueing and rate limits, preemption) and prefix coalescing.
+- ``spec``    — the adaptive draft depth per SLO class.
 
-The JAX package's replica fleet and router, request WAL and replay,
-speculative serving, sweep scheduler and autoscaler are not ported yet.
+The JAX package's LoRA adapters, request WAL and replay, replica fleet,
+router and autoscaler are not ported yet.
 """
 
 from flexible_llm_sharding_tpu_torch.serve.request import (  # noqa: F401

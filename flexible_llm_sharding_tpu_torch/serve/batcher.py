@@ -29,12 +29,17 @@ from flexible_llm_sharding_tpu_torch.serve.request import Request, RequestStatus
 _WAVE_IDS = itertools.count()
 
 
+# Strict SLO-class priority order, mirrored from serve/sched/classes.py
+# (the base batcher does not import the scheduler's package).
+_CLASS_RANK = {"interactive": 0, "standard": 1, "best_effort": 2}
+
+
 @dataclass
 class WaveEntry:
-    """One prefill unit of a wave: a request's (prefix, suffixes) prompt.
-    ``slices`` holds each member's (suffix offset, count); with one member
-    per entry (the JAX package groups same-prefix requests here only under
-    its scheduler's coalescing) it is [(0, n_suffixes)]."""
+    """One prefill unit of a wave: one request's (prefix, suffixes) prompt,
+    or a prefix-coalesced group's (``serve/sched/coalesce.py``), whose
+    ``suffixes`` are the members' in order. ``slices`` holds each member's
+    (suffix offset, count)."""
 
     requests: list[Request]
     prefix: str
@@ -76,7 +81,16 @@ class Wave:
 
     @property
     def max_steps(self) -> int:
-        return max(r.max_new_tokens for r in self.requests)
+        """The budget left: a resumed request's served tokens ride in its
+        extended suffixes."""
+        return max(r.max_new_tokens - r.resume_len for r in self.requests)
+
+    @property
+    def slo_class(self) -> str:
+        """The best class among the members: a wave holding one interactive
+        request is never a best-effort preemption victim."""
+        return min((r.slo_class for r in self.requests),
+                   key=lambda c: _CLASS_RANK.get(c, _CLASS_RANK["standard"]))
 
     @property
     def done(self) -> bool:
@@ -85,12 +99,15 @@ class Wave:
 
 class ShardAwareBatcher:
     def __init__(self, queue: AdmissionQueue, max_wave_requests: int, max_active_requests: int,
-                 metrics=None, sched_core: SchedCore | None = None):
+                 metrics=None, sched_core: SchedCore | None = None, entry_builder=None):
+        """``entry_builder(requests) -> [WaveEntry]``: the prefix-coalescing
+        hook (None: one entry per request)."""
         self.queue = queue
         self.max_wave_requests = max_wave_requests
         self.max_active_requests = max_active_requests
         self._metrics = metrics
         self._sched_core = sched_core or SchedCore(None)
+        self._entry_builder = entry_builder
         self.waves: list[Wave] = []
 
     @property
@@ -113,7 +130,8 @@ class ShardAwareBatcher:
         for r in reqs:
             r.status = RequestStatus.ACTIVE
             r.admitted_at = now
-        wave = Wave(requests=reqs)
+        entries = self._entry_builder(reqs) if self._entry_builder is not None else None
+        wave = Wave(requests=reqs, entries=entries)
         self.waves.append(wave)
         if self._metrics is not None:
             self._metrics.count("admitted", len(reqs))

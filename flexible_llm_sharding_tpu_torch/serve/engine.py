@@ -26,6 +26,26 @@ sweep; a later wave whose block rows all lease sealed entries runs only the
 suffix half of each layer (``suffix_prefill_decoders``) over the assembled
 pages, uploaded page-locked in the compute dtype.
 
+The sweep scheduler (``serve/sched/``, ``ServeConfig.sched``): the queue
+pops by SLO class and tenant; at a shard-0 boundary, before admission, a
+waiting interactive request with every active slot held retires the
+youngest best-effort wave (``_preempt_wave``: each live request keeps its
+served steps as resume state and goes back to the queue's front, its pool
+leases drop but the pages stay, so the resumed entry finds its sealed
+prefix); a resumed request's tokens fold into its suffix ids as ids, so its
+prefill recomputes the interrupted decode's KV. Same-tokenized-prefix
+requests of one boundary share one entry and one prefix prefill
+(``build_entries`` keyed by ``_prefix_key``).
+
+Speculative serving (``ServeConfig.speculative_k``): a wave that decodes
+runs each later sweep as one K+1-slot verify pass per block
+(``runtime/decode.SpecVerifier``, the offline decoder's verify path through
+``decode_step_layer``), emitting 1..K+1 tokens per suffix, token for token
+what plain greedy decode emits. Drafts come from prompt lookup or from a
+resident draft model (``runtime/draft.py``, ``draft_model_path``), with
+each class's depth adapted by ``serve/spec.SpecController``
+(``spec_adaptive``). A request progresses at its slowest suffix.
+
 Degrade, don't die: a shard load that failed for good (``ShardLoadError``),
 a sweep the stall watchdog aborted (``SourceClosed``), an ``OSError`` or a
 pooled page that stays corrupt (``SpillCorruptError``) fails only the waves
@@ -38,9 +58,8 @@ first sweep, so a build or load failure is engine-fatal too.
 On a card the worker thread sets its device before any CUDA call and runs
 every launch on that device's current stream of its own thread. Greedy
 selection only. Not ported yet, each raising where its flag is parsed (the
-serve CLI): replicas and the router, the request WAL, speculative serving
-and draft models, the sweep scheduler, LoRA adapters, the brownout
-controller, chaos injection, tracing and the metrics endpoint.
+serve CLI): replicas and the router, the request WAL, LoRA adapters, the
+brownout controller, chaos injection, tracing and the metrics endpoint.
 """
 
 from __future__ import annotations
@@ -69,10 +88,13 @@ from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
 from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, residency
 from flexible_llm_sharding_tpu_torch.runtime.decode import (
     KVStore,
+    SpecVerifier,
     decode_decoders,
     decode_norm_head,
+    draft_contexts,
     extend_gen_kv,
     prefill_decoders,
+    spec_norm_head,
     suffix_prefill_decoders,
 )
 from flexible_llm_sharding_tpu_torch.runtime.executor import (
@@ -86,13 +108,19 @@ from flexible_llm_sharding_tpu_torch.runtime.schedcore import SchedCore
 from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
     PromptTokenizer,
     check_longrope_regime,
+    extend_tokenized,
     longrope_total_len,
     make_blocks,
 )
 from flexible_llm_sharding_tpu_torch.serve.batcher import ShardAwareBatcher, Wave
 from flexible_llm_sharding_tpu_torch.serve.queue import AdmissionQueue
 from flexible_llm_sharding_tpu_torch.serve.request import Request, RequestStatus, WaveAborted
-from flexible_llm_sharding_tpu_torch.serve.sched.classes import parse_class
+from flexible_llm_sharding_tpu_torch.serve.sched import (
+    SweepScheduler,
+    build_entries,
+    class_deadline_s,
+    parse_class,
+)
 from flexible_llm_sharding_tpu_torch.utils import checkpoint
 from flexible_llm_sharding_tpu_torch.utils.metrics import ServingMetrics, StepWatchdog
 
@@ -111,6 +139,12 @@ class _WaveState:
     loc: dict[int, tuple[int, int]]  # wave-entry index -> (block, row)
     slots: int
     norm_p: Any = None  # the norm shard's params, applied with the head
+    # A speculative wave (after its prefill): one SpecVerifier per block, the
+    # pass's per-suffix slot offsets fixed at the embed segment, and each
+    # suffix row's owning request's SLO class (None: padding).
+    spec: dict[int, SpecVerifier] | None = None
+    spec_base: dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+    spec_classes: dict[int, list] = dataclasses.field(default_factory=dict)
     # The pool: one lease per entry, from admission to retirement or abort,
     # and the blocks whose every row reuses a sealed entry.
     pool_handles: dict[int, Any] = dataclasses.field(default_factory=dict)
@@ -132,12 +166,17 @@ class ServeEngine:
             raise ValueError("serving is greedy-only (per-request rng streams under sampling are "
                              "not supported); set temperature=0")
         if cfg.speculative_k:
-            raise ValueError("FrameworkConfig.speculative_k is the offline decoder's knob; "
-                             "speculative serving is not ported yet")
+            raise ValueError("FrameworkConfig.speculative_k is the OFFLINE scorer's knob; "
+                             "serving speculation is ServeConfig.speculative_k (--speculative_k "
+                             "on the serve parser)")
         if cfg.data_parallel:
             raise ValueError("serving drives a single device; drop data_parallel")
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
+        # 0: one token per sweep; adaptive k provisions its verify slots at
+        # spec_k_max.
+        self._spec_k = (self.serve_cfg.spec_k_max if self.serve_cfg.spec_adaptive
+                        else self.serve_cfg.speculative_k)
         device = device if device is not None else resolve_device(cfg.device)
         if device.type == "cuda" and device.index is None:
             # The worker thread sets this index: its current device is its own.
@@ -171,9 +210,32 @@ class ServeEngine:
         self.metrics.register("stream", self._stream_stats)
         self._slo = SLOTracker(self.serve_cfg.slo, self.metrics)
         self.metrics.register("slo", self._slo.stats)
+        self._sched = (SweepScheduler(self.serve_cfg.sched) if self.serve_cfg.sched.enabled
+                       else None)
+        if self._sched is not None:
+            self.metrics.register("sched", self._sched.stats)
         self.queue = AdmissionQueue(self.serve_cfg.queue_capacity, metrics=self.metrics,
                                     max_request_tokens=self.serve_cfg.max_request_tokens,
-                                    size_fn=self._request_size_tokens)
+                                    size_fn=self._request_size_tokens, scheduler=self._sched)
+        # The resident draft model, pinned whole through its own tier; a
+        # layer that does not pin fails construction.
+        self._draft_model = None
+        if self.serve_cfg.draft_model_path:
+            from flexible_llm_sharding_tpu_torch.runtime.draft import DraftModel
+
+            self._draft_model = DraftModel(self.serve_cfg.draft_model_path, self.device,
+                                           self.dtype, retry_policy=cfg.retry_policy(),
+                                           verify_weights=cfg.verify_weights)
+            self.metrics.register("draft", self._draft_model.stats)
+        self._spec_ctrl = None
+        if self.serve_cfg.spec_adaptive:
+            from flexible_llm_sharding_tpu_torch.serve.spec import SpecController
+
+            sc = self.serve_cfg
+            self._spec_ctrl = SpecController(sc.speculative_k, sc.spec_k_min, sc.spec_k_max,
+                                             sc.spec_window, sc.spec_raise_threshold,
+                                             sc.spec_backoff_threshold, sc.spec_draft_budget)
+            self.metrics.register("spec_ctrl", self._spec_ctrl.stats)
         # The scheduling policy shared with the offline DecodeGenerator.
         self._sched_core = SchedCore(cfg)
         # The paged prefix-KV pool. Longrope models opt out: their prefix
@@ -182,9 +244,12 @@ class ServeEngine:
                          else kvpool.pool_for(cfg))
         if self._kv_pool is not None:
             self.metrics.register("kvpool", kvpool.process_stats)
-        self.batcher = ShardAwareBatcher(self.queue, self.serve_cfg.max_wave_requests,
-                                         self.serve_cfg.max_active_requests, metrics=self.metrics,
-                                         sched_core=self._sched_core)
+        self.batcher = ShardAwareBatcher(
+            self.queue, self.serve_cfg.max_wave_requests, self.serve_cfg.max_active_requests,
+            metrics=self.metrics, sched_core=self._sched_core,
+            entry_builder=((lambda reqs: build_entries(reqs, self._prefix_key))
+                           if self._sched is not None and self.serve_cfg.sched.coalesce
+                           else None))
         self._kept: list | None = None  # resident: the placed shards
         self._source: ShardWeightSource | None = None  # streamed: cycling
         self._src_iter = None
@@ -218,8 +283,11 @@ class ServeEngine:
         """Enqueue one request (any thread). Rejections resolve through the
         returned request's future; an unknown ``slo_class`` raises
         ``UnknownSLOClass`` and ``max_new_tokens`` < 1 ``ValueError``.
-        Deadline: the request's own, else the serve-level default."""
+        Deadline: the request's own, else its class's (scheduler on), else
+        the serve-level default."""
         slo = parse_class(slo_class)
+        if deadline_s is None:
+            deadline_s = class_deadline_s(self.serve_cfg.sched, slo)
         if deadline_s is None and self.serve_cfg.default_deadline_s > 0:
             deadline_s = self.serve_cfg.default_deadline_s
         req = Request(
@@ -249,6 +317,8 @@ class ServeEngine:
         if self._thread is not None:
             self._thread.join(timeout)
             ok = not self._thread.is_alive()
+        if self._draft_model is not None:
+            self._draft_model.close()
         return ok
 
     @property
@@ -316,6 +386,9 @@ class ServeEngine:
             while True:
                 # ---- shard-0 boundary: the admission point ----------------
                 self._heartbeat = time.monotonic()
+                # Preemption before admission: the freed slots seat the
+                # waiting interactive work at this same boundary.
+                self._maybe_preempt()
                 wave = self.batcher.admit_at_boundary()
                 if wave is not None and not self._init_wave(wave):
                     continue  # the wave failed at tokenization; check the queue again
@@ -445,6 +518,39 @@ class ServeEngine:
             longest = max((len(s) for s in sids), default=0)
         return len(pids) + longest + req.max_new_tokens
 
+    def _prefix_key(self, prefix: str) -> tuple:
+        """The coalescing key: the prefix's token ids, truncated as the
+        prompt tokenizer truncates."""
+        return tuple(self.raw_tokenizer(prefix, truncation=True,
+                                        max_length=self.cfg.max_token_len)["input_ids"])
+
+    def _prefix_kv_bytes(self, prefix_tokens: int) -> int:
+        """The prefix KV one prefill makes, from the shapes: the savings of a
+        coalesced entry when the pool is off."""
+        mc = self.model_cfg
+        return int(prefix_tokens * mc.num_hidden_layers * mc.num_key_value_heads
+                   * (mc.head_dim + mc.v_dim) * self.dtype.itemsize)
+
+    def _note_coalesced(self, entry, handle) -> None:
+        """A coalesced entry's savings from the pool's own pages, counted
+        when they exist: at seal for a fresh prefill, at admission for a
+        reuse entry."""
+        self._sched.note_coalesced(
+            len(entry.requests), (len(entry.requests) - 1) * self._kv_pool.entry_bytes(handle))
+
+    def _tokenize_entry(self, entry):
+        """One (prefix, suffixes) prompt per entry; a resumed request's
+        served tokens fold into its suffix rows as ids (resume entries are
+        never coalesced), so its prefill recomputes the interrupted decode's
+        KV."""
+        tp = self.tokenizer(entry.prefix, entry.suffixes)
+        r = entry.requests[0]
+        if len(entry.requests) == 1 and r.resume_len:
+            gen = np.stack(r.resume_tokens, axis=1).astype(np.int32)
+            tp = extend_tokenized(tp, gen, self.tokenizer.pad_id, self.cfg.bucket_multiple,
+                                  self.cfg.max_token_len)
+        return tp
+
     def _release_pool_handles(self, st: _WaveState) -> None:
         """Drop a wave's leases (idempotent); the pages stay for reuse."""
         if self._kv_pool is None:
@@ -452,15 +558,78 @@ class ServeEngine:
         for h in st.pool_handles.values():
             self._kv_pool.release(h)
 
+    # -- sweep-boundary preemption ------------------------------------------
+
+    def _maybe_preempt(self) -> None:
+        """At a shard-0 boundary: retire the wave the scheduler names (an
+        interactive request waits, no active slot is free, a best-effort
+        wave is in flight). Never mid-sweep."""
+        if self._sched is None:
+            return
+        free = self.serve_cfg.max_active_requests - self.batcher.active_requests
+        victim = self._sched.pick_preempt(self.batcher.waves, self.queue, free)
+        if victim is not None:
+            self._preempt_wave(victim)
+
+    def _preempt_wave(self, wave: Wave) -> None:
+        """Retire one wave at a boundary, resolving nothing: each live
+        request keeps the steps this wave served it (scores and token ids)
+        as resume state, goes back to QUEUED and to the queue's front. The
+        wave's KV drops and its pool leases are released; the pages stay,
+        so a resumed entry acquires the same sealed prefix."""
+        st = wave.state
+        live: list[Request] = []
+        for r in wave.requests:
+            if r.status.terminal:
+                continue
+            if st is not None and wave.steps > 0:
+                e_idx, s_off, s_cnt = wave.locate(r)
+                b, row = st.loc[e_idx]
+                # A twice-preempted request's earlier steps are already kept.
+                done_here = max(r.tokens_emitted - r.resume_len, 0)
+                if st.spec is not None:
+                    # Up to the slowest suffix (tokens_emitted): a suffix
+                    # ahead on accepted drafts drops the surplus, which the
+                    # resumed wave derives again, token for token.
+                    sc, tk = st.spec[b].request_steps(row, s_off, s_cnt, done_here)
+                    r.resume_scores.extend(sc)
+                    r.resume_tokens.extend(tk)
+                else:
+                    for t in range(done_here):
+                        r.resume_scores.append(st.scores[b][t][row, s_off:s_off + s_cnt].copy())
+                        r.resume_tokens.append(st.tok_hist[b][t][row, s_off:s_off + s_cnt].copy())
+            if r.first_token_at is not None:
+                # The admission deadline guards the first token, already out.
+                r.deadline = None
+            r.status = RequestStatus.QUEUED
+            live.append(r)
+        if st is not None:
+            st.kv_store.clear()
+            self._release_pool_handles(st)
+        self.batcher.waves.remove(wave)
+        self._sched.note_preempted(len(live))
+        self.queue.requeue(live)
+
     def _init_wave(self, wave: Wave) -> bool:
         """Tokenize and bucket the wave's entries and allocate its state. A
         bad request (a longrope straddle, a malformed prompt, an allocation
         that fails) fails only this wave; anything else is engine-fatal."""
         entries = wave.ensure_entries()
+        # Only a wave that decodes drafts.
+        spec_wave = self._spec_k > 0 and wave.max_steps > 1
         pool_handles: dict[int, Any] = {}
         try:
-            toks = [self.tokenizer(e.prefix, e.suffixes) for e in entries]
-            check_longrope_regime(self.model_cfg, toks, extra_len=max(wave.max_steps - 1, 0))
+            toks = [self._tokenize_entry(e) for e in entries]
+            # A verify pass's K+1 window may overshoot the budget by K.
+            check_longrope_regime(self.model_cfg, toks, extra_len=max(wave.max_steps - 1, 0)
+                                  + (self._spec_k if spec_wave else 0))
+            if self._sched is not None and self._kv_pool is None:
+                # Pool off: the savings from the shapes, at admission.
+                for e, tp in zip(entries, toks):
+                    if len(e.requests) > 1:
+                        self._sched.note_coalesced(
+                            len(e.requests),
+                            (len(e.requests) - 1) * self._prefix_kv_bytes(tp.prefix_len))
             blocks = make_blocks(toks, self.cfg.block_size)
             meta = {b: block_meta(toks, idxs, self.device) for b, idxs in enumerate(blocks)}
             loc = {i: (b, row) for b, idxs in enumerate(blocks) for row, i in enumerate(idxs)}
@@ -475,12 +644,14 @@ class ServeEngine:
                 for b, idxs in enumerate(blocks):
                     if idxs and all(pool_handles[i].reusable for i in idxs):
                         reuse_blocks.add(b)
-                for i, tp in enumerate(toks):
-                    key = ("prefix_reuse_tokens" if loc[i][0] in reuse_blocks
-                           else "prefix_prefill_tokens")
+                for i, (e, tp) in enumerate(zip(entries, toks)):
+                    reused = loc[i][0] in reuse_blocks
+                    key = "prefix_reuse_tokens" if reused else "prefix_prefill_tokens"
                     self.metrics.count(key, int(tp.prefix_len))
+                    if reused and self._sched is not None and len(e.requests) > 1:
+                        self._note_coalesced(e, pool_handles[i])
             # Generated-KV slots and the KV placement: the offline rules.
-            slots = self._sched_core.gen_slots(wave.max_steps)
+            slots = self._sched_core.gen_slots(wave.max_steps, self._spec_k, spec_wave)
             kv_on_device = self._sched_core.kv_on_device(
                 self.model_cfg, self.cfg.dtype, toks, blocks, slots, self._resident,
                 device=self.device)
@@ -519,6 +690,8 @@ class ServeEngine:
             for wave in self.batcher.waves:
                 if wave.steps == 0:
                     self._prefill_shard(wave, shard_pos, layer_idxs, segments)
+                elif wave.state.spec is not None:
+                    self._spec_decode_shard(wave, shard_pos, layer_idxs, segments)
                 else:
                     self._decode_shard(wave, shard_pos, layer_idxs, segments)
             del segments
@@ -627,6 +800,93 @@ class ServeEngine:
             if layer_idxs[-1] != self._n_layers - 1:
                 st.kv_store.put(("x", b), x)
 
+    def _init_spec(self, wave: Wave) -> None:
+        """Arm a freshly prefilled wave's verify passes: one SpecVerifier per
+        block from the prefill's distributions and picks, each suffix's
+        draft context its prefix, suffix (a resumed request's served tokens
+        included) and first pick, its budget the owning request's remaining
+        tokens."""
+        st: _WaveState = wave.state
+        st.spec, st.spec_classes = {}, {}
+        draft_fn = self._draft_model.propose if self._draft_model is not None else None
+        for b, idxs in enumerate(st.blocks):
+            bsz, s_b = len(idxs), st.toks[idxs[0]].suffix_ids.shape[0]
+            budgets = np.ones((bsz, s_b), np.int64)  # padding rows: frozen at once
+            active = np.zeros((bsz, s_b), bool)
+            classes: list[list] = [[None] * s_b for _ in range(bsz)]
+            for row, e_idx in enumerate(idxs):
+                e = wave.entries[e_idx]
+                for (off, cnt), member in zip(e.slices, e.requests):
+                    budgets[row, off:off + cnt] = member.max_new_tokens - member.resume_len
+                    active[row, off:off + cnt] = True
+                    for s in range(off, off + cnt):
+                        classes[row][s] = member.slo_class
+            st.spec_classes[b] = classes
+            st.spec[b] = SpecVerifier(
+                self._spec_k, draft_fn, draft_contexts([st.toks[i] for i in idxs],
+                                                       st.tok_hist[b][0]),
+                budgets, st.scores[b][0], st.tok_hist[b][0], active=active)
+
+    def _spec_decode_shard(self, wave: Wave, shard_pos: int, layer_idxs, segments) -> None:
+        """One shard of a verify pass: the embed segment fixes each block's
+        fed window (last accepted token plus drafts) and slot offsets, the
+        decoder segments run the K+1 tokens, the head accepts."""
+        st: _WaveState = wave.state
+        mcfg = self.model_cfg
+        for b in range(len(st.blocks)):
+            v = st.spec[b]
+            if v.done or all(r.status.terminal for i in st.blocks[b]
+                             for r in wave.entries[i].requests):
+                continue
+            _, _, prefix_len, suffix_eos = st.meta[b]
+            x = None if layer_idxs[0] == 0 else st.kv_store.get(("x", b))
+            li0 = 0
+            for kind, params in segments:
+                if kind == "embed":
+                    if self._spec_ctrl is not None:
+                        v.set_pass_k(self._spec_ctrl.assign(st.spec_classes[b], v.budgets - v.g))
+                    fed, base = v.begin_pass()
+                    st.spec_base[b] = torch.from_numpy(base).to(self.device)
+                    x = llama.embed(params, torch.from_numpy(fed).to(self.device), self.dtype,
+                                    mcfg)
+                elif kind == "decoders":
+                    keys = [("kv", shard_pos, li0 + li, b) for li in range(len(params))]
+                    kvs = [st.kv_store.get(key) for key in keys]
+                    x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs, x,
+                                        prefix_len, suffix_eos, st.spec_base[b], self._sliding,
+                                        self._rope_on)
+                    for key, kv in zip(keys, kvs):
+                        st.kv_store.put(key, kv)
+                    li0 += len(params)
+                elif kind == "norm":
+                    st.norm_p = params  # applied in the head shard
+                else:  # head
+                    assert st.norm_p is not None
+                    dist = spec_norm_head(mcfg, st.norm_p, params, x).to("cpu").numpy()
+                    before = (v.drafted, v.accepted, v.rejected)
+                    v.finish_pass(dist)
+                    self._count_spec(v, st.spec_classes[b], before)
+            if layer_idxs[-1] != self._n_layers - 1:
+                st.kv_store.put(("x", b), x)
+
+    def _count_spec(self, v: SpecVerifier, classes, before) -> None:
+        """A pass's drafted and accepted tokens, split by each row's class
+        (the sums are the pass's totals: padding rows draft nothing), fed to
+        the adaptive controller."""
+        per_cls: dict[str, list[int]] = {}
+        for r_i, s_i in zip(*np.nonzero(v.last_drafted > 0)):
+            acc = per_cls.setdefault(classes[r_i][s_i], [0, 0])
+            acc[0] += int(v.last_drafted[r_i, s_i])
+            acc[1] += int(v.last_accepted[r_i, s_i])
+        if not per_cls:
+            self.metrics.spec_count(drafted=v.drafted - before[0], accepted=v.accepted - before[1],
+                                    rejected=v.rejected - before[2])
+        for cls, (c_d, c_a) in per_cls.items():
+            self.metrics.spec_count(drafted=c_d, accepted=c_a, rejected=c_d - c_a,
+                                    slo_class=cls)
+            if self._spec_ctrl is not None:
+                self._spec_ctrl.observe(cls, c_d, c_a)
+
     # -- after each sweep --------------------------------------------------
 
     def _post_sweep(self, sweep_wall_s: float) -> None:
@@ -640,17 +900,32 @@ class ServeEngine:
                 self.metrics.count("prefills")
                 if self._kv_pool is not None and st is not None:
                     # The prefill completed: seal each freshly prefilled
-                    # entry, reusable by later waves from here on.
+                    # entry, reusable by later waves from here on, and count
+                    # a coalesced entry's savings from its pages.
                     for i, handle in st.pool_handles.items():
                         if st.loc[i][0] not in st.reuse_blocks:
                             self._kv_pool.seal(handle)
+                            e = wave.entries[i]
+                            if self._sched is not None and len(e.requests) > 1:
+                                self._note_coalesced(e, handle)
+                if self._spec_k > 0 and wave.max_steps > 1:
+                    self._init_spec(wave)
             for r in wave.requests:
                 if r.status.terminal:
                     continue
                 if prefilled and r.first_token_at is None:
                     r.first_token_at = now
                     self.metrics.observe_ttft(now - r.arrival, r.slo_class)
-                if r.tokens_emitted < r.max_new_tokens:
+                if st is not None and st.spec is not None:
+                    # A verify pass advances each suffix by 1..K+1 tokens;
+                    # the request's progress is its slowest suffix's.
+                    e_idx, s_off, s_cnt = wave.locate(r)
+                    b, row = st.loc[e_idx]
+                    prog = min(st.spec[b].emitted(row, s_off + s) for s in range(s_cnt))
+                    new_total = min(r.resume_len + prog, r.max_new_tokens)
+                    emitted += max(new_total - r.tokens_emitted, 0)
+                    r.tokens_emitted = new_total
+                elif r.tokens_emitted < r.max_new_tokens:
                     r.tokens_emitted += 1
                     emitted += 1
                 if r.tokens_emitted >= r.max_new_tokens:
@@ -669,9 +944,15 @@ class ServeEngine:
         st: _WaveState = wave.state
         e_idx, s_off, s_cnt = wave.locate(r)
         b, row = st.loc[e_idx]
-        n = r.max_new_tokens
-        scores = np.stack([st.scores[b][t][row, s_off:s_off + s_cnt] for t in range(n)], axis=1)
-        tokens = np.stack([st.tok_hist[b][t][row, s_off:s_off + s_cnt] for t in range(n)], axis=1)
+        # This wave's steps, behind a resumed request's earlier ones.
+        rem = r.max_new_tokens - r.resume_len
+        if st.spec is not None:
+            sc, tk = st.spec[b].request_steps(row, s_off, s_cnt, rem)
+        else:
+            sc = [st.scores[b][t][row, s_off:s_off + s_cnt] for t in range(rem)]
+            tk = [st.tok_hist[b][t][row, s_off:s_off + s_cnt] for t in range(rem)]
+        scores = np.stack(list(r.resume_scores) + sc, axis=1)
+        tokens = np.stack(list(r.resume_tokens) + tk, axis=1)
         updated = (r.prefix, tuple(s + self.raw_tokenizer.decode(tokens[s_i])
                                    for s_i, s in enumerate(r.suffixes)))
         latency = time.monotonic() - r.arrival

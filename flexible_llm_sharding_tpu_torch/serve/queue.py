@@ -1,8 +1,8 @@
-"""Thread-safe admission queue (the JAX package's ``serve/queue.py``,
-first-in first-out).
+"""Thread-safe admission queue (the JAX package's ``serve/queue.py``).
 
 Submitters on any thread push requests; the engine pops waves at shard-0
-boundaries. The contracts:
+boundaries, first in, first out, or through an attached sweep scheduler
+(``serve/sched/scheduler.py``). The contracts:
 
 - **Backpressure**: a submit to a full queue resolves the request as
   ``QueueFull`` naming the capacity and depth, never a silent drop.
@@ -13,6 +13,10 @@ boundaries. The contracts:
   waits resolves as EXPIRED (``DeadlineExceeded``), lazily at the next
   submit or pop (no timer thread). Expired waiters free their slots before
   the capacity check.
+- **Scheduling**: with a scheduler, ``pop_wave`` picks by SLO class and
+  tenant, ``submit`` first applies the tenant's rate limit (``RateLimited``)
+  and gives the token back when a later check refuses the request, and
+  ``requeue``/``has_waiting`` carry the preemption protocol.
 - **Shutdown**: ``close(drain=True)`` refuses new submits and leaves the
   queued requests for the engine; ``drain=False`` cancels them
   (``ServeClosed``). Either way a request already past its deadline
@@ -38,16 +42,19 @@ from flexible_llm_sharding_tpu_torch.serve.request import (
 
 
 class AdmissionQueue:
-    def __init__(self, capacity: int, metrics=None, max_request_tokens: int = 0, size_fn=None):
+    def __init__(self, capacity: int, metrics=None, max_request_tokens: int = 0, size_fn=None,
+                 scheduler=None):
         """``metrics``: a ``ServingMetrics`` or None. ``size_fn(request)``
         estimates a request's prompt tokens plus budget for the
-        ``max_request_tokens`` cap (0 = off)."""
+        ``max_request_tokens`` cap (0 = off). ``scheduler``: a
+        ``SweepScheduler`` or None (first in, first out)."""
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
         self._metrics = metrics
         self._max_request_tokens = max_request_tokens
         self._size_fn = size_fn
+        self._scheduler = scheduler
         self._lock = threading.Lock()
         self._items: deque[Request] = deque()  # guarded by: _lock
         self._closed = False  # guarded by: _lock
@@ -61,7 +68,12 @@ class AdmissionQueue:
     def submit(self, request: Request) -> Request:
         """Enqueue, or resolve the request as a typed rejection
         (RequestTooLarge over the size cap, QueueFull at capacity,
-        ServeClosed after shutdown)."""
+        ServeClosed after shutdown; RateLimited first, with a
+        scheduler)."""
+        if self._scheduler is not None:
+            limited = self._scheduler.admit_check(request)
+            if limited is not None:
+                return self._reject(request, limited, RequestStatus.REJECTED)
         if self._max_request_tokens > 0 and self._size_fn is not None:
             # Before the capacity check, outside the lock (it tokenizes).
             try:
@@ -69,6 +81,7 @@ class AdmissionQueue:
             except Exception:  # a tokenizer edge case: the wave's typed rejection still applies
                 est = None
             if est is not None and est > self._max_request_tokens:
+                self._refund_rate_token(request)
                 return self._reject(request, RequestTooLarge(
                     f"request {request.request_id}: ~{est} tokens (prompt + max_new_tokens) "
                     f"exceeds the admission cap of {self._max_request_tokens}; split the prompt "
@@ -90,24 +103,55 @@ class AdmissionQueue:
                     depth = len(self._items)
         self._finish_expired(evicted)
         if reject is not None:
+            self._refund_rate_token(request)
             return self._reject(request, *reject)
         if self._metrics is not None:
             self._metrics.gauge("queue_depth", depth)
         return request
 
+    def _refund_rate_token(self, request: Request) -> None:
+        """A submit the rate gate passed but a later check refused gets its
+        token back."""
+        if self._scheduler is not None:
+            self._scheduler.refund(request)
+
     def pop_wave(self, max_requests: int) -> list[Request]:
-        """Up to ``max_requests`` live requests in arrival order; expired
-        ones met on the way are evicted."""
+        """Up to ``max_requests`` live requests, in arrival order or by the
+        scheduler's pick (pure computation, under the lock); expired ones
+        met on the way are evicted."""
         with self._lock:
             evicted = self._evict_expired_locked()
-            out = []
-            while self._items and len(out) < max_requests:
-                out.append(self._items.popleft())
+            if self._scheduler is not None:
+                out = self._scheduler.select(self._items, max_requests)
+            else:
+                out = []
+                while self._items and len(out) < max_requests:
+                    out.append(self._items.popleft())
             depth = len(self._items)
         self._finish_expired(evicted)
         if self._metrics is not None:
             self._metrics.gauge("queue_depth", depth)
         return out
+
+    def requeue(self, requests: list[Request]) -> None:
+        """Put preempted requests back at the front, in order, with no
+        capacity check (they held active slots a moment ago), also while
+        closed for a drain (the drain serves them out)."""
+        if not requests:
+            return
+        with self._lock:
+            self._items.extendleft(reversed(requests))
+            depth = len(self._items)
+        if self._metrics is not None:
+            self._metrics.gauge("queue_depth", depth)
+
+    def has_waiting(self, slo_class: str) -> bool:
+        """Whether a live (unexpired) queued request carries ``slo_class``:
+        the preemption trigger, so a request about to expire never costs a
+        best-effort wave its progress."""
+        now = time.monotonic()
+        with self._lock:
+            return any(r.slo_class == slo_class and not r.expired(now) for r in self._items)
 
     def _evict_expired_locked(self) -> list[Request]:
         now = time.monotonic()

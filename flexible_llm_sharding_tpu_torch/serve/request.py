@@ -134,9 +134,13 @@ class Request:
 
     ``deadline``: absolute monotonic instant by which it must be admitted
     (None = none). ``slo_class``/``tenant_id``: the scheduler's labels,
-    validated at submit and inert while the scheduler is off.
-    ``client_id``: the caller's own id, echoed in the JSONL replies.
-    ``tokens_emitted``: tokens served per suffix so far."""
+    validated at submit. ``client_id``: the caller's own id, echoed in the
+    JSONL replies. ``tokens_emitted``: tokens served per suffix so far
+    (``resume_len`` included; on a speculative wave the slowest suffix's).
+    ``resume_scores``/``resume_tokens``: per step served before a
+    sweep-boundary preemption, the [n_suffixes, vocab] scores and
+    [n_suffixes] token ids; the engine folds the tokens into the suffix ids
+    on re-admission and stitches both in front of the later steps."""
 
     prefix: str
     suffixes: tuple[str, ...]
@@ -146,6 +150,8 @@ class Request:
     slo_class: str = "standard"
     tenant_id: str = "default"
     client_id: Any = None
+    resume_scores: list = dataclasses.field(default_factory=list, repr=False)
+    resume_tokens: list = dataclasses.field(default_factory=list, repr=False)
     request_id: int = dataclasses.field(default_factory=lambda: next(_REQUEST_IDS))
     status: RequestStatus = RequestStatus.QUEUED
     arrival: float = dataclasses.field(default_factory=time.monotonic)
@@ -154,6 +160,11 @@ class Request:
     finished_at: float | None = None
     tokens_emitted: int = 0
     future: ServeFuture = dataclasses.field(default_factory=ServeFuture)
+
+    @property
+    def resume_len(self) -> int:
+        """Tokens per suffix served before preemptions."""
+        return len(self.resume_tokens)
 
     def expired(self, now: float | None = None) -> bool:
         return self.deadline is not None and (

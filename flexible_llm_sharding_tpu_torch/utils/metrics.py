@@ -250,7 +250,10 @@ class ServingMetrics:
     source_restarts, watchdog_stalls. Gauges: queue_depth,
     active_requests, active_waves. Latency windows of the newest
     ``sample_window`` samples: TTFT and per-token latency, and TTFT and
-    request latency per SLO class.
+    request latency per SLO class. The speculative passes' drafted,
+    accepted and rejected tokens (``spec_count``), in total and per SLO
+    class, make the ``spec`` source, with the acceptance rate and the
+    accepted tokens per sweep.
 
     Sources registered by name (``register``) make the stats line
     (``snapshot``): this object's own under ``serve``, the retry and
@@ -264,6 +267,7 @@ class ServingMetrics:
         "prefix_prefill_tokens", "prefix_reuse_tokens", "sweeps", "tokens_emitted",
         "engine_recoveries", "waves_aborted", "source_restarts", "watchdog_stalls",
     )
+    SPEC_COUNTERS = ("drafted_tokens", "accepted_tokens", "rejected_tokens")
 
     def __init__(self, sample_window: int = 4096) -> None:
         self._lock = threading.Lock()
@@ -273,6 +277,8 @@ class ServingMetrics:
         self._token_lat: deque[float] = deque(maxlen=sample_window)
         self._ttft_class = {c: deque(maxlen=sample_window) for c in SLO_CLASS_NAMES}
         self._latency_class = {c: deque(maxlen=sample_window) for c in SLO_CLASS_NAMES}
+        self._spec = dict.fromkeys(self.SPEC_COUNTERS, 0)
+        self._spec_class = {c: dict.fromkeys(self.SPEC_COUNTERS, 0) for c in SLO_CLASS_NAMES}
         self._last_emit = 0.0
         self.retries = RetryRecorder()
         self.integrity = IntegrityRecorder()
@@ -282,6 +288,7 @@ class ServingMetrics:
         self.register("serve", self._core_snapshot)
         self.register("io_retries", self.retries.snapshot)
         self.register("integrity", self.integrity.snapshot)
+        self.register("spec", self.spec_snapshot)
 
     def register(self, name: str, source) -> None:
         """Add (or replace) a stats source: a no-argument callable returning
@@ -358,6 +365,35 @@ class ServingMetrics:
     def token_latency_samples(self) -> list[float]:
         with self._lock:
             return list(self._token_lat)
+
+    def spec_count(self, drafted: int = 0, accepted: int = 0, rejected: int = 0,
+                   slo_class: str | None = None) -> None:
+        """One verify pass's useful drafted slots, accepted and rejected
+        (drafted == accepted + rejected), also in ``slo_class``'s split."""
+        with self._lock:
+            targets = [self._spec]
+            if slo_class is not None:
+                targets.append(self._spec_class.setdefault(
+                    slo_class, dict.fromkeys(self.SPEC_COUNTERS, 0)))
+            for t in targets:
+                t["drafted_tokens"] += drafted
+                t["accepted_tokens"] += accepted
+                t["rejected_tokens"] += rejected
+
+    def spec_snapshot(self) -> dict:
+        """The ``spec`` source: the counters, the acceptance rate (accepted
+        over drafted), the accepted tokens per sweep and the per-class
+        split."""
+        with self._lock:
+            drafted = self._spec["drafted_tokens"]
+            accepted = self._spec["accepted_tokens"]
+            sweeps = self._counters.get("sweeps", 0)
+            return {
+                **self._spec,
+                "acceptance_rate": round(accepted / drafted, 4) if drafted else 0.0,
+                "extra_tokens_per_sweep": round(accepted / sweeps, 4) if sweeps else 0.0,
+                "by_class": {c: dict(v) for c, v in sorted(self._spec_class.items())},
+            }
 
     def counter(self, name: str) -> int:
         with self._lock:

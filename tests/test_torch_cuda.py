@@ -412,9 +412,9 @@ _DECODE_MODELS = {
 }
 
 
-def _decode_model(tmp_path, name):
+def _decode_params(name):
+    """Seeded bf16 weights of one of ``_DECODE_MODELS``: (cfg, params)."""
     from flexible_llm_sharding_tpu_torch.config import LlamaConfig
-    from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 
     cfg = LlamaConfig.from_dict(_DECODE_MODELS[name])
     g = torch.Generator().manual_seed(3)
@@ -444,6 +444,13 @@ def _decode_model(tmp_path, name):
               "norm": {"scale": norm(d)}}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"kernel": w(d, cfg.vocab_size, scale=0.02)}
+    return cfg, params
+
+
+def _decode_model(tmp_path, name):
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
+
+    cfg, params = _decode_params(name)
     path = tmp_path / name
     save_params(params, str(path), cfg)
     return str(path)
@@ -861,3 +868,49 @@ def test_serve_engine_kernel_library_failure_is_engine_fatal(gen, tmp_path, monk
     with pytest.raises(ServeClosed):
         req.future.result(timeout=1)
     assert engine.stats().get("engine_recoveries", 0) == 0
+
+
+@pytest.mark.parametrize("name", ["llama", "gemma3"])
+def test_forward_full_launches_the_causal_kernel_and_matches_the_cpu(gen, name):
+    """The draft model's monolithic forward on the card: one causal launch
+    per layer (gemma3's local layers with their window), float32 logits
+    equal to the same forward on the CPU's plain attention."""
+    from flexible_llm_sharding_tpu_torch.models import llama
+
+    from flexible_llm_sharding_tpu_torch.runtime.executor import _tree_map
+
+    cfg, params = _decode_params(name)
+    params32 = _tree_map(lambda t: t.float(), params)
+    on_card = _tree_map(lambda t: t.cuda(), params32)
+    ids = torch.randint(3, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(1))
+    fa.reset_launch_counts()
+    got = llama.forward_full(on_card, cfg, ids.cuda())
+    torch.cuda.synchronize()
+    counts, local = fa.launch_counts(), fa.local_launch_counts()
+    want = llama.forward_full(params32, cfg, ids)
+    assert counts["flash_causal_attention"] == cfg.num_hidden_layers
+    assert local["flash_causal_attention"] == (2 if name == "gemma3" else 0)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def test_draft_model_whose_pin_fails_raises_and_does_not_stream(gen, tmp_path, monkeypatch):
+    """A draft layer whose pin load fails stops the construction with the
+    loader's error: the layers after it are never read, and nothing falls
+    back to streaming."""
+    from flexible_llm_sharding_tpu_torch.runtime import draft, executor
+
+    model_dir = _decode_model(tmp_path, "llama")
+    reads = []
+    real = executor.ShardWeightSource.build_host_shard
+
+    def failing(self, idxs):
+        reads.append(tuple(idxs))
+        if self.layer_names[idxs[0]] == "model.layers.1":
+            raise executor.ShardLoadError("injected pin-load failure")
+        return real(self, idxs)
+
+    monkeypatch.setattr(executor.ShardWeightSource, "build_host_shard", failing)
+    with pytest.raises(executor.ShardLoadError, match="injected"):
+        draft.DraftModel(model_dir, torch.device("cuda:0"), torch.bfloat16)
+    assert reads == [(0,), (1,), (2,)]
