@@ -65,7 +65,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              (requantize_native) through both loops, card against CPU:
              scores within 1e-4, tokens equal; and on the llama checkpoint
              the ``serve`` subcommand (demo mode, waves of 2) on the card
-             against the same on the CPU: tokens equal, scores within 1e-4;
+             against the same on the CPU: tokens equal, scores within 1e-4,
+             and the serve engine with 5 requests on two seeded LoRA
+             adapters (ranks 4 and 8) and 2 base ones in waves of 2, card
+             against CPU: tokens equal, scores within 1e-4;
              and on the llama and gemma3 checkpoints ``serve`` on the card
              against a run it must equal (tokens equal, scores within
              1e-4): --speculative_k 4 by prompt lookup, by a reduced seeded
@@ -176,6 +179,41 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              and the causal kernel must launch once per draft layer per
              draft token beyond the prefills; it prints the draft's pin
              load and drafting seconds.
+   tenants — right after serve, on the same cell (the
+             ``llama2_7b_serve_adapters`` and ``llama2_7b_serve_wal``
+             paths): two seeded float32 LoRA adapters on all 4 layers,
+             tenant-a (rank 8, ``save_adapter``) and tenant-b (rank 16,
+             ``prepare-adapter`` from a PEFT directory written here); the
+             card's bf16 shift against a float32 one; the serve CLI with
+             --adapter_dir and every request on the base model, which must
+             give the default engine's scores bit for bit with 0 delta
+             bytes; 3 requests on tenant-a, 3 on tenant-b and 2 base queued
+             at once (waves of 2), whose tokens and argmax must equal the
+             batch-of-1 oracle's (the same engine, one request at a time),
+             whose tenants' scores must differ from the base model's, which
+             must stream the base-only run's bytes, with delta bytes under
+             5% of them, then served again with the shift and the factor
+             upload timed (host clock and CUDA events, per sweep); tenant-a's prompts twice, then under tenant-b: the
+             second round must reuse the pool (no causal launch, the first
+             round's scores bit for bit) and tenant-b must get no hit; an
+             unknown adapter, failing only its request; ``verify
+             --adapter_dir`` exit 0, then exit 2 naming adapter_mismatch
+             after one flipped byte, and the engine failing only that
+             tenant's request (AdapterCorruptError). Then the request WAL:
+             the fsync cost of an admission record per policy; the serve
+             CLI (JSONL, --wal_dir) in a child process stopped by SIGTERM
+             once its first wave prefilled (exit 143), then a second serve
+             CLI process over the same --wal_dir with no new line, whose
+             ``wal replay:`` line is read: every open request replayed,
+             the exported prefix KV restored and served by the suffix-only
+             path (prefix-shared launches without a causal one, counted in
+             that process), the replies of both processes merged by client
+             id with the tokens of the serve phase's default run (the
+             largest bf16 score gap printed); then a child process killed
+             by SIGKILL mid-sweep after 3 sweeps (FLS_WAL_CRASH_SWEEPS; the
+             first wave's two requests, budget 2, done before it), and a
+             restart process that must not serve those two again, merged
+             tokens the default run's, torn tails counted.
    resume  — after the quant phase, on the 4-layer Llama-2-7B cell with
              --storage_location disk: a CLI process (each shard started
              one second late) killed with SIGKILL once its marker reads 2
@@ -1267,11 +1305,13 @@ def fresh_process_state() -> None:
     device blocks handed back."""
     import gc
 
+    from flexible_llm_sharding_tpu_torch.adapters import loader
     from flexible_llm_sharding_tpu_torch.integrity import manifest
     from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, residency
     from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib
 
     before = host_rss_gib().get("rss")
+    loader.reset_process_store()
     hostcache.reset_process_cache()
     residency.reset_process_tier()
     kvpool.reset_process_pools()
@@ -1487,11 +1527,60 @@ def cross_serve(work: str, name: str, model_dir: str, prompts, draft_dir: str) -
         f"time(s): the tokens of its uninterrupted run, max_abs_err {err:.3e}")
 
 
+def cross_tenants(work: str, model_dir: str, prompts) -> None:
+    """Float32 tenant-mixed serving, the card's engine against the CPU's:
+    two seeded adapters (ranks 4 and 8, both layers) and base rows mixed in
+    waves of 2, all queued at once; the same tokens, scores within 1e-4,
+    and on the card the delta applied."""
+    from flexible_llm_sharding_tpu_torch.adapters import loader
+    from flexible_llm_sharding_tpu_torch.adapters.registry import save_adapter
+    from flexible_llm_sharding_tpu_torch.config import AdapterConfig, FrameworkConfig, ServeConfig
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
+    from flexible_llm_sharding_tpu_torch.serve import ServeEngine
+
+    root = os.path.join(work, "cross_adapters")
+    rng = np.random.default_rng(31)
+    for name, r in (("tenant-a", 4), ("tenant-b", 8)):
+        save_adapter(root, name, {f"model.layers.{i}": (
+            (rng.standard_normal((256, r)) / 16).astype(np.float32),
+            (0.1 / np.sqrt(r) * rng.standard_normal((r, 256))).astype(np.float32))
+            for i in range(2)})
+    aids = ["tenant-a", None, "tenant-b", "tenant-a", "tenant-b", None, "tenant-b"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        kvpool.reset_process_pools()
+        loader.reset_process_store()
+        e = ServeEngine(
+            FrameworkConfig(model_path=model_dir, dtype="float32", block_size=2, device=dev,
+                            adapters=AdapterConfig(dir=root)),
+            ServeConfig(default_max_new_tokens=4, max_wave_requests=2),
+            tokenizer=BenchTokenizer(512), device=torch.device(dev), start=False)
+        reqs = [e.submit(p, sfx, adapter_id=aid) for (p, sfx), aid in zip(prompts, aids)]
+        e.start()
+        try:
+            out = [r.future.result(timeout=600) for r in reqs]
+        finally:
+            e.shutdown(drain=True)
+        if e.error is not None:
+            fail(f"cross-check llama serve tenants on {dev}: engine failed: {e.error!r}")
+        runs[dev] = ([(r.scores, r.tokens) for r in out], e.stats())
+    loader.reset_process_store()
+    err = _served_equal("llama serve tenants", runs["cuda"][0], runs["cpu"][0])
+    a = runs["cuda"][1]["adapter"]
+    if a["applied_rows"] != runs["cpu"][1]["adapter"]["applied_rows"] or not a["delta_bytes"]:
+        fail(f"cross-check llama serve tenants: card adapter stats {a}, CPU "
+             f"{runs['cpu'][1]['adapter']}")
+    log(f"[cross] float32 llama serve, 5 tenant requests (ranks 4 and 8) and 2 base in waves of "
+        f"2: card vs CPU engine max_abs_err {err:.3e}, tokens identical; {a['applied_rows']} rows "
+        f"shifted, {a['delta_bytes']} delta bytes")
+
+
 def phase_cross(work: str) -> None:
     """Float32 card vs CPU through the CLI, for every model of
     :func:`cross_configs`, and for the int8 and int4 copies of
     :data:`CROSS_QUANTIZED`; speculative decode on the card against plain
-    --kv_cache for :data:`CROSS_SPECULATIVE`."""
+    --kv_cache for :data:`CROSS_SPECULATIVE`; tenant-mixed serving on the
+    llama (:func:`cross_tenants`)."""
     from flexible_llm_sharding_tpu_torch.config import LlamaConfig
     from flexible_llm_sharding_tpu_torch.runtime import kvpool
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native, save_params
@@ -1538,6 +1627,7 @@ def phase_cross(work: str) -> None:
                      f"were lost ({gpu_stats['completed']} of {len(prompts)} completed)")
             log(f"[cross] float32 {name} serve: card vs CPU max_abs_err {err:.3e}, tokens "
                 f"identical; card prefills {gpu_stats['prefills']}, sweeps {gpu_stats['sweeps']}")
+            cross_tenants(work, model_dir, prompts)
         if name in CROSS_SERVE:
             cross_serve(work, name, model_dir, prompts, draft_dir)
         if name in CROSS_QUANTIZED:
@@ -2192,14 +2282,16 @@ def serve_jsonl(model_dir: str, lines_before: list, lines_after: list, extra: li
     return [json.loads(x) for x in out.getvalue().splitlines() if x.strip()], stats
 
 
-def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -> dict:
+def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str,
+                record: dict | None = None) -> dict:
     """The ``serve`` subcommand on the 4-layer Llama-2-7B cell (see the
     module doc): the batch CLI's --kv_cache --block_size 2 run as the
     reference, then the default engine, --decode_resident off and a
     pool-reuse round of the prompts twice; then the scheduler's runs
     (sched_parity, sched_coalesce, sched_preempt) and the speculative ones
     (spec_lookup, spec_draft). Returns the kernel launches of the three
-    groups of runs by path name."""
+    groups of runs by path name; ``record["default"]`` gets the default
+    engine's (scores, updated prompts, stats)."""
     from flexible_llm_sharding_tpu_torch.config import LlamaConfig
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
@@ -2276,6 +2368,8 @@ def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -
              f"{err:.3e}, tokens equal: {updated == ref_up})")
     log("[serve] default: the offline --kv_cache --block_size 2 run's scores and tokens bit for "
         "bit")
+    if record is not None:
+        record["default"] = (scores, updated, stats)
 
     streamed, streamed_up, s_stats, s_counts, _ = served("streamed", prompts,
                                                          ["--decode_resident", "off"])
@@ -2435,6 +2529,581 @@ def phase_serve(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str) -
         missing = [k for k in needed if p.get(k, {}).get("launches", 0) == 0]
         if missing:
             fail(f"serve: kernels never launched on the {name} path: {missing}")
+    return paths
+
+
+# The serve path's tenants and its restarts (the ``tenants`` phase).
+
+# A serve CLI process with chip_smoke's tokenizer (argv: the repo, the
+# vocabulary, the CLI's arguments). SMOKE_SIGTERM_AFTER_PREFILLS sends it
+# SIGTERM once that many waves have prefilled. With SMOKE_RESTART_OUT the
+# process writes there, after the CLI returns, its stats and the kernel
+# launches of its run (counted from 0 at its start) as JSON, and the scores
+# of the requests its WAL replay submitted, by client id, to ``.npz``.
+_WAL_DRILL_PROCESS = """
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from chip_smoke import BenchTokenizer
+from flexible_llm_sharding_tpu_torch import cli
+from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+from flexible_llm_sharding_tpu_torch.serve import engine, recovery
+
+n = int(os.environ.get("SMOKE_SIGTERM_AFTER_PREFILLS", "0"))
+if n:
+    real_post_sweep = engine.ServeEngine._post_sweep
+
+    def post_sweep(self, wall):
+        real_post_sweep(self, wall)
+        if self.metrics.counter("prefills") >= n:
+            os.kill(os.getpid(), 15)
+            time.sleep(0.5)
+
+    engine.ServeEngine._post_sweep = post_sweep
+out = os.environ.get("SMOKE_RESTART_OUT")
+replayed = []
+real_replay = recovery.replay
+
+def replay(eng, wal, callback=None):
+    summary = real_replay(eng, wal, callback=callback)
+    replayed.extend(summary["requests"])
+    return summary
+
+recovery.replay = replay
+fa.reset_launch_counts()
+stats = cli.main(sys.argv[3:], tokenizer=BenchTokenizer(int(sys.argv[2])))
+if out:
+    torch.cuda.synchronize()
+    np.savez(out + ".npz", **{str(r.client_id): r.future.result().scores for r in replayed})
+    with open(out, "w") as f:
+        json.dump({"stats": stats, "launches": fa.launch_counts(),
+                   "local_launches": fa.local_launch_counts()}, f)
+"""
+
+
+def write_adapters(root: str, work: str, cfg) -> None:
+    """The cell's two seeded float32 adapters on all its layers: tenant-a
+    (rank 8) written by ``save_adapter``; tenant-b (rank 16) converted by
+    ``prepare-adapter`` from a PEFT-layout directory written here (square
+    ``q_proj`` targets, lora_alpha 32). Each shifts the hidden stream by
+    about a tenth of its size."""
+    from flexible_llm_sharding_tpu_torch import cli
+    from flexible_llm_sharding_tpu_torch.adapters.registry import save_adapter
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import write_safetensors
+
+    d, n = cfg.hidden_size, cfg.num_hidden_layers
+    rng = np.random.default_rng(21)
+    save_adapter(root, "tenant-a", {
+        f"model.layers.{i}": ((rng.standard_normal((d, 8)) / np.sqrt(d)).astype(np.float32),
+                              (0.1 / np.sqrt(8) * rng.standard_normal((8, d))).astype(np.float32))
+        for i in range(n)})
+    peft = os.path.join(work, "peft-tenant-b")
+    os.makedirs(peft, exist_ok=True)
+    with open(os.path.join(peft, "adapter_config.json"), "w") as f:
+        json.dump({"r": 16, "lora_alpha": 32, "target_modules": ["q_proj"],
+                   "peft_type": "LORA"}, f)
+    tensors = {}
+    for i in range(n):
+        key = f"base_model.model.model.layers.{i}.self_attn.q_proj"
+        tensors[f"{key}.lora_A.weight"] = torch.from_numpy(
+            (rng.standard_normal((16, d)) / np.sqrt(d)).astype(np.float32))
+        tensors[f"{key}.lora_B.weight"] = torch.from_numpy(
+            (0.05 / 4 * rng.standard_normal((d, 16))).astype(np.float32))
+    write_safetensors(os.path.join(peft, "adapter_model.safetensors"), tensors)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["prepare-adapter", "--peft_dir", peft, "--adapter_dir", root, "--name",
+                  "tenant-b"])
+    log("[tenants] prepare-adapter: " + " | ".join(out.getvalue().strip().splitlines()[:2]))
+
+
+def tenant_engine(model_dir: str, work: str, vocab: int, n_gen: int, adapter_dir: str = ""):
+    """A ServeEngine (not started) with the serve CLI's defaults at this
+    phase's settings: bf16, one layer per shard, blocks of 2, waves of 2."""
+    from flexible_llm_sharding_tpu_torch.config import AdapterConfig, FrameworkConfig, ServeConfig
+    from flexible_llm_sharding_tpu_torch.serve import ServeEngine
+
+    cfg = FrameworkConfig(model_path=model_dir, dtype="bfloat16", layer_num_per_shard=1,
+                          block_size=2, device="cuda", disk_folder=os.path.join(work, "tenants"),
+                          adapters=AdapterConfig(dir=adapter_dir))
+    return ServeEngine(cfg, ServeConfig(max_wave_requests=2, default_max_new_tokens=n_gen),
+                       tokenizer=BenchTokenizer(vocab), device=torch.device("cuda"), start=False)
+
+
+def serve_tenants(engine, subs, sequential: bool = False):
+    """``subs`` ((prefix, suffixes, adapter_id)) on ``engine``: all queued
+    before it starts (waves of 2 in order), or one at a time, each waited
+    for (``sequential``: the batch-of-1 oracle). Returns (results, errors,
+    stats, launches, wall_s): a result or an error per submission."""
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        if sequential:
+            engine.start()
+            reqs = []
+            for p, sfx, aid in subs:
+                reqs.append(engine.submit(p, sfx, adapter_id=aid))
+                reqs[-1].future.exception(timeout=600)
+        else:
+            reqs = [engine.submit(p, sfx, adapter_id=aid) for p, sfx, aid in subs]
+            engine.start()
+        errors = [r.future.exception(timeout=600) for r in reqs]
+        results = [None if e is not None else r.future.result() for r, e in zip(reqs, errors)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, local = fa.launch_counts(), fa.local_launch_counts()
+        stats = engine.stats()
+    finally:
+        engine.shutdown(drain=True)
+    if engine.error is not None:
+        fail(f"tenants: the engine failed: {engine.error!r}")
+    launches = {k: {"launches": counts[k], "local_launches": local[k]} for k in counts}
+    return results, errors, stats, launches, wall
+
+
+def _wal_serve(model_dir: str, work: str, tag: str, wal_dir: str, lines: str, vocab: int,
+               env_extra: dict, want_rc: int):
+    """One serve CLI process (:data:`_WAL_DRILL_PROCESS`, JSONL frontend,
+    ``--wal_dir``) fed ``lines``. Returns (done replies by client id,
+    stderr, seconds from start to exit)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FLS_WAL_CRASH_SWEEPS", "SMOKE_SIGTERM_AFTER_PREFILLS",
+                        "SMOKE_RESTART_OUT")}
+    env.update(env_extra)
+    argv = ["serve", "--model_path", model_dir, "--dtype", "bfloat16", "--layer_num_per_shard",
+            "1", "--device", "cuda", "--block_size", "2", "--max_wave_requests", "2",
+            "--wal_dir", wal_dir, "--stats_interval_s", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _WAL_DRILL_PROCESS, HERE, str(vocab), *argv],
+                          input=lines, capture_output=True, text=True, env=env, cwd=work,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != want_rc:
+        fail(f"tenants {tag}: the serve process exited {proc.returncode}, not {want_rc}: "
+             f"{proc.stderr[-3000:]}")
+    done = {}
+    for ln in proc.stdout.splitlines():
+        try:
+            d = json.loads(ln)
+        except ValueError:
+            continue
+        if d.get("status") == "done":
+            done[d["client_id"]] = d
+    return done, proc.stderr, secs
+
+
+def wal_drill(model_dir: str, work: str, tag: str, prompts, budgets: list[int], vocab: int,
+              env_extra: dict, want_rc: int):
+    """The serve CLI over the prompts (request ``w<i>`` with budget
+    ``budgets[i]``), stopped by its drill. Returns (wal_dir, done replies by
+    client id, seconds)."""
+    wal_dir = os.path.join(work, f"wal_{tag}")
+    lines = "".join(json.dumps({"id": f"w{i}", "prefix": p, "suffixes": list(sfx),
+                                "max_new_tokens": n}) + "\n"
+                    for i, ((p, sfx), n) in enumerate(zip(prompts, budgets)))
+    done, _, secs = _wal_serve(model_dir, work, tag, wal_dir, lines, vocab, env_extra, want_rc)
+    if len(done) >= len(prompts):
+        fail(f"tenants {tag}: every request finished before the drill: nothing in flight")
+    return wal_dir, done, secs
+
+
+_WAL_REPLAY_LINE = re.compile(r"wal replay: (\d+) reopened, (\d+) already terminal, "
+                              r"kv restored (\d+) \(failed (\d+)\)")
+
+
+def wal_restart(model_dir: str, work: str, tag: str, wal_dir: str, vocab: int):
+    """The restart: a new serve CLI process over the same ``--wal_dir``
+    with no new request line, whose replay serves every open request before
+    it reads stdin. Returns (the ``wal replay:`` summary, done replies by
+    client id, the replayed requests' scores by client id, the process's
+    stats, its kernel launches, seconds from start to exit)."""
+    out = os.path.join(work, f"wal_{tag}_restart.json")
+    done, err, secs = _wal_serve(model_dir, work, f"{tag} restart", wal_dir, "", vocab,
+                                 {"SMOKE_RESTART_OUT": out}, 0)
+    m = _WAL_REPLAY_LINE.search(err)
+    if m is None:
+        fail(f"tenants {tag} restart: no `wal replay:` line on stderr: {err[-3000:]}")
+    summary = dict(zip(("replayed", "skipped_terminal", "kv_restored", "kv_failed"),
+                       (int(x) for x in m.groups())))
+    with open(out) as f:
+        dumped = json.load(f)
+    with np.load(out + ".npz") as z:
+        scores = {cid: z[cid] for cid in z.files}
+    launches = {k: {"launches": dumped["launches"][k],
+                    "local_launches": dumped["local_launches"][k]} for k in dumped["launches"]}
+    return summary, done, scores, dumped["stats"], launches, secs
+
+
+def fsync_cost(work: str, n: int = 200) -> dict:
+    """Seconds per admission record of a RequestWAL on this machine's disk,
+    for each fsync policy (``admit`` fsyncs every admission)."""
+    from flexible_llm_sharding_tpu_torch.serve import Request, RequestWAL
+
+    out = {}
+    for policy in ("never", "admit", "always"):
+        wal = RequestWAL(os.path.join(work, f"wal_fsync_{policy}"), fsync=policy)
+        reqs = [Request(prefix="p " * 512, suffixes=("s",) * 4, max_new_tokens=8)
+                for _ in range(n)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            wal.admit(r)
+        out[policy] = (time.perf_counter() - t0) / n
+        wal.close()
+    return out
+
+
+def time_tenant_sweeps(model_dir: str, work: str, vocab: int, n_gen: int, adapter_dir: str,
+                       subs) -> dict:
+    """Where an adapter run's time goes: ``subs`` served again with the
+    shift (``runtime/decode._shift``, which runs ``lora_shift_rows``) and
+    the per-wave factor upload (``ServeEngine._segment_delta``) each
+    wrapped in a host clock and a pair of CUDA events on the calling
+    thread's stream. Returns per sweep the calls, host ms and device ms
+    (the events' span) of each, with the run's per-token latency."""
+    from flexible_llm_sharding_tpu_torch.runtime import decode
+    from flexible_llm_sharding_tpu_torch.serve import engine as engine_mod
+
+    spans: dict = {"lora_shift_rows": [], "segment_delta": []}
+    host = dict.fromkeys(spans, 0.0)
+    real_shift, real_seg = decode._shift, engine_mod.ServeEngine._segment_delta
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            host[key] += time.perf_counter() - t0
+            spans[key].append((start, end))
+            return out
+        return run
+
+    decode._shift = timed("lora_shift_rows", real_shift)
+    engine_mod.ServeEngine._segment_delta = timed("segment_delta", real_seg)
+    try:
+        fresh_process_state()
+        _, errs, stats, _, _ = serve_tenants(
+            tenant_engine(model_dir, work, vocab, n_gen, adapter_dir), subs)
+    finally:
+        decode._shift, engine_mod.ServeEngine._segment_delta = real_shift, real_seg
+    if any(e is not None for e in errs):
+        fail(f"tenants timing run: failed requests {errs}")
+    torch.cuda.synchronize()
+    sweeps = stats["sweeps"]
+    out = {"sweeps": sweeps, "token_latency_mean_s": stats["token_latency_s"].get("mean")}
+    for key, pairs in spans.items():
+        out[key] = {"calls_per_sweep": len(pairs) / sweeps,
+                    "host_ms_per_sweep": 1e3 * host[key] / sweeps,
+                    "device_ms_per_sweep": sum(a.elapsed_time(b) for a, b in pairs) / sweeps}
+    return out
+
+
+def phase_tenants(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str,
+                  default: tuple) -> dict:
+    """Multi-tenant LoRA serving and the request WAL on the 4-layer
+    Llama-2-7B cell (see the module doc), against the serve phase's default
+    engine (``default``: its scores, updated prompts and stats). Returns the
+    kernel launches of the ``llama2_7b_serve_adapters`` and
+    ``llama2_7b_serve_wal`` paths."""
+    from flexible_llm_sharding_tpu_torch import cli
+    from flexible_llm_sharding_tpu_torch.adapters import loader
+    from flexible_llm_sharding_tpu_torch.adapters.apply import (
+        lora_shift,
+        lora_shift_rows,
+        stack_layer,
+    )
+    from flexible_llm_sharding_tpu_torch.adapters.registry import (
+        AdapterCorruptError,
+        AdapterNotFound,
+    )
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
+
+    def_scores, def_updated, _ = default
+    n_layers = cfg.num_hidden_layers
+    vocab = cfg.vocab_size
+    a_path, w_path = "llama2_7b_serve_adapters", "llama2_7b_serve_wal"
+    paths = {a_path: {}, w_path: {}}
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "adapters")
+    write_adapters(root, work, cfg)
+
+    def line(tag, stats, launches, wall, **more):
+        a = stats.get("adapter", {})
+        pool = stats.get("kvpool", {})
+        log(f"[tenants] {tag} | {smi} | " + json.dumps({
+            "wall_s": wall, "ttft_mean_s": stats["ttft_s"].get("mean"),
+            "ttft_p95_s": stats["ttft_s"].get("p95"),
+            "token_latency_mean_s": stats["token_latency_s"].get("mean"),
+            "token_latency_p95_s": stats["token_latency_s"].get("p95"),
+            "completed": stats.get("completed"), "prefills": stats.get("prefills"),
+            "sweeps": stats.get("sweeps"), "streamed_bytes": stats["stream"]["streamed_bytes"],
+            "applied_rows": a.get("applied_rows"), "delta_bytes": a.get("delta_bytes"),
+            "adapter_rejects": stats.get("adapter_rejects", 0),
+            "prefix_reuse_hits": pool.get("prefix_reuse_hits"),
+            "kernels": {k: v["launches"] for k, v in launches.items()}, **more}))
+
+    def same(a, b):
+        return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    # The shift on the card in bf16 against a float32 shift of the same
+    # hidden states (a block of 3 prefixes at the cell's width: tenant-a,
+    # tenant-b, base), and the engine's row form against the JAX package's
+    # gathered form over the padded stacks.
+    from flexible_llm_sharding_tpu_torch.adapters.loader import AdapterStore
+
+    store = AdapterStore(root, 1 << 30)
+    facs = {n: store.get(n)[1] for n in ("tenant-a", "tenant-b")}
+    a_st, b_st = stack_layer([None, "tenant-a", "tenant-b"], facs, "model.layers.0",
+                             cfg.hidden_size, 16)
+    pairs = {gi: (facs[n]["model.layers.0"]["lora_A"].cuda(),
+                  facs[n]["model.layers.0"]["lora_B"].cuda())
+             for gi, n in ((1, "tenant-a"), (2, "tenant-b"))}
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    h = torch.randn(3, 576, cfg.hidden_size, generator=gen, device="cuda")
+    sc = torch.tensor([0.0, 1.0, 1.0], device="cuda")
+    bf = lora_shift_rows(h.bfloat16(), pairs, [1, 2, 0], sc)
+    f32 = lora_shift_rows(h, pairs, [1, 2, 0], sc)
+    gathered = lora_shift(h, a_st.cuda(), b_st.cuda(), torch.tensor([1, 2, 0], device="cuda"), sc)
+    log(f"[tenants] lora_shift_rows bf16 vs float32 on the card at [3, 576, {cfg.hidden_size}], "
+        f"ranks 8 and 16: max |diff| {(bf.float() - f32).abs().max().item():.6e} (shift max "
+        f"{(f32 - h).abs().max().item():.4e}; bf16 rounding of h alone "
+        f"{(h.bfloat16().float() - h).abs().max().item():.6e}); float32 rows vs the gathered "
+        f"form over stacks padded to 16: {(f32 - gathered).abs().max().item():.3e}")
+    if (not bool(torch.isfinite(bf).all()) or not torch.equal(bf[2], h[2].bfloat16())
+            or (f32 - gathered).abs().max().item() > 1e-4):
+        fail("tenants: the bf16 shift is not finite, moved the base row, or the row form "
+             "disagrees with the gathered form")
+
+    # -- adapters_off: --adapter_dir set, every request on the base model --
+    fresh_process_state()
+    serve_args = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda",
+                  "--block_size", "2", "--max_new_tokens", str(n_gen), "--max_wave_requests",
+                  "2"]
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    off, off_up, off_stats = run_serve(model_dir, work, "tenants_off", prompts,
+                                       [*serve_args, "--adapter_dir", root], vocab)
+    off_wall = time.perf_counter() - t0
+    counts, local = fa.launch_counts(), fa.local_launch_counts()
+    launches = {k: {"launches": counts[k], "local_launches": local[k]} for k in counts}
+    _add_launches(paths[a_path], launches)
+    line("adapters_off", off_stats, launches, off_wall)
+    if not same(off, def_scores) or off_up != def_updated:
+        fail("tenants adapters_off: scores differ from the default engine's")
+    if off_stats["adapter"]["delta_bytes"] != 0:
+        fail(f"tenants adapters_off: {off_stats['adapter']['delta_bytes']} delta bytes moved")
+    log("[tenants] adapters_off: the default engine's scores bit for bit, 0 delta bytes")
+
+    # -- adapters_mixed: 3 on tenant-a, 3 on tenant-b, 2 base, at once -----
+    aids = ["tenant-a"] * 3 + ["tenant-b"] * 3 + [None] * 2
+    subs = [(p, sfx, aid) for (p, sfx), aid in zip(prompts, aids)]
+    fresh_process_state()
+    oracle, _, o_stats, o_launch, o_wall = serve_tenants(
+        tenant_engine(model_dir, work, vocab, n_gen, root), subs, sequential=True)
+    _add_launches(paths[a_path], o_launch)
+    line("adapters_mixed_oracle", o_stats, o_launch, o_wall)
+    fresh_process_state()
+    mixed, errs, m_stats, m_launch, m_wall = serve_tenants(
+        tenant_engine(model_dir, work, vocab, n_gen, root), subs)
+    _add_launches(paths[a_path], m_launch)
+    if any(e is not None for e in errs):
+        fail(f"tenants adapters_mixed: failed requests {errs}")
+    tok_diff = arg_diff = 0
+    for m, o in zip(mixed, oracle):
+        tok_diff += int((m.tokens != o.tokens).sum())
+        arg_diff += int((m.scores.argmax(-1) != o.scores.argmax(-1)).sum())
+    vs_oracle = max(float(np.abs(m.scores - o.scores).max()) for m, o in zip(mixed, oracle))
+    vs_base = [float(np.abs(m.scores - d).max()) for m, d in zip(mixed, def_scores)]
+    streamed = m_stats["stream"]["streamed_bytes"]
+    a = m_stats["adapter"]
+    line("adapters_mixed", m_stats, m_launch, m_wall, max_abs_vs_oracle=vs_oracle,
+         max_abs_vs_base_by_request=vs_base,
+         delta_frac_of_stream=a["delta_bytes"] / streamed,
+         streamed_per_sweep=streamed / m_stats["sweeps"],
+         off_streamed_per_sweep=off_stats["stream"]["streamed_bytes"] / off_stats["sweeps"])
+    problems = []
+    if tok_diff or arg_diff:
+        problems.append(f"{tok_diff} tokens and {arg_diff} argmaxes differ from the batch-of-1 "
+                        "oracle's")
+    # The base requests' gap from the default run is the batching's noise
+    # (0 when rows are independent); every tenant must stand above it.
+    noise = max(vs_base[6:])
+    if min(vs_base[:6]) <= 10 * noise:
+        problems.append(f"a tenant's scores are the base model's: {vs_base}")
+    # A resident engine streams one pass whatever its sweeps: the tenants'
+    # run must stream exactly what adapters_off streamed.
+    if streamed != off_stats["stream"]["streamed_bytes"]:
+        problems.append(f"streamed {streamed} bytes, adapters_off "
+                        f"{off_stats['stream']['streamed_bytes']}")
+    if not 0 < a["delta_bytes"] < 0.05 * streamed or not a["applied_rows"] > 0:
+        problems.append(f"delta_bytes {a['delta_bytes']}, applied_rows {a['applied_rows']}")
+    if problems:
+        fail("tenants adapters_mixed: " + "; ".join(problems))
+    log(f"[tenants] adapters_mixed: tokens and argmax of the batch-of-1 oracle, scores within "
+        f"{vs_oracle:.3e} of it; tenants differ from the base by {min(vs_base[:6]):.3e}.."
+        f"{max(vs_base[:6]):.3e}; {a['applied_rows']} rows shifted, {a['delta_bytes']} delta "
+        f"bytes ({a['delta_bytes'] / streamed:.4%} of the {streamed}-byte stream)")
+
+    timing = time_tenant_sweeps(model_dir, work, vocab, n_gen, root, subs)
+    log(f"[tenants] adapters_mixed again, the shift and the factor upload timed | {smi} | "
+        + json.dumps(timing))
+
+    # -- adapters_reuse: tenant-a's prompts twice, then under tenant-b -----
+    fresh_process_state()
+    engine = tenant_engine(model_dir, work, vocab, n_gen, root)
+    rounds = {}
+    t0 = time.perf_counter()
+    try:
+        engine.start()
+        for tag, aid in (("a1", "tenant-a"), ("a2", "tenant-a"), ("b", "tenant-b")):
+            fa.reset_launch_counts()
+            hits0 = kvpool.process_stats()["prefix_reuse_hits"]
+            reqs = [engine.submit(p, sfx, adapter_id=aid) for p, sfx in prompts[:3]]
+            res = [r.future.result(timeout=600) for r in reqs]
+            torch.cuda.synchronize()
+            counts, local = fa.launch_counts(), fa.local_launch_counts()
+            launches = {k: {"launches": counts[k], "local_launches": local[k]} for k in counts}
+            _add_launches(paths[a_path], launches)
+            rounds[tag] = (res, kvpool.process_stats()["prefix_reuse_hits"] - hits0, counts)
+        r_stats = engine.stats()
+    finally:
+        engine.shutdown(drain=True)
+    r_wall = time.perf_counter() - t0
+    line("adapters_reuse", r_stats, {k: {"launches": v} for k, v in rounds["a2"][2].items()},
+         r_wall, hits_by_round={t: v[1] for t, v in rounds.items()})
+    a2_counts = rounds["a2"][2]
+    if (rounds["a2"][1] != 3 or rounds["b"][1] != 0
+            or not same([r.scores for r in rounds["a2"][0]], [r.scores for r in rounds["a1"][0]])
+            or a2_counts["flash_causal_attention"] != 0
+            or a2_counts["flash_prefix_shared_attention"] < n_layers):
+        fail(f"tenants adapters_reuse: hits by round {[v[1] for v in rounds.values()]}, round 2 "
+             f"launches {a2_counts}, round 2 scores equal to round 1's: "
+             f"{same([r.scores for r in rounds['a2'][0]], [r.scores for r in rounds['a1'][0]])}")
+    log(f"[tenants] adapters_reuse: round 2 reused 3 tenant-a entries (first round's scores bit "
+        f"for bit, {a2_counts['flash_prefix_shared_attention']} prefix-shared and no causal "
+        "launch); tenant-b got no hit from tenant-a's pages")
+
+    # -- adapters_reject: one request names an unknown adapter -------------
+    fresh_process_state()
+    rej_subs = [subs[0], (prompts[1][0], prompts[1][1], "tenant-unknown"), subs[6], subs[3]]
+    res, errs, j_stats, j_launch, j_wall = serve_tenants(
+        tenant_engine(model_dir, work, vocab, n_gen, root), rej_subs)
+    _add_launches(paths[a_path], j_launch)
+    line("adapters_reject", j_stats, j_launch, j_wall)
+    if (not isinstance(errs[1], AdapterNotFound)
+            or any(e is not None for i, e in enumerate(errs) if i != 1)
+            or j_stats.get("adapter_rejects") != 1):
+        fail(f"tenants adapters_reject: errors {errs}, adapter_rejects "
+             f"{j_stats.get('adapter_rejects')}")
+    log(f"[tenants] adapters_reject: only the unknown adapter's request failed "
+        f"({type(errs[1]).__name__}), the other 3 completed")
+
+    # -- verify --adapter_dir, then a flipped byte --------------------------
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["verify", "--adapter_dir", root])
+    log("[tenants] verify --adapter_dir: exit 0 | " + out.getvalue().strip().splitlines()[-1])
+    _flip_bit(os.path.join(root, "tenant-a", f"model.layers.{n_layers - 1}.safetensors"), 301)
+    out = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(["verify", "--adapter_dir", root])
+        except SystemExit as e:
+            code = e.code
+    if not code or "ADAPTER_MISMATCH" not in out.getvalue():
+        fail(f"tenants verify after a flipped byte: exit {code}: {out.getvalue()}")
+    log(f"[tenants] verify --adapter_dir after one flipped byte: exit {code} | "
+        + out.getvalue().strip().splitlines()[0].strip())
+    fresh_process_state()
+    res, errs, _, launches, _ = serve_tenants(tenant_engine(model_dir, work, vocab, n_gen, root),
+                                              [subs[0], subs[6], subs[3]])
+    _add_launches(paths[a_path], launches)
+    if (not isinstance(errs[0], AdapterCorruptError) or errs[1] is not None
+            or errs[2] is not None):
+        fail(f"tenants corrupt adapter: errors {errs}")
+    log(f"[tenants] the engine failed only tenant-a's request ({type(errs[0]).__name__}); base "
+        "and tenant-b completed")
+    loader.reset_process_store()
+
+    # -- the request WAL ------------------------------------------------------
+    fsync = fsync_cost(work)
+    log(f"[tenants] WAL admission record cost on this disk (200 records of a 512-word prompt) | "
+        f"{smi} | " + json.dumps({f"{k}_s_per_admit": v for k, v in fsync.items()}))
+
+    def merged_check(tag, done, replies, scores, budgets):
+        # Replies of both processes merged by client id: a request's tokens
+        # are the uninterrupted run's first ``budget``. Returns the largest
+        # gap of the replayed requests' scores from that run's.
+        want = {f"w{i}": [row[:n] for row in _new_tokens(def_updated[i], prompts[i])]
+                for i, n in enumerate(budgets)}
+        got = {cid: [[str(t) for t in row] for row in d["tokens"]]
+               for cid, d in {**done, **replies}.items()}
+        wrong = [cid for cid in want if got.get(cid) != want[cid]]
+        if wrong or set(scores) != set(replies):
+            fail(f"tenants {tag}: merged tokens differ from the uninterrupted run for {wrong}, "
+                 f"or replayed scores {sorted(scores)} are not those of the replies "
+                 f"{sorted(replies)}")
+        return max((float(np.abs(sc - def_scores[int(cid[1:])][:, :sc.shape[1]]).max())
+                    for cid, sc in scores.items()), default=0.0)
+
+    budgets = [n_gen] * len(prompts)
+    wal_dir, done, secs = wal_drill(model_dir, work, "graceful", prompts, budgets, vocab,
+                                    {"SMOKE_SIGTERM_AFTER_PREFILLS": "1"}, 143)
+    summary, replies, scores, s_stats, launches, r_secs = wal_restart(model_dir, work, "graceful",
+                                                                      wal_dir, vocab)
+    _add_launches(paths[w_path], launches)
+    counts = {k: v["launches"] for k, v in launches.items()}
+    extra_ps = counts["flash_prefix_shared_attention"] - counts["flash_causal_attention"]
+    gap = merged_check("wal_graceful", done, replies, scores, budgets)
+    line("wal_graceful_restart", s_stats, launches, s_stats["wall_s"], drill_process_s=secs,
+         restart_process_s=r_secs, done_before=sorted(done), replay=summary,
+         wal=s_stats.get("wal"), max_abs_score_gap_bf16=gap)
+    if (summary["replayed"] != len(prompts) - len(done) or summary["kv_restored"] < 1
+            or set(replies) != {f"w{i}" for i in range(len(prompts))} - set(done)
+            or s_stats["kvpool"]["prefix_reuse_hits"] < 1 or extra_ps < n_layers
+            or extra_ps % n_layers):
+        fail(f"tenants wal_graceful: replay {summary}, replies {sorted(replies)}, reuse hits "
+             f"{s_stats['kvpool']['prefix_reuse_hits']}, {extra_ps} prefix-shared launches "
+             "beyond the full prefills'")
+    log(f"[tenants] wal_graceful: SIGTERM after the first prefill, exit 143 with {len(done)} of "
+        f"{len(prompts)} done; the restart process replayed {summary['replayed']} (kv restored "
+        f"{summary['kv_restored']}, {extra_ps // n_layers} restored block(s) on the suffix-only "
+        f"path: {extra_ps} prefix-shared launches without a causal one), merged tokens equal the "
+        f"default run's, largest score gap {gap:.4e} (bf16, regrouped waves)")
+
+    # The first wave's two requests take 2 tokens: they complete (terminal
+    # records written) before the kill, mid-sweep 4.
+    budgets = [2, 2] + [n_gen] * (len(prompts) - 2)
+    wal_dir, done, secs = wal_drill(model_dir, work, "crash", prompts, budgets, vocab,
+                                    {"FLS_WAL_CRASH_SWEEPS": "3"}, -9)
+    summary, replies, scores, c_stats, launches, r_secs = wal_restart(model_dir, work, "crash",
+                                                                      wal_dir, vocab)
+    _add_launches(paths[w_path], launches)
+    gap = merged_check("wal_crash", done, replies, scores, budgets)
+    torn = c_stats["wal"]["torn_tails"]
+    line("wal_crash_restart", c_stats, launches, c_stats["wall_s"], drill_process_s=secs,
+         restart_process_s=r_secs, done_before=sorted(done), replay=summary,
+         wal=c_stats.get("wal"), max_abs_score_gap_bf16=gap)
+    if (not done or set(replies) & set(done) or summary["skipped_terminal"] != len(done)
+            or summary["replayed"] != len(prompts) - len(done)):
+        fail(f"tenants wal_crash: done before the kill {sorted(done)}, replayed "
+             f"{sorted(replies)}, skipped_terminal {summary['skipped_terminal']}")
+    log(f"[tenants] wal_crash: SIGKILL mid-sweep after 3 sweeps with {len(done)} done; the "
+        f"restart process skipped them and replayed {summary['replayed']}; torn tails {torn} "
+        f"(not fatal); merged tokens equal the default run's, largest score gap {gap:.4e}")
+    shutil.rmtree(root, ignore_errors=True)
+    for name, p in paths.items():
+        missing = [k for k in fa.KERNELS if p.get(k, {}).get("launches", 0) == 0]
+        if missing:
+            fail(f"tenants: kernels never launched on the {name} path: {missing}")
+    log(f"[tenants] phase wall {time.perf_counter() - t_phase:.3f} s | {smi}")
     return paths
 
 
@@ -2720,7 +3389,11 @@ def main() -> None:
                                                n_gen_loop, n_gen_kv)
         paths["llama2_7b_resume"] = phase_resume(work, llama_dir, llama_cfg, prompts,
                                                  llama_runs["scoring"], n_gen_loop)
-        paths.update(phase_serve(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi))
+        serve_runs: dict = {}
+        paths.update(phase_serve(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi,
+                                 record=serve_runs))
+        paths.update(phase_tenants(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi,
+                                   serve_runs["default"]))
         shutil.rmtree(llama_dir, ignore_errors=True)
         paths.update({
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,

@@ -39,12 +39,20 @@ frontends: ``--prompt_pickle P --output_file O`` submits the pickle's
 prompts as requests (``--stagger_ms`` apart) and writes the batch CLI's
 files; without it, requests arrive as JSON lines on stdin
 (``{"prefix", "suffixes", "max_new_tokens", "deadline_s", "slo_class",
-"tenant_id", "id"}``) and each completion or rejection is a JSON line on
-stdout. The JAX serve flags whose modules are not ported yet raise
-``NotImplementedError`` when given a value other than their default.
+"tenant_id", "adapter_id", "id"}``) and each completion or rejection is a
+JSON line on stdout. ``--adapter_dir`` serves LoRA adapters by name (both
+parsers accept it and ``--adapter_max_gb``, as the JAX CLI does);
+``--wal_dir`` journals every request, replays the open ones at the top of
+either frontend (a ``wal replay: ...`` line on stderr) and, on SIGTERM,
+parks the requests in flight for the next start and exits 143. The JAX
+serve flags whose modules are not ported yet raise ``NotImplementedError``
+when given a value other than their default.
 
-``verify`` audits a model directory (its precision plan included) and/or a
-spill directory and exits 2 on any problem; ``verify --hbm_pin_gb N``
+``prepare-adapter --peft_dir P --adapter_dir R --name N`` converts a PEFT
+LoRA checkpoint into the registry layout.
+
+``verify`` audits a model directory (its precision plan included), a spill
+directory and/or an adapter registry and exits 2 on any problem; ``verify --hbm_pin_gb N``
 dry-runs the residency planner. ``plan-precision`` probes each layer's
 sensitivity on a calibration batch and plans an int4/int8/bf16 dtype per
 layer under a byte budget or a divergence cap (``--apply`` writes the
@@ -82,6 +90,27 @@ def _float_or_auto(v: str) -> float | None:
     if v.lower() == "auto":
         return None
     return float(v)
+
+
+def _add_adapter_flags(p: argparse.ArgumentParser) -> None:
+    """Multi-tenant LoRA serving (the JAX CLI adds them to the batch and the
+    serve parsers; the batch CLI keeps them in its config and serves no
+    adapter)."""
+    p.add_argument("--adapter_dir", type=str, default="",
+                   help="registry root of named LoRA adapters, one subdir per adapter (per-layer "
+                        "delta safetensors, adapter_plan.json and an integrity manifest; "
+                        "prepare-adapter makes one from a PEFT checkpoint). Requests carrying an "
+                        "adapter_id decode under that adapter's low-rank delta inside the shared "
+                        "base-model sweep. Empty (default) = off: adapter_id requests fail typed")
+    p.add_argument("--adapter_max_gb", type=_float_or_auto, default=None,
+                   help="host LRU budget of adapter factors in GB: 'auto' (default) = 5%% of the "
+                        "available RAM; 0 = adapter serving off even with --adapter_dir")
+
+
+def _adapter_config_from_args(args: argparse.Namespace):
+    from flexible_llm_sharding_tpu_torch.config import AdapterConfig
+
+    return AdapterConfig(dir=args.adapter_dir, max_gb=args.adapter_max_gb)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -159,6 +188,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="kv_cache mode: verify this many prompt-lookup drafted tokens per "
                         "streamed pass (greedy-exact; divides weight streams per token by the "
                         "acceptance factor when the model must re-stream); 0 = off")
+    _add_adapter_flags(p)
     return p
 
 
@@ -173,6 +203,10 @@ def build_verify_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", type=str, default=None, help="prepared per-layer checkpoint dir")
     p.add_argument("--spill_dir", type=str, default=None,
                    help="activation spill dir (--disk_folder of a run)")
+    p.add_argument("--adapter_dir", type=str, default=None,
+                   help="LoRA adapter registry root to audit: every adapter's delta files "
+                        "against its integrity manifest and its plan (adapter_mismatch, "
+                        "plan_missing_file, corrupt_plan, ...)")
     p.add_argument("--hbm_pin_gb", type=str, default=None,
                    help="dry-run the device residency planner at this budget (GB, or 'auto' "
                         "for the card's free memory minus headroom): reports which layers the "
@@ -186,12 +220,13 @@ def build_verify_parser() -> argparse.ArgumentParser:
 def verify_main(argv: list[str] | None = None) -> None:
     """The ``verify`` subcommand: exits 2 when a report has a problem."""
     args = build_verify_parser().parse_args(argv)
-    if not args.model_path and not args.spill_dir:
-        raise SystemExit("verify: give --model_path and/or --spill_dir")
+    if not args.model_path and not args.spill_dir and not args.adapter_dir:
+        raise SystemExit("verify: give --model_path, --spill_dir and/or --adapter_dir")
     if args.hbm_pin_gb is not None and not args.model_path:
         raise SystemExit("verify: --hbm_pin_gb requires --model_path")
     from flexible_llm_sharding_tpu_torch.integrity.verify import (
         format_report,
+        verify_adapter_dir,
         verify_model_dir,
         verify_spill_dir,
     )
@@ -201,6 +236,8 @@ def verify_main(argv: list[str] | None = None) -> None:
         reports.append(verify_model_dir(args.model_path))
     if args.spill_dir:
         reports.append(verify_spill_dir(args.spill_dir))
+    if args.adapter_dir:
+        reports.append(verify_adapter_dir(args.adapter_dir))
     residency_plan = None
     if args.hbm_pin_gb is not None:
         from flexible_llm_sharding_tpu_torch.runtime.residency import (
@@ -320,11 +357,55 @@ def plan_precision_main(argv: list[str] | None = None, tokenizer=None):
     return plan
 
 
+def build_prepare_adapter_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m flexible_llm_sharding_tpu_torch prepare-adapter",
+        description="Convert a Hugging Face PEFT LoRA checkpoint dir (adapter_config.json + "
+                    "adapter_model.safetensors) into the serving registry layout under "
+                    "--adapter_dir: per-decoder-layer delta safetensors, an adapter_plan.json "
+                    "and an integrity manifest. Each module's lora_alpha/r is folded into the "
+                    "stored B factors (apply scale 1.0); square target modules only.",
+    )
+    p.add_argument("--peft_dir", type=str, required=True,
+                   help="PEFT checkpoint dir to convert (adapter_model.safetensors; .bin "
+                        "checkpoints are refused)")
+    p.add_argument("--adapter_dir", type=str, required=True,
+                   help="registry root to write into; the adapter lands at <adapter_dir>/<name>")
+    p.add_argument("--name", type=str, required=True,
+                   help="adapter name: the adapter_id serving requests carry")
+    p.add_argument("--json", action="store_true", help="print the written plan as JSON")
+    return p
+
+
+def prepare_adapter_main(argv: list[str] | None = None) -> None:
+    """The ``prepare-adapter`` subcommand."""
+    args = build_prepare_adapter_parser().parse_args(argv)
+    from flexible_llm_sharding_tpu_torch.adapters.registry import (
+        AdapterPlan,
+        convert_peft_checkpoint,
+    )
+
+    try:
+        adir = convert_peft_checkpoint(args.peft_dir, args.adapter_dir, args.name)
+    except ValueError as e:
+        raise SystemExit(f"prepare-adapter: {e}") from e
+    plan = AdapterPlan.load(adir)
+    if args.json:
+        print(json.dumps(plan.to_json()))
+        return
+    ranks = plan.ranks
+    print(f"adapter {plan.name!r} -> {adir}: {len(plan.layers)} layers, rank {plan.rank} "
+          f"(alpha {plan.alpha:g}, scale {plan.scale:g}), hidden {plan.hidden_size}, "
+          f"{plan.nbytes() / 1e6:.2f} MB of deltas")
+    for lname, _ in plan.layers:
+        print(f"  r={ranks[lname]:<3d} {lname}")
+    print(f"serve with: --adapter_dir {args.adapter_dir} ; requests carry "
+          f'{{"adapter_id": "{plan.name}"}}')
+
+
 # The JAX serve parser's flags whose modules are not ported yet: (flag,
 # argparse keywords, where it stands in ROADMAP.md). Each is parsed as there
 # and refused unless it keeps its default.
-_ADAPTERS = "ROADMAP queue 1 item 6: adapters"
-_WAL = "ROADMAP queue 1 item 6: the WAL and recovery"
 _FLEET = "ROADMAP queue 1 item 6: the fleet, router and autoscaler"
 _FAULTS_OBS = "ROADMAP queue 1 item 7: faults, pressure and observability"
 _UNPORTED_SERVE_FLAGS = (
@@ -334,10 +415,6 @@ _UNPORTED_SERVE_FLAGS = (
     ("--router_depth_weight", dict(type=float, default=1.0), _FLEET),
     ("--router_health_poll_s", dict(type=float, default=0.2), _FLEET),
     ("--router_drain_recoveries", dict(type=int, default=0), _FLEET),
-    ("--wal_dir", dict(type=str, default=""), _WAL),
-    ("--wal_fsync", dict(type=str, default="admit", choices=["always", "admit", "never"]),
-     _WAL),
-    ("--wal_max_mb", dict(type=float, default=64.0), _WAL),
     ("--chaos", dict(action="store_true"), _FAULTS_OBS),
     ("--chaos_seed", dict(type=int, default=0), _FAULTS_OBS),
     ("--chaos_error_rate", dict(type=float, default=0.1), _FAULTS_OBS),
@@ -345,8 +422,6 @@ _UNPORTED_SERVE_FLAGS = (
     ("--chaos_latency_rate", dict(type=float, default=0.0), _FAULTS_OBS),
     ("--chaos_sites", dict(type=str, default=""), _FAULTS_OBS),
     ("--chaos_max_faults", dict(type=int, default=-1), _FAULTS_OBS),
-    ("--adapter_dir", dict(type=str, default=""), _ADAPTERS),
-    ("--adapter_max_gb", dict(type=_float_or_auto, default=None), _ADAPTERS),
     ("--pressure", dict(action="store_true"), _FAULTS_OBS),
     ("--pressure_poll_s", dict(type=float, default=1.0), _FAULTS_OBS),
     ("--pressure_host_min_gb", dict(type=float, default=1.0), _FAULTS_OBS),
@@ -560,6 +635,19 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="fraction of requests that must complete, e.g. 0.999 (0 = off)")
     p.add_argument("--slo_min_samples", type=int, default=20,
                    help="budgets are not judged below this many samples")
+    _add_adapter_flags(p)
+    p.add_argument("--wal_dir", type=str, default="",
+                   help="crash-safe serving: directory of the durable request WAL. Every "
+                        "admission, sweep-boundary progress and terminal outcome is journaled; "
+                        "the next start replays every still-open request before new traffic, "
+                        "and SIGTERM parks the requests in flight for it; '' = off")
+    p.add_argument("--wal_fsync", type=str, default="admit", choices=["always", "admit", "never"],
+                   help="'always' fsyncs every record, 'admit' (default) the admission and "
+                        "terminal records, 'never' none (every record is still flushed to the "
+                        "kernel)")
+    p.add_argument("--wal_max_mb", type=float, default=64.0,
+                   help="WAL segment rotation size; sealed segments whose every request is "
+                        "terminal are deleted")
     for flag, kw, where in _UNPORTED_SERVE_FLAGS:
         p.add_argument(flag, help=f"not ported yet ({where}): any value but the default raises",
                        **kw)
@@ -605,6 +693,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             kv_page_tokens=args.kv_page_tokens, kv_pool_gb=args.kv_pool_gb,
             kv_host_spill=args.kv_host_spill, hbm_pin_gb=args.hbm_pin_gb,
             readahead_threads=args.readahead_threads,
+            adapters=_adapter_config_from_args(args),
         )
         slo = SLOConfig() if not args.slo else SLOConfig(
             enabled=True, ttft_p95_s=args.slo_ttft_p95_s,
@@ -621,7 +710,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             spec_raise_threshold=args.spec_raise_threshold,
             spec_backoff_threshold=args.spec_backoff_threshold,
             spec_draft_budget=args.spec_draft_budget, sched=_sched_config_from_args(args),
-            slo=slo,
+            slo=slo, wal_dir=args.wal_dir, wal_fsync=args.wal_fsync, wal_max_mb=args.wal_max_mb,
         )
     except ValueError as e:
         raise SystemExit(str(e)) from e
@@ -642,8 +731,33 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, serve_cfg, tokenizer=tokenizer, device=device)
     extra: dict = {}
+
+    def replay_open(callback=None) -> None:
+        # The requests a previous start left open, before any new traffic.
+        if engine._wal is None:
+            return
+        from flexible_llm_sharding_tpu_torch.serve import recovery
+
+        summary = recovery.replay(engine, engine._wal, callback=callback)
+        print(f"wal replay: {summary['replayed']} reopened, {summary['skipped_terminal']} already "
+              f"terminal, kv restored {summary['kv_restored']} (failed {summary['kv_failed']})",
+              file=sys.stderr, flush=True)
+
+    import signal
+
+    def on_sigterm(signum, frame):
+        # A graceful restart: the waves in flight finish their sweep, every
+        # unfinished request is parked in the WAL, and the process exits.
+        engine.shutdown_for_restart()
+        raise SystemExit(143)
+
+    try:
+        old_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
+    except ValueError:  # not the main thread: the caller owns shutdown
+        old_sigterm = None
     try:
         if args.prompt_pickle:
+            replay_open()
             with open(args.prompt_pickle, "rb") as f:
                 prompts = pickle.load(f)
             requests = []
@@ -668,7 +782,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             with open(_updated_path(args.prompt_pickle), "wb") as f:
                 pickle.dump([r.updated for r in results], f)
         else:
-            _serve_jsonl(engine)
+            _serve_jsonl(engine, replay_open)
     except BaseException as e:
         if engine.error is not None and not isinstance(e, SystemExit):
             # A fatal error cancels the queue, so the gather raises the
@@ -676,7 +790,11 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             raise SystemExit(f"serve engine failed: {engine.error!r}") from e
         raise
     finally:
-        engine.shutdown(drain=True)
+        try:
+            engine.shutdown(drain=True)  # a SIGTERM meanwhile still parks the rest
+        finally:
+            if old_sigterm is not None:
+                signal.signal(signal.SIGTERM, old_sigterm)
     if engine.error is not None:
         raise SystemExit(f"serve engine failed: {engine.error!r}")
     wall = time.perf_counter() - t0
@@ -692,9 +810,10 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
     return stats
 
 
-def _serve_jsonl(engine) -> None:
+def _serve_jsonl(engine, replay_open) -> None:
     """Requests as JSON lines on stdin; one JSON line per completion or
-    rejection on stdout (tokens and text, not scores)."""
+    rejection on stdout (tokens and text, not scores). ``replay_open(reply)``
+    first submits the WAL's open requests, their replies on stdout too."""
     import threading
 
     out_lock = threading.Lock()
@@ -717,6 +836,7 @@ def _serve_jsonl(engine) -> None:
         with out_lock:
             print(json.dumps(line), flush=True)
 
+    replay_open(reply)
     for line_no, raw in enumerate(sys.stdin, 1):
         raw = raw.strip()
         if not raw:
@@ -726,7 +846,8 @@ def _serve_jsonl(engine) -> None:
             engine.submit(d["prefix"], tuple(d.get("suffixes") or ("",)),
                           max_new_tokens=d.get("max_new_tokens"), deadline_s=d.get("deadline_s"),
                           callback=reply, slo_class=d.get("slo_class"),
-                          tenant_id=d.get("tenant_id"), client_id=d.get("id"))
+                          tenant_id=d.get("tenant_id"), adapter_id=d.get("adapter_id"),
+                          client_id=d.get("id"))
         except Exception as e:
             # One bad line must not take the server down: reject it with
             # its reason and keep serving.
@@ -768,6 +889,7 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         hbm_pin_gb=args.hbm_pin_gb,
         score_sink_max_device=args.score_sink_max_device,
         resume=args.resume,
+        adapters=_adapter_config_from_args(args),
     )
 
 
@@ -788,7 +910,7 @@ _SUMMED_HOST_KEYS = ("io_retries", "integrity_failures", "reread_heals", "quaran
 
 def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     """Run the batch CLI and return the stats it prints, or the ``serve``,
-    ``verify`` or ``plan-precision`` subcommand."""
+    ``verify``, ``plan-precision`` or ``prepare-adapter`` subcommand."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         return serve_main(argv[1:], tokenizer=tokenizer)
@@ -796,6 +918,9 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
         return verify_main(argv[1:])
     if argv and argv[0] == "plan-precision":
         plan_precision_main(argv[1:], tokenizer=tokenizer)
+        return None
+    if argv and argv[0] == "prepare-adapter":
+        prepare_adapter_main(argv[1:])
         return None
     args = build_parser().parse_args(argv)
     try:
@@ -886,5 +1011,6 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     return stats
 
 
-__all__ = ["build_parser", "build_plan_precision_parser", "build_serve_parser",
-           "build_verify_parser", "main", "plan_precision_main", "serve_main", "verify_main"]
+__all__ = ["build_parser", "build_plan_precision_parser", "build_prepare_adapter_parser",
+           "build_serve_parser", "build_verify_parser", "main", "plan_precision_main",
+           "prepare_adapter_main", "serve_main", "verify_main"]

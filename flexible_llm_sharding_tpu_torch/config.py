@@ -627,6 +627,23 @@ DTYPES = {
 
 
 @dataclasses.dataclass(frozen=True)
+class AdapterConfig:
+    """Multi-tenant LoRA serving (``adapters/``): ``dir`` is the registry
+    root, one subdirectory per named adapter; empty (the default) turns
+    adapters off, and a request that names one fails typed
+    (``AdapterNotFound``). ``max_gb`` budgets the host LRU of adapter
+    factors (``adapters/loader.py``): GB, 0 to turn adapters off, or None
+    (auto) for 5% of the available RAM."""
+
+    dir: str = ""
+    max_gb: float | None = None
+
+    def __post_init__(self) -> None:
+        if self.max_gb is not None and self.max_gb < 0:
+            raise ValueError(f"max_gb must be >= 0 (or None for auto), got {self.max_gb}")
+
+
+@dataclasses.dataclass(frozen=True)
 class FrameworkConfig:
     """Runtime flags of the batch CLI.
 
@@ -668,6 +685,9 @@ class FrameworkConfig:
     ``kv_pool_gb`` its host-RAM budget (None = auto, 5% of the available
     RAM capped at 4 GB; 0 disables), ``kv_host_spill`` whether cold pages
     spill to checksummed files under ``disk_folder/kvpool`` or drop.
+
+    ``adapters``: the LoRA adapter registry the serving engine reads
+    (:class:`AdapterConfig`; the batch CLI accepts and keeps it).
     """
 
     model_path: str = "./"
@@ -704,6 +724,7 @@ class FrameworkConfig:
     kv_page_tokens: int = 16
     kv_pool_gb: float | None = None
     kv_host_spill: bool = True
+    adapters: AdapterConfig = dataclasses.field(default_factory=AdapterConfig)
 
     def __post_init__(self) -> None:
         if self.storage_location not in STORAGE_LOCATIONS:
@@ -764,6 +785,15 @@ class FrameworkConfig:
         if self.kv_pool_gb is not None:
             return int(self.kv_pool_gb * 1e9)
         from flexible_llm_sharding_tpu_torch.runtime.kvpool import _auto_budget_bytes
+
+        return _auto_budget_bytes()
+
+    def effective_adapter_bytes(self) -> int:
+        """The adapter store's budget in bytes: ``adapters.max_gb`` GB when
+        given (0 = off), else auto (``adapters.loader._auto_budget_bytes``)."""
+        if self.adapters.max_gb is not None:
+            return int(self.adapters.max_gb * 1e9)
+        from flexible_llm_sharding_tpu_torch.adapters.loader import _auto_budget_bytes
 
         return _auto_budget_bytes()
 
@@ -915,7 +945,14 @@ class ServeConfig:
     ``spec_k_max``] by its acceptance over ``spec_window`` drafting passes
     (raised at ``spec_raise_threshold``, lowered at
     ``spec_backoff_threshold``), funding interactive rows first within a
-    pass's ``spec_draft_budget`` tokens (0 = unlimited)."""
+    pass's ``spec_draft_budget`` tokens (0 = unlimited).
+
+    The request WAL (``serve/wal.py``): ``wal_dir`` ("" = off) holds the
+    crc-framed segments of every admission, sweep-boundary progress and
+    terminal outcome, replayed at the next start; ``wal_fsync`` is
+    ``always`` (every record), ``admit`` (admissions and terminals) or
+    ``never`` (flushed to the kernel only); segments rotate at
+    ``wal_max_mb``."""
 
     queue_capacity: int = 64
     max_wave_requests: int = 8
@@ -937,6 +974,9 @@ class ServeConfig:
     spec_draft_budget: int = 0
     sched: SchedConfig = dataclasses.field(default_factory=SchedConfig)
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
+    wal_dir: str = ""
+    wal_fsync: str = "admit"
+    wal_max_mb: float = 64.0
 
     def __post_init__(self) -> None:
         if self.queue_capacity < 1:
@@ -978,6 +1018,11 @@ class ServeConfig:
                 f"backoff={self.spec_backoff_threshold} raise={self.spec_raise_threshold}")
         if self.spec_draft_budget < 0:
             raise ValueError("spec_draft_budget must be >= 0 (0 = unlimited)")
+        if self.wal_fsync not in ("always", "admit", "never"):
+            raise ValueError(
+                f"wal_fsync must be one of 'always'/'admit'/'never', got {self.wal_fsync!r}")
+        if self.wal_max_mb <= 0:
+            raise ValueError("wal_max_mb must be > 0")
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
@@ -999,6 +1044,7 @@ def resolve_device(name: str = "cuda") -> torch.device:
 
 
 __all__ = [
+    "AdapterConfig",
     "DEFAULT_MAX_TOKEN_LEN",
     "DTYPES",
     "FrameworkConfig",

@@ -152,6 +152,12 @@ def checksum_chunked(flat_u8: np.ndarray, chunk: int = _CRC_CHUNK) -> str:
     return f"{crc & 0xFFFFFFFF:08x}"
 
 
+def checksum_bytes(buf) -> str:
+    """crc32 (hex) of a bytes-like buffer in one pass: the request WAL's
+    record checksum (``serve/wal.py``)."""
+    return f"{zlib.crc32(buf) & 0xFFFFFFFF:08x}"
+
+
 def tensor_checksum(x) -> str:
     """crc32 (hex) over a tensor's raw contiguous bytes: the one checksum of
     the manifest, the spill sidecars and the ``verify`` audit."""
@@ -406,6 +412,7 @@ __all__ = [
     "ShardCorruptError",
     "SpillCorruptError",
     "SpillReadError",
+    "checksum_bytes",
     "checksum_chunked",
     "crc32_combine",
     "flat_dtype_kind",

@@ -1,9 +1,10 @@
 """Offline integrity audit, the ``verify`` subcommand's engine (the JAX
-package's ``integrity/verify.py``, less the adapter audit, ROADMAP item 7).
+package's ``integrity/verify.py``).
 
 Recomputes every checksum of a prepared model directory against its
-``integrity.json``, and of a spill directory against the ``.npy``
-sidecars. Unlike the load path, the audit is strict: a layer in the
+``integrity.json``, of a spill directory against the ``.npy`` sidecars, and
+of every adapter of a LoRA registry root against its adapter's manifest and
+plan (``verify_adapter_dir``). Unlike the load path, the audit is strict: a layer in the
 manifest but not on disk, a layer file the manifest lacks, and tensor-set
 differences are all problems. A directory with an embedded precision plan
 is audited against it both ways: the plan against the manifest's recorded
@@ -221,6 +222,123 @@ def verify_spill_dir(spill_dir: str) -> dict:
             "spills_unverified": unverified, "problems": problems}
 
 
+def verify_adapter_dir(root: str) -> dict:
+    """Audit a LoRA adapter registry root (``--adapter_dir``): every
+    adapter's delta files against its manifest and its plan, strictly.
+    Returns ``{"path", "ok", "adapters_checked", "layers_checked",
+    "tensors_checked", "problems"}``; statuses ``corrupt_plan`` |
+    ``plan_missing_file`` | ``not_in_plan`` | ``adapter_mismatch`` (a
+    checksum, size or shape that differs from the manifest or the plan) and
+    the manifest's ``no_manifest`` | ``corrupt_manifest`` | ``missing_file``
+    | ``not_in_manifest`` | ``unreadable`` | ``tensor_diff``."""
+    from flexible_llm_sharding_tpu_torch.adapters.registry import ADAPTER_PLAN_NAME, AdapterPlan
+
+    problems: list[dict] = []
+    adapters_checked = layers_checked = tensors_checked = 0
+    try:
+        entries = sorted(os.listdir(root))
+    except OSError as e:
+        return {"path": root, "ok": False, "adapters_checked": 0, "layers_checked": 0,
+                "tensors_checked": 0, "problems": [_problem(root, "unreadable", repr(e))]}
+    for name in entries:
+        adir = os.path.join(root, name)
+        if not os.path.isdir(adir):
+            continue
+        disk_layers = {f[: -len(LAYER_FILE_SUFFIX)] for f in os.listdir(adir)
+                       if f.endswith(LAYER_FILE_SUFFIX)}
+        try:
+            plan = AdapterPlan.load(adir)
+        except (ValueError, OSError) as e:
+            problems.append(_problem(f"{name}/{ADAPTER_PLAN_NAME}", "corrupt_plan", str(e)))
+            plan = None
+        else:
+            if plan is None:
+                if not disk_layers:
+                    continue  # not an adapter
+                problems.append(_problem(
+                    f"{name}/{ADAPTER_PLAN_NAME}", "corrupt_plan",
+                    f"dir holds {len(disk_layers)} delta file(s) but no adapter plan; re-run "
+                    "prepare-adapter"))
+        if plan is None and not disk_layers:
+            continue
+        adapters_checked += 1
+        plan_ranks = dict(plan.layers) if plan is not None else {}
+        for layer in sorted(plan_ranks.keys() - disk_layers):
+            problems.append(_problem(f"{name}/{layer}{LAYER_FILE_SUFFIX}", "plan_missing_file",
+                                     f"adapter plan covers layer {layer!r} but its delta file is "
+                                     "gone"))
+        if plan is not None:
+            for layer in sorted(disk_layers - plan_ranks.keys()):
+                problems.append(_problem(
+                    f"{name}/{layer}{LAYER_FILE_SUFFIX}", "not_in_plan",
+                    f"delta file {layer!r} exists on disk but the adapter plan has no entry for "
+                    "it"))
+        try:
+            manifest = iman.load_manifest(adir)
+        except ValueError as e:
+            manifest = None
+            problems.append(_problem(f"{name}/{iman.MANIFEST_NAME}", "corrupt_manifest", str(e)))
+        else:
+            if manifest is None:
+                problems.append(_problem(
+                    f"{name}/{iman.MANIFEST_NAME}", "no_manifest",
+                    "adapter dir has no integrity manifest; re-run prepare-adapter to enable "
+                    "verification"))
+        man_layers = dict((manifest or {}).get("layers", {}))
+        for layer in sorted(man_layers.keys() - disk_layers):
+            problems.append(_problem(f"{name}/{layer}{LAYER_FILE_SUFFIX}", "missing_file",
+                                     f"layer {layer!r} is in the manifest but its file is gone"))
+        if manifest is not None:
+            for layer in sorted(disk_layers - man_layers.keys()):
+                problems.append(_problem(
+                    f"{name}/{layer}{LAYER_FILE_SUFFIX}", "not_in_manifest",
+                    f"delta file {layer!r} exists on disk but the manifest has no entry for it"))
+        for layer in sorted(disk_layers):
+            ref = f"{name}/{layer}{LAYER_FILE_SUFFIX}"
+            path = os.path.join(adir, layer + LAYER_FILE_SUFFIX)
+            try:
+                header, _ = safetensors_header(path)
+                flat = stored_bytes(path)
+            except Exception as e:  # truncated header, bad JSON, offsets past the end
+                problems.append(_problem(ref, "unreadable", repr(e)))
+                continue
+            layers_checked += 1
+            if plan is not None and layer in plan_ranks:
+                # The plan's shapes: the offline face of the loader's check.
+                want_a = (plan.hidden_size, plan_ranks[layer])
+                for key, want in (("lora_A", want_a), ("lora_B", want_a[::-1])):
+                    got = tuple(header[key]["shape"]) if key in header else None
+                    if got is not None and got != want:
+                        problems.append(_problem(ref, "adapter_mismatch",
+                                                 f"{key} shape {got} vs plan {want}"))
+            want = man_layers.get(layer, {}).get("tensors")
+            if want is None:
+                continue
+            missing = sorted(want.keys() - flat.keys())
+            extra = sorted(flat.keys() - want.keys())
+            if missing or extra:
+                problems.append(_problem(ref, "tensor_diff",
+                                         f"manifest-only tensors {missing}, file-only tensors "
+                                         f"{extra}"))
+            for key in sorted(want.keys() & flat.keys()):
+                tensors_checked += 1
+                arr, meta = flat[key], want[key]
+                if int(arr.nbytes) != int(meta["n"]):
+                    problems.append(_problem(
+                        ref, "adapter_mismatch",
+                        f"tensor {key!r}: {arr.nbytes} bytes vs manifest {meta['n']} "
+                        "(truncated/resized)"))
+                    continue
+                got = iman.tensor_checksum(arr)
+                if got != meta["c"]:
+                    problems.append(_problem(ref, "adapter_mismatch",
+                                             f"tensor {key!r}: checksum {got} != manifest "
+                                             f"{meta['c']}"))
+    return {"path": root, "ok": not problems, "adapters_checked": adapters_checked,
+            "layers_checked": layers_checked, "tensors_checked": tensors_checked,
+            "problems": problems}
+
+
 def format_report(report: dict) -> str:
     """Human-readable per-file lines and one summary line."""
     lines = [f"{p['status'].upper():>15}  {p['file']}  {p['detail']}" for p in report["problems"]]
@@ -231,5 +349,5 @@ def format_report(report: dict) -> str:
     return "\n".join(lines)
 
 
-__all__ = ["file_dtype_kind", "format_report", "stored_bytes", "verify_model_dir",
-           "verify_spill_dir"]
+__all__ = ["file_dtype_kind", "format_report", "stored_bytes", "verify_adapter_dir",
+           "verify_model_dir", "verify_spill_dir"]

@@ -39,8 +39,8 @@ The per-shard pieces (:func:`prefill_decoders`, :func:`suffix_prefill_decoders`,
 :func:`decode_decoders`, :func:`decode_norm_head`, :func:`spec_norm_head`) and
 :class:`SpecVerifier` are shared with the serving
 engine (``serve/engine.py``), which runs them per wave at each shard of its
-weight sweeps. Adapters and the multi-device modes are not part of this port
-yet.
+weight sweeps, with a wave's LoRA shift (``delta``) where it carries
+adapters. The multi-device modes are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from flexible_llm_sharding_tpu_torch.adapters.apply import lora_shift_rows
 from flexible_llm_sharding_tpu_torch.models import llama
 from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 from flexible_llm_sharding_tpu_torch.ops.norm import rms_norm
@@ -334,16 +335,29 @@ class KVStore:
         self._mem.clear()
 
 
+def _shift(delta, i: int, h):
+    """Layer ``i``'s LoRA shift of ``h`` (``adapters/apply.lora_shift_rows``)."""
+    return lora_shift_rows(h, delta["pairs"][i], delta["g"], delta["scale"])
+
+
 def prefill_decoders(model_cfg, layers, first: int, prefix_h, suffix_h, prefix_len, total_len,
-                     sliding, rope_on):
+                     sliding, rope_on, delta=None):
     """A shard's decoder layers over a block's prefill (the JAX package's
     ``_prefill_decoders``): ``layers`` the shard's decoder params, the
     first of them decoder ``first`` of the model; ``sliding``/``rope_on``
     the model's per-layer patterns. Returns (prefix_h, suffix_h, kvs), kvs
-    each layer's post-rope KV dict {'kp','vp','ks','vs'}."""
+    each layer's post-rope KV dict {'kp','vp','ks','vs'}.
+
+    ``delta``: the optional multi-adapter LoRA shift, applied to both
+    streams at each layer's entry: {"pairs": per layer {group: (A [D, r],
+    B [r, D])}, "g": the block's row -> group list, "scale": [G] float32},
+    factors and scales on the device. None runs exactly the computation
+    without adapters."""
     kvs = []
     for i, layer in enumerate(layers):
         d = first + i
+        if delta is not None:
+            prefix_h, suffix_h = _shift(delta, i, prefix_h), _shift(delta, i, suffix_h)
         prefix_h, suffix_h, kv = llama.prefix_suffix_layer(
             layer, model_cfg, prefix_h, suffix_h, prefix_len, return_kv=True,
             sliding=sliding[d], total_len=total_len, rope_on=rope_on[d],
@@ -353,15 +367,19 @@ def prefill_decoders(model_cfg, layers, first: int, prefix_h, suffix_h, prefix_l
 
 
 def suffix_prefill_decoders(model_cfg, layers, first: int, kps, vps, suffix_h, prefix_len,
-                            total_len, sliding, rope_on):
+                            total_len, sliding, rope_on, delta=None):
     """The suffix-only prefill of a shard's decoder layers over pooled
     prefix KV (the JAX package's ``_suffix_prefill_decoders``): ``kps``/
     ``vps`` one post-rope [B, Lp, n_kv, hd] tensor per layer. Bit-equal to
     :func:`prefill_decoders`' suffix stream. Returns (suffix_h, kvs), kvs
-    each layer's {'kp','vp','ks','vs'} with the pooled kp/vp re-attached."""
+    each layer's {'kp','vp','ks','vs'} with the pooled kp/vp re-attached.
+    ``delta`` shifts the suffix stream at each layer's entry (the pooled KV
+    was made under the same adapter: the pool's keys are salted by it)."""
     kvs = []
     for i, (layer, kp, vp) in enumerate(zip(layers, kps, vps)):
         d = first + i
+        if delta is not None:
+            suffix_h = _shift(delta, i, suffix_h)
         suffix_h, kv_s = llama.suffix_only_layer(
             layer, model_cfg, kp, vp, suffix_h, prefix_len, sliding=sliding[d],
             total_len=total_len, rope_on=rope_on[d],
@@ -371,13 +389,16 @@ def suffix_prefill_decoders(model_cfg, layers, first: int, kps, vps, suffix_h, p
 
 
 def decode_decoders(model_cfg, layers, first: int, kvs, x, prefix_len, suffix_eos, t, sliding,
-                    rope_on):
+                    rope_on, delta=None):
     """One decode step of a shard's decoder layers (the JAX package's
     ``_decode_decoders_impl``): x [B, S, K, D] the newest tokens, ``kvs``
     the layers' KV dicts (generated slot t, or the [B, S] per-suffix
-    offsets of a verify pass, written in place). Returns x."""
+    offsets of a verify pass, written in place). ``delta`` shifts x at each
+    layer's entry. Returns x."""
     for i, (layer, kv) in enumerate(zip(layers, kvs)):
         d = first + i
+        if delta is not None:
+            x = _shift(delta, i, x)
         x = llama.decode_step_layer(layer, model_cfg, x, kv, prefix_len, suffix_eos, t,
                                     sliding=sliding[d], rope_on=rope_on[d])
     return x

@@ -35,15 +35,25 @@ KV for the life of the process:
 Longrope models are excluded by the engine: their prefix KV depends on the
 prompt's total length through the rope-table switch.
 
+- **Export and restore.** A graceful restart writes each live request's
+  entry to checksummed ``.npy`` page files (``export_entry``, the spill
+  format) and records their refs in the request WAL; the next process's
+  replay rebuilds and seals the entry from them (``restore_entry``), so the
+  replayed request's prefill is a reuse hit. A page that fails its check
+  fails the restore (counted) and the request prefills again: the restore
+  is never a correctness dependency. The files are the JAX package's, so
+  either package restores the other's.
+
 One ``threading.RLock`` guards the pool's state; spill file I/O runs off
-the lock. Not ported yet, each raising ``NotImplementedError``: the WAL's
-``export_entry``/``restore_entry``, the brownout lever
-``pressure_evict``/``pressure_restore`` and the chaos ``set_injector``.
+the lock. Not ported yet, each raising ``NotImplementedError``: the
+brownout lever ``pressure_evict``/``pressure_restore`` and the chaos
+``set_injector``.
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 import threading
 
 import numpy as np
@@ -59,7 +69,6 @@ from flexible_llm_sharding_tpu_torch.runtime.activations import (
 )
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import available_host_bytes
 
-_NEXT_SERVING_SLICE = "ROADMAP queue 1: the next serving slice"
 _FAULTS_SLICE = "ROADMAP queue 1: faults, pressure and observability"
 
 
@@ -167,6 +176,9 @@ class KVPagePool:
         self.prefix_reuse_hits = 0  # guarded by: _lock
         self.bytes_resident = 0  # guarded by: _lock
         self.entries_sealed = 0  # guarded by: _lock
+        self.entries_exported = 0  # guarded by: _lock
+        self.entries_restored = 0  # guarded by: _lock
+        self.restore_failures = 0  # guarded by: _lock
 
     # -- configuration -----------------------------------------------------
 
@@ -310,14 +322,94 @@ class KVPagePool:
 
     # -- durable export/restore (the request WAL) ----------------------------
 
-    def export_entry(self, handle: PrefixHandle, dirpath: str, prefix_ids: tuple, salt=None):
-        raise NotImplementedError(
-            f"exporting pool entries to the request WAL is not ported yet ({_NEXT_SERVING_SLICE})")
+    def export_entry(self, handle: PrefixHandle, dirpath: str, prefix_ids: tuple,
+                     salt=None) -> dict | None:
+        """Write one entry's prefix KV to checksummed ``.npy`` page files
+        in a new directory under ``dirpath`` (``_save_npy`` with its
+        ``.crc`` sidecar) and return the JSON-able refs
+        :meth:`restore_entry` rebuilds it from. ``prefix_ids``/``salt`` are
+        the acquire key. None, never a raise, when the entry cannot be
+        exported (a released handle, an unreadable page, a full disk): the
+        replay then prefills again.
+
+        Every export's directory is new (``mkdtemp``), so a later start's
+        export never rewrites the files that an older export's refs, still
+        held by a parked request, name. (The JAX package numbers its files
+        from a per-process counter, which restarts at every start.)"""
+        if handle.released or not handle.path or not handle.segs:
+            return None
+        dtype_name = None
+        segs = []
+        try:
+            os.makedirs(dirpath, exist_ok=True)
+            export_dir = tempfile.mkdtemp(prefix="walkv-", dir=dirpath)
+            for seg_key in sorted(handle.segs):
+                k, v = self.assemble(handle, seg_key)
+                if dtype_name is None:
+                    dtype_name = str(k.dtype).removeprefix("torch.")
+                stem = os.path.join(export_dir, "-".join(str(part) for part in seg_key))
+                kp, vp = f"{stem}-k.npy", f"{stem}-v.npy"
+                _save_npy(kp, _to_numpy(k))
+                _save_npy(vp, _to_numpy(v))
+                segs.append([list(seg_key), kp, vp])
+        except (OSError, SpillCorruptError, SpillReadError, KeyError):
+            return None
+        with self._lock:
+            self.entries_exported += 1
+        return {
+            "prefix_ids": [int(t) for t in prefix_ids],
+            "prefix_len": int(handle.prefix_len),
+            "lp_bucket": int(handle.lp_bucket),
+            "salt": salt,
+            # bfloat16 pages are stored as their uint16 bits: the refs name
+            # the real dtype.
+            "dtype": dtype_name,
+            "segs": segs,
+        }
 
     def restore_entry(self, refs: dict) -> bool:
-        raise NotImplementedError(
-            f"restoring pool entries from the request WAL is not ported yet "
-            f"({_NEXT_SERVING_SLICE})")
+        """Rebuild and seal one entry from :meth:`export_entry` refs, each
+        page file checked against its sidecar. True on success, also when
+        the entry is already sealed here; False, never a raise, on any read
+        or check failure (counted), and the caller prefills again."""
+        try:
+            ids = tuple(int(t) for t in refs["prefix_ids"])
+            dtype = getattr(torch, refs["dtype"])
+            if not isinstance(dtype, torch.dtype):
+                raise TypeError(f"kvpool: {refs['dtype']!r} is not a dtype")
+            lp_bucket = int(refs["lp_bucket"])
+            h = self.acquire(ids, int(refs["prefix_len"]), lp_bucket, salt=refs.get("salt"))
+            try:
+                if h.reusable:
+                    return True
+                for seg, kp, vp in refs["segs"]:
+                    kv = []
+                    for path in (kp, vp):
+                        arr = np.load(path)
+                        if arr.ndim != 4 or arr.shape[1] != lp_bucket:
+                            raise SpillCorruptError(
+                                f"{path} (wal kv export): shape {arr.shape} does not hold "
+                                f"{lp_bucket} positions")
+                        side = integrity_manifest.read_sidecar(path)
+                        if side is not None:
+                            csum, nbytes = side
+                            if (int(arr.nbytes) != nbytes
+                                    or integrity_manifest.tensor_checksum(arr) != csum):
+                                raise SpillCorruptError(
+                                    f"{path} (wal kv export): checksum mismatch")
+                        kv.append(_from_numpy(arr, dtype))
+                    self.contribute(h, tuple(seg), kv[0], kv[1])
+                self.seal(h)
+            finally:
+                self.release(h)
+        except (OSError, ValueError, EOFError, KeyError, TypeError, AttributeError,
+                SpillCorruptError, SpillReadError):
+            with self._lock:
+                self.restore_failures += 1
+            return False
+        with self._lock:
+            self.entries_restored += 1
+        return True
 
     # -- eviction / spill ----------------------------------------------------
 
@@ -489,6 +581,9 @@ class KVPagePool:
                 "bytes_resident": self.bytes_resident,
                 "budget_bytes": self.budget_bytes,
                 "entries_sealed": self.entries_sealed,
+                "entries_exported": self.entries_exported,
+                "entries_restored": self.entries_restored,
+                "restore_failures": self.restore_failures,
             }
 
     def summary(self) -> dict:

@@ -13,9 +13,11 @@ engine).
 - ``sched``   — SLO classes, the sweep scheduler (class priority, tenant
   fair queueing and rate limits, preemption) and prefix coalescing.
 - ``spec``    — the adaptive draft depth per SLO class.
+- ``wal``     — the durable request write-ahead log.
+- ``recovery`` — the warm restart: replaying the WAL's open requests.
 
-The JAX package's LoRA adapters, request WAL and replay, replica fleet,
-router and autoscaler are not ported yet.
+LoRA adapters are ``flexible_llm_sharding_tpu_torch.adapters``. The JAX
+package's replica fleet, router and autoscaler are not ported yet.
 """
 
 from flexible_llm_sharding_tpu_torch.serve.request import (  # noqa: F401
@@ -25,6 +27,7 @@ from flexible_llm_sharding_tpu_torch.serve.request import (  # noqa: F401
     RequestResult,
     RequestStatus,
     RequestTooLarge,
+    RestartPending,
     ServeClosed,
     ServeFuture,
     WaveAborted,
@@ -32,3 +35,4 @@ from flexible_llm_sharding_tpu_torch.serve.request import (  # noqa: F401
 from flexible_llm_sharding_tpu_torch.serve.queue import AdmissionQueue  # noqa: F401
 from flexible_llm_sharding_tpu_torch.serve.batcher import ShardAwareBatcher  # noqa: F401
 from flexible_llm_sharding_tpu_torch.serve.engine import ServeEngine  # noqa: F401
+from flexible_llm_sharding_tpu_torch.serve.wal import RequestWAL  # noqa: F401

@@ -46,6 +46,26 @@ resident draft model (``runtime/draft.py``, ``draft_model_path``), with
 each class's depth adapted by ``serve/spec.SpecController``
 (``spec_adaptive``). A request progresses at its slowest suffix.
 
+Multi-tenant LoRA (``adapters/``, ``FrameworkConfig.adapters``): a request
+may name an adapter. At wave setup each entry's adapter resolves through the
+process store (an unknown or corrupt one fails only that entry's requests,
+typed); the wave groups its rows by adapter and every decoder segment shifts
+each row's hidden stream at each layer's entry by its adapter's own factors
+(``delta``, ``adapters/apply.lora_shift_rows``), uploaded once per (shard,
+segment) per wave and counted in the store's ``delta_bytes``. A base-only wave passes no delta. The pool's entries are
+salted by the adapter, so the same prefix under another adapter never
+shares pages.
+
+The request WAL (``serve/wal.py``, ``ServeConfig.wal_dir``): the queue
+writes each admission ahead; every sweep that emits tokens writes a
+progress record with their ids; a terminal transition writes its outcome.
+``shutdown_for_restart`` parks the queued requests, lets the waves in
+flight finish their sweep, exports each live request's pooled prefix KV
+and parks it too (``RestartPending``: open in the WAL), and the next
+process's ``serve/recovery.replay`` serves them. ``FLS_WAL_CRASH_SWEEPS=N``
+in the environment kills the process (SIGKILL) mid-sweep after N sweeps:
+the drill the crash tests run.
+
 Degrade, don't die: a shard load that failed for good (``ShardLoadError``),
 a sweep the stall watchdog aborted (``SourceClosed``), an ``OSError`` or a
 pooled page that stays corrupt (``SpillCorruptError``) fails only the waves
@@ -58,13 +78,15 @@ first sweep, so a build or load failure is engine-fatal too.
 On a card the worker thread sets its device before any CUDA call and runs
 every launch on that device's current stream of its own thread. Greedy
 selection only. Not ported yet, each raising where its flag is parsed (the
-serve CLI): replicas and the router, the request WAL, LoRA adapters, the
-brownout controller, chaos injection, tracing and the metrics endpoint.
+serve CLI): replicas and the router, the brownout controller, chaos
+injection, tracing and the metrics endpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import signal
 import threading
 import time
 from itertools import islice
@@ -73,6 +95,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from flexible_llm_sharding_tpu_torch.adapters import apply as adapter_apply
+from flexible_llm_sharding_tpu_torch.adapters import loader as adapter_loader
+from flexible_llm_sharding_tpu_torch.adapters.registry import AdapterCorruptError, AdapterNotFound
 from flexible_llm_sharding_tpu_torch.config import (
     FrameworkConfig,
     LlamaConfig,
@@ -114,13 +139,19 @@ from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
 )
 from flexible_llm_sharding_tpu_torch.serve.batcher import ShardAwareBatcher, Wave
 from flexible_llm_sharding_tpu_torch.serve.queue import AdmissionQueue
-from flexible_llm_sharding_tpu_torch.serve.request import Request, RequestStatus, WaveAborted
+from flexible_llm_sharding_tpu_torch.serve.request import (
+    Request,
+    RequestStatus,
+    RestartPending,
+    WaveAborted,
+)
 from flexible_llm_sharding_tpu_torch.serve.sched import (
     SweepScheduler,
     build_entries,
     class_deadline_s,
     parse_class,
 )
+from flexible_llm_sharding_tpu_torch.serve.wal import wal_for
 from flexible_llm_sharding_tpu_torch.utils import checkpoint
 from flexible_llm_sharding_tpu_torch.utils.metrics import ServingMetrics, StepWatchdog
 
@@ -149,6 +180,17 @@ class _WaveState:
     # and the blocks whose every row reuses a sealed entry.
     pool_handles: dict[int, Any] = dataclasses.field(default_factory=dict)
     reuse_blocks: set[int] = dataclasses.field(default_factory=set)
+    # LoRA: the wave's adapter groups (names[0] the base), their [G] scales
+    # (None: a base-only wave, which passes no delta), the factors, each
+    # block's row -> group list, and the device copies: each (shard, decoder
+    # segment)'s per-layer {group: (A, B)} and the scales, uploaded once per
+    # wave.
+    adapter_names: list = dataclasses.field(default_factory=list)
+    adapter_scales: Any = None
+    adapter_factors: dict = dataclasses.field(default_factory=dict)
+    adapter_g: dict = dataclasses.field(default_factory=dict)
+    adapter_pairs: dict = dataclasses.field(default_factory=dict)
+    adapter_scale_dev: Any = None
 
 
 class ServeEngine:
@@ -214,9 +256,13 @@ class ServeEngine:
                        else None)
         if self._sched is not None:
             self.metrics.register("sched", self._sched.stats)
+        self._wal = wal_for(self.serve_cfg)
+        if self._wal is not None:
+            self.metrics.register("wal", self._wal.stats)
         self.queue = AdmissionQueue(self.serve_cfg.queue_capacity, metrics=self.metrics,
                                     max_request_tokens=self.serve_cfg.max_request_tokens,
-                                    size_fn=self._request_size_tokens, scheduler=self._sched)
+                                    size_fn=self._request_size_tokens, scheduler=self._sched,
+                                    wal=self._wal)
         # The resident draft model, pinned whole through its own tier; a
         # layer that does not pin fails construction.
         self._draft_model = None
@@ -244,6 +290,10 @@ class ServeEngine:
                          else kvpool.pool_for(cfg))
         if self._kv_pool is not None:
             self.metrics.register("kvpool", kvpool.process_stats)
+        # The process store of LoRA factors; None without --adapter_dir.
+        self._adapter_store = adapter_loader.store_for(cfg)
+        if self._adapter_store is not None:
+            self.metrics.register("adapter", self._adapter_store.stats)
         self.batcher = ShardAwareBatcher(
             self.queue, self.serve_cfg.max_wave_requests, self.serve_cfg.max_active_requests,
             metrics=self.metrics, sched_core=self._sched_core,
@@ -259,6 +309,12 @@ class ServeEngine:
         # The sweep's position and last progress, read by sweep_position().
         self._sweep_pos = 0
         self._heartbeat = time.monotonic()
+        # shutdown_for_restart's flag, read at the shard-0 boundary.
+        self._restart_pending = False
+        # The process-death drill: SIGKILL mid-sweep after this many sweeps
+        # (0 = off). From the environment: only a crash harness sets it.
+        self._crash_sweeps = int(os.environ.get("FLS_WAL_CRASH_SWEEPS", "0") or 0)
+        self._sweeps_done = 0
         if start:
             self.start()
 
@@ -279,12 +335,15 @@ class ServeEngine:
     def submit(self, prefix: str, suffixes: tuple[str, ...] | list[str],
                max_new_tokens: int | None = None, deadline_s: float | None = None,
                callback: Callable[[Request], Any] | None = None, slo_class: str | None = None,
-               tenant_id: str | None = None, client_id=None) -> Request:
+               tenant_id: str | None = None, adapter_id: str | None = None,
+               client_id=None) -> Request:
         """Enqueue one request (any thread). Rejections resolve through the
         returned request's future; an unknown ``slo_class`` raises
         ``UnknownSLOClass`` and ``max_new_tokens`` < 1 ``ValueError``.
         Deadline: the request's own, else its class's (scheduler on), else
-        the serve-level default."""
+        the serve-level default. ``adapter_id`` names a LoRA adapter (None =
+        the base model); an unknown one fails the request at wave setup.
+        ``client_id`` is the caller's id, kept across a restart."""
         slo = parse_class(slo_class)
         if deadline_s is None:
             deadline_s = class_deadline_s(self.serve_cfg.sched, slo)
@@ -300,8 +359,14 @@ class ServeEngine:
             callback=callback,
             slo_class=slo,
             tenant_id=tenant_id if tenant_id is not None else "default",
+            adapter_id=adapter_id,
             client_id=client_id,
         )
+        return self.submit_request(req)
+
+    def submit_request(self, req: Request) -> Request:
+        """Enqueue a request built by the caller (the WAL replay keeps its
+        ``wal_id`` and ``client_id``)."""
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         return self.queue.submit(req)
@@ -320,6 +385,57 @@ class ServeEngine:
         if self._draft_model is not None:
             self._draft_model.close()
         return ok
+
+    def shutdown_for_restart(self, timeout: float | None = None) -> bool:
+        """A graceful restart (SIGTERM): park the queued requests
+        (``RestartPending``, open in the WAL), let the waves in flight
+        finish their sweep, then at the boundary export their pooled prefix
+        KV, write their progress, park them and stop. The next process's
+        ``serve/recovery.replay`` serves every parked request. Without a
+        WAL this is ``shutdown(drain=False)``."""
+        if self._wal is None:
+            return self.shutdown(drain=False, timeout=timeout)
+        self.queue.close(drain=False, persist=True)
+        self._restart_pending = True
+        ok = True
+        if self._thread is not None:
+            self._thread.join(timeout)
+            ok = not self._thread.is_alive()
+        self._wal.flush(sync=True)
+        self._wal.maybe_compact()
+        if self._draft_model is not None:
+            self._draft_model.close()
+        return ok
+
+    def _drain_for_restart(self) -> None:
+        """The loop's half of ``shutdown_for_restart``, at a shard-0
+        boundary, where every wave has just finished a sweep: export each
+        live request's pooled prefix KV (checksummed pages under the WAL's
+        directory), write its last progress record with their refs, and
+        park it."""
+        for wave in self.batcher.waves:
+            st = wave.state
+            for r in wave.requests:
+                if r.status.terminal or r.wal_id is None:
+                    continue
+                kv_refs = None
+                if self._kv_pool is not None and st is not None and wave.steps > 0:
+                    e_idx, _, _ = wave.locate(r)
+                    handle = st.pool_handles.get(e_idx)
+                    tp = st.toks[e_idx]
+                    if handle is not None:
+                        kv_refs = self._kv_pool.export_entry(
+                            handle, self._wal.wal_dir,
+                            tuple(int(t) for t in tp.prefix_ids[: tp.prefix_len]),
+                            salt=self._entry_adapter(wave.entries[e_idx]))
+                self._wal.progress(r, kv=kv_refs)
+        waves = list(self.batcher.waves)  # fail_all_active clears the list
+        self.batcher.fail_all_active(RestartPending(
+            "serve process restarting; in-flight request journaled for token-identical replay"))
+        for w in waves:
+            if w.state is not None:
+                w.state.kv_store.clear()
+                self._release_pool_handles(w.state)
 
     @property
     def error(self) -> BaseException | None:
@@ -386,6 +502,11 @@ class ServeEngine:
             while True:
                 # ---- shard-0 boundary: the admission point ----------------
                 self._heartbeat = time.monotonic()
+                if self._restart_pending:
+                    # A graceful restart, at the boundary: KV and pool
+                    # handles are consistent.
+                    self._drain_for_restart()
+                    break
                 # Preemption before admission: the freed slots seat the
                 # waiting interactive work at this same boundary.
                 self._maybe_preempt()
@@ -558,6 +679,85 @@ class ServeEngine:
         for h in st.pool_handles.values():
             self._kv_pool.release(h)
 
+    # -- multi-tenant LoRA --------------------------------------------------
+
+    @staticmethod
+    def _entry_adapter(entry) -> str | None:
+        """The entry's adapter (None = base); coalesced members agree, the
+        adapter being part of the coalescing key."""
+        return entry.requests[0].adapter_id
+
+    def _resolve_adapters(self, wave: Wave):
+        """Resolve each entry's adapter at wave setup: ``(ok, plans,
+        factors)`` by adapter name. An unknown or corrupt adapter (or a
+        filesystem error reading it) fails only its entry's requests, typed,
+        and the entry leaves the wave; ``ok`` is False when none is left
+        (the wave is removed)."""
+        entries = wave.ensure_entries()
+        plans: dict[str, Any] = {}
+        factors: dict[str, Any] = {}
+        keep = []
+        for e in entries:
+            aid = self._entry_adapter(e)
+            if aid is not None and aid not in plans:
+                try:
+                    if self._adapter_store is None:
+                        raise AdapterNotFound(
+                            f"adapter {aid!r} requested but adapter serving is off — start with "
+                            "--adapter_dir")
+                    plan, fac = self._adapter_store.get(aid)
+                    if plan.hidden_size != self.model_cfg.hidden_size:
+                        raise AdapterCorruptError(
+                            f"adapter {aid!r} was built for hidden_size={plan.hidden_size}; this "
+                            f"model has {self.model_cfg.hidden_size}")
+                except (AdapterNotFound, ShardLoadError, OSError) as err:
+                    for r in e.requests:
+                        if not r.status.terminal and r.fail(err, RequestStatus.FAILED):
+                            self.metrics.count("failed")
+                    self.metrics.count("adapter_rejects")
+                    continue
+                plans[aid] = plan
+                factors[aid] = fac
+            keep.append(e)
+        if len(keep) != len(entries):
+            wave.entries = keep
+            wave.requests = [r for e in keep for r in e.requests]
+            if not keep:
+                self.batcher.waves.remove(wave)
+                return False, plans, factors
+        return True, plans, factors
+
+    def _shard_decoder_layers(self, layer_idxs) -> list[str]:
+        """The shard's decoder layer names in stream order."""
+        return [self.layer_names[i] for i in layer_idxs
+                if self.layer_names[i].startswith("model.layers.")]
+
+    def _segment_delta(self, st: _WaveState, shard_pos: int, di: int, seg_layers, b: int):
+        """The delta one decoder segment takes for block ``b``, or None for a
+        base-only wave. Each layer's factors of every adapter of the wave,
+        at the adapter's own rank (``lora_shift_rows``), are uploaded once
+        per wave and counted in the store's ``delta_bytes``."""
+        if st.adapter_scales is None:
+            return None
+        key = (shard_pos, di)
+        pairs = st.adapter_pairs.get(key)
+        if pairs is None:
+            pairs, nbytes = [], 0
+            for lname in seg_layers:
+                layer = {}
+                for gi, name in enumerate(st.adapter_names):
+                    pair = st.adapter_factors[name].get(lname) if name is not None else None
+                    if pair is not None:
+                        layer[gi] = (pair["lora_A"].to(self.device), pair["lora_B"].to(self.device))
+                        nbytes += adapter_apply.delta_nbytes(pair)
+                pairs.append(layer)
+            st.adapter_pairs[key] = pairs
+            if self._adapter_store is not None:
+                self._adapter_store.note_applied(0, nbytes)
+        if st.adapter_scale_dev is None:
+            st.adapter_scale_dev = torch.from_numpy(st.adapter_scales).to(self.device)
+        return {"pairs": pairs, "g": st.adapter_g[b], "scale": st.adapter_scale_dev}
+
     # -- sweep-boundary preemption ------------------------------------------
 
     def _maybe_preempt(self) -> None:
@@ -613,7 +813,11 @@ class ServeEngine:
     def _init_wave(self, wave: Wave) -> bool:
         """Tokenize and bucket the wave's entries and allocate its state. A
         bad request (a longrope straddle, a malformed prompt, an allocation
-        that fails) fails only this wave; anything else is engine-fatal."""
+        that fails) fails only this wave; anything else is engine-fatal. An
+        entry whose adapter does not resolve fails alone, first."""
+        ok, a_plans, a_factors = self._resolve_adapters(wave)
+        if not ok:
+            return False
         entries = wave.ensure_entries()
         # Only a wave that decodes drafts.
         spec_wave = self._spec_k > 0 and wave.max_steps > 1
@@ -639,8 +843,11 @@ class ServeEngine:
             if self._kv_pool is not None:
                 for i, tp in enumerate(toks):
                     ids = tuple(int(t) for t in tp.prefix_ids[: tp.prefix_len])
+                    # Salted by the adapter: the same prefix under another
+                    # adapter is other KV and never shares pages.
                     pool_handles[i] = self._kv_pool.acquire(ids, int(tp.prefix_len),
-                                                            int(tp.prefix_ids.shape[0]))
+                                                            int(tp.prefix_ids.shape[0]),
+                                                            salt=self._entry_adapter(entries[i]))
                 for b, idxs in enumerate(blocks):
                     if idxs and all(pool_handles[i].reusable for i in idxs):
                         reuse_blocks.add(b)
@@ -655,12 +862,25 @@ class ServeEngine:
             kv_on_device = self._sched_core.kv_on_device(
                 self.model_cfg, self.cfg.dtype, toks, blocks, slots, self._resident,
                 device=self.device)
+            # LoRA grouping: one wave-level (names, g), so one scale vector
+            # and one factor stack serve every block; a base-only wave keeps
+            # its adapter state empty.
+            a_names: list = []
+            a_scales = None
+            a_g: dict[int, list[int]] = {}
+            if a_plans:
+                a_names, g_all = adapter_apply.group_rows(
+                    [self._entry_adapter(e) for e in entries])
+                a_scales = adapter_apply.group_scales(a_names, a_plans)
+                a_g = {b: [int(g_all[i]) for i in idxs] for b, idxs in enumerate(blocks)}
             wave.state = _WaveState(
                 toks=toks, blocks=blocks, meta=meta,
                 kv_store=KVStore(kv_on_device, self.device),
                 scores={b: [] for b in range(len(blocks))},
                 tok_hist={b: [] for b in range(len(blocks))},
                 loc=loc, slots=slots, pool_handles=pool_handles, reuse_blocks=reuse_blocks,
+                adapter_names=a_names, adapter_scales=a_scales, adapter_factors=a_factors,
+                adapter_g=a_g,
             )
             return True
         except (ValueError, KeyError, TypeError, IndexError, MemoryError) as e:
@@ -687,6 +907,11 @@ class ServeEngine:
                 wd.tick()
             self._sweep_pos = shard_pos
             self._heartbeat = time.monotonic()
+            if (self._crash_sweeps and self._sweeps_done >= self._crash_sweeps
+                    and (shard_pos > 0 or len(self.shards) == 1)):
+                # The process-death drill: no cleanup, nothing flushed
+                # beyond what the WAL already handed the kernel.
+                os.kill(os.getpid(), signal.SIGKILL)
             for wave in self.batcher.waves:
                 if wave.steps == 0:
                     self._prefill_shard(wave, shard_pos, layer_idxs, segments)
@@ -722,6 +947,7 @@ class ServeEngine:
     def _prefill_shard(self, wave: Wave, shard_pos: int, layer_idxs, segments) -> None:
         st: _WaveState = wave.state
         mcfg = self.model_cfg
+        dec_names = self._shard_decoder_layers(layer_idxs) if st.adapter_scales is not None else ()
         for b in range(len(st.blocks)):
             prefix_ids, suffix_ids, prefix_len, suffix_eos = st.meta[b]
             # A reuse block never runs its prefix stream: the suffix stream
@@ -739,15 +965,18 @@ class ServeEngine:
                     sh = llama.embed(params, suffix_ids, self.dtype, mcfg)
                 elif kind == "decoders":
                     first = first_decoder(layer_idxs) + li0
+                    delta = self._segment_delta(st, shard_pos, di,
+                                                dec_names[li0:li0 + len(params)], b)
                     if reuse:
                         kps, vps = self._assemble(st, b, (shard_pos, di), len(params))
                         sh, kvs = suffix_prefill_decoders(mcfg, params, first, kps, vps, sh,
                                                           prefix_len, total_len, self._sliding,
-                                                          self._rope_on)
+                                                          self._rope_on, delta=delta)
                         ph = None
                     else:
                         ph, sh, kvs = prefill_decoders(mcfg, params, first, ph, sh, prefix_len,
-                                                       total_len, self._sliding, self._rope_on)
+                                                       total_len, self._sliding, self._rope_on,
+                                                       delta=delta)
                         if self._kv_pool is not None and st.pool_handles:
                             self._bank(st, b, (shard_pos, di), kvs)
                     for li, kv in enumerate(kvs):
@@ -770,6 +999,7 @@ class ServeEngine:
         st: _WaveState = wave.state
         mcfg = self.model_cfg
         t = wave.steps - 1  # this step's generated-KV slot
+        dec_names = self._shard_decoder_layers(layer_idxs) if st.adapter_scales is not None else ()
         for b in range(len(st.blocks)):
             # A block whose requests all resolved sits the sweep out
             # (statuses change only in _post_sweep).
@@ -777,7 +1007,7 @@ class ServeEngine:
                 continue
             _, _, prefix_len, suffix_eos = st.meta[b]
             x = None if layer_idxs[0] == 0 else st.kv_store.get(("x", b))
-            li0 = 0
+            li0 = di = 0
             for kind, params in segments:
                 if kind == "embed":
                     ids = torch.from_numpy(np.asarray(st.tok_hist[b][-1])[..., None])
@@ -785,11 +1015,15 @@ class ServeEngine:
                 elif kind == "decoders":
                     keys = [("kv", shard_pos, li0 + li, b) for li in range(len(params))]
                     kvs = [st.kv_store.get(key) for key in keys]
+                    delta = self._segment_delta(st, shard_pos, di,
+                                                dec_names[li0:li0 + len(params)], b)
                     x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs, x,
-                                        prefix_len, suffix_eos, t, self._sliding, self._rope_on)
+                                        prefix_len, suffix_eos, t, self._sliding, self._rope_on,
+                                        delta=delta)
                     for key, kv in zip(keys, kvs):
                         st.kv_store.put(key, kv)
                     li0 += len(params)
+                    di += 1
                 elif kind == "norm":
                     st.norm_p = params  # applied in the head shard
                 else:  # head
@@ -833,6 +1067,7 @@ class ServeEngine:
         decoder segments run the K+1 tokens, the head accepts."""
         st: _WaveState = wave.state
         mcfg = self.model_cfg
+        dec_names = self._shard_decoder_layers(layer_idxs) if st.adapter_scales is not None else ()
         for b in range(len(st.blocks)):
             v = st.spec[b]
             if v.done or all(r.status.terminal for i in st.blocks[b]
@@ -840,7 +1075,7 @@ class ServeEngine:
                 continue
             _, _, prefix_len, suffix_eos = st.meta[b]
             x = None if layer_idxs[0] == 0 else st.kv_store.get(("x", b))
-            li0 = 0
+            li0 = di = 0
             for kind, params in segments:
                 if kind == "embed":
                     if self._spec_ctrl is not None:
@@ -852,12 +1087,15 @@ class ServeEngine:
                 elif kind == "decoders":
                     keys = [("kv", shard_pos, li0 + li, b) for li in range(len(params))]
                     kvs = [st.kv_store.get(key) for key in keys]
+                    delta = self._segment_delta(st, shard_pos, di,
+                                                dec_names[li0:li0 + len(params)], b)
                     x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs, x,
                                         prefix_len, suffix_eos, st.spec_base[b], self._sliding,
-                                        self._rope_on)
+                                        self._rope_on, delta=delta)
                     for key, kv in zip(keys, kvs):
                         st.kv_store.put(key, kv)
                     li0 += len(params)
+                    di += 1
                 elif kind == "norm":
                     st.norm_p = params  # applied in the head shard
                 else:  # head
@@ -910,9 +1148,15 @@ class ServeEngine:
                                 self._note_coalesced(e, handle)
                 if self._spec_k > 0 and wave.max_steps > 1:
                     self._init_spec(wave)
+            if self._adapter_store is not None and st is not None and st.adapter_scales is not None:
+                # The rows of this wave that decoded under a delta this sweep.
+                rows = sum(1 for g in st.adapter_g.values() for gi in g if gi)
+                if rows:
+                    self._adapter_store.note_applied(rows, 0)
             for r in wave.requests:
                 if r.status.terminal:
                     continue
+                prev_emitted = r.tokens_emitted
                 if prefilled and r.first_token_at is None:
                     r.first_token_at = now
                     self.metrics.observe_ttft(now - r.arrival, r.slo_class)
@@ -928,9 +1172,14 @@ class ServeEngine:
                 elif r.tokens_emitted < r.max_new_tokens:
                     r.tokens_emitted += 1
                     emitted += 1
+                if self._wal is not None and r.tokens_emitted > prev_emitted:
+                    # The sweep's progress record: the count and the ids it
+                    # emitted (forensics; a replay derives them again).
+                    self._wal.progress(r, tok_delta=self._wal_tok_delta(wave, r, prev_emitted))
                 if r.tokens_emitted >= r.max_new_tokens:
                     self._resolve(wave, r)
         self.metrics.count("sweeps")
+        self._sweeps_done += 1
         self._slo.maybe_check()
         if emitted:
             self.metrics.count("tokens_emitted", emitted)
@@ -939,6 +1188,21 @@ class ServeEngine:
             if w.state is not None:
                 w.state.kv_store.clear()
                 self._release_pool_handles(w.state)
+
+    def _wal_tok_delta(self, wave: Wave, r: Request, prev_emitted: int):
+        """The token ids this sweep emitted for ``r``, ``[step][suffix]``;
+        None for a speculative wave (its histories are ragged per suffix:
+        the record keeps the count only)."""
+        st = wave.state
+        if st is None or st.spec is not None:
+            return None
+        e_idx, s_off, s_cnt = wave.locate(r)
+        b, row = st.loc[e_idx]
+        hist = st.tok_hist[b]
+        lo, hi = prev_emitted - r.resume_len, r.tokens_emitted - r.resume_len
+        if lo < 0 or hi > len(hist):
+            return None
+        return [[int(t) for t in hist[step][row, s_off:s_off + s_cnt]] for step in range(lo, hi)]
 
     def _resolve(self, wave: Wave, r: Request) -> None:
         st: _WaveState = wave.state

@@ -17,10 +17,17 @@ boundaries, first in, first out, or through an attached sweep scheduler
   tenant, ``submit`` first applies the tenant's rate limit (``RateLimited``)
   and gives the token back when a later check refuses the request, and
   ``requeue``/``has_waiting`` carry the preemption protocol.
+- **Write-ahead**: with a request WAL (``serve/wal.py``), a submit that
+  passed the rate and size checks writes its admission record before it
+  can join the queue; a later refusal (capacity, closed) terminates the id
+  through the request's terminal hook, so the WAL never replays a request
+  its client was told was refused.
 - **Shutdown**: ``close(drain=True)`` refuses new submits and leaves the
   queued requests for the engine; ``drain=False`` cancels them
-  (``ServeClosed``). Either way a request already past its deadline
-  resolves as EXPIRED.
+  (``ServeClosed``), or, with ``persist=True`` and a WAL (a graceful
+  restart), parks them as ``RestartPending``, open in the WAL for the next
+  start's replay. Either way a request already past its deadline resolves
+  as EXPIRED.
 
 Terminal transitions run outside the lock: callbacks may be slow.
 """
@@ -37,17 +44,19 @@ from flexible_llm_sharding_tpu_torch.serve.request import (
     Request,
     RequestStatus,
     RequestTooLarge,
+    RestartPending,
     ServeClosed,
 )
 
 
 class AdmissionQueue:
     def __init__(self, capacity: int, metrics=None, max_request_tokens: int = 0, size_fn=None,
-                 scheduler=None):
+                 scheduler=None, wal=None):
         """``metrics``: a ``ServingMetrics`` or None. ``size_fn(request)``
         estimates a request's prompt tokens plus budget for the
         ``max_request_tokens`` cap (0 = off). ``scheduler``: a
-        ``SweepScheduler`` or None (first in, first out)."""
+        ``SweepScheduler`` or None (first in, first out). ``wal``: a
+        ``RequestWAL`` or None."""
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
@@ -55,6 +64,7 @@ class AdmissionQueue:
         self._max_request_tokens = max_request_tokens
         self._size_fn = size_fn
         self._scheduler = scheduler
+        self._wal = wal
         self._lock = threading.Lock()
         self._items: deque[Request] = deque()  # guarded by: _lock
         self._closed = False  # guarded by: _lock
@@ -86,6 +96,8 @@ class AdmissionQueue:
                     f"request {request.request_id}: ~{est} tokens (prompt + max_new_tokens) "
                     f"exceeds the admission cap of {self._max_request_tokens}; split the prompt "
                     "or lower max_new_tokens"), RequestStatus.REJECTED)
+        if self._wal is not None:
+            self._wal.admit(request)
         evicted: list[Request] = []
         reject = None
         with self._lock:
@@ -181,9 +193,10 @@ class AdmissionQueue:
         with self._lock:
             return self._closed
 
-    def close(self, drain: bool = True) -> list[Request]:
+    def close(self, drain: bool = True, persist: bool = False) -> list[Request]:
         """Refuse further submits; ``drain=False`` also cancels the queued
-        requests. Returns the cancelled ones. Idempotent."""
+        requests (as ``RestartPending`` with ``persist`` and a WAL). Returns
+        the cancelled ones. Idempotent."""
         with self._lock:
             self._closed = True
             evicted = self._evict_expired_locked()
@@ -191,8 +204,10 @@ class AdmissionQueue:
             if not drain:
                 self._items.clear()
         self._finish_expired(evicted)
+        park = persist and self._wal is not None
         for r in cancelled:
-            won = r.fail(ServeClosed("serve queue shut down before admission"),
+            won = r.fail(RestartPending("serve process restarting; request journaled for replay")
+                         if park else ServeClosed("serve queue shut down before admission"),
                          RequestStatus.CANCELLED)
             if won and self._metrics is not None:
                 self._metrics.count("cancelled")

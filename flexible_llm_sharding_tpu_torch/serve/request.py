@@ -59,6 +59,13 @@ class ServeClosed(RuntimeError):
     without drain."""
 
 
+class RestartPending(ServeClosed):
+    """A graceful restart parked the request: its state is in the request
+    WAL (``serve/wal.py``), which writes no terminal record for this error,
+    so the next start's replay (``serve/recovery.py``) serves it to a
+    token-identical completion."""
+
+
 class WaveAborted(RuntimeError):
     """The request's wave was aborted by a recoverable engine fault (a
     shard load that failed for good, a stalled sweep the watchdog aborted):
@@ -134,8 +141,13 @@ class Request:
 
     ``deadline``: absolute monotonic instant by which it must be admitted
     (None = none). ``slo_class``/``tenant_id``: the scheduler's labels,
-    validated at submit. ``client_id``: the caller's own id, echoed in the
-    JSONL replies. ``tokens_emitted``: tokens served per suffix so far
+    validated at submit. ``adapter_id``: the LoRA adapter the request
+    decodes under (None = the base model), part of the coalescing key and
+    the pool's salt. ``client_id``: the caller's own id, echoed in the
+    JSONL replies and kept in the WAL, the one identity that survives a
+    restart. ``wal_id``: the WAL's key for the request (None without a
+    WAL), kept across a replay. ``on_terminal``: the WAL's hook, fired once
+    after the callback on the terminal transition. ``tokens_emitted``: tokens served per suffix so far
     (``resume_len`` included; on a speculative wave the slowest suffix's).
     ``resume_scores``/``resume_tokens``: per step served before a
     sweep-boundary preemption, the [n_suffixes, vocab] scores and
@@ -149,7 +161,11 @@ class Request:
     callback: Callable[["Request"], Any] | None = None
     slo_class: str = "standard"
     tenant_id: str = "default"
+    adapter_id: str | None = None
     client_id: Any = None
+    wal_id: str | None = None
+    on_terminal: Callable[["Request", BaseException | None], Any] | None = dataclasses.field(
+        default=None, repr=False)
     resume_scores: list = dataclasses.field(default_factory=list, repr=False)
     resume_tokens: list = dataclasses.field(default_factory=list, repr=False)
     request_id: int = dataclasses.field(default_factory=lambda: next(_REQUEST_IDS))
@@ -172,13 +188,23 @@ class Request:
         ) >= self.deadline
 
     # Status and finished_at are set before the future resolves (a woken
-    # waiter never sees a stale status); the callback fires last.
+    # waiter never sees a stale status); the callback fires next and the
+    # WAL's terminal hook last, so a crash between the two leaves the WAL
+    # entry open and the replay emits the same output again (clients merge
+    # by client_id).
 
     def _fire_callback(self) -> None:
         if self.callback is not None:
             try:
                 self.callback(self)
             except Exception:  # a callback's bug must not take down the serving loop
+                pass
+
+    def _fire_terminal_hook(self, error: BaseException | None) -> None:
+        if self.on_terminal is not None:
+            try:
+                self.on_terminal(self, error)
+            except Exception:  # the WAL counts its own write errors
                 pass
 
     def resolve(self, scores: np.ndarray, updated: Prompt, tokens: np.ndarray) -> bool:
@@ -200,6 +226,7 @@ class Request:
         self.finished_at = now
         self.future.finish_result(result)
         self._fire_callback()
+        self._fire_terminal_hook(None)
         return True
 
     def fail(self, error: BaseException, status: RequestStatus) -> bool:
@@ -210,6 +237,7 @@ class Request:
         self.finished_at = time.monotonic()
         self.future.finish_error(error)
         self._fire_callback()
+        self._fire_terminal_hook(error)
         return True
 
 
@@ -221,6 +249,7 @@ __all__ = [
     "RequestResult",
     "RequestStatus",
     "RequestTooLarge",
+    "RestartPending",
     "ServeClosed",
     "ServeFuture",
     "WaveAborted",

@@ -10,7 +10,8 @@ KV once and each member reads its own suffix rows back (``slices``). Suffix
 rows are independent given the prefix KV, so a member scores exactly what
 it scores alone.
 
-Not merged: a request resuming after a preemption (its suffixes grow by
+Requests under different LoRA adapters never merge: the adapter id is part
+of the key. Not merged either: a request resuming after a preemption (its suffixes grow by
 its generated tokens at wave setup) and one whose key function raises
 (coalescing is an optimisation; the wave's own checks still reject a
 malformed request).
@@ -31,7 +32,9 @@ def build_entries(requests, key_fn) -> list[WaveEntry]:
             key = ("resume", i)
         else:
             try:
-                key = ("prefix", key_fn(r.prefix))
+                # The same prefix under another adapter is another model's
+                # KV: the adapter is part of the key.
+                key = ("prefix", r.adapter_id, key_fn(r.prefix))
             except Exception:  # a tokenizer edge case degrades to no coalescing
                 key = ("solo", i)
         if key not in groups:

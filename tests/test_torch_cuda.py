@@ -914,3 +914,144 @@ def test_draft_model_whose_pin_fails_raises_and_does_not_stream(gen, tmp_path, m
     with pytest.raises(executor.ShardLoadError, match="injected"):
         draft.DraftModel(model_dir, torch.device("cuda:0"), torch.bfloat16)
     assert reads == [(0,), (1,), (2,)]
+
+
+def test_lora_shift_on_cuda_matches_the_cpu(gen):
+    """The grouped LoRA shift on CUDA tensors (float32 products, no TF32)
+    against the same call on the CPU, in float32 and in bf16."""
+    from flexible_llm_sharding_tpu_torch.adapters.apply import lora_shift
+    from flexible_llm_sharding_tpu_torch.config import resolve_device
+
+    resolve_device("cuda")  # float32 products without TF32, as the engine runs them
+    g_cpu = torch.Generator().manual_seed(3)
+    a = 0.02 * torch.randn(3, 256, 16, generator=g_cpu)
+    b = 0.02 * torch.randn(3, 16, 256, generator=g_cpu)
+    a[0] = b[0] = 0.0
+    a[1, :, 8:] = b[1, 8:] = 0.0  # a rank-8 adapter padded to 16
+    g = torch.tensor([1, 0, 2, 1])
+    scale = torch.tensor([0.0, 1.0, 0.5])
+    for dtype in (torch.float32, torch.bfloat16):
+        h = torch.randn(4, 2, 40, 256, generator=g_cpu).to(dtype)
+        want = lora_shift(h, a, b, g, scale)
+        got = lora_shift(h.cuda(), a.cuda(), b.cuda(), g.cuda(), scale.cuda())
+        assert got.dtype == dtype
+        assert torch.equal(got[1].cpu(), h[1])  # the base row is untouched
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+
+def test_lora_shift_rows_on_cuda_matches_the_cpu(gen):
+    """The engine's form of the shift (``lora_shift_rows``: each row by its
+    adapter's own factors) on CUDA tensors against the same call on the
+    CPU, at the decoder loops' [rows, suffixes, positions, D] layout: ranks
+    8 and 16 mixed in one call, a base row and a row of an adapter with no
+    factors on this layer left untouched, in float32 and in bf16; the card's
+    float32 rows within 1e-5 of the gathered form over padded stacks."""
+    from flexible_llm_sharding_tpu_torch.adapters.apply import lora_shift, lora_shift_rows
+    from flexible_llm_sharding_tpu_torch.config import resolve_device
+
+    resolve_device("cuda")  # float32 products without TF32, as the engine runs them
+    g_cpu = torch.Generator().manual_seed(5)
+    d = 512
+    pairs = {gi: (0.02 * torch.randn(d, r, generator=g_cpu),
+                  0.02 * torch.randn(r, d, generator=g_cpu)) for gi, r in ((1, 8), (2, 16))}
+    g = [2, 0, 1, 3, 1]  # group 3: an adapter without factors on this layer
+    scale = torch.tensor([0.0, 2.0, 0.5, 1.0])
+    on_card = {gi: (a.cuda(), b.cuda()) for gi, (a, b) in pairs.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        h = torch.randn(5, 2, 24, d, generator=g_cpu).to(dtype)
+        want = lora_shift_rows(h, pairs, g, scale)
+        got = lora_shift_rows(h.cuda(), on_card, g, scale.cuda())
+        assert got.dtype == dtype and got.is_cuda
+        for i in (1, 3):
+            assert torch.equal(got[i].cpu(), h[i])
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+        assert (got.cpu().float() - h.float()).abs().max().item() > 10 * tol  # the shift engages
+    a = torch.zeros(4, d, 16)
+    b = torch.zeros(4, 16, d)
+    for gi, (pa, pb) in pairs.items():
+        a[gi, :, :pa.shape[1]], b[gi, :pb.shape[0]] = pa, pb
+    h = torch.randn(5, 2, 24, d, generator=g_cpu).cuda()
+    gathered = lora_shift(h, a.cuda(), b.cuda(), torch.tensor(g).cuda(), scale.cuda())
+    assert (lora_shift_rows(h, on_card, g, scale.cuda()) - gathered).abs().max().item() <= 1e-5
+
+
+def test_adapter_wave_launches_the_three_kernels(gen, tmp_path):
+    """A bf16 engine on the card serving two tenants and the base in one
+    wave: all three kernels launch (the prefill's causal and prefix-shared,
+    the decode sweeps' decode kernel), a tenant's scores differ from the
+    base's on the same prompt, and the base row equals the same row of a
+    base-only wave bit for bit."""
+    from flexible_llm_sharding_tpu_torch.adapters import loader
+    from flexible_llm_sharding_tpu_torch.adapters.registry import save_adapter
+    from flexible_llm_sharding_tpu_torch.config import AdapterConfig, FrameworkConfig, ServeConfig
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
+    from flexible_llm_sharding_tpu_torch.serve import ServeEngine
+
+    model_dir = _decode_model(tmp_path, "llama")
+    rng = np.random.default_rng(5)
+    root = str(tmp_path / "adapters")
+    for name, rank in (("tenant-a", 4), ("tenant-b", 8)):
+        save_adapter(root, name, {f"model.layers.{i}": (
+            (0.05 * rng.standard_normal((256, rank))).astype(np.float32),
+            (0.05 * rng.standard_normal((rank, 256))).astype(np.float32)) for i in range(3)})
+    prompt = _DECODE_PROMPTS[0]
+    outs = {}
+    for tag, adapters, subs in (("on", AdapterConfig(dir=root), ["tenant-a", "tenant-b", None]),
+                                ("off", AdapterConfig(), [None, None, None])):
+        kvpool.reset_process_pools()
+        loader.reset_process_store()
+        cfg = FrameworkConfig(model_path=model_dir, dtype="bfloat16", block_size=4,
+                              decode_resident="on", disk_folder=str(tmp_path / "d"),
+                              adapters=adapters)
+        engine = ServeEngine(cfg, ServeConfig(max_wave_requests=4, default_max_new_tokens=3),
+                             tokenizer=_WordTokenizer(), device=torch.device("cuda:0"),
+                             start=False)
+        reqs = [engine.submit(*prompt, adapter_id=aid) for aid in subs]
+        try:
+            fa.reset_launch_counts()
+            engine.start()
+            outs[tag] = [r.future.result(timeout=300) for r in reqs]
+            counts = fa.launch_counts()
+            stats = engine.stats()
+        finally:
+            engine.shutdown(drain=True)
+            kvpool.reset_process_pools()
+            loader.reset_process_store()
+        assert engine.error is None
+        if tag == "on":
+            assert all(counts[k] > 0 for k in fa.KERNELS), counts
+            assert stats["adapter"]["delta_bytes"] > 0 and stats["adapter"]["applied_rows"] > 0
+    on, off = outs["on"], outs["off"]
+    assert not np.allclose(on[0].scores, on[2].scores)
+    assert np.array_equal(on[2].scores, off[2].scores)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_kvpool_export_restore_of_card_pages(gen, tmp_path, dtype):
+    """Pages banked from the card (bf16 and fp16 KV copied to the host, as
+    the engine banks them) export to checksummed files and restore in a
+    fresh pool bit for bit, sealed; uploaded back they equal the card's."""
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
+
+    k, v = (_rnd(gen, dtype, 2, 64, 4, 128) for _ in range(2))
+    ids = tuple(range(3, 53))
+
+    def pool():
+        return kvpool.KVPagePool(16, 1 << 30, spill_dir=str(tmp_path / "spill"))
+
+    src = pool()
+    h = src.acquire(ids, 50, 64, salt="tenant-a")
+    src.contribute(h, (0, 0), k.cpu(), v.cpu())
+    src.seal(h)
+    refs = src.export_entry(h, str(tmp_path / "wal"), ids, salt="tenant-a")
+    src.release(h)
+    assert refs is not None and refs["dtype"] == str(dtype).removeprefix("torch.")
+    dst = pool()
+    assert dst.restore_entry(refs)
+    h2 = dst.acquire(ids, 50, 64, salt="tenant-a")
+    assert h2.reusable
+    k2, v2 = dst.assemble(h2, (0, 0))
+    assert k2.dtype == dtype
+    assert torch.equal(k2.cuda(), k) and torch.equal(v2.cuda(), v)

@@ -241,13 +241,10 @@ def test_process_pools_follow_the_config(tmp_path):
         jkvpool.reset_process_pools()
 
 
-@pytest.mark.parametrize("call", ["export_entry", "restore_entry", "pressure_evict",
-                                  "pressure_restore", "set_injector"])
+@pytest.mark.parametrize("call", ["pressure_evict", "pressure_restore", "set_injector"])
 def test_unported_pool_paths_raise(call, tmp_path):
     pool = kvpool.KVPagePool(4, 1 << 30, spill_dir=str(tmp_path))
-    h = pool.acquire(IDS_A, 16, 16)
-    args = {"export_entry": (h, str(tmp_path), IDS_A), "restore_entry": ({},),
-            "set_injector": (None,)}.get(call, ())
+    args = {"set_injector": (None,)}.get(call, ())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(pool, call)(*args)
 
@@ -269,7 +266,7 @@ def test_pool_summary_matches_jax(tmp_path, monkeypatch):
     (j, p) = pools
     key = lambda e: sorted(e.items())  # noqa: E731
     assert sorted(p["entries"], key=key) == sorted(j["entries"], key=key)
-    assert {k: j["counters"][k] for k in _COMMON_STATS} == p["counters"]
+    assert p["counters"] == j["counters"]
 
 
 @pytest.mark.parametrize("spill", [True, False])
