@@ -214,6 +214,39 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              first wave's two requests, budget 2, done before it), and a
              restart process that must not serve those two again, merged
              tokens the default run's, torn tails counted.
+   fleet   — right after tenants, on the same cell (the
+             ``llama2_7b_serve_fleet`` path): each kernel launched 30 times
+             from 3 fresh threads at once at the serve block's shapes, every
+             launch equal bit for bit to one from the main thread; the serve
+             CLI with --replicas 3 (150 ms apart) in a fresh process, whose
+             tokens and argmax must equal the serve phase's default engine's,
+             with 8 dispatches, no re-dispatch and every replica serving; the
+             same with --chaos --chaos_sites replica_kill
+             --chaos_max_faults 1: one replica dead, at least one
+             re-dispatch, one recycle, no expired orphan; then in process a
+             3-replica fleet with one replica_kill seeded to land mid-decode
+             (the first kill draw is the 107th shard step of the fleet's,
+             about every replica's sixth sweep; the victim must be in a
+             decode sweep of a prefilled wave, its waves' device state
+             measured at the kill), whose torch.cuda.memory_allocated()
+             after the kill, the recycle, the drain and gc.collect() must
+             exceed the clean fleet's (every replica holding its weights)
+             by less than that state and a quarter of one replica's weights
+             (both read with PyTorch's per-handle cuBLAS workspaces freed,
+             and printed with them), host RSS printed at both; 2 replicas with one replica_stall and
+             --watchdog_abort_s 2.5: hard-failed, completions summing to the
+             requests, shutdown True with no thread left; a replica added
+             while requests are in flight and drained out, then one removed
+             hard with queued work (re-dispatched), then the last one's
+             removal refused; --autoscale (min 1, max 2) growing under a
+             burst of 8 and shrinking back once idle (its stagger error
+             printed); and a 3-replica serve CLI with --wal_dir killed by
+             SIGKILL mid-sweep, replayed by a 2-replica process: one dispatch
+             per replayed request, merged tokens the default engine's. Each
+             run prints its wall, TTFT and per-token latency (mean, p95),
+             completions per replica, sweeps, streamed bytes, router
+             counters, memory and launches beside the card's name and power
+             limit, and the phase its seconds.
    resume  — after the quant phase, on the 4-layer Llama-2-7B cell with
              --storage_location disk: a CLI process (each shard started
              one second late) killed with SIGKILL once its marker reads 2
@@ -2665,17 +2698,17 @@ def serve_tenants(engine, subs, sequential: bool = False):
 
 
 def _wal_serve(model_dir: str, work: str, tag: str, wal_dir: str, lines: str, vocab: int,
-               env_extra: dict, want_rc: int):
+               env_extra: dict, want_rc: int, extra: tuple = ()):
     """One serve CLI process (:data:`_WAL_DRILL_PROCESS`, JSONL frontend,
-    ``--wal_dir``) fed ``lines``. Returns (done replies by client id,
-    stderr, seconds from start to exit)."""
+    ``--wal_dir``, then ``extra``) fed ``lines``. Returns (done replies by
+    client id, stderr, seconds from start to exit)."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("FLS_WAL_CRASH_SWEEPS", "SMOKE_SIGTERM_AFTER_PREFILLS",
                         "SMOKE_RESTART_OUT")}
     env.update(env_extra)
     argv = ["serve", "--model_path", model_dir, "--dtype", "bfloat16", "--layer_num_per_shard",
             "1", "--device", "cuda", "--block_size", "2", "--max_wave_requests", "2",
-            "--wal_dir", wal_dir, "--stats_interval_s", "0"]
+            "--wal_dir", wal_dir, "--stats_interval_s", "0", *extra]
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", _WAL_DRILL_PROCESS, HERE, str(vocab), *argv],
                           input=lines, capture_output=True, text=True, env=env, cwd=work,
@@ -2696,7 +2729,7 @@ def _wal_serve(model_dir: str, work: str, tag: str, wal_dir: str, lines: str, vo
 
 
 def wal_drill(model_dir: str, work: str, tag: str, prompts, budgets: list[int], vocab: int,
-              env_extra: dict, want_rc: int):
+              env_extra: dict, want_rc: int, extra: tuple = ()):
     """The serve CLI over the prompts (request ``w<i>`` with budget
     ``budgets[i]``), stopped by its drill. Returns (wal_dir, done replies by
     client id, seconds)."""
@@ -2704,7 +2737,8 @@ def wal_drill(model_dir: str, work: str, tag: str, prompts, budgets: list[int], 
     lines = "".join(json.dumps({"id": f"w{i}", "prefix": p, "suffixes": list(sfx),
                                 "max_new_tokens": n}) + "\n"
                     for i, ((p, sfx), n) in enumerate(zip(prompts, budgets)))
-    done, _, secs = _wal_serve(model_dir, work, tag, wal_dir, lines, vocab, env_extra, want_rc)
+    done, _, secs = _wal_serve(model_dir, work, tag, wal_dir, lines, vocab, env_extra, want_rc,
+                               extra)
     if len(done) >= len(prompts):
         fail(f"tenants {tag}: every request finished before the drill: nothing in flight")
     return wal_dir, done, secs
@@ -2714,7 +2748,8 @@ _WAL_REPLAY_LINE = re.compile(r"wal replay: (\d+) reopened, (\d+) already termin
                               r"kv restored (\d+) \(failed (\d+)\)")
 
 
-def wal_restart(model_dir: str, work: str, tag: str, wal_dir: str, vocab: int):
+def wal_restart(model_dir: str, work: str, tag: str, wal_dir: str, vocab: int,
+                extra: tuple = ()):
     """The restart: a new serve CLI process over the same ``--wal_dir``
     with no new request line, whose replay serves every open request before
     it reads stdin. Returns (the ``wal replay:`` summary, done replies by
@@ -2722,7 +2757,7 @@ def wal_restart(model_dir: str, work: str, tag: str, wal_dir: str, vocab: int):
     stats, its kernel launches, seconds from start to exit)."""
     out = os.path.join(work, f"wal_{tag}_restart.json")
     done, err, secs = _wal_serve(model_dir, work, f"{tag} restart", wal_dir, "", vocab,
-                                 {"SMOKE_RESTART_OUT": out}, 0)
+                                 {"SMOKE_RESTART_OUT": out}, 0, extra)
     m = _WAL_REPLAY_LINE.search(err)
     if m is None:
         fail(f"tenants {tag} restart: no `wal replay:` line on stderr: {err[-3000:]}")
@@ -3107,6 +3142,541 @@ def phase_tenants(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str,
     return paths
 
 
+# The replica fleet (the ``fleet`` phase).
+
+# A serve CLI process for the fleet's runs (argv: the repo, the vocabulary,
+# the CLI's arguments). It counts the kernel launches of its run from 0 and,
+# after the CLI returns, writes to SMOKE_FLEET_OUT its stats, the launches,
+# the TTFT and per-token latency of every request the fleet was given and
+# the device memory still allocated.
+_FLEET_PROCESS = """
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from chip_smoke import BenchTokenizer, request_timing
+from flexible_llm_sharding_tpu_torch import cli
+from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+from flexible_llm_sharding_tpu_torch.serve import fleet
+
+given = []
+real = fleet.ReplicaFleet.submit_request
+
+def submit_request(self, req):
+    given.append(req)
+    return real(self, req)
+
+fleet.ReplicaFleet.submit_request = submit_request
+fa.reset_launch_counts()
+stats = cli.main(sys.argv[3:], tokenizer=BenchTokenizer(int(sys.argv[2])))
+torch.cuda.synchronize()
+with open(os.environ["SMOKE_FLEET_OUT"], "w") as f:
+    json.dump({"stats": stats, "launches": fa.launch_counts(),
+               "local_launches": fa.local_launch_counts(), "timing": request_timing(given),
+               "allocated_after_gb": torch.cuda.memory_allocated() / 1e9}, f)
+"""
+
+
+def request_timing(reqs) -> dict:
+    """TTFT and per-token latency (the wall after the first token over the
+    tokens after it) of the served requests among ``reqs``: mean and p95 in
+    seconds, and how many were served."""
+    ttft, per_token = [], []
+    for r in reqs:
+        if not r.future.done() or r.future.exception(timeout=0) is not None:
+            continue
+        res = r.future.result(timeout=0)
+        ttft.append(res.ttft_s)
+        n = res.tokens.shape[1]
+        if n > 1:
+            per_token.append((res.latency_s - res.ttft_s) / (n - 1))
+
+    def summary(v):
+        return {"mean": float(np.mean(v)), "p95": float(np.percentile(v, 95))} if v else {}
+
+    return {"served": len(ttft), "ttft_s": summary(ttft), "token_latency_s": summary(per_token)}
+
+
+def fleet_totals(stats: dict) -> dict:
+    """A ``fleet_stats`` line's replicas, the retired ones included:
+    ``completed`` per replica and the sums of sweeps, prefills, tokens and
+    streamed bytes; and the fleet's ``tokens_served`` (the engines'
+    ``tokens_emitted`` also count attempts a kill abandoned)."""
+    reps = {**{k: v for k, v in stats["replicas"].items()},
+            **{f"retired{k}": v for k, v in stats.get("retired", {}).items()}}
+    return {
+        "completed_by_replica": {k: v.get("completed", 0) for k, v in reps.items()},
+        "sweeps": sum(v.get("sweeps", 0) for v in reps.values()),
+        "prefills": sum(v.get("prefills", 0) for v in reps.values()),
+        "tokens_emitted": sum(v.get("tokens_emitted", 0) for v in reps.values()),
+        "tokens_served": stats.get("tokens_served"),
+        "streamed_bytes": sum(v["stream"]["streamed_bytes"] for v in reps.values()),
+    }
+
+
+def fleet_cli(model_dir: str, work: str, tag: str, prompts, extra: list[str], vocab: int):
+    """The serve CLI's demo frontend over ``prompts`` in a fresh process
+    (:data:`_FLEET_PROCESS`). Returns (scores, updated prompts, its dump,
+    seconds from start to exit)."""
+    ppkl, opkl = os.path.join(work, f"{tag}.pkl"), os.path.join(work, f"{tag}_scores.pkl")
+    out = os.path.join(work, f"{tag}.json")
+    with open(ppkl, "wb") as f:
+        pickle.dump(prompts, f)
+    argv = ["serve", "--model_path", model_dir, "--prompt_pickle", ppkl, "--output_file", opkl,
+            "--stats_interval_s", "0", *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _FLEET_PROCESS, HERE, str(vocab), *argv],
+                          capture_output=True, text=True, cwd=work, timeout=600,
+                          env={**os.environ, "SMOKE_FLEET_OUT": out})
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"fleet {tag}: the serve process exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(opkl, "rb") as f:
+        scores = pickle.load(f)
+    with open(os.path.join(work, f"{tag}_updated.pkl"), "rb") as f:
+        updated = pickle.load(f)
+    with open(out) as f:
+        return scores, updated, json.load(f), secs
+
+
+def first_kill_seed(n: int, rate: float) -> int:
+    """A chaos seed whose ``replica_kill`` schedule at ``rate`` fires first
+    at draw ``n`` (0-based; the injector's SHA-256 unit per draw)."""
+    from flexible_llm_sharding_tpu_torch.faults.retry import hash_unit
+
+    for seed in range(1_000_000):
+        units = [hash_unit(f"{seed}:replica_kill:{i}") for i in range(n + 1)]
+        if min(units[:n], default=1.0) >= rate > units[n]:
+            return seed
+    fail(f"no chaos seed fires first at draw {n}")
+
+
+def device_bytes(tree) -> int:
+    """Bytes of the CUDA storages behind the tensors in ``tree`` (nested
+    dicts, lists and tuples), each storage once."""
+    storages: dict[int, int] = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                st = x.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(tree)
+    return sum(storages.values())
+
+
+def watch_kill(fleet) -> dict:
+    """Wrap ``fleet``'s chaos step: when it kills a replica, record the
+    victim, the shard, its waves' steps (sweeps run: 1 is the prefill) and
+    the device bytes of their state (KV and activations) at that moment."""
+    from flexible_llm_sharding_tpu_torch.serve import ReplicaKilled
+
+    seen: dict = {}
+    step = fleet._chaos_step
+
+    def watched(rep, shard_pos):
+        try:
+            step(rep, shard_pos)
+        except ReplicaKilled:
+            waves = [w for w in rep.engine.batcher.waves if w.state is not None]
+            seen.update(replica=rep.idx, shard=shard_pos, steps=[w.steps for w in waves],
+                        state_bytes=device_bytes([w.state.kv_store._mem for w in waves]))
+            raise
+
+    fleet._chaos_step = watched
+    return seen
+
+
+def check_concurrent_launches(case: dict, gen, threads: int = 3, calls: int = 10) -> None:
+    """Each kernel launched from ``threads`` fresh threads at once, ``calls``
+    times each, on the same inputs (every thread on its own current stream
+    of one context, as the fleet's engine threads launch; no thread makes a
+    CUDA call before its first launch): every launch succeeds and every
+    output equals one launch from this thread bit for bit."""
+    import threading
+
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+    x = _inputs(case, torch.bfloat16, gen)
+    for kernel, (args, kw) in _calls(x, None).items():
+        want = getattr(fa, kernel)(*args, **kw)
+        torch.cuda.synchronize()
+        bad: list = []
+
+        def run():
+            try:
+                with torch.inference_mode():
+                    for _ in range(calls):
+                        got = getattr(fa, kernel)(*args, **kw)
+                        torch.cuda.current_stream().synchronize()
+                        if not torch.equal(got, want):
+                            bad.append(float((got.float() - want.float()).abs().max()))
+            except Exception as e:  # recorded: the check fails on it below
+                bad.append(repr(e))
+
+        ts = [threading.Thread(target=run) for _ in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120)
+        if bad or any(t.is_alive() for t in ts):
+            fail(f"{kernel}: launches from {threads} threads at once differ from one launch: {bad}")
+        log(f"[fleet] {kernel}: {threads * calls} launches from {threads} threads at once at the "
+            "serve block's shapes, each equal bit for bit to a single launch")
+
+
+def phase_fleet(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str,
+                default: tuple) -> dict:
+    """The replica fleet on the 4-layer Llama-2-7B cell (see the module doc),
+    against the serve phase's default engine (``default``: its scores,
+    updated prompts and stats). Returns the kernel launches of the
+    ``llama2_7b_serve_fleet`` path."""
+    import gc
+    import threading
+
+    from flexible_llm_sharding_tpu_torch.config import (
+        AutoscaleConfig,
+        FaultConfig,
+        FrameworkConfig,
+        ServeConfig,
+    )
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
+    from flexible_llm_sharding_tpu_torch.serve import ReplicaFleet
+    from flexible_llm_sharding_tpu_torch.utils import checkpoint
+    from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib
+
+    def_scores, def_updated, _ = default
+    vocab = cfg.vocab_size
+    n = len(prompts)
+    path = "llama2_7b_serve_fleet"
+    paths: dict = {path: {}}
+    one_replica = payload_bytes(cfg)  # one replica's resident weights
+    t_phase = time.perf_counter()
+    serve_args = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda",
+                  "--block_size", "2", "--max_new_tokens", str(n_gen), "--max_wave_requests",
+                  "2", "--router_health_poll_s", "0.05"]
+    chaos_kill = ["--chaos", "--chaos_error_rate", "1.0", "--chaos_sites", "replica_kill",
+                  "--chaos_max_faults", "1", "--chaos_seed", "1234"]
+
+    def add(counts, local):
+        launches = {k: {"launches": counts[k], "local_launches": local[k]} for k in counts}
+        _add_launches(paths[path], launches)
+        return counts
+
+    def same_tokens(tag, scores, updated, idxs) -> float:
+        # Tokens (the text) and argmax of the default engine's; returns the
+        # largest score gap (bf16, other wave groupings).
+        for j, i in enumerate(idxs):
+            if (updated[j] != def_updated[i]
+                    or not np.array_equal(np.asarray(scores[j]).argmax(-1),
+                                          def_scores[i].argmax(-1))):
+                fail(f"fleet {tag}: request {i}'s tokens or argmax differ from the default "
+                     "engine's")
+        return max(float(np.abs(np.asarray(scores[j]) - def_scores[i]).max())
+                   for j, i in enumerate(idxs))
+
+    def line(tag, stats, timing, launches, wall, **more):
+        log(f"[fleet] {tag} | {smi} | " + json.dumps({
+            "wall_s": wall, "ttft_s": timing.get("ttft_s"),
+            "token_latency_s": timing.get("token_latency_s"), **fleet_totals(stats),
+            "router": stats["router"], "autoscale": stats.get("autoscale"),
+            "stagger": stats.get("stagger"), "kernels": launches, **more}))
+
+    def threads_left():
+        return [t.name for t in threading.enumerate()
+                if t.name in ("serve-engine", "fleet-monitor", "fleet-autoscale")]
+
+    # -- N threads launching at once, at the serve block's shapes --------------
+    check_concurrent_launches(main_path_case(prompts[:2], n_gen),
+                              torch.Generator(device="cuda").manual_seed(99))
+
+    # -- fleet_parity: serve --replicas 3, a fresh process -----------------------
+    sc, up, dump, secs = fleet_cli(model_dir, work, "fleet_parity", prompts,
+                                   [*serve_args, "--replicas", "3", "--stagger_ms", "150"], vocab)
+    stats, router = dump["stats"], dump["stats"]["router"]
+    counts = add(dump["launches"], dump["local_launches"])
+    gap = same_tokens("fleet_parity", sc, up, range(n))
+    line("fleet_parity", stats, dump["timing"], counts, stats["wall_s"], process_s=secs,
+         max_abs_vs_default=gap, peak_mem_gb=stats.get("peak_mem_gb"),
+         allocated_after_shutdown_gb=dump["allocated_after_gb"],
+         host_rss_gib=stats.get("host_rss_gib"))
+    served = fleet_totals(stats)["completed_by_replica"]
+    if (router["dispatches"] != n or router["redispatches"] != 0 or sum(served.values()) != n
+            or len(stats["replicas"]) != 3 or min(served.values()) < 1):
+        fail(f"fleet_parity: router {router}, completed by replica {served}")
+    log(f"[fleet] fleet_parity: 3 replicas served {served}, tokens and argmax of the default "
+        f"engine, scores within {gap:.4e} of it (bf16, other wave groupings)")
+
+    # -- fleet_kill: one seeded replica_kill, a fresh process ----------------------
+    sc, up, dump, secs = fleet_cli(model_dir, work, "fleet_kill", prompts,
+                                   [*serve_args, "--replicas", "3", "--stagger_ms", "150",
+                                    *chaos_kill], vocab)
+    stats, router = dump["stats"], dump["stats"]["router"]
+    counts = add(dump["launches"], dump["local_launches"])
+    gap = same_tokens("fleet_kill", sc, up, range(n))
+    line("fleet_kill", stats, dump["timing"], counts, stats["wall_s"], process_s=secs,
+         max_abs_vs_default=gap, peak_mem_gb=stats.get("peak_mem_gb"),
+         allocated_after_shutdown_gb=dump["allocated_after_gb"],
+         host_rss_gib=stats.get("host_rss_gib"))
+    if (router["replicas_dead"] != 1 or router["redispatches"] < 1
+            or router["replicas_recycled"] != 1 or router["expired_orphans"] != 0
+            or sum(fleet_totals(stats)["completed_by_replica"].values()) != n
+            or stats["tokens_served"] != n * n_gen):
+        fail(f"fleet_kill: router {router}, completed "
+             f"{fleet_totals(stats)['completed_by_replica']}, tokens_served "
+             f"{stats['tokens_served']}")
+    log(f"[fleet] fleet_kill: replica killed, {router['redispatches']} re-dispatched, slot "
+        f"recycled; tokens and argmax of the default engine")
+
+    # -- in process: the device memory of a kill and a recycle -------------------
+    def mk_fleet(start=True, faults=None, **kw):
+        fw = FrameworkConfig(model_path=model_dir, dtype="bfloat16", layer_num_per_shard=1,
+                             block_size=2, device="cuda", disk_folder=os.path.join(work, "fleet"),
+                             faults=faults or FaultConfig())
+        sc = ServeConfig(**{"max_wave_requests": 2, "default_max_new_tokens": n_gen,
+                            "router_health_poll_s": 0.05, **kw})
+        return ReplicaFleet(fw, sc, tokenizer=BenchTokenizer(vocab), device=torch.device("cuda"),
+                            start=start)
+
+    def wait_for(what, cond, limit=120.0):
+        deadline = time.monotonic() + limit
+        while not cond():
+            if time.monotonic() > deadline:
+                fail(f"fleet: timed out waiting for {what}")
+            time.sleep(0.01)
+
+    def ready(fleet):  # every replica's weights on the card
+        return all(r.engine._kept is not None for r in list(fleet._replicas))
+
+    def idle(fleet):
+        return all(r.serving and len(r.engine.queue) == 0 and not r.engine.batcher.waves
+                   for r in list(fleet._replicas))
+
+    def served_in_process(tag, fleet, idxs, wait_ready=True, between=None):
+        if wait_ready:
+            wait_for(f"{tag}'s weights", lambda: ready(fleet))
+        kvpool.reset_process_pools()
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reqs = [fleet.submit(*prompts[i]) for i in idxs]
+        if between is not None:
+            between()
+        res = [r.future.result(timeout=300) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = add(fa.launch_counts(), fa.local_launch_counts())
+        gap = same_tokens(tag, [r.scores for r in res], [r.updated for r in res], idxs)
+        return reqs, wall, counts, gap
+
+    fresh_process_state()
+    # Every replica draws at each shard step; 8 requests keep all 3 busy
+    # for about 9 sweeps of 7 shards, so a first kill at the 107th draw
+    # (about every replica's sixth sweep) lands mid-decode, whichever
+    # replica takes it.
+    n_shards = len(plan_shards_dp(len(checkpoint.layer_names_for(cfg.num_hidden_layers)),
+                                  1).shards)
+    kill_rate = 0.02
+    kill_seed = first_kill_seed(3 * n_shards * 5 + 1, kill_rate)
+
+    def allocated() -> tuple[int, int]:
+        # (as first read, then with PyTorch's per-handle cuBLAS workspaces
+        # freed: 32 MiB for each thread handle in use at once, which a new
+        # engine thread can add and no engine owns, once two reads 0.1 s
+        # apart agree: an engine thread can still hold its last sweep's
+        # tensors for a moment after its waves retire).
+        gc.collect()
+        torch.cuda.synchronize()
+        raw, last = torch.cuda.memory_allocated(), None
+        for _ in range(50):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch._C._cuda_clearCublasWorkspaces()
+            now = torch.cuda.memory_allocated()
+            if now == last:
+                break
+            last = now
+            time.sleep(0.1)
+        return raw, now
+
+    fleet = mk_fleet(replicas=3, faults=FaultConfig(enabled=True, seed=kill_seed,
+                                                    error_rate=kill_rate,
+                                                    sites=("replica_kill",), max_faults=1))
+    kill = watch_kill(fleet)
+    try:
+        wait_for("the clean fleet's weights", lambda: ready(fleet))
+        clean_raw, clean = allocated()
+        rss_clean = host_rss_gib().get("rss")
+        reqs, wall, counts, gap = served_in_process("fleet_kill_memory", fleet, range(n),
+                                                    wait_ready=False)
+        peak = torch.cuda.max_memory_allocated()
+        wait_for("the recycled replica", lambda: fleet.metrics.counter("replicas_recycled") == 1
+                 and ready(fleet) and idle(fleet))
+        after_raw, after = allocated()
+        rss_after = host_rss_gib().get("rss")
+        stats = fleet.stats()
+    finally:
+        ok = fleet.shutdown(drain=True, timeout=120)
+    bound = min(kill.get("state_bytes", 0), one_replica // 4)
+    line("fleet_kill_memory", stats, request_timing(reqs), counts, wall, max_abs_vs_default=gap,
+         kill_seed=kill_seed, kill=kill, clean_allocated_gb=clean / 1e9,
+         after_recycle_allocated_gb=after / 1e9, bound_gb=bound / 1e9,
+         clean_with_cublas_workspaces_gb=clean_raw / 1e9,
+         after_with_cublas_workspaces_gb=after_raw / 1e9,
+         peak_allocated_gb=peak / 1e9, one_replica_weights_gb=one_replica / 1e9,
+         host_rss_clean_gib=rss_clean, host_rss_after_recycle_gib=rss_after)
+    if stats["tokens_served"] != n * n_gen:
+        fail(f"fleet_kill_memory: tokens_served {stats['tokens_served']}, not the {n * n_gen} "
+             "of the requests resolved")
+    if (not kill or max(kill["steps"], default=0) < 1 or kill["state_bytes"] <= 0
+            or stats["router"]["replicas_dead"] != 1 or stats["router"]["redispatches"] < 1):
+        fail(f"fleet_kill_memory: the kill did not land mid-decode (in a decode sweep of a "
+             f"prefilled wave, with device state held): {kill}; router {stats['router']}")
+    if after - clean >= bound:
+        fail(f"fleet_kill_memory: {after - clean} more bytes allocated after the kill and "
+             f"recycle than in the clean fleet, not under {bound} (the victim's wave state at "
+             f"the kill, {kill['state_bytes']}, or a quarter of one replica's weights, "
+             f"{one_replica})")
+    if not ok or threads_left():
+        fail(f"fleet_kill_memory: shutdown {ok}, threads left {threads_left()}")
+    log(f"[fleet] fleet_kill_memory: replica {kill['replica']} killed at shard {kill['shard']} "
+        f"with waves at steps {kill['steps']} holding {kill['state_bytes'] / 1e9:.4f} GB on the "
+        f"card; allocated {clean / 1e9:.4f} GB clean, {after / 1e9:.4f} GB after the kill, "
+        f"recycle and drain, cuBLAS workspaces freed ({clean_raw / 1e9:.4f} and "
+        f"{after_raw / 1e9:.4f} GB with them; bound {bound / 1e9:.4f} GB; one replica's weights "
+        f"{one_replica / 1e9:.3f} GB); host RSS {rss_clean} -> {rss_after} GiB")
+
+    # -- fleet_stall: a wedged engine thread, found by its watermark ------------
+    fleet = mk_fleet(replicas=2, watchdog_abort_s=2.5,
+                     faults=FaultConfig(enabled=True, seed=1234, error_rate=1.0,
+                                        sites=("replica_stall",), max_faults=1))
+    try:
+        reqs, wall, counts, gap = served_in_process("fleet_stall", fleet, range(n))
+        stats = fleet.stats()
+    finally:
+        ok = fleet.shutdown(drain=True, timeout=120)
+    totals = fleet_totals(stats)
+    line("fleet_stall", stats, request_timing(reqs), counts, wall, max_abs_vs_default=gap,
+         shutdown_ok=ok, peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if (stats["router"]["replicas_dead"] < 1 or sum(totals["completed_by_replica"].values()) != n
+            or not ok or threads_left()):
+        fail(f"fleet_stall: router {stats['router']}, completed "
+             f"{totals['completed_by_replica']}, shutdown {ok}, threads left {threads_left()}")
+    log(f"[fleet] fleet_stall: the wedged replica hard-failed on its watermark, "
+        f"completed {totals['completed_by_replica']} (the released thread counted nothing), "
+        "shutdown True with no thread left")
+
+    # -- fleet_elastic: join while in flight, drain out, hard remove -------------
+    fleet = mk_fleet(replicas=2, max_active_requests=2)
+    try:
+        added = []
+        reqs, wall, counts, gap = served_in_process(
+            "fleet_elastic_join", fleet, range(4), between=lambda: added.append(fleet.add_replica()))
+        if not fleet.remove_replica(added[0], drain=True, timeout=120):
+            fail("fleet_elastic: the drained replica did not retire")
+        redisp = fleet.metrics.counter("redispatches")
+        idxs = [4, 5, 6, 7, 0, 1]
+
+        def hard_remove():
+            # The replica holding the most work, queued and in flight.
+            victim = max(fleet._replicas, key=lambda r: len(r.engine.queue)
+                         + r.engine.batcher.active_requests)
+            fleet.remove_replica(victim.idx, drain=False)
+
+        reqs2, wall2, counts2, gap2 = served_in_process("fleet_elastic_remove", fleet, idxs,
+                                                        between=hard_remove)
+        refused = False
+        try:
+            fleet.remove_replica(drain=True)
+        except ValueError as e:
+            refused = "last serving replica" in str(e)
+        stats = fleet.stats()
+    finally:
+        ok = fleet.shutdown(drain=True, timeout=120)
+    r = stats["router"]
+    line("fleet_elastic", stats, request_timing(reqs + reqs2), counts, wall + wall2,
+         max_abs_vs_default=max(gap, gap2), redispatched_by_hard_remove=r["redispatches"] - redisp)
+    if (r["replicas_added"] != 1 or r["replicas_drained"] != 1 or r["replicas_removed"] != 2
+            or r["redispatches"] <= redisp or not refused or not ok):
+        fail(f"fleet_elastic: router {r}, last replica refused {refused}, shutdown {ok}")
+    log(f"[fleet] fleet_elastic: a replica added in flight and drained out, one removed hard "
+        f"({r['redispatches'] - redisp} re-dispatched), the last one's removal refused; tokens "
+        "and argmax of the default engine")
+
+    # -- fleet_autoscale: a burst grows the fleet, idle shrinks it back ----------
+    auto = AutoscaleConfig(enabled=True, min=1, max=2, poll_s=0.05, confirm_polls=1,
+                           grow_queue_frac=0.25, shrink_queue_frac=0.01, grow_cooldown_s=0.0,
+                           shrink_cooldown_s=3.0)
+    # Queued before the start: the autoscaler sees the burst while replica 0
+    # loads its weights.
+    fleet = mk_fleet(start=False, replicas=1, queue_capacity=16, autoscale=auto)
+    try:
+        kvpool.reset_process_pools()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [fleet.submit(*p) for p in prompts]
+        fleet.start()
+        res = [q.future.result(timeout=300) for q in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = add(fa.launch_counts(), fa.local_launch_counts())
+        gap = same_tokens("fleet_autoscale", [q.scores for q in res], [q.updated for q in res],
+                          range(n))
+        wait_for("the shrink back to 1", lambda: fleet.population() == 1
+                 and fleet.drains_in_flight() == 0, limit=60.0)
+        stats = fleet.stats()
+    finally:
+        ok = fleet.shutdown(drain=True, timeout=120)
+    a = stats["autoscale"]
+    line("fleet_autoscale", stats, request_timing(reqs), counts, wall, max_abs_vs_default=gap,
+         stagger_error=stats["stagger"]["stagger_error"])
+    if a["grows"] < 1 or a["shrinks"] < 1 or not ok:
+        fail(f"fleet_autoscale: autoscale {a}, shutdown {ok}")
+    log(f"[fleet] fleet_autoscale: {a['grows']} grow(s) under the burst, {a['shrinks']} "
+        f"shrink(s) once idle, stagger error {stats['stagger']['stagger_error']} (the fleet "
+        "source)")
+
+    # -- fleet_wal: SIGKILL a 3-replica process, replay into 2 -------------------
+    budgets = [n_gen] * n
+    wal_dir, done, secs = wal_drill(model_dir, work, "fleet_crash", prompts, budgets, vocab,
+                                    {"FLS_WAL_CRASH_SWEEPS": "3"}, -9,
+                                    extra=("--replicas", "3", "--router_health_poll_s", "0.05"))
+    summary, replies, scores, r_stats, launches, r_secs = wal_restart(
+        model_dir, work, "fleet_crash", wal_dir, vocab,
+        extra=("--replicas", "2", "--router_health_poll_s", "0.05"))
+    _add_launches(paths[path], launches)
+    want = {f"w{i}": _new_tokens(def_updated[i], prompts[i]) for i in range(n)}
+    got = {cid: [[str(t) for t in row] for row in d["tokens"]]
+           for cid, d in {**done, **replies}.items()}
+    wrong = [cid for cid in want if got.get(cid) != want[cid]]
+    r = r_stats["router"]
+    log(f"[fleet] fleet_wal_restart | {smi} | " + json.dumps({
+        "wall_s": r_stats["wall_s"], "drill_process_s": secs, "restart_process_s": r_secs,
+        "done_before": sorted(done), "replay": summary, **fleet_totals(r_stats), "router": r,
+        "kernels": {k: v["launches"] for k, v in launches.items()}}))
+    if (wrong or summary["replayed"] != n - len(done) or len(r_stats["replicas"]) != 2
+            or r["dispatches"] != summary["replayed"] or r["redispatches"] != 0):
+        fail(f"fleet_wal: tokens differ for {wrong}, replay {summary}, router {r}, replicas "
+             f"{sorted(r_stats['replicas'])}")
+    log(f"[fleet] fleet_wal: SIGKILL of the 3-replica process with {len(done)} done; the "
+        f"2-replica restart replayed {summary['replayed']}, one dispatch each; merged tokens "
+        "equal the default engine's")
+
+    missing = [k for k in fa.KERNELS if paths[path].get(k, {}).get("launches", 0) == 0]
+    if missing:
+        fail(f"fleet: kernels never launched on the {path} path: {missing}")
+    log(f"[fleet] phase wall {time.perf_counter() - t_phase:.3f} s | {smi}")
+    return paths
+
+
 def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
                  n_gen_loop: int) -> dict:
     """Disk-mode crash resume and spill recompute on the 4-layer Llama-2-7B
@@ -3394,6 +3964,8 @@ def main() -> None:
                                  record=serve_runs))
         paths.update(phase_tenants(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi,
                                    serve_runs["default"]))
+        paths.update(phase_fleet(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi,
+                                 serve_runs["default"]))
         shutil.rmtree(llama_dir, ignore_errors=True)
         paths.update({
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,

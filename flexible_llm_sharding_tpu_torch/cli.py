@@ -44,9 +44,16 @@ JSON line on stdout. ``--adapter_dir`` serves LoRA adapters by name (both
 parsers accept it and ``--adapter_max_gb``, as the JAX CLI does);
 ``--wal_dir`` journals every request, replays the open ones at the top of
 either frontend (a ``wal replay: ...`` line on stderr) and, on SIGTERM,
-parks the requests in flight for the next start and exits 143. The JAX
-serve flags whose modules are not ported yet raise ``NotImplementedError``
-when given a value other than their default.
+parks the requests in flight for the next start and exits 143.
+``--replicas N`` (N > 1) or ``--autoscale`` serves through the replica
+fleet (``serve/fleet.py``): N engines on the one device behind the
+shard-phase router (``--router_*``), with elastic scaling and phase stagger
+(``--autoscale*``); the final stats line is then the fleet's
+(``"event": "fleet_stats"``). ``--chaos`` fires the fleet's replica sites;
+``--chaos_sites`` must name only ``replica_kill`` and ``replica_stall``,
+the sites the port fires (any other, or none, raises). The JAX serve flags
+whose modules are not ported yet raise ``NotImplementedError`` when given a
+value other than their default.
 
 ``prepare-adapter --peft_dir P --adapter_dir R --name N`` converts a PEFT
 LoRA checkpoint into the registry layout.
@@ -406,22 +413,9 @@ def prepare_adapter_main(argv: list[str] | None = None) -> None:
 # The JAX serve parser's flags whose modules are not ported yet: (flag,
 # argparse keywords, where it stands in ROADMAP.md). Each is parsed as there
 # and refused unless it keeps its default.
-_FLEET = "ROADMAP queue 1 item 6: the fleet, router and autoscaler"
 _FAULTS_OBS = "ROADMAP queue 1 item 7: faults, pressure and observability"
 _UNPORTED_SERVE_FLAGS = (
     ("--metrics_port", dict(type=int, default=None), _FAULTS_OBS),
-    ("--replicas", dict(type=int, default=1), _FLEET),
-    ("--router_phase_weight", dict(type=float, default=1.0), _FLEET),
-    ("--router_depth_weight", dict(type=float, default=1.0), _FLEET),
-    ("--router_health_poll_s", dict(type=float, default=0.2), _FLEET),
-    ("--router_drain_recoveries", dict(type=int, default=0), _FLEET),
-    ("--chaos", dict(action="store_true"), _FAULTS_OBS),
-    ("--chaos_seed", dict(type=int, default=0), _FAULTS_OBS),
-    ("--chaos_error_rate", dict(type=float, default=0.1), _FAULTS_OBS),
-    ("--chaos_truncate_rate", dict(type=float, default=0.0), _FAULTS_OBS),
-    ("--chaos_latency_rate", dict(type=float, default=0.0), _FAULTS_OBS),
-    ("--chaos_sites", dict(type=str, default=""), _FAULTS_OBS),
-    ("--chaos_max_faults", dict(type=int, default=-1), _FAULTS_OBS),
     ("--pressure", dict(action="store_true"), _FAULTS_OBS),
     ("--pressure_poll_s", dict(type=float, default=1.0), _FAULTS_OBS),
     ("--pressure_host_min_gb", dict(type=float, default=1.0), _FAULTS_OBS),
@@ -441,23 +435,133 @@ _UNPORTED_SERVE_FLAGS = (
                                 choices=("info", "warning", "error", "critical")), _FAULTS_OBS),
     ("--incident_debounce_s", dict(type=float, default=60.0), _FAULTS_OBS),
     ("--incident_settle_s", dict(type=float, default=1.0), _FAULTS_OBS),
-    ("--sched_interactive_phase_boost", dict(type=float, default=2.0), _FLEET),
-    ("--autoscale", dict(action="store_true"), _FLEET),
-    ("--autoscale_min", dict(type=int, default=1), _FLEET),
-    ("--autoscale_max", dict(type=int, default=4), _FLEET),
-    ("--autoscale_poll_s", dict(type=float, default=1.0), _FLEET),
-    ("--autoscale_grow_burn_rate", dict(type=float, default=1.0), _FLEET),
-    ("--autoscale_grow_queue_frac", dict(type=float, default=0.75), _FLEET),
-    ("--autoscale_shrink_burn_rate", dict(type=float, default=0.25), _FLEET),
-    ("--autoscale_shrink_queue_frac", dict(type=float, default=0.10), _FLEET),
-    ("--autoscale_confirm_polls", dict(type=int, default=3), _FLEET),
-    ("--autoscale_grow_cooldown_s", dict(type=float, default=10.0), _FLEET),
-    ("--autoscale_shrink_cooldown_s", dict(type=float, default=30.0), _FLEET),
-    ("--autoscale_dry_run", dict(action="store_true"), _FLEET),
-    ("--autoscale_no_stagger", dict(action="store_true"), _FLEET),
-    ("--autoscale_stagger_tolerance", dict(type=float, default=0.15), _FLEET),
-    ("--autoscale_stagger_hold_max_frac", dict(type=float, default=0.5), _FLEET),
 )
+
+
+def _add_fleet_flags(p: argparse.ArgumentParser) -> None:
+    """The replica fleet, its router and its chaos sites (the JAX serve
+    parser's flags and defaults)."""
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serving engine replicas (thread-per-engine, one process, one device, "
+                        "shared host shard cache). >1 runs the replica fleet: requests route to "
+                        "the healthiest replica by shard-phase proximity + queue depth, and a "
+                        "dead replica's queued/in-flight requests re-dispatch to a survivor "
+                        "exactly once, token-identically")
+    p.add_argument("--router_phase_weight", type=float, default=1.0,
+                   help="router score weight on sweep-phase proximity (fraction of a sweep "
+                        "until the replica's next shard-0 admission point)")
+    p.add_argument("--router_depth_weight", type=float, default=1.0,
+                   help="router score weight on normalized queue depth ((queued + active) / "
+                        "max_active_requests)")
+    p.add_argument("--router_health_poll_s", type=float, default=0.2,
+                   help="fleet health-monitor poll interval: each tick reads every replica's "
+                        "engine-fatal error, recoveries and sweep liveness watermark (a busy "
+                        "replica stalled past --watchdog_abort_s is hard-failed)")
+    p.add_argument("--router_drain_recoveries", type=int, default=0,
+                   help="gracefully drain + recycle a replica whose engine_recoveries counter "
+                        "reaches this (a flaky-but-alive engine); 0 = off")
+    p.add_argument("--chaos", action="store_true",
+                   help="deterministic fault injection at --chaos_sites; the port fires only the "
+                        "fleet's replica_kill and replica_stall, and refuses any other site")
+    p.add_argument("--chaos_seed", type=int, default=0,
+                   help="injection schedule seed (same seed = same faults)")
+    p.add_argument("--chaos_error_rate", type=float, default=0.1,
+                   help="probability of an injected fault per site fire")
+    p.add_argument("--chaos_truncate_rate", type=float, default=0.0,
+                   help="probability of an injected truncated read")
+    p.add_argument("--chaos_latency_rate", type=float, default=0.0,
+                   help="probability of an injected latency spike")
+    p.add_argument("--chaos_sites", type=str, default="",
+                   help="comma list of sites to inject at (default all, which the port refuses): "
+                        "replica_kill,replica_stall")
+    p.add_argument("--chaos_max_faults", type=int, default=-1,
+                   help="total faults injected before the schedule goes permanently clean "
+                        "(-1 = unlimited); replica_kill with a budget of 1 kills exactly one "
+                        "replica and lets the fleet prove clean failover")
+
+
+def _add_autoscale_flags(p: argparse.ArgumentParser) -> None:
+    """The fleet's autoscaler and phase stagger (the JAX serve parser's
+    flags and defaults)."""
+    p.add_argument("--autoscale", action="store_true",
+                   help="enable the fleet autoscaler: a control loop polls SLO burn rate and "
+                        "queue depth and grows/drains the replica fleet between "
+                        "--autoscale_min/max with anti-flap hysteresis (consecutive-poll "
+                        "confirmation, per-direction cooldowns) and interlocks (never shrink "
+                        "below min or over an in-flight drain; WAL replay completes first). Also "
+                        "engages the sweep-phase stagger controller (replica offsets held at i/N "
+                        "so worst-case admission wait is sweep/N)")
+    p.add_argument("--autoscale_min", type=int, default=1,
+                   help="fleet size floor the controller may drain to")
+    p.add_argument("--autoscale_max", type=int, default=4,
+                   help="fleet size ceiling the controller may grow to")
+    p.add_argument("--autoscale_poll_s", type=float, default=1.0,
+                   help="controller poll interval in seconds")
+    p.add_argument("--autoscale_grow_burn_rate", type=float, default=1.0,
+                   help="grow when the worst per-class SLO burn rate sustains at or above this")
+    p.add_argument("--autoscale_grow_queue_frac", type=float, default=0.75,
+                   help="grow when queue depth / capacity sustains at or above this fraction")
+    p.add_argument("--autoscale_shrink_burn_rate", type=float, default=0.25,
+                   help="shrink only when burn rate AND queue fraction are both below their "
+                        "shrink thresholds (must be <= the grow threshold)")
+    p.add_argument("--autoscale_shrink_queue_frac", type=float, default=0.10,
+                   help="queue-fraction half of the shrink band (must be <= the grow fraction)")
+    p.add_argument("--autoscale_confirm_polls", type=int, default=3,
+                   help="a breach must persist this many consecutive polls before the "
+                        "controller acts")
+    p.add_argument("--autoscale_grow_cooldown_s", type=float, default=10.0,
+                   help="after any scale action, grow again only after this many seconds")
+    p.add_argument("--autoscale_shrink_cooldown_s", type=float, default=30.0,
+                   help="after any scale action, shrink only after this many seconds")
+    p.add_argument("--autoscale_dry_run", action="store_true",
+                   help="decide and count every decision without acting")
+    p.add_argument("--autoscale_no_stagger", action="store_true",
+                   help="disable the sweep-phase stagger controller")
+    p.add_argument("--autoscale_stagger_tolerance", type=float, default=0.15,
+                   help="normalized stagger error at or under this counts as converged "
+                        "(0 = perfect i/N spread, 1 = all replicas in phase)")
+    p.add_argument("--autoscale_stagger_hold_max_frac", type=float, default=0.5,
+                   help="cap on a single boundary hold as a fraction of one measured sweep wall")
+
+
+def _autoscale_config_from_args(args: argparse.Namespace):
+    from flexible_llm_sharding_tpu_torch.config import AutoscaleConfig
+
+    if not args.autoscale:
+        return AutoscaleConfig()
+    return AutoscaleConfig(
+        enabled=True, min=args.autoscale_min, max=args.autoscale_max,
+        poll_s=args.autoscale_poll_s, grow_burn_rate=args.autoscale_grow_burn_rate,
+        grow_queue_frac=args.autoscale_grow_queue_frac,
+        shrink_burn_rate=args.autoscale_shrink_burn_rate,
+        shrink_queue_frac=args.autoscale_shrink_queue_frac,
+        confirm_polls=args.autoscale_confirm_polls,
+        grow_cooldown_s=args.autoscale_grow_cooldown_s,
+        shrink_cooldown_s=args.autoscale_shrink_cooldown_s, dry_run=args.autoscale_dry_run,
+        stagger=not args.autoscale_no_stagger,
+        stagger_tolerance=args.autoscale_stagger_tolerance,
+        stagger_hold_max_frac=args.autoscale_stagger_hold_max_frac,
+    )
+
+
+def _fault_config_from_args(args: argparse.Namespace):
+    from flexible_llm_sharding_tpu_torch.config import FaultConfig
+
+    if not args.chaos:
+        return FaultConfig()
+    return FaultConfig(
+        enabled=True, seed=args.chaos_seed, error_rate=args.chaos_error_rate,
+        truncate_rate=args.chaos_truncate_rate, latency_rate=args.chaos_latency_rate,
+        sites=tuple(x for x in args.chaos_sites.split(",") if x),
+        max_faults=args.chaos_max_faults,
+    )
+
+
+def _serve_wants_fleet(serve_cfg) -> bool:
+    """Serve through the replica fleet: more than one replica, or the
+    autoscaler (it lives in the fleet, and one replica that grows under load
+    is its canonical start)."""
+    return serve_cfg.replicas > 1 or serve_cfg.autoscale.enabled
 
 
 def _add_spec_flags(p: argparse.ArgumentParser) -> None:
@@ -496,8 +600,7 @@ def _add_spec_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _add_sched_flags(p: argparse.ArgumentParser) -> None:
-    """The sweep scheduler (the JAX serve parser's flags and defaults, but
-    ``--sched_interactive_phase_boost``, which the replica fleet reads)."""
+    """The sweep scheduler (the JAX serve parser's flags and defaults)."""
     p.add_argument("--sched", action="store_true",
                    help="enable the multi-tenant sweep scheduler: strict SLO-class priority "
                         "(interactive > standard > best_effort) with deficit-weighted "
@@ -533,6 +636,10 @@ def _add_sched_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--sched_coalesce", type=_str2bool, default=True,
                    help="merge same-tokenized-prefix requests admitted at one boundary into a "
                         "single wave entry that prefills the shared prefix KV once")
+    p.add_argument("--sched_interactive_phase_boost", type=float, default=2.0,
+                   help="fleet routing: multiply the router's phase weight by this for "
+                        "interactive requests, so they land on the replica nearest its next "
+                        "shard-0 admission point (1 = no boost)")
 
 
 def _sched_config_from_args(args: argparse.Namespace):
@@ -546,7 +653,7 @@ def _sched_config_from_args(args: argparse.Namespace):
         best_effort_deadline_s=args.sched_best_effort_deadline_s,
         tenant_weights=args.sched_tenant_weights, tenant_limits=args.sched_tenant_limits,
         tenant_burst=args.sched_tenant_burst, preempt=args.sched_preempt,
-        coalesce=args.sched_coalesce,
+        coalesce=args.sched_coalesce, interactive_phase_boost=args.sched_interactive_phase_boost,
     )
 
 
@@ -622,6 +729,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "false: they drop and the prefix prefills again")
     p.add_argument("--readahead_threads", type=int, default=2,
                    help="threads of the page-cache readahead pool; 0 = off")
+    _add_fleet_flags(p)
     _add_spec_flags(p)
     _add_sched_flags(p)
     p.add_argument("--slo", action="store_true",
@@ -648,6 +756,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--wal_max_mb", type=float, default=64.0,
                    help="WAL segment rotation size; sealed segments whose every request is "
                         "terminal are deleted")
+    _add_autoscale_flags(p)
     for flag, kw, where in _UNPORTED_SERVE_FLAGS:
         p.add_argument(flag, help=f"not ported yet ({where}): any value but the default raises",
                        **kw)
@@ -670,10 +779,12 @@ def _refuse_unported_serve_flags(p: argparse.ArgumentParser, args: argparse.Name
 
 def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
     """The ``serve`` subcommand: the demo or the JSONL frontend over one
-    engine. Prints the engine's stats as a JSON line on stderr at the end
-    and returns them, with the run's wall, tokens per second and the card's
+    engine, or over the replica fleet (``--replicas`` > 1 or
+    ``--autoscale``). Prints the engine's or the fleet's stats as a JSON line
+    on stderr at the end and returns them, with the run's wall, tokens served
+    per second (``tokens_served``: resolved requests only) and the card's
     peak memory (demo mode adds the queue depth right after the last
-    submission)."""
+    submission; the fleet's line adds the host RSS)."""
     parser = build_serve_parser()
     args = parser.parse_args(argv)
     _refuse_unported_serve_flags(parser, args)
@@ -693,7 +804,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             kv_page_tokens=args.kv_page_tokens, kv_pool_gb=args.kv_pool_gb,
             kv_host_spill=args.kv_host_spill, hbm_pin_gb=args.hbm_pin_gb,
             readahead_threads=args.readahead_threads,
-            adapters=_adapter_config_from_args(args),
+            adapters=_adapter_config_from_args(args), faults=_fault_config_from_args(args),
         )
         slo = SLOConfig() if not args.slo else SLOConfig(
             enabled=True, ttft_p95_s=args.slo_ttft_p95_s,
@@ -711,9 +822,17 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             spec_backoff_threshold=args.spec_backoff_threshold,
             spec_draft_budget=args.spec_draft_budget, sched=_sched_config_from_args(args),
             slo=slo, wal_dir=args.wal_dir, wal_fsync=args.wal_fsync, wal_max_mb=args.wal_max_mb,
+            replicas=args.replicas, router_phase_weight=args.router_phase_weight,
+            router_depth_weight=args.router_depth_weight,
+            router_health_poll_s=args.router_health_poll_s,
+            router_drain_recoveries=args.router_drain_recoveries,
+            autoscale=_autoscale_config_from_args(args),
         )
     except ValueError as e:
         raise SystemExit(str(e)) from e
+    from flexible_llm_sharding_tpu_torch.faults.inject import require_armed
+
+    require_armed(cfg.faults, "serve --chaos")
     device = resolve_device(cfg.device)
     if tokenizer is None:
         from transformers import AutoTokenizer
@@ -722,26 +841,38 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
         tokenizer.pad_token = tokenizer.eos_token
 
     from flexible_llm_sharding_tpu_torch.runtime.executor import peak_mem_gb
-    from flexible_llm_sharding_tpu_torch.serve import QueueFull, RequestStatus, ServeEngine
+    from flexible_llm_sharding_tpu_torch.serve import (
+        QueueFull,
+        ReplicaFleet,
+        RequestStatus,
+        ServeEngine,
+    )
 
     if device.type == "cuda":
         import torch
 
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    engine = ServeEngine(cfg, serve_cfg, tokenizer=tokenizer, device=device)
+    # The fleet has the engine's surface: both frontends drive either.
+    fleet = _serve_wants_fleet(serve_cfg)
+    if fleet:
+        engine = ReplicaFleet(cfg, serve_cfg, tokenizer=tokenizer, device=device)
+    else:
+        engine = ServeEngine(cfg, serve_cfg, tokenizer=tokenizer, device=device)
     extra: dict = {}
 
     def replay_open(callback=None) -> None:
         # The requests a previous start left open, before any new traffic.
-        if engine._wal is None:
-            return
-        from flexible_llm_sharding_tpu_torch.serve import recovery
+        if engine._wal is not None:
+            from flexible_llm_sharding_tpu_torch.serve import recovery
 
-        summary = recovery.replay(engine, engine._wal, callback=callback)
-        print(f"wal replay: {summary['replayed']} reopened, {summary['skipped_terminal']} already "
-              f"terminal, kv restored {summary['kv_restored']} (failed {summary['kv_failed']})",
-              file=sys.stderr, flush=True)
+            summary = recovery.replay(engine, engine._wal, callback=callback)
+            print(f"wal replay: {summary['replayed']} reopened, {summary['skipped_terminal']} "
+                  f"already terminal, kv restored {summary['kv_restored']} (failed "
+                  f"{summary['kv_failed']})", file=sys.stderr, flush=True)
+        if fleet:
+            # The autoscaler's first decision waits for the replay.
+            engine.mark_replay_complete()
 
     import signal
 
@@ -775,7 +906,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
                 requests.append(req)
                 if args.stagger_ms:
                     time.sleep(args.stagger_ms / 1000.0)
-            extra["queue_depth_after_submit"] = len(engine.queue)
+            extra["queue_depth_after_submit"] = engine.queue_depth()
             results = [r.future.result() for r in requests]
             with open(args.output_file, "wb") as f:
                 pickle.dump([r.scores for r in results], f)
@@ -802,10 +933,12 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
     stats.update(extra)
     stats["device"] = str(device)
     stats["wall_s"] = wall
-    stats["tokens_per_sec"] = stats.get("tokens_emitted", 0) / wall if wall > 0 else 0.0
+    stats["tokens_per_sec"] = stats["tokens_served"] / wall if wall > 0 else 0.0
     peak = peak_mem_gb(device)
     if peak is not None:
         stats["peak_mem_gb"] = peak
+    if fleet:
+        stats["host_rss_gib"] = host_rss_gib().get("rss")
     print(json.dumps(stats), file=sys.stderr)
     return stats
 

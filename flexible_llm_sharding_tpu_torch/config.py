@@ -626,6 +626,63 @@ DTYPES = {
 }
 
 
+# Named fault-injection sites (``faults/inject.py``), the JAX package's list:
+# the I/O sites, the silent-corruption sites (``corrupt_*``: a one-bit flip
+# or a short read of the bytes), the replica sites of the fleet
+# (``serve/fleet.py``: ``replica_kill`` crashes a whole engine mid-sweep,
+# ``replica_stall`` wedges its thread until the fleet declares it dead) and
+# the resource-pressure sites. The port fires only the replica sites;
+# asking for any other raises (``faults/inject.require_armed``).
+FAULT_SITES = (
+    "shard_read",
+    "device_put",
+    "engine_step",
+    "queue_admission",
+    "corrupt_shard",
+    "corrupt_activation",
+    "replica_kill",
+    "replica_stall",
+    "host_oom",
+    "disk_full",
+    "link_throttle",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Deterministic fault injection (``faults/inject.py``), off by default.
+
+    The rates partition one uniform draw per site fire: ``error_rate`` an
+    error, ``truncate_rate`` a truncated read, ``latency_rate`` a
+    ``latency_s`` sleep, else clean. The schedule is a pure function of
+    ``(seed, site, per-site call count)``. ``sites`` () means every site;
+    ``max_faults`` caps the faults injected (-1 = unlimited)."""
+
+    enabled: bool = False
+    seed: int = 0
+    error_rate: float = 0.0
+    truncate_rate: float = 0.0
+    latency_rate: float = 0.0
+    latency_s: float = 0.01
+    sites: tuple[str, ...] = ()
+    max_faults: int = -1
+
+    def __post_init__(self) -> None:
+        for name in ("error_rate", "truncate_rate", "latency_rate"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {v}")
+        # A decimal partition like 0.1 + 0.2 + 0.7 sums past 1 in floats.
+        if self.error_rate + self.truncate_rate + self.latency_rate > 1.0 + 1e-9:
+            raise ValueError("fault rates must sum to <= 1")
+        if self.latency_s < 0:
+            raise ValueError("latency_s must be >= 0")
+        unknown = set(self.sites) - set(FAULT_SITES)
+        if unknown:
+            raise ValueError(f"unknown fault sites {sorted(unknown)} (one of {FAULT_SITES})")
+        object.__setattr__(self, "sites", tuple(self.sites))
+
+
 @dataclasses.dataclass(frozen=True)
 class AdapterConfig:
     """Multi-tenant LoRA serving (``adapters/``): ``dir`` is the registry
@@ -688,6 +745,10 @@ class FrameworkConfig:
 
     ``adapters``: the LoRA adapter registry the serving engine reads
     (:class:`AdapterConfig`; the batch CLI accepts and keeps it).
+
+    ``faults``: fault injection (:class:`FaultConfig`), off by default; the
+    replica fleet fires its two sites, and an engine or a fleet asked for
+    any other raises.
     """
 
     model_path: str = "./"
@@ -725,6 +786,7 @@ class FrameworkConfig:
     kv_pool_gb: float | None = None
     kv_host_spill: bool = True
     adapters: AdapterConfig = dataclasses.field(default_factory=AdapterConfig)
+    faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
 
     def __post_init__(self) -> None:
         if self.storage_location not in STORAGE_LOCATIONS:
@@ -859,8 +921,8 @@ class SchedConfig:
     default applies); ``tenant_weights`` ("a=4,b=1", unlisted tenants weigh
     1) and ``tenant_limits`` (requests per second, unlisted tenants
     unlimited) in the tenant-map syntax; ``tenant_burst`` the bucket's
-    capacity. The JAX config's ``interactive_phase_boost`` belongs to the
-    replica fleet's router, which is not ported."""
+    capacity. ``interactive_phase_boost`` (>= 1) multiplies the replica
+    fleet router's phase term for interactive requests."""
 
     enabled: bool = False
     interactive_deadline_s: float = 0.0
@@ -871,6 +933,7 @@ class SchedConfig:
     tenant_burst: float = 4.0
     preempt: bool = True
     coalesce: bool = True
+    interactive_phase_boost: float = 2.0
 
     def __post_init__(self) -> None:
         for name in ("interactive_deadline_s", "standard_deadline_s", "best_effort_deadline_s"):
@@ -887,6 +950,8 @@ class SchedConfig:
                                  "(omit the tenant for unlimited)")
         if self.tenant_burst < 1:
             raise ValueError("tenant_burst must be >= 1")
+        if self.interactive_phase_boost < 1:
+            raise ValueError("interactive_phase_boost must be >= 1 (1 = no boost)")
 
     def tenant_weight_map(self) -> dict[str, float]:
         return _parse_tenant_map(self.tenant_weights, "tenant_weights")
@@ -930,6 +995,66 @@ class SLOConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AutoscaleConfig:
+    """The replica fleet's elasticity and sweep-phase stagger
+    (``serve/autoscale.py``), off by default: the fleet then stays at
+    ``ServeConfig.replicas``.
+
+    On, a ``FleetAutoscaler`` polls every ``poll_s`` seconds and grows the
+    fleet (to ``max``) when the worst SLO burn rate reaches
+    ``grow_burn_rate`` with a trend that is not falling, or the queued
+    fraction reaches ``grow_queue_frac``; it shrinks it (to ``min``) when
+    both sit under their shrink thresholds. A signal must hold for
+    ``confirm_polls`` polls, and each direction has its cooldown after any
+    action. ``dry_run`` decides without acting. ``stagger`` holds replicas
+    at their shard-0 boundary (at most ``stagger_hold_max_frac`` of a sweep)
+    until the stagger error is at most ``stagger_tolerance``."""
+
+    enabled: bool = False
+    min: int = 1
+    max: int = 4
+    poll_s: float = 1.0
+    grow_burn_rate: float = 1.0
+    grow_queue_frac: float = 0.75
+    shrink_burn_rate: float = 0.25
+    shrink_queue_frac: float = 0.10
+    confirm_polls: int = 3
+    grow_cooldown_s: float = 10.0
+    shrink_cooldown_s: float = 30.0
+    dry_run: bool = False
+    stagger: bool = True
+    stagger_tolerance: float = 0.15
+    stagger_hold_max_frac: float = 0.5
+
+    def __post_init__(self) -> None:
+        if self.min < 1:
+            raise ValueError("autoscale min must be >= 1")
+        if self.max < self.min:
+            raise ValueError("autoscale max must be >= min")
+        if self.poll_s <= 0:
+            raise ValueError("autoscale poll_s must be > 0")
+        if self.grow_burn_rate < 0 or self.shrink_burn_rate < 0:
+            raise ValueError("autoscale burn-rate thresholds must be >= 0")
+        if self.shrink_burn_rate > self.grow_burn_rate:
+            raise ValueError("autoscale shrink_burn_rate must be <= grow_burn_rate (the "
+                             "hysteresis band would invert)")
+        for name in ("grow_queue_frac", "shrink_queue_frac"):
+            if not 0.0 <= getattr(self, name) <= 1.0:
+                raise ValueError(f"autoscale {name} must be in [0, 1]")
+        if self.shrink_queue_frac > self.grow_queue_frac:
+            raise ValueError("autoscale shrink_queue_frac must be <= grow_queue_frac (the "
+                             "hysteresis band would invert)")
+        if self.confirm_polls < 1:
+            raise ValueError("autoscale confirm_polls must be >= 1")
+        if self.grow_cooldown_s < 0 or self.shrink_cooldown_s < 0:
+            raise ValueError("autoscale cooldowns must be >= 0")
+        if not 0.0 < self.stagger_tolerance <= 1.0:
+            raise ValueError("autoscale stagger_tolerance must be in (0, 1]")
+        if not 0.0 <= self.stagger_hold_max_frac <= 1.0:
+            raise ValueError("autoscale stagger_hold_max_frac must be in [0, 1]")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The serving engine's knobs (the JAX package's ``ServeConfig``, single
     engine): the admission queue's capacity, the requests one wave admits
@@ -952,7 +1077,17 @@ class ServeConfig:
     terminal outcome, replayed at the next start; ``wal_fsync`` is
     ``always`` (every record), ``admit`` (admissions and terminals) or
     ``never`` (flushed to the kernel only); segments rotate at
-    ``wal_max_mb``."""
+    ``wal_max_mb``.
+
+    The replica fleet (``serve/fleet.py``, engaged by the serve CLI when
+    ``replicas`` > 1 or ``autoscale`` is on): ``replicas`` engines behind a
+    router scoring ``router_phase_weight`` times the sweep fraction left to
+    the next shard-0 admission plus ``router_depth_weight`` times the
+    normalized load; a health monitor polling every
+    ``router_health_poll_s`` seconds, which hard-fails a replica whose
+    engine died or whose busy sweep stalled past ``watchdog_abort_s``, and
+    drains one whose ``engine_recoveries`` reach ``router_drain_recoveries``
+    (0 = off); ``autoscale`` (:class:`AutoscaleConfig`)."""
 
     queue_capacity: int = 64
     max_wave_requests: int = 8
@@ -977,6 +1112,12 @@ class ServeConfig:
     wal_dir: str = ""
     wal_fsync: str = "admit"
     wal_max_mb: float = 64.0
+    replicas: int = 1
+    router_phase_weight: float = 1.0
+    router_depth_weight: float = 1.0
+    router_health_poll_s: float = 0.2
+    router_drain_recoveries: int = 0
+    autoscale: AutoscaleConfig = dataclasses.field(default_factory=AutoscaleConfig)
 
     def __post_init__(self) -> None:
         if self.queue_capacity < 1:
@@ -995,6 +1136,14 @@ class ServeConfig:
             raise ValueError("stats_interval_s must be >= 0")
         if self.watchdog_abort_s < 0:
             raise ValueError("watchdog_abort_s must be >= 0")
+        if self.replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        if self.router_phase_weight < 0 or self.router_depth_weight < 0:
+            raise ValueError("router_phase_weight/router_depth_weight must be >= 0")
+        if self.router_health_poll_s <= 0:
+            raise ValueError("router_health_poll_s must be > 0")
+        if self.router_drain_recoveries < 0:
+            raise ValueError("router_drain_recoveries must be >= 0 (0 = off)")
         if self.max_request_tokens < 0:
             raise ValueError("max_request_tokens must be >= 0 (0 = off)")
         if not 0 <= self.speculative_k <= 64:
@@ -1018,6 +1167,11 @@ class ServeConfig:
                 f"backoff={self.spec_backoff_threshold} raise={self.spec_raise_threshold}")
         if self.spec_draft_budget < 0:
             raise ValueError("spec_draft_budget must be >= 0 (0 = unlimited)")
+        if self.autoscale.enabled and not self.autoscale.min <= self.replicas <= self.autoscale.max:
+            raise ValueError(
+                "replicas must sit inside [autoscale.min, autoscale.max] when autoscaling is "
+                f"enabled, got replicas={self.replicas} bounds=[{self.autoscale.min}, "
+                f"{self.autoscale.max}]")
         if self.wal_fsync not in ("always", "admit", "never"):
             raise ValueError(
                 f"wal_fsync must be one of 'always'/'admit'/'never', got {self.wal_fsync!r}")
@@ -1045,8 +1199,11 @@ def resolve_device(name: str = "cuda") -> torch.device:
 
 __all__ = [
     "AdapterConfig",
+    "AutoscaleConfig",
     "DEFAULT_MAX_TOKEN_LEN",
     "DTYPES",
+    "FAULT_SITES",
+    "FaultConfig",
     "FrameworkConfig",
     "LlamaConfig",
     "SLOConfig",

@@ -17,7 +17,8 @@ On CUDA tensors a wrapper launches its hand-written kernel
 and separately each launch with a local form on; it never falls back. A
 call inside a CUDA graph capture records the launch instead: the capture
 runs under :func:`graph_capture` and each replay counts through
-:func:`count_replay`. On CPU tensors a wrapper runs its plain version, a
+:func:`count_replay`. The counts sit behind one lock: a replica fleet's
+engine threads launch at once. On CPU tensors a wrapper runs its plain version, a
 function of the same signature built on ``ops/attention.py``. Every
 function takes an explicit leading batch (block) dimension ``B``.
 
@@ -39,6 +40,7 @@ also take a bool tensor.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -96,11 +98,16 @@ def _local_form(window, chunk, local_on) -> tuple[int, int]:
     return int(window or 0), int(chunk or 0)
 
 
+# Guards every wrapper's launch counts (read-modify-writes from N threads).
+_COUNT_LOCK = threading.Lock()
+
+
 def _count(fn, window: int, chunk: int, dims: tuple[int, int]) -> None:
-    fn.launches += 1
-    if window or chunk:
-        fn.local_launches += 1
-    fn.dim_launches[dims] = fn.dim_launches.get(dims, 0) + 1
+    with _COUNT_LOCK:
+        fn.launches += 1
+        if window or chunk:
+            fn.local_launches += 1
+        fn.dim_launches[dims] = fn.dim_launches.get(dims, 0) + 1
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -120,6 +127,15 @@ def _lengths(name: str, x, shape: tuple, device) -> torch.Tensor:
     x = torch.as_tensor(x)
     _check(name, x, torch.int32, shape, device)
     return x
+
+
+def _bind_context(device: torch.device) -> None:
+    """Make ``device`` this thread's current device, its context current.
+    The scoring kernels' TMA descriptors are encoded through the driver API,
+    which needs the context current on the calling thread; the runtime binds
+    it only at a thread's first runtime call, so without this a thread whose
+    first CUDA call is a scoring launch gets error 1."""
+    torch.cuda.set_device(device)
 
 
 def _raise_on(err: int, fn: str) -> None:
@@ -186,6 +202,7 @@ def flash_causal_attention(q, k, v, valid_len, scale=None, window=None, chunk=No
 
     # K's strides, in elements; V's are the same in rows of n_kv * hd_v.
     stride_b = lq * n_kv * hd
+    _bind_context(q.device)
     err = library().fls_score_attention(
         _DTYPE_CODES[q.dtype], hd, hd_v, q.data_ptr(), out.data_ptr(), b, 1, lq, n_q, n_kv,
         _scale(scale, hd), _softcap_arg(softcap), win, chk, None, 1,
@@ -253,6 +270,7 @@ def flash_prefix_shared_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, pre
     # (positions matter only to a local form). Strides are K's, as above.
     row = n_kv * hd
     local = bool(win or chk)
+    _bind_context(dev)
     err = library().fls_score_attention(
         _DTYPE_CODES[q.dtype], hd, hd_v, q.data_ptr(), out.data_ptr(), b, s, ls, n_q, n_kv,
         _scale(scale, hd), _softcap_arg(softcap), win, chk, pl.data_ptr() if local else None, 2,
@@ -349,39 +367,45 @@ PLAIN = {
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
-    return {name: globals()[name].launches for name in KERNELS}
+    with _COUNT_LOCK:
+        return {name: globals()[name].launches for name in KERNELS}
 
 
 def local_launch_counts() -> dict[str, int]:
     """Of those, the launches with a sliding window or chunk on."""
-    return {name: globals()[name].local_launches for name in KERNELS}
+    with _COUNT_LOCK:
+        return {name: globals()[name].local_launches for name in KERNELS}
 
 
 def dim_launch_counts() -> dict[str, dict[tuple[int, int], int]]:
     """Of those, the launches per (Q/K head dim, V head dim)."""
-    return {name: dict(globals()[name].dim_launches) for name in KERNELS}
+    with _COUNT_LOCK:
+        return {name: dict(globals()[name].dim_launches) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
-        globals()[name].launches = globals()[name].local_launches = 0
-        globals()[name].dim_launches = {}
+    with _COUNT_LOCK:
+        for name in KERNELS:
+            globals()[name].launches = globals()[name].local_launches = 0
+            globals()[name].dim_launches = {}
 
 
 def _snapshot() -> dict[str, tuple[int, int, dict]]:
-    return {name: (globals()[name].launches, globals()[name].local_launches,
-                   dict(globals()[name].dim_launches)) for name in KERNELS}
+    with _COUNT_LOCK:
+        return {name: (globals()[name].launches, globals()[name].local_launches,
+                       dict(globals()[name].dim_launches)) for name in KERNELS}
 
 
 def _add(counts: dict[str, tuple[int, int, dict]], sign: int = 1) -> None:
-    for name, (n, n_local, dims) in counts.items():
-        fn = globals()[name]
-        fn.launches += sign * n
-        fn.local_launches += sign * n_local
-        for key, c in dims.items():
-            fn.dim_launches[key] = fn.dim_launches.get(key, 0) + sign * c
-            if not fn.dim_launches[key]:
-                del fn.dim_launches[key]
+    with _COUNT_LOCK:
+        for name, (n, n_local, dims) in counts.items():
+            fn = globals()[name]
+            fn.launches += sign * n
+            fn.local_launches += sign * n_local
+            for key, c in dims.items():
+                fn.dim_launches[key] = fn.dim_launches.get(key, 0) + sign * c
+                if not fn.dim_launches[key]:
+                    del fn.dim_launches[key]
 
 
 @contextlib.contextmanager

@@ -15,9 +15,12 @@ engine).
 - ``spec``    — the adaptive draft depth per SLO class.
 - ``wal``     — the durable request write-ahead log.
 - ``recovery`` — the warm restart: replaying the WAL's open requests.
+- ``router``  — the replica fleet's shard-phase ranking.
+- ``autoscale`` — the fleet's autoscaler and sweep-phase stagger.
+- ``fleet``   — N engines behind the router: exactly-once re-dispatch
+  under replica chaos, health monitoring, elastic join and leave.
 
-LoRA adapters are ``flexible_llm_sharding_tpu_torch.adapters``. The JAX
-package's replica fleet, router and autoscaler are not ported yet.
+LoRA adapters are ``flexible_llm_sharding_tpu_torch.adapters``.
 """
 
 from flexible_llm_sharding_tpu_torch.serve.request import (  # noqa: F401
@@ -36,3 +39,5 @@ from flexible_llm_sharding_tpu_torch.serve.queue import AdmissionQueue  # noqa: 
 from flexible_llm_sharding_tpu_torch.serve.batcher import ShardAwareBatcher  # noqa: F401
 from flexible_llm_sharding_tpu_torch.serve.engine import ServeEngine  # noqa: F401
 from flexible_llm_sharding_tpu_torch.serve.wal import RequestWAL  # noqa: F401
+from flexible_llm_sharding_tpu_torch.serve.router import Router  # noqa: F401
+from flexible_llm_sharding_tpu_torch.serve.fleet import ReplicaFleet, ReplicaKilled  # noqa: F401

@@ -75,11 +75,24 @@ fails included, is engine-fatal: every request fails with the root cause
 and the loop stops. On a card the kernels are built and loaded before the
 first sweep, so a build or load failure is engine-fatal too.
 
+The replica fleet (``serve/fleet.py``) drives N engines in one process
+through the same surface plus four hooks: the constructor's ``scheduler``
+and ``wal`` (one of each shared by the fleet's engines), ``fleet_hook``
+(called from the worker thread at every shard step, before the step's
+work: the fleet's stagger holds and its chaos sites), ``reclaim_inflight``
+(a dead engine's unfinished requests handed back with their prompts) and
+``sweep_position`` (the router's phase and the liveness watermark). An
+engine-fatal error keeps its type and message, but its traceback's frames
+are cleared, so a dead engine's shard, activations and KV are not kept on
+the card by the error that every future holds.
+
 On a card the worker thread sets its device before any CUDA call and runs
-every launch on that device's current stream of its own thread. Greedy
-selection only. Not ported yet, each raising where its flag is parsed (the
-serve CLI): replicas and the router, the brownout controller, chaos
-injection, tracing and the metrics endpoint.
+every launch on that device's current stream of its own thread; the serve
+sweep runs eager (no CUDA graph), so N engine threads on one card never
+launch into another thread's capture. Greedy selection only. Not ported
+yet, each raising where its flag is parsed (the serve CLI): the brownout
+controller, the fault sites other than the fleet's two, tracing and the
+metrics endpoint.
 """
 
 from __future__ import annotations
@@ -89,6 +102,7 @@ import os
 import signal
 import threading
 import time
+import traceback
 from itertools import islice
 from typing import Any, Callable
 
@@ -104,6 +118,7 @@ from flexible_llm_sharding_tpu_torch.config import (
     ServeConfig,
     resolve_device,
 )
+from flexible_llm_sharding_tpu_torch.faults.inject import require_armed
 from flexible_llm_sharding_tpu_torch.faults.retry import ShardLoadError
 from flexible_llm_sharding_tpu_torch.integrity.manifest import SpillCorruptError
 from flexible_llm_sharding_tpu_torch.models import llama
@@ -156,6 +171,16 @@ from flexible_llm_sharding_tpu_torch.utils import checkpoint
 from flexible_llm_sharding_tpu_torch.utils.metrics import ServingMetrics, StepWatchdog
 
 
+def _clear_frames(error: BaseException) -> None:
+    """Clear the locals of every finished frame of ``error``'s traceback and
+    of its causes' (a frame still executing is skipped)."""
+    seen: set[int] = set()
+    while error is not None and id(error) not in seen:
+        seen.add(id(error))
+        traceback.clear_frames(error.__traceback__)
+        error = error.__cause__ or error.__context__
+
+
 @dataclasses.dataclass
 class _WaveState:
     """The engine's compute state of one wave: the offline decoder's
@@ -200,10 +225,16 @@ class ServeEngine:
     returned request's future); results resolve through ``Request.future``
     and the request's callback. ``device`` defaults to ``cfg.device``
     (``resolve_device``: the card unless the CPU is asked for).
+
+    ``scheduler`` and ``wal``: a ``SweepScheduler`` and a ``RequestWAL``
+    shared with other engines (the replica fleet's); None builds this
+    engine's own from ``serve_cfg``.
     """
 
     def __init__(self, cfg: FrameworkConfig, serve_cfg: ServeConfig | None = None, tokenizer=None,
-                 device: torch.device | None = None, start: bool = True):
+                 device: torch.device | None = None, start: bool = True,
+                 scheduler=None, wal=None):
+        require_armed(cfg.faults, "ServeEngine")
         if cfg.temperature > 0:
             raise ValueError("serving is greedy-only (per-request rng streams under sampling are "
                              "not supported); set temperature=0")
@@ -252,11 +283,12 @@ class ServeEngine:
         self.metrics.register("stream", self._stream_stats)
         self._slo = SLOTracker(self.serve_cfg.slo, self.metrics)
         self.metrics.register("slo", self._slo.stats)
-        self._sched = (SweepScheduler(self.serve_cfg.sched) if self.serve_cfg.sched.enabled
-                       else None)
+        self._sched = scheduler
+        if self._sched is None and self.serve_cfg.sched.enabled:
+            self._sched = SweepScheduler(self.serve_cfg.sched)
         if self._sched is not None:
             self.metrics.register("sched", self._sched.stats)
-        self._wal = wal_for(self.serve_cfg)
+        self._wal = wal if wal is not None else wal_for(self.serve_cfg)
         if self._wal is not None:
             self.metrics.register("wal", self._wal.stats)
         self.queue = AdmissionQueue(self.serve_cfg.queue_capacity, metrics=self.metrics,
@@ -315,6 +347,8 @@ class ServeEngine:
         # (0 = off). From the environment: only a crash harness sets it.
         self._crash_sweeps = int(os.environ.get("FLS_WAL_CRASH_SWEEPS", "0") or 0)
         self._sweeps_done = 0
+        # The replica fleet's per-shard-step hook (worker thread), or None.
+        self.fleet_hook: Callable[[int], Any] | None = None
         if start:
             self.start()
 
@@ -444,10 +478,28 @@ class ServeEngine:
     def stats(self) -> dict:
         return self.metrics.snapshot()
 
+    @property
+    def kv_pool(self):
+        """The process prefix-KV pool this engine leases from (None when
+        the pool is off): a warm restart's replay restores into it."""
+        return self._kv_pool
+
+    def queue_depth(self) -> int:
+        """Requests waiting for admission."""
+        return len(self.queue)
+
+    @property
+    def slo_tracker(self) -> SLOTracker:
+        """The engine's SLO tracker: the fleet autoscaler reads its burn
+        rates and trend."""
+        return self._slo
+
     def sweep_position(self) -> dict:
-        """The sweep's progress (any thread): ``boundary_frac`` is the
-        fraction of a sweep left until the next shard-0 admission point (0
-        while idle), ``watermark`` the last instant the sweep moved."""
+        """The sweep's progress (any thread, lock-free reads): ``shard_pos``
+        the shard being run, ``boundary_frac`` the fraction of a sweep left
+        until the next shard-0 admission point (0 while idle), ``watermark``
+        the last instant the sweep moved, ``busy`` whether a wave is in
+        flight or a request queued."""
         n = len(self.shards)
         pos = self._sweep_pos
         sweeping = bool(self.batcher.waves)
@@ -458,6 +510,28 @@ class ServeEngine:
             "watermark": self._heartbeat,
             "busy": sweeping or len(self.queue) > 0,
         }
+
+    def reclaim_inflight(self) -> list[Request]:
+        """Hand back every request this engine still holds unfinished,
+        queued and in flight, with its prompt and ``dispatch_id``: the
+        replica fleet re-dispatches them after declaring the engine dead.
+        Each one's future resolves ``WaveAborted`` (first-wins: a wedged
+        worker thread that wakes later loses the claim) without firing its
+        callback, whose owner re-dispatches. The queue closes; expired
+        queued requests resolve as EXPIRED."""
+        err = WaveAborted("replica declared dead; request reclaimed for re-dispatch")
+        # Copies: a worker thread that is not quite dead may still change
+        # the wave list.
+        held = self.queue.reclaim() + [r for w in list(self.batcher.waves)
+                                       for r in list(w.requests)]
+        orphans: list[Request] = []
+        for r in held:
+            if not r.status.terminal and r.future.claim():
+                r.status = RequestStatus.FAILED
+                r.finished_at = time.monotonic()
+                r.future.finish_error(err)
+                orphans.append(r)
+        return orphans
 
     def _stream_stats(self) -> dict:
         src = self._source
@@ -482,6 +556,9 @@ class ServeEngine:
                 return
         with torch.inference_mode():
             self._loop()
+        if self._error is not None:
+            # The loop's own frame has finished now: clear it too.
+            _clear_frames(self._error)
 
     def _loop(self) -> None:
         try:
@@ -544,10 +621,14 @@ class ServeEngine:
 
     def _fatal(self, error: BaseException) -> None:
         """Every in-flight and queued request fails with the root cause; the
-        loop stops; later submits see ServeClosed."""
+        loop stops; later submits see ServeClosed. The waves' KV drops, and
+        the error's traceback frames (the sweep's shard, activations and
+        KV) are cleared: the error outlives the engine in every future."""
         self._error = error
+        _clear_frames(error)
         for w in self.batcher.waves:
             if w.state is not None:
+                w.state.kv_store.clear()
                 self._release_pool_handles(w.state)
         self.batcher.fail_all_active(error)
         self.queue.close(drain=False)
@@ -907,6 +988,11 @@ class ServeEngine:
                 wd.tick()
             self._sweep_pos = shard_pos
             self._heartbeat = time.monotonic()
+            if self.fleet_hook is not None:
+                # The fleet's stagger hold (shard 0) and its replica chaos:
+                # replica_kill raises the engine-fatal ReplicaKilled,
+                # replica_stall wedges this thread until the fleet releases it.
+                self.fleet_hook(shard_pos)
             if (self._crash_sweeps and self._sweeps_done >= self._crash_sweeps
                     and (shard_pos > 0 or len(self.shards) == 1)):
                 # The process-death drill: no cleanup, nothing flushed
@@ -1222,6 +1308,7 @@ class ServeEngine:
         latency = time.monotonic() - r.arrival
         if r.resolve(scores, updated, tokens):
             self.metrics.count("completed")
+            self.metrics.count("tokens_served", r.tokens_emitted)
             self.metrics.observe_request_latency(latency, r.slo_class)
 
 

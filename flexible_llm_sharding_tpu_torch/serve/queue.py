@@ -184,6 +184,20 @@ class AdmissionQueue:
             if won and self._metrics is not None:
                 self._metrics.count("expired")
 
+    def reclaim(self) -> list[Request]:
+        """Close the queue and hand back everything queued, unresolved: the
+        caller owns their terminal transition. Requests past their deadline
+        resolve as EXPIRED here."""
+        with self._lock:
+            self._closed = True
+            evicted = self._evict_expired_locked()
+            items = list(self._items)
+            self._items.clear()
+        self._finish_expired(evicted)
+        if self._metrics is not None:
+            self._metrics.gauge("queue_depth", 0)
+        return items
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._items)

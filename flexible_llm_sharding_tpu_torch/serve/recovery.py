@@ -6,7 +6,10 @@ traffic: it folds every WAL segment per request id (``serve/wal.
 fold_records``: terminal ids are skipped, so a completed request is never
 served twice) and submits every open request again through the normal
 admission path (``engine.submit_request``), so replayed work meets the
-queue, the scheduler and adapter resolution as any request does.
+queue, the scheduler and adapter resolution as any request does. The
+``engine`` may be a ``ReplicaFleet``, which has the same surface: the
+replay then dispatches through its router, whatever the number of replicas
+the log was written by.
 
 Serving is greedy, so decoding the original prompt under its original
 budget again gives the same tokens: progress records are accounting, not
@@ -58,8 +61,9 @@ def build_request(entry: WalEntry, callback=None, now=None) -> Request:
 
 
 def replay(engine, wal: RequestWAL, callback=None) -> dict:
-    """Submit every open WAL request to ``engine`` again, oldest admission
-    first, restoring exported prefix KV into the engine's pool first.
+    """Submit every open WAL request to ``engine`` (an engine or a fleet)
+    again, oldest admission first, restoring exported prefix KV into the
+    process pool first.
     ``callback`` is attached to each (the JSONL frontend's reply emitter).
     Returns the summary (``replayed``, ``skipped_terminal``, ``kv_restored``,
     ``kv_failed``, ``scan_s``) and the submitted ``requests``."""
@@ -67,7 +71,9 @@ def replay(engine, wal: RequestWAL, callback=None) -> dict:
     entries = wal.scan()
     open_entries = sorted((e for e in entries.values() if e.open),
                           key=lambda e: e.admit.get("ts") or 0.0)
-    pool = engine._kv_pool
+    # In a fleet, any replica's: the pool is process-wide per config, so
+    # one restore serves every replica.
+    pool = engine.kv_pool
     kv_restored = kv_failed = 0
     requests = []
     for entry in open_entries:

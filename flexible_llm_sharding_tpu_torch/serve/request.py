@@ -6,7 +6,10 @@ pickle entries, with a token budget and an optional admission deadline. Its
 status moves QUEUED -> ACTIVE -> DONE, or to one of the terminal rejection,
 expiry, failure and cancellation states; the queue, the batcher and the
 engine each make the transitions they own. Every terminal transition is
-first-wins (``ServeFuture.claim``) and fires the request's callback once.
+first-wins (``ServeFuture.claim``) and fires the request's callback once:
+when the replica fleet reclaims a request from an engine it declared dead,
+the engine thread's later resolution loses the claim, so a re-dispatched
+request is never served twice.
 """
 
 from __future__ import annotations
@@ -146,7 +149,11 @@ class Request:
     the pool's salt. ``client_id``: the caller's own id, echoed in the
     JSONL replies and kept in the WAL, the one identity that survives a
     restart. ``wal_id``: the WAL's key for the request (None without a
-    WAL), kept across a replay. ``on_terminal``: the WAL's hook, fired once
+    WAL), kept across a replay. ``dispatch_id``: the replica fleet's id of
+    the caller's request that this engine-side attempt serves, the same on
+    every attempt (None outside a fleet). ``shed_exempt``: a fleet
+    re-dispatch, work the fleet accepted once, which skips the tenant rate
+    limit. ``on_terminal``: the WAL's hook, fired once
     after the callback on the terminal transition. ``tokens_emitted``: tokens served per suffix so far
     (``resume_len`` included; on a speculative wave the slowest suffix's).
     ``resume_scores``/``resume_tokens``: per step served before a
@@ -164,6 +171,8 @@ class Request:
     adapter_id: str | None = None
     client_id: Any = None
     wal_id: str | None = None
+    dispatch_id: int | None = None
+    shed_exempt: bool = False
     on_terminal: Callable[["Request", BaseException | None], Any] | None = dataclasses.field(
         default=None, repr=False)
     resume_scores: list = dataclasses.field(default_factory=list, repr=False)

@@ -22,9 +22,10 @@ With a scheduler attached, ``AdmissionQueue.pop_wave`` picks through
   retires it at the shard-0 boundary and requeues its requests, which
   resume token for token. This object decides and counts only.
 
-The JAX scheduler's trace instants and its pass for the replica fleet's
-re-dispatches (``shed_exempt``) are not ported: the port has neither a
-tracer nor a fleet yet.
+A replica fleet shares one scheduler across its engines, so tenant rate
+limits and fairness are fleet-wide; its re-dispatches (``shed_exempt``)
+pass the rate gate. The JAX scheduler's trace instants are not ported (the
+port has no tracer yet).
 """
 
 from __future__ import annotations
@@ -96,7 +97,10 @@ class SweepScheduler:
 
     def admit_check(self, request) -> RateLimited | None:
         """The rate gate ``AdmissionQueue.submit`` calls first: the
-        rejection to resolve the request with, or None to admit."""
+        rejection to resolve the request with, or None to admit. A fleet
+        re-dispatch (``shed_exempt``) always passes: it was admitted once."""
+        if request.shed_exempt:
+            return None
         rate = self._limits.get(request.tenant_id)
         if rate is None:
             return None
@@ -125,8 +129,8 @@ class SweepScheduler:
         """Give back the token :meth:`admit_check` took from a submit that
         was refused downstream (size cap, capacity, closed queue), so a
         tenant's backpressure retries do not spend its rate budget. A no-op
-        for unlimited tenants."""
-        if request.tenant_id not in self._limits:
+        for unlimited tenants and for re-dispatches (neither took one)."""
+        if request.shed_exempt or request.tenant_id not in self._limits:
             return
         with self._lock:
             bucket = self._buckets.get(request.tenant_id)

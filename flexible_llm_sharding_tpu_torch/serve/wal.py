@@ -302,9 +302,9 @@ class RequestWAL:
             "tenant": req.tenant_id,
             "adapter": req.adapter_id,
             "client_id": req.client_id,
-            # The replica fleet's dispatch id: the fleet is not ported, so
-            # always null (the field is kept for the format).
-            "dispatch_id": None,
+            # The replica fleet's id of the caller's request (null outside a
+            # fleet): every attempt of one fleet request records the same.
+            "dispatch_id": req.dispatch_id,
         }, sync=self.fsync_policy in ("always", "admit"))
         return req.wal_id
 

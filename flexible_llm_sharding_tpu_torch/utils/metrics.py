@@ -246,8 +246,11 @@ class ServingMetrics:
     Counters (pre-seeded at 0): admitted, rejected, expired, cancelled,
     completed, failed, prefills, prefix_prefill_tokens and
     prefix_reuse_tokens (prefix tokens prefilled / served from pooled
-    pages), sweeps, tokens_emitted, engine_recoveries, waves_aborted,
-    source_restarts, watchdog_stalls. Gauges: queue_depth,
+    pages), sweeps, tokens_emitted (every sweep's tokens), tokens_served
+    (the tokens of the requests this engine resolved: a request whose
+    resolution lost its claim, or that failed, counts none),
+    engine_recoveries, waves_aborted, source_restarts, watchdog_stalls.
+    Gauges: queue_depth,
     active_requests, active_waves. Latency windows of the newest
     ``sample_window`` samples: TTFT and per-token latency, and TTFT and
     request latency per SLO class. The speculative passes' drafted,
@@ -265,7 +268,8 @@ class ServingMetrics:
     KNOWN_COUNTERS = (
         "admitted", "rejected", "expired", "cancelled", "completed", "failed", "prefills",
         "prefix_prefill_tokens", "prefix_reuse_tokens", "sweeps", "tokens_emitted",
-        "engine_recoveries", "waves_aborted", "source_restarts", "watchdog_stalls",
+        "tokens_served", "engine_recoveries", "waves_aborted", "source_restarts",
+        "watchdog_stalls",
     )
     SPEC_COUNTERS = ("drafted_tokens", "accepted_tokens", "rejected_tokens")
 
@@ -432,6 +436,45 @@ class ServingMetrics:
         return True
 
 
+class RouterMetrics:
+    """The replica fleet's router counters and gauges (``serve/fleet.py``),
+    thread-safe. The counters of ``KNOWN_COUNTERS`` start at 0, so a
+    snapshot tells "none happened" from "not counted"."""
+
+    KNOWN_COUNTERS = (
+        "dispatches",          # requests handed to a replica (first attempt)
+        "redispatches",        # orphans handed to a surviving replica
+        "expired_orphans",     # orphans whose deadline passed -> EXPIRED
+        "stale_results",       # outcomes of attempts the fleet abandoned
+        "replicas_dead",       # hard-fails (engine-fatal or stalled watermark)
+        "replicas_drained",    # graceful drains completed
+        "replicas_recycled",   # fresh engines in a dead or drained slot
+        "replicas_added",      # elastic joins
+        "replicas_removed",    # elastic leaves
+    )
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counters: dict[str, int] = dict.fromkeys(self.KNOWN_COUNTERS, 0)  # guarded by: _lock
+        self._gauges: dict[str, float] = {}  # guarded by: _lock
+
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def gauge(self, name: str, value: float) -> None:
+        with self._lock:
+            self._gauges[name] = value
+
+    def counter(self, name: str) -> int:
+        with self._lock:
+            return self._counters.get(name, 0)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {**dict(sorted(self._counters.items())), **dict(sorted(self._gauges.items()))}
+
+
 class StepWatchdog:
     """Step-progress watchdog with an abort action (the JAX package's).
 
@@ -497,6 +540,7 @@ class StepWatchdog:
 __all__ = [
     "IntegrityRecorder",
     "RetryRecorder",
+    "RouterMetrics",
     "SLO_CLASS_NAMES",
     "ServingMetrics",
     "StepWatchdog",

@@ -6,6 +6,8 @@ JAX nor the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1055,3 +1057,174 @@ def test_kvpool_export_restore_of_card_pages(gen, tmp_path, dtype):
     k2, v2 = dst.assemble(h2, (0, 0))
     assert k2.dtype == dtype
     assert torch.equal(k2.cuda(), k) and torch.equal(v2.cuda(), v)
+
+
+def _first_kill_seed(n: int, rate: float) -> int:
+    """A chaos seed whose ``replica_kill`` schedule at ``rate`` fires first
+    at draw ``n`` (0-based)."""
+    from flexible_llm_sharding_tpu_torch.faults.retry import hash_unit
+
+    for seed in range(100_000):
+        units = [hash_unit(f"{seed}:replica_kill:{i}") for i in range(n + 1)]
+        if min(units[:n], default=1.0) >= rate > units[n]:
+            return seed
+    raise AssertionError(f"no seed fires first at draw {n}")
+
+
+def _cuda_bytes(tree) -> int:
+    """Bytes of the CUDA storages behind the tensors in ``tree``, each
+    storage once."""
+    storages = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                storages[x.untyped_storage().data_ptr()] = x.untyped_storage().nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(tree)
+    return sum(storages.values())
+
+
+def test_fleet_of_2_under_a_replica_kill_on_the_card(gen, tmp_path):
+    """Two replicas on cuda:0, one killed mid-decode by a seeded
+    ``replica_kill`` (the first kill draw at about each replica's third
+    sweep; the victim's waves past their prefill, their KV on the card):
+    every request gets the single engine's tokens and scores bit for bit
+    (waves of 1, so each request's computation is the same on any
+    replica), the three kernels launch, and ``memory_allocated`` after the
+    kill, the recycle and the drain exceeds the clean fleet's by less than
+    the victim's wave state at the kill and a quarter of one replica's
+    weights (both read with PyTorch's cuBLAS workspaces freed)."""
+    import dataclasses
+    import gc
+    import time
+
+    from flexible_llm_sharding_tpu_torch.config import FaultConfig, FrameworkConfig, ServeConfig
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool
+    from flexible_llm_sharding_tpu_torch.serve import ReplicaFleet, ReplicaKilled, ServeEngine
+
+    kvpool.reset_process_pools()
+    model_dir = _decode_model(tmp_path, "llama")
+    weights = sum(os.path.getsize(os.path.join(model_dir, f)) for f in os.listdir(model_dir)
+                  if f.endswith(".safetensors"))
+    cfg = FrameworkConfig(model_path=model_dir, dtype="bfloat16", block_size=2,
+                          decode_resident="on", disk_folder=str(tmp_path / "d"))
+    serve_cfg = ServeConfig(max_wave_requests=1, default_max_new_tokens=4)
+    engine = ServeEngine(cfg, serve_cfg, tokenizer=_WordTokenizer(),
+                         device=torch.device("cuda:0"))
+    try:
+        want = [r.future.result(timeout=300)
+                for r in [engine.submit(p, sfx) for p, sfx in _DECODE_PROMPTS]]
+    finally:
+        engine.shutdown(drain=True)
+    kvpool.reset_process_pools()
+    # Both replicas draw at every shard step: draw 4 S + 1 is about each
+    # one's third sweep of S shards.
+    seed = _first_kill_seed(4 * len(engine.shards) + 1, 0.05)
+    fleet = ReplicaFleet(
+        dataclasses.replace(cfg, faults=FaultConfig(enabled=True, seed=seed, error_rate=0.05,
+                                                    sites=("replica_kill",), max_faults=1)),
+        dataclasses.replace(serve_cfg, replicas=2, router_health_poll_s=0.05),
+        tokenizer=_WordTokenizer(), device=torch.device("cuda:0"))
+    kill = {}
+    step = fleet._chaos_step
+
+    def watched(rep, shard_pos):
+        try:
+            step(rep, shard_pos)
+        except ReplicaKilled:
+            waves = [w for w in rep.engine.batcher.waves if w.state is not None]
+            kill.update(steps=[w.steps for w in waves],
+                        state_bytes=_cuda_bytes([w.state.kv_store._mem for w in waves]))
+            raise
+
+    fleet._chaos_step = watched
+
+    def wait(cond):
+        deadline = time.monotonic() + 120
+        while not cond():
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+
+    def allocated():
+        # PyTorch's per-handle cuBLAS workspaces (32 MiB each) freed first:
+        # a new engine thread can add one, and no engine owns it. Read until
+        # two reads 0.1 s apart agree: an engine thread can still hold its
+        # last sweep's tensors for a moment after its waves retire.
+        last = None
+        for _ in range(50):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch._C._cuda_clearCublasWorkspaces()
+            now = torch.cuda.memory_allocated()
+            if now == last:
+                return now
+            last = now
+            time.sleep(0.1)
+        return now
+
+    try:
+        wait(lambda: all(r.engine._kept is not None for r in list(fleet._replicas)))
+        clean = allocated()
+        fa.reset_launch_counts()
+        got = [r.future.result(timeout=300)
+               for r in [fleet.submit(p, sfx) for p, sfx in _DECODE_PROMPTS]]
+        counts = fa.launch_counts()
+        wait(lambda: fleet.metrics.counter("replicas_recycled") == 1 and all(
+            r.engine._kept is not None and len(r.engine.queue) == 0 and not r.engine.batcher.waves
+            for r in list(fleet._replicas)))
+        after = allocated()
+        snap = fleet.metrics.snapshot()
+    finally:
+        assert fleet.shutdown(drain=True, timeout=120)
+        kvpool.reset_process_pools()
+    assert snap["replicas_dead"] == 1 and snap["redispatches"] >= 1
+    assert max(kill["steps"]) >= 1 and kill["state_bytes"] > 0, kill
+    assert all(counts[k] > 0 for k in fa.KERNELS)
+    for a, b in zip(got, want):
+        assert a.updated == b.updated and np.array_equal(a.scores, b.scores)
+    print(f"fleet kill: {kill}, allocated {clean} clean, {after} after, weights {weights}")
+    assert after - clean < min(kill["state_bytes"], weights // 4), (clean, after, kill, weights)
+
+
+@pytest.mark.parametrize("kernel", fa.KERNELS)
+def test_a_fresh_thread_launches_each_kernel(gen, kernel):
+    """A thread whose first CUDA call is the launch (a serving replica's
+    worker could be one) gets the main thread's output bit for bit: the
+    scoring kernels' TMA encoding needs the device's context current on the
+    calling thread, which the wrapper binds."""
+    import threading
+
+    dtype = torch.bfloat16
+    b, lp, s, ls, tg = 2, 64, 2, 32, 3
+    plen = torch.tensor([64, 23], dtype=torch.int32, device="cuda")
+    eos = torch.tensor([[31, 5], [0, 12]], dtype=torch.int32, device="cuda")
+    q, k, v = (_rnd(gen, dtype, b, lp, 4, 128) for _ in range(3))
+    qs, ks, vs = (_rnd(gen, dtype, b, s, ls, 4, 128) for _ in range(3))
+    qd = _rnd(gen, dtype, b, s, 1, 4, 128)
+    kg, vg = (_rnd(gen, dtype, b, s, tg, 4, 128) for _ in range(2))
+    args = {"flash_causal_attention": (q, k, v, plen),
+            "flash_prefix_shared_attention": (qs, k, v, ks, vs, plen),
+            "flash_decode_attention": (qd, k, v, ks, vs, kg, vg, plen, eos, 1)}[kernel]
+    want = getattr(fa, kernel)(*args)
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = getattr(fa, kernel)(*args)
+            torch.cuda.current_stream().synchronize()
+        except Exception as e:  # noqa: BLE001 — the outcome is the assertion
+            out["err"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(120)
+    assert not t.is_alive() and "err" not in out, out.get("err")
+    assert torch.equal(out["got"], want)

@@ -11,7 +11,8 @@
   coalesced wave, a preempted request resuming, and the starvation case of
   ``tests/test_sched.py``.
 - The serve CLI: every ``--sched*`` flag parses into the config the JAX
-  parser builds, and ``--sched_interactive_phase_boost`` still raises.
+  parser builds (``--sched_interactive_phase_boost`` too, which the
+  replica fleet's router reads).
 """
 
 import time
@@ -462,6 +463,8 @@ SCHED_FLAGS = [
     ["--sched", "--sched_tenant_burst", "2"],
     ["--sched", "--sched_preempt", "false"],
     ["--sched", "--sched_coalesce", "false"],
+    ["--sched", "--sched_interactive_phase_boost", "3"],
+    ["--sched", "--sched_interactive_phase_boost", "0.5"],  # refused by both
     ["--sched_tenant_weights", "a=4"],  # parsed, inert without --sched
     ["--sched", "--sched_tenant_weights", "a=0"],  # refused by both
 ]
@@ -478,10 +481,3 @@ def test_sched_flags_parse_as_jax(argv):
         return {f: getattr(c, f) for f in SchedConfig.__dataclass_fields__}
 
     assert config(cli) == config(jcli)
-
-
-def test_interactive_phase_boost_still_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="--sched_interactive_phase_boost is not "
-                                                  "ported yet .ROADMAP queue 1 item 6"):
-        cli.main(["serve", "--model_path", str(tmp_path), "--device", "cpu",
-                  "--sched_interactive_phase_boost", "3"])
