@@ -257,6 +257,14 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              from shard 2, the scores bit for bit and the recompute
              counted. And the cell's scoring at --score_sink_max_device 1:
              the default's scores bit for bit.
+   multidevice — right after fleet, on the same cell (the ``llama2_7b_mp``
+             and ``llama2_7b_dp`` paths): scoring (num_batch 2) and
+             --kv_cache's decode through ``run_prompts``/``run_decode``, one
+             device against the interleaved MP pipeline over [cuda:0] * 4
+             (bit for bit) and data parallelism over [cuda:0] * 2 (two rank
+             threads on one broadcast read; tokens equal, scores within
+             1e-4, streamed bytes equal); with several cards, the same over
+             them. Each run prints its wall, streamed bytes and launches.
 6. host    — a reduced bf16 checkpoint through the CLI on the card: the
              defaults give the scores of --host_cache_gb 0 --verify_weights
              false --readahead_threads 0 bit for bit; after one flipped
@@ -3677,6 +3685,115 @@ def phase_fleet(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str,
     return paths
 
 
+# DP's scores against the single device's: the float32 card-against-CPU
+# tolerance of the cross phase. The ranks' blocks are the single run's
+# (block size 2, each rank's prompts whole blocks), so the expectation is
+# bit equality; the tolerance is what the check allows.
+DP_ATOL = 1e-4
+
+
+def phase_multidevice(work: str, model_dir: str, cfg, prompts, n_gen_kv: int, smi: str) -> dict:
+    """The reference's two multi-device modes on the 4-layer Llama-2-7B
+    cell, through the library entry points (``run_prompts`` with num_batch
+    2, ``run_decode`` with ``n_gen_kv`` tokens at the defaults), one layer
+    per shard, blocks of 2:
+
+    - MP over [cuda:0] * 4 (7 execution layers in 8 stages, the last a
+      padding stage): scores and tokens equal the single-device run's bit
+      for bit, scoring's stream its bytes;
+    - DP over [cuda:0] * 2 (two rank threads fed by one read of each shard
+      per pass; decode resident, each rank capturing its blocks' steps as
+      CUDA graphs): tokens equal, scores within ``DP_ATOL``, and
+      ``streamed_bytes`` equal to the single-device run's;
+    - with more than one card, the same over the real cards.
+
+    Every MP and DP run must launch the path's kernels. Each run prints its
+    wall, streamed bytes, launches and the card's name and power limit.
+    Returns the launches of the MP runs and of the DP runs."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.runtime import orchestration
+
+    t_phase = time.perf_counter()
+    fresh_process_state()
+    base = dict(model_path=model_dir, dtype="bfloat16", layer_num_per_shard=1, block_size=2,
+                device="cuda", disk_folder=os.path.join(work, "multidevice_disk"))
+    scoring = ("flash_causal_attention", "flash_prefix_shared_attention")
+    paths: dict = {"llama2_7b_mp": {}, "llama2_7b_dp": {}}
+
+    def run(tag, devices, kv, path=None, **kw):
+        run_cfg = FrameworkConfig(**base, **kw)
+        calls: list = []
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        for dev in set(devices):  # each run's own peak
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if kv:
+            scores, updated, _ = orchestration.run_decode(
+                run_cfg, prompts, tokenizer=BenchTokenizer(cfg.vocab_size), devices=devices,
+                calls=calls)
+        else:
+            scores = orchestration.run_prompts(run_cfg, prompts,
+                                               tokenizer=BenchTokenizer(cfg.vocab_size),
+                                               devices=devices, calls=calls)
+            updated = None
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, local = fa.launch_counts(), fa.local_launch_counts()
+        _check_scores(scores, prompts, n_gen_kv if kv else 1, cfg.vocab_size,
+                      f"multidevice {tag}")
+        needed = fa.KERNELS if kv else scoring
+        if path is not None:
+            if any(counts[k] == 0 for k in needed):
+                fail(f"multidevice {tag}: a kernel of the path never launched: {counts}")
+            _add_launches(paths[path], {k: {"launches": counts[k], "local_launches": local[k]}
+                                        for k in fa.KERNELS})
+        streamed = sum(c["streamed_bytes"] for c in calls)
+        keys = ("dispatch_wall_s", "compute_wall_s", "source_wait_s", "load_weights_time_s",
+                "decode_resident", "decode_fused", "decode_graph", "peak_mem_gb")
+        log(f"[multidevice] {tag} on {len(devices)} x {sorted({str(d) for d in devices})}: "
+            f"wall {wall:.4f} s, streamed {streamed:.0f} B, launches {json.dumps(counts)}, "
+            + json.dumps({k: calls[-1][k] for k in keys if k in calls[-1]}) + f" ({smi})")
+        return scores, updated, streamed
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def compare(tag, got, ref, exact: bool) -> None:
+        scores, updated, streamed = got
+        ref_scores, ref_updated, ref_streamed = ref
+        tokens = (updated == ref_updated and all(
+            np.array_equal(g.argmax(-1), r.argmax(-1)) for g, r in zip(scores, ref_scores)))
+        err = max(float(np.abs(g - r).max()) for g, r in zip(scores, ref_scores))
+        bit = same(scores, ref_scores)
+        if not tokens or (exact and not bit) or err > DP_ATOL:
+            fail(f"multidevice {tag}: tokens equal {tokens}, bit-equal {bit}, largest score "
+                 f"difference {err} (bound {'0' if exact else DP_ATOL})")
+        if streamed != ref_streamed:
+            fail(f"multidevice {tag}: streamed {streamed} bytes, the single device {ref_streamed}")
+        log(f"[multidevice] {tag}: tokens equal, scores bit-equal {bit}, largest difference "
+            f"{err}, streamed bytes equal ({streamed:.0f})")
+
+    card = torch.device("cuda", 0)
+    layouts = [("", [card] * 4, [card] * 2)]
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        layouts.append(("_cards", cards[:4], cards[:2]))
+    for kv in (False, True):
+        kind = "decode" if kv else "scoring"
+        extra = {"kv_cache": True, "num_gen_token": n_gen_kv} if kv else {"num_batch": 2}
+        ref = run(f"{kind}_one_device", [card], kv, **extra)
+        for suffix, mp_devs, dp_devs in layouts:
+            compare(f"{kind}_mp{suffix}", run(f"{kind}_mp{suffix}", mp_devs, kv,
+                                              "llama2_7b_mp", **extra), ref, exact=True)
+            compare(f"{kind}_dp{suffix}", run(f"{kind}_dp{suffix}", dp_devs, kv, "llama2_7b_dp",
+                                              data_parallel=True, **extra), ref, exact=False)
+    log(f"[multidevice] phase {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
                  n_gen_loop: int) -> dict:
     """Disk-mode crash resume and spill recompute on the 4-layer Llama-2-7B
@@ -3908,8 +4025,16 @@ def main() -> None:
     from flexible_llm_sharding_tpu_torch.config import LlamaConfig
     from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native
 
+    t_start = time.perf_counter()
+
+    def mark(step: str) -> None:
+        """The seconds since the start at the end of a step: the run's time
+        limit is shared by every phase."""
+        log(f"[time] {step} done at {time.perf_counter() - t_start:.1f} s")
+
     smi = phase_device()
     phase_build()
+    mark("build")
     prompts = make_prompts(8, 512, 4, 32, seed=0)
     n_gen_loop, n_gen_kv = 4, 8
     # Gemma 3: 2048 prefix words (2049 tokens in a 2112 bucket), past the
@@ -3944,10 +4069,13 @@ def main() -> None:
                        nkv=scout_cfg.num_key_value_heads, hd=scout_cfg.head_dim),
         draft_path_case(prompts, n_gen_kv),
         main_path_case(coalesce_prompts()[:1], n_gen_kv))
+    mark("kernels")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cross(work)
+        mark("cross")
         phase_host(work)
+        mark("host")
         llama_cfg = LlamaConfig(num_hidden_layers=4)
         llama_runs: dict = {}
         paths = {
@@ -3955,27 +4083,37 @@ def main() -> None:
                                     compare_modes=True, record=llama_runs),
         }
         llama_dir = os.path.join(work, "llama2-7b")
+        mark("full llama2-7b")
         paths["llama2_7b_quant"] = phase_quant(work, llama_dir, llama_cfg, prompts, llama_runs,
                                                n_gen_loop, n_gen_kv)
+        mark("quant")
         paths["llama2_7b_resume"] = phase_resume(work, llama_dir, llama_cfg, prompts,
                                                  llama_runs["scoring"], n_gen_loop)
+        mark("resume")
         serve_runs: dict = {}
         paths.update(phase_serve(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi,
                                  record=serve_runs))
+        mark("serve")
         paths.update(phase_tenants(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi,
                                    serve_runs["default"]))
+        mark("tenants")
         paths.update(phase_fleet(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi,
                                  serve_runs["default"]))
+        mark("fleet")
+        paths.update(phase_multidevice(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi))
+        mark("multidevice")
         shutil.rmtree(llama_dir, ignore_errors=True)
         paths.update({
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,
                                      gemma_kv),
         })
+        mark("full gemma3-27b")
         split_dir, split_cfg = phase_split(work, "gemma3-12b", gemma12_text)
         if split_cfg != gemma12_cfg:
             fail(f"the split gemma3-12b config differs from the bundle's: {split_cfg}")
         paths["gemma3_12b"] = phase_full(work, "gemma3-12b", split_cfg, gemma_prompts, gemma_loop,
                                          gemma_kv, model_dir=split_dir)
+        mark("split and full gemma3-12b")
         ds_dir = os.path.join(work, "deepseek-v3")
         nbytes, secs = write_streamed_checkpoint(ds_dir, ds_cfg, seed=0)
         log(f"[full] wrote a seeded bf16 deepseek-v3-width checkpoint with {ds_cfg.num_hidden_layers} "
@@ -3987,6 +4125,7 @@ def main() -> None:
             f"{nbytes} in {time.perf_counter() - t0:.3f} s")
         # Layers 0-2 are dense; layer 3 holds the 256-expert stacks.
         check_card_dequant(ds_q4, f"model.layers.{ds_cfg.num_hidden_layers - 1}")
+        mark("deepseek-v3 written, requantized, dequant checked")
         ds_runs: dict = {}
         paths["deepseek_v3"] = phase_full(work, "deepseek-v3", ds_cfg, gemma_prompts, ds_loop, ds_kv,
                                           model_dir=ds_dir, record=ds_runs)
@@ -3996,6 +4135,7 @@ def main() -> None:
             ["--num_gen_token", str(ds_kv), "--kv_cache", "true"], ds_kv, ds_runs["kv_cache"],
             QUANT_BOUNDS["int4"], ("flash_causal_attention", "flash_prefix_shared_attention"))
         shutil.rmtree(ds_q4, ignore_errors=True)
+        mark("full deepseek-v3 and its int4 copy")
         scout_dir = os.path.join(work, "llama4-scout")
         nbytes, secs = write_streamed_checkpoint(scout_dir, scout_cfg, seed=0)
         log(f"[full] wrote a seeded bf16 llama4-scout-width checkpoint with "
@@ -4004,7 +4144,9 @@ def main() -> None:
         paths["llama4_scout"] = phase_full(work, "llama4-scout", scout_cfg, gemma_prompts, scout_loop,
                                            scout_kv, model_dir=scout_dir,
                                            payload=payload_bytes(scout_cfg))
+        mark("full llama4-scout")
         paths["llama2_7b_32_layers"] = phase_decode(work)
+        mark("decode")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [

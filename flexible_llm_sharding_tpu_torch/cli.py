@@ -11,7 +11,11 @@ to every suffix. A JSON stats line goes to stderr at the end.
     python -m flexible_llm_sharding_tpu_torch verify --model_path M [--spill_dir S]
 
 The run is on the CUDA device unless ``--device cpu`` is given; without a
-card a CUDA run raises instead of falling back to the CPU. By default, as in
+card a CUDA run raises instead of falling back to the CPU. With several
+cards (``--num_devices``, default all) the layers run as the interleaved MP
+pipeline across them, or with ``--data_parallel true`` the prompts are split
+over them, each card streaming the whole model from one shared read of each
+shard; ``--device cpu --num_devices N`` runs N CPU stages or ranks. By default, as in
 the JAX batch CLI, every layer load is verified against ``integrity.json``
 (``--verify_weights``), passes after the first are served from the process
 host shard cache (``--host_cache_gb``, auto = a quarter of the available
@@ -75,6 +79,8 @@ import pickle
 import sys
 import time
 
+import torch
+
 from flexible_llm_sharding_tpu_torch.config import (
     DEFAULT_MAX_TOKEN_LEN,
     DTYPES,
@@ -134,13 +140,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where activations wait between shards")
     p.add_argument("--max_activation_in_cpu", type=int, default=100)
     p.add_argument("--data_parallel", type=_str2bool, default=False,
-                   help="accepted for parity with the reference; one device runs everything")
+                   help="True: split the prompts across the devices, each streaming the whole "
+                        "model from one shared read of each shard; False: the interleaved layer "
+                        "pipeline across the devices")
     p.add_argument("--disk_folder", type=str, default="./temp")
     p.add_argument("--num_gen_token", type=int, default=1)
     p.add_argument("--dtype", type=str, default="bfloat16", choices=tuple(DTYPES))
     p.add_argument("--kv_cache", type=_str2bool, default=False,
                    help="generate with a KV cache (token-id append semantics)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="0 = every visible card; on the CPU, that many CPU stages or ranks")
     p.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
     p.add_argument("--top_k", type=int, default=0)
     p.add_argument("--top_p", type=float, default=0.0)
@@ -849,8 +859,6 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
     )
 
     if device.type == "cuda":
-        import torch
-
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     # The fleet has the engine's surface: both frontends drive either.
@@ -997,6 +1005,7 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         storage_location=args.storage_location,
         max_activation_in_cpu=args.max_activation_in_cpu,
         data_parallel=args.data_parallel,
+        num_devices=args.num_devices,
         disk_folder=args.disk_folder,
         num_gen_token=args.num_gen_token,
         dtype=args.dtype,
@@ -1056,11 +1065,21 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
         prepare_adapter_main(argv[1:])
         return None
     args = build_parser().parse_args(argv)
+    if args.speculative_k and args.data_parallel:
+        raise SystemExit("--speculative_k does not compose with --data_parallel "
+                         "(the broadcast source's round count is fixed up front)")
     try:
         cfg = config_from_args(args)
     except ValueError as e:
         raise SystemExit(str(e)) from e
-    device = resolve_device(cfg.device)
+    from flexible_llm_sharding_tpu_torch.runtime.orchestration import (
+        LAST_DP_RANK_STATS,
+        pick_devices,
+        run_decode,
+        run_prompts,
+    )
+
+    devices = pick_devices(cfg)
     if cfg.storage_location == "disk":
         os.makedirs(cfg.disk_folder, exist_ok=True)
     with open(args.prompt_pickle, "rb") as f:
@@ -1071,23 +1090,20 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
         tokenizer = AutoTokenizer.from_pretrained(cfg.model_path)
         tokenizer.pad_token = tokenizer.eos_token
 
-    from flexible_llm_sharding_tpu_torch.runtime.decode import DecodeGenerator
-    from flexible_llm_sharding_tpu_torch.runtime.executor import StreamingExecutor
     from flexible_llm_sharding_tpu_torch.runtime.generation import generation_loop
-    from flexible_llm_sharding_tpu_torch.runtime.orchestration import run_decode, run_prompts
 
-    if device.type == "cuda":
-        import torch
-
-        torch.cuda.reset_peak_memory_stats(device)
+    for dev in dict.fromkeys(d for d in devices if d.type == "cuda"):
+        torch.cuda.reset_peak_memory_stats(dev)
+    LAST_DP_RANK_STATS.clear()
+    # One stats dict per pass of every entry-point call (a DP fan-out's as one).
+    calls: list[dict] = []
     t0 = time.perf_counter()
     if cfg.kv_cache:
-        ex = DecodeGenerator(cfg, device=device, tokenizer=tokenizer)
-        output_scores, updated, _ = run_decode(cfg, prompts, generator=ex)
+        output_scores, updated, _ = run_decode(cfg, prompts, tokenizer=tokenizer,
+                                               devices=devices, calls=calls)
     else:
-        ex = StreamingExecutor(cfg, device=device, tokenizer=tokenizer)
         output_scores, updated = generation_loop(
-            lambda ps: run_prompts(cfg, ps, executor=ex),
+            lambda ps: run_prompts(cfg, ps, tokenizer=tokenizer, devices=devices, calls=calls),
             prompts,
             cfg.num_gen_token,
             tokenizer,
@@ -1103,10 +1119,10 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     with open(args.output_file, "wb") as f:
         pickle.dump(output_scores, f)
 
-    calls = ex.stats_history
     tokens = int(sum(c["tokens_processed"] for c in calls))
     stats = {
-        "device": str(device),
+        "device": str(devices[0]),
+        "num_devices": len(devices),
         "dtype": cfg.dtype,
         "prompts": len(prompts),
         "num_gen_token": cfg.num_gen_token,
@@ -1131,6 +1147,13 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
         seen = [c[key] for c in calls if key in c]
         if seen:
             stats[key] = max(seen)
+    if len(devices) > 1:
+        # One card named as several stages or ranks: its peak holds all of
+        # theirs; on distinct cards, the largest card's.
+        stats["peak_hbm_scope"] = "process" if len(set(devices)) == 1 else "max_device"
+        if cfg.data_parallel:
+            # Host builds: each is placed on every rank's device.
+            stats["streamed_bytes_note"] = "broadcast: link traffic ~= n_ranks x host_loads"
     from flexible_llm_sharding_tpu_torch.runtime.residency import process_tier
 
     tier = process_tier()
@@ -1140,6 +1163,11 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     stats["peak_host_rss_gib"] = rss["peak"]
     if "rss" in rss:
         stats["host_rss_gib"] = rss["rss"]
+    if LAST_DP_RANK_STATS:
+        stats["dp_ranks"] = {
+            str(r): {k: int(v) if k == "prompts" else round(v, 3) for k, v in s.items()}
+            for r, s in sorted(LAST_DP_RANK_STATS.items())
+        }
     print(json.dumps(stats), file=sys.stderr)
     return stats
 

@@ -709,6 +709,12 @@ class FrameworkConfig:
     ``max_activation_in_cpu`` prompts) or ``disk``. ``kv_cache`` selects the
     KV-cache decode loop over the reference's re-scoring loop.
 
+    ``num_devices``: how many devices the entry points use (0 = every
+    visible card; on the CPU, that many CPU stages or ranks, at least 1).
+    With more than one, ``data_parallel`` splits the prompts over them, each
+    streaming the whole model from one shared read; otherwise the layers run
+    as the interleaved MP pipeline across them.
+
     The host path, with the JAX package's defaults: ``verify_weights``
     checks every layer load against ``integrity.json``; ``host_cache_gb``
     budgets the process host shard cache (None = auto, a quarter of the
@@ -757,6 +763,7 @@ class FrameworkConfig:
     storage_location: str = "cpu"
     max_activation_in_cpu: int = 100
     data_parallel: bool = False
+    num_devices: int = 0
     disk_folder: str = "./temp"
     num_gen_token: int = 1
     dtype: str = "bfloat16"
@@ -800,6 +807,8 @@ class FrameworkConfig:
             raise ValueError("num_batch, layer_num_per_shard and block_size must be >= 1")
         if self.prefetch_depth < 0:
             raise ValueError("prefetch_depth must be >= 0")
+        if self.num_devices < 0:
+            raise ValueError(f"num_devices must be >= 0 (0 = all), got {self.num_devices}")
         if (self.top_k or self.top_p) and self.temperature <= 0:
             raise ValueError("top_k/top_p require temperature > 0")
         if self.decode_resident not in ("auto", "on", "off"):
@@ -1181,8 +1190,10 @@ class ServeConfig:
 
 def resolve_device(name: str = "cuda") -> torch.device:
     """``torch.device`` for ``name``. A CUDA request without a usable card
-    raises; the CPU runs only when asked for by name. On CUDA, float32
-    products are pinned to full float32 (no TF32) for matmuls and cuDNN."""
+    raises; the CPU runs only when asked for by name. On CUDA, the runtime
+    is initialised (a call on an indexed device, such as reading its memory
+    stats, does not do it) and float32 products are pinned to full float32
+    (no TF32) for matmuls and cuDNN."""
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -1190,10 +1201,21 @@ def resolve_device(name: str = "cuda") -> torch.device:
                 "no CUDA device is available; pass --device cpu (or "
                 "device='cpu') to run on the CPU"
             )
+        torch.cuda.init()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"device must be cuda or cpu, got {name!r}")
+    return dev
+
+
+def indexed_device(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` names the current card,
+    which a scoring launch may move (it binds its tensor's card), so device
+    lists keep every CUDA device indexed."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -1210,5 +1232,6 @@ __all__ = [
     "STORAGE_LOCATIONS",
     "SchedConfig",
     "ServeConfig",
+    "indexed_device",
     "resolve_device",
 ]

@@ -100,9 +100,19 @@ def _local_form(window, chunk, local_on) -> tuple[int, int]:
 
 # Guards every wrapper's launch counts (read-modify-writes from N threads).
 _COUNT_LOCK = threading.Lock()
+# A thread capturing a CUDA graph keeps its wrappers' counts here
+# (``graph_capture``): a capture launches nothing, and other threads'
+# launches meanwhile are not the graph's.
+_CAPTURING = threading.local()
 
 
 def _count(fn, window: int, chunk: int, dims: tuple[int, int]) -> None:
+    captured = getattr(_CAPTURING, "counts", None)
+    if captured is not None:
+        n, n_local, by_dims = captured.get(fn.__name__, (0, 0, {}))
+        captured[fn.__name__] = (n + 1, n_local + bool(window or chunk),
+                                 {**by_dims, dims: by_dims.get(dims, 0) + 1})
+        return
     with _COUNT_LOCK:
         fn.launches += 1
         if window or chunk:
@@ -390,42 +400,29 @@ def reset_launch_counts() -> None:
             globals()[name].dim_launches = {}
 
 
-def _snapshot() -> dict[str, tuple[int, int, dict]]:
-    with _COUNT_LOCK:
-        return {name: (globals()[name].launches, globals()[name].local_launches,
-                       dict(globals()[name].dim_launches)) for name in KERNELS}
-
-
-def _add(counts: dict[str, tuple[int, int, dict]], sign: int = 1) -> None:
+def _add(counts: dict[str, tuple[int, int, dict]]) -> None:
     with _COUNT_LOCK:
         for name, (n, n_local, dims) in counts.items():
             fn = globals()[name]
-            fn.launches += sign * n
-            fn.local_launches += sign * n_local
+            fn.launches += n
+            fn.local_launches += n_local
             for key, c in dims.items():
-                fn.dim_launches[key] = fn.dim_launches.get(key, 0) + sign * c
-                if not fn.dim_launches[key]:
-                    del fn.dim_launches[key]
+                fn.dim_launches[key] = fn.dim_launches.get(key, 0) + c
 
 
 @contextlib.contextmanager
 def graph_capture():
-    """Wrap a CUDA graph capture: a wrapper called while capturing records
-    its kernel into the graph and launches nothing, so the counts it adds
-    are taken back out on exit and kept in the yielded dict, which
-    :func:`count_replay` adds once per replay of the graph."""
-    before = _snapshot()
+    """Wrap a CUDA graph capture on this thread: a wrapper it calls while
+    capturing records its kernel into the graph and launches nothing, so
+    its counts go into the yielded dict, not the launch counts;
+    :func:`count_replay` adds them once per replay of the graph. Other
+    threads keep counting their launches meanwhile."""
     captured: dict[str, tuple[int, int, dict]] = {}
+    _CAPTURING.counts = captured
     try:
         yield captured
     finally:
-        after = _snapshot()
-        for name in KERNELS:
-            n0, l0, d0 = before[name]
-            n1, l1, d1 = after[name]
-            captured[name] = (n1 - n0, l1 - l0,
-                              {k: d1[k] - d0.get(k, 0) for k in d1 if d1[k] != d0.get(k, 0)})
-        _add(captured, -1)
+        _CAPTURING.counts = None
 
 
 def count_replay(captured: dict[str, tuple[int, int, dict]]) -> None:

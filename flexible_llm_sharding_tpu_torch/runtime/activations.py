@@ -23,7 +23,12 @@ Every ``.npy`` gets a ``.crc`` sidecar, checked on read with up to
 ``SpillReadError``. ``flush`` is the barrier a crash-resume marker waits on;
 ``fetch_recompute`` reads the previous shard's inputs back from the other
 generation, for the executor's recompute of a corrupt spill. The JAX
-store's fault injection and disk-full typing wait for ROADMAP item 8.
+store's fault injection and disk-full typing wait for ROADMAP item 7.
+
+In DP mode (``rank_tag``) the file names carry the device's rank, as the
+reference's do: ``suffix{rank}-{idx:05d}.npy``. A fetch returns a block on
+the store's device, or on the ``device`` it is given (the MP pipeline's
+next stage).
 """
 
 from __future__ import annotations
@@ -117,7 +122,8 @@ class ActivationStore:
 
     def __init__(self, location: str, device: torch.device, dtype: torch.dtype,
                  disk_folder: str = "./temp", max_in_cpu: int | None = None,
-                 batch: int = 0, integrity=None, retry_policy=None, retry_recorder=None):
+                 batch: int = 0, integrity=None, retry_policy=None, retry_recorder=None,
+                 device_rank: int = 0, rank_tag: bool = False):
         if location not in ("gpu", "cpu", "disk"):
             raise ValueError(f"storage_location must be gpu|cpu|disk, got {location!r}")
         self.location = location
@@ -125,7 +131,7 @@ class ActivationStore:
         self.dtype = dtype
         self.disk_folder = disk_folder
         self.max_in_cpu = max_in_cpu
-        self.tag = batch_tag(batch)
+        self.tag = batch_tag(batch, device_rank if rank_tag else None)
         self._mem: dict[object, object] = {}
         self._spilled: set[object] = set()
         self._cpu_prompts = 0
@@ -263,7 +269,7 @@ class ActivationStore:
         if isinstance(entry, _Staged):
             self._mem[block_id] = entry.resolve()
 
-    def fetch(self, block_id, prompt_idxs: list[int], with_prefix: bool = True):
+    def fetch(self, block_id, prompt_idxs: list[int], with_prefix: bool = True, device=None):
         if self.location == "cpu" and block_id in self._pending:
             self._pending.remove(block_id)
             self._finalize(block_id)
@@ -278,12 +284,17 @@ class ActivationStore:
                 self._cpu_prompts -= len(prompt_idxs)
             if not with_prefix:
                 prefix = None
-        suffix = suffix.to(self.device, non_blocking=True)
+        return self._to_device(prefix, suffix, device)
+
+    def _to_device(self, prefix, suffix, device=None):
+        device = self.device if device is None else device
+        suffix = suffix.to(device, non_blocking=True)
         if prefix is not None:
-            prefix = prefix.to(self.device, non_blocking=True)
+            prefix = prefix.to(device, non_blocking=True)
         return prefix, suffix
 
-    def fetch_recompute(self, block_id, prompt_idxs: list[int], with_prefix: bool = True):
+    def fetch_recompute(self, block_id, prompt_idxs: list[int], with_prefix: bool = True,
+                        device=None):
         """The previous shard's inputs of one block, on ``device`` (disk mode
         only), for the executor's recompute of a corrupt spill: shard k - 1
         read generation k % 2, the current store generation, which this
@@ -296,10 +307,7 @@ class ActivationStore:
             )
         self.flush()
         prefix, suffix = self._fetch_disk(prompt_idxs, with_prefix, self._store_gen)
-        suffix = suffix.to(self.device, non_blocking=True)
-        if prefix is not None:
-            prefix = prefix.to(self.device, non_blocking=True)
-        return prefix, suffix
+        return self._to_device(prefix, suffix, device)
 
     def clear(self) -> None:
         try:
@@ -315,10 +323,11 @@ class ActivationStore:
             self._cpu_prompts = 0
 
 
-def batch_tag(batch: int) -> str:
-    """The disk file and resume-marker tag of a ``num_batch`` batch: batch
-    0 keeps the reference's exact file names."""
-    return f".b{batch}" if batch else ""
+def batch_tag(batch: int, rank: int | None = None) -> str:
+    """The disk file and resume-marker tag of a ``num_batch`` batch, after a
+    DP rank's number when given: batch 0 keeps the reference's exact file
+    names."""
+    return ("" if rank is None else str(rank)) + (f".b{batch}" if batch else "")
 
 
 __all__ = ["ActivationStore", "batch_tag"]

@@ -40,13 +40,24 @@ The per-shard pieces (:func:`prefill_decoders`, :func:`suffix_prefill_decoders`,
 :class:`SpecVerifier` are shared with the serving
 engine (``serve/engine.py``), which runs them per wave at each shard of its
 weight sweeps, with a wave's LoRA shift (``delta``) where it carries
-adapters. The multi-device modes are not part of this port yet.
+adapters.
+
+The multi-device modes (the JAX generator's ``mp_devices`` and
+``weight_source_factory``): over ``mp_devices`` (more than one) each
+interleaved stage's weights and parked KV live on its own device, the
+stages run in order every pass, their activations hopping to the next
+stage's device, and the fused steps stand down (one placement is their
+precondition). A DP rank takes its passes from its broadcast view
+(``weight_source_factory``) with the ``resident`` decision the source's
+round count was built for.
 """
 
 from __future__ import annotations
 
 import contextlib
 import inspect
+import itertools
+import threading
 import time
 from typing import Any
 
@@ -54,14 +65,18 @@ import numpy as np
 import torch
 
 from flexible_llm_sharding_tpu_torch.adapters.apply import lora_shift_rows
+from flexible_llm_sharding_tpu_torch.config import indexed_device
 from flexible_llm_sharding_tpu_torch.models import llama
 from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 from flexible_llm_sharding_tpu_torch.ops.norm import rms_norm
+from flexible_llm_sharding_tpu_torch.parallel.planner import global_stage_order
 from flexible_llm_sharding_tpu_torch.runtime.executor import (
     StreamingExecutor,
+    StreamStats,
     _tree_map,
     block_meta,
     first_decoder,
+    peak_over,
     sync,
 )
 from flexible_llm_sharding_tpu_torch.runtime.generation import make_picker
@@ -316,8 +331,9 @@ def extend_gen_kv(kv: dict[str, torch.Tensor], gen_slots: int) -> dict[str, torc
 
 
 class KVStore:
-    """Per-key KV dicts and activations, on the device (``on_device``) or in
-    host RAM; ``get`` returns them on the device and removes them."""
+    """Per-key KV dicts and activations, on the device they were made on
+    (``on_device``) or in host RAM; ``get`` removes them and returns them on
+    ``device`` (default: the store's; an MP stage's own)."""
 
     def __init__(self, on_device: bool, device: torch.device):
         self.on_device = on_device
@@ -327,9 +343,12 @@ class KVStore:
     def put(self, key: tuple, tree) -> None:
         self._mem[key] = tree if self.on_device else _tree_map(lambda t: t.to("cpu"), tree)
 
-    def get(self, key: tuple):
+    def get(self, key: tuple, device: torch.device | None = None):
         tree = self._mem.pop(key)
-        return tree if self.on_device else _tree_map(lambda t: t.to(self.device), tree)
+        if self.on_device and device is None:
+            return tree
+        device = self.device if device is None else device
+        return _tree_map(lambda t: t.to(device), tree)
 
     def clear(self) -> None:
         self._mem.clear()
@@ -418,6 +437,9 @@ def spec_norm_head(model_cfg, norm_params, head_params, x) -> torch.Tensor:
     return llama.lm_head_scores_multi(head_params, h, model_cfg.final_logit_softcap)
 
 
+_CAPTURE_LOCK = threading.Lock()
+
+
 def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params, norm_params,
                        head_params, init_ids: torch.Tensor, prefix_len: torch.Tensor,
                        suffix_eos: torch.Tensor, n_steps: int, graph: bool):
@@ -467,8 +489,11 @@ def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params,
             step(0, init_ids, warm, torch.empty_like(dists[0]), torch.empty_like(picks[0]))
             del warm
             cuda_graph = torch.cuda.CUDAGraph()
-            with fa.graph_capture() as captured:
-                cuda_graph.capture_begin()
+            # Thread-local capture: another thread's launches, allocations
+            # and waits (a DP rank on the same card) neither join this
+            # graph nor invalidate it; one capture at a time.
+            with _CAPTURE_LOCK, fa.graph_capture() as captured:
+                cuda_graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     all_steps()
                 except BaseException:
@@ -488,13 +513,47 @@ class DecodeGenerator(StreamingExecutor):
     ``__call__(prompts)`` -> (scores, updated_prompts): one float32
     ``[n_suffixes, num_gen_token, vocab]`` per prompt, and the suffix strings
     grown by the decoded tokens.
+
+    ``mp_devices`` (more than one): the interleaved pipeline's stages, each
+    stage's weights and KV on its own device (one device may be named
+    several times). ``weight_source_factory``: a DP rank's broadcast view
+    per weight pass, with ``resident`` the decision its round count was
+    built for (required with it; speculation does not compose with it).
     """
 
-    def __init__(self, cfg, device: torch.device | None = None, tokenizer=None):
-        super().__init__(cfg, device, tokenizer)
-        # The device the memory gates judge (the JAX generator's probe).
-        self._probe_dev = self.device
-        self._resident = cfg.decode_resident_enabled(self.model_cfg, 1, self._probe_dev)
+    def __init__(self, cfg, device: torch.device | None = None, tokenizer=None, *,
+                 mp_devices=None, weight_source_factory=None, resident: bool | None = None):
+        if weight_source_factory is not None and mp_devices is not None:
+            raise ValueError("mp_devices and weight_source_factory are exclusive")
+        if weight_source_factory is not None and resident is None:
+            # The shared source's round count is fixed: a rank deciding
+            # residency on its own could take more or fewer passes.
+            raise ValueError("weight_source_factory requires an explicit resident= flag "
+                             "matching the source's round count")
+        if weight_source_factory is not None and cfg.speculative_k:
+            raise ValueError("speculative_k does not compose with data_parallel decode")
+        if mp_devices:
+            mp_devices = [indexed_device(d) for d in mp_devices]
+            device = mp_devices[0]
+        super().__init__(cfg, device, tokenizer, weight_source_factory=weight_source_factory)
+        self._pipeline = mp_devices is not None and len(mp_devices) > 1
+        if self._pipeline:
+            stages = global_stage_order(len(self.layer_names), cfg.layer_num_per_shard,
+                                        len(mp_devices))
+            self.shards = [s for (_, _, s) in stages]
+            self.shard_devices = [mp_devices[r] for (_, r, _) in stages]
+        else:
+            self.shards = list(self.plan.shards)
+            self.shard_devices = [self.device] * len(self.shards)
+        # The memory gates count physical devices: one device named as
+        # several stages holds all of their weights.
+        self._n_chips = len(set(self.shard_devices))
+        self._probe_dev = self.shard_devices[0]
+        self._resident = (resident if resident is not None else
+                          cfg.decode_resident_enabled(self.model_cfg, self._n_chips,
+                                                      self._probe_dev))
+        # A resident decode keeps every placed shard: the tier is moot.
+        self._residency = None if self._resident else super()._pin_tier()
         self._sched_core = SchedCore(cfg)
         # Whether fused steps are captured in a CUDA graph, from the model
         # alone: an MoE layer groups tokens by expert from counts it reads
@@ -502,10 +561,7 @@ class DecodeGenerator(StreamingExecutor):
         self._graph_ok = not metrics.has_moe_layers(self.model_cfg)
 
     def _pin_tier(self):
-        # A resident decode keeps every placed shard: the tier is moot.
-        if self.cfg.decode_resident_enabled(self.model_cfg, 1, self.device):
-            return None
-        return super()._pin_tier()
+        return None  # decided in __init__, once residency is
 
     def _fused_budget_ok(self, toks, blocks, n_gen: int, gen_slots: int,
                          kv_on_device: bool) -> bool:
@@ -527,7 +583,7 @@ class DecodeGenerator(StreamingExecutor):
             * self.model_cfg.vocab_size * 4
             for idxs in blocks
         )
-        weights = metrics.weight_bytes_per_chip(self.model_cfg, self.cfg.dtype, 1)
+        weights = metrics.weight_bytes_per_chip(self.model_cfg, self.cfg.dtype, self._n_chips)
         return weights + kv_bytes + dists_bytes <= 0.8 * hbm_gb * 1e9
 
     @torch.inference_mode()
@@ -540,21 +596,28 @@ class DecodeGenerator(StreamingExecutor):
         # boundary (a speculative pass's K+1 window may overshoot by K).
         check_longrope_regime(mcfg, toks, extra_len=max(n_gen - 1, 0) + cfg.speculative_k)
         blocks = make_blocks(toks, cfg.block_size)
-        metas = [block_meta(toks, idxs, self.device) for idxs in blocks]
+        metas: dict[tuple, tuple] = {}  # (block, device) -> the block's ids on that device
+
+        def meta_on(b: int, dev: torch.device):
+            if (b, dev) not in metas:
+                metas[(b, dev)] = block_meta(toks, blocks[b], dev)
+            return metas[(b, dev)]
+
         core = self._sched_core
         plain_slots = core.gen_slots(n_gen)
         kv_on_device = core.kv_on_device(mcfg, cfg.dtype, toks, blocks, plain_slots,
-                                         self._resident, device=self._probe_dev)
+                                         self._resident, device=self._probe_dev,
+                                         n_chips=self._n_chips)
         budget_ok = bool(blocks) and self._fused_budget_ok(toks, blocks, n_gen, plain_slots,
                                                            kv_on_device)
-        fused = (cfg.decode_fused != "off" and self._resident and cfg.temperature <= 0
-                 and n_gen > 1 and budget_ok)
+        fused = (cfg.decode_fused != "off" and self._resident and not self._pipeline
+                 and cfg.temperature <= 0 and n_gen > 1 and budget_ok)
         if cfg.decode_fused == "on" and not fused and n_gen > 1 and blocks:
             raise ValueError(
-                "decode_fused='on' needs resident weights, greedy selection and the fused "
-                "footprint (weights + KV + dists) within the card's memory; got "
-                f"resident={self._resident} temperature={cfg.temperature} "
-                f"hbm_budget_ok={budget_ok}"
+                "decode_fused='on' needs resident weights, greedy selection, one placement "
+                "(no MP pipeline) and the fused footprint (weights + KV + dists) within the "
+                f"card's memory; got resident={self._resident} temperature={cfg.temperature} "
+                f"single_placement={not self._pipeline} hbm_budget_ok={budget_ok}"
             )
         graph = fused and self.device.type == "cuda" and self._graph_ok
         # Speculative verify passes; the fused steps are preferred when both
@@ -565,10 +628,11 @@ class DecodeGenerator(StreamingExecutor):
         if speculative and kv_on_device and cfg.storage_location != "gpu":
             # Judge the KV placement again at the larger slot count.
             kv_on_device = core.kv_on_device(mcfg, cfg.dtype, toks, blocks, gen_slots,
-                                             self._resident, device=self._probe_dev)
+                                             self._resident, device=self._probe_dev,
+                                             n_chips=self._n_chips)
         kv_store = KVStore(kv_on_device, self.device)
         n_layers = len(self.layer_names)
-        n_shards = len(self.plan.shards)
+        n_shards = len(self.shards)
         sliding = llama.layer_sliding_pattern(mcfg)
         rope_on = llama.layer_rope_pattern(mcfg)
         all_scores: list[list[np.ndarray]] = [[] for _ in blocks]
@@ -585,8 +649,19 @@ class DecodeGenerator(StreamingExecutor):
             all_scores[b].append(d)
             tok_hist[b].append(picker(d, real=real_rows[b]))
 
-        source, host_stats = self.weight_source(1 if self._resident else n_gen)
-        it = iter(source)
+        n_passes = 1 if self._resident else n_gen
+        if self.weight_source_factory is None:
+            source, host_stats = self.weight_source(n_passes, shards=self.shards,
+                                                    devices=self.shard_devices)
+            it = iter(source)
+            bytes_before = 0
+        else:
+            # One broadcast view per weight pass, in a row.
+            host_stats = StreamStats(None, device=self.device, shared=True)
+            source = self.weight_source_factory()
+            bytes_before = source.bytes_loaded
+            it = itertools.chain(source, itertools.chain.from_iterable(
+                self.weight_source_factory() for _ in range(n_passes - 1)))
         compute_time = source_wait = 0.0
         # Resident mode: the shards the prefill pass placed, in order.
         kept: list[tuple[tuple[int, ...], list]] = []
@@ -610,32 +685,38 @@ class DecodeGenerator(StreamingExecutor):
             norm_params = None
             shards = kept if self._resident else (next_shard() for _ in range(n_shards))
             for shard_pos, (layer_idxs, segments) in enumerate(shards):
+                if not layer_idxs:  # an MP round-up padding stage
+                    continue
+                dev = self.shard_devices[shard_pos]
                 t0 = time.perf_counter()
                 for b in range(len(blocks)):
                     if skip_block is not None and skip_block(b):
                         continue
-                    _, _, prefix_len, suffix_eos = metas[b]
-                    x = None if layer_idxs[0] == 0 else kv_store.get(("x", b))
+                    _, _, prefix_len, suffix_eos = meta_on(b, dev)
+                    t = step_t(b)
+                    if isinstance(t, torch.Tensor):
+                        t = t.to(dev)
+                    x = None if layer_idxs[0] == 0 else kv_store.get(("x", b), dev)
                     li0 = 0  # the segment's first layer within the shard
                     for kind, params in segments:
                         if kind == "embed":
                             x = llama.embed(params, embed_ids(b), self.dtype, mcfg)
                         elif kind == "decoders":
                             keys = [("kv", shard_pos, li0 + li, b) for li in range(len(params))]
-                            kvs = [kv_store.get(key) for key in keys]
+                            kvs = [kv_store.get(key, dev) for key in keys]
                             x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs,
-                                                x, prefix_len, suffix_eos, step_t(b), sliding,
-                                                rope_on)
+                                                x, prefix_len, suffix_eos, t, sliding, rope_on)
                             for key, kv in zip(keys, kvs):
                                 kv_store.put(key, kv)
                             li0 += len(params)
                         elif kind == "norm":
                             norm_params = params  # applied with the head
                         else:
-                            head_fn(b, norm_params, params, x)
+                            # The norm may sit on an earlier stage's device.
+                            head_fn(b, _tree_map(lambda v: v.to(dev), norm_params), params, x)
                     if layer_idxs[-1] != n_layers - 1:
                         kv_store.put(("x", b), x)
-                sync(self.device)
+                sync(dev)
                 compute_time += time.perf_counter() - t0
                 del segments
 
@@ -645,13 +726,16 @@ class DecodeGenerator(StreamingExecutor):
                 layer_idxs, segments = next_shard()
                 if self._resident:
                     kept.append((layer_idxs, segments))
+                if not layer_idxs:  # an MP round-up padding stage
+                    continue
+                dev = self.shard_devices[shard_pos]
                 t0 = time.perf_counter()
                 for b, idxs in enumerate(blocks):
-                    prefix_ids, suffix_ids, prefix_len, suffix_eos = metas[b]
+                    prefix_ids, suffix_ids, prefix_len, suffix_eos = meta_on(b, dev)
                     total_len = longrope_total_len(mcfg, prefix_len, suffix_eos)
                     ph = sh = None
                     if layer_idxs[0] != 0:
-                        ph, sh = kv_store.get(("h", b))
+                        ph, sh = kv_store.get(("h", b), dev)
                     li0 = 0
                     for kind, params in segments:
                         if kind == "embed":
@@ -673,7 +757,7 @@ class DecodeGenerator(StreamingExecutor):
                             head(b, llama.lm_head_scores(params, sh, mcfg.final_logit_softcap))
                     if layer_idxs[-1] != n_layers - 1:
                         kv_store.put(("h", b), (ph, sh))
-                sync(self.device)
+                sync(dev)
                 compute_time += time.perf_counter() - t0
                 del segments
 
@@ -698,7 +782,7 @@ class DecodeGenerator(StreamingExecutor):
                         else:
                             head_p = params
                 for b in range(len(blocks)):
-                    _, _, prefix_len, suffix_eos = metas[b]
+                    _, _, prefix_len, suffix_eos = meta_on(b, self.device)
                     kvs = [kv_store.get(("kv", sp, li, b)) for sp, li in keys]
                     init_ids = torch.from_numpy(np.asarray(tok_hist[b][-1], np.int64)).to(
                         self.device)
@@ -763,7 +847,7 @@ class DecodeGenerator(StreamingExecutor):
                         plain_head,
                     )
         finally:
-            source.close()
+            source.close()  # a broadcast view's is the orchestration's
             kv_store.clear()
             kept.clear()  # release the resident weights
 
@@ -772,7 +856,7 @@ class DecodeGenerator(StreamingExecutor):
             "load_weights_time_s": source.load_time,
             "compute_wall_s": compute_time,
             "source_wait_s": source_wait,
-            "streamed_bytes": float(source.bytes_loaded),
+            "streamed_bytes": float(source.bytes_loaded - bytes_before),
             "decode_resident": float(self._resident),
             "decode_fused": float(fused),
             "decode_speculative": float(speculative),
@@ -786,7 +870,14 @@ class DecodeGenerator(StreamingExecutor):
         }
         if speculative:
             self.stats.update(spec_stats)
-        host_stats.read_peak(self.stats)
+        if self.weight_source_factory is not None:
+            self.stats["load_time_shared"] = self.stats["streamed_bytes_shared"] = 1.0
+        if self._pipeline:
+            peak = peak_over(self.shard_devices, self._residency)
+            if peak is not None:
+                self.stats["peak_mem_gb"] = peak
+        else:
+            host_stats.read_peak(self.stats)
         self.stats_history.append(dict(self.stats))
 
         scores_out: list[np.ndarray] = [None] * len(prompts)  # type: ignore[list-item]

@@ -1,6 +1,5 @@
 """The streaming executor: the model passes through the device one shard of
-layers at a time (the JAX package's ``runtime/executor.py``, single-device
-part).
+layers at a time (the JAX package's ``runtime/executor.py``).
 
 For every shard, every block of same-bucket prompts runs through the
 shard's layers before the next shard is loaded; activations wait in an
@@ -29,7 +28,14 @@ In disk mode a marker (``runtime/resume.py``) records each completed shard
 once its activation files are flushed, and ``resume`` restarts a crashed run
 at the first shard left; a spill that stays corrupt after its re-reads is
 recomputed from the previous shard, whose inputs the other disk generation
-still holds. Fault injection waits for ROADMAP item 8.
+still holds. Fault injection waits for ROADMAP item 7.
+
+The multi-device modes: ``ShardWeightSource(devices=...)`` uploads each
+shard to its own device (the MP pipeline's stages, ``runtime/pipeline.py``,
+each on its device's upload stream), and ``BroadcastShardSource`` reads each
+shard once and places it on every DP rank's device, one bounded queue per
+rank; a DP rank's ``StreamingExecutor`` takes its view through
+``weight_source_factory``.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from flexible_llm_sharding_tpu_torch.integrity.manifest import (
     SpillCorruptError,
 )
 from flexible_llm_sharding_tpu_torch.models import llama
-from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
+from flexible_llm_sharding_tpu_torch.parallel.planner import ShardPlan, plan_shards_dp
 from flexible_llm_sharding_tpu_torch.runtime import residency, resume
 from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore, batch_tag
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import (
@@ -183,7 +189,7 @@ def _split_parts(layer_idxs: tuple[int, ...], pinned: frozenset) -> list[tuple[s
 
 class ShardWeightSource:
     """Shard weights, disk -> host -> device, optionally prefetched (the
-    JAX package's ``_HostShardLoader`` and weight source, single device).
+    JAX package's ``_HostShardLoader`` and weight source).
 
     Iterating yields ``(layer_idxs, segments)`` per shard, where segments is
     a list of ``(kind, params)``: ``("embed", {"embedding"})``,
@@ -208,10 +214,16 @@ class ShardWeightSource:
     of ``readahead_threads`` (0 = none) warms the next shard's files, less
     the pinned ones.
 
+    ``devices`` (one per shard; default ``device`` for every shard): each
+    shard is uploaded to its own device on that device's upload stream, the
+    MP pipeline's stages. An empty shard (a round-up padding stage) yields
+    no segments.
+
     ``residency`` (a ``DeviceResidencyTier``): its planned layers among the
-    shards are pinned before the first build, frozen for this source's
-    life, subtracted from every build and merged back in layer order. The
-    JAX loader's fault injection and host-OOM typing wait for ROADMAP item 8.
+    shards are pinned on their shards' devices before the first build,
+    frozen for this source's life, subtracted from every build and merged
+    back in layer order. The JAX loader's fault injection and host-OOM
+    typing wait for ROADMAP item 7.
 
     ``cycle=True`` loops the shard list endlessly instead of stopping after
     one pass: the serving engine's weight stream (``serve/engine.py``),
@@ -232,16 +244,23 @@ class ShardWeightSource:
                  device: torch.device, prefetch_depth: int = 1,
                  tied_embeddings: bool = False, *, verify_weights: bool = True,
                  host_cache: HostShardCache | None = None, readahead_threads: int = 2,
-                 retry_policy: RetryPolicy | None = None, residency=None, cycle: bool = False):
+                 retry_policy: RetryPolicy | None = None, residency=None, cycle: bool = False,
+                 devices: Sequence[torch.device] | None = None):
         self.model_path = model_path
         self.cycle = cycle
         self.layer_names = list(layer_names)
         self.shards = list(shards)
+        if devices is not None and len(devices) != len(self.shards):
+            raise ValueError("devices must align 1:1 with shards")
+        self.shard_devices = list(devices) if devices is not None else [device] * len(self.shards)
         self.dtype = dtype
         self.device = device
         self.tied = tied_embeddings
         self._cuda = device.type == "cuda"
         self._stream = torch.cuda.Stream(device) if self._cuda else None
+        # One upload stream per device the shards go to.
+        self._streams: dict[torch.device, torch.cuda.Stream] = (
+            {device: self._stream} if self._cuda else {})
         self.load_time = 0.0
         self.bytes_loaded = 0
         self.retries = RetryRecorder()
@@ -270,18 +289,25 @@ class ShardWeightSource:
             self._manifest is not None, self._cuda,
         )
         self._stop = threading.Event()
-        self._residency = residency
+        self._residency = None
         self._pinned: frozenset = frozenset()
         if residency is not None:
             # Pinned before the producer starts; a pin that fails for good
             # is demoted and streams (its error surfaces there).
-            residency.ensure_pinned(self, device, [i for idxs in self.shards for i in idxs])
-            self._pinned = residency.frozen_pinned(self.shards)
+            for idxs, dev in zip(self.shards, self.shard_devices):
+                residency.ensure_pinned(self, dev, idxs)
+            self.freeze_pins(residency)
         self._q: Queue = Queue(maxsize=max(1, prefetch_depth))
         self._thread: threading.Thread | None = None
         if prefetch_depth >= 1:
             self._thread = threading.Thread(target=self._producer, daemon=True)
             self._thread.start()
+
+    def freeze_pins(self, residency) -> None:
+        """Adopt ``residency``'s healthy planned layers among the shards as
+        this source's pin set, for its life."""
+        self._residency = residency
+        self._pinned = residency.frozen_pinned(self.shards)
 
     def _layer_file(self, name: str) -> str:
         return checkpoint.layer_file_for(self.model_path, name, self.tied)
@@ -361,24 +387,25 @@ class ShardWeightSource:
             return self._tied_head
         return checkpoint.load_layer(self.model_path, name, self._cuda, manifest=self._manifest)
 
-    def _place_leaf(self, t):
+    def _place_leaf(self, t, device):
         if checkpoint.is_quantized_leaf(t):
-            packed = {k: v.to(self.device, non_blocking=True) for k, v in t.items()}
+            packed = {k: v.to(device, non_blocking=True) for k, v in t.items()}
             return checkpoint.dequantize(packed, self.dtype)
-        t = t.to(self.device, non_blocking=True)
+        t = t.to(device, non_blocking=True)
         return t.to(self.dtype) if t.is_floating_point() else t
 
-    def _place_tree(self, tree):
+    def _place_tree(self, tree, device):
         if checkpoint.is_quantized_leaf(tree):
-            return self._place_leaf(tree)
+            return self._place_leaf(tree, device)
         if isinstance(tree, dict):
-            return {k: self._place_tree(v) for k, v in tree.items()}
-        return None if tree is None else self._place_leaf(tree)
+            return {k: self._place_tree(v, device) for k, v in tree.items()}
+        return None if tree is None else self._place_leaf(tree, device)
 
-    def place_layer(self, name: str, tree) -> dict[str, Any]:
-        """One layer's host tree on the device, on the current stream: cast,
-        quantized leaf-groups dequantized, a tied float head transposed."""
-        placed = self._place_tree(tree)
+    def place_layer(self, name: str, tree, device: torch.device | None = None) -> dict[str, Any]:
+        """One layer's host tree on ``device`` (default: the source's), on
+        the current stream: cast, quantized leaf-groups dequantized, a tied
+        float head transposed."""
+        placed = self._place_tree(tree, self.device if device is None else device)
         if name == "lm_head" and self.tied and not checkpoint.is_quantized_leaf(tree["kernel"]):
             placed = {"kernel": placed["kernel"].T}
         return placed
@@ -406,44 +433,69 @@ class ShardWeightSource:
             cache.put(key, host, nbytes=nbytes, guard=guard)
         return host
 
-    def _build(self, layer_idxs: tuple[int, ...]):
+    def host_parts(self, layer_idxs: tuple[int, ...]):
+        """One build's plan (``_split_parts``) and the host trees of its
+        stream runs; each pin counts one pass's link bytes saved, once per
+        build however many devices it is placed on."""
+        if not layer_idxs:
+            return [], []
         parts = _split_parts(layer_idxs, self._pinned)
-        pinned = {}
         for kind, val in parts:
             if kind == "pin":
-                # One pass's link bytes saved, counted once per build.
                 self._residency.note_skip(val)
-                pinned[val] = self._residency.segments(val, self.device, self)
-        hosts = [self.build_host_shard(val) for kind, val in parts if kind == "stream"]
+        return parts, [self.build_host_shard(val) for kind, val in parts if kind == "stream"]
+
+    def _upload_stream(self, device: torch.device):
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+        return self._streams[device]
+
+    def place_parts(self, parts, hosts, device: torch.device):
+        """A built shard on ``device``: (segments, the upload's event or
+        None). On a card the stream runs upload on the device's upload
+        stream; the pins are the tier's trees on that device."""
+        pinned = {val: self._residency.segments(val, device, self)
+                  for kind, val in parts if kind == "pin"}
         event = None
-        if self._cuda:
-            with torch.cuda.stream(self._stream):
-                placed_runs = [[(n, self.place_layer(n, t)) for n, t in host] for host in hosts]
+        if device.type == "cuda":
+            stream = self._upload_stream(device)
+            with torch.cuda.stream(stream):
+                placed_runs = [[(n, self.place_layer(n, t, device)) for n, t in host]
+                               for host in hosts]
                 event = torch.cuda.Event()
-                event.record(self._stream)
+                event.record(stream)
         else:
-            placed_runs = [[(n, self.place_layer(n, t)) for n, t in host] for host in hosts]
+            placed_runs = [[(n, self.place_layer(n, t, device)) for n, t in host]
+                           for host in hosts]
         runs = iter(placed_runs)
         placed = []
         for kind, val in parts:
             placed.extend(next(runs) if kind == "stream" else pinned[val])
         return layer_segments(placed), event
 
+    def _build(self, layer_idxs: tuple[int, ...], device: torch.device):
+        """One shard built on the host and placed on ``device``: (segments,
+        event)."""
+        return self.place_parts(*self.host_parts(layer_idxs), device)
+
     def _produce(self, i: int):
-        """Shard ``i``, with the next shard's streamed files queued for
-        readahead (shard 0's after the last when cycling)."""
+        """Shard ``i`` as a queue item (idxs, segments, event, device), with
+        the next shard's streamed files queued for readahead (shard 0's
+        after the last when cycling)."""
         if i + 1 < len(self.shards):
             self.warm(_stream_only(self.shards[i + 1], self._pinned))
         elif self.cycle:
             self.warm(_stream_only(self.shards[0], self._pinned))
-        return (self.shards[i], *self._build(self.shards[i]))
+        dev = self.shard_devices[i]
+        return (self.shards[i], *self._build(self.shards[i], dev), dev)
 
     def _ready(self, item):
-        """Order the upload before the consumer's stream and keep the
-        allocator from reusing the weights' memory while that stream runs."""
-        _, segments, event = item
+        """Order the upload before the consumer's stream on the item's device
+        and keep the allocator from reusing the weights' memory while that
+        stream runs."""
+        _, segments, event, device = item
         if event is not None:
-            stream = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.current_stream(device)
             stream.wait_event(event)
             for t in _tree_leaves([p for _, p in segments]):
                 t.record_stream(stream)
@@ -531,6 +583,165 @@ class ShardWeightSource:
             self._prefetcher = None
 
 
+class BroadcastShardSource:
+    """DP's weight stream (the JAX package's ``BroadcastShardSource``): one
+    host build per shard — read, checked and cast once — placed on every
+    active rank's device, each placement on that device's upload stream,
+    and fed to one bounded queue per rank (``prefetch_depth`` items each).
+    ``rounds`` repeats the shard list: the ``num_batch`` loop's passes, or
+    a decode's weight passes. Two ranks on one device get a placement each.
+
+    A rank iterates one round through its :meth:`view`. A failed build or
+    placement reaches every rank as its error; :meth:`close` unblocks the
+    producer and every waiting rank (which then raises ``SourceClosed``).
+    ``residency`` pins its planned layers on every rank's device from one
+    host build each, and every build leaves them out.
+    """
+
+    def __init__(self, model_path: str, layer_names: Sequence[str],
+                 shards: Sequence[tuple[int, ...]], dtype: torch.dtype,
+                 devices: Sequence[torch.device], prefetch_depth: int = 1,
+                 tied_embeddings: bool = False, *, rounds: int = 1, verify_weights: bool = True,
+                 host_cache: HostShardCache | None = None, readahead_threads: int = 2,
+                 retry_policy: RetryPolicy | None = None, residency=None):
+        self.shards = list(shards)
+        self.devices = list(devices)
+        self.rounds = rounds
+        # The host half of a weight source (no thread of its own): reads,
+        # checks, caches, readahead, and placement on a given device.
+        self._loader = ShardWeightSource(
+            model_path, layer_names, self.shards, dtype, self.devices[0], prefetch_depth=0,
+            tied_embeddings=tied_embeddings, verify_weights=verify_weights,
+            host_cache=host_cache, readahead_threads=readahead_threads,
+            retry_policy=retry_policy)
+        if residency is not None:
+            residency.ensure_pinned_broadcast(self._loader, self.devices,
+                                              sorted({i for s in self.shards for i in s}))
+            self._loader.freeze_pins(residency)
+        self._stop = self._loader._stop  # a stopped source also stops the loader's retries
+        self._queues = [Queue(maxsize=max(1, prefetch_depth)) for _ in self.devices]
+        self._thread = threading.Thread(target=self._producer, daemon=True)
+        self._thread.start()
+
+    @property
+    def load_time(self) -> float:
+        return self._loader.load_time
+
+    @property
+    def bytes_loaded(self) -> int:
+        return self._loader.bytes_loaded
+
+    @property
+    def retries(self) -> RetryRecorder:
+        return self._loader.retries
+
+    @property
+    def integrity(self) -> IntegrityRecorder:
+        return self._loader.integrity
+
+    def _put(self, rank: int, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._queues[rank].put(item, timeout=0.2)
+                return True
+            except Full:
+                continue
+        return False
+
+    def _fail_all(self, error: BaseException) -> None:
+        for rank in range(len(self.devices)):
+            self._put(rank, _Fault(error))
+
+    def _producer(self) -> None:
+        loader = self._loader
+        for _ in range(self.rounds):
+            for i, idxs in enumerate(self.shards):
+                if self._stop.is_set():
+                    return
+                try:
+                    if i + 1 < len(self.shards):
+                        loader.warm(_stream_only(self.shards[i + 1], loader._pinned))
+                    parts, hosts = loader.host_parts(idxs)
+                except Exception as e:  # every rank gets the error at this shard
+                    self._fail_all(e)
+                    return
+                for rank, dev in enumerate(self.devices):
+                    try:
+                        segments, event = loader.place_parts(parts, hosts, dev)
+                    except Exception as e:
+                        self._fail_all(e)
+                        return
+                    if not self._put(rank, (idxs, segments, event, dev)):
+                        return
+
+    def view(self, rank: int) -> "_BroadcastView":
+        """Rank ``rank``'s handle on one round of the stream."""
+        return _BroadcastView(self, rank)
+
+    def close(self) -> None:
+        """Stop the producer, drop every queued placement and retire the
+        loader's readahead pool."""
+        self._stop.set()
+        while self._thread.is_alive():
+            for q in self._queues:
+                try:
+                    q.get_nowait()
+                except Empty:
+                    pass
+            self._thread.join(timeout=0.1)
+        for q in self._queues:
+            while not q.empty():
+                q.get_nowait()
+        self._loader.close()
+
+
+class _BroadcastView:
+    """One rank's round of a :class:`BroadcastShardSource`, iterated as a
+    ``ShardWeightSource`` is. Its stats are the shared loader's: the disk is
+    read once for every rank (``load_time_shared``)."""
+
+    load_time_shared = True
+
+    def __init__(self, parent: BroadcastShardSource, rank: int):
+        self._parent = parent
+        self._rank = rank
+
+    @property
+    def load_time(self) -> float:
+        return self._parent.load_time
+
+    @property
+    def bytes_loaded(self) -> int:
+        return self._parent.bytes_loaded
+
+    @property
+    def retries(self) -> RetryRecorder:
+        return self._parent.retries
+
+    @property
+    def integrity(self) -> IntegrityRecorder:
+        return self._parent.integrity
+
+    def __iter__(self):
+        parent = self._parent
+        q = parent._queues[self._rank]
+        for idxs in parent.shards:
+            while True:
+                try:
+                    item = q.get(timeout=0.2)
+                    break
+                except Empty:
+                    if parent._stop.is_set():
+                        raise SourceClosed("broadcast weight source closed while streaming "
+                                           "(did another DP rank fail?)") from None
+            if isinstance(item, _Fault):
+                raise item.error
+            yield idxs, parent._loader._ready(item)
+
+    def close(self) -> None:
+        """The shared producer outlives a view: the orchestration closes it."""
+
+
 def layer_segments(placed: list[tuple[str, Any]]) -> Segments:
     """Placed ``(layer name, params)`` in layer order -> segments, with
     consecutive decoder layers in one ``decoders`` list."""
@@ -557,12 +768,18 @@ class StreamStats:
     crc verdict cache's ``crc_verdict_hits``/``crc_full_verifies`` when
     nonzero, and with a residency tier ``pinned_bytes`` (the tier's bytes
     on the device) with ``stream_bytes_saved``/``pin_hits`` when nonzero.
-    Baselines are taken before the source starts reading or pinning."""
+    Baselines are taken before the source starts reading or pinning. A
+    ``shared`` source (a DP rank's broadcast view) serves every rank at
+    once, so its process-wide deltas are not this call's: they are left
+    out."""
 
-    def __init__(self, cache: HostShardCache | None, tier=None, device=None):
+    def __init__(self, cache: HostShardCache | None, tier=None, device=None,
+                 shared: bool = False):
+        if shared:
+            cache = tier = None
         self.cache = cache
         self.cache_before = cache.stats() if cache is not None else None
-        self.verdict_before = integrity_manifest.verdict_stats()
+        self.verdict_before = None if shared else integrity_manifest.verdict_stats()
         self.tier = tier
         self.device = device
         self.tier_before = tier.stats() if tier is not None else None
@@ -583,11 +800,12 @@ class StreamStats:
             out["host_cache_misses"] = float(misses)
             if hits + misses:
                 out["host_cache_hit_rate"] = round(hits / (hits + misses), 4)
-        after = integrity_manifest.verdict_stats()
-        for key in ("verdict_hits", "full_verifies"):
-            delta = after[key] - self.verdict_before[key]
-            if delta:
-                out[f"crc_{key}"] = float(delta)
+        if self.verdict_before is not None:
+            after = integrity_manifest.verdict_stats()
+            for key in ("verdict_hits", "full_verifies"):
+                delta = after[key] - self.verdict_before[key]
+                if delta:
+                    out[f"crc_{key}"] = float(delta)
         if self.tier is not None:
             r_after = self.tier.stats()
             out["pinned_bytes"] = float(self.tier.pinned_device_bytes(self.device))
@@ -607,6 +825,15 @@ class StreamStats:
                 peak = max(peak or 0.0, pinned_gb)
         if peak is not None:
             stats["peak_mem_gb"] = peak
+
+
+def peak_over(devices, tier=None) -> float | None:
+    """``peak_mem_gb`` over several devices (each named once): the largest,
+    floored at the most bytes the residency tier pins on one of them."""
+    peaks = [p for p in map(peak_mem_gb, dict.fromkeys(devices)) if p is not None]
+    if tier is not None and tier.max_pinned_device_bytes():
+        peaks.append(tier.max_pinned_device_bytes() / 1e9)
+    return max(peaks) if peaks else None
 
 
 def block_meta(toks: list[TokenizedPrompt], idxs: list[int], device: torch.device):
@@ -738,19 +965,21 @@ def finalize_scores(scores: ScoreSink) -> None:
 def process_block(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments,
                   layer_idxs: tuple[int, ...], n_layers: int, store: ActivationStore,
                   b: int, idxs: list[int], meta, toks: list[TokenizedPrompt],
-                  scores: ScoreSink, fetched=None) -> None:
+                  scores: ScoreSink, fetched=None, device=None) -> None:
     """One shard over one block: fetch its activations (unless the shard
-    starts at the embedding, or ``fetched`` holds them: a recompute's), apply
-    the segments, hand any head scores to the sink (rows cut to the true
-    suffix count), and park the activations for the next shard. Prefix
-    states end at the last decoder layer (index n_layers-3)."""
+    starts at the embedding, or ``fetched`` holds them: a recompute's) onto
+    ``device`` (default: the store's; an MP stage's own), apply the
+    segments, hand any head scores to the sink (rows cut to the true suffix
+    count), and park the activations for the next shard. Prefix states end
+    at the last decoder layer (index n_layers-3)."""
     first, last = layer_idxs[0], layer_idxs[-1]
     if fetched is not None:
         prefix_h, suffix_h = fetched
     elif first == 0:
         prefix_h = suffix_h = None
     else:
-        prefix_h, suffix_h = store.fetch(b, idxs, with_prefix=first <= n_layers - 3)
+        prefix_h, suffix_h = store.fetch(b, idxs, with_prefix=first <= n_layers - 3,
+                                         device=device)
     prefix_h, suffix_h, block_scores = apply_segments(
         model_cfg, dtype, segments, prefix_h, suffix_h, meta, first_decoder(layer_idxs)
     )
@@ -761,17 +990,28 @@ def process_block(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments
 
 
 class StreamingExecutor:
-    """Single-device layer-streaming scorer.
+    """Layer-streaming scorer on one device: one device alone, or one DP
+    rank.
 
     ``__call__(prompts, batch)`` takes ``[(prefix_str, (suffix_str, ...)),
     ...]`` and the ``num_batch`` loop's batch index (which scopes the disk
     files and the resume marker) and returns one float32 ``[n_suffixes, 1,
     vocab]`` next-token distribution per prompt.
+
+    ``plan``: the shard plan (default: contiguous shards of
+    ``layer_num_per_shard``); it must cover every layer in order with no
+    empty shard (MP's stage plans run in ``runtime/pipeline.py``). A DP
+    rank's plan carries its rank, which tags its disk files and marker.
+    ``weight_source_factory``: each call takes its stream from it instead
+    of opening a ``ShardWeightSource`` (a DP rank's broadcast view); a
+    resumed rank then drops the shards it finished.
     """
 
     def __init__(self, cfg: FrameworkConfig, device: torch.device | None = None,
-                 tokenizer=None):
+                 tokenizer=None, *, plan: ShardPlan | None = None,
+                 weight_source_factory=None):
         self.cfg = cfg
+        self.weight_source_factory = weight_source_factory
         self.device = device if device is not None else resolve_device(cfg.device)
         self.model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
         self.dtype = cfg.torch_dtype
@@ -783,7 +1023,11 @@ class StreamingExecutor:
             tokenizer, max_token_len=cfg.max_token_len, bucket_multiple=cfg.bucket_multiple
         )
         self.layer_names = checkpoint.layer_names_for(self.model_cfg.num_hidden_layers)
-        self.plan = plan_shards_dp(len(self.layer_names), cfg.layer_num_per_shard)
+        self.plan = plan or plan_shards_dp(len(self.layer_names), cfg.layer_num_per_shard)
+        covered = [i for s in self.plan.shards for i in s]
+        if covered != list(range(len(self.layer_names))) or not all(self.plan.shards):
+            raise ValueError("StreamingExecutor needs a plan covering every layer in order with "
+                             "no empty shard (DP or one device); the MP pipeline runs stage plans")
         # The model directory's content, in the resume signature and marker.
         self._manifest_digest = integrity_manifest.manifest_digest(
             integrity_manifest.load_manifest(cfg.model_path) if cfg.verify_weights else None)
@@ -796,30 +1040,37 @@ class StreamingExecutor:
         return residency.tier_for(self.cfg, self.layer_names, self.model_cfg.tie_word_embeddings,
                                   self.device)
 
-    def weight_source(self, n_passes: int = 1,
-                      start: int = 0) -> tuple[ShardWeightSource, StreamStats]:
+    def weight_source(self, n_passes: int = 1, start: int = 0, shards=None,
+                      devices=None) -> tuple[ShardWeightSource, StreamStats]:
         """One source over ``n_passes`` passes of the shard list from shard
-        ``start`` (a resumed run's), on the process host cache and residency
+        ``start`` (a resumed run's) — or of ``shards`` on their ``devices``
+        (an MP decode's stages) — on the process host cache and residency
         tier, and the baselines of its stats."""
         cfg = self.cfg
         cache = cache_for(cfg)
         tier = self._residency
         stats = StreamStats(cache, tier, self.device)
+        shards = list(self.plan.shards[start:]) if shards is None else list(shards)
         source = ShardWeightSource(
-            cfg.model_path, self.layer_names, list(self.plan.shards[start:]) * n_passes,
+            cfg.model_path, self.layer_names, shards * n_passes,
             self.dtype, self.device, cfg.prefetch_depth, self.model_cfg.tie_word_embeddings,
             verify_weights=cfg.verify_weights, host_cache=cache,
             readahead_threads=cfg.readahead_threads, retry_policy=cfg.retry_policy(),
-            residency=tier,
+            residency=tier, devices=None if devices is None else list(devices) * n_passes,
         )
         return source, stats
 
-    def activation_store(self, source: ShardWeightSource, batch: int) -> ActivationStore:
+    def _rank_tag(self) -> bool:
+        """The reference tags disk files with the rank in DP mode only."""
+        return self.plan.num_devices > 1 and self.cfg.data_parallel
+
+    def activation_store(self, source, batch: int) -> ActivationStore:
         cfg = self.cfg
         return ActivationStore(
             cfg.storage_location, self.device, self.dtype, cfg.disk_folder,
             max_in_cpu=cfg.max_activation_in_cpu, batch=batch, integrity=source.integrity,
             retry_policy=cfg.retry_policy(), retry_recorder=source.retries,
+            device_rank=self.plan.device_rank, rank_tag=self._rank_tag(),
         )
 
     # -- disk-mode crash resume (runtime/resume.py) ---------------------------
@@ -830,7 +1081,8 @@ class StreamingExecutor:
                                          manifest_digest=self._manifest_digest)
 
     def _progress_path(self, sig: str, batch: int) -> str:
-        return resume.marker_path(self.cfg.disk_folder, sig, batch_tag(batch))
+        rank = self.plan.device_rank if self._rank_tag() else None
+        return resume.marker_path(self.cfg.disk_folder, sig, batch_tag(batch, rank))
 
     def _resume_start(self, marker: str, sig: str) -> int:
         """The first shard a run executes: 0, or with ``resume`` in disk mode
@@ -895,13 +1147,23 @@ class StreamingExecutor:
         marker = self._progress_path(sig, batch) if resumable else ""
         start = self._resume_start(marker, sig) if resumable else 0
         compute_time = source_wait = 0.0
-        source, host_stats = self.weight_source(start=start)
+        if self.weight_source_factory is None:
+            source, host_stats = self.weight_source(start=start)
+            skip = bytes_before = 0
+        else:
+            # A shared stream yields every shard: a resumed rank drops the
+            # ones it finished.
+            host_stats = StreamStats(None, device=self.device, shared=True)
+            source = self.weight_source_factory()
+            skip, bytes_before = start, source.bytes_loaded
         store = self.activation_store(source, batch)
         # Disk mode keeps the previous shard's weights one more shard, for
         # the recompute of a corrupt spill.
         prev_shard = None
         try:
             it = iter(source)
+            for _ in range(skip):
+                next(it)
             for shard_pos in range(start, n_shards):
                 t_wait = time.perf_counter()
                 layer_idxs, segments = next(it)
@@ -932,15 +1194,19 @@ class StreamingExecutor:
             "source_wait_s": source_wait,
             "total_wall_s": time.perf_counter() - t_start,
             "tokens_processed": float(sum(t.tokens_processed for t in toks)),
-            "streamed_bytes": float(source.bytes_loaded),
+            # A shared stream's bytes over this call's window, every rank's.
+            "streamed_bytes": float(source.bytes_loaded - bytes_before),
             **host_stats.read(source),
         }
+        if self.weight_source_factory is not None:
+            self.stats["load_time_shared"] = self.stats["streamed_bytes_shared"] = 1.0
         host_stats.read_peak(self.stats)
         self.stats_history.append(dict(self.stats))
         return [scores[i] for i in range(len(prompts))]
 
 
 __all__ = [
+    "BroadcastShardSource",
     "ScoreSink",
     "ShardWeightSource",
     "layer_segments",
@@ -954,6 +1220,7 @@ __all__ = [
     "finalize_scores",
     "first_decoder",
     "peak_mem_gb",
+    "peak_over",
     "process_block",
     "sync",
 ]

@@ -187,6 +187,13 @@ def placement_key(device) -> tuple:
     return ("device", dev.type, index)
 
 
+def probe_chip(target):
+    """The device whose memory a gate over ``target`` probes. A placement
+    target of the port is one device, its own probe (a JAX target may be a
+    mesh, whose first chip is probed)."""
+    return target
+
+
 def _tree_nbytes(tree) -> int:
     from flexible_llm_sharding_tpu_torch.runtime.hostcache import tree_nbytes
 
@@ -261,7 +268,7 @@ class DeviceResidencyTier:
             gate.wait()  # another caller loads it: re-check when it is done
         try:
             host = loader.build_host_shard((idx,))
-            placed = [(name, loader.place_layer(name, tree)) for name, tree in host]
+            placed = [(name, loader.place_layer(name, tree, device)) for name, tree in host]
         except Exception:
             # Never pin bytes that did not verify: stream this layer for good.
             with self._lock:
@@ -271,17 +278,56 @@ class DeviceResidencyTier:
             gate.set()
             raise
         with self._lock:
-            seats = self._placed.setdefault(key, {})
-            if seats.get(idx) is None:
-                seats[idx] = placed
-                self._host_nbytes.setdefault(idx, _tree_nbytes([t for _, t in host]))
-                self._dev_bytes[key] = (self._dev_bytes.get(key, 0)
-                                        + _tree_nbytes([t for _, t in placed]))
-                self.pin_loads += 1
-            placed = seats[idx]
+            placed = self._seat(key, idx, host, placed)
             self._inflight.pop((key, idx), None)
         gate.set()
         return placed
+
+    def _seat(self, key: tuple, idx: int, host, placed) -> list:
+        """Seat a placed pin under the lock; a pin seated first wins and
+        the duplicate is dropped, never counted twice."""
+        seats = self._placed.setdefault(key, {})
+        if seats.get(idx) is None:
+            seats[idx] = placed
+            self._host_nbytes.setdefault(idx, _tree_nbytes([t for _, t in host]))
+            self._dev_bytes[key] = self._dev_bytes.get(key, 0) + _tree_nbytes(
+                [t for _, t in placed])
+            self.pin_loads += 1
+        return seats[idx]
+
+    def pin_from_host(self, idx: int, device, host, loader) -> None:
+        """Seat an already built, verified host tree as ``idx``'s pin on
+        ``device`` (the broadcast pre-pin's read-once path)."""
+        key = placement_key(device)
+        with self._lock:
+            if self._placed.setdefault(key, {}).get(idx) is not None:
+                return
+        placed = [(name, loader.place_layer(name, tree, device)) for name, tree in host]
+        with self._lock:
+            self._seat(key, idx, host, placed)
+
+    def ensure_pinned_broadcast(self, loader, devices, layer_idxs) -> None:
+        """Pin the planned layers among ``layer_idxs`` on every DP device
+        with one host build per layer (``ensure_pinned`` per device would
+        read and check each pinned file once per device). A failed build or
+        placement demotes the layer, which then streams everywhere."""
+        for i in layer_idxs:
+            if not self.is_pinned(i):
+                continue
+            with self._lock:
+                missing = list({placement_key(d): d for d in devices
+                                if self._placed.get(placement_key(d), {}).get(i) is None
+                                }.values())
+            if not missing:
+                continue
+            try:
+                host = loader.build_host_shard((i,))
+                for d in missing:
+                    self.pin_from_host(i, d, host, loader)
+            except Exception:  # never pin unverified bytes: stream this layer for good
+                with self._lock:
+                    self._failed.add(i)
+                    self.pin_failures += 1
 
     def ensure_pinned(self, loader, device, layer_idxs) -> None:
         """Pin the planned layers among ``layer_idxs`` now; a failure has
@@ -306,6 +352,12 @@ class DeviceResidencyTier:
         """Bytes pinned on one placement target (the peak memory floor)."""
         with self._lock:
             return self._dev_bytes.get(placement_key(device), 0)
+
+    def max_pinned_device_bytes(self) -> int:
+        """The most bytes pinned on any one placement target (the stats'
+        ``pinned_bytes`` sums every target)."""
+        with self._lock:
+            return max(self._dev_bytes.values(), default=0)
 
     def stats(self) -> dict[str, float]:
         with self._lock:
@@ -451,6 +503,7 @@ __all__ = [
     "placement_key",
     "plan_report",
     "plan_residency",
+    "probe_chip",
     "process_tier",
     "reset_process_tier",
     "tier_for",

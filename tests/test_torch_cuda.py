@@ -1228,3 +1228,105 @@ def test_a_fresh_thread_launches_each_kernel(gen, kernel):
     t.join(120)
     assert not t.is_alive() and "err" not in out, out.get("err")
     assert torch.equal(out["got"], want)
+
+
+# -- the multi-device modes over one card ---------------------------------------
+
+def _md_cfg(model_dir, tmp_path, **kw):
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+
+    return FrameworkConfig(model_path=model_dir, dtype="bfloat16", block_size=2, device="cuda",
+                           disk_folder=str(tmp_path / "acts"), **kw)
+
+
+def _md_run(cfg, devices, kv=False):
+    """(scores, updated, the entry point's stats dicts, launch counts)."""
+    from flexible_llm_sharding_tpu_torch.runtime import hostcache, orchestration
+
+    hostcache.reset_process_cache()
+    fa.reset_launch_counts()
+    calls = []
+    if kv:
+        scores, updated, _ = orchestration.run_decode(cfg, _DECODE_PROMPTS,
+                                                      tokenizer=_WordTokenizer(),
+                                                      devices=devices, calls=calls)
+    else:
+        scores = orchestration.run_prompts(cfg, _DECODE_PROMPTS, tokenizer=_WordTokenizer(),
+                                           devices=devices, calls=calls)
+        updated = None
+    torch.cuda.synchronize()
+    return scores, updated, calls, fa.launch_counts()
+
+
+def _bit_equal(got, want):
+    assert len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_mp_over_one_card_equals_one_device(gen, tmp_path):
+    """The interleaved pipeline over [cuda:0] * 4 (6 execution layers in 8
+    stages, 2 of them padding): scoring in each storage location and KV
+    decode equal the single-device run bit for bit, launching the kernels."""
+    model_dir = _decode_model(tmp_path, "llama")
+    card = torch.device("cuda", 0)
+    cfg = _md_cfg(model_dir, tmp_path, num_batch=2)
+    want, _, want_calls, _ = _md_run(cfg, [card])
+    for storage in ("gpu", "cpu", "disk"):
+        got, _, calls, counts = _md_run(_md_cfg(model_dir, tmp_path, num_batch=2,
+                                                storage_location=storage), [card] * 4)
+        _bit_equal(got, want)
+        assert calls[0]["num_stages"] == 8.0
+        assert sum(c["streamed_bytes"] for c in calls) == sum(
+            c["streamed_bytes"] for c in want_calls)
+        assert counts["flash_causal_attention"] and counts["flash_prefix_shared_attention"]
+    kv = _md_cfg(model_dir, tmp_path, kv_cache=True, num_gen_token=5)
+    want, want_up, _, _ = _md_run(kv, [card], kv=True)
+    got, got_up, calls, counts = _md_run(kv, [card] * 4, kv=True)
+    assert got_up == want_up
+    _bit_equal(got, want)
+    assert calls[0]["decode_resident"] == 1 and calls[0]["decode_fused"] == 0
+    assert all(counts.values()), counts
+
+
+def test_dp_two_threads_on_one_card_equal_one_device(gen, tmp_path):
+    """Two DP ranks, each its own thread, on cuda:0: scoring and KV decode
+    (resident, every block's steps one CUDA graph captured on its rank's
+    thread while the other rank runs) equal the single-device run bit for
+    bit (the ranks' blocks are the single run's), stream its bytes, and
+    launch every kernel."""
+    model_dir = _decode_model(tmp_path, "llama")
+    card = torch.device("cuda", 0)
+    cfg = _md_cfg(model_dir, tmp_path, num_batch=2)
+    want, _, want_calls, _ = _md_run(cfg, [card])
+    got, _, calls, counts = _md_run(_md_cfg(model_dir, tmp_path, num_batch=2,
+                                            data_parallel=True), [card] * 2)
+    _bit_equal(got, want)
+    assert calls[0]["streamed_bytes"] == sum(c["streamed_bytes"] for c in want_calls)
+    assert counts["flash_causal_attention"] and counts["flash_prefix_shared_attention"]
+    kv = _md_cfg(model_dir, tmp_path, kv_cache=True, num_gen_token=5)
+    want, want_up, want_calls, want_counts = _md_run(kv, [card], kv=True)
+    for _ in range(3):  # the two captures race differently each time
+        got, got_up, calls, counts = _md_run(
+            _md_cfg(model_dir, tmp_path, kv_cache=True, num_gen_token=5, data_parallel=True),
+            [card] * 2, kv=True)
+        assert got_up == want_up
+        _bit_equal(got, want)
+        assert calls[0]["decode_graph"] == 1 and calls[0]["decode_fused"] == 1
+        assert calls[0]["streamed_bytes"] == want_calls[0]["streamed_bytes"]
+        assert counts == want_counts
+
+
+def test_a_fresh_process_reads_an_indexed_cards_memory_stats(gen):
+    """``resolve_device`` initialises the runtime, so a fresh process (a CLI
+    run) can reset an indexed card's peak memory before its first kernel:
+    on an uninitialised runtime ``reset_peak_memory_stats(cuda:0)`` raises
+    "Invalid device argument"."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from flexible_llm_sharding_tpu_torch.config import resolve_device\n"
+            "torch.cuda.reset_peak_memory_stats(resolve_device('cuda:0'))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]

@@ -181,11 +181,12 @@ def test_num_batch_batches_keep_their_own_markers(model_dir, tmp_path, monkeypat
     assert marker.endswith(".b1.json")
     assert glob.glob(os.path.join(str(disk), "suffix-*.npy"))
     assert glob.glob(os.path.join(str(disk), "suffix.b1-*.npy"))
-    ex = StreamingExecutor(dataclasses.replace(cfg, resume=True), tokenizer=_Vocab256())
     hostcache.reset_process_cache()
-    got = run_prompts(ex.cfg, prompts, executor=ex)
+    calls = []
+    got = run_prompts(dataclasses.replace(cfg, resume=True), prompts, tokenizer=_Vocab256(),
+                      calls=calls)
     _assert_bit_equal(got, want)
-    first, second = ex.stats_history
+    first, second = calls
     assert first["streamed_bytes"] == _shard_bytes(model_dir, 0)
     assert second["streamed_bytes"] == _shard_bytes(model_dir, 3)
     assert _marker(disk) is None

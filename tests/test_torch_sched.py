@@ -15,6 +15,7 @@
   replica fleet's router reads).
 """
 
+import threading
 import time
 from collections import deque
 
@@ -331,6 +332,22 @@ def _wait_prefills(engine, n=1):
         time.sleep(0.002)
 
 
+def _hold_after_first_prefill(engine) -> threading.Event:
+    """Keep the engine's loop at the end of its first prefill sweep until
+    the returned event is set, so the requests a test submits next are
+    queued before the next boundary, not raced against the running waves."""
+    gate = threading.Event()
+    real = engine._post_sweep
+
+    def post_sweep(wall):
+        real(wall)
+        if engine.metrics.counter("prefills") >= 1:
+            gate.wait(timeout=120)
+
+    engine._post_sweep = post_sweep
+    return gate
+
+
 def test_single_tenant_parity_matches_jax(model_dir):
     """Scheduling changes when, never what: a scheduled single-tenant run is
     bit-equal to the default engine's on the port, and equal to JAX's."""
@@ -382,14 +399,17 @@ def test_coalesced_wave_matches_jax_and_oracle(model_dir, pool):
 
 
 def _preempt_run(model_dir, side, n_long):
-    engine = _engine(model_dir, side, max_wave_requests=1, max_active_requests=1,
+    engine = _engine(model_dir, side, start=False, max_wave_requests=1, max_active_requests=1,
                      default_max_new_tokens=N_GEN, sched={"enabled": True})
+    held = _hold_after_first_prefill(engine)
+    engine.start()
     try:
         victim = engine.submit(*PROMPTS[0], max_new_tokens=n_long, slo_class="best_effort",
                                tenant_id="batch")
         _wait_prefills(engine)
         urgent = engine.submit(*PROMPTS[1], max_new_tokens=1, slo_class="interactive",
                                tenant_id="live")
+        held.set()
         urgent_res = urgent.future.result(timeout=120)
         victim_res = victim.future.result(timeout=120)
     finally:
@@ -423,14 +443,18 @@ def test_starvation_bounded_and_backlog_completes(model_dir):
     o_scores, _ = _oracle(model_dir, PROMPTS, be_tokens)
     out = {}
     for side in ("port", "jax"):
-        engine = _engine(model_dir, side, max_wave_requests=1, max_active_requests=1,
-                         default_max_new_tokens=N_GEN, sched={"enabled": True})
+        engine = _engine(model_dir, side, start=False, max_wave_requests=1,
+                         max_active_requests=1, default_max_new_tokens=N_GEN,
+                         sched={"enabled": True})
+        held = _hold_after_first_prefill(engine)
+        engine.start()
         try:
             be = [engine.submit(p, s, max_new_tokens=be_tokens, slo_class="best_effort",
                                 tenant_id="batch") for p, s in PROMPTS]
             _wait_prefills(engine)
             ia = [engine.submit(p, s, max_new_tokens=1, slo_class="interactive",
                                 tenant_id="live") for p, s in PROMPTS[:2]]
+            held.set()
             ia_res = [r.future.result(timeout=120) for r in ia]
             be_res = [r.future.result(timeout=120) for r in be]
         finally:

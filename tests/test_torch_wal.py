@@ -24,6 +24,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import jax
@@ -404,6 +405,22 @@ def _hold_after_first_prefill(engine):
     engine._post_sweep = post_sweep
 
 
+def _hold_admission(engine) -> threading.Event:
+    """Keep the engine's loop from admitting a wave until the returned event
+    is set: ``recovery.replay`` submits one request at a time into a running
+    loop, so without the hold the loop may prefill the first replayed
+    request before a later, higher-priority one is queued."""
+    gate = threading.Event()
+    real = engine.batcher.admit_at_boundary
+
+    def admit():
+        gate.wait(timeout=60)
+        return real()
+
+    engine.batcher.admit_at_boundary = admit
+    return gate
+
+
 def _wait_prefilled(engine):
     deadline = time.monotonic() + 60
     while engine.metrics.counter("prefills") < 1:
@@ -430,8 +447,9 @@ def test_second_restart_keeps_each_requests_exported_kv(model_dir, offline, tmp_
                             sched=SchedConfig(enabled=True, preempt=False))
     slo = {1: "interactive"}
 
-    def engine():
-        e = ServeEngine(cfg, serve_cfg, tokenizer=_Vocab256(), device=torch.device("cpu"))
+    def engine(start=True):
+        e = ServeEngine(cfg, serve_cfg, tokenizer=_Vocab256(), device=torch.device("cpu"),
+                        start=start)
         _hold_after_first_prefill(e)
         return e
 
@@ -445,8 +463,13 @@ def test_second_restart_keeps_each_requests_exported_kv(model_dir, offline, tmp_
     first._wal.close()
     kvpool.reset_process_pools()
 
-    second = engine()
-    summary = recovery.replay(second, second._wal)
+    second = engine(start=False)
+    admitting = _hold_admission(second)
+    second.start()  # the replay below submits into a running loop
+    try:
+        summary = recovery.replay(second, second._wal)
+    finally:
+        admitting.set()
     assert summary["replayed"] == len(PROMPTS) and summary["kv_restored"] == 1
     _wait_prefilled(second)
     assert second.shutdown_for_restart(timeout=60) and second.error is None
