@@ -265,18 +265,38 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              threads on one broadcast read; tokens equal, scores within
              1e-4, streamed bytes equal); with several cards, the same over
              them. Each run prints its wall, streamed bytes and launches.
+   pressure — right after multidevice, on the same cell (the
+             ``llama2_7b_pressure`` path): the batch CLI under --chaos at
+             the loader and upload sites (shard_read, device_put, host_oom,
+             corrupt_shard, link_throttle; a seed under which each injects
+             in the first pass) with the ladder on, scoring and --kv_cache,
+             and in disk mode under disk_full and corrupt_activation: the
+             cell's clean scores and tokens bit for bit, every site's faults,
+             retries and heals above 0, and the card's allocated memory after
+             each run equal to before it; a serving engine under
+             engine_step and queue_admission, resubmitting what a fault
+             rejected or aborted: the serve phase's default tokens, the
+             rejections typed, no memory left after its shutdown; the
+             brownout ladder (--pressure, polled every 50 ms): an engine at
+             --hbm_pin_gb auto streaming pinned layers serves the 8 prompts,
+             then an engine with one host_oom fault walks the ladder to
+             shed (a submit meanwhile gets Overloaded with its retry-after),
+             drops the pins (the allocated memory falls by at least their
+             bytes), steps back to level 0 and serves on, every token the
+             default engine's; and one pressure sample from a fresh thread
+             reads the card's free share.
 6. host    — a reduced bf16 checkpoint through the CLI on the card: the
              defaults give the scores of --host_cache_gb 0 --verify_weights
              false --readahead_threads 0 bit for bit; after one flipped
              byte, a warm process raises ShardCorruptError, a fresh CLI
              process exits nonzero naming it, and ``verify`` exits 2.
 
-7. decode  — Llama-2-7B at its full 32 layers (13.5 GB of seeded bf16,
+7. decode  — Llama-2-7B at 12 of its 32 layers (5.4 GB of seeded bf16,
              written one layer file at a time), --kv_cache with 8 tokens,
              three runs: the defaults (resident, one CUDA graph per block),
              --decode_fused off and --decode_resident off; prints each
              run's wall and stats and requires equal tokens. Then scoring
-             with --num_gen_token 4 at --hbm_pin_gb 0, 6 and auto: scores
+             with --num_gen_token 4 at --hbm_pin_gb 0, 3 and auto: scores
              equal bit for bit, streamed bytes lower by the pinned bytes on
              every pass after the first, auto pinning every layer; prints
              each run's pinned and streamed bytes and wall.
@@ -1348,10 +1368,11 @@ def fresh_process_state() -> None:
 
     from flexible_llm_sharding_tpu_torch.adapters import loader
     from flexible_llm_sharding_tpu_torch.integrity import manifest
-    from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, residency
+    from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, pressure, residency
     from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib
 
     before = host_rss_gib().get("rss")
+    pressure.reset_process_pressure()
     loader.reset_process_store()
     hostcache.reset_process_cache()
     residency.reset_process_tier()
@@ -3258,6 +3279,29 @@ def first_kill_seed(n: int, rate: float) -> int:
     fail(f"no chaos seed fires first at draw {n}")
 
 
+def settled_allocated() -> tuple[int, int]:
+    """``torch.cuda.memory_allocated()`` as first read, then with PyTorch's
+    per-handle cuBLAS workspaces freed (32 MiB for each thread handle in use
+    at once, which a new engine thread can add and no engine owns), once two
+    reads 0.1 s apart agree: an engine thread can still hold its last
+    sweep's tensors for a moment after its waves retire."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    raw, last = torch.cuda.memory_allocated(), None
+    for _ in range(50):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        now = torch.cuda.memory_allocated()
+        if now == last:
+            break
+        last = now
+        time.sleep(0.1)
+    return raw, now
+
+
 def device_bytes(tree) -> int:
     """Bytes of the CUDA storages behind the tensors in ``tree`` (nested
     dicts, lists and tuples), each storage once."""
@@ -3345,7 +3389,6 @@ def phase_fleet(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str,
     against the serve phase's default engine (``default``: its scores,
     updated prompts and stats). Returns the kernel launches of the
     ``llama2_7b_serve_fleet`` path."""
-    import gc
     import threading
 
     from flexible_llm_sharding_tpu_torch.config import (
@@ -3495,40 +3538,20 @@ def phase_fleet(work: str, model_dir: str, cfg, prompts, n_gen: int, smi: str,
     kill_rate = 0.02
     kill_seed = first_kill_seed(3 * n_shards * 5 + 1, kill_rate)
 
-    def allocated() -> tuple[int, int]:
-        # (as first read, then with PyTorch's per-handle cuBLAS workspaces
-        # freed: 32 MiB for each thread handle in use at once, which a new
-        # engine thread can add and no engine owns, once two reads 0.1 s
-        # apart agree: an engine thread can still hold its last sweep's
-        # tensors for a moment after its waves retire).
-        gc.collect()
-        torch.cuda.synchronize()
-        raw, last = torch.cuda.memory_allocated(), None
-        for _ in range(50):
-            gc.collect()
-            torch.cuda.synchronize()
-            torch._C._cuda_clearCublasWorkspaces()
-            now = torch.cuda.memory_allocated()
-            if now == last:
-                break
-            last = now
-            time.sleep(0.1)
-        return raw, now
-
     fleet = mk_fleet(replicas=3, faults=FaultConfig(enabled=True, seed=kill_seed,
                                                     error_rate=kill_rate,
                                                     sites=("replica_kill",), max_faults=1))
     kill = watch_kill(fleet)
     try:
         wait_for("the clean fleet's weights", lambda: ready(fleet))
-        clean_raw, clean = allocated()
+        clean_raw, clean = settled_allocated()
         rss_clean = host_rss_gib().get("rss")
         reqs, wall, counts, gap = served_in_process("fleet_kill_memory", fleet, range(n),
                                                     wait_ready=False)
         peak = torch.cuda.max_memory_allocated()
         wait_for("the recycled replica", lambda: fleet.metrics.counter("replicas_recycled") == 1
                  and ready(fleet) and idle(fleet))
-        after_raw, after = allocated()
+        after_raw, after = settled_allocated()
         rss_after = host_rss_gib().get("rss")
         stats = fleet.stats()
     finally:
@@ -3794,6 +3817,332 @@ def phase_multidevice(work: str, model_dir: str, cfg, prompts, n_gen_kv: int, sm
     return paths
 
 
+# The brownout phase's ladder: polled every 50 ms; a threshold of 0 turns a
+# signal off, so the injected host_oom is what moves the ladder.
+PRESSURE_FLAGS = ["--pressure", "--pressure_poll_s", "0.05", "--pressure_host_min_gb", "0",
+                  "--pressure_disk_min_gb", "0", "--pressure_hbm_headroom_frac", "0"]
+# The loader and upload sites of the batch chaos runs.
+BATCH_SITES = ("shard_read", "device_put", "host_oom", "corrupt_shard", "link_throttle")
+
+
+def chaos_seed(want: dict[str, tuple[int, int, int]], rate: float) -> int:
+    """A chaos seed under which, for each site of ``want`` (``(n, lo,
+    hi)``), between lo and hi of its first n draws inject at ``rate`` (the
+    injector's SHA-256 unit per draw)."""
+    from flexible_llm_sharding_tpu_torch.faults.retry import hash_unit
+
+    for seed in range(1_000_000):
+        if all(lo <= sum(hash_unit(f"{seed}:{site}:{i}") < rate for i in range(n)) <= hi
+               for site, (n, lo, hi) in want.items()):
+            return seed
+    fail(f"no chaos seed injects as {want} at rate {rate}")
+
+
+def phase_pressure(work: str, model_dir: str, cfg, prompts, llama_runs: dict, serve_ref: tuple,
+                   n_gen_loop: int, n_gen_kv: int, smi: str) -> dict:
+    """Faults and the brownout ladder on the 4-layer Llama-2-7B cell (the
+    ``llama2_7b_pressure`` path), bf16, one layer per shard, blocks of 2:
+
+    (a) the batch CLI under chaos at the loader and upload sites
+        (``BATCH_SITES``, a seed under which each injects in the first
+        pass; the ladder on for scoring): scoring x ``n_gen_loop`` and
+        --kv_cache with ``n_gen_kv``, each bit-equal to the cell's clean
+        run, with retries, re-read heals and every site's faults above 0,
+        and the card's allocated memory after the run equal to before it;
+    (b) scoring of 2 positions in disk mode under ``disk_full`` and
+        ``corrupt_activation``: the clean run's first 2 bit for bit, spill
+        retries and heals counted, no memory left behind;
+    (c) a serving engine at the serve CLI's defaults under ``engine_step``
+        and ``queue_admission``: a rejected submit is resubmitted, a
+        request of an aborted wave too; every request's tokens equal the
+        serve phase's default engine's, the rejections typed, and the
+        memory after shutdown equal to before;
+    (d) the ladder: an engine streaming at ``--hbm_pin_gb auto`` (every
+        layer pinned) serves the 8 prompts (the default engine's tokens);
+        then an engine under a ``host_oom`` outage of one fault, which
+        walks the ladder to ``shed``: a submit meanwhile gets a typed
+        ``Overloaded`` with its retry-after, the pins are dropped (the
+        card's allocated memory falls by at least their bytes), the ladder
+        steps back to level 0, and the requests served on both sides of it
+        have the default engine's tokens;
+    (e) one ``PressureMonitor.sample()`` from a fresh thread reads the
+        card's free share.
+
+    Every kernel must launch in (a), (c) and (d). Returns the phase's
+    launches."""
+    import threading
+
+    from flexible_llm_sharding_tpu_torch.config import (
+        FaultConfig,
+        FrameworkConfig,
+        PressureConfig,
+        ServeConfig,
+    )
+    from flexible_llm_sharding_tpu_torch.faults.inject import InjectedFault
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.runtime import pressure, residency
+    from flexible_llm_sharding_tpu_torch.serve import Overloaded, ServeEngine, WaveAborted
+    from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib
+
+    t_phase = time.perf_counter()
+    path: dict = {}
+    common = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda",
+              "--io_retry_attempts", "8", "--io_retry_base_s", "0.001"]
+    scoring = ("flash_causal_attention", "flash_prefix_shared_attention")
+
+    def launched(tag, needed) -> dict:
+        counts = fa.launch_counts()
+        if any(counts[k] == 0 for k in needed):
+            fail(f"pressure {tag}: a kernel of the path never launched: {counts}")
+        _add_launches(path, {k: {"launches": counts[k], "local_launches": 0} for k in counts})
+        return counts
+
+    def same(a, b) -> bool:
+        return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    # (a), (b): the batch CLI under chaos, against the cell's clean runs.
+    rate = 0.1
+    seed = chaos_seed({site: (7, 1, 7) for site in BATCH_SITES}, rate)
+    batch_runs = [
+        ("scoring", ["--num_gen_token", str(n_gen_loop), *PRESSURE_FLAGS], BATCH_SITES, scoring,
+         llama_runs["scoring"]),
+        ("kv_cache", ["--num_gen_token", str(n_gen_kv), "--kv_cache", "true"], BATCH_SITES,
+         fa.KERNELS, llama_runs["kv_cache"]),
+        # Two positions: a pass writes and reads every spill (fsynced).
+        ("disk", ["--num_gen_token", "2", "--storage_location", "disk"],
+         ("disk_full", "corrupt_activation"), scoring, llama_runs["scoring"]),
+    ]
+    for tag, extra, sites, needed, (ref, ref_up, _) in batch_runs:
+        fresh_process_state()
+        _, before = settled_allocated()
+        rss_before = host_rss_gib().get("rss")
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        scores, updated, stats = run_cli(
+            model_dir, work, f"pressure_{tag}", prompts,
+            [*common, *extra, "--chaos", "--chaos_seed", str(seed), "--chaos_error_rate",
+             str(rate), "--chaos_sites", ",".join(sites), "--chaos_max_faults", "20"],
+            cfg.vocab_size)
+        wall = time.perf_counter() - t0
+        counts = launched(tag, needed)
+        ladder = stats.get("pressure")
+        pressure.reset_process_pressure()
+        _, after = settled_allocated()
+        faults = {k: v for k, v in stats["chaos_faults"].items() if v}
+        heals = stats.get("reread_heals", 0) + stats.get("recomputes", 0)
+        line = {"wall_s": wall, "io_retries": stats.get("io_retries"),
+                "reread_heals": stats.get("reread_heals"), "recomputes": stats.get("recomputes"),
+                "integrity_failures": stats.get("integrity_failures"), "faults": faults,
+                "allocated_before": before, "allocated_after": after,
+                "host_rss_gib": [rss_before, host_rss_gib().get("rss")], "kernels": counts}
+        if ladder is not None:
+            line["ladder"] = {k: ladder[k] for k in ("level", "steps_up", "steps_down",
+                                                      "host_oom_events")}
+        log(f"[pressure] {tag} chaos {','.join(sites)} seed {seed} | {smi} | "
+            + json.dumps(line))
+        n = scores[0].shape[1]
+        if not same(scores, [r[:, :n] for r in ref]) or (n == ref[0].shape[1]
+                                                         and updated != ref_up):
+            fail(f"pressure {tag}: the chaos run's scores or tokens differ from the clean run's")
+        if any(faults.get(site, 0) == 0 for site in sites) or set(faults) - set(sites):
+            fail(f"pressure {tag}: faults injected {faults}, sites {sites}")
+        if not stats.get("io_retries") or not heals:
+            fail(f"pressure {tag}: io_retries {stats.get('io_retries')}, heals {heals}")
+        if after != before:
+            fail(f"pressure {tag}: {after - before} bytes allocated on the card after the run")
+        if ladder is not None and (ladder["host_oom_events"] != faults["host_oom"]
+                                   or ladder["steps_up"] < 6):
+            fail(f"pressure {tag}: the batch run's ladder {ladder} against {faults}")
+        log(f"[pressure] {tag}: the clean run's scores and tokens bit for bit, every site "
+            "injected, retries and heals counted, no memory left on the card")
+
+    def serve_cfg_for(**kw):
+        return FrameworkConfig(model_path=model_dir, dtype="bfloat16", layer_num_per_shard=1,
+                               block_size=2, device="cuda", io_retry_attempts=8,
+                               io_retry_base_s=0.001,
+                               disk_folder=os.path.join(work, "pressure_serve"), **kw)
+
+    def engine(fw) -> ServeEngine:
+        return ServeEngine(fw, ServeConfig(max_wave_requests=2, default_max_new_tokens=n_gen_kv,
+                                           stats_interval_s=0),
+                           tokenizer=BenchTokenizer(cfg.vocab_size),
+                           device=torch.device("cuda", 0), start=False)
+
+    def submit(eng, i, rejected: list, n_new=None):
+        """Prompt ``i``, resubmitted while an injected fault rejects it."""
+        while True:
+            req = eng.submit(*prompts[i], max_new_tokens=n_new)
+            err = req.future.exception(timeout=0) if req.status.terminal else None
+            if not isinstance(err, InjectedFault):
+                return req
+            rejected.append(str(err))
+
+    ref_scores = serve_ref[0]
+
+    def check_tokens(tag, results: dict) -> float:
+        """``results``: prompt index -> result, whose tokens must be the
+        default engine's (its first n where n were asked for); returns the
+        largest score difference."""
+        worst = 0.0
+        for i, res in results.items():
+            want = ref_scores[i][:, :res.scores.shape[1]]
+            if not np.array_equal(res.scores.argmax(-1), want.argmax(-1)):
+                fail(f"pressure {tag}: prompt {i}'s tokens differ from the default engine's")
+            worst = max(worst, float(np.abs(res.scores - want).max()))
+        return worst
+
+    # (c) engine_step and queue_admission chaos on the default engine.
+    fresh_process_state()
+    _, before = settled_allocated()
+    rate_c = 0.2
+    # One admission rejection among the 8 submits and its resubmit, so the
+    # shared budget leaves engine_step its faults.
+    seed_c = chaos_seed({"queue_admission": (9, 1, 1), "engine_step": (7, 1, 7)}, rate_c)
+    eng = engine(serve_cfg_for(faults=FaultConfig(
+        enabled=True, seed=seed_c, error_rate=rate_c, sites=("engine_step", "queue_admission"),
+        max_faults=4)))
+    rejected: list = []
+    aborted: list = []
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        reqs = {i: submit(eng, i, rejected) for i in range(len(prompts))}
+        eng.start()
+        results = {}
+        while reqs:
+            i, req = next(iter(reqs.items()))
+            err = req.future.exception(timeout=600)
+            if err is None:
+                results[i] = reqs.pop(i).future.result()
+            elif isinstance(err, WaveAborted) and isinstance(err.__cause__, InjectedFault):
+                aborted.append(str(err.__cause__))
+                reqs[i] = submit(eng, i, rejected)
+            else:
+                fail(f"pressure serve_chaos: prompt {i} failed: {err!r}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launched("serve_chaos", fa.KERNELS)
+        stats = eng.stats()
+    finally:
+        eng.shutdown(drain=True)
+    if eng.error is not None:
+        fail(f"pressure serve_chaos: the engine failed: {eng.error!r}")
+    worst = check_tokens("serve_chaos", results)
+    del eng
+    _, after = settled_allocated()
+    log(f"[pressure] serve_chaos engine_step,queue_admission seed {seed_c} | {smi} | " + json.dumps(
+        {"wall_s": wall, "rejected_at_admission": len(rejected), "waves_aborted":
+         stats.get("waves_aborted"), "engine_recoveries": stats.get("engine_recoveries"),
+         "requests_aborted": len(aborted), "completed": stats["completed"],
+         "largest_score_difference": worst, "allocated_before": before, "allocated_after": after,
+         "kernels": counts}))
+    if not rejected or not aborted or not all("queue_admission" in r for r in rejected):
+        fail(f"pressure serve_chaos: {len(rejected)} typed admission rejections, {len(aborted)} "
+             "requests of aborted waves: both sites must have struck")
+    if after != before:
+        fail(f"pressure serve_chaos: {after - before} bytes left on the card after the recoveries")
+    log("[pressure] serve_chaos: every request's tokens the default engine's, rejections typed, "
+        "no memory left on the card")
+
+    # (d) the ladder on a streaming engine's pins.
+    fresh_process_state()
+    pcfg = PressureConfig(enabled=True, poll_s=0.05, host_min_gb=0.0, disk_min_gb=0.0,
+                          hbm_headroom_frac=0.0, shed_retry_after_s=0.5, step_down_polls=16)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    pinned_eng = engine(serve_cfg_for(decode_resident="off", hbm_pin_gb=None, pressure=pcfg))
+    ctrl, tier = pressure.process_controller(), residency.process_tier()
+    if ctrl is None or tier is None:
+        fail("pressure ladder: no process controller or no residency tier at --hbm_pin_gb auto")
+    try:
+        reqs = {i: pinned_eng.submit(*prompts[i]) for i in range(len(prompts))}
+        pinned_eng.start()
+        first = {i: r.future.result(timeout=600) for i, r in reqs.items()}
+    finally:
+        pinned_eng.shutdown(drain=True)
+    worst = check_tokens("ladder_pinned", first)
+    held = tier.stats()
+    del pinned_eng
+    _, with_pins = settled_allocated()
+    # The outage: one host_oom at the next engine's first read. It streams
+    # every layer (auto pins are off under chaos), and with prefetch 0 an
+    # idle engine holds no shard. Its pool drops its pages at kv_evict
+    # (spilling them would fsync 2112 page files from the monitor's thread).
+    eng = engine(serve_cfg_for(decode_resident="off", hbm_pin_gb=None, prefetch_depth=0,
+                               kv_host_spill=False, pressure=pcfg, faults=FaultConfig(
+                                   enabled=True, error_rate=1.0, sites=("host_oom",),
+                                   max_faults=1)))
+    try:
+        trigger = eng.submit(*prompts[0], max_new_tokens=1)
+        eng.start()
+        deadline = time.monotonic() + 60
+        while not eng.queue.shedding and time.monotonic() < deadline:
+            time.sleep(0.001)
+        shed = eng.submit(*prompts[1], max_new_tokens=1).future.exception(timeout=10)
+        second = {0: trigger.future.result(timeout=600)}
+        while eng.batcher.waves and time.monotonic() < deadline:
+            time.sleep(0.01)
+        _, unpinned = settled_allocated()
+        # The ladder may have stepped below pin_evict by now: nothing reloads
+        # the pins (the chaos engine streams), so the drop holds.
+        evicted, seated, level_at_read = (ctrl.stats()["pin_evictions"],
+                                          tier.stats()["pinned_bytes"], ctrl.level)
+        while ctrl.level > 0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        later = {i: eng.submit(*prompts[i], max_new_tokens=1) for i in (2, 3)}
+        second.update({i: r.future.result(timeout=600) for i, r in later.items()})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launched("ladder", fa.KERNELS)
+        stats = eng.stats()
+    finally:
+        eng.shutdown(drain=True)
+    if eng.error is not None:
+        fail(f"pressure ladder: the engine failed: {eng.error!r}")
+    worst = max(worst, check_tokens("ladder", second))
+    ladder = ctrl.stats()
+    log(f"[pressure] ladder | {smi} | " + json.dumps(
+        {"wall_s": wall, "pinned_bytes": held["pinned_bytes"], "pinned_layers":
+         held["pinned_layers"], "allocated_with_pins": with_pins, "allocated_unpinned": unpinned,
+         "level_when_read": level_at_read, "shed": repr(shed), "ladder": ladder,
+         "served": stats["completed"], "largest_score_difference": worst, "kernels": counts}))
+    if not isinstance(shed, Overloaded) or shed.retry_after_s != pcfg.shed_retry_after_s:
+        fail(f"pressure ladder: a submit while shedding got {shed!r}, not Overloaded with a "
+             f"{pcfg.shed_retry_after_s} s retry-after")
+    if evicted != held["planned_layers"] or seated:
+        fail(f"pressure ladder: {evicted} pins evicted and {seated} bytes still seated when the "
+             f"memory was read (level {level_at_read})")
+    if held["pinned_layers"] != held["planned_layers"] or held["pinned_bytes"] <= 0:
+        fail(f"pressure ladder: --hbm_pin_gb auto pinned {held}")
+    if with_pins - unpinned < held["pinned_bytes"]:
+        fail(f"pressure ladder: the card's allocated memory fell by {with_pins - unpinned} bytes "
+             f"on unpinning, under the {held['pinned_bytes']} pinned")
+    if (ladder["level"] != 0 or ladder["host_oom_events"] != 1 or ladder["sheds"] < 1
+            or ladder["pin_evictions"] != held["planned_layers"] or ladder["steps_down"] < 6
+            or tier.pressure_demoted):
+        fail(f"pressure ladder: {ladder}, tier demoted {tier.pressure_demoted}")
+    log("[pressure] ladder: shed with a typed Overloaded, unpinned (the card's memory fell by "
+        "the pinned bytes), back to level 0; every served request the default engine's tokens")
+
+    # (e) the HBM sample from a fresh thread.
+    fresh_process_state()
+    hbm_cfg = serve_cfg_for(pressure=pcfg)
+    mon = pressure.PressureMonitor(hbm_cfg, pressure.BrownoutController(hbm_cfg),
+                                   device=torch.device("cuda", 0))
+    got: list = []
+    thread = threading.Thread(target=lambda: got.append(mon.sample()))
+    thread.start()
+    thread.join(30)
+    frac = got[0].hbm_free_frac if got else None
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[pressure] hbm sample from a fresh thread: free share {frac} (main thread: "
+        f"{1 - torch.cuda.memory_allocated(0) / total:.6f}) | {smi}")
+    if frac is None or not 0.0 < frac <= 1.0:
+        fail(f"pressure: the HBM sampler read {frac!r} on the card")
+    log(f"[pressure] phase {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
 def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
                  n_gen_loop: int) -> dict:
     """Disk-mode crash resume and spill recompute on the 4-layer Llama-2-7B
@@ -3913,9 +4262,16 @@ def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
     return launches
 
 
+# The decode phase's depth: Llama-2-7B's widths, 12 of its 32 layers.
+DECODE_LAYERS = 12
+# The pin run that pins part of them: embedding, norm, head and 6 layers.
+PARTIAL_PIN_GB = "3"
+
+
 def phase_decode(work: str) -> dict:
-    """Llama-2-7B at its full 32 layers (13.5 GB of seeded bf16, written one
-    layer file at a time), --kv_cache with 8 tokens: the defaults (weights
+    """Llama-2-7B at ``DECODE_LAYERS`` of its 32 layers (5.4 GB of seeded
+    bf16 at 12, the depth cut for the smoke's time limit, written one layer
+    file at a time), --kv_cache with 8 tokens: the defaults (weights
     resident, KV on the card, one CUDA graph per block), --decode_fused off
     and --decode_resident off. Each run starts as a fresh CLI process would
     and prints its wall and stats; the three must pick the same tokens.
@@ -3923,8 +4279,8 @@ def phase_decode(work: str) -> dict:
     from flexible_llm_sharding_tpu_torch.config import LlamaConfig
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
-    cfg = LlamaConfig()
-    model_dir = os.path.join(work, "llama2-7b-32")
+    cfg = LlamaConfig(num_hidden_layers=DECODE_LAYERS)
+    model_dir = os.path.join(work, f"llama2-7b-{DECODE_LAYERS}")
     nbytes, secs = write_streamed_checkpoint(model_dir, cfg, seed=0)
     log(f"[decode] wrote a seeded bf16 Llama-2-7B checkpoint with {cfg.num_hidden_layers} decoder "
         f"layers ({nbytes} bytes, one layer file at a time) in {secs:.3f} s")
@@ -3968,11 +4324,11 @@ def phase_decode(work: str) -> dict:
 
 
 def phase_pins(work: str, model_dir: str, cfg, prompts) -> dict:
-    """The residency tier at 32 layers: scoring with --num_gen_token 4 (four
-    weight passes) at --hbm_pin_gb 0, 6 and auto. Every run's scores must
-    equal the unpinned run's bit for bit, and its streamed bytes must fall by
-    the pinned layers' bytes on every pass but the first (which loads the
-    pins). Returns the runs' kernel launches."""
+    """The residency tier at ``DECODE_LAYERS``: scoring with --num_gen_token 4
+    (four weight passes) at --hbm_pin_gb 0, ``PARTIAL_PIN_GB`` and auto.
+    Every run's scores must equal the unpinned run's bit for bit, and its
+    streamed bytes must fall by the pinned layers' bytes on every pass but
+    the first (which loads the pins). Returns the runs' kernel launches."""
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
     n_gen = 4
@@ -3980,7 +4336,7 @@ def phase_pins(work: str, model_dir: str, cfg, prompts) -> dict:
               "--num_gen_token", str(n_gen)]
     launches: dict = {}
     ref = None
-    for budget in ("0", "6", "auto"):
+    for budget in ("0", PARTIAL_PIN_GB, "auto"):
         fresh_process_state()
         fa.reset_launch_counts()
         scores, updated, stats = run_cli(model_dir, work, f"pins_{budget}", prompts,
@@ -4102,6 +4458,10 @@ def main() -> None:
         mark("fleet")
         paths.update(phase_multidevice(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi))
         mark("multidevice")
+        paths["llama2_7b_pressure"] = phase_pressure(work, llama_dir, llama_cfg, prompts,
+                                                     llama_runs, serve_runs["default"],
+                                                     n_gen_loop, n_gen_kv, smi)
+        mark("pressure")
         shutil.rmtree(llama_dir, ignore_errors=True)
         paths.update({
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,
@@ -4145,7 +4505,7 @@ def main() -> None:
                                            scout_kv, model_dir=scout_dir,
                                            payload=payload_bytes(scout_cfg))
         mark("full llama4-scout")
-        paths["llama2_7b_32_layers"] = phase_decode(work)
+        paths[f"llama2_7b_{DECODE_LAYERS}_layers"] = phase_decode(work)
         mark("decode")
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -17,11 +17,10 @@ shard cache (``runtime/hostcache.py``):
 
 The budget is ``AdapterConfig.max_gb``: explicit GB, 0 to disable, or None
 (auto) for 5% of the available host RAM. The brownout ladder's reversible
-``adapter_evict`` lever shrinks the live budget through
-:func:`apply_pressure_cap` and restores it through :func:`lift_pressure_cap`
-(pure host functions; the ladder itself, ``runtime/pressure.py``, and the
-chaos injector are ROADMAP queue 1 item 7, and setting the store's
-``injector`` raises until then).
+``adapter_evict`` rung (``runtime/pressure.py``) shrinks the live budget
+through :func:`apply_pressure_cap` and restores it through
+:func:`lift_pressure_cap`. Under chaos the store's ``injector`` fires
+``corrupt_shard`` on every delta read, before its checksum check.
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ from flexible_llm_sharding_tpu_torch.adapters.registry import (
     AdapterCorruptError,
     AdapterRegistry,
 )
+from flexible_llm_sharding_tpu_torch.faults.inject import InjectedFault
 from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import available_host_bytes, stat_guard
 from flexible_llm_sharding_tpu_torch.utils.checkpoint import read_safetensors
@@ -47,7 +47,6 @@ ADAPTER_AUTO_FRACTION = 0.05
 _AUTO_FALLBACK_BYTES = 1 << 30
 # Reads per delta file before a checksum mismatch counts as persistent.
 _READ_ATTEMPTS = 3
-_FAULTS_SLICE = "ROADMAP queue 1 item 7: faults, pressure and observability"
 
 
 def _nbytes(t) -> int:
@@ -62,7 +61,7 @@ class AdapterStore:
     across waves and never modified. ``get`` re-stats on a hit and loads
     and verifies on a miss."""
 
-    def __init__(self, root: str, budget_bytes: int):
+    def __init__(self, root: str, budget_bytes: int, injector=None):
         if budget_bytes <= 0:
             raise ValueError("budget_bytes must be > 0 (use None store to disable)")
         self.registry = AdapterRegistry(root)
@@ -80,17 +79,8 @@ class AdapterStore:
         self.corrupt_evictions = 0
         self.applied_rows = 0
         self.delta_bytes = 0
-
-    @property
-    def injector(self):
-        return None
-
-    @injector.setter
-    def injector(self, value) -> None:
-        if value is not None:
-            raise NotImplementedError(
-                f"fault injection into the adapter store's reads is not ported yet "
-                f"({_FAULTS_SLICE})")
+        # Chaos only (a FaultInjector): corrupt_shard on every delta read.
+        self.injector = injector
 
     # -- core API ----------------------------------------------------------
 
@@ -182,6 +172,13 @@ class AdapterStore:
             except ValueError:
                 mismatches += 1
                 continue
+            if self.injector is not None:
+                try:
+                    flat = self.injector.corrupt_flat("corrupt_shard", flat,
+                                                      detail=f"adapter:{name}/{lname}")
+                except InjectedFault:
+                    mismatches += 1
+                    continue
             if manifest is not None:
                 try:
                     integrity_manifest.verify_flat(lname, flat, manifest, path=path)

@@ -53,11 +53,16 @@ parks the requests in flight for the next start and exits 143.
 fleet (``serve/fleet.py``): N engines on the one device behind the
 shard-phase router (``--router_*``), with elastic scaling and phase stagger
 (``--autoscale*``); the final stats line is then the fleet's
-(``"event": "fleet_stats"``). ``--chaos`` fires the fleet's replica sites;
-``--chaos_sites`` must name only ``replica_kill`` and ``replica_stall``,
-the sites the port fires (any other, or none, raises). The JAX serve flags
-whose modules are not ported yet raise ``NotImplementedError`` when given a
-value other than their default.
+(``"event": "fleet_stats"``). The JAX serve flags whose modules are not
+ported yet (tracing, the metrics endpoint, the journal and incidents) raise
+``NotImplementedError`` when given a value other than their default.
+
+Both parsers take the JAX CLI's ``--chaos*`` flags (deterministic fault
+injection at ``--chaos_sites``, every site by default: ``faults/inject.py``)
+and its ``--pressure*`` flags (the brownout ladder, ``runtime/pressure.py``:
+under resource pressure the run sheds load instead of dying, and steps back
+down when the pressure lifts). A JSONL reply to a shed request carries its
+``retry_after_s``.
 
 ``prepare-adapter --peft_dir P --adapter_dir R --name N`` converts a PEFT
 LoRA checkpoint into the registry layout.
@@ -84,6 +89,7 @@ import torch
 from flexible_llm_sharding_tpu_torch.config import (
     DEFAULT_MAX_TOKEN_LEN,
     DTYPES,
+    FAULT_SITES,
     STORAGE_LOCATIONS,
     FrameworkConfig,
     resolve_device,
@@ -124,6 +130,63 @@ def _adapter_config_from_args(args: argparse.Namespace):
     from flexible_llm_sharding_tpu_torch.config import AdapterConfig
 
     return AdapterConfig(dir=args.adapter_dir, max_gb=args.adapter_max_gb)
+
+
+def _add_chaos_flags(p: argparse.ArgumentParser) -> None:
+    """Deterministic fault injection (the JAX parsers' flags, help and
+    defaults)."""
+    p.add_argument("--chaos", action="store_true",
+                   help="enable deterministic fault injection at the named sites "
+                        "(faults/inject.py) — proves the retry/degrade layer on real workloads "
+                        "without waiting for real outages; off = zero overhead")
+    p.add_argument("--chaos_seed", type=int, default=0,
+                   help="injection schedule seed (same seed = same faults)")
+    p.add_argument("--chaos_error_rate", type=float, default=0.1,
+                   help="probability of an injected IOError per site fire")
+    p.add_argument("--chaos_truncate_rate", type=float, default=0.0,
+                   help="probability of an injected truncated read")
+    p.add_argument("--chaos_latency_rate", type=float, default=0.0,
+                   help="probability of an injected latency spike")
+    p.add_argument("--chaos_sites", type=str, default="",
+                   help=f"comma list of sites to inject at (default all): {','.join(FAULT_SITES)}")
+    p.add_argument("--chaos_max_faults", type=int, default=-1,
+                   help="total faults injected before the schedule goes permanently clean (-1 = "
+                        "unlimited) — models a transient outage that ENDS; e.g. replica_kill "
+                        "with a budget of 1 kills exactly one replica and lets the fleet prove "
+                        "clean failover")
+
+
+def _add_pressure_flags(p: argparse.ArgumentParser) -> None:
+    """The brownout controller (``runtime/pressure.py``; the JAX parsers'
+    flags, help and defaults)."""
+    p.add_argument("--pressure", action="store_true",
+                   help="enable the brownout controller: monitor host RAM, spill-disk space, "
+                        "the card's headroom, and the host->device link; under sustained "
+                        "pressure walk a reversible degradation ladder (shrink the host cache, "
+                        "evict pooled prefix-KV pages, evict residency pins, shed admissions "
+                        "with typed Overloaded rejections, drain fleet replicas) instead of "
+                        "dying — and step back down when pressure lifts. Off = zero overhead")
+    p.add_argument("--pressure_poll_s", type=float, default=1.0,
+                   help="pressure-monitor sampling interval (seconds)")
+    p.add_argument("--pressure_host_min_gb", type=float, default=1.0,
+                   help="MemAvailable floor in GB; below it the ladder steps up (0 = host "
+                        "signal off)")
+    p.add_argument("--pressure_disk_min_gb", type=float, default=1.0,
+                   help="spill-disk (--disk_folder filesystem) free-bytes floor in GB (0 = disk "
+                        "signal off)")
+    p.add_argument("--pressure_hbm_headroom_frac", type=float, default=0.05,
+                   help="the card's free share floor: 1 - allocated / total memory (0 = off)")
+    p.add_argument("--pressure_link_min_gbps", type=float, default=0.0,
+                   help="host->device streamed-bytes rate floor in GB/s while streaming (0 = "
+                        "link signal off)")
+    p.add_argument("--pressure_cache_shrink_frac", type=float, default=0.5,
+                   help="host shard cache (and adapter store) budget multiplier of the ladder's "
+                        "shrink levels (LRU-evicts down to this fraction)")
+    p.add_argument("--pressure_shed_retry_after_s", type=float, default=1.0,
+                   help="retry-after hint carried by Overloaded rejections while shedding")
+    p.add_argument("--pressure_step_down_polls", type=int, default=3,
+                   help="consecutive clean polls required per ladder step DOWN (hysteresis "
+                        "against flapping)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -206,6 +269,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "streamed pass (greedy-exact; divides weight streams per token by the "
                         "acceptance factor when the model must re-stream); 0 = off")
     _add_adapter_flags(p)
+    _add_chaos_flags(p)
+    _add_pressure_flags(p)
     return p
 
 
@@ -423,34 +488,25 @@ def prepare_adapter_main(argv: list[str] | None = None) -> None:
 # The JAX serve parser's flags whose modules are not ported yet: (flag,
 # argparse keywords, where it stands in ROADMAP.md). Each is parsed as there
 # and refused unless it keeps its default.
-_FAULTS_OBS = "ROADMAP queue 1 item 7: faults, pressure and observability"
+_OBS_SLICE = "ROADMAP queue 1 item 7: observability"
 _UNPORTED_SERVE_FLAGS = (
-    ("--metrics_port", dict(type=int, default=None), _FAULTS_OBS),
-    ("--pressure", dict(action="store_true"), _FAULTS_OBS),
-    ("--pressure_poll_s", dict(type=float, default=1.0), _FAULTS_OBS),
-    ("--pressure_host_min_gb", dict(type=float, default=1.0), _FAULTS_OBS),
-    ("--pressure_disk_min_gb", dict(type=float, default=1.0), _FAULTS_OBS),
-    ("--pressure_hbm_headroom_frac", dict(type=float, default=0.05), _FAULTS_OBS),
-    ("--pressure_link_min_gbps", dict(type=float, default=0.0), _FAULTS_OBS),
-    ("--pressure_cache_shrink_frac", dict(type=float, default=0.5), _FAULTS_OBS),
-    ("--pressure_shed_retry_after_s", dict(type=float, default=1.0), _FAULTS_OBS),
-    ("--pressure_step_down_polls", dict(type=int, default=3), _FAULTS_OBS),
-    ("--trace", dict(action="store_true"), _FAULTS_OBS),
-    ("--trace_out", dict(type=str, default=""), _FAULTS_OBS),
-    ("--journal_dir", dict(type=str, default=""), _FAULTS_OBS),
-    ("--journal_max_mb", dict(type=float, default=16.0), _FAULTS_OBS),
-    ("--incidents_dir", dict(type=str, default=""), _FAULTS_OBS),
-    ("--incidents_max_mb", dict(type=float, default=256.0), _FAULTS_OBS),
+    ("--metrics_port", dict(type=int, default=None), _OBS_SLICE),
+    ("--trace", dict(action="store_true"), _OBS_SLICE),
+    ("--trace_out", dict(type=str, default=""), _OBS_SLICE),
+    ("--journal_dir", dict(type=str, default=""), _OBS_SLICE),
+    ("--journal_max_mb", dict(type=float, default=16.0), _OBS_SLICE),
+    ("--incidents_dir", dict(type=str, default=""), _OBS_SLICE),
+    ("--incidents_max_mb", dict(type=float, default=256.0), _OBS_SLICE),
     ("--incident_trigger", dict(type=str, default="error",
-                                choices=("info", "warning", "error", "critical")), _FAULTS_OBS),
-    ("--incident_debounce_s", dict(type=float, default=60.0), _FAULTS_OBS),
-    ("--incident_settle_s", dict(type=float, default=1.0), _FAULTS_OBS),
+                                choices=("info", "warning", "error", "critical")), _OBS_SLICE),
+    ("--incident_debounce_s", dict(type=float, default=60.0), _OBS_SLICE),
+    ("--incident_settle_s", dict(type=float, default=1.0), _OBS_SLICE),
 )
 
 
 def _add_fleet_flags(p: argparse.ArgumentParser) -> None:
-    """The replica fleet, its router and its chaos sites (the JAX serve
-    parser's flags and defaults)."""
+    """The replica fleet and its router (the JAX serve parser's flags and
+    defaults)."""
     p.add_argument("--replicas", type=int, default=1,
                    help="serving engine replicas (thread-per-engine, one process, one device, "
                         "shared host shard cache). >1 runs the replica fleet: requests route to "
@@ -470,24 +526,6 @@ def _add_fleet_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--router_drain_recoveries", type=int, default=0,
                    help="gracefully drain + recycle a replica whose engine_recoveries counter "
                         "reaches this (a flaky-but-alive engine); 0 = off")
-    p.add_argument("--chaos", action="store_true",
-                   help="deterministic fault injection at --chaos_sites; the port fires only the "
-                        "fleet's replica_kill and replica_stall, and refuses any other site")
-    p.add_argument("--chaos_seed", type=int, default=0,
-                   help="injection schedule seed (same seed = same faults)")
-    p.add_argument("--chaos_error_rate", type=float, default=0.1,
-                   help="probability of an injected fault per site fire")
-    p.add_argument("--chaos_truncate_rate", type=float, default=0.0,
-                   help="probability of an injected truncated read")
-    p.add_argument("--chaos_latency_rate", type=float, default=0.0,
-                   help="probability of an injected latency spike")
-    p.add_argument("--chaos_sites", type=str, default="",
-                   help="comma list of sites to inject at (default all, which the port refuses): "
-                        "replica_kill,replica_stall")
-    p.add_argument("--chaos_max_faults", type=int, default=-1,
-                   help="total faults injected before the schedule goes permanently clean "
-                        "(-1 = unlimited); replica_kill with a budget of 1 kills exactly one "
-                        "replica and lets the fleet prove clean failover")
 
 
 def _add_autoscale_flags(p: argparse.ArgumentParser) -> None:
@@ -551,6 +589,22 @@ def _autoscale_config_from_args(args: argparse.Namespace):
         stagger=not args.autoscale_no_stagger,
         stagger_tolerance=args.autoscale_stagger_tolerance,
         stagger_hold_max_frac=args.autoscale_stagger_hold_max_frac,
+    )
+
+
+def _pressure_config_from_args(args: argparse.Namespace):
+    from flexible_llm_sharding_tpu_torch.config import PressureConfig
+
+    if not args.pressure:
+        return PressureConfig()
+    return PressureConfig(
+        enabled=True, poll_s=args.pressure_poll_s, host_min_gb=args.pressure_host_min_gb,
+        disk_min_gb=args.pressure_disk_min_gb,
+        hbm_headroom_frac=args.pressure_hbm_headroom_frac,
+        link_min_gbps=args.pressure_link_min_gbps,
+        cache_shrink_frac=args.pressure_cache_shrink_frac,
+        shed_retry_after_s=args.pressure_shed_retry_after_s,
+        step_down_polls=args.pressure_step_down_polls,
     )
 
 
@@ -740,6 +794,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--readahead_threads", type=int, default=2,
                    help="threads of the page-cache readahead pool; 0 = off")
     _add_fleet_flags(p)
+    _add_chaos_flags(p)
+    _add_pressure_flags(p)
     _add_spec_flags(p)
     _add_sched_flags(p)
     p.add_argument("--slo", action="store_true",
@@ -815,6 +871,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             kv_host_spill=args.kv_host_spill, hbm_pin_gb=args.hbm_pin_gb,
             readahead_threads=args.readahead_threads,
             adapters=_adapter_config_from_args(args), faults=_fault_config_from_args(args),
+            pressure=_pressure_config_from_args(args),
         )
         slo = SLOConfig() if not args.slo else SLOConfig(
             enabled=True, ttft_p95_s=args.slo_ttft_p95_s,
@@ -840,9 +897,6 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
         )
     except ValueError as e:
         raise SystemExit(str(e)) from e
-    from flexible_llm_sharding_tpu_torch.faults.inject import require_armed
-
-    require_armed(cfg.faults, "serve --chaos")
     device = resolve_device(cfg.device)
     if tokenizer is None:
         from transformers import AutoTokenizer
@@ -860,6 +914,9 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    from flexible_llm_sharding_tpu_torch.faults import inject
+
+    inject.reset_process_fault_counts()
     t0 = time.perf_counter()
     # The fleet has the engine's surface: both frontends drive either.
     fleet = _serve_wants_fleet(serve_cfg)
@@ -947,6 +1004,8 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
         stats["peak_mem_gb"] = peak
     if fleet:
         stats["host_rss_gib"] = host_rss_gib().get("rss")
+    if cfg.faults.enabled:
+        stats["chaos_faults"] = inject.process_fault_counts()
     print(json.dumps(stats), file=sys.stderr)
     return stats
 
@@ -972,6 +1031,8 @@ def _serve_jsonl(engine, replay_open) -> None:
             }
         except Exception as e:  # rejected, expired or failed
             line = {"id": req.request_id, "status": req.status.value, "error": str(e)}
+            if getattr(e, "retry_after_s", None) is not None:  # a shed or a rate limit
+                line["retry_after_s"] = e.retry_after_s
         if req.client_id is not None:
             line["client_id"] = req.client_id
         with out_lock:
@@ -1032,6 +1093,8 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         score_sink_max_device=args.score_sink_max_device,
         resume=args.resume,
         adapters=_adapter_config_from_args(args),
+        faults=_fault_config_from_args(args),
+        pressure=_pressure_config_from_args(args),
     )
 
 
@@ -1095,6 +1158,13 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     for dev in dict.fromkeys(d for d in devices if d.type == "cuda"):
         torch.cuda.reset_peak_memory_stats(dev)
     LAST_DP_RANK_STATS.clear()
+    from flexible_llm_sharding_tpu_torch.faults import inject
+    from flexible_llm_sharding_tpu_torch.runtime import pressure
+
+    inject.reset_process_fault_counts()
+    # The brownout ladder of a batch run (--pressure): started here, as the
+    # serving engines start it for themselves.
+    ctrl = pressure.controller_for(cfg, devices[0])
     # One stats dict per pass of every entry-point call (a DP fan-out's as one).
     calls: list[dict] = []
     t0 = time.perf_counter()
@@ -1159,6 +1229,10 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     tier = process_tier()
     if tier is not None:
         stats["residency"] = tier.stats()
+    if cfg.faults.enabled:
+        stats["chaos_faults"] = inject.process_fault_counts()
+    if ctrl is not None:
+        stats["pressure"] = ctrl.stats()
     rss = host_rss_gib()
     stats["peak_host_rss_gib"] = rss["peak"]
     if "rss" in rss:

@@ -631,8 +631,17 @@ DTYPES = {
 # or a short read of the bytes), the replica sites of the fleet
 # (``serve/fleet.py``: ``replica_kill`` crashes a whole engine mid-sweep,
 # ``replica_stall`` wedges its thread until the fleet declares it dead) and
-# the resource-pressure sites. The port fires only the replica sites;
-# asking for any other raises (``faults/inject.require_armed``).
+# the resource-pressure sites (``runtime/pressure.py``: ``host_oom`` raises
+# ``MemoryError`` in a layer read, typed ``HostOOMError`` and retried;
+# ``disk_full`` raises ``ENOSPC`` in a spill write, typed ``DiskFullError``
+# and retried; ``link_throttle`` stalls an upload, it never errors). Each is
+# fired where the JAX package fires it: ``shard_read``, ``host_oom`` and
+# ``corrupt_shard`` in ``ShardWeightSource``'s reads (``corrupt_shard`` in
+# the adapter store's too), ``link_throttle`` and ``device_put`` in its
+# retried upload, ``disk_full`` and ``corrupt_activation`` in the activation
+# store (``corrupt_activation`` in the KV pool's page reads too),
+# ``queue_admission`` in ``AdmissionQueue.submit``, ``engine_step`` at each
+# shard step of a serving sweep and the replica sites in ``serve/fleet.py``.
 FAULT_SITES = (
     "shard_read",
     "device_put",
@@ -681,6 +690,47 @@ class FaultConfig:
         if unknown:
             raise ValueError(f"unknown fault sites {sorted(unknown)} (one of {FAULT_SITES})")
         object.__setattr__(self, "sites", tuple(self.sites))
+
+
+@dataclasses.dataclass(frozen=True)
+class PressureConfig:
+    """The resource-pressure brownout controller (``runtime/pressure.py``),
+    off by default; ``--pressure`` on both CLIs turns it on.
+
+    A ``PressureMonitor`` samples the host's MemAvailable, the spill disk's
+    free bytes, the card's headroom and the host-to-device link rate every
+    ``poll_s``; when a threshold trips, or a hard resource failure (a real
+    or injected ``host_oom``/``disk_full``) is noted, the
+    ``BrownoutController`` walks an ordered, reversible ladder (stop
+    speculative drafts, shrink the host shard cache, evict adapters, evict
+    pooled prefix KV, unpin resident layers, shed new admissions with a
+    typed ``Overloaded`` carrying ``shed_retry_after_s``, drain fleet
+    replicas), and steps back down one level per ``step_down_polls``
+    consecutive clean polls. A threshold of 0 turns its signal off (events
+    still drive the ladder)."""
+
+    enabled: bool = False
+    poll_s: float = 1.0
+    host_min_gb: float = 1.0  # MemAvailable floor
+    disk_min_gb: float = 1.0  # free bytes of disk_folder's filesystem
+    hbm_headroom_frac: float = 0.05  # the card's free share floor
+    link_min_gbps: float = 0.0  # streamed-bytes rate floor
+    cache_shrink_frac: float = 0.5  # the cache and adapter levers' budget multiplier
+    shed_retry_after_s: float = 1.0  # Overloaded.retry_after_s
+    step_down_polls: int = 3  # consecutive clean polls per step down
+
+    def __post_init__(self) -> None:
+        if self.poll_s <= 0:
+            raise ValueError("poll_s must be > 0")
+        for name in ("host_min_gb", "disk_min_gb", "link_min_gbps", "shed_retry_after_s"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+        for name in ("hbm_headroom_frac", "cache_shrink_frac"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {v}")
+        if self.step_down_polls < 1:
+            raise ValueError("step_down_polls must be >= 1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -752,9 +802,12 @@ class FrameworkConfig:
     ``adapters``: the LoRA adapter registry the serving engine reads
     (:class:`AdapterConfig`; the batch CLI accepts and keeps it).
 
-    ``faults``: fault injection (:class:`FaultConfig`), off by default; the
-    replica fleet fires its two sites, and an engine or a fleet asked for
-    any other raises.
+    ``faults``: fault injection (:class:`FaultConfig`), off by default;
+    while it is on, the auto budgets of the host cache and the residency
+    tier resolve to off, as in the JAX package (a cache hit or a pin would
+    skip the draws a seeded schedule makes; an explicit budget still
+    wins). ``pressure``: the brownout ladder (:class:`PressureConfig`),
+    off by default.
     """
 
     model_path: str = "./"
@@ -794,6 +847,7 @@ class FrameworkConfig:
     kv_host_spill: bool = True
     adapters: AdapterConfig = dataclasses.field(default_factory=AdapterConfig)
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
+    pressure: PressureConfig = dataclasses.field(default_factory=PressureConfig)
 
     def __post_init__(self) -> None:
         if self.storage_location not in STORAGE_LOCATIONS:
@@ -843,9 +897,12 @@ class FrameworkConfig:
 
     def effective_host_cache_bytes(self) -> int:
         """The host cache budget in bytes: ``host_cache_gb`` GB when given
-        (0 = off), else auto; unknown free RAM resolves to off."""
+        (0 = off), else auto; unknown free RAM, or fault injection, resolves
+        to off."""
         if self.host_cache_gb is not None:
             return int(self.host_cache_gb * 1e9)
+        if self.faults.enabled:
+            return 0
         from flexible_llm_sharding_tpu_torch.runtime.hostcache import auto_budget_bytes
 
         return auto_budget_bytes()
@@ -870,10 +927,12 @@ class FrameworkConfig:
 
     def effective_hbm_pin_bytes(self, device=None) -> int:
         """The residency tier's budget in bytes: ``hbm_pin_gb`` GB when
-        given (0 = off), else auto on ``device``. (The JAX package also
-        turns auto off under fault injection, which the port has not yet.)"""
+        given (0 = off), else auto on ``device``; fault injection resolves
+        auto to off."""
         if self.hbm_pin_gb is not None:
             return int(self.hbm_pin_gb * 1e9)
+        if self.faults.enabled:
+            return 0
         from flexible_llm_sharding_tpu_torch.runtime.residency import auto_pin_budget_bytes
 
         return auto_pin_budget_bytes(device)
@@ -1228,6 +1287,7 @@ __all__ = [
     "FaultConfig",
     "FrameworkConfig",
     "LlamaConfig",
+    "PressureConfig",
     "SLOConfig",
     "STORAGE_LOCATIONS",
     "SchedConfig",

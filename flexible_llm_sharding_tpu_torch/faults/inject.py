@@ -3,14 +3,12 @@
 
 A ``FaultInjector`` is handed explicitly to the code that fires its sites;
 ``fire(site)`` draws the site's next outcome. The sites are the JAX
-package's (``config.FAULT_SITES``): the I/O sites, the silent-corruption
-sites (``corrupt_flat`` and ``corrupt_array``: a deterministic one-bit flip
-of a tensor's bytes), the replica fleet's two sites and the
-resource-pressure sites. The port fires only the fleet's ``replica_kill``
-and ``replica_stall`` (``serve/fleet.py``); the others wait for their
-handling (ROADMAP queue 1 item 7), and :func:`require_armed` refuses a
-config that asks for them, so a chaos run never looks clean at a site that
-never fired.
+package's (``config.FAULT_SITES``, which names where each fires): the I/O
+sites, the silent-corruption sites (``corrupt_flat`` and ``corrupt_array``:
+a deterministic one-bit flip of a tensor's or an array's bytes), the
+replica fleet's two sites and the resource-pressure sites (``host_oom``
+raises ``MemoryError``, ``disk_full`` ``OSError(ENOSPC)``, and
+``link_throttle`` only stalls).
 
 The schedule is a pure function of ``(seed, site, per-site call count)``
 through SHA-256 (``faults/retry.hash_unit``), the JAX package's draw bit
@@ -25,13 +23,28 @@ import errno
 import threading
 import time
 
+import numpy as np
 import torch
 
 from flexible_llm_sharding_tpu_torch.config import FAULT_SITES, FaultConfig
 from flexible_llm_sharding_tpu_torch.faults.retry import hash_unit
 
-# The sites the port fires today.
-ARMED_SITES = ("replica_kill", "replica_stall")
+
+# Faults injected in this process, per site, over every injector (a run's
+# executors and sources each hold their own): the CLIs' ``chaos_faults``.
+_PROCESS_LOCK = threading.Lock()
+_PROCESS_FAULTS: dict[str, int] = {}
+
+
+def process_fault_counts() -> dict[str, int]:
+    """Faults injected per site since the last reset, every site listed."""
+    with _PROCESS_LOCK:
+        return {s: _PROCESS_FAULTS.get(s, 0) for s in FAULT_SITES}
+
+
+def reset_process_fault_counts() -> None:
+    with _PROCESS_LOCK:
+        _PROCESS_FAULTS.clear()
 
 
 class InjectedFault(IOError):
@@ -41,19 +54,6 @@ class InjectedFault(IOError):
 
 class TruncatedRead(InjectedFault):
     """A simulated short read."""
-
-
-def require_armed(config: FaultConfig | None, where: str) -> None:
-    """Raise ``NotImplementedError`` when ``config`` is enabled and asks for
-    a site the port does not fire (``sites`` () asks for every site)."""
-    if config is None or not config.enabled:
-        return
-    unarmed = sorted(set(config.sites or FAULT_SITES) - set(ARMED_SITES))
-    if unarmed:
-        raise NotImplementedError(
-            f"{where}: fault sites {unarmed} are not ported yet (ROADMAP queue 1 item 7: "
-            f"faults, pressure and observability); the port fires only {list(ARMED_SITES)} — "
-            "name them in sites (--chaos_sites)")
 
 
 class FaultInjector:
@@ -111,6 +111,8 @@ class FaultInjector:
                     return None, n
                 self._budget -= 1
             self.events.append((site, kind, n))
+        with _PROCESS_LOCK:
+            _PROCESS_FAULTS[site] = _PROCESS_FAULTS.get(site, 0) + 1
         return kind, n
 
     def fire(self, site: str, detail: str = "") -> None:
@@ -140,9 +142,18 @@ class FaultInjector:
     # and a latency draw sleeps.
 
     @staticmethod
-    def _flip_bit(t: torch.Tensor, key: str) -> torch.Tensor:
-        """A copy of ``t`` with one bit flipped: byte ``hash(key:pos)`` of
-        its contiguous bytes, bit ``hash(key:bit)``."""
+    def _flip_bit(t, key: str):
+        """A copy of ``t`` (a tensor, or a numpy array: a spill read's) with
+        one bit flipped: byte ``hash(key:pos)`` of its contiguous bytes, bit
+        ``hash(key:bit)``."""
+        if isinstance(t, np.ndarray):
+            a = np.ascontiguousarray(t)
+            if a.nbytes == 0:
+                return a
+            buf = a.reshape(-1).view(np.uint8).copy()
+            pos = int(hash_unit(key + ":pos") * buf.size)
+            buf[pos] ^= np.uint8(1 << int(hash_unit(key + ":bit") * 8))
+            return buf.view(a.dtype).reshape(a.shape)
         a = t.detach().contiguous()
         if a.numel() == 0:
             return a
@@ -171,8 +182,8 @@ class FaultInjector:
         out[key] = self._flip_bit(flat[key], f"{self.config.seed}:{site}:{n}:{key}")
         return out
 
-    def corrupt_array(self, site: str, t: torch.Tensor, detail: str = "") -> torch.Tensor:
-        """The single-tensor form of :meth:`corrupt_flat`."""
+    def corrupt_array(self, site: str, t, detail: str = ""):
+        """The single-tensor (or single-array) form of :meth:`corrupt_flat`."""
         kind, n = self._draw(site, ("bitflip", "truncated", "latency"))
         if kind is None:
             return t
@@ -185,4 +196,5 @@ class FaultInjector:
         return self._flip_bit(t, f"{self.config.seed}:{site}:{n}")
 
 
-__all__ = ["ARMED_SITES", "FaultInjector", "InjectedFault", "TruncatedRead", "require_armed"]
+__all__ = ["FaultInjector", "InjectedFault", "TruncatedRead", "process_fault_counts",
+           "reset_process_fault_counts"]

@@ -8,7 +8,7 @@ of (label, attempt) — so a run's retry schedule repeats. Exhaustion can be
 typed: ``wrap=ShardLoadError`` raises that type, chained to the last
 error. ``ShardLoadError`` is not an ``OSError``, so a nested
 ``retry_call`` never retries an exhausted inner one. The JAX module's trace
-instants wait for the observability port (ROADMAP item 8).
+instants wait for the observability port (ROADMAP item 7).
 """
 
 from __future__ import annotations

@@ -22,8 +22,15 @@ Every ``.npy`` gets a ``.crc`` sidecar, checked on read with up to
 ``_SPILL_REREAD_ATTEMPTS`` reads before ``SpillCorruptError`` /
 ``SpillReadError``. ``flush`` is the barrier a crash-resume marker waits on;
 ``fetch_recompute`` reads the previous shard's inputs back from the other
-generation, for the executor's recompute of a corrupt spill. The JAX
-store's fault injection and disk-full typing wait for ROADMAP item 7.
+generation, for the executor's recompute of a corrupt spill.
+
+A spill write is atomic (temp file, fsync, rename) and retried under the
+policy (``spill_write``); ``ENOSPC``, real or injected (the ``disk_full``
+site, fired inside the write), is noted as a pressure event, and on
+exhaustion raises ``DiskFullError`` naming the file, with no temp file
+left. Under chaos a spill read may come back with one bit flipped (the
+``corrupt_activation`` site), which its checksum catches and a re-read
+heals.
 
 In DP mode (``rank_tag``) the file names carry the device's rank, as the
 reference's do: ``suffix{rank}-{idx:05d}.npy``. A fetch returns a block on
@@ -33,6 +40,7 @@ next stage).
 
 from __future__ import annotations
 
+import errno
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -42,6 +50,8 @@ import torch
 from flexible_llm_sharding_tpu_torch.faults.retry import retry_call
 from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
 from flexible_llm_sharding_tpu_torch.integrity.manifest import SpillCorruptError, SpillReadError
+from flexible_llm_sharding_tpu_torch.runtime.pressure import DiskFullError
+from flexible_llm_sharding_tpu_torch.runtime.pressure import note_event as _note_pressure_event
 from flexible_llm_sharding_tpu_torch.utils.checkpoint import tensor_from_numpy
 
 _SPILL_REREAD_ATTEMPTS = 3
@@ -53,13 +63,17 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.uint16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
 
 
-def _save_npy(path: str, arr: np.ndarray) -> None:
+def _save_npy(path: str, arr: np.ndarray, injector=None) -> None:
     """Atomic ``np.save`` (temp + fsync + rename), then the ``.crc``
-    sidecar; a failed sidecar write removes any stale one."""
+    sidecar; a failed sidecar write removes any stale one. A failed write
+    removes its temp file. ``injector`` fires ``disk_full`` once the bytes
+    are in the temp file, where a real full disk raises (at the flush)."""
     tmp = f"{path}.tmp"
     try:
         with open(tmp, "wb") as f:
             np.save(f, arr)
+            if injector is not None:
+                injector.fire("disk_full", detail=path)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -116,14 +130,16 @@ class ActivationStore:
     """Store/fetch (prefix_h [B, Lp, D] | None, suffix_h [B, S, Ls, D]) per
     block id; fetch returns tensors on ``device``. ``integrity`` (an
     ``IntegrityRecorder``) counts spill mismatches and re-read heals;
-    ``retry_policy``/``retry_recorder`` drive spill writes."""
+    ``retry_policy``/``retry_recorder`` drive spill writes; ``injector``
+    (chaos only) fires ``disk_full`` in each write attempt and
+    ``corrupt_activation`` on each read."""
 
     _MAX_PENDING_WRITES = 2
 
     def __init__(self, location: str, device: torch.device, dtype: torch.dtype,
                  disk_folder: str = "./temp", max_in_cpu: int | None = None,
                  batch: int = 0, integrity=None, retry_policy=None, retry_recorder=None,
-                 device_rank: int = 0, rank_tag: bool = False):
+                 device_rank: int = 0, rank_tag: bool = False, injector=None):
         if location not in ("gpu", "cpu", "disk"):
             raise ValueError(f"storage_location must be gpu|cpu|disk, got {location!r}")
         self.location = location
@@ -144,6 +160,7 @@ class ActivationStore:
         self._integrity = integrity
         self._retry = retry_policy
         self._retry_recorder = retry_recorder
+        self._injector = injector
         if location == "disk":
             os.makedirs(disk_folder, exist_ok=True)
 
@@ -165,8 +182,29 @@ class ActivationStore:
             self._fetch_gen = (shard_idx - 1) % 2
 
     def _write_spill(self, path: str, arr: np.ndarray) -> None:
-        retry_call(lambda: _save_npy(path, arr), policy=self._retry, label="spill_write",
-                   recorder=self._retry_recorder)
+        """One spill file, written atomically under the retry policy; a full
+        disk is noted as a pressure event on every attempt and, once the
+        retries are spent, raises ``DiskFullError`` naming the file."""
+
+        def attempt() -> None:
+            try:
+                _save_npy(path, arr, self._injector)
+            except OSError as e:
+                if e.errno == errno.ENOSPC:
+                    _note_pressure_event("disk_full")
+                raise
+
+        try:
+            retry_call(attempt, policy=self._retry, label="spill_write",
+                       recorder=self._retry_recorder)
+        except OSError as e:
+            if e.errno == errno.ENOSPC:
+                raise DiskFullError(
+                    errno.ENOSPC,
+                    f"spill write failed, disk full: {path} (shard {self._shard_idx}); no "
+                    "partial file was left",
+                ) from e
+            raise
 
     def _store_disk(self, prompt_idxs, staged: _Staged, gen: int) -> None:
         prefix, suffix = staged.resolve()
@@ -202,6 +240,8 @@ class ActivationStore:
         for attempt in range(_SPILL_REREAD_ATTEMPTS):
             try:
                 arr = np.load(path)
+                if self._injector is not None:
+                    arr = self._injector.corrupt_array("corrupt_activation", arr, detail=path)
             except (OSError, ValueError, EOFError) as e:
                 last, decode_failure = e, True
                 if self._integrity is not None:

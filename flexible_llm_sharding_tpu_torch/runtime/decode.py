@@ -69,6 +69,7 @@ from flexible_llm_sharding_tpu_torch.config import indexed_device
 from flexible_llm_sharding_tpu_torch.models import llama
 from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 from flexible_llm_sharding_tpu_torch.ops.norm import rms_norm
+from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.parallel.planner import global_stage_order
 from flexible_llm_sharding_tpu_torch.runtime.executor import (
     StreamingExecutor,
@@ -651,8 +652,10 @@ class DecodeGenerator(StreamingExecutor):
 
         n_passes = 1 if self._resident else n_gen
         if self.weight_source_factory is None:
-            source, host_stats = self.weight_source(n_passes, shards=self.shards,
-                                                    devices=self.shard_devices)
+            # A fresh injector per decode call's source, as the JAX decoder.
+            source, host_stats = self.weight_source(
+                n_passes, shards=self.shards, devices=self.shard_devices,
+                injector=FaultInjector.from_config(self.cfg.faults))
             it = iter(source)
             bytes_before = 0
         else:

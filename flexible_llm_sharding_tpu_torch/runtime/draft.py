@@ -46,7 +46,7 @@ class DraftModel:
     pin: a draft model that would stream per call defeats its purpose."""
 
     def __init__(self, model_path: str, device: torch.device, dtype: torch.dtype = torch.float32,
-                 retry_policy=None, verify_weights: bool = True):
+                 retry_policy=None, verify_weights: bool = True, injector=None):
         self.cfg = LlamaConfig.from_pretrained(model_path)
         self.device = device
         self.dtype = dtype
@@ -59,7 +59,8 @@ class DraftModel:
         # reads are what the tier's pin loads take.
         self._loader = ShardWeightSource(
             model_path, names, [], dtype, device, prefetch_depth=0, tied_embeddings=tied,
-            verify_weights=verify_weights, readahead_threads=0, retry_policy=retry_policy)
+            verify_weights=verify_weights, readahead_threads=0, retry_policy=retry_policy,
+            injector=injector)
         try:
             plan = full_pin_plan(model_path, names, tied)
             missing = sorted(set(range(len(names))) - plan.pinned_set)

@@ -28,7 +28,15 @@ In disk mode a marker (``runtime/resume.py``) records each completed shard
 once its activation files are flushed, and ``resume`` restarts a crashed run
 at the first shard left; a spill that stays corrupt after its re-reads is
 recomputed from the previous shard, whose inputs the other disk generation
-still holds. Fault injection waits for ROADMAP item 7.
+still holds.
+
+Under fault injection (``FrameworkConfig.faults``) the JAX package's sites
+fire at its positions: ``shard_read`` and ``host_oom`` before every read
+attempt, ``corrupt_shard`` on the read's tensors before their checksum
+check, and ``link_throttle`` then ``device_put`` before every upload
+attempt, which is retried (``label="device_put"``) like a read. A
+``MemoryError`` while a shard is built becomes the retryable
+``HostOOMError`` and a pressure event (``runtime/pressure.py``).
 
 The multi-device modes: ``ShardWeightSource(devices=...)`` uploads each
 shard to its own device (the MP pipeline's stages, ``runtime/pipeline.py``,
@@ -51,6 +59,7 @@ import numpy as np
 import torch
 
 from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, LlamaConfig, resolve_device
+from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.faults.retry import RetryPolicy, ShardLoadError, retry_call
 from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
 from flexible_llm_sharding_tpu_torch.integrity.manifest import (
@@ -68,6 +77,8 @@ from flexible_llm_sharding_tpu_torch.runtime.hostcache import (
     stat_guard,
     tree_nbytes,
 )
+from flexible_llm_sharding_tpu_torch.runtime.pressure import HostOOMError
+from flexible_llm_sharding_tpu_torch.runtime.pressure import note_event as _note_pressure_event
 from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
     PromptTokenizer,
     TokenizedPrompt,
@@ -121,11 +132,22 @@ class SourceClosed(RuntimeError):
     """The weight source was closed while a consumer waited on it."""
 
 
-# Process-wide counters: host bytes built for upload, and tied lm_head
-# requantizations (a dequant, transpose and int8 requant of [V, D], cached
-# per source and in the host cache, so a warm process performs none).
+# Process-wide counters: host bytes built for upload (the pressure
+# monitor's link signal), and tied lm_head requantizations (a dequant,
+# transpose and int8 requant of [V, D], cached per source and in the host
+# cache, so a warm process performs none).
 _PROCESS_STREAM_LOCK = threading.Lock()
+_PROCESS_STREAM_BYTES = [0]
 _PROCESS_TIED_REQUANTS = [0]
+
+
+def process_streamed_bytes() -> int:
+    return _PROCESS_STREAM_BYTES[0]
+
+
+def _count_streamed(nbytes: int) -> None:
+    with _PROCESS_STREAM_LOCK:
+        _PROCESS_STREAM_BYTES[0] += nbytes
 
 
 def process_tied_head_requants() -> int:
@@ -222,8 +244,16 @@ class ShardWeightSource:
     ``residency`` (a ``DeviceResidencyTier``): its planned layers among the
     shards are pinned on their shards' devices before the first build,
     frozen for this source's life, subtracted from every build and merged
-    back in layer order. The JAX loader's fault injection and host-OOM
-    typing wait for ROADMAP item 7.
+    back in layer order.
+
+    ``injector`` (a ``FaultInjector`` or None) fires ``shard_read`` and
+    ``host_oom`` before every read attempt and ``corrupt_shard`` on the
+    read tensors before their checksum check (bypassing the verdict cache
+    when it flips a bit, so the crc catches it and a re-read heals it),
+    and ``link_throttle`` then ``device_put`` before every upload attempt
+    of the source's own shards (a broadcast placement is not retried, as
+    in the JAX package). A ``MemoryError`` in a read attempt is noted as a
+    ``host_oom`` pressure event and retried as ``HostOOMError``.
 
     ``cycle=True`` loops the shard list endlessly instead of stopping after
     one pass: the serving engine's weight stream (``serve/engine.py``),
@@ -236,7 +266,8 @@ class ShardWeightSource:
 
     Stats: ``load_time`` (host reads, misses only), ``bytes_loaded`` (host
     bytes uploaded, hits and pin loads included), ``retries`` (a
-    ``RetryRecorder``) and ``integrity`` (an ``IntegrityRecorder``).
+    ``RetryRecorder``) and ``integrity`` (an ``IntegrityRecorder``), the
+    caller's when given (a serving engine's metrics).
     """
 
     def __init__(self, model_path: str, layer_names: Sequence[str],
@@ -245,8 +276,11 @@ class ShardWeightSource:
                  tied_embeddings: bool = False, *, verify_weights: bool = True,
                  host_cache: HostShardCache | None = None, readahead_threads: int = 2,
                  retry_policy: RetryPolicy | None = None, residency=None, cycle: bool = False,
-                 devices: Sequence[torch.device] | None = None):
+                 devices: Sequence[torch.device] | None = None,
+                 injector: FaultInjector | None = None, retry_recorder: RetryRecorder | None = None,
+                 integrity_recorder: IntegrityRecorder | None = None):
         self.model_path = model_path
+        self._injector = injector
         self.cycle = cycle
         self.layer_names = list(layer_names)
         self.shards = list(shards)
@@ -263,8 +297,8 @@ class ShardWeightSource:
             {device: self._stream} if self._cuda else {})
         self.load_time = 0.0
         self.bytes_loaded = 0
-        self.retries = RetryRecorder()
-        self.integrity = IntegrityRecorder()
+        self.retries = RetryRecorder() if retry_recorder is None else retry_recorder
+        self.integrity = IntegrityRecorder() if integrity_recorder is None else integrity_recorder
         self.quarantined: set[str] = set()
         self._retry = retry_policy or RetryPolicy()
         self._host_cache = host_cache
@@ -327,11 +361,19 @@ class ShardWeightSource:
         def attempt():
             nonlocal mismatches
             try:
+                if self._injector is not None:
+                    self._injector.fire("shard_read", detail=name)
+                    self._injector.fire("host_oom", detail=name)
                 return self._load_one_raw(name)
             except ChecksumMismatch:
                 mismatches += 1
                 self.integrity.count("integrity_failures")
                 raise
+            except MemoryError as e:
+                # Typed into the retryable family: once the ladder frees
+                # host RAM a retry can succeed.
+                _note_pressure_event("host_oom")
+                raise HostOOMError(f"host OOM loading {name}: {e}") from e
 
         try:
             out = retry_call(attempt, policy=self._retry, label="shard_read",
@@ -355,10 +397,16 @@ class ShardWeightSource:
         return out
 
     def _load_one_raw(self, name: str) -> dict[str, Any]:
+        corrupt = None
+        if self._injector is not None:
+            def corrupt(flat, _n=name):
+                return self._injector.corrupt_flat("corrupt_shard", flat, detail=_n)
         if name == "lm_head" and self.tied:
             if self._tied_head is not None:
                 return self._tied_head
-            cache = self._host_cache
+            # Under chaos the head's cache entry is bypassed: a seeded
+            # corrupt_shard draw must meet a real read.
+            cache = self._host_cache if self._injector is None else None
             key = guard = None
             if cache is not None:
                 key = self._cache_key_base + ("__tied_head__",)
@@ -368,7 +416,7 @@ class ShardWeightSource:
                     self._tied_head = hit[0]
                     return self._tied_head
             emb = checkpoint.load_layer(self.model_path, "model.embed_tokens", self._cuda,
-                                        manifest=self._manifest)
+                                        manifest=self._manifest, corrupt=corrupt)
             e = emb["embedding"]
             if checkpoint.is_quantized_leaf(e):
                 # The head kernel [D, V] needs scales laid out for the
@@ -385,7 +433,8 @@ class ShardWeightSource:
             if cache is not None and guard is not None:
                 cache.put(key, self._tied_head, guard=guard)  # charged at its packed bytes
             return self._tied_head
-        return checkpoint.load_layer(self.model_path, name, self._cuda, manifest=self._manifest)
+        return checkpoint.load_layer(self.model_path, name, self._cuda, manifest=self._manifest,
+                                     corrupt=corrupt)
 
     def _place_leaf(self, t, device):
         if checkpoint.is_quantized_leaf(t):
@@ -423,12 +472,14 @@ class ShardWeightSource:
             if hit is not None:
                 host, nbytes = hit
                 self.bytes_loaded += nbytes
+                _count_streamed(nbytes)
                 return host
         t0 = time.perf_counter()
         host = [(self.layer_names[i], self._load_one(self.layer_names[i])) for i in layer_idxs]
         self.load_time += time.perf_counter() - t0
         nbytes = tree_nbytes([tree for _, tree in host])
         self.bytes_loaded += nbytes
+        _count_streamed(nbytes)
         if cache is not None and guard is not None:
             cache.put(key, host, nbytes=nbytes, guard=guard)
         return host
@@ -436,10 +487,14 @@ class ShardWeightSource:
     def host_parts(self, layer_idxs: tuple[int, ...]):
         """One build's plan (``_split_parts``) and the host trees of its
         stream runs; each pin counts one pass's link bytes saved, once per
-        build however many devices it is placed on."""
+        build however many devices it is placed on. While the tier's
+        brownout demotion holds, the source streams its frozen pins too."""
         if not layer_idxs:
             return [], []
-        parts = _split_parts(layer_idxs, self._pinned)
+        pinned = self._pinned
+        if pinned and self._residency.pressure_demoted:
+            pinned = frozenset()
+        parts = _split_parts(layer_idxs, pinned)
         for kind, val in parts:
             if kind == "pin":
                 self._residency.note_skip(val)
@@ -453,17 +508,23 @@ class ShardWeightSource:
     def place_parts(self, parts, hosts, device: torch.device):
         """A built shard on ``device``: (segments, the upload's event or
         None). On a card the stream runs upload on the device's upload
-        stream; the pins are the tier's trees on that device."""
+        stream; the pins are the tier's trees on that device. An upload
+        that fails waits for what it queued before the error propagates, so
+        a retry never reuses memory a queued copy still writes."""
         pinned = {val: self._residency.segments(val, device, self)
                   for kind, val in parts if kind == "pin"}
         event = None
         if device.type == "cuda":
             stream = self._upload_stream(device)
-            with torch.cuda.stream(stream):
-                placed_runs = [[(n, self.place_layer(n, t, device)) for n, t in host]
-                               for host in hosts]
-                event = torch.cuda.Event()
-                event.record(stream)
+            try:
+                with torch.cuda.stream(stream):
+                    placed_runs = [[(n, self.place_layer(n, t, device)) for n, t in host]
+                                   for host in hosts]
+                    event = torch.cuda.Event()
+                    event.record(stream)
+            except BaseException:
+                stream.synchronize()
+                raise
         else:
             placed_runs = [[(n, self.place_layer(n, t, device)) for n, t in host]
                            for host in hosts]
@@ -475,8 +536,20 @@ class ShardWeightSource:
 
     def _build(self, layer_idxs: tuple[int, ...], device: torch.device):
         """One shard built on the host and placed on ``device``: (segments,
-        event)."""
-        return self.place_parts(*self.host_parts(layer_idxs), device)
+        event). The upload retries under the policy (``device_put``), the
+        ``link_throttle`` and ``device_put`` sites fired before anything is
+        queued; the pins were counted once, by the build."""
+        parts, hosts = self.host_parts(layer_idxs)
+
+        def put():
+            if self._injector is not None:
+                # A saturated link stalls; it never errors.
+                self._injector.fire("link_throttle", detail=str(layer_idxs))
+                self._injector.fire("device_put", detail=str(layer_idxs))
+            return self.place_parts(parts, hosts, device)
+
+        return retry_call(put, policy=self._retry, label="device_put", recorder=self.retries,
+                          wrap=ShardLoadError, abort=self._stop.is_set)
 
     def _produce(self, i: int):
         """Shard ``i`` as a queue item (idxs, segments, event, device), with
@@ -548,7 +621,12 @@ class ShardWeightSource:
                     # A producer out of phase would feed one layer's weights to another.
                     raise RuntimeError(f"weight source out of phase: built shard {item[0]} at "
                                        f"the position of shard {idxs}")
-                yield idxs, self._ready(item)
+                # Handed out through a slot the frame empties: a suspended
+                # generator must not keep the last shard's weights on the
+                # device while its consumer idles.
+                slot = [item]
+                del item
+                yield idxs, self._ready(slot.pop())
             if not self.cycle:
                 return
 
@@ -603,17 +681,19 @@ class BroadcastShardSource:
                  devices: Sequence[torch.device], prefetch_depth: int = 1,
                  tied_embeddings: bool = False, *, rounds: int = 1, verify_weights: bool = True,
                  host_cache: HostShardCache | None = None, readahead_threads: int = 2,
-                 retry_policy: RetryPolicy | None = None, residency=None):
+                 retry_policy: RetryPolicy | None = None, residency=None,
+                 injector: FaultInjector | None = None):
         self.shards = list(shards)
         self.devices = list(devices)
         self.rounds = rounds
         # The host half of a weight source (no thread of its own): reads,
-        # checks, caches, readahead, and placement on a given device.
+        # checks, caches, readahead, and placement on a given device. Its
+        # reads fire the injector's read sites; a placement is not retried.
         self._loader = ShardWeightSource(
             model_path, layer_names, self.shards, dtype, self.devices[0], prefetch_depth=0,
             tied_embeddings=tied_embeddings, verify_weights=verify_weights,
             host_cache=host_cache, readahead_threads=readahead_threads,
-            retry_policy=retry_policy)
+            retry_policy=retry_policy, injector=injector)
         if residency is not None:
             residency.ensure_pinned_broadcast(self._loader, self.devices,
                                               sorted({i for s in self.shards for i in s}))
@@ -736,7 +816,9 @@ class _BroadcastView:
                                            "(did another DP rank fail?)") from None
             if isinstance(item, _Fault):
                 raise item.error
-            yield idxs, parent._loader._ready(item)
+            slot = [item]  # as in ShardWeightSource.__iter__
+            del item
+            yield idxs, parent._loader._ready(slot.pop())
 
     def close(self) -> None:
         """The shared producer outlives a view: the orchestration closes it."""
@@ -1033,6 +1115,9 @@ class StreamingExecutor:
             integrity_manifest.load_manifest(cfg.model_path) if cfg.verify_weights else None)
         # The process residency tier, or None when hbm_pin_gb resolves to 0.
         self._residency = self._pin_tier()
+        # One chaos injector for this executor's sources and spill stores
+        # (None unless cfg.faults.enabled), as the JAX executor holds one.
+        self._injector = FaultInjector.from_config(cfg.faults)
         self.stats: dict[str, float] = {}
         self.stats_history: list[dict[str, float]] = []
 
@@ -1041,11 +1126,12 @@ class StreamingExecutor:
                                   self.device)
 
     def weight_source(self, n_passes: int = 1, start: int = 0, shards=None,
-                      devices=None) -> tuple[ShardWeightSource, StreamStats]:
+                      devices=None, injector=None) -> tuple[ShardWeightSource, StreamStats]:
         """One source over ``n_passes`` passes of the shard list from shard
         ``start`` (a resumed run's) — or of ``shards`` on their ``devices``
         (an MP decode's stages) — on the process host cache and residency
-        tier, and the baselines of its stats."""
+        tier, and the baselines of its stats. ``injector``: the source's
+        (default: the executor's)."""
         cfg = self.cfg
         cache = cache_for(cfg)
         tier = self._residency
@@ -1057,6 +1143,7 @@ class StreamingExecutor:
             verify_weights=cfg.verify_weights, host_cache=cache,
             readahead_threads=cfg.readahead_threads, retry_policy=cfg.retry_policy(),
             residency=tier, devices=None if devices is None else list(devices) * n_passes,
+            injector=self._injector if injector is None else injector,
         )
         return source, stats
 
@@ -1070,7 +1157,7 @@ class StreamingExecutor:
             cfg.storage_location, self.device, self.dtype, cfg.disk_folder,
             max_in_cpu=cfg.max_activation_in_cpu, batch=batch, integrity=source.integrity,
             retry_policy=cfg.retry_policy(), retry_recorder=source.retries,
-            device_rank=self.plan.device_rank, rank_tag=self._rank_tag(),
+            device_rank=self.plan.device_rank, rank_tag=self._rank_tag(), injector=self._injector,
         )
 
     # -- disk-mode crash resume (runtime/resume.py) ---------------------------

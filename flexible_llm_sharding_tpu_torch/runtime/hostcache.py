@@ -19,9 +19,13 @@ re-stats them, so a rewritten or rotted file drops the entry. The loader
 calls :meth:`HostShardCache.invalidate_path` when it quarantines a file.
 
 Budget: ``FrameworkConfig.host_cache_gb``, an explicit number of GB, 0 for
-off, or None for auto: ``AUTO_FRACTION`` of the host's available RAM. The
-JAX module's trace instants, metrics registration and brownout cap wait for
-ROADMAP item 8.
+off, or None for auto: ``AUTO_FRACTION`` of the host's available RAM (off
+while fault injection is on). The brownout ladder's ``cache_shrink`` rung
+(``runtime/pressure.py``) shrinks the live cache with
+:func:`apply_pressure_cap` and latches the cap, so no later ``cache_for``
+grows it back while the brownout holds; :func:`lift_pressure_cap` restores
+the budget the process would run at without the cap. The JAX module's trace
+instants and metrics registration wait for ROADMAP item 7.
 """
 
 from __future__ import annotations
@@ -198,6 +202,12 @@ class HostShardCache:
 # so the generation loop's passes and the decode steps meet here.
 _PROCESS_CACHE: HostShardCache | None = None
 _PROCESS_BUDGET_EXPLICIT = False
+# The brownout cap: while set, no budget resolution may exceed it.
+# _PRESSURE_INTENDED is the budget the process would run at without the cap
+# (every resolution that lands mid-brownout moves it by the usual
+# precedence), which the lift installs.
+_PRESSURE_CAP: int | None = None
+_PRESSURE_INTENDED: int | None = None
 _PROCESS_LOCK = threading.Lock()
 
 
@@ -205,22 +215,38 @@ def cache_for(cfg) -> HostShardCache | None:
     """The process cache sized by ``cfg.effective_host_cache_bytes()``, or
     None when that is 0. An auto budget only ever grows an auto-sized cache
     (the cache's own entries lower MemAvailable); an explicit budget wins
-    exactly (a shrink evicts) and pins the cap against later auto configs."""
+    exactly (a shrink evicts) and pins the cap against later auto configs.
+    A live brownout cap bounds every resolution; the budget it holds back
+    is remembered for :func:`lift_pressure_cap`."""
     budget = cfg.effective_host_cache_bytes()
     if budget <= 0:
         return None
     explicit = cfg.host_cache_gb is not None
-    global _PROCESS_CACHE, _PROCESS_BUDGET_EXPLICIT
+    global _PROCESS_CACHE, _PROCESS_BUDGET_EXPLICIT, _PRESSURE_INTENDED
     with _PROCESS_LOCK:
+        cap = _PRESSURE_CAP
         if _PROCESS_CACHE is None:
+            if cap is not None:
+                _PRESSURE_INTENDED = budget
+                budget = min(budget, max(cap, 1))
             _PROCESS_CACHE = HostShardCache(budget)
             _PROCESS_BUDGET_EXPLICIT = explicit
         elif explicit:
+            if cap is not None:
+                _PRESSURE_INTENDED = budget
+                budget = min(budget, max(cap, 1))
             if _PROCESS_CACHE.budget_bytes != budget:
                 _PROCESS_CACHE.set_budget(budget)
             _PROCESS_BUDGET_EXPLICIT = True
-        elif not _PROCESS_BUDGET_EXPLICIT and budget > _PROCESS_CACHE.budget_bytes:
-            _PROCESS_CACHE.set_budget(budget)
+        elif not _PROCESS_BUDGET_EXPLICIT:
+            base = (_PRESSURE_INTENDED if cap is not None and _PRESSURE_INTENDED is not None
+                    else _PROCESS_CACHE.budget_bytes)
+            if budget > base:
+                if cap is not None:
+                    _PRESSURE_INTENDED = budget
+                    budget = min(budget, max(cap, 1))
+                if budget > _PROCESS_CACHE.budget_bytes:
+                    _PROCESS_CACHE.set_budget(budget)
         return _PROCESS_CACHE
 
 
@@ -230,22 +256,66 @@ def process_cache() -> HostShardCache | None:
         return _PROCESS_CACHE
 
 
+def apply_pressure_cap(shrink_frac: float) -> int | None:
+    """The ladder's ``cache_shrink`` rung: shrink the live cache to
+    ``shrink_frac`` of its budget (least recently used entries go first;
+    the others keep serving hits) and latch that cap. Returns the budget
+    before the shrink, or None when no cache is live."""
+    global _PRESSURE_CAP, _PRESSURE_INTENDED
+    with _PROCESS_LOCK:
+        cache = _PROCESS_CACHE
+        if cache is None:
+            return None
+        prev = cache.budget_bytes
+        _PRESSURE_CAP = max(int(prev * shrink_frac), 1)
+        _PRESSURE_INTENDED = prev
+        cap = _PRESSURE_CAP
+    cache.set_budget(cap)  # the evictions run off the process lock
+    return prev
+
+
+def lift_pressure_cap(restore_bytes: int | None = None) -> None:
+    """Undo :func:`apply_pressure_cap`: drop the latch and install the
+    intended budget (so an explicit budget given mid-brownout holds);
+    ``restore_bytes`` is the fallback when none is recorded."""
+    global _PRESSURE_CAP, _PRESSURE_INTENDED
+    with _PROCESS_LOCK:
+        _PRESSURE_CAP = None
+        intended, _PRESSURE_INTENDED = _PRESSURE_INTENDED, None
+        cache = _PROCESS_CACHE
+    target = intended if intended is not None else restore_bytes
+    if cache is not None and target and target != cache.budget_bytes:
+        cache.set_budget(target)
+
+
+def pressure_cap() -> int | None:
+    """The live brownout cap, if any."""
+    with _PROCESS_LOCK:
+        return _PRESSURE_CAP
+
+
 def reset_process_cache() -> None:
-    """Drop the process cache (tests; one process serving several models)."""
-    global _PROCESS_CACHE, _PROCESS_BUDGET_EXPLICIT
+    """Drop the process cache and the brownout latch (tests; one process
+    serving several models)."""
+    global _PROCESS_CACHE, _PROCESS_BUDGET_EXPLICIT, _PRESSURE_CAP, _PRESSURE_INTENDED
     with _PROCESS_LOCK:
         if _PROCESS_CACHE is not None:
             _PROCESS_CACHE.clear()
         _PROCESS_CACHE = None
         _PROCESS_BUDGET_EXPLICIT = False
+        _PRESSURE_CAP = None
+        _PRESSURE_INTENDED = None
 
 
 __all__ = [
     "AUTO_FRACTION",
     "HostShardCache",
+    "apply_pressure_cap",
     "auto_budget_bytes",
     "available_host_bytes",
     "cache_for",
+    "lift_pressure_cap",
+    "pressure_cap",
     "process_cache",
     "reset_process_cache",
     "stat_guard",

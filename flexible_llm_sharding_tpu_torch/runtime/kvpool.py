@@ -45,9 +45,12 @@ prompt's total length through the rope-table switch.
   either package restores the other's.
 
 One ``threading.RLock`` guards the pool's state; spill file I/O runs off
-the lock. Not ported yet, each raising ``NotImplementedError``: the
-brownout lever ``pressure_evict``/``pressure_restore`` and the chaos
-``set_injector``.
+the lock. The brownout ladder's ``kv_evict`` rung (``runtime/pressure.py``)
+calls :func:`process_pressure_evict`: every pool's effective budget latches
+to 0 and its unleased pages spill (or drop) until
+:func:`process_pressure_restore`. Under chaos (``set_injector``) a page's
+spill read may come back with one bit flipped (``corrupt_activation``),
+which its checksum catches and a re-read heals.
 """
 
 from __future__ import annotations
@@ -68,8 +71,6 @@ from flexible_llm_sharding_tpu_torch.runtime.activations import (
     _to_numpy,
 )
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import available_host_bytes
-
-_FAULTS_SLICE = "ROADMAP queue 1: faults, pressure and observability"
 
 
 class _Page:
@@ -179,6 +180,8 @@ class KVPagePool:
         self.entries_exported = 0  # guarded by: _lock
         self.entries_restored = 0  # guarded by: _lock
         self.restore_failures = 0  # guarded by: _lock
+        self._injector = None  # guarded by: _lock
+        self._pressure_evicting = False  # guarded by: _lock
 
     # -- configuration -----------------------------------------------------
 
@@ -188,8 +191,10 @@ class KVPagePool:
         self._enforce_budget()
 
     def set_injector(self, injector) -> None:
-        raise NotImplementedError(
-            f"fault injection into the KV pool's spill reads is not ported yet ({_FAULTS_SLICE})")
+        """Chaos only: ``corrupt_activation`` fires on every page spill
+        read (None turns it off)."""
+        with self._lock:
+            self._injector = injector
 
     # -- lease lifecycle ---------------------------------------------------
 
@@ -434,7 +439,7 @@ class KVPagePool:
         budget; spill writes run off the lock (whole-or-absent files)."""
         while True:
             with self._lock:
-                if self.bytes_resident <= self.budget_bytes:
+                if self.bytes_resident <= self._effective_budget():
                     return
                 page = self._pick_victim()
                 if page is None:
@@ -514,6 +519,7 @@ class KVPagePool:
                 return
             paths = page.paths
             dtype = self._dtype
+            injector = self._injector
         tensors = []
         healed = False
         for path in paths:
@@ -524,6 +530,8 @@ class KVPagePool:
             for attempt in range(_SPILL_REREAD_ATTEMPTS):
                 try:
                     arr = np.load(path)
+                    if injector is not None:
+                        arr = injector.corrupt_array("corrupt_activation", arr, detail=path)
                 except (OSError, ValueError, EOFError) as e:
                     last, decode_failure, arr = e, True, None
                     continue
@@ -556,13 +564,27 @@ class KVPagePool:
 
     # -- brownout lever ------------------------------------------------------
 
+    def _effective_budget(self) -> int:
+        # Caller holds _lock.
+        return 0 if self._pressure_evicting else self.budget_bytes
+
     def pressure_evict(self) -> int:
-        raise NotImplementedError(
-            f"the brownout ladder's kv_evict lever is not ported yet ({_FAULTS_SLICE})")
+        """The ``kv_evict`` rung: latch the effective budget to 0 and evict
+        every unleased resident page now (spilled with ``host_spill``,
+        else dropped and its entries unsealed). Returns the pages this
+        call spilled."""
+        with self._lock:
+            self._pressure_evicting = True
+            before = self.pages_evicted
+        self._enforce_budget()
+        with self._lock:
+            return self.pages_evicted - before
 
     def pressure_restore(self) -> None:
-        raise NotImplementedError(
-            f"the brownout ladder's kv_evict lever is not ported yet ({_FAULTS_SLICE})")
+        """Release the rung: the budget applies again and spilled pages
+        reload on demand through the verified read."""
+        with self._lock:
+            self._pressure_evicting = False
 
     # -- observability -------------------------------------------------------
 
@@ -579,7 +601,7 @@ class KVPagePool:
                 "pages_spilled": sum(1 for p in self._pages
                                      if not p.resident and p.paths is not None),
                 "bytes_resident": self.bytes_resident,
-                "budget_bytes": self.budget_bytes,
+                "budget_bytes": self._effective_budget(),
                 "entries_sealed": self.entries_sealed,
                 "entries_exported": self.entries_exported,
                 "entries_restored": self.entries_restored,
@@ -651,6 +673,17 @@ def process_pools() -> list[KVPagePool]:
         return list(_POOLS.values())
 
 
+def process_pressure_evict() -> int:
+    """The ladder's ``kv_evict`` engage: every pool's pages evicted."""
+    return sum(pool.pressure_evict() for pool in process_pools())
+
+
+def process_pressure_restore() -> None:
+    """The ladder's ``kv_evict`` release."""
+    for pool in process_pools():
+        pool.pressure_restore()
+
+
 def process_stats() -> dict:
     """Counters summed over every live pool (usually one), pre-seeded."""
     agg = {k: 0 for k in KVPagePool.COUNTERS + (
@@ -682,6 +715,8 @@ __all__ = [
     "PrefixHandle",
     "pool_for",
     "process_pools",
+    "process_pressure_evict",
+    "process_pressure_restore",
     "process_stats",
     "process_summary",
     "reset_process_pools",

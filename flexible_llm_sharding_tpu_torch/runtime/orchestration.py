@@ -36,6 +36,7 @@ from flexible_llm_sharding_tpu_torch.config import (
     indexed_device,
     resolve_device,
 )
+from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.parallel.planner import (
     batch_ranges,
     plan_shards_dp,
@@ -167,6 +168,7 @@ def _broadcast(cfg: FrameworkConfig, model_cfg, layer_names, shards, devices, ro
         model_cfg.tie_word_embeddings, rounds=rounds, verify_weights=cfg.verify_weights,
         host_cache=cache, readahead_threads=cfg.readahead_threads,
         retry_policy=cfg.retry_policy(), residency=tier,
+        injector=FaultInjector.from_config(cfg.faults),
     )
     return source, host_stats, tier
 

@@ -35,6 +35,7 @@ import torch
 
 from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, LlamaConfig, indexed_device
 from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
+from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.parallel.planner import batch_ranges, global_stage_order
 from flexible_llm_sharding_tpu_torch.runtime import residency, resume
 from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore, batch_tag
@@ -146,6 +147,7 @@ class PipelineRunner:
             verify_weights=cfg.verify_weights, host_cache=cache,
             readahead_threads=cfg.readahead_threads, retry_policy=cfg.retry_policy(),
             residency=tier, devices=[self.devices[r] for (_, r, _) in stages],
+            injector=FaultInjector.from_config(cfg.faults),
         )
         store = ActivationStore(
             cfg.storage_location, self.devices[0], self.dtype, cfg.disk_folder,

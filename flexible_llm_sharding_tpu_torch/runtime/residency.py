@@ -27,8 +27,15 @@ int8 or int4 layer is dequantized to the compute dtype on placement, so it
 holds 2-4x its charge on the device: leave headroom. ``pinned_bytes``
 reports the bytes on the device, and ``peak_mem_gb`` is floored at them.
 
-The JAX tier's trace spans, metrics registration, brownout demotion and
-broadcast pins wait for ROADMAP items 5 and 8.
+The brownout ladder's ``pin_evict`` rung (``runtime/pressure.py``) calls
+:meth:`DeviceResidencyTier.pressure_unpin`: the plan becomes empty, no
+``tier_for`` or ``_install_plan`` re-plans it while the demotion holds,
+and, unlike the JAX tier, the tier drops its placed trees, so the card's
+memory falls by the pinned bytes once the shards in flight are consumed
+(a live source streams its frozen pins from then on; the segment lists are
+the same either way). :meth:`~DeviceResidencyTier.pressure_restore`
+reinstalls the plan, and the pins reload on their next request. The JAX
+tier's trace spans and metrics registration wait for ROADMAP item 7.
 """
 
 from __future__ import annotations
@@ -236,6 +243,10 @@ class DeviceResidencyTier:
         self.stream_bytes_saved = 0
         self.pin_loads = 0
         self.pin_failures = 0
+        # The brownout demotion: while True the plan is empty, nothing
+        # re-plans it, and pressure_restore() reinstalls _saved_plan.
+        self.pressure_demoted = False  # guarded by: _lock
+        self._saved_plan: ResidencyPlan | None = None  # guarded by: _lock
 
     def is_pinned(self, idx: int) -> bool:
         with self._lock:
@@ -251,7 +262,8 @@ class DeviceResidencyTier:
     def segments(self, idx: int, device, loader) -> list:
         """The pinned layer's placed ``[(name, params)]`` on ``device``,
         pinned on first request. A failed load demotes the layer and
-        re-raises the loader's error."""
+        re-raises the loader's error. While a brownout demotion holds, a
+        layer not placed is loaded for this one use and not seated."""
         key = placement_key(device)
         while True:
             with self._lock:
@@ -260,12 +272,18 @@ class DeviceResidencyTier:
                     return hit
                 if idx in self._failed:
                     raise checkpoint_unavailable(self.layer_names[idx])
+                if self.pressure_demoted:
+                    gate = None
+                    break
                 gate = self._inflight.get((key, idx))
                 if gate is None:
                     gate = threading.Event()
                     self._inflight[(key, idx)] = gate
                     break
             gate.wait()  # another caller loads it: re-check when it is done
+        if gate is None:
+            host = loader.build_host_shard((idx,))
+            return [(name, loader.place_layer(name, tree, device)) for name, tree in host]
         try:
             host = loader.build_host_shard((idx,))
             placed = [(name, loader.place_layer(name, tree, device)) for name, tree in host]
@@ -370,13 +388,47 @@ class DeviceResidencyTier:
                 "pin_loads": self.pin_loads,
                 "pin_failures": self.pin_failures,
                 "budget_bytes": self.plan.budget_bytes,
+                "pressure_demoted": int(self.pressure_demoted),
             }
 
     def _install_plan(self, plan: ResidencyPlan) -> None:
         """A shrink drops layers from the plan for future sources; placed
-        trees stay (live sources froze their pin sets)."""
+        trees stay (live sources froze their pin sets). Refused while a
+        brownout demotion holds: a plan made before it must not re-pin."""
         with self._lock:
+            if self.pressure_demoted:
+                return
             self.plan = plan
+
+    def pressure_unpin(self) -> int:
+        """The ladder's ``pin_evict`` rung: install an empty plan, latch
+        the demotion and drop every placed tree (the memory frees with the
+        last reference, a shard in flight's). Returns the planned layers
+        demoted (0 when already demoted)."""
+        with self._lock:
+            if self.pressure_demoted:
+                return 0
+            demoted = len(self.plan.pinned)
+            self._saved_plan = self.plan
+            self.plan = ResidencyPlan(budget_bytes=0, pinned=(),
+                                      layer_bytes=self.plan.layer_bytes,
+                                      skipped=tuple(range(len(self.layer_names))))
+            self.pressure_demoted = True
+            self._placed.clear()
+            self._dev_bytes.clear()
+        return demoted
+
+    def pressure_restore(self) -> int:
+        """Undo :meth:`pressure_unpin`: reinstall the saved plan (the pins
+        reload on their next request). Returns the layers planned again."""
+        with self._lock:
+            if not self.pressure_demoted:
+                return 0
+            saved, self._saved_plan = self._saved_plan, None
+            if saved is not None:
+                self.plan = saved
+            self.pressure_demoted = False
+            return len(self.plan.pinned)
 
 
 # -- the process tier ----------------------------------------------------------
@@ -405,7 +457,9 @@ def tier_for(cfg, layer_names: Sequence[str], tied_embeddings: bool,
     with _PROCESS_LOCK:
         tier = _PROCESS_TIER if _PROCESS_TIER is not None and _PROCESS_TIER_KEY == key else None
         if tier is not None:
-            if explicit:
+            if tier.pressure_demoted:
+                resize = False  # no re-plan until the brownout lifts
+            elif explicit:
                 resize = tier.plan.budget_bytes != budget
                 if not resize:
                     _PROCESS_BUDGET_EXPLICIT = True

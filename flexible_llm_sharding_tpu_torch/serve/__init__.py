@@ -3,8 +3,8 @@ over the streaming decode runtime (the JAX package's ``serve/``, single
 engine).
 
 - ``request`` — requests, their status machine and typed outcomes.
-- ``queue``   — the admission queue: backpressure, deadline eviction,
-  drain and shutdown.
+- ``queue``   — the admission queue: backpressure, brownout shedding
+  (``Overloaded``), deadline eviction, drain and shutdown.
 - ``batcher`` — waves admitted at shard-0 boundaries of the weight sweep,
   so a join never prefills an in-flight request again.
 - ``engine``  — the serving loop over the streamed or resident weights,
@@ -25,6 +25,7 @@ LoRA adapters are ``flexible_llm_sharding_tpu_torch.adapters``.
 
 from flexible_llm_sharding_tpu_torch.serve.request import (  # noqa: F401
     DeadlineExceeded,
+    Overloaded,
     QueueFull,
     Request,
     RequestResult,

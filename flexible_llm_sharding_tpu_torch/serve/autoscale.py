@@ -19,10 +19,10 @@ between ``AutoscaleConfig.min`` and ``max``:
   flight, and no decision at all until the WAL replay is done;
 - ``dry_run`` decides and counts without acting.
 
-The brownout interlock reads ``fleet._pressure``, which stays None in the
-port until the brownout controller is ported (ROADMAP queue 1 item 7): the
-interlock then never blocks. The JAX controller's journal events and trace
-instants are not ported either; every decision is counted in
+The brownout interlock reads ``fleet._pressure``, the process controller
+of ``runtime/pressure.py`` (None with pressure off: the interlock never
+blocks). The JAX controller's journal events and trace instants are not
+ported (ROADMAP item 7); every decision is counted in
 :meth:`FleetAutoscaler.stats` (``grows``, ``shrinks``, ``blocked``,
 ``dry_run_decisions``).
 
@@ -245,7 +245,7 @@ class FleetAutoscaler:
         return self.fleet.queue_frac()
 
     def _default_pressure(self) -> bool:
-        # The brownout controller is not ported: the fleet's _pressure is None.
+        # The fleet's process brownout controller (None when pressure is off).
         ctrl = getattr(self.fleet, "_pressure", None)
         return ctrl is not None and ctrl.at_or_above("shed")
 

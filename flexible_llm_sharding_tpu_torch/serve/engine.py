@@ -89,10 +89,18 @@ the card by the error that every future holds.
 On a card the worker thread sets its device before any CUDA call and runs
 every launch on that device's current stream of its own thread; the serve
 sweep runs eager (no CUDA graph), so N engine threads on one card never
-launch into another thread's capture. Greedy selection only. Not ported
-yet, each raising where its flag is parsed (the serve CLI): the brownout
-controller, the fault sites other than the fleet's two, tracing and the
-metrics endpoint.
+launch into another thread's capture. Greedy selection only.
+
+Faults and pressure: under chaos (``FrameworkConfig.faults``) one injector
+serves the engine's weight sources (the read and upload sites), its
+admission queue (``queue_admission``), the KV pool and the adapter store
+(the corruption sites), and ``engine_step``, fired at every shard step
+after the fleet's hook; an injected ``engine_step`` fault is an ``OSError``
+and takes the recovery above. With ``FrameworkConfig.pressure`` the process
+brownout controller (``runtime/pressure.py``) sheds through this engine's
+queue and backs its speculation off, and its counters make the stats line's
+``pressure`` block. Not ported yet, each raising where its flag is parsed
+(the serve CLI): tracing and the metrics endpoint.
 """
 
 from __future__ import annotations
@@ -118,14 +126,14 @@ from flexible_llm_sharding_tpu_torch.config import (
     ServeConfig,
     resolve_device,
 )
-from flexible_llm_sharding_tpu_torch.faults.inject import require_armed
+from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.faults.retry import ShardLoadError
 from flexible_llm_sharding_tpu_torch.integrity.manifest import SpillCorruptError
 from flexible_llm_sharding_tpu_torch.models import llama
 from flexible_llm_sharding_tpu_torch.obs.slo import SLOTracker
 from flexible_llm_sharding_tpu_torch.ops import cuda_build
 from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
-from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, residency
+from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, pressure, residency
 from flexible_llm_sharding_tpu_torch.runtime.decode import (
     KVStore,
     SpecVerifier,
@@ -234,7 +242,6 @@ class ServeEngine:
     def __init__(self, cfg: FrameworkConfig, serve_cfg: ServeConfig | None = None, tokenizer=None,
                  device: torch.device | None = None, start: bool = True,
                  scheduler=None, wal=None):
-        require_armed(cfg.faults, "ServeEngine")
         if cfg.temperature > 0:
             raise ValueError("serving is greedy-only (per-request rng streams under sampling are "
                              "not supported); set temperature=0")
@@ -271,6 +278,9 @@ class ServeEngine:
         self._rope_on = llama.layer_rope_pattern(self.model_cfg)
         self._resident = cfg.decode_resident_enabled(self.model_cfg, 1, self.device)
         self.metrics = ServingMetrics()
+        # The chaos injector (None unless cfg.faults.enabled), handed to the
+        # queue, every source, the pool and the adapter store.
+        self._injector = FaultInjector.from_config(cfg.faults)
         # The process host shard cache: a streamed engine's later sweeps,
         # and a recovery's new source, read from it.
         self._host_cache = hostcache.cache_for(cfg)
@@ -294,7 +304,14 @@ class ServeEngine:
         self.queue = AdmissionQueue(self.serve_cfg.queue_capacity, metrics=self.metrics,
                                     max_request_tokens=self.serve_cfg.max_request_tokens,
                                     size_fn=self._request_size_tokens, scheduler=self._sched,
-                                    wal=self._wal)
+                                    wal=self._wal, injector=self._injector)
+        # The process brownout controller (None unless cfg.pressure.enabled):
+        # attached after the queue is built, so an engine that joins
+        # mid-brownout sheds at once.
+        self._pressure = pressure.controller_for(cfg, self.device)
+        if self._pressure is not None:
+            self._pressure.attach_queue(self.queue)
+            self.metrics.register("pressure", self._pressure.stats)
         # The resident draft model, pinned whole through its own tier; a
         # layer that does not pin fails construction.
         self._draft_model = None
@@ -303,7 +320,8 @@ class ServeEngine:
 
             self._draft_model = DraftModel(self.serve_cfg.draft_model_path, self.device,
                                            self.dtype, retry_policy=cfg.retry_policy(),
-                                           verify_weights=cfg.verify_weights)
+                                           verify_weights=cfg.verify_weights,
+                                           injector=self._injector)
             self.metrics.register("draft", self._draft_model.stats)
         self._spec_ctrl = None
         if self.serve_cfg.spec_adaptive:
@@ -314,6 +332,8 @@ class ServeEngine:
                                              sc.spec_window, sc.spec_raise_threshold,
                                              sc.spec_backoff_threshold, sc.spec_draft_budget)
             self.metrics.register("spec_ctrl", self._spec_ctrl.stats)
+            if self._pressure is not None:
+                self._pressure.attach_spec(self._spec_ctrl)
         # The scheduling policy shared with the offline DecodeGenerator.
         self._sched_core = SchedCore(cfg)
         # The paged prefix-KV pool. Longrope models opt out: their prefix
@@ -321,10 +341,12 @@ class ServeEngine:
         self._kv_pool = (None if self.model_cfg.rope_scaling_kind == "longrope"
                          else kvpool.pool_for(cfg))
         if self._kv_pool is not None:
+            self._kv_pool.set_injector(self._injector)
             self.metrics.register("kvpool", kvpool.process_stats)
         # The process store of LoRA factors; None without --adapter_dir.
         self._adapter_store = adapter_loader.store_for(cfg)
         if self._adapter_store is not None:
+            self._adapter_store.injector = self._injector
             self.metrics.register("adapter", self._adapter_store.stats)
         self.batcher = ShardAwareBatcher(
             self.queue, self.serve_cfg.max_wave_requests, self.serve_cfg.max_active_requests,
@@ -410,7 +432,16 @@ class ServeEngine:
         stop. Returns whether the loop ended within ``timeout``."""
         return self.shutdown(drain=True, timeout=timeout)
 
+    def _detach_pressure(self) -> None:
+        """Stop being a shed and a spec_backoff target (a recycled replica's
+        new engine attaches its own)."""
+        if self._pressure is not None:
+            self._pressure.detach_queue(self.queue)
+            if self._spec_ctrl is not None:
+                self._pressure.detach_spec(self._spec_ctrl)
+
     def shutdown(self, drain: bool = True, timeout: float | None = None) -> bool:
+        self._detach_pressure()
         self.queue.close(drain=drain)
         ok = True
         if self._thread is not None:
@@ -429,6 +460,7 @@ class ServeEngine:
         WAL this is ``shutdown(drain=False)``."""
         if self._wal is None:
             return self.shutdown(drain=False, timeout=timeout)
+        self._detach_pressure()
         self.queue.close(drain=False, persist=True)
         self._restart_pending = True
         ok = True
@@ -648,6 +680,9 @@ class ServeEngine:
             if w.state is not None:
                 w.state.kv_store.clear()
                 self._release_pool_handles(w.state)
+        # The root's finished frames would keep the sweep's shard and
+        # activations on the card for as long as a failed future lives.
+        _clear_frames(root)
         err = WaveAborted(
             f"in-flight wave aborted by a recoverable engine fault ({type(root).__name__}: "
             f"{root}); the engine recovered and keeps serving — resubmit")
@@ -678,7 +713,8 @@ class ServeEngine:
             cfg.prefetch_depth, self.model_cfg.tie_word_embeddings,
             verify_weights=cfg.verify_weights, host_cache=self._host_cache,
             readahead_threads=cfg.readahead_threads, retry_policy=cfg.retry_policy(),
-            residency=self._residency, cycle=cycle,
+            residency=self._residency, cycle=cycle, injector=self._injector,
+            retry_recorder=self.metrics.retries, integrity_recorder=self.metrics.integrity,
         )
 
     def _acquire_weights(self) -> None:
@@ -993,6 +1029,8 @@ class ServeEngine:
                 # replica_kill raises the engine-fatal ReplicaKilled,
                 # replica_stall wedges this thread until the fleet releases it.
                 self.fleet_hook(shard_pos)
+            if self._injector is not None:
+                self._injector.fire("engine_step", detail=f"shard{shard_pos}")
             if (self._crash_sweeps and self._sweeps_done >= self._crash_sweeps
                     and (shard_pos > 0 or len(self.shards) == 1)):
                 # The process-death drill: no cleanup, nothing flushed

@@ -42,8 +42,14 @@ replica (``ServeEngine.fleet_hook``). ``replica_kill`` raises the
 engine-fatal ``ReplicaKilled`` inside the victim's sweep; ``replica_stall``
 wedges its thread until the fleet releases it, at hard-fail or shutdown.
 Each site's schedule is deterministic in its call count; which replica
-takes a draw depends on the threads' interleaving. The other fault sites
-are refused (``require_armed``).
+takes a draw depends on the threads' interleaving. The other sites fire in
+each replica's engine, from its own injector.
+
+Brownout (``runtime/pressure.py``): with ``FrameworkConfig.pressure`` the
+fleet attaches itself to the process controller, whose ``replica_drain``
+rung drains the fleet to one replica (``pressure_drain``) and whose release
+restores it (``pressure_restore``); the autoscaler's interlock reads the
+same controller. Each replica's engine sheds through its own queue.
 
 On a card, the replicas' threads share one CUDA context: each launches on
 its own thread's current stream of the fleet's device, and every sweep runs
@@ -56,9 +62,7 @@ fleet's shutdown, so a shutdown that returns True leaves no thread.
 Not ported from the JAX fleet (ROADMAP queue 1 item 7): the process metrics
 registry and its endpoint, the event journal, incident bundles and trace
 instants (``replica_dead``, ``replica_drain``, ``replica_recycled``,
-``redispatch``, ``replica_kill``, ``replica_stall``), and the brownout
-controller (``self._pressure`` stays None, so ``pressure_drain`` and
-``pressure_restore`` run only when called). In their place :meth:`stats`
+``redispatch``, ``replica_kill``, ``replica_stall``). In their place :meth:`stats`
 carries the sources the JAX fleet registers (``router``, the shared
 ``sched``, ``autoscale``, the stagger controller's ``fleet`` source under
 ``stagger``, one entry per replica) and the router counters count what the
@@ -80,11 +84,8 @@ from flexible_llm_sharding_tpu_torch.config import (
     ServeConfig,
     resolve_device,
 )
-from flexible_llm_sharding_tpu_torch.faults.inject import (
-    FaultInjector,
-    InjectedFault,
-    require_armed,
-)
+from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector, InjectedFault
+from flexible_llm_sharding_tpu_torch.runtime import pressure
 from flexible_llm_sharding_tpu_torch.serve.autoscale import FleetAutoscaler, StaggerController
 from flexible_llm_sharding_tpu_torch.serve.engine import ServeEngine
 from flexible_llm_sharding_tpu_torch.serve.request import (
@@ -160,7 +161,6 @@ class ReplicaFleet:
 
     def __init__(self, cfg: FrameworkConfig, serve_cfg: ServeConfig | None = None, tokenizer=None,
                  device: torch.device | None = None, start: bool = True):
-        require_armed(cfg.faults, "ReplicaFleet")
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
         self._tokenizer = tokenizer
@@ -187,10 +187,12 @@ class ReplicaFleet:
         # Tokens of the caller requests resolved (not of abandoned attempts).
         self._tokens_served = 0  # guarded by: _lock
         self._started = False
-        # The brownout controller is not ported (ROADMAP queue 1 item 7):
-        # nothing drains the fleet for pressure, and the autoscaler's
-        # pressure interlock never blocks.
-        self._pressure = None
+        # The process brownout controller (None unless cfg.pressure.enabled):
+        # its replica_drain rung drains this fleet, and the autoscaler's
+        # interlock reads it.
+        self._pressure = pressure.controller_for(cfg, self._device)
+        if self._pressure is not None:
+            self._pressure.attach_fleet(self)
         # One scheduler for every replica: per-replica buckets would
         # multiply each tenant's rate by the replica count.
         self._sched = (SweepScheduler(self.serve_cfg.sched) if self.serve_cfg.sched.enabled
@@ -284,6 +286,8 @@ class ReplicaFleet:
         """Stop every replica (serving out what is queued and in flight with
         ``drain``) and join every thread the fleet started. Returns whether
         all ended within ``timeout`` each."""
+        if self._pressure is not None:
+            self._pressure.detach_fleet(self)
         self._close_front(ServeClosed("replica fleet shut down before dispatch"))
         # After the monitor stopped: a recycle racing the shutdown could
         # otherwise add an engine this loop never sees.
@@ -302,6 +306,8 @@ class ReplicaFleet:
         serves all of it. Without a WAL this is ``shutdown(drain=False)``."""
         if self._wal is None:
             return self.shutdown(drain=False, timeout=timeout)
+        if self._pressure is not None:
+            self._pressure.detach_fleet(self)
         self._close_front(RestartPending("replica fleet restarting; request parked for replay"))
         with self._lock:
             replicas = list(self._replicas)

@@ -6,6 +6,13 @@ boundaries, first in, first out, or through an attached sweep scheduler
 
 - **Backpressure**: a submit to a full queue resolves the request as
   ``QueueFull`` naming the capacity and depth, never a silent drop.
+- **Brownout shedding** (``runtime/pressure.py``): while the ladder sheds,
+  every new submit resolves as ``Overloaded`` with a retry-after hint,
+  before any other check; queued and in-flight requests keep serving, and
+  a fleet's re-dispatch (``shed_exempt``) passes.
+- **Chaos**: with an injector, the ``queue_admission`` site fires once the
+  cheap checks passed; an injected fault resolves the request as a
+  rejection carrying the fault, never a raise into the submitter.
 - **Size cap**: with ``max_request_tokens`` set, a request whose estimated
   prompt tokens and budget exceed it resolves as ``RequestTooLarge``,
   before it takes a slot.
@@ -40,6 +47,7 @@ from collections import deque
 
 from flexible_llm_sharding_tpu_torch.serve.request import (
     DeadlineExceeded,
+    Overloaded,
     QueueFull,
     Request,
     RequestStatus,
@@ -51,12 +59,12 @@ from flexible_llm_sharding_tpu_torch.serve.request import (
 
 class AdmissionQueue:
     def __init__(self, capacity: int, metrics=None, max_request_tokens: int = 0, size_fn=None,
-                 scheduler=None, wal=None):
+                 scheduler=None, wal=None, injector=None):
         """``metrics``: a ``ServingMetrics`` or None. ``size_fn(request)``
         estimates a request's prompt tokens plus budget for the
         ``max_request_tokens`` cap (0 = off). ``scheduler``: a
         ``SweepScheduler`` or None (first in, first out). ``wal``: a
-        ``RequestWAL`` or None."""
+        ``RequestWAL`` or None. ``injector``: a ``FaultInjector`` or None."""
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
@@ -65,9 +73,32 @@ class AdmissionQueue:
         self._size_fn = size_fn
         self._scheduler = scheduler
         self._wal = wal
+        self._injector = injector
         self._lock = threading.Lock()
         self._items: deque[Request] = deque()  # guarded by: _lock
         self._closed = False  # guarded by: _lock
+        # While set, new submits are shed Overloaded with this hint.
+        self._shed_retry_after: float | None = None  # guarded by: _lock
+        self._on_shed = None  # guarded by: _lock
+
+    def set_shedding(self, retry_after_s: float, on_shed=None) -> None:
+        """Reject new submits with ``Overloaded`` carrying
+        ``retry_after_s``; ``on_shed`` (no arguments: the controller's
+        counter) runs once per shed submit, outside the lock."""
+        with self._lock:
+            self._shed_retry_after = float(retry_after_s)
+            self._on_shed = on_shed
+
+    def clear_shedding(self) -> None:
+        """Admit again (the ladder stepped down)."""
+        with self._lock:
+            self._shed_retry_after = None
+            self._on_shed = None
+
+    @property
+    def shedding(self) -> bool:
+        with self._lock:
+            return self._shed_retry_after is not None
 
     def _reject(self, request: Request, error: BaseException, status: RequestStatus) -> Request:
         request.fail(error, status)
@@ -76,10 +107,20 @@ class AdmissionQueue:
         return request
 
     def submit(self, request: Request) -> Request:
-        """Enqueue, or resolve the request as a typed rejection
-        (RequestTooLarge over the size cap, QueueFull at capacity,
-        ServeClosed after shutdown; RateLimited first, with a
-        scheduler)."""
+        """Enqueue, or resolve the request as a typed rejection (Overloaded
+        while shedding, RateLimited with a scheduler, RequestTooLarge over
+        the size cap, an injected fault, QueueFull at capacity, ServeClosed
+        after shutdown)."""
+        with self._lock:
+            shed_after, on_shed = self._shed_retry_after, self._on_shed
+        if shed_after is not None and not request.shed_exempt:
+            hint = f"; retry after ~{shed_after:g}s" if shed_after else ""
+            self._reject(request, Overloaded(
+                f"server is shedding load under resource pressure{hint} (in-flight requests "
+                "keep serving)", retry_after_s=shed_after or None), RequestStatus.REJECTED)
+            if on_shed is not None:
+                on_shed()
+            return request
         if self._scheduler is not None:
             limited = self._scheduler.admit_check(request)
             if limited is not None:
@@ -96,6 +137,12 @@ class AdmissionQueue:
                     f"request {request.request_id}: ~{est} tokens (prompt + max_new_tokens) "
                     f"exceeds the admission cap of {self._max_request_tokens}; split the prompt "
                     "or lower max_new_tokens"), RequestStatus.REJECTED)
+        if self._injector is not None:
+            try:
+                self._injector.fire("queue_admission")
+            except Exception as e:  # noqa: BLE001 — any injected fault is a reasoned rejection
+                self._refund_rate_token(request)
+                return self._reject(request, e, RequestStatus.REJECTED)
         if self._wal is not None:
             self._wal.admit(request)
         evicted: list[Request] = []

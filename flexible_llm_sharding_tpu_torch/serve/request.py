@@ -47,6 +47,17 @@ class QueueFull(RuntimeError):
     the capacity and the depth."""
 
 
+class Overloaded(QueueFull):
+    """A brownout shed (``runtime/pressure.py``): the server refuses new
+    admissions under sustained resource pressure while it serves what is in
+    flight. A ``QueueFull``, so every backpressure handler applies, with
+    ``retry_after_s``, the hint for when to try again."""
+
+    def __init__(self, message: str, retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
 class RequestTooLarge(RuntimeError):
     """The request's estimated prompt tokens plus its budget exceed
     ``ServeConfig.max_request_tokens``; raised at submit, before the request
@@ -252,6 +263,7 @@ class Request:
 
 __all__ = [
     "DeadlineExceeded",
+    "Overloaded",
     "Prompt",
     "QueueFull",
     "Request",

@@ -7,9 +7,12 @@ while they miss. A pass's draft budget is spent on interactive rows first,
 in the scheduler's class order. Verification stays draft-agnostic, so a
 decision here moves only the sweeps per token, never an emitted token.
 
-The JAX controller's brownout lever (``pressure_backoff``/
-``pressure_restore``) and its journal events come with the port's pressure
-controller and journal (ROADMAP queue 1, item 7).
+The controller is also the brownout ladder's first rung
+(``runtime/pressure.py`` ``spec_backoff``): :meth:`SpecController.
+pressure_backoff` stops every draft (k = 0, the plain path) while keeping
+the adapted k's and windows, and :meth:`~SpecController.pressure_restore`
+drafts again at them. The JAX controller's journal events wait for the port
+of ``obs/`` (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -43,8 +46,11 @@ class SpecController:
         self._k = {c: start for c in SLO_CLASSES}
         # Per class since its last decision: [passes, drafted, accepted].
         self._win = {c: [0, 0, 0] for c in SLO_CLASSES}
+        self._backed_off = False
         self.k_raises = 0
         self.k_backoffs = 0
+        self.pressure_backoffs = 0
+        self.pressure_restores = 0
         self.assigned_tokens = 0
         self.budget_clipped_tokens = 0
 
@@ -57,6 +63,8 @@ class SpecController:
         rem = np.asarray(remaining)
         karr = np.zeros(rem.shape, np.int64)
         with self._lock:
+            if self._backed_off:
+                return karr
             budget_left = self.draft_budget if self.draft_budget > 0 else None
             for cls in SLO_CLASSES:
                 k_cls = self._k[cls]
@@ -102,8 +110,27 @@ class SpecController:
                 self._k[slo_class] = k - 1
                 self.k_backoffs += 1
 
+    def pressure_backoff(self) -> None:
+        """The ladder's engage: draft nothing (every row k = 0) until the
+        release; the adapted k's and windows are kept."""
+        with self._lock:
+            if self._backed_off:
+                return
+            self._backed_off = True
+            self.pressure_backoffs += 1
+
+    def pressure_restore(self) -> None:
+        """The ladder's release: draft again at the adapted k's."""
+        with self._lock:
+            if not self._backed_off:
+                return
+            self._backed_off = False
+            self.pressure_restores += 1
+
     def current_k(self, slo_class: str) -> int:
         with self._lock:
+            if self._backed_off:
+                return 0
             return self._k.get(slo_class, self.k_min)
 
     def stats(self) -> dict:
@@ -113,8 +140,11 @@ class SpecController:
             return {
                 "k_raises": self.k_raises,
                 "k_backoffs": self.k_backoffs,
+                "pressure_backoffs": self.pressure_backoffs,
+                "pressure_restores": self.pressure_restores,
                 "assigned_tokens": self.assigned_tokens,
                 "budget_clipped_tokens": self.budget_clipped_tokens,
+                "backed_off": int(self._backed_off),
                 "k_by_class": dict(self._k),
             }
 

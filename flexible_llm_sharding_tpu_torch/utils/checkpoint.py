@@ -385,7 +385,7 @@ def _group_quantized(flat: dict) -> dict:
 
 
 def load_layer(model_path: str, layer_name: str, pin_memory: bool = False,
-               manifest: dict | None = None) -> dict[str, Any]:
+               manifest: dict | None = None, corrupt=None) -> dict[str, Any]:
     """One layer file -> nested dict of CPU tensors in the native layout:
     bit-exact with the stored values for a native file; a file of Hugging
     Face keys (``prepare_weights --layout hf``, the reference's own split)
@@ -398,16 +398,25 @@ def load_layer(model_path: str, layer_name: str, pin_memory: bool = False,
     passed (a mismatch raises the retryable ``ChecksumMismatch``); the
     storage-dtype kind is checked on every load (``PrecisionMismatch``);
     then the layout is converted and quantized kernels are grouped with
-    their scales."""
+    their scales.
+
+    ``corrupt`` (chaos only: ``FaultInjector.corrupt_flat``) is applied to
+    the raw tensors before the check; a load it changed (it returns a new
+    dict then) is always crc-verified and records no verdict, so the
+    injected flip is what the checksum must catch."""
     path = layer_file(model_path, layer_name)
     token = integrity_manifest.verdict_token(model_path, path) if manifest is not None else None
-    flat = read_safetensors(path, pin_memory)
+    flat = raw = read_safetensors(path, pin_memory)
     if token is not None and integrity_manifest.verdict_token(model_path, path) != token:
         token = None  # replaced mid-read: verify these bytes, record nothing
+    if corrupt is not None:
+        flat = corrupt(flat)
     if manifest is not None:
-        if not integrity_manifest.verdict_cached(token):
+        injected = flat is not raw
+        if injected or not integrity_manifest.verdict_cached(token):
             integrity_manifest.verify_flat(layer_name, flat, manifest, path=path)
-            integrity_manifest.record_verdict(token)
+            if not injected:
+                integrity_manifest.record_verdict(token)
         want_kind = (manifest.get("layers", {}).get(layer_name) or {}).get("dtype")
         if want_kind is not None:
             got_kind = integrity_manifest.flat_dtype_kind(flat)

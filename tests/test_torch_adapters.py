@@ -55,7 +55,13 @@ from flexible_llm_sharding_tpu_torch.adapters.registry import (
     convert_peft_checkpoint,
     save_adapter,
 )
-from flexible_llm_sharding_tpu_torch.config import AdapterConfig, FrameworkConfig, ServeConfig
+from flexible_llm_sharding_tpu_torch.config import (
+    AdapterConfig,
+    FaultConfig,
+    FrameworkConfig,
+    ServeConfig,
+)
+from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.integrity.verify import verify_adapter_dir
 from flexible_llm_sharding_tpu_torch.runtime import kvpool
 from flexible_llm_sharding_tpu_torch.serve import Request, ServeEngine
@@ -338,8 +344,15 @@ def test_store_lru_budget_math_matches_jax(tmp_path):
     _, f1 = stores[0].get("a")
     for lname, pair in f0.items():
         assert torch.equal(f1[lname]["lora_A"], pair["lora_A"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        stores[0].injector = object()
+    # A chaos injector is taken: every read of "b" comes back one bit off
+    # until the budget is spent, and the re-reads heal it to the same bytes.
+    stores[0].injector = FaultInjector(FaultConfig(enabled=True, error_rate=1.0, max_faults=2,
+                                                   sites=("corrupt_shard",)))
+    _, fb = stores[0].get("b")
+    assert stores[0].stats()["reread_heals"] == 2
+    _, fb_clean = one_entry.get("b")
+    for lname, pair in fb_clean.items():
+        assert torch.equal(fb[lname]["lora_B"], pair["lora_B"])
 
 
 def test_store_stat_guard_invalidation(tmp_path):

@@ -1330,3 +1330,113 @@ def test_a_fresh_process_reads_an_indexed_cards_memory_stats(gen):
     done = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                           timeout=300)
     assert done.returncode == 0, done.stderr[-2000:]
+
+
+def test_retried_upload_on_the_side_stream_equals_a_clean_upload(gen, tmp_path):
+    """Every shard's upload retried once (device_put at rate 1, link_throttle
+    stalling) on the weight source's side stream: the placed trees equal a
+    clean source's bit for bit, and the scores of a chaos run the clean
+    run's."""
+    from flexible_llm_sharding_tpu_torch.config import FaultConfig
+    from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
+    from flexible_llm_sharding_tpu_torch.faults.retry import RetryPolicy
+    from flexible_llm_sharding_tpu_torch.runtime.executor import ShardWeightSource, _tree_leaves
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import layer_names_for
+
+    model_dir = _decode_model(tmp_path, "llama")
+    n_layers = len([f for f in os.listdir(model_dir) if f.startswith("model.layers.")])
+    names = layer_names_for(n_layers)
+    shards = [(i,) for i in range(len(names))]
+    card = torch.device("cuda", 0)
+
+    def placed(injector):
+        src = ShardWeightSource(model_dir, names, shards, torch.bfloat16, card, prefetch_depth=1,
+                                retry_policy=RetryPolicy(max_attempts=8, base_delay_s=0.0),
+                                injector=injector)
+        try:
+            return [[t.clone() for t in _tree_leaves([p for _, p in segs])] for _, segs in src], src
+        finally:
+            src.close()
+
+    # Three faults: the first shard's upload fails three times, then lands.
+    inj = FaultInjector(FaultConfig(enabled=True, error_rate=1.0, latency_s=0.001,
+                                    sites=("device_put", "link_throttle"), max_faults=3))
+    got, src = placed(inj)
+    want, _ = placed(None)
+    assert inj.count() == 3
+    assert src.retries.snapshot()["device_put"]["recovered"] == 1
+    for a, b in zip(got, want):
+        assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    cfg = _md_cfg(model_dir, tmp_path, faults=FaultConfig(
+        enabled=True, error_rate=0.5, sites=("device_put", "link_throttle"), max_faults=6))
+    clean, _, _, _ = _md_run(_md_cfg(model_dir, tmp_path), [card])
+    chaos, _, calls, counts = _md_run(cfg, [card])
+    _bit_equal(chaos, clean)
+    assert calls[0]["io_retries"] > 0 and all(counts[k] for k in fa.KERNELS[:2])
+
+
+def test_hbm_sampler_on_a_fresh_thread(gen, tmp_path):
+    """``PressureMonitor.sample()`` from a thread that made no CUDA call
+    reads the card's free share as ``1 - memory_allocated / total``, and it
+    falls when a tensor is held and rises when it is dropped."""
+    import threading
+
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, PressureConfig
+    from flexible_llm_sharding_tpu_torch.runtime import pressure
+
+    cfg = FrameworkConfig(disk_folder=str(tmp_path), pressure=PressureConfig(enabled=True))
+    mon = pressure.PressureMonitor(cfg, pressure.BrownoutController(cfg),
+                                   device=torch.device("cuda", 0))
+
+    def sample():
+        out = []
+        t = threading.Thread(target=lambda: out.append(mon.sample().hbm_free_frac))
+        t.start()
+        t.join(60)
+        return out[0]
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    before = sample()
+    assert before is not None and 0.0 < before <= 1.0
+    block = torch.empty(total // 20, dtype=torch.uint8, device="cuda")
+    held = sample()
+    assert before - held >= 0.04
+    del block
+    assert sample() >= held + 0.04
+
+
+def test_pressure_unpin_lowers_memory_allocated(gen, tmp_path):
+    """The ladder's pin_evict rung on a tier holding every layer on the card:
+    ``torch.cuda.memory_allocated`` falls by at least the pinned bytes, a
+    source built meanwhile streams every layer with the same scores, and the
+    restored plan pins them again."""
+    import gc
+
+    from flexible_llm_sharding_tpu_torch.runtime import residency
+
+    model_dir = _decode_model(tmp_path, "llama")
+    card = torch.device("cuda", 0)
+    residency.reset_process_tier()
+    try:
+        want, _, _, _ = _md_run(_md_cfg(model_dir, tmp_path), [card])
+        cfg = _md_cfg(model_dir, tmp_path, hbm_pin_gb=1.0)
+        pinned_run, _, _, _ = _md_run(cfg, [card])
+        tier = residency.process_tier()
+        held = tier.stats()
+        assert held["pinned_layers"] == held["planned_layers"] > 0
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(card)
+        assert tier.pressure_unpin() == held["planned_layers"]
+        gc.collect()
+        torch.cuda.synchronize()
+        assert before - torch.cuda.memory_allocated(card) >= held["pinned_bytes"] > 0
+        demoted_run, _, calls, _ = _md_run(cfg, [card])
+        assert tier.stats()["pinned_bytes"] == 0 and calls[0].get("pin_hits", 0) == 0
+        assert tier.pressure_restore() == held["planned_layers"]
+        restored_run, _, _, _ = _md_run(cfg, [card])
+        assert tier.stats()["pinned_layers"] == held["planned_layers"]
+        for run in (pinned_run, demoted_run, restored_run):
+            _bit_equal(run, want)
+    finally:
+        residency.reset_process_tier()

@@ -8,20 +8,26 @@ package's, on the CPU.
 - ``corrupt_flat`` and ``corrupt_array`` on tensors give the bytes JAX's
   give on the same arrays.
 - ``FaultConfig`` validates as JAX's does.
-- Armed sites: an engine, a fleet or the serve CLI asked for any site but
-  the fleet's two (or for every site, the default) raises
-  ``NotImplementedError`` naming ROADMAP item 7; the two sites are taken.
+- Every site is armed: each is fired somewhere in the port's package, and an
+  engine, a fleet and both CLI parsers take a config naming any site (or
+  every site, the default), handing the injector to what fires it.
 """
 
 import errno
+import os
+import re
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from flexible_llm_sharding_tpu.config import FAULT_SITES as JFAULT_SITES
 from flexible_llm_sharding_tpu.config import FaultConfig as JFaultConfig
+from flexible_llm_sharding_tpu.config import LlamaConfig as JLlamaConfig
 from flexible_llm_sharding_tpu.faults import inject as jinject
+from flexible_llm_sharding_tpu.models import llama as jllama
+from flexible_llm_sharding_tpu.utils import checkpoint as jckpt
 from flexible_llm_sharding_tpu_torch import cli
 from flexible_llm_sharding_tpu_torch.config import (
     FAULT_SITES,
@@ -32,12 +38,32 @@ from flexible_llm_sharding_tpu_torch.config import (
 from flexible_llm_sharding_tpu_torch.faults import inject
 from flexible_llm_sharding_tpu_torch.serve import ReplicaFleet, ServeEngine
 
+from tests.fake_tokenizer import FakeTokenizer
+
+PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "flexible_llm_sharding_tpu_torch")
+# The sites the replica fleet fires itself; every other fires in an engine,
+# a source, a store or a queue.
+FLEET_SITES = ("replica_kill", "replica_stall")
 RATES = dict(error_rate=0.2, truncate_rate=0.1, latency_rate=0.1, latency_s=0.0)
+
+
+def _fired_sites() -> set[str]:
+    """The site literals at the port's fire/corrupt_* calls."""
+    call = re.compile(r"\.(?:fire|corrupt_flat|corrupt_array)\(\s*\"(\w+)\"")
+    found = set()
+    for root, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    found.update(call.findall(f.read()))
+    return found
 
 
 def test_fault_sites_are_jax_sites():
     assert FAULT_SITES == JFAULT_SITES
-    assert set(inject.ARMED_SITES) == {"replica_kill", "replica_stall"}
+    assert not hasattr(inject, "ARMED_SITES") and not hasattr(inject, "require_armed")
+    assert _fired_sites() == set(FAULT_SITES)
 
 
 def _outcomes(mod, cfg, sites, n=200):
@@ -172,10 +198,10 @@ def test_fault_config_validates_as_jax(kw):
 
 
 # ---------------------------------------------------------------------------
-# Only the fleet's two sites are armed
+# Every site is taken
 # ---------------------------------------------------------------------------
 
-UNARMED = [(s,) for s in FAULT_SITES if s not in inject.ARMED_SITES] + [(), (
+UNARMED = [(s,) for s in FAULT_SITES if s not in FLEET_SITES] + [(), (
     "replica_kill", "shard_read")]
 
 
@@ -183,25 +209,66 @@ def _ids(sites):
     return ",".join(sites) or "every_site"
 
 
+@pytest.fixture(scope="module")
+def model_dir(tmp_path_factory):
+    """A tiny llama (1 layer, hidden 32) saved by the JAX package."""
+    d = tmp_path_factory.mktemp("inject_model")
+    cfg = JLlamaConfig.from_hf_config(dict(
+        model_type="llama", vocab_size=256, hidden_size=32, intermediate_size=64,
+        max_position_embeddings=128, num_hidden_layers=1, num_attention_heads=2,
+        num_key_value_heads=1))
+    jckpt.save_params(jax.tree.map(np.asarray, jllama.init_params(jax.random.PRNGKey(0), cfg)),
+                      str(d), cfg)
+    return str(d)
+
+
 @pytest.mark.parametrize("where", ["engine", "fleet", "cli"])
 @pytest.mark.parametrize("sites", UNARMED, ids=[_ids(s) for s in UNARMED])
-def test_unarmed_site_raises(where, sites, tmp_path):
+def test_unarmed_site_raises(where, sites, model_dir):
+    """The sites the fleet does not fire itself, and every site, the
+    default: an engine and a fleet are built with the injector wired into
+    their queues, and both CLI parsers turn ``--chaos_sites`` into the
+    config (the name is kept from when the port refused them)."""
     faults = FaultConfig(enabled=True, error_rate=0.5, sites=sites)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        if where == "engine":
-            ServeEngine(FrameworkConfig(model_path=str(tmp_path), device="cpu", faults=faults),
-                        ServeConfig(), device=torch.device("cpu"), start=False)
-        elif where == "fleet":
-            ReplicaFleet(FrameworkConfig(model_path=str(tmp_path), device="cpu", faults=faults),
-                         ServeConfig(replicas=2), device=torch.device("cpu"), start=False)
-        else:
-            cli.main(["serve", "--model_path", str(tmp_path), "--device", "cpu", "--replicas",
-                      "2", "--chaos", *(["--chaos_sites", ",".join(sites)] if sites else [])])
+    cfg = FrameworkConfig(model_path=model_dir, device="cpu", dtype="float32", faults=faults)
+    if where == "engine":
+        eng = ServeEngine(cfg, ServeConfig(), tokenizer=FakeTokenizer(),
+                          device=torch.device("cpu"), start=False)
+        try:
+            assert eng._injector.config.sites == sites
+            assert eng.queue._injector is eng._injector
+        finally:
+            eng.shutdown(drain=False)
+    elif where == "fleet":
+        fleet = ReplicaFleet(cfg, ServeConfig(replicas=2), tokenizer=FakeTokenizer(),
+                             device=torch.device("cpu"), start=False)
+        try:
+            with fleet._lock:
+                engines = [rep.engine for rep in fleet._replicas]
+            assert len(engines) == 2
+            assert all(e._injector.config.sites == sites for e in engines)
+        finally:
+            fleet.shutdown(drain=False)
+    else:
+        flags = ["--chaos", *(["--chaos_sites", ",".join(sites)] if sites else [])]
+        serve = cli.build_serve_parser().parse_args(["--replicas", "2", *flags])
+        batch = cli.build_parser().parse_args(["--prompt_pickle", "p", "--output_file", "o",
+                                               *flags])
+        assert cli._fault_config_from_args(serve) == faults.__class__(
+            enabled=True, error_rate=0.1, sites=sites)
+        assert cli.config_from_args(batch).faults == cli._fault_config_from_args(serve)
 
 
 @pytest.mark.parametrize("sites", [("replica_kill",), ("replica_stall",),
                                    ("replica_kill", "replica_stall")])
 def test_armed_sites_are_taken(sites):
-    inject.require_armed(FaultConfig(enabled=True, sites=sites), "here")
-    inject.require_armed(FaultConfig(sites=()), "here")  # disabled: nothing asked
-    inject.require_armed(None, "here")
+    """A config naming the fleet's sites draws only them."""
+    inj = inject.FaultInjector(FaultConfig(enabled=True, error_rate=1.0, sites=sites))
+    for site in FAULT_SITES:
+        try:
+            inj.fire(site)
+        except inject.InjectedFault:
+            pass
+    assert {s for s, _, _ in inj.events} == set(sites)
+    assert inject.FaultInjector.from_config(FaultConfig(sites=sites)) is None
+    assert inject.FaultInjector.from_config(None) is None

@@ -9,7 +9,9 @@ spill error where one is raised, and at the end the spill files and their
 pages of one contribution tie in the LRU order and take their file
 numbers in set order). Budgets force spills (``set_budget``) that the next
 reuse loads back; a read that fails its checksum once heals, one that
-fails every time drops the page and unseals the entry.
+fails every time drops the page and unseals the entry. The brownout lever
+(``pressure_evict``/``pressure_restore``) and a chaos injector's
+``corrupt_activation`` flips on page reads run the same scripts.
 """
 
 import os
@@ -18,8 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from flexible_llm_sharding_tpu.config import FaultConfig as JFaultConfig
+from flexible_llm_sharding_tpu.faults.inject import FaultInjector as JFaultInjector
 from flexible_llm_sharding_tpu.integrity.manifest import SpillCorruptError as JSpillCorruptError
 from flexible_llm_sharding_tpu.runtime import kvpool as jkvpool
+from flexible_llm_sharding_tpu_torch.config import FaultConfig
+from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.integrity.manifest import SpillCorruptError
 from flexible_llm_sharding_tpu_torch.runtime import kvpool
 
@@ -143,6 +149,16 @@ def _run(script, module, spill_dir, monkeypatch, port: bool):
                 obs.append((op, k.tobytes(), v.tobytes()))
         elif op == "budget":
             pool.set_budget(args[0])
+        elif op == "pressure_evict":
+            obs.append((op, pool.pressure_evict()))
+        elif op == "pressure_restore":
+            obs.append((op, pool.pressure_restore()))
+        elif op == "injector":
+            rate, budget = args
+            kw = dict(enabled=True, seed=7, error_rate=rate, max_faults=budget,
+                      sites=("corrupt_activation",))
+            pool.set_injector(FaultInjector(FaultConfig(**kw)) if port
+                              else JFaultInjector(JFaultConfig(**kw)))
         elif op == "no_spill":
             pool.host_spill = False
         elif op == "files":
@@ -241,12 +257,46 @@ def test_process_pools_follow_the_config(tmp_path):
         jkvpool.reset_process_pools()
 
 
+# The brownout lever and the chaos site, each on a sealed, released entry.
+PRESSURE_SCRIPTS = {
+    "pressure_evict": [
+        ("acquire", "a", IDS_A, 16, 16), ("contribute", "a", (0, 0), 1), ("seal", "a"),
+        ("pressure_evict",),  # leased: nothing evicts
+        ("release", "a"), ("pressure_evict",),  # every page spills
+        ("acquire", "c", IDS_C, 10, 16), ("contribute", "c", (0, 0), 3), ("seal", "c"),
+        ("release", "c"), ("budget", 1 << 30), ("files",),  # the latch holds the budget at 0
+    ],
+    "pressure_restore": [
+        ("acquire", "a", IDS_A, 16, 16), ("contribute", "a", (0, 0), 1), ("seal", "a"),
+        ("release", "a"), ("pressure_evict",), ("pressure_restore",),
+        ("acquire", "a2", IDS_A, 16, 16), ("assemble", "a2", (0, 0)), ("release", "a2"),
+        ("budget", 1 << 30), ("files",),
+    ],
+    "set_injector": [
+        ("acquire", "a", IDS_A, 16, 16), ("contribute", "a", (0, 0), 1), ("seal", "a"),
+        ("release", "a"), ("budget", 0), ("budget", 1 << 30), ("injector", 1.0, 2),
+        ("acquire", "a2", IDS_A, 16, 16), ("assemble", "a2", (0, 0)), ("files",),
+    ],
+}
+
+
 @pytest.mark.parametrize("call", ["pressure_evict", "pressure_restore", "set_injector"])
-def test_unported_pool_paths_raise(call, tmp_path):
-    pool = kvpool.KVPagePool(4, 1 << 30, spill_dir=str(tmp_path))
-    args = {"set_injector": (None,)}.get(call, ())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(pool, call)(*args)
+def test_unported_pool_paths_raise(call, tmp_path, monkeypatch):
+    """The pool's brownout lever and chaos site against the JAX pool's (the
+    name is kept from when the port refused them): the same observations
+    after every step, and each path really acts."""
+    script = PRESSURE_SCRIPTS[call]
+    got_j = _run(script, jkvpool, str(tmp_path / "jax"), monkeypatch, port=False)
+    got_p = _run(script, kvpool, str(tmp_path / "port"), monkeypatch, port=True)
+    assert got_p == got_j
+    last = dict(zip(_COMMON_STATS, [o for o in got_p if o[0] == "stats"][-1][2]))
+    if call == "pressure_evict":
+        assert [o[1] for o in got_p if o[0] == "pressure_evict"] == [0, 4]
+        assert last["pages_resident"] == 0 and last["pages_spilled"] == 7  # A 4 pages, C 3
+    elif call == "pressure_restore":
+        assert last["pages_evicted"] == 4 and last["pages_resident"] == 4
+    else:
+        assert last["pages_healed"] == 1 and last["pages_resident"] == 4
 
 
 def test_pool_summary_matches_jax(tmp_path, monkeypatch):

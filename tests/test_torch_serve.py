@@ -17,6 +17,7 @@
 - Every serve flag whose module is not ported raises.
 """
 
+import dataclasses
 import io
 import json
 import pickle
@@ -608,12 +609,41 @@ def _non_default(kw):
     return [str(default + 1)]
 
 
-@pytest.mark.parametrize("flag,kw,where", cli._UNPORTED_SERVE_FLAGS,
-                         ids=[f for f, _, _ in cli._UNPORTED_SERVE_FLAGS])
+# The brownout flags, parsed as the JAX serve parser parses them.
+_PRESSURE_FLAGS = tuple(
+    (f"--{name}", dict(action="store_true", default=False) if name == "pressure" else
+     dict(type=type(default), default=default), None)
+    for name, default in (("pressure", False), ("pressure_poll_s", 1.0),
+                          ("pressure_host_min_gb", 1.0), ("pressure_disk_min_gb", 1.0),
+                          ("pressure_hbm_headroom_frac", 0.05), ("pressure_link_min_gbps", 0.0),
+                          ("pressure_cache_shrink_frac", 0.5),
+                          ("pressure_shed_retry_after_s", 1.0), ("pressure_step_down_polls", 3)))
+_SERVE_FLAG_CASES = cli._UNPORTED_SERVE_FLAGS + _PRESSURE_FLAGS
+
+
+@pytest.mark.parametrize("flag,kw,where", _SERVE_FLAG_CASES,
+                         ids=[f for f, _, _ in _SERVE_FLAG_CASES])
 def test_unported_serve_flags_raise(flag, kw, where, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet"):
-        cli.main(["serve", "--model_path", str(tmp_path), "--device", "cpu", flag,
-                  *_non_default(kw)])
+    """The flags still unported raise; the ``--pressure*`` flags (ported)
+    take their JAX defaults and values into ``PressureConfig``."""
+    if where is not None:
+        with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet"):
+            cli.main(["serve", "--model_path", str(tmp_path), "--device", "cpu", flag,
+                      *_non_default(kw)])
+        return
+    dest = flag.lstrip("-")
+    default = kw["default"]
+    value = ([] if dest == "pressure" else
+             [str(default / 2 if default else 1.0) if isinstance(default, float)
+              else str(default + 1)])
+    argv = ["--model_path", str(tmp_path), "--pressure", flag, *value]
+    ours, theirs = cli.build_serve_parser(), jcli.build_serve_parser()
+    assert ours.get_default(dest) == theirs.get_default(dest) == kw["default"]
+    pcfg = cli._pressure_config_from_args(ours.parse_args(argv))
+    jpcfg = jcli._pressure_config_from_args(theirs.parse_args(argv))
+    assert pcfg.enabled and dataclasses.asdict(pcfg) == dataclasses.asdict(jpcfg)
+    if dest != "pressure":
+        assert getattr(pcfg, dest.removeprefix("pressure_")) != kw["default"]
 
 
 def test_serve_demo_fails_on_an_oversized_prompt_instead_of_retrying(model_dir, tmp_path):
