@@ -285,13 +285,28 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              bytes), steps back to level 0 and serves on, every token the
              default engine's; and one pressure sample from a fresh thread
              reads the card's free share.
+   obs     — right after pressure, on the same cell (the ``llama2_7b_obs``
+             path): scoring x4 with --trace, --metrics_out, --journal_dir
+             and --verbose_metrics, bit-equal to the untraced run with
+             equal launches, a sweep span a pass and compute, source_wait,
+             shard_produce and device_put spans a shard, `trace-report`'s
+             source_wait_s the stats line's within 1 ms and the metrics
+             dump the stats line's numbers; --kv_cache 8 traced to JSONL,
+             equal to the untraced run; scoring with --profile_dir (the
+             torch.profiler trace's score_tc_kernel events against the
+             launches); the default engine under engine_step chaos with
+             tracing, the endpoint scraped while it serves, the journal and
+             one incident bundle naming the aborted wave; a 2-replica fleet
+             under a replica_kill whose bundle's journal, metrics and trace
+             name the same dead replica; and untraced, traced, traced,
+             untraced scoring for the tracer's overhead (fails above 1.25).
 6. host    — a reduced bf16 checkpoint through the CLI on the card: the
              defaults give the scores of --host_cache_gb 0 --verify_weights
              false --readahead_threads 0 bit for bit; after one flipped
              byte, a warm process raises ShardCorruptError, a fresh CLI
              process exits nonzero naming it, and ``verify`` exits 2.
 
-7. decode  — Llama-2-7B at 12 of its 32 layers (5.4 GB of seeded bf16,
+7. decode  — Llama-2-7B at 8 of its 32 layers (3.8 GB of seeded bf16,
              written one layer file at a time), --kv_cache with 8 tokens,
              three runs: the defaults (resident, one CUDA graph per block),
              --decode_fused off and --decode_resident off; prints each
@@ -1371,7 +1386,16 @@ def fresh_process_state() -> None:
     from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, pressure, residency
     from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib
 
+    from flexible_llm_sharding_tpu_torch.obs import events as obs_events
+    from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+
     before = host_rss_gib().get("rss")
+    # Tracing and the journal are process-wide and never switched off by a
+    # later config: a new process starts with both off.
+    obs_trace.TRACER.disable()
+    obs_trace.TRACER.clear()
+    obs_trace.TRACER.default_out = ""
+    obs_events.reset_journal()
     pressure.reset_process_pressure()
     loader.reset_process_store()
     hostcache.reset_process_cache()
@@ -1991,6 +2015,7 @@ def phase_full(work: str, name: str, cfg, prompts, n_gen_loop: int, n_gen_kv: in
             outputs[tag] = (scores, updated)
             if record is not None:
                 record[tag] = (scores, updated, stats)
+                record[f"{tag}_launches"] = dict(counts)
             if tag == "kv_cache":
                 check_decode_modes(f"full {name} {tag}", stats, cfg)
             elif tag != "scoring":
@@ -4143,6 +4168,416 @@ def phase_pressure(work: str, model_dir: str, cfg, prompts, llama_runs: dict, se
     return path
 
 
+def _scrape(port: int) -> str:
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30).read().decode()
+
+
+def _families(text: str) -> set[str]:
+    return {ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE")}
+
+
+def _span_totals(report: dict) -> dict:
+    """Seconds per span name of a ``trace-report`` (the layers' split)."""
+    return {k: v["total_s"] for k, v in report.get("spans_by_name", {}).items()}
+
+
+def _cli_out(argv: list[str]) -> str:
+    """A subcommand's stdout (``trace-report``, ``incidents``) in process."""
+    from flexible_llm_sharding_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()
+
+
+def phase_obs(work: str, model_dir: str, cfg, prompts, llama_runs: dict, serve_ref: tuple,
+              n_gen_loop: int, n_gen_kv: int, smi: str) -> dict:
+    """Observability on the 4-layer Llama-2-7B cell (the ``llama2_7b_obs``
+    path), bf16, one layer per shard:
+
+    (a) scoring x ``n_gen_loop`` with --trace (Chrome JSON), --metrics_out,
+        --journal_dir and --verbose_metrics: scores bit-equal to the cell's
+        untraced run with equal launches; one ``sweep`` span a pass and a
+        ``compute``, ``source_wait``, ``shard_produce`` and ``device_put``
+        span a shard; ``trace-report --json``'s ``source_wait_s`` within
+        1 ms of the stats line's; the dump's stats, stream bytes and host
+        cache counters the stats line's; one ``executor_call`` line a pass;
+    (b) --kv_cache ``n_gen_kv`` traced to JSONL: the untraced run's scores,
+        tokens and launches;
+    (c) scoring x1 with --profile_dir: the torch.profiler Chrome trace
+        exists and its ``score_tc_kernel`` events equal the scoring
+        kernels' launches (CUPTI recording no kernel is printed with the
+        profiler's warnings, and the CPU-side record is required);
+    (d) the default engine under ``engine_step`` chaos with tracing, the
+        journal, incidents and the pressure ladder (thresholds 0) on and
+        --metrics_port 0: /metrics scraped while it serves carries the
+        serve, journal, trace and pressure families; exactly one bundle,
+        whose ``incidents analyze`` names the aborted wave; every token the
+        default engine's;
+    (e) a 2-replica fleet under one seeded ``replica_kill``: one bundle
+        whose journal (``replica_dead``), metrics (the router's
+        ``replicas_dead``, the dead replica's source gone) and trace (the
+        ``replica_kill`` instant) name the same replica; the fleet opens
+        one metrics endpoint and its replicas none; every token the
+        default engine's;
+    (f) untraced, traced, traced, untraced scoring in this call, the host
+        cache warm: the traced runs' mean wall over the untraced runs'
+        (fails above 1.25).
+
+    Any registry source that raises (a ``collect_error``) fails the phase.
+    Returns the phase's launches."""
+    import threading
+
+    from flexible_llm_sharding_tpu_torch.config import (
+        FaultConfig,
+        FrameworkConfig,
+        PressureConfig,
+        ServeConfig,
+    )
+    from flexible_llm_sharding_tpu_torch.faults.inject import InjectedFault
+    from flexible_llm_sharding_tpu_torch.obs import events as obs_events
+    from flexible_llm_sharding_tpu_torch.obs import report as obs_report
+    from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+    from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
+    from flexible_llm_sharding_tpu_torch.serve import ReplicaFleet, ServeEngine, WaveAborted
+    from flexible_llm_sharding_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    path: dict = {}
+    d = os.path.join(work, "obs")
+    os.makedirs(d, exist_ok=True)
+    common = ["--dtype", "bfloat16", "--layer_num_per_shard", "1", "--device", "cuda"]
+    scoring = ("flash_causal_attention", "flash_prefix_shared_attention")
+    n_shards = len(plan_shards_dp(len(checkpoint.layer_names_for(cfg.num_hidden_layers)),
+                                  1).shards)
+    ref_scores = serve_ref[0]
+
+    def launched(tag, needed) -> dict:
+        counts = fa.launch_counts()
+        if any(counts[k] == 0 for k in needed):
+            fail(f"obs {tag}: a kernel of the path never launched: {counts}")
+        _add_launches(path, {k: {"launches": counts[k], "local_launches": 0} for k in counts})
+        return counts
+
+    def same(a, b) -> bool:
+        return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def no_collect_error(tag, collected: dict) -> None:
+        broken = sorted(k for k, v in collected.items() if "collect_error" in v)
+        if broken:
+            fail(f"obs {tag}: registry sources raised on the card: {broken}")
+
+    def obs_off() -> None:
+        obs_trace.TRACER.disable()
+        obs_trace.TRACER.clear()
+        obs_trace.TRACER.default_out = ""
+        obs_events.reset_journal()
+
+    def traced_cli(tag, extra, flags, fresh=True):
+        # ``fresh``: a new process's state; else only tracing and the
+        # journal off (the host cache kept warm).
+        fresh_process_state() if fresh else obs_off()
+        fa.reset_launch_counts()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            scores, updated, stats = run_cli(model_dir, work, f"obs_{tag}", prompts,
+                                             [*common, *extra, *flags], cfg.vocab_size)
+        wall = time.perf_counter() - t0
+        sys.stderr.write(err.getvalue())
+        return scores, updated, stats, wall, err.getvalue()
+
+    # (a) traced scoring, the metrics dump, the journal, the verbose lines.
+    trace_json, metrics_json = os.path.join(d, "a_trace.json"), os.path.join(d, "a_metrics.json")
+    flags_a = ["--trace", "--trace_out", trace_json, "--metrics_out", metrics_json,
+               "--journal_dir", os.path.join(d, "a_journal"), "--verbose_metrics", "true"]
+    scores, updated, stats, wall_a, err_a = traced_cli(
+        "scoring", ["--num_gen_token", str(n_gen_loop)], flags_a)
+    counts = launched("scoring", scoring)
+    ref, ref_up, ref_stats = llama_runs["scoring"]
+    if not same(scores, ref) or updated != ref_up:
+        fail("obs scoring: the traced run's scores or tokens differ from the untraced run's")
+    if counts != llama_runs["scoring_launches"]:
+        fail(f"obs scoring: launches {counts} against the untraced "
+             f"{llama_runs['scoring_launches']}")
+    spans = obs_report.load_trace(trace_json)
+    per = {name: sum(1 for e in spans if e["name"] == name)
+           for name in ("sweep", "compute", "source_wait", "shard_produce", "device_put")}
+    want = {"sweep": n_gen_loop, **{k: n_gen_loop * n_shards for k in
+                                   ("compute", "source_wait", "shard_produce", "device_put")}}
+    if per != want:
+        fail(f"obs scoring: spans {per}, wanted {want}")
+    rep = json.loads(_cli_out(["trace-report", "--trace", trace_json, "--json"]))
+    if abs(rep["source_wait_s"] - stats["source_wait_s"]) > 1e-3:
+        fail(f"obs scoring: trace-report source_wait_s {rep['source_wait_s']} against the stats "
+             f"line's {stats['source_wait_s']}")
+    with open(metrics_json) as f:
+        dump = json.load(f)
+    no_collect_error("scoring", dump["metrics"])
+    m = dump["metrics"]
+    if (dump["stats"] != json.loads(json.dumps(stats))
+            or m["stream"]["streamed_bytes"] != stats["streamed_bytes"]
+            or m["host_cache"]["hits"] != stats["host_cache_hits"]
+            or m["host_cache"]["misses"] != stats["host_cache_misses"]):
+        fail(f"obs scoring: the metrics dump {m.get('stream')} {m.get('host_cache')} differs "
+             "from the stats line")
+    verbose = [ln for ln in err_a.splitlines() if '"event": "executor_call"' in ln]
+    if len(verbose) != n_gen_loop:
+        fail(f"obs scoring: {len(verbose)} executor_call lines for {n_gen_loop} passes")
+    journal = m.get("journal", {})
+    if not journal.get("enabled") or journal.get("events_dropped"):
+        fail(f"obs scoring: the journal {journal}")
+    log(f"[obs] scoring x{n_gen_loop} traced | {smi} | " + json.dumps(
+        {"wall_s": wall_a, "stats_wall_s": stats["wall_s"], "untraced_wall_s": ref_stats["wall_s"],
+         "spans": per, "span_s": _span_totals(rep), "trace_report": {k: rep.get(k) for k in (
+             "source_wait_s", "produce_s", "overlap_efficiency", "link_utilization",
+             "sweep_wall_s", "sweep_phase_s", "wall_s")},
+         "stats": {k: stats.get(k) for k in ("source_wait_s", "compute_wall_s",
+                                             "load_weights_time_s")}, "kernels": counts}))
+
+    # (b) traced --kv_cache, exported as JSONL.
+    trace_jsonl = os.path.join(d, "b_trace.jsonl")
+    scores, updated, stats, wall_b, _ = traced_cli(
+        "kv_cache", ["--num_gen_token", str(n_gen_kv), "--kv_cache", "true"],
+        ["--trace", "--trace_out", trace_jsonl])
+    counts = launched("kv_cache", fa.KERNELS)
+    ref, ref_up, ref_stats = llama_runs["kv_cache"]
+    if not same(scores, ref) or updated != ref_up:
+        fail("obs kv_cache: the traced run's scores or tokens differ from the untraced run's")
+    if counts != llama_runs["kv_cache_launches"]:
+        fail(f"obs kv_cache: launches {counts} against the untraced "
+             f"{llama_runs['kv_cache_launches']}")
+    events = obs_report.load_trace(trace_jsonl)
+    rep_b = obs_report.analyze(events)
+    produced = rep_b["spans_by_name"].get("shard_produce", {}).get("count", 0)
+    passes = 1 if stats.get("decode_resident") else n_gen_kv
+    if produced != passes * n_shards or rep_b.get("trace_drops") != 0:
+        fail(f"obs kv_cache: {produced} shard_produce spans for {passes} weight pass(es) of "
+             f"{n_shards} shards, drops {rep_b.get('trace_drops')}")
+    log(f"[obs] kv_cache {n_gen_kv} traced to JSONL | {smi} | " + json.dumps(
+        {"wall_s": wall_b, "stats_wall_s": stats["wall_s"], "untraced_wall_s": ref_stats["wall_s"],
+         "events": len(events), "span_s": _span_totals(rep_b),
+         "trace_report": {k: rep_b.get(k) for k in (
+             "source_wait_s", "produce_s", "overlap_efficiency", "link_utilization")},
+         "decode_graph": stats.get("decode_graph"), "kernels": counts}))
+
+    # (c) the device profile.
+    prof_dir = os.path.join(d, "c_profile")
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        scores, _, stats, wall_c, err_c = traced_cli("profile", ["--num_gen_token", "1"],
+                                                     ["--profile_dir", prof_dir])
+    counts = launched("profile", scoring)
+    files = [f for f in os.listdir(prof_dir) if f.endswith(".json")] if os.path.isdir(
+        prof_dir) else []
+    if len(files) != 1:
+        fail(f"obs profile: {files} in --profile_dir, not one Chrome trace")
+    with open(os.path.join(prof_dir, files[0])) as f:
+        prof = json.load(f)["traceEvents"]
+    kernels = [e for e in prof if e.get("cat") == "kernel"]
+    score_evs = [e for e in kernels if "score_tc_kernel" in e.get("name", "")]
+    by_kernel: dict = {}
+    for e in kernels:
+        key = e["name"].split("(")[0][:60]
+        by_kernel[key] = by_kernel.get(key, 0.0) + e.get("dur", 0.0) / 1e3
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    want_score = sum(counts[k] for k in scoring)
+    line = {"wall_s": wall_c, "trace_bytes": os.path.getsize(os.path.join(prof_dir, files[0])),
+            "events": len(prof), "kernel_events": len(kernels),
+            "score_tc_kernel_events": len(score_evs), "score_launches": want_score,
+            "score_tc_kernel_ms": sum(e.get("dur", 0.0) for e in score_evs) / 1e3,
+            "device_ms_by_kernel_top8": top, "kernels": counts}
+    if not kernels:
+        warned = [str(w.message) for w in caught] + [ln for ln in err_c.splitlines()
+                                                      if "CUPTI" in ln or "profil" in ln.lower()]
+        cpu_ops = sum(1 for e in prof if e.get("cat") == "cpu_op")
+        log(f"[obs] profile: CUPTI recorded no CUDA kernel; the profiler said {warned[:5]}; "
+            f"{cpu_ops} CPU-side op events recorded | {smi} | " + json.dumps(line))
+        if not cpu_ops:
+            fail("obs profile: the trace holds neither CUDA kernels nor CPU-side ops")
+    else:
+        log(f"[obs] profile scoring x1 | {smi} | " + json.dumps(line))
+        if len(score_evs) != want_score:
+            fail(f"obs profile: {len(score_evs)} score_tc_kernel events against {want_score} "
+                 "scoring launches")
+
+    # (d) the default engine under engine_step chaos, traced, journaled.
+    fresh_process_state()
+    inc_d = os.path.join(d, "d_incidents")
+    fw = FrameworkConfig(model_path=model_dir, dtype="bfloat16", layer_num_per_shard=1,
+                         block_size=2, device="cuda", disk_folder=os.path.join(d, "d_disk"),
+                         trace=True, trace_out=os.path.join(d, "d_trace.json"),
+                         journal_dir=os.path.join(d, "d_journal"), incidents_dir=inc_d,
+                         incident_settle_s=0.5, incident_debounce_s=600.0,
+                         pressure=PressureConfig(enabled=True, poll_s=0.05, host_min_gb=0.0,
+                                                 disk_min_gb=0.0, hbm_headroom_frac=0.0),
+                         faults=FaultConfig(enabled=True, error_rate=1.0, sites=("engine_step",),
+                                            max_faults=1))
+    eng = ServeEngine(fw, ServeConfig(max_wave_requests=2, default_max_new_tokens=n_gen_kv,
+                                      stats_interval_s=0, metrics_port=0),
+                      tokenizer=BenchTokenizer(cfg.vocab_size), device=torch.device("cuda", 0),
+                      start=False)
+    fa.reset_launch_counts()
+    aborted: list = []
+    t0 = time.perf_counter()
+    try:
+        reqs = {i: eng.submit(*prompts[i]) for i in range(len(prompts))}
+        eng.start()
+        results: dict = {}
+        scraped = None
+        while reqs:
+            i, req = next(iter(reqs.items()))
+            err = req.future.exception(timeout=600)
+            if err is None:
+                results[i] = reqs.pop(i).future.result()
+            elif isinstance(err, WaveAborted) and isinstance(err.__cause__, InjectedFault):
+                aborted.append(req.request_id)
+                reqs[i] = eng.submit(*prompts[i])
+            else:
+                fail(f"obs serve: prompt {i} failed: {err!r}")
+            if scraped is None and reqs:  # while it serves
+                scraped = _scrape(eng.metrics_server.port)
+        torch.cuda.synchronize()
+        wall_d = time.perf_counter() - t0
+        counts = launched("serve", fa.KERNELS)
+        collected = eng.metrics.registry.collect()
+    finally:
+        eng.shutdown(drain=True)
+    if eng.error is not None:
+        fail(f"obs serve: the engine failed: {eng.error!r}")
+    no_collect_error("serve", collected)
+    worst = 0.0
+    for i, res in results.items():
+        want_s = ref_scores[i][:, :res.scores.shape[1]]
+        if not np.array_equal(res.scores.argmax(-1), want_s.argmax(-1)):
+            fail(f"obs serve: prompt {i}'s tokens differ from the default engine's")
+        worst = max(worst, float(np.abs(res.scores - want_s).max()))
+    fams = _families(scraped or "")
+    need = ("fls_serve_", "fls_journal_", "fls_trace_", "fls_pressure_")
+    missing = [p for p in need if not any(f.startswith(p) for f in fams)]
+    if scraped is None or missing:
+        fail(f"obs serve: the endpoint scraped while serving lacks {missing}")
+    deadline = time.monotonic() + 30
+    while not [b for b in os.listdir(inc_d) if b.startswith("incident-")
+               and not b.endswith(".tmp")] and time.monotonic() < deadline:
+        time.sleep(0.05)
+    bundles = sorted(b for b in os.listdir(inc_d) if b.startswith("incident-")
+                     and not b.endswith(".tmp"))
+    if len(bundles) != 1:
+        fail(f"obs serve: {len(bundles)} incident bundles, not one: {bundles}")
+    analysis = json.loads(_cli_out(["incidents", "analyze", os.path.join(inc_d, bundles[0]),
+                                    "--json"]))
+    abort_waves = [e["wave_id"] for e in analysis["timeline"] if e["kind"] == "wave_abort"]
+    if not abort_waves or not set(abort_waves) <= set(analysis["waves"]) or not aborted:
+        fail(f"obs serve: the bundle's analysis names waves {analysis['waves']}, the aborted "
+             f"{abort_waves}; {len(aborted)} requests aborted")
+    text = _cli_out(["incidents", "analyze", os.path.join(inc_d, bundles[0])])
+    log(f"[obs] serve engine_step chaos traced | {smi} | " + json.dumps(
+        {"wall_s": wall_d, "requests_aborted": len(aborted), "aborted_waves": abort_waves,
+         "bundle": bundles[0], "bundle_events": analysis["events_by_kind"],
+         "families_scraped": len(fams), "journal": collected.get("journal"),
+         "trace": collected.get("trace"), "largest_score_difference": worst, "kernels": counts}))
+    log("[obs] serve bundle analysis:\n" + text.rstrip())
+
+    # (e) a 2-replica fleet under one replica_kill.
+    fresh_process_state()
+    inc_e = os.path.join(d, "e_incidents")
+    fw = FrameworkConfig(model_path=model_dir, dtype="bfloat16", layer_num_per_shard=1,
+                         block_size=2, device="cuda", disk_folder=os.path.join(d, "e_disk"),
+                         trace=True, journal_dir=os.path.join(d, "e_journal"),
+                         incidents_dir=inc_e, incident_settle_s=0.5, incident_debounce_s=600.0,
+                         faults=FaultConfig(enabled=True, seed=1234, error_rate=1.0,
+                                            sites=("replica_kill",), max_faults=1))
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    def endpoints() -> int:
+        return sum(t.name == "metrics-endpoint" and t.is_alive() for t in threading.enumerate())
+
+    endpoints_before = endpoints()
+    fleet = ReplicaFleet(fw, ServeConfig(replicas=2, max_wave_requests=2,
+                                         default_max_new_tokens=n_gen_kv, stats_interval_s=0,
+                                         router_health_poll_s=0.05, metrics_port=0),
+                         tokenizer=BenchTokenizer(cfg.vocab_size), device=torch.device("cuda"))
+    try:
+        # The fleet's one endpoint: its replicas open none of their own.
+        fleet_endpoints = endpoints() - endpoints_before
+        if fleet_endpoints != 1:
+            fail(f"obs fleet: {fleet_endpoints} metrics endpoints for one fleet, not one")
+        reqs = [fleet.submit(*prompts[i]) for i in range(len(prompts))]
+        res_e = [r.future.result(timeout=600) for r in reqs]
+        fleet_text = _scrape(fleet.metrics_server.port)
+        torch.cuda.synchronize()
+        wall_e = time.perf_counter() - t0
+        counts = launched("fleet", fa.KERNELS)
+        router = fleet.stats()["router"]
+    finally:
+        fleet.shutdown(drain=True)
+    for i, res in enumerate(res_e):
+        if not np.array_equal(res.scores.argmax(-1), ref_scores[i].argmax(-1)):
+            fail(f"obs fleet: prompt {i}'s tokens differ from the default engine's")
+    deadline = time.monotonic() + 30
+    while not os.listdir(inc_e) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    bundles = sorted(b for b in os.listdir(inc_e) if b.startswith("incident-")
+                     and not b.endswith(".tmp"))
+    if len(bundles) != 1:
+        fail(f"obs fleet: {len(bundles)} incident bundles, not one: {bundles}")
+    b = obs_report.load_bundle(os.path.join(inc_e, bundles[0]))
+    no_collect_error("fleet bundle", b["metrics"])
+    dead = [e["replica"] for e in b["journal"] if e["kind"] == "replica_dead"]
+    killed = [e.get("replica") for e in b["trace_events"] if e["name"] == "replica_kill"]
+    if (len(dead) != 1 or killed != dead or b["metrics"]["router"]["replicas_dead"] != 1
+            or f"replica{dead[0]}" in b["metrics"] or router["replicas_dead"] != 1
+            or "fls_router_replicas_dead 1" not in fleet_text):
+        fail(f"obs fleet: journal replica_dead {dead}, trace replica_kill {killed}, bundle "
+             f"router {b['metrics'].get('router')}, sources {sorted(b['metrics'])}")
+    log(f"[obs] fleet replica_kill traced | {smi} | " + json.dumps(
+        {"wall_s": wall_e, "dead_replica": dead[0], "bundle": bundles[0],
+         "metrics_endpoints": fleet_endpoints,
+         "bundle_events": sorted({e["kind"] for e in b["journal"]}),
+         "bundle_sources": sorted(b["metrics"]), "router": router, "kernels": counts}))
+
+    # (f) the tracer's overhead: untraced, traced, traced, untraced, every
+    # pass from the warm host cache (an untimed run first), so the page
+    # cache's read times stay out of the comparison.
+    walls: dict = {"untraced": [], "traced": []}
+    hit_rates = []
+    traced_cli("overhead_warm", ["--num_gen_token", str(n_gen_loop)], [])
+    launched("overhead_warm", scoring)
+    for k, kind in enumerate(("untraced", "traced", "traced", "untraced")):
+        flags = [] if kind == "untraced" else [
+            "--trace", "--trace_out", os.path.join(d, f"f{k}.json"), "--metrics_out",
+            os.path.join(d, f"f{k}_m.json"), "--journal_dir", os.path.join(d, f"f{k}_j")]
+        scores, _, stats, _, _ = traced_cli(f"overhead{k}", ["--num_gen_token", str(n_gen_loop)],
+                                            flags, fresh=False)
+        launched(f"overhead{k}", scoring)
+        if not same(scores, llama_runs["scoring"][0]):
+            fail(f"obs overhead: run {k} ({kind}) differs from the untraced run")
+        walls[kind].append(stats["wall_s"])
+        hit_rates.append(stats.get("host_cache_hit_rate"))
+    ratio = float(np.mean(walls["traced"]) / np.mean(walls["untraced"]))
+    log(f"[obs] overhead: untraced {walls['untraced']} s, traced {walls['traced']} s, ratio "
+        f"{ratio:.4f}, host cache hit rates {hit_rates} | {smi}")
+    if ratio > 1.25:
+        fail(f"obs overhead: tracing costs {ratio:.3f}x the untraced wall (limit 1.25)")
+    fresh_process_state()
+    leftover = [t.name for t in threading.enumerate() if t.name in (
+        "serve-engine", "fleet-monitor", "metrics-endpoint", "incident-capture")]
+    if leftover or obs_trace.TRACER.enabled or "journal" in REGISTRY.names():
+        fail(f"obs: threads {leftover}, a live tracer or journal left behind")
+    obs_events.reset_journal()
+    log(f"[obs] phase {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
 def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
                  n_gen_loop: int) -> dict:
     """Disk-mode crash resume and spill recompute on the 4-layer Llama-2-7B
@@ -4262,15 +4697,15 @@ def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
     return launches
 
 
-# The decode phase's depth: Llama-2-7B's widths, 12 of its 32 layers.
-DECODE_LAYERS = 12
+# The decode phase's depth: Llama-2-7B's widths, 8 of its 32 layers.
+DECODE_LAYERS = 8
 # The pin run that pins part of them: embedding, norm, head and 6 layers.
 PARTIAL_PIN_GB = "3"
 
 
 def phase_decode(work: str) -> dict:
-    """Llama-2-7B at ``DECODE_LAYERS`` of its 32 layers (5.4 GB of seeded
-    bf16 at 12, the depth cut for the smoke's time limit, written one layer
+    """Llama-2-7B at ``DECODE_LAYERS`` of its 32 layers (3.8 GB of seeded
+    bf16 at 8, the depth cut for the smoke's time limit, written one layer
     file at a time), --kv_cache with 8 tokens: the defaults (weights
     resident, KV on the card, one CUDA graph per block), --decode_fused off
     and --decode_resident off. Each run starts as a fresh CLI process would
@@ -4462,6 +4897,9 @@ def main() -> None:
                                                      llama_runs, serve_runs["default"],
                                                      n_gen_loop, n_gen_kv, smi)
         mark("pressure")
+        paths["llama2_7b_obs"] = phase_obs(work, llama_dir, llama_cfg, prompts, llama_runs,
+                                           serve_runs["default"], n_gen_loop, n_gen_kv, smi)
+        mark("obs")
         shutil.rmtree(llama_dir, ignore_errors=True)
         paths.update({
             "gemma3_27b": phase_full(work, "gemma3-27b", gemma_cfg, gemma_prompts, gemma_loop,

@@ -20,7 +20,9 @@ The budget is ``AdapterConfig.max_gb``: explicit GB, 0 to disable, or None
 ``adapter_evict`` rung (``runtime/pressure.py``) shrinks the live budget
 through :func:`apply_pressure_cap` and restores it through
 :func:`lift_pressure_cap`. Under chaos the store's ``injector`` fires
-``corrupt_shard`` on every delta read, before its checksum check.
+``corrupt_shard`` on every delta read, before its checksum check. Hits,
+loads, re-read heals and corrupt evictions are trace instants, and the
+process store is the ``adapter`` registry source.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from flexible_llm_sharding_tpu_torch.adapters.registry import (
 )
 from flexible_llm_sharding_tpu_torch.faults.inject import InjectedFault
 from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import available_host_bytes, stat_guard
 from flexible_llm_sharding_tpu_torch.utils.checkpoint import read_safetensors
 
@@ -109,6 +113,8 @@ class AdapterStore:
                 else:
                     self._entries.move_to_end(name)
                     self.hits += 1
+                    obs_trace.instant("adapter_hit", cat="adapter", adapter=name,
+                                      bytes=entry[1])
                     return value
         value, nbytes, guard = self._load(name)
         with self._lock:
@@ -121,6 +127,7 @@ class AdapterStore:
                     self.evictions += 1
                 self._entries[name] = (value, int(nbytes), guard)
                 self.bytes += int(nbytes)
+        obs_trace.instant("adapter_load", cat="adapter", adapter=name, bytes=nbytes)
         return value
 
     def _load(self, name: str):
@@ -155,6 +162,7 @@ class AdapterStore:
         if healed:
             with self._lock:
                 self.reread_heals += healed
+            obs_trace.instant("adapter_reread_heal", cat="adapter", adapter=name, n=healed)
         return (plan, factors), nbytes, guard or ()
 
     def _read_verified(self, name: str, lname: str, path: str, manifest):
@@ -199,6 +207,7 @@ class AdapterStore:
                 self._drop(name)
                 self.evictions += 1
             self.corrupt_evictions += 1
+        obs_trace.instant("adapter_corrupt_evict", cat="adapter", adapter=name)
         return err
 
     def _drop(self, name: str) -> None:
@@ -295,6 +304,7 @@ def store_for(cfg) -> AdapterStore | None:
             _PROCESS_STORE = AdapterStore(root, budget)
             _PROCESS_ROOT = root
             _PROCESS_BUDGET_EXPLICIT = explicit
+            REGISTRY.register("adapter", _PROCESS_STORE.stats)
         elif explicit:
             if cap is not None:
                 _PRESSURE_INTENDED = budget
@@ -369,6 +379,7 @@ def reset_process_store() -> None:
         _PROCESS_BUDGET_EXPLICIT = False
         _PRESSURE_CAP = None
         _PRESSURE_INTENDED = None
+    REGISTRY.unregister("adapter")
 
 
 __all__ = [

@@ -53,9 +53,18 @@ parks the requests in flight for the next start and exits 143.
 fleet (``serve/fleet.py``): N engines on the one device behind the
 shard-phase router (``--router_*``), with elastic scaling and phase stagger
 (``--autoscale*``); the final stats line is then the fleet's
-(``"event": "fleet_stats"``). The JAX serve flags whose modules are not
-ported yet (tracing, the metrics endpoint, the journal and incidents) raise
-``NotImplementedError`` when given a value other than their default.
+(``"event": "fleet_stats"``).
+
+Observability, on both parsers as in the JAX CLI: ``--trace`` records the
+sweep timeline (exported at the end to ``--trace_out``, Chrome JSON or
+``.jsonl``; ``trace-report --trace F`` analyzes it), ``--journal_dir`` keeps
+the durable event journal, ``--incidents_dir`` captures incident bundles
+(``incidents list|show|analyze``). The batch CLI adds ``--metrics_out``
+(the metrics registry and the stats line as JSON), ``--profile_dir`` (a
+``torch.profiler`` Chrome trace of the run, CUDA kernels included on a
+card) and ``--verbose_metrics``; ``serve --metrics_port N`` serves
+``/metrics`` (Prometheus text) and ``/metrics.json`` (0 = an ephemeral
+port, printed on stderr).
 
 Both parsers take the JAX CLI's ``--chaos*`` flags (deterministic fault
 injection at ``--chaos_sites``, every site by default: ``faults/inject.py``)
@@ -94,7 +103,7 @@ from flexible_llm_sharding_tpu_torch.config import (
     FrameworkConfig,
     resolve_device,
 )
-from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib
+from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib, profiler_trace
 
 
 def _str2bool(v: str) -> bool:
@@ -189,6 +198,70 @@ def _add_pressure_flags(p: argparse.ArgumentParser) -> None:
                         "against flapping)")
 
 
+def _add_observability_flags(p: argparse.ArgumentParser) -> None:
+    """Both parsers: sweep-timeline tracing and the flight recorder (the
+    JAX CLI's flags and defaults)."""
+    p.add_argument("--trace", action="store_true",
+                   help="record the sweep timeline (shard loads, uploads, compute, source "
+                        "waits, cache hits, pin loads, retry and heal events, the serve wave "
+                        "lifecycle) into a bounded ring, exported at the end to --trace_out; "
+                        "analyze with `trace-report` or load in Perfetto. Off = one bool read "
+                        "per emit and its scalar arguments (attributes that walk a wave or "
+                        "an array are built only when on)")
+    p.add_argument("--trace_out", type=str, default="",
+                   help="trace export path (default fls_trace.json): Chrome trace-event JSON, "
+                        "or JSONL when the path ends in .jsonl")
+    p.add_argument("--journal_dir", type=str, default="",
+                   help="durable append-only JSONL event journal: every failure-path event "
+                        "(recoveries, wave aborts, replica death, drain and re-dispatch, "
+                        "quarantines, heals, pressure steps, watchdog stalls, preemptions, SLO "
+                        "budget exhaustion) with a monotonic seq and correlation ids. Rotates "
+                        "at --journal_max_mb; a write failure is a counted drop "
+                        "(fls_journal_events_dropped), never an error. Empty = off")
+    p.add_argument("--journal_max_mb", type=float, default=16.0,
+                   help="journal rotation size in MB (one previous generation is kept)")
+    p.add_argument("--incidents_dir", type=str, default="",
+                   help="arm the incident recorder: a journal event at or above "
+                        "--incident_trigger captures a bundle directory here (journal tail, "
+                        "metrics snapshot, trace ring as Chrome JSON, resolved config, "
+                        "manifest), debounced so a failure storm yields one bundle, the "
+                        "directory budgeted at --incidents_max_mb. Inspect with `incidents "
+                        "list/show/analyze`. Empty = off")
+    p.add_argument("--incidents_max_mb", type=float, default=256.0,
+                   help="incidents directory budget in MB (oldest bundles evicted; the newest "
+                        "always survives)")
+    p.add_argument("--incident_trigger", type=str, default="error",
+                   choices=("info", "warning", "error", "critical"),
+                   help="minimum journal-event severity that captures an incident bundle")
+    p.add_argument("--incident_debounce_s", type=float, default=60.0,
+                   help="after a capture, trigger events within this window only count "
+                        "(fls_journal_debounces)")
+    p.add_argument("--incident_settle_s", type=float, default=1.0,
+                   help="a capture waits this long after its trigger (extended while trigger "
+                        "events keep landing, bounded) so the whole storm lands in its journal "
+                        "tail; 0 = capture at once")
+
+
+def _obs_config_kwargs(args: argparse.Namespace) -> dict:
+    return dict(trace=args.trace, trace_out=args.trace_out, journal_dir=args.journal_dir,
+                journal_max_mb=args.journal_max_mb, incidents_dir=args.incidents_dir,
+                incidents_max_mb=args.incidents_max_mb, incident_trigger=args.incident_trigger,
+                incident_debounce_s=args.incident_debounce_s,
+                incident_settle_s=args.incident_settle_s)
+
+
+def _write_trace(cfg: FrameworkConfig) -> None:
+    """Export the process tracer at the end of a run (the run that died is
+    the one whose timeline is needed)."""
+    if cfg.trace:
+        from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+
+        path = obs_trace.write_configured()
+        if path:
+            print(f"trace written -> {path} (analyze: `trace-report --trace {path}`, or load "
+                  "in Perfetto)", file=sys.stderr)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m flexible_llm_sharding_tpu_torch",
@@ -268,9 +341,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="kv_cache mode: verify this many prompt-lookup drafted tokens per "
                         "streamed pass (greedy-exact; divides weight streams per token by the "
                         "acceptance factor when the model must re-stream); 0 = off")
+    p.add_argument("--verbose_metrics", type=_str2bool, default=False,
+                   help="emit one JSON line per structured timing event")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler Chrome trace of the run here (CPU and, on a "
+                        "card, CUDA activity: kernels, copies)")
+    p.add_argument("--metrics_out", type=str, default="",
+                   help="write a one-shot JSON dump of the metrics registry (executor, stream, "
+                        "cache, residency, integrity, tracer, journal) and the final stats line "
+                        "to this path at the end")
     _add_adapter_flags(p)
     _add_chaos_flags(p)
     _add_pressure_flags(p)
+    _add_observability_flags(p)
     return p
 
 
@@ -485,23 +568,74 @@ def prepare_adapter_main(argv: list[str] | None = None) -> None:
           f'{{"adapter_id": "{plan.name}"}}')
 
 
-# The JAX serve parser's flags whose modules are not ported yet: (flag,
-# argparse keywords, where it stands in ROADMAP.md). Each is parsed as there
-# and refused unless it keeps its default.
-_OBS_SLICE = "ROADMAP queue 1 item 7: observability"
-_UNPORTED_SERVE_FLAGS = (
-    ("--metrics_port", dict(type=int, default=None), _OBS_SLICE),
-    ("--trace", dict(action="store_true"), _OBS_SLICE),
-    ("--trace_out", dict(type=str, default=""), _OBS_SLICE),
-    ("--journal_dir", dict(type=str, default=""), _OBS_SLICE),
-    ("--journal_max_mb", dict(type=float, default=16.0), _OBS_SLICE),
-    ("--incidents_dir", dict(type=str, default=""), _OBS_SLICE),
-    ("--incidents_max_mb", dict(type=float, default=256.0), _OBS_SLICE),
-    ("--incident_trigger", dict(type=str, default="error",
-                                choices=("info", "warning", "error", "critical")), _OBS_SLICE),
-    ("--incident_debounce_s", dict(type=float, default=60.0), _OBS_SLICE),
-    ("--incident_settle_s", dict(type=float, default=1.0), _OBS_SLICE),
-)
+def build_incidents_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m flexible_llm_sharding_tpu_torch incidents",
+        description="Inspect flight-recorder incident bundles (--incidents_dir): list the "
+                    "bundles in a directory, show one bundle's manifest, or analyze one into a "
+                    "timeline (journal events, correlation ids and the embedded trace's "
+                    "report).",
+    )
+    p.add_argument("action", choices=("list", "show", "analyze"),
+                   help="list bundles in --dir; show one bundle's manifest; analyze one bundle "
+                        "into a timeline")
+    p.add_argument("bundle", nargs="?", default=None, help="bundle directory (show/analyze)")
+    p.add_argument("--dir", type=str, default="incidents",
+                   help="incidents directory to list (default: ./incidents)")
+    p.add_argument("--json", action="store_true",
+                   help="emit the structured report as JSON on stdout")
+    return p
+
+
+def incidents_main(argv: list[str] | None = None) -> None:
+    """The ``incidents`` subcommand (the JAX CLI's, output for output)."""
+    args = build_incidents_parser().parse_args(argv)
+    from flexible_llm_sharding_tpu_torch.obs.report import (
+        analyze_bundle,
+        format_incident,
+        journal_tail_len,
+        load_manifest,
+    )
+
+    if args.action == "list":
+        try:
+            names = sorted(os.listdir(args.dir))
+        except OSError as e:
+            raise SystemExit(f"incidents: cannot list {args.dir}: {e}") from e
+        rows = []
+        for name in names:
+            path = os.path.join(args.dir, name)
+            if not name.startswith("incident-") or not os.path.isdir(path):
+                continue
+            try:
+                # The manifest and the tail's line count only: a listing
+                # must not parse every bundle's trace.
+                manifest = load_manifest(path)
+            except ValueError:
+                continue  # a half-written or foreign directory
+            trig = manifest.get("trigger", {})
+            rows.append({"bundle": name, "captured_at": manifest.get("captured_at"),
+                         "trigger": trig.get("kind"), "severity": trig.get("severity"),
+                         "journal_events": journal_tail_len(path)})
+        if args.json:
+            print(json.dumps(rows))
+        elif not rows:
+            print(f"no incident bundles under {args.dir}")
+        else:
+            for r in rows:
+                print(f"{r['bundle']}  {r['captured_at']}  trigger={r['trigger']} "
+                      f"({r['severity']})  journal_events={r['journal_events']}")
+        return
+    if not args.bundle:
+        raise SystemExit(f"incidents {args.action}: give a bundle dir")
+    try:
+        if args.action == "show":
+            print(json.dumps(load_manifest(args.bundle), indent=None if args.json else 1))
+            return
+        report = analyze_bundle(args.bundle)
+    except ValueError as e:
+        raise SystemExit(f"incidents: {e}") from e
+    print(json.dumps(report) if args.json else format_incident(report))
 
 
 def _add_fleet_flags(p: argparse.ArgumentParser) -> None:
@@ -823,9 +957,12 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="WAL segment rotation size; sealed segments whose every request is "
                         "terminal are deleted")
     _add_autoscale_flags(p)
-    for flag, kw, where in _UNPORTED_SERVE_FLAGS:
-        p.add_argument(flag, help=f"not ported yet ({where}): any value but the default raises",
-                       **kw)
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="serve a Prometheus /metrics endpoint (and /metrics.json) on 127.0.0.1 "
+                        "at this port: queue depth, TTFT quantiles, streamed bytes, cache hit "
+                        "rate, residency savings, retry, heal and recovery counters in one "
+                        "scrape; 0 = an ephemeral port, omit = off")
+    _add_observability_flags(p)
     p.add_argument("--prompt_pickle", type=str, default=None,
                    help="demo mode: submit this prompt pickle's entries as requests, then write "
                         "--output_file like the batch CLI")
@@ -836,13 +973,6 @@ def build_serve_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported_serve_flags(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
-    for flag, _, where in _UNPORTED_SERVE_FLAGS:
-        dest = flag.lstrip("-")
-        if getattr(args, dest) != p.get_default(dest):
-            raise NotImplementedError(f"serve {flag} is not ported yet ({where})")
-
-
 def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
     """The ``serve`` subcommand: the demo or the JSONL frontend over one
     engine, or over the replica fleet (``--replicas`` > 1 or
@@ -851,9 +981,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
     per second (``tokens_served``: resolved requests only) and the card's
     peak memory (demo mode adds the queue depth right after the last
     submission; the fleet's line adds the host RSS)."""
-    parser = build_serve_parser()
-    args = parser.parse_args(argv)
-    _refuse_unported_serve_flags(parser, args)
+    args = build_serve_parser().parse_args(argv)
     if args.prompt_pickle and not args.output_file:
         raise SystemExit("--prompt_pickle (demo mode) requires --output_file")
     from flexible_llm_sharding_tpu_torch.config import ServeConfig, SLOConfig
@@ -871,7 +999,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             kv_host_spill=args.kv_host_spill, hbm_pin_gb=args.hbm_pin_gb,
             readahead_threads=args.readahead_threads,
             adapters=_adapter_config_from_args(args), faults=_fault_config_from_args(args),
-            pressure=_pressure_config_from_args(args),
+            pressure=_pressure_config_from_args(args), **_obs_config_kwargs(args),
         )
         slo = SLOConfig() if not args.slo else SLOConfig(
             enabled=True, ttft_p95_s=args.slo_ttft_p95_s,
@@ -893,7 +1021,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             router_depth_weight=args.router_depth_weight,
             router_health_poll_s=args.router_health_poll_s,
             router_drain_recoveries=args.router_drain_recoveries,
-            autoscale=_autoscale_config_from_args(args),
+            autoscale=_autoscale_config_from_args(args), metrics_port=args.metrics_port,
         )
     except ValueError as e:
         raise SystemExit(str(e)) from e
@@ -924,6 +1052,9 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
         engine = ReplicaFleet(cfg, serve_cfg, tokenizer=tokenizer, device=device)
     else:
         engine = ServeEngine(cfg, serve_cfg, tokenizer=tokenizer, device=device)
+    if engine.metrics_server is not None:
+        print(f"metrics endpoint: http://{engine.metrics_server.host}:"
+              f"{engine.metrics_server.port}/metrics", file=sys.stderr, flush=True)
     extra: dict = {}
 
     def replay_open(callback=None) -> None:
@@ -991,6 +1122,7 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
         finally:
             if old_sigterm is not None:
                 signal.signal(signal.SIGTERM, old_sigterm)
+            _write_trace(cfg)
     if engine.error is not None:
         raise SystemExit(f"serve engine failed: {engine.error!r}")
     wall = time.perf_counter() - t0
@@ -1095,6 +1227,9 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         adapters=_adapter_config_from_args(args),
         faults=_fault_config_from_args(args),
         pressure=_pressure_config_from_args(args),
+        verbose_metrics=args.verbose_metrics,
+        profile_dir=args.profile_dir,
+        **_obs_config_kwargs(args),
     )
 
 
@@ -1115,7 +1250,8 @@ _SUMMED_HOST_KEYS = ("io_retries", "integrity_failures", "reread_heals", "quaran
 
 def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     """Run the batch CLI and return the stats it prints, or the ``serve``,
-    ``verify``, ``plan-precision`` or ``prepare-adapter`` subcommand."""
+    ``verify``, ``plan-precision``, ``prepare-adapter``, ``incidents`` or
+    ``trace-report`` subcommand."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         return serve_main(argv[1:], tokenizer=tokenizer)
@@ -1126,6 +1262,16 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
         return None
     if argv and argv[0] == "prepare-adapter":
         prepare_adapter_main(argv[1:])
+        return None
+    if argv and argv[0] == "incidents":
+        incidents_main(argv[1:])
+        return None
+    if argv and argv[0] == "trace-report":
+        from flexible_llm_sharding_tpu_torch.obs.report import main as report_main
+
+        rc = report_main(argv[1:])
+        if rc:
+            raise SystemExit(rc)
         return None
     args = build_parser().parse_args(argv)
     if args.speculative_k and args.data_parallel:
@@ -1162,26 +1308,39 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     from flexible_llm_sharding_tpu_torch.runtime import pressure
 
     inject.reset_process_fault_counts()
+    from flexible_llm_sharding_tpu_torch.runtime.executor import reset_process_streamed_bytes
+
+    reset_process_streamed_bytes()
     # The brownout ladder of a batch run (--pressure): started here, as the
     # serving engines start it for themselves.
     ctrl = pressure.controller_for(cfg, devices[0])
+    # The flight recorder of a batch run (--journal_dir/--incidents_dir).
+    from flexible_llm_sharding_tpu_torch.obs import incident as obs_incident
+
+    obs_incident.ensure_configured(cfg)
     # One stats dict per pass of every entry-point call (a DP fan-out's as one).
     calls: list[dict] = []
     t0 = time.perf_counter()
-    if cfg.kv_cache:
-        output_scores, updated, _ = run_decode(cfg, prompts, tokenizer=tokenizer,
-                                               devices=devices, calls=calls)
-    else:
-        output_scores, updated = generation_loop(
-            lambda ps: run_prompts(cfg, ps, tokenizer=tokenizer, devices=devices, calls=calls),
-            prompts,
-            cfg.num_gen_token,
-            tokenizer,
-            temperature=cfg.temperature,
-            seed=cfg.seed,
-            top_k=cfg.top_k,
-            top_p=cfg.top_p,
-        )
+    try:
+        with profiler_trace(cfg.profile_dir or None):
+            if cfg.kv_cache:
+                output_scores, updated, _ = run_decode(cfg, prompts, tokenizer=tokenizer,
+                                                       devices=devices, calls=calls)
+            else:
+                output_scores, updated = generation_loop(
+                    lambda ps: run_prompts(cfg, ps, tokenizer=tokenizer, devices=devices,
+                                           calls=calls),
+                    prompts,
+                    cfg.num_gen_token,
+                    tokenizer,
+                    temperature=cfg.temperature,
+                    seed=cfg.seed,
+                    top_k=cfg.top_k,
+                    top_p=cfg.top_p,
+                )
+    except BaseException:
+        _write_trace(cfg)  # the timeline of a run that died
+        raise
     wall = time.perf_counter() - t0
 
     with open(_updated_path(args.prompt_pickle), "wb") as f:
@@ -1243,9 +1402,19 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
             for r, s in sorted(LAST_DP_RANK_STATS.items())
         }
     print(json.dumps(stats), file=sys.stderr)
+    if args.metrics_out:
+        # The registry every subsystem registered into, with the stats line:
+        # the machine-readable form of the line above.
+        from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
+
+        with open(args.metrics_out, "w") as f:
+            json.dump({"stats": stats, "metrics": REGISTRY.collect()}, f, indent=1)
+        print(f"metrics written -> {args.metrics_out}", file=sys.stderr)
+    _write_trace(cfg)
     return stats
 
 
-__all__ = ["build_parser", "build_plan_precision_parser", "build_prepare_adapter_parser",
-           "build_serve_parser", "build_verify_parser", "main", "plan_precision_main",
-           "prepare_adapter_main", "serve_main", "verify_main"]
+__all__ = ["build_incidents_parser", "build_parser", "build_plan_precision_parser",
+           "build_prepare_adapter_parser", "build_serve_parser", "build_verify_parser",
+           "incidents_main", "main", "plan_precision_main", "prepare_adapter_main", "serve_main",
+           "verify_main"]

@@ -802,6 +802,19 @@ class FrameworkConfig:
     ``adapters``: the LoRA adapter registry the serving engine reads
     (:class:`AdapterConfig`; the batch CLI accepts and keeps it).
 
+    Observability (``obs/``, the JAX package's fields and defaults):
+    ``verbose_metrics`` prints one JSON line per structured timing event;
+    ``profile_dir`` writes a ``torch.profiler`` Chrome trace of the run
+    there ("" = off); ``trace`` records the sweep timeline into the
+    process tracer, exported at run end to ``trace_out`` (Chrome JSON, or
+    JSONL for a ``.jsonl`` path; "" = ``fls_trace.json``); ``journal_dir``
+    enables the durable event journal, rotated at ``journal_max_mb``;
+    ``incidents_dir`` arms the incident recorder (a journal event at or
+    above ``incident_trigger`` captures a bundle there, settled for
+    ``incident_settle_s``, debounced for ``incident_debounce_s``, the
+    directory budgeted at ``incidents_max_mb``). Every one is off by
+    default, at the cost of one bool read per emit and its scalar arguments.
+
     ``faults``: fault injection (:class:`FaultConfig`), off by default;
     while it is on, the auto budgets of the host cache and the residency
     tier resolve to off, as in the JAX package (a cache hit or a pin would
@@ -845,6 +858,17 @@ class FrameworkConfig:
     kv_page_tokens: int = 16
     kv_pool_gb: float | None = None
     kv_host_spill: bool = True
+    verbose_metrics: bool = False
+    profile_dir: str = ""
+    trace: bool = False
+    trace_out: str = ""
+    journal_dir: str = ""
+    journal_max_mb: float = 16.0
+    incidents_dir: str = ""
+    incidents_max_mb: float = 256.0
+    incident_trigger: str = "error"  # info|warning|error|critical
+    incident_debounce_s: float = 60.0
+    incident_settle_s: float = 1.0
     adapters: AdapterConfig = dataclasses.field(default_factory=AdapterConfig)
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
     pressure: PressureConfig = dataclasses.field(default_factory=PressureConfig)
@@ -890,6 +914,15 @@ class FrameworkConfig:
             raise ValueError("score_sink_max_device must be >= 1")
         if self.kv_pool_gb is not None and self.kv_pool_gb < 0:
             raise ValueError(f"kv_pool_gb must be >= 0 (or None for auto), got {self.kv_pool_gb}")
+        if self.journal_max_mb <= 0:
+            raise ValueError("journal_max_mb must be > 0")
+        if self.incidents_max_mb <= 0:
+            raise ValueError("incidents_max_mb must be > 0")
+        if self.incident_trigger not in ("info", "warning", "error", "critical"):
+            raise ValueError("incident_trigger must be info|warning|error|critical, "
+                             f"got {self.incident_trigger!r}")
+        if self.incident_debounce_s < 0 or self.incident_settle_s < 0:
+            raise ValueError("incident_debounce_s/incident_settle_s must be >= 0")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -1155,7 +1188,11 @@ class ServeConfig:
     ``router_health_poll_s`` seconds, which hard-fails a replica whose
     engine died or whose busy sweep stalled past ``watchdog_abort_s``, and
     drains one whose ``engine_recoveries`` reach ``router_drain_recoveries``
-    (0 = off); ``autoscale`` (:class:`AutoscaleConfig`)."""
+    (0 = off); ``autoscale`` (:class:`AutoscaleConfig`).
+
+    ``metrics_port``: serve the engine's (or the fleet's) registry as a
+    Prometheus ``/metrics`` endpoint and ``/metrics.json`` on 127.0.0.1 at
+    this port (0 = an ephemeral port, None = off)."""
 
     queue_capacity: int = 64
     max_wave_requests: int = 8
@@ -1186,6 +1223,7 @@ class ServeConfig:
     router_health_poll_s: float = 0.2
     router_drain_recoveries: int = 0
     autoscale: AutoscaleConfig = dataclasses.field(default_factory=AutoscaleConfig)
+    metrics_port: int | None = None
 
     def __post_init__(self) -> None:
         if self.queue_capacity < 1:
@@ -1204,6 +1242,9 @@ class ServeConfig:
             raise ValueError("stats_interval_s must be >= 0")
         if self.watchdog_abort_s < 0:
             raise ValueError("watchdog_abort_s must be >= 0")
+        if self.metrics_port is not None and not 0 <= self.metrics_port <= 65535:
+            raise ValueError("metrics_port must be in [0, 65535] (or None for off), "
+                             f"got {self.metrics_port}")
         if self.replicas < 1:
             raise ValueError("replicas must be >= 1")
         if self.router_phase_weight < 0 or self.router_depth_weight < 0:

@@ -7,8 +7,8 @@ attempt cap and an overall deadline. The jitter is deterministic — a hash
 of (label, attempt) — so a run's retry schedule repeats. Exhaustion can be
 typed: ``wrap=ShardLoadError`` raises that type, chained to the last
 error. ``ShardLoadError`` is not an ``OSError``, so a nested
-``retry_call`` never retries an exhausted inner one. The JAX module's trace
-instants wait for the observability port (ROADMAP item 7).
+``retry_call`` never retries an exhausted inner one. Every backoff is an
+``io_retry`` trace instant and an exhaustion an ``io_exhausted`` one.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
+
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
 
 
 class ShardLoadError(RuntimeError):
@@ -83,6 +85,8 @@ def retry_call(fn, *, policy: RetryPolicy | None = None, label: str = "", record
                     recorder.record(label, exhausted=1)
                 why = ("aborted" if aborted else "deadline passed" if out_of_time
                        else "attempts exhausted")
+                obs_trace.instant("io_exhausted", cat="faults", label=label or "call",
+                                  attempts=attempt, why=why)
                 if wrap is not None:
                     raise wrap(
                         f"{label or 'call'}: giving up after {attempt} attempt(s) ({why}): {e!r}"
@@ -93,6 +97,8 @@ def retry_call(fn, *, policy: RetryPolicy | None = None, label: str = "", record
                 delay = min(delay, max(0.0, deadline - time.monotonic()))
             if recorder is not None:
                 recorder.record(label, retries=1, backoff_s=delay)
+            obs_trace.instant("io_retry", cat="faults", label=label or "call", attempt=attempt,
+                              backoff_s=round(delay, 4))
             end = time.monotonic() + delay
             while True:
                 left = end - time.monotonic()

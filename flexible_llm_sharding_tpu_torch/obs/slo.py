@@ -15,9 +15,10 @@ the ``ServingMetrics`` windows into error-budget accounting:
 A budget is **exhausted** when its burn rate reaches 1 with at least
 ``min_samples`` samples; ``budget_exhausted_events`` counts each such
 crossing once, and the latch re-arms when the burn rate falls below 0.5.
-(The JAX package also journals the event; the event journal is not ported
-yet.) The tracker is pull-based: it reads the windows when its stats are
-taken, plus a rate-limited per-sweep check.
+Each crossing is an ``slo_budget_exhausted`` journal event (severity error:
+with the incident recorder armed, a bundle). The tracker is pull-based: it
+reads the windows when its stats are taken, plus a rate-limited per-sweep
+check.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import collections
 import threading
 import time
 
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
 from flexible_llm_sharding_tpu_torch.utils.metrics import SLO_CLASS_NAMES
 
 # A p95 target tolerates this fraction of samples over the line; the
@@ -126,6 +128,12 @@ class SLOTracker:
             out["budget_exhausted_events"] = self.budget_exhausted_events
             self._burn_history.append(worst)
         out["trend"] = self.burn_rate_trend()
+        for key, entry in exhausted:  # outside the tracker's lock
+            metric, _, cls = key.partition(":")
+            obs_events.emit("slo_budget_exhausted", metric=metric, slo_class=cls or None,
+                            burn_rate=entry.get("burn_rate"),
+                            target=entry.get("target_s", entry.get("target")),
+                            samples=entry.get("samples", entry.get("requests")))
         return out
 
     def _availability(self, exhausted: list) -> dict:

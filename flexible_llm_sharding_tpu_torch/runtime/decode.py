@@ -67,6 +67,7 @@ import torch
 from flexible_llm_sharding_tpu_torch.adapters.apply import lora_shift_rows
 from flexible_llm_sharding_tpu_torch.config import indexed_device
 from flexible_llm_sharding_tpu_torch.models import llama
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
 from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 from flexible_llm_sharding_tpu_torch.ops.norm import rms_norm
 from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
@@ -561,6 +562,9 @@ class DecodeGenerator(StreamingExecutor):
         # to the host, which a capture cannot hold.
         self._graph_ok = not metrics.has_moe_layers(self.model_cfg)
 
+    # The latest call's stats are the ``decode`` registry source.
+    REGISTRY_NAME = "decode"
+
     def _pin_tier(self):
         return None  # decided in __init__, once residency is
 
@@ -676,7 +680,7 @@ class DecodeGenerator(StreamingExecutor):
             source_wait += time.perf_counter() - t0
             return item
 
-        def stream_pass(embed_ids, step_t, head_fn, skip_block=None) -> None:
+        def walk_pass(embed_ids, step_t, head_fn, skip_block=None) -> None:
             """One walk of the whole model over the blocks, shared by the
             per-step loop and the speculative verify passes: the kept
             shards or the next streamed pass, ('x', b) activations parked
@@ -722,6 +726,14 @@ class DecodeGenerator(StreamingExecutor):
                 sync(dev)
                 compute_time += time.perf_counter() - t0
                 del segments
+
+        def stream_pass(embed_ids, step_t, head_fn, skip_block=None) -> None:
+            """:func:`walk_pass` as one traced ``sweep`` span (mode
+            ``decode_step``): a decode step's weight pass, its shard loads
+            and uploads nested under the producer's spans."""
+            sid = obs_trace.new_sweep_id() if obs_trace.enabled() else 0
+            with obs_trace.span("sweep", cat="decode", sweep_id=sid, mode="decode_step"):
+                walk_pass(embed_ids, step_t, head_fn, skip_block)
 
         try:
             # --- prefill: one streaming pass, parking each layer's KV -------

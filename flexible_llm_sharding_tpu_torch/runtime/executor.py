@@ -44,6 +44,14 @@ each on its device's upload stream), and ``BroadcastShardSource`` reads each
 shard once and places it on every DP rank's device, one bounded queue per
 rank; a DP rank's ``StreamingExecutor`` takes its view through
 ``weight_source_factory``.
+
+Tracing (``obs/trace.py``, JAX's span names and attributes): a call is one
+``sweep`` span holding a ``source_wait`` and a ``compute`` per shard; the
+producer's ``shard_produce`` holds the read (``shard_load``) and the
+upload's enqueue (``device_put``). ``compute`` closes after the device
+synchronization that ``compute_wall_s`` measures; ``device_put`` is host
+time, not the copy. Quarantines, re-read heals and spill recomputes are
+trace instants and journal events (``obs/events.py``).
 """
 
 from __future__ import annotations
@@ -68,6 +76,9 @@ from flexible_llm_sharding_tpu_torch.integrity.manifest import (
     SpillCorruptError,
 )
 from flexible_llm_sharding_tpu_torch.models import llama
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
 from flexible_llm_sharding_tpu_torch.parallel.planner import ShardPlan, plan_shards_dp
 from flexible_llm_sharding_tpu_torch.runtime import residency, resume
 from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore, batch_tag
@@ -86,7 +97,7 @@ from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
     longrope_total_len,
     make_blocks,
 )
-from flexible_llm_sharding_tpu_torch.utils import checkpoint
+from flexible_llm_sharding_tpu_torch.utils import checkpoint, metrics
 from flexible_llm_sharding_tpu_torch.utils.metrics import IntegrityRecorder, RetryRecorder
 from flexible_llm_sharding_tpu_torch.utils.native import FilePrefetcher
 
@@ -145,6 +156,14 @@ def process_streamed_bytes() -> int:
     return _PROCESS_STREAM_BYTES[0]
 
 
+def reset_process_streamed_bytes() -> None:
+    """Zero the streamed-bytes counter: the batch CLI does at the start of a
+    run, so a second run in one process reports (and the ``stream`` source
+    scrapes) its own bytes."""
+    with _PROCESS_STREAM_LOCK:
+        _PROCESS_STREAM_BYTES[0] = 0
+
+
 def _count_streamed(nbytes: int) -> None:
     with _PROCESS_STREAM_LOCK:
         _PROCESS_STREAM_BYTES[0] += nbytes
@@ -157,6 +176,20 @@ def process_tied_head_requants() -> int:
 def reset_process_tied_head_requants() -> None:
     with _PROCESS_STREAM_LOCK:
         _PROCESS_TIED_REQUANTS[0] = 0
+
+
+def stream_stats() -> dict[str, int]:
+    """The process stream counters as one registry source (``stream``):
+    the batch CLI's ``--metrics_out`` and the serve endpoint read the
+    numbers the stats lines print. (The JAX package's ``host_casts`` is
+    not among them: the port casts on the device, after the upload.)"""
+    return {
+        "streamed_bytes": process_streamed_bytes(),
+        "tied_head_requants": process_tied_head_requants(),
+    }
+
+
+REGISTRY.register("stream", stream_stats)
 
 
 def _check_precision_plan(model_path: str, manifest: dict) -> None:
@@ -386,6 +419,9 @@ class ShardWeightSource:
                     self._host_cache.invalidate_path(path)
                 integrity_manifest.invalidate_verdict(path)
                 self.integrity.count("quarantined_shards")
+                obs_trace.instant("quarantine", cat="integrity", layer=name,
+                                  mismatches=mismatches)
+                obs_events.emit("quarantine", layer=name, path=path, mismatches=mismatches)
                 raise ShardCorruptError(
                     f"{path}: checksum mismatch survived every re-read — on-disk corruption; "
                     "path quarantined (audit with the `verify` subcommand, then re-prepare the "
@@ -394,6 +430,9 @@ class ShardWeightSource:
             raise
         if mismatches:
             self.integrity.count("reread_heals")
+            obs_trace.instant("reread_heal", cat="integrity", layer=name,
+                              mismatches=mismatches)
+            obs_events.emit("reread_heal", layer=name, mismatches=mismatches)
         return out
 
     def _load_one_raw(self, name: str) -> dict[str, Any]:
@@ -461,8 +500,14 @@ class ShardWeightSource:
 
     def build_host_shard(self, layer_idxs: tuple[int, ...]) -> list[tuple[str, Any]]:
         """The shard's host trees: from the cache, or read and verified
-        (then cached). The stat guard is taken before the first byte. The
-        residency tier loads its pins through here too."""
+        (then cached), inside a ``shard_load`` span. The stat guard is
+        taken before the first byte. The residency tier loads its pins
+        through here too."""
+        with obs_trace.span("shard_load", cat="stream", first=layer_idxs[0] if layer_idxs else -1,
+                            n=len(layer_idxs)):
+            return self._build_host_shard(layer_idxs)
+
+    def _build_host_shard(self, layer_idxs: tuple[int, ...]) -> list[tuple[str, Any]]:
         cache = self._host_cache
         key = guard = None
         if cache is not None:
@@ -538,18 +583,23 @@ class ShardWeightSource:
         """One shard built on the host and placed on ``device``: (segments,
         event). The upload retries under the policy (``device_put``), the
         ``link_throttle`` and ``device_put`` sites fired before anything is
-        queued; the pins were counted once, by the build."""
-        parts, hosts = self.host_parts(layer_idxs)
+        queued; the pins were counted once, by the build. Traced as one
+        ``shard_produce`` span holding the upload's ``device_put``."""
+        first = layer_idxs[0] if layer_idxs else -1
+        with obs_trace.span("shard_produce", cat="stream", first=first, n=len(layer_idxs)):
+            parts, hosts = self.host_parts(layer_idxs)
 
-        def put():
-            if self._injector is not None:
-                # A saturated link stalls; it never errors.
-                self._injector.fire("link_throttle", detail=str(layer_idxs))
-                self._injector.fire("device_put", detail=str(layer_idxs))
-            return self.place_parts(parts, hosts, device)
+            def put():
+                if self._injector is not None:
+                    # A saturated link stalls; it never errors.
+                    self._injector.fire("link_throttle", detail=str(layer_idxs))
+                    self._injector.fire("device_put", detail=str(layer_idxs))
+                return self.place_parts(parts, hosts, device)
 
-        return retry_call(put, policy=self._retry, label="device_put", recorder=self.retries,
-                          wrap=ShardLoadError, abort=self._stop.is_set)
+            with obs_trace.span("device_put", cat="stream", first=first, n=len(layer_idxs)):
+                return retry_call(put, policy=self._retry, label="device_put",
+                                  recorder=self.retries, wrap=ShardLoadError,
+                                  abort=self._stop.is_set)
 
     def _produce(self, i: int):
         """Shard ``i`` as a queue item (idxs, segments, event, device), with
@@ -759,16 +809,13 @@ class BroadcastShardSource:
         return _BroadcastView(self, rank)
 
     def close(self) -> None:
-        """Stop the producer, drop every queued placement and retire the
-        loader's readahead pool."""
+        """Stop the producer, then drop every queued placement and retire
+        the loader's readahead pool. The queues are drained only once the
+        producer has ended (it sees the stop within one 0.2 s put attempt):
+        a slot drained under a blocked put would let the next shard land in
+        a rank's queue where that rank still expects the one drained."""
         self._stop.set()
-        while self._thread.is_alive():
-            for q in self._queues:
-                try:
-                    q.get_nowait()
-                except Empty:
-                    pass
-            self._thread.join(timeout=0.1)
+        self._thread.join()
         for q in self._queues:
             while not q.empty():
                 q.get_nowait()
@@ -1089,6 +1136,9 @@ class StreamingExecutor:
     resumed rank then drops the shards it finished.
     """
 
+    # The registry source of the latest call's stats (a subclass names its own).
+    REGISTRY_NAME = "executor"
+
     def __init__(self, cfg: FrameworkConfig, device: torch.device | None = None,
                  tokenizer=None, *, plan: ShardPlan | None = None,
                  weight_source_factory=None):
@@ -1120,6 +1170,16 @@ class StreamingExecutor:
         self._injector = FaultInjector.from_config(cfg.faults)
         self.stats: dict[str, float] = {}
         self.stats_history: list[dict[str, float]] = []
+        # Tracing and the flight recorder, enabled process-wide when the
+        # config asks (one bool read per emit otherwise); the latest call's
+        # stats are a registry source (last one wins, held through a weakref).
+        obs_trace.ensure_configured(cfg)
+        from flexible_llm_sharding_tpu_torch.obs import incident as obs_incident
+        from flexible_llm_sharding_tpu_torch.obs.registry import weak_source
+
+        obs_incident.ensure_configured(cfg)
+        REGISTRY.register(self.REGISTRY_NAME, weak_source(self))
+        self.recorder = metrics.Recorder(verbose=True) if cfg.verbose_metrics else None
 
     def _pin_tier(self):
         return residency.tier_for(self.cfg, self.layer_names, self.model_cfg.tie_word_embeddings,
@@ -1203,7 +1263,7 @@ class StreamingExecutor:
         return prefix_h, suffix_h
 
     def _run_block(self, segments, layer_idxs, store, b, idxs, meta, toks, scores,
-                   prev_shard, integrity) -> None:
+                   prev_shard, integrity, sweep_id: int = 0) -> None:
         """:func:`process_block`, with the recompute of a corrupt input spill:
         at most once per block and shard (a second failure means the
         previous generation is corrupt too, and raises)."""
@@ -1218,6 +1278,8 @@ class StreamingExecutor:
                 if prev_shard is None or fetched is not None:
                     raise
                 integrity.count("recomputes")
+                obs_trace.instant("spill_recompute", cat="integrity", block=b, sweep_id=sweep_id)
+                obs_events.emit("spill_recompute", block=b, sweep_id=sweep_id)
                 fetched = self._recompute_block(prev_shard, store, b, idxs, meta, n_layers)
 
     @torch.inference_mode()
@@ -1247,29 +1309,46 @@ class StreamingExecutor:
         # Disk mode keeps the previous shard's weights one more shard, for
         # the recompute of a corrupt spill.
         prev_shard = None
+        bar = metrics.progress_bar((n_shards - start) * max(len(blocks), 1), desc="stream",
+                                   unit="blk")
+        # The pass's correlation id: every span below carries it.
+        sweep_id = obs_trace.new_sweep_id() if obs_trace.enabled() else 0
         try:
-            it = iter(source)
-            for _ in range(skip):
-                next(it)
-            for shard_pos in range(start, n_shards):
-                t_wait = time.perf_counter()
-                layer_idxs, segments = next(it)
-                source_wait += time.perf_counter() - t_wait
-                store.set_shard(shard_pos)
-                t0 = time.perf_counter()
-                for b, idxs in enumerate(blocks):
-                    self._run_block(segments, layer_idxs, store, b, idxs, metas[b], toks, scores,
-                                    prev_shard, source.integrity)
-                sync(self.device)
-                compute_time += time.perf_counter() - t0
-                if resumable:
-                    if shard_pos + 1 < n_shards:
-                        # The marker never claims a shard whose writes are queued.
-                        store.flush()
-                        self._mark_progress(marker, sig, shard_pos + 1)
-                    prev_shard = (layer_idxs, segments)
-                del segments
+            with obs_trace.span("sweep", cat="sweep", sweep_id=sweep_id, mode="offline",
+                                blocks=len(blocks)):
+                it = iter(source)
+                for _ in range(skip):
+                    next(it)
+                for shard_pos in range(start, n_shards):
+                    t_wait = time.perf_counter()
+                    layer_idxs, segments = next(it)
+                    waited = time.perf_counter() - t_wait
+                    source_wait += waited
+                    # Recorded with the measured wait, after the resume skip:
+                    # the trace's source_wait total is the stats line's.
+                    obs_trace.TRACER.complete("source_wait", "sweep", t_wait, waited,
+                                              sweep_id=sweep_id)
+                    store.set_shard(shard_pos)
+                    t0 = time.perf_counter()
+                    with obs_trace.span("compute", cat="sweep", sweep_id=sweep_id,
+                                        shard_idx=shard_pos):
+                        for b, idxs in enumerate(blocks):
+                            self._run_block(segments, layer_idxs, store, b, idxs, metas[b], toks,
+                                            scores, prev_shard, source.integrity, sweep_id)
+                            bar.update(1)
+                        if not blocks:
+                            bar.update(1)
+                        sync(self.device)
+                    compute_time += time.perf_counter() - t0
+                    if resumable:
+                        if shard_pos + 1 < n_shards:
+                            # The marker never claims a shard whose writes are queued.
+                            store.flush()
+                            self._mark_progress(marker, sig, shard_pos + 1)
+                        prev_shard = (layer_idxs, segments)
+                    del segments
         finally:
+            bar.close()
             source.close()
             store.clear()
         finalize_scores(scores)
@@ -1289,6 +1368,9 @@ class StreamingExecutor:
             self.stats["load_time_shared"] = self.stats["streamed_bytes_shared"] = 1.0
         host_stats.read_peak(self.stats)
         self.stats_history.append(dict(self.stats))
+        if self.recorder is not None:
+            self.recorder.record("executor_call", self.stats["total_wall_s"], prompts=len(prompts),
+                                 **{k: v for k, v in self.stats.items() if k != "total_wall_s"})
         return [scores[i] for i in range(len(prompts))]
 
 
@@ -1298,6 +1380,7 @@ __all__ = [
     "ShardWeightSource",
     "layer_segments",
     "process_tied_head_requants",
+    "reset_process_streamed_bytes",
     "reset_process_tied_head_requants",
     "SourceClosed",
     "StreamStats",
@@ -1309,5 +1392,6 @@ __all__ = [
     "peak_mem_gb",
     "peak_over",
     "process_block",
+    "stream_stats",
     "sync",
 ]

@@ -24,8 +24,9 @@ while fault injection is on). The brownout ladder's ``cache_shrink`` rung
 (``runtime/pressure.py``) shrinks the live cache with
 :func:`apply_pressure_cap` and latches the cap, so no later ``cache_for``
 grows it back while the brownout holds; :func:`lift_pressure_cap` restores
-the budget the process would run at without the cap. The JAX module's trace
-instants and metrics registration wait for ROADMAP item 7.
+the budget the process would run at without the cap. Every lookup is a
+``hostcache_hit`` or ``hostcache_miss`` trace instant (emitted off the
+cache's lock), and the process cache is the ``host_cache`` registry source.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ from typing import Any, Sequence
 import torch
 
 from flexible_llm_sharding_tpu_torch.integrity.manifest import _file_key as _stat_key
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
 
 AUTO_FRACTION = 0.25
 
@@ -107,21 +110,30 @@ class HostShardCache:
             entry = self._entries.get(key)
             if entry is None:
                 self.misses += 1
-                return None
+        if entry is None:
+            # Off the cache lock: the tracer's lock never nests inside it.
+            obs_trace.instant("hostcache_miss", cat="cache")
+            return None
         value, nbytes, guard = entry
         stale = any(_stat_key(path) != stat for path, stat in guard)
         with self._lock:
             cur = self._entries.get(key)
             if cur is None or cur is not entry:
                 self.misses += 1
-                return None
-            if stale:
+                hit = False
+            elif stale:
                 self._drop(key)
                 self.invalidations += 1
                 self.misses += 1
-                return None
-            self._entries.move_to_end(key)
-            self.hits += 1
+                hit = False
+            else:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                hit = True
+        if not hit:
+            obs_trace.instant("hostcache_miss", cat="cache", stale=stale)
+            return None
+        obs_trace.instant("hostcache_hit", cat="cache", bytes=nbytes)
         return value, nbytes
 
     def put(self, key, value, paths: Sequence[str] = (), nbytes: int | None = None,
@@ -231,6 +243,7 @@ def cache_for(cfg) -> HostShardCache | None:
                 budget = min(budget, max(cap, 1))
             _PROCESS_CACHE = HostShardCache(budget)
             _PROCESS_BUDGET_EXPLICIT = explicit
+            REGISTRY.register("host_cache", _PROCESS_CACHE.stats)
         elif explicit:
             if cap is not None:
                 _PRESSURE_INTENDED = budget
@@ -305,6 +318,7 @@ def reset_process_cache() -> None:
         _PROCESS_BUDGET_EXPLICIT = False
         _PRESSURE_CAP = None
         _PRESSURE_INTENDED = None
+    REGISTRY.unregister("host_cache")
 
 
 __all__ = [

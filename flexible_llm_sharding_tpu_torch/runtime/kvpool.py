@@ -64,6 +64,7 @@ import torch
 
 from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
 from flexible_llm_sharding_tpu_torch.integrity.manifest import SpillCorruptError, SpillReadError
+from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
 from flexible_llm_sharding_tpu_torch.runtime.activations import (
     _SPILL_REREAD_ATTEMPTS,
     _from_numpy,
@@ -661,6 +662,8 @@ def pool_for(cfg) -> KVPagePool | None:
                               spill_dir=os.path.join(cfg.disk_folder, "kvpool"),
                               host_spill=cfg.kv_host_spill)
             _POOLS[key] = pool
+            # The fls_kvpool_* family scrapes the aggregate the stats lines print.
+            REGISTRY.register("kvpool", process_stats)
         else:
             with pool._lock:
                 pool.budget_bytes = int(budget)
@@ -708,6 +711,7 @@ def reset_process_pools() -> None:
             pages = list(pool._pages)
         for page in pages:
             pool._remove_spill_files(page)
+    REGISTRY.unregister("kvpool")
 
 
 __all__ = [

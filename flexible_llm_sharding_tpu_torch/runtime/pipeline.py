@@ -35,6 +35,7 @@ import torch
 
 from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, LlamaConfig, indexed_device
 from flexible_llm_sharding_tpu_torch.integrity import manifest as integrity_manifest
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
 from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.parallel.planner import batch_ranges, global_stage_order
 from flexible_llm_sharding_tpu_torch.runtime import residency, resume
@@ -55,7 +56,7 @@ from flexible_llm_sharding_tpu_torch.runtime.tokenization import (
     check_longrope_regime,
     make_blocks,
 )
-from flexible_llm_sharding_tpu_torch.utils import checkpoint
+from flexible_llm_sharding_tpu_torch.utils import checkpoint, metrics
 
 
 class PipelineRunner:
@@ -72,6 +73,10 @@ class PipelineRunner:
     """
 
     def __init__(self, cfg: FrameworkConfig, devices, tokenizer=None):
+        from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY, weak_source
+
+        obs_trace.ensure_configured(cfg)
+        REGISTRY.register("pipeline", weak_source(self))
         self.cfg = cfg
         self.devices = [indexed_device(d) for d in devices]
         self.model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
@@ -92,6 +97,8 @@ class PipelineRunner:
             integrity_manifest.load_manifest(cfg.model_path) if cfg.verify_weights else None)
         self.stats: dict[str, float] = {}
         self.stats_history: list[dict[str, float]] = []
+        # One stage_dispatch event per stage (printed with --verbose_metrics).
+        self.recorder = metrics.Recorder(verbose=cfg.verbose_metrics)
 
     def __call__(self, prompts) -> list[np.ndarray]:
         prompts = list(prompts)
@@ -164,6 +171,7 @@ class PipelineRunner:
             return metas[(b, dev)]
 
         compute_time = source_wait = 0.0
+        bar = metrics.progress_bar(len(stages) * max(len(blocks), 1), desc="pipeline", unit="blk")
         try:
             it = iter(source)
             for stage_idx, rank, layer_idxs in stages:
@@ -171,15 +179,20 @@ class PipelineRunner:
                 _, segments = next(it)
                 source_wait += time.perf_counter() - t_wait
                 if not layer_idxs:  # a round-up padding stage
+                    bar.update(max(len(blocks), 1))
                     continue
                 dev = self.devices[rank]
                 t0 = time.perf_counter()
-                sync(dev)  # this device's previous stage
-                store.set_shard(stage_idx)
-                for b, idxs in enumerate(blocks):
-                    process_block(self.model_cfg, self.dtype, segments, layer_idxs, n_layers,
-                                  store, b, idxs, meta_on(b, dev), toks, scores, device=dev)
+                with obs_trace.span("pipeline_stage", cat="pipeline", stage=stage_idx, rank=rank):
+                    sync(dev)  # this device's previous stage
+                    store.set_shard(stage_idx)
+                    for b, idxs in enumerate(blocks):
+                        process_block(self.model_cfg, self.dtype, segments, layer_idxs, n_layers,
+                                      store, b, idxs, meta_on(b, dev), toks, scores, device=dev)
+                        bar.update(1)
                 compute_time += time.perf_counter() - t0
+                self.recorder.record("stage_dispatch", time.perf_counter() - t0,
+                                     stage=stage_idx, rank=rank)
                 del segments
                 if resumable and stage_idx < last_real:
                     # The marker never claims a stage whose writes are queued.
@@ -192,6 +205,7 @@ class PipelineRunner:
                 pass
             raise
         finally:
+            bar.close()
             source.close()
         dispatch_wall = time.perf_counter() - t_start
         for dev in dict.fromkeys(self.devices):

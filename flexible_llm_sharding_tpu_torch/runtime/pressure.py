@@ -27,10 +27,11 @@ on purpose: the retry policy's transient family, so one backoff ladder and
 one way to degrade (fail the wave, keep the engine) cover an allocation
 failure as they cover an I/O blip.
 
-The JAX module's trace instants, journal events and ``fls_pressure_*``
-registry source wait for the port of ``obs/`` (ROADMAP item 7); until then
-the controller counts each event it would emit (``obs_events`` in
-:meth:`BrownoutController.stats`).
+Each ladder move is a ``pressure_step`` trace instant and journal event,
+each hard event a ``pressure_event`` instant (the controller's) and journal
+event (:func:`note_event`'s, with or without a controller), and the process
+controller is the ``pressure`` registry source (``fls_pressure_*``), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ from dataclasses import dataclass, field
 import torch
 
 from flexible_llm_sharding_tpu_torch.config import indexed_device
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
 
 
 class HostOOMError(OSError):
@@ -241,12 +245,9 @@ class BrownoutController:
         self.disk_full_events = 0
         self.link_events = 0
         self.polls = 0
-        # Port-only: failed samples and polls, failed levers, and the trace
-        # instants and journal events the JAX controller emits (obs/ brings
-        # the rest).
+        # Port-only: failed samples and polls, and failed levers.
         self.sample_errors = 0
         self.lever_errors = 0
-        self.obs_events = 0
 
     # -- registration ---------------------------------------------------------
 
@@ -308,7 +309,7 @@ class BrownoutController:
             else:
                 return
             self._events_pending += 1
-            self.obs_events += 1  # JAX: a pressure_event trace instant
+        obs_trace.instant("pressure_event", cat="pressure", kind=kind)
 
     def note_shed(self) -> None:
         """One admission rejected ``Overloaded`` (the queue's callback)."""
@@ -360,11 +361,19 @@ class BrownoutController:
                     release_idx = self.level - 1
                     self.level -= 1
                     self.steps_down += 1
-            # JAX: a pressure_step trace instant and journal event per move.
-            self.obs_events += 2 * (len(engage_idxs) + (release_idx is not None))
+            level = self.level
         for idx in engage_idxs:
+            obs_trace.instant("pressure_step", cat="pressure", direction="up", level=level,
+                              stage=self.LADDER[idx], tripped=sorted(snap.tripped),
+                              events=pending)
+            obs_events.emit("pressure_step", direction="up", level=level,
+                            stage=self.LADDER[idx], tripped=sorted(snap.tripped), events=pending)
             self._engage(idx)
         if release_idx is not None:
+            obs_trace.instant("pressure_step", cat="pressure", direction="down", level=level,
+                              stage=self.LADDER[release_idx])
+            obs_events.emit("pressure_step", direction="down", level=level,
+                            stage=self.LADDER[release_idx])
             self._release(release_idx)
 
     def _engage(self, idx: int) -> None:
@@ -479,7 +488,7 @@ class BrownoutController:
 
     def stats(self) -> dict:
         """The JAX controller's counters and last readings, plus the
-        port's ``sample_errors``, ``lever_errors`` and ``obs_events``."""
+        port's ``sample_errors`` and ``lever_errors``."""
         with self._lock:
             snap = self._last
             out = {
@@ -501,7 +510,6 @@ class BrownoutController:
                 "polls": self.polls,
                 "sample_errors": self.sample_errors,
                 "lever_errors": self.lever_errors,
-                "obs_events": self.obs_events,
             }
         if snap.host_available_bytes is not None:
             out["host_available_bytes"] = snap.host_available_bytes
@@ -521,8 +529,7 @@ class BrownoutController:
 _PROCESS_CONTROLLER: BrownoutController | None = None
 _PROCESS_MONITOR: PressureMonitor | None = None
 _PROCESS_LOCK = threading.Lock()
-# Hard events noted in this process, with or without a controller (the JAX
-# package journals each; obs/ brings that).
+# Hard events noted in this process, with or without a controller.
 _PROCESS_EVENTS = {"host_oom": 0, "disk_full": 0}
 
 
@@ -539,6 +546,7 @@ def controller_for(cfg, device=None) -> BrownoutController | None:
             ctrl = BrownoutController(cfg)
             _PROCESS_CONTROLLER = ctrl
             _PROCESS_MONITOR = PressureMonitor(cfg, ctrl, device=device).start()
+            REGISTRY.register("pressure", ctrl.stats)
         return _PROCESS_CONTROLLER
 
 
@@ -548,11 +556,13 @@ def process_controller() -> BrownoutController | None:
 
 
 def note_event(kind: str) -> None:
-    """Report a hard resource failure: counted for the process (see
-    :func:`process_events`) and handed to the process controller, if any.
-    Unknown kinds are dropped."""
+    """Report a hard resource failure: journaled (a ``pressure_event`` whose
+    ``resource`` is the kind, whether or not the ladder is on), counted for
+    the process (see :func:`process_events`) and handed to the process
+    controller, if any. Unknown kinds are dropped."""
     if kind not in _PROCESS_EVENTS:
         return
+    obs_events.emit("pressure_event", resource=kind)
     with _PROCESS_LOCK:
         _PROCESS_EVENTS[kind] += 1
     ctrl = process_controller()
@@ -583,6 +593,7 @@ def reset_process_pressure() -> None:
                 idx = ctrl.level - 1
                 ctrl.level -= 1
             ctrl._release(idx)
+    REGISTRY.unregister("pressure")
 
 
 __all__ = [

@@ -47,6 +47,8 @@ from typing import Sequence
 
 import torch
 
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
 from flexible_llm_sharding_tpu_torch.utils import checkpoint
 
 # Auto budget: the share of the card's total memory held back for
@@ -285,8 +287,11 @@ class DeviceResidencyTier:
             host = loader.build_host_shard((idx,))
             return [(name, loader.place_layer(name, tree, device)) for name, tree in host]
         try:
-            host = loader.build_host_shard((idx,))
-            placed = [(name, loader.place_layer(name, tree, device)) for name, tree in host]
+            # One span per pin load: a one-time cost, not a per-pass one.
+            with obs_trace.span("residency_pin", cat="residency", layer=self.layer_names[idx],
+                                idx=idx):
+                host = loader.build_host_shard((idx,))
+                placed = [(name, loader.place_layer(name, tree, device)) for name, tree in host]
         except Exception:
             # Never pin bytes that did not verify: stream this layer for good.
             with self._lock:
@@ -416,6 +421,7 @@ class DeviceResidencyTier:
             self.pressure_demoted = True
             self._placed.clear()
             self._dev_bytes.clear()
+        obs_trace.instant("pressure_unpin", cat="pressure", layers=demoted)
         return demoted
 
     def pressure_restore(self) -> int:
@@ -428,7 +434,9 @@ class DeviceResidencyTier:
             if saved is not None:
                 self.plan = saved
             self.pressure_demoted = False
-            return len(self.plan.pinned)
+            restored = len(self.plan.pinned)
+        obs_trace.instant("pressure_repin", cat="pressure", layers=restored)
+        return restored
 
 
 # -- the process tier ----------------------------------------------------------
@@ -485,6 +493,7 @@ def tier_for(cfg, layer_names: Sequence[str], tied_embeddings: bool,
             _PROCESS_TIER = DeviceResidencyTier(cfg.model_path, layer_names, plan)
             _PROCESS_TIER_KEY = key
             _PROCESS_BUDGET_EXPLICIT = explicit
+            REGISTRY.register("residency", _PROCESS_TIER.stats)
             return _PROCESS_TIER
     if resize:
         _apply_process_budget(tier, budget, explicit, tied_embeddings, plan=plan)
@@ -522,6 +531,7 @@ def reset_process_tier() -> None:
         _PROCESS_TIER = None
         _PROCESS_TIER_KEY = None
         _PROCESS_BUDGET_EXPLICIT = False
+    REGISTRY.unregister("residency")
 
 
 def plan_report(model_path: str, budget_bytes: int) -> dict:

@@ -21,10 +21,11 @@ between ``AutoscaleConfig.min`` and ``max``:
 
 The brownout interlock reads ``fleet._pressure``, the process controller
 of ``runtime/pressure.py`` (None with pressure off: the interlock never
-blocks). The JAX controller's journal events and trace instants are not
-ported (ROADMAP item 7); every decision is counted in
-:meth:`FleetAutoscaler.stats` (``grows``, ``shrinks``, ``blocked``,
-``dry_run_decisions``).
+blocks). Every decision is counted in :meth:`FleetAutoscaler.stats`
+(``grows``, ``shrinks``, ``blocked``, ``dry_run_decisions``) and, as in the
+JAX controller, is an ``autoscale_grow``, ``autoscale_shrink`` or
+``autoscale_blocked`` journal event and trace instant; a failed poll is an
+``autoscale_poll_error`` instant (and the port's ``poll_errors``).
 
 :class:`StaggerController`, the fleet's phase. N replicas bound the wait to
 a sweep over N only if their sweeps sit at offsets i/N. The fleet measures
@@ -40,6 +41,9 @@ from __future__ import annotations
 
 import threading
 import time
+
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
 
 
 def stagger_targets(n: int) -> tuple[float, ...]:
@@ -221,6 +225,7 @@ class FleetAutoscaler:
             except Exception:  # a sampler's bug must not end the control loop: counted, next poll retries
                 with self._lock:
                     self.poll_errors += 1
+                obs_trace.instant("autoscale_poll_error", cat="autoscale")
 
     def mark_replay_complete(self) -> None:
         """Open the WAL-replay interlock (idempotent)."""
@@ -286,7 +291,7 @@ class FleetAutoscaler:
             elif grow_cooling:
                 blocked_now.add("grow_cooldown")
             else:
-                action = self._act("grow", now)
+                action = self._act("grow", now, fields)
         elif grow_confirmed and population >= self.cfg.max:
             blocked_now.add("at_max")
         elif shrink_confirmed and population > self.cfg.min:
@@ -297,17 +302,17 @@ class FleetAutoscaler:
             elif shrink_cooling:
                 blocked_now.add("shrink_cooldown")
             else:
-                action = self._act("shrink", now)
+                action = self._act("shrink", now, fields)
         # Shrink-confirmed at min is an idle fleet's resting state.
         if blocked_now:
             action = "blocked:" + ",".join(sorted(blocked_now))
-            self._latch_blocked(blocked_now)
+            self._latch_blocked(blocked_now, fields)
         else:
             with self._lock:
                 self._blocked_latched.clear()
         return {"action": action, **fields}
 
-    def _act(self, direction: str, now: float) -> str:
+    def _act(self, direction: str, now: float, fields: dict) -> str:
         """One confirmed scale action (counted only, in a dry run): both
         cooldowns restart from it and both streaks reset."""
         dry = self.cfg.dry_run
@@ -338,15 +343,22 @@ class FleetAutoscaler:
             else:
                 self.shrinks += 1
                 self.target = max(self.cfg.min, population)
+            target = self.target
+        kind = "autoscale_grow" if direction == "grow" else "autoscale_shrink"
+        obs_events.emit(kind, target=target, **fields)
+        obs_trace.instant(kind, cat="autoscale", target=target, **fields)
         return direction
 
-    def _latch_blocked(self, reasons: set) -> None:
-        """A standing interlock counts once per reason, again only after a
-        poll where it did not block."""
+    def _latch_blocked(self, reasons: set, fields: dict) -> None:
+        """A standing interlock counts and journals once per reason, again
+        only after a poll where it did not block."""
         with self._lock:
             fresh = reasons - self._blocked_latched
             self._blocked_latched = set(reasons)
             self.blocked += len(fresh)
+        for reason in sorted(fresh):
+            obs_events.emit("autoscale_blocked", reason=reason, **fields)
+            obs_trace.instant("autoscale_blocked", cat="autoscale", reason=reason, **fields)
 
     def stats(self) -> dict:
         with self._lock:

@@ -99,8 +99,20 @@ after the fleet's hook; an injected ``engine_step`` fault is an ``OSError``
 and takes the recovery above. With ``FrameworkConfig.pressure`` the process
 brownout controller (``runtime/pressure.py``) sheds through this engine's
 queue and backs its speculation off, and its counters make the stats line's
-``pressure`` block. Not ported yet, each raising where its flag is parsed
-(the serve CLI): tracing and the metrics endpoint.
+``pressure`` block.
+
+Observability (``obs/``, the JAX package's names and correlation ids): each
+sweep is a ``sweep`` span holding a ``prefill_shard`` or ``decode_shard``
+span per wave and shard, kept outside any captured region (the serve sweep
+runs eager); a wave's life is a string of instants (``wave_admit``,
+``ttft``, ``token_latency``, ``request_finish``, ``wave_abort``,
+``wave_reject``, ``wave_preempt``, ``prefix_coalesce``, ``adapter_apply``,
+``adapter_reject``, ``spec_draft``, ``spec_verify``); every failure path is
+also a journal event (``engine_recovery``, ``engine_fatal``,
+``shutdown_drain`` among them). The engine's registry (``metrics.registry``)
+serves ``ServeConfig.metrics_port``'s endpoint, and its sources are
+mirrored into the process registry unless ``process_metrics_mirror`` is off
+(a fleet's replicas).
 """
 
 from __future__ import annotations
@@ -130,6 +142,9 @@ from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.faults.retry import ShardLoadError
 from flexible_llm_sharding_tpu_torch.integrity.manifest import SpillCorruptError
 from flexible_llm_sharding_tpu_torch.models import llama
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
+from flexible_llm_sharding_tpu_torch.obs import incident as obs_incident
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
 from flexible_llm_sharding_tpu_torch.obs.slo import SLOTracker
 from flexible_llm_sharding_tpu_torch.ops import cuda_build
 from flexible_llm_sharding_tpu_torch.parallel.planner import plan_shards_dp
@@ -236,12 +251,14 @@ class ServeEngine:
 
     ``scheduler`` and ``wal``: a ``SweepScheduler`` and a ``RequestWAL``
     shared with other engines (the replica fleet's); None builds this
-    engine's own from ``serve_cfg``.
+    engine's own from ``serve_cfg``. ``process_metrics_mirror=False`` keeps
+    this engine's sources out of the process registry (a fleet's replica:
+    the fleet exports them under ``replica<idx>``).
     """
 
     def __init__(self, cfg: FrameworkConfig, serve_cfg: ServeConfig | None = None, tokenizer=None,
                  device: torch.device | None = None, start: bool = True,
-                 scheduler=None, wal=None):
+                 scheduler=None, wal=None, process_metrics_mirror: bool = True):
         if cfg.temperature > 0:
             raise ValueError("serving is greedy-only (per-request rng streams under sampling are "
                              "not supported); set temperature=0")
@@ -277,7 +294,14 @@ class ServeEngine:
         self._sliding = llama.layer_sliding_pattern(self.model_cfg)
         self._rope_on = llama.layer_rope_pattern(self.model_cfg)
         self._resident = cfg.decode_resident_enabled(self.model_cfg, 1, self.device)
-        self.metrics = ServingMetrics()
+        # Tracing and the flight recorder: process-wide, enabled by the
+        # config. Off, an emit below is one bool read and its scalar
+        # arguments; the ones whose attributes walk a wave's requests or a
+        # numpy array build them only when tracing is on.
+        obs_trace.ensure_configured(cfg)
+        obs_events.ensure_configured(cfg)
+        obs_incident.ensure_configured(cfg, self.serve_cfg)
+        self.metrics = ServingMetrics(process_mirror=process_metrics_mirror)
         # The chaos injector (None unless cfg.faults.enabled), handed to the
         # queue, every source, the pool and the adapter store.
         self._injector = FaultInjector.from_config(cfg.faults)
@@ -290,9 +314,22 @@ class ServeEngine:
             cfg, self.layer_names, self.model_cfg.tie_word_embeddings, self.device))
         self.metrics.residency = self._residency
         self._streamed_before = 0  # bytes of the sources already closed
-        self.metrics.register("stream", self._stream_stats)
+        # Process-level names: their owners register them process-wide (the
+        # executor module's ``stream``), so no engine mirror replaces them.
+        self.metrics.register("stream", self._stream_stats, mirror=False)
+        self.metrics.register("trace", obs_trace.TRACER.stats, mirror=False)
+        self.metrics.register("journal", obs_events.JOURNAL.stats, mirror=False)
         self._slo = SLOTracker(self.serve_cfg.slo, self.metrics)
         self.metrics.register("slo", self._slo.stats)
+        # The metrics endpoint (None = off; port 0 = ephemeral, the bound
+        # port is metrics_server.port). Its handler thread only collects
+        # host numbers: no source makes a CUDA call.
+        self.metrics_server = None
+        if self.serve_cfg.metrics_port is not None:
+            from flexible_llm_sharding_tpu_torch.obs.registry import MetricsServer
+
+            self.metrics_server = MetricsServer(self.metrics.registry,
+                                                port=self.serve_cfg.metrics_port)
         self._sched = scheduler
         if self._sched is None and self.serve_cfg.sched.enabled:
             self._sched = SweepScheduler(self.serve_cfg.sched)
@@ -447,9 +484,17 @@ class ServeEngine:
         if self._thread is not None:
             self._thread.join(timeout)
             ok = not self._thread.is_alive()
+        self._close_surfaces()
+        return ok
+
+    def _close_surfaces(self) -> None:
+        """The endpoint, the draft model and this engine's process-registry
+        mirrors (a dead engine must not serve stale counters)."""
+        if self.metrics_server is not None:
+            self.metrics_server.close()
         if self._draft_model is not None:
             self._draft_model.close()
-        return ok
+        self.metrics.close()
 
     def shutdown_for_restart(self, timeout: float | None = None) -> bool:
         """A graceful restart (SIGTERM): park the queued requests
@@ -469,8 +514,9 @@ class ServeEngine:
             ok = not self._thread.is_alive()
         self._wal.flush(sync=True)
         self._wal.maybe_compact()
-        if self._draft_model is not None:
-            self._draft_model.close()
+        obs_events.emit("shutdown_drain", clean=ok,
+                        open_requests=self._wal.stats()["open_requests"])
+        self._close_surfaces()
         return ok
 
     def _drain_for_restart(self) -> None:
@@ -622,6 +668,10 @@ class ServeEngine:
                 wave = self.batcher.admit_at_boundary()
                 if wave is not None and not self._init_wave(wave):
                     continue  # the wave failed at tokenization; check the queue again
+                if wave is not None and obs_trace.enabled():
+                    obs_trace.instant("wave_admit", cat="serve", wave_id=wave.wave_id,
+                                      requests=len(wave.requests),
+                                      request_ids=[r.request_id for r in wave.requests])
                 if not self.batcher.waves:
                     if self.queue.closed and len(self.queue) == 0:
                         break
@@ -657,6 +707,9 @@ class ServeEngine:
         the error's traceback frames (the sweep's shard, activations and
         KV) are cleared: the error outlives the engine in every future."""
         self._error = error
+        obs_events.emit("engine_fatal", error=type(error).__name__, detail=str(error)[:200],
+                        waves=len(self.batcher.waves),
+                        wave_ids=[w.wave_id for w in self.batcher.waves])
         _clear_frames(error)
         for w in self.batcher.waves:
             if w.state is not None:
@@ -687,8 +740,17 @@ class ServeEngine:
             f"in-flight wave aborted by a recoverable engine fault ({type(root).__name__}: "
             f"{root}); the engine recovered and keeps serving — resubmit")
         err.__cause__ = root
+        for w in self.batcher.waves:
+            obs_trace.instant("wave_abort", cat="serve", wave_id=w.wave_id,
+                              error=type(root).__name__)
+            obs_events.emit("wave_abort", wave_id=w.wave_id, error=type(root).__name__,
+                            request_ids=[r.request_id for r in w.requests])
         self.batcher.fail_all_active(err)
         self.metrics.count("engine_recoveries")
+        obs_trace.instant("engine_recovery", cat="serve", error=type(root).__name__,
+                          waves=n_waves)
+        obs_events.emit("engine_recovery", error=type(root).__name__, detail=str(root)[:200],
+                        waves=n_waves)
         if n_waves:
             self.metrics.count("waves_aborted", n_waves)
         if not self._resident:
@@ -769,12 +831,19 @@ class ServeEngine:
         return int(prefix_tokens * mc.num_hidden_layers * mc.num_key_value_heads
                    * (mc.head_dim + mc.v_dim) * self.dtype.itemsize)
 
-    def _note_coalesced(self, entry, handle) -> None:
-        """A coalesced entry's savings from the pool's own pages, counted
-        when they exist: at seal for a fresh prefill, at admission for a
-        reuse entry."""
-        self._sched.note_coalesced(
-            len(entry.requests), (len(entry.requests) - 1) * self._kv_pool.entry_bytes(handle))
+    def _note_coalesced(self, wave, entry, tp, saved: int) -> None:
+        """One coalesced entry's savings, counted and traced: from the
+        pool's own pages (at seal for a fresh prefill, at admission for a
+        reuse entry), or from the shapes with the pool off."""
+        self._sched.note_coalesced(len(entry.requests), saved)
+        if obs_trace.enabled():
+            obs_trace.instant("prefix_coalesce", cat="sched", wave_id=wave.wave_id,
+                              requests=len(entry.requests),
+                              request_ids=[r.request_id for r in entry.requests],
+                              prefix_tokens=tp.prefix_len, kv_bytes_saved=saved)
+
+    def _pool_saved(self, entry, handle) -> int:
+        return (len(entry.requests) - 1) * self._kv_pool.entry_bytes(handle)
 
     def _tokenize_entry(self, entry):
         """One (prefix, suffixes) prompt per entry; a resumed request's
@@ -832,6 +901,11 @@ class ServeEngine:
                         if not r.status.terminal and r.fail(err, RequestStatus.FAILED):
                             self.metrics.count("failed")
                     self.metrics.count("adapter_rejects")
+                    obs_trace.instant("adapter_reject", cat="adapter", wave_id=wave.wave_id,
+                                      adapter=aid, error=type(err).__name__)
+                    obs_events.emit("adapter_reject", adapter=aid, error=type(err).__name__,
+                                    detail=str(err)[:200],
+                                    request_ids=[r.request_id for r in e.requests])
                     continue
                 plans[aid] = plan
                 factors[aid] = fac
@@ -925,6 +999,10 @@ class ServeEngine:
             self._release_pool_handles(st)
         self.batcher.waves.remove(wave)
         self._sched.note_preempted(len(live))
+        obs_trace.instant("wave_preempt", cat="sched", wave_id=wave.wave_id, requests=len(live),
+                          steps=wave.steps, request_ids=[r.request_id for r in live])
+        obs_events.emit("wave_preempt", wave_id=wave.wave_id, steps=wave.steps,
+                        request_ids=[r.request_id for r in live])
         self.queue.requeue(live)
 
     def _init_wave(self, wave: Wave) -> bool:
@@ -948,9 +1026,8 @@ class ServeEngine:
                 # Pool off: the savings from the shapes, at admission.
                 for e, tp in zip(entries, toks):
                     if len(e.requests) > 1:
-                        self._sched.note_coalesced(
-                            len(e.requests),
-                            (len(e.requests) - 1) * self._prefix_kv_bytes(tp.prefix_len))
+                        saved = (len(e.requests) - 1) * self._prefix_kv_bytes(tp.prefix_len)
+                        self._note_coalesced(wave, e, tp, saved)
             blocks = make_blocks(toks, self.cfg.block_size)
             meta = {b: block_meta(toks, idxs, self.device) for b, idxs in enumerate(blocks)}
             loc = {i: (b, row) for b, idxs in enumerate(blocks) for row, i in enumerate(idxs)}
@@ -973,7 +1050,7 @@ class ServeEngine:
                     key = "prefix_reuse_tokens" if reused else "prefix_prefill_tokens"
                     self.metrics.count(key, int(tp.prefix_len))
                     if reused and self._sched is not None and len(e.requests) > 1:
-                        self._note_coalesced(e, pool_handles[i])
+                        self._note_coalesced(wave, e, tp, self._pool_saved(e, pool_handles[i]))
             # Generated-KV slots and the KV placement: the offline rules.
             slots = self._sched_core.gen_slots(wave.max_steps, self._spec_k, spec_wave)
             kv_on_device = self._sched_core.kv_on_device(
@@ -990,6 +1067,10 @@ class ServeEngine:
                     [self._entry_adapter(e) for e in entries])
                 a_scales = adapter_apply.group_scales(a_names, a_plans)
                 a_g = {b: [int(g_all[i]) for i in idxs] for b, idxs in enumerate(blocks)}
+                if obs_trace.enabled():
+                    obs_trace.instant("adapter_apply", cat="adapter", wave_id=wave.wave_id,
+                                      adapters=[n for n in a_names if n is not None],
+                                      rows=int((np.asarray(g_all) != 0).sum()))
             wave.state = _WaveState(
                 toks=toks, blocks=blocks, meta=meta,
                 kv_store=KVStore(kv_on_device, self.device),
@@ -1008,6 +1089,11 @@ class ServeEngine:
                 if not r.status.terminal and r.fail(e, RequestStatus.FAILED):
                     self.metrics.count("failed")
             self.batcher.waves.remove(wave)
+            obs_trace.instant("wave_reject", cat="serve", wave_id=getattr(wave, "wave_id", -1),
+                              error=type(e).__name__)
+            obs_events.emit("wave_reject", wave_id=getattr(wave, "wave_id", -1),
+                            error=type(e).__name__,
+                            request_ids=[r.request_id for r in wave.requests])
             return False
 
     # -- per-shard compute -------------------------------------------------
@@ -1016,35 +1102,42 @@ class ServeEngine:
         """One weight pass: the prefill of the waves at step 0, one decode
         step of every other wave."""
         wd = self._watchdog
-        for shard_pos, (layer_idxs, segments) in self._sweep_shards():
-            if tuple(layer_idxs) != tuple(self.shards[shard_pos]):
-                raise RuntimeError(f"sweep out of phase: shard {tuple(layer_idxs)} arrived at "
-                                   f"position {shard_pos} of {self.shards}")
-            if wd is not None:
-                wd.tick()
-            self._sweep_pos = shard_pos
-            self._heartbeat = time.monotonic()
-            if self.fleet_hook is not None:
-                # The fleet's stagger hold (shard 0) and its replica chaos:
-                # replica_kill raises the engine-fatal ReplicaKilled,
-                # replica_stall wedges this thread until the fleet releases it.
-                self.fleet_hook(shard_pos)
-            if self._injector is not None:
-                self._injector.fire("engine_step", detail=f"shard{shard_pos}")
-            if (self._crash_sweeps and self._sweeps_done >= self._crash_sweeps
-                    and (shard_pos > 0 or len(self.shards) == 1)):
-                # The process-death drill: no cleanup, nothing flushed
-                # beyond what the WAL already handed the kernel.
-                os.kill(os.getpid(), signal.SIGKILL)
-            for wave in self.batcher.waves:
-                if wave.steps == 0:
-                    self._prefill_shard(wave, shard_pos, layer_idxs, segments)
-                elif wave.state.spec is not None:
-                    self._spec_decode_shard(wave, shard_pos, layer_idxs, segments)
-                else:
-                    self._decode_shard(wave, shard_pos, layer_idxs, segments)
-            del segments
-        self._sweep_pos = 0
+        sweep_id = obs_trace.new_sweep_id() if obs_trace.enabled() else 0
+        with obs_trace.span("sweep", cat="serve", sweep_id=sweep_id, mode="serve",
+                            waves=len(self.batcher.waves)):
+            for shard_pos, (layer_idxs, segments) in self._sweep_shards():
+                if tuple(layer_idxs) != tuple(self.shards[shard_pos]):
+                    raise RuntimeError(f"sweep out of phase: shard {tuple(layer_idxs)} arrived "
+                                       f"at position {shard_pos} of {self.shards}")
+                if wd is not None:
+                    wd.tick()
+                self._sweep_pos = shard_pos
+                self._heartbeat = time.monotonic()
+                if self.fleet_hook is not None:
+                    # The fleet's stagger hold (shard 0) and its replica
+                    # chaos: replica_kill raises the engine-fatal
+                    # ReplicaKilled, replica_stall wedges this thread until
+                    # the fleet releases it.
+                    self.fleet_hook(shard_pos)
+                if self._injector is not None:
+                    self._injector.fire("engine_step", detail=f"shard{shard_pos}")
+                if (self._crash_sweeps and self._sweeps_done >= self._crash_sweeps
+                        and (shard_pos > 0 or len(self.shards) == 1)):
+                    # The process-death drill: no cleanup, nothing flushed
+                    # beyond what the WAL already handed the kernel.
+                    os.kill(os.getpid(), signal.SIGKILL)
+                for wave in self.batcher.waves:
+                    if wave.steps == 0:
+                        name, step = "prefill_shard", self._prefill_shard
+                    elif wave.state.spec is not None:
+                        name, step = "decode_shard", self._spec_decode_shard
+                    else:
+                        name, step = "decode_shard", self._decode_shard
+                    with obs_trace.span(name, cat="serve", sweep_id=sweep_id,
+                                        shard_idx=shard_pos, wave_id=wave.wave_id):
+                        step(wave, shard_pos, layer_idxs, segments)
+                del segments
+            self._sweep_pos = 0
 
     def _assemble(self, st: _WaveState, b: int, seg_key: tuple, n_layers: int):
         """One block's pooled prefix KV of a decoder segment on the device:
@@ -1206,6 +1299,11 @@ class ServeEngine:
                         v.set_pass_k(self._spec_ctrl.assign(st.spec_classes[b], v.budgets - v.g))
                     fed, base = v.begin_pass()
                     st.spec_base[b] = torch.from_numpy(base).to(self.device)
+                    # The suffixes that drafted this pass (begin_pass skips
+                    # remaining == 1), as spec_verify counts them.
+                    if obs_trace.enabled():
+                        obs_trace.instant("spec_draft", cat="spec", wave_id=wave.wave_id,
+                                          block=b, drafted=int((v.budgets - v.g > 1).sum()))
                     x = llama.embed(params, torch.from_numpy(fed).to(self.device), self.dtype,
                                     mcfg)
                 elif kind == "decoders":
@@ -1226,8 +1324,13 @@ class ServeEngine:
                     assert st.norm_p is not None
                     dist = spec_norm_head(mcfg, st.norm_p, params, x).to("cpu").numpy()
                     before = (v.drafted, v.accepted, v.rejected)
-                    v.finish_pass(dist)
+                    emitted = v.finish_pass(dist)
                     self._count_spec(v, st.spec_classes[b], before)
+                    if obs_trace.enabled():
+                        obs_trace.instant("spec_verify", cat="spec", wave_id=wave.wave_id,
+                                          block=b, accepted=int(v.accepted - before[1]),
+                                          drafted=int(v.drafted - before[0]),
+                                          emitted=int(emitted.sum()))
             if layer_idxs[-1] != self._n_layers - 1:
                 st.kv_store.put(("x", b), x)
 
@@ -1269,7 +1372,8 @@ class ServeEngine:
                             self._kv_pool.seal(handle)
                             e = wave.entries[i]
                             if self._sched is not None and len(e.requests) > 1:
-                                self._note_coalesced(e, handle)
+                                self._note_coalesced(wave, e, st.toks[i],
+                                                     self._pool_saved(e, handle))
                 if self._spec_k > 0 and wave.max_steps > 1:
                     self._init_spec(wave)
             if self._adapter_store is not None and st is not None and st.adapter_scales is not None:
@@ -1284,6 +1388,9 @@ class ServeEngine:
                 if prefilled and r.first_token_at is None:
                     r.first_token_at = now
                     self.metrics.observe_ttft(now - r.arrival, r.slo_class)
+                    obs_trace.instant("ttft", cat="serve", wave_id=wave.wave_id,
+                                      request_id=r.request_id,
+                                      seconds=round(now - r.arrival, 6))
                 if st is not None and st.spec is not None:
                     # A verify pass advances each suffix by 1..K+1 tokens;
                     # the request's progress is its slowest suffix's.
@@ -1308,6 +1415,8 @@ class ServeEngine:
         if emitted:
             self.metrics.count("tokens_emitted", emitted)
             self.metrics.observe_token_latency(sweep_wall_s)
+            obs_trace.instant("token_latency", cat="serve", seconds=round(sweep_wall_s, 6),
+                              tokens=emitted)
         for w in self.batcher.retire_done():
             if w.state is not None:
                 w.state.kv_store.clear()
@@ -1348,6 +1457,8 @@ class ServeEngine:
             self.metrics.count("completed")
             self.metrics.count("tokens_served", r.tokens_emitted)
             self.metrics.observe_request_latency(latency, r.slo_class)
+            obs_trace.instant("request_finish", cat="serve", wave_id=wave.wave_id,
+                              request_id=r.request_id, tokens=int(r.max_new_tokens))
 
 
 __all__ = ["ServeEngine"]

@@ -59,14 +59,14 @@ requests were reclaimed, so none of its outcomes counts. A retired engine
 whose thread outlives its shutdown's timeout is joined again at the
 fleet's shutdown, so a shutdown that returns True leaves no thread.
 
-Not ported from the JAX fleet (ROADMAP queue 1 item 7): the process metrics
-registry and its endpoint, the event journal, incident bundles and trace
-instants (``replica_dead``, ``replica_drain``, ``replica_recycled``,
-``redispatch``, ``replica_kill``, ``replica_stall``). In their place :meth:`stats`
-carries the sources the JAX fleet registers (``router``, the shared
-``sched``, ``autoscale``, the stagger controller's ``fleet`` source under
-``stagger``, one entry per replica) and the router counters count what the
-events would have journaled.
+Observability, as in the JAX fleet: the process registry carries the
+fleet's sources (``router``, the shared ``sched``, ``autoscale``, the
+stagger controller's ``fleet`` and one ``replica<idx>`` per engine, whose
+own sources stay out of the process registry's bare names), served by the
+fleet's endpoint at ``ServeConfig.metrics_port``; replica death, drains,
+recycles and re-dispatches are trace instants and journal events, the chaos
+sites' ``replica_kill`` and ``replica_stall`` trace instants. :meth:`stats`
+carries the same sources as the stats line.
 """
 
 from __future__ import annotations
@@ -85,6 +85,10 @@ from flexible_llm_sharding_tpu_torch.config import (
     resolve_device,
 )
 from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector, InjectedFault
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
+from flexible_llm_sharding_tpu_torch.obs import incident as obs_incident
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY, MetricsServer
 from flexible_llm_sharding_tpu_torch.runtime import pressure
 from flexible_llm_sharding_tpu_torch.serve.autoscale import FleetAutoscaler, StaggerController
 from flexible_llm_sharding_tpu_torch.serve.engine import ServeEngine
@@ -124,6 +128,9 @@ class _Replica:
         self.state = "serving"
         self.release = threading.Event()
         self.stagger = stagger
+        # The replica's registry source (``replica<idx>``), kept for the
+        # identity-checked unregister.
+        self.source = engine.metrics.registry.collect
 
     @property
     def serving(self) -> bool:
@@ -165,8 +172,10 @@ class ReplicaFleet:
         self.serve_cfg = serve_cfg or ServeConfig()
         self._tokenizer = tokenizer
         self._device = device if device is not None else resolve_device(cfg.device)
-        # The replicas' own config: one engine each, no elasticity of their own.
-        self._engine_cfg = dataclasses.replace(self.serve_cfg, replicas=1,
+        # The replicas' own config: one engine each, no elasticity of their
+        # own, and no endpoint of their own: the fleet serves the one
+        # process-registry endpoint, which mirrors every replica's sources.
+        self._engine_cfg = dataclasses.replace(self.serve_cfg, replicas=1, metrics_port=None,
                                                autoscale=AutoscaleConfig())
         # One WAL for every replica: a recycled replica keeps the log, and
         # one replay at the next start covers the fleet.
@@ -187,6 +196,10 @@ class ReplicaFleet:
         # Tokens of the caller requests resolved (not of abandoned attempts).
         self._tokens_served = 0  # guarded by: _lock
         self._started = False
+        # Tracing and the flight recorder, armed before the replicas build.
+        obs_trace.ensure_configured(cfg)
+        obs_events.ensure_configured(cfg)
+        obs_incident.ensure_configured(cfg, self.serve_cfg)
         # The process brownout controller (None unless cfg.pressure.enabled):
         # its replica_drain rung drains this fleet, and the autoscaler's
         # interlock reads it.
@@ -197,11 +210,21 @@ class ReplicaFleet:
         # multiply each tenant's rate by the replica count.
         self._sched = (SweepScheduler(self.serve_cfg.sched) if self.serve_cfg.sched.enabled
                        else None)
+        # The fleet's process-registry sources; the bound methods are kept
+        # for the identity-checked unregister at shutdown.
+        self._sources: dict[str, object] = {}
+        if self._sched is not None:
+            self._register("sched", self._sched.stats)
         auto_cfg = self.serve_cfg.autoscale
         # Built before the replicas: each replica's fleet_hook reads it.
         self._stagger = (StaggerController(auto_cfg) if auto_cfg.enabled and auto_cfg.stagger
                          else None)
+        if self._stagger is not None:
+            self._register("fleet", self._stagger.stats)
         self._autoscaler: FleetAutoscaler | None = None
+        self._register("router", self.metrics.snapshot)
+        self.metrics_server = (MetricsServer(REGISTRY, port=self.serve_cfg.metrics_port)
+                               if self.serve_cfg.metrics_port is not None else None)
         try:
             for _ in range(self.serve_cfg.replicas):
                 rep = self._mk_replica(start=start)
@@ -214,6 +237,7 @@ class ReplicaFleet:
             # With a WAL, the first decision waits for the replay
             # (mark_replay_complete).
             self._autoscaler = FleetAutoscaler(self, auto_cfg, replay_pending=self._wal is not None)
+            self._register("autoscale", self._autoscaler.stats)
         self._stop = threading.Event()
         self._monitor = threading.Thread(target=self._monitor_loop, name="fleet-monitor",
                                          daemon=True)
@@ -224,6 +248,17 @@ class ReplicaFleet:
                 self._autoscaler.start()
 
     # -- lifecycle ---------------------------------------------------------
+
+    def _register(self, name: str, source) -> None:
+        self._sources[name] = source
+        REGISTRY.register(name, source)
+
+    def _close_surfaces(self) -> None:
+        """The endpoint and every process-registry source of the fleet."""
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+        for name, source in self._sources.items():
+            REGISTRY.unregister_if(name, source)
 
     def start(self) -> "ReplicaFleet":
         if not self._started:
@@ -297,6 +332,8 @@ class ReplicaFleet:
         for rep in replicas:
             rep.release.set()  # free a chaos-stalled thread
             ok = rep.engine.shutdown(drain=drain, timeout=timeout) and ok
+            REGISTRY.unregister_if(f"replica{rep.idx}", rep.source)
+        self._close_surfaces()
         return self._join_retired(timeout) and ok
 
     def shutdown_for_restart(self, timeout: float | None = None) -> bool:
@@ -315,6 +352,8 @@ class ReplicaFleet:
         for rep in replicas:
             rep.release.set()
             ok = rep.engine.shutdown_for_restart(timeout=timeout) and ok
+            REGISTRY.unregister_if(f"replica{rep.idx}", rep.source)
+        self._close_surfaces()
         return self._join_retired(timeout) and ok
 
     # -- replica lifecycle -------------------------------------------------
@@ -322,15 +361,19 @@ class ReplicaFleet:
     def _mk_replica(self, start: bool = True) -> _Replica:
         """Build one engine slot (outside the fleet's lock: it reads the
         checkpoint's config)."""
+        # No process mirrors of the engine's own sources: with N replicas
+        # the bare names would expose one arbitrary replica; the
+        # replica<idx> source below is the mirror.
         engine = ServeEngine(self.cfg, self._engine_cfg, tokenizer=self._tokenizer,
                              device=self._device, start=False, scheduler=self._sched,
-                             wal=self._wal)
+                             wal=self._wal, process_metrics_mirror=False)
         with self._lock:
             idx = self._next_idx
             self._next_idx += 1
         rep = _Replica(idx, engine, stagger=self._stagger)
         if self._injector is not None or self._stagger is not None or engine.device.type == "cuda":
             engine.fleet_hook = lambda shard_pos, rep=rep: self._fleet_step(rep, shard_pos)
+        REGISTRY.register(f"replica{idx}", rep.source)
         if start:
             engine.start()
         return rep
@@ -345,8 +388,10 @@ class ReplicaFleet:
                 self._replicas.append(rep)
         if closed:
             rep.engine.shutdown(drain=False, timeout=1.0)
+            REGISTRY.unregister_if(f"replica{rep.idx}", rep.source)
             raise ServeClosed("replica fleet is shut down")
         self.metrics.count("replicas_added")
+        obs_trace.instant("replica_added", cat="fleet", replica=rep.idx)
         if self._stagger is not None:
             self._stagger.note_membership_change()
         self._flush_pending()
@@ -373,6 +418,8 @@ class ReplicaFleet:
         if not drain:
             self._hard_fail(target, "removed without drain")
             return True
+        obs_trace.instant("replica_drain", cat="fleet", replica=target.idx, remove=True)
+        obs_events.emit("replica_drain", replica=target.idx, remove=True)
         deadline = time.monotonic() + timeout if timeout is not None else None
         while True:
             with self._lock:
@@ -388,11 +435,14 @@ class ReplicaFleet:
             if rep.state != "serving":
                 return
             rep.state = "draining"
+        obs_trace.instant("replica_drain", cat="fleet", replica=rep.idx, remove=False)
+        obs_events.emit("replica_drain", replica=rep.idx, remove=False)
 
     def _retire(self, rep: _Replica, drain: bool, timeout: float) -> None:
         """Shut a replica's engine down, keep its last stats, and keep the
         engine for the fleet's shutdown if its thread did not end."""
         ended = rep.engine.shutdown(drain=drain, timeout=timeout)
+        REGISTRY.unregister_if(f"replica{rep.idx}", rep.source)
         stats = {"state": "dead", **rep.engine.stats()}
         with self._lock:
             self._retired_stats[str(rep.idx)] = stats
@@ -407,6 +457,7 @@ class ReplicaFleet:
             rep.state = "dead"
         self._retire(rep, drain=True, timeout=30.0)
         self.metrics.count("replicas_drained")
+        obs_trace.instant("replica_drained", cat="fleet", replica=rep.idx)
         if removing:
             self._drop(rep)
         else:
@@ -422,6 +473,8 @@ class ReplicaFleet:
             removing = rep.state == "removing"
             rep.state = "dead"
         self.metrics.count("replicas_dead")
+        obs_trace.instant("replica_dead", cat="fleet", replica=rep.idx, reason=reason)
+        obs_events.emit("replica_dead", replica=rep.idx, reason=reason)
         rep.release.set()  # free a chaos-stalled thread so it can end
         orphans = rep.engine.reclaim_inflight()
         self._retire(rep, drain=False, timeout=2.0)
@@ -454,11 +507,14 @@ class ReplicaFleet:
                 self._replicas.remove(rep)
         if aborted:
             new.engine.shutdown(drain=False, timeout=1.0)
+            REGISTRY.unregister_if(f"replica{new.idx}", new.source)
             return
         self.metrics.count("replicas_recycled")
         if self._stagger is not None:
             self._stagger.forget(rep.idx)
             self._stagger.note_membership_change()
+        obs_trace.instant("replica_recycled", cat="fleet", replica=rep.idx, new_replica=new.idx)
+        obs_events.emit("replica_recycled", replica=rep.idx, new_replica=new.idx)
         self._flush_pending()
 
     def _drop(self, rep: _Replica) -> None:
@@ -474,15 +530,19 @@ class ReplicaFleet:
 
     def pressure_drain(self, keep: int = 1) -> int:
         """Drain all but ``keep`` (at least 1) serving replicas through the
-        drain path and drop them instead of recycling. Non-blocking; returns
-        how many were marked. The brownout controller that calls this in
-        the JAX package is not ported: here it runs when called."""
-        marked = 0
+        drain path and drop them instead of recycling (the brownout ladder's
+        ``replica_drain`` rung). Non-blocking; returns how many were
+        marked."""
+        marked: list[int] = []
         with self._lock:
             for rep in [r for r in self._replicas if r.serving][max(keep, 1):]:
                 rep.state = "removing"
-                marked += 1
-        return marked
+                marked.append(rep.idx)
+        for idx in marked:
+            obs_trace.instant("replica_drain", cat="fleet", replica=idx, remove=True,
+                              pressure=True)
+            obs_events.emit("replica_drain", replica=idx, remove=True, pressure=True)
+        return len(marked)
 
     def pressure_restore(self) -> int:
         """Add replicas back up to :meth:`population_target`. Returns how
@@ -538,11 +598,13 @@ class ReplicaFleet:
         try:
             inj.fire("replica_kill", detail=f"replica{rep.idx} shard{shard_pos}")
         except InjectedFault as e:
+            obs_trace.instant("replica_kill", cat="fleet", replica=rep.idx, shard_idx=shard_pos)
             raise ReplicaKilled(
                 f"chaos replica_kill: replica {rep.idx} died at shard {shard_pos}") from e
         try:
             inj.fire("replica_stall", detail=f"replica{rep.idx} shard{shard_pos}")
         except InjectedFault:
+            obs_trace.instant("replica_stall", cat="fleet", replica=rep.idx, shard_idx=shard_pos)
             rep.release.wait()
 
     # -- dispatch ------------------------------------------------------------
@@ -646,6 +708,11 @@ class ReplicaFleet:
         if choice == "parked":
             return
         self.metrics.count("redispatches" if redispatch else "dispatches")
+        if redispatch:
+            obs_trace.instant("redispatch", cat="fleet", request_id=outer.request_id,
+                              replica=replica.idx)
+            obs_events.emit("redispatch", request_id=outer.request_id, replica=replica.idx,
+                            attempts=disp.attempts)
         # Outside the lock: a synchronous rejection re-enters _inner_terminal.
         replica.engine.submit_request(inner)
 

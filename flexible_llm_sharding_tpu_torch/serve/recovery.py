@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import time
 
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
 from flexible_llm_sharding_tpu_torch.runtime.schedcore import SchedCore
 from flexible_llm_sharding_tpu_torch.serve.request import Request
 from flexible_llm_sharding_tpu_torch.serve.wal import RequestWAL, WalEntry
@@ -92,6 +93,8 @@ def replay(engine, wal: RequestWAL, callback=None) -> dict:
         "kv_failed": kv_failed,
         "scan_s": round(time.monotonic() - t0, 6),
     }
+    obs_events.emit("wal_replay", **summary,
+                    wal_ids=[r.wal_id for r in requests][:32])  # bounded: lines stay scannable
     # Segments whose every id is terminal again can go.
     wal.maybe_compact()
     summary["requests"] = requests

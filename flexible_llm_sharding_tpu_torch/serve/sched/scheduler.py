@@ -34,6 +34,8 @@ import threading
 import time
 from collections import OrderedDict
 
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+
 from flexible_llm_sharding_tpu_torch.serve.sched.classes import (
     BEST_EFFORT,
     CLASS_RANK,
@@ -119,6 +121,8 @@ class SweepScheduler:
                 return None
             self.rate_limited += 1
             self._tenant_locked(request.tenant_id)["rate_limited"] += 1
+        obs_trace.instant("tenant_throttle", cat="sched", tenant=request.tenant_id,
+                          request_id=request.request_id, retry_after_s=round(retry, 4))
         return RateLimited(
             f"tenant {request.tenant_id!r} over its rate limit ({rate:g} req/s, burst "
             f"{self.cfg.tenant_burst:g}); retry after ~{retry:.2f}s",

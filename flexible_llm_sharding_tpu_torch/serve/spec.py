@@ -11,8 +11,8 @@ The controller is also the brownout ladder's first rung
 (``runtime/pressure.py`` ``spec_backoff``): :meth:`SpecController.
 pressure_backoff` stops every draft (k = 0, the plain path) while keeping
 the adapted k's and windows, and :meth:`~SpecController.pressure_restore`
-drafts again at them. The JAX controller's journal events wait for the port
-of ``obs/`` (ROADMAP item 7).
+drafts again at them. Each decision is a ``spec_k_raise`` or
+``spec_k_backoff`` journal event (``obs/events.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import threading
 
 import numpy as np
 
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
 from flexible_llm_sharding_tpu_torch.serve.sched.classes import SLO_CLASSES
 
 
@@ -93,6 +94,7 @@ class SpecController:
         drafted nothing is no evidence and is not counted."""
         if drafted <= 0:
             return
+        decision = None
         with self._lock:
             win = self._win.setdefault(slo_class, [0, 0, 0])
             win[0] += 1
@@ -106,9 +108,15 @@ class SpecController:
             if acceptance >= self.raise_threshold and k < self.k_max:
                 self._k[slo_class] = k + 1
                 self.k_raises += 1
+                decision = ("spec_k_raise", k + 1, acceptance)
             elif acceptance <= self.backoff_threshold and k > self.k_min:
                 self._k[slo_class] = k - 1
                 self.k_backoffs += 1
+                decision = ("spec_k_backoff", k - 1, acceptance)
+        if decision is not None:
+            kind, new_k, acc = decision
+            obs_events.emit(kind, slo_class=slo_class, k=new_k, acceptance=round(acc, 4),
+                            reason="acceptance")
 
     def pressure_backoff(self) -> None:
         """The ladder's engage: draft nothing (every row k = 0) until the
@@ -118,6 +126,9 @@ class SpecController:
                 return
             self._backed_off = True
             self.pressure_backoffs += 1
+            ks = dict(self._k)
+        obs_events.emit("spec_k_backoff", k=0, reason="pressure",
+                        **{f"k_{c}": v for c, v in ks.items()})
 
     def pressure_restore(self) -> None:
         """The ladder's release: draft again at the adapted k's."""
@@ -126,6 +137,9 @@ class SpecController:
                 return
             self._backed_off = False
             self.pressure_restores += 1
+            ks = dict(self._k)
+        obs_events.emit("spec_k_raise", reason="pressure_restore",
+                        **{f"k_{c}": v for c, v in ks.items()})
 
     def current_k(self, slo_class: str) -> int:
         with self._lock:

@@ -45,6 +45,7 @@ import threading
 import time
 
 from flexible_llm_sharding_tpu_torch.integrity.manifest import checksum_bytes
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
 from flexible_llm_sharding_tpu_torch.serve.request import Request, RestartPending
 
 _LEN = struct.Struct("<I")
@@ -211,6 +212,8 @@ class RequestWAL:
                     os.truncate(path, valid)
                 except OSError:
                     pass  # a read-only directory: the scan already stops there
+                obs_events.emit("wal_torn_tail", segment=name, valid_bytes=valid,
+                                records=len(records))
             ids = set()
             for rec in records:
                 wid = rec.get("id")

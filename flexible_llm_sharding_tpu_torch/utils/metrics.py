@@ -2,19 +2,27 @@
 ``utils/metrics.py`` ``RetryRecorder`` and ``IntegrityRecorder``), the
 host's resident memory, the analytic model sizes and device memory that
 the decode gates judge residency by (``param_count``,
-``weight_bytes_per_chip``, ``chip_hbm_gb``), and the serving engine's
-metrics (``ServingMetrics``, ``assemble_serve_stats``) and stall watchdog
-(``StepWatchdog``)."""
+``weight_bytes_per_chip``, ``chip_hbm_gb``), the serving engine's metrics
+(``ServingMetrics``, ``assemble_serve_stats``) and stall watchdog
+(``StepWatchdog``), the batch run's structured timing log (``Recorder``,
+``--verbose_metrics``), its progress bar (``progress_bar``) and device
+profile (``profiler_trace``, ``--profile_dir``)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import sys
 import threading
 import time
 from collections import deque
+from dataclasses import dataclass, field
 
 import numpy as np
+
+from flexible_llm_sharding_tpu_torch.obs import events as obs_events
+from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
 
 
 class RetryRecorder:
@@ -188,6 +196,42 @@ SLO_CLASS_NAMES = ("interactive", "standard", "best_effort")
 _SERVE_CORE_SOURCES = ("serve", "io_retries", "integrity", "host_cache", "residency")
 
 
+@dataclass
+class Recorder:
+    """Append-only structured timing log of one run (the JAX package's):
+    events are ``(name, seconds, extra)``; ``summary()`` aggregates by
+    name. ``verbose`` prints one JSON line per event to stderr
+    (``--verbose_metrics``)."""
+
+    verbose: bool = False
+    events: list[tuple[str, float, dict]] = field(default_factory=list)
+
+    def record(self, name: str, seconds: float, **extra) -> None:
+        self.events.append((name, seconds, extra))
+        if self.verbose:
+            print(json.dumps({"event": name, "seconds": round(seconds, 4), **extra}),
+                  file=sys.stderr, flush=True)
+
+    @contextlib.contextmanager
+    def timed(self, name: str, **extra):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, time.perf_counter() - t0, **extra)
+
+    def total(self, name: str) -> float:
+        return sum(s for n, s, _ in self.events if n == name)
+
+    def summary(self) -> dict[str, dict[str, float]]:
+        agg: dict[str, dict[str, float]] = {}
+        for name, s, _ in self.events:
+            d = agg.setdefault(name, {"count": 0.0, "seconds": 0.0})
+            d["count"] += 1
+            d["seconds"] += s
+        return agg
+
+
 def _latency_summary(samples: list[float]) -> dict[str, float]:
     """{count, mean, p50, p95, p99, max} in seconds of a sample list."""
     if not samples:
@@ -258,12 +302,16 @@ class ServingMetrics:
     class, make the ``spec`` source, with the acceptance rate and the
     accepted tokens per sweep.
 
-    Sources registered by name (``register``) make the stats line
-    (``snapshot``): this object's own under ``serve``, the retry and
-    integrity recorders, and what the engine attaches (host cache,
-    residency tier, watchdog, SLO tracker, KV pool). The JAX package also
-    mirrors them into a process registry behind a metrics endpoint, which
-    is not ported (``--metrics_port`` raises)."""
+    Every source registers into ``self.registry`` (an
+    ``obs.registry.MetricsRegistry``): this object's own under ``serve``,
+    the retry and integrity recorders, and what the engine attaches (host
+    cache, residency tier, watchdog, SLO tracker, KV pool, the stream
+    counters, the tracer and the journal). The stats line (``snapshot``)
+    and the engine's metrics endpoint both render from that registry.
+    Engine-scoped sources are mirrored into the process registry (last
+    engine wins; ``close`` retracts them) unless ``process_mirror`` is off,
+    as for a fleet's replicas, which the fleet exports under
+    ``replica<idx>``."""
 
     KNOWN_COUNTERS = (
         "admitted", "rejected", "expired", "cancelled", "completed", "failed", "prefills",
@@ -273,7 +321,10 @@ class ServingMetrics:
     )
     SPEC_COUNTERS = ("drafted_tokens", "accepted_tokens", "rejected_tokens")
 
-    def __init__(self, sample_window: int = 4096) -> None:
+    def __init__(self, sample_window: int = 4096, process_mirror: bool = True) -> None:
+        from flexible_llm_sharding_tpu_torch.obs.registry import MetricsRegistry
+
+        self.process_mirror = process_mirror
         self._lock = threading.Lock()
         self._counters: dict[str, int] = {k: 0 for k in self.KNOWN_COUNTERS}
         self._gauges: dict[str, float] = {}
@@ -286,7 +337,10 @@ class ServingMetrics:
         self._last_emit = 0.0
         self.retries = RetryRecorder()
         self.integrity = IntegrityRecorder()
-        self._sources: dict[str, object] = {}
+        self.registry = MetricsRegistry()
+        # Mirrored names -> the source registered process-wide, so close()
+        # retracts this engine's mirrors without touching a newer engine's.
+        self._mirrored: dict[str, object] = {}
         self._host_cache = None
         self._residency = None
         self.register("serve", self._core_snapshot)
@@ -294,21 +348,41 @@ class ServingMetrics:
         self.register("integrity", self.integrity.snapshot)
         self.register("spec", self.spec_snapshot)
 
-    def register(self, name: str, source) -> None:
-        """Add (or replace) a stats source: a no-argument callable returning
-        a dict."""
-        with self._lock:
-            self._sources[name] = source
+    def register(self, name: str, source, mirror: bool = True) -> None:
+        """Add (or replace) a stats source (a no-argument callable returning
+        a dict) in this engine's registry, and mirror it into the process
+        registry. ``mirror=False`` for process-level sources (the tracer,
+        the journal, the host cache, the residency tier): their owners
+        register them process-wide, and an engine's teardown must not take
+        them away."""
+        from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
+
+        self.registry.register(name, source)
+        if mirror and self.process_mirror:
+            self._mirrored[name] = source
+            REGISTRY.register(name, source)
 
     def unregister(self, name: str) -> None:
-        with self._lock:
-            self._sources.pop(name, None)
+        from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
+
+        self.registry.unregister(name)
+        mirrored = self._mirrored.pop(name, None)
+        if mirrored is not None:
+            REGISTRY.unregister_if(name, mirrored)
+
+    def close(self) -> None:
+        """Retract this engine's process-wide mirrors (engine shutdown).
+        Idempotent; a newer engine's registrations of the same names stay."""
+        from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
+
+        for name, source in self._mirrored.items():
+            REGISTRY.unregister_if(name, source)
+        self._mirrored = {}
 
     def collect(self) -> dict:
-        """Every source's snapshot, by name."""
-        with self._lock:
-            sources = dict(self._sources)
-        return {name: fn() for name, fn in sources.items()}
+        """Every source's snapshot, by name (``MetricsRegistry.collect``: a
+        raising source reads ``{"collect_error": 1}``)."""
+        return self.registry.collect()
 
     @property
     def host_cache(self):
@@ -318,7 +392,7 @@ class ServingMetrics:
     def host_cache(self, cache) -> None:
         self._host_cache = cache
         if cache is not None:
-            self.register("host_cache", cache.stats)
+            self.register("host_cache", cache.stats, mirror=False)
         else:
             self.unregister("host_cache")
 
@@ -330,7 +404,7 @@ class ServingMetrics:
     def residency(self, tier) -> None:
         self._residency = tier
         if tier is not None:
-            self.register("residency", tier.stats)
+            self.register("residency", tier.stats, mirror=False)
         else:
             self.unregister("residency")
 
@@ -475,6 +549,103 @@ class RouterMetrics:
             return {**dict(sorted(self._counters.items())), **dict(sorted(self._gauges.items()))}
 
 
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None):
+    """A ``torch.profiler`` scope over the CPU and, on a machine with a
+    card, the CUDA activities (the JAX package's ``jax.profiler.trace``):
+    its Chrome trace is written to ``<log_dir>/torch_trace_<pid>_<n>.json``
+    when the scope ends. A no-op without a directory."""
+    if not log_dir:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    n = sum(1 for f in os.listdir(log_dir) if f.startswith(f"torch_trace_{os.getpid()}_"))
+    prof.export_chrome_trace(os.path.join(log_dir, f"torch_trace_{os.getpid()}_{n}.json"))
+
+
+class _NullBar:
+    def update(self, n: int = 1) -> None:
+        pass
+
+    def set_postfix_str(self, s: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class _WatchdogBar:
+    """A progress bar with a warn-only stall watchdog (the JAX package's):
+    when no update lands for ``stall_warn_s``, a warning naming the loop and
+    how long it has been stuck goes to stderr, repeated each further
+    interval."""
+
+    def __init__(self, bar, desc: str, stall_warn_s: float):
+        self._bar = bar
+        self._desc = desc
+        self._interval = stall_warn_s
+        self._last = time.monotonic()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, name="progress-watchdog",
+                                        daemon=True)
+        self._thread.start()
+
+    def _watch(self) -> None:
+        warned = 0
+        while not self._stop.wait(min(self._interval / 4, 30.0)):
+            idle = time.monotonic() - self._last
+            if idle >= self._interval * (warned + 1):
+                warned += 1
+                msg = (f"[stall] '{self._desc}' has made no progress for {idle / 60:.1f} min — "
+                       "the device transfer or compute may be wedged; the run continues if it "
+                       "unwedges, or can be killed and resumed (--resume, disk mode)")
+                # tqdm.write, not print: a raw print would splice into the
+                # bar's in-place line.
+                writer = getattr(type(self._bar), "write", None)
+                if callable(writer):
+                    type(self._bar).write(msg, file=sys.stderr)
+                else:
+                    print(msg, file=sys.stderr, flush=True)
+            elif idle < self._interval:
+                warned = 0
+
+    def update(self, n: int = 1) -> None:
+        self._last = time.monotonic()
+        self._bar.update(n)
+
+    def set_postfix_str(self, s: str) -> None:
+        self._bar.set_postfix_str(s)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+        self._bar.close()
+
+
+def progress_bar(total: int, desc: str, unit: str = "it", disable=None,
+                 stall_warn_s: float = 600.0):
+    """A tqdm bar over a streaming loop (the JAX package's): ``disable=None``
+    is tqdm's auto mode (shown on a TTY, silent in pipes); a no-op bar
+    without tqdm. A stall watchdog warns on stderr when no update lands
+    for ``stall_warn_s`` (0 = off)."""
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        bar = _NullBar()
+    else:
+        bar = tqdm(total=total, desc=desc, unit=unit, disable=disable, file=sys.stderr)
+    if stall_warn_s and total > 0:
+        return _WatchdogBar(bar, desc, stall_warn_s)
+    return bar
+
+
 class StepWatchdog:
     """Step-progress watchdog with an abort action (the JAX package's).
 
@@ -511,6 +682,11 @@ class StepWatchdog:
             token = self._token  # before anything that can block
             self._armed = False
             self.stalls += 1
+            # The trace instant first (a ring append), then its durable twin.
+            obs_trace.instant("watchdog_stall", cat="serve", desc=self._desc,
+                              idle_s=round(idle, 3), stalls=self.stalls)
+            obs_events.emit("watchdog_stall", desc=self._desc, idle_s=round(idle, 3),
+                            stalls=self.stalls)
             print(f"[stall] '{self._desc}' made no progress for {idle:.1f}s — aborting for "
                   "recovery", file=sys.stderr, flush=True)
             try:
@@ -539,6 +715,7 @@ class StepWatchdog:
 
 __all__ = [
     "IntegrityRecorder",
+    "Recorder",
     "RetryRecorder",
     "RouterMetrics",
     "SLO_CLASS_NAMES",
@@ -549,5 +726,7 @@ __all__ = [
     "has_moe_layers",
     "host_rss_gib",
     "param_count",
+    "profiler_trace",
+    "progress_bar",
     "weight_bytes_per_chip",
 ]

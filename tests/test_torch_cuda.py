@@ -1440,3 +1440,116 @@ def test_pressure_unpin_lowers_memory_allocated(gen, tmp_path):
             _bit_equal(run, want)
     finally:
         residency.reset_process_tier()
+
+
+# -- observability on the card -------------------------------------------------
+
+@pytest.fixture
+def traced():
+    """The port's process tracer, enabled for one test, off and empty after."""
+    from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
+
+    obs_trace.TRACER.clear()
+    obs_trace.TRACER.enable()
+    yield obs_trace.TRACER
+    obs_trace.TRACER.disable()
+    obs_trace.TRACER.clear()
+
+
+@pytest.mark.parametrize("kv", [False, True], ids=["scoring", "kv_cache"])
+def test_traced_run_equals_the_untraced_run_on_the_card(gen, tmp_path, kv, traced):
+    """Tracing changes no output and no launch: scoring, and KV decode with
+    its steps one captured CUDA graph per block (no span inside a captured
+    region), bit-equal with equal launch counts; every span of the run is
+    recorded and ``compute`` closes after the device synchronization."""
+    model_dir = _decode_model(tmp_path, "llama")
+    card = torch.device("cuda", 0)
+    cfg = (_md_cfg(model_dir, tmp_path, kv_cache=True, num_gen_token=5) if kv
+           else _md_cfg(model_dir, tmp_path, num_batch=2))
+    traced.disable()
+    want, want_up, want_calls, want_counts = _md_run(cfg, [card], kv=kv)
+    traced.enable()
+    got, got_up, calls, counts = _md_run(cfg, [card], kv=kv)
+    _bit_equal(got, want)
+    assert got_up == want_up and counts == want_counts
+    spans = traced.snapshot()
+    names = {s["name"] for s in spans}
+    assert {"shard_load", "shard_produce", "device_put"} <= names
+    if kv:
+        assert calls[0]["decode_graph"] == 1
+    else:
+        computes = [s for s in spans if s["name"] == "compute"]
+        waits = [s for s in spans if s["name"] == "source_wait"]
+        assert computes and len(computes) == len(waits)
+        # compute_wall_s is measured over the same region the span covers.
+        total = sum(s["dur_s"] for s in computes)
+        assert total == pytest.approx(sum(c["compute_wall_s"] for c in calls), abs=2e-3)
+
+
+def test_registry_sources_from_a_fresh_thread_on_a_card_engine(gen, tmp_path):
+    """The endpoint's handler and the incident capture collect on threads
+    that never touched the card: every source of a CUDA engine (stream,
+    host cache, residency, pool, SLO, pressure, trace, journal) returns
+    host numbers there, none a ``collect_error``."""
+    import threading
+    import urllib.request
+
+    from flexible_llm_sharding_tpu_torch.config import (
+        FrameworkConfig,
+        PressureConfig,
+        ServeConfig,
+    )
+    from flexible_llm_sharding_tpu_torch.obs import events as obs_events
+    from flexible_llm_sharding_tpu_torch.runtime import kvpool, pressure
+    from flexible_llm_sharding_tpu_torch.serve import ServeEngine
+
+    kvpool.reset_process_pools()
+    obs_events.reset_journal()
+    model_dir = _decode_model(tmp_path, "llama")
+    cfg = FrameworkConfig(model_path=model_dir, dtype="bfloat16", block_size=2,
+                          decode_resident="off", hbm_pin_gb=0.01,
+                          disk_folder=str(tmp_path / "d"), journal_dir=str(tmp_path / "j"),
+                          pressure=PressureConfig(enabled=True, poll_s=0.05, host_min_gb=0.0,
+                                                  disk_min_gb=0.0, hbm_headroom_frac=0.0))
+    engine = ServeEngine(cfg, ServeConfig(max_wave_requests=1, default_max_new_tokens=2,
+                                          metrics_port=0),
+                         tokenizer=_WordTokenizer(), device=torch.device("cuda:0"))
+    got: list = []
+    try:
+        for r in [engine.submit(p, sfx) for p, sfx in _DECODE_PROMPTS]:
+            r.future.result(timeout=300)
+        thread = threading.Thread(target=lambda: got.append(engine.metrics.registry.collect()))
+        thread.start()
+        thread.join(60)
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{engine.metrics_server.port}/metrics", timeout=30).read().decode()
+    finally:
+        engine.shutdown(drain=True)
+        pressure.reset_process_pressure()
+        obs_events.reset_journal()
+        kvpool.reset_process_pools()
+    assert engine.error is None and got
+    assert not [k for k, v in got[0].items() if "collect_error" in v], got[0]
+    assert {"serve", "stream", "host_cache", "residency", "kvpool", "slo", "pressure",
+            "journal"} <= set(got[0])
+    assert "collect_error" not in text and "fls_pressure_level" in text
+
+
+def test_profiler_trace_records_the_scoring_kernel(gen, tmp_path):
+    """``--profile_dir``'s ``profiler_trace`` over a scoring run on the card:
+    the Chrome trace it writes holds one ``score_tc_kernel`` event per
+    scoring launch."""
+    import json
+
+    from flexible_llm_sharding_tpu_torch.utils.metrics import profiler_trace
+
+    model_dir = _decode_model(tmp_path, "llama")
+    cfg = _md_cfg(model_dir, tmp_path)
+    out = tmp_path / "prof"
+    with profiler_trace(str(out)):
+        _, _, _, counts = _md_run(cfg, [torch.device("cuda", 0)])
+    (name,) = os.listdir(out)
+    with open(out / name) as f:
+        events = json.load(f)["traceEvents"]
+    score = [e for e in events if e.get("cat") == "kernel" and "score_tc_kernel" in e["name"]]
+    assert len(score) == counts["flash_causal_attention"] + counts["flash_prefix_shared_attention"]

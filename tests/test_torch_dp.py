@@ -20,8 +20,10 @@ N`` ranks, JAX over N of its virtual CPU devices, on one tiny llama.
 import collections
 import os
 import pickle
+import re
 import threading
 import time
+from queue import Queue
 
 import jax
 import numpy as np
@@ -39,7 +41,13 @@ from flexible_llm_sharding_tpu_torch import cli
 from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
 from flexible_llm_sharding_tpu_torch.runtime import executor, hostcache, orchestration
 from flexible_llm_sharding_tpu_torch.runtime.decode import DecodeGenerator
-from flexible_llm_sharding_tpu_torch.runtime.executor import ShardWeightSource, StreamingExecutor
+from flexible_llm_sharding_tpu_torch.runtime.executor import (
+    BroadcastShardSource,
+    ShardWeightSource,
+    SourceClosed,
+    StreamingExecutor,
+)
+from flexible_llm_sharding_tpu_torch.utils.checkpoint import layer_names_for
 
 CPU = torch.device("cpu")
 ATOL = 1e-5
@@ -175,6 +183,23 @@ def _no_dp_threads_left() -> bool:
     return True
 
 
+def _raised(call):
+    """The exception ``call`` raised (None if it returned)."""
+    try:
+        call()
+    except Exception as e:  # noqa: BLE001 - the test checks its type
+        return e
+    return None
+
+
+def _seen(t0: float, error) -> str:
+    """What a DP failure test saw: the elapsed seconds, the threads still
+    alive and the exception that surfaced."""
+    alive = sorted(t.name for t in threading.enumerate() if t is not threading.current_thread())
+    return (f"after {time.monotonic() - t0:.2f} s; threads alive: {alive}; "
+            f"raised: {type(error).__name__}: {error}")
+
+
 def _watch_sources(monkeypatch) -> list:
     made = []
 
@@ -198,12 +223,60 @@ def test_a_failing_scoring_rank_raises_its_own_error(model_dir, tmp_path, monkey
     monkeypatch.setattr(StreamingExecutor, "__call__", failing)
     made = _watch_sources(monkeypatch)
     t0 = time.monotonic()
-    with pytest.raises(RuntimeError, match="rank 1 failed"):
-        orchestration.run_prompts(_cfg(model_dir, tmp_path, data_parallel=True, num_batch=2),
-                                  PROMPTS, tokenizer=_Vocab256(), devices=[CPU] * 3)
-    assert time.monotonic() - t0 < WAIT_S
-    assert _no_dp_threads_left()
-    assert len(made) == 1 and not made[0]._thread.is_alive()
+    error = _raised(lambda: orchestration.run_prompts(
+        _cfg(model_dir, tmp_path, data_parallel=True, num_batch=2), PROMPTS,
+        tokenizer=_Vocab256(), devices=[CPU] * 3))
+    assert isinstance(error, RuntimeError) and re.search("rank 1 failed", str(error)), \
+        _seen(t0, error)
+    assert time.monotonic() - t0 < WAIT_S, _seen(t0, error)
+    assert _no_dp_threads_left(), _seen(t0, error)
+    assert len(made) == 1 and not made[0]._thread.is_alive(), \
+        f"{len(made)} sources made; " + _seen(t0, error)
+
+
+def _wait_until(cond, what: str) -> None:
+    deadline = time.monotonic() + WAIT_S
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.005)
+
+
+def test_a_closed_broadcast_yields_no_shard_out_of_phase(model_dir, monkeypatch):
+    """F7: the broadcast's close drained a rank's queue while the producer
+    was blocked putting the next shard into it, so a rank that had not
+    consumed shard 0 yet could take shard 1's weights as shard 0's and fail
+    with its own error, which then hid the root cause. Here the producer is
+    left blocked on a put into a full queue: close() drains no queue until
+    the producer has ended, and a view of the closed source raises
+    ``SourceClosed`` without yielding a shard."""
+    sources: list[BroadcastShardSource] = []
+    drained_while_producing: list[bool] = []
+
+    class WatchedQueue(Queue):
+        def get_nowait(self):
+            drained_while_producing.append(sources[0]._thread.is_alive())
+            return super().get_nowait()
+
+    monkeypatch.setattr(executor, "Queue", WatchedQueue)
+    names = layer_names_for(4)
+    src = BroadcastShardSource(model_dir, names, [(i,) for i in range(len(names))],
+                               torch.float32, [CPU, CPU], prefetch_depth=1)
+    sources.append(src)
+    q0, q1 = src._queues
+    # Shard 0 fills both ranks' queues; no rank consumes, so the producer
+    # cannot end: it builds shard 1 and blocks putting it.
+    _wait_until(lambda: q0.full() and q1.full(), "shard 0 never reached both ranks")
+    src.close()
+    assert not src._thread.is_alive()
+    assert drained_while_producing and not any(drained_while_producing), \
+        f"close drained a queue while its producer could still put: {drained_while_producing}"
+    assert q0.empty() and q1.empty()
+    for rank in (0, 1):
+        yielded = []
+        with pytest.raises(SourceClosed):
+            for idxs, _ in src.view(rank):
+                yielded.append(idxs)
+        assert yielded == [], f"rank {rank} took {yielded} from a closed source"
 
 
 def test_a_failing_decode_rank_raises_its_own_error(model_dir, tmp_path, monkeypatch):
@@ -216,12 +289,15 @@ def test_a_failing_decode_rank_raises_its_own_error(model_dir, tmp_path, monkeyp
 
     monkeypatch.setattr(DecodeGenerator, "__call__", failing)
     made = _watch_sources(monkeypatch)
-    with pytest.raises(RuntimeError, match="decode rank failed"):
-        orchestration.run_decode(_cfg(model_dir, tmp_path, data_parallel=True, kv_cache=True,
-                                      num_gen_token=N_GEN, decode_resident="off"),
-                                 PROMPTS, tokenizer=_Vocab256(), devices=[CPU] * 2)
-    assert _no_dp_threads_left()
-    assert len(made) == 1 and not made[0]._thread.is_alive()
+    t0 = time.monotonic()
+    error = _raised(lambda: orchestration.run_decode(
+        _cfg(model_dir, tmp_path, data_parallel=True, kv_cache=True, num_gen_token=N_GEN,
+             decode_resident="off"), PROMPTS, tokenizer=_Vocab256(), devices=[CPU] * 2))
+    assert isinstance(error, RuntimeError) and re.search("decode rank failed", str(error)), \
+        _seen(t0, error)
+    assert _no_dp_threads_left(), _seen(t0, error)
+    assert len(made) == 1 and not made[0]._thread.is_alive(), \
+        f"{len(made)} sources made; " + _seen(t0, error)
 
 
 DECODE_CASES = [(2, "on", 0.0), (2, "off", 0.0), (3, "off", 0.8), (3, "on", 0.8)]

@@ -38,6 +38,8 @@ from flexible_llm_sharding_tpu.config import LlamaConfig as JLlamaConfig
 from flexible_llm_sharding_tpu.config import PressureConfig as JPressureConfig
 from flexible_llm_sharding_tpu.faults import inject as jinject
 from flexible_llm_sharding_tpu.models import llama as jllama
+from flexible_llm_sharding_tpu.obs import events as jevents
+from flexible_llm_sharding_tpu.obs import trace as jtrace
 from flexible_llm_sharding_tpu.runtime import hostcache as jhostcache
 from flexible_llm_sharding_tpu.runtime import kvpool as jkvpool
 from flexible_llm_sharding_tpu.runtime import pressure as jpressure
@@ -57,6 +59,8 @@ from flexible_llm_sharding_tpu_torch.config import (
 )
 from flexible_llm_sharding_tpu_torch.faults import inject
 from flexible_llm_sharding_tpu_torch.faults.retry import RetryPolicy, ShardLoadError
+from flexible_llm_sharding_tpu_torch.obs import events as pevents
+from flexible_llm_sharding_tpu_torch.obs import trace as ptrace
 from flexible_llm_sharding_tpu_torch.runtime import hostcache, kvpool, pressure, residency
 from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore
 from flexible_llm_sharding_tpu_torch.runtime.executor import StreamingExecutor
@@ -92,7 +96,7 @@ PROMPTS = [
 ]
 N_LAYERS = 2
 # The keys the port's controller adds to the JAX controller's stats().
-PORT_ONLY = ("sample_errors", "lever_errors", "obs_events")
+PORT_ONLY = ("sample_errors", "lever_errors")
 
 
 @pytest.fixture(scope="module")
@@ -334,18 +338,39 @@ def _drive_ladder(mod, cfg, script):
     return trace, ctrl.stats()
 
 
+def _pressure_instants(tracer) -> list:
+    """The tracer's ``pressure`` instants as (name, attributes), times left out."""
+    drop = ("name", "cat", "ts_s", "tid")
+    return [(e["name"], {k: v for k, v in e.items() if k not in drop})
+            for e in tracer.snapshot() if e["cat"] == "pressure"]
+
+
 @pytest.mark.parametrize("name", sorted(LADDER_SCRIPTS))
 def test_ladder_walks_up_engages_in_order_and_reverses(name, model_dir):
     """The same scripted snapshots and events give the same level, levers,
-    cache budget and cap after every poll, and the same stats()."""
+    cache budget and cap after every poll, the same stats(), and the same
+    trace instants: a ``pressure_step`` per move, a ``pressure_event`` per
+    hard event."""
     pcfg, jcfg = _both(model_dir, host_cache_gb=0.001, pressure={})
-    trace, stats = _drive_ladder(pressure, pcfg, LADDER_SCRIPTS[name])
-    jtrace, jstats = _drive_ladder(jpressure, jcfg, LADDER_SCRIPTS[name])
-    assert trace == jtrace
+    tracers = (ptrace.TRACER, jtrace.TRACER)
+    for t in tracers:
+        t.clear()
+        t.enable()
+    try:
+        trace, stats = _drive_ladder(pressure, pcfg, LADDER_SCRIPTS[name])
+        jtrace_, jstats = _drive_ladder(jpressure, jcfg, LADDER_SCRIPTS[name])
+        instants, jinstants = (_pressure_instants(t) for t in tracers)
+    finally:
+        for t in tracers:
+            t.disable()
+            t.clear()
+    assert trace == jtrace_
     assert {k: v for k, v in stats.items() if k not in PORT_ONLY} == jstats
     assert stats["sample_errors"] == stats["lever_errors"] == 0
-    assert stats["obs_events"] == (2 * (stats["steps_up"] + stats["steps_down"])
-                                   + stats["host_oom_events"] + stats["disk_full_events"])
+    assert instants == jinstants
+    names = [n for n, _ in instants]
+    assert names.count("pressure_step") == stats["steps_up"] + stats["steps_down"]
+    assert names.count("pressure_event") == stats["host_oom_events"] + stats["disk_full_events"]
     assert trace[-1][0] == 0 and max(t[0] for t in trace) >= 6
 
 
@@ -412,8 +437,20 @@ def test_note_event_unknown_kind_is_dropped(model_dir):
         ctrl.on_sample(mod.PressureSnapshot(tripped=frozenset({"link"})))
         out.append((first, ctrl.level, ctrl.stats()["link_events"]))
     assert out[0] == out[1] == ((0, 0), 1, 1)
-    pressure.note_event("typo_kind")
-    pressure.note_event("host_oom")
+    # The module-level note journals a hard event with or without a ladder,
+    # as JAX's does, and drops an unknown kind.
+    journals = (pevents.JOURNAL, jevents.JOURNAL)
+    tails = []
+    for mod, journal in zip((pressure, jpressure), journals):
+        journal.close()
+        journal.configure(tempfile.mkdtemp())
+        try:
+            mod.note_event("typo_kind")
+            mod.note_event("host_oom")
+            tails.append([(e["kind"], e["severity"], e["resource"]) for e in journal.tail()])
+        finally:
+            journal.close()
+    assert tails[0] == tails[1] == [("pressure_event", "error", "host_oom")]
     assert pressure.process_events() == {"host_oom": 1, "disk_full": 0}
 
 

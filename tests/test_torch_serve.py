@@ -618,18 +618,41 @@ _PRESSURE_FLAGS = tuple(
                           ("pressure_hbm_headroom_frac", 0.05), ("pressure_link_min_gbps", 0.0),
                           ("pressure_cache_shrink_frac", 0.5),
                           ("pressure_shed_retry_after_s", 1.0), ("pressure_step_down_polls", 3)))
-_SERVE_FLAG_CASES = cli._UNPORTED_SERVE_FLAGS + _PRESSURE_FLAGS
+# The observability flags, parsed as the JAX serve parser parses them.
+_OBS_FLAGS = tuple(
+    (flag, kw, "obs") for flag, kw in (
+        ("--metrics_port", dict(type=int, default=None)),
+        ("--trace", dict(action="store_true", default=False)),
+        ("--trace_out", dict(type=str, default="")),
+        ("--journal_dir", dict(type=str, default="")),
+        ("--journal_max_mb", dict(type=float, default=16.0)),
+        ("--incidents_dir", dict(type=str, default="")),
+        ("--incidents_max_mb", dict(type=float, default=256.0)),
+        ("--incident_trigger", dict(type=str, default="error",
+                                    choices=("info", "warning", "error", "critical"))),
+        ("--incident_debounce_s", dict(type=float, default=60.0)),
+        ("--incident_settle_s", dict(type=float, default=1.0))))
+_SERVE_FLAG_CASES = _OBS_FLAGS + _PRESSURE_FLAGS
 
 
 @pytest.mark.parametrize("flag,kw,where", _SERVE_FLAG_CASES,
                          ids=[f for f, _, _ in _SERVE_FLAG_CASES])
 def test_unported_serve_flags_raise(flag, kw, where, tmp_path):
-    """The flags still unported raise; the ``--pressure*`` flags (ported)
-    take their JAX defaults and values into ``PressureConfig``."""
-    if where is not None:
-        with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet"):
-            cli.main(["serve", "--model_path", str(tmp_path), "--device", "cpu", flag,
-                      *_non_default(kw)])
+    """No serve flag of the JAX parser is refused any more: the
+    observability flags take JAX's defaults and values into the configs,
+    as the ``--pressure*`` flags take theirs into ``PressureConfig``."""
+    if where == "obs":
+        dest = flag.lstrip("-")
+        ours, theirs = cli.build_serve_parser(), jcli.build_serve_parser()
+        assert ours.get_default(dest) == theirs.get_default(dest) == kw["default"]
+        argv = ["--model_path", str(tmp_path), flag, *_non_default(kw)]
+        args, jargs = ours.parse_args(argv), theirs.parse_args(argv)
+        assert getattr(args, dest) == getattr(jargs, dest) != kw["default"]
+        if dest == "metrics_port":
+            assert ServeConfig(metrics_port=args.metrics_port).metrics_port == 1
+        else:
+            fcfg = FrameworkConfig(model_path=str(tmp_path), **cli._obs_config_kwargs(args))
+            assert getattr(fcfg, dest) == getattr(jargs, dest)
         return
     dest = flag.lstrip("-")
     default = kw["default"]
