@@ -306,15 +306,25 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              byte, a warm process raises ShardCorruptError, a fresh CLI
              process exits nonzero naming it, and ``verify`` exits 2.
 
-7. decode  — Llama-2-7B at 8 of its 32 layers (3.8 GB of seeded bf16,
+7. decode  — Llama-2-7B at 2 of its 32 layers (1.33 GB of seeded bf16,
              written one layer file at a time), --kv_cache with 8 tokens,
              three runs: the defaults (resident, one CUDA graph per block),
              --decode_fused off and --decode_resident off; prints each
              run's wall and stats and requires equal tokens. Then scoring
-             with --num_gen_token 4 at --hbm_pin_gb 0, 3 and auto: scores
+             with --num_gen_token 4 at --hbm_pin_gb 0, 1 and auto: scores
              equal bit for bit, streamed bytes lower by the pinned bytes on
              every pass after the first, auto pinning every layer; prints
              each run's pinned and streamed bytes and wall.
+8. train   — training at Llama-2-7B's widths (depth 1 and 2, seeded
+             float32 params from the port's init_params; a seeded bf16
+             native checkpoint for the resume leg): the streamed trainer
+             against the monolithic step, its peak device memory flat in
+             depth and under the monolithic step's, a falling loss, a
+             save_state parked at .old and resumed, gradient accumulation,
+             bf16 compute over float32 masters, no attention kernel launched
+             and each CUDA wrapper refusing a gradient (``phase_train``).
+             Prints each step's forward, backward and update seconds, its
+             bytes each way and the peaks.
 
 Output: per-phase lines, then a JSON line of kernel records, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -4697,15 +4707,16 @@ def phase_resume(work: str, model_dir: str, cfg, prompts, scoring_ref: tuple,
     return launches
 
 
-# The decode phase's depth: Llama-2-7B's widths, 8 of its 32 layers.
-DECODE_LAYERS = 8
-# The pin run that pins part of them: embedding, norm, head and 6 layers.
-PARTIAL_PIN_GB = "3"
+# The decode phase's depth: Llama-2-7B's widths, 2 of its 32 layers (cut
+# from 8 for the train phase's time).
+DECODE_LAYERS = 2
+# The pin run that pins part of them: embedding, norm, head and 1 layer.
+PARTIAL_PIN_GB = "1"
 
 
 def phase_decode(work: str) -> dict:
-    """Llama-2-7B at ``DECODE_LAYERS`` of its 32 layers (3.8 GB of seeded
-    bf16 at 8, the depth cut for the smoke's time limit, written one layer
+    """Llama-2-7B at ``DECODE_LAYERS`` of its 32 layers (1.35 GB of seeded
+    bf16 at 2, the depth cut for the smoke's time limit, written one layer
     file at a time), --kv_cache with 8 tokens: the defaults (weights
     resident, KV on the card, one CUDA graph per block), --decode_fused off
     and --decode_resident off. Each run starts as a fresh CLI process would
@@ -4810,6 +4821,271 @@ def phase_pins(work: str, model_dir: str, cfg, prompts) -> dict:
             f"{res.get('pinned_layers')} layers pinned, {saved / n_gen} bytes saved per pass")
     fresh_process_state()
     return launches
+
+
+# The train phase: Llama-2-7B's widths at 1 and 2 decoder layers, float32,
+# a batch of 2 sequences of 128 + 1 tokens, AdamW at lr 1e-3 (the falling
+# loss at 1e-6: AdamW's first step, lr * sign(g) on 460 M params, moves the
+# loss by about lr * |g|_1, some 400 nats at 1e-3, and memorizes the batch).
+TRAIN_B, TRAIN_L, TRAIN_LR, TRAIN_WD, TRAIN_CLIP = 2, 128, 1e-3, 0.1, 1.0
+TRAIN_FALL_LR = 1e-6
+# A gradient this close to 0 (after the clip) is within float32 summation
+# noise of AdamW's eps (1e-8): its first update lr * g / (|g| + eps) may land
+# anywhere in [-lr, lr] in either of two runs (atomics, another order).
+NEAR_ZERO_GRAD = 1e-6
+
+
+def _tree_to(tree, device):
+    from flexible_llm_sharding_tpu_torch.training import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _near_zero_mask(cfg, params, tokens):
+    """Where the float32 gradient of one step from ``params``, clipped to a
+    global norm of ``TRAIN_CLIP`` as the update sees it, is near zero (on
+    the host, as bools)."""
+    from flexible_llm_sharding_tpu_torch import training
+
+    dev_params = _tree_to(params, "cuda")
+    _, grads = training.value_and_grad(dev_params, cfg, tokens.cuda(), torch.float32, None)
+    norm = float(training.global_norm(grads))
+    bound = NEAR_ZERO_GRAD / min(1.0, TRAIN_CLIP / norm)
+    return training.tree_map(lambda g: (g.abs() < bound).cpu(), grads)
+
+
+def _update_err(tag: str, got, want, noisy, lr: float) -> dict:
+    """Updated params against a reference update: within rtol 2e-5 / atol
+    2e-6 (the JAX package's own invariant tolerance) where the gradient is
+    not near zero, within 2 * lr where it is (``NEAR_ZERO_GRAD``)."""
+    from flexible_llm_sharding_tpu_torch.training import tree_leaves
+
+    worst, n_outside, n_noisy, n = 0.0, 0, 0, 0
+    for a, b, m in zip(tree_leaves(got), tree_leaves(want), tree_leaves(noisy)):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        outside = err > 2e-6 + 2e-5 * b.abs()
+        if (outside & ~m).any() or (err[m] > 2 * lr).any():
+            fail(f"train {tag}: {int((outside & ~m).sum())} params outside rtol 2e-5 / atol "
+                 f"2e-6 with a clipped gradient of 1e-6 or more, max err {float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+        n_outside += int(outside.sum())
+        n_noisy += int(m.sum())
+        n += m.numel()
+    return {"max_abs_err": worst, "outside_rtol_2e-5_atol_2e-6": n_outside,
+            "near_zero_grads": n_noisy, "params": n}
+
+
+def _train_step_log(tag: str, tr, loss: float, peak: int | None = None) -> None:
+    st = tr.stats
+    log(f"[train] {tag}: loss {loss:.6f}, forward {st['forward_s']:.3f} s, backward "
+        f"{st['backward_s']:.3f} s, update {st['update_s']:.3f} s, host->device "
+        f"{st['h2d_bytes']} B, device->host {st['d2h_bytes']} B, grad norm "
+        f"{st.get('grad_norm', float('nan')):.6f}"
+        + (f", peak {peak} B" if peak is not None else ""))
+
+
+def _refusals() -> None:
+    """Satellite of the train phase: each CUDA attention wrapper asked for a
+    gradient raises naming the training path, before any launch."""
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, grad=False):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16).requires_grad_(grad)
+
+    plen = torch.tensor([64, 17], dtype=torch.int32, device="cuda")
+    eos = torch.tensor([[3, 15], [0, 7]], dtype=torch.int32, device="cuda")
+    k, v = rnd(2, 64, 4, 128), rnd(2, 64, 4, 128)
+    ks, vs = rnd(2, 2, 16, 4, 128), rnd(2, 2, 16, 4, 128)
+    kg, vg = rnd(2, 2, 3, 4, 128), rnd(2, 2, 3, 4, 128)
+    calls = {
+        "flash_causal_attention": lambda: fa.flash_causal_attention(rnd(2, 64, 4, 128, grad=True),
+                                                                    k, v, plen),
+        "flash_prefix_shared_attention": lambda: fa.flash_prefix_shared_attention(
+            rnd(2, 2, 16, 4, 128, grad=True), k, v, ks, vs, plen),
+        "flash_decode_attention": lambda: fa.flash_decode_attention(
+            rnd(2, 2, 1, 4, 128, grad=True), k, v, ks, vs, kg, vg, plen, eos, 0),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "training path" not in str(e):
+                fail(f"train: {name} refused a gradient without naming the training path: {e}")
+            continue
+        fail(f"train: {name} launched with an input that requires a gradient")
+    log("[train] each CUDA attention wrapper refuses a gradient, naming the training path")
+
+
+def phase_train(work: str, smi: str) -> dict:
+    """Training on one card at Llama-2-7B's widths (hidden 4096, 32/32
+    heads of 128, intermediate 11008, vocabulary 32000, untied), depth cut
+    to 1 and 2 layers, seeded float32 params from the port's init_params:
+
+    (a) one StreamedTrainer step equals one make_train_step update at
+        depth 2 (loss within 1e-5 relative, params as ``_update_err``);
+    (b) the streamed step's peak device memory is the same at depth 1 and 2
+        (within 2%) and under the depth-2 monolithic step's;
+    (c) four streamed steps on one batch at lr 1e-6 (``TRAIN_FALL_LR``):
+        the loss falls at each, the first within 0.5 of ln V + s^2 / 2
+        (random logits of the init's spread s = 0.02 sqrt(hidden));
+    (d) a seeded bf16 native checkpoint (depth 1) through from_pretrained
+        (bf16 masters and moments): save_state after step 2, the directory
+        parked at .old as a crash between the save's renames leaves it, a
+        new trainer's restore_state, step 3 equal to the uninterrupted one;
+    (e) make_train_step with accum_steps=2 on [2, 1, L+1] equals the full
+        batch at depth 1;
+    (f) bf16 compute with float32 masters: a finite loss within 2% of the
+        float32 step's and a finite gradient norm;
+    (g) no attention kernel launches in training, and each wrapper refuses
+        a gradient. Returns the phase's launches (all 0)."""
+    import gc
+
+    from flexible_llm_sharding_tpu_torch import training
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.models import llama
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.training_stream import StreamedTrainer
+
+    t_phase = time.perf_counter()
+    fa.reset_launch_counts()
+    cfg2, cfg1 = LlamaConfig(num_hidden_layers=2), LlamaConfig(num_hidden_layers=1)
+    params2 = _tree_to(llama.init_params(torch.Generator(device="cuda").manual_seed(0), cfg2), "cpu")
+    params1 = {**params2, "layers": params2["layers"][:1]}
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(1, cfg2.vocab_size, (TRAIN_B, TRAIN_L + 1)))
+    kw = dict(lr=TRAIN_LR, grad_clip=TRAIN_CLIP, weight_decay=TRAIN_WD)
+    opt = training.make_optimizer(peak_lr=TRAIN_LR, weight_decay=TRAIN_WD, grad_clip=TRAIN_CLIP)
+    log(f"[train] {smi} | Llama-2-7B widths, depth 2: "
+        f"{sum(t.numel() for t in training.tree_leaves(params2))} params, tokens "
+        f"[{TRAIN_B}, {TRAIN_L + 1}]")
+
+    def peak_of(fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated()
+
+    # (a) streamed against monolithic at depth 2.
+    noisy2 = _near_zero_mask(cfg2, params2, tokens)
+    step = training.make_train_step(cfg2, opt, dtype=torch.float32)
+
+    def mono():
+        state = training.TrainState.create(cfg2, params2, opt, device="cuda")
+        state, loss = step(state, tokens)
+        return float(loss), _tree_to(state.params, "cpu")
+
+    t0 = time.perf_counter()
+    (loss_m, params_m), peak_m = peak_of(mono)
+    log(f"[train] monolithic depth 2: loss {loss_m:.6f}, {time.perf_counter() - t0:.3f} s, "
+        f"peak {peak_m} B")
+    tr2 = StreamedTrainer(cfg2, params2, **kw)
+    loss_s2, peak_s2 = peak_of(lambda: tr2.step(tokens))
+    _train_step_log("streamed depth 2", tr2, loss_s2, peak_s2)
+    if abs(loss_s2 - loss_m) > 1e-5 * abs(loss_m):
+        fail(f"train (a): streamed loss {loss_s2} against monolithic {loss_m}")
+    err = _update_err("(a) streamed vs monolithic", tr2.params, params_m, noisy2, TRAIN_LR)
+    log(f"[train] (a) streamed == monolithic at depth 2: loss rel err "
+        f"{abs(loss_s2 - loss_m) / abs(loss_m):.3e}, params " + json.dumps(err))
+    del tr2, params_m, noisy2
+
+    # (b) and (c): depth 1, four steps on the batch.
+    tr1 = StreamedTrainer(cfg1, params1, **{**kw, "lr": TRAIN_FALL_LR})
+    loss1, peak_s1 = peak_of(lambda: tr1.step(tokens))
+    _train_step_log("streamed depth 1 step 1", tr1, loss1, peak_s1)
+    spread = abs(peak_s1 - peak_s2) / peak_s2
+    log(f"[train] (b) peaks: streamed depth 1 {peak_s1} B, depth 2 {peak_s2} B ({spread:.4%} "
+        f"apart), monolithic depth 2 {peak_m} B")
+    if spread > 0.02 or max(peak_s1, peak_s2) >= peak_m:
+        fail("train (b): the streamed peak grows with depth or is not under the monolithic one")
+    losses = [loss1]
+    for i in range(2, 5):
+        losses.append(tr1.step(tokens))
+        _train_step_log(f"streamed depth 1 step {i}", tr1, losses[-1])
+    expect = float(np.log(cfg1.vocab_size)) + (0.02**2 * cfg1.hidden_size) / 2
+    log(f"[train] (c) losses {losses}; expected first {expect:.4f}")
+    if any(b >= a for a, b in zip(losses, losses[1:])) or abs(losses[0] - expect) > 0.5:
+        fail(f"train (c): the loss must fall at every step from about {expect:.3f}: {losses}")
+    del tr1
+
+    # (f) bf16 compute, float32 masters.
+    trb = StreamedTrainer(cfg1, params1, dtype=torch.bfloat16, **kw)
+    loss_b = trb.step(tokens)
+    _train_step_log("streamed depth 1 bf16 compute", trb, loss_b)
+    gnorm = trb.stats.get("grad_norm", float("nan"))
+    if not (np.isfinite(loss_b) and np.isfinite(gnorm)) or abs(loss_b - loss1) > 0.02 * loss1:
+        fail(f"train (f): bf16 loss {loss_b} (float32 {loss1}), grad norm {gnorm}")
+    log(f"[train] (f) bf16 compute: loss {loss_b:.6f} against float32 {loss1:.6f} "
+        f"({abs(loss_b - loss1) / loss1:.4%}), grad norm {gnorm:.6f}")
+    del trb
+
+    # (e) gradient accumulation at depth 1.
+    noisy1 = _near_zero_mask(cfg1, params1, tokens)
+    out = {}
+    for accum, batch in ((1, tokens), (2, tokens.reshape(2, TRAIN_B // 2, TRAIN_L + 1))):
+        state = training.TrainState.create(cfg1, params1, opt, device="cuda")
+        state, loss = training.make_train_step(cfg1, opt, dtype=torch.float32,
+                                               accum_steps=accum)(state, batch)
+        out[accum] = (float(loss), _tree_to(state.params, "cpu"))
+        del state
+    if abs(out[2][0] - out[1][0]) > 1e-5 * abs(out[1][0]):
+        fail(f"train (e): accumulated loss {out[2][0]} against the full batch's {out[1][0]}")
+    err = _update_err("(e) accum_steps=2 vs full batch", out[2][1], out[1][1], noisy1, TRAIN_LR)
+    log(f"[train] (e) accum_steps=2 == full batch: losses {out[2][0]:.6f} / {out[1][0]:.6f}, "
+        f"params " + json.dumps(err))
+    del out, noisy1
+
+    # (d) checkpoint resume on a bf16 checkpoint.
+    ckpt = os.path.join(work, "train-bf16")
+    nbytes, secs = write_streamed_checkpoint(ckpt, cfg1, seed=1)
+    log(f"[train] wrote a seeded bf16 depth-1 checkpoint ({nbytes} bytes) in {secs:.3f} s")
+    batches = [torch.from_numpy(rng.integers(1, cfg1.vocab_size, (TRAIN_B, TRAIN_L + 1)))
+               for _ in range(3)]
+    tra = StreamedTrainer.from_pretrained(ckpt, **kw)
+    for i, b in enumerate(batches[:2]):
+        _train_step_log(f"bf16 checkpoint step {i + 1}", tra, tra.step(b))
+    state_dir = os.path.join(work, "train-state")
+    t0 = time.perf_counter()
+    tra.save_state(state_dir)
+    log(f"[train] save_state: {_dir_bytes(state_dir)} bytes in {time.perf_counter() - t0:.3f} s")
+    loss3 = tra.step(batches[2])
+    _train_step_log("bf16 checkpoint step 3", tra, loss3)
+    os.rename(state_dir, state_dir + ".old")  # a crash between save_state's two renames
+    trr = StreamedTrainer.from_pretrained(ckpt, **kw)
+    t0 = time.perf_counter()
+    trr.restore_state(state_dir)
+    log(f"[train] restore_state from the .old directory in {time.perf_counter() - t0:.3f} s")
+    if trr.step_count != 2 or not os.path.isdir(state_dir):
+        fail(f"train (d): restored step {trr.step_count}, directory recovered "
+             f"{os.path.isdir(state_dir)}")
+    loss3r = trr.step(batches[2])
+    if abs(loss3r - loss3) > 1e-5 * abs(loss3):
+        fail(f"train (d): resumed step 3 loss {loss3r} against {loss3}")
+    diff = [(a.float() - b.float()).abs() for a, b in
+            zip(training.tree_leaves(trr.params), training.tree_leaves(tra.params))]
+    ulp = [(d > torch.finfo(torch.bfloat16).eps * b.float().abs()).sum() for d, b in
+           zip(diff, training.tree_leaves(tra.params))]
+    n_diff = sum(int((d > 0).sum()) for d in diff)
+    log(f"[train] (d) resumed step 3: loss {loss3r:.6f} against {loss3:.6f}, {n_diff} of "
+        f"{sum(d.numel() for d in diff)} bf16 params differ, by at most one bf16 step")
+    if any(int(u) for u in ulp):
+        fail("train (d): a resumed bf16 param differs by more than one bf16 step")
+    del tra, trr
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(state_dir, ignore_errors=True)
+
+    # (g)
+    _refusals()
+    counts = fa.launch_counts()
+    if any(counts.values()):
+        fail(f"train (g): attention kernels launched in training: {counts}")
+    log(f"[train] (g) kernel launches across the phase: {counts}; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {k: {"launches": 0, "local_launches": 0} for k in fa.KERNELS}
 
 
 def main() -> None:
@@ -4945,6 +5221,8 @@ def main() -> None:
         mark("full llama4-scout")
         paths[f"llama2_7b_{DECODE_LAYERS}_layers"] = phase_decode(work)
         mark("decode")
+        paths["llama2_7b_train"] = phase_train(work, smi)
+        mark("train")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [

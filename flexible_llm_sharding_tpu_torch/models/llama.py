@@ -41,18 +41,22 @@ applies. ``rope_on`` is its entry of :func:`layer_rope_pattern` (None: rope
 on): False marks a Llama 4 NoPE layer.
 Attention goes through the kernel wrappers of ``ops/flash_attention.py``:
 the CUDA kernels on the card, their plain versions on the CPU. The
-projections stay ``torch.matmul``.
+projections stay ``torch.matmul``, each weight cast to the activations'
+dtype (:func:`_mm`). :func:`decoder_layer`, the training layer, runs the
+plain ``ops/attention.attention`` under a caller's mask, as the JAX
+package's does: no kernel there has a backward.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 from flexible_llm_sharding_tpu_torch.config import ACTIVATIONS, LlamaConfig
-from flexible_llm_sharding_tpu_torch.ops.attention import decode_attention
+from flexible_llm_sharding_tpu_torch.ops.attention import attention, decode_attention
 from flexible_llm_sharding_tpu_torch.ops.flash_attention import (
     flash_causal_attention,
     flash_decode_attention,
@@ -77,10 +81,18 @@ _ACT = {
 assert set(_ACT) == set(ACTIVATIONS)
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in x's dtype, the weight cast to it first (the JAX package's
+    ``_mm``): float32 master weights under bf16 activations multiply in
+    bf16. Where the weight already has x's dtype, as on every inference
+    path, ``.to`` returns the same tensor."""
+    return torch.matmul(x, w.to(x.dtype))
+
+
 def _lin(x: torch.Tensor, params: Params, w: str, b: str) -> torch.Tensor:
-    y = torch.matmul(x, params[w])
+    y = _mm(x, params[w])
     if b in params:
-        y = y + params[b]
+        y = y + params[b].to(y.dtype)
     return y
 
 
@@ -175,13 +187,13 @@ def _qkv_mla(attn: Params, cfg: LlamaConfig, x: torch.Tensor, positions: torch.T
     eps = cfg.rms_norm_eps
     lead = x.shape[:-1]
     if "q_a" in attn:
-        q = torch.matmul(rms_norm(_lin(x, attn, "q_a", "bq_a"), attn["q_a_norm"], eps), attn["q_b"])
+        q = _mm(rms_norm(_lin(x, attn, "q_a", "bq_a"), attn["q_a_norm"], eps), attn["q_b"])
     else:
-        q = torch.matmul(x, attn["wq"])  # HF's dense q_proj has no bias
+        q = _mm(x, attn["wq"])  # HF's dense q_proj has no bias
     q = q.reshape(*lead, nh, dn + dr)
     ckv = _lin(x, attn, "kv_a", "bkv_a")  # [..., L, kv_lora + dr]
     c_kv, k_rot = ckv[..., : cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank:]
-    kv = torch.matmul(rms_norm(c_kv, attn["kv_a_norm"], eps), attn["kv_b"]).reshape(
+    kv = _mm(rms_norm(c_kv, attn["kv_a_norm"], eps), attn["kv_b"]).reshape(
         *lead, nh, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta, cfg.rope_scaling_spec,
@@ -264,10 +276,10 @@ def _routed_experts(mlp: Params, x: torch.Tensor, top_idx: torch.Tensor, top_w: 
         xe = x2[tok[sel]]
         if scale_input:
             xe = torch.where(w[sel] != 0, xe * w[sel], xe.new_zeros(()))
-        h = act(torch.matmul(xe, mlp["gate"][e])) * torch.matmul(xe, mlp["up"][e])
+        h = act(_mm(xe, mlp["gate"][e])) * _mm(xe, mlp["up"][e])
         if not scale_input:
             h = torch.where(w[sel] != 0, h * w[sel], h.new_zeros(()))
-        y[order[sel]] = torch.matmul(h, mlp["down"][e])
+        y[order[sel]] = _mm(h, mlp["down"][e])
         start += c
     return y.reshape(*lead, k, d).sum(dim=-2)
 
@@ -277,7 +289,7 @@ def _moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     model dtype, softmax over every expert in float32, the top k,
     renormalised iff ``moe_norm_topk_prob``, cast to x's dtype."""
     k = cfg.num_experts_per_tok
-    probs = torch.softmax(torch.matmul(x, mlp["router"]).float(), dim=-1)
+    probs = torch.softmax(_mm(x, mlp["router"]).float(), dim=-1)
     top_vals, top_idx = _top_k(probs, k)
     if cfg.moe_norm_topk_prob:
         top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
@@ -285,8 +297,7 @@ def _moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _shared_expert(mlp: Params, x: torch.Tensor, act) -> torch.Tensor:
-    return torch.matmul(act(torch.matmul(x, mlp["shared_gate"])) * torch.matmul(x, mlp["shared_up"]),
-                        mlp["shared_down"])
+    return _mm(act(_mm(x, mlp["shared_gate"])) * _mm(x, mlp["shared_up"]), mlp["shared_down"])
 
 
 def _llama4_moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
@@ -294,7 +305,7 @@ def _llama4_moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Ten
     model dtype, the top k of them in float32, their sigmoid cast to x's
     dtype scaling each selected expert's INPUT (not its output, as
     Mixtral's weights do), plus the shared expert."""
-    top_vals, top_idx = _top_k(torch.matmul(x, mlp["router"]).float(), cfg.num_experts_per_tok)
+    top_vals, top_idx = _top_k(_mm(x, mlp["router"]).float(), cfg.num_experts_per_tok)
     act = _ACT[cfg.hidden_act]
     routed = _routed_experts(mlp, x, top_idx, torch.sigmoid(top_vals).to(x.dtype), act,
                              scale_input=True)
@@ -362,6 +373,29 @@ def embed(params: Params, ids: torch.Tensor, dtype: torch.dtype,
     if cfg is not None and cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size**0.5, dtype=dtype)
     return x
+
+
+def decoder_layer(
+    params: Params,
+    cfg: LlamaConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    mask: torch.Tensor | None,
+    sliding=None,
+    rope_on=None,
+    total_len=None,
+) -> torch.Tensor:
+    """The plain decoder layer (the JAX package's ``decoder_layer``), the
+    layer training differentiates. x [..., L, D]; positions int [..., L] or
+    [L]; ``mask`` broadcastable to [..., L, L], True = attend, with any
+    local form already in it (the caller's, as in JAX); ``sliding`` and
+    ``rope_on`` pick the layer's rope base and NoPE; ``total_len`` is
+    longrope's length. Attention is the plain ``ops/attention.attention``,
+    never a kernel wrapper: none of the kernels has a backward."""
+    h = _norm(x, params["input_layernorm"], cfg)
+    q, k, v = positioned_qkv(params, cfg, h, positions, sliding, total_len, rope_on)
+    attn = attention(q, k, v, mask, scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap)
+    return _residual_mlp(params, cfg, _residual_attn(params, cfg, x, attn))
 
 
 def prefix_suffix_layer(
@@ -587,11 +621,153 @@ def forward_full(params: Params, cfg: LlamaConfig, ids: torch.Tensor,
     return logits
 
 
+# ---------------------------------------------------------------------------
+# Initialisation (tests, training from scratch, chip_smoke's seeded models)
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape: tuple, scale: float, dtype: torch.dtype,
+            device) -> torch.Tensor:
+    """Normal draws times ``scale`` in float32, then cast (the JAX package's
+    ``(normal * scale).astype(dtype)``)."""
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+def _glorot(gen, shape: tuple, dtype, device) -> torch.Tensor:
+    """A linear kernel [..., fan_in, fan_out] at scale sqrt(2 / (fan_in +
+    fan_out))."""
+    return _normal(gen, shape, (2.0 / (shape[-2] + shape[-1])) ** 0.5, dtype, device)
+
+
+def init_layer_params(gen: torch.Generator, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
+                      device=None) -> Params:
+    """One decoder layer's random parameters: the JAX package's
+    ``init_layer_params`` tree, key order, shapes, dtypes and per-leaf
+    scales, drawn from ``gen`` on ``device`` (default: the generator's).
+    The draws are not JAX's."""
+    device = gen.device if device is None else device
+    d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+
+    def lin(fan_in, fan_out):
+        return _glorot(gen, (fan_in, fan_out), dtype, device)
+
+    def bias(n):
+        return _normal(gen, (n,), 0.02, dtype, device)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    if cfg.kv_lora_rank:
+        attn = {
+            "kv_a": lin(d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+            "kv_a_norm": ones(cfg.kv_lora_rank),
+            "kv_b": lin(cfg.kv_lora_rank, nq * (cfg.qk_nope_head_dim + cfg.v_dim)),
+            "wo": lin(nq * cfg.v_dim, d),
+        }
+        if cfg.q_lora_rank:
+            attn |= {"q_a": lin(d, cfg.q_lora_rank), "q_a_norm": ones(cfg.q_lora_rank),
+                     "q_b": lin(cfg.q_lora_rank, nq * hd)}
+        else:
+            attn["wq"] = lin(d, nq * hd)
+        if cfg.attention_in_bias:
+            # HF deepseek's attention_bias: q_a_proj and kv_a_proj_with_mqa.
+            attn["bkv_a"] = bias(cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+            if cfg.q_lora_rank:
+                attn["bq_a"] = bias(cfg.q_lora_rank)
+    else:
+        attn = {"wq": lin(d, nq * hd), "wk": lin(d, nkv * hd), "wv": lin(d, nkv * hd),
+                "wo": lin(nq * hd, d)}
+    if cfg.attention_in_bias and not cfg.kv_lora_rank:
+        attn |= {"bq": bias(nq * hd), "bk": bias(nkv * hd), "bv": bias(nkv * hd)}
+    if cfg.attention_out_bias:
+        attn["bo"] = bias(d)
+    if cfg.qk_norm:
+        attn |= {"q_norm": ones(hd), "k_norm": ones(hd)}
+    if cfg.num_local_experts:
+        e = cfg.num_local_experts
+        mlp = {"router": lin(d, e), "gate": _glorot(gen, (e, d, f), dtype, device),
+               "up": _glorot(gen, (e, d, f), dtype, device),
+               "down": _glorot(gen, (e, f, d), dtype, device)}
+    else:
+        mlp = {"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)}
+        if cfg.mlp_bias:
+            mlp |= {"bgate": bias(f), "bup": bias(f), "bdown": bias(d)}
+    out = {
+        "input_layernorm": {"scale": ones(d)},
+        "post_attention_layernorm": {"scale": ones(d)},
+        "attn": attn,
+        "mlp": mlp,
+    }
+    if cfg.ffw_sandwich_norms:
+        out["pre_feedforward_layernorm"] = {"scale": ones(d)}
+        out["post_feedforward_layernorm"] = {"scale": ones(d)}
+    return out
+
+
+def init_mixed_params(gen: torch.Generator, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
+                      device=None) -> Params:
+    """Random parameters of a mixed dense/MoE stack (``cfg.moe_layer_pattern``),
+    the JAX package's ``init_mixed_params`` tree: dense layers at the
+    family's dense width (Llama 4's ``intermediate_size_mlp``), MoE layers
+    with stacked experts, plus Llama 4's and DeepSeek's shared expert (and
+    DeepSeek's float32 correction bias, scale 0.1)."""
+    if cfg.moe_layer_pattern is None:
+        raise ValueError("init_mixed_params needs cfg.moe_layer_pattern")
+    device = gen.device if device is None else device
+    dense_cfg = dataclasses.replace(
+        cfg, model_type="llama", num_local_experts=0,
+        intermediate_size=cfg.intermediate_size_mlp or cfg.intermediate_size,
+        moe_layer_pattern=None, intermediate_size_mlp=None)
+    moe_cfg = dataclasses.replace(cfg, moe_layer_pattern=None)
+    layers = []
+    for is_moe in cfg.moe_layer_pattern:
+        lp = init_layer_params(gen, moe_cfg if is_moe else dense_cfg, dtype, device)
+        if is_moe and cfg.model_type in ("llama4_text", "deepseek_v3"):
+            d, f = cfg.hidden_size, cfg.intermediate_size
+            if cfg.model_type == "deepseek_v3":
+                f *= cfg.n_shared_experts  # one MLP of n_shared_experts x the routed width
+            lp["mlp"] |= {"shared_gate": _glorot(gen, (d, f), dtype, device),
+                          "shared_up": _glorot(gen, (d, f), dtype, device),
+                          "shared_down": _glorot(gen, (f, d), dtype, device)}
+            if cfg.model_type == "deepseek_v3":
+                lp["mlp"]["correction_bias"] = _normal(
+                    gen, (cfg.num_local_experts,), 0.1, torch.float32, device)
+        layers.append(lp)
+    # embed, norm and lm_head only: a 0-layer view (its per-layer lists go).
+    head_cfg = dataclasses.replace(dense_cfg, num_hidden_layers=0, layer_sliding=None,
+                                   layer_rope=None)
+    params = init_params(gen, head_cfg, dtype, device)
+    params["layers"] = layers
+    return params
+
+
+def init_params(gen: torch.Generator, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
+                device=None) -> Params:
+    """Random parameters of the whole model, the JAX package's
+    ``init_params`` tree ({'embed', 'layers' (a list), 'norm', and 'lm_head'
+    unless the embeddings are tied}), drawn from ``gen`` on ``device``."""
+    device = gen.device if device is None else device
+    v, d = cfg.vocab_size, cfg.hidden_size
+    params: Params = {
+        "embed": {"embedding": _normal(gen, (v, d), 0.02, dtype, device)},
+        "layers": [init_layer_params(gen, cfg, dtype, device)
+                   for _ in range(cfg.num_hidden_layers)],
+        "norm": {"scale": torch.ones(d, dtype=dtype, device=device)},
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = {"kernel": _normal(gen, (d, v), 0.02, dtype, device)}
+    return params
+
+
 __all__ = [
     "decode_step_layer",
+    "decoder_layer",
     "embed",
     "forward_full",
     "head_params",
+    "init_layer_params",
+    "init_mixed_params",
+    "init_params",
     "layer_rope_pattern",
     "layer_sliding_pattern",
     "lm_head_scores",

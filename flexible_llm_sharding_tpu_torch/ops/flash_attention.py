@@ -14,7 +14,10 @@ Each wrapper replaces one Pallas TPU kernel of the JAX package
 
 On CUDA tensors a wrapper launches its hand-written kernel
 (``csrc/flash_attention.cu``, built on first use) and counts the launch,
-and separately each launch with a local form on; it never falls back. A
+and separately each launch with a local form on; it never falls back. No
+kernel has a backward: asked for a gradient on the card (grad mode on and
+an input that requires one), a wrapper raises; training runs the plain
+attention op (``models.llama.decoder_layer``), as the JAX package's does. A
 call inside a CUDA graph capture records the launch instead: the capture
 runs under :func:`graph_capture` and each replay counts through
 :func:`count_replay`. The counts sit behind one lock: a replica fleet's
@@ -153,6 +156,18 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
 
 
+def _refuse_grad(fn: str, *tensors: torch.Tensor) -> None:
+    """A kernel writes its output through raw pointers, so the output has no
+    autograd graph and a backward through it would give attention no
+    gradient, silently. On the card a wrapper asked for one raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{fn} has no backward on the card: train through models.llama.decoder_layer "
+            "(the training path of training.py and training_stream.py), which runs the plain "
+            "attention op, or call it under torch.no_grad()"
+        )
+
+
 def _scale(scale, hd: int) -> float:
     return float(scale) if scale is not None else 1.0 / (hd**0.5)
 
@@ -197,6 +212,7 @@ def flash_causal_attention(q, k, v, valid_len, scale=None, window=None, chunk=No
         return causal_attention_plain(q, k, v, valid_len, scale, window, chunk, softcap, local_on)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _refuse_grad("flash_causal_attention", q, k, v)
     b, lq, n_q, hd = q.shape
     n_kv, hd_v = k.shape[2], v.shape[-1]
     check_cuda_args(window, chunk, local_on, hd, hd_v)
@@ -259,6 +275,7 @@ def flash_prefix_shared_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, pre
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _refuse_grad("flash_prefix_shared_attention", q, k_prefix, v_prefix, k_suffix, v_suffix)
     b, s, ls, n_q, hd = q.shape
     lp, n_kv, hd_v = k_prefix.shape[1], k_prefix.shape[2], v_prefix.shape[-1]
     check_cuda_args(window, chunk, local_on, hd, hd_v)
@@ -326,6 +343,8 @@ def flash_decode_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, k_gen, v_g
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _refuse_grad("flash_decode_attention", q, k_prefix, v_prefix, k_suffix, v_suffix, k_gen,
+                 v_gen)
     b, s, kq, n_q, hd = q.shape
     lp, n_kv = k_prefix.shape[1], k_prefix.shape[2]
     ls, tg = k_suffix.shape[2], k_gen.shape[2]

@@ -1553,3 +1553,77 @@ def test_profiler_trace_records_the_scoring_kernel(gen, tmp_path):
         events = json.load(f)["traceEvents"]
     score = [e for e in events if e.get("cat") == "kernel" and "score_tc_kernel" in e["name"]]
     assert len(score) == counts["flash_causal_attention"] + counts["flash_prefix_shared_attention"]
+
+
+def _grad_inputs(gen, requires_grad: bool):
+    b, lp, s, ls, tg, n, hd = 2, 64, 2, 16, 3, 4, 64
+    plen = torch.tensor([64, 17], dtype=torch.int32, device="cuda")
+    eos = torch.tensor([[3, 15], [0, 7]], dtype=torch.int32, device="cuda")
+    q, k, v = (_rnd(gen, torch.bfloat16, b, lp, n, hd) for _ in range(3))
+    qs, ks, vs = (_rnd(gen, torch.bfloat16, b, s, ls, n, hd) for _ in range(3))
+    qd = _rnd(gen, torch.bfloat16, b, s, 1, n, hd)
+    kg, vg = (_rnd(gen, torch.bfloat16, b, s, tg, n, hd) for _ in range(2))
+    for t in (q, qs, qd):
+        t.requires_grad_(requires_grad)
+    return {
+        "flash_causal_attention": (q, k, v, plen),
+        "flash_prefix_shared_attention": (qs, k, v, ks, vs, plen),
+        "flash_decode_attention": (qd, k, v, ks, vs, kg, vg, plen, eos, 0),
+    }
+
+
+def test_cuda_wrappers_refuse_a_gradient(gen):
+    """No kernel has a backward: asked for one on the card, each wrapper
+    raises naming the training path, before any launch; under no_grad, or
+    with no input that requires a gradient, each launches."""
+    fa.reset_launch_counts()
+    for name, args in _grad_inputs(gen, True).items():
+        with pytest.raises(RuntimeError, match="training path"):
+            getattr(fa, name)(*args)
+    assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 0)
+    with torch.no_grad():
+        for name, args in _grad_inputs(gen, True).items():
+            getattr(fa, name)(*args)
+    for name, args in _grad_inputs(gen, False).items():
+        getattr(fa, name)(*args)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 2)
+
+
+def _tiny_train_model():
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.models import llama
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2)
+    return cfg, llama.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+def test_streamed_step_on_the_card_equals_the_cpus(gen):
+    """One StreamedTrainer step on the card against the same step on the
+    CPU, float32 (no TF32): the loss within 1e-5 relative; the params within
+    rtol 2e-5 / atol 2e-6 wherever the clipped gradient is not near zero
+    (below 1e-6 AdamW's first update lr * g / (|g| + 1e-8) is
+    summation-order noise on either device, so there within 2 * lr). No
+    kernel launches."""
+    from flexible_llm_sharding_tpu_torch import training
+    from flexible_llm_sharding_tpu_torch.training_stream import StreamedTrainer
+
+    cfg, params = _tiny_train_model()
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(1, 256, (2, 17)))
+    lr = 1e-3
+    fa.reset_launch_counts()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = StreamedTrainer(cfg, params, lr=lr, device=dev)
+        runs[dev] = (tr.step(tokens), tr.params)
+    assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 0)
+    assert runs["cuda"][0] == pytest.approx(runs["cpu"][0], rel=1e-5)
+    _, grads = training.value_and_grad(params, cfg, tokens, torch.float32, None)
+    bound = 1e-6 / min(1.0, 1.0 / float(training.global_norm(grads)))  # the clip at 1.0
+    for got, want, g in zip(*(training.tree_leaves(t) for t in
+                              (runs["cuda"][1], runs["cpu"][1], grads))):
+        noisy = g.abs() < bound
+        err = (got - want).abs()
+        assert (err[~noisy] <= 2e-6 + 2e-5 * want[~noisy].abs()).all()
+        assert (err[noisy] <= 2 * lr).all()

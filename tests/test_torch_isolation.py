@@ -40,7 +40,7 @@ def test_port_imports_no_jax(path):
     assert path.exists()
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib"), f"{path} imports {mod}"
+        assert top not in ("jax", "jaxlib", "optax", "orbax"), f"{path} imports {mod}"
         assert top != "flexible_llm_sharding_tpu", f"{path} imports {mod}"
 
 
@@ -60,6 +60,22 @@ def test_default_device_run_without_gpu_raises(tmp_path, monkeypatch):
         cli.main(["--model_path", str(tmp_path), "--prompt_pickle", str(ppkl),
                   "--output_file", str(tmp_path / "s.pkl")])
     assert not (tmp_path / "s.pkl").exists()
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    from flexible_llm_sharding_tpu_torch import training
+    from flexible_llm_sharding_tpu_torch.config import LlamaConfig
+    from flexible_llm_sharding_tpu_torch.models import llama
+    from flexible_llm_sharding_tpu_torch.training_stream import StreamedTrainer
+
+    cfg = LlamaConfig(vocab_size=16, hidden_size=8, intermediate_size=16, num_hidden_layers=1,
+                      num_attention_heads=2, num_key_value_heads=1)
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamedTrainer(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        training.TrainState.create(cfg, params, training.AdamW())
 
 
 @pytest.mark.parametrize("kw", [

@@ -353,8 +353,14 @@ def test_graceful_restart_replays_within_1e5_of_jax(model_dir, offline, tmp_path
                           disk_folder=str(tmp_path / "d"))
     serve_cfg = ServeConfig(max_wave_requests=2, max_active_requests=2,
                             default_max_new_tokens=N_GEN, wal_dir=str(tmp_path / "wal"))
-    engine = ServeEngine(cfg, serve_cfg, tokenizer=_Vocab256(), device=torch.device("cpu"))
+    engine = ServeEngine(cfg, serve_cfg, tokenizer=_Vocab256(), device=torch.device("cpu"),
+                         start=False)
+    # Held after its first prefill until the restart: a loaded host could
+    # otherwise finish the first wave and park only unprefilled requests,
+    # leaving no KV to export (F9).
+    _hold_after_first_prefill(engine)
     reqs = [engine.submit(p, s, client_id=i) for i, (p, s) in enumerate(PROMPTS)]
+    engine.start()
     deadline = time.monotonic() + 60
     while engine.metrics.counter("prefills") < 1:
         assert time.monotonic() < deadline, "the first wave never prefilled"
