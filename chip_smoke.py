@@ -81,18 +81,18 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 5. full    — seeded bf16 checkpoints at full width through the CLI, one
              layer per shard so every layer streams: Llama-2-7B (4 decoder
              layers; scoring with --num_gen_token 4, then --kv_cache with
-             8), Gemma-3-27B (6 layers, 5 local and 1 global), and
-             Gemma-3-12B (hd 256, 6 layers), which is written as a
+             8), Gemma-3-27B (2 layers, 1 local and 1 global), and
+             Gemma-3-12B (hd 256, 2 layers), which is written as a
              Hugging Face bundle shaped as google/gemma-3-12b-pt ships it
              (the gemma3 wrapper config, language-model keys at [out, in],
              a vision tower, three shards and an index) and split by the
-             port's prepare_weights first; then DeepSeek-V3 (4 layers: 0-2
-             dense, 3 with its 256 experts; 30.2 GB written one layer file
+             port's prepare_weights first; then DeepSeek-V3 (2 layers: 0
+             dense, 1 with its 256 experts; 27.9 GB written one layer file
              at a time), scoring with --num_gen_token 2, then --kv_cache;
-             then Llama-4-Scout's text model (4 of 48 layers: 0-2 chunked
-             rope layers, 3 the NoPE layer; 16 experts, top 1, and the
+             then Llama-4-Scout's text model (2 of 48 layers: 0 a chunked
+             rope layer, 1 the NoPE layer; 16 experts, top 1, and the
              shared expert in every layer; vocabulary 202,048; Scout's
-             llama3 rope; 21.8 GB written one layer file at a time) on the
+             llama3 rope; 12.9 GB written one layer file at a time) on the
              Gemma prompts, scoring with --num_gen_token 2, then --kv_cache
              with 2, each pass streaming exactly the checkpoint's bytes.
              Scores must be finite and sum to 1, and every kernel of each
@@ -265,7 +265,21 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              threads on one broadcast read; tokens equal, scores within
              1e-4, streamed bytes equal); with several cards, the same over
              them. Each run prints its wall, streamed bytes and launches.
-   pressure — right after multidevice, on the same cell (the
+   longctx — right after multidevice, on the same cell in float32 (the
+             ``llama2_7b_longctx`` path): long context over a device list
+             through ``run_prompts``/``run_decode`` with ``long_context``,
+             a prompt of a 3000-token prefix and 4 suffixes of 32 tokens
+             beside one of 512 words, at a per-device cap of 1024 over
+             [cuda:0] * 4 (an sp cap of 4096): the scores equal the
+             untruncated single-device run's at a cap of 4096 (rtol 2e-4,
+             atol 1e-5), the same cap without long_context truncates and
+             differs, 4-token KV decode gives its tokens and distributions;
+             the short prompt launches the scoring kernels (and in decode
+             the decode kernel), the sequence-parallel pass none; its
+             streamed bytes equal one device's; with several cards, the
+             same over them. Prints each run's wall, load seconds, peak
+             memory, streamed bytes and launches.
+   pressure — right after longctx, on the same cell (the
              ``llama2_7b_pressure`` path): the batch CLI under --chaos at
              the loader and upload sites (shard_read, device_put, host_oom,
              corrupt_shard, link_throttle; a seed under which each injects
@@ -299,7 +313,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              one incident bundle naming the aborted wave; a 2-replica fleet
              under a replica_kill whose bundle's journal, metrics and trace
              name the same dead replica; and untraced, traced, traced,
-             untraced scoring for the tracer's overhead (fails above 1.25).
+             untraced scoring, twice, for the tracer's overhead (the
+             medians' ratio; fails above 1.25).
 6. host    — a reduced bf16 checkpoint through the CLI on the card: the
              defaults give the scores of --host_cache_gb 0 --verify_weights
              false --readahead_threads 0 bit for bit; after one flipped
@@ -1149,7 +1164,8 @@ GEMMA3_12B_TEXT = {
 
 
 # deepseek-ai/DeepSeek-V3, config.json: the fields that shape the model (its
-# depth is cut per phase; first_k_dense_replace keeps layers 0-2 dense).
+# depth is cut per phase, with first_k_dense_replace cut to keep one dense
+# layer before the MoE ones).
 DEEPSEEK_V3 = {
     "model_type": "deepseek_v3", "vocab_size": 129280, "hidden_size": 7168,
     "intermediate_size": 18432, "moe_intermediate_size": 2048, "num_hidden_layers": 61,
@@ -3852,6 +3868,138 @@ def phase_multidevice(work: str, model_dir: str, cfg, prompts, n_gen_kv: int, sm
     return paths
 
 
+LONGCTX_CAP = 1024  # per device; over 4 ranks an sp cap of 4096
+LONGCTX_TOL = dict(rtol=2e-4, atol=1e-5)
+
+
+def phase_longctx(work: str, model_dir: str, cfg, smi: str, card=None) -> dict:
+    """Long context over a device list on the 4-layer Llama-2-7B cell, in
+    float32, one layer per shard, through the library entry points: a
+    prompt whose prefix (3000 tokens, 4 suffixes of 32) is past a
+    per-device cap of ``LONGCTX_CAP`` and one of 512 words under it.
+
+    (a) ``run_prompts`` with ``long_context`` over [card] * 4 equals the
+    untruncated single-device run at a cap of 4096 (which runs the scoring
+    kernels) within ``LONGCTX_TOL``; (b) the cap without ``long_context``
+    truncates and differs; (c) ``run_decode`` with 4 tokens: the
+    single-device decode's tokens, distributions within ``LONGCTX_TOL``;
+    (d) the short prompt launches the scoring kernels and, in decode, the
+    decode kernel; the sp pass alone launches none; (e) the sp pass
+    streams one device's bytes; (f) with several cards, (a) over them,
+    streaming once per card. Each run prints its wall, load seconds, peak
+    memory, streamed bytes and launches beside the card's name and power
+    limit. Returns the launches of the long-context runs."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.runtime import orchestration
+
+    t_phase = time.perf_counter()
+    fresh_process_state()
+    card = torch.device("cuda", 0) if card is None else card
+    cuda = card.type == "cuda"
+    long_prompt = make_prompts(1, 2999, 4, 32, seed=20)[0]
+    prompts = [long_prompt, make_prompts(1, 512, 4, 32, seed=21)[0]]
+    tok = BenchTokenizer(cfg.vocab_size)
+    n_long = len(tok(long_prompt[0])["input_ids"])
+    if not LONGCTX_CAP < n_long <= 4 * LONGCTX_CAP:
+        fail(f"longctx: a {n_long}-token prefix is not past one device's cap")
+    base = dict(model_path=model_dir, dtype="float32", layer_num_per_shard=1,
+                device=card.type)
+    scoring = ("flash_causal_attention", "flash_prefix_shared_attention")
+    launches: dict = {}
+
+    def run(tag, devices, kv=False, ps=prompts, counted=True, **kw):
+        run_cfg = FrameworkConfig(**base, **kw)
+        calls: list = []
+        fa.reset_launch_counts()
+        if cuda:
+            torch.cuda.synchronize()
+            for dev in set(devices):
+                torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if kv:
+            scores, updated, _ = orchestration.run_decode(run_cfg, ps, tokenizer=tok,
+                                                          devices=devices, calls=calls)
+        else:
+            scores = orchestration.run_prompts(run_cfg, ps, tokenizer=tok, devices=devices,
+                                               calls=calls)
+            updated = None
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        _check_scores(scores, ps, kw.get("num_gen_token", 1), cfg.vocab_size, f"longctx {tag}")
+        if counted:
+            _add_launches(launches, {k: {"launches": counts[k], "local_launches": 0}
+                                     for k in fa.KERNELS})
+        peak = max((c.get("peak_mem_gb", 0.0) for c in calls), default=0.0)
+        log(f"[longctx] {tag} on {len(devices)} x {sorted({str(d) for d in devices})}: wall "
+            f"{wall:.4f} s, load_weights_time_s "
+            f"{sum(c['load_weights_time_s'] for c in calls):.4f}, peak {peak:.3f} GB, streamed "
+            f"{[c['streamed_bytes'] for c in calls]} B, launches {json.dumps(counts)} ({smi})")
+        return scores, updated, calls, counts
+
+    def close(tag, got, want) -> float:
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        if not all(np.allclose(g, w, **LONGCTX_TOL) for g, w in zip(got, want)):
+            fail(f"longctx {tag}: scores differ from the untruncated single-device run's "
+                 f"(largest difference {err}, tolerance {LONGCTX_TOL})")
+        return err
+
+    long_cfg = dict(max_token_len=LONGCTX_CAP, long_context=True)
+    ref, _, ref_calls, ref_counts = run("scoring_one_device_cap4096", [card], counted=False,
+                                        max_token_len=4 * LONGCTX_CAP)
+    if any(ref_counts[k] == 0 for k in scoring):
+        fail(f"longctx: the single-device reference launched no scoring kernel: {ref_counts}")
+    one_pass = ref_calls[0]["streamed_bytes"]
+    # (a) and (d): both prompts; the short one takes the normal path.
+    got, _, calls, counts = run("scoring_sp4", [card] * 4, **long_cfg)
+    err = close("scoring_sp4", got, ref)
+    if any(counts[k] == 0 for k in scoring):
+        fail(f"longctx: the normal-path prompt launched no scoring kernel: {counts}")
+    # (d) and (e): the long prompt alone is the sp pass.
+    _, _, sp_calls, sp_counts = run("scoring_sp4_long_only", [card] * 4, ps=prompts[:1],
+                                    **long_cfg)
+    if any(sp_counts.values()):
+        fail(f"longctx: the sequence-parallel pass launched a kernel: {sp_counts}")
+    if [c["streamed_bytes"] for c in sp_calls] != [one_pass]:
+        fail(f"longctx: the sp pass over [card] * 4 streamed "
+             f"{[c['streamed_bytes'] for c in sp_calls]} B, one device's pass {one_pass} B")
+    # (b) the reference's truncation at the per-device cap.
+    trunc, _, _, _ = run("scoring_one_device_cap1024", [card], ps=prompts[:1],
+                         max_token_len=LONGCTX_CAP)
+    if np.allclose(trunc[0], ref[0], **LONGCTX_TOL):
+        fail("longctx: the truncated run equals the untruncated one")
+    log(f"[longctx] scoring exact: largest difference {err} (tolerance {LONGCTX_TOL}); "
+        f"truncated at {LONGCTX_CAP} differs by {float(np.abs(trunc[0] - ref[0]).max())}; "
+        f"sp pass streamed {one_pass} B = one device's")
+    # (c) KV decode, 4 tokens.
+    n_gen = 4
+    want, want_up, _, _ = run("decode_one_device_cap4096", [card], kv=True, counted=False,
+                              max_token_len=4 * LONGCTX_CAP, num_gen_token=n_gen)
+    got, got_up, _, counts = run("decode_sp4", [card] * 4, kv=True, num_gen_token=n_gen,
+                                 **long_cfg)
+    tokens = got_up == want_up and all(np.array_equal(g.argmax(-1), w.argmax(-1))
+                                       for g, w in zip(got, want))
+    if not tokens:
+        fail("longctx: the sp decode's tokens differ from the single-device decode's")
+    err = close("decode_sp4", got, want)
+    if counts["flash_decode_attention"] == 0:
+        fail(f"longctx: the normal-path prompt's decode launched no decode kernel: {counts}")
+    log(f"[longctx] decode exact: tokens equal, largest difference {err}")
+    # (f) several cards.
+    n_cards = torch.cuda.device_count() if cuda else 1
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(min(n_cards, 4))]
+        got, _, calls, _ = run("scoring_sp_cards", cards, ps=prompts[:1], **long_cfg)
+        close("scoring_sp_cards", got, ref[:1])
+        if calls[0]["streamed_bytes"] != len(cards) * one_pass:
+            fail(f"longctx: the sp pass over {len(cards)} cards streamed "
+                 f"{calls[0]['streamed_bytes']} B, not {len(cards)} x {one_pass}")
+    log(f"[longctx] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 # The brownout phase's ladder: polled every 50 ms; a threshold of 0 turns a
 # signal off, so the injected host_oom is what moves the ladder.
 PRESSURE_FLAGS = ["--pressure", "--pressure_poll_s", "0.05", "--pressure_host_min_gb", "0",
@@ -4555,14 +4703,16 @@ def phase_obs(work: str, model_dir: str, cfg, prompts, llama_runs: dict, serve_r
          "bundle_events": sorted({e["kind"] for e in b["journal"]}),
          "bundle_sources": sorted(b["metrics"]), "router": router, "kernels": counts}))
 
-    # (f) the tracer's overhead: untraced, traced, traced, untraced, every
-    # pass from the warm host cache (an untimed run first), so the page
-    # cache's read times stay out of the comparison.
+    # (f) the tracer's overhead: untraced, traced, traced, untraced, twice,
+    # every pass from the warm host cache (an untimed run first), so the
+    # page cache's read times stay out of the comparison; the medians of
+    # four walls each, since one run of half a second can move by half
+    # itself.
     walls: dict = {"untraced": [], "traced": []}
     hit_rates = []
     traced_cli("overhead_warm", ["--num_gen_token", str(n_gen_loop)], [])
     launched("overhead_warm", scoring)
-    for k, kind in enumerate(("untraced", "traced", "traced", "untraced")):
+    for k, kind in enumerate(("untraced", "traced", "traced", "untraced") * 2):
         flags = [] if kind == "untraced" else [
             "--trace", "--trace_out", os.path.join(d, f"f{k}.json"), "--metrics_out",
             os.path.join(d, f"f{k}_m.json"), "--journal_dir", os.path.join(d, f"f{k}_j")]
@@ -4573,7 +4723,7 @@ def phase_obs(work: str, model_dir: str, cfg, prompts, llama_runs: dict, serve_r
             fail(f"obs overhead: run {k} ({kind}) differs from the untraced run")
         walls[kind].append(stats["wall_s"])
         hit_rates.append(stats.get("host_cache_hit_rate"))
-    ratio = float(np.mean(walls["traced"]) / np.mean(walls["untraced"]))
+    ratio = float(np.median(walls["traced"]) / np.median(walls["untraced"]))
     log(f"[obs] overhead: untraced {walls['untraced']} s, traced {walls['traced']} s, ratio "
         f"{ratio:.4f}, host cache hit rates {hit_rates} | {smi}")
     if ratio > 1.25:
@@ -5105,21 +5255,27 @@ def main() -> None:
     prompts = make_prompts(8, 512, 4, 32, seed=0)
     n_gen_loop, n_gen_kv = 4, 8
     # Gemma 3: 2048 prefix words (2049 tokens in a 2112 bucket), past the
-    # 1024-token window; depth cut from 62 to 6 layers, 5 local and 1 global.
+    # 1024-token window; depth cut from 62 to 2 layers, one local (the
+    # published pattern's first five) and one global (its sixth).
     gemma_prompts = make_prompts(8, 2048, 4, 32, seed=1)
     gemma_loop, gemma_kv = 2, 4
+    gemma_types = {"num_hidden_layers": 2, "layer_types": ["sliding_attention", "full_attention"]}
     gemma_cfg = LlamaConfig.from_dict(
-        {"model_type": "gemma3", "text_config": {**GEMMA3_27B_TEXT, "num_hidden_layers": 6}})
-    # Gemma-3-12B: depth cut from 48 to 6 layers (layers 0-4 local, 5 global).
-    gemma12_text = {**GEMMA3_12B_TEXT, "num_hidden_layers": 6}
+        {"model_type": "gemma3", "text_config": {**GEMMA3_27B_TEXT, **gemma_types}})
+    # Gemma-3-12B: depth cut from 48 to 2 layers (layer 0 local, 1 global).
+    gemma12_text = {**GEMMA3_12B_TEXT, **gemma_types}
     gemma12_cfg = LlamaConfig.from_dict({"model_type": "gemma3", "text_config": gemma12_text})
-    # DeepSeek-V3: depth cut from 61 to 4 layers (0-2 dense, 3 MoE), the
-    # Gemma prompts.
-    ds_cfg = LlamaConfig.from_dict({**DEEPSEEK_V3, "num_hidden_layers": 4})
+    # DeepSeek-V3: depth cut from 61 to 2 layers (0 dense, as the published
+    # first three are, 1 MoE), the Gemma prompts.
+    ds_cfg = LlamaConfig.from_dict({**DEEPSEEK_V3, "num_hidden_layers": 2,
+                                    "first_k_dense_replace": 1})
     ds_loop, ds_kv = 2, 2
-    # Llama-4-Scout: depth cut from 48 to 4 layers (0-2 chunked rope layers,
-    # 3 the NoPE layer; every layer MoE), the Gemma prompts.
-    scout_cfg = LlamaConfig.from_dict({**LLAMA4_SCOUT_TEXT, "num_hidden_layers": 4})
+    # Llama-4-Scout: depth cut from 48 to 2 layers (0 a chunked rope layer,
+    # as the published pattern's first three are, 1 the NoPE layer, its
+    # fourth; every layer MoE), the Gemma prompts.
+    scout_cfg = LlamaConfig.from_dict({**LLAMA4_SCOUT_TEXT, "num_hidden_layers": 2,
+                                       "layer_types": ["chunked_attention", "full_attention"],
+                                       "no_rope_layers": [1, 0]})
     scout_loop, scout_kv = 2, 2
     timed = phase_kernels(
         main_path_case(prompts, n_gen_kv),
@@ -5169,6 +5325,8 @@ def main() -> None:
         mark("fleet")
         paths.update(phase_multidevice(work, llama_dir, llama_cfg, prompts, n_gen_kv, smi))
         mark("multidevice")
+        paths["llama2_7b_longctx"] = phase_longctx(work, llama_dir, llama_cfg, smi)
+        mark("longctx")
         paths["llama2_7b_pressure"] = phase_pressure(work, llama_dir, llama_cfg, prompts,
                                                      llama_runs, serve_runs["default"],
                                                      n_gen_loop, n_gen_kv, smi)
@@ -5197,7 +5355,7 @@ def main() -> None:
         requantize_native(ds_dir, ds_q4, dtype="int4")
         log(f"[quant] requantize_native int4 of deepseek-v3: {_dir_bytes(ds_q4)} bytes from "
             f"{nbytes} in {time.perf_counter() - t0:.3f} s")
-        # Layers 0-2 are dense; layer 3 holds the 256-expert stacks.
+        # Layer 0 is dense; layer 1 holds the 256-expert stacks.
         check_card_dequant(ds_q4, f"model.layers.{ds_cfg.num_hidden_layers - 1}")
         mark("deepseek-v3 written, requantized, dequant checked")
         ds_runs: dict = {}

@@ -31,6 +31,13 @@ stream the most bytes on the card and streams the rest. int8, int4 and
 mixed-precision checkpoints (``prepare_weights --dtype int8|int4``,
 ``--precision_plan``) stream packed and are dequantized on the card.
 
+``--long_context true`` scores (or, with ``--kv_cache``, decodes) every prompt
+whose prefix is longer than ``--max_token_len`` exactly over the run's devices
+as one sequence-parallel mesh, instead of truncating it: the cap becomes
+``max_token_len`` times the device count (``--device cpu --num_devices N``
+on the CPU), and the token count uses that cap. Prompts under the cap take
+the paths above; ``--speculative_k`` is refused with it.
+
 ``--storage_location disk`` writes a progress marker after every shard
 whose activations are on disk; ``--resume true`` restarts a crashed run of
 the same workload at the first shard it left, and a spill that stays
@@ -337,6 +344,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=_str2bool, default=False,
                    help="disk mode: resume a crashed run of the same workload from the last "
                         "completed shard")
+    p.add_argument("--long_context", type=_str2bool, default=False,
+                   help="score prefixes longer than max_token_len exactly "
+                        "via sequence parallelism (cap becomes "
+                        "n_chips * max_token_len) instead of truncating")
     p.add_argument("--speculative_k", type=int, default=0,
                    help="kv_cache mode: verify this many prompt-lookup drafted tokens per "
                         "streamed pass (greedy-exact; divides weight streams per token by the "
@@ -1224,6 +1235,7 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         hbm_pin_gb=args.hbm_pin_gb,
         score_sink_max_device=args.score_sink_max_device,
         resume=args.resume,
+        long_context=args.long_context,
         adapters=_adapter_config_from_args(args),
         faults=_fault_config_from_args(args),
         pressure=_pressure_config_from_args(args),
@@ -1277,6 +1289,8 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     if args.speculative_k and args.data_parallel:
         raise SystemExit("--speculative_k does not compose with --data_parallel "
                          "(the broadcast source's round count is fixed up front)")
+    if args.speculative_k and args.long_context:
+        raise SystemExit("--speculative_k is not supported with --long_context yet")
     try:
         cfg = config_from_args(args)
     except ValueError as e:

@@ -792,6 +792,11 @@ class FrameworkConfig:
     card, their host copies in flight, before the oldest resolve.
     ``resume``: in disk mode, start at the first shard a crashed run with
     the same workload left (its marker in ``disk_folder``).
+    ``long_context``: a prompt whose prefix is longer than
+    ``max_token_len`` is scored (or decoded) exactly over a
+    sequence-parallel mesh of the run's devices, the cap then
+    ``len(devices) * max_token_len`` (``runtime/longcontext.py``), instead
+    of the reference's truncation (its ``utils.py:14,250,254``).
 
     The paged prefix-KV pool of the serving engine (``runtime/kvpool.py``):
     ``kv_page_tokens`` rows per page (<= 0 disables the pool),
@@ -855,6 +860,7 @@ class FrameworkConfig:
     hbm_pin_gb: float | None = 0.0
     score_sink_max_device: int = 16
     resume: bool = False
+    long_context: bool = False
     kv_page_tokens: int = 16
     kv_pool_gb: float | None = None
     kv_host_spill: bool = True

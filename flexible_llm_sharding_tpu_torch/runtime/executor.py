@@ -274,8 +274,15 @@ class ShardWeightSource:
     MP pipeline's stages. An empty shard (a round-up padding stage) yields
     no segments.
 
+    ``replicas`` (distinct devices, the first of them ``device``; the
+    long-context scorer's): every shard is placed on each of them, on its
+    upload stream, from one host build, quantized leaf-groups dequantized
+    on each; an item's segments are then a list, one per replica. Each
+    placement counts its host bytes in ``bytes_loaded``: a device list
+    that names one card several times uploads once.
+
     ``residency`` (a ``DeviceResidencyTier``): its planned layers among the
-    shards are pinned on their shards' devices before the first build,
+    shards are pinned on their shards' devices (every replica) before the first build,
     frozen for this source's life, subtracted from every build and merged
     back in layer order.
 
@@ -311,7 +318,8 @@ class ShardWeightSource:
                  retry_policy: RetryPolicy | None = None, residency=None, cycle: bool = False,
                  devices: Sequence[torch.device] | None = None,
                  injector: FaultInjector | None = None, retry_recorder: RetryRecorder | None = None,
-                 integrity_recorder: IntegrityRecorder | None = None):
+                 integrity_recorder: IntegrityRecorder | None = None,
+                 replicas: Sequence[torch.device] | None = None):
         self.model_path = model_path
         self._injector = injector
         self.cycle = cycle
@@ -320,6 +328,9 @@ class ShardWeightSource:
         if devices is not None and len(devices) != len(self.shards):
             raise ValueError("devices must align 1:1 with shards")
         self.shard_devices = list(devices) if devices is not None else [device] * len(self.shards)
+        self.replicas = list(dict.fromkeys(replicas)) if replicas is not None else None
+        if self.replicas is not None and (devices is not None or self.replicas[0] != device):
+            raise ValueError("replicas place every shard on each device, the first being device")
         self.dtype = dtype
         self.device = device
         self.tied = tied_embeddings
@@ -361,8 +372,12 @@ class ShardWeightSource:
         if residency is not None:
             # Pinned before the producer starts; a pin that fails for good
             # is demoted and streams (its error surfaces there).
-            for idxs, dev in zip(self.shards, self.shard_devices):
-                residency.ensure_pinned(self, dev, idxs)
+            if self.replicas is not None:
+                residency.ensure_pinned_broadcast(self, self.replicas,
+                                                  sorted({i for s in self.shards for i in s}))
+            else:
+                for idxs, dev in zip(self.shards, self.shard_devices):
+                    residency.ensure_pinned(self, dev, idxs)
             self.freeze_pins(residency)
         self._q: Queue = Queue(maxsize=max(1, prefetch_depth))
         self._thread: threading.Thread | None = None
@@ -581,20 +596,29 @@ class ShardWeightSource:
 
     def _build(self, layer_idxs: tuple[int, ...], device: torch.device):
         """One shard built on the host and placed on ``device``: (segments,
-        event). The upload retries under the policy (``device_put``), the
+        event) — with ``replicas``, a list of each, one per replica. The
+        upload retries under the policy (``device_put``), the
         ``link_throttle`` and ``device_put`` sites fired before anything is
         queued; the pins were counted once, by the build. Traced as one
         ``shard_produce`` span holding the upload's ``device_put``."""
         first = layer_idxs[0] if layer_idxs else -1
         with obs_trace.span("shard_produce", cat="stream", first=first, n=len(layer_idxs)):
             parts, hosts = self.host_parts(layer_idxs)
+            if self.replicas is not None:
+                extra = (len(self.replicas) - 1) * sum(
+                    tree_nbytes([tree for _, tree in host]) for host in hosts)
+                self.bytes_loaded += extra
+                _count_streamed(extra)
 
             def put():
                 if self._injector is not None:
                     # A saturated link stalls; it never errors.
                     self._injector.fire("link_throttle", detail=str(layer_idxs))
                     self._injector.fire("device_put", detail=str(layer_idxs))
-                return self.place_parts(parts, hosts, device)
+                if self.replicas is None:
+                    return self.place_parts(parts, hosts, device)
+                placed = [self.place_parts(parts, hosts, d) for d in self.replicas]
+                return [seg for seg, _ in placed], [event for _, event in placed]
 
             with obs_trace.span("device_put", cat="stream", first=first, n=len(layer_idxs)):
                 return retry_call(put, policy=self._retry, label="device_put",
@@ -610,13 +634,16 @@ class ShardWeightSource:
         elif self.cycle:
             self.warm(_stream_only(self.shards[0], self._pinned))
         dev = self.shard_devices[i]
-        return (self.shards[i], *self._build(self.shards[i], dev), dev)
+        return (self.shards[i], *self._build(self.shards[i], dev),
+                dev if self.replicas is None else self.replicas)
 
     def _ready(self, item):
         """Order the upload before the consumer's stream on the item's device
         and keep the allocator from reusing the weights' memory while that
         stream runs."""
         _, segments, event, device = item
+        if isinstance(device, list):  # one placement per replica
+            return [self._ready((None, *placed)) for placed in zip(segments, event, device)]
         if event is not None:
             stream = torch.cuda.current_stream(device)
             stream.wait_event(event)

@@ -1,6 +1,5 @@
 """Entry points over a list of devices (the JAX package's
-``runtime/orchestration.py``, without tensor parallelism, several hosts or
-long context).
+``runtime/orchestration.py``, without tensor parallelism or several hosts).
 
 - One device: a ``StreamingExecutor`` (or a ``DecodeGenerator``).
 - Several, ``data_parallel`` off: the interleaved MP pipeline
@@ -11,6 +10,13 @@ long context).
   rank with prompts, all fed by one ``BroadcastShardSource`` that reads each
   shard once per pass. A rank's failure closes the source, unblocking the
   others, and its own exception is the one raised.
+
+- ``long_context``: the prompts whose untruncated prefix is longer than
+  ``max_token_len`` are scored (or decoded) over the whole device list as
+  one sequence-parallel mesh (``runtime/longcontext.py``), the cap then
+  ``len(devices) * max_token_len``; the rest take the paths above with
+  ``long_context`` off, on the same devices, and the results come back in
+  prompt order.
 
 ``pick_devices`` is the device list the CLI runs on: every card (cut to
 ``num_devices``), or on the CPU ``num_devices`` CPU stages or ranks. The
@@ -23,6 +29,7 @@ the CLI's stats line: a DP fan-out's dict counts the shared stream once.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from concurrent.futures import FIRST_EXCEPTION, ThreadPoolExecutor, wait
 from typing import Sequence
@@ -52,6 +59,11 @@ from flexible_llm_sharding_tpu_torch.runtime.executor import (
     peak_over,
 )
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import cache_for
+from flexible_llm_sharding_tpu_torch.runtime.longcontext import (
+    LongContextDecoder,
+    LongContextScorer,
+    prefix_token_count,
+)
 from flexible_llm_sharding_tpu_torch.runtime.pipeline import PipelineRunner
 from flexible_llm_sharding_tpu_torch.utils import checkpoint
 
@@ -122,6 +134,30 @@ def _devices(cfg: FrameworkConfig, devices) -> list[torch.device]:
     return [indexed_device(d) for d in (devices if devices is not None else pick_devices(cfg))]
 
 
+def _long_context_split(cfg: FrameworkConfig, prompts, tokenizer):
+    """The long-context routing predicate of both entry points: (tokenizer,
+    long_idx, rest_idx), the indices of the prompts whose untruncated
+    prefix overflows one device's cap (the reference truncates them, its
+    ``utils.py:250,254``) and of the rest."""
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(cfg.model_path)
+    long_idx = [i for i, (p, _) in enumerate(prompts)
+                if prefix_token_count(tokenizer, p) > cfg.max_token_len]
+    long_set = set(long_idx)
+    return tokenizer, long_idx, [i for i in range(len(prompts)) if i not in long_set]
+
+
+def _merge_by_index(n: int, *parts) -> list:
+    """(indices, values) pairs -> one list in prompt order."""
+    out: list = [None] * n
+    for idxs, vals in parts:
+        for i, v in zip(idxs, vals):
+            out[i] = v
+    return out
+
+
 def _record(calls, history) -> None:
     if calls is not None:
         calls.extend(dict(c) for c in history)
@@ -181,6 +217,16 @@ def run_prompts(cfg: FrameworkConfig, prompts: Sequence[Prompt], tokenizer=None,
     if not prompts:
         return []
     devices = _devices(cfg, devices)
+    if cfg.long_context:
+        tokenizer, long_idx, rest_idx = _long_context_split(cfg, prompts, tokenizer)
+        if long_idx:
+            scorer = LongContextScorer(cfg, devices=devices, tokenizer=tokenizer)
+            long_scores = scorer([prompts[i] for i in long_idx])
+            _record(calls, scorer.stats_history)
+            rest_scores = run_prompts(dataclasses.replace(cfg, long_context=False),
+                                      [prompts[i] for i in rest_idx], tokenizer=tokenizer,
+                                      devices=devices, calls=calls)
+            return _merge_by_index(len(prompts), (long_idx, long_scores), (rest_idx, rest_scores))
     if len(devices) <= 1 or not cfg.data_parallel:
         if len(devices) > 1:
             runner = PipelineRunner(cfg, devices, tokenizer=tokenizer)
@@ -243,6 +289,18 @@ def run_decode(cfg: FrameworkConfig, prompts: Sequence[Prompt], tokenizer=None,
         return scores, updated, int(gen.stats["tokens_processed"])
 
     devices = _devices(cfg, devices)
+    if cfg.long_context:
+        tokenizer, long_idx, rest_idx = _long_context_split(cfg, prompts, tokenizer)
+        if long_idx:
+            dec = LongContextDecoder(cfg, devices=devices, tokenizer=tokenizer)
+            l_scores, l_updated, l_tokens = dec([prompts[i] for i in long_idx])
+            _record(calls, dec.stats_history)
+            r_scores, r_updated, r_tokens = run_decode(
+                dataclasses.replace(cfg, long_context=False), [prompts[i] for i in rest_idx],
+                tokenizer=tokenizer, devices=devices, calls=calls)
+            return (_merge_by_index(len(prompts), (long_idx, l_scores), (rest_idx, r_scores)),
+                    _merge_by_index(len(prompts), (long_idx, l_updated), (rest_idx, r_updated)),
+                    l_tokens + r_tokens)
     if len(devices) > 1 and not cfg.data_parallel:
         # The interleaved pipeline: each stage's weights and KV on its device.
         return one(DecodeGenerator(cfg, tokenizer=tokenizer, mp_devices=devices))

@@ -197,9 +197,12 @@ def placement_key(device) -> tuple:
 
 
 def probe_chip(target):
-    """The device whose memory a gate over ``target`` probes. A placement
-    target of the port is one device, its own probe (a JAX target may be a
-    mesh, whose first chip is probed)."""
+    """The device whose memory a gate over ``target`` probes: one device is
+    its own probe; a device list (the long-context mesh, whose pins
+    replicate on every distinct device) probes each distinct device and
+    gives the one with the least auto budget."""
+    if isinstance(target, (list, tuple)):
+        return min(dict.fromkeys(torch.device(d) for d in target), key=auto_pin_budget_bytes)
     return target
 
 

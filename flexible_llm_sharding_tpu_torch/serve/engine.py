@@ -266,6 +266,8 @@ class ServeEngine:
             raise ValueError("FrameworkConfig.speculative_k is the OFFLINE scorer's knob; "
                              "serving speculation is ServeConfig.speculative_k (--speculative_k "
                              "on the serve parser)")
+        if cfg.long_context:
+            raise ValueError("long_context serving is not supported yet")
         if cfg.data_parallel:
             raise ValueError("serving drives a single device; drop data_parallel")
         self.cfg = cfg

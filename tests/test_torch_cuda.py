@@ -1627,3 +1627,77 @@ def test_streamed_step_on_the_card_equals_the_cpus(gen):
         err = (got - want).abs()
         assert (err[~noisy] <= 2e-6 + 2e-5 * want[~noisy].abs()).all()
         assert (err[noisy] <= 2 * lr).all()
+
+
+def test_long_context_over_one_card_equals_the_cpu(gen, tmp_path):
+    """The sequence-parallel scorer and decoder (``long_context``, a cap of
+    48 tokens per device) over [cuda:0] * 2 against the same over [cpu] * 2,
+    float32 (no TF32): scores and distributions within 1e-5, the same
+    tokens; the sp pass launches no kernel, the short prompt's path does;
+    each sp pass streams one device's bytes on both."""
+    from dataclasses import replace
+
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+    from flexible_llm_sharding_tpu_torch.runtime import hostcache, orchestration
+
+    model_dir = _decode_model(tmp_path, "llama")
+    card = torch.device("cuda", 0)
+    cfg = FrameworkConfig(model_path=model_dir, dtype="float32", block_size=2, device="cuda",
+                          max_token_len=48, bucket_multiple=8, long_context=True)
+    runs = {}
+    for name, devices, run_cfg in (("cuda", [card] * 2, cfg),
+                                   ("cpu", [torch.device("cpu")] * 2, replace(cfg, device="cpu"))):
+        hostcache.reset_process_cache()
+        fa.reset_launch_counts()
+        calls = []
+        scores = orchestration.run_prompts(run_cfg, _DECODE_PROMPTS, tokenizer=_WordTokenizer(),
+                                           devices=devices, calls=calls)
+        sp_counts = fa.launch_counts()
+        decoded = orchestration.run_decode(replace(run_cfg, num_gen_token=3), _DECODE_PROMPTS,
+                                           tokenizer=_WordTokenizer(), devices=devices)
+        runs[name] = (scores, decoded, calls, sp_counts)
+    (scores, decoded, calls, counts), (want, want_dec, want_calls, _) = runs["cuda"], runs["cpu"]
+    for got, ref in zip(scores, want):
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    assert decoded[1] == want_dec[1]
+    for got, ref in zip(decoded[0], want_dec[0]):
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    # Prompts 0 and 1 are past the cap (one sp call, a pass for each),
+    # prompt 2 is not (one pass of the MP pipeline).
+    assert [c["streamed_bytes"] for c in calls] == [c["streamed_bytes"] for c in want_calls]
+    assert calls[0]["streamed_bytes"] == 2 * calls[1]["streamed_bytes"]
+    assert counts["flash_causal_attention"] and counts["flash_prefix_shared_attention"]
+    fa.reset_launch_counts()
+    orchestration.run_prompts(cfg, _DECODE_PROMPTS[:2], tokenizer=_WordTokenizer(),
+                              devices=[card] * 2)
+    assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 0)
+
+
+def test_a_ring_hop_on_one_card_allocates_nothing(gen):
+    """Ring attention over [cuda:0] * 4: every hop's ``.to`` returns its
+    block itself, so no step copies or allocates a K/V block; the result is
+    the one-rank ring's."""
+    from flexible_llm_sharding_tpu_torch.ops import ring_attention as ring
+    from flexible_llm_sharding_tpu_torch.parallel.sharding import gather, make_mesh, shard
+
+    card = torch.device("cuda", 0)
+    q, k, v = (_rnd(gen, torch.float32, 256, 8, 64) for _ in range(3))
+    mesh = make_mesh({"sp": 4}, [card] * 4)
+    blocks = [shard(t, mesh) for t in (q, k, v)]
+    made = []
+    real_to = torch.Tensor.to
+
+    def counting_to(self, *args, **kw):
+        out = real_to(self, *args, **kw)
+        if out is not self:
+            made.append(tuple(out.shape))
+        return out
+
+    torch.Tensor.to = counting_to
+    try:
+        out = ring.ring_attention_blocks(*blocks, mesh)
+    finally:
+        torch.Tensor.to = real_to
+    assert made == []
+    want = ring.ring_self_attention(q, k, v, make_mesh({"sp": 1}, [card]))
+    torch.testing.assert_close(gather(out), want, atol=1e-5, rtol=1e-5)
