@@ -279,7 +279,19 @@ Phases, each of which ends the run with a nonzero exit if it fails:
              streamed bytes equal one device's; with several cards, the
              same over them. Prints each run's wall, load seconds, peak
              memory, streamed bytes and launches.
-   pressure — right after longctx, on the same cell (the
+   use_pallas — right after longctx, on the same cell at 2 of its 4 layers
+             (a directory of links to its files), float32, one layer per
+             shard (the ``llama2_7b_use_pallas`` path): one scoring call,
+             a 4-token --kv_cache decode and one wave of a ServeEngine
+             through the library entry points, each at the default and at
+             ``use_pallas=False``: under False no kernel launches, under the
+             default each kernel of the run launches, the scores agree
+             within atol 1e-6 (rtol 0; 1/30 of a typical probability of
+             the 32,000-token vocabulary) and the greedy tokens are equal.
+             Prints each run's wall and launches beside the card's name and
+             power limit: an end-to-end A/B of the kernels against the plain
+             ops.
+   pressure — right after use_pallas, on the same cell (the
              ``llama2_7b_pressure`` path): the batch CLI under --chaos at
              the loader and upload sites (shard_read, device_put, host_oom,
              corrupt_shard, link_throttle; a seed under which each injects
@@ -4000,6 +4012,126 @@ def phase_longctx(work: str, model_dir: str, cfg, smi: str, card=None) -> dict:
     return launches
 
 
+# The use_pallas phase's bound on the float32 distributions: Llama-2's
+# 32,000 entries average 3.1e-5 each, so the bound is 1/30 of a typical one.
+USE_PALLAS_TOL = dict(atol=1e-6, rtol=0.0)
+USE_PALLAS_LAYERS = 2
+
+
+def layer_view(src: str, dst: str, n_layers: int) -> None:
+    """A model directory of ``src``'s first ``n_layers`` decoder layers: its
+    layer files hard-linked (nothing copied), their integrity entries and
+    its config at that depth."""
+    from flexible_llm_sharding_tpu_torch.integrity import manifest
+    from flexible_llm_sharding_tpu_torch.utils import checkpoint
+
+    with open(os.path.join(src, "config.json")) as f:
+        conf = json.load(f)
+    conf["num_hidden_layers"] = n_layers
+    names = checkpoint.layer_names_for(n_layers, bool(conf.get("tie_word_embeddings")))
+    entries = manifest.load_manifest(src)["layers"]
+    os.makedirs(dst)
+    for name in names:
+        os.link(os.path.join(src, entries[name]["file"]), os.path.join(dst, entries[name]["file"]))
+    manifest.write_manifest(dst, {name: entries[name] for name in names})
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(conf, f)
+
+
+def phase_use_pallas(work: str, model_dir: str, cfg, prompts, smi: str, card=None) -> dict:
+    """``use_pallas`` on the Llama-2-7B cell at ``USE_PALLAS_LAYERS`` layers
+    (a :func:`layer_view` of ``model_dir``), float32, one layer per shard,
+    through the library entry points: one scoring call (``run_prompts``), a
+    4-token KV decode (``run_decode``) and one wave of a ``ServeEngine``
+    (every prompt submitted before it starts), each at the default (True)
+    and at ``use_pallas=False``. Under False no kernel launches; under the default
+    each kernel the run reaches launches; the scores agree within
+    ``USE_PALLAS_TOL`` and the greedy tokens are equal. Each run prints its
+    wall and launches beside the card's name and power limit (the default
+    scoring run, the first, reads the layer files from disk; the others
+    hit the host shard cache). Returns the default runs' launches."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, ServeConfig
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.runtime import orchestration
+    from flexible_llm_sharding_tpu_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    fresh_process_state()
+    view = os.path.join(work, f"llama2-7b-{USE_PALLAS_LAYERS}-view")
+    layer_view(model_dir, view, USE_PALLAS_LAYERS)
+    card = torch.device("cuda", 0) if card is None else card
+    cuda = card.type == "cuda"
+    tok = BenchTokenizer(cfg.vocab_size)
+    n_gen = 4
+    scoring = ("flash_causal_attention", "flash_prefix_shared_attention")
+    wants = {"scoring": scoring, "kv_cache": fa.KERNELS, "serve": fa.KERNELS}
+
+    def serve(run_cfg):
+        eng = ServeEngine(run_cfg, ServeConfig(max_wave_requests=len(prompts),
+                                               default_max_new_tokens=n_gen, stats_interval_s=0),
+                          tokenizer=tok, device=card, start=False)
+        try:
+            reqs = [eng.submit(*p) for p in prompts]
+            eng.start()
+            results = [r.future.result(timeout=600) for r in reqs]
+        finally:
+            eng.shutdown(drain=True)
+        if eng.metrics.counter("prefills") != 1:
+            fail(f"use_pallas serve: {eng.metrics.counter('prefills')} prefills, not one wave")
+        return [r.scores for r in results], [r.updated for r in results]
+
+    def run(kind: str, use_pallas):
+        run_cfg = FrameworkConfig(model_path=view, dtype="float32", layer_num_per_shard=1,
+                                  device=card.type, use_pallas=use_pallas,
+                                  num_gen_token=n_gen if kind == "kv_cache" else 1)
+        fa.reset_launch_counts()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "scoring":
+            scores, updated = orchestration.run_prompts(run_cfg, prompts, tokenizer=tok,
+                                                        devices=[card]), None
+        elif kind == "kv_cache":
+            scores, updated, _ = orchestration.run_decode(run_cfg, prompts, tokenizer=tok,
+                                                          devices=[card])
+        else:
+            scores, updated = serve(run_cfg)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        tag = f"{kind} use_pallas={use_pallas}"
+        _check_scores(scores, prompts, 1 if kind == "scoring" else n_gen, cfg.vocab_size,
+                      f"use_pallas {tag}")
+        if cuda and use_pallas and any(counts[k] == 0 for k in wants[kind]):
+            fail(f"use_pallas {tag}: a kernel of the run never launched: {counts}")
+        if not use_pallas and any(counts.values()):
+            fail(f"use_pallas {tag}: a kernel launched under use_pallas=False: {counts}")
+        log(f"[use_pallas] {tag}: wall {wall:.4f} s, launches {json.dumps(counts)} ({smi})")
+        return scores, updated, counts
+
+    launches: dict = {}
+    try:
+        for kind in ("scoring", "kv_cache", "serve"):
+            ref, ref_up, counts = run(kind, True)
+            _add_launches(launches, {k: {"launches": counts[k], "local_launches": 0}
+                                     for k in fa.KERNELS})
+            got, got_up, _ = run(kind, False)
+            err = max(float(np.abs(g - r).max()) for g, r in zip(got, ref))
+            if not all(np.allclose(g, r, **USE_PALLAS_TOL) for g, r in zip(got, ref)):
+                fail(f"use_pallas {kind}: the plain ops' scores differ from the kernels' "
+                     f"(largest difference {err}, tolerance {USE_PALLAS_TOL})")
+            if got_up != ref_up or not all(np.array_equal(g.argmax(-1), r.argmax(-1))
+                                           for g, r in zip(got, ref)):
+                fail(f"use_pallas {kind}: the plain ops' greedy tokens differ from the kernels'")
+            log(f"[use_pallas] {kind}: tokens equal, largest difference {err} "
+                f"(tolerance {USE_PALLAS_TOL})")
+    finally:
+        shutil.rmtree(view, ignore_errors=True)
+    log(f"[use_pallas] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 # The brownout phase's ladder: polled every 50 ms; a threshold of 0 turns a
 # signal off, so the injected host_oom is what moves the ladder.
 PRESSURE_FLAGS = ["--pressure", "--pressure_poll_s", "0.05", "--pressure_host_min_gb", "0",
@@ -5327,6 +5459,8 @@ def main() -> None:
         mark("multidevice")
         paths["llama2_7b_longctx"] = phase_longctx(work, llama_dir, llama_cfg, smi)
         mark("longctx")
+        paths["llama2_7b_use_pallas"] = phase_use_pallas(work, llama_dir, llama_cfg, prompts, smi)
+        mark("use_pallas")
         paths["llama2_7b_pressure"] = phase_pressure(work, llama_dir, llama_cfg, prompts,
                                                      llama_runs, serve_runs["default"],
                                                      n_gen_loop, n_gen_kv, smi)

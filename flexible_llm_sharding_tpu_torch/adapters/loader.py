@@ -211,7 +211,7 @@ class AdapterStore:
         return err
 
     def _drop(self, name: str) -> None:
-        # Caller holds _lock.
+        # flscheck: holds=_lock: internal helper — every caller already owns the lock
         _value, nbytes, _guard = self._entries.pop(name)
         self.bytes -= nbytes
 

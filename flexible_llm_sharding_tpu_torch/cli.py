@@ -83,6 +83,19 @@ down when the pressure lifts). A JSONL reply to a shed request carries its
 ``prepare-adapter --peft_dir P --adapter_dir R --name N`` converts a PEFT
 LoRA checkpoint into the registry layout.
 
+``--use_pallas {auto,true,false}`` on both parsers (the JAX CLI's flag):
+auto (the default) and true run the attention through the hand-written
+CUDA kernels on the card, false through the plain attention ops, with no
+kernel launched; on the CPU both run the plain ops (the kernels have no
+interpret mode). Both parsers also take the JAX CLI's ``--kv_page_tokens``,
+``--kv_pool_gb``, ``--kv_host_spill`` and ``--score_sink_max_device``; the
+batch paths build no prefix-KV pool and the serving engine no score sink,
+as in the JAX package.
+
+``check`` runs the port's copy of the flscheck static analyzer
+(``analysis/``) over the port, against its own baseline
+``flscheck-torch-baseline.json``: exit 0 when clean, 1 on findings.
+
 ``verify`` audits a model directory (its precision plan included), a spill
 directory and/or an adapter registry and exits 2 on any problem; ``verify --hbm_pin_gb N``
 dry-runs the residency planner. ``plan-precision`` probes each layer's
@@ -112,6 +125,36 @@ from flexible_llm_sharding_tpu_torch.config import (
 )
 from flexible_llm_sharding_tpu_torch.utils.metrics import host_rss_gib, profiler_trace
 
+# --- KNOB-SYNC declarations (checked by flscheck, analysis/rules.py). A
+# FrameworkConfig/FaultConfig flag normally belongs in BOTH parsers; a flag
+# listed here is deliberately single-parser, for the stated reason.
+BATCH_ONLY_FLAGS = frozenset({
+    # Workload shape of one offline batch run: serving has no fixed batch.
+    "num_batch", "num_gen_token", "disk_folder", "max_activation_in_cpu",
+    "resume", "long_context",
+    # Multi-device layouts: the serving engine drives one device (it
+    # refuses data_parallel, as the JAX engine does).
+    "data_parallel", "num_devices",
+    # Sampling: serving is greedy-only (the engine refuses temperature > 0).
+    "temperature", "top_k", "top_p", "seed",
+    # KV-decode specials of the offline decoder. The serve parser's
+    # --speculative_k sets ServeConfig.speculative_k, a distinct field
+    # behind the same flag name; this covers the batch parser's
+    # FrameworkConfig.speculative_k.
+    "decode_fused", "speculative_k",
+    # Offline observability and profiling of a single run.
+    "verbose_metrics", "profile_dir",
+})
+SERVE_ONLY_FLAGS = frozenset()
+# Flags that drive the run (inputs, outputs, demo pacing) and set no config
+# field.
+DRIVER_FLAGS = frozenset({
+    "prompt_pickle", "output_file", "kv_cache",
+    "stagger_ms",
+    # One-shot metrics-registry JSON dump path (batch CLI output file).
+    "metrics_out",
+})
+
 
 def _str2bool(v: str) -> bool:
     if v.lower() in ("true", "1", "yes", "y"):
@@ -119,6 +162,16 @@ def _str2bool(v: str) -> bool:
     if v.lower() in ("false", "0", "no", "n"):
         return False
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+
+def _use_pallas_arg(v: str) -> bool:
+    """JAX's three spellings; auto is True, as nothing here resolves by platform."""
+    return True if v.lower() == "auto" else _str2bool(v)
+
+
+_USE_PALLAS_HELP = ("the hand-written CUDA attention kernels: 'auto' (default) and true launch "
+                    "them on the card, false runs the plain attention ops and launches none; "
+                    "on the CPU both run the plain ops")
 
 
 def _float_or_auto(v: str) -> float | None:
@@ -249,14 +302,6 @@ def _add_observability_flags(p: argparse.ArgumentParser) -> None:
                         "tail; 0 = capture at once")
 
 
-def _obs_config_kwargs(args: argparse.Namespace) -> dict:
-    return dict(trace=args.trace, trace_out=args.trace_out, journal_dir=args.journal_dir,
-                journal_max_mb=args.journal_max_mb, incidents_dir=args.incidents_dir,
-                incidents_max_mb=args.incidents_max_mb, incident_trigger=args.incident_trigger,
-                incident_debounce_s=args.incident_debounce_s,
-                incident_settle_s=args.incident_settle_s)
-
-
 def _write_trace(cfg: FrameworkConfig) -> None:
     """Export the process tracer at the end of a run (the run that died is
     the one whose timeline is needed)."""
@@ -300,6 +345,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--block_size", type=int, default=8)
     p.add_argument("--max_token_len", type=int, default=DEFAULT_MAX_TOKEN_LEN)
+    p.add_argument("--use_pallas", type=_use_pallas_arg, default=True, help=_USE_PALLAS_HELP)
     p.add_argument("--bucket_multiple", type=int, default=64)
     p.add_argument("--prefetch_depth", type=int, default=1,
                    help="shards read and uploaded ahead of compute; 0 = serialized")
@@ -341,6 +387,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max prompts whose head-stage scores stay on the card, their host "
                         "copies in flight, before older ones resolve to host memory (bigger = "
                         "fewer host waits on big batches, more device memory)")
+    p.add_argument("--kv_page_tokens", type=int, default=16,
+                   help="rows per page of the serving engine's paged prefix-KV pool; <= 0 "
+                        "disables the pool (accepted here as in the JAX batch CLI, which "
+                        "builds no pool)")
+    p.add_argument("--kv_pool_gb", type=_float_or_auto, default=None,
+                   help="host-RAM budget in GB of the serving engine's prefix-KV pool "
+                        "('auto' default; 0 = off)")
+    p.add_argument("--kv_host_spill", type=_str2bool, default=True,
+                   help="whether cold prefix-KV pool pages spill to checksummed files or drop")
     p.add_argument("--resume", type=_str2bool, default=False,
                    help="disk mode: resume a crashed run of the same workload from the last "
                         "completed shard")
@@ -885,6 +940,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefetch_depth", type=int, default=1,
                    help="shards read and uploaded ahead of compute; 0 = serialized")
     p.add_argument("--max_token_len", type=int, default=DEFAULT_MAX_TOKEN_LEN)
+    p.add_argument("--use_pallas", type=_use_pallas_arg, default=True, help=_USE_PALLAS_HELP)
     p.add_argument("--decode_resident", type=str, default="auto", choices=("auto", "on", "off"),
                    help="keep the model on the card across sweeps when it fits (auto judges "
                         "against the card's memory); off streams the weights every sweep "
@@ -938,6 +994,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "false: they drop and the prefix prefills again")
     p.add_argument("--readahead_threads", type=int, default=2,
                    help="threads of the page-cache readahead pool; 0 = off")
+    p.add_argument("--score_sink_max_device", type=int, default=16,
+                   help="the batch paths' score sink cap (accepted here as in the JAX serve "
+                        "CLI; the engine builds no sink)")
     _add_fleet_flags(p)
     _add_chaos_flags(p)
     _add_pressure_flags(p)
@@ -1009,8 +1068,14 @@ def serve_main(argv: list[str] | None = None, tokenizer=None) -> dict:
             kv_page_tokens=args.kv_page_tokens, kv_pool_gb=args.kv_pool_gb,
             kv_host_spill=args.kv_host_spill, hbm_pin_gb=args.hbm_pin_gb,
             readahead_threads=args.readahead_threads,
+            score_sink_max_device=args.score_sink_max_device, use_pallas=args.use_pallas,
+            trace=args.trace, trace_out=args.trace_out, journal_dir=args.journal_dir,
+            journal_max_mb=args.journal_max_mb, incidents_dir=args.incidents_dir,
+            incidents_max_mb=args.incidents_max_mb, incident_trigger=args.incident_trigger,
+            incident_debounce_s=args.incident_debounce_s,
+            incident_settle_s=args.incident_settle_s,
             adapters=_adapter_config_from_args(args), faults=_fault_config_from_args(args),
-            pressure=_pressure_config_from_args(args), **_obs_config_kwargs(args),
+            pressure=_pressure_config_from_args(args),
         )
         slo = SLOConfig() if not args.slo else SLOConfig(
             enabled=True, ttft_p95_s=args.slo_ttft_p95_s,
@@ -1234,6 +1299,10 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         speculative_k=args.speculative_k,
         hbm_pin_gb=args.hbm_pin_gb,
         score_sink_max_device=args.score_sink_max_device,
+        kv_page_tokens=args.kv_page_tokens,
+        kv_pool_gb=args.kv_pool_gb,
+        kv_host_spill=args.kv_host_spill,
+        use_pallas=args.use_pallas,
         resume=args.resume,
         long_context=args.long_context,
         adapters=_adapter_config_from_args(args),
@@ -1241,7 +1310,15 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         pressure=_pressure_config_from_args(args),
         verbose_metrics=args.verbose_metrics,
         profile_dir=args.profile_dir,
-        **_obs_config_kwargs(args),
+        trace=args.trace,
+        trace_out=args.trace_out,
+        journal_dir=args.journal_dir,
+        journal_max_mb=args.journal_max_mb,
+        incidents_dir=args.incidents_dir,
+        incidents_max_mb=args.incidents_max_mb,
+        incident_trigger=args.incident_trigger,
+        incident_debounce_s=args.incident_debounce_s,
+        incident_settle_s=args.incident_settle_s,
     )
 
 
@@ -1262,8 +1339,9 @@ _SUMMED_HOST_KEYS = ("io_retries", "integrity_failures", "reread_heals", "quaran
 
 def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
     """Run the batch CLI and return the stats it prints, or the ``serve``,
-    ``verify``, ``plan-precision``, ``prepare-adapter``, ``incidents`` or
-    ``trace-report`` subcommand."""
+    ``verify``, ``plan-precision``, ``prepare-adapter``, ``incidents``,
+    ``trace-report`` or ``check`` subcommand (``check`` exits with the
+    analyzer's code when it is not 0)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         return serve_main(argv[1:], tokenizer=tokenizer)
@@ -1277,6 +1355,14 @@ def main(argv: list[str] | None = None, tokenizer=None) -> dict | None:
         return None
     if argv and argv[0] == "incidents":
         incidents_main(argv[1:])
+        return None
+    if argv and argv[0] == "check":
+        # flscheck: the port's copy of the project-invariant static analyzer.
+        from flexible_llm_sharding_tpu_torch.analysis import main as check_main
+
+        rc = check_main(argv[1:])
+        if rc:
+            raise SystemExit(rc)
         return None
     if argv and argv[0] == "trace-report":
         from flexible_llm_sharding_tpu_torch.obs.report import main as report_main
@@ -1432,3 +1518,7 @@ __all__ = ["build_incidents_parser", "build_parser", "build_plan_precision_parse
            "build_prepare_adapter_parser", "build_serve_parser", "build_verify_parser",
            "incidents_main", "main", "plan_precision_main", "prepare_adapter_main", "serve_main",
            "verify_main"]
+
+
+if __name__ == "__main__":
+    main()

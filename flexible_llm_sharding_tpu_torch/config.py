@@ -807,6 +807,13 @@ class FrameworkConfig:
     ``adapters``: the LoRA adapter registry the serving engine reads
     (:class:`AdapterConfig`; the batch CLI accepts and keeps it).
 
+    ``use_pallas`` (the JAX package's name for its flag): whether the
+    attention goes through the hand-written kernels of
+    ``ops/flash_attention.py`` (True, the default; the parsers read auto
+    as True) or the plain attention ops on every device (False: no kernel
+    launches). On CPU tensors the kernels' wrappers run their plain
+    versions either way.
+
     Observability (``obs/``, the JAX package's fields and defaults):
     ``verbose_metrics`` prints one JSON line per structured timing event;
     ``profile_dir`` writes a ``torch.profiler`` Chrome trace of the run
@@ -861,6 +868,7 @@ class FrameworkConfig:
     score_sink_max_device: int = 16
     resume: bool = False
     long_context: bool = False
+    use_pallas: bool = True
     kv_page_tokens: int = 16
     kv_pool_gb: float | None = None
     kv_host_spill: bool = True

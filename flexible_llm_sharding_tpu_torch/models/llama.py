@@ -40,7 +40,11 @@ picks the layer's rope base and whether the sliding window or chunk
 applies. ``rope_on`` is its entry of :func:`layer_rope_pattern` (None: rope
 on): False marks a Llama 4 NoPE layer.
 Attention goes through the kernel wrappers of ``ops/flash_attention.py``:
-the CUDA kernels on the card, their plain versions on the CPU. The
+the CUDA kernels on the card, their plain versions on the CPU. Each layer
+function that reaches one takes ``use_pallas``, a required keyword (the
+JAX package's name;
+``FrameworkConfig.use_pallas`` at the entry points): False calls the
+plain versions themselves, so no kernel launches on any device. The
 projections stay ``torch.matmul``, each weight cast to the activations'
 dtype (:func:`_mm`). :func:`decoder_layer`, the training layer, runs the
 plain ``ops/attention.attention`` under a caller's mask, as the JAX
@@ -58,9 +62,11 @@ import torch.nn.functional as F
 from flexible_llm_sharding_tpu_torch.config import ACTIVATIONS, LlamaConfig
 from flexible_llm_sharding_tpu_torch.ops.attention import attention, decode_attention
 from flexible_llm_sharding_tpu_torch.ops.flash_attention import (
+    causal_attention_plain,
     flash_causal_attention,
     flash_decode_attention,
     flash_prefix_shared_attention,
+    prefix_shared_attention_plain,
 )
 from flexible_llm_sharding_tpu_torch.ops.norm import rms_norm
 from flexible_llm_sharding_tpu_torch.ops.rope import (
@@ -408,6 +414,8 @@ def prefix_suffix_layer(
     sliding=None,
     total_len: torch.Tensor | None = None,
     rope_on=None,
+    *,
+    use_pallas: bool,
 ):
     """One decoder layer over a block of (prefix, suffixes) prompts.
 
@@ -421,6 +429,7 @@ def prefix_suffix_layer(
     picks its rope table for the prefix and the suffixes alike. Returns
     (prefix_out, suffix_out) and, with ``return_kv``, the post-rope KV dict
     {'kp','vp','ks','vs'} that decode steps reuse (V at ``cfg.v_dim``).
+    ``use_pallas`` False runs the plain attention in place of both kernels.
     """
     lp = prefix_h.shape[1]
     dev = prefix_h.device
@@ -429,11 +438,12 @@ def prefix_suffix_layer(
     h = _norm(prefix_h, params["input_layernorm"], cfg)
     q, k, v = positioned_qkv(params, cfg, h, torch.arange(lp, device=dev)[None], sliding, total_len,
                              rope_on)
-    attn = flash_causal_attention(q, k, v, prefix_len, **kw)
+    causal = flash_causal_attention if use_pallas else causal_attention_plain
+    attn = causal(q, k, v, prefix_len, **kw)
     prefix_out = _residual_mlp(params, cfg, _residual_attn(params, cfg, prefix_h, attn))
 
     suffix_out, ks, vs = _suffix_half(params, cfg, k, v, suffix_h, prefix_len, sliding, total_len,
-                                      rope_on, kw)
+                                      rope_on, kw, use_pallas)
     if return_kv:
         return prefix_out, suffix_out, {"kp": k, "vp": v, "ks": ks, "vs": vs}
     return prefix_out, suffix_out
@@ -450,7 +460,8 @@ def _scoring_kw(cfg: LlamaConfig, sliding, lp: int, ls: int) -> dict:
     return dict(scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap, window=window, chunk=chunk)
 
 
-def _suffix_half(params, cfg, kp, vp, suffix_h, prefix_len, sliding, total_len, rope_on, kw):
+def _suffix_half(params, cfg, kp, vp, suffix_h, prefix_len, sliding, total_len, rope_on, kw,
+                 use_pallas: bool):
     """The suffix stream of a layer over the post-rope prefix KV (kp, vp):
     (suffix_out, ks, vs)."""
     b, _, ls, _ = suffix_h.shape
@@ -458,7 +469,8 @@ def _suffix_half(params, cfg, kp, vp, suffix_h, prefix_len, sliding, total_len, 
     hs = _norm(suffix_h, params["input_layernorm"], cfg)
     pos_s = prefix_len.to(dev).reshape(b, 1, 1) + torch.arange(ls, device=dev)  # [B, 1, Ls]
     qs, ks, vs = positioned_qkv(params, cfg, hs, pos_s, sliding, total_len, rope_on)
-    attn_s = flash_prefix_shared_attention(qs, kp, vp, ks, vs, prefix_len, **kw)
+    shared = flash_prefix_shared_attention if use_pallas else prefix_shared_attention_plain
+    attn_s = shared(qs, kp, vp, ks, vs, prefix_len, **kw)
     suffix_out = _residual_mlp(params, cfg, _residual_attn(params, cfg, suffix_h, attn_s))
     return suffix_out, ks, vs
 
@@ -473,6 +485,8 @@ def suffix_only_layer(
     sliding=None,
     total_len: torch.Tensor | None = None,
     rope_on=None,
+    *,
+    use_pallas: bool,
 ):
     """The suffix half of :func:`prefix_suffix_layer`, fed a cached prefix
     KV (the paged prefix-KV pool's reuse path, ``runtime/kvpool.py``).
@@ -487,7 +501,7 @@ def suffix_only_layer(
     """
     kw = _scoring_kw(cfg, sliding, kp.shape[1], suffix_h.shape[2])
     suffix_out, ks, vs = _suffix_half(params, cfg, kp, vp, suffix_h, prefix_len, sliding,
-                                      total_len, rope_on, kw)
+                                      total_len, rope_on, kw, use_pallas)
     return suffix_out, {"ks": ks, "vs": vs}
 
 
@@ -501,6 +515,8 @@ def decode_step_layer(
     t,
     sliding=None,
     rope_on=None,
+    *,
+    use_pallas: bool,
 ) -> torch.Tensor:
     """One decoder layer for the K newest tokens of every suffix.
 
@@ -517,7 +533,8 @@ def decode_step_layer(
     slots fit, as ``dynamic_update_slice`` clamps). Returns the layer output
     [B, S, K, D]. The attention takes the JAX package's route
     (``models/llama.py:886``): the decode kernel for one token at a shared
-    int t outside MLA, else the plain ``decode_attention`` op. The layer's
+    int t outside MLA under ``use_pallas``, else the plain
+    ``decode_attention`` op. The layer's
     window or chunk always applies (no bucket shortcut, as in the JAX
     package).
     """
@@ -542,7 +559,8 @@ def decode_step_layer(
         cols = torch.arange(s, device=dev)[None, :, None]
         kv["kg"][rows, cols, slots] = k_new
         kv["vg"][rows, cols, slots] = v_new
-    attend = (flash_decode_attention if kq == 1 and scalar_t and not cfg.kv_lora_rank
+    attend = (flash_decode_attention
+              if use_pallas and kq == 1 and scalar_t and not cfg.kv_lora_rank
               else decode_attention)
     window, chunk = _effective_window(cfg, sliding)
     attn = attend(
@@ -589,7 +607,8 @@ def head_params(params: Params) -> Params:
 
 
 def forward_full(params: Params, cfg: LlamaConfig, ids: torch.Tensor,
-                 dtype: torch.dtype = torch.float32, total_len=None) -> torch.Tensor:
+                 dtype: torch.dtype = torch.float32, total_len=None, *,
+                 use_pallas: bool) -> torch.Tensor:
     """The monolithic causal forward (the JAX package's ``forward_full``):
     ids [B, L] -> float32 logits [B, L, V]. ``params``: {'embed', 'layers'
     (a list in model order), 'norm', optional 'lm_head'}; each layer takes
@@ -598,7 +617,8 @@ def forward_full(params: Params, cfg: LlamaConfig, ids: torch.Tensor,
     forward picks its table by the padded length.
 
     The attention is :func:`flash_causal_attention` at a valid length of L:
-    the causal kernel on a card, its plain version on the CPU. Right padding
+    the causal kernel on a card, its plain version on the CPU (and on the
+    card too when ``use_pallas`` is False). Right padding
     is causally invisible to every row before it, so a caller that reads
     row n - 1 of a right-padded batch reads the unpadded forward's."""
     b, length = ids.shape
@@ -609,10 +629,11 @@ def forward_full(params: Params, cfg: LlamaConfig, ids: torch.Tensor,
     positions = torch.arange(length, device=dev)[None]
     valid = torch.full((b,), length, dtype=torch.int32, device=dev)
     sliding, rope_on = layer_sliding_pattern(cfg), layer_rope_pattern(cfg)
+    causal = flash_causal_attention if use_pallas else causal_attention_plain
     for i, layer in enumerate(params["layers"]):
         h = _norm(x, layer["input_layernorm"], cfg)
         q, k, v = positioned_qkv(layer, cfg, h, positions, sliding[i], total_len, rope_on[i])
-        attn = flash_causal_attention(q, k, v, valid, **_scoring_kw(cfg, sliding[i], length, 0))
+        attn = causal(q, k, v, valid, **_scoring_kw(cfg, sliding[i], length, 0))
         x = _residual_mlp(layer, cfg, _residual_attn(layer, cfg, x, attn))
     x = rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps, cfg.norm_unit_offset)
     logits = torch.matmul(x, head_params(params)["kernel"]).float()

@@ -142,6 +142,7 @@ class EventJournal:
         different directory keeps the first (process-singleton
         precedent: first config wins). Registers the ``journal`` source
         in the process metrics registry."""
+        # flscheck: disable=LOCK-IO: one-time journal-file open under the configure lock — a racing configure must not open two generations of the same append-only file
         with self._lock:
             if self._file is None and journal_dir:
                 os.makedirs(journal_dir, exist_ok=True)

@@ -362,7 +362,7 @@ def _shift(delta, i: int, h):
 
 
 def prefill_decoders(model_cfg, layers, first: int, prefix_h, suffix_h, prefix_len, total_len,
-                     sliding, rope_on, delta=None):
+                     sliding, rope_on, delta=None, *, use_pallas: bool):
     """A shard's decoder layers over a block's prefill (the JAX package's
     ``_prefill_decoders``): ``layers`` the shard's decoder params, the
     first of them decoder ``first`` of the model; ``sliding``/``rope_on``
@@ -373,7 +373,8 @@ def prefill_decoders(model_cfg, layers, first: int, prefix_h, suffix_h, prefix_l
     streams at each layer's entry: {"pairs": per layer {group: (A [D, r],
     B [r, D])}, "g": the block's row -> group list, "scale": [G] float32},
     factors and scales on the device. None runs exactly the computation
-    without adapters."""
+    without adapters. ``use_pallas`` (here and in the helpers below) picks
+    the attention kernels or the plain ops (``llama.prefix_suffix_layer``)."""
     kvs = []
     for i, layer in enumerate(layers):
         d = first + i
@@ -381,14 +382,14 @@ def prefill_decoders(model_cfg, layers, first: int, prefix_h, suffix_h, prefix_l
             prefix_h, suffix_h = _shift(delta, i, prefix_h), _shift(delta, i, suffix_h)
         prefix_h, suffix_h, kv = llama.prefix_suffix_layer(
             layer, model_cfg, prefix_h, suffix_h, prefix_len, return_kv=True,
-            sliding=sliding[d], total_len=total_len, rope_on=rope_on[d],
+            sliding=sliding[d], total_len=total_len, rope_on=rope_on[d], use_pallas=use_pallas,
         )
         kvs.append(kv)
     return prefix_h, suffix_h, kvs
 
 
 def suffix_prefill_decoders(model_cfg, layers, first: int, kps, vps, suffix_h, prefix_len,
-                            total_len, sliding, rope_on, delta=None):
+                            total_len, sliding, rope_on, delta=None, *, use_pallas: bool):
     """The suffix-only prefill of a shard's decoder layers over pooled
     prefix KV (the JAX package's ``_suffix_prefill_decoders``): ``kps``/
     ``vps`` one post-rope [B, Lp, n_kv, hd] tensor per layer. Bit-equal to
@@ -403,14 +404,14 @@ def suffix_prefill_decoders(model_cfg, layers, first: int, kps, vps, suffix_h, p
             suffix_h = _shift(delta, i, suffix_h)
         suffix_h, kv_s = llama.suffix_only_layer(
             layer, model_cfg, kp, vp, suffix_h, prefix_len, sliding=sliding[d],
-            total_len=total_len, rope_on=rope_on[d],
+            total_len=total_len, rope_on=rope_on[d], use_pallas=use_pallas,
         )
         kvs.append({"kp": kp, "vp": vp, **kv_s})
     return suffix_h, kvs
 
 
 def decode_decoders(model_cfg, layers, first: int, kvs, x, prefix_len, suffix_eos, t, sliding,
-                    rope_on, delta=None):
+                    rope_on, delta=None, *, use_pallas: bool):
     """One decode step of a shard's decoder layers (the JAX package's
     ``_decode_decoders_impl``): x [B, S, K, D] the newest tokens, ``kvs``
     the layers' KV dicts (generated slot t, or the [B, S] per-suffix
@@ -421,7 +422,8 @@ def decode_decoders(model_cfg, layers, first: int, kvs, x, prefix_len, suffix_eo
         if delta is not None:
             x = _shift(delta, i, x)
         x = llama.decode_step_layer(layer, model_cfg, x, kv, prefix_len, suffix_eos, t,
-                                    sliding=sliding[d], rope_on=rope_on[d])
+                                    sliding=sliding[d], rope_on=rope_on[d],
+                                    use_pallas=use_pallas)
     return x
 
 
@@ -444,7 +446,8 @@ _CAPTURE_LOCK = threading.Lock()
 
 def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params, norm_params,
                        head_params, init_ids: torch.Tensor, prefix_len: torch.Tensor,
-                       suffix_eos: torch.Tensor, n_steps: int, graph: bool):
+                       suffix_eos: torch.Tensor, n_steps: int, graph: bool, *,
+                       use_pallas: bool):
     """Every greedy decode step of one block on the device (the JAX
     package's ``_fused_decode_steps``): embed the previous pick, run every
     decoder layer (``layers``: (params, sliding, rope_on) in model order, ``kvs``
@@ -470,7 +473,7 @@ def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params,
         x = llama.embed(embed_params, ids[..., None], dtype, model_cfg)
         for (params, sliding, rope_on), kv in zip(layers, step_kvs):
             x = llama.decode_step_layer(params, model_cfg, x, kv, prefix_len, suffix_eos, t,
-                                        sliding=sliding, rope_on=rope_on)
+                                        sliding=sliding, rope_on=rope_on, use_pallas=use_pallas)
         h = rms_norm(x, norm_params["scale"], model_cfg.rms_norm_eps, model_cfg.norm_unit_offset)
         dist = llama.lm_head_scores(head_params, h, model_cfg.final_logit_softcap)
         dist_out.copy_(dist)
@@ -712,7 +715,8 @@ class DecodeGenerator(StreamingExecutor):
                             keys = [("kv", shard_pos, li0 + li, b) for li in range(len(params))]
                             kvs = [kv_store.get(key, dev) for key in keys]
                             x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs,
-                                                x, prefix_len, suffix_eos, t, sliding, rope_on)
+                                                x, prefix_len, suffix_eos, t, sliding, rope_on,
+                                                use_pallas=self._use_pallas)
                             for key, kv in zip(keys, kvs):
                                 kv_store.put(key, kv)
                             li0 += len(params)
@@ -759,7 +763,7 @@ class DecodeGenerator(StreamingExecutor):
                         elif kind == "decoders":
                             ph, sh, kvs = prefill_decoders(
                                 mcfg, params, first_decoder(layer_idxs) + li0, ph, sh, prefix_len,
-                                total_len, sliding, rope_on)
+                                total_len, sliding, rope_on, use_pallas=self._use_pallas)
                             for li, kv in enumerate(kvs):
                                 kv_store.put(("kv", shard_pos, li0 + li, b),
                                              extend_gen_kv(kv, gen_slots))
@@ -803,7 +807,7 @@ class DecodeGenerator(StreamingExecutor):
                         self.device)
                     dists, picks = fused_decode_steps(
                         mcfg, self.dtype, layers, kvs, embed_p, norm_p, head_p, init_ids,
-                        prefix_len, suffix_eos, n_gen - 1, graph)
+                        prefix_len, suffix_eos, n_gen - 1, graph, use_pallas=self._use_pallas)
                     del kvs
                     all_scores[b].extend(dists)
                     tok_hist[b].extend(picks)

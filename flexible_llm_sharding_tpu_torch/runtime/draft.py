@@ -43,13 +43,17 @@ DRAFT_PAD_MULTIPLE = 64
 class DraftModel:
     """One draft checkpoint pinned whole on ``device`` in ``dtype``, serving
     greedy draft continuations. Construction raises when a layer does not
-    pin: a draft model that would stream per call defeats its purpose."""
+    pin: a draft model that would stream per call defeats its purpose.
+    ``use_pallas`` (the target engine's) picks the causal kernel or the
+    plain op for the draft's forward."""
 
     def __init__(self, model_path: str, device: torch.device, dtype: torch.dtype = torch.float32,
-                 retry_policy=None, verify_weights: bool = True, injector=None):
+                 retry_policy=None, verify_weights: bool = True, injector=None, *,
+                 use_pallas: bool):
         self.cfg = LlamaConfig.from_pretrained(model_path)
         self.device = device
         self.dtype = dtype
+        self.use_pallas = use_pallas
         self._lock = threading.Lock()
         self.draft_calls = 0
         self.draft_tokens = 0
@@ -109,7 +113,7 @@ class DraftModel:
         buf = np.zeros((1, pad), np.int64)
         buf[0, :n] = ids
         logits = forward_full(self._params, self.cfg, torch.from_numpy(buf).to(self.device),
-                              self.dtype)
+                              self.dtype, use_pallas=self.use_pallas)
         return int(torch.argmax(logits[0, n - 1]))
 
     def stats(self) -> dict:

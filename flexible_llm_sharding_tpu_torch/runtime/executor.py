@@ -667,6 +667,7 @@ class ShardWeightSource:
                     return
                 try:
                     item = self._produce(i)
+                # flscheck: disable=EXC-TAXONOMY: every producer error must travel to the consumer as a _Fault envelope; narrowing would let an unexpected type kill the thread and hang the consumer's get
                 except Exception as e:  # carried to the consumer, which re-raises it
                     if not self._put(_Fault(e)) or not self.cycle:
                         return
@@ -819,12 +820,14 @@ class BroadcastShardSource:
                     if i + 1 < len(self.shards):
                         loader.warm(_stream_only(self.shards[i + 1], loader._pinned))
                     parts, hosts = loader.host_parts(idxs)
+                # flscheck: disable=EXC-TAXONOMY: every producer error must reach all ranks as a _Fault envelope; a narrowed miss would hang every consumer
                 except Exception as e:  # every rank gets the error at this shard
                     self._fail_all(e)
                     return
                 for rank, dev in enumerate(self.devices):
                     try:
                         segments, event = loader.place_parts(parts, hosts, dev)
+                    # flscheck: disable=EXC-TAXONOMY: per-rank placement errors also travel as envelopes to every rank (the same hang hazard as above)
                     except Exception as e:
                         self._fail_all(e)
                         return
@@ -1010,11 +1013,13 @@ def first_decoder(layer_idxs: Sequence[int]) -> int:
 
 
 def apply_segments(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments,
-                   prefix_h, suffix_h, meta, first_layer: int = 0):
+                   prefix_h, suffix_h, meta, first_layer: int = 0, *, use_pallas: bool):
     """Run one shard's segments over a block; the shard's first decoder
     layer is decoder ``first_layer`` of the model. Returns (prefix_h,
     suffix_h, block_scores) with block_scores the float32 [B, S, V]
-    distributions when the shard holds the lm_head, else None."""
+    distributions when the shard holds the lm_head, else None.
+    ``use_pallas`` (``FrameworkConfig.use_pallas``) picks the
+    attention kernels or the plain ops."""
     prefix_ids, suffix_ids, prefix_len, suffix_eos = meta
     sliding = llama.layer_sliding_pattern(model_cfg)
     rope_on = llama.layer_rope_pattern(model_cfg)
@@ -1029,7 +1034,7 @@ def apply_segments(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segment
                 prefix_h, suffix_h = llama.prefix_suffix_layer(
                     layer, model_cfg, prefix_h, suffix_h, prefix_len,
                     sliding=sliding[first_layer + i], total_len=total_len,
-                    rope_on=rope_on[first_layer + i],
+                    rope_on=rope_on[first_layer + i], use_pallas=use_pallas,
                 )
         elif kind == "norm":
             suffix_h = llama.select_eos_and_norm(params, model_cfg, suffix_h, suffix_eos)
@@ -1121,7 +1126,8 @@ def finalize_scores(scores: ScoreSink) -> None:
 def process_block(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments,
                   layer_idxs: tuple[int, ...], n_layers: int, store: ActivationStore,
                   b: int, idxs: list[int], meta, toks: list[TokenizedPrompt],
-                  scores: ScoreSink, fetched=None, device=None) -> None:
+                  scores: ScoreSink, fetched=None, device=None, *,
+                  use_pallas: bool) -> None:
     """One shard over one block: fetch its activations (unless the shard
     starts at the embedding, or ``fetched`` holds them: a recompute's) onto
     ``device`` (default: the store's; an MP stage's own), apply the
@@ -1137,7 +1143,8 @@ def process_block(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments
         prefix_h, suffix_h = store.fetch(b, idxs, with_prefix=first <= n_layers - 3,
                                          device=device)
     prefix_h, suffix_h, block_scores = apply_segments(
-        model_cfg, dtype, segments, prefix_h, suffix_h, meta, first_decoder(layer_idxs)
+        model_cfg, dtype, segments, prefix_h, suffix_h, meta, first_decoder(layer_idxs),
+        use_pallas=use_pallas,
     )
     if block_scores is not None:
         scores.add_block(block_scores, idxs, [toks[i].num_suffixes for i in idxs])
@@ -1174,6 +1181,7 @@ class StreamingExecutor:
         self.device = device if device is not None else resolve_device(cfg.device)
         self.model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
         self.dtype = cfg.torch_dtype
+        self._use_pallas = cfg.use_pallas
         if tokenizer is None:
             from transformers import AutoTokenizer
 
@@ -1286,7 +1294,8 @@ class StreamingExecutor:
         else:
             prefix_h, suffix_h = store.fetch_recompute(b, idxs, with_prefix=first <= n_layers - 3)
         prefix_h, suffix_h, _ = apply_segments(self.model_cfg, self.dtype, prev_segments,
-                                               prefix_h, suffix_h, meta, first_decoder(prev_idxs))
+                                               prefix_h, suffix_h, meta, first_decoder(prev_idxs),
+                                               use_pallas=self._use_pallas)
         return prefix_h, suffix_h
 
     def _run_block(self, segments, layer_idxs, store, b, idxs, meta, toks, scores,
@@ -1299,7 +1308,8 @@ class StreamingExecutor:
         while True:
             try:
                 process_block(self.model_cfg, self.dtype, segments, layer_idxs, n_layers, store,
-                              b, idxs, meta, toks, scores, fetched=fetched)
+                              b, idxs, meta, toks, scores, fetched=fetched,
+                              use_pallas=self._use_pallas)
                 return
             except SpillCorruptError:
                 if prev_shard is None or fetched is not None:

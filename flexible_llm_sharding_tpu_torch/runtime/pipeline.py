@@ -81,6 +81,7 @@ class PipelineRunner:
         self.devices = [indexed_device(d) for d in devices]
         self.model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
         self.dtype = cfg.torch_dtype
+        self._use_pallas = cfg.use_pallas
         if tokenizer is None:
             from transformers import AutoTokenizer
 
@@ -188,7 +189,8 @@ class PipelineRunner:
                     store.set_shard(stage_idx)
                     for b, idxs in enumerate(blocks):
                         process_block(self.model_cfg, self.dtype, segments, layer_idxs, n_layers,
-                                      store, b, idxs, meta_on(b, dev), toks, scores, device=dev)
+                                      store, b, idxs, meta_on(b, dev), toks, scores, device=dev,
+                                      use_pallas=self._use_pallas)
                         bar.update(1)
                 compute_time += time.perf_counter() - t0
                 self.recorder.record("stage_dispatch", time.perf_counter() - t0,
@@ -201,6 +203,7 @@ class PipelineRunner:
         except BaseException:
             try:
                 store.clear()
+            # flscheck: disable=EXC-TAXONOMY: best-effort cleanup on the error path; the stage's exception re-raised below is the root cause and must not be masked
             except Exception:  # the stage's error is the one to surface
                 pass
             raise

@@ -357,7 +357,7 @@ def _next_token_probs(params_dev, model_cfg, rows, device) -> np.ndarray:
         for li, layer in enumerate(params_dev["layers"]):
             ph, sh = llama.prefix_suffix_layer(layer, model_cfg, ph, sh, prefix_len,
                                                sliding=sliding[li], total_len=total_len,
-                                               rope_on=rope_on[li])
+                                               rope_on=rope_on[li], use_pallas=True)
         h = llama.select_eos_and_norm(params_dev["norm"], model_cfg, sh, suffix_eos)
         probs = llama.lm_head_scores(head, h, model_cfg.final_logit_softcap)[:, 0]
         probs = probs.cpu().numpy()

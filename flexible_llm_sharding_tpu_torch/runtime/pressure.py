@@ -133,6 +133,7 @@ class PressureMonitor:
     def _default_hbm_free_frac(self) -> float | None:
         try:
             return hbm_free_frac(self._device)
+        # flscheck: disable=EXC-TAXONOMY: a failed HBM probe reads as unknown and is counted; the signal never trips on missing evidence
         except Exception:  # noqa: BLE001 — a failed probe reads as unknown, and is counted
             self._controller.note_sample_error()
             return None
@@ -175,6 +176,7 @@ class PressureMonitor:
         while not self._stop.wait(self.pcfg.poll_s):
             try:
                 self._controller.on_sample(self.sample())
+            # flscheck: disable=EXC-TAXONOMY: monitor daemon boundary: a sampler or ladder bug must not end pressure monitoring for the process; it is counted and the next tick retries
             except Exception:  # noqa: BLE001 — one failed poll must not end monitoring
                 self._controller.note_sample_error()
 
@@ -432,6 +434,7 @@ class BrownoutController:
                     if n:
                         with self._lock:
                             self.replica_drains += n
+        # flscheck: disable=EXC-TAXONOMY: brownout levers are best-effort shedding: a failed rung (a component mid-teardown) is counted, the level holds and the next poll keeps walking
         except Exception:  # noqa: BLE001 — a lever on a component in teardown: the level holds
             with self._lock:
                 self.lever_errors += 1
@@ -482,6 +485,7 @@ class BrownoutController:
                     if n:
                         with self._lock:
                             self.replica_restores += n
+        # flscheck: disable=EXC-TAXONOMY: best-effort reversal: a failed restore (a component already torn down) is counted and must not wedge the lower levels
         except Exception:  # noqa: BLE001 — a failed restore must not wedge the lower levels
             with self._lock:
                 self.lever_errors += 1

@@ -34,8 +34,10 @@ and, unlike the JAX tier, the tier drops its placed trees, so the card's
 memory falls by the pinned bytes once the shards in flight are consumed
 (a live source streams its frozen pins from then on; the segment lists are
 the same either way). :meth:`~DeviceResidencyTier.pressure_restore`
-reinstalls the plan, and the pins reload on their next request. The JAX
-tier's trace spans and metrics registration wait for ROADMAP item 7.
+reinstalls the plan, and the pins reload on their next request. As in the
+JAX tier, each pin load is traced (a ``residency_pin`` span) and the
+process tier's stats are registered with the metrics registry as
+``residency``.
 """
 
 from __future__ import annotations
@@ -350,6 +352,7 @@ class DeviceResidencyTier:
                 host = loader.build_host_shard((i,))
                 for d in missing:
                     self.pin_from_host(i, d, host, loader)
+            # flscheck: disable=EXC-TAXONOMY: any pin build or placement failure demotes the layer, which then streams everywhere, where its typed error surfaces
             except Exception:  # never pin unverified bytes: stream this layer for good
                 with self._lock:
                     self._failed.add(i)
@@ -363,6 +366,7 @@ class DeviceResidencyTier:
                 continue
             try:
                 self.segments(i, device, loader)
+            # flscheck: disable=EXC-TAXONOMY: pre-pin is best-effort; segments() already demoted the layer and the streamed path surfaces its typed error
             except Exception:  # demoted inside segments(); the stream reports it
                 pass
 

@@ -222,6 +222,7 @@ class FleetAutoscaler:
         while not self._stop.wait(self.cfg.poll_s):
             try:
                 self.poll_once()
+            # flscheck: disable=EXC-TAXONOMY: autoscaler daemon: a sampler or decision bug must not kill elasticity control; it is counted and the next poll retries
             except Exception:  # a sampler's bug must not end the control loop: counted, next poll retries
                 with self._lock:
                     self.poll_errors += 1
@@ -344,9 +345,13 @@ class FleetAutoscaler:
                 self.shrinks += 1
                 self.target = max(self.cfg.min, population)
             target = self.target
-        kind = "autoscale_grow" if direction == "grow" else "autoscale_shrink"
-        obs_events.emit(kind, target=target, **fields)
-        obs_trace.instant(kind, cat="autoscale", target=target, **fields)
+        # Literal kinds, so the journal's registry check sees both.
+        if direction == "grow":
+            obs_events.emit("autoscale_grow", target=target, **fields)
+            obs_trace.instant("autoscale_grow", cat="autoscale", target=target, **fields)
+        else:
+            obs_events.emit("autoscale_shrink", target=target, **fields)
+            obs_trace.instant("autoscale_shrink", cat="autoscale", target=target, **fields)
         return direction
 
     def _latch_blocked(self, reasons: set, fields: dict) -> None:

@@ -283,6 +283,7 @@ class ServeEngine:
         self.device = device
         self.model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
         self.dtype = cfg.torch_dtype
+        self._use_pallas = cfg.use_pallas
         if tokenizer is None:
             from transformers import AutoTokenizer
 
@@ -360,7 +361,8 @@ class ServeEngine:
             self._draft_model = DraftModel(self.serve_cfg.draft_model_path, self.device,
                                            self.dtype, retry_policy=cfg.retry_policy(),
                                            verify_weights=cfg.verify_weights,
-                                           injector=self._injector)
+                                           injector=self._injector,
+                                           use_pallas=self._use_pallas)
             self.metrics.register("draft", self._draft_model.stats)
         self._spec_ctrl = None
         if self.serve_cfg.spec_adaptive:
@@ -631,6 +633,7 @@ class ServeEngine:
                 # or load failure (an OSError among them) is engine-fatal here
                 # and never reaches a sweep's recoverable faults.
                 cuda_build.library()
+            # flscheck: disable=EXC-TAXONOMY: daemon-thread boundary: a device-setup or kernel-build failure is surfaced through every pending future via _fatal, never swallowed
             except BaseException as e:  # noqa: BLE001 — surfaced through every future
                 self._fatal(e)
                 return
@@ -643,6 +646,7 @@ class ServeEngine:
     def _loop(self) -> None:
         try:
             self._acquire_weights()
+        # flscheck: disable=EXC-TAXONOMY: daemon-thread boundary: the error is surfaced through every pending future via _fatal, never swallowed
         except BaseException as e:  # noqa: BLE001 — surfaced through every future
             self._fatal(e)
             return
@@ -696,6 +700,7 @@ class ServeEngine:
                         wd.disarm()
                 self._post_sweep(time.perf_counter() - t0)
                 self.metrics.maybe_emit(self.serve_cfg.stats_interval_s)
+        # flscheck: disable=EXC-TAXONOMY: daemon-thread boundary: engine-fatal errors resolve every in-flight and queued future with the root cause
         except BaseException as e:  # noqa: BLE001 — engine-fatal: every future gets the root cause
             self._fatal(e)
         finally:
@@ -1190,12 +1195,13 @@ class ServeEngine:
                         kps, vps = self._assemble(st, b, (shard_pos, di), len(params))
                         sh, kvs = suffix_prefill_decoders(mcfg, params, first, kps, vps, sh,
                                                           prefix_len, total_len, self._sliding,
-                                                          self._rope_on, delta=delta)
+                                                          self._rope_on, delta=delta,
+                                                          use_pallas=self._use_pallas)
                         ph = None
                     else:
                         ph, sh, kvs = prefill_decoders(mcfg, params, first, ph, sh, prefix_len,
                                                        total_len, self._sliding, self._rope_on,
-                                                       delta=delta)
+                                                       delta=delta, use_pallas=self._use_pallas)
                         if self._kv_pool is not None and st.pool_handles:
                             self._bank(st, b, (shard_pos, di), kvs)
                     for li, kv in enumerate(kvs):
@@ -1238,7 +1244,7 @@ class ServeEngine:
                                                 dec_names[li0:li0 + len(params)], b)
                     x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs, x,
                                         prefix_len, suffix_eos, t, self._sliding, self._rope_on,
-                                        delta=delta)
+                                        delta=delta, use_pallas=self._use_pallas)
                     for key, kv in zip(keys, kvs):
                         st.kv_store.put(key, kv)
                     li0 += len(params)
@@ -1315,7 +1321,7 @@ class ServeEngine:
                                                 dec_names[li0:li0 + len(params)], b)
                     x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs, x,
                                         prefix_len, suffix_eos, st.spec_base[b], self._sliding,
-                                        self._rope_on, delta=delta)
+                                        self._rope_on, delta=delta, use_pallas=self._use_pallas)
                     for key, kv in zip(keys, kvs):
                         st.kv_store.put(key, kv)
                     li0 += len(params)

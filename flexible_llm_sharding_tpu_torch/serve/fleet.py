@@ -797,6 +797,7 @@ class ReplicaFleet:
             try:
                 self._poll_health()
                 self._flush_pending()
+            # flscheck: disable=EXC-TAXONOMY: fleet health-monitor daemon: a polling bug must not stop failover for every replica; the error is kept on self._error and surfaced via fleet.error
             except Exception as e:  # a polling bug must not stop failover: kept as the fleet's error
                 self._error = e
 

@@ -129,6 +129,7 @@ class AdmissionQueue:
             # Before the capacity check, outside the lock (it tokenizes).
             try:
                 est = self._size_fn(request)
+            # flscheck: disable=EXC-TAXONOMY: a size-estimator failure (a tokenizer edge case) must not reject or crash admission; the wave's typed rejection still catches a malformed request with full context
             except Exception:  # a tokenizer edge case: the wave's typed rejection still applies
                 est = None
             if est is not None and est > self._max_request_tokens:
@@ -140,6 +141,7 @@ class AdmissionQueue:
         if self._injector is not None:
             try:
                 self._injector.fire("queue_admission")
+            # flscheck: disable=EXC-TAXONOMY: any injected front-door fault resolves as a reasoned rejection through the request future, never an unhandled raise into the submitter
             except Exception as e:  # noqa: BLE001 — any injected fault is a reasoned rejection
                 self._refund_rate_token(request)
                 return self._reject(request, e, RequestStatus.REJECTED)

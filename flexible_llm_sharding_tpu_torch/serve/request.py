@@ -217,6 +217,7 @@ class Request:
         if self.callback is not None:
             try:
                 self.callback(self)
+            # flscheck: disable=EXC-TAXONOMY: user-supplied callback: a bug in it must not take down the serving loop (the request itself already resolved)
             except Exception:  # a callback's bug must not take down the serving loop
                 pass
 
@@ -224,6 +225,7 @@ class Request:
         if self.on_terminal is not None:
             try:
                 self.on_terminal(self, error)
+            # flscheck: disable=EXC-TAXONOMY: WAL bookkeeping failure (ENOSPC etc.) must not fail a request that already resolved; the WAL counts its own write errors
             except Exception:  # the WAL counts its own write errors
                 pass
 

@@ -35,6 +35,7 @@ def build_entries(requests, key_fn) -> list[WaveEntry]:
                 # The same prefix under another adapter is another model's
                 # KV: the adapter is part of the key.
                 key = ("prefix", r.adapter_id, key_fn(r.prefix))
+            # flscheck: disable=EXC-TAXONOMY: a key-fn (tokenizer) failure degrades to no coalescing; the wave-init taxonomy still rejects a malformed request with full context
             except Exception:  # a tokenizer edge case degrades to no coalescing
                 key = ("solo", i)
         if key not in groups:

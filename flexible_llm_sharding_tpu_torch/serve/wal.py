@@ -198,6 +198,7 @@ class RequestWAL:
         """Index the segments of earlier starts: seal them (this start
         appends to a fresh one), seed the terminal map, truncate torn tails
         in place, and return the next segment index. Caller holds _lock."""
+        # flscheck: holds=_lock: constructor-only — __init__ takes the lock around the single call site
         last = -1
         for path in self._segment_paths():
             name = os.path.basename(path)

@@ -52,7 +52,7 @@ def build(n_layers: int, n_steps: int):
     trees = {name: unflatten({k: make_tensor(cfg, shape, init, g, "cuda", dtype).to(dev)
                               for k, shape, init in specs})
              for name, specs in model_specs(cfg).items()}
-    layers = [(trees[f"model.layers.{i}"], None) for i in range(n_layers)]
+    layers = [(trees[f"model.layers.{i}"], None, None) for i in range(n_layers)]
     prompts = make_prompts(8, 512, 4, 32, seed=0)
     tok = PromptTokenizer(BenchTokenizer(cfg.vocab_size))
     toks = [tok(p, s) for p, s in prompts]
@@ -63,8 +63,9 @@ def build(n_layers: int, n_steps: int):
     sh = llama.embed(trees["model.embed_tokens"], suffix_ids, dtype, cfg)
     kvs = []
     with torch.inference_mode():
-        for params, _ in layers:
-            ph, sh, kv = llama.prefix_suffix_layer(params, cfg, ph, sh, prefix_len, return_kv=True)
+        for params, _, _ in layers:
+            ph, sh, kv = llama.prefix_suffix_layer(params, cfg, ph, sh, prefix_len, return_kv=True,
+                                                   use_pallas=True)
             kvs.append(extend_gen_kv(kv, n_steps))
         h = llama.select_eos_and_norm(trees["model.norm"], cfg, sh, suffix_eos)
         dist = llama.lm_head_scores(trees["lm_head"], h)
@@ -84,9 +85,9 @@ def per_step_loop(cfg, dtype, layers, kvs, embed_p, norm_p, head_p, init_ids, pr
     out = []
     for t in range(n_steps):
         x = llama.embed(embed_p, torch.from_numpy(ids[..., None]).to(init_ids.device), dtype, cfg)
-        for (params, sliding), kv in zip(layers, kvs):
+        for (params, sliding, _), kv in zip(layers, kvs):
             x = llama.decode_step_layer(params, cfg, x, kv, prefix_len, suffix_eos, t,
-                                        sliding=sliding)
+                                        sliding=sliding, use_pallas=True)
         h = rms_norm(x, norm_p["scale"], cfg.rms_norm_eps, cfg.norm_unit_offset)
         dist = llama.lm_head_scores(head_p, h, cfg.final_logit_softcap).to("cpu").numpy()
         ids = np.argmax(dist, axis=-1)
@@ -137,8 +138,8 @@ def main() -> None:
     torch.cuda.CUDAGraph = TimedGraph
     inputs = build(args.layers, args.steps)
     ways = {
-        "graph": lambda: fused_decode_steps(*inputs, args.steps, graph=True),
-        "device_loop": lambda: fused_decode_steps(*inputs, args.steps, graph=False),
+        "graph": lambda: fused_decode_steps(*inputs, args.steps, graph=True, use_pallas=True),
+        "device_loop": lambda: fused_decode_steps(*inputs, args.steps, graph=False, use_pallas=True),
         "per_step_loop": lambda: per_step_loop(*inputs, args.steps),
     }
     picks = {}

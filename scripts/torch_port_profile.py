@@ -192,7 +192,7 @@ def profile_deepseek(smi: str) -> None:
         weights_gb = sum(t.nbytes for t in torch.utils._pytree.tree_leaves(layer)) / 1e9
 
         def call():
-            return llama.prefix_suffix_layer(layer, cfg, prefix_h, suffix_h, plen)
+            return llama.prefix_suffix_layer(layer, cfg, prefix_h, suffix_h, plen, use_pallas=True)
 
         call()
         torch.cuda.synchronize()

@@ -687,18 +687,18 @@ def test_nope_layer_graph_follows_the_position_across_replays(gen):
     def eager(c, lens):
         kv = {k: v.clone() for k, v in kv0.items()}
         return llama.decode_step_layer(params, c, x, kv, lens, eos, t, sliding=False,
-                                       rope_on=False)
+                                       rope_on=False, use_pallas=True)
 
     kv_g = {k: v.clone() for k, v in kv0.items()}
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         llama.decode_step_layer(params, cfg, x, {k: v.clone() for k, v in kv0.items()}, plen, eos,
-                                t, sliding=False, rope_on=False)
+                                t, sliding=False, rope_on=False, use_pallas=True)
         graph = torch.cuda.CUDAGraph()
         with fa.graph_capture(), torch.cuda.graph(graph, stream=side):
             out = llama.decode_step_layer(params, cfg, x, kv_g, plen, eos, t, sliding=False,
-                                          rope_on=False)
+                                          rope_on=False, use_pallas=True)
     torch.cuda.current_stream().wait_stream(side)
     plain = LlamaConfig.from_dict({**_DECODE_MODELS["llama4"], "num_hidden_layers": 1,
                                    "layer_types": ["full_attention"], "no_rope_layers": [0],
@@ -790,7 +790,7 @@ def test_suffix_only_layer_equals_the_full_layers_suffix_stream_in_bf16(gen, tmp
     plen = torch.tensor([64, 23], dtype=torch.int32, device="cuda")
     for i in range(cfg.num_hidden_layers):
         layer = _to_cuda(load_layer(model_dir, f"model.layers.{i}"))
-        kw = dict(sliding=sliding[i], rope_on=rope_on[i])
+        kw = dict(sliding=sliding[i], rope_on=rope_on[i], use_pallas=True)
         fa.reset_launch_counts()
         _, s_out, kv = llama.prefix_suffix_layer(layer, cfg, ph, sh, plen, return_kv=True, **kw)
         out, kv_s = llama.suffix_only_layer(layer, cfg, kv["kp"], kv["vp"], sh, plen, **kw)
@@ -886,10 +886,10 @@ def test_forward_full_launches_the_causal_kernel_and_matches_the_cpu(gen, name):
     on_card = _tree_map(lambda t: t.cuda(), params32)
     ids = torch.randint(3, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(1))
     fa.reset_launch_counts()
-    got = llama.forward_full(on_card, cfg, ids.cuda())
+    got = llama.forward_full(on_card, cfg, ids.cuda(), use_pallas=True)
     torch.cuda.synchronize()
     counts, local = fa.launch_counts(), fa.local_launch_counts()
-    want = llama.forward_full(params32, cfg, ids)
+    want = llama.forward_full(params32, cfg, ids, use_pallas=True)
     assert counts["flash_causal_attention"] == cfg.num_hidden_layers
     assert local["flash_causal_attention"] == (2 if name == "gemma3" else 0)
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
@@ -914,7 +914,7 @@ def test_draft_model_whose_pin_fails_raises_and_does_not_stream(gen, tmp_path, m
 
     monkeypatch.setattr(executor.ShardWeightSource, "build_host_shard", failing)
     with pytest.raises(executor.ShardLoadError, match="injected"):
-        draft.DraftModel(model_dir, torch.device("cuda:0"), torch.bfloat16)
+        draft.DraftModel(model_dir, torch.device("cuda:0"), torch.bfloat16, use_pallas=True)
     assert reads == [(0,), (1,), (2,)]
 
 
@@ -1701,3 +1701,59 @@ def test_a_ring_hop_on_one_card_allocates_nothing(gen):
     assert made == []
     want = ring.ring_self_attention(q, k, v, make_mesh({"sp": 1}, [card]))
     torch.testing.assert_close(gather(out), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kv", [False, True], ids=["scoring", "kv_cache"])
+def test_use_pallas_false_launches_no_kernel_and_matches_the_default(gen, tmp_path, kv):
+    """``use_pallas=False`` on the card: scoring and KV decode (resident, one
+    CUDA graph per block, over the plain decode op) launch no kernel, and
+    their float32 scores are the default run's within 1e-6 (a 512-token
+    vocabulary: 1/2000 of a typical probability) with the same tokens; the
+    default run launches each kernel it reaches."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+
+    model_dir = _decode_model(tmp_path, "llama")
+    runs = {}
+    for use_pallas in (True, False):
+        cfg = FrameworkConfig(model_path=model_dir, dtype="float32", block_size=2, device="cuda",
+                              disk_folder=str(tmp_path / "acts"), use_pallas=use_pallas,
+                              num_gen_token=4 if kv else 1)
+        runs[use_pallas] = _md_run(cfg, [torch.device("cuda", 0)], kv=kv)
+    (want, want_up, _, counts), (got, got_up, _, off) = runs[True], runs[False]
+    assert off == dict.fromkeys(fa.KERNELS, 0)
+    wanted = fa.KERNELS if kv else ("flash_causal_attention", "flash_prefix_shared_attention")
+    assert all(counts[k] > 0 for k in wanted)
+    assert got_up == want_up
+    for g, w in zip(got, want):
+        assert np.array_equal(g.argmax(-1), w.argmax(-1))
+        np.testing.assert_allclose(g, w, atol=1e-6, rtol=0)
+
+
+def test_use_pallas_false_serve_engine_launches_no_kernel(gen, tmp_path):
+    """A float32 engine at ``use_pallas=False`` serves one wave on cuda:0 with
+    no kernel launch, token for token the default engine's, its scores
+    within 1e-6."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, ServeConfig
+    from flexible_llm_sharding_tpu_torch.serve import ServeEngine
+
+    model_dir = _decode_model(tmp_path, "llama")
+    out = {}
+    for use_pallas in (True, False):
+        cfg = FrameworkConfig(model_path=model_dir, dtype="float32", block_size=2,
+                              use_pallas=use_pallas, disk_folder=str(tmp_path / "d"))
+        engine = ServeEngine(cfg, ServeConfig(max_wave_requests=len(_DECODE_PROMPTS),
+                                              default_max_new_tokens=3),
+                             tokenizer=_WordTokenizer(), device=torch.device("cuda:0"),
+                             start=False)
+        try:
+            reqs = [engine.submit(p, sfx) for p, sfx in _DECODE_PROMPTS]
+            fa.reset_launch_counts()
+            engine.start()
+            out[use_pallas] = ([r.future.result(timeout=300) for r in reqs], fa.launch_counts())
+        finally:
+            engine.shutdown(drain=True)
+    (want, counts), (got, off) = out[True], out[False]
+    assert off == dict.fromkeys(fa.KERNELS, 0) and all(counts[k] > 0 for k in fa.KERNELS)
+    for g, w in zip(got, want):
+        assert g.updated == w.updated
+        np.testing.assert_allclose(g.scores, w.scores, atol=1e-6, rtol=0)

@@ -478,7 +478,7 @@ def test_decode_step_layer_matches_jax(k, per_suffix, sliding):
     got_x = llama.decode_step_layer(
         params_from_jax(params_np, cfg)["layers"][0], cfg,
         torch.from_numpy(x), tkv, torch.from_numpy(plen), torch.from_numpy(eos),
-        torch.from_numpy(t) if per_suffix else t, sliding=sliding)
+        torch.from_numpy(t) if per_suffix else t, sliding=sliding, use_pallas=True)
     np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), atol=1e-5, rtol=0)
     for n in ("kg", "vg"):
         np.testing.assert_allclose(tkv[n].numpy(), np.asarray(want_kv[n]), atol=1e-5, rtol=0)

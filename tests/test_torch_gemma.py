@@ -240,7 +240,7 @@ def test_prefix_suffix_layer_matches_jax(layer, use_pallas):
     ph, sh = _h(rng, B, LP, cfg.hidden_size), _h(rng, B, S, LS, cfg.hidden_size)
     p_out, s_out, kv = llama.prefix_suffix_layer(
         params["layers"][layer], cfg, torch.from_numpy(ph), torch.from_numpy(sh),
-        torch.from_numpy(PLEN), return_kv=True, sliding=sliding,
+        torch.from_numpy(PLEN), return_kv=True, sliding=sliding, use_pallas=use_pallas,
     )
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
     for b in range(B):
@@ -272,7 +272,7 @@ def test_decode_step_layer_matches_jax(layer, use_pallas):
     kv = {k: torch.from_numpy(v.copy()) for k, v in kv_np.items()}
     out = llama.decode_step_layer(
         params["layers"][layer], cfg, torch.from_numpy(x), kv, torch.from_numpy(PLEN),
-        torch.from_numpy(EOS), t, sliding=sliding,
+        torch.from_numpy(EOS), t, sliding=sliding, use_pallas=use_pallas,
     )
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
     for b in range(B):

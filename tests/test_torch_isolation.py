@@ -125,4 +125,8 @@ def test_offline_entry_and_scripts_are_checked():
     names = {str(p.relative_to(ROOT.parent)) for p in PORT_FILES}
     assert {"flexible_llm_sharding_tpu_torch/prepare_weights.py",
             "flexible_llm_sharding_tpu_torch/utils/checkpoint.py",
-            "scripts/torch_kernel_ab.py", "chip_smoke.py"} <= names
+            "flexible_llm_sharding_tpu_torch/analysis/__init__.py",
+            "flexible_llm_sharding_tpu_torch/analysis/__main__.py",
+            "flexible_llm_sharding_tpu_torch/analysis/core.py",
+            "flexible_llm_sharding_tpu_torch/analysis/rules.py",
+            "scripts/torch_kernel_ab.py", "scripts/torch_flscheck.py", "chip_smoke.py"} <= names

@@ -49,7 +49,7 @@ def test_prefix_suffix_layer_matches_jax(use_pallas):
     ph, sh = _h(rng, B, LP, cfg.hidden_size), _h(rng, B, S, LS, cfg.hidden_size)
     p_out, s_out, kv = llama.prefix_suffix_layer(
         params["layers"][0], cfg, torch.from_numpy(ph), torch.from_numpy(sh),
-        torch.from_numpy(PLEN), return_kv=True,
+        torch.from_numpy(PLEN), return_kv=True, use_pallas=use_pallas,
     )
     jp = jax.tree.map(jnp.asarray, params_np["layers"][0])
     for b in range(B):
@@ -82,7 +82,7 @@ def test_decode_step_layer_matches_jax(use_pallas, head_dim):
     kv = {k: torch.from_numpy(v.copy()) for k, v in kv_np.items()}
     out = llama.decode_step_layer(
         params["layers"][1], cfg, torch.from_numpy(x), kv, torch.from_numpy(PLEN),
-        torch.from_numpy(EOS), t,
+        torch.from_numpy(EOS), t, use_pallas=use_pallas,
     )
     jp = jax.tree.map(jnp.asarray, params_np["layers"][1])
     for b in range(B):

@@ -150,7 +150,7 @@ def test_prefix_suffix_layer_matches_jax(name, layer):
     ph, sh = _x(rng, B, LP, cfg.hidden_size), _x(rng, B, S, LS, cfg.hidden_size)
     p_out, s_out, kv = llama.prefix_suffix_layer(
         params["layers"][layer], cfg, _t(ph), _t(sh), _t(PLEN), return_kv=True,
-        sliding=sliding, rope_on=rope_on)
+        sliding=sliding, rope_on=rope_on, use_pallas=True)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
     for b in range(B):
         jpo, jso, jkv = jllama.prefix_suffix_layer(
@@ -181,7 +181,8 @@ def test_decode_step_layer_matches_jax(name, layer, per_suffix):
     t = np.array([[1, 2], [0, 1]], np.int32) if per_suffix else 1
     kv = {k: _t(v.copy()) for k, v in kv_np.items()}
     out = llama.decode_step_layer(params["layers"][layer], cfg, _t(x), kv, _t(PLEN), _t(EOS),
-                                  _t(t) if per_suffix else t, sliding=sliding, rope_on=rope_on)
+                                  _t(t) if per_suffix else t, sliding=sliding, rope_on=rope_on,
+                                  use_pallas=True)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
     for b in range(B):
         jkv = {k: jnp.asarray(v[b]) for k, v in kv_np.items()}

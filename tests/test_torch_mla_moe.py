@@ -267,7 +267,8 @@ def test_mla_prefix_suffix_layer_matches_jax(layer, use_pallas):
     rng = np.random.default_rng(20 + layer)
     ph, sh = _x(rng, B, LPL, 64), _x(rng, B, S, LSL, 64)
     p_out, s_out, kv = llama.prefix_suffix_layer(
-        params["layers"][layer], cfg, _t(ph), _t(sh), _t(PLEN_L), return_kv=True)
+        params["layers"][layer], cfg, _t(ph), _t(sh), _t(PLEN_L), return_kv=True,
+        use_pallas=use_pallas)
     assert tuple(kv["vp"].shape) == (B, LPL, 4, 12) and tuple(kv["kp"].shape) == (B, LPL, 4, 24)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
     for b in range(B):
@@ -292,7 +293,8 @@ def test_mla_decode_step_layer_matches_jax(layer):
              "kg": _x(rng, B, S, T, 4, 24), "vg": _x(rng, B, S, T, 4, 12)}
     t = 1
     kv = {k: torch.from_numpy(v.copy()) for k, v in kv_np.items()}
-    out = llama.decode_step_layer(params["layers"][layer], cfg, _t(x), kv, _t(PLEN_L), _t(EOS), t)
+    out = llama.decode_step_layer(params["layers"][layer], cfg, _t(x), kv, _t(PLEN_L), _t(EOS), t,
+                                  use_pallas=True)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
     for b in range(B):
         jkv = {k: jnp.asarray(v[b]) for k, v in kv_np.items()}

@@ -130,7 +130,7 @@ def test_suffix_only_layer_matches_jax(use_pallas):
     sh = _h(rng, B, S, LS, cfg.hidden_size)
     out, kv_s = llama.suffix_only_layer(params["layers"][0], cfg, torch.from_numpy(kp),
                                         torch.from_numpy(vp), torch.from_numpy(sh),
-                                        torch.from_numpy(PLEN))
+                                        torch.from_numpy(PLEN), use_pallas=use_pallas)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][0])
     for b in range(B):
         jout, jkv = jllama.suffix_only_layer(jp, jcfg, jnp.asarray(kp[b]), jnp.asarray(vp[b]),
@@ -150,8 +150,10 @@ def test_suffix_only_layer_is_the_full_layers_suffix_stream():
     ph, sh = torch.from_numpy(_h(rng, B, LP, cfg.hidden_size)), torch.from_numpy(
         _h(rng, B, S, LS, cfg.hidden_size))
     pl = torch.from_numpy(PLEN)
-    _, s_out, kv = llama.prefix_suffix_layer(params["layers"][1], cfg, ph, sh, pl, return_kv=True)
-    out, kv_s = llama.suffix_only_layer(params["layers"][1], cfg, kv["kp"], kv["vp"], sh, pl)
+    _, s_out, kv = llama.prefix_suffix_layer(params["layers"][1], cfg, ph, sh, pl, return_kv=True,
+                                             use_pallas=True)
+    out, kv_s = llama.suffix_only_layer(params["layers"][1], cfg, kv["kp"], kv["vp"], sh, pl,
+                                        use_pallas=True)
     assert torch.equal(out, s_out)
     assert torch.equal(kv_s["ks"], kv["ks"]) and torch.equal(kv_s["vs"], kv["vs"])
 
@@ -165,7 +167,7 @@ def test_suffix_prefill_decoders_matches_jax():
     out, kvs = decode.suffix_prefill_decoders(
         cfg, params["layers"], 0, list(torch.from_numpy(kps)), list(torch.from_numpy(vps)),
         torch.from_numpy(sh), torch.from_numpy(PLEN), None, llama.layer_sliding_pattern(cfg),
-        llama.layer_rope_pattern(cfg))
+        llama.layer_rope_pattern(cfg), use_pallas=True)
     stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *params_np["layers"])
     seg = {"layers": stacked, "sliding": None, "rope": None}
     jout, jkv = jdecode._suffix_prefill_decoders(
@@ -637,10 +639,11 @@ _SERVE_FLAG_CASES = _OBS_FLAGS + _PRESSURE_FLAGS
 
 @pytest.mark.parametrize("flag,kw,where", _SERVE_FLAG_CASES,
                          ids=[f for f, _, _ in _SERVE_FLAG_CASES])
-def test_unported_serve_flags_raise(flag, kw, where, tmp_path):
+def test_unported_serve_flags_raise(flag, kw, where, tmp_path, monkeypatch):
     """No serve flag of the JAX parser is refused any more: the
-    observability flags take JAX's defaults and values into the configs,
-    as the ``--pressure*`` flags take theirs into ``PressureConfig``."""
+    observability flags take JAX's defaults and values into the configs
+    that ``serve_main`` builds, as the ``--pressure*`` flags take theirs
+    into ``PressureConfig``."""
     if where == "obs":
         dest = flag.lstrip("-")
         ours, theirs = cli.build_serve_parser(), jcli.build_serve_parser()
@@ -651,7 +654,16 @@ def test_unported_serve_flags_raise(flag, kw, where, tmp_path):
         if dest == "metrics_port":
             assert ServeConfig(metrics_port=args.metrics_port).metrics_port == 1
         else:
-            fcfg = FrameworkConfig(model_path=str(tmp_path), **cli._obs_config_kwargs(args))
+            class Built(Exception):
+                pass
+
+            def capture(**kw):
+                raise Built(kw)
+
+            monkeypatch.setattr(cli, "FrameworkConfig", capture)
+            with pytest.raises(Built) as built:
+                cli.serve_main(argv)
+            fcfg = FrameworkConfig(**built.value.args[0])
             assert getattr(fcfg, dest) == getattr(jargs, dest)
         return
     dest = flag.lstrip("-")

@@ -227,7 +227,7 @@ def test_forward_full_matches_jax(family, tmp_path):
     rng = np.random.default_rng(1)
     for length in (16, 40):  # longrope: both tables
         ids = rng.integers(3, 256, size=(2, length))
-        got = llama.forward_full(params, cfg, torch.from_numpy(ids))
+        got = llama.forward_full(params, cfg, torch.from_numpy(ids), use_pallas=True)
         want = jax.jit(lambda p, x: jllama.forward_full(p, jcfg, x))(
             jax.tree.map(jnp.asarray, params_np), jnp.asarray(ids))
         assert got.dtype == torch.float32 and got.shape == (2, length, 256)
@@ -253,7 +253,7 @@ def twin_draft_dir(tmp_path_factory):
 
 def test_draft_model_propose_matches_jax(draft_dir):
     rng = np.random.default_rng(2)
-    port = draft.DraftModel(draft_dir, torch.device("cpu"))
+    port = draft.DraftModel(draft_dir, torch.device("cpu"), use_pallas=True)
     jdm = jdraft.DraftModel(draft_dir)
     try:
         for n in (1, 5, 63, 64, 70):
@@ -283,7 +283,7 @@ def test_draft_model_refuses_a_layer_it_cannot_pin(draft_dir, tmp_path):
     victim = next(p for p in d.iterdir() if p.name.startswith("model.layers.1"))
     victim.unlink()
     with pytest.raises((ValueError, OSError)):
-        draft.DraftModel(str(d), torch.device("cpu"))
+        draft.DraftModel(str(d), torch.device("cpu"), use_pallas=True)
 
 
 # ---------------------------------------------------------------------------

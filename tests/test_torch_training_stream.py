@@ -300,7 +300,7 @@ def test_training_after_an_inference_mode_call(tiny_cfg):
     params = params_from_jax(jax_params(jcfg), cfg)
     ids = torch.from_numpy(tokens_for(jcfg, 10, (2, 16)))
     with torch.inference_mode():
-        llama.forward_full(params, cfg, ids)
+        llama.forward_full(params, cfg, ids, use_pallas=True)
     tokens = tokens_for(jcfg, 11, (2, 17))
     tr = StreamedTrainer(cfg, params, device="cpu", **KW)
     assert np.isfinite(tr.step(tokens))
