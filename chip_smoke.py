@@ -362,6 +362,7 @@ package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -382,6 +383,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (score_kernel_f32's FMAs)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TPU_SOURCE = "flexible_llm_sharding_tpu/ops/pallas_attention.py"
 REPLACES = {
@@ -832,39 +834,42 @@ def _work(case: dict) -> dict[str, tuple[int, int]]:
     return out
 
 
-def _bounds(case: dict) -> dict[str, tuple[float, str]]:
+def _bounds(case: dict, dtype=torch.bfloat16) -> dict[str, tuple[float, str]]:
     """Least time on the card for each kernel's work at this case's data:
     the larger of the bytes it must move (Q read and O written once, each
-    key row it must read once, K and V, bf16) over 3.35 TB/s and its tensor
-    FLOPs (QK^T over hd and PV over V's head dim hd_v: 2*(hd + hd_v) per
-    visible query-key pair and query head) over 989 TFLOP/s. With a local
-    form only the pairs within it count, and only the key rows some query
-    sees within it."""
+    key row it must read once, K and V, at ``dtype``'s width) over 3.35 TB/s
+    and its FLOPs (QK^T over hd and PV over V's head dim hd_v: 2*(hd + hd_v)
+    per visible query-key pair and query head) over 989 TFLOP/s in bf16 and
+    fp16 (tensor cores), 67 TFLOP/s in float32 (the FMA units, where
+    score_kernel_f32 runs its products). With a local form only the pairs
+    within it count, and only the key rows some query sees within it."""
     b, s, nq, nkv, hd = case["B"], case["S"], case["nq"], case["nkv"], case["hd"]
     hd_v = case.get("hd_v", hd)
-    e = 2  # bytes per bf16 element
+    e = torch.tensor([], dtype=dtype).element_size()  # bytes per element
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     kv_row = nkv * (hd + hd_v) * e  # one key row of K and V
     q_rows = {"flash_causal_attention": b * case["Lp"],
               "flash_prefix_shared_attention": b * s * case["Ls"], "flash_decode_attention": b * s}
     out = {}
     for k, (pairs, keys) in _work(case).items():
-        t_ops = 2 * (hd + hd_v) * nq * float(pairs) / PEAK_BF16_FLOPS * 1e3
+        t_ops = 2 * (hd + hd_v) * nq * float(pairs) / peak * 1e3
         t_bytes = float(q_rows[k] * nq * (hd + hd_v) * e + keys * kv_row) / PEAK_BYTES * 1e3
         out[k] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
     return out
 
 
-def time_case(case: dict, gen, plain_calls: int = 20, kernels=None) -> dict[str, dict]:
+def time_case(case: dict, gen, plain_calls: int = 20, kernels=None,
+              dtype=torch.bfloat16) -> dict[str, dict]:
     """Kernel, plain and library times at the case's shapes and local form
-    (bf16), for every kernel or those named in ``kernels``. The library time
-    is one SDPA call on inputs its yardstick built beforehand;
+    (in ``dtype``), for every kernel or those named in ``kernels``. The
+    library time is one SDPA call on inputs its yardstick built beforehand;
     ``plain_calls`` calls per round time the plain version."""
     import torch.nn.functional as F
 
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 
-    x = _inputs(case, torch.bfloat16, gen)
-    bounds = _bounds(case)
+    x = _inputs(case, dtype, gen)
+    bounds = _bounds(case, dtype)
     local = case.get("local") or {}
     out = {}
     chunk = case.get("plain_head_chunk")
@@ -1119,7 +1124,18 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
         "llama4_scout_chunked": ("llama4-scout rope layer, chunk 8192",
                                  {**scout_case, "local": {"chunk": 8192}}, 4),
     }
+    # Tensor parallelism's head shards of the Llama main path: 16 and 8 of
+    # the 32 query and KV heads (tp = 2 and 4).
+    shapes.update({
+        f"llama2_7b_tp{tp}_shard": (f"llama2-7b head shard at tp = {tp}",
+                                    {**main_case, "nq": 32 // tp, "nkv": 32 // tp}, 20)
+        for tp in (2, 4)})
     shape_errs = {key: check_case(name, c, torch.bfloat16, gen) for key, (name, c, _) in shapes.items()}
+    # The float32 paths (use_pallas, longctx, tp) at the Llama main path's
+    # shapes: score_kernel_f32 for the scoring kernels, decode_rows_kernel
+    # in float32.
+    f32_name = "llama2-7b float32"
+    shape_errs["llama2_7b_f32"] = check_case(f32_name, main_case, torch.float32, gen)
     # The serving slice's shapes, each on the one kernel that meets it: the
     # draft model's forward (TinyLlama-1.1B's 32 query heads over 4 KV heads
     # of 64, one context) and a coalesced entry's 8 suffixes over one prefix.
@@ -1138,7 +1154,10 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
                for key, (name, c, n) in shapes.items()}
     shape_t.update({key: time_case({**c, "name": name}, gen, kernels=(kernel,))
                     for key, (name, c, kernel) in serve_shapes.items()})
+    shape_t["llama2_7b_f32"] = time_case({**main_case, "name": f32_name}, gen, plain_calls=4,
+                                         dtype=torch.float32)
     shapes.update(serve_shapes)
+    shapes["llama2_7b_f32"] = (f32_name, main_case, 4)
     for k in timed:
         timed[k]["max_abs_err"] = errs[k]
         for key in shapes:
@@ -4038,7 +4057,8 @@ def layer_view(src: str, dst: str, n_layers: int) -> None:
         json.dump(conf, f)
 
 
-def phase_use_pallas(work: str, model_dir: str, cfg, prompts, smi: str, card=None) -> dict:
+def phase_use_pallas(work: str, model_dir: str, cfg, prompts, smi: str, card=None,
+                     record: dict | None = None) -> dict:
     """``use_pallas`` on the Llama-2-7B cell at ``USE_PALLAS_LAYERS`` layers
     (a :func:`layer_view` of ``model_dir``), float32, one layer per shard,
     through the library entry points: one scoring call (``run_prompts``), a
@@ -4049,7 +4069,9 @@ def phase_use_pallas(work: str, model_dir: str, cfg, prompts, smi: str, card=Non
     ``USE_PALLAS_TOL`` and the greedy tokens are equal. Each run prints its
     wall and launches beside the card's name and power limit (the default
     scoring run, the first, reads the layer files from disk; the others
-    hit the host shard cache). Returns the default runs' launches."""
+    hit the host shard cache). With ``record`` (a dict) ``record[kind]``
+    gets each default run's (scores, updated prompts, launches). Returns
+    the default runs' launches."""
     from flexible_llm_sharding_tpu_torch.config import FrameworkConfig, ServeConfig
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
     from flexible_llm_sharding_tpu_torch.runtime import orchestration
@@ -4114,6 +4136,8 @@ def phase_use_pallas(work: str, model_dir: str, cfg, prompts, smi: str, card=Non
     try:
         for kind in ("scoring", "kv_cache", "serve"):
             ref, ref_up, counts = run(kind, True)
+            if record is not None:
+                record[kind] = (ref, ref_up, counts)
             _add_launches(launches, {k: {"launches": counts[k], "local_launches": 0}
                                      for k in fa.KERNELS})
             got, got_up, _ = run(kind, False)
@@ -4129,6 +4153,295 @@ def phase_use_pallas(work: str, model_dir: str, cfg, prompts, smi: str, card=Non
     finally:
         shutil.rmtree(view, ignore_errors=True)
     log(f"[use_pallas] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+TP_LAYERS = USE_PALLAS_LAYERS
+TP_TOL_F32 = USE_PALLAS_TOL
+# tests/test_tp.py's bf16 bound (JAX's test_tp_bfloat16), against the bf16
+# single-device run.
+TP_TOL_BF16 = dict(atol=2e-3, rtol=2e-2)
+# A bf16 TP run is also held to the float32 single-device run (the truth
+# both bf16 runs approximate): its mean absolute difference from it, over
+# every probability of every scored position, may be at most this multiple
+# of the bf16 single device's own. Summing the ranks' partials in float32
+# and rounding once leaves TP as exact as one device, so the two means
+# differ only by where the roundings fall; TP adding rounding noise of its
+# own as large as bf16's would raise its mean by about 1.4 x. The largest
+# difference is no such measure: it is the rounding luck of one position's
+# largest probabilities, and is only reported.
+TP_BF16_FACTOR = 1.25
+
+
+def _max_diff(a, b) -> float:
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def _mean_diff(a, b) -> float:
+    return float(np.mean(np.concatenate([np.abs(x - y).ravel() for x, y in zip(a, b)])))
+
+
+def bf16_against_f32(tag: str, scores, one_scores, f32_scores) -> str:
+    """Hold a bf16 run's ``scores`` against the bf16 single-device run's
+    (``one_scores``) and the float32 single-device run's (``f32_scores``):
+    within ``TP_TOL_BF16`` of the bf16 run; a mean absolute difference from
+    the float32 run at most ``TP_BF16_FACTOR`` times the bf16 single
+    device's; and a greedy token different from the bf16 single device's
+    only where the float32 run's probabilities of the two tokens lie closer
+    than the bf16 single device's largest difference from it (e1: a tie
+    that the bf16 error can turn either way). Fails otherwise; returns the
+    figures for the log."""
+    e1, err = _max_diff(one_scores, f32_scores), _max_diff(scores, f32_scores)
+    m1, mean = _mean_diff(one_scores, f32_scores), _mean_diff(scores, f32_scores)
+    to_one = _max_diff(scores, one_scores)
+    if not all(np.allclose(g, r, **TP_TOL_BF16) for g, r in zip(scores, one_scores)):
+        fail(f"tp {tag}: scores differ from the bf16 single device's (largest difference "
+             f"{to_one}, tolerance {TP_TOL_BF16})")
+    if not mean <= TP_BF16_FACTOR * m1:
+        fail(f"tp {tag}: mean difference from the float32 single device {mean}, more than "
+             f"{TP_BF16_FACTOR} x the bf16 single device's {m1}")
+    flips = n = 0
+    gap_max = 0.0
+    for g, o, f in zip(scores, one_scores, f32_scores):
+        gi, oi = g.argmax(-1), o.argmax(-1)
+        n += gi.size
+        moved = gi != oi
+        if not moved.any():
+            continue
+        gap = np.abs(np.take_along_axis(f, oi[..., None], -1)
+                     - np.take_along_axis(f, gi[..., None], -1))[..., 0][moved]
+        flips += int(moved.sum())
+        gap_max = max(gap_max, float(gap.max()))
+        if (gap >= e1).any():
+            fail(f"tp {tag}: {int((gap >= e1).sum())} greedy tokens differ from the bf16 single "
+                 f"device's where the float32 run's gap is not below its error {e1} (largest "
+                 f"gap {float(gap.max())})")
+    return (f"largest difference {to_one} from the bf16 single device (tolerance "
+            f"{TP_TOL_BF16}); from the float32 one mean {mean} (the bf16 single device's {m1}: "
+            f"{mean / m1:.4f} x, bound {TP_BF16_FACTOR} x), largest {err} (its {e1}); {flips} of "
+            f"{n} greedy tokens differ from the bf16 single device's, each where the float32 gap "
+            f"is below {e1} (largest {gap_max})")
+
+
+def phase_tp(work: str, model_dir: str, cfg, prompts, smi: str, f32_runs: dict,
+             card=None) -> dict:
+    """Tensor parallelism on the Llama-2-7B cell at ``TP_LAYERS`` layers (a
+    :func:`layer_view` of ``model_dir``, the published 32 query and KV heads
+    and 4096 hidden), one layer per shard, through the library entry points
+    over one card named tp times (``[cuda:0] * tp``; with more than one
+    card, over the real cards too):
+
+    - bf16 scoring at tp = 2 and tp = 4 against the bf16 and the float32
+      single-device runs (:func:`bf16_against_f32`; the float32 run is the
+      ``use_pallas`` phase's, ``f32_runs``);
+    - float32 scoring and a 4-token ``--kv_cache`` at tp = 2, with the
+      kernels and at ``use_pallas=False``, against the ``use_pallas``
+      phase's single-device runs: within ``TP_TOL_F32``, tokens equal;
+    - int8 and int4 copies (``requantize_native`` of the view) at tp = 2,
+      bf16 compute, against their bf16 and float32 single-device runs, as
+      bf16 above;
+    - DP×TP over ``[cuda:0] * 4`` (two groups of tp = 2) as bf16 above.
+
+    Every kernel run's launches must be tp times the single-device run's
+    (times the groups under DP×TP), 0 under ``use_pallas=False``; each run
+    prints its wall, its launches, the bytes its busiest rank uploaded per
+    shard beside a whole shard's, the greedy tokens that differ from the
+    single device's and the card's name and power limit. Returns the
+    launches of the TP runs."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.runtime import orchestration
+    from flexible_llm_sharding_tpu_torch.utils.checkpoint import requantize_native
+
+    t_phase = time.perf_counter()
+    fresh_process_state()
+    view = os.path.join(work, f"llama2-7b-{TP_LAYERS}-tp-view")
+    layer_view(model_dir, view, TP_LAYERS)
+    copies = {}
+    card = torch.device("cuda", 0) if card is None else card
+    tok = BenchTokenizer(cfg.vocab_size)
+    n_gen = 4
+    n_shards = TP_LAYERS + 3  # one layer per shard: embed, the layers, norm, head
+    launches: dict = {}
+    f32_launches = {k: 0 for k in fa.KERNELS}
+
+    def run(tag, model, devices, dtype, kind="scoring", **kw):
+        run_cfg = FrameworkConfig(model_path=model, dtype=dtype, layer_num_per_shard=1,
+                                  device=card.type, disk_folder=os.path.join(work, "tp_disk"),
+                                  num_gen_token=n_gen if kind == "kv_cache" else 1, **kw)
+        calls: list = []
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "kv_cache":
+            scores, updated, _ = orchestration.run_decode(run_cfg, prompts, tokenizer=tok,
+                                                          devices=devices, calls=calls)
+        else:
+            scores = orchestration.run_prompts(run_cfg, prompts, tokenizer=tok, devices=devices,
+                                               calls=calls)
+            updated = None
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        _check_scores(scores, prompts, n_gen if kind == "kv_cache" else 1, cfg.vocab_size,
+                      f"tp {tag}")
+        stats = calls[-1]
+        per_shard = {"rank": stats.get("tp_rank_bytes", stats["streamed_bytes"]) / n_shards,
+                     "shard": stats["streamed_bytes"] / n_shards}
+        log(f"[tp] {tag} on {len(devices)} x {sorted({str(d) for d in devices})}: wall "
+            f"{wall:.4f} s, launches {json.dumps(counts)}, uploaded bytes per shard: busiest rank "
+            f"{per_shard['rank']:.0f} of {per_shard['shard']:.0f}; "
+            + json.dumps({k: stats[k] for k in ("decode_fused", "decode_graph", "peak_mem_gb")
+                          if k in stats}) + f" ({smi})")
+        return scores, updated, counts, per_shard
+
+    def launched(tag, counts, ref_counts, times: int, kernels: bool = True) -> str:
+        want = {k: times * ref_counts[k] for k in fa.KERNELS} if kernels else \
+            dict.fromkeys(fa.KERNELS, 0)
+        if counts != want:
+            fail(f"tp {tag}: launches {counts}, want {want} ({times} x the single device's)")
+        if kernels:
+            _add_launches(launches, {k: {"launches": counts[k], "local_launches": 0}
+                                     for k in fa.KERNELS})
+        return (f"launches {times} x the single device's" if kernels
+                else "launches 0 (use_pallas=False)")
+
+    def compare_f32(tag, got, ref, kernels: bool):
+        """A float32 TP run against the float32 single device's: within
+        ``TP_TOL_F32``, every greedy token equal."""
+        scores, updated, counts, _ = got
+        err = _max_diff(scores, ref[0])
+        if not all(np.allclose(g, r, **TP_TOL_F32) for g, r in zip(scores, ref[0])):
+            fail(f"tp {tag}: scores differ from one device's (largest difference {err}, "
+                 f"tolerance {TP_TOL_F32})")
+        if updated != ref[1] or not all(np.array_equal(g.argmax(-1), r.argmax(-1))
+                                        for g, r in zip(scores, ref[0])):
+            fail(f"tp {tag}: greedy tokens differ from one device's")
+        log(f"[tp] {tag}: largest difference {err} (tolerance {TP_TOL_F32}), greedy tokens "
+            f"equal, {launched(tag, counts, ref[2], 2, kernels)}")
+        return counts
+
+    def compare_bf16(tag, got, ref, f32_ref, times: int):
+        log(f"[tp] {tag}: {bf16_against_f32(tag, got[0], ref[0], f32_ref[0])}, "
+            f"{launched(tag, got[2], ref[2], times)}")
+
+    try:
+        card_sets = [("", [card] * 4)]
+        if torch.cuda.device_count() > 1:
+            card_sets.append(("_cards", [torch.device("cuda", i)
+                                         for i in range(torch.cuda.device_count())][:4]))
+        ref = run("bf16 one device", view, [card], "bfloat16")
+        f32_ref = f32_runs["scoring"]
+        for suffix, devs in card_sets:
+            for tp in (2, 4):
+                if len(devs) >= tp:
+                    tag = f"bf16 tp={tp}{suffix}"
+                    compare_bf16(tag, run(tag, view, devs[:tp], "bfloat16", tensor_parallel=tp),
+                                 ref, f32_ref, tp)
+            if len(devs) >= 4:
+                # Two groups of 2, each scoring 4 of the 8 prompts in a block
+                # of its own: 2 x 2 x the single device's launches.
+                tag = f"bf16 dp x tp=2{suffix}"
+                compare_bf16(tag, run(tag, view, devs[:4], "bfloat16", tensor_parallel=2,
+                                      data_parallel=True), ref, f32_ref, 4)
+        for kind in ("scoring", "kv_cache"):
+            for use_pallas in (True, False):
+                tag = f"float32 {kind} tp=2 use_pallas={use_pallas}"
+                counts = compare_f32(tag, run(tag, view, [card] * 2, "float32", kind,
+                                              tensor_parallel=2, use_pallas=use_pallas),
+                                     f32_runs[kind], kernels=use_pallas)
+                for k in fa.KERNELS:
+                    f32_launches[k] += counts[k]
+        for dt in ("int8", "int4"):
+            copies[dt] = os.path.join(work, f"llama2-7b-{TP_LAYERS}-{dt}")
+            t0 = time.perf_counter()
+            requantize_native(view, copies[dt], dtype=dt)
+            log(f"[tp] requantize_native {dt} of the view in {time.perf_counter() - t0:.3f} s")
+            q_f32 = run(f"{dt} one device float32", copies[dt], [card], "float32")
+            q_ref = run(f"{dt} one device", copies[dt], [card], "bfloat16")
+            compare_bf16(f"{dt} tp=2", run(f"{dt} tp=2", copies[dt], [card] * 2, "bfloat16",
+                                           tensor_parallel=2), q_ref, q_f32, 2)
+    finally:
+        for d in (view, *copies.values()):
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"[tp] float32 runs' launches (the scoring kernels' float32 form is score_kernel_f32): "
+        f"{json.dumps(f32_launches)}")
+    log(f"[tp] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+def tp_deepseek(ds_dir: str, cfg, prompts, ref: tuple, ref_counts: dict, n_gen_loop: int,
+                smi: str) -> dict:
+    """Scoring runs of the DeepSeek-V3 cell at tp = 2 over [cuda:0] * 2
+    (MLA split by heads, the 256 experts by expert, the vocab-split head),
+    in bf16 and in float32, beside a float32 single-device run. The bf16
+    run is held as :func:`bf16_against_f32` says, against the first
+    position of that cell's single-device bf16 scoring run (the CLI's
+    ``n_gen_loop`` passes, each launching alike) and the float32 one; the
+    float32 run within ``TP_TOL_F32`` of the float32 single device, every
+    greedy token equal; the float32 runs stream without read-ahead. Each
+    TP run launches each scoring kernel twice as often as one
+    single-device pass. Returns the TP runs' launches."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+    from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
+    from flexible_llm_sharding_tpu_torch.runtime import orchestration
+
+    fresh_process_state()
+    card = torch.device("cuda", 0)
+    tok = BenchTokenizer(cfg.vocab_size)
+    n_shards = cfg.num_hidden_layers + 3
+
+    def run(tag, dtype, tp):
+        # Float32 weights are twice bf16's (the MoE layer alone 45 GB): those
+        # runs stream without read-ahead, one shard on the card at a time.
+        run_cfg = FrameworkConfig(model_path=ds_dir, dtype=dtype, layer_num_per_shard=1,
+                                  device="cuda", tensor_parallel=tp,
+                                  prefetch_depth=0 if dtype == "float32" else 1)
+        calls: list = []
+        gc.collect()  # the previous run's shards, before this run's peak
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = orchestration.run_prompts(run_cfg, prompts, tokenizer=tok, devices=[card] * tp,
+                                           calls=calls)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        _check_scores(scores, prompts, 1, cfg.vocab_size, f"tp deepseek-v3 {tag}")
+        stats = calls[-1]
+        log(f"[tp] deepseek-v3 {tag} over [cuda:0] x {tp}: wall {wall:.4f} s, launches "
+            f"{json.dumps(counts)}, uploaded bytes per shard: busiest rank "
+            f"{stats.get('tp_rank_bytes', stats['streamed_bytes']) / n_shards:.0f} of "
+            f"{stats['streamed_bytes'] / n_shards:.0f}, peak {stats.get('peak_mem_gb')} GB "
+            f"({smi})")
+        return scores, counts
+
+    def twice(tag, counts, one_pass):
+        want = {k: 2 * one_pass[k] for k in fa.KERNELS}
+        if counts != want:
+            fail(f"tp deepseek-v3 {tag}: launches {counts}, want {want}")
+
+    launches: dict = {}
+    f32_one, f32_counts = run("float32 one device", "float32", 1)
+    scores, counts = run("bf16 tp=2", "bfloat16", 2)
+    twice("bf16 tp=2", counts, {k: ref_counts[k] // n_gen_loop for k in fa.KERNELS})
+    _add_launches(launches, {k: {"launches": counts[k], "local_launches": 0} for k in fa.KERNELS})
+    log(f"[tp] deepseek-v3 bf16 tp=2: " + bf16_against_f32(
+        "deepseek-v3 bf16 tp=2", scores, [s[:, :1] for s in ref[0]], f32_one)
+        + ", launches 2 x one pass of the single device's")
+    scores, counts = run("float32 tp=2", "float32", 2)
+    twice("float32 tp=2", counts, f32_counts)
+    _add_launches(launches, {k: {"launches": counts[k], "local_launches": 0} for k in fa.KERNELS})
+    err = _max_diff(scores, f32_one)
+    if not all(np.allclose(g, w, **TP_TOL_F32) for g, w in zip(scores, f32_one)):
+        fail(f"tp deepseek-v3 float32 tp=2: scores differ from one device's (largest difference "
+             f"{err}, tolerance {TP_TOL_F32})")
+    if not all(np.array_equal(g.argmax(-1), w.argmax(-1)) for g, w in zip(scores, f32_one)):
+        fail("tp deepseek-v3 float32 tp=2: greedy tokens differ from one device's")
+    log(f"[tp] deepseek-v3 float32 tp=2: largest difference {err} from the float32 single device "
+        f"(tolerance {TP_TOL_F32}), greedy tokens equal, launches 2 x the single device's")
     return launches
 
 
@@ -5459,8 +5772,12 @@ def main() -> None:
         mark("multidevice")
         paths["llama2_7b_longctx"] = phase_longctx(work, llama_dir, llama_cfg, smi)
         mark("longctx")
-        paths["llama2_7b_use_pallas"] = phase_use_pallas(work, llama_dir, llama_cfg, prompts, smi)
+        f32_runs: dict = {}
+        paths["llama2_7b_use_pallas"] = phase_use_pallas(work, llama_dir, llama_cfg, prompts, smi,
+                                                         record=f32_runs)
         mark("use_pallas")
+        paths["llama2_7b_tp"] = phase_tp(work, llama_dir, llama_cfg, prompts, smi, f32_runs)
+        mark("tp")
         paths["llama2_7b_pressure"] = phase_pressure(work, llama_dir, llama_cfg, prompts,
                                                      llama_runs, serve_runs["default"],
                                                      n_gen_loop, n_gen_kv, smi)
@@ -5495,6 +5812,8 @@ def main() -> None:
         ds_runs: dict = {}
         paths["deepseek_v3"] = phase_full(work, "deepseek-v3", ds_cfg, gemma_prompts, ds_loop, ds_kv,
                                           model_dir=ds_dir, record=ds_runs)
+        paths["deepseek_v3_tp"] = tp_deepseek(ds_dir, ds_cfg, gemma_prompts, ds_runs["scoring"],
+                                              ds_runs["scoring_launches"], ds_loop, smi)
         shutil.rmtree(ds_dir, ignore_errors=True)
         paths["deepseek_v3_int4"] = quant_run(
             work, "deepseek-v3-int4", ds_q4, ds_cfg, gemma_prompts, "kv_cache",
@@ -5531,7 +5850,9 @@ def main() -> None:
                                               "gemma3_12b_local", "gemma3_12b_global", "phi3_hd96",
                                               "deepseek_v3_mla", "llama4_scout_global",
                                               "llama4_scout_chunked", "tinyllama_draft",
-                                              "llama2_7b_coalesced_s8") if key in timed[k]},
+                                              "llama2_7b_coalesced_s8", "llama2_7b_tp2_shard",
+                                              "llama2_7b_tp4_shard", "llama2_7b_f32")
+               if key in timed[k]},
         }
         for k in REPLACES
     ]

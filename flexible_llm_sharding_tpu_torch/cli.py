@@ -15,7 +15,9 @@ card a CUDA run raises instead of falling back to the CPU. With several
 cards (``--num_devices``, default all) the layers run as the interleaved MP
 pipeline across them, or with ``--data_parallel true`` the prompts are split
 over them, each card streaming the whole model from one shared read of each
-shard; ``--device cpu --num_devices N`` runs N CPU stages or ranks. By default, as in
+shard; ``--tensor_parallel T`` splits every streamed layer Megatron-style
+over T of them (with ``--data_parallel true``, over each group of T);
+``--device cpu --num_devices N`` runs N CPU stages or ranks. By default, as in
 the JAX batch CLI, every layer load is verified against ``integrity.json``
 (``--verify_weights``), passes after the first are served from the process
 host shard cache (``--host_cache_gb``, auto = a quarter of the available
@@ -133,8 +135,8 @@ BATCH_ONLY_FLAGS = frozenset({
     "num_batch", "num_gen_token", "disk_folder", "max_activation_in_cpu",
     "resume", "long_context",
     # Multi-device layouts: the serving engine drives one device (it
-    # refuses data_parallel, as the JAX engine does).
-    "data_parallel", "num_devices",
+    # refuses data_parallel and tensor_parallel, as the JAX engine does).
+    "data_parallel", "num_devices", "tensor_parallel",
     # Sampling: serving is greedy-only (the engine refuses temperature > 0).
     "temperature", "top_k", "top_p", "seed",
     # KV-decode specials of the offline decoder. The serve parser's
@@ -347,6 +349,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_token_len", type=int, default=DEFAULT_MAX_TOKEN_LEN)
     p.add_argument("--use_pallas", type=_use_pallas_arg, default=True, help=_USE_PALLAS_HELP)
     p.add_argument("--bucket_multiple", type=int, default=64)
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="shard every streamed layer's matmuls over this many "
+                        "chips (Megatron layout over ICI); cuts per-chip "
+                        "weight HBM by the factor. 1 = off")
     p.add_argument("--prefetch_depth", type=int, default=1,
                    help="shards read and uploaded ahead of compute; 0 = serialized")
     p.add_argument("--io_retry_attempts", type=int, default=4,
@@ -1275,6 +1281,7 @@ def config_from_args(args: argparse.Namespace) -> FrameworkConfig:
         max_activation_in_cpu=args.max_activation_in_cpu,
         data_parallel=args.data_parallel,
         num_devices=args.num_devices,
+        tensor_parallel=args.tensor_parallel,
         disk_folder=args.disk_folder,
         num_gen_token=args.num_gen_token,
         dtype=args.dtype,

@@ -763,7 +763,10 @@ class FrameworkConfig:
     visible card; on the CPU, that many CPU stages or ranks, at least 1).
     With more than one, ``data_parallel`` splits the prompts over them, each
     streaming the whole model from one shared read; otherwise the layers run
-    as the interleaved MP pipeline across them.
+    as the interleaved MP pipeline across them. ``tensor_parallel`` > 1
+    splits every streamed layer Megatron-style over that many of them (in
+    place of the pipeline; with ``data_parallel``, over each group of that
+    many).
 
     The host path, with the JAX package's defaults: ``verify_weights``
     checks every layer load against ``integrity.json``; ``host_cache_gb``
@@ -842,6 +845,10 @@ class FrameworkConfig:
     max_activation_in_cpu: int = 100
     data_parallel: bool = False
     num_devices: int = 0
+    # Megatron tensor parallelism over this many devices (1 = off); it
+    # composes with data_parallel (groups of tensor_parallel devices) and
+    # takes the MP pipeline's place.
+    tensor_parallel: int = 1
     disk_folder: str = "./temp"
     num_gen_token: int = 1
     dtype: str = "bfloat16"
@@ -901,6 +908,8 @@ class FrameworkConfig:
             raise ValueError("prefetch_depth must be >= 0")
         if self.num_devices < 0:
             raise ValueError(f"num_devices must be >= 0 (0 = all), got {self.num_devices}")
+        if self.tensor_parallel < 1:
+            raise ValueError("tensor_parallel must be >= 1")
         if (self.top_k or self.top_p) and self.temperature <= 0:
             raise ValueError("top_k/top_p require temperature > 0")
         if self.decode_resident not in ("auto", "on", "off"):

@@ -49,6 +49,21 @@ projections stay ``torch.matmul``, each weight cast to the activations'
 dtype (:func:`_mm`). :func:`decoder_layer`, the training layer, runs the
 plain ``ops/attention.attention`` under a caller's mask, as the JAX
 package's does: no kernel there has a backward.
+
+Tensor parallelism (``parallel/sharding.py``): where GSPMD partitions the
+JAX layers over a ``tp`` mesh, the port's streamed layer functions and the
+head take a LIST of per-rank parameter trees, rank r's Megatron slices on
+its device; one device is a list of one rank, through the same code with
+sums of one term. The activations stay one copy on the first rank's
+device, with the embedding and the final norm (not split). Each rank runs
+its own heads from the input norm's output (q/k/v, rope, the kernel or the
+plain op, its slice of ``wo``) and its own slice of the MLP or its own
+experts; the partial outputs are summed in rank order on the first device
+(in float32 under half-precision activations across ranks, rounded once as
+one device's product is), and ``bo``/``bdown``, the sandwich norms and the
+residual add apply once, to the sum. The head scores each rank's
+vocabulary slice and joins them before the softcap and the softmax. The KV
+of a layer is a per-rank list of dicts, each rank's KV heads on its device.
 """
 
 from __future__ import annotations
@@ -104,6 +119,48 @@ def _lin(x: torch.Tensor, params: Params, w: str, b: str) -> torch.Tensor:
 
 def _norm(x: torch.Tensor, params: Params, cfg: LlamaConfig) -> torch.Tensor:
     return rms_norm(x, params["scale"], cfg.rms_norm_eps, cfg.norm_unit_offset)
+
+
+def _device_of(tree) -> torch.device:
+    """The device of a placed tree (its first leaf's)."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.device
+
+
+def _to(x, device: torch.device):
+    """``x`` on ``device`` (a no-op there already), None kept."""
+    return None if x is None else x.to(device)
+
+
+def _acc_dtype(n_ranks: int, dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the ranks' partial outputs: the activations' own on one
+    device; float32 across ranks, so that their sum is rounded once, as one
+    device's product is."""
+    return dtype if n_ranks == 1 else torch.float32
+
+
+def _mm_acc(x: torch.Tensor, w: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+    """``_mm`` with its result in ``acc``: a half-precision product
+    accumulated in float32 and returned unrounded (cuBLAS's float32 output
+    on a card)."""
+    if acc == x.dtype:
+        return _mm(x, w)
+    w = w.to(x.dtype)
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=acc)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.to(acc), w.to(acc))
+
+
+def _psum(parts: list[torch.Tensor], device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The ranks' partial outputs summed in rank order on ``device`` (the
+    all-reduce GSPMD inserts after a row-parallel product), then cast to
+    ``dtype``; one part is itself."""
+    out = parts[0].to(device)
+    for part in parts[1:]:
+        out = out + part.to(device)
+    return out.to(dtype)
 
 
 def layer_sliding_pattern(cfg: LlamaConfig) -> tuple[bool, ...]:
@@ -187,8 +244,8 @@ def _qkv_mla(attn: Params, cfg: LlamaConfig, x: torch.Tensor, positions: torch.T
     qk_nope keys and v_head_dim values, beside ONE rope key of qk_rope_head_dim
     shared by every head. Rope (interleaved pairs under
     ``cfg.rope_interleaved``) turns only the rope slices. Returns q/k
-    [..., L, H, dn+dr] and v [..., L, H, dv], contiguous."""
-    nh = cfg.num_attention_heads
+    [..., L, H, dn+dr] and v [..., L, H, dv], contiguous; H is the heads
+    of ``attn``'s slices (a tensor-parallel rank's own)."""
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_dim
     eps = cfg.rms_norm_eps
     lead = x.shape[:-1]
@@ -196,11 +253,11 @@ def _qkv_mla(attn: Params, cfg: LlamaConfig, x: torch.Tensor, positions: torch.T
         q = _mm(rms_norm(_lin(x, attn, "q_a", "bq_a"), attn["q_a_norm"], eps), attn["q_b"])
     else:
         q = _mm(x, attn["wq"])  # HF's dense q_proj has no bias
-    q = q.reshape(*lead, nh, dn + dr)
+    q = q.reshape(*lead, -1, dn + dr)
     ckv = _lin(x, attn, "kv_a", "bkv_a")  # [..., L, kv_lora + dr]
     c_kv, k_rot = ckv[..., : cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank:]
     kv = _mm(rms_norm(c_kv, attn["kv_a_norm"], eps), attn["kv_b"]).reshape(
-        *lead, nh, dn + dv)
+        *lead, -1, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta, cfg.rope_scaling_spec,
                             total_len=total_len)
@@ -217,15 +274,17 @@ def positioned_qkv(params: Params, cfg: LlamaConfig, h: torch.Tensor, positions:
     layer, with the per-head q/k RMSNorm before rope where the layer has
     one and :func:`position_qk` after it; ``positions`` broadcasts against
     h's leading dims ([..., L]). MLA (``cfg.kv_lora_rank``) assembles its
-    own: n_kv is n_q there and v's head dim ``cfg.v_dim``."""
+    own: n_kv is n_q there and v's head dim ``cfg.v_dim``. The head counts
+    are those of the weights' widths, so a tensor-parallel rank's slices
+    give its own heads at the config's head dim."""
     attn = params["attn"]
     if cfg.kv_lora_rank:
         return _qkv_mla(attn, cfg, h, positions, total_len)
     hd = cfg.head_dim
     lead = h.shape[:-1]
-    q = _lin(h, attn, "wq", "bq").reshape(*lead, cfg.num_attention_heads, hd)
-    k = _lin(h, attn, "wk", "bk").reshape(*lead, cfg.num_key_value_heads, hd)
-    v = _lin(h, attn, "wv", "bv").reshape(*lead, cfg.num_key_value_heads, hd)
+    q = _lin(h, attn, "wq", "bq").reshape(*lead, -1, hd)
+    k = _lin(h, attn, "wk", "bk").reshape(*lead, -1, hd)
+    v = _lin(h, attn, "wv", "bv").reshape(*lead, -1, hd)
     if "q_norm" in attn:
         q = rms_norm(q, attn["q_norm"], cfg.rms_norm_eps, cfg.norm_unit_offset)
         k = rms_norm(k, attn["k_norm"], cfg.rms_norm_eps, cfg.norm_unit_offset)
@@ -233,18 +292,35 @@ def positioned_qkv(params: Params, cfg: LlamaConfig, h: torch.Tensor, positions:
     return q, k, v
 
 
-def _residual_attn(params: Params, cfg: LlamaConfig, x: torch.Tensor,
-                   attn_out: torch.Tensor) -> torch.Tensor:
-    """The attention sublayer's residual add; the sandwich layout norms
-    the sublayer's output before the add."""
-    y = _lin(attn_out.reshape(*attn_out.shape[:-2], -1), params["attn"], "wo", "bo")
+def _attn_partial(attn: Params, attn_out: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+    """A rank's heads through its rows of ``wo`` (no bias), in ``acc``: its
+    partial of the attention sublayer's output."""
+    return _mm_acc(attn_out.reshape(*attn_out.shape[:-2], -1), attn["wo"], acc)
+
+
+def _finish_attn(params: Params, cfg: LlamaConfig, x: torch.Tensor,
+                 y: torch.Tensor) -> torch.Tensor:
+    """The attention sublayer after the sum of its partials: ``bo``, the
+    sandwich layout's norm of the output, the residual add."""
+    if "bo" in params["attn"]:
+        y = y + params["attn"]["bo"].to(y.dtype)
     if cfg.ffw_sandwich_norms:
         y = _norm(y, params["post_attention_layernorm"], cfg)
     return x + y
 
 
-def _dense_mlp(mlp: Params, x: torch.Tensor, act) -> torch.Tensor:
-    return _lin(act(_lin(x, mlp, "gate", "bgate")) * _lin(x, mlp, "up", "bup"), mlp, "down", "bdown")
+def _residual_attn(params: Params, cfg: LlamaConfig, x: torch.Tensor,
+                   attn_out: torch.Tensor) -> torch.Tensor:
+    """The attention sublayer's residual add on one device; the sandwich
+    layout norms the sublayer's output before the add."""
+    return _finish_attn(params, cfg, x, _attn_partial(params["attn"], attn_out, attn_out.dtype))
+
+
+def _dense_partial(mlp: Params, x: torch.Tensor, act, acc: torch.dtype) -> torch.Tensor:
+    """A rank's columns of gate/up and rows of down (no ``bdown``), in
+    ``acc``."""
+    return _mm_acc(act(_lin(x, mlp, "gate", "bgate")) * _lin(x, mlp, "up", "bup"), mlp["down"],
+                   acc)
 
 
 def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -255,7 +331,8 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _routed_experts(mlp: Params, x: torch.Tensor, top_idx: torch.Tensor, top_w: torch.Tensor,
-                    act, scale_input: bool = False) -> torch.Tensor:
+                    act, scale_input: bool = False, first: int = 0,
+                    acc: torch.dtype | None = None) -> torch.Tensor:
     """Sum over each token's selected experts of weight * expert(x), each
     expert computed only on the tokens that selected it: the tokens are
     grouped by expert and every group runs its expert's three matmuls. The
@@ -264,7 +341,10 @@ def _routed_experts(mlp: Params, x: torch.Tensor, top_idx: torch.Tensor, top_w: 
     JAX package's compute-all form with ``where(c != 0, h * c, 0)``. With
     ``scale_input`` (Llama 4) it multiplies the expert's input instead:
     expert(weight * x), an input whose weight is 0 set to exactly 0.
-    x [..., D]; top_idx/top_w [..., k]."""
+    x [..., D]; top_idx/top_w [..., k] (global expert ids). ``mlp`` holds
+    experts ``first`` .. ``first`` + its stack's length (an expert-parallel
+    rank's); a token's slots on other experts contribute 0 here. The slots
+    are summed in ``acc`` (default x's dtype)."""
     lead, d = x.shape[:-1], x.shape[-1]
     k = top_idx.shape[-1]
     x2 = x.reshape(-1, d)
@@ -272,10 +352,12 @@ def _routed_experts(mlp: Params, x: torch.Tensor, top_idx: torch.Tensor, top_w: 
     order = torch.argsort(flat, stable=True)  # (token, slot) pairs grouped by expert
     w = top_w.reshape(-1)[order, None]
     tok = order // k
-    counts = torch.bincount(flat, minlength=mlp["gate"].shape[0]).tolist()
+    n_local = mlp["gate"].shape[0]
+    counts = torch.bincount(flat, minlength=first + n_local).tolist()
     y = x2.new_zeros(flat.numel(), d)
-    start = 0
-    for e, c in enumerate(counts):
+    start = sum(counts[:first])
+    for e in range(n_local):
+        c = counts[first + e]
         if not c:
             continue
         sel = slice(start, start + c)
@@ -287,38 +369,59 @@ def _routed_experts(mlp: Params, x: torch.Tensor, top_idx: torch.Tensor, top_w: 
             h = torch.where(w[sel] != 0, h * w[sel], h.new_zeros(()))
         y[order[sel]] = _mm(h, mlp["down"][e])
         start += c
-    return y.reshape(*lead, k, d).sum(dim=-2)
+    return y.reshape(*lead, k, d).sum(dim=-2, dtype=acc or x.dtype)
 
 
-def _moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def _expert_ranks(mlps: list[Params], x: torch.Tensor, top_idx: torch.Tensor,
+                  top_w: torch.Tensor, act, scale_input: bool = False, shared: bool = False):
+    """A routed MoE over the ranks' ``mlp`` trees, from the routing made
+    once on x's device: rank r runs its own experts (the r-th block of the
+    expert axis) for every token. Returns the routed sum and, with
+    ``shared``, the shared expert's (each rank's column slice of it), each
+    summed over the ranks."""
+    acc = _acc_dtype(len(mlps), x.dtype)
+    routed, shared_parts, first = [], [], 0
+    for mlp in mlps:
+        d = _device_of(mlp)
+        xd = x.to(d)
+        routed.append(_routed_experts(mlp, xd, top_idx.to(d), top_w.to(d), act, scale_input,
+                                      first, acc))
+        if shared:
+            shared_parts.append(_shared_expert(mlp, xd, act, acc))
+        first += mlp["gate"].shape[0]
+    y = _psum(routed, x.device, x.dtype)
+    return y, (_psum(shared_parts, x.device, x.dtype) if shared else None)
+
+
+def _moe_mlp(mlps: list[Params], cfg: LlamaConfig, x: torch.Tensor) -> list:
     """Mixtral / Qwen3-MoE (HF MixtralSparseMoeBlock): router logits in the
     model dtype, softmax over every expert in float32, the top k,
     renormalised iff ``moe_norm_topk_prob``, cast to x's dtype."""
     k = cfg.num_experts_per_tok
-    probs = torch.softmax(_mm(x, mlp["router"]).float(), dim=-1)
+    probs = torch.softmax(_mm(x, mlps[0]["router"]).float(), dim=-1)
     top_vals, top_idx = _top_k(probs, k)
     if cfg.moe_norm_topk_prob:
         top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
-    return _routed_experts(mlp, x, top_idx, top_vals.to(x.dtype), _ACT[cfg.hidden_act])
+    return _expert_ranks(mlps, x, top_idx, top_vals.to(x.dtype), _ACT[cfg.hidden_act])[0]
 
 
-def _shared_expert(mlp: Params, x: torch.Tensor, act) -> torch.Tensor:
-    return _mm(act(_mm(x, mlp["shared_gate"])) * _mm(x, mlp["shared_up"]), mlp["shared_down"])
+def _shared_expert(mlp: Params, x: torch.Tensor, act, acc: torch.dtype) -> torch.Tensor:
+    return _mm_acc(act(_mm(x, mlp["shared_gate"])) * _mm(x, mlp["shared_up"]), mlp["shared_down"],
+                   acc)
 
 
-def _llama4_moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def _llama4_moe_mlp(mlps: list[Params], cfg: LlamaConfig, x: torch.Tensor) -> list:
     """Llama 4 (HF Llama4TextMoe / Llama4Router): router logits in the
     model dtype, the top k of them in float32, their sigmoid cast to x's
     dtype scaling each selected expert's INPUT (not its output, as
     Mixtral's weights do), plus the shared expert."""
-    top_vals, top_idx = _top_k(_mm(x, mlp["router"]).float(), cfg.num_experts_per_tok)
-    act = _ACT[cfg.hidden_act]
-    routed = _routed_experts(mlp, x, top_idx, torch.sigmoid(top_vals).to(x.dtype), act,
-                             scale_input=True)
-    return _shared_expert(mlp, x, act) + routed
+    top_vals, top_idx = _top_k(_mm(x, mlps[0]["router"]).float(), cfg.num_experts_per_tok)
+    routed, shared = _expert_ranks(mlps, x, top_idx, torch.sigmoid(top_vals).to(x.dtype),
+                                   _ACT[cfg.hidden_act], scale_input=True, shared=True)
+    return shared + routed
 
 
-def _deepseek_moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def _deepseek_moe_mlp(mlps: list[Params], cfg: LlamaConfig, x: torch.Tensor) -> list:
     """DeepSeek-V3 (HF DeepseekV3MoE / TopkRouter), routing in float32 end
     to end: sigmoid scores; the SELECTION adds the correction bias and is
     group-limited (n_group groups scored by their top-2 sum, the best
@@ -327,6 +430,7 @@ def _deepseek_moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.T
     experts, renormalised (+1e-20) iff ``moe_norm_topk_prob``, times
     ``moe_routed_scaling_factor``; plus the shared expert."""
     e, k, g = cfg.num_local_experts, cfg.num_experts_per_tok, cfg.moe_n_group
+    mlp = mlps[0]
     scores = torch.sigmoid(torch.matmul(x.float(), mlp["router"].float()))  # [..., E]
     choice = scores + mlp["correction_bias"].float()
     if g > 1:
@@ -340,33 +444,42 @@ def _deepseek_moe_mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.T
     if cfg.moe_norm_topk_prob:
         top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20)
     top_w = top_w * cfg.moe_routed_scaling_factor
-    act = _ACT[cfg.hidden_act]
-    routed = _routed_experts(mlp, x, top_idx, top_w.to(x.dtype), act)
-    return routed + _shared_expert(mlp, x, act)
+    routed, shared = _expert_ranks(mlps, x, top_idx, top_w.to(x.dtype), _ACT[cfg.hidden_act],
+                                   shared=True)
+    return routed + shared
 
 
-def _mlp(mlp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    """The layer's MLP, by the keys its checkpoint has: DeepSeek's experts
-    (a correction bias), Llama 4's (a shared expert without one), the
-    Mixtral/Qwen3-MoE experts (a router), or dense."""
+def _mlp(mlps: list[Params], cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """The layer's MLP over its ranks' ``mlp`` trees, by the keys its
+    checkpoint has: DeepSeek's experts (a correction bias), Llama 4's (a
+    shared expert without one), the Mixtral/Qwen3-MoE experts (a router),
+    or dense. The routing runs once, on x's device, from the replicated
+    router; the ranks' partials are summed there, then ``bdown`` is
+    added."""
+    mlp = mlps[0]
     if "correction_bias" in mlp:
-        return _deepseek_moe_mlp(mlp, cfg, x)
+        return _deepseek_moe_mlp(mlps, cfg, x)
     if "shared_gate" in mlp:
-        return _llama4_moe_mlp(mlp, cfg, x)
+        return _llama4_moe_mlp(mlps, cfg, x)
     if "router" in mlp:
-        return _moe_mlp(mlp, cfg, x)
-    return _dense_mlp(mlp, x, _ACT[cfg.hidden_act])
+        return _moe_mlp(mlps, cfg, x)
+    act, acc = _ACT[cfg.hidden_act], _acc_dtype(len(mlps), x.dtype)
+    y = _psum([_dense_partial(m, x.to(_device_of(m)), act, acc) for m in mlps], x.device, x.dtype)
+    if "bdown" in mlp:
+        y = y + mlp["bdown"].to(y.dtype)
+    return y
 
 
-def _residual_mlp(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    """The MLP sublayer's residual add: the input normed by
-    post_attention_layernorm, or in the sandwich layout by
+def _residual_mlp(ranks: list[Params], cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MLP sublayer's residual add over a layer's rank trees: the input
+    normed by post_attention_layernorm, or in the sandwich layout by
     pre_feedforward_layernorm with the output normed by
     post_feedforward_layernorm."""
+    p0 = ranks[0]
     pre = "pre_feedforward_layernorm" if cfg.ffw_sandwich_norms else "post_attention_layernorm"
-    y = _mlp(params["mlp"], cfg, _norm(x, params[pre], cfg))
+    y = _mlp([p["mlp"] for p in ranks], cfg, _norm(x, p0[pre], cfg))
     if cfg.ffw_sandwich_norms:
-        y = _norm(y, params["post_feedforward_layernorm"], cfg)
+        y = _norm(y, p0["post_feedforward_layernorm"], cfg)
     return x + y
 
 
@@ -401,11 +514,11 @@ def decoder_layer(
     h = _norm(x, params["input_layernorm"], cfg)
     q, k, v = positioned_qkv(params, cfg, h, positions, sliding, total_len, rope_on)
     attn = attention(q, k, v, mask, scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap)
-    return _residual_mlp(params, cfg, _residual_attn(params, cfg, x, attn))
+    return _residual_mlp([params], cfg, _residual_attn(params, cfg, x, attn))
 
 
 def prefix_suffix_layer(
-    params: Params,
+    params: list[Params],
     cfg: LlamaConfig,
     prefix_h: torch.Tensor,
     suffix_h: torch.Tensor,
@@ -430,22 +543,34 @@ def prefix_suffix_layer(
     (prefix_out, suffix_out) and, with ``return_kv``, the post-rope KV dict
     {'kp','vp','ks','vs'} that decode steps reuse (V at ``cfg.v_dim``).
     ``use_pallas`` False runs the plain attention in place of both kernels.
+    ``params`` holds the layer's rank trees (one on one device): each rank
+    runs both kernels on its own heads, and the KV is a per-rank list of
+    dicts.
     """
+    ranks = params
     lp = prefix_h.shape[1]
     dev = prefix_h.device
     kw = _scoring_kw(cfg, sliding, lp, suffix_h.shape[2])
 
-    h = _norm(prefix_h, params["input_layernorm"], cfg)
-    q, k, v = positioned_qkv(params, cfg, h, torch.arange(lp, device=dev)[None], sliding, total_len,
-                             rope_on)
+    h = _norm(prefix_h, ranks[0]["input_layernorm"], cfg)
+    pos = torch.arange(lp, device=dev)[None]
     causal = flash_causal_attention if use_pallas else causal_attention_plain
-    attn = causal(q, k, v, prefix_len, **kw)
-    prefix_out = _residual_mlp(params, cfg, _residual_attn(params, cfg, prefix_h, attn))
+    acc = _acc_dtype(len(ranks), prefix_h.dtype)
+    parts, kps, vps = [], [], []
+    for p in ranks:
+        d = _device_of(p)
+        q, k, v = positioned_qkv(p, cfg, h.to(d), pos.to(d), sliding, _to(total_len, d), rope_on)
+        parts.append(_attn_partial(p["attn"], causal(q, k, v, prefix_len.to(d), **kw), acc))
+        kps.append(k)
+        vps.append(v)
+    prefix_out = _residual_mlp(params, cfg, _finish_attn(ranks[0], cfg, prefix_h,
+                                                         _psum(parts, dev, prefix_h.dtype)))
 
-    suffix_out, ks, vs = _suffix_half(params, cfg, k, v, suffix_h, prefix_len, sliding, total_len,
-                                      rope_on, kw, use_pallas)
+    suffix_out, kss, vss = _suffix_half(ranks, cfg, kps, vps, suffix_h, prefix_len, sliding,
+                                        total_len, rope_on, kw, use_pallas)
     if return_kv:
-        return prefix_out, suffix_out, {"kp": k, "vp": v, "ks": ks, "vs": vs}
+        kv = [{"kp": k, "vp": v, "ks": ks, "vs": vs} for k, v, ks, vs in zip(kps, vps, kss, vss)]
+        return prefix_out, suffix_out, kv
     return prefix_out, suffix_out
 
 
@@ -460,26 +585,35 @@ def _scoring_kw(cfg: LlamaConfig, sliding, lp: int, ls: int) -> dict:
     return dict(scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap, window=window, chunk=chunk)
 
 
-def _suffix_half(params, cfg, kp, vp, suffix_h, prefix_len, sliding, total_len, rope_on, kw,
-                 use_pallas: bool):
-    """The suffix stream of a layer over the post-rope prefix KV (kp, vp):
-    (suffix_out, ks, vs)."""
+def _suffix_half(ranks: list, cfg, kps: list, vps: list, suffix_h, prefix_len, sliding, total_len,
+                 rope_on, kw, use_pallas: bool):
+    """The suffix stream of a layer over each rank's post-rope prefix KV
+    (kps[r], vps[r]): (suffix_out, each rank's ks, each rank's vs)."""
     b, _, ls, _ = suffix_h.shape
     dev = suffix_h.device
-    hs = _norm(suffix_h, params["input_layernorm"], cfg)
+    hs = _norm(suffix_h, ranks[0]["input_layernorm"], cfg)
     pos_s = prefix_len.to(dev).reshape(b, 1, 1) + torch.arange(ls, device=dev)  # [B, 1, Ls]
-    qs, ks, vs = positioned_qkv(params, cfg, hs, pos_s, sliding, total_len, rope_on)
     shared = flash_prefix_shared_attention if use_pallas else prefix_shared_attention_plain
-    attn_s = shared(qs, kp, vp, ks, vs, prefix_len, **kw)
-    suffix_out = _residual_mlp(params, cfg, _residual_attn(params, cfg, suffix_h, attn_s))
-    return suffix_out, ks, vs
+    acc = _acc_dtype(len(ranks), suffix_h.dtype)
+    parts, kss, vss = [], [], []
+    for p, kp, vp in zip(ranks, kps, vps):
+        d = _device_of(p)
+        qs, ks, vs = positioned_qkv(p, cfg, hs.to(d), pos_s.to(d), sliding, _to(total_len, d),
+                                    rope_on)
+        parts.append(_attn_partial(p["attn"], shared(qs, kp, vp, ks, vs, prefix_len.to(d), **kw),
+                                   acc))
+        kss.append(ks)
+        vss.append(vs)
+    suffix_out = _residual_mlp(ranks, cfg, _finish_attn(ranks[0], cfg, suffix_h,
+                                                        _psum(parts, dev, suffix_h.dtype)))
+    return suffix_out, kss, vss
 
 
 def suffix_only_layer(
-    params: Params,
+    params: list[Params],
     cfg: LlamaConfig,
-    kp: torch.Tensor,
-    vp: torch.Tensor,
+    kp: list[torch.Tensor],
+    vp: list[torch.Tensor],
     suffix_h: torch.Tensor,
     prefix_len: torch.Tensor,
     sliding=None,
@@ -492,24 +626,25 @@ def suffix_only_layer(
     KV (the paged prefix-KV pool's reuse path, ``runtime/kvpool.py``).
 
     The suffix stream depends on the prefix only through its post-rope
-    (k, v), so with kp/vp [B, Lp, n_kv, hd / v_dim] at the Lp bucket the
+    (k, v), so with each rank's kp/vp [B, Lp, n_kv, hd / v_dim] (lists,
+    like ``params``) at the Lp bucket the
     prefix was prefilled at (rows past prefix_len are the masked pad tail)
     this runs the same norm, rotary positions prefix_len + i, prefix-shared
     kernel and residual MLP as the full layer: bit-equal to its suffix
-    stream. Returns (suffix_out, {'ks', 'vs'}); the caller re-attaches
-    kp/vp for the decode KV.
+    stream. Returns (suffix_out, each rank's {'ks', 'vs'}); the caller
+    re-attaches kp/vp for the decode KV.
     """
-    kw = _scoring_kw(cfg, sliding, kp.shape[1], suffix_h.shape[2])
-    suffix_out, ks, vs = _suffix_half(params, cfg, kp, vp, suffix_h, prefix_len, sliding,
-                                      total_len, rope_on, kw, use_pallas)
-    return suffix_out, {"ks": ks, "vs": vs}
+    kw = _scoring_kw(cfg, sliding, kp[0].shape[1], suffix_h.shape[2])
+    suffix_out, kss, vss = _suffix_half(params, cfg, kp, vp, suffix_h, prefix_len, sliding,
+                                        total_len, rope_on, kw, use_pallas)
+    return suffix_out, [{"ks": ks, "vs": vs} for ks, vs in zip(kss, vss)]
 
 
 def decode_step_layer(
-    params: Params,
+    params: list[Params],
     cfg: LlamaConfig,
     x: torch.Tensor,
-    kv: Params,
+    kv: list[Params],
     prefix_len: torch.Tensor,
     suffix_eos: torch.Tensor,
     t,
@@ -536,39 +671,48 @@ def decode_step_layer(
     int t outside MLA under ``use_pallas``, else the plain
     ``decode_attention`` op. The layer's
     window or chunk always applies (no bucket shortcut, as in the JAX
-    package).
+    package). ``params`` and ``kv`` hold the layer's ranks (one on one
+    device): each rank writes and attends its own KV heads on its device.
     """
+    ranks, kvs = params, kv
     b, s, kq = x.shape[:3]
     dev = x.device
-    tg = kv["kg"].shape[2]
+    tg = kvs[0]["kg"].shape[2]
     scalar_t = isinstance(t, int)
     base = t if scalar_t else t.to(dev)
-    h = _norm(x, params["input_layernorm"], cfg)
+    h = _norm(x, ranks[0]["input_layernorm"], cfg)
     pos = (prefix_len.to(dev)[:, None] + suffix_eos.to(dev) + 1 + base)[..., None] \
         + torch.arange(kq, device=dev)  # [B, S, K]
     total_len = pos[..., -1] + 1 if cfg.rope_scaling_kind == "longrope" else None
-    q, k_new, v_new = positioned_qkv(params, cfg, h, pos, sliding, total_len,
-                                     rope_on)  # [B, S, K, n, hd]
-    if scalar_t:
-        start = min(max(t, 0), tg - kq)
-        kv["kg"][:, :, start:start + kq] = k_new
-        kv["vg"][:, :, start:start + kq] = v_new
-    else:
+    if not scalar_t:
         slots = base.long().clamp(0, tg - kq)[..., None] + torch.arange(kq, device=dev)
         rows = torch.arange(b, device=dev)[:, None, None]
         cols = torch.arange(s, device=dev)[None, :, None]
-        kv["kg"][rows, cols, slots] = k_new
-        kv["vg"][rows, cols, slots] = v_new
     attend = (flash_decode_attention
               if use_pallas and kq == 1 and scalar_t and not cfg.kv_lora_rank
               else decode_attention)
     window, chunk = _effective_window(cfg, sliding)
-    attn = attend(
-        q, kv["kp"], kv["vp"], kv["ks"], kv["vs"], kv["kg"], kv["vg"], prefix_len,
-        suffix_eos, t, scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap,
-        window=window, chunk=chunk,
-    )
-    return _residual_mlp(params, cfg, _residual_attn(params, cfg, x, attn))
+    acc = _acc_dtype(len(ranks), x.dtype)
+    parts = []
+    for p, kvr in zip(ranks, kvs):
+        d = _device_of(p)
+        q, k_new, v_new = positioned_qkv(p, cfg, h.to(d), pos.to(d), sliding, _to(total_len, d),
+                                         rope_on)  # [B, S, K, n, hd]
+        if scalar_t:
+            start = min(max(t, 0), tg - kq)
+            kvr["kg"][:, :, start:start + kq] = k_new
+            kvr["vg"][:, :, start:start + kq] = v_new
+        else:
+            at = (rows.to(d), cols.to(d), slots.to(d))
+            kvr["kg"][at] = k_new
+            kvr["vg"][at] = v_new
+        attn = attend(
+            q, kvr["kp"], kvr["vp"], kvr["ks"], kvr["vs"], kvr["kg"], kvr["vg"], prefix_len.to(d),
+            suffix_eos.to(d), t if scalar_t else t.to(d), scale=cfg.attn_scale,
+            softcap=cfg.attn_logit_softcap, window=window, chunk=chunk,
+        )
+        parts.append(_attn_partial(p["attn"], attn, acc))
+    return _residual_mlp(ranks, cfg, _finish_attn(ranks[0], cfg, x, _psum(parts, dev, x.dtype)))
 
 
 def select_eos_and_norm(
@@ -582,20 +726,24 @@ def select_eos_and_norm(
     return _norm(torch.gather(suffix_h, 2, idx), params, cfg)
 
 
-def lm_head_scores_multi(params: Params, h: torch.Tensor,
+def lm_head_scores_multi(params: list[Params], h: torch.Tensor,
                          softcap: float | None = None) -> torch.Tensor:
     """Next-token distributions at every position: h [..., K, D] -> float32
     [..., K, V] (final-logit softcap, then softmax). The speculative verify
-    pass scores each fed position."""
-    logits = torch.matmul(h, params["kernel"]).float()
+    pass scores each fed position. ``params`` holds the head's rank trees
+    (one on one device): each rank scores its vocabulary slice, and the
+    slices are joined on h's device before the softcap and the softmax."""
+    parts = [torch.matmul(h.to(_device_of(p)), p["kernel"]).float() for p in params]
+    logits = parts[0] if len(parts) == 1 else torch.cat([x.to(h.device) for x in parts], dim=-1)
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
     return torch.softmax(logits, dim=-1)
 
 
-def lm_head_scores(params: Params, h: torch.Tensor, softcap: float | None = None) -> torch.Tensor:
+def lm_head_scores(params: list[Params], h: torch.Tensor,
+                   softcap: float | None = None) -> torch.Tensor:
     """Next-token distributions of the kept token: h [..., 1, D] -> float32
-    [..., V]."""
+    [..., V]; ``params`` as :func:`lm_head_scores_multi`'s."""
     return lm_head_scores_multi(params, h, softcap)[..., 0, :]
 
 
@@ -634,7 +782,7 @@ def forward_full(params: Params, cfg: LlamaConfig, ids: torch.Tensor,
         h = _norm(x, layer["input_layernorm"], cfg)
         q, k, v = positioned_qkv(layer, cfg, h, positions, sliding[i], total_len, rope_on[i])
         attn = causal(q, k, v, valid, **_scoring_kw(cfg, sliding[i], length, 0))
-        x = _residual_mlp(layer, cfg, _residual_attn(layer, cfg, x, attn))
+        x = _residual_mlp([layer], cfg, _residual_attn(layer, cfg, x, attn))
     x = rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps, cfg.norm_unit_offset)
     logits = torch.matmul(x, head_params(params)["kernel"]).float()
     if cfg.final_logit_softcap is not None:

@@ -148,7 +148,7 @@ def ring_decoder_blocks(params: Sequence[dict], cfg, x_blks: Sequence[torch.Tens
         vs.append(v)
     attn = ring_attention_blocks(qs, ks, vs, mesh, causal=True, scale=cfg.attn_scale,
                                  window=window, chunk=chunk, softcap=cfg.attn_logit_softcap)
-    out = [llama._residual_mlp(p, cfg, llama._residual_attn(p, cfg, x, a))
+    out = [llama._residual_mlp([p], cfg, llama._residual_attn(p, cfg, x, a))
            for p, x, a in zip(params, x_blks, attn)]
     return out, ks, vs
 

@@ -50,6 +50,14 @@ stage's device, and the fused steps stand down (one placement is their
 precondition). A DP rank takes its passes from its broadcast view
 (``weight_source_factory``) with the ``resident`` decision the source's
 round count was built for.
+
+Tensor parallelism (``device`` a ``parallel/sharding.TpPlacement``): the
+weights of every pass are Megatron-split over the placement's devices, each
+rank keeps its own KV heads on its device, and the activations stay on the
+first device. The fused steps run as on one device; they are captured in
+one CUDA graph only where every rank shares one card (``[cuda:0] * tp``).
+Across distinct cards the same steps run eagerly, since one capture does
+not span devices; the tokens are the same either way.
 """
 
 from __future__ import annotations
@@ -72,12 +80,14 @@ from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
 from flexible_llm_sharding_tpu_torch.ops.norm import rms_norm
 from flexible_llm_sharding_tpu_torch.faults.inject import FaultInjector
 from flexible_llm_sharding_tpu_torch.parallel.planner import global_stage_order
+from flexible_llm_sharding_tpu_torch.runtime import residency
 from flexible_llm_sharding_tpu_torch.runtime.executor import (
     StreamingExecutor,
     StreamStats,
     _tree_map,
     block_meta,
     first_decoder,
+    note_rank_bytes,
     peak_over,
     sync,
 )
@@ -322,20 +332,22 @@ def kv_fits_on_chip(model_cfg, dtype_name: str, toks, blocks, gen_slots: int, de
     return weights + kv_bytes <= 0.8 * hbm_gb * 1e9
 
 
-def extend_gen_kv(kv: dict[str, torch.Tensor], gen_slots: int) -> dict[str, torch.Tensor]:
-    """A prefill layer's KV with ``gen_slots`` empty generated-token slots
-    (``kg``/``vg`` [B, S, gen_slots, n_kv, hd]) beside its own KV, V at its
-    own head dim (MLA), on the KV's device."""
+def extend_gen_kv(kv: list[dict], gen_slots: int) -> list[dict]:
+    """A prefill layer's KV (each rank's dict) with ``gen_slots`` empty
+    generated-token slots (``kg``/``vg`` [B, S, gen_slots, n_kv, hd])
+    beside its own KV, V at its own head dim (MLA), on the rank's
+    device."""
     def gen(like: torch.Tensor) -> torch.Tensor:
         return like.new_zeros(*like.shape[:2], gen_slots, *like.shape[3:])
 
-    return {**kv, "kg": gen(kv["ks"]), "vg": gen(kv["vs"])}
+    return [{**k, "kg": gen(k["ks"]), "vg": gen(k["vs"])} for k in kv]
 
 
 class KVStore:
     """Per-key KV dicts and activations, on the device they were made on
     (``on_device``) or in host RAM; ``get`` removes them and returns them on
-    ``device`` (default: the store's; an MP stage's own)."""
+    ``device``, or by default each tensor on the device it was made on (a
+    tensor-parallel rank's KV on its own)."""
 
     def __init__(self, on_device: bool, device: torch.device):
         self.on_device = on_device
@@ -343,14 +355,20 @@ class KVStore:
         self._mem: dict[tuple, Any] = {}
 
     def put(self, key: tuple, tree) -> None:
-        self._mem[key] = tree if self.on_device else _tree_map(lambda t: t.to("cpu"), tree)
+        if self.on_device:
+            self._mem[key] = (tree, None)
+            return
+        homes: list[torch.device] = []
+        self._mem[key] = (_tree_map(lambda t: homes.append(t.device) or t.to("cpu"), tree), homes)
 
     def get(self, key: tuple, device: torch.device | None = None):
-        tree = self._mem.pop(key)
-        if self.on_device and device is None:
+        tree, homes = self._mem.pop(key)
+        if device is not None:
+            return _tree_map(lambda t: t.to(device), tree)
+        if homes is None:
             return tree
-        device = self.device if device is None else device
-        return _tree_map(lambda t: t.to(device), tree)
+        home = iter(homes)
+        return _tree_map(lambda t: t.to(next(home)), tree)
 
     def clear(self) -> None:
         self._mem.clear()
@@ -367,7 +385,7 @@ def prefill_decoders(model_cfg, layers, first: int, prefix_h, suffix_h, prefix_l
     ``_prefill_decoders``): ``layers`` the shard's decoder params, the
     first of them decoder ``first`` of the model; ``sliding``/``rope_on``
     the model's per-layer patterns. Returns (prefix_h, suffix_h, kvs), kvs
-    each layer's post-rope KV dict {'kp','vp','ks','vs'}.
+    each layer's post-rope KV, one dict {'kp','vp','ks','vs'} per rank.
 
     ``delta``: the optional multi-adapter LoRA shift, applied to both
     streams at each layer's entry: {"pairs": per layer {group: (A [D, r],
@@ -392,9 +410,10 @@ def suffix_prefill_decoders(model_cfg, layers, first: int, kps, vps, suffix_h, p
                             total_len, sliding, rope_on, delta=None, *, use_pallas: bool):
     """The suffix-only prefill of a shard's decoder layers over pooled
     prefix KV (the JAX package's ``_suffix_prefill_decoders``): ``kps``/
-    ``vps`` one post-rope [B, Lp, n_kv, hd] tensor per layer. Bit-equal to
-    :func:`prefill_decoders`' suffix stream. Returns (suffix_h, kvs), kvs
-    each layer's {'kp','vp','ks','vs'} with the pooled kp/vp re-attached.
+    ``vps`` per layer one post-rope [B, Lp, n_kv, hd] tensor per rank.
+    Bit-equal to :func:`prefill_decoders`' suffix stream. Returns
+    (suffix_h, kvs), kvs each layer's per-rank {'kp','vp','ks','vs'} with
+    the pooled kp/vp re-attached.
     ``delta`` shifts the suffix stream at each layer's entry (the pooled KV
     was made under the same adapter: the pool's keys are salted by it)."""
     kvs = []
@@ -406,7 +425,7 @@ def suffix_prefill_decoders(model_cfg, layers, first: int, kps, vps, suffix_h, p
             layer, model_cfg, kp, vp, suffix_h, prefix_len, sliding=sliding[d],
             total_len=total_len, rope_on=rope_on[d], use_pallas=use_pallas,
         )
-        kvs.append({"kp": kp, "vp": vp, **kv_s})
+        kvs.append([{"kp": k, "vp": v, **s} for k, v, s in zip(kp, vp, kv_s)])
     return suffix_h, kvs
 
 
@@ -414,7 +433,7 @@ def decode_decoders(model_cfg, layers, first: int, kvs, x, prefix_len, suffix_eo
                     rope_on, delta=None, *, use_pallas: bool):
     """One decode step of a shard's decoder layers (the JAX package's
     ``_decode_decoders_impl``): x [B, S, K, D] the newest tokens, ``kvs``
-    the layers' KV dicts (generated slot t, or the [B, S] per-suffix
+    the layers' per-rank KV dicts (generated slot t, or the [B, S] per-suffix
     offsets of a verify pass, written in place). ``delta`` shifts x at each
     layer's entry. Returns x."""
     for i, (layer, kv) in enumerate(zip(layers, kvs)):
@@ -490,7 +509,9 @@ def fused_decode_steps(model_cfg, dtype: torch.dtype, layers, kvs, embed_params,
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            warm = [{**kv, "kg": kv["kg"].clone(), "vg": kv["vg"].clone()} for kv in kvs]
+            # Copies of the generated slots: the warm-up writes no real KV.
+            warm = [[{**k, "kg": k["kg"].clone(), "vg": k["vg"].clone()} for k in kv]
+                    for kv in kvs]
             step(0, init_ids, warm, torch.empty_like(dists[0]), torch.empty_like(picks[0]))
             del warm
             cuda_graph = torch.cuda.CUDAGraph()
@@ -524,6 +545,8 @@ class DecodeGenerator(StreamingExecutor):
     several times). ``weight_source_factory``: a DP rank's broadcast view
     per weight pass, with ``resident`` the decision its round count was
     built for (required with it; speculation does not compose with it).
+    ``device`` a ``TpPlacement``: tensor-parallel decode (the module's
+    docstring).
     """
 
     def __init__(self, cfg, device: torch.device | None = None, tokenizer=None, *,
@@ -551,9 +574,10 @@ class DecodeGenerator(StreamingExecutor):
             self.shards = list(self.plan.shards)
             self.shard_devices = [self.device] * len(self.shards)
         # The memory gates count physical devices: one device named as
-        # several stages holds all of their weights.
-        self._n_chips = len(set(self.shard_devices))
-        self._probe_dev = self.shard_devices[0]
+        # several stages or tensor-parallel ranks holds all of their weights.
+        self._n_chips = (len(self.placement.mesh.distinct) if self.placement is not None
+                         else len(set(self.shard_devices)))
+        self._probe_dev = residency.probe_chip(self.target)
         self._resident = (resident if resident is not None else
                           cfg.decode_resident_enabled(self.model_cfg, self._n_chips,
                                                       self._probe_dev))
@@ -627,7 +651,9 @@ class DecodeGenerator(StreamingExecutor):
                 f"card's memory; got resident={self._resident} temperature={cfg.temperature} "
                 f"single_placement={not self._pipeline} hbm_budget_ok={budget_ok}"
             )
-        graph = fused and self.device.type == "cuda" and self._graph_ok
+        # One capture spans one card: tensor-parallel ranks on distinct
+        # cards run the fused steps eagerly.
+        graph = fused and self.device.type == "cuda" and self._graph_ok and self._n_chips == 1
         # Speculative verify passes; the fused steps are preferred when both
         # could run (resident steps move no weights to amortise).
         spec_k = cfg.speculative_k
@@ -661,13 +687,14 @@ class DecodeGenerator(StreamingExecutor):
         if self.weight_source_factory is None:
             # A fresh injector per decode call's source, as the JAX decoder.
             source, host_stats = self.weight_source(
-                n_passes, shards=self.shards, devices=self.shard_devices,
+                n_passes, shards=self.shards,
+                devices=self.shard_devices if self._pipeline else None,
                 injector=FaultInjector.from_config(self.cfg.faults))
             it = iter(source)
             bytes_before = 0
         else:
             # One broadcast view per weight pass, in a row.
-            host_stats = StreamStats(None, device=self.device, shared=True)
+            host_stats = StreamStats(None, device=self.target, shared=True)
             source = self.weight_source_factory()
             bytes_before = source.bytes_loaded
             it = itertools.chain(source, itertools.chain.from_iterable(
@@ -713,7 +740,7 @@ class DecodeGenerator(StreamingExecutor):
                             x = llama.embed(params, embed_ids(b), self.dtype, mcfg)
                         elif kind == "decoders":
                             keys = [("kv", shard_pos, li0 + li, b) for li in range(len(params))]
-                            kvs = [kv_store.get(key, dev) for key in keys]
+                            kvs = [kv_store.get(key) for key in keys]
                             x = decode_decoders(mcfg, params, first_decoder(layer_idxs) + li0, kvs,
                                                 x, prefix_len, suffix_eos, t, sliding, rope_on,
                                                 use_pallas=self._use_pallas)
@@ -727,7 +754,7 @@ class DecodeGenerator(StreamingExecutor):
                             head_fn(b, _tree_map(lambda v: v.to(dev), norm_params), params, x)
                     if layer_idxs[-1] != n_layers - 1:
                         kv_store.put(("x", b), x)
-                sync(dev)
+                sync(dev if self.placement is None else self.placement)
                 compute_time += time.perf_counter() - t0
                 del segments
 
@@ -776,7 +803,7 @@ class DecodeGenerator(StreamingExecutor):
                             head(b, llama.lm_head_scores(params, sh, mcfg.final_logit_softcap))
                     if layer_idxs[-1] != n_layers - 1:
                         kv_store.put(("h", b), (ph, sh))
-                sync(dev)
+                sync(dev if self.placement is None else self.placement)
                 compute_time += time.perf_counter() - t0
                 del segments
 
@@ -811,7 +838,7 @@ class DecodeGenerator(StreamingExecutor):
                     del kvs
                     all_scores[b].extend(dists)
                     tok_hist[b].extend(picks)
-                sync(self.device)
+                sync(self.target)
                 compute_time += time.perf_counter() - t0
             elif speculative:
                 verifiers: dict[int, SpecVerifier] = {}
@@ -889,6 +916,7 @@ class DecodeGenerator(StreamingExecutor):
         }
         if speculative:
             self.stats.update(spec_stats)
+        note_rank_bytes(self.stats, source)
         if self.weight_source_factory is not None:
             self.stats["load_time_shared"] = self.stats["streamed_bytes_shared"] = 1.0
         if self._pipeline:

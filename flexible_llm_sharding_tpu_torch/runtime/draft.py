@@ -81,10 +81,14 @@ class DraftModel:
             raise
         params: dict = {"layers": []}
         for kind, p in layer_segments(placed):
+            # A decoder layer and the head are placed as rank lists: one
+            # device holds one rank.
             if kind == "decoders":
-                params["layers"].extend(p)
+                params["layers"].extend(ranks[0] for ranks in p)
+            elif kind == "head":
+                params["lm_head"] = p[0]
             else:
-                params[{"embed": "embed", "norm": "norm", "head": "lm_head"}[kind]] = p
+                params[kind] = p
         self._params = params
         if device.type == "cuda":
             torch.cuda.synchronize(device)

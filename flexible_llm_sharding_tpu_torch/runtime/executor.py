@@ -45,6 +45,17 @@ shard once and places it on every DP rank's device, one bounded queue per
 rank; a DP rank's ``StreamingExecutor`` takes its view through
 ``weight_source_factory``.
 
+Tensor parallelism (``parallel/sharding.TpPlacement`` as the ``device`` of
+a source or an executor): every layer's host tree is cut on the host into
+each rank's Megatron slices (a column slice copied into page-locked memory
+first, so it crosses the link as one block), and each rank uploads only its
+slices to its device, on that device's upload stream; a replicated leaf is
+uploaded once per distinct device, and quantized leaf-groups are split as
+their weights are and dequantized per rank. A placed decoder layer or head
+is a list of rank trees (one rank on one device), and the activations live
+on the placement's first device with the embedding and the final norm
+(``models/llama.py`` sums the ranks' partials there).
+
 Tracing (``obs/trace.py``, JAX's span names and attributes): a call is one
 ``sweep`` span holding a ``source_wait`` and a ``compute`` per shard; the
 producer's ``shard_produce`` holds the read (``shard_load``) and the
@@ -80,6 +91,7 @@ from flexible_llm_sharding_tpu_torch.obs import events as obs_events
 from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
 from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
 from flexible_llm_sharding_tpu_torch.parallel.planner import ShardPlan, plan_shards_dp
+from flexible_llm_sharding_tpu_torch.parallel.sharding import TpPlacement, shard_params
 from flexible_llm_sharding_tpu_torch.runtime import residency, resume
 from flexible_llm_sharding_tpu_torch.runtime.activations import ActivationStore, batch_tag
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import (
@@ -118,18 +130,36 @@ def _tree_leaves(tree) -> list[torch.Tensor]:
     return out
 
 
-def sync(device: torch.device) -> None:
-    """Wait for the device's current stream, so a shard's compute time is a
-    device-time measure (the prefetch thread keeps uploading meanwhile)."""
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
+def target_devices(target) -> list[torch.device]:
+    """The distinct devices of a placement target: a device, or a
+    ``TpPlacement``'s mesh."""
+    return target.mesh.distinct if isinstance(target, TpPlacement) else [target]
 
 
-def peak_mem_gb(device: torch.device) -> float | None:
-    """Peak device memory allocated by PyTorch on a CUDA device."""
-    if device.type != "cuda":
-        return None
-    return torch.cuda.max_memory_allocated(device) / 1e9
+def sync(device) -> None:
+    """Wait for the device's current stream (every device of a
+    ``TpPlacement``), so a shard's compute time is a device-time measure
+    (the prefetch thread keeps uploading meanwhile)."""
+    for dev in target_devices(device):
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+
+
+def peak_mem_gb(device) -> float | None:
+    """Peak device memory allocated by PyTorch on a CUDA device (the
+    largest over a ``TpPlacement``'s devices)."""
+    peaks = [torch.cuda.max_memory_allocated(d) / 1e9
+             for d in target_devices(device) if d.type == "cuda"]
+    return max(peaks) if peaks else None
+
+
+def _pinned_block(t: torch.Tensor) -> torch.Tensor:
+    """A page-locked host tensor's slice as one page-locked block (a
+    column slice is strided: copied so that it uploads asynchronously as
+    one block); any other tensor as it is."""
+    if t.is_contiguous() or t.device.type != "cpu" or not t.is_pinned():
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
 
 
 class _Fault:
@@ -304,6 +334,11 @@ class ShardWeightSource:
     on, and the consumer takes ``len(shards)`` items per sweep and must
     ``close()`` (or ``abort()``) the source to end it.
 
+    ``device`` a ``TpPlacement``: every layer is placed as one tree per
+    rank (the module's docstring); an item's event is then one per
+    distinct device. ``rank_bytes`` counts each rank's uploaded bytes, and
+    ``bytes_loaded`` counts a replicated leaf once per distinct device.
+
     Stats: ``load_time`` (host reads, misses only), ``bytes_loaded`` (host
     bytes uploaded, hits and pin loads included), ``retries`` (a
     ``RetryRecorder``) and ``integrity`` (an ``IntegrityRecorder``), the
@@ -334,11 +369,13 @@ class ShardWeightSource:
         self.dtype = dtype
         self.device = device
         self.tied = tied_embeddings
-        self._cuda = device.type == "cuda"
-        self._stream = torch.cuda.Stream(device) if self._cuda else None
+        first = target_devices(device)[0]
+        self.rank_bytes = [0] * device.size if isinstance(device, TpPlacement) else None
+        self._cuda = first.type == "cuda"
+        self._stream = torch.cuda.Stream(first) if self._cuda else None
         # One upload stream per device the shards go to.
         self._streams: dict[torch.device, torch.cuda.Stream] = (
-            {device: self._stream} if self._cuda else {})
+            {first: self._stream} if self._cuda else {})
         self.load_time = 0.0
         self.bytes_loaded = 0
         self.retries = RetryRecorder() if retry_recorder is None else retry_recorder
@@ -504,14 +541,53 @@ class ShardWeightSource:
             return {k: self._place_tree(v, device) for k, v in tree.items()}
         return None if tree is None else self._place_leaf(tree, device)
 
-    def place_layer(self, name: str, tree, device: torch.device | None = None) -> dict[str, Any]:
+    def place_layer(self, name: str, tree, device=None):
         """One layer's host tree on ``device`` (default: the source's), on
         the current stream: cast, quantized leaf-groups dequantized, a tied
-        float head transposed."""
-        placed = self._place_tree(tree, self.device if device is None else device)
+        float head transposed. The embedding and the final norm are one
+        tree on the target's first device, where the activations live; a
+        decoder layer and the head are a list of rank trees: one per rank
+        of a ``TpPlacement``, one on a device."""
+        device = self.device if device is None else device
+        if name in ("model.embed_tokens", "model.norm"):
+            if isinstance(device, TpPlacement) and self.rank_bytes is not None:
+                self.rank_bytes[0] += tree_nbytes(tree)  # the first rank's upload
+            return self._place_tree(tree, target_devices(device)[0])
+        if isinstance(device, TpPlacement):
+            ranks = self._place_ranks(name, tree, device)
+        else:
+            ranks = [self._place_tree(tree, device)]
         if name == "lm_head" and self.tied and not checkpoint.is_quantized_leaf(tree["kernel"]):
-            placed = {"kernel": placed["kernel"].T}
-        return placed
+            ranks = [{"kernel": r["kernel"].T} for r in ranks]
+        return ranks
+
+    def _place_rank_leaf(self, leaf, device: torch.device):
+        """One rank's slice of a leaf (or leaf-group) on its device, on that
+        device's upload stream."""
+        if checkpoint.is_quantized_leaf(leaf):
+            leaf = {k: _pinned_block(v) for k, v in leaf.items()}
+        else:
+            leaf = _pinned_block(leaf)
+        if device.type != "cuda":
+            return self._place_leaf(leaf, device)
+        with torch.cuda.stream(self._upload_stream(device)):
+            return self._place_leaf(leaf, device)
+
+    def _place_ranks(self, name: str, tree, placement: TpPlacement) -> list:
+        """A decoder layer's or the head's host tree as one placed tree per
+        rank of ``placement`` (a tied float head split as the embedding
+        [V, D] it arrives as); the bytes a replicated leaf moves to a second
+        distinct device are added to ``bytes_loaded``."""
+        specs = placement.layer_specs_for(name, tree, tied_head=self.tied)
+        moved = [0] * placement.size
+        ranks = shard_params(tree, placement.mesh, specs, self._place_rank_leaf, moved)
+        if self.rank_bytes is not None:
+            self.rank_bytes = [a + b for a, b in zip(self.rank_bytes, moved)]
+        extra = sum(moved) - tree_nbytes(tree)
+        if extra > 0:
+            self.bytes_loaded += extra
+            _count_streamed(extra)
+        return ranks
 
     def build_host_shard(self, layer_idxs: tuple[int, ...]) -> list[tuple[str, Any]]:
         """The shard's host trees: from the cache, or read and verified
@@ -565,26 +641,32 @@ class ShardWeightSource:
             self._streams[device] = torch.cuda.Stream(device)
         return self._streams[device]
 
-    def place_parts(self, parts, hosts, device: torch.device):
-        """A built shard on ``device``: (segments, the upload's event or
-        None). On a card the stream runs upload on the device's upload
-        stream; the pins are the tier's trees on that device. An upload
-        that fails waits for what it queued before the error propagates, so
-        a retry never reuses memory a queued copy still writes."""
+    def place_parts(self, parts, hosts, device):
+        """A built shard on ``device``: (segments, the upload's events, one
+        per distinct device of the target, or None off a card). On a card
+        the upload runs on each device's upload stream;
+        the pins are the tier's trees on that target. An upload that fails
+        waits for what it queued before the error propagates, so a retry
+        never reuses memory a queued copy still writes."""
         pinned = {val: self._residency.segments(val, device, self)
                   for kind, val in parts if kind == "pin"}
         event = None
-        if device.type == "cuda":
-            stream = self._upload_stream(device)
+        devs = target_devices(device)
+        if devs[0].type == "cuda":
+            streams = [self._upload_stream(d) for d in devs]
             try:
-                with torch.cuda.stream(stream):
+                with torch.cuda.stream(streams[0]):
                     placed_runs = [[(n, self.place_layer(n, t, device)) for n, t in host]
                                    for host in hosts]
-                    event = torch.cuda.Event()
-                    event.record(stream)
+                    events = {}
+                    for d, stream in zip(devs, streams):
+                        events[d] = torch.cuda.Event()
+                        events[d].record(stream)
             except BaseException:
-                stream.synchronize()
+                for stream in streams:
+                    stream.synchronize()
                 raise
+            event = events
         else:
             placed_runs = [[(n, self.place_layer(n, t, device)) for n, t in host]
                            for host in hosts]
@@ -644,11 +726,11 @@ class ShardWeightSource:
         _, segments, event, device = item
         if isinstance(device, list):  # one placement per replica
             return [self._ready((None, *placed)) for placed in zip(segments, event, device)]
-        if event is not None:
-            stream = torch.cuda.current_stream(device)
-            stream.wait_event(event)
+        if event is not None:  # one upload event per device of the target
+            for dev, ev in event.items():
+                torch.cuda.current_stream(dev).wait_event(ev)
             for t in _tree_leaves([p for _, p in segments]):
-                t.record_stream(stream)
+                t.record_stream(torch.cuda.current_stream(t.device))
         return segments
 
     def _put(self, item) -> bool:
@@ -975,8 +1057,9 @@ class StreamStats:
         return out
 
     def read_peak(self, stats: dict) -> None:
-        """``peak_mem_gb`` of a CUDA run, floored at the residency tier's
-        bytes on the device (they stay there for the whole run)."""
+        """``peak_mem_gb`` of a CUDA run (the largest of a ``TpPlacement``'s
+        devices), floored at the residency tier's bytes on the target (they
+        stay there for the whole run)."""
         peak = peak_mem_gb(self.device)
         if self.tier is not None:
             pinned_gb = self.tier.pinned_device_bytes(self.device) / 1e9
@@ -1152,6 +1235,14 @@ def process_block(model_cfg: LlamaConfig, dtype: torch.dtype, segments: Segments
         store.store(b, idxs, prefix_h, suffix_h)
 
 
+def note_rank_bytes(stats: dict, source) -> None:
+    """``tp_rank_bytes``: the most bytes one tensor-parallel rank uploaded
+    through ``source`` (its own source's; a broadcast view has none)."""
+    rank_bytes = getattr(source, "rank_bytes", None)
+    if rank_bytes:
+        stats["tp_rank_bytes"] = float(max(rank_bytes))
+
+
 class StreamingExecutor:
     """Layer-streaming scorer on one device: one device alone, or one DP
     rank.
@@ -1168,6 +1259,12 @@ class StreamingExecutor:
     ``weight_source_factory``: each call takes its stream from it instead
     of opening a ``ShardWeightSource`` (a DP rank's broadcast view); a
     resumed rank then drops the shards it finished.
+
+    ``device`` a ``TpPlacement`` (``--tensor_parallel``): every shard is
+    streamed Megatron-split over its devices, and the activations, the
+    stores and the scores live on its first device (:attr:`device`); each
+    call's stats add ``tp_rank_bytes``, the bytes the busiest rank
+    uploaded.
     """
 
     # The registry source of the latest call's stats (a subclass names its own).
@@ -1178,6 +1275,11 @@ class StreamingExecutor:
                  weight_source_factory=None):
         self.cfg = cfg
         self.weight_source_factory = weight_source_factory
+        # The weights' placement target: a device, or a TpPlacement whose
+        # first device holds the activations.
+        self.placement = device if isinstance(device, TpPlacement) else None
+        if self.placement is not None:
+            device = self.placement.device
         self.device = device if device is not None else resolve_device(cfg.device)
         self.model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
         self.dtype = cfg.torch_dtype
@@ -1216,9 +1318,14 @@ class StreamingExecutor:
         REGISTRY.register(self.REGISTRY_NAME, weak_source(self))
         self.recorder = metrics.Recorder(verbose=True) if cfg.verbose_metrics else None
 
+    @property
+    def target(self):
+        """Where the weights go: the TpPlacement, or the device."""
+        return self.placement if self.placement is not None else self.device
+
     def _pin_tier(self):
         return residency.tier_for(self.cfg, self.layer_names, self.model_cfg.tie_word_embeddings,
-                                  self.device)
+                                  residency.probe_chip(self.target))
 
     def weight_source(self, n_passes: int = 1, start: int = 0, shards=None,
                       devices=None, injector=None) -> tuple[ShardWeightSource, StreamStats]:
@@ -1230,11 +1337,11 @@ class StreamingExecutor:
         cfg = self.cfg
         cache = cache_for(cfg)
         tier = self._residency
-        stats = StreamStats(cache, tier, self.device)
+        stats = StreamStats(cache, tier, self.target)
         shards = list(self.plan.shards[start:]) if shards is None else list(shards)
         source = ShardWeightSource(
             cfg.model_path, self.layer_names, shards * n_passes,
-            self.dtype, self.device, cfg.prefetch_depth, self.model_cfg.tie_word_embeddings,
+            self.dtype, self.target, cfg.prefetch_depth, self.model_cfg.tie_word_embeddings,
             verify_weights=cfg.verify_weights, host_cache=cache,
             readahead_threads=cfg.readahead_threads, retry_policy=cfg.retry_policy(),
             residency=tier, devices=None if devices is None else list(devices) * n_passes,
@@ -1339,7 +1446,7 @@ class StreamingExecutor:
         else:
             # A shared stream yields every shard: a resumed rank drops the
             # ones it finished.
-            host_stats = StreamStats(None, device=self.device, shared=True)
+            host_stats = StreamStats(None, device=self.target, shared=True)
             source = self.weight_source_factory()
             skip, bytes_before = start, source.bytes_loaded
         store = self.activation_store(source, batch)
@@ -1375,7 +1482,7 @@ class StreamingExecutor:
                             bar.update(1)
                         if not blocks:
                             bar.update(1)
-                        sync(self.device)
+                        sync(self.target)
                     compute_time += time.perf_counter() - t0
                     if resumable:
                         if shard_pos + 1 < n_shards:
@@ -1403,6 +1510,7 @@ class StreamingExecutor:
         }
         if self.weight_source_factory is not None:
             self.stats["load_time_shared"] = self.stats["streamed_bytes_shared"] = 1.0
+        note_rank_bytes(self.stats, source)
         host_stats.read_peak(self.stats)
         self.stats_history.append(dict(self.stats))
         if self.recorder is not None:
@@ -1431,4 +1539,5 @@ __all__ = [
     "process_block",
     "stream_stats",
     "sync",
+    "target_devices",
 ]

@@ -176,7 +176,7 @@ def sharded_prefix_suffix_layer(params: Sequence[Params], cfg: LlamaConfig, mesh
     suffix_set = _partials(qr, ks, vs, suffix_mask[None], scale, softcap)
 
     attn_s = _joint([prefix_set, suffix_set], n_kv * g, cfg.v_dim, suffix_h.dtype)
-    suffix_out = llama._residual_mlp(p0, cfg, llama._residual_attn(p0, cfg, suffix_h, attn_s))
+    suffix_out = llama._residual_mlp([p0], cfg, llama._residual_attn(p0, cfg, suffix_h, attn_s))
     if return_kv:
         return prefix_out, suffix_out, {"kp": k_blks, "vp": v_blks, "ks": ks, "vs": vs}
     return prefix_out, suffix_out
@@ -245,7 +245,7 @@ def sharded_decode_layer(params: Sequence[Params], cfg: LlamaConfig, mesh: Devic
     gen_set = _partials(qr, kv["kg"], kv["vg"], vis, scale, softcap)
 
     attn = _joint([prefix_set, suffix_set, gen_set], n_kv * g, cfg.v_dim, x.dtype)
-    return llama._residual_mlp(p0, cfg, llama._residual_attn(p0, cfg, x, attn)), kv
+    return llama._residual_mlp([p0], cfg, llama._residual_attn(p0, cfg, x, attn)), kv
 
 
 class LongContextScorer:
@@ -358,7 +358,7 @@ class LongContextScorer:
                     suffix_h = llama.embed(params[0], suffix_ids, self.dtype, mc)
                 elif kind == "decoders":
                     for i in range(len(params[0])):
-                        layer = [p[i] for p in params]
+                        layer = [p[i][0] for p in params]  # each device's one rank
                         out = sharded_prefix_suffix_layer(
                             layer, mc, self.mesh, prefix_x, suffix_h, t.prefix_len,
                             sliding=self._sliding[first + i], rope_on=self._rope[first + i],
@@ -481,7 +481,7 @@ class LongContextDecoder(LongContextScorer):
                     elif kind == "decoders":
                         for i in range(len(params[0])):
                             x, kv_layers[li] = sharded_decode_layer(
-                                [p[i] for p in params], mc, self.mesh, x, kv_layers[li],
+                                [p[i][0] for p in params], mc, self.mesh, x, kv_layers[li],
                                 t.prefix_len, suffix_eos, step,
                                 sliding=self._sliding[first + i], rope_on=self._rope[first + i])
                             li += 1

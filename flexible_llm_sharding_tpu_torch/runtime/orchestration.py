@@ -1,7 +1,11 @@
 """Entry points over a list of devices (the JAX package's
-``runtime/orchestration.py``, without tensor parallelism or several hosts).
+``runtime/orchestration.py``, without several hosts).
 
 - One device: a ``StreamingExecutor`` (or a ``DecodeGenerator``).
+- ``tensor_parallel`` > 1, ``data_parallel`` off: one executor (or
+  generator) whose every shard is Megatron-split over the first
+  ``tensor_parallel`` devices (a ``parallel/sharding.TpPlacement``); it
+  takes the place of the MP pipeline.
 - Several, ``data_parallel`` off: the interleaved MP pipeline
   (``runtime/pipeline.py``; for decode, a ``DecodeGenerator`` over
   ``mp_devices``).
@@ -9,7 +13,9 @@
   ``np.array_split`` sizes, one thread and one executor (or generator) per
   rank with prompts, all fed by one ``BroadcastShardSource`` that reads each
   shard once per pass. A rank's failure closes the source, unblocking the
-  others, and its own exception is the one raised.
+  others, and its own exception is the one raised. With
+  ``tensor_parallel`` > 1 (DP×TP) a rank is a group of that many devices,
+  a ``TpPlacement``, and each host build is cut per group rank.
 
 - ``long_context``: the prompts whose untruncated prefix is longer than
   ``max_token_len`` are scored (or decoded) over the whole device list as
@@ -30,6 +36,7 @@ the CLI's stats line: a DP fan-out's dict counts the shared stream once.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from concurrent.futures import FIRST_EXCEPTION, ThreadPoolExecutor, wait
 from typing import Sequence
@@ -49,6 +56,7 @@ from flexible_llm_sharding_tpu_torch.parallel.planner import (
     plan_shards_dp,
     split_prompts_dp,
 )
+from flexible_llm_sharding_tpu_torch.parallel.sharding import TpPlacement
 from flexible_llm_sharding_tpu_torch.runtime import residency
 from flexible_llm_sharding_tpu_torch.runtime.decode import DecodeGenerator
 from flexible_llm_sharding_tpu_torch.runtime.executor import (
@@ -57,6 +65,7 @@ from flexible_llm_sharding_tpu_torch.runtime.executor import (
     StreamingExecutor,
     StreamStats,
     peak_over,
+    target_devices,
 )
 from flexible_llm_sharding_tpu_torch.runtime.hostcache import cache_for
 from flexible_llm_sharding_tpu_torch.runtime.longcontext import (
@@ -124,10 +133,37 @@ def _run_batched(ex: StreamingExecutor, prompts: list[Prompt], num_batch: int):
     return out
 
 
-def _dp_targets(cfg: FrameworkConfig, devices: list):
-    """The DP ranks' execution targets: the devices themselves (groups of
-    tensor-parallel devices are not ported)."""
-    return list(devices), len(devices)
+def _tp_placement(cfg: FrameworkConfig, devices: list) -> TpPlacement:
+    """The Megatron placement of ``--tensor_parallel`` over the first
+    ``tensor_parallel`` devices, its divisibility checked."""
+    if len(devices) < cfg.tensor_parallel:
+        raise ValueError(f"tensor_parallel={cfg.tensor_parallel} needs that many "
+                         f"chips, have {len(devices)}")
+    model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
+    placement = TpPlacement(devices[: cfg.tensor_parallel], model_cfg)
+    placement.check(model_cfg)
+    return placement
+
+
+def _dp_targets(cfg: FrameworkConfig, devices: list, model_cfg: LlamaConfig):
+    """The DP ranks' execution targets: the devices themselves, or with
+    ``tensor_parallel`` > 1 (DP×TP) one ``TpPlacement`` per group of
+    ``tensor_parallel`` devices. Returns (targets, count)."""
+    tp = cfg.tensor_parallel
+    if tp <= 1:
+        return list(devices), len(devices)
+    n = len(devices) // tp
+    if n < 2:
+        raise ValueError(
+            f"data_parallel with tensor_parallel={tp} needs at least {2 * tp} chips (2+ groups "
+            f"of tp), have {len(devices)}; drop --data_parallel for single-group tensor "
+            "parallelism")
+    if len(devices) % tp:
+        print(f"dp x tp: {len(devices) % tp} of {len(devices)} chips idle (device count not a "
+              f"multiple of tensor_parallel={tp})", file=sys.stderr)
+    targets = [TpPlacement(devices[g * tp:(g + 1) * tp], model_cfg) for g in range(n)]
+    targets[0].check(model_cfg)  # one config for every group
+    return targets, n
 
 
 def _devices(cfg: FrameworkConfig, devices) -> list[torch.device]:
@@ -227,7 +263,17 @@ def run_prompts(cfg: FrameworkConfig, prompts: Sequence[Prompt], tokenizer=None,
                                       [prompts[i] for i in rest_idx], tokenizer=tokenizer,
                                       devices=devices, calls=calls)
             return _merge_by_index(len(prompts), (long_idx, long_scores), (rest_idx, rest_scores))
-    if len(devices) <= 1 or not cfg.data_parallel:
+    if cfg.tensor_parallel > 1 and not cfg.data_parallel:
+        # One executor whose every shard is Megatron-split over the tp
+        # devices; it takes the MP pipeline's place.
+        ex = StreamingExecutor(cfg, device=_tp_placement(cfg, devices), tokenizer=tokenizer)
+        out = _run_batched(ex, prompts, cfg.num_batch)
+        _record(calls, ex.stats_history)
+        return out
+    # DP×TP never falls back to one device or the pipeline on a short
+    # device list: _dp_targets refuses it.
+    dp_tp = cfg.tensor_parallel > 1 and cfg.data_parallel
+    if not dp_tp and (len(devices) <= 1 or not cfg.data_parallel):
         if len(devices) > 1:
             runner = PipelineRunner(cfg, devices, tokenizer=tokenizer)
             out = runner(prompts)
@@ -243,7 +289,7 @@ def run_prompts(cfg: FrameworkConfig, prompts: Sequence[Prompt], tokenizer=None,
     # the broadcast, so the producer never waits on an idle queue.
     t0 = time.perf_counter()
     model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
-    targets, n = _dp_targets(cfg, devices)
+    targets, n = _dp_targets(cfg, devices, model_cfg)
     ranges = split_prompts_dp(len(prompts), n)
     layer_names = checkpoint.layer_names_for(model_cfg.num_hidden_layers)
     n_layers = len(layer_names)
@@ -301,10 +347,15 @@ def run_decode(cfg: FrameworkConfig, prompts: Sequence[Prompt], tokenizer=None,
             return (_merge_by_index(len(prompts), (long_idx, l_scores), (rest_idx, r_scores)),
                     _merge_by_index(len(prompts), (long_idx, l_updated), (rest_idx, r_updated)),
                     l_tokens + r_tokens)
+    if cfg.tensor_parallel > 1 and not cfg.data_parallel:
+        # One generator whose weights are Megatron-split over the tp
+        # devices, each rank's KV heads on its device.
+        return one(DecodeGenerator(cfg, device=_tp_placement(cfg, devices), tokenizer=tokenizer))
     if len(devices) > 1 and not cfg.data_parallel:
         # The interleaved pipeline: each stage's weights and KV on its device.
         return one(DecodeGenerator(cfg, tokenizer=tokenizer, mp_devices=devices))
-    if len(devices) <= 1 or len(prompts) <= 1:
+    dp_tp = cfg.tensor_parallel > 1 and cfg.data_parallel
+    if not dp_tp and (len(devices) <= 1 or len(prompts) <= 1):
         return one(DecodeGenerator(cfg, device=devices[0], tokenizer=tokenizer))
 
     # DP decode: one broadcast stream, a round per weight pass (prefill and
@@ -312,12 +363,14 @@ def run_decode(cfg: FrameworkConfig, prompts: Sequence[Prompt], tokenizer=None,
     # decided here, once, so every rank agrees with the round count.
     t0 = time.perf_counter()
     model_cfg = LlamaConfig.from_pretrained(cfg.model_path)
-    targets, n = _dp_targets(cfg, devices)
+    targets, n = _dp_targets(cfg, devices, model_cfg)
     ranges = split_prompts_dp(len(prompts), n)
     layer_names = checkpoint.layer_names_for(model_cfg.num_hidden_layers)
     active = [rank for rank in range(n) if ranges[rank][0] < ranges[rank][1]]
     active_devs = [targets[r] for r in active]
-    resident = cfg.decode_resident_enabled(model_cfg, 1, residency.probe_chip(active_devs[0]))
+    # A group's weights divide over its distinct devices.
+    resident = cfg.decode_resident_enabled(model_cfg, len(target_devices(active_devs[0])),
+                                           residency.probe_chip(active_devs[0]))
     source, host_stats, tier = _broadcast(
         cfg, model_cfg, layer_names,
         plan_shards_dp(len(layer_names), cfg.layer_num_per_shard).shards, active_devs,

@@ -355,11 +355,11 @@ def _next_token_probs(params_dev, model_cfg, rows, device) -> np.ndarray:
         ph = llama.embed(params_dev["embed"], prefix_ids.to(device), torch.float32, model_cfg)
         sh = llama.embed(params_dev["embed"], suffix_ids.to(device), torch.float32, model_cfg)
         for li, layer in enumerate(params_dev["layers"]):
-            ph, sh = llama.prefix_suffix_layer(layer, model_cfg, ph, sh, prefix_len,
+            ph, sh = llama.prefix_suffix_layer([layer], model_cfg, ph, sh, prefix_len,
                                                sliding=sliding[li], total_len=total_len,
                                                rope_on=rope_on[li], use_pallas=True)
         h = llama.select_eos_and_norm(params_dev["norm"], model_cfg, sh, suffix_eos)
-        probs = llama.lm_head_scores(head, h, model_cfg.final_logit_softcap)[:, 0]
+        probs = llama.lm_head_scores([head], h, model_cfg.final_logit_softcap)[:, 0]
         probs = probs.cpu().numpy()
         for j, i in enumerate(idxs):
             out[i] = probs[j]

@@ -51,6 +51,7 @@ import torch
 
 from flexible_llm_sharding_tpu_torch.obs import trace as obs_trace
 from flexible_llm_sharding_tpu_torch.obs.registry import REGISTRY
+from flexible_llm_sharding_tpu_torch.parallel.sharding import TpPlacement
 from flexible_llm_sharding_tpu_torch.utils import checkpoint
 
 # Auto budget: the share of the card's total memory held back for
@@ -186,23 +187,32 @@ def auto_pin_budget_bytes(device=None) -> int:
     return int(max(0.0, free - ACTIVATION_HEADROOM_FRACTION * total))
 
 
-def placement_key(device) -> tuple:
-    """A placement target's identity (pins survive a rebuilt device
-    object)."""
-    if device is None:
-        return ("default",)
-    dev = torch.device(device)
+def _device_key(dev: torch.device) -> tuple:
     index = dev.index
     if dev.type == "cuda" and index is None:
         index = torch.cuda.current_device()
-    return ("device", dev.type, index)
+    return (dev.type, index)
+
+
+def placement_key(device) -> tuple:
+    """A placement target's identity (pins survive a rebuilt device
+    object): a device, or a ``TpPlacement`` by its mesh's device list, so
+    a rebuilt placement hits the same per-rank pins."""
+    if device is None:
+        return ("default",)
+    if isinstance(device, TpPlacement):
+        return ("tp", tuple(_device_key(d) for d in device.mesh.devices))
+    return ("device", *_device_key(torch.device(device)))
 
 
 def probe_chip(target):
     """The device whose memory a gate over ``target`` probes: one device is
     its own probe; a device list (the long-context mesh, whose pins
-    replicate on every distinct device) probes each distinct device and
-    gives the one with the least auto budget."""
+    replicate on every distinct device) or a ``TpPlacement`` (its ranks'
+    slices on each of its devices) probes each distinct device and gives
+    the one with the least auto budget."""
+    if isinstance(target, TpPlacement):
+        target = target.mesh.distinct
     if isinstance(target, (list, tuple)):
         return min(dict.fromkeys(torch.device(d) for d in target), key=auto_pin_budget_bytes)
     return target
@@ -212,6 +222,20 @@ def _tree_nbytes(tree) -> int:
     from flexible_llm_sharding_tpu_torch.runtime.hostcache import tree_nbytes
 
     return tree_nbytes(tree)
+
+
+def _placed_nbytes(tree, seen: set | None = None) -> int:
+    """Device bytes of a placed tree, each tensor once (tensor-parallel
+    ranks on one device share their replicated leaves)."""
+    seen = set() if seen is None else seen
+    if isinstance(tree, dict):
+        return sum(_placed_nbytes(v, seen) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_placed_nbytes(v, seen) for v in tree)
+    if isinstance(tree, torch.Tensor) and id(tree) not in seen:
+        seen.add(id(tree))
+        return tree.numel() * tree.element_size()
+    return 0
 
 
 def checkpoint_unavailable(name: str):
@@ -318,7 +342,7 @@ class DeviceResidencyTier:
         if seats.get(idx) is None:
             seats[idx] = placed
             self._host_nbytes.setdefault(idx, _tree_nbytes([t for _, t in host]))
-            self._dev_bytes[key] = self._dev_bytes.get(key, 0) + _tree_nbytes(
+            self._dev_bytes[key] = self._dev_bytes.get(key, 0) + _placed_nbytes(
                 [t for _, t in placed])
             self.pin_loads += 1
         return seats[idx]

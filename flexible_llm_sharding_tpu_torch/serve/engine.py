@@ -270,6 +270,9 @@ class ServeEngine:
             raise ValueError("long_context serving is not supported yet")
         if cfg.data_parallel:
             raise ValueError("serving drives a single device; drop data_parallel")
+        if cfg.tensor_parallel > 1:
+            raise ValueError("serving v1 drives a single placement target; drop "
+                             "data_parallel/tensor_parallel")
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
         # 0: one token per sweep; adaptive k provisions its verify slots at
@@ -1149,7 +1152,8 @@ class ServeEngine:
     def _assemble(self, st: _WaveState, b: int, seg_key: tuple, n_layers: int):
         """One block's pooled prefix KV of a decoder segment on the device:
         per layer (kp, vp) [B, Lp, n_kv, hd], uploaded from page-locked
-        memory in the compute dtype."""
+        memory in the compute dtype, each a list of its one rank's (serving
+        runs on one device)."""
         rows = [self._kv_pool.assemble(st.pool_handles[i], seg_key) for i in st.blocks[b]]
         out = []
         for j in (0, 1):
@@ -1157,14 +1161,15 @@ class ServeEngine:
             if self.device.type == "cuda":
                 host = host.pin_memory()
             dev = host.to(self.device, non_blocking=True)
-            out.append([dev[layer] for layer in range(n_layers)])
+            out.append([[dev[layer]] for layer in range(n_layers)])
         return out
 
-    def _bank(self, st: _WaveState, b: int, seg_key: tuple, kvs: list[dict]) -> None:
-        """Contribute a block segment's prefix KV to the pool, one row per
-        entry; the copy to the host completes before the entry can seal."""
-        k = torch.stack([kv["kp"].to("cpu") for kv in kvs])  # [k, B, Lp, n_kv, hd]
-        v = torch.stack([kv["vp"].to("cpu") for kv in kvs])
+    def _bank(self, st: _WaveState, b: int, seg_key: tuple, kvs: list[list[dict]]) -> None:
+        """Contribute a block segment's prefix KV (each layer's one rank's)
+        to the pool, one row per entry; the copy to the host completes
+        before the entry can seal."""
+        k = torch.stack([kv[0]["kp"].to("cpu") for kv in kvs])  # [k, B, Lp, n_kv, hd]
+        v = torch.stack([kv[0]["vp"].to("cpu") for kv in kvs])
         for row, i in enumerate(st.blocks[b]):
             self._kv_pool.contribute(st.pool_handles[i], seg_key, k[:, row], v[:, row])
 

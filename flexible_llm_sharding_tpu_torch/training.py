@@ -27,7 +27,8 @@ Usage:
     save_train_state(state, "ckpt/step_1000", cfg)
 
 The mesh arguments exist only to refuse: tensor and data parallel training
-wait for ROADMAP queue 1 item 4 (TP).
+wait for ROADMAP queue 1 item 8 (training's mesh parts), which builds on the
+tensor-parallel specs of ``parallel/sharding.py``.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ Params = dict[str, Any]
 
 _NO_MESH = (
     "training over a mesh (tensor or data parallel) is not ported: ROADMAP queue 1 "
-    "item 4 (TP); pass mesh=None"
+    "item 8 (training's mesh parts); pass mesh=None"
 )
 
 
@@ -387,7 +388,7 @@ class TrainState:
                device="cuda") -> "TrainState":
         """``params`` copied into trees of the state's own on ``device``
         (the card unless the caller names the CPU) and a fresh optimizer
-        state. ``mesh`` must be None (ROADMAP item 4)."""
+        state. ``mesh`` must be None (ROADMAP item 8)."""
         if mesh is not None:
             raise NotImplementedError(_NO_MESH)
         dev = resolve_device(str(device))
@@ -426,7 +427,7 @@ def make_train_step(cfg: LlamaConfig, optimizer, mesh=None, dp: str | None = Non
     updated in place and the returned state is the same object, one step on.
     ``accum_steps > 1``: tokens arrive as [accum_steps, B, L+1] and the update
     applies the microbatch-averaged gradient. ``mesh`` and ``dp`` (a data
-    parallel axis) must be None (ROADMAP item 4)."""
+    parallel axis) must be None (ROADMAP item 8)."""
     if mesh is not None or dp is not None:
         raise NotImplementedError(_NO_MESH)
 
@@ -599,7 +600,7 @@ def restore_train_state(path: str, cfg: LlamaConfig, optimizer, mesh=None,
     """Restore a :func:`save_train_state` (or ``StreamedTrainer.save_state``)
     directory onto ``device``, params and moments cast to ``dtype``. The
     optimizer must be the same recipe. An orbax directory raises
-    :class:`CheckpointFormatError`; ``mesh`` must be None (ROADMAP item 4)."""
+    :class:`CheckpointFormatError`; ``mesh`` must be None (ROADMAP item 8)."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
     open_state_dir(path)

@@ -41,7 +41,6 @@ from flexible_llm_sharding_tpu_torch.utils.checkpoint import save_params
 # its flag (the test below fails while a listed name is no difference).
 ALLOWED_DIFFERENCES = frozenset({
     "--device",  # the port's: cuda (default) or cpu
-    "--tensor_parallel",  # TP: not ported yet
     "--coordinator_address", "--num_processes", "--process_id",  # multi-host: not ported yet
 })
 PARSERS = ("build_parser", "build_serve_parser")

@@ -686,18 +686,18 @@ def test_nope_layer_graph_follows_the_position_across_replays(gen):
 
     def eager(c, lens):
         kv = {k: v.clone() for k, v in kv0.items()}
-        return llama.decode_step_layer(params, c, x, kv, lens, eos, t, sliding=False,
+        return llama.decode_step_layer([params], c, x, [kv], lens, eos, t, sliding=False,
                                        rope_on=False, use_pallas=True)
 
     kv_g = {k: v.clone() for k, v in kv0.items()}
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        llama.decode_step_layer(params, cfg, x, {k: v.clone() for k, v in kv0.items()}, plen, eos,
-                                t, sliding=False, rope_on=False, use_pallas=True)
+        llama.decode_step_layer([params], cfg, x, [{k: v.clone() for k, v in kv0.items()}], plen,
+                                eos, t, sliding=False, rope_on=False, use_pallas=True)
         graph = torch.cuda.CUDAGraph()
         with fa.graph_capture(), torch.cuda.graph(graph, stream=side):
-            out = llama.decode_step_layer(params, cfg, x, kv_g, plen, eos, t, sliding=False,
+            out = llama.decode_step_layer([params], cfg, x, [kv_g], plen, eos, t, sliding=False,
                                           rope_on=False, use_pallas=True)
     torch.cuda.current_stream().wait_stream(side)
     plain = LlamaConfig.from_dict({**_DECODE_MODELS["llama4"], "num_hidden_layers": 1,
@@ -792,8 +792,10 @@ def test_suffix_only_layer_equals_the_full_layers_suffix_stream_in_bf16(gen, tmp
         layer = _to_cuda(load_layer(model_dir, f"model.layers.{i}"))
         kw = dict(sliding=sliding[i], rope_on=rope_on[i], use_pallas=True)
         fa.reset_launch_counts()
-        _, s_out, kv = llama.prefix_suffix_layer(layer, cfg, ph, sh, plen, return_kv=True, **kw)
-        out, kv_s = llama.suffix_only_layer(layer, cfg, kv["kp"], kv["vp"], sh, plen, **kw)
+        _, s_out, (kv,) = llama.prefix_suffix_layer([layer], cfg, ph, sh, plen, return_kv=True,
+                                                    **kw)
+        out, (kv_s,) = llama.suffix_only_layer([layer], cfg, [kv["kp"]], [kv["vp"]], sh, plen,
+                                               **kw)
         torch.cuda.synchronize()
         assert fa.launch_counts()["flash_prefix_shared_attention"] == 2
         assert torch.equal(out, s_out)
@@ -1757,3 +1759,35 @@ def test_use_pallas_false_serve_engine_launches_no_kernel(gen, tmp_path):
     for g, w in zip(got, want):
         assert g.updated == w.updated
         np.testing.assert_allclose(g.scores, w.scores, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("kv", [False, True], ids=["scoring", "kv_cache"])
+def test_tp_over_one_card_equals_the_cpu_and_one_card(gen, tmp_path, kv):
+    """Tensor parallelism at tp = 2 over [cuda:0] * 2, float32: scores
+    within 1e-6 of [cpu] * 2 and of one card, the same tokens, and each
+    kernel launched once per rank (twice the one card's launches; decode
+    resident, its steps captured in one CUDA graph per block)."""
+    from flexible_llm_sharding_tpu_torch.config import FrameworkConfig
+
+    model_dir = _decode_model(tmp_path, "llama")
+
+    def cfg(device, tp):
+        return FrameworkConfig(model_path=model_dir, dtype="float32", block_size=2,
+                               device=device, disk_folder=str(tmp_path / "acts"),
+                               num_gen_token=4 if kv else 1, tensor_parallel=tp)
+
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    one_card, one_up, _, counts = _md_run(cfg("cuda", 1), [card], kv=kv)
+    tp_card, tp_up, calls, tp_counts = _md_run(cfg("cuda", 2), [card] * 2, kv=kv)
+    tp_cpu, cpu_up, _, _ = _md_run(cfg("cpu", 2), [cpu] * 2, kv=kv)
+    wanted = fa.KERNELS if kv else ("flash_causal_attention", "flash_prefix_shared_attention")
+    assert all(counts[k] > 0 for k in wanted)
+    assert tp_counts == {k: 2 * counts[k] for k in fa.KERNELS}
+    if kv:
+        assert calls[-1]["decode_graph"] == 1.0
+    assert tp_up == one_up == cpu_up
+    for got, a, b in zip(tp_card, one_card, tp_cpu):
+        assert np.array_equal(got.argmax(-1), a.argmax(-1))
+        assert np.array_equal(got.argmax(-1), b.argmax(-1))
+        np.testing.assert_allclose(got, a, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(got, b, atol=1e-6, rtol=0)

@@ -426,7 +426,7 @@ def test_gen_slots_and_extended_kv_match_jax(budget, spec_k):
     kv = {"kp": torch.zeros(2, 9, 4, 24), "vp": torch.zeros(2, 9, 4, 12),
           "ks": torch.ones(2, 3, 5, 4, 24), "vs": torch.ones(2, 3, 5, 4, 12)}
     jkv = {k: jnp.asarray(v.numpy())[None] for k, v in kv.items()}
-    got = decode.extend_gen_kv(kv, slots)
+    (got,) = decode.extend_gen_kv([kv], slots)
     want = jdecode.extend_gen_kv(jkv, slots, jnp.float32)
     for k in ("kg", "vg"):
         assert tuple(got[k].shape) == want[k].shape[1:] and not got[k].any()
@@ -476,8 +476,8 @@ def test_decode_step_layer_matches_jax(k, per_suffix, sliding):
         x, kv, plen, eos, jnp.asarray(t))
     tkv = {n: torch.from_numpy(v.copy()) for n, v in kv.items()}
     got_x = llama.decode_step_layer(
-        params_from_jax(params_np, cfg)["layers"][0], cfg,
-        torch.from_numpy(x), tkv, torch.from_numpy(plen), torch.from_numpy(eos),
+        [params_from_jax(params_np, cfg)["layers"][0]], cfg,
+        torch.from_numpy(x), [tkv], torch.from_numpy(plen), torch.from_numpy(eos),
         torch.from_numpy(t) if per_suffix else t, sliding=sliding, use_pallas=True)
     np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), atol=1e-5, rtol=0)
     for n in ("kg", "vg"):
@@ -489,7 +489,7 @@ def test_lm_head_scores_multi_matches_jax():
     h = rng.standard_normal((2, 3, 4, 16)).astype(np.float32)
     w = rng.standard_normal((16, 40)).astype(np.float32)
     for softcap in (None, 5.0):
-        got = llama.lm_head_scores_multi({"kernel": torch.from_numpy(w)}, torch.from_numpy(h),
+        got = llama.lm_head_scores_multi([{"kernel": torch.from_numpy(w)}], torch.from_numpy(h),
                                          softcap)
         want = jllama.lm_head_scores_multi({"kernel": jnp.asarray(w)}, jnp.asarray(h), softcap)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)

@@ -27,19 +27,36 @@ FAMILIES = {
 }
 
 
+@pytest.fixture(scope="module")
+def family_splits(tmp_path_factory):
+    """family -> a directory holding its transformers checkpoint, the
+    port's ``prepare_weights`` output and the JAX split, built once and
+    shared by the family's modes."""
+    built = {}
+
+    def get(family):
+        if family not in built:
+            root = tmp_path_factory.mktemp(f"family_{family}")
+            hf_checkpoint(family, root / "hf", seed=2)
+            prepare_weights.main([str(root / "hf"), str(root / "port"), "--dtype", "float32"])
+            jckpt.split_into_layers(str(root / "hf"), str(root / "jax"), dtype="float32")
+            built[family] = root
+        return built[family]
+
+    return get
+
+
 @pytest.mark.parametrize("mode", [[], ["--kv_cache", "true"]], ids=["generation_loop", "kv_cache"])
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_family_cli_matches_jax_cli(tmp_path, family, mode):
-    hf_checkpoint(family, tmp_path / "hf", seed=2)
-    prepare_weights.main([str(tmp_path / "hf"), str(tmp_path / "port"), "--dtype", "float32"])
-    jckpt.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "jax"), dtype="float32")
-    cfg = LlamaConfig.from_pretrained(str(tmp_path / "port"))
+def test_family_cli_matches_jax_cli(family_splits, tmp_path, family, mode):
+    root = family_splits(family)
+    cfg = LlamaConfig.from_pretrained(str(root / "port"))
     assert cfg.model_type == family
     for key, value in FAMILIES[family].items():
         assert getattr(cfg, key) == value, key
-    assert cfg == LlamaConfig.from_dict(JLlamaConfig.from_pretrained(str(tmp_path / "jax")).__dict__
+    assert cfg == LlamaConfig.from_dict(JLlamaConfig.from_pretrained(str(root / "jax")).__dict__
                                         | {"fls_native": True})
     extra = ["--num_gen_token", "3", *mode]
-    want = run_cli(jax_main, tmp_path / "jax", tmp_path, "jax", [*extra, "--num_devices", "1"])
-    got = run_cli(torch_main, tmp_path / "port", tmp_path, "torch", [*extra, "--device", "cpu"])
+    want = run_cli(jax_main, root / "jax", tmp_path, "jax", [*extra, "--num_devices", "1"])
+    got = run_cli(torch_main, root / "port", tmp_path, "torch", [*extra, "--device", "cpu"])
     assert_cli_match(got, want)

@@ -238,8 +238,8 @@ def test_prefix_suffix_layer_matches_jax(layer, use_pallas):
     sliding = jllama.layer_sliding_pattern(jcfg)[layer]
     rng = np.random.default_rng(10 + layer)
     ph, sh = _h(rng, B, LP, cfg.hidden_size), _h(rng, B, S, LS, cfg.hidden_size)
-    p_out, s_out, kv = llama.prefix_suffix_layer(
-        params["layers"][layer], cfg, torch.from_numpy(ph), torch.from_numpy(sh),
+    p_out, s_out, (kv,) = llama.prefix_suffix_layer(
+        [params["layers"][layer]], cfg, torch.from_numpy(ph), torch.from_numpy(sh),
         torch.from_numpy(PLEN), return_kv=True, sliding=sliding, use_pallas=use_pallas,
     )
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
@@ -271,7 +271,7 @@ def test_decode_step_layer_matches_jax(layer, use_pallas):
     t = 2
     kv = {k: torch.from_numpy(v.copy()) for k, v in kv_np.items()}
     out = llama.decode_step_layer(
-        params["layers"][layer], cfg, torch.from_numpy(x), kv, torch.from_numpy(PLEN),
+        [params["layers"][layer]], cfg, torch.from_numpy(x), [kv], torch.from_numpy(PLEN),
         torch.from_numpy(EOS), t, sliding=sliding, use_pallas=use_pallas,
     )
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])

@@ -47,8 +47,8 @@ def test_prefix_suffix_layer_matches_jax(use_pallas):
     jcfg, cfg, params_np, params = _model()
     rng = np.random.default_rng(0)
     ph, sh = _h(rng, B, LP, cfg.hidden_size), _h(rng, B, S, LS, cfg.hidden_size)
-    p_out, s_out, kv = llama.prefix_suffix_layer(
-        params["layers"][0], cfg, torch.from_numpy(ph), torch.from_numpy(sh),
+    p_out, s_out, (kv,) = llama.prefix_suffix_layer(
+        [params["layers"][0]], cfg, torch.from_numpy(ph), torch.from_numpy(sh),
         torch.from_numpy(PLEN), return_kv=True, use_pallas=use_pallas,
     )
     jp = jax.tree.map(jnp.asarray, params_np["layers"][0])
@@ -81,7 +81,7 @@ def test_decode_step_layer_matches_jax(use_pallas, head_dim):
     t = 1
     kv = {k: torch.from_numpy(v.copy()) for k, v in kv_np.items()}
     out = llama.decode_step_layer(
-        params["layers"][1], cfg, torch.from_numpy(x), kv, torch.from_numpy(PLEN),
+        [params["layers"][1]], cfg, torch.from_numpy(x), [kv], torch.from_numpy(PLEN),
         torch.from_numpy(EOS), t, use_pallas=use_pallas,
     )
     jp = jax.tree.map(jnp.asarray, params_np["layers"][1])
@@ -101,7 +101,7 @@ def test_norm_and_head_match_jax():
     rng = np.random.default_rng(2)
     sh = _h(rng, B, S, LS, cfg.hidden_size)
     h = llama.select_eos_and_norm(params["norm"], cfg, torch.from_numpy(sh), torch.from_numpy(EOS))
-    scores = llama.lm_head_scores(llama.head_params(params), h, cfg.final_logit_softcap)
+    scores = llama.lm_head_scores([llama.head_params(params)], h, cfg.final_logit_softcap)
     jnorm = jax.tree.map(jnp.asarray, params_np["norm"])
     jhead = jax.tree.map(jnp.asarray, jllama.head_params(params_np))
     for b in range(B):

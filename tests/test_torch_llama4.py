@@ -104,7 +104,7 @@ def test_llama4_moe_mlp_matches_jax(name, k):
     mlp = _params(jcfg, 3)["layers"][1]["mlp"]
     assert "shared_gate" in mlp and "correction_bias" not in mlp
     x = _x(np.random.default_rng(4), 3, 6, cfg.hidden_size)
-    got = llama._mlp({key: _t(v) for key, v in mlp.items()}, cfg, _t(x))
+    got = llama._mlp([{key: _t(v) for key, v in mlp.items()}], cfg, _t(x))
     want = jllama._mlp(jax.tree.map(jnp.asarray, mlp), jnp.asarray(x), jcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
@@ -118,9 +118,9 @@ def test_llama4_unselected_experts_add_exactly_nothing():
     chosen = set(llama._top_k(x @ mlp["router"], 1)[1].flatten().tolist())
     unused = [e for e in range(cfg.num_local_experts) if e not in chosen]
     assert unused
-    base = llama._mlp(mlp, cfg, x)
+    base = llama._mlp([mlp], cfg, x)
     mlp["up"][unused[0]] = float("inf")
-    out = llama._mlp(mlp, cfg, x)
+    out = llama._mlp([mlp], cfg, x)
     assert torch.isfinite(out).all() and torch.equal(out, base)
 
 
@@ -148,8 +148,8 @@ def test_prefix_suffix_layer_matches_jax(name, layer):
     sliding, rope_on = jcfg.layer_sliding[layer], jcfg.layer_rope[layer]
     rng = np.random.default_rng(20 + layer)
     ph, sh = _x(rng, B, LP, cfg.hidden_size), _x(rng, B, S, LS, cfg.hidden_size)
-    p_out, s_out, kv = llama.prefix_suffix_layer(
-        params["layers"][layer], cfg, _t(ph), _t(sh), _t(PLEN), return_kv=True,
+    p_out, s_out, (kv,) = llama.prefix_suffix_layer(
+        [params["layers"][layer]], cfg, _t(ph), _t(sh), _t(PLEN), return_kv=True,
         sliding=sliding, rope_on=rope_on, use_pallas=True)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
     for b in range(B):
@@ -180,7 +180,7 @@ def test_decode_step_layer_matches_jax(name, layer, per_suffix):
              "kg": _x(rng, B, S, T, nkv, hd), "vg": _x(rng, B, S, T, nkv, hd)}
     t = np.array([[1, 2], [0, 1]], np.int32) if per_suffix else 1
     kv = {k: _t(v.copy()) for k, v in kv_np.items()}
-    out = llama.decode_step_layer(params["layers"][layer], cfg, _t(x), kv, _t(PLEN), _t(EOS),
+    out = llama.decode_step_layer([params["layers"][layer]], cfg, _t(x), [kv], _t(PLEN), _t(EOS),
                                   _t(t) if per_suffix else t, sliding=sliding, rope_on=rope_on,
                                   use_pallas=True)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])

@@ -190,8 +190,12 @@ def _cfg(model_dir, **kw):
 
 def _jax_ref(model_dir, n_gen=0, prompts=PROMPTS):
     """JAX's single-device run with a cap that holds every prompt: scores
-    (``n_gen`` 0) or (scores, updated) of a KV decode."""
-    jcfg = JFrameworkConfig(**_common(model_dir, max_token_len=512, num_gen_token=max(n_gen, 1)))
+    (``n_gen`` 0) or (scores, updated) of a KV decode. Every layer in one
+    shard: one program to compile per pass kind (the shard plan moves no
+    number)."""
+    jcfg = JFrameworkConfig(**{**_common(model_dir, max_token_len=512,
+                                         num_gen_token=max(n_gen, 1)),
+                               "layer_num_per_shard": 16})
     if not n_gen:
         return jorch.run_prompts(jcfg, prompts, tokenizer=FakeTokenizer(),
                                  devices=jax.devices()[:1])

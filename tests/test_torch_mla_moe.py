@@ -126,7 +126,7 @@ def test_deepseek_moe_matches_jax(groups, norm):
     mlp = _params(jcfg, 3)["layers"][1]["mlp"]
     assert mlp["correction_bias"].min() < 0 < mlp["correction_bias"].max()
     x = _x(np.random.default_rng(4), 3, 6, 64)
-    got = llama._mlp({k: torch.from_numpy(v) for k, v in mlp.items()}, cfg, torch.from_numpy(x))
+    got = llama._mlp([{k: torch.from_numpy(v) for k, v in mlp.items()}], cfg, torch.from_numpy(x))
     want = jllama._mlp(jax.tree.map(jnp.asarray, mlp), jnp.asarray(x), jcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
@@ -144,7 +144,7 @@ def test_moe_mlp_matches_jax(norm):
     cfg = _port(jcfg)
     mlp = _params(jcfg, 5)["layers"][0]["mlp"]
     x = _x(np.random.default_rng(6), 2, 7, 64)
-    got = llama._mlp({k: torch.from_numpy(v) for k, v in mlp.items()}, cfg, torch.from_numpy(x))
+    got = llama._mlp([{k: torch.from_numpy(v) for k, v in mlp.items()}], cfg, torch.from_numpy(x))
     want = jllama._mlp(jax.tree.map(jnp.asarray, mlp), jnp.asarray(x), jcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
@@ -161,9 +161,9 @@ def test_unselected_experts_add_exactly_nothing():
     chosen = set(llama._top_k(probs, 2)[1].flatten().tolist())
     unused = [e for e in range(6) if e not in chosen]
     assert unused, "every expert was selected: pick another seed"
-    base = llama._mlp(mlp, cfg, x)
+    base = llama._mlp([mlp], cfg, x)
     mlp["up"][unused[0]] = float("inf")
-    out = llama._mlp(mlp, cfg, x)
+    out = llama._mlp([mlp], cfg, x)
     assert torch.isfinite(out).all()
     assert torch.equal(out, base)
 
@@ -266,8 +266,8 @@ def test_mla_prefix_suffix_layer_matches_jax(layer, use_pallas):
     jcfg, cfg, params_np, params = _layer_model()
     rng = np.random.default_rng(20 + layer)
     ph, sh = _x(rng, B, LPL, 64), _x(rng, B, S, LSL, 64)
-    p_out, s_out, kv = llama.prefix_suffix_layer(
-        params["layers"][layer], cfg, _t(ph), _t(sh), _t(PLEN_L), return_kv=True,
+    p_out, s_out, (kv,) = llama.prefix_suffix_layer(
+        [params["layers"][layer]], cfg, _t(ph), _t(sh), _t(PLEN_L), return_kv=True,
         use_pallas=use_pallas)
     assert tuple(kv["vp"].shape) == (B, LPL, 4, 12) and tuple(kv["kp"].shape) == (B, LPL, 4, 24)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
@@ -293,8 +293,8 @@ def test_mla_decode_step_layer_matches_jax(layer):
              "kg": _x(rng, B, S, T, 4, 24), "vg": _x(rng, B, S, T, 4, 12)}
     t = 1
     kv = {k: torch.from_numpy(v.copy()) for k, v in kv_np.items()}
-    out = llama.decode_step_layer(params["layers"][layer], cfg, _t(x), kv, _t(PLEN_L), _t(EOS), t,
-                                  use_pallas=True)
+    out = llama.decode_step_layer([params["layers"][layer]], cfg, _t(x), [kv], _t(PLEN_L),
+                                  _t(EOS), t, use_pallas=True)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][layer])
     for b in range(B):
         jkv = {k: jnp.asarray(v[b]) for k, v in kv_np.items()}
@@ -309,22 +309,38 @@ def test_mla_decode_step_layer_matches_jax(layer):
 # The CLI on transformers checkpoints
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(scope="module")
+def moe_splits(tmp_path_factory):
+    """family -> a directory holding its transformers checkpoint and both
+    packages' splits of it, built once and shared by the family's modes."""
+    built = {}
+
+    def get(family):
+        if family not in built:
+            root = tmp_path_factory.mktemp(f"moe_{family}")
+            hf_checkpoint(family, root / "hf", seed=2)
+            checkpoint.split_into_layers(str(root / "hf"), str(root / "port"), dtype="float32")
+            jckpt.split_into_layers(str(root / "hf"), str(root / "jax"), dtype="float32")
+            built[family] = root
+        return built[family]
+
+    return get
+
+
 @pytest.mark.parametrize("mode", [[], ["--kv_cache", "true"]], ids=["generation_loop", "kv_cache"])
 @pytest.mark.parametrize("family", HF_MOE_FAMILIES)
-def test_moe_cli_matches_jax_cli(tmp_path, family, mode):
+def test_moe_cli_matches_jax_cli(moe_splits, tmp_path, family, mode):
     """Each package's splitter on the same transformers checkpoint (the
     experts stacked, DeepSeek's correction bias of both signs) writes the
     same files; the port's CLI on its split gives the JAX CLI's scores and
     tokens on the JAX split. Both deepseek_v3 checkpoints have a dense
     layer 0 and an MoE layer 1."""
-    hf_checkpoint(family, tmp_path / "hf", seed=2)
-    checkpoint.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "port"), dtype="float32")
-    jckpt.split_into_layers(str(tmp_path / "hf"), str(tmp_path / "jax"), dtype="float32")
-    _assert_same_split(tmp_path / "port", tmp_path / "jax")
-    cfg = LlamaConfig.from_pretrained(str(tmp_path / "port"))
+    root = moe_splits(family)
+    _assert_same_split(root / "port", root / "jax")
+    cfg = LlamaConfig.from_pretrained(str(root / "port"))
     assert cfg.num_local_experts > 0
     assert bool(cfg.kv_lora_rank) == family.startswith("deepseek")
     extra = ["--num_gen_token", "3", *mode]
-    want = run_cli(jax_main, tmp_path / "jax", tmp_path, "jax", [*extra, "--num_devices", "1"])
-    got = run_cli(torch_main, tmp_path / "port", tmp_path, "torch", [*extra, "--device", "cpu"])
+    want = run_cli(jax_main, root / "jax", tmp_path, "jax", [*extra, "--num_devices", "1"])
+    got = run_cli(torch_main, root / "port", tmp_path, "torch", [*extra, "--device", "cpu"])
     assert_cli_match(got, want)

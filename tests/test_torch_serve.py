@@ -128,9 +128,9 @@ def test_suffix_only_layer_matches_jax(use_pallas):
     rng = np.random.default_rng(1)
     kp, vp = _h(rng, B, LP, 2, 32), _h(rng, B, LP, 2, 32)
     sh = _h(rng, B, S, LS, cfg.hidden_size)
-    out, kv_s = llama.suffix_only_layer(params["layers"][0], cfg, torch.from_numpy(kp),
-                                        torch.from_numpy(vp), torch.from_numpy(sh),
-                                        torch.from_numpy(PLEN), use_pallas=use_pallas)
+    out, (kv_s,) = llama.suffix_only_layer([params["layers"][0]], cfg, [torch.from_numpy(kp)],
+                                           [torch.from_numpy(vp)], torch.from_numpy(sh),
+                                           torch.from_numpy(PLEN), use_pallas=use_pallas)
     jp = jax.tree.map(jnp.asarray, params_np["layers"][0])
     for b in range(B):
         jout, jkv = jllama.suffix_only_layer(jp, jcfg, jnp.asarray(kp[b]), jnp.asarray(vp[b]),
@@ -150,10 +150,10 @@ def test_suffix_only_layer_is_the_full_layers_suffix_stream():
     ph, sh = torch.from_numpy(_h(rng, B, LP, cfg.hidden_size)), torch.from_numpy(
         _h(rng, B, S, LS, cfg.hidden_size))
     pl = torch.from_numpy(PLEN)
-    _, s_out, kv = llama.prefix_suffix_layer(params["layers"][1], cfg, ph, sh, pl, return_kv=True,
-                                             use_pallas=True)
-    out, kv_s = llama.suffix_only_layer(params["layers"][1], cfg, kv["kp"], kv["vp"], sh, pl,
-                                        use_pallas=True)
+    _, s_out, (kv,) = llama.prefix_suffix_layer([params["layers"][1]], cfg, ph, sh, pl,
+                                                return_kv=True, use_pallas=True)
+    out, (kv_s,) = llama.suffix_only_layer([params["layers"][1]], cfg, [kv["kp"]], [kv["vp"]], sh,
+                                           pl, use_pallas=True)
     assert torch.equal(out, s_out)
     assert torch.equal(kv_s["ks"], kv["ks"]) and torch.equal(kv_s["vs"], kv["vs"])
 
@@ -165,7 +165,8 @@ def test_suffix_prefill_decoders_matches_jax():
     kps, vps = _h(rng, 2, B, LP, 2, 32), _h(rng, 2, B, LP, 2, 32)
     sh = _h(rng, B, S, LS, cfg.hidden_size)
     out, kvs = decode.suffix_prefill_decoders(
-        cfg, params["layers"], 0, list(torch.from_numpy(kps)), list(torch.from_numpy(vps)),
+        cfg, [[p] for p in params["layers"]], 0, [[k] for k in torch.from_numpy(kps)],
+        [[v] for v in torch.from_numpy(vps)],
         torch.from_numpy(sh), torch.from_numpy(PLEN), None, llama.layer_sliding_pattern(cfg),
         llama.layer_rope_pattern(cfg), use_pallas=True)
     stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *params_np["layers"])
@@ -174,7 +175,7 @@ def test_suffix_prefill_decoders_matches_jax():
         jcfg, False, None, seg, {"kp": jnp.asarray(kps), "vp": jnp.asarray(vps)},
         jnp.asarray(sh), jnp.asarray(PLEN))
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL, rtol=0)
-    for li, kv in enumerate(kvs):
+    for li, (kv,) in enumerate(kvs):
         assert torch.equal(kv["kp"], torch.from_numpy(kps[li]))
         for key in ("ks", "vs"):
             np.testing.assert_allclose(kv[key].numpy(), np.asarray(jkv[key][li]), atol=ATOL,

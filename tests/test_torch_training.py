@@ -414,7 +414,7 @@ def test_a_mesh_is_refused():
                  lambda: training.TrainState.create(cfg, params, opt, mesh=object(),
                                                     device="cpu"),
                  lambda: training.restore_train_state("x", cfg, opt, mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(NotImplementedError, match="item 8"):
             call()
 
 
