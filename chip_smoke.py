@@ -510,6 +510,13 @@ def phase_build() -> None:
         log(f"[build] {name} dynamic shared memory (B) by head dim: {sizes}")
         if max(sizes.values()) > SMEM_LIMIT or min(sizes.values()) <= 0:
             fail(f"{name}: shared memory outside (0, {SMEM_LIMIT}] B: {sizes}")
+    # score_kernel_f32 keeps at least 8 warps on an SM (two blocks of 128
+    # threads up to hd 128, one of 256 above) to hide its shared loads.
+    warps = {f"{hd}": lib.fls_score_f32_warps(hd, hd) for hd in HEAD_DIMS}
+    warps.update({f"{hd}/{hd_v}": lib.fls_score_f32_warps(hd, hd_v) for hd, hd_v in MLA_DIMS})
+    log(f"[build] score_kernel_f32 resident warps per SM by head dim: {warps}")
+    if min(warps.values()) < 8:
+        fail(f"score_kernel_f32: fewer than 8 resident warps per SM: {warps}")
     # Registers, stack and local memory (spills) of every kernel, as built.
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -859,11 +866,12 @@ def _bounds(case: dict, dtype=torch.bfloat16) -> dict[str, tuple[float, str]]:
 
 
 def time_case(case: dict, gen, plain_calls: int = 20, kernels=None,
-              dtype=torch.bfloat16) -> dict[str, dict]:
+              dtype=torch.bfloat16, calls: int = 20, reps: int = 20) -> dict[str, dict]:
     """Kernel, plain and library times at the case's shapes and local form
     (in ``dtype``), for every kernel or those named in ``kernels``. The
     library time is one SDPA call on inputs its yardstick built beforehand;
-    ``plain_calls`` calls per round time the plain version."""
+    each time is the median of ``reps`` rounds of ``calls`` calls
+    (``plain_calls`` for the plain version)."""
     import torch.nn.functional as F
 
     from flexible_llm_sharding_tpu_torch.ops import flash_attention as fa
@@ -878,9 +886,9 @@ def time_case(case: dict, gen, plain_calls: int = 20, kernels=None,
             continue
         sdpa = YARDSTICKS[kernel](*args, **local)
         out[kernel] = {
-            "ms": _device_ms(lambda: getattr(fa, kernel)(*args, **kw)),
-            "plain_ms": _device_ms(lambda: run_plain(kernel, args, kw, chunk), calls=plain_calls),
-            "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(**sdpa)),
+            "ms": _device_ms(lambda: getattr(fa, kernel)(*args, **kw), calls, reps),
+            "plain_ms": _device_ms(lambda: run_plain(kernel, args, kw, chunk), plain_calls, reps),
+            "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(**sdpa), calls, reps),
             "bound_ms": bounds[kernel][0],
             "bound_by": bounds[kernel][1],
         }
@@ -1136,6 +1144,15 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
     # in float32.
     f32_name = "llama2-7b float32"
     shape_errs["llama2_7b_f32"] = check_case(f32_name, main_case, torch.float32, gen)
+    # DeepSeek-V3's MLA head shard at tp = 2 (64 of the 128 heads), in bf16
+    # (score_tc_kernel) and float32 (score_kernel_f32); its plain version 16
+    # heads at a time, and few calls a round (a plain call takes tens of ms).
+    ds_name = "deepseek-v3 mla head shard at tp = 2"
+    ds_shard = {**mla_case, "nq": mla_case["nq"] // 2, "nkv": mla_case["nkv"] // 2, "plain_head_chunk": 16}
+    ds_shapes = {"deepseek_v3_tp2_shard": (ds_name, torch.bfloat16),
+                 "deepseek_v3_tp2_shard_f32": (f"{ds_name}, float32", torch.float32)}
+    for key, (name, dtype) in ds_shapes.items():
+        shape_errs[key] = check_case(name, ds_shard, dtype, gen)
     # The serving slice's shapes, each on the one kernel that meets it: the
     # draft model's forward (TinyLlama-1.1B's 32 query heads over 4 KV heads
     # of 64, one context) and a coalesced entry's 8 suffixes over one prefix.
@@ -1156,7 +1173,10 @@ def phase_kernels(main_case: dict, gemma_case: dict, gemma12_case: dict, phi3_ca
                     for key, (name, c, kernel) in serve_shapes.items()})
     shape_t["llama2_7b_f32"] = time_case({**main_case, "name": f32_name}, gen, plain_calls=4,
                                          dtype=torch.float32)
+    shape_t.update({key: time_case({**ds_shard, "name": name}, gen, plain_calls=1, dtype=dtype, calls=5, reps=5)
+                    for key, (name, dtype) in ds_shapes.items()})
     shapes.update(serve_shapes)
+    shapes.update(ds_shapes)
     shapes["llama2_7b_f32"] = (f32_name, main_case, 4)
     for k in timed:
         timed[k]["max_abs_err"] = errs[k]
@@ -5851,7 +5871,8 @@ def main() -> None:
                                               "deepseek_v3_mla", "llama4_scout_global",
                                               "llama4_scout_chunked", "tinyllama_draft",
                                               "llama2_7b_coalesced_s8", "llama2_7b_tp2_shard",
-                                              "llama2_7b_tp4_shard", "llama2_7b_f32")
+                                              "llama2_7b_tp4_shard", "llama2_7b_f32",
+                                              "deepseek_v3_tp2_shard", "deepseek_v3_tp2_shard_f32")
                if key in timed[k]},
         }
         for k in REPLACES

@@ -9,8 +9,9 @@
 //                                                   (_prefix_shared_kernel)
 //   decode_rows_kernel (all dtypes)              <- flash_decode_attention
 //                                                   (_decode_kernel)
-//   score_kernel_f32: the float32 form of the first two (FMA products), the
-//   path of the float32 card-vs-CPU cross-check, not of the bf16 main path.
+//   score_kernel_f32 (float32), 1 or 2 sources   <- both scoring kernels in
+//                                                   float32 (--dtype float32,
+//                                                   the float32 cross-checks)
 //
 // Each computes what its TPU kernel computes (one joint online softmax over
 // one or more KV "sources", fp32 statistics and accumulators, P cast to V's
@@ -59,6 +60,39 @@
 //   - Tiles past the limit and above the diagonal are never loaded, and
 //     neither are tiles wholly below a sliding window or position chunk
 //     (see "Local attention" below).
+// * Float32 scoring (score_kernel_f32). The same 2*(hd + hd_v) FLOPs per
+//   visible pair, on the FMA units at 67 TFLOP/s (the tensor cores would
+//   round float32 to TF32): 20 FLOPs per byte of HBM, so the products bound
+//   it at every shape the port runs (the Llama float32 shapes: 0.32 ms of
+//   products, under 0.1 ms of bytes). The SM serves one 128-byte wavefront
+//   of shared memory per cycle against four warp-wide FMAs, so products fed
+//   from shared memory a value at a time are bound by shared memory instead.
+//   - Register tiles. A block is 64 query rows of one head; thread (rg, c)
+//     of a kRowGroups x 16 grid holds S for 8 query rows (4 above hd 128) x
+//     4 keys, and O for the same rows x hd_v / 16 columns. S = Q K^T takes
+//     per step one 128-bit load per Q row and per key (2.67 FMAs per loaded
+//     word at 8 rows, 2 at 4), O += P V per key one load per V column quad
+//     and P 4 keys at a time (4 FMAs a word at hd 128). K rows are padded
+//     by 4 floats, so the 8 keys a quarter-warp reads at one column fall in
+//     8 bank groups.
+//   - Softmax, m, l and O in registers for the whole walk: a row's max is
+//     reduced over its 16 threads with shuffles, its sum kept per thread
+//     and reduced once at the end; exp2 with scale*log2(e) folded in; O
+//     rescaled in registers and written once. P goes from S's layout to
+//     PV's through one shared 64 x 64 tile, the one shared round trip of a
+//     tile.
+//   - K and V come by cp.async, staggered by half a tile through one K and
+//     one V buffer: V of tile t lands while S(t) runs, K of tile t + 1 while
+//     PV(t) runs. Rows at or past a source's limit are zero-filled by the
+//     copy (src-size 0), so NaN there never reaches a product, and rows
+//     past the tensor's end are never addressed. Two buffers of each would
+//     take 182,272 B at hd 128 and leave one block of 4 warps on an SM.
+//   - Two blocks of 128 threads per SM up to hd 128 (115,712 B of shared
+//     memory each at 128), one of 256 above: 8 warps, so one block's
+//     barriers and softmax overlap the other's products.
+//   - The visibility test runs only on tiles holding a limit, the causal
+//     diagonal or some row's local bound; a head's query tiles run
+//     together (its K/V stays in L2), the longest causal tile first.
 // * Decode. One new token per suffix: 4*hd FLOPs per visible key against
 //   4*hd bytes of K and V (bf16), about one FLOP per byte, so on the H100
 //   (295 bf16 FLOPs per byte of HBM) it is bound by the bytes of the KV it
@@ -84,9 +118,9 @@
 //     loads, set the time). Each warp takes 16 keys of a tile: Q stays in
 //     registers, K and V come by ldmatrix, the scores stay in registers and
 //     become PV's A fragment; the warps exchange only each tile's row maxima
-//     and sum their l and O at the end. Float32 (the cross-check's path)
-//     keeps FMA products, which the tensor cores would round to TF32. The
-//     key-limit mask runs only on a source's last tile.
+//     and sum their l and O at the end. Float32 keeps FMA products, which
+//     the tensor cores would round to TF32. The key-limit mask runs only on
+//     a source's last tile.
 //   - No split-KV: at the main path's shapes B*n_kv = 256 blocks already
 //     fill the 132 SMs (two resident per SM). It pays only where B*n_kv is
 //     small against the SM count (one prompt with a long prefix), and needs
@@ -122,9 +156,9 @@
 //   registers per consumer thread, is accumulated by two n128 wgmma halves
 //   (Q's descriptors are rebuilt per tile, not held); the decode kernel keeps
 //   three stages (one block per SM instead of two) and reads Q's fragments
-//   from shared memory per tile instead of holding them; the float32
-//   kernels take K and V in turn through one buffer (scoring) or run one
-//   stage (decode).
+//   from shared memory per tile instead of holding them; float32 scoring
+//   runs 256 threads of 4 query rows (O 64 registers a thread) with one K
+//   and one V buffer (214,016 B), float32 decode one stage.
 //
 // * Multi-head latent attention (DeepSeek-V3's qk 192 = nope 128 + rope 64,
 //   v 128; the TPU kernels pad Q/K and V separately and return v_dim
@@ -134,8 +168,8 @@
 //   columns (64 fp32 registers per consumer thread, as at hd 128), and V
 //   moves at its own width instead of being padded to 192 (which would add
 //   half again to PV, O's registers and V's bytes). A TMA stage is K 24 KB
-//   + V 16 KB; two Q buffers and three stages take 222,288 B. Float32
-//   scoring keeps K and V apart (198,144 B). Decode never takes MLA: the
+//   + V 16 KB; two Q buffers and three stages take 222,288 B; float32
+//   scoring 148,480 B (256 threads). Decode never takes MLA: the
 //   JAX package runs MLA decode on its plain op, and so does the port.
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
@@ -158,7 +192,7 @@ namespace {
 
 constexpr float kNegInf = -0.7f * FLT_MAX;  // the JAX package's _NEG_INF
 constexpr int kTile = 64;                    // queries / keys per tile of the FMA kernels
-constexpr int kScoreThreads = 128;           // float32 scoring: 4 warps, 16 query rows each
+constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
@@ -214,28 +248,22 @@ __device__ __forceinline__ float cap_score(float x, float softcap) {
   return softcap > 0.f ? tanhf(x / softcap) * softcap : x;
 }
 
-// Cooperative copy of `rows` rows of HD elements (row stride `stride` in
-// global memory, pitch P in shared memory) with 16-byte global loads; rows
-// at or past `avail` are zero-filled. Global rows start at multiples of HD
-// elements from a 16-byte aligned base (checked by the wrapper).
-template <typename T, int HD, int P, int NT>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride, int avail) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = HD / kVec;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += NT) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < avail) val = *reinterpret_cast<const uint4*>(src + r * stride + col);
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&val);
-    uint32_t* d = reinterpret_cast<uint32_t*>(dst + r * P + col);
-    if constexpr ((P * sizeof(T)) % 16 == 0) {
-      *reinterpret_cast<uint4*>(d) = val;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = w[i];
-    }
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes from global to shared memory, of which the first `src_bytes`
+// (16 or 0) are read and the rest written as zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 struct ScoreParams {
@@ -259,83 +287,92 @@ struct ScoreParams {
 };
 
 // ---------------------------------------------------------------------------
-// Float32 scoring kernel: a 64-query tile of one head, FMA products (the
-// tensor cores would round float32 inputs to TF32)
+// Float32 scoring kernel: register-tiled FMA products, softmax and O in
+// registers, a cp.async K/V ring staggered by half a tile
 // ---------------------------------------------------------------------------
 
+constexpr int kF32Cols = 16;  // threads sharing a query row, 4 keys of a tile each
+
+// A block takes kTile query rows of one head, its threads a grid of
+// kRowGroups x kF32Cols: thread (rg, c) owns query rows rg + kRowGroups * i
+// (i < kTM), keys c + 16 j (j < 4) of every K/V tile, and O's columns
+// 4 (c + 16 j) .. + 3 (j < kQuads), at hd 96 also 64 + 2c, + 1. 128 threads
+// (kTM 8) up to hd 128, two blocks per SM; 256 (kTM 4) above, one block.
+// Shared memory: Q [kTile][HD] and K [kTile][HD + 4] (the pad puts the 8
+// keys a quarter-warp reads at one column in 8 bank groups), V
+// [kTile][HDV], P [kTile][kTile] row-major. hd 128: 115,712 B, two blocks
+// in the SM's 228 KB; MLA's (192, 128) 148,480 B, hd 256 214,016 B.
 template <int HD, int HDV = HD>
 struct F32Layout {
-  static constexpr int QP = HD + 1;     // Q/K pitch (V's too in the hd x hd layouts)
-  static constexpr int VP = HDV + 1;    // V pitch
-  static constexpr int SP = kTile + 1;  // scores and P pitch
-  static constexpr int OP = HDV + 1;    // O pitch
-  // At hd 256 Q, K, V and O tiles of 64 rows would take 263 KB: K and V
-  // then take turns in one buffer (230,656 B in all). MLA's (192, 128)
-  // fits them apart (198,144 B).
-  static constexpr bool kOneKV = HDV > 128;
+  static constexpr int kThreads = HD > 128 ? 256 : 128;
+  static constexpr int kMinBlocks = HD > 128 ? 1 : 2;  // 8 warps per SM either way
+  static constexpr int kRowGroups = kThreads / kF32Cols;
+  static constexpr int kTM = kTile / kRowGroups;
+  static constexpr int kQuads = HDV / 64;
+  static constexpr bool kPair = HDV % 64 != 0;
+  static constexpr int kCols = 4 * kQuads + (kPair ? 2 : 0);
+  static constexpr int KP = HD + 4;
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = align128(kQ + sizeof(float) * kTile * QP);
-  static constexpr size_t kV = kOneKV ? kK : align128(kK + sizeof(float) * kTile * QP);
-  static constexpr size_t kS = align128(kV + sizeof(float) * kTile * (kOneKV && QP > VP ? QP : VP));
-  static constexpr size_t kP = align128(kS + sizeof(float) * kTile * SP);
-  static constexpr size_t kO = align128(kP + sizeof(float) * kTile * SP);
-  static constexpr size_t kBytes = align128(kO + sizeof(float) * kTile * OP);
+  static constexpr size_t kK = kQ + sizeof(float) * kTile * HD;
+  static constexpr size_t kV = kK + sizeof(float) * kTile * KP;
+  static constexpr size_t kP = kV + sizeof(float) * kTile * HDV;
+  static constexpr size_t kBytes = kP + sizeof(float) * kTile * kTile;
 };
 
-// S[16 x 64] = Q[16 x HD] K^T for this warp's 16 query rows.
-template <int HD>
-__device__ __forceinline__ void warp_scores(const float* Qs, const float* Ks, float* Ss, int warp, int lane) {
-  using L = F32Layout<HD>;
-  for (int r = 0; r < 16; ++r) {
-    const float* qr = Qs + (warp * 16 + r) * L::QP;
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float qv = qr[d];
-      a0 = fmaf(qv, Ks[lane * L::QP + d], a0);
-      a1 = fmaf(qv, Ks[(lane + 32) * L::QP + d], a1);
-    }
-    Ss[(warp * 16 + r) * L::SP + lane] = a0;
-    Ss[(warp * 16 + r) * L::SP + lane + 32] = a1;
+// kTile rows of W floats (row stride `stride` floats in global memory, pitch
+// P in shared memory) by cp.async in 16-byte chunks; rows at or past `avail`
+// (>= 1) are zero-filled without being read, their address clamped to row 0.
+template <int W, int P, int NT>
+__device__ __forceinline__ void cp_tile(float* dst, const float* src, long long stride, int avail) {
+  constexpr int kChunks = W / 4;
+  static_assert(kTile * kChunks % NT == 0, "a whole number of chunks per thread");
+#pragma unroll
+  for (int u = 0; u < kTile * kChunks / NT; ++u) {
+    const int i = threadIdx.x + u * NT;
+    const int r = i / kChunks;
+    const int ch = i % kChunks;
+    const bool in = r < avail;
+    cp_async16(smem_u32(dst + r * P + ch * 4), src + (in ? r : 0) * stride + ch * 4, in ? 16 : 0);
   }
 }
 
-// O[16 x HD] += P[16 x 64] V[64 x HD] for this warp's 16 query rows.
-template <int HD>
-__device__ __forceinline__ void warp_pv(const float* Ps, const float* Vs, float* Os, int warp, int lane) {
-  using L = F32Layout<HD>;
-  for (int r = 0; r < 16; ++r) {
-    const float* pr = Ps + (warp * 16 + r) * L::SP;
-    float acc[HD / 32];
-#pragma unroll
-    for (int j = 0; j < HD / 32; ++j) acc[j] = 0.f;
-    for (int c = 0; c < kTile; ++c) {
-      const float pv = pr[c];
-#pragma unroll
-      for (int j = 0; j < HD / 32; ++j) acc[j] = fmaf(pv, Vs[c * L::QP + lane + 32 * j], acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < HD / 32; ++j) Os[(warp * 16 + r) * L::OP + lane + 32 * j] += acc[j];
-  }
+// Component u of v (u a constant once the loops are unrolled).
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
+
+// One tile of the walk: source 0's tiles first, then source 1's. k and v
+// point at the tile's first key row of this block's KV head.
+struct F32Tile {
+  const float* k;
+  const float* v;
+  int k0;
+  int limit;
+  int causal;
+  int off;  // absolute position of the source's key 0
+};
 
 // Q/K head dim HD, V/O head dim HDV.
 template <int HD, int HDV>
-// One block per SM is enough (shared memory allows 1-2): without the hint
-// ptxas trades a spill at hd 256 for registers it does not need.
-__global__ void __launch_bounds__(kScoreThreads, 1) score_kernel_f32(const ScoreParams p) {
+__global__ void __launch_bounds__(F32Layout<HD, HDV>::kThreads, F32Layout<HD, HDV>::kMinBlocks)
+    score_kernel_f32(const ScoreParams p) {
   using L = F32Layout<HD, HDV>;
+  constexpr int NT = L::kThreads;
+  constexpr int RG = L::kRowGroups;
+  constexpr int TM = L::kTM;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::kQ);
   float* Ks = reinterpret_cast<float*>(smem + L::kK);
   float* Vs = reinterpret_cast<float*>(smem + L::kV);
-  float* Ss = reinterpret_cast<float*>(smem + L::kS);
   float* Ps = reinterpret_cast<float*>(smem + L::kP);
-  float* Os = reinterpret_cast<float*>(smem + L::kO);
 
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int bs = blockIdx.z;
+  // Block -> (query tile, head, batch entry): the tiles of one head run
+  // together (their K/V stays in L2), the longest causal tile first.
+  const int n_qt = (p.lq + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * kTile;
+  const int hb = blockIdx.x / n_qt;
+  const int h = hb % p.n_q;
+  const int bs = hb / p.n_q;
   const int b = bs / p.n_s;
   const int s = bs % p.n_s;
   const int kvh = h / (p.n_q / p.n_kv);
@@ -344,107 +381,247 @@ __global__ void __launch_bounds__(kScoreThreads, 1) score_kernel_f32(const Score
   const long long o_row_stride = (long long)p.n_q * HDV;
   const long long kv_row_stride = (long long)p.n_kv * HD;
   const long long v_row_stride = (long long)p.n_kv * HDV;
+  const int rg = threadIdx.x / kF32Cols;
+  const int c = threadIdx.x % kF32Cols;
+  const int qoff = p.pos ? p.pos[b] : 0;
+  const bool local = p.window > 0 || p.chunk > 0;
+  const int lo_first = local_lo(qoff + q0, p.window, p.chunk);  // the block's smallest bound
+  const int lo_last = local_lo(qoff + q0 + q_rows - 1, p.window, p.chunk);
+
+  // Per source its limit and tiles [t0, nt): up to the limit and, causal,
+  // the block's last row; from the tile holding the smallest bound.
+  int lim[2], t0[2], nt[2];
+#pragma unroll
+  for (int si = 0; si < 2; ++si) {
+    const Source& src = p.src[si];
+    lim[si] = si < p.n_src ? source_limit(src, b, s) : 0;
+    nt[si] = (lim[si] + kTile - 1) / kTile;
+    if (src.causal) nt[si] = min(nt[si], (q0 + q_rows + kTile - 1) / kTile);
+    const int lo = lo_first - (src.shift ? qoff : 0);
+    t0[si] = lo >= lim[si] ? nt[si] : min(max(lo, 0) / kTile, nt[si]);
+  }
+  const int n0 = nt[0] - t0[0];
+  const int n_items = n0 + nt[1] - t0[1];
+  auto tile = [&](int it) {
+    // Each field picked from the two sources: no run-time index into the
+    // kernel's parameters.
+    const bool one = it >= n0;
+    const Source& s0 = p.src[0];
+    const Source& s1 = p.src[1];
+    F32Tile tl;
+    tl.k0 = (one ? t0[1] + it - n0 : t0[0] + it) * kTile;
+    tl.limit = one ? lim[1] : lim[0];
+    tl.causal = one ? s1.causal : s0.causal;
+    tl.off = (one ? s1.shift : s0.shift) ? qoff : 0;
+    // The source's strides are K's; V's rows are HDV elements per head.
+    const long long e = one ? b * s1.stride_b + s * s1.stride_s : b * s0.stride_b + s * s0.stride_s;
+    tl.k = static_cast<const float*>(one ? s1.k : s0.k) + e + kvh * HD + tl.k0 * kv_row_stride;
+    tl.v = static_cast<const float*>(one ? s1.v : s0.v) + (HD == HDV ? e : e / HD * HDV) + kvh * HDV +
+           tl.k0 * v_row_stride;
+    return tl;
+  };
 
   const float* qbase = static_cast<const float*>(p.q) + bs * p.q_stride_bs + q0 * q_row_stride + h * HD;
-  load_rows<float, HD, L::QP, kScoreThreads>(Qs, qbase, q_row_stride, q_rows);
-  for (int i = threadIdx.x; i < kTile * L::OP; i += kScoreThreads) Os[i] = 0.f;
+  cp_tile<HD, HD, NT>(Qs, qbase, q_row_stride, q_rows);
+  if (n_items > 0) {
+    const F32Tile tl = tile(0);
+    cp_tile<HD, L::KP, NT>(Ks, tl.k, kv_row_stride, tl.limit - tl.k0);
+  }
+  cp_async_commit();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  // Softmax ownership: each query row belongs to a lane pair, each lane
-  // handling 32 of the tile's 64 keys.
-  const int row = warp * 16 + lane / 2;
-  const int half = lane & 1;
-  const int qi = q0 + row;
-  const int qoff = p.pos ? p.pos[b] : 0;
-  const int lo_first = local_lo(qoff + q0, p.window, p.chunk);  // the tile's smallest bound
-  const int lo_row = local_lo(qoff + qi, p.window, p.chunk);
-  float m = kNegInf;
-  float l = 0.f;
-
-  for (int si = 0; si < p.n_src; ++si) {
-    const Source src = p.src[si];
-    const int limit = source_limit(src, b, s);
-    const int off = src.shift ? qoff : 0;  // absolute position of key 0
-    int n_tiles = (limit + kTile - 1) / kTile;
-    if (src.causal) n_tiles = min(n_tiles, (q0 + q_rows + kTile - 1) / kTile);
-    const float* kbase = static_cast<const float*>(src.k) + b * src.stride_b + s * src.stride_s + kvh * HD;
-    // The source's strides are K's; V's rows are HDV elements per head.
-    const long long v_off = HD == HDV ? b * src.stride_b + s * src.stride_s
-                                      : (b * src.stride_b + s * src.stride_s) / HD * HDV;
-    const float* vbase = static_cast<const float*>(src.v) + v_off + kvh * HDV;
-    const int t0 = lo_first - off >= limit ? n_tiles : max(lo_first - off, 0) / kTile;
-    for (int t = t0; t < n_tiles; ++t) {
-      const int k0 = t * kTile;
-      __syncthreads();  // the previous tile's K/V are no longer read
-      load_rows<float, HD, L::QP, kScoreThreads>(Ks, kbase + k0 * kv_row_stride, kv_row_stride, limit - k0);
-      if constexpr (!L::kOneKV)
-        load_rows<float, HDV, L::VP, kScoreThreads>(Vs, vbase + k0 * v_row_stride, v_row_stride, limit - k0);
-      __syncthreads();
-
-      warp_scores<HD>(Qs, Ks, Ss, warp, lane);
-      __syncwarp();
-
-      float x[32];
-      uint32_t vis = 0u;
-      float mx = kNegInf;
+  float o[TM][L::kCols];
+  float m[TM];
+  float l[TM];  // this thread's share of the row sum (its keys), reduced at the end
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int col = half * 32 + c;
-        const int kj = k0 + col;
-        const bool v = kj < limit && (!src.causal || kj <= qi) && off + kj >= lo_row;
-        float val = kNegInf;
-        if (v) {
-          val = cap_score(Ss[row * L::SP + col] * p.scale, p.softcap);
-          vis |= 1u << c;
+  for (int i = 0; i < TM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < L::kCols; ++j) o[i][j] = 0.f;
+  }
+  const float* q_frag = Qs + rg * HD;       // row rg + RG * i at + i * RG * HD
+  const float* k_frag = Ks + c * L::KP;     // key c + 16 j at + j * 16 * KP
+  float* p_row = Ps + rg * kTile;           // P row of query row rg + RG * i at + i * RG * kTile
+  const float* v_col = Vs + 4 * c;          // column quad c + 16 j at + 64 j
+  const float* v_pair = Vs + 64 * L::kQuads + 2 * c;  // hd 96's last two columns
+  // Scores stay unscaled (capped: tanh-capped and scaled) until a row's max
+  // is taken off: exp2((x - m) * c) rounds only the difference.
+  const bool capped = p.softcap > 0.f;
+  const float cap_in = p.scale / p.softcap;
+  const float c_log2 = capped ? kLog2e : p.scale * kLog2e;
+
+  for (int it = 0; it < n_items; ++it) {
+    const F32Tile tl = tile(it);
+    cp_async_wait<0>();  // this thread's copies of K (and Q) have landed
+    __syncthreads();     // everyone's have, and the last tile's P and V are no longer read
+    cp_tile<HDV, HDV, NT>(Vs, tl.v, v_row_stride, tl.limit - tl.k0);
+    cp_async_commit();
+
+    // S = Q K^T: per step 4 columns of TM query rows and 4 keys, TM * 16
+    // FMAs from TM + 4 128-bit loads.
+    float sc[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 kf[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kf[j] = *reinterpret_cast<const float4*>(k_frag + j * 16 * L::KP + d);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 qf = *reinterpret_cast<const float4*>(q_frag + i * RG * HD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qf.x, kf[j].x, sc[i][j]);
+          sc[i][j] = fmaf(qf.y, kf[j].y, sc[i][j]);
+          sc[i][j] = fmaf(qf.z, kf[j].z, sc[i][j]);
+          sc[i][j] = fmaf(qf.w, kf[j].w, sc[i][j]);
         }
-        x[c] = val;
-        mx = fmaxf(mx, val);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m, mx);
-      const float alpha = expf(m - m_new);
+    }
+
+    // Online softmax in base 2 (scale * log2(e) folded into one multiply).
+    // The visibility test runs only on a tile holding the source's limit,
+    // the causal diagonal or some row's local bound; a masked key is -inf,
+    // so it adds exactly 0 even while its row has seen no key.
+    const bool edge = tl.k0 + kTile > tl.limit || (tl.causal && tl.k0 + kTile - 1 > q0) ||
+                      (local && tl.off + tl.k0 < lo_last);
+    if (capped) {  // a branch, not a select: tanhf is long
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = tanhf(sc[i][j] * cap_in) * p.softcap;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int qi = q0 + rg + RG * i;
+      if (edge) {
+        const int lo = local_lo(qoff + qi, p.window, p.chunk) - tl.off;  // first visible key index
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kj = tl.k0 + c + 16 * j;
+          if (!(kj < tl.limit && (!tl.causal || kj <= qi) && kj >= lo)) sc[i][j] = -INFINITY;
+        }
+      }
+      float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+#pragma unroll
+      for (int w = kF32Cols / 2; w > 0; w /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f((m[i] - m_new) * c_log2);
+      m[i] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        // A masked key adds exactly 0: exp(NEG - NEG) would add 1.
-        const float pv = (vis >> c) & 1u ? expf(x[c] - m_new) : 0.f;
+      for (int j = 0; j < 4; ++j) {
+        const float pv = exp2f((sc[i][j] - m_new) * c_log2);
         rs += pv;
-        Ps[row * L::SP + half * 32 + c] = pv;
+        p_row[i * RG * kTile + c + 16 * j] = pv;
       }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      l = l * alpha + rs;
-      m = m_new;
-      for (int d = half * (HDV / 2); d < (half + 1) * (HDV / 2); ++d) Os[row * L::OP + d] *= alpha;
-      __syncwarp();
-      if constexpr (L::kOneKV) {
-        __syncthreads();  // every warp's scores have read K
-        load_rows<float, HDV, L::VP, kScoreThreads>(Vs, vbase + k0 * v_row_stride, v_row_stride, limit - k0);
-        __syncthreads();
-      }
+      l[i] = l[i] * alpha + rs;
+#pragma unroll
+      for (int j = 0; j < L::kCols; ++j) o[i][j] *= alpha;
+    }
 
-      warp_pv<HDV>(Ps, Vs, Os, warp, lane);
-      __syncwarp();
+    cp_async_wait<0>();  // V has landed
+    __syncthreads();     // for everyone; P is written, K no longer read
+    if (it + 1 < n_items) {
+      const F32Tile nx = tile(it + 1);
+      cp_tile<HD, L::KP, NT>(Ks, nx.k, kv_row_stride, nx.limit - nx.k0);
+    }
+    cp_async_commit();
+
+    // O += P V: per key TM * kCols FMAs from kQuads (+1) loads of V, P
+    // read 4 keys at a time.
+#pragma unroll 2
+    for (int kk = 0; kk < kTile; kk += 4) {
+      float4 pf[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) pf[i] = *reinterpret_cast<const float4*>(p_row + i * RG * kTile + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vr = v_col + (kk + u) * HDV;
+        float vf[L::kCols];
+#pragma unroll
+        for (int j = 0; j < L::kQuads; ++j) {
+          const float4 v4 = *reinterpret_cast<const float4*>(vr + 64 * j);
+          vf[4 * j] = v4.x;
+          vf[4 * j + 1] = v4.y;
+          vf[4 * j + 2] = v4.z;
+          vf[4 * j + 3] = v4.w;
+        }
+        if constexpr (L::kPair) {
+          const float2 v2 = *reinterpret_cast<const float2*>(v_pair + (kk + u) * HDV);
+          vf[4 * L::kQuads] = v2.x;
+          vf[4 * L::kQuads + 1] = v2.y;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float pu = lane_of(pf[i], u);
+#pragma unroll
+          for (int j = 0; j < L::kCols; ++j) o[i][j] = fmaf(pu, vf[j], o[i][j]);
+        }
+      }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block (Q when no tile ran)
 
-  __syncthreads();  // O was zeroed by other threads when no tile ran
-  if (qi < p.lq) {
-    float* obase = static_cast<float*>(p.o) + bs * p.o_stride_bs + qi * o_row_stride + h * HDV;
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    for (int d = half * (HDV / 2); d < (half + 1) * (HDV / 2); ++d) obase[d] = Os[row * L::OP + d] * inv;
+  float* obase = static_cast<float*>(p.o) + bs * p.o_stride_bs + h * HDV;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int w = kF32Cols / 2; w > 0; w /= 2) li += __shfl_xor_sync(0xffffffffu, li, w);
+    const int qi = q0 + rg + RG * i;
+    if (qi >= p.lq) continue;
+    const float inv = li > 0.f ? 1.f / li : 0.f;  // a row with no visible key is 0
+    float* orow = obase + qi * o_row_stride + 4 * c;
+#pragma unroll
+    for (int j = 0; j < L::kQuads; ++j)
+      *reinterpret_cast<float4*>(orow + 64 * j) =
+          make_float4(o[i][4 * j] * inv, o[i][4 * j + 1] * inv, o[i][4 * j + 2] * inv, o[i][4 * j + 3] * inv);
+    if constexpr (L::kPair)
+      *reinterpret_cast<float2*>(orow - 2 * c + 64 * L::kQuads) =
+          make_float2(o[i][4 * L::kQuads] * inv, o[i][4 * L::kQuads + 1] * inv);
   }
+}
+
+// Once per instantiation (thread-safe static init), not per launch: the
+// dynamic shared memory above 48 KB, and the carveout that lets two blocks
+// share an SM.
+template <int HD, int HDV>
+cudaError_t prepare_score_f32() {
+  static const cudaError_t err = [] {
+    const cudaError_t e = cudaFuncSetAttribute(score_kernel_f32<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)F32Layout<HD, HDV>::kBytes);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(score_kernel_f32<HD, HDV>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  }();
+  return err;
 }
 
 template <int HD, int HDV = HD>
 cudaError_t launch_score_f32(const ScoreParams& p, int n_bs, cudaStream_t stream) {
   using L = F32Layout<HD, HDV>;
-  // Once per template instantiation (thread-safe static init), not per launch.
-  static const cudaError_t attr = cudaFuncSetAttribute(score_kernel_f32<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  const cudaError_t attr = prepare_score_f32<HD, HDV>();
   if (attr != cudaSuccess) return attr;
-  dim3 grid((p.lq + kTile - 1) / kTile, p.n_q, n_bs);
-  score_kernel_f32<HD, HDV><<<grid, kScoreThreads, L::kBytes, stream>>>(p);
+  const long long blocks = (long long)((p.lq + kTile - 1) / kTile) * p.n_q * n_bs;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  score_kernel_f32<HD, HDV><<<(unsigned)blocks, L::kThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Warps of the instantiation resident on one SM (-1 on an error).
+template <int HD, int HDV = HD>
+int score_f32_warps() {
+  using L = F32Layout<HD, HDV>;
+  int blocks = 0;
+  if (prepare_score_f32<HD, HDV>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, score_kernel_f32<HD, HDV>, L::kThreads, L::kBytes) !=
+          cudaSuccess)
+    return -1;
+  return blocks * L::kThreads / 32;
 }
 
 // ---------------------------------------------------------------------------
@@ -456,7 +633,6 @@ constexpr int kBM = 64;                             // query rows per consumer w
 constexpr int kBN = 64;                             // keys per K/V tile
 constexpr int kConsumers = 2;                       // consumer warpgroups per block
 constexpr int kTcThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
 
 // K and V of source i come through TMA descriptors k_map[i]/v_map[i] over a
 // 4-D view [batch entry, row, head, hd] (Q likewise through q_map); the
@@ -511,10 +687,6 @@ struct TcLayout {
   static constexpr int kBar = kStage0 + kStages * kStageBytes;
   static constexpr int kBytes = kBar + (2 * kStages + 2 * kQBufs) * 8 + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
@@ -1261,20 +1433,6 @@ __device__ __forceinline__ int swizzled(int r, int ch, int row_bytes) {
   return r * row_bytes + ((ch ^ (r & 7)) << 4);
 }
 
-// 16 bytes from global to shared memory, of which the first `src_bytes`
-// (16 or 0) are read and the rest written as zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(dst), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // Tile `tile` of a stretch (K then V, 64 rows each) into a ring stage. Rows
 // at or past the limit, and the chunks past the tensors' hd columns (hd 96
 // in the hd-128 instantiation), are zero-filled without being read; their
@@ -1376,7 +1534,7 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* f) {
 }
 
 // Float32: products on the CUDA cores (the tensor cores would round float32
-// to TF32), the path of the float32 card-vs-CPU cross-check. QK^T: each
+// to TF32), the path of --dtype float32 and the float32 cross-checks. QK^T: each
 // thread owns one key of the tile and half of hd, one shuffle completes the
 // dot; the online softmax runs one warp per row; PV: each thread owns two
 // output dims of a share of the rows.
@@ -2031,6 +2189,20 @@ extern "C" int fls_dynamic_smem(int kind, int dtype, int hd, int hd_v) {
       case 128: return (int)(f32 ? DecodeLayout<float, 128>::kBytes : DecodeLayout<__half, 128>::kBytes);
       case 256: return (int)(f32 ? DecodeLayout<float, 256>::kBytes : DecodeLayout<__half, 256>::kBytes);
     }
+  }
+  return -1;
+}
+
+// Warps of score_kernel_f32 resident on one SM at (hd, hd_v), as the
+// occupancy calculator gives them with the launch's shared memory and
+// carveout, for the build report; -1 for a pair it does not take.
+extern "C" int fls_score_f32_warps(int hd, int hd_v) {
+  if (hd_v != hd) return hd == 192 && hd_v == 128 ? score_f32_warps<192, 128>() : -1;
+  switch (hd) {
+    case 64: return score_f32_warps<64>();
+    case 96: return score_f32_warps<96>();
+    case 128: return score_f32_warps<128>();
+    case 256: return score_f32_warps<256>();
   }
   return -1;
 }

@@ -39,6 +39,7 @@ _SIGNATURES = {
                              _P, _P, _LL, _LL, _I, _I,
                              _P],
     "fls_dynamic_smem": [_I, _I, _I, _I],
+    "fls_score_f32_warps": [_I, _I],
 }
 
 _lock = threading.Lock()

@@ -340,6 +340,55 @@ def test_mla_dims_never_reach_the_decode_kernel(gen):
     assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 0)
 
 
+# The float32 scoring kernel's edges: blocks of 64 query rows over 64-key
+# tiles, rows past a limit zero-filled by its copies. (Lp, Ls, prefix_len,
+# S, hd, hd_v, n_q, n_kv, keywords): query lengths 1, 63, 65 and 576 (in
+# both forms), prefix lengths around the key tiles (0, 1, 62-65, 127-129,
+# 513), odd S, every instantiation (hd 64, 96, 128, 256 and MLA's
+# (192, 128)), GQA, softcap, and windows and a chunk whose bounds split a
+# block's 64 rows.
+F32_EDGES = [
+    (1, 1, [0, 1], 3, 128, 128, 8, 2, {}),
+    (63, 63, [63, 62], 1, 64, 64, 8, 8, {}),
+    (65, 65, [64, 65], 3, 96, 96, 8, 4, {}),
+    (576, 64, [513, 129], 5, 128, 128, 32, 8, {}),
+    (129, 576, [128, 127], 2, 256, 256, 16, 8, {}),
+    (200, 70, [200, 41], 3, 192, 128, 16, 16, {}),
+    (130, 64, [65, 130], 4, 128, 128, 8, 8, {"softcap": 30.0}),
+    (576, 64, [576, 300], 3, 128, 128, 32, 16, {"window": 40}),
+    (200, 70, [200, 41], 3, 256, 256, 8, 2, {"window": 100}),
+    (200, 65, [199, 64], 3, 192, 128, 8, 8, {"window": 65}),
+    (300, 64, [300, 77], 3, 64, 64, 8, 4, {"chunk": 48}),
+    (130, 63, [1, 0], 1, 96, 96, 8, 1, {"window": 1}),
+]
+
+
+@pytest.mark.parametrize("edge", F32_EDGES,
+                         ids=lambda e: f"Lp{e[0]}-Ls{e[1]}-S{e[3]}-hd{e[4]}/{e[5]}-{e[6]}/{e[7]}-"
+                                       + ("-".join(f"{k}{v}" for k, v in e[8].items()) or "plain"))
+def test_float32_scoring_at_the_tile_edges(gen, edge):
+    """Both scoring forms in float32 against their plain versions, with the
+    prefix K/V past each prompt's limit zero and then NaN."""
+    lp, ls, plen, s, hd, hd_v, nq, nkv, form = edge
+    dt = torch.float32
+    plen = torch.tensor(plen, dtype=torch.int32, device="cuda")
+    past = (torch.arange(lp, device="cuda")[None, :] >= plen[:, None])[..., None, None]
+    q = _rnd(gen, dt, 2, lp, nq, hd)
+    k = _rnd(gen, dt, 2, lp, nkv, hd).masked_fill(past, 0.0)
+    v = _rnd(gen, dt, 2, lp, nkv, hd_v).masked_fill(past, 0.0)
+    qs = _rnd(gen, dt, 2, s, ls, nq, hd)
+    ks, vs = _rnd(gen, dt, 2, s, ls, nkv, hd), _rnd(gen, dt, 2, s, ls, nkv, hd_v)
+    want_causal = fa.causal_attention_plain(q, k, v, plen, **form)
+    want_prefix = fa.prefix_shared_attention_plain(qs, k, v, ks, vs, plen, **form)
+    fa.reset_launch_counts()
+    for fed_k, fed_v in ((k, v), (k.masked_fill(past, float("nan")), v.masked_fill(past, float("nan")))):
+        _close(fa.flash_causal_attention(q, fed_k, fed_v, plen, **form), want_causal, dt)
+        _close(fa.flash_prefix_shared_attention(qs, fed_k, fed_v, ks, vs, plen, **form), want_prefix, dt)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"flash_causal_attention": 2, "flash_prefix_shared_attention": 2,
+                                  "flash_decode_attention": 0}
+
+
 @pytest.mark.parametrize("location,max_in_cpu", [("cpu", None), ("cpu", 1), ("disk", None)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_activation_store_stages_into_page_locked_memory(gen, tmp_path, location, max_in_cpu,
